@@ -6,16 +6,30 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from `emdee_tpu_torch/csrc/`, holds each kernel
-against its plain PyTorch version on the card, then drives the main path —
+against its plain PyTorch version on the card, then drives two paths on
 the 97,556-atom LJ melt (FCC 29³ at ρ* = 0.8442, T* = 1.44, rc = 2.5σ,
-switch 2.0σ, skin 0.35, dt = 0.005) in NVE on the dense-cell engine —
-through `cell_dense_init` and `make_cell_dense_sim`, and gates it: no
-overflow, NVE drift ≤ 3e-5 over 1,000 steps, launch counts that show every
-force evaluation and every rebin pass went through the kernels, and bitwise
-equal reruns.  Every phase prints its own line; any failure raises and the
-exit code is non-zero.  The last two lines are one JSON object describing
-the kernels and one describing the device.  Without a CUDA device it exits
-non-zero and prints no result.
+switch 2.0σ, skin 0.35, dt = 0.005) in NVE:
+
+- the dense-cell engine at bench.py's wide config, through
+  `cell_dense_init` and `make_cell_dense_sim` (equilibrates the melt 200
+  steps first);
+- the C-tight straggler engine at bench.py's production config (C_t =
+  wide−4, C_w = wide+4, A = 64, Kn = 16), through `straggler_init` and
+  `make_straggler_sim`, from the equilibrated melt.
+
+Each path is gated: no overflow (capacity, staleness, Kn, A), NVE drift ≤
+3e-5 over 1,000 steps, launch counts that show every force evaluation,
+straggler pass and rebin pass went through the kernels (counts set to 0
+just before the path and read just after), and bitwise equal reruns.
+Every phase prints its own line; any failure raises and the exit code is
+non-zero.  The last two lines are one JSON object describing the kernels
+(times, launches, bounds) and one describing the device.  Without a CUDA
+device it exits non-zero and prints no result.
+
+Bounds: the least time the card could take for a kernel's work, the larger
+of its bytes (each input read once, each output written once) at 3.35 TB/s
+and its float32 operations at 67 TFLOP/s (H100 SXM data sheet), with the
+pairs inside the cutoff counted from this run's data.
 """
 
 from __future__ import annotations
@@ -27,11 +41,22 @@ import time
 import numpy as np
 import torch
 
-SEED = 0
-N_CELLS = 29  # FCC 29³ → 97,556 atoms
-DENSITY, T0, CUTOFF, SWITCH, SKIN, DT = 0.8442, 1.44, 2.5, 2.0, 0.35, 0.005
+from emdee_tpu_torch.tools.melt import CUTOFF, DT, SKIN, SWITCH, equilibrate, melt, straggler_config
+
 DRIFT_GATE = 3e-5
 FORCE_REL_GATE = 5e-4
+WIDE_GATE = 1e-4  # straggler forces vs the wide state's, of the force scale
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations of one pair inside the cutoff, each pair once with
+# Newton's third law: difference 3, r² 5, 1/r² 1, σ⁶/r⁶ and ε terms 5, switch
+# argument 4, two Horner polynomials 20, the force factor 4, force and
+# reaction 9.  A min-imaged raw difference adds 4 per component.
+OPS_PER_PAIR = 51
+OPS_PER_MIN_IMAGED_PAIR = OPS_PER_PAIR + 12
+# With per-atom parameters and energies: mixing 3, the switched energy and
+# the half-split energy and virial sums 15.
+OPS_PER_PAIR_ENERGY = OPS_PER_PAIR + 18
 
 
 def log(msg: str) -> None:
@@ -69,6 +94,65 @@ def close(name, got, want, atol, rtol=0.0) -> float:
     return float(diff.max())
 
 
+def bound(nbytes: float, ops: float):
+    """(bound in ms, what bounds it) for `nbytes` moved and `ops` float32
+    operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def grid_pairs(px, py, pz, valid, config) -> int:
+    """Unique pairs of grid atoms inside the cutoff: the own cell's upper
+    triangle and the 13 half-shell neighbor cells, min-imaged."""
+    from emdee_tpu_torch.neighbors.cell_dense import _OFFSETS, _roll_cells
+
+    m, c = config.cells_per_dim, config.capacity
+    box = torch.full((), config.box, dtype=torch.float32, device=px.device)
+    pos = torch.stack([px, py, pz], dim=-1)
+
+    def count(nbr_pos, nbr_valid, mask):
+        d = pos[:, :, None, :] - nbr_pos[:, None, :, :]
+        d = d - torch.round(d / box) * box
+        ok = valid[:, :, None] & nbr_valid[:, None, :] & ((d * d).sum(-1) < config.cutoff**2) & mask
+        return int(ok.sum())
+
+    upper = torch.ones((c, c), dtype=torch.bool, device=px.device).triu(1)
+    total = count(pos, valid, upper)
+    for o in _OFFSETS:
+        total += count(_roll_cells(pos, o, m), _roll_cells(valid, o, m), True)
+    return total
+
+
+def aux_pairs(px, py, pz, valid, ax, ay, az, acell, config):
+    """(aux↔grid pairs inside the cutoff, unique aux↔aux pairs inside it,
+    distinct grid cells the aux side reads) of a straggler state."""
+    from emdee_tpu_torch.neighbors.cell_dense_straggler import _gather_rows, _nbr27_table
+
+    cfg = config.grid
+    nc, m = cfg.num_cells, cfg.cells_per_dim
+    box = torch.full((), cfg.box, dtype=torch.float32, device=px.device)
+    rc2 = cfg.cutoff**2
+    mi = lambda d: d - torch.round(d / box) * box  # noqa: E731
+    avalid = acell < nc
+    idx, mask = _gather_rows(acell, valid, avalid, m)
+    shape = mask.shape
+    r2 = sum(mi(a[:, None] - p[idx].reshape(shape)) ** 2 for a, p in ((ax, px), (ay, py), (az, pz)))
+    ag = int(((mask > 0) & (r2 < rc2)).sum())
+    r2 = sum(mi(a[:, None] - a[None, :]) ** 2 for a in (ax, ay, az))
+    aa = int((avalid[:, None] & avalid[None, :] & (r2 < rc2)).triu(1).sum())
+    cells = int(torch.unique(_nbr27_table(acell, avalid, m, nc)[avalid]).numel())
+    return ag, aa, cells
+
+
+def tensors(state):
+    """(name, tensor) for every field of a state, nested states flattened."""
+    for name, value in state._asdict().items():
+        if isinstance(value, tuple):
+            yield from ((f"{name}.{k}", t) for k, t in tensors(value))
+        else:
+            yield name, value
+
+
 def drifted(state, skin):
     """Move every atom 0.45·skin along its velocity, without wrapping, so a
     real fraction crosses its cell faces and the periodic seam."""
@@ -78,24 +162,35 @@ def drifted(state, skin):
     return state._replace(positions=pos)
 
 
-def melt(device):
-    from emdee_tpu_torch import (
-        LennardJonesModel, cell_dense_init, detect_uniform_params,
-        lennard_jones_atom, suggest_cell_dense_config,
-    )
-    from emdee_tpu_torch.utils.lattice import fcc_lattice, maxwell_boltzmann
+def check_cell_forces(st, config, model, label):
+    """The per-atom force kernel with energies (K2b) vs its plain version on
+    one state: forces within 2e-5 of the force scale, energies and virials,
+    exact zeros on empty slots.  Returns (max |dF|, force scale)."""
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
 
-    pos, box = fcc_lattice(N_CELLS, density=DENSITY)
-    n = pos.shape[0]
-    vel = maxwell_boltzmann(n, T0, seed=SEED)
-    params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
-    config = suggest_cell_dense_config(n, box, cutoff=CUTOFF, switch=SWITCH, skin=SKIN)
-    state = cell_dense_init(pos, vel, np.ones(n), params, config, device=device)
-    if bool(state.overflow):
-        config = config._replace(capacity=config.capacity + 8)
-        state = cell_dense_init(pos, vel, np.ones(n), params, config, device=device)
-    model = LennardJonesModel.create(CUTOFF, SWITCH, device=device)
-    return state, config, model, params, detect_uniform_params(params), n
+    fk, ek, wk = cell_forces(st, model, config, compute_energy=True, backend="cuda")
+    fp, ep, wp = cell_forces(st, model, config, compute_energy=True, backend="torch")
+    torch.cuda.synchronize()
+    v = st.valid
+    scale = max(float(fp[v].abs().max()), 1.0)
+    err = close(f"{label} forces", fk[v], fp[v], atol=2e-5 * scale)
+    close(f"{label} energies", ek[v], ep[v], atol=1e-4, rtol=1e-4)
+    close(f"{label} virials", wk[v], wp[v], atol=2e-3, rtol=1e-4)
+    if err / scale > FORCE_REL_GATE:
+        raise AssertionError(f"{label}: force rel diff {err / scale:.3e} > {FORCE_REL_GATE}")
+    for name, t in (("forces", fk[~v]), ("energies", ek[~v]), ("virials", wk[~v])):
+        if bool((t != 0).any()):
+            raise AssertionError(f"{label}: nonzero {name} on empty slots")
+    return err, scale
+
+
+def same_fields(label, a, b):
+    """Require two field lists to be bit-identical (floats by their bits)."""
+    for i, (x, y) in enumerate(zip(a, b, strict=True)):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: field {i} differs")
 
 
 def phase_forces(device, tag):
@@ -115,29 +210,13 @@ def phase_forces(device, tag):
     model = LennardJonesModel.create(CUTOFF, SWITCH, device=device)
     st = cell_dense_init(pos, maxwell_boltzmann(n, 1.0, seed=12), np.ones(n), params, config, device=device)
 
-    def check(st, config, model, label):
-        fk, ek, wk = cell_forces(st, model, config, compute_energy=True, backend="cuda")
-        fp, ep, wp = cell_forces(st, model, config, compute_energy=True, backend="torch")
-        torch.cuda.synchronize()
-        v = st.valid
-        scale = max(float(fp[v].abs().max()), 1.0)
-        err = close(f"{label} forces", fk[v], fp[v], atol=2e-5 * scale)
-        close(f"{label} energies", ek[v], ep[v], atol=1e-4, rtol=1e-4)
-        close(f"{label} virials", wk[v], wp[v], atol=2e-3, rtol=1e-4)
-        if err / scale > FORCE_REL_GATE:
-            raise AssertionError(f"{label}: force rel diff {err / scale:.3e} > {FORCE_REL_GATE}")
-        for name, t in (("forces", fk[~v]), ("energies", ek[~v]), ("virials", wk[~v])):
-            if bool((t != 0).any()):
-                raise AssertionError(f"{label}: nonzero {name} on empty slots")
-        return err, scale
-
-    err, scale = check(st, config, model, "2048 per-atom")
+    err, scale = check_cell_forces(st, config, model, "2048 per-atom")
     log(f"{tag} force kernel vs plain, 2,048 atoms, per-atom params + energies: "
         f"max |dF| {err:.3e} (rel {err / scale:.3e}), empty slots exactly 0")
 
     st, config, model, _, uni, n = melt(device)
     st = drifted(st, SKIN)
-    err_s, scale_s = check(st, config, model, f"{n} per-atom")
+    err_s, scale_s = check_cell_forces(st, config, model, f"{n} per-atom")
     px, py, pz = (st.positions[..., i].contiguous() for i in range(3))
     fk = cell_forces_split(px, py, pz, st.valid, config, uniform_params=uni, backend="cuda")
     fp = cell_forces_split(px, py, pz, st.valid, config, uniform_params=uni, backend="torch")
@@ -154,9 +233,15 @@ def phase_forces(device, tag):
     plain_ms = cuda_ms(lambda: cell_forces_split(px, py, pz, v, config, uniform_params=uni, backend="torch"), 5)
     ms_e = cuda_ms(lambda: cell_forces(st, model, config, compute_energy=True, backend="cuda"), 20)
     plain_ms_e = cuda_ms(lambda: cell_forces(st, model, config, compute_energy=True, backend="torch"), 3)
-    log(f"{tag} force kernel time at {n} atoms: split {ms:.4f} ms/launch, plain {plain_ms:.3f} ms; "
-        f"per-atom+energies {ms_e:.4f} ms/launch, plain {plain_ms_e:.3f} ms")
-    return {"max_abs_err": max(err, err_s), "ms": ms, "plain_ms": plain_ms}
+    pairs = grid_pairs(px, py, pz, v, config)
+    bound_ms, bound_by = bound(25 * config.num_slots, OPS_PER_PAIR * pairs)
+    # in: positions 12 B, σ/2 and 2√ε 8 B, valid 1 B; out: forces, energy, virial 20 B
+    bound_e = bound(41 * config.num_slots, OPS_PER_PAIR_ENERGY * pairs)
+    log(f"{tag} force kernel time at {n} atoms: split {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}); per-atom+energies {ms_e:.4f} ms/launch, plain "
+        f"{plain_ms_e:.3f} ms, bound {bound_e[0]:.5f} ms ({bound_e[1]}); {pairs:,} pairs inside the cutoff")
+    return {"max_abs_err": max(err, err_s), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def phase_rebin(device, tag):
@@ -169,12 +254,7 @@ def phase_rebin(device, tag):
     a = _rebin_shift(st, config, backend="cuda")
     b = _rebin_shift(st, config, backend="torch")
     torch.cuda.synchronize()
-    for name in a._fields:
-        x, y = getattr(a, name), getattr(b, name)
-        if x.dtype == torch.float32:
-            x, y = x.view(torch.int32), y.view(torch.int32)
-        if not torch.equal(x, y):
-            raise AssertionError(f"rebin kernel vs plain: field {name} differs")
+    same_fields("rebin kernel vs plain", a, b)
     moved = int(((a.atom_id != st.atom_id) & a.valid).sum())
     if bool(a.overflow) or moved < 1000:
         raise AssertionError(f"rebin fixture: overflow {bool(a.overflow)}, {moved} slots moved")
@@ -187,18 +267,28 @@ def phase_rebin(device, tag):
     m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
     ms = cuda_ms(lambda: rebin_routing(fields, config.box, m, c, ns, backend="cuda"), 50)
     plain_ms = cuda_ms(lambda: rebin_routing(fields, config.box, m, c, ns, backend="torch"), 10)
+    bound_ms, bound_by = bound(2 * 4 * len(fields) * ns, 0)
     log(f"{tag} rebin kernel vs plain, {n} atoms, M={m} C={c}: bit-exact in every field, "
-        f"{moved} slots moved; 3 passes {ms:.4f} ms per rebin (plain {plain_ms:.3f} ms)")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+        f"{moved} slots moved; 3 passes {ms:.4f} ms per rebin (plain {plain_ms:.3f} ms), "
+        f"bound {bound_ms:.5f} ms ({bound_by})")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def gate_rollout(label, rollout, energy, st0, steps, rebin_every, cell_launches, rebin_launches):
-    """Run one measured rollout with the launch counters reset; gate overflow,
-    NVE drift and the launch counts.  Returns (final state, seconds, counts)."""
-    from emdee_tpu_torch.neighbors import cell_kernel, rebin_kernel
+def counters():
+    from emdee_tpu_torch.neighbors import cell_kernel, rebin_kernel, straggler_kernel
 
-    cell_kernel.LAUNCHES = 0
-    rebin_kernel.LAUNCHES = 0
+    return {"cell_forces": cell_kernel, "rebin_routing": rebin_kernel, "straggler_aux": straggler_kernel}
+
+
+def gate_rollout(label, rollout, energy, st0, steps, rebin_every, expected):
+    """Run one measured rollout with every launch counter set to 0 just
+    before it; gate overflow, NVE drift and the launch counts (`expected`,
+    by kernel, the two energy calls included).  Returns (final state,
+    seconds, drift, counts)."""
+    mods = counters()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
     pe0, _, ke0 = energy(st0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -206,26 +296,134 @@ def gate_rollout(label, rollout, energy, st0, steps, rebin_every, cell_launches,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     pe1, _, ke1 = energy(out)
-    counts = (cell_kernel.LAUNCHES, rebin_kernel.LAUNCHES)
+    counts = {name: mod.LAUNCHES for name, mod in mods.items()}
     e0, e1 = float(pe0 + ke0), float(pe1 + ke1)
     drift = abs(e1 - e0) / max(abs(e0), 1.0)
-    if bool(out.overflow):
+    if bool(getattr(out, "grid", out).overflow):
         raise AssertionError(f"{label}: overflow")
     if not drift <= DRIFT_GATE:
         raise AssertionError(f"{label}: NVE drift {drift:.3e} > {DRIFT_GATE}")
-    if counts != (cell_launches, rebin_launches):
-        raise AssertionError(
-            f"{label}: kernel launches {counts}, expected {(cell_launches, rebin_launches)}"
-        )
+    if counts != expected:
+        raise AssertionError(f"{label}: kernel launches {counts}, expected {expected}")
     return out, seconds, drift, counts
 
 
 def bitwise_rerun(label, rollout, st0, steps, rebin_every):
     a = rollout(st0, num_steps=steps, rebin_every=rebin_every)
     b = rollout(st0, num_steps=steps, rebin_every=rebin_every)
-    for name in a._fields:
-        if not torch.equal(getattr(a, name), getattr(b, name)):
+    for (name, x), (_, y) in zip(tensors(a), tensors(b)):
+        if not torch.equal(x, y):
             raise AssertionError(f"{label}: reruns differ in {name}")
+
+
+def phase_straggler_kernel(device, tag, label, sconfig, pos_eq, vel_eq, params, model, uni, n):
+    """K3 on the equilibrated melt, its atoms then drifted 0.45·skin along
+    their velocities: both CUDA sides vs the plain version, exact zeros on
+    empty slots and lanes, the forces vs the wide state's, the gather pass
+    vs the kernel pass, and the times of each launch and plain side.  Also
+    K2b and K4 vs their plain versions at the wide capacity C_w, on the
+    wide state and the widened fields that the path's energy closure and
+    rebin hand them."""
+    from emdee_tpu_torch import make_straggler_sim, straggler_init
+    from emdee_tpu_torch.neighbors import cell_kernel
+    from emdee_tpu_torch.neighbors import straggler_kernel as sk
+    from emdee_tpu_torch.neighbors.cell_dense import _rebin_shift_core, cell_dense_forces
+    from emdee_tpu_torch.neighbors.cell_dense_straggler import _bindings, _hood_matrix
+
+    cfg = sconfig.grid
+    nc, m, a_cap = cfg.num_cells, cfg.cells_per_dim, sconfig.aux_capacity
+    st = straggler_init(pos_eq, vel_eq, np.ones(n), params, sconfig, device=device)
+    parked = int((st.aux_cell < nc).sum())
+    if bool(st.grid.overflow) or parked < 1:
+        raise AssertionError(f"K3 {label}: init overflow {bool(st.grid.overflow)}, {parked} parked")
+    av = st.aux_cell < nc
+    vmax = max(float(st.grid.velocities.abs().max()), float(st.aux_velocities.abs().max()))
+    step = 0.45 * SKIN / vmax
+    grid = st.grid._replace(positions=torch.where(
+        st.grid.valid[..., None], st.grid.positions + step * st.grid.velocities, 0.0))
+    st = st._replace(grid=grid, aux_positions=torch.where(
+        av[:, None], st.aux_positions + step * st.aux_velocities, 0.0))
+
+    v = st.grid.valid
+    p = st.grid.positions.permute(2, 0, 1).contiguous()
+    a = st.aux_positions.t().contiguous()
+    table, knovf = _bindings(st.aux_cell, av, sconfig, _hood_matrix(m, device))
+    if bool(knovf):
+        raise AssertionError(f"K3 {label}: Kn overflow")
+    args = (p[0], p[1], p[2], v, a[0], a[1], a[2], st.aux_cell, table, sconfig, uni)
+    fg, fa = sk.straggler_forces(*args, backend="cuda")
+    pg, pa = sk.straggler_forces(*args, backend="torch")
+    torch.cuda.synchronize()
+    scale = max(float(pg[:, v].abs().max()), float(pa[:, av].abs().max()), 1.0)
+    err_g = close(f"K3 {label} grid forces", fg[:, v], pg[:, v], atol=2e-5 * scale)
+    err_a = close(f"K3 {label} aux forces", fa[:, av], pa[:, av], atol=2e-5 * scale)
+    if bool((fg[:, ~v] != 0).any()) or bool((fa[:, ~av] != 0).any()):
+        raise AssertionError(f"K3 {label}: nonzero forces on empty slots or aux lanes")
+
+    # Elementwise against the wide state's forces at C_w, in atom order.
+    roll_k, _ = make_straggler_sim(sconfig, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    wide = roll_k.wide_state(st)
+    fw = cell_dense_forces(wide, model, sconfig.wide)[0]
+    ref = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    ref[wide.atom_id[wide.valid].long()] = fw[wide.valid]
+    got = torch.zeros_like(ref)
+    got[st.grid.atom_id[v].long()] = fg.permute(1, 2, 0)[v]
+    got[st.aux_atom_id[av].long()] = fa.t()[av]
+    wscale = float(ref.abs().max())
+    err_w = close(f"K3 {label} vs wide state", got, ref, atol=WIDE_GATE * wscale)
+
+    # K2b at C_w on the wide state, as the energy closure calls it.
+    cfg_w = sconfig.wide
+    err_e, _ = check_cell_forces(wide, cfg_w, model, f"K2b {label} C_w={cfg_w.capacity}")
+    # K4 at C_w on the widened fields (positions, velocities, atom id), as
+    # the rollout's rebin calls it: bit-exact in every field and the flag.
+    fields = [wide.positions[..., i] for i in range(3)]
+    fields += [wide.velocities[..., i] for i in range(3)] + [wide.atom_id]
+    ovf0 = torch.zeros((), dtype=torch.bool, device=device)
+    rk, vk, ok_ = _rebin_shift_core(list(fields), wide.valid, ovf0, cfg_w, "cuda")
+    rp, vp, op_ = _rebin_shift_core(list(fields), wide.valid, ovf0, cfg_w, "torch")
+    torch.cuda.synchronize()
+    same_fields(f"K4 {label} C_w={cfg_w.capacity} kernel vs plain", rk + [vk, ok_], rp + [vp, op_])
+    moved_w = int(((rk[6] != wide.atom_id) & vk).sum())
+    tail_w = int(vk[:, cfg.capacity:].sum())
+    if bool(ok_) or moved_w < 1000:
+        raise AssertionError(f"K4 {label} C_w fixture: overflow {bool(ok_)}, {moved_w} slots moved")
+
+    # The gather pass (torch ops around the split kernel) against the kernel pass.
+    roll_x, _ = make_straggler_sim(sconfig, model, dt=DT, uniform_params=uni, uniform_mass=1.0, strag_pass="xla")
+    xg, xa, _ = roll_x.forces(st)
+    err_x = max(close(f"K3 {label} gather pass grid", xg[:, v], fg[:, v], atol=2e-5 * scale),
+                close(f"K3 {label} gather pass aux", xa[:, av], fa[:, av], atol=2e-5 * scale))
+
+    out_g = torch.empty_like(fg)
+    out_a = torch.empty_like(fa)
+    strag_ms = cuda_ms(lambda: cell_kernel.launch_strag(*args[:7], table, out_g, cfg, uni), 50)
+    aux_ms = cuda_ms(lambda: sk.launch_aux(*args[:8], out_a, sconfig, uni), 200)
+    strag_plain_ms = cuda_ms(lambda: sk.grid_forces_plain(*args[:7], table, sconfig, uni), 5)
+    aux_plain_ms = cuda_ms(lambda: sk.aux_forces_plain(*args[:8], sconfig, uni), 20)
+    gg = grid_pairs(p[0], p[1], p[2], v, cfg)
+    ag, aa, cells = aux_pairs(*args[:8], sconfig)
+    strag_bound = bound(25 * cfg.num_slots + 12 * a_cap + 4 * table.numel(),
+                        OPS_PER_PAIR * gg + OPS_PER_MIN_IMAGED_PAIR * ag)
+    aux_bound = bound(13 * cells * cfg.capacity + 28 * a_cap, OPS_PER_MIN_IMAGED_PAIR * (ag + aa))
+    log(f"{tag} K3 {label}: C_t={cfg.capacity} C_w={sconfig.wide_capacity} A={a_cap} Kn={sconfig.kn}, "
+        f"{parked} parked, {int((table >= 0).sum())} list entries; kernel vs plain max |dF| grid "
+        f"{err_g:.3e} aux {err_a:.3e} (scale {scale:.3f}); vs wide state max |dF| {err_w:.3e} "
+        f"(rel {err_w / wscale:.3e}); gather pass vs kernel {err_x:.3e}; empty slots and lanes exactly 0")
+    log(f"{tag} K3 {label} at C_w={cfg_w.capacity}: K2b kernel vs plain max |dF| {err_e:.3e} (energies, "
+        f"virials in tolerance, empty slots exactly 0); K4 kernel vs plain bit-exact in every field and "
+        f"the flag, {moved_w} slots moved, {tail_w} atoms in the pad slots after the rebin")
+    log(f"{tag} K3 {label} times: grid launch (STRAG) {strag_ms:.4f} ms (plain {strag_plain_ms:.3f} ms, "
+        f"bound {strag_bound[0]:.5f} ms {strag_bound[1]}); aux launch {aux_ms:.4f} ms (plain "
+        f"{aux_plain_ms:.3f} ms, bound {aux_bound[0]:.6f} ms {aux_bound[1]}); pairs: grid {gg:,}, "
+        f"aux-grid {ag:,}, aux-aux {aa}")
+    return {
+        "strag": {"max_abs_err": err_g, "ms": strag_ms, "plain_ms": strag_plain_ms,
+                  "bound_ms": strag_bound[0], "bound_by": strag_bound[1]},
+        "aux": {"max_abs_err": err_a, "ms": aux_ms, "plain_ms": aux_plain_ms,
+                "bound_ms": aux_bound[0], "bound_by": aux_bound[1], "library_ms": None},
+        "wide_force_err": err_e,
+    }
 
 
 def main() -> None:
@@ -251,18 +449,11 @@ def main() -> None:
     rebin = phase_rebin(device, tag)
 
     # ---- main path: bench.py's wide config, component carry ----
-    from emdee_tpu_torch import (
-        cell_dense_init, gather_dense_atoms, make_cell_dense_sim, suggest_rebin_interval,
-    )
+    from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim
 
     state, config, model, params, uni, n = melt(device)
     rollout, energy = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
-    state = rollout(state, num_steps=200, rebin_every=2)
-    if bool(state.overflow):
-        raise AssertionError("equilibration overflow at wide capacity")
-    pos_eq, vel_eq = gather_dense_atoms(state, n)
-    t_eq = float((vel_eq.astype(np.float64) ** 2).sum() / (3.0 * n - 3.0))
-    k = suggest_rebin_interval(config.skin, DT, temperature=t_eq)
+    pos_eq, vel_eq, t_eq, k = equilibrate(rollout, state, config, n)
     st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
     if bool(st0.overflow):
         raise AssertionError("re-init overflow at wide capacity")
@@ -271,12 +462,13 @@ def main() -> None:
     steps = 1000
     n_rebins = -(-steps // k)
     out, sec, drift, main_counts = gate_rollout(
-        "main path", rollout, energy, st0, steps, k, steps + 2 + 2, 3 * n_rebins
+        "main path", rollout, energy, st0, steps, k,
+        {"cell_forces": steps + 2 + 2, "rebin_routing": 3 * n_rebins, "straggler_aux": 0},
     )
     main_ms = 1e3 * sec / steps
     log(f"{tag} main path (component carry, uniform params): {steps} steps in {sec:.3f} s = "
         f"{main_ms:.4f} ms/step, {n * steps / sec:,.0f} atom-steps/s; NVE drift {drift:.3e}; "
-        f"launches cell_forces {main_counts[0]}, rebin passes {main_counts[1]}")
+        f"launches {main_counts}")
     bitwise_rerun("main path", rollout, st0, 100, k)
     log("main path: two 100-step rollouts bitwise equal")
 
@@ -284,7 +476,8 @@ def main() -> None:
     roll_s, energy_s = make_cell_dense_sim(config, model, dt=DT)
     steps_s = 200
     _, sec_s, drift_s, counts_s = gate_rollout(
-        "README path", roll_s, energy_s, st0, steps_s, k, steps_s + 2 + 2, 3 * -(-steps_s // k)
+        "README path", roll_s, energy_s, st0, steps_s, k,
+        {"cell_forces": steps_s + 2 + 2, "rebin_routing": 3 * -(-steps_s // k), "straggler_aux": 0},
     )
     bitwise_rerun("README path", roll_s, st0, 100, k)
     log(f"{tag} README path (stacked, per-atom params): {steps_s} steps, "
@@ -305,13 +498,54 @@ def main() -> None:
         f"({n * 1e3 / main_ms:,.0f} atom-steps/s); plain path {plain_ms:.3f} ms/step "
         f"({n * 1e3 / plain_ms:,.0f} atom-steps/s)")
 
+    # ---- K3: bench.py's production straggler config, and a stressed one ----
+    production = straggler_config(config, 4, 64, 16)
+    k3 = phase_straggler_kernel(device, tag, "production", production, pos_eq, vel_eq, params, model, uni, n)
+    k3s = phase_straggler_kernel(device, tag, "stressed", straggler_config(config, 6, 256, 32),
+                                 pos_eq, vel_eq, params, model, uni, n)
+    force["max_abs_err"] = max(force["max_abs_err"], k3["wide_force_err"], k3s["wide_force_err"])
+
+    # ---- the straggler path: bench.py's production engine ----
+    from emdee_tpu_torch import make_straggler_sim, straggler_init
+
+    s_roll, s_energy = make_straggler_sim(production, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    s0 = straggler_init(pos_eq, vel_eq, np.ones(n), params, production, device=device)
+    nc = production.grid.num_cells
+    parked0 = int((s0.aux_cell < nc).sum())
+    if bool(s0.grid.overflow):
+        raise AssertionError("straggler init overflow")
+    s_roll(s0, num_steps=2 * k, rebin_every=k)  # warm-up
+    s_out, s_sec, s_drift, s_counts = gate_rollout(
+        "straggler path", s_roll, s_energy, s0, steps, k,
+        {"cell_forces": steps + 2 + 2, "rebin_routing": 3 * n_rebins, "straggler_aux": steps + 2},
+    )
+    parked1 = int((s_out.aux_cell < nc).sum())
+    if parked1 < 1:
+        raise AssertionError("straggler path: no parked aux atom at the end")
+    bitwise_rerun("straggler path", s_roll, s0, 100, k)
+    s_ms = 1e3 * s_sec / steps
+    log(f"{tag} straggler path (C_t={production.grid.capacity} C_w={production.wide_capacity} "
+        f"A={production.aux_capacity} Kn={production.kn}): {steps} steps in {s_sec:.3f} s = {s_ms:.4f} ms/step, "
+        f"{n * steps / s_sec:,.0f} atom-steps/s; NVE drift {s_drift:.3e}; parked {parked0} -> {parked1}; "
+        f"launches {s_counts}; two 100-step rollouts bitwise equal")
+    log(f"{smi}: straggler path {s_ms:.4f} ms/step ({n * 1e3 / s_ms:,.0f} atom-steps/s) vs "
+        f"dense main path {main_ms:.4f} ms/step ({n * 1e3 / main_ms:,.0f} atom-steps/s)")
+
+    by_path = lambda name: {"dense": main_counts[name], "straggler": s_counts[name]}  # noqa: E731
     kernels = [
         dict(name="cell_forces", route="cuda", source="emdee_tpu_torch/csrc/cell_forces.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:597",
-             launches=main_counts[0], **force),
+             strag_replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:807",
+             launches=main_counts["cell_forces"] + s_counts["cell_forces"],
+             launches_by_path=by_path("cell_forces"), **force,
+             **{f"strag_{key}": value for key, value in k3["strag"].items()}),
         dict(name="rebin_routing", route="cuda", source="emdee_tpu_torch/csrc/rebin_routing.cu",
              replaces="emdee_tpu/neighbors/pallas_rebin.py:60",
-             launches=main_counts[1], **rebin),
+             launches=main_counts["rebin_routing"] + s_counts["rebin_routing"],
+             launches_by_path=by_path("rebin_routing"), **rebin),
+        dict(name="straggler_aux", route="cuda", source="emdee_tpu_torch/csrc/straggler_forces.cu",
+             replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:807",
+             launches=s_counts["straggler_aux"], launches_by_path=by_path("straggler_aux"), **k3["aux"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

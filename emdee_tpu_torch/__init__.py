@@ -4,13 +4,16 @@ The JAX package `emdee_tpu` stays the reference; this package mirrors its
 module layout, so each file here has one counterpart there.  It imports
 `torch` and numpy, never JAX.
 
-This slice covers the dense-cell Lennard-Jones NVE main path: slot binning,
-the leapfrog rollout with Kahan-compensated drift and kick, the ±1-cell
-shift rebin and the energy closure.  Its two kernels are hand-written CUDA
-for `sm_90a` (`csrc/cell_forces.cu`, `csrc/rebin_routing.cu`), each with a
-plain PyTorch version beside it (`neighbors/cell_kernel.py`,
-`neighbors/rebin_kernel.py`).  A wrapper runs the plain version for CPU
-tensors and launches its kernel for CUDA tensors.
+It covers the dense-cell Lennard-Jones NVE main path (slot binning, the
+leapfrog rollout with Kahan-compensated drift and kick, the ±1-cell shift
+rebin, the energy closure) and the C-tight straggler engine on top of it.
+Its kernels are hand-written CUDA for `sm_90a` (`csrc/cell_forces.cu`,
+`csrc/rebin_routing.cu`, `csrc/straggler_forces.cu`), each with a plain
+PyTorch version beside it (`neighbors/cell_kernel.py`,
+`neighbors/rebin_kernel.py`, `neighbors/straggler_kernel.py`).  A wrapper
+runs the plain version for CPU tensors and launches its kernel for CUDA
+tensors.  Entry points build their tensors on the CUDA card unless the
+caller names a device (`device="cpu"` for the CPU).
 """
 
 from emdee_tpu_torch.core.types import ALL_OUTPUTS, ENERGIES, FORCES, VIRIALS, LJParams
@@ -24,6 +27,14 @@ from emdee_tpu_torch.neighbors.cell_dense import (
     make_cell_dense_sim,
     suggest_cell_dense_config,
     suggest_rebin_interval,
+)
+from emdee_tpu_torch.neighbors.cell_dense_straggler import (
+    StragglerConfig,
+    StragglerState,
+    gather_straggler_atoms,
+    make_straggler_sim,
+    straggler_init,
+    suggest_straggler_config,
 )
 from emdee_tpu_torch.potentials.lennard_jones import (
     LennardJonesModel,
@@ -48,6 +59,12 @@ __all__ = [
     "make_cell_dense_sim",
     "suggest_cell_dense_config",
     "suggest_rebin_interval",
+    "StragglerConfig",
+    "StragglerState",
+    "gather_straggler_atoms",
+    "make_straggler_sim",
+    "straggler_init",
+    "suggest_straggler_config",
     "LennardJonesModel",
     "lennard_jones_atom",
     "pair_interaction",

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
 At first use, `load()` compiles every `*.cu` file of this directory with
-`nvcc` for `sm_90a` into one shared library with a plain C interface,
-under `build/emdee_tpu_torch/` beside the package (git-ignored), named by a
-hash of the sources and flags so that an edited source rebuilds.  Nothing
+`nvcc` for `sm_90a` — one `nvcc` per source, all started together — and
+links the objects into one shared library with a plain C interface, under
+`build/emdee_tpu_torch/` beside the package (git-ignored), named by a hash
+of the sources, headers and flags so that an edited source rebuilds.  Nothing
 beyond the CUDA toolkit is needed; a failed build raises with nvcc's
 output.  The kernels launch on the caller's stream and allocate nothing;
 each C entry returns `cudaGetLastError()`.
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent.parent / "build" / "emdee_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -38,6 +39,16 @@ _SIGNATURES = {
     "emdee_cell_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                           _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                           _I, _I, _P],
+    # px, py, pz, valid, fx, fy, fz, ax, ay, az, table, kn, m, c, box,
+    # rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u, stream
+    "emdee_cell_forces_strag": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                                _F, _F, _F, _P],
+    # px, py, pz, valid, ax, ay, az, acell, afx, afy, afz, m, c, a_cap, box,
+    # rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u, stream
+    "emdee_straggler_aux": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                            _F, _F, _F, _P],
     # in, out, flag, nf, m, c, axis, cf, num_slots, box, stream
     "emdee_rebin_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
@@ -54,10 +65,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libemdee_kernels_{digest.hexdigest()[:16]}.so"
@@ -69,13 +83,17 @@ def load() -> ctypes.CDLL:
     lib_path = library_path()
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        tag = f"{lib_path.stem}.{os.getpid()}"
+        objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+        _run([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objects)
+        ])
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+        for obj in objects:
+            obj.unlink()
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
@@ -83,6 +101,19 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def _run(cmds) -> None:
+    """Start every command at once, wait for all of them, and raise with the
+    output of the first that failed."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
 
 
 def check(err: int, what: str) -> None:

@@ -30,25 +30,38 @@
 // roundoff.  Pairs at r² ≥ rc² are skipped: the switch is exactly zero there
 // in the plain version, and the Horner polynomials are zero only to roundoff.
 //
+// STRAG (the grid side of the straggler pass, K3 — the `strag_kn > 0` tile
+// of `_make_kernel`, pallas_cell_kernel.py:620-670 and :807-862; uniform
+// parameters, forces only): after the 27 cells the block stages the ≤ Kn aux
+// atoms that the (M², Kn) int32 list table holds for its pencil row
+// (z·M + y) and every center thread adds those pairs in list order, on
+// min-imaged raw differences d − L·rint(d/L) (aux atoms are parked outside
+// the grid and carry no ghost shift).  The aux side of the same pairs is
+// straggler_forces.cu; each side evaluates each pair once, so there is no
+// reaction fold.  Plain version: emdee_tpu_torch/neighbors/straggler_kernel.py
+// `grid_forces_plain`.
+//
 // Bound on this card: at the 97,556-atom melt (M = 17, C = 32) a launch
 // evaluates 4,913 × 32 × 864 ≈ 136 M candidate pairs, of which about 6% lie
 // inside the cutoff — arithmetic on registers and broadcast shared-memory
 // reads, with ~1.3 MB of inputs.  One 32-thread block per cell caps
 // residency at 32 warps per SM (half of 64); that, and the doubled pair work,
 // are what a later half-shell, multi-cell-per-block kernel would buy back.
+// The least time for the work is ~2 µs (2.63 M unique pairs inside the
+// cutoff at ~51 float32 operations each, at 67 TFLOP/s; chip_smoke.py counts
+// them); a launch takes ~0.18 ms, the same at C_t = 28 with STRAG as at
+// C = 32, so the candidate-pair count does not set its time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lj_pair.cuh"
+
 namespace {
 
-struct PairConsts {
-  float rc2, rs2, invd2;
-  float a_m, pa1, pa2, pb1, pb2;  // Horner constants: a_m, a_m+60, 60+2a_m, a_m−30, 2a_m
-  float sig2_u, eps4_u;           // uniform-parameter σ² and 4ε
-};
+using emdee::PairConsts;
 
-template <bool UNIFORM, bool ENERGY>
+template <bool UNIFORM, bool ENERGY, bool STRAG>
 __global__ void cell_forces_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, int pstride,
@@ -56,6 +69,8 @@ __global__ void cell_forces_kernel(
     const uint8_t* __restrict__ valid,
     float* __restrict__ fx, float* __restrict__ fy, float* __restrict__ fz,
     int fstride, float* __restrict__ e_out, float* __restrict__ w_out,
+    const float* __restrict__ ax, const float* __restrict__ ay,
+    const float* __restrict__ az, const int* __restrict__ table, int kn,
     int m, int c, float box, PairConsts k) {
   extern __shared__ float smem[];
   float* sx = smem;
@@ -63,7 +78,11 @@ __global__ void cell_forces_kernel(
   float* sz = sy + c;
   float* shs = sz + c;
   float* stse = shs + c;
-  uint8_t* sv = reinterpret_cast<uint8_t*>(stse + c);
+  float* sax = stse + c;  // the STRAG list (kn = 0 otherwise)
+  float* say = sax + kn;
+  float* saz = say + kn;
+  uint8_t* sv = reinterpret_cast<uint8_t*>(saz + kn);
+  uint8_t* sav = sv + c;
 
   const int cell = blockIdx.x;
   const int i = threadIdx.x;
@@ -132,11 +151,8 @@ __global__ void cell_forces_kernel(
             s6 = s2 * s2 * s2;
             t6 = (tsei * stse[j]) * s6;
           }
-          const float t12 = t6 * s6;
-          const float x = fminf(fmaxf((r2 - k.rs2) * k.invd2, 0.f), 1.f);
-          const float pa = ((((-12.f * x + k.pa1) * x - k.pa2) * x + k.a_m) * x) * x + 12.f;
-          const float pb = ((((24.f * x + k.pb1) * x - k.pb2) * x + k.a_m) * x) * x + 6.f;
-          const float tot = t12 * pa - t6 * pb;  // switched −r·dE/dr
+          float t12, x;
+          const float tot = emdee::switched_tot(r2, t6, s6, k, t12, x);
           const float gf = tot * rinv;
           fxa += gf * dvx;
           fya += gf * dvy;
@@ -147,6 +163,32 @@ __global__ void cell_forces_kernel(
             wa += 0.5f * tot;
           }
         }
+      }
+    }
+  }
+  if (STRAG) {
+    __syncthreads();  // the last neighbor cell is consumed
+    const long row = cell / m;  // pencil row z·M + y
+    for (int s = i; s < kn; s += blockDim.x) {
+      const int a = table[row * kn + s];
+      sav[s] = a >= 0;
+      sax[s] = a >= 0 ? ax[a] : 0.f;
+      say[s] = a >= 0 ? ay[a] : 0.f;
+      saz[s] = a >= 0 ? az[a] : 0.f;
+    }
+    __syncthreads();
+    if (center) {
+      for (int s = 0; s < kn; ++s) {
+        if (!sav[s]) continue;
+        const float dvx = emdee::min_image(xi - sax[s], box);
+        const float dvy = emdee::min_image(yi - say[s], box);
+        const float dvz = emdee::min_image(zi - saz[s], box);
+        const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
+        if (!(r2 < k.rc2)) continue;
+        const float gf = emdee::uniform_force_factor(r2, k);
+        fxa += gf * dvx;
+        fya += gf * dvy;
+        fza += gf * dvz;
       }
     }
   }
@@ -161,16 +203,18 @@ __global__ void cell_forces_kernel(
   }
 }
 
-template <bool UNIFORM, bool ENERGY>
+template <bool UNIFORM, bool ENERGY, bool STRAG = false>
 void launch(const float* px, const float* py, const float* pz, int pstride,
             const float* hs, const float* tse, const uint8_t* valid, float* fx,
             float* fy, float* fz, int fstride, float* e, float* w, int m,
-            int c, float box, const PairConsts& k, cudaStream_t stream) {
+            int c, float box, const PairConsts& k, cudaStream_t stream,
+            const float* ax = nullptr, const float* ay = nullptr,
+            const float* az = nullptr, const int* table = nullptr, int kn = 0) {
   const int threads = ((c + 31) / 32) * 32;
-  const size_t smem = 5 * sizeof(float) * c + c;
-  cell_forces_kernel<UNIFORM, ENERGY><<<m * m * m, threads, smem, stream>>>(
-      px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, m, c,
-      box, k);
+  const size_t smem = sizeof(float) * (5 * c + 3 * kn) + c + kn;
+  cell_forces_kernel<UNIFORM, ENERGY, STRAG><<<m * m * m, threads, smem, stream>>>(
+      px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, ax, ay,
+      az, table, kn, m, c, box, k);
 }
 
 }  // namespace
@@ -193,5 +237,22 @@ extern "C" int emdee_cell_forces(
     launch<false, true>(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, m, c, box, k, s);
   else
     launch<false, false>(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, m, c, box, k, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The STRAG variant: component arrays (stride 1), uniform parameters,
+// forces only, plus the aux coordinates (A,) and the (M², kn) list table.
+extern "C" int emdee_cell_forces_strag(
+    const float* px, const float* py, const float* pz, const uint8_t* valid,
+    float* fx, float* fy, float* fz, const float* ax, const float* ay,
+    const float* az, const int* table, int kn, int m, int c, float box,
+    float rc2, float rs2, float invd2, float a_m, float pa1, float pa2,
+    float pb1, float pb2, float sig2_u, float eps4_u, void* stream) {
+  if (m < 3 || c < 1 || c > 1024 || kn < 1 || kn > 4096)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
+  launch<true, false, true>(px, py, pz, 1, nullptr, nullptr, valid, fx, fy, fz, 1,
+                            nullptr, nullptr, m, c, box, k,
+                            static_cast<cudaStream_t>(stream), ax, ay, az, table, kn);
   return static_cast<int>(cudaGetLastError());
 }

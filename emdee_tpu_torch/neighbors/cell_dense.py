@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from emdee_tpu_torch.core.pbc import wrap_scaled
-from emdee_tpu_torch.core.types import LJParams
+from emdee_tpu_torch.core.types import LJParams, resolve_device
 from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel, pair_interaction
 
 
@@ -147,7 +147,9 @@ def resolve_backend(backend: str, tensor: torch.Tensor) -> str:
 
 
 def _box(box: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(box, dtype=torch.float32, device=like.device)
+    # A fill on the device: building it from host data (torch.tensor) would
+    # copy from the host and synchronise the stream.
+    return torch.full((), box, dtype=torch.float32, device=like.device)
 
 
 def _f32(x) -> float:
@@ -237,14 +239,15 @@ def _bin_to_slots(positions, per_atom, config: CellDenseConfig):
 def cell_dense_init(
     positions, velocities, masses, params: LJParams, config: CellDenseConfig, device=None
 ) -> CellDenseState:
-    """Pack (N, …) arrays into slot layout on `device` (default: the CPU).
+    """Pack (N, …) arrays into slot layout on `device` (default: the CUDA
+    card; `resolve_device`).
 
     Positions are binned from their raw values and stored wrapped into
     [0, L), as every rebin stores them.  Overflow is left to the caller via
     the flag (re-init with a larger capacity)."""
     if config.spill:
         raise NotImplementedError("boundary-spill configs are not ported yet (ROADMAP item 8)")
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = resolve_device(device)
     pos = _tensor(positions, np.float32, device)
     n = pos.shape[0]
     box = _box(config.box, pos)
@@ -434,7 +437,7 @@ def _rebin_shift_core(fields, valid, overflow, config: CellDenseConfig, backend:
     from emdee_tpu_torch.neighbors.rebin_kernel import SENTINEL_BITS, rebin_routing
 
     box = _box(config.box, fields[0])
-    sentinel = torch.tensor(SENTINEL_BITS, dtype=torch.int32, device=box.device).view(torch.float32)
+    sentinel = torch.full((), SENTINEL_BITS, dtype=torch.int32, device=box.device).view(torch.float32)
     for i in range(3):
         f = fields[i]
         if wrap:

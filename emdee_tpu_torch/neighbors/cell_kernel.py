@@ -79,6 +79,26 @@ def _launch(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w,
     LAUNCHES += 1
 
 
+def launch_strag(px, py, pz, valid, ax, ay, az, table, out,
+                 config: CellDenseConfig, uniform_params) -> None:
+    """One launch of the force kernel's STRAG variant on CUDA tensors (the
+    grid side of the straggler pass, K3): the split pass of
+    `cell_forces_split` plus, for every center slot, the ≤ Kn aux atoms that
+    `table` (M², Kn) lists for its pencil row.  Writes out[0..2] (M³, C);
+    the caller (`straggler_kernel.straggler_forces`) checks the inputs."""
+    global LAUNCHES
+    stream = torch.cuda.current_stream(px.device).cuda_stream
+    err = build.load().emdee_cell_forces_strag(
+        px.data_ptr(), py.data_ptr(), pz.data_ptr(), valid.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        ax.data_ptr(), ay.data_ptr(), az.data_ptr(), table.data_ptr(), table.shape[1],
+        config.cells_per_dim, config.capacity, float(config.box),
+        *_pair_consts(config, uniform_params), stream,
+    )
+    build.check(err, "cell_forces kernel (straggler tile)")
+    LAUNCHES += 1
+
+
 def cell_forces(
     state: CellDenseState,
     model: LennardJonesModel,

@@ -31,7 +31,7 @@ _PASSES = ((0, (0, 0, 1), 2), (1, (0, 1, 0), 1), (2, (1, 0, 0), 0))
 def _rebin_routing_plain(fields, box: float, m: int, c: int, num_slots: int):
     fields = list(fields)
     dev = fields[0].device
-    box_t = torch.tensor(box, dtype=torch.float32, device=dev)
+    box_t = torch.full((), box, dtype=torch.float32, device=dev)
     valid = fields[2].view(torch.int32) != SENTINEL_BITS
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     cell = torch.arange(m**3, device=dev)
@@ -41,7 +41,7 @@ def _rebin_routing_plain(fields, box: float, m: int, c: int, num_slots: int):
         fields, valid, overflow = _route_axis_pass(
             fields, valid, overflow, cf, coord[axis], m, c, nbr, box_t
         )
-    sentinel = torch.tensor(SENTINEL_BITS, dtype=torch.int32, device=dev).view(torch.float32)
+    sentinel = torch.full((), SENTINEL_BITS, dtype=torch.int32, device=dev).view(torch.float32)
     nf = len(fields)
     fill = [sentinel] * 3 + [0] * (nf - 4) + [num_slots]
     return tuple(torch.where(valid, f, v) for f, v in zip(fields, fill)), overflow

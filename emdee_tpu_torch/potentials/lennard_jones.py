@@ -9,7 +9,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from emdee_tpu_torch.core.types import LJParams
+from emdee_tpu_torch.core.types import LJParams, resolve_device
 
 
 class LennardJonesModel(NamedTuple):
@@ -22,6 +22,8 @@ class LennardJonesModel(NamedTuple):
 
     @classmethod
     def create(cls, cutoff: float, switch: float, device=None):
+        """On `device`, by default the CUDA card (`resolve_device`)."""
+        device = resolve_device(device)
         rc2 = torch.tensor(cutoff, dtype=torch.float32, device=device) ** 2
         rs2 = torch.tensor(switch, dtype=torch.float32, device=device) ** 2
         return cls(rc2=rc2, rs2=rs2, inv_delta2=1.0 / (rc2 - rs2))
@@ -29,8 +31,10 @@ class LennardJonesModel(NamedTuple):
 
 def lennard_jones_atom(epsilon, sigma, device=None) -> LJParams:
     """Pre-transform host (ε, σ) into mixing-ready per-atom params (σ/2, 2√ε)
-    on `device`.  Formed in float32 numpy, whose square root is correctly
-    rounded like the reference's (PyTorch's vectorized CPU sqrt is not)."""
+    on `device`, by default the CUDA card.  Formed in float32 numpy, whose
+    square root is correctly rounded like the reference's (PyTorch's
+    vectorized CPU sqrt is not)."""
+    device = resolve_device(device)
     eps = np.atleast_1d(np.asarray(epsilon, np.float32))
     sig = np.atleast_1d(np.asarray(sigma, np.float32))
     return LJParams(

@@ -1,0 +1,63 @@
+"""The 97,556-atom Lennard-Jones melt that `chip_smoke.py` and
+`emdee_tpu_torch.tools.profile_paths` drive: FCC 29³ at ρ* = 0.8442,
+T* = 1.44, rc = 2.5σ, switch 2.0σ, skin 0.35, dt = 0.005, uniform unit
+parameters and masses, on bench.py's wide dense config and its straggler
+configs.  One copy of the measured configuration for both scripts."""
+
+from __future__ import annotations
+
+import numpy as np
+
+SEED = 0
+N_CELLS = 29  # FCC 29³ → 97,556 atoms
+DENSITY, T0, CUTOFF, SWITCH, SKIN, DT = 0.8442, 1.44, 2.5, 2.0, 0.35, 0.005
+
+
+def melt(device):
+    """(dense state, wide config, model, params, uniform params, atoms) of
+    the melt at T0 on the FCC lattice; the capacity grows by 8 if the
+    suggested one overflows."""
+    from emdee_tpu_torch import (
+        LennardJonesModel, cell_dense_init, detect_uniform_params,
+        lennard_jones_atom, suggest_cell_dense_config,
+    )
+    from emdee_tpu_torch.utils.lattice import fcc_lattice, maxwell_boltzmann
+
+    pos, box = fcc_lattice(N_CELLS, density=DENSITY)
+    n = pos.shape[0]
+    vel = maxwell_boltzmann(n, T0, seed=SEED)
+    params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
+    config = suggest_cell_dense_config(n, box, cutoff=CUTOFF, switch=SWITCH, skin=SKIN)
+    state = cell_dense_init(pos, vel, np.ones(n), params, config, device=device)
+    if bool(state.overflow):
+        config = config._replace(capacity=config.capacity + 8)
+        state = cell_dense_init(pos, vel, np.ones(n), params, config, device=device)
+    model = LennardJonesModel.create(CUTOFF, SWITCH, device=device)
+    return state, config, model, params, detect_uniform_params(params), n
+
+
+def equilibrate(rollout, state, config, n: int, steps: int = 200):
+    """Run `steps` NVE steps (rebin every 2) on the dense engine's
+    `rollout`; return (positions, velocities) in atom order, the measured
+    temperature and the rebin interval suggested at it."""
+    from emdee_tpu_torch import gather_dense_atoms, suggest_rebin_interval
+
+    state = rollout(state, num_steps=steps, rebin_every=2)
+    if bool(state.overflow):
+        raise AssertionError("equilibration overflow at wide capacity")
+    pos, vel = gather_dense_atoms(state, n)
+    t_eq = float((vel.astype(np.float64) ** 2).sum() / (3.0 * n - 3.0))
+    return pos, vel, t_eq, suggest_rebin_interval(config.skin, DT, temperature=t_eq)
+
+
+def straggler_config(wide, ct_below: int, aux_capacity: int, kn: int):
+    """bench.py's straggler layout around the wide config: C_t = wide −
+    `ct_below`, C_w = wide + 4, A = `aux_capacity`, Kn = `kn`."""
+    from emdee_tpu_torch import StragglerConfig
+
+    return StragglerConfig(
+        grid=wide._replace(capacity=wide.capacity - ct_below),
+        wide_capacity=wide.capacity + 4,
+        aux_capacity=aux_capacity,
+        kn=kn,
+    )

@@ -1,0 +1,106 @@
+"""Where the step time goes on the card, for each path of the 97,556-atom
+LJ melt that `chip_smoke.py` drives (dense component carry, dense stacked,
+straggler at bench.py's production config).
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 -m emdee_tpu_torch.tools.profile_paths
+
+For each path, after 60 steps of warm-up: the unprofiled ms/step of three
+600-step windows (host clock around work that ends in a synchronize), then
+one `torch.profiler` window of 120 steps, from which it prints per step the
+device kernels, their summed device time (the device's busy time: one
+stream, so kernels do not overlap), the host's CUDA runtime calls
+(launches, copies, stream synchronizations), and the kernels that take the
+most device time.  One JSON line per path follows its text lines.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+from collections import Counter
+
+import numpy as np
+import torch
+
+WARMUP, WINDOW, WINDOWS, PROFILED = 60, 600, 3, 120
+
+
+def _sync_ms(fn, steps: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(steps)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def profile_path(name, rollout, state, rebin_every):
+    run = lambda steps: rollout(state, num_steps=steps, rebin_every=rebin_every)  # noqa: E731
+    run(WARMUP)
+    windows = [_sync_ms(run, WINDOW) for _ in range(WINDOWS)]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(PROFILED)
+        torch.cuda.synchronize()
+    kernels = Counter()
+    kernel_us = Counter()
+    runtime = Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] += 1
+            kernel_us[e.name] += e.device_time_total
+        elif e.name.startswith("cuda") and e.name[4:5].isupper():
+            runtime[e.name] += 1
+    busy_ms = sum(kernel_us.values()) / 1e3 / PROFILED
+    best = min(windows)
+    top = [
+        {"kernel": k[:80], "us_per_step": kernel_us[k] / PROFILED, "per_step": kernels[k] / PROFILED}
+        for k, _ in kernel_us.most_common(6)
+    ]
+    result = {
+        "path": name,
+        "ms_per_step": windows,
+        "device_busy_ms_per_step": busy_ms,
+        "busy_share_of_best_window": busy_ms / best,
+        "device_kernels_per_step": sum(kernels.values()) / PROFILED,
+        "runtime_calls_per_step": {k: v / PROFILED for k, v in runtime.most_common()},
+        "top_kernels": top,
+    }
+    print(f"{name}: ms/step {', '.join(f'{w:.4f}' for w in windows)}; device busy {busy_ms:.4f} ms/step "
+          f"({100 * busy_ms / best:.1f}% of the best window); {result['device_kernels_per_step']:.1f} device "
+          f"kernels/step; runtime calls/step {result['runtime_calls_per_step']}", flush=True)
+    for t in top:
+        print(f"  {t['us_per_step']:9.2f} us/step  {t['per_step']:6.2f}/step  {t['kernel']}", flush=True)
+    print(json.dumps(result), flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_paths: needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+    from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim, make_straggler_sim, straggler_init
+    from emdee_tpu_torch.tools.melt import DT, equilibrate, melt, straggler_config
+
+    device = torch.device("cuda", 0)
+    st, config, model, params, uni, n = melt(device)
+    dense, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    pos_eq, vel_eq, _, k = equilibrate(dense, st, config, n)
+    st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
+    production = straggler_config(config, 4, 64, 16)
+    s0 = straggler_init(pos_eq, vel_eq, np.ones(n), params, production, device=device)
+    stacked, _ = make_cell_dense_sim(config, model, dt=DT)
+    straggler, _ = make_straggler_sim(production, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    print(f"{n} atoms, rebin every {k} steps", flush=True)
+    profile_path("dense component carry", dense, st0, k)
+    profile_path("dense stacked", stacked, st0, k)
+    profile_path("straggler production", straggler, s0, k)
+
+
+if __name__ == "__main__":
+    main()

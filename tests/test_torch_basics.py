@@ -43,10 +43,10 @@ def test_lennard_jones_params_bitexact():
     rng = np.random.default_rng(5)
     eps, sig = rng.uniform(0.1, 3.0, 4000), rng.uniform(0.5, 2.0, 4000)
     a = jlj.lennard_jones_atom(eps, sig)
-    b = tlj.lennard_jones_atom(eps, sig)
+    b = tlj.lennard_jones_atom(eps, sig, device="cpu")
     np.testing.assert_array_equal(b.half_sigma.numpy(), np.asarray(a.half_sigma))
     np.testing.assert_array_equal(b.twice_sqrt_eps.numpy(), np.asarray(a.twice_sqrt_eps))
-    ma, mb = jlj.LennardJonesModel.create(2.5, 2.0), tlj.LennardJonesModel.create(2.5, 2.0)
+    ma, mb = jlj.LennardJonesModel.create(2.5, 2.0), tlj.LennardJonesModel.create(2.5, 2.0, device="cpu")
     for name in ("rc2", "rs2", "inv_delta2"):
         assert float(getattr(ma, name)) == float(getattr(mb, name))
 
@@ -67,7 +67,7 @@ def test_pair_interaction_matches(parity_mode):
         parity_mode=parity_mode,
     )
     got = tlj.pair_interaction(
-        torch.from_numpy(r2), tlj.LennardJonesModel.create(2.5, 2.0),
+        torch.from_numpy(r2), tlj.LennardJonesModel.create(2.5, 2.0, device="cpu"),
         torch.from_numpy(hs_i), torch.from_numpy(tse_i),
         torch.from_numpy(hs_j), torch.from_numpy(tse_j),
         parity_mode=parity_mode,
@@ -104,6 +104,30 @@ def test_config_suggestions_equal():
         tcd.suggest_cell_dense_config(100, 5.0, 2.5, 2.0)
     with pytest.raises(NotImplementedError):
         tcd.suggest_cell_dense_config(864, 12.0, 2.5, 2.0, spill=True)
+
+
+def test_entry_points_default_to_the_card():
+    """With no device named, the entry points build on the CUDA card; with
+    no card they raise rather than return CPU tensors."""
+    from emdee_tpu_torch.neighbors import cell_dense_straggler as tsd
+
+    pos, box = tlat.cubic_lattice(864, 0.5, jitter=0.1, seed=1)
+    vel = tlat.maxwell_boltzmann(864, 1.0, seed=2)
+    config = tcd.suggest_cell_dense_config(864, box, 2.5, 2.0, 0.3)
+    sconfig = tsd.StragglerConfig(config._replace(capacity=config.capacity - 4), config.capacity + 8, 64, 32)
+    params = tlj.lennard_jones_atom(np.ones(864), np.ones(864), device="cpu")
+    calls = [
+        lambda: tlj.lennard_jones_atom(np.ones(864), np.ones(864)).half_sigma,
+        lambda: tlj.LennardJonesModel.create(2.5, 2.0).rc2,
+        lambda: tcd.cell_dense_init(pos, vel, np.ones(864), params, config).positions,
+        lambda: tsd.straggler_init(pos, vel, np.ones(864), params, sconfig).aux_positions,
+    ]
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
 
 
 def test_port_imports_no_jax():

@@ -30,7 +30,7 @@ def test_init_bitexact(varied):
     pos[::7, 0] += config.box
     pos[3::11, 2] -= config.box
     j = jcd.cell_dense_init(pos, vel, masses, jlj.lennard_jones_atom(eps, sig), config)
-    t = tcd.cell_dense_init(pos, vel, masses, tlj.lennard_jones_atom(eps, sig), config, device="cpu")
+    t = tcd.cell_dense_init(pos, vel, masses, tlj.lennard_jones_atom(eps, sig, device="cpu"), config, device="cpu")
     assert_states_bitequal(j, t)
     assert not bool(t.overflow)
 
@@ -40,7 +40,8 @@ def test_init_overflow_and_roundtrip():
     tight = config._replace(capacity=8)
     j = jcd.cell_dense_init(pos, vel, np.ones(len(pos)), params, tight)
     t = tcd.cell_dense_init(
-        pos, vel, np.ones(len(pos)), tcd.lj_params_from_numpy(jax.device_get(params), "cpu"), tight
+        pos, vel, np.ones(len(pos)), tcd.lj_params_from_numpy(jax.device_get(params), "cpu"), tight,
+        device="cpu",
     )
     assert bool(j.overflow) and bool(t.overflow)
     assert_states_bitequal(j, t)
@@ -56,7 +57,7 @@ def test_forces_match_jax(varied):
     t = to_port(j)
     f_ref, e_ref, w_ref = (np.asarray(a) for a in jcd.cell_dense_forces(j, model, config, compute_energy=True))
     f, e, w = (a.numpy() for a in tcd.cell_dense_forces(
-        t, tlj.LennardJonesModel.create(2.5, 2.0), config, compute_energy=True
+        t, tlj.LennardJonesModel.create(2.5, 2.0, device="cpu"), config, compute_energy=True
     ))
     valid = t.valid.numpy()
     scale = np.abs(f_ref[valid]).max()
@@ -64,7 +65,7 @@ def test_forces_match_jax(varied):
     np.testing.assert_allclose(e[valid], e_ref[valid], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(w[valid], w_ref[valid], rtol=1e-4, atol=2e-3)
     assert (f[~valid] == 0).all() and (e[~valid] == 0).all() and (w[~valid] == 0).all()
-    f_only = tcd.cell_dense_forces(t, tlj.LennardJonesModel.create(2.5, 2.0), config)
+    f_only = tcd.cell_dense_forces(t, tlj.LennardJonesModel.create(2.5, 2.0, device="cpu"), config)
     assert f_only[1] is None and torch.equal(f_only[0], torch.from_numpy(f))
 
 

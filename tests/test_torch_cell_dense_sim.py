@@ -50,7 +50,7 @@ def test_stacked_per_atom_matches_jax_xla():
     st = jcd.cell_dense_init(pos, vel, np.ones(len(pos)), params, config)
     _compare(
         jcd.make_cell_dense_sim(config, model, dt=DT, backend="xla"),
-        tcd.make_cell_dense_sim(config, LennardJonesModel.create(2.5, 2.0), dt=DT),
+        tcd.make_cell_dense_sim(config, LennardJonesModel.create(2.5, 2.0, device="cpu"), dt=DT),
         st, len(pos),
     )
 
@@ -64,7 +64,7 @@ def test_component_carry_matches_jax_kernels():
             config, model, dt=DT, backend="pallas_interpret", uniform_params=uni, uniform_mass=1.0
         ),
         tcd.make_cell_dense_sim(
-            config, LennardJonesModel.create(2.5, 2.0), dt=DT, uniform_params=uni, uniform_mass=1.0
+            config, LennardJonesModel.create(2.5, 2.0, device="cpu"), dt=DT, uniform_params=uni, uniform_mass=1.0
         ),
         st, len(pos),
     )
@@ -72,7 +72,7 @@ def test_component_carry_matches_jax_kernels():
 
 def test_unported_options_raise():
     pos, vel, params, config, _ = lj_setup(864, 0.5, seed=3)
-    model = LennardJonesModel.create(2.5, 2.0)
+    model = LennardJonesModel.create(2.5, 2.0, device="cpu")
     for kw in ({"thermostat": jcd.CSVRConfig(1.0, 0.1)}, {"coulomb": object()},
                {"aux_fn": len}, {"barostat": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP item"):

@@ -17,7 +17,7 @@ from torch_port_utils import drifted_state, lj_setup, to_port
 
 torch.set_num_threads(2)
 
-TMODEL = LennardJonesModel.create(2.5, 2.0)
+TMODEL = LennardJonesModel.create(2.5, 2.0, device="cpu")
 
 
 def _states():

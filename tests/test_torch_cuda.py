@@ -36,7 +36,7 @@ def _state(device, n=2048, varied=True, drift=False):
     eps, sig = (rng.uniform(0.8, 1.2, n), rng.uniform(0.9, 1.1, n)) if varied else (np.ones(n), np.ones(n))
     config = suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.35)
     st = cell_dense_init(pos, maxwell_boltzmann(n, 1.3, seed=12), np.ones(n),
-                         lennard_jones_atom(eps, sig), config, device=device)
+                         lennard_jones_atom(eps, sig, device=device), config, device=device)
     if drift:  # cross cell faces and the periodic seam, as between rebins
         v = st.velocities
         pos = torch.where(st.valid[..., None], st.positions + (0.45 * 0.35 / float(v.abs().max())) * v, 0.0)
@@ -102,5 +102,67 @@ def test_rollout_kernels_match_plain_and_rerun_bitwise(device, uniform):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert not bool(a.overflow) and torch.equal(a.atom_id, p.atom_id)
     assert float((a.positions - p.positions).abs().max()) < 2e-5
+    pe, _, ke = energy(a)
+    assert torch.isfinite(pe) and torch.isfinite(ke)
+
+
+def _straggler_state(device):
+    """The CPU straggler tests' fixture (tests/test_torch_straggler.py) on
+    the card: 2,048 jittered-lattice atoms, C_t two below the fullest cell."""
+    from emdee_tpu_torch import StragglerConfig, straggler_init
+
+    n = 2048
+    pos, box = cubic_lattice(n, 0.8442, jitter=0.1, seed=7)
+    vel = maxwell_boltzmann(n, 0.8, seed=8)
+    params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
+    wide = suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.35)
+    occ = cell_dense_init(pos, vel, np.ones(n), params, wide, device=device).valid.sum(1)
+    config = StragglerConfig(wide._replace(capacity=int(occ.max()) - 2), wide.capacity + 8, 64, 48)
+    return straggler_init(pos, vel, np.ones(n), params, config, device=device), config
+
+
+def test_straggler_kernel_matches_plain(device):
+    from emdee_tpu_torch.neighbors import straggler_kernel
+    from emdee_tpu_torch.neighbors.cell_dense_straggler import _bindings, _hood_matrix
+
+    st, config = _straggler_state(device)
+    nc, m = config.grid.num_cells, config.grid.cells_per_dim
+    av = st.aux_cell < nc
+    assert int(av.sum()) >= 5
+    table, _ = _bindings(st.aux_cell, av, config, _hood_matrix(m, device))
+    p = st.grid.positions.permute(2, 0, 1).contiguous()
+    a = st.aux_positions.t().contiguous()
+    args = (p[0], p[1], p[2], st.grid.valid, a[0], a[1], a[2], st.aux_cell, table, config, (0.5, 2.0))
+    before = (cell_kernel.LAUNCHES, straggler_kernel.LAUNCHES)
+    fg, fa = straggler_kernel.straggler_forces(*args, backend="cuda")
+    pg, pa = straggler_kernel.straggler_forces(*args, backend="torch")
+    torch.cuda.synchronize()
+    assert (cell_kernel.LAUNCHES, straggler_kernel.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    v = st.grid.valid
+    scale = max(float(pg[:, v].abs().max()), 1.0)
+    assert float((fg - pg)[:, v].abs().max()) <= 2e-5 * scale
+    assert float((fa - pa)[:, av].abs().max()) <= 2e-5 * scale
+    assert bool((fg[:, ~v] == 0).all()) and bool((fa[:, ~av] == 0).all())
+
+
+def test_straggler_rollout_matches_plain_and_reruns_bitwise(device):
+    from emdee_tpu_torch import make_straggler_sim
+    from emdee_tpu_torch.neighbors import straggler_kernel
+
+    st, config = _straggler_state(device)
+    model = LennardJonesModel.create(2.5, 2.0, device=device)
+    roll_k, energy = make_straggler_sim(config, model, dt=0.003, uniform_params=(0.5, 2.0))
+    roll_p, _ = make_straggler_sim(config, model, dt=0.003, uniform_params=(0.5, 2.0), backend="torch")
+    straggler_kernel.LAUNCHES = 0
+    a = roll_k(st, num_steps=24, rebin_every=6)
+    assert straggler_kernel.LAUNCHES == 24 + 2
+    b = roll_k(st, num_steps=24, rebin_every=6)
+    p = roll_p(st, num_steps=24, rebin_every=6)
+    for x, y in zip(list(a.grid) + list(a[1:]), list(b.grid) + list(b[1:])):
+        assert torch.equal(x, y)
+    assert not bool(a.grid.overflow) and torch.equal(a.grid.atom_id, p.grid.atom_id)
+    assert torch.equal(a.aux_atom_id, p.aux_atom_id) and torch.equal(a.aux_cell, p.aux_cell)
+    assert float((a.grid.positions - p.grid.positions).abs().max()) < 2e-5
+    assert float((a.aux_positions - p.aux_positions).abs().max()) < 2e-5
     pe, _, ke = energy(a)
     assert torch.isfinite(pe) and torch.isfinite(ke)
