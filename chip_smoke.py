@@ -6,16 +6,21 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from `emdee_tpu_torch/csrc/`, holds each kernel
-against its plain PyTorch version on the card, then drives two paths on
-the 97,556-atom LJ melt (FCC 29³ at ρ* = 0.8442, T* = 1.44, rc = 2.5σ,
-switch 2.0σ, skin 0.35, dt = 0.005) in NVE:
+against its plain PyTorch version on the card, then drives three paths of
+the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
+0.35, dt = 0.005) in NVE:
 
-- the dense-cell engine at bench.py's wide config, through
-  `cell_dense_init` and `make_cell_dense_sim` (equilibrates the melt 200
-  steps first);
+- the dense-cell engine on the 97,556-atom melt (FCC 29³) at bench.py's
+  wide config, through `cell_dense_init` and `make_cell_dense_sim`
+  (equilibrates the melt 200 steps first), where `backend="auto"` resolves
+  to the resident kernel family;
 - the C-tight straggler engine at bench.py's production config (C_t =
   wide−4, C_w = wide+4, A = 64, Kn = 16), through `straggler_init` and
-  `make_straggler_sim`, from the equilibrated melt.
+  `make_straggler_sim`, from the equilibrated melt;
+- the dense-cell engine on bench_all.py's 1,000,188-atom melt (FCC 63³,
+  M = 37, C = 32), where `backend="auto"` resolves to the streaming kernel
+  family (equilibrated 200 steps at rebin every 2; bench_all.py settles
+  100), and a short stacked per-atom rollout at the same size.
 
 Each path is gated: no overflow (capacity, staleness, Kn, A), NVE drift ≤
 3e-5 over 1,000 steps, launch counts that show every force evaluation,
@@ -41,7 +46,9 @@ import time
 import numpy as np
 import torch
 
-from emdee_tpu_torch.tools.melt import CUTOFF, DT, SKIN, SWITCH, equilibrate, melt, straggler_config
+from emdee_tpu_torch.tools.melt import (
+    CUTOFF, DT, N_CELLS_1M, SKIN, SWITCH, equilibrate, melt, straggler_config,
+)
 
 DRIFT_GATE = 3e-5
 FORCE_REL_GATE = 5e-4
@@ -275,10 +282,126 @@ def phase_rebin(device, tag):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def counters():
-    from emdee_tpu_torch.neighbors import cell_kernel, rebin_kernel, straggler_kernel
+def phase_streaming(device, tag, cells=None):
+    """The streaming kernel (K5) on the melt of `cells`³ FCC cells, drifted
+    across the seam: both entries vs the plain version (forces within 2e-5
+    of the force scale, energies and virials, exact zeros on empty slots),
+    vs the resident kernel (K2) on the same state, and the times of K5, K2
+    and the plain version, each entry.  Returns (K5 row, K2 times)."""
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces, cell_forces_split
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming, cell_forces_streaming_split
 
-    return {"cell_forces": cell_kernel, "rebin_routing": rebin_kernel, "straggler_aux": straggler_kernel}
+    st, config, model, _, uni, n = melt(device) if cells is None else melt(device, cells)
+    st = drifted(st, SKIN)
+    v = st.valid
+    fk, ek, wk = cell_forces_streaming(st, model, config, compute_energy=True, backend="cuda")
+    fp, ep, wp = cell_forces_streaming(st, model, config, compute_energy=True, backend="torch")
+    fr, er, wr = cell_forces(st, model, config, compute_energy=True, backend="cuda")
+    torch.cuda.synchronize()
+    scale = max(float(fp[v].abs().max()), 1.0)
+    err_e = close(f"K5 {n} per-atom forces", fk[v], fp[v], atol=2e-5 * scale)
+    close(f"K5 {n} energies", ek[v], ep[v], atol=1e-4, rtol=1e-4)
+    close(f"K5 {n} virials", wk[v], wp[v], atol=2e-3, rtol=1e-4)
+    for name, t in (("forces", fk[~v]), ("energies", ek[~v]), ("virials", wk[~v])):
+        if bool((t != 0).any()):
+            raise AssertionError(f"K5 {n}: nonzero {name} on empty slots")
+    vs_k2 = close(f"K5 vs K2 {n} forces", fk[v], fr[v], atol=2e-5 * scale)
+    close(f"K5 vs K2 {n} energies", ek[v], er[v], atol=1e-4, rtol=1e-4)
+    close(f"K5 vs K2 {n} virials", wk[v], wr[v], atol=2e-3, rtol=1e-4)
+
+    px, py, pz = (st.positions[..., i].contiguous() for i in range(3))
+    args = (px, py, pz, v, config)
+    sk = cell_forces_streaming_split(*args, uniform_params=uni, backend="cuda")
+    sp = cell_forces_streaming_split(*args, uniform_params=uni, backend="torch")
+    sr = cell_forces_split(*args, uniform_params=uni, backend="cuda")
+    torch.cuda.synchronize()
+    err_s = max(close(f"K5 split {n} f{a}", k[v], p[v], atol=2e-5 * scale) for a, k, p in zip("xyz", sk, sp))
+    vs_k2 = max(vs_k2, *(close(f"K5 vs K2 split {n} f{a}", k[v], r[v], atol=2e-5 * scale)
+                         for a, k, r in zip("xyz", sk, sr)))
+    if bool(any((k[~v] != 0).any() for k in sk)):
+        raise AssertionError(f"K5 split {n}: nonzero forces on empty slots")
+    err = max(err_e, err_s)
+    if err / scale > FORCE_REL_GATE:
+        raise AssertionError(f"K5 {n}: force rel diff {err / scale:.3e} > {FORCE_REL_GATE}")
+
+    big = n > 500_000
+    ms = cuda_ms(lambda: cell_forces_streaming_split(*args, uniform_params=uni, backend="cuda"), 20 if big else 50)
+    k2_ms = cuda_ms(lambda: cell_forces_split(*args, uniform_params=uni, backend="cuda"), 20 if big else 50)
+    ms_e = cuda_ms(lambda: cell_forces_streaming(st, model, config, compute_energy=True, backend="cuda"), 10 if big else 20)
+    k2_ms_e = cuda_ms(lambda: cell_forces(st, model, config, compute_energy=True, backend="cuda"), 10 if big else 20)
+    plain_ms = cuda_ms(lambda: cell_forces_streaming_split(*args, uniform_params=uni, backend="torch"), 2 if big else 5)
+    plain_ms_e = cuda_ms(lambda: cell_forces_streaming(st, model, config, compute_energy=True, backend="torch"), 2 if big else 3)
+    pairs = grid_pairs(px, py, pz, v, config)
+    ns = config.num_slots
+    bound_ms, bound_by = bound(25 * ns, OPS_PER_PAIR * pairs)
+    bound_e = bound(41 * ns, OPS_PER_PAIR_ENERGY * pairs)
+    # The design's own traffic: four reaction row groups written and read back.
+    rows_ms = 1e3 * 2 * 4 * 3 * 4 * ns / HBM_BYTES_PER_S
+    log(f"{tag} K5 at {n} atoms (M={config.cells_per_dim} C={config.capacity}), drifted across the seam: "
+        f"vs plain max |dF| per-atom+energies {err_e:.3e}, split {err_s:.3e} (rel {err / scale:.3e}); "
+        f"vs K2 max |dF| {vs_k2:.3e} (rel {vs_k2 / scale:.3e}); energies, virials in tolerance, "
+        "empty slots exactly 0")
+    log(f"{tag} K5 vs K2 times at {n} atoms: split K5 {ms:.4f} ms (2 launches) vs K2 {k2_ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; reaction rows alone "
+        f"{rows_ms:.5f} ms); per-atom+energies K5 {ms_e:.4f} ms vs K2 {k2_ms_e:.4f} ms, plain "
+        f"{plain_ms_e:.3f} ms, bound {bound_e[0]:.5f} ms ({bound_e[1]}); {pairs:,} pairs inside the cutoff")
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None, "energy_ms": ms_e, "energy_plain_ms": plain_ms_e,
+           "energy_bound_ms": bound_e[0], "vs_k2_max_abs_err": vs_k2}
+    return row, {"k2_split_ms": k2_ms, "k2_energy_ms": k2_ms_e}
+
+
+def phase_1m(device, tag):
+    """bench_all.py's 1M melt on the dense engine through `backend="auto"`,
+    which must resolve to the streaming family: equilibrate, then the gated
+    1,000-step component-carry rollout (overflow, drift, K5 and K4 launch
+    counts), bitwise reruns, and a short stacked per-atom rollout.  Returns
+    {path: launch counts} and the rollout's ms/step."""
+    from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim, resolve_dense_backend
+
+    state, config, model, params, uni, n = melt(device, N_CELLS_1M)
+    family = resolve_dense_backend(config, "auto", device=device)
+    if family != "cuda_streaming" or (config.cells_per_dim, config.capacity) != (37, 32):
+        raise AssertionError(f"1M melt: M={config.cells_per_dim} C={config.capacity} resolves to {family!r}")
+    rollout, energy = make_cell_dense_sim(config, model, dt=DT, backend="auto", uniform_params=uni, uniform_mass=1.0)
+    t0 = time.perf_counter()
+    pos_eq, vel_eq, t_eq, k = equilibrate(rollout, state, config, n)
+    st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
+    if bool(st0.overflow):
+        raise AssertionError("1M re-init overflow")
+    log(f"1M melt: {n} atoms, M={config.cells_per_dim} C={config.capacity}, backend 'auto' -> {family!r}; "
+        f"equilibrated 200 steps (rebin every 2) in {time.perf_counter() - t0:.2f} s: T* = {t_eq:.4f}, "
+        f"rebin every {k} steps")
+
+    steps = 1000
+    zero = {"cell_forces": 0, "straggler_aux": 0}
+    _, sec, drift, counts = gate_rollout(
+        "1M path", rollout, energy, st0, steps, k,
+        {**zero, "cell_forces_streaming": 2 * (steps + 2 + 2), "rebin_routing": 3 * -(-steps // k)},
+    )
+    bitwise_rerun("1M path", rollout, st0, 100, k)
+    ms = 1e3 * sec / steps
+    log(f"{tag} 1M path (component carry, uniform params, K5): {steps} steps in {sec:.3f} s = {ms:.4f} ms/step, "
+        f"{n * steps / sec:,.0f} atom-steps/s; NVE drift {drift:.3e}; launches {counts}; "
+        "two 100-step rollouts bitwise equal")
+
+    roll_s, energy_s = make_cell_dense_sim(config, model, dt=DT)
+    steps_s = 100
+    _, sec_s, drift_s, counts_s = gate_rollout(
+        "1M stacked path", roll_s, energy_s, st0, steps_s, k,
+        {**zero, "cell_forces_streaming": 2 * (steps_s + 2 + 2), "rebin_routing": 3 * -(-steps_s // k)},
+    )
+    bitwise_rerun("1M stacked path", roll_s, st0, 50, k)
+    log(f"{tag} 1M stacked path (per-atom params, K5): {steps_s} steps, {1e3 * sec_s / steps_s:.4f} ms/step; "
+        f"NVE drift {drift_s:.3e}; launches {counts_s}; two 50-step rollouts bitwise equal")
+    return {"dense_1m": counts, "stacked_1m": counts_s}, ms
+
+
+def counters():
+    from emdee_tpu_torch.neighbors import cell_kernel, rebin_kernel, straggler_kernel, streaming_kernel
+
+    return {"cell_forces": cell_kernel, "cell_forces_streaming": streaming_kernel,
+            "rebin_routing": rebin_kernel, "straggler_aux": straggler_kernel}
 
 
 def gate_rollout(label, rollout, energy, st0, steps, rebin_every, expected):
@@ -447,11 +570,14 @@ def main() -> None:
 
     force = phase_forces(device, tag)
     rebin = phase_rebin(device, tag)
+    k5_97k, k2_97k = phase_streaming(device, tag)
 
     # ---- main path: bench.py's wide config, component carry ----
-    from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim
+    from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim, resolve_dense_backend
 
     state, config, model, params, uni, n = melt(device)
+    if resolve_dense_backend(config, "auto", device=device) != "cuda":
+        raise AssertionError("the 97,556-atom melt no longer resolves to the resident kernel family")
     rollout, energy = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
     pos_eq, vel_eq, t_eq, k = equilibrate(rollout, state, config, n)
     st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
@@ -463,7 +589,8 @@ def main() -> None:
     n_rebins = -(-steps // k)
     out, sec, drift, main_counts = gate_rollout(
         "main path", rollout, energy, st0, steps, k,
-        {"cell_forces": steps + 2 + 2, "rebin_routing": 3 * n_rebins, "straggler_aux": 0},
+        {"cell_forces": steps + 2 + 2, "cell_forces_streaming": 0, "rebin_routing": 3 * n_rebins,
+         "straggler_aux": 0},
     )
     main_ms = 1e3 * sec / steps
     log(f"{tag} main path (component carry, uniform params): {steps} steps in {sec:.3f} s = "
@@ -477,7 +604,8 @@ def main() -> None:
     steps_s = 200
     _, sec_s, drift_s, counts_s = gate_rollout(
         "README path", roll_s, energy_s, st0, steps_s, k,
-        {"cell_forces": steps_s + 2 + 2, "rebin_routing": 3 * -(-steps_s // k), "straggler_aux": 0},
+        {"cell_forces": steps_s + 2 + 2, "cell_forces_streaming": 0, "rebin_routing": 3 * -(-steps_s // k),
+         "straggler_aux": 0},
     )
     bitwise_rerun("README path", roll_s, st0, 100, k)
     log(f"{tag} README path (stacked, per-atom params): {steps_s} steps, "
@@ -517,7 +645,8 @@ def main() -> None:
     s_roll(s0, num_steps=2 * k, rebin_every=k)  # warm-up
     s_out, s_sec, s_drift, s_counts = gate_rollout(
         "straggler path", s_roll, s_energy, s0, steps, k,
-        {"cell_forces": steps + 2 + 2, "rebin_routing": 3 * n_rebins, "straggler_aux": steps + 2},
+        {"cell_forces": steps + 2 + 2, "cell_forces_streaming": 0, "rebin_routing": 3 * n_rebins,
+         "straggler_aux": steps + 2},
     )
     parked1 = int((s_out.aux_cell < nc).sum())
     if parked1 < 1:
@@ -531,17 +660,31 @@ def main() -> None:
     log(f"{smi}: straggler path {s_ms:.4f} ms/step ({n * 1e3 / s_ms:,.0f} atom-steps/s) vs "
         f"dense main path {main_ms:.4f} ms/step ({n * 1e3 / main_ms:,.0f} atom-steps/s)")
 
-    by_path = lambda name: {"dense": main_counts[name], "straggler": s_counts[name]}  # noqa: E731
+    # ---- bench_all.py's 1M melt: the streaming kernel family ----
+    k5, k2_1m = phase_streaming(device, tag, N_CELLS_1M)
+    counts_1m, ms_1m = phase_1m(device, tag)
+    log(f"{smi}: 1M path {ms_1m:.4f} ms/step ({1_000_188 * 1e3 / ms_1m:,.0f} atom-steps/s); K5 vs K2 split "
+        f"{k5['ms']:.4f} vs {k2_1m['k2_split_ms']:.4f} ms at 1M, {k5_97k['ms']:.4f} vs "
+        f"{k2_97k['k2_split_ms']:.4f} ms at 97,556 atoms")
+
+    paths = {"dense": main_counts, "straggler": s_counts, **counts_1m}
+    by_path = lambda name: {p: c[name] for p, c in paths.items() if c[name]}  # noqa: E731
     kernels = [
         dict(name="cell_forces", route="cuda", source="emdee_tpu_torch/csrc/cell_forces.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:597",
              strag_replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:807",
-             launches=main_counts["cell_forces"] + s_counts["cell_forces"],
-             launches_by_path=by_path("cell_forces"), **force,
+             launches=sum(by_path("cell_forces").values()),
+             launches_by_path=by_path("cell_forces"), **force, n1m_split_ms=k2_1m["k2_split_ms"],
+             n1m_energy_ms=k2_1m["k2_energy_ms"],
              **{f"strag_{key}": value for key, value in k3["strag"].items()}),
+        dict(name="cell_forces_streaming", route="cuda", source="emdee_tpu_torch/csrc/cell_forces_streaming.cu",
+             replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1158",
+             launches=sum(by_path("cell_forces_streaming").values()),
+             launches_by_path=by_path("cell_forces_streaming"), **k5,
+             **{f"n97556_{key}": value for key, value in k5_97k.items()}),
         dict(name="rebin_routing", route="cuda", source="emdee_tpu_torch/csrc/rebin_routing.cu",
              replaces="emdee_tpu/neighbors/pallas_rebin.py:60",
-             launches=main_counts["rebin_routing"] + s_counts["rebin_routing"],
+             launches=sum(by_path("rebin_routing").values()),
              launches_by_path=by_path("rebin_routing"), **rebin),
         dict(name="straggler_aux", route="cuda", source="emdee_tpu_torch/csrc/straggler_forces.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:807",

@@ -6,10 +6,13 @@ module layout, so each file here has one counterpart there.  It imports
 
 It covers the dense-cell Lennard-Jones NVE main path (slot binning, the
 leapfrog rollout with Kahan-compensated drift and kick, the ±1-cell shift
-rebin, the energy closure) and the C-tight straggler engine on top of it.
-Its kernels are hand-written CUDA for `sm_90a` (`csrc/cell_forces.cu`,
-`csrc/rebin_routing.cu`, `csrc/straggler_forces.cu`), each with a plain
-PyTorch version beside it (`neighbors/cell_kernel.py`,
+rebin, the energy closure) with the TPU engine's two force-kernel families
+— resident and streaming, picked by `resolve_dense_backend` as the TPU
+engine picks them — and the C-tight straggler engine on top of it.  Its
+kernels are hand-written CUDA for `sm_90a` (`csrc/cell_forces.cu`,
+`csrc/cell_forces_streaming.cu`, `csrc/rebin_routing.cu`,
+`csrc/straggler_forces.cu`), each with a plain PyTorch version beside it
+(`neighbors/cell_kernel.py`, `neighbors/streaming_kernel.py`,
 `neighbors/rebin_kernel.py`, `neighbors/straggler_kernel.py`).  A wrapper
 runs the plain version for CPU tensors and launches its kernel for CUDA
 tensors.  Entry points build their tensors on the CUDA card unless the
@@ -22,9 +25,11 @@ from emdee_tpu_torch.neighbors.cell_dense import (
     CellDenseState,
     cell_dense_init,
     detect_uniform_params,
+    estimate_kernel_vmem_bytes,
     gather_dense_atoms,
     gather_dense_fields,
     make_cell_dense_sim,
+    resolve_dense_backend,
     suggest_cell_dense_config,
     suggest_rebin_interval,
 )
@@ -35,6 +40,10 @@ from emdee_tpu_torch.neighbors.cell_dense_straggler import (
     make_straggler_sim,
     straggler_init,
     suggest_straggler_config,
+)
+from emdee_tpu_torch.neighbors.streaming_kernel import (
+    cell_forces_streaming,
+    cell_forces_streaming_split,
 )
 from emdee_tpu_torch.potentials.lennard_jones import (
     LennardJonesModel,
@@ -54,9 +63,11 @@ __all__ = [
     "CellDenseState",
     "cell_dense_init",
     "detect_uniform_params",
+    "estimate_kernel_vmem_bytes",
     "gather_dense_atoms",
     "gather_dense_fields",
     "make_cell_dense_sim",
+    "resolve_dense_backend",
     "suggest_cell_dense_config",
     "suggest_rebin_interval",
     "StragglerConfig",
@@ -65,6 +76,8 @@ __all__ = [
     "make_straggler_sim",
     "straggler_init",
     "suggest_straggler_config",
+    "cell_forces_streaming",
+    "cell_forces_streaming_split",
     "LennardJonesModel",
     "lennard_jones_atom",
     "pair_interaction",

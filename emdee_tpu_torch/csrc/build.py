@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_long
 
 # C signatures of the entry points (see the .cu files).
 _SIGNATURES = {
@@ -49,6 +50,14 @@ _SIGNATURES = {
     "emdee_straggler_aux": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                             _F, _F, _F, _P],
+    # px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, groups,
+    # m, c, box, rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u,
+    # uniform, energy, stream
+    "emdee_streaming_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                               _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                               _F, _F, _F, _I, _I, _P],
+    # fx, fy, fz, fstride, e, w, groups, num_slots, energy, stream
+    "emdee_streaming_fold": [_P, _P, _P, _I, _P, _P, _P, _L, _I, _P],
     # in, out, flag, nf, m, c, axis, cf, num_slots, box, stream
     "emdee_rebin_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }

@@ -12,10 +12,12 @@
 // rounded up to a warp; tail threads only help stage).  The block walks the
 // 27 neighbor cells in a fixed (dz, dy, dx) order, stages each one's C slots
 // in shared memory, and every thread runs the pair math of its center slot
-// against them.  A neighbor index that wraps the periodic grid shifts that
-// cell's coordinates by ±box on that axis (the TPU kernel's ghost copies);
-// atoms are never wrapped, because between rebins positions overhang the
-// box by up to skin/2.  Empty slots are skipped through the valid mask, the
+// against them.  A neighbor index that wraps the periodic grid takes ±box
+// off that axis's raw difference, (x_i − x_j) − shift (the TPU kernel's
+// ghost copies, applied after the difference so that a pair inside the
+// cutoff gets the plain version's minimum image bit for bit); atoms are
+// never wrapped, because between rebins positions overhang the box by up to
+// skin/2.  Empty slots are skipped through the valid mask, the
 // self pair (same cell, same slot) is skipped, and an empty center slot
 // writes exact zeros.
 //
@@ -45,8 +47,9 @@
 // evaluates 4,913 × 32 × 864 ≈ 136 M candidate pairs, of which about 6% lie
 // inside the cutoff — arithmetic on registers and broadcast shared-memory
 // reads, with ~1.3 MB of inputs.  One 32-thread block per cell caps
-// residency at 32 warps per SM (half of 64); that, and the doubled pair work,
-// are what a later half-shell, multi-cell-per-block kernel would buy back.
+// residency at 32 warps per SM (half of 64).  The half-shell kernel
+// (cell_forces_streaming.cu, K5) halves the pair work and is not faster at
+// this size (chip_smoke.py times both).
 // The least time for the work is ~2 µs (2.63 M unique pairs inside the
 // cutoff at ~51 float32 operations each, at 67 TFLOP/s; chip_smoke.py counts
 // them); a launch takes ~0.18 ms, the same at C_t = 28 with STRAG as at
@@ -120,9 +123,9 @@ __global__ void cell_forces_kernel(
         if (i < c) {
           const long s = nb + i;
           sv[i] = valid[s];
-          sx[i] = px[s * pstride] + shx;
-          sy[i] = py[s * pstride] + shy;
-          sz[i] = pz[s * pstride] + shz;
+          sx[i] = px[s * pstride];
+          sy[i] = py[s * pstride];
+          sz[i] = pz[s * pstride];
           if (!UNIFORM) {
             shs[i] = hs[s];
             stse[i] = tse[s];
@@ -134,9 +137,9 @@ __global__ void cell_forces_kernel(
         const bool self_cell = dz == 0 && dy == 0 && dx == 0;
         for (int j = 0; j < c; ++j) {
           if (!sv[j] || (self_cell && j == i)) continue;
-          const float dvx = xi - sx[j];
-          const float dvy = yi - sy[j];
-          const float dvz = zi - sz[j];
+          const float dvx = (xi - sx[j]) - shx;
+          const float dvy = (yi - sy[j]) - shy;
+          const float dvz = (zi - sz[j]) - shz;
           const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
           if (!(r2 < k.rc2)) continue;
           const float rinv = 1.0f / r2;

@@ -8,11 +8,14 @@ cell (`_rebin_shift`), and a sticky `overflow` flag records capacity
 overflow, illegal moves and skin/2 staleness.  Positions are wrapped into
 [0, L) only at rebins; between rebins they may overhang the box by skin/2.
 
-Backends (`resolve_backend`): "auto" launches the hand-written CUDA kernels
-(`cell_kernel.py`, `rebin_kernel.py`) for CUDA tensors and runs their plain
-PyTorch versions for CPU tensors; "torch" asks for the plain versions on any
-device; "cuda" insists on the kernels.  The TPU engine's VMEM-size switch to
-a streaming kernel has no counterpart: the CUDA kernel serves every N.
+Backends of the engine (`resolve_dense_backend`): "auto" picks, for CUDA
+tensors, the kernel family that the TPU engine picks for the same config —
+the counterpart of its VMEM-resident kernel, "cuda" (`cell_kernel.py`), up
+to its 13 MB VMEM estimate, that of its streaming kernel, "cuda_streaming"
+(`streaming_kernel.py`), above it — and the plain PyTorch versions ("torch")
+for CPU tensors.  "cuda" and "cuda_streaming" insist on their kernels and
+raise for CPU tensors; "torch" runs the plain versions on any device.  Every
+rebin of a CUDA family launches the rebin kernel (`rebin_kernel.py`).
 
 Scalar constants that the reference forms in float32 (dt·½, 1/m) are formed
 in float32 here too, and every division by the box divides by a tensor on
@@ -133,8 +136,8 @@ def lj_params_from_numpy(params, device) -> LJParams:
 
 
 def resolve_backend(backend: str, tensor: torch.Tensor) -> str:
-    """'auto' → 'cuda' for CUDA tensors, 'torch' (the plain versions) for
-    CPU tensors.  Replaces the TPU engine's `resolve_dense_backend`."""
+    """A kernel wrapper's backend: 'auto' → 'cuda' (launch the kernel) for
+    CUDA tensors, 'torch' (the plain version) for CPU tensors."""
     if backend == "torch":
         return "torch"
     if backend not in ("auto", "cuda"):
@@ -182,6 +185,58 @@ def suggest_cell_dense_config(
         cells_per_dim=m, capacity=cap, box=box, cutoff=cutoff, switch=switch,
         skin=skin, num_atoms=num_atoms,
     )
+
+
+def estimate_kernel_vmem_bytes(config: CellDenseConfig) -> int:
+    """The TPU engine's VMEM estimate of its resident kernel (5 ghost fields,
+    reaction accumulator, a pencil's centre block and pair-tile
+    temporaries), the same integer, so that `resolve_dense_backend` picks
+    the same kernel family for the same config."""
+    m, c = config.cells_per_dim, config.capacity
+    g = m + 2
+    ghost = g * g * g * c * 4
+    react = 3 * ghost
+    centers = 5 * c * m * 4
+    tiles = 8 * c * m * c * 4
+    return 5 * ghost + react + centers + tiles
+
+
+STREAMING_THRESHOLD_BYTES = 13_000_000
+BACKENDS = ("auto", "cuda", "cuda_streaming", "torch")
+
+
+def resolve_dense_backend(
+    config: CellDenseConfig,
+    backend: str = "auto",
+    *,
+    device,
+    with_coulomb: bool = False,
+    with_excl: bool = False,
+) -> str:
+    """The engine's kernel family for tensors on `device`: 'cuda' (the
+    resident kernel's counterpart, K2), 'cuda_streaming' (the streaming
+    kernel's, K5) or 'torch' (the plain versions).
+
+    'auto' follows the TPU engine's rule: the streaming family once the
+    resident kernel's VMEM estimate, ×7/5 with Coulomb and ×6/5 with
+    exclusions, passes 13 MB; on the CPU it is 'torch'.  'cuda' and
+    'cuda_streaming' raise for a device that is not CUDA.  Nothing here
+    touches the card."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: use one of {', '.join(BACKENDS)}")
+    on_card = torch.device(device).type == "cuda"
+    if backend == "auto":
+        if not on_card:
+            return "torch"
+        est = estimate_kernel_vmem_bytes(config)
+        if with_coulomb:
+            est = est * 7 // 5
+        if with_excl:
+            est = est * 6 // 5
+        return "cuda_streaming" if est > STREAMING_THRESHOLD_BYTES else "cuda"
+    if backend != "torch" and not on_card:
+        raise ValueError(f"backend={backend!r} needs tensors on a CUDA device, got {device}")
+    return backend
 
 
 def suggest_rebin_interval(
@@ -546,8 +601,11 @@ def make_cell_dense_sim(
 ):
     """Build (rollout, energy) closures for slot-space NVE.
 
-    backend: 'auto' (CUDA kernels for CUDA tensors, plain PyTorch for CPU
-    tensors), 'cuda' or 'torch' (the plain versions on any device).
+    backend: one of `BACKENDS`, resolved against the state's device at each
+    call by `resolve_dense_backend` — 'auto' (the TPU engine's rule: the
+    resident family 'cuda' or the streaming family 'cuda_streaming' for CUDA
+    tensors, the plain versions for CPU tensors), 'cuda', 'cuda_streaming'
+    or 'torch' (the plain versions on any device).
 
     uniform_params: optional (half_sigma, twice_sqrt_eps) floats when all
     atoms share one LJ type (`detect_uniform_params`).  With it and
@@ -557,7 +615,7 @@ def make_cell_dense_sim(
 
     The options of the TPU engine that this slice does not port raise
     NotImplementedError naming the ROADMAP item that ports them."""
-    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces, cell_forces_split
+    from emdee_tpu_torch.neighbors import cell_kernel, streaming_kernel
 
     unported = {
         "thermostat": (thermostat, 8),
@@ -571,24 +629,27 @@ def make_cell_dense_sim(
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP item {item})")
     if config.spill:
         raise NotImplementedError("boundary-spill configs are not ported yet (ROADMAP item 8)")
-    if backend not in ("auto", "cuda", "torch"):
-        raise ValueError(f"unknown backend {backend!r}: use 'auto', 'cuda' or 'torch'")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: use one of {', '.join(BACKENDS)}")
 
     ns = config.num_slots
     dt_f = _f32(dt)
     half_dt = _f32(np.float32(0.5) * np.float32(dt))
     use_component_carry = uniform_params is not None and uniform_mass is not None
 
-    def forces_of(st: CellDenseState):
-        return cell_forces(
-            st, model, config, uniform_params=uniform_params, backend=backend
-        )[0]
+    def kernels(t: torch.Tensor):
+        """(stacked force entry, split force entry, wrapper backend) of the
+        family that `backend` resolves to for tensors like `t`."""
+        family = resolve_dense_backend(config, backend, device=t.device)
+        if family == "cuda_streaming":
+            return streaming_kernel.cell_forces_streaming, streaming_kernel.cell_forces_streaming_split, "cuda"
+        return cell_kernel.cell_forces, cell_kernel.cell_forces_split, family
 
     def energy(st: CellDenseState):
         """(potential energy, virial, kinetic energy) as 0-d tensors."""
-        _, e, w = cell_forces(
-            st, model, config, compute_energy=True, uniform_params=uniform_params,
-            backend=backend,
+        stacked, _, kb = kernels(st.positions)
+        _, e, w = stacked(
+            st, model, config, compute_energy=True, uniform_params=uniform_params, backend=kb,
         )
         pe = torch.sum(torch.where(st.valid, e, 0.0))
         vir = torch.sum(torch.where(st.valid, w, 0.0))
@@ -604,6 +665,11 @@ def make_cell_dense_sim(
     def rollout_component(state: CellDenseState, num_steps: int, rebin_every: int):
         # Leapfrog on per-component (M³, C) arrays: x, y, z, vx, vy, vz and
         # atom_id, plus the rebin-time reference coordinates and the flag.
+        _, split, kb = kernels(state.positions)
+
+        def forces_split(px, py, pz, valid):
+            return split(px, py, pz, valid, config, uniform_params=uniform_params, backend=kb)
+
         inv_m = np.float32(1.0 / uniform_mass)
         kick_dt = _f32(np.float32(dt) * inv_m)
         half_kick = _f32(np.float32(0.5) * np.float32(dt) * inv_m)
@@ -611,12 +677,12 @@ def make_cell_dense_sim(
         vx, vy, vz = (state.velocities[..., i].contiguous() for i in range(3))
         aid = torch.where(state.valid, state.atom_id, ns)
         ovf = state.overflow
-        f0 = cell_forces_split(px, py, pz, state.valid, config, uniform_params=uniform_params, backend=backend)
+        f0 = forces_split(px, py, pz, state.valid)
         vx, vy, vz = vx + half_kick * f0[0], vy + half_kick * f0[1], vz + half_kick * f0[2]
         rx, ry, rz = px, py, pz
         blocks, rem = divmod(num_steps, rebin_every)
         for length in [rebin_every] * blocks + ([rem] if rem else []):
-            fields, valid, ovf = _rebin_shift_core([px, py, pz, vx, vy, vz, aid], aid < ns, ovf, config, backend)
+            fields, valid, ovf = _rebin_shift_core([px, py, pz, vx, vy, vz, aid], aid < ns, ovf, config, kb)
             zero = lambda a: torch.where(valid, a, 0.0)  # noqa: E731
             px, py, pz, vx, vy, vz = (zero(a) for a in fields[:6])
             aid = torch.where(valid, fields[6], ns)
@@ -627,13 +693,13 @@ def make_cell_dense_sim(
                 px, cx = _comp_add(px, dt_f * vx, cx)
                 py, cy = _comp_add(py, dt_f * vy, cy)
                 pz, cz = _comp_add(pz, dt_f * vz, cz)
-                fx, fy, fz = cell_forces_split(px, py, pz, valid, config, uniform_params=uniform_params, backend=backend)
+                fx, fy, fz = forces_split(px, py, pz, valid)
                 vx, wx = _comp_add(vx, kick_dt * fx, wx)
                 vy, wy = _comp_add(vy, kick_dt * fy, wy)
                 vz, wz = _comp_add(vz, kick_dt * fz, wz)
             ovf = ovf | _stale(px - rx, py - ry, pz - rz, valid, config)
         valid = aid < ns
-        ff = cell_forces_split(px, py, pz, valid, config, uniform_params=uniform_params, backend=backend)
+        ff = forces_split(px, py, pz, valid)
         vx, vy, vz = vx - half_kick * ff[0], vy - half_kick * ff[1], vz - half_kick * ff[2]
         const = lambda v: torch.where(valid, _f32(v), 0.0)  # noqa: E731
         return CellDenseState(
@@ -652,11 +718,16 @@ def make_cell_dense_sim(
     def rollout_stacked(state: CellDenseState, num_steps: int, rebin_every: int):
         # Leapfrog: velocities ride half a step ahead inside the rollout, so
         # no force field crosses a rebin; a closing half un-kick re-syncs.
+        stacked, _, kb = kernels(state.positions)
+
+        def forces_of(st: CellDenseState):
+            return stacked(st, model, config, uniform_params=uniform_params, backend=kb)[0]
+
         f0 = forces_of(state)
         st = state._replace(velocities=state.velocities + half_dt * f0 * state.inv_masses[..., None])
         blocks, rem = divmod(num_steps, rebin_every)
         for length in [rebin_every] * blocks + ([rem] if rem else []):
-            st = _rebin_shift(st, config, uniform_params, uniform_mass, backend)
+            st = _rebin_shift(st, config, uniform_params, uniform_mass, kb)
             inv_m = st.inv_masses[..., None]
             pos, vel = st.positions, st.velocities
             comp = torch.zeros_like(pos)

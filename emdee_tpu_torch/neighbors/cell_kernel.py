@@ -11,9 +11,10 @@ backend 'auto' or 'cuda', and run the plain version
 
 The TPU kernel's ghost grid, far sentinels, MXU segment sums and reaction
 folds (`_ghost`, `_prep_inputs`, `_fold_ghosts`, `_const_tiles`,
-`_sentinel_far`) exist because of VMEM and the MXU and have no counterpart:
-the CUDA kernel shifts wrapped neighbor cells by ±box itself and masks
-empty slots.
+`_sentinel_far`) exist because of VMEM and the MXU and have no counterpart
+here: the CUDA kernel walks the full shell, takes ±box off a wrapped
+neighbor's raw difference itself and masks empty slots.  The streaming
+family (`streaming_kernel.py`) shares this module's operand checks.
 """
 
 from __future__ import annotations
@@ -115,6 +116,14 @@ def cell_forces(
     every atom; the kernel then reads no per-atom parameter fields."""
     if resolve_backend(backend, state.positions) == "torch":
         return cell_dense_forces(state, model, config, compute_energy=compute_energy)
+    operands, outputs = stacked_operands(state, config, uniform_params, compute_energy)
+    _launch(*operands, config, config.box, uniform_params, compute_energy)
+    return outputs
+
+
+def stacked_operands(state: CellDenseState, config: CellDenseConfig, uniform_params, compute_energy: bool):
+    """Check a stacked state for a force kernel and allocate its outputs:
+    returns (launch operands px … w, (forces (M³, C, 3), e, w))."""
     nc, c = config.num_cells, config.capacity
     dev = state.positions.device
     pos = state.positions
@@ -132,11 +141,8 @@ def cell_forces(
         w = torch.empty((nc, c), dtype=torch.float32, device=dev)
     px = pos.view(-1)
     fv = forces.view(-1)
-    _launch(
-        px, px[1:], px[2:], 3, hs, tse, state.valid, fv, fv[1:], fv[2:], 3, e, w,
-        config, config.box, uniform_params, compute_energy,
-    )
-    return forces, e, w
+    operands = (px, px[1:], px[2:], 3, hs, tse, state.valid, fv, fv[1:], fv[2:], 3, e, w)
+    return operands, (forces, e, w)
 
 
 def cell_forces_split(
@@ -151,21 +157,29 @@ def cell_forces_split(
     uniform LJ parameters — the component-carry rollout's force call."""
     box = config.box if box is None else box
     if resolve_backend(backend, px) == "torch":
-        hs = torch.full_like(px, uniform_params[0])
-        tse = torch.full_like(px, uniform_params[1])
-        model = LennardJonesModel.create(config.cutoff, config.switch, device=px.device)
-        f, _, _ = _dense_forces(
-            torch.stack([px, py, pz], dim=-1), hs, tse, valid, model, config, box, False
-        )
-        return f[..., 0], f[..., 1], f[..., 2]
+        return split_plain(px, py, pz, valid, config, uniform_params, box)
+    operands, outputs = split_operands(px, py, pz, valid, config)
+    _launch(*operands, config, box, uniform_params, False)
+    return outputs
+
+
+def split_plain(px, py, pz, valid, config: CellDenseConfig, uniform_params, box: float):
+    """The plain version of the split entries: the half-shell `_dense_forces`
+    with the uniform parameters filled in."""
+    hs = torch.full_like(px, uniform_params[0])
+    tse = torch.full_like(px, uniform_params[1])
+    model = LennardJonesModel.create(config.cutoff, config.switch, device=px.device)
+    f, _, _ = _dense_forces(torch.stack([px, py, pz], dim=-1), hs, tse, valid, model, config, box, False)
+    return f[..., 0], f[..., 1], f[..., 2]
+
+
+def split_operands(px, py, pz, valid, config: CellDenseConfig):
+    """Check component arrays for a force kernel and allocate its outputs:
+    returns (launch operands px … w, (fx, fy, fz))."""
     shape = (config.num_cells, config.capacity)
     dev = px.device
     for name, t in (("px", px), ("py", py), ("pz", pz)):
         _check(t, name, torch.float32, shape, dev)
     _check(valid, "valid", torch.bool, shape, dev)
     fx, fy, fz = (torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(3))
-    _launch(
-        px, py, pz, 1, None, None, valid, fx, fy, fz, 1, None, None,
-        config, box, uniform_params, False,
-    )
-    return fx, fy, fz
+    return (px, py, pz, 1, None, None, valid, fx, fy, fz, 1, None, None), (fx, fy, fz)

@@ -1,8 +1,9 @@
-"""The 97,556-atom Lennard-Jones melt that `chip_smoke.py` and
-`emdee_tpu_torch.tools.profile_paths` drive: FCC 29³ at ρ* = 0.8442,
-T* = 1.44, rc = 2.5σ, switch 2.0σ, skin 0.35, dt = 0.005, uniform unit
-parameters and masses, on bench.py's wide dense config and its straggler
-configs.  One copy of the measured configuration for both scripts."""
+"""The Lennard-Jones melts that `chip_smoke.py` and
+`emdee_tpu_torch.tools.profile_paths` drive: FCC at ρ* = 0.8442, T* = 1.44,
+rc = 2.5σ, switch 2.0σ, skin 0.35, dt = 0.005, uniform unit parameters and
+masses — 29³ cells (97,556 atoms) on bench.py's wide dense config and its
+straggler configs, and 63³ cells (1,000,188 atoms, bench_all.py's 1M melt).
+One copy of the measured configurations for both scripts."""
 
 from __future__ import annotations
 
@@ -10,20 +11,21 @@ import numpy as np
 
 SEED = 0
 N_CELLS = 29  # FCC 29³ → 97,556 atoms
+N_CELLS_1M = 63  # FCC 63³ → 1,000,188 atoms
 DENSITY, T0, CUTOFF, SWITCH, SKIN, DT = 0.8442, 1.44, 2.5, 2.0, 0.35, 0.005
 
 
-def melt(device):
+def melt(device, cells: int = N_CELLS):
     """(dense state, wide config, model, params, uniform params, atoms) of
-    the melt at T0 on the FCC lattice; the capacity grows by 8 if the
-    suggested one overflows."""
+    the melt at T0 on the FCC lattice of `cells`³ unit cells; the capacity
+    grows by 8 if the suggested one overflows."""
     from emdee_tpu_torch import (
         LennardJonesModel, cell_dense_init, detect_uniform_params,
         lennard_jones_atom, suggest_cell_dense_config,
     )
     from emdee_tpu_torch.utils.lattice import fcc_lattice, maxwell_boltzmann
 
-    pos, box = fcc_lattice(N_CELLS, density=DENSITY)
+    pos, box = fcc_lattice(cells, density=DENSITY)
     n = pos.shape[0]
     vel = maxwell_boltzmann(n, T0, seed=SEED)
     params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)

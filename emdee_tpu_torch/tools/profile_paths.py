@@ -1,6 +1,8 @@
-"""Where the step time goes on the card, for each path of the 97,556-atom
-LJ melt that `chip_smoke.py` drives (dense component carry, dense stacked,
-straggler at bench.py's production config).
+"""Where the step time goes on the card, for each path of the LJ melt that
+`chip_smoke.py` drives: at 97,556 atoms the dense component carry, the
+dense stacked path and the straggler engine at bench.py's production
+config; at 1,000,188 atoms the dense component carry on the streaming
+kernel family.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -85,7 +87,7 @@ def main() -> None:
     ).stdout.strip()
     print(smi, flush=True)
     from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim, make_straggler_sim, straggler_init
-    from emdee_tpu_torch.tools.melt import DT, equilibrate, melt, straggler_config
+    from emdee_tpu_torch.tools.melt import DT, N_CELLS_1M, equilibrate, melt, straggler_config
 
     device = torch.device("cuda", 0)
     st, config, model, params, uni, n = melt(device)
@@ -100,6 +102,14 @@ def main() -> None:
     profile_path("dense component carry", dense, st0, k)
     profile_path("dense stacked", stacked, st0, k)
     profile_path("straggler production", straggler, s0, k)
+    del st, st0, s0
+
+    st, config, model, params, uni, n = melt(device, N_CELLS_1M)
+    dense, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    pos_eq, vel_eq, _, k = equilibrate(dense, st, config, n)
+    st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
+    print(f"{n} atoms, rebin every {k} steps", flush=True)
+    profile_path("1M dense component carry", dense, st0, k)
 
 
 if __name__ == "__main__":

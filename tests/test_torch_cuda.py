@@ -16,7 +16,7 @@ from emdee_tpu_torch import (
     make_cell_dense_sim,
     suggest_cell_dense_config,
 )
-from emdee_tpu_torch.neighbors import cell_kernel, rebin_kernel
+from emdee_tpu_torch.neighbors import cell_kernel, rebin_kernel, streaming_kernel
 from emdee_tpu_torch.neighbors.cell_dense import _rebin_shift
 from emdee_tpu_torch.utils.lattice import cubic_lattice, maxwell_boltzmann
 
@@ -30,11 +30,13 @@ def device():
     return torch.device("cuda", 0)
 
 
-def _state(device, n=2048, varied=True, drift=False):
+def _state(device, n=2048, varied=True, drift=False, geometry=None):
     pos, box = cubic_lattice(n, 0.6, jitter=0.15, seed=11)
     rng = np.random.default_rng(11)
     eps, sig = (rng.uniform(0.8, 1.2, n), rng.uniform(0.9, 1.1, n)) if varied else (np.ones(n), np.ones(n))
     config = suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.35)
+    if geometry is not None:
+        config = config._replace(**geometry)
     st = cell_dense_init(pos, maxwell_boltzmann(n, 1.3, seed=12), np.ones(n),
                          lennard_jones_atom(eps, sig, device=device), config, device=device)
     if drift:  # cross cell faces and the periodic seam, as between rebins
@@ -72,6 +74,45 @@ def test_split_kernel_matches_plain(device):
         assert float((a[v] - b[v]).abs().max()) <= 2e-5 * scale
 
 
+# M = 4 puts ~32 atoms in a cell: with C = 56 many cells fill the kernel's
+# second centre slot per lane and second packet chunk.
+@pytest.mark.parametrize(
+    "drift,geometry", [(False, None), (True, None), (True, {"cells_per_dim": 4, "capacity": 56})]
+)
+def test_streaming_kernel_matches_plain(device, drift, geometry):
+    st, config, model = _state(device, drift=drift, geometry=geometry)
+    assert not bool(st.overflow)
+    before = streaming_kernel.LAUNCHES
+    fk, ek, wk = streaming_kernel.cell_forces_streaming(st, model, config, compute_energy=True, backend="cuda")
+    fp, ep, wp = streaming_kernel.cell_forces_streaming(st, model, config, compute_energy=True, backend="torch")
+    torch.cuda.synchronize()
+    assert streaming_kernel.LAUNCHES == before + 2  # the pair pass and the fold
+    v = st.valid.cpu().numpy()
+    fk, ek, wk, fp, ep, wp = (a.cpu().numpy() for a in (fk, ek, wk, fp, ep, wp))
+    scale = max(np.abs(fp[v]).max(), 1.0)
+    np.testing.assert_allclose(fk[v], fp[v], atol=2e-5 * scale)
+    np.testing.assert_allclose(ek[v], ep[v], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(wk[v], wp[v], rtol=1e-4, atol=2e-3)
+    assert (fk[~v] == 0).all() and (ek[~v] == 0).all() and (wk[~v] == 0).all()
+
+
+def test_streaming_split_kernel_matches_plain_and_resident(device):
+    st, config, model = _state(device, varied=False, drift=True)
+    comps = [st.positions[..., i].contiguous() for i in range(3)]
+    kw = {"uniform_params": (0.5, 2.0)}
+    fk = streaming_kernel.cell_forces_streaming_split(*comps, st.valid, config, backend="cuda", **kw)
+    fp = streaming_kernel.cell_forces_streaming_split(*comps, st.valid, config, backend="torch", **kw)
+    fr = cell_kernel.cell_forces_split(*comps, st.valid, config, backend="cuda", **kw)
+    stacked = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", **kw)[0]
+    v = st.valid
+    scale = max(max(float(f[v].abs().max()) for f in fp), 1.0)
+    for a, b, r in zip(fk, fp, fr):
+        assert float((a[v] - b[v]).abs().max()) <= 2e-5 * scale
+        assert float((a[v] - r[v]).abs().max()) <= 2e-5 * scale
+    # The split entry equals the stacked one, bit for bit (the same kernel on the same values).
+    assert torch.equal(torch.stack(fk, -1), stacked)
+
+
 @pytest.mark.parametrize("uniform", [False, True])
 def test_rebin_kernel_bitexact(device, uniform):
     st, config, _ = _state(device, varied=not uniform, drift=True)
@@ -96,6 +137,26 @@ def test_rollout_kernels_match_plain_and_rerun_bitwise(device, uniform):
     roll_p, _ = make_cell_dense_sim(config, model, dt=0.004, backend="torch", **kw)
     # The jittered start is hot: rebin every 3 steps keeps it within skin/2.
     a = roll_k(st, num_steps=24, rebin_every=3)
+    b = roll_k(st, num_steps=24, rebin_every=3)
+    p = roll_p(st, num_steps=24, rebin_every=3)
+    for name in a._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert not bool(a.overflow) and torch.equal(a.atom_id, p.atom_id)
+    assert float((a.positions - p.positions).abs().max()) < 2e-5
+    pe, _, ke = energy(a)
+    assert torch.isfinite(pe) and torch.isfinite(ke)
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+def test_streaming_rollout_matches_plain_and_reruns_bitwise(device, uniform):
+    st, config, model = _state(device, varied=not uniform)
+    kw = {"uniform_params": (0.5, 2.0), "uniform_mass": 1.0} if uniform else {}
+    roll_k, energy = make_cell_dense_sim(config, model, dt=0.004, backend="cuda_streaming", **kw)
+    roll_p, _ = make_cell_dense_sim(config, model, dt=0.004, backend="torch", **kw)
+    streaming_kernel.LAUNCHES = 0
+    cell_kernel.LAUNCHES = 0
+    a = roll_k(st, num_steps=24, rebin_every=3)
+    assert (streaming_kernel.LAUNCHES, cell_kernel.LAUNCHES) == (2 * (24 + 2), 0)
     b = roll_k(st, num_steps=24, rebin_every=3)
     p = roll_p(st, num_steps=24, rebin_every=3)
     for name in a._fields:
