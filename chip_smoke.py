@@ -3,17 +3,29 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-spill-flag FILE]
 
 It builds the CUDA kernels from `emdee_tpu_torch/csrc/`, holds each kernel
-against its plain PyTorch version on the card, then drives three paths of
+against its plain PyTorch version on the card, then drives these paths of
 the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
-0.35, dt = 0.005) in NVE:
+0.35, dt = 0.005):
 
 - the dense-cell engine on the 97,556-atom melt (FCC 29³) at bench.py's
   wide config, through `cell_dense_init` and `make_cell_dense_sim`
   (equilibrates the melt 200 steps first), where `backend="auto"` resolves
   to the resident kernel family;
+- the boundary-spill capacity mode on the same melt (M = 16, C = 32,
+  squeezed toward 28 atoms a cell, this script's own choice; the script
+  also measures how long the suggested capacity alone, the config users
+  run, lasts before its flag trips), re-initialised from the equilibrated
+  melt: NVE on the component carry and a short stacked per-atom run, every
+  rebin through the spill route and the window-compaction kernel (K7);
+  before it, the force kernels on a 1,500-atom spill init that stores
+  atoms across the periodic seam;
+- NVT with CSVR (T* = 1.0, τ = 0.2) on the wide config and with Langevin
+  (friction 2.0) on the spill config, 1,000 steps each with per-block
+  records, and NPT (CSVR + Berendsen P* = 0.5, τ_P = 0.4) on the wide
+  config from the CSVR state, then `reconfigure_dense_state` on its end;
 - the C-tight straggler engine at bench.py's production config (C_t =
   wide−4, C_w = wide+4, A = 64, Kn = 16), through `straggler_init` and
   `make_straggler_sim`, from the equilibrated melt;
@@ -23,13 +35,20 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   100), and a short stacked per-atom rollout at the same size.
 
 Each path is gated: no overflow (capacity, staleness, Kn, A), NVE drift ≤
-3e-5 over 1,000 steps, launch counts that show every force evaluation,
-straggler pass and rebin pass went through the kernels (counts set to 0
-just before the path and read just after), and bitwise equal reruns.
+3e-5 over 1,000 steps (NVT: the mean T* of the last 500 steps within 2% of
+the target; NPT: the box grows by more than 1% and half the pressure gap
+closes), launch counts that show every force evaluation, straggler pass,
+rebin pass and compaction went through the kernels (counts set to 0 just
+before the path and read just after), and bitwise equal reruns (NVT: from
+one generator seed; another seed differs).  Every new rollout also runs
+once under `torch.cuda.set_sync_debug_mode("error")`: none waits for the
+device.
 Every phase prints its own line; any failure raises and the exit code is
 non-zero.  The last two lines are one JSON object describing the kernels
 (times, launches, bounds) and one describing the device.  Without a CUDA
-device it exits non-zero and prints no result.
+device it exits non-zero and prints no result.  With --save-spill-flag it
+also saves the spill state whose next rebin raises the flag at the
+suggested capacity (for tests/torch_spill_flag_witness.py).
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its bytes (each input read once, each output written once) at 3.35 TB/s
@@ -39,6 +58,7 @@ pairs inside the cutoff counted from this run's data.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -47,10 +67,12 @@ import numpy as np
 import torch
 
 from emdee_tpu_torch.tools.melt import (
-    CUTOFF, DT, N_CELLS_1M, SKIN, SWITCH, equilibrate, melt, straggler_config,
+    CUTOFF, DT, FRICTION, KAPPA, N_CELLS_1M, P_NPT, SKIN, SWITCH, T_NVT, TAU_P, TAU_T,
+    equilibrate, melt, spill_config, straggler_config,
 )
 
 DRIFT_GATE = 3e-5
+T_GATE = 0.02  # NVT: mean T* of the last 500 steps, relative to the target
 FORCE_REL_GATE = 5e-4
 WIDE_GATE = 1e-4  # straggler forces vs the wide state's, of the force scale
 HBM_BYTES_PER_S = 3.35e12
@@ -83,6 +105,23 @@ def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of `fn()` in ms over `reps` calls queued behind a
+    device-side spin (`torch.cuda._sleep`), so that the host has queued
+    every call before the first one starts: for kernels shorter than their
+    launch's host cost, which `cuda_ms` would measure instead."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # tens of ms of spinning
     start.record()
     for _ in range(reps):
         fn()
@@ -154,6 +193,8 @@ def aux_pairs(px, py, pz, valid, ax, ay, az, acell, config):
 def tensors(state):
     """(name, tensor) for every field of a state, nested states flattened."""
     for name, value in state._asdict().items():
+        if value is None:
+            continue
         if isinstance(value, tuple):
             yield from ((f"{name}.{k}", t) for k, t in tensors(value))
         else:
@@ -194,6 +235,8 @@ def check_cell_forces(st, config, model, label):
 def same_fields(label, a, b):
     """Require two field lists to be bit-identical (floats by their bits)."""
     for i, (x, y) in enumerate(zip(a, b, strict=True)):
+        if x is None and y is None:  # a state's static box
+            continue
         if x.dtype == torch.float32:
             x, y = x.view(torch.int32), y.view(torch.int32)
         if not torch.equal(x, y):
@@ -374,10 +417,9 @@ def phase_1m(device, tag):
         f"rebin every {k} steps")
 
     steps = 1000
-    zero = {"cell_forces": 0, "straggler_aux": 0}
     _, sec, drift, counts = gate_rollout(
         "1M path", rollout, energy, st0, steps, k,
-        {**zero, "cell_forces_streaming": 2 * (steps + 2 + 2), "rebin_routing": 3 * -(-steps // k)},
+        launches(cell_forces_streaming=2 * (steps + 2 + 2), rebin_routing=3 * -(-steps // k)),
     )
     bitwise_rerun("1M path", rollout, st0, 100, k)
     ms = 1e3 * sec / steps
@@ -389,7 +431,7 @@ def phase_1m(device, tag):
     steps_s = 100
     _, sec_s, drift_s, counts_s = gate_rollout(
         "1M stacked path", roll_s, energy_s, st0, steps_s, k,
-        {**zero, "cell_forces_streaming": 2 * (steps_s + 2 + 2), "rebin_routing": 3 * -(-steps_s // k)},
+        launches(cell_forces_streaming=2 * (steps_s + 2 + 2), rebin_routing=3 * -(-steps_s // k)),
     )
     bitwise_rerun("1M stacked path", roll_s, st0, 50, k)
     log(f"{tag} 1M stacked path (per-atom params, K5): {steps_s} steps, {1e3 * sec_s / steps_s:.4f} ms/step; "
@@ -398,10 +440,32 @@ def phase_1m(device, tag):
 
 
 def counters():
-    from emdee_tpu_torch.neighbors import cell_kernel, rebin_kernel, straggler_kernel, streaming_kernel
+    from emdee_tpu_torch.neighbors import (
+        cell_kernel, compact_kernel, rebin_kernel, straggler_kernel, streaming_kernel,
+    )
 
     return {"cell_forces": cell_kernel, "cell_forces_streaming": streaming_kernel,
-            "rebin_routing": rebin_kernel, "straggler_aux": straggler_kernel}
+            "rebin_routing": rebin_kernel, "straggler_aux": straggler_kernel,
+            "compact_window": compact_kernel}
+
+
+def launches(**nonzero):
+    """The expected launch counts of a path: every kernel 0 but those named."""
+    return {**{name: 0 for name in counters()}, **nonzero}
+
+
+def no_host_waits(label, fn) -> None:
+    """Run `fn` under `torch.cuda.set_sync_debug_mode("error")`: any call
+    that waits for the device raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{label}: waits for the device: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 def gate_rollout(label, rollout, energy, st0, steps, rebin_every, expected):
@@ -431,12 +495,19 @@ def gate_rollout(label, rollout, energy, st0, steps, rebin_every, expected):
     return out, seconds, drift, counts
 
 
-def bitwise_rerun(label, rollout, st0, steps, rebin_every):
-    a = rollout(st0, num_steps=steps, rebin_every=rebin_every)
-    b = rollout(st0, num_steps=steps, rebin_every=rebin_every)
+def bitwise_rerun(label, rollout, st0, steps, rebin_every, seed=None):
+    """Two rollouts from st0 are bitwise equal; with `seed`, both draw from
+    a generator seeded with it, and a third from seed + 1 differs."""
+    def run(s):
+        kw = {} if s is None else {"rng": torch.Generator(device=st0.positions.device).manual_seed(s)}
+        return rollout(st0, num_steps=steps, rebin_every=rebin_every, **kw)
+
+    a, b = run(seed), run(seed)
     for (name, x), (_, y) in zip(tensors(a), tensors(b)):
         if not torch.equal(x, y):
             raise AssertionError(f"{label}: reruns differ in {name}")
+    if seed is not None and torch.equal(run(seed + 1).velocities, a.velocities):
+        raise AssertionError(f"{label}: another seed gave the same trajectory")
 
 
 def phase_straggler_kernel(device, tag, label, sconfig, pos_eq, vel_eq, params, model, uni, n):
@@ -549,7 +620,360 @@ def phase_straggler_kernel(device, tag, label, sconfig, pos_eq, vel_eq, params, 
     }
 
 
+def by_atom(state, values, n):
+    """Per-slot values (M³, C, …) of a dense state in atom order (n, …)."""
+    out = torch.zeros((n,) + tuple(values.shape[2:]), dtype=values.dtype, device=values.device)
+    out[state.atom_id[state.valid].long()] = values[state.valid]
+    return out
+
+
+def spill_counts(pos, config):
+    """(atoms the spill init stores outside their own cell, of them across
+    the periodic seam) for atom positions `pos` on a spill config."""
+    from emdee_tpu_torch.neighbors.cell_dense import _spill_assign_np
+
+    p64 = pos.astype(np.float64)
+    p64 = p64 - np.floor(p64 / config.box) * config.box
+    cells, _, seam, ok = _spill_assign_np(p64, config)
+    if not ok:
+        raise AssertionError("spill init: the assignment overflows")
+    free = _spill_assign_np(p64, config._replace(capacity=len(pos)))[0]
+    return int((cells != free).sum()), int(seam.any(1).sum())
+
+
+def split_vs_plain(st, config, uni, scale, label):
+    """The split force kernel (K2a) vs its plain version on one state,
+    within 2e-5 of the force scale: returns ((fx, fy, fz), max |dF|)."""
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces_split
+
+    px, py, pz = (st.positions[..., i].contiguous() for i in range(3))
+    fk = cell_forces_split(px, py, pz, st.valid, config, uniform_params=uni, backend="cuda")
+    fp = cell_forces_split(px, py, pz, st.valid, config, uniform_params=uni, backend="torch")
+    torch.cuda.synchronize()
+    v = st.valid
+    return fk, max(close(f"{label} split f{a}", k[v], p[v], atol=2e-5 * scale) for a, k, p in zip("xyz", fk, fp))
+
+
+def phase_seam(device, tag, model, uni):
+    """A spill init with seam spills on the card: 1,500 atoms at random at
+    ρ = 0.75, 0.85σ apart at least (seed 0), on their spill config with the
+    capacity cut to 28 (tests/test_torch_spill.py's fixture), so that the
+    init stores atoms across the periodic seam; then K2b and K2a vs their
+    plain versions, which min-image every difference, on the init state —
+    a seam spill stored a box away from its cell's frame fails this.
+    Returns max |dF|."""
+    from emdee_tpu_torch import cell_dense_init, lennard_jones_atom, suggest_cell_dense_config
+    from emdee_tpu_torch.utils.lattice import maxwell_boltzmann, random_fluid
+
+    n = 1500
+    pos, box = random_fluid(n, 0.75, 0.85, seed=0)
+    config = suggest_cell_dense_config(n, box, CUTOFF, SWITCH, 0.3, spill=True)._replace(capacity=28)
+    params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
+    st = cell_dense_init(pos, maxwell_boltzmann(n, 1.0, seed=1), np.ones(n), params, config, device=device)
+    spilled, at_seam = spill_counts(pos, config)
+    if bool(st.overflow) or at_seam < 1:
+        raise AssertionError(f"seam fixture: overflow {bool(st.overflow)}, {at_seam} atoms spilled at the seam")
+    err_e, scale = check_cell_forces(st, config, model, "seam spill init")
+    _, err_s = split_vs_plain(st, config, uni, scale, "seam spill init")
+    log(f"{tag} seam spill init: {n} atoms, M={config.cells_per_dim} C={config.capacity}, {spilled} atoms "
+        f"spilled at init, {at_seam} across the seam; kernel vs plain max |dF| per-atom+energies {err_e:.3e}, "
+        f"split {err_s:.3e} (scale {scale:.3f})")
+    return max(err_e, err_s)
+
+
+def phase_spill_init(device, tag, pos_eq, vel_eq, params, model, uni, wide):
+    """The equilibrated melt re-initialised on its spill config: how many
+    atoms the init spills (across the periodic seam), then K2b and K2a vs
+    their plain versions on the init state, and the kernel's forces in atom
+    order vs the wide state's.  Returns (state, config, max |dF|)."""
+    from emdee_tpu_torch import cell_dense_init
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
+
+    n = wide.num_atoms
+    scfg = spill_config(wide)
+    st = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, scfg, device=device)
+    spilled, at_seam = spill_counts(pos_eq, scfg)
+    if bool(st.overflow) or spilled < 1:
+        raise AssertionError(f"spill init: overflow {bool(st.overflow)}, {spilled} spilled")
+    err_e, scale = check_cell_forces(st, scfg, model, "spill init")
+    fk, err_s = split_vs_plain(st, scfg, uni, scale, "spill init")
+    wst = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, wide, device=device)
+    fw = by_atom(wst, cell_forces(wst, model, wide, backend="cuda")[0], n)
+    fs = by_atom(st, torch.stack(fk, -1), n)
+    torch.cuda.synchronize()
+    err_w = close("spill init vs wide state", fs, fw, atol=2e-5 * scale)
+    log(f"{tag} spill init: {n} atoms, M={scfg.cells_per_dim} C={scfg.capacity} "
+        f"(eps {scfg.cell_side - CUTOFF - SKIN:.4f}), {spilled} atoms spilled at init, {at_seam} across the seam; "
+        f"kernel vs plain max |dF| per-atom+energies {err_e:.3e}, split {err_s:.3e}; vs the wide state's "
+        f"forces in atom order {err_w:.3e} (scale {scale:.3f})")
+    return st, scfg, max(err_e, err_s)
+
+
+def phase_compact(device, tag, st, scfg):
+    """The spill route with K7 vs its plain version on the spill state
+    drifted 0.45·skin (every field, the valid mask and the flag, bit for
+    bit), then K7 alone on the real windows of the route's first pass: its
+    output vs the plain version's in every slot, and the times of K7, the
+    plain version and the plain version's one `scatter_` call."""
+    from emdee_tpu_torch.neighbors.cell_dense import (
+        _axis_coords, _rebin_shift_core, _roll_cells, _route_windows, _spill_params,
+    )
+    from emdee_tpu_torch.neighbors.compact_kernel import compact_stacked
+
+    sd = drifted(st, SKIN)
+    fields = [sd.positions[..., i] for i in range(3)] + [sd.velocities[..., i] for i in range(3)]
+    fields.append(sd.atom_id)
+    ovf0 = torch.zeros((), dtype=torch.bool, device=device)
+    rk, vk, ok_ = _rebin_shift_core(list(fields), sd.valid, ovf0, scfg, "cuda")
+    rp, vp, op_ = _rebin_shift_core(list(fields), sd.valid, ovf0, scfg, "torch")
+    torch.cuda.synchronize()
+    same_fields("spill route kernel vs plain", rk + [vk, ok_], rp + [vp, op_])
+    moved = int(((rk[6] != sd.atom_id) & vk).sum())
+    if bool(ok_) or moved < 1000:
+        raise AssertionError(f"spill route fixture: overflow {bool(ok_)}, {moved} slots moved")
+
+    m, c, ns = scfg.cells_per_dim, scfg.capacity, scfg.num_slots
+    box = torch.full((), scfg.box, dtype=torch.float32, device=device)
+    wrapped = [torch.where(sd.valid, f - torch.floor(f / box) * box, 0.0) for f in fields[:3]] + fields[3:]
+    nbr = lambda x, d: _roll_cells(x, (0, 0, d), m)  # noqa: E731  the z pass
+    s_, keep, win, counts, _ = _route_windows(
+        wrapped, sd.valid, ovf0, 2, _axis_coords(m, device)[0], m, c, nbr, box, _spill_params(scfg))
+    args = (s_, keep, win, c, ns)
+    out_k = compact_stacked(*args, backend="cuda")
+    out_p = compact_stacked(*args, backend="torch")
+    torch.cuda.synchronize()
+    if not torch.equal(out_k, out_p):
+        raise AssertionError("K7 vs plain: output slots differ")
+    nf, rows, k3 = win.shape
+    ms = device_ms(lambda: compact_stacked(*args, backend="cuda"), 200)
+    host_ms = cuda_ms(lambda: compact_stacked(*args, backend="cuda"), 200)
+    plain_ms = cuda_ms(lambda: compact_stacked(*args, backend="torch"), 20)
+    lane = torch.arange(k3, device=device)
+    placed = keep & (lane - s_ < c)
+    dest = torch.where(placed, lane - s_.long(), c).expand(nf, rows, k3)
+    dump = torch.zeros((nf, rows, c + 1), dtype=torch.int32, device=device)
+    library_ms = device_ms(lambda: dump.scatter_(2, dest, win), 200)
+    # This run's data: s (4 B) and keep (1 B) of every lane, the nf window
+    # words of each kept lane that lands in a slot (no other window word is
+    # needed), and nf output words per slot.
+    kept = int(placed.sum())
+    bound_ms, bound_by = bound(rows * k3 * 5 + 4 * nf * kept + 4 * nf * rows * c, 0)
+    log(f"{tag} K7 at the spill config (M={m} C={c}, {rows} rows, nf={nf}): spill route kernel vs plain bit-exact "
+        f"in every field, the mask and the flag ({moved} slots moved); K7 vs plain equal in every slot of the "
+        f"z pass ({int(counts.sum())} arrivals, {kept} kept lanes placed of {rows * k3}); {ms:.5f} ms a pass on "
+        f"the device ({host_ms:.5f} ms a call with the host's launch cost), plain {plain_ms:.4f} ms, one "
+        f"scatter_ {library_ms:.5f} ms on the device; bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{ms and bound_ms / ms:.1%} of it reached)")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "host_bound_ms": host_ms, "kept_lanes": kept}
+
+
+def off_true_cell(st, config) -> int:
+    """Atoms a spill state stores outside their true cell (spills and
+    hold-backs since the last rebin)."""
+    m = config.cells_per_dim
+    p = st.positions[st.valid]
+    v = torch.clamp(torch.floor(m * (p / config.box - torch.floor(p / config.box))).long(), 0, m - 1)
+    true = v[:, 0] + m * (v[:, 1] + m * v[:, 2])
+    cell = torch.arange(config.num_cells, device=p.device)[:, None].expand_as(st.valid)[st.valid]
+    return int((true != cell).sum())
+
+
+def flag_cause(st, config) -> str:
+    """What a spill state meets at its next rebin: the occupancy of the
+    atoms' true cells, and per routing pass the largest arrival count, the
+    cells above capacity and whether the pass raises the flag."""
+    from emdee_tpu_torch.neighbors.cell_dense import (
+        _PASSES, _axis_coords, _roll_cells, _route_axis_pass, _route_windows, _spill_params,
+    )
+
+    m, c = config.cells_per_dim, config.capacity
+    dev = st.positions.device
+    box = torch.full((), config.box, dtype=torch.float32, device=dev)
+    p = st.positions[st.valid]
+    v = torch.clamp(torch.floor(m * (p / box - torch.floor(p / box))).long(), 0, m - 1)
+    occ = torch.bincount(v[:, 0] + m * (v[:, 1] + m * v[:, 2]), minlength=m**3).double()
+    notes = [f"true-cell occupancy mean {float(occ.mean()):.2f}, sd {float(occ.std()):.2f}, max {int(occ.max())}"]
+    valid = st.valid
+    fields = [torch.where(valid, st.positions[..., i] - torch.floor(st.positions[..., i] / box) * box, 0.0)
+              for i in range(3)]
+    fields += [st.velocities[..., i] for i in range(3)] + [st.atom_id]
+    coords = _axis_coords(m, dev)
+    for axis, off, cf in _PASSES:
+        nbr = lambda x, d, off=off: _roll_cells(x, tuple(d * o for o in off), m)  # noqa: E731
+        ovf = torch.zeros((), dtype=torch.bool, device=dev)
+        args = (fields, valid, ovf, cf, coords[axis], m, c, nbr, box)
+        counts, flag = _route_windows(*args, _spill_params(config))[3:]
+        notes.append(f"{'zyx'[axis]} pass: max arrivals {int(counts.max())}, {int((counts > c).sum())} cells "
+                     f"above C, flag {bool(flag)}")
+        fields, valid, _ = _route_axis_pass(*args, spill=_spill_params(config), last_fill=config.num_slots,
+                                            backend="cuda")
+    return "; ".join(notes)
+
+
+def phase_spill_path(tag, st0, scfg, model, uni, k, main_ms, save_flag=None):
+    """Spill NVE on the component carry: first, at the suggested capacity
+    without squeeze, how many rebin blocks pass before the sticky flag trips
+    (a measurement, not a gate; with `save_flag`, the state before the
+    flagged block's rebin and its config go to that .npz file); then at the
+    squeeze target 1,000 gated steps (K7 three times a rebin, K4 never),
+    bitwise reruns, no host waits; then a short stacked per-atom run.
+    Returns ({path: counts}, ms/step)."""
+    from emdee_tpu_torch import make_cell_dense_sim
+    from emdee_tpu_torch.neighbors.cell_dense import _rebin_shift, state_to_numpy
+
+    n = scfg.num_atoms
+    plain_cfg = scfg._replace(spill_target=0)
+    roll0, _ = make_cell_dense_sim(plain_cfg, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    st, prev, blocks = st0, st0, 0
+    while blocks < 200 and not bool(st.overflow):
+        prev, st, blocks = st, roll0(st, num_steps=k, rebin_every=k), blocks + 1
+    log(f"{tag} spill config without squeeze (C={plain_cfg.capacity}): "
+        + (f"sticky flag after {blocks} rebin blocks of {k} steps; its last rebin: {flag_cause(prev, plain_cfg)}"
+           if bool(st.overflow) else f"no flag in {blocks} rebin blocks of {k} steps"))
+    if save_flag and bool(st.overflow):
+        np.savez(save_flag, config=json.dumps(plain_cfg._asdict(), default=float), blocks=blocks,
+                 rebin_every=k, **state_to_numpy(prev))
+        log(f"{tag} saved the state before the flagged rebin to {save_flag}")
+
+    rollout, energy = make_cell_dense_sim(scfg, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    rollout(st0, num_steps=2 * k, rebin_every=k)  # warm-up
+    steps = 1000
+    out, sec, drift, counts = gate_rollout(
+        "spill path", rollout, energy, st0, steps, k,
+        launches(cell_forces=steps + 2 + 2, compact_window=3 * -(-steps // k)),
+    )
+    off = off_true_cell(_rebin_shift(out, scfg, backend="cuda"), scfg)
+    bitwise_rerun("spill path", rollout, st0, 100, k)
+    no_host_waits("spill path", lambda: rollout(st0, num_steps=2 * k, rebin_every=k))
+    ms = 1e3 * sec / steps
+    log(f"{tag} spill path (component carry, M={scfg.cells_per_dim} C={scfg.capacity} squeeze target "
+        f"{scfg.spill_target}): {steps} steps in {sec:.3f} s = {ms:.4f} ms/step, {n * steps / sec:,.0f} "
+        f"atom-steps/s; NVE drift {drift:.3e}; launches {counts}; {off} atoms stored off their true cell after "
+        "a rebin of the end state; two 100-step rollouts bitwise equal; no host waits")
+
+    roll_s, energy_s = make_cell_dense_sim(scfg, model, dt=DT)
+    steps_s = 100
+    _, sec_s, drift_s, counts_s = gate_rollout(
+        "spill stacked path", roll_s, energy_s, st0, steps_s, k,
+        launches(cell_forces=steps_s + 2 + 2, compact_window=3 * -(-steps_s // k)),
+    )
+    bitwise_rerun("spill stacked path", roll_s, st0, 50, k)
+    no_host_waits("spill stacked path", lambda: roll_s(st0, num_steps=2 * k, rebin_every=k))
+    log(f"{tag} spill stacked path (per-atom params): {steps_s} steps, {1e3 * sec_s / steps_s:.4f} ms/step; "
+        f"NVE drift {drift_s:.3e}; launches {counts_s}; reruns bitwise equal; no host waits")
+    log(f"{tag}: spill path {ms:.4f} ms/step ({n * 1e3 / ms:,.0f} atom-steps/s) vs dense main path "
+        f"{main_ms:.4f} ms/step ({n * 1e3 / main_ms:,.0f} atom-steps/s)")
+    return {"spill": counts, "spill_stacked": counts_s}, ms
+
+
+def pressure(energy, st, config):
+    _, vir, ke = energy(st)
+    box = config.box if st.box is None else float(st.box)
+    return (2.0 * float(ke) + float(vir)) / (3.0 * box**3)
+
+
+def phase_thermostat(tag, label, config, model, st0, thermostat, rebin, main_ms, **extra):
+    """An NVT (or, with a barostat in `extra`, NPT) path: 1,000 steps from
+    st0 with per-block records and the launch counts gated, the temperature
+    of the last 500 steps, reruns bitwise equal from one generator seed and
+    different from another, no host waits.  Returns (end state, counts,
+    ms/step, mean T* of the last 500 steps, records)."""
+    from emdee_tpu_torch import make_cell_dense_sim
+
+    n = config.num_atoms
+    device = st0.positions.device
+    rollout, energy = make_cell_dense_sim(config, model, dt=DT, thermostat=thermostat, **extra)
+    rollout(st0, num_steps=2 * rebin, rebin_every=rebin, rng=torch.Generator(device=device).manual_seed(1))
+    steps = 1000
+    records, rebins = steps // rebin, -(-steps // rebin)
+    # One force pass a step and one to start; K2b with energies for each
+    # record and, with a barostat, for each block's pressure.
+    forces = 1 + steps + records + (rebins if "barostat" in extra else 0)
+    routing = {"compact_window" if config.spill else "rebin_routing": 3 * rebins}
+    expected = launches(cell_forces=forces, **routing)
+    mods = counters()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    g = torch.Generator(device=device).manual_seed(7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, rec = rollout(st0, num_steps=steps, rebin_every=rebin, record=True, rng=g)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = {name: mod.LAUNCHES for name, mod in mods.items()}
+    if bool(out.overflow):
+        raise AssertionError(f"{label}: overflow")
+    if counts != expected:
+        raise AssertionError(f"{label}: kernel launches {counts}, expected {expected}")
+    step, _, _, ke = rec
+    last = step > int(st0.step) + steps - 500
+    t_last = float((2.0 * ke[last].double() / (3.0 * n - 3.0)).mean())
+    if not abs(t_last / T_NVT - 1.0) <= T_GATE:
+        raise AssertionError(f"{label}: mean T* of the last 500 steps {t_last:.4f}, target {T_NVT}")
+    bitwise_rerun(label, rollout, st0, 100, rebin, seed=11)
+    no_host_waits(label, lambda: rollout(st0, num_steps=2 * rebin, rebin_every=rebin, record=True,
+                                         rng=torch.Generator(device=device).manual_seed(3)))
+    ms = 1e3 * sec / steps
+    log(f"{tag} {label} (M={config.cells_per_dim} C={config.capacity}, rebin every {rebin}): {steps} steps in "
+        f"{sec:.3f} s = {ms:.4f} ms/step, {n * steps / sec:,.0f} atom-steps/s (dense main path {main_ms:.4f} "
+        f"ms/step); mean T* of the last 500 steps {t_last:.4f}; launches {counts}; reruns from one seed "
+        "bitwise equal, another seed differs; no host waits")
+    return out, counts, ms, t_last, energy
+
+
+def phase_nvt_npt(device, tag, wide, spill_st, scfg, model, pos_eq, vel_eq, params, main_ms):
+    """CSVR NVT on the wide config (K2b + K4), Langevin NVT on the spill
+    config (K2b + K7), NPT from the CSVR state (K2b and K4 reading the
+    dynamic box on the device), and `reconfigure_dense_state` on the NPT
+    end state.  Returns ({path: counts}, {path: ms/step})."""
+    from emdee_tpu_torch import (
+        BerendsenBarostatConfig, CSVRConfig, LangevinConfig, cell_dense_init, gather_dense_fields,
+        reconfigure_dense_state, suggest_rebin_interval,
+    )
+
+    n = wide.num_atoms
+    k = suggest_rebin_interval(SKIN, DT, T_NVT)
+    csvr = CSVRConfig(T_NVT, TAU_T)
+    st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, wide, device=device)
+    nvt, c_nvt, ms_nvt, _, energy = phase_thermostat(tag, "NVT CSVR path", wide, model, st0, csvr, k, main_ms)
+    _, c_lan, ms_lan, _, _ = phase_thermostat(tag, "NVT Langevin spill path", scfg, model, spill_st,
+                                              LangevinConfig(T_NVT, FRICTION), k, main_ms)
+
+    p0 = pressure(energy, nvt, wide)
+    npt, c_npt, ms_npt, _, _ = phase_thermostat(
+        tag, "NPT path", wide, model, nvt, csvr, k, main_ms,
+        barostat=BerendsenBarostatConfig(P_NPT, TAU_P, KAPPA))
+    p1 = pressure(energy, npt, wide)
+    grew = float(npt.box) / wide.box - 1.0
+    log(f"{tag} NPT: P* {p0:.4f} -> {p1:.4f} (target {P_NPT}), box {wide.box:.4f} -> {float(npt.box):.4f} "
+        f"({100 * grew:+.2f}%)")
+    if not (grew > 0.01 and abs(p1 - P_NPT) < 0.5 * abs(p0 - P_NPT)):
+        raise AssertionError(f"NPT: box grew {grew:.4f}, P* {p0:.4f} -> {p1:.4f}")
+
+    st2, cfg2 = reconfigure_dense_state(npt, wide)
+    a, b = gather_dense_fields(npt, n), gather_dense_fields(st2, n)
+    box2 = np.float32(cfg2.box)
+    for name in ("velocities", "masses", "half_sigma", "twice_sqrt_eps"):
+        if not np.array_equal(a[name], b[name]):
+            raise AssertionError(f"reconfigure: {name} changed")
+    wrap = lambda p: p - np.floor(p / box2) * box2  # noqa: E731
+    if not np.array_equal(wrap(a["positions"]), wrap(b["positions"])):
+        raise AssertionError("reconfigure: positions changed beyond the wrap")
+    if int(st2.step) != int(npt.step) or bool(st2.overflow) or int(st2.valid.sum()) != n:
+        raise AssertionError("reconfigure: step, flag or atom count")
+    log(f"{tag} reconfigure_dense_state on the NPT end state: M={wide.cells_per_dim} C={wide.capacity} -> "
+        f"M={cfg2.cells_per_dim} C={cfg2.capacity} at box {cfg2.box:.4f}; every per-atom field survives "
+        f"exactly, step {int(st2.step)} carried over")
+    return ({"nvt_csvr": c_nvt, "nvt_langevin_spill": c_lan, "npt": c_npt},
+            {"nvt_csvr": ms_nvt, "nvt_langevin_spill": ms_lan, "npt": ms_npt})
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description="Smoke test of emdee_tpu_torch on one CUDA card.")
+    parser.add_argument("--save-spill-flag", metavar="FILE",
+                        help="save the spill state whose next rebin raises the flag at the suggested capacity")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA device")
     smi = card()
@@ -589,8 +1013,7 @@ def main() -> None:
     n_rebins = -(-steps // k)
     out, sec, drift, main_counts = gate_rollout(
         "main path", rollout, energy, st0, steps, k,
-        {"cell_forces": steps + 2 + 2, "cell_forces_streaming": 0, "rebin_routing": 3 * n_rebins,
-         "straggler_aux": 0},
+        launches(cell_forces=steps + 2 + 2, rebin_routing=3 * n_rebins),
     )
     main_ms = 1e3 * sec / steps
     log(f"{tag} main path (component carry, uniform params): {steps} steps in {sec:.3f} s = "
@@ -604,8 +1027,7 @@ def main() -> None:
     steps_s = 200
     _, sec_s, drift_s, counts_s = gate_rollout(
         "README path", roll_s, energy_s, st0, steps_s, k,
-        {"cell_forces": steps_s + 2 + 2, "cell_forces_streaming": 0, "rebin_routing": 3 * -(-steps_s // k),
-         "straggler_aux": 0},
+        launches(cell_forces=steps_s + 2 + 2, rebin_routing=3 * -(-steps_s // k)),
     )
     bitwise_rerun("README path", roll_s, st0, 100, k)
     log(f"{tag} README path (stacked, per-atom params): {steps_s} steps, "
@@ -626,6 +1048,18 @@ def main() -> None:
         f"({n * 1e3 / main_ms:,.0f} atom-steps/s); plain path {plain_ms:.3f} ms/step "
         f"({n * 1e3 / plain_ms:,.0f} atom-steps/s)")
 
+    # ---- the spill mode (K7), NVT and NPT on the same melt ----
+    seam_err = phase_seam(device, tag, model, uni)
+    spill_st, scfg, spill_err = phase_spill_init(device, tag, pos_eq, vel_eq, params, model, uni, config)
+    force["max_abs_err"] = max(force["max_abs_err"], seam_err, spill_err)
+    k7 = phase_compact(device, tag, spill_st, scfg)
+    counts_spill, spill_ms = phase_spill_path(tag, spill_st, scfg, model, uni, k, main_ms,
+                                              args.save_spill_flag)
+    counts_thermo, thermo_ms = phase_nvt_npt(device, tag, config, spill_st, scfg, model, pos_eq, vel_eq,
+                                             params, main_ms)
+    log(f"{smi}: ms/step at {n} atoms — dense main path {main_ms:.4f}, spill {spill_ms:.4f}, "
+        + ", ".join(f"{p} {v:.4f}" for p, v in thermo_ms.items()))
+
     # ---- K3: bench.py's production straggler config, and a stressed one ----
     production = straggler_config(config, 4, 64, 16)
     k3 = phase_straggler_kernel(device, tag, "production", production, pos_eq, vel_eq, params, model, uni, n)
@@ -645,8 +1079,7 @@ def main() -> None:
     s_roll(s0, num_steps=2 * k, rebin_every=k)  # warm-up
     s_out, s_sec, s_drift, s_counts = gate_rollout(
         "straggler path", s_roll, s_energy, s0, steps, k,
-        {"cell_forces": steps + 2 + 2, "cell_forces_streaming": 0, "rebin_routing": 3 * n_rebins,
-         "straggler_aux": steps + 2},
+        launches(cell_forces=steps + 2 + 2, rebin_routing=3 * n_rebins, straggler_aux=steps + 2),
     )
     parked1 = int((s_out.aux_cell < nc).sum())
     if parked1 < 1:
@@ -667,7 +1100,7 @@ def main() -> None:
         f"{k5['ms']:.4f} vs {k2_1m['k2_split_ms']:.4f} ms at 1M, {k5_97k['ms']:.4f} vs "
         f"{k2_97k['k2_split_ms']:.4f} ms at 97,556 atoms")
 
-    paths = {"dense": main_counts, "straggler": s_counts, **counts_1m}
+    paths = {"dense": main_counts, "straggler": s_counts, **counts_spill, **counts_thermo, **counts_1m}
     by_path = lambda name: {p: c[name] for p, c in paths.items() if c[name]}  # noqa: E731
     kernels = [
         dict(name="cell_forces", route="cuda", source="emdee_tpu_torch/csrc/cell_forces.cu",
@@ -689,6 +1122,10 @@ def main() -> None:
         dict(name="straggler_aux", route="cuda", source="emdee_tpu_torch/csrc/straggler_forces.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:807",
              launches=s_counts["straggler_aux"], launches_by_path=by_path("straggler_aux"), **k3["aux"]),
+        dict(name="compact_window", route="cuda", source="emdee_tpu_torch/csrc/compact_window.cu",
+             replaces="emdee_tpu/neighbors/pallas_compact.py:34",
+             launches=sum(by_path("compact_window").values()),
+             launches_by_path=by_path("compact_window"), **k7),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,16 +4,21 @@ The JAX package `emdee_tpu` stays the reference; this package mirrors its
 module layout, so each file here has one counterpart there.  It imports
 `torch` and numpy, never JAX.
 
-It covers the dense-cell Lennard-Jones NVE main path (slot binning, the
-leapfrog rollout with Kahan-compensated drift and kick, the ±1-cell shift
-rebin, the energy closure) with the TPU engine's two force-kernel families
-— resident and streaming, picked by `resolve_dense_backend` as the TPU
-engine picks them — and the C-tight straggler engine on top of it.  Its
-kernels are hand-written CUDA for `sm_90a` (`csrc/cell_forces.cu`,
-`csrc/cell_forces_streaming.cu`, `csrc/rebin_routing.cu`,
+It covers the dense-cell Lennard-Jones engine (slot binning, the leapfrog
+NVE rollout with Kahan-compensated drift and kick, the synced
+kick-drift-kick rollout with per-block records, CSVR and Langevin NVT,
+Berendsen NPT on a dynamic box, the ±1-cell shift rebin and the sort
+rebin, the boundary-spill capacity mode with squeeze and
+`shrink_capacity`, `reconfigure_dense_state`, the energy closure) with the
+TPU engine's two force-kernel families — resident and streaming, picked by
+`resolve_dense_backend` as the TPU engine picks them — and the C-tight
+straggler engine on top of it.  Its kernels are hand-written CUDA for
+`sm_90a` (`csrc/cell_forces.cu`, `csrc/cell_forces_streaming.cu`,
+`csrc/rebin_routing.cu`, `csrc/compact_window.cu`,
 `csrc/straggler_forces.cu`), each with a plain PyTorch version beside it
 (`neighbors/cell_kernel.py`, `neighbors/streaming_kernel.py`,
-`neighbors/rebin_kernel.py`, `neighbors/straggler_kernel.py`).  A wrapper
+`neighbors/rebin_kernel.py`, `neighbors/compact_kernel.py`,
+`neighbors/straggler_kernel.py`).  A wrapper
 runs the plain version for CPU tensors and launches its kernel for CUDA
 tensors.  Entry points build their tensors on the CUDA card unless the
 caller names a device (`device="cpu"` for the CPU).
@@ -21,15 +26,20 @@ caller names a device (`device="cpu"` for the CPU).
 
 from emdee_tpu_torch.core.types import ALL_OUTPUTS, ENERGIES, FORCES, VIRIALS, LJParams
 from emdee_tpu_torch.neighbors.cell_dense import (
+    BerendsenBarostatConfig,
     CellDenseConfig,
     CellDenseState,
+    CSVRConfig,
+    LangevinConfig,
     cell_dense_init,
     detect_uniform_params,
     estimate_kernel_vmem_bytes,
     gather_dense_atoms,
     gather_dense_fields,
     make_cell_dense_sim,
+    reconfigure_dense_state,
     resolve_dense_backend,
+    shrink_capacity,
     suggest_cell_dense_config,
     suggest_rebin_interval,
 )
@@ -59,15 +69,20 @@ __all__ = [
     "FORCES",
     "VIRIALS",
     "LJParams",
+    "BerendsenBarostatConfig",
     "CellDenseConfig",
     "CellDenseState",
+    "CSVRConfig",
+    "LangevinConfig",
     "cell_dense_init",
     "detect_uniform_params",
     "estimate_kernel_vmem_bytes",
     "gather_dense_atoms",
     "gather_dense_fields",
     "make_cell_dense_sim",
+    "reconfigure_dense_state",
     "resolve_dense_backend",
+    "shrink_capacity",
     "suggest_cell_dense_config",
     "suggest_rebin_interval",
     "StragglerConfig",

@@ -36,14 +36,14 @@ _L = ctypes.c_long
 _SIGNATURES = {
     # px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w,
     # m, c, box, rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u,
-    # uniform, energy, stream
+    # uniform, energy, stream (box: a 0-d float32 device tensor's pointer)
     "emdee_cell_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                          _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
-                          _I, _I, _P],
-    # px, py, pz, valid, fx, fy, fz, ax, ay, az, table, kn, m, c, box,
+                          _I, _I, _P, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                          _F, _I, _I, _P],
+    # px, py, pz, valid, fx, fy, fz, ax, ay, az, table, kn, m, c, box (device),
     # rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u, stream
     "emdee_cell_forces_strag": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                                _I, _I, _I, _P, _F, _F, _F, _F, _F, _F, _F,
                                 _F, _F, _F, _P],
     # px, py, pz, valid, ax, ay, az, acell, afx, afy, afz, m, c, a_cap, box,
     # rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u, stream
@@ -51,15 +51,18 @@ _SIGNATURES = {
                             _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                             _F, _F, _F, _P],
     # px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, groups,
-    # m, c, box, rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u,
-    # uniform, energy, stream
+    # m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u,
+    # eps4_u, uniform, energy, stream
     "emdee_streaming_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
-                               _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                               _P, _P, _I, _I, _P, _F, _F, _F, _F, _F, _F, _F,
                                _F, _F, _F, _I, _I, _P],
     # fx, fy, fz, fstride, e, w, groups, num_slots, energy, stream
     "emdee_streaming_fold": [_P, _P, _P, _I, _P, _P, _P, _L, _I, _P],
-    # in, out, flag, nf, m, c, axis, cf, num_slots, box, stream
-    "emdee_rebin_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # in, out, flag, nf, m, c, axis, cf, num_slots, box (device), stream
+    "emdee_rebin_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # s, keep, win, out, rows, nf, c, win_f, win_r, out_f, out_r, last_fill,
+    # stream
+    "emdee_compact_window": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _P],
 }
 
 

@@ -19,7 +19,9 @@
 // never wrapped, because between rebins positions overhang the box by up to
 // skin/2.  Empty slots are skipped through the valid mask, the
 // self pair (same cell, same slot) is skipped, and an empty center slot
-// writes exact zeros.
+// writes exact zeros.  The box is read from a 0-d float32 device tensor (the
+// NPT engine's dynamic box, or the static box held on the device), so no
+// launch waits for a host read of it.
 //
 // Full shell, not half shell: each pair is evaluated from both sides, twice
 // the TPU kernel's pair work, in exchange for no atomics, no reaction buffer
@@ -74,8 +76,9 @@ __global__ void cell_forces_kernel(
     int fstride, float* __restrict__ e_out, float* __restrict__ w_out,
     const float* __restrict__ ax, const float* __restrict__ ay,
     const float* __restrict__ az, const int* __restrict__ table, int kn,
-    int m, int c, float box, PairConsts k) {
+    int m, int c, const float* __restrict__ box_ptr, PairConsts k) {
   extern __shared__ float smem[];
+  const float box = *box_ptr;
   float* sx = smem;
   float* sy = sx + c;
   float* sz = sy + c;
@@ -210,7 +213,7 @@ template <bool UNIFORM, bool ENERGY, bool STRAG = false>
 void launch(const float* px, const float* py, const float* pz, int pstride,
             const float* hs, const float* tse, const uint8_t* valid, float* fx,
             float* fy, float* fz, int fstride, float* e, float* w, int m,
-            int c, float box, const PairConsts& k, cudaStream_t stream,
+            int c, const float* box, const PairConsts& k, cudaStream_t stream,
             const float* ax = nullptr, const float* ay = nullptr,
             const float* az = nullptr, const int* table = nullptr, int kn = 0) {
   const int threads = ((c + 31) / 32) * 32;
@@ -226,7 +229,7 @@ extern "C" int emdee_cell_forces(
     const float* px, const float* py, const float* pz, int pstride,
     const float* hs, const float* tse, const uint8_t* valid, float* fx,
     float* fy, float* fz, int fstride, float* e, float* w, int m, int c,
-    float box, float rc2, float rs2, float invd2, float a_m, float pa1,
+    const float* box, float rc2, float rs2, float invd2, float a_m, float pa1,
     float pa2, float pb1, float pb2, float sig2_u, float eps4_u, int uniform,
     int energy, void* stream) {
   if (m < 3 || c < 1 || c > 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -248,7 +251,7 @@ extern "C" int emdee_cell_forces(
 extern "C" int emdee_cell_forces_strag(
     const float* px, const float* py, const float* pz, const uint8_t* valid,
     float* fx, float* fy, float* fz, const float* ax, const float* ay,
-    const float* az, const int* table, int kn, int m, int c, float box,
+    const float* az, const int* table, int kn, int m, int c, const float* box,
     float rc2, float rs2, float invd2, float a_m, float pa1, float pa2,
     float pb1, float pb2, float sig2_u, float eps4_u, void* stream) {
   if (m < 3 || c < 1 || c > 1024 || kn < 1 || kn > 4096)

@@ -50,6 +50,9 @@
 // where shifting x_j first would round at the scale of the box.  Atoms are
 // never wrapped, since between rebins positions overhang the box by up to
 // skin/2.
+// The box is read from a 0-d float32 device tensor (the NPT engine's dynamic
+// box, or the static box held on the device), only where a neighbour index
+// wraps: holding it in a register from the kernel's start cost ~2% at 1M.
 // Ring lanes past the live packets carry NaN coordinates, which fail the
 // cutoff test; lanes past the live centre slots and the self pair are
 // skipped; an empty slot's outputs are exact zeros.
@@ -99,10 +102,10 @@ struct Fields {
 // each warp's two cell tiles.
 size_t smem_bytes(int m, int c, bool energy);
 
-__device__ __forceinline__ int wrap(int v, int m, float box, float& shift) {
+__device__ __forceinline__ int wrap(int v, int m, const float* __restrict__ box, float& shift) {
   shift = 0.f;
-  if (v < 0) { shift = -box; return v + m; }
-  if (v >= m) { shift = box; return v - m; }
+  if (v < 0) { shift = -*box; return v + m; }
+  if (v >= m) { shift = *box; return v - m; }
   return v;
 }
 
@@ -287,7 +290,7 @@ __global__ void __launch_bounds__(kThreads)
     streaming_kernel(Fields f, float* __restrict__ fx, float* __restrict__ fy,
                      float* __restrict__ fz, int fstride, float* __restrict__ e_out,
                      float* __restrict__ w_out, float* __restrict__ groups, int m, int c,
-                     float box, PairConsts k) {
+                     const float* __restrict__ box_ptr, PairConsts k) {
   constexpr int NR = ENERGY ? 5 : 3;
   extern __shared__ float smem[];
   const int mc = m * c;
@@ -310,13 +313,13 @@ __global__ void __launch_bounds__(kThreads)
   for (int g = 0; g <= kGroups; ++g) {
     const bool own = g == kGroups;  // the own row (0, 0): dx = +1 only
     float shy, shz;
-    const int ny = wrap(y + (own ? 0 : kGroupDy[g]), m, box, shy);
-    const int nz = wrap(z + (own ? 0 : kGroupDz[g]), m, box, shz);
+    const int ny = wrap(y + (own ? 0 : kGroupDy[g]), m, box_ptr, shy);
+    const int nz = wrap(z + (own ? 0 : kGroupDz[g]), m, box_ptr, shz);
     const long nrow = static_cast<long>(nz) * m + ny;
     for (int dx = own ? 1 : -1; dx <= 1; ++dx) {
       for (int x = warp; x < m; x += kWarps) {
         float shx;
-        const int nx = wrap(x + dx, m, box, shx);
+        const int nx = wrap(x + dx, m, box_ptr, shx);
         cell_pair<NA, UNIFORM, ENERGY, true>(f, pencil + x, nrow * m + nx, c, x, nx, shx, shy,
                                              shz, mc, cen_acc, row, tiles, k);
       }
@@ -365,7 +368,7 @@ size_t smem_bytes(int m, int c, bool energy) {
 
 template <int NA, bool UNIFORM, bool ENERGY>
 int launch(const Fields& f, float* fx, float* fy, float* fz, int fstride, float* e, float* w,
-           float* groups, int m, int c, float box, const PairConsts& k, cudaStream_t stream) {
+           float* groups, int m, int c, const float* box, const PairConsts& k, cudaStream_t stream) {
   const size_t smem = smem_bytes(m, c, ENERGY);
   auto kernel = streaming_kernel<NA, UNIFORM, ENERGY>;
   static size_t smem_allowed = 48 * 1024;  // raised once per variant, not per launch
@@ -381,7 +384,7 @@ int launch(const Fields& f, float* fx, float* fy, float* fz, int fstride, float*
 
 template <int NA>
 int dispatch(const Fields& f, float* fx, float* fy, float* fz, int fstride, float* e, float* w,
-             float* groups, int m, int c, float box, const PairConsts& k, int uniform,
+             float* groups, int m, int c, const float* box, const PairConsts& k, int uniform,
              int energy, cudaStream_t s) {
   if (uniform && energy) return launch<NA, true, true>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
   if (uniform) return launch<NA, true, false>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
@@ -396,7 +399,7 @@ int dispatch(const Fields& f, float* fx, float* fy, float* fz, int fstride, floa
 extern "C" int emdee_streaming_forces(
     const float* px, const float* py, const float* pz, int pstride, const float* hs,
     const float* tse, const uint8_t* valid, float* fx, float* fy, float* fz, int fstride,
-    float* e, float* w, float* groups, int m, int c, float box, float rc2, float rs2,
+    float* e, float* w, float* groups, int m, int c, const float* box, float rc2, float rs2,
     float invd2, float a_m, float pa1, float pa2, float pb1, float pb2, float sig2_u,
     float eps4_u, int uniform, int energy, void* stream) {
   const size_t smem = smem_bytes(m, c, energy);

@@ -26,6 +26,8 @@
 // The target cell is bit-exact with the reference:
 // t = clip(floor(m·(s − floor(s))), 0, m−1) with s = coord / box, written
 // with round-to-nearest intrinsics so no contraction changes a bit.
+// The box is read from a 0-d float32 device tensor (the NPT engine's dynamic
+// box, or the static box held on the device).
 //
 // Bound on this card: pure data movement — each pass reads a coordinate
 // three times and every field about once, and writes every field once:
@@ -44,8 +46,9 @@ constexpr int kSentinel = 0x7FC00000;
 __global__ void rebin_pass_kernel(const int* __restrict__ in,
                                   int* __restrict__ out, int* __restrict__ flag,
                                   int nf, int m, int c, int axis, int cf,
-                                  int num_slots, float box) {
+                                  int num_slots, const float* __restrict__ box_ptr) {
   __shared__ int warp_count[32];
+  const float box = *box_ptr;
   const int cell = blockIdx.x;
   const long slots = static_cast<long>(m) * m * m * c;
   const int k = threadIdx.x;
@@ -106,7 +109,7 @@ __global__ void rebin_pass_kernel(const int* __restrict__ in,
 
 extern "C" int emdee_rebin_pass(const int* in, int* out, int* flag, int nf,
                                 int m, int c, int axis, int cf, int num_slots,
-                                float box, void* stream) {
+                                const float* box, void* stream) {
   const int threads = ((3 * c + 31) / 32) * 32;
   if (m < 3 || c < 1 || threads > 1024 || nf < 4 || axis < 0 || axis > 2)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -19,7 +19,7 @@ family (`streaming_kernel.py`) shares this module's operand checks.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -27,7 +27,9 @@ from emdee_tpu_torch.csrc import build
 from emdee_tpu_torch.neighbors.cell_dense import (
     CellDenseConfig,
     CellDenseState,
+    _box_of,
     _dense_forces,
+    box_ptr,
     cell_dense_forces,
     resolve_backend,
 )
@@ -65,14 +67,16 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _launch(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w,
-            config: CellDenseConfig, box: float, uniform_params, energy: bool):
+            config: CellDenseConfig, box, uniform_params, energy: bool):
+    """One kernel launch; `box` is a number or a 0-d float32 tensor on the
+    device, read there either way (`cell_dense.box_ptr`)."""
     global LAUNCHES
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(px.device).cuda_stream
     err = build.load().emdee_cell_forces(
         ptr(px), ptr(py), ptr(pz), pstride, ptr(hs), ptr(tse), ptr(valid),
         ptr(fx), ptr(fy), ptr(fz), fstride, ptr(e), ptr(w),
-        config.cells_per_dim, config.capacity, float(box),
+        config.cells_per_dim, config.capacity, box_ptr(box, px),
         *_pair_consts(config, uniform_params),
         int(uniform_params is not None), int(energy), stream,
     )
@@ -93,7 +97,7 @@ def launch_strag(px, py, pz, valid, ax, ay, az, table, out,
         px.data_ptr(), py.data_ptr(), pz.data_ptr(), valid.data_ptr(),
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
         ax.data_ptr(), ay.data_ptr(), az.data_ptr(), table.data_ptr(), table.shape[1],
-        config.cells_per_dim, config.capacity, float(config.box),
+        config.cells_per_dim, config.capacity, box_ptr(config.box, px),
         *_pair_consts(config, uniform_params), stream,
     )
     build.check(err, "cell_forces kernel (straggler tile)")
@@ -113,11 +117,12 @@ def cell_forces(
     energies and virials (M³, C) — else None, None.
 
     uniform_params: optional (half_sigma, twice_sqrt_eps) floats shared by
-    every atom; the kernel then reads no per-atom parameter fields."""
+    every atom; the kernel then reads no per-atom parameter fields.  The box
+    is the state's (`state.box`, read on the device, else config.box)."""
     if resolve_backend(backend, state.positions) == "torch":
         return cell_dense_forces(state, model, config, compute_energy=compute_energy)
     operands, outputs = stacked_operands(state, config, uniform_params, compute_energy)
-    _launch(*operands, config, config.box, uniform_params, compute_energy)
+    _launch(*operands, config, _box_of(state, config), uniform_params, compute_energy)
     return outputs
 
 
@@ -150,11 +155,12 @@ def cell_forces_split(
     config: CellDenseConfig,
     *,
     uniform_params,
-    box: Optional[float] = None,
+    box=None,
     backend: str = "auto",
 ):
     """Forces (fx, fy, fz), each (M³, C), from component positions with
-    uniform LJ parameters — the component-carry rollout's force call."""
+    uniform LJ parameters — the component-carry rollout's force call.  box:
+    a number, a 0-d float32 tensor on the device, or None for config.box."""
     box = config.box if box is None else box
     if resolve_backend(backend, px) == "torch":
         return split_plain(px, py, pz, valid, config, uniform_params, box)
@@ -163,7 +169,7 @@ def cell_forces_split(
     return outputs
 
 
-def split_plain(px, py, pz, valid, config: CellDenseConfig, uniform_params, box: float):
+def split_plain(px, py, pz, valid, config: CellDenseConfig, uniform_params, box):
     """The plain version of the split entries: the half-shell `_dense_forces`
     with the uniform parameters filled in."""
     hs = torch.full_like(px, uniform_params[0])

@@ -15,7 +15,15 @@ from __future__ import annotations
 import torch
 
 from emdee_tpu_torch.csrc import build
-from emdee_tpu_torch.neighbors.cell_dense import _roll_cells, _route_axis_pass, resolve_backend
+from emdee_tpu_torch.neighbors.cell_dense import (
+    _PASSES,
+    _axis_coords,
+    _box,
+    _roll_cells,
+    _route_axis_pass,
+    box_ptr,
+    resolve_backend,
+)
 
 # Canonical quiet-NaN bit pattern: parks empty slots' position components.
 # A real coordinate is never NaN, so the sentinel is unambiguous validity.
@@ -24,18 +32,14 @@ SENTINEL_BITS = 0x7FC00000
 # Kernel launches (one per routing pass) since import (or a reset to 0).
 LAUNCHES = 0
 
-# (grid axis, +1 cell offset in `_roll_cells`' (ox, oy, oz), coordinate field)
-_PASSES = ((0, (0, 0, 1), 2), (1, (0, 1, 0), 1), (2, (1, 0, 0), 0))
 
-
-def _rebin_routing_plain(fields, box: float, m: int, c: int, num_slots: int):
+def _rebin_routing_plain(fields, box, m: int, c: int, num_slots: int):
     fields = list(fields)
     dev = fields[0].device
-    box_t = torch.full((), box, dtype=torch.float32, device=dev)
+    box_t = _box(box, fields[0])
     valid = fields[2].view(torch.int32) != SENTINEL_BITS
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    cell = torch.arange(m**3, device=dev)
-    coord = {0: cell // (m * m), 1: (cell // m) % m, 2: cell % m}
+    coord = _axis_coords(m, dev)
     for axis, off, cf in _PASSES:
         nbr = lambda x, d, off=off: _roll_cells(x, tuple(d * o for o in off), m)  # noqa: E731
         fields, valid, overflow = _route_axis_pass(
@@ -47,12 +51,13 @@ def _rebin_routing_plain(fields, box: float, m: int, c: int, num_slots: int):
     return tuple(torch.where(valid, f, v) for f, v in zip(fields, fill)), overflow
 
 
-def rebin_routing(fields, box: float, m: int, c: int, num_slots: int, backend: str = "auto"):
+def rebin_routing(fields, box, m: int, c: int, num_slots: int, backend: str = "auto"):
     """All three ±1-cell routing passes.
 
     fields: tuple of (M³, C) tensors — float32 positions x, y, z first, with
     the `SENTINEL_BITS` pattern in empty slots, further float32 fields, and
-    the int32 atom_id last.  Returns (fields, overflow) where overflow is a
+    the int32 atom_id last.  box: a number or a 0-d float32 tensor on the
+    fields' device (the kernel reads it there).  Returns (fields, overflow) where overflow is a
     0-d bool tensor on the fields' device; empty output slots hold the fill
     (sentinel positions, atom_id = num_slots, zeros)."""
     if resolve_backend(backend, fields[0]) == "torch":
@@ -73,10 +78,11 @@ def rebin_routing(fields, box: float, m: int, c: int, num_slots: int, backend: s
     flag = torch.zeros((), dtype=torch.int32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    box_p = box_ptr(box, fields[0])
     for axis, _, cf in _PASSES:
         err = lib.emdee_rebin_pass(
             x.data_ptr(), y.data_ptr(), flag.data_ptr(), nf, m, c, axis, cf,
-            num_slots, float(box), stream,
+            num_slots, box_p, stream,
         )
         build.check(err, "rebin_routing kernel")
         LAUNCHES += 1

@@ -17,14 +17,14 @@ fold that adds the groups in a fixed order.  For CPU tensors, or backend
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from emdee_tpu_torch.csrc import build
 from emdee_tpu_torch.neighbors.cell_dense import (
     CellDenseConfig,
     CellDenseState,
+    _box_of,
+    box_ptr,
     cell_dense_forces,
     resolve_backend,
 )
@@ -55,7 +55,9 @@ def _check_geometry(config: CellDenseConfig, energy: bool) -> None:
 
 
 def _launch(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w,
-            config: CellDenseConfig, box: float, uniform_params, energy: bool) -> None:
+            config: CellDenseConfig, box, uniform_params, energy: bool) -> None:
+    """The pair pass and the fold; `box` is a number or a 0-d float32
+    tensor on the device, read there either way (`cell_dense.box_ptr`)."""
     global LAUNCHES
     _check_geometry(config, energy)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -66,7 +68,7 @@ def _launch(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w,
     err = lib.emdee_streaming_forces(
         ptr(px), ptr(py), ptr(pz), pstride, ptr(hs), ptr(tse), ptr(valid),
         ptr(fx), ptr(fy), ptr(fz), fstride, ptr(e), ptr(w), ptr(groups),
-        config.cells_per_dim, config.capacity, float(box),
+        config.cells_per_dim, config.capacity, box_ptr(box, px),
         *_pair_consts(config, uniform_params),
         int(uniform_params is not None), int(energy), stream,
     )
@@ -93,11 +95,12 @@ def cell_forces_streaming(
     energies and virials (M³, C) — else None, None.
 
     uniform_params: optional (half_sigma, twice_sqrt_eps) floats shared by
-    every atom; the kernel then reads no per-atom parameter fields."""
+    every atom; the kernel then reads no per-atom parameter fields.  The box
+    is the state's (`state.box`, read on the device, else config.box)."""
     if resolve_backend(backend, state.positions) == "torch":
         return cell_dense_forces(state, model, config, compute_energy=compute_energy)
     operands, outputs = stacked_operands(state, config, uniform_params, compute_energy)
-    _launch(*operands, config, config.box, uniform_params, compute_energy)
+    _launch(*operands, config, _box_of(state, config), uniform_params, compute_energy)
     return outputs
 
 
@@ -106,11 +109,12 @@ def cell_forces_streaming_split(
     config: CellDenseConfig,
     *,
     uniform_params,
-    box: Optional[float] = None,
+    box=None,
     backend: str = "auto",
 ):
     """Forces (fx, fy, fz), each (M³, C), from component positions with
-    uniform LJ parameters — the component-carry rollout's force call."""
+    uniform LJ parameters — the component-carry rollout's force call.  box:
+    a number, a 0-d float32 tensor on the device, or None for config.box."""
     box = config.box if box is None else box
     if resolve_backend(backend, px) == "torch":
         return split_plain(px, py, pz, valid, config, uniform_params, box)

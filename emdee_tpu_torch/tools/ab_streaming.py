@@ -14,7 +14,8 @@ For each size it checks that B's split forces agree with A's within 2e-5
 of the force scale, then prints CUDA-event ms per split call in turns A, B,
 B, A, and the resident kernel (K2) beside them, with `nvidia-smi`'s card
 name and power limit.  B must keep the C entries `emdee_streaming_forces`
-and `emdee_streaming_fold` with A's signatures.
+and `emdee_streaming_fold` with A's signatures (the pair pass reads the
+box from a 0-d device tensor).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ def _load_b(src_dir: Path) -> ctypes.CDLL:
 
 
 def _split_b(lib, px, py, pz, valid, config, uni):
+    from emdee_tpu_torch.neighbors.cell_dense import box_ptr
     from emdee_tpu_torch.neighbors.cell_kernel import _pair_consts, split_operands
 
     (px, py, pz, _, _, _, valid, fx, fy, fz, _, _, _), out = split_operands(px, py, pz, valid, config)
@@ -50,7 +52,7 @@ def _split_b(lib, px, py, pz, valid, config, uni):
     build.check(lib.emdee_streaming_forces(
         px.data_ptr(), py.data_ptr(), pz.data_ptr(), 1, None, None, valid.data_ptr(),
         fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), 1, None, None, groups.data_ptr(),
-        config.cells_per_dim, config.capacity, float(config.box), *_pair_consts(config, uni), 1, 0, stream,
+        config.cells_per_dim, config.capacity, box_ptr(config.box, px), *_pair_consts(config, uni), 1, 0, stream,
     ), "B pair pass")
     build.check(lib.emdee_streaming_fold(
         fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), 1, None, None, groups.data_ptr(),

@@ -1,9 +1,11 @@
 """The Lennard-Jones melts that `chip_smoke.py` and
 `emdee_tpu_torch.tools.profile_paths` drive: FCC at ρ* = 0.8442, T* = 1.44,
 rc = 2.5σ, switch 2.0σ, skin 0.35, dt = 0.005, uniform unit parameters and
-masses — 29³ cells (97,556 atoms) on bench.py's wide dense config and its
-straggler configs, and 63³ cells (1,000,188 atoms, bench_all.py's 1M melt).
-One copy of the measured configurations for both scripts."""
+masses — 29³ cells (97,556 atoms) on bench.py's wide dense config, its
+straggler configs and its boundary-spill config, and 63³ cells (1,000,188
+atoms, bench_all.py's 1M melt) — and the thermostat and barostat constants
+of tests/test_dense_thermostats.py.  One copy of the measured
+configurations for both scripts."""
 
 from __future__ import annotations
 
@@ -13,6 +15,10 @@ SEED = 0
 N_CELLS = 29  # FCC 29³ → 97,556 atoms
 N_CELLS_1M = 63  # FCC 63³ → 1,000,188 atoms
 DENSITY, T0, CUTOFF, SWITCH, SKIN, DT = 0.8442, 1.44, 2.5, 2.0, 0.35, 0.005
+# NVT and NPT targets (tests/test_dense_thermostats.py): T* = 1.0 with CSVR
+# τ = 0.2 or Langevin friction 2.0; P* = 0.5 with Berendsen τ_P = 0.4, κ = 1.
+T_NVT, TAU_T, FRICTION = 1.0, 0.2, 2.0
+P_NPT, TAU_P, KAPPA = 0.5, 0.4, 1.0
 
 
 def melt(device, cells: int = N_CELLS):
@@ -63,3 +69,24 @@ def straggler_config(wide, ct_below: int, aux_capacity: int, kn: int):
         aux_capacity=aux_capacity,
         kn=kn,
     )
+
+
+# Squeeze target of the spill paths: the smoke's own choice, from no
+# published config.  The config users run is the suggested one alone
+# (spill_target 0, bench_all.py's molecular run); on this melt a routing
+# pass of it meets a cell with more arrivals than its 32 slots within the
+# first hundred steps, and the sticky flag trips (`chip_smoke.py` measures
+# when; tests/torch_spill_flag_witness.py runs the reference's passes on
+# that rebin).  Packing toward 28 keeps four slots of headroom.
+SPILL_TARGET = 28
+
+
+def spill_config(wide):
+    """The boundary-spill config of the melt's box,
+    `suggest_cell_dense_config(spill=True)` — at 97,556 atoms M = 16, C = 32,
+    ε = h − rc − skin = 0.194σ, mean occupancy 23.8 — squeezed toward
+    `SPILL_TARGET` atoms a cell."""
+    from emdee_tpu_torch import suggest_cell_dense_config
+
+    config = suggest_cell_dense_config(wide.num_atoms, wide.box, CUTOFF, SWITCH, SKIN, spill=True)
+    return config._replace(spill_target=SPILL_TARGET)

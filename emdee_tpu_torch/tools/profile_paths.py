@@ -1,8 +1,9 @@
 """Where the step time goes on the card, for each path of the LJ melt that
 `chip_smoke.py` drives: at 97,556 atoms the dense component carry, the
-dense stacked path and the straggler engine at bench.py's production
-config; at 1,000,188 atoms the dense component carry on the streaming
-kernel family.
+dense stacked path, the straggler engine at bench.py's production config,
+the spill config's component carry (K7 in its rebin), CSVR NVT on the wide
+config and Langevin NVT on the spill config; at 1,000,188 atoms the dense
+component carry on the streaming kernel family.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -38,8 +39,8 @@ def _sync_ms(fn, steps: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / steps
 
 
-def profile_path(name, rollout, state, rebin_every):
-    run = lambda steps: rollout(state, num_steps=steps, rebin_every=rebin_every)  # noqa: E731
+def profile_path(name, rollout, state, rebin_every, **kw):
+    run = lambda steps: rollout(state, num_steps=steps, rebin_every=rebin_every, **kw)  # noqa: E731
     run(WARMUP)
     windows = [_sync_ms(run, WINDOW) for _ in range(WINDOWS)]
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -86,8 +87,13 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
-    from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim, make_straggler_sim, straggler_init
-    from emdee_tpu_torch.tools.melt import DT, N_CELLS_1M, equilibrate, melt, straggler_config
+    from emdee_tpu_torch import (
+        CSVRConfig, LangevinConfig, cell_dense_init, make_cell_dense_sim, make_straggler_sim,
+        straggler_init, suggest_rebin_interval,
+    )
+    from emdee_tpu_torch.tools.melt import (
+        DT, FRICTION, N_CELLS_1M, SKIN, T_NVT, TAU_T, equilibrate, melt, spill_config, straggler_config,
+    )
 
     device = torch.device("cuda", 0)
     st, config, model, params, uni, n = melt(device)
@@ -102,7 +108,16 @@ def main() -> None:
     profile_path("dense component carry", dense, st0, k)
     profile_path("dense stacked", stacked, st0, k)
     profile_path("straggler production", straggler, s0, k)
-    del st, st0, s0
+    scfg = spill_config(config)
+    sp0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, scfg, device=device)
+    spill, _ = make_cell_dense_sim(scfg, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    profile_path("spill component carry", spill, sp0, k)
+    k_t = suggest_rebin_interval(SKIN, DT, T_NVT)
+    csvr, _ = make_cell_dense_sim(config, model, dt=DT, thermostat=CSVRConfig(T_NVT, TAU_T))
+    profile_path("NVT CSVR (wide)", csvr, st0, k_t, rng=torch.Generator(device=device).manual_seed(7))
+    langevin, _ = make_cell_dense_sim(scfg, model, dt=DT, thermostat=LangevinConfig(T_NVT, FRICTION))
+    profile_path("NVT Langevin (spill)", langevin, sp0, k_t, rng=torch.Generator(device=device).manual_seed(7))
+    del st, st0, s0, sp0
 
     st, config, model, params, uni, n = melt(device, N_CELLS_1M)
     dense, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)

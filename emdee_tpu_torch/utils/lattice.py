@@ -1,6 +1,7 @@
 """Initial-configuration generators (simple-cubic / FCC lattices, Maxwell-
-Boltzmann velocities) — counterpart of emdee_tpu/utils/lattice.py.  Pure
-numpy with a seed, so both packages start from byte-identical arrays."""
+Boltzmann velocities) — counterpart of emdee_tpu/utils/lattice.py — and a
+random fluid.  Pure numpy with a seed, so both packages start from
+byte-identical arrays."""
 
 from __future__ import annotations
 
@@ -50,3 +51,30 @@ def maxwell_boltzmann(num_atoms: int, temperature: float, masses=1.0, seed: int 
         p = (m[:, None] * v).sum(axis=0) / m.sum()
         v = v - p[None, :]
     return v
+
+
+def random_fluid(num_atoms: int, density: float, dmin: float, seed: int = 0):
+    """num_atoms points placed uniformly at random in a periodic cube at
+    `density`, each at least `dmin` from every other (sequential rejection on
+    a cell grid): a liquid-like start whose cell occupancies scatter, so a
+    tight spill config spills, some of it across the periodic seam.
+
+    Returns (positions (N,3) float64, box_edge L)."""
+    rng = np.random.default_rng(seed)
+    box = (num_atoms / density) ** (1.0 / 3.0)
+    g = int(box // dmin)
+    h = box / g
+    cells = {}
+    pts = []
+    while len(pts) < num_atoms:
+        p = rng.uniform(0.0, box, 3)
+        c = (p // h).astype(int) % g
+        near = (
+            q
+            for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)
+            for q in cells.get(((c[0] + dx) % g, (c[1] + dy) % g, (c[2] + dz) % g), ())
+        )
+        if all(((d := p - q - box * np.round((p - q) / box)) @ d) >= dmin * dmin for q in near):
+            pts.append(p)
+            cells.setdefault(tuple(c), []).append(p)
+    return np.asarray(pts), box

@@ -102,8 +102,11 @@ def test_config_suggestions_equal():
         assert tcd.detect_uniform_params(tcd.lj_params_from_numpy(p, "cpu")) == jcd.detect_uniform_params(p)
     with pytest.raises(ValueError):
         tcd.suggest_cell_dense_config(100, 5.0, 2.5, 2.0)
-    with pytest.raises(NotImplementedError):
-        tcd.suggest_cell_dense_config(864, 12.0, 2.5, 2.0, spill=True)
+    # Spill configs (ported): the same geometry as the reference's.
+    for margin in (0.15, 0.3):
+        assert tcd.suggest_cell_dense_config(864, 12.0, 2.5, 2.0, 0.3, spill=True, spill_margin=margin) == (
+            jcd.suggest_cell_dense_config(864, 12.0, 2.5, 2.0, 0.3, spill=True, spill_margin=margin)
+        )
 
 
 def test_entry_points_default_to_the_card():
@@ -145,3 +148,21 @@ def test_port_imports_no_jax():
     assert not offenders, offenders
     smoke = PORT.parent / "chip_smoke.py"
     assert not [line for line in smoke.read_text().splitlines() if pattern.match(line)]
+
+
+def test_static_box_is_made_once_per_device():
+    """A static box reaches the kernels by pointer, like a dynamic one: the
+    number becomes one cached 0-d float32 tensor per device (no launch per
+    force call), holding the same bits as a fresh tensor of it; a box of
+    another dtype or shape is refused."""
+    like = torch.zeros(3)
+    box = 17.123456789
+    a, b = tcd._box(box, like), tcd._box(box, like)
+    assert a is b and tcd.box_ptr(box, like) == a.data_ptr()
+    assert a.dtype == torch.float32 and a.dim() == 0
+    assert a.view(torch.int32) == torch.tensor(box, dtype=torch.float32).view(torch.int32)
+    dyn = torch.full((), box, dtype=torch.float32)
+    assert tcd._box(dyn, like) is dyn and tcd.box_ptr(dyn, like) == dyn.data_ptr()
+    for bad in (torch.full((), box, dtype=torch.float64), torch.full((1,), box)):
+        with pytest.raises(ValueError, match="box"):
+            tcd.box_ptr(bad, like)

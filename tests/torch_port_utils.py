@@ -10,6 +10,7 @@ from emdee_tpu.neighbors import cell_dense as jcd
 from emdee_tpu.potentials.lennard_jones import LennardJonesModel, lennard_jones_atom
 from emdee_tpu.utils.lattice import cubic_lattice, maxwell_boltzmann
 from emdee_tpu_torch.neighbors import cell_dense as tcd
+from emdee_tpu_torch.utils.lattice import random_fluid  # noqa: F401  (the port's own generator)
 
 
 def to_port(jax_state):
@@ -57,3 +58,24 @@ def drifted_state(n, seed, varied=False, density=0.65):
     drift = (0.45 * config.skin / vmax) * st.velocities
     st = st._replace(positions=jnp.where(st.valid[..., None], st.positions + drift, 0.0))
     return st, config, model
+
+
+def to_jax(port_state):
+    """Port state → JAX CellDenseState, bit for bit (box kept when set)."""
+    fields = tcd.state_to_numpy(port_state)
+    box = fields.pop("box", None)
+    return jcd.CellDenseState(
+        **{k: jnp.asarray(v) for k, v in fields.items()},
+        box=None if box is None else jnp.asarray(box),
+    )
+
+
+def spill_lattice_setup(seed=9, skin=0.3):
+    """tests/test_cell_dense.py's spill fixture: a 1,728-atom jittered
+    lattice at ρ = 0.75 on its spill config (M = 4, C = 32): (positions,
+    velocities, JAX LJParams, config, JAX model)."""
+    pos, box = cubic_lattice(1728, 0.75, jitter=0.12, seed=seed)
+    vel = maxwell_boltzmann(1728, 1.0, seed=seed + 1)
+    params = lennard_jones_atom(np.ones(1728), np.ones(1728))
+    config = jcd.suggest_cell_dense_config(1728, box, cutoff=2.5, switch=2.0, skin=skin, spill=True)
+    return pos, vel, params, config, LennardJonesModel.create(2.5, 2.0)
