@@ -29,10 +29,22 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
 - the C-tight straggler engine at bench.py's production config (C_t =
   wide−4, C_w = wide+4, A = 64, Kn = 16), through `straggler_init` and
   `make_straggler_sim`, from the equilibrated melt;
+- the 3-D grid-sharded engine (`emdee_tpu_torch.distributed`, every shard
+  on this card, `LocalMesh`) on the equilibrated melt: (1,1,1) at the main
+  path's config (M = 17, C = 32), then at the config
+  `reconfigure_dense_state(cells_multiple_of=2)` gives (M = 16) on (1,1,1),
+  (2,2,2) and (2,4,1), each gated like the main path and bitwise equal to
+  the others, with forces bit for bit the one-card kernel's; the (1,1,1)
+  run also through a one-rank NCCL `DistMesh`, and a short CSVR run; before
+  it, the window rebin kernel (K6) vs its plain version and vs K4;
 - the dense-cell engine on bench_all.py's 1,000,188-atom melt (FCC 63³,
   M = 37, C = 32), where `backend="auto"` resolves to the streaming kernel
   family (equilibrated 200 steps at rebin every 2; bench_all.py settles
   100), and a short stacked per-atom rollout at the same size.
+
+Last, the two TPU probes of tools/ (P1, an fma chain shaped like the force
+kernel; P2, the centre-expansion product in two layouts) against their plain
+versions, with their times.
 
 Each path is gated: no overflow (capacity, staleness, Kn, A), NVE drift ≤
 3e-5 over 1,000 steps (NVT: the mean T* of the last 500 steps within 2% of
@@ -52,8 +64,9 @@ suggested capacity (for tests/torch_spill_flag_witness.py).
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its bytes (each input read once, each output written once) at 3.35 TB/s
-and its float32 operations at 67 TFLOP/s (H100 SXM data sheet), with the
-pairs inside the cutoff counted from this run's data.
+and its float32 operations at 67 TFLOP/s (H100 SXM data sheet; an FMA
+counts as two), with the pairs inside the cutoff counted from this run's
+data.  The probe P1 issues no FMA, so each of its operations counts as two.
 """
 
 from __future__ import annotations
@@ -441,12 +454,13 @@ def phase_1m(device, tag):
 
 def counters():
     from emdee_tpu_torch.neighbors import (
-        cell_kernel, compact_kernel, rebin_kernel, straggler_kernel, streaming_kernel,
+        cell_kernel, compact_kernel, rebin_kernel, rebin_window_kernel, straggler_kernel, streaming_kernel,
     )
+    from emdee_tpu_torch.tools import probes
 
     return {"cell_forces": cell_kernel, "cell_forces_streaming": streaming_kernel,
             "rebin_routing": rebin_kernel, "straggler_aux": straggler_kernel,
-            "compact_window": compact_kernel}
+            "compact_window": compact_kernel, "rebin_window": rebin_window_kernel, "probes": probes}
 
 
 def launches(**nonzero):
@@ -969,6 +983,312 @@ def phase_nvt_npt(device, tag, wide, spill_st, scfg, model, pos_eq, vel_eq, para
             {"nvt_csvr": ms_nvt, "nvt_langevin_spill": ms_lan, "npt": ms_npt})
 
 
+def phase_rebin_window(device, tag):
+    """K6 (the grid engine's window pass) on the drifted melt, as one shard
+    holding the whole periodic grid: each axis pass vs its plain version,
+    bit for bit in every slot and the flag; the three passes vs K4's rebin,
+    bit for bit; then the device time of the z pass and its bound."""
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+    from emdee_tpu_torch.neighbors.cell_dense import _PASSES
+    from emdee_tpu_torch.neighbors.rebin_kernel import SENTINEL_BITS, rebin_routing
+
+    st, config, _, _, _, n = melt(device)
+    st = drifted(st, SKIN)
+    m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
+    box = torch.full((), config.box, dtype=torch.float32, device=device)
+    sent = torch.full((), SENTINEL_BITS, dtype=torch.int32, device=device).view(torch.float32)
+    pos = st.positions - torch.floor(st.positions / box) * box
+    # The grid engine's routed fields: positions, velocities, 1/m, σ/2, 2√ε, atom id.
+    fields = [torch.where(st.valid, pos[..., i], sent) for i in range(3)]
+    fields += [st.velocities[..., i].contiguous() for i in range(3)]
+    fields += [st.inv_masses, st.half_sigma, st.twice_sqrt_eps, st.atom_id]
+    x = torch.stack([f.view(torch.int32) for f in fields[:-1]] + [st.atom_id])
+    z_pass = None
+    for axis, _, cf in _PASSES:
+        args = k6.periodic_windows(x, m, axis) + (box, cf, m, c, ns)
+        out_k, ovf_k = k6.rebin_window_pass(*args, backend="cuda")
+        out_p, ovf_p = k6.rebin_window_pass(*args, backend="torch")
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_p) or bool(ovf_k) != bool(ovf_p):
+            raise AssertionError(f"K6 vs plain: the {'zyx'[axis]} pass differs")
+        z_pass = z_pass or args
+        x = out_k.reshape(x.shape)
+    ref, ovf = rebin_routing(tuple(fields), box, m, c, ns, backend="cuda")
+    torch.cuda.synchronize()
+    for i, r in enumerate(ref):
+        if not torch.equal(x[i], r.view(torch.int32)):
+            raise AssertionError(f"K6 (one shard) vs K4: field {i} differs")
+    moved = int(((x[-1] != st.atom_id) & (x[-1] < ns)).sum())
+    if bool(ovf) or moved < 1000:
+        raise AssertionError(f"K6 fixture: overflow {bool(ovf)}, {moved} slots moved")
+    ms = device_ms(lambda: k6.rebin_window_pass(*z_pass, backend="cuda"), 200)
+    host_ms = cuda_ms(lambda: k6.rebin_window_pass(*z_pass, backend="cuda"), 200)
+    plain_ms = cuda_ms(lambda: k6.rebin_window_pass(*z_pass, backend="torch"), 10)
+    # This run's data: the coordinate word of every candidate lane and each
+    # row's coordinate, the nf words of each atom (every atom is kept once),
+    # and nf output words per slot.
+    nf, rows = x.shape[0], config.num_cells
+    bound_ms, bound_by = bound(4 * rows * 3 * c + 4 * rows + 4 * nf * n + 4 * nf * rows * c, 0)
+    log(f"{tag} K6 at {n} atoms drifted, M={m} C={c}, nf={nf}: each pass vs plain bit-exact in every slot and "
+        f"the flag; three one-shard passes vs K4 bit-exact in every field ({moved} slots moved); z pass "
+        f"{ms:.5f} ms on the device ({host_ms:.5f} ms a call with the host's launch cost), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}, {ms and bound_ms / ms:.1%} of it reached)")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "host_bound_ms": host_ms}
+
+
+def grid_forces_check(tag, label, cfg, model, uni, mesh, st):
+    """The grid engine's force pass (K2's GHOST mode) on `st` drifted
+    0.45·skin: the uniform entry vs the one-card split kernel (K2a) and the
+    per-atom entry with energies vs K2b, bit for bit; the kernel vs the
+    ghost grid's plain version within 2e-5 of the force scale; the times of
+    the grid's force pass (halo exchange included) and of K2a at the same
+    config.  Returns max |dF| vs plain."""
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, gather_grid_state, make_grid_sharded_sim
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces, cell_forces_split
+
+    sd = drifted(st, SKIN)
+    sh = distribute_grid(sd, cfg, mesh)
+    whole = lambda f, e=None, w=None: gather_grid_state(  # noqa: E731
+        sh._replace(positions=f, half_sigma=sh.half_sigma if e is None else e,
+                    twice_sqrt_eps=sh.twice_sqrt_eps if w is None else w), cfg, mesh)
+    roll_u, _ = make_grid_sharded_sim(cfg, model, DT, mesh, uniform_params=uni)
+    roll_a, _ = make_grid_sharded_sim(cfg, model, DT, mesh)
+    roll_p, _ = make_grid_sharded_sim(cfg, model, DT, mesh, uniform_params=uni, backend="torch")
+    fu = whole(roll_u.forces(sh)[0]).positions
+    fa = whole(*roll_a.forces(sh, compute_energy=True))
+    fp = whole(roll_p.forces(sh)[0]).positions
+    px, py, pz = (sd.positions[..., i].contiguous() for i in range(3))
+    ref_u = cell_forces_split(px, py, pz, sd.valid, cfg, uniform_params=uni, backend="cuda")
+    ref_a = cell_forces(sd, model, cfg, compute_energy=True, backend="cuda")
+    torch.cuda.synchronize()
+    same = all(torch.equal(fu[..., i].view(torch.int32), ref_u[i].view(torch.int32)) for i in range(3))
+    same = same and all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip((fa.positions, fa.half_sigma, fa.twice_sqrt_eps), ref_a))
+    if not same:
+        raise AssertionError(f"{label}: grid forces differ from the one-card kernel's")
+    v = sd.valid
+    scale = max(float(fp[v].abs().max()), 1.0)
+    err = close(f"{label} ghost kernel vs plain", fu[v], fp[v], atol=2e-5 * scale)
+    ms_grid = cuda_ms(lambda: roll_u.forces(sh), 20)
+    ms_k2 = cuda_ms(lambda: cell_forces_split(px, py, pz, sd.valid, cfg, uniform_params=uni, backend="cuda"), 20)
+    log(f"{tag} {label}: force pass with the halo exchange {ms_grid:.4f} ms, one-card K2a at this config {ms_k2:.4f} ms; "
+        f"GHOST kernel vs plain max |dF| {err:.3e} (scale {scale:.3f})")
+    return err
+
+
+def grid_vs_dense_fixture(shape, device) -> float:
+    """tests/test_grid_sharded.py's rollout gate on the card: its fixture
+    (2,048 atoms on a jittered lattice at ρ = 0.09, T = 0.9, per-atom
+    parameters, M = 8), 30 steps at dt = 0.002, rebin every 5, on the grid
+    engine over `shape` and on the dense engine; returns the largest
+    |Δposition| or |Δvelocity| by atom, which must be ≤ 2e-4."""
+    from emdee_tpu_torch import (
+        LennardJonesModel, cell_dense_init, gather_dense_atoms, lennard_jones_atom, make_cell_dense_sim,
+        suggest_cell_dense_config,
+    )
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, gather_grid_atoms, make_grid_sharded_sim
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.utils.lattice import cubic_lattice, maxwell_boltzmann
+
+    n = 2048
+    pos, box = cubic_lattice(n, 0.09, jitter=0.1, seed=21)
+    config = suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.3)
+    config = config._replace(cells_per_dim=max((config.cells_per_dim // 8) * 8, 8))
+    model = LennardJonesModel.create(2.5, 2.0, device=device)
+    st = cell_dense_init(pos, maxwell_boltzmann(n, 0.9, seed=22), np.ones(n),
+                         lennard_jones_atom(np.ones(n), np.ones(n), device=device), config, device=device)
+    dense, _ = make_cell_dense_sim(config, model, dt=0.002)
+    mesh = make_grid_mesh(shape, device=device)
+    grid, _ = make_grid_sharded_sim(config, model, 0.002, mesh)
+    ref, out = dense(st, num_steps=30, rebin_every=5), grid(distribute_grid(st, config, mesh), num_steps=30, rebin_every=5)
+    if bool(ref.overflow) or bool(out.overflow):
+        raise AssertionError(f"grid {shape} fixture: overflow")
+    (pr, vr), (pg, vg) = gather_dense_atoms(ref, n), gather_grid_atoms(out, config, n, mesh)
+    gap = float(max(np.abs(pg - pr).max(), np.abs(vg - vr).max()))
+    if not gap <= 2e-4:
+        raise AssertionError(f"grid {shape} fixture: 30 steps differ from the dense engine by {gap:.3e}")
+    return gap
+
+
+def phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_ms):
+    """The grid-sharded engine on the equilibrated melt: (1,1,1) at the main
+    path's config, then at `reconfigure_dense_state(cells_multiple_of=2)`'s
+    (1,1,1), (2,2,2) and (2,4,1), all shards on this card (`LocalMesh`).
+    Each: forces bit for bit vs the one-card K2 and vs the plain version,
+    energy vs the dense energy closure (rtol 1e-5), 30 steps vs the dense
+    engine (on the JAX test's fixture within its 2e-4; on the melt
+    measured), 1,000 gated NVE steps (no flag, drift, exact K2/K6
+    launches), bitwise reruns, no host waits.  Then the three M = 16 runs
+    bitwise equal, the (1,1,1) run through a one-rank NCCL `DistMesh`
+    bitwise equal to `LocalMesh`, and a short CSVR run.  Returns ({path:
+    counts}, {path: ms/step}, max |dF| vs plain)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from emdee_tpu_torch import cell_dense_init, gather_dense_atoms, make_cell_dense_sim, reconfigure_dense_state
+    from emdee_tpu_torch.distributed.grid_sharded import (
+        distribute_grid, gather_grid_atoms, gather_grid_state, make_grid_sharded_sim,
+    )
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors.cell_dense import state_to_numpy
+
+    n = config.num_atoms
+    st17 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
+    st16, cfg16 = reconfigure_dense_state(st17, config, cells_multiple_of=2)
+    if cfg16.cells_per_dim != 16 or bool(st16.overflow):
+        raise AssertionError(f"grid config: M={cfg16.cells_per_dim}, overflow {bool(st16.overflow)}")
+    runs = [((1, 1, 1), config, st17), ((1, 1, 1), cfg16, st16), ((2, 2, 2), cfg16, st16), ((2, 4, 1), cfg16, st16)]
+    steps, short = 1000, 30
+    counts, ms, finals, err = {}, {}, {}, 0.0
+    fixture_gap = {shape: grid_vs_dense_fixture(shape, device) for shape in dict.fromkeys(r[0] for r in runs)}
+    for shape, cfg, st in runs:
+        name = f"grid_{''.join(map(str, shape))}_m{cfg.cells_per_dim}"
+        label = f"grid {shape} M={cfg.cells_per_dim} C={cfg.capacity}"
+        mesh = make_grid_mesh(shape, device=device)
+        err = max(err, grid_forces_check(tag, label, cfg, model, uni, mesh, st))
+        roll, energy = make_grid_sharded_sim(cfg, model, DT, mesh, uniform_params=uni)
+        d_roll, d_energy = make_cell_dense_sim(cfg, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+        sh = distribute_grid(st, cfg, mesh)
+        for a, b, what in zip(energy(sh), d_energy(st), ("pe", "virial", "ke")):
+            close(f"{label} {what} vs the dense energy closure", a, b, atol=0.0, rtol=1e-5)
+        # The melt's gap to the dense engine after 30 steps, a measurement:
+        # the dense leapfrog is Kahan-compensated, the grid's (as the
+        # reference's) is not.  The gate is the JAX test's, on its fixture.
+        pg, vg = gather_grid_atoms(roll(sh, num_steps=short, rebin_every=k), cfg, n, mesh)
+        pd, vd = gather_dense_atoms(d_roll(st, num_steps=short, rebin_every=k), n)
+        melt_gap = (float(np.abs(pg - pd).max()), float(np.abs(vg - vd).max()))
+        vs_dense = fixture_gap[shape]
+        out, sec, drift, c = gate_rollout(label, roll, energy, sh, steps, k,
+                                          launches(cell_forces=steps + 4, rebin_window=3 * -(-steps // k)))
+        bitwise_rerun(label, roll, sh, 100, k)
+        no_host_waits(label, lambda: roll(sh, num_steps=2 * k, rebin_every=k))
+        counts[name], ms[name] = c, 1e3 * sec / steps
+        finals[name] = state_to_numpy(gather_grid_state(out, cfg, mesh))
+        log(f"{tag} {label} (LocalMesh, uniform params): {steps} steps in {sec:.3f} s = {ms[name]:.4f} ms/step, "
+            f"{ms[name] / main_ms:.2f}x the dense main path ({main_ms:.4f}); NVE drift {drift:.3e}; launches {c}; "
+            f"forces bit-exact vs one-card K2; {short} steps vs the dense engine: the JAX test's fixture max |d| "
+            f"{vs_dense:.3e} (gate 2e-4), the melt at dt={DT} positions {melt_gap[0]:.3e} velocities {melt_gap[1]:.3e}; "
+            "energies vs the dense closure in rtol 1e-5; reruns bitwise equal; no host waits")
+    m16 = [name for name in finals if name.endswith("m16")]
+    for name in m16[1:]:
+        for field, want in finals[m16[0]].items():
+            if not np.array_equal(np.atleast_1d(finals[name][field]).view(np.uint8), np.atleast_1d(want).view(np.uint8)):
+                raise AssertionError(f"{name} vs {m16[0]}: {field} differs after {steps} steps")
+    log(f"{tag} grid M=16: {', '.join(m16)} bitwise equal in every field after {steps} steps")
+
+    # The (1,1,1) run through torch.distributed: a one-rank NCCL group.
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            dmesh = make_grid_mesh((1, 1, 1), group=dist.group.WORLD, device=device)
+            lmesh = make_grid_mesh((1, 1, 1), device=device)
+            got, want = [], []
+            for mesh, sink in ((dmesh, got), (lmesh, want)):
+                roll, energy = make_grid_sharded_sim(config, model, DT, mesh, uniform_params=uni)
+                out = roll(distribute_grid(st17, config, mesh), num_steps=100, rebin_every=k)
+                sink.extend([*state_to_numpy(gather_grid_state(out, config, mesh)).values(),
+                             *(np.float32(float(e)) for e in energy(out))])
+            if not all(np.array_equal(np.atleast_1d(a).view(np.uint8), np.atleast_1d(b).view(np.uint8))
+                       for a, b in zip(got, want)):
+                raise AssertionError("grid (1,1,1): the NCCL DistMesh run differs from the LocalMesh run")
+        finally:
+            dist.destroy_process_group()
+    log(f"{tag} grid (1,1,1) M=17 through a one-rank NCCL DistMesh: 100 steps and the energies bitwise equal "
+        "to LocalMesh")
+
+    # A short CSVR run on (2,2,2).
+    from emdee_tpu_torch import CSVRConfig
+
+    mesh = make_grid_mesh((2, 2, 2), device=device)
+    sh = distribute_grid(st16, cfg16, mesh)
+    roll, energy = make_grid_sharded_sim(cfg16, model, DT, mesh, uniform_params=uni, thermostat=CSVRConfig(T_NVT, TAU_T))
+    roll(sh, num_steps=2 * k, rebin_every=k, rng=torch.Generator(device=device).manual_seed(1))  # warm-up
+    mods = counters()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    csvr_steps = 200
+    t0 = time.perf_counter()
+    out = roll(sh, num_steps=csvr_steps, rebin_every=k, rng=torch.Generator(device=device).manual_seed(7))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    c = {name: mod.LAUNCHES for name, mod in mods.items()}
+    if c != launches(cell_forces=csvr_steps + 1, rebin_window=3 * -(-csvr_steps // k)) or bool(out.overflow):
+        raise AssertionError(f"grid CSVR: launches {c}, overflow {bool(out.overflow)}")
+    t_of = lambda s: 2.0 * float(energy(s)[2]) / (3.0 * n - 3.0)  # noqa: E731
+    t0_, t1_ = t_of(sh), t_of(out)
+    if not abs(t1_ - T_NVT) < abs(t0_ - T_NVT):
+        raise AssertionError(f"grid CSVR: T* {t0_:.4f} -> {t1_:.4f}, target {T_NVT}")
+    bitwise_rerun("grid CSVR", roll, sh, 50, k, seed=11)
+    no_host_waits("grid CSVR", lambda: roll(sh, num_steps=2 * k, rebin_every=k,
+                                            rng=torch.Generator(device=device).manual_seed(3)))
+    counts["grid_222_m16_csvr"], ms["grid_222_m16_csvr"] = c, 1e3 * sec / csvr_steps
+    log(f"{tag} grid (2,2,2) M=16 CSVR (T*={T_NVT}, tau={TAU_T}): {csvr_steps} steps, "
+        f"{ms['grid_222_m16_csvr']:.4f} ms/step; T* {t0_:.4f} -> {t1_:.4f}; launches {c}; reruns from one seed "
+        "bitwise equal, another seed differs; no host waits")
+    log(f"{tag}: grid ms/step " + ", ".join(f"{p} {v:.4f} ({v / main_ms:.2f}x)" for p, v in ms.items())
+        + f" vs dense main path {main_ms:.4f}")
+    return counts, ms, err
+
+
+def phase_probes(device, tag):
+    """P1 and P2 (the TPU probes of tools/) vs their plain versions on the
+    card — P1 bit for bit for K in {5, 15, 25, 45}, P2 in both layouts
+    within 1e-5 relative of the plain version and of `torch.matmul` (TF32
+    off) — with their times and bounds.  Returns (P1 row, P2 row)."""
+    from emdee_tpu_torch.tools import probes
+
+    m, c = probes.M, probes.C
+    ghost, centers = probes.probe_fma_inputs(m, c, device)
+    sweep = {}
+    for k_ops in probes.K_SWEEP:
+        got = probes.probe_fma(ghost, centers, m, c, k_ops)
+        want = probes.probe_fma_plain(ghost, centers, m, c, k_ops)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"P1 K={k_ops}: kernel vs plain differ")
+        t = cuda_ms(lambda: probes.probe_fma(ghost, centers, m, c, k_ops), 50)
+        lanes, ops, nbytes = probes.fma_counts(m, c, k_ops)
+        sweep[k_ops] = (t, ops, nbytes)
+        log(f"{tag} P1 K={k_ops}: bit-exact vs plain; {t:.4f} ms, {1e6 * t / (m * m * probes.TILES):.2f} ns a tile, "
+            f"{ops / t / 1e9:.1f} T separately rounded op/s (at most {FP32_OPS_PER_S / 2e12:.1f} on this card)")
+    k_top = probes.K_SWEEP[-1]
+    t, ops, nbytes = sweep[k_top]
+    plain_ms = cuda_ms(lambda: probes.probe_fma_plain(ghost, centers, m, c, k_top), 3)
+    # P1 issues no FMA: each separately rounded multiply or add takes the
+    # issue slot of an FMA, which FP32_OPS_PER_S counts as two operations.
+    bound_ms, bound_by = bound(nbytes, 2 * ops)
+    p1 = {"max_abs_err": 0.0, "ms": t, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "library_ms": None, "k_ops": k_top, "ms_by_k": {str(kk): v[0] for kk, v in sweep.items()}}
+    log(f"{tag} P1 at K={k_top}: {t:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+
+    rows = {}
+    for transposed in (False, True):
+        cen, expand = probes.probe_cen_inputs(transposed, device)
+        a = cen.transpose(1, 2) if transposed else cen
+        got = probes.probe_cen(cen, expand, transposed)
+        want = probes.probe_cen_plain(cen, expand, transposed)
+        lib = torch.matmul(a, expand)
+        torch.cuda.synchronize()
+        err = max(close(f"P2 {transposed=} vs plain", got, want, atol=0.0, rtol=1e-5),
+                  close(f"P2 {transposed=} vs matmul", got, lib, atol=0.0, rtol=1e-5))
+        t = cuda_ms(lambda: probes.probe_cen(cen, expand, transposed), 50)
+        t_plain = cuda_ms(lambda: probes.probe_cen_plain(cen, expand, transposed), 5)
+        t_lib = cuda_ms(lambda: torch.matmul(a, expand), 50)
+        rows[transposed] = (err, t, t_plain, t_lib)
+        log(f"{tag} P2 {'dgt (M, nC)' if transposed else 'std (nC, M)'}: vs plain and matmul within 1e-5 rel "
+            f"(max |d| {err:.3e}); {t:.4f} ms, plain {t_plain:.4f} ms, torch.matmul (TF32 off) {t_lib:.4f} ms")
+    ops, nbytes = probes.cen_counts()
+    bound_ms, bound_by = bound(nbytes, ops)
+    err, t, t_plain, t_lib = rows[False]
+    p2 = {"max_abs_err": max(r[0] for r in rows.values()), "ms": t, "plain_ms": t_plain, "bound_ms": bound_ms,
+          "bound_by": bound_by, "library_ms": t_lib, "dgt_ms": rows[True][1], "dgt_plain_ms": rows[True][2],
+          "dgt_library_ms": rows[True][3]}
+    log(f"{tag} P2 bound {bound_ms:.5f} ms ({bound_by})")
+    return p1, p2
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke test of emdee_tpu_torch on one CUDA card.")
     parser.add_argument("--save-spill-flag", metavar="FILE",
@@ -994,6 +1314,7 @@ def main() -> None:
 
     force = phase_forces(device, tag)
     rebin = phase_rebin(device, tag)
+    k6 = phase_rebin_window(device, tag)
     k5_97k, k2_97k = phase_streaming(device, tag)
 
     # ---- main path: bench.py's wide config, component carry ----
@@ -1093,6 +1414,10 @@ def main() -> None:
     log(f"{smi}: straggler path {s_ms:.4f} ms/step ({n * 1e3 / s_ms:,.0f} atom-steps/s) vs "
         f"dense main path {main_ms:.4f} ms/step ({n * 1e3 / main_ms:,.0f} atom-steps/s)")
 
+    # ---- the grid-sharded engine (virtual shards on this card) ----
+    counts_grid, grid_ms, grid_err = phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_ms)
+    force["max_abs_err"] = max(force["max_abs_err"], grid_err)
+
     # ---- bench_all.py's 1M melt: the streaming kernel family ----
     k5, k2_1m = phase_streaming(device, tag, N_CELLS_1M)
     counts_1m, ms_1m = phase_1m(device, tag)
@@ -1100,7 +1425,10 @@ def main() -> None:
         f"{k5['ms']:.4f} vs {k2_1m['k2_split_ms']:.4f} ms at 1M, {k5_97k['ms']:.4f} vs "
         f"{k2_97k['k2_split_ms']:.4f} ms at 97,556 atoms")
 
-    paths = {"dense": main_counts, "straggler": s_counts, **counts_spill, **counts_thermo, **counts_1m}
+    p1, p2 = phase_probes(device, tag)
+
+    paths = {"dense": main_counts, "straggler": s_counts, **counts_spill, **counts_thermo, **counts_grid,
+             **counts_1m}
     by_path = lambda name: {p: c[name] for p, c in paths.items() if c[name]}  # noqa: E731
     kernels = [
         dict(name="cell_forces", route="cuda", source="emdee_tpu_torch/csrc/cell_forces.cu",
@@ -1126,6 +1454,15 @@ def main() -> None:
              replaces="emdee_tpu/neighbors/pallas_compact.py:34",
              launches=sum(by_path("compact_window").values()),
              launches_by_path=by_path("compact_window"), **k7),
+        dict(name="rebin_window", route="cuda", source="emdee_tpu_torch/csrc/rebin_window.cu",
+             replaces="emdee_tpu/neighbors/pallas_rebin.py:291",
+             launches=sum(by_path("rebin_window").values()),
+             launches_by_path=by_path("rebin_window"), **k6),
+        dict(name="probe_fma", route="cuda", source="emdee_tpu_torch/csrc/probes.cu",
+             replaces="tools/perf_probe3.py:29", launches=0, launches_by_path={}, **p1),
+        dict(name="probe_cen_layout", route="cuda", source="emdee_tpu_torch/csrc/probes.cu",
+             replaces="tools/perf_probe_cen_layout.py:95", dgt_replaces="tools/perf_probe_cen_layout.py:103",
+             launches=0, launches_by_path={}, **p2),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,13 +12,17 @@ rebin, the boundary-spill capacity mode with squeeze and
 `shrink_capacity`, `reconfigure_dense_state`, the energy closure) with the
 TPU engine's two force-kernel families — resident and streaming, picked by
 `resolve_dense_backend` as the TPU engine picks them — and the C-tight
-straggler engine on top of it.  Its kernels are hand-written CUDA for
-`sm_90a` (`csrc/cell_forces.cu`, `csrc/cell_forces_streaming.cu`,
-`csrc/rebin_routing.cu`, `csrc/compact_window.cu`,
-`csrc/straggler_forces.cu`), each with a plain PyTorch version beside it
-(`neighbors/cell_kernel.py`, `neighbors/streaming_kernel.py`,
-`neighbors/rebin_kernel.py`, `neighbors/compact_kernel.py`,
-`neighbors/straggler_kernel.py`).  A wrapper
+straggler engine on top of it, and the 3-D grid-sharded engine
+(`distributed/`: NVE and CSVR NVT over an (nz, ny, nx) mesh of shards, every
+shard on one card or one a `torch.distributed` rank).  Its kernels are
+hand-written CUDA for `sm_90a` (`csrc/cell_forces.cu`,
+`csrc/cell_forces_streaming.cu`, `csrc/rebin_routing.cu`,
+`csrc/rebin_window.cu`, `csrc/compact_window.cu`,
+`csrc/straggler_forces.cu`, and the TPU probes' `csrc/probes.cu`), each
+with a plain PyTorch version beside it (`neighbors/cell_kernel.py`,
+`neighbors/streaming_kernel.py`, `neighbors/rebin_kernel.py`,
+`neighbors/rebin_window_kernel.py`, `neighbors/compact_kernel.py`,
+`neighbors/straggler_kernel.py`, `tools/probes.py`).  A wrapper
 runs the plain version for CPU tensors and launches its kernel for CUDA
 tensors.  Entry points build their tensors on the CUDA card unless the
 caller names a device (`device="cpu"` for the CPU).

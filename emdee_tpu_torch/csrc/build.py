@@ -63,6 +63,19 @@ _SIGNATURES = {
     # s, keep, win, out, rows, nf, c, win_f, win_r, out_f, out_r, last_fill,
     # stream
     "emdee_compact_window": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _P],
+    # px, py, pz, hs, tse, fx, fy, fz, e, w, mz, my, mx, shards, sy_n, sx_n,
+    # bz, by, bx, m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1,
+    # pb2, sig2_u, eps4_u, uniform, energy, stream
+    "emdee_cell_forces_ghost": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _F,
+                                _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P],
+    # x, wl, wr, b, out, flag, nf, rows, c, cf, m, num_slots, box (device),
+    # stream
+    "emdee_rebin_window": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P],
+    # ghost, centers, out, m, c, tiles, k_ops, a, b, stream
+    "emdee_probe_fma": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # cen, expand, out, progs, nc, kd, ncol, transposed, stream
+    "emdee_probe_cen": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

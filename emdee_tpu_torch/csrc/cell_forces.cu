@@ -45,6 +45,20 @@
 // reaction fold.  Plain version: emdee_tpu_torch/neighbors/straggler_kernel.py
 // `grid_forces_plain`.
 //
+// GHOST (the grid-sharded engine's per-shard force pass, in place of
+// emdee_tpu/distributed/grid_sharded.py `_local_forces_pallas` and the
+// energy pass of `_local_energy_pallas`, which run K2's half shell with
+// reaction ghosts and a reverse fold): the block's neighbours come from a
+// shard's (mz+2, my+2, mx+2, C) ghost grid, stacked over the local shards,
+// whose positions carry NaN in empty slots (the validity mask).  The block
+// walks the same 27 cells in the same order, and takes the periodic shift
+// from the neighbour's GLOBAL cell index (the shard's offset plus the local
+// index), the raw ghost coordinates unshifted — so every displacement is
+// (x_i − x_j) − shift and the forces of any decomposition equal the
+// one-card kernel's bit for bit.  Full shell, so no reaction rows, no fold
+// and no second exchange.  Plain version:
+// emdee_tpu_torch/neighbors/cell_kernel.py `ghost_forces_plain`.
+//
 // Bound on this card: at the 97,556-atom melt (M = 17, C = 32) a launch
 // evaluates 4,913 × 32 × 864 ≈ 136 M candidate pairs, of which about 6% lie
 // inside the cutoff — arithmetic on registers and broadcast shared-memory
@@ -66,7 +80,14 @@ namespace {
 
 using emdee::PairConsts;
 
-template <bool UNIFORM, bool ENERGY, bool STRAG>
+// GHOST geometry: local cells (mz, my, mx) per shard, the local shards'
+// grid (sy_n, sx_n after the leading z count), and the global coordinates
+// (bz, by, bx) of the first local shard.
+struct Ghost {
+  int mz, my, mx, sy_n, sx_n, bz, by, bx;
+};
+
+template <bool UNIFORM, bool ENERGY, bool STRAG, bool GHOST>
 __global__ void cell_forces_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, int pstride,
@@ -76,7 +97,7 @@ __global__ void cell_forces_kernel(
     int fstride, float* __restrict__ e_out, float* __restrict__ w_out,
     const float* __restrict__ ax, const float* __restrict__ ay,
     const float* __restrict__ az, const int* __restrict__ table, int kn,
-    int m, int c, const float* __restrict__ box_ptr, PairConsts k) {
+    int m, int c, const float* __restrict__ box_ptr, PairConsts k, Ghost g) {
   extern __shared__ float smem[];
   const float box = *box_ptr;
   float* sx = smem;
@@ -92,18 +113,46 @@ __global__ void cell_forces_kernel(
 
   const int cell = blockIdx.x;
   const int i = threadIdx.x;
-  const int cx = cell % m, cy = (cell / m) % m, cz = cell / (m * m);
+  // Global cell coordinates; GHOST: the cell's local coordinates and its
+  // shard's first ghost cell.
+  int cx, cy, cz, lx = 0, ly = 0, lz = 0;
+  long gbase = 0;
+  if (GHOST) {
+    lx = cell % g.mx;
+    ly = (cell / g.mx) % g.my;
+    const int r = cell / (g.mx * g.my);
+    lz = r % g.mz;
+    const int s = r / g.mz;
+    cx = (g.bx + s % g.sx_n) * g.mx + lx;
+    cy = (g.by + (s / g.sx_n) % g.sy_n) * g.my + ly;
+    cz = (g.bz + s / (g.sx_n * g.sy_n)) * g.mz + lz;
+    gbase = static_cast<long>(s) * (g.mz + 2) * (g.my + 2) * (g.mx + 2);
+  } else {
+    cx = cell % m;
+    cy = (cell / m) % m;
+    cz = cell / (m * m);
+  }
   const long own = static_cast<long>(cell) * c + i;
-  const bool center = i < c && valid[own];
-
+  // The center slot's input index (GHOST: in the ghost grid's interior).
+  const long in_own = GHOST ? (gbase + ((lz + 1) * (g.my + 2) + ly + 1) * (g.mx + 2) + lx + 1) * c + i
+                            : own;
+  bool center = false;
   float xi = 0.f, yi = 0.f, zi = 0.f, hsi = 0.f, tsei = 0.f;
+  if (i < c) {
+    if (GHOST) {
+      xi = px[in_own];
+      center = !isnan(xi);
+    } else {
+      center = valid[own];
+    }
+  }
   if (center) {
-    xi = px[own * pstride];
-    yi = py[own * pstride];
-    zi = pz[own * pstride];
+    xi = px[in_own * pstride];
+    yi = py[in_own * pstride];
+    zi = pz[in_own * pstride];
     if (!UNIFORM) {
-      hsi = hs[own];
-      tsei = tse[own];
+      hsi = hs[in_own];
+      tsei = tse[in_own];
     }
   }
   float fxa = 0.f, fya = 0.f, fza = 0.f, ea = 0.f, wa = 0.f;
@@ -120,13 +169,14 @@ __global__ void cell_forces_kernel(
         int nx = cx + dx;
         float shx = 0.f;
         if (nx < 0) { nx += m; shx = -box; } else if (nx >= m) { nx -= m; shx = box; }
-        const long nb = static_cast<long>(nx + m * (ny + m * nz)) * c;
+        const long nb = GHOST ? (gbase + ((lz + 1 + dz) * (g.my + 2) + ly + 1 + dy) * (g.mx + 2) + lx + 1 + dx) * c
+                              : static_cast<long>(nx + m * (ny + m * nz)) * c;
 
         __syncthreads();  // the previous neighbor cell is consumed
         if (i < c) {
           const long s = nb + i;
-          sv[i] = valid[s];
           sx[i] = px[s * pstride];
+          sv[i] = GHOST ? !isnan(sx[i]) : valid[s];
           sy[i] = py[s * pstride];
           sz[i] = pz[s * pstride];
           if (!UNIFORM) {
@@ -209,18 +259,19 @@ __global__ void cell_forces_kernel(
   }
 }
 
-template <bool UNIFORM, bool ENERGY, bool STRAG = false>
+template <bool UNIFORM, bool ENERGY, bool STRAG = false, bool GHOST = false>
 void launch(const float* px, const float* py, const float* pz, int pstride,
             const float* hs, const float* tse, const uint8_t* valid, float* fx,
             float* fy, float* fz, int fstride, float* e, float* w, int m,
             int c, const float* box, const PairConsts& k, cudaStream_t stream,
             const float* ax = nullptr, const float* ay = nullptr,
-            const float* az = nullptr, const int* table = nullptr, int kn = 0) {
+            const float* az = nullptr, const int* table = nullptr, int kn = 0,
+            const Ghost& g = Ghost{}, int blocks = 0) {
   const int threads = ((c + 31) / 32) * 32;
   const size_t smem = sizeof(float) * (5 * c + 3 * kn) + c + kn;
-  cell_forces_kernel<UNIFORM, ENERGY, STRAG><<<m * m * m, threads, smem, stream>>>(
+  cell_forces_kernel<UNIFORM, ENERGY, STRAG, GHOST><<<GHOST ? blocks : m * m * m, threads, smem, stream>>>(
       px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, ax, ay,
-      az, table, kn, m, c, box, k);
+      az, table, kn, m, c, box, k, g);
 }
 
 }  // namespace
@@ -260,5 +311,37 @@ extern "C" int emdee_cell_forces_strag(
   launch<true, false, true>(px, py, pz, 1, nullptr, nullptr, valid, fx, fy, fz, 1,
                             nullptr, nullptr, m, c, box, k,
                             static_cast<cudaStream_t>(stream), ax, ay, az, table, kn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The GHOST mode: the ghost grids of `shards` local shards, px … tse each
+// (shards, mz+2, my+2, mx+2, C) float32 with NaN positions in empty slots
+// (hs, tse unused with uniform parameters); outputs (shards, mz, my, mx, C).
+extern "C" int emdee_cell_forces_ghost(
+    const float* px, const float* py, const float* pz, const float* hs,
+    const float* tse, float* fx, float* fy, float* fz, float* e, float* w,
+    int mz, int my, int mx, int shards, int sy_n, int sx_n, int bz, int by,
+    int bx, int m, int c, const float* box, float rc2, float rs2, float invd2,
+    float a_m, float pa1, float pa2, float pb1, float pb2, float sig2_u,
+    float eps4_u, int uniform, int energy, void* stream) {
+  if (m < 3 || c < 1 || c > 1024 || mz < 1 || my < 1 || mx < 1 || shards < 1 ||
+      sy_n < 1 || sx_n < 1 || shards % (sy_n * sx_n) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
+  const Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx};
+  const int blocks = shards * mz * my * mx;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (uniform && energy)
+    launch<true, true, false, true>(px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, m, c, box, k, s,
+                                    nullptr, nullptr, nullptr, nullptr, 0, g, blocks);
+  else if (uniform)
+    launch<true, false, false, true>(px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, m, c, box, k, s,
+                                     nullptr, nullptr, nullptr, nullptr, 0, g, blocks);
+  else if (energy)
+    launch<false, true, false, true>(px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, m, c, box, k, s,
+                                     nullptr, nullptr, nullptr, nullptr, 0, g, blocks);
+  else
+    launch<false, false, false, true>(px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, m, c, box, k, s,
+                                      nullptr, nullptr, nullptr, nullptr, 0, g, blocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,7 @@ from emdee_tpu_torch.neighbors.cell_dense import (
     cell_dense_forces,
     resolve_backend,
 )
-from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel
+from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel, pair_interaction
 
 # Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
@@ -189,3 +189,150 @@ def split_operands(px, py, pz, valid, config: CellDenseConfig):
     _check(valid, "valid", torch.bool, shape, dev)
     fx, fy, fz = (torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(3))
     return (px, py, pz, 1, None, None, valid, fx, fy, fz, 1, None, None), (fx, fy, fz)
+
+
+def ghost_forces(ghost, shards, base, config: CellDenseConfig, model: LennardJonesModel, *,
+                 uniform_params=None, compute_energy: bool = False, backend: str = "auto"):
+    """The grid-sharded engine's per-shard force pass (the kernel's GHOST
+    mode): forces (3, sz, sy, sx, mz, my, mx, C) of every own slot of the
+    local shards and, with `compute_energy`, per-slot half-split energies and
+    virials (sz, sy, sx, mz, my, mx, C) — else None, None.
+
+    ghost: (F, sz, sy, sx, mz+2, my+2, mx+2, C) float32, each local shard's
+    ghost grid: positions x, y, z with NaN in empty slots, then, without
+    uniform parameters, σ/2 and 2√ε.  shards: (sz, sy, sx), the local shards'
+    grid; base: the global shard coordinates (z, y, x) of its first shard,
+    so that the kernel takes each periodic shift from a neighbour's global
+    cell index.  The box is config.box."""
+    if resolve_backend(backend, ghost) == "torch":
+        return ghost_forces_plain(ghost, config, model, uniform_params, compute_energy)
+    global LAUNCHES
+    sz, sy, sx = shards
+    gz, gy, gx, c = ghost.shape[-4:]
+    nfield = 3 if uniform_params is not None else 5
+    dev = ghost.device
+    _check(ghost, "ghost", torch.float32, (nfield, sz, sy, sx, gz, gy, gx, config.capacity), dev)
+    local = (sz, sy, sx, gz - 2, gy - 2, gx - 2, c)
+    f = torch.empty((3,) + local, dtype=torch.float32, device=dev)
+    e = w = None
+    if compute_energy:
+        e = torch.empty(local, dtype=torch.float32, device=dev)
+        w = torch.empty(local, dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    params = (ghost[3], ghost[4]) if uniform_params is None else (None, None)
+    err = build.load().emdee_cell_forces_ghost(
+        ghost[0].data_ptr(), ghost[1].data_ptr(), ghost[2].data_ptr(), *map(ptr, params),
+        f[0].data_ptr(), f[1].data_ptr(), f[2].data_ptr(), ptr(e), ptr(w),
+        gz - 2, gy - 2, gx - 2, sz * sy * sx, sy, sx, *base, config.cells_per_dim, c,
+        box_ptr(config.box, ghost), *_pair_consts(config, uniform_params),
+        int(uniform_params is not None), int(compute_energy), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "cell_forces kernel (ghost grid)")
+    LAUNCHES += 1
+    return f, e, w
+
+
+def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel, uniform_params,
+                       compute_energy: bool):
+    """The plain version of `ghost_forces`: `_dense_forces` on the ghost
+    grids, with every roll of the slot grid replaced by a block of the ghost
+    grid.  A half-shell offset's neighbour block is the ghost block at +o,
+    and its Newton reaction onto a cell is evaluated where `_dense_forces`
+    evaluates it — the pairs of the cell at −o (a ghost block) against the
+    cell — in a tile of the same shape, so every pair term and every sum is
+    the one-card plain version's, bit for bit, whatever the decomposition.
+    Displacements are d − L·round(d/L) of the raw ghost coordinates."""
+    from emdee_tpu_torch.neighbors.cell_dense import _GROUP, _OFFSETS, _box
+
+    lead = tuple(ghost.shape[1:-4])
+    gz, gy, gx, c = ghost.shape[-4:]
+    mz, my, mx = gz - 2, gy - 2, gx - 2
+    g = ghost.reshape((ghost.shape[0], -1) + tuple(ghost.shape[-4:]))
+    valid_g = ~torch.isnan(g[0])
+    pos_g = torch.where(valid_g[..., None], g[:3].movedim(0, -1), 0.0)
+    if uniform_params is None:
+        hs_g, tse_g = g[3], g[4]
+    else:
+        hs_g, tse_g = torch.full_like(g[0], uniform_params[0]), torch.full_like(g[0], uniform_params[1])
+    box_t = _box(config.box, ghost)
+
+    def block(a, o, sign=1):
+        """Cell c + sign·o of every own cell c, as (cells, C, …); o = (ox, oy, oz)."""
+        dx, dy, dz = (sign * int(v) for v in o)
+        sub = a[:, 1 + dz : 1 + dz + mz, 1 + dy : 1 + dy + my, 1 + dx : 1 + dx + mx]
+        return sub.reshape((-1, c) + tuple(a.shape[5:]))
+
+    def disp(a, b):
+        d = a - b
+        return d - torch.round(d / box_t) * box_t
+
+    def r2_of(dv):
+        return dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1] + dv[..., 2] * dv[..., 2]
+
+    def pair_terms(r2s, ok, hs_i, tse_i, hs_j, tse_j):
+        e, mre = pair_interaction(r2s, model, hs_i, tse_i, hs_j, tse_j)
+        return torch.where(ok, e, 0.0), torch.where(ok, mre, 0.0)
+
+    zero = (0, 0, 0)
+    pos, hs, tse, valid = (block(a, zero) for a in (pos_g, hs_g, tse_g, valid_g))
+    cells = pos.shape[0]
+
+    # ---- self-cell tile, as in `_dense_forces` ----
+    dv = disp(pos[:, :, None, :], pos[:, None, :, :])
+    r2 = r2_of(dv)
+    eye = torch.eye(c, dtype=torch.bool, device=pos.device)
+    ok = valid[:, :, None] & valid[:, None, :] & ~eye[None]
+    r2s = torch.where(ok, r2, 1.0)
+    e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], hs[:, None, :], tse[:, None, :])
+    forces = torch.sum((mre / r2s)[..., None] * dv, dim=2)
+    if compute_energy:
+        energies = 0.5 * torch.sum(e, dim=2)
+        virials = 0.5 * torch.sum(mre, dim=2)
+
+    for g0 in range(0, len(_OFFSETS), _GROUP):
+        offs = _OFFSETS[g0 : g0 + _GROUP]
+        k = len(offs)
+        # Forward tile: own centres against the cells at +o.
+        nbr = lambda a: torch.cat([block(a, o) for o in offs], dim=1)  # noqa: E731
+        nbr_pos, nbr_hs, nbr_tse, nbr_valid = nbr(pos_g), nbr(hs_g), nbr(tse_g), nbr(valid_g)
+        dv = disp(pos[:, :, None, :], nbr_pos[:, None, :, :])
+        ok = valid[:, :, None] & nbr_valid[:, None, :]
+        r2s = torch.where(ok, r2_of(dv), 1.0)
+        e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], nbr_hs[:, None, :], nbr_tse[:, None, :])
+        gdv = torch.where(ok, mre / r2s, 0.0)[..., None] * dv
+        forces = forces + torch.sum(gdv, dim=2)
+        if compute_energy:
+            energies = energies + 0.5 * torch.sum(e, dim=2)
+            virials = virials + 0.5 * torch.sum(mre, dim=2)
+
+        # Reaction tile: the cells at −o (centres i) against the own cell (j),
+        # laid out [cell, i, slot·C + j] like the forward tile of the cell at −o.
+        def centres(a):
+            r = torch.stack([block(a, o, -1) for o in offs], dim=2)  # (cells, C, k, …)
+            rest = tuple(r.shape[3:])
+            return r[:, :, :, None].expand((cells, c, k, c) + rest).reshape((cells, c, k * c) + rest)
+
+        def owns(a):
+            rest = tuple(a.shape[2:])
+            return a[:, None, None].expand((cells, c, k, c) + rest).reshape((cells, c, k * c) + rest)
+
+        dv = disp(centres(pos_g), owns(pos))
+        ok = centres(valid_g) & owns(valid)
+        r2s = torch.where(ok, r2_of(dv), 1.0)
+        e, mre = pair_terms(r2s, ok, centres(hs_g), centres(tse_g), owns(hs), owns(tse))
+        gdv = torch.where(ok, mre / r2s, 0.0)[..., None] * dv
+        reaction = -torch.sum(gdv, dim=1)  # (cells, k·C, 3)
+        for i in range(k):
+            forces = forces + reaction[:, i * c : (i + 1) * c]
+        if compute_energy:
+            e_r = 0.5 * torch.sum(e, dim=1)
+            w_r = 0.5 * torch.sum(mre, dim=1)
+            for i in range(k):
+                energies = energies + e_r[:, i * c : (i + 1) * c]
+                virials = virials + w_r[:, i * c : (i + 1) * c]
+
+    shape = lead + (mz, my, mx, c)
+    forces = forces.reshape(shape + (3,)).movedim(-1, 0)
+    if compute_energy:
+        return forces, energies.reshape(shape), virials.reshape(shape)
+    return forces, None, None

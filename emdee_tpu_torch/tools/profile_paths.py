@@ -2,8 +2,10 @@
 `chip_smoke.py` drives: at 97,556 atoms the dense component carry, the
 dense stacked path, the straggler engine at bench.py's production config,
 the spill config's component carry (K7 in its rebin), CSVR NVT on the wide
-config and Langevin NVT on the spill config; at 1,000,188 atoms the dense
-component carry on the streaming kernel family.
+config, Langevin NVT on the spill config and the grid-sharded engine (every
+shard on the card) on (1,1,1) at the wide config and on (2,2,2) at M = 16;
+at 1,000,188 atoms the dense component carry on the streaming kernel
+family.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -117,6 +119,15 @@ def main() -> None:
     profile_path("NVT CSVR (wide)", csvr, st0, k_t, rng=torch.Generator(device=device).manual_seed(7))
     langevin, _ = make_cell_dense_sim(scfg, model, dt=DT, thermostat=LangevinConfig(T_NVT, FRICTION))
     profile_path("NVT Langevin (spill)", langevin, sp0, k_t, rng=torch.Generator(device=device).manual_seed(7))
+    from emdee_tpu_torch import reconfigure_dense_state
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, make_grid_sharded_sim
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    st16, cfg16 = reconfigure_dense_state(st0, config, cells_multiple_of=2)
+    for shape, cfg, start in (((1, 1, 1), config, st0), ((2, 2, 2), cfg16, st16)):
+        mesh = make_grid_mesh(shape, device=device)
+        grid, _ = make_grid_sharded_sim(cfg, model, DT, mesh, uniform_params=uni)
+        profile_path(f"grid {shape} M={cfg.cells_per_dim}", grid, distribute_grid(start, cfg, mesh), k)
     del st, st0, s0, sp0
 
     st, config, model, params, uni, n = melt(device, N_CELLS_1M)

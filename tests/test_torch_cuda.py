@@ -378,3 +378,102 @@ def test_nvt_rollout_reruns_bitwise_on_the_card_generator(device, spill):
     assert all(r.device.type == "cuda" and r.shape == (8,) for r in ra)
     assert torch.equal(a.velocities, b.velocities) and all(torch.equal(x, y) for x, y in zip(ra, rb))
     assert not torch.equal(a.velocities, c.velocities)
+
+
+def _routing_stack(st, config):
+    """(nf, M³, C) int32: wrapped positions with the NaN-pattern sentinel in
+    empty slots, velocities, atom id — a rebin's routed fields."""
+    box = torch.full((), config.box, dtype=torch.float32, device=st.positions.device)
+    sent = torch.full((), rebin_kernel.SENTINEL_BITS, dtype=torch.int32, device=box.device).view(torch.float32)
+    pos = st.positions - torch.floor(st.positions / box) * box
+    fields = [torch.where(st.valid, pos[..., i], sent) for i in range(3)]
+    fields += [st.velocities[..., i] for i in range(3)]
+    return torch.stack([f.contiguous().view(torch.int32) for f in fields] + [st.atom_id])
+
+
+def test_rebin_window_kernel_matches_plain_and_k4(device):
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+    from emdee_tpu_torch.neighbors.cell_dense import _PASSES
+
+    st, config, _ = _state(device, varied=False, drift=True)
+    m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
+    x = _routing_stack(st, config)
+    before = k6.LAUNCHES
+    for axis, _, cf in _PASSES:
+        args = k6.periodic_windows(x, m, axis)
+        out_k, ovf_k = k6.rebin_window_pass(*args, config.box, cf, m, c, ns, backend="cuda")
+        out_p, ovf_p = k6.rebin_window_pass(*args, config.box, cf, m, c, ns, backend="torch")
+        assert torch.equal(out_k, out_p) and bool(ovf_k) == bool(ovf_p) is False
+        x = out_k.reshape(x.shape)
+    assert k6.LAUNCHES == before + 3
+    fields = tuple(_routing_stack(st, config)[i].view(torch.float32) for i in range(6)) + (st.atom_id,)
+    ref, ovf = rebin_kernel.rebin_routing(fields, config.box, m, c, ns, backend="cuda")
+    for i, r in enumerate(ref):
+        assert torch.equal(x[i], r.view(torch.int32)), f"field {i}"
+    assert int((x[-1] != st.atom_id).sum()) > 10
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2)])
+def test_ghost_force_kernel_equals_k2_and_matches_plain(device, shape):
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    st, config, model = _state(device, drift=True, geometry={"cells_per_dim": 4, "capacity": 56})
+    mesh = make_grid_mesh(shape, device=device)
+    sh = gs.distribute_grid(st, config, mesh)
+    roll_k, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, backend="cuda")
+    roll_p, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, backend="torch")
+    before = cell_kernel.LAUNCHES
+    got = roll_k.forces(sh, compute_energy=True)
+    assert cell_kernel.LAUNCHES == before + 1
+    whole = lambda f, e, w: gs.gather_grid_state(sh._replace(positions=f, half_sigma=e, twice_sqrt_eps=w), config, mesh)  # noqa: E731
+    k, p = whole(*got), whole(*roll_p.forces(sh, compute_energy=True))
+    ref = cell_kernel.cell_forces(st, model, config, compute_energy=True, backend="cuda")
+    for a, b in zip((k.positions, k.half_sigma, k.twice_sqrt_eps), ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    v = st.valid
+    scale = max(float(p.positions[v].abs().max()), 1.0)
+    assert float((k.positions[v] - p.positions[v]).abs().max()) <= 2e-5 * scale
+    np.testing.assert_allclose(k.half_sigma[v].cpu().numpy(), p.half_sigma[v].cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_grid_rollout_kernels_match_plain_and_rerun_bitwise(device):
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+
+    st, config, model = _state(device, varied=False, geometry={"cells_per_dim": 4, "capacity": 56})
+    outs = {}
+    for shape in ((1, 1, 1), (2, 2, 2)):
+        mesh = make_grid_mesh(shape, device=device)
+        sh = gs.distribute_grid(st, config, mesh)
+        roll, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, uniform_params=(0.5, 2.0))
+        k2, k6_before = cell_kernel.LAUNCHES, k6.LAUNCHES
+        out = roll(sh, num_steps=12, rebin_every=3)
+        assert (cell_kernel.LAUNCHES - k2, k6.LAUNCHES - k6_before) == (14, 12)
+        again = roll(sh, num_steps=12, rebin_every=3)
+        assert all(torch.equal(a, b) for a, b in zip(out, again) if isinstance(a, torch.Tensor))
+        assert not bool(out.overflow)
+        outs[shape] = gs.gather_grid_state(out, config, mesh)
+        if shape == (2, 2, 2):
+            roll_p, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, uniform_params=(0.5, 2.0), backend="torch")
+            plain = gs.gather_grid_state(roll_p(sh, num_steps=12, rebin_every=3), config, mesh)
+            assert torch.equal(plain.atom_id, outs[shape].atom_id)
+            assert float((plain.positions - outs[shape].positions).abs().max()) <= 2e-5
+    a, b = outs[(1, 1, 1)], outs[(2, 2, 2)]
+    assert all(torch.equal(x, y) for x, y in zip(a, b) if isinstance(x, torch.Tensor))
+
+
+def test_probe_kernels_match_plain(device):
+    from emdee_tpu_torch.tools import probes
+
+    ghost, centers = probes.probe_fma_inputs(6, 32, device)
+    before = probes.LAUNCHES
+    got = probes.probe_fma(ghost, centers, 6, 32, 15)
+    assert torch.equal(got.view(torch.int32), probes.probe_fma_plain(ghost, centers, 6, 32, 15).view(torch.int32))
+    for transposed in (False, True):
+        cen, expand = probes.probe_cen_inputs(transposed, device, progs=8)
+        got = probes.probe_cen(cen, expand, transposed)
+        want = probes.probe_cen_plain(cen, expand, transposed)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+    assert probes.LAUNCHES == before + 3
