@@ -28,7 +28,24 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   config from the CSVR state, then `reconfigure_dense_state` on its end;
 - the C-tight straggler engine at bench.py's production config (C_t =
   wide−4, C_w = wide+4, A = 64, Kn = 16), through `straggler_init` and
-  `make_straggler_sim`, from the equilibrated melt;
+  `make_straggler_sim`, from the equilibrated melt, and its gather pass
+  (strag_pass="xla"), whose reactions go through the fixed-order add;
+- the molecular dense engine: the force kernel's molecular branches (K2c:
+  DSF Coulomb, exclusion tags, tag-borne bonds) against their plain
+  version on the 864-atom charged fixture of tests/test_pallas_kernel.py
+  and on the water box; the triatomic fixture of
+  tests/test_grid_sharded_pallas.py (leftover pairs, shared and exclusive
+  terms) on 'cuda'; and the 98,304-atom flexible-TIP3P water box of
+  `emdee_tpu_torch/tools/water.py` (bench_all.py's molecular run config:
+  cutoff 7 Å, switch 6, skin 1, dt 5e-4, DSF α = 0.2, spill geometry M = 12,
+  C = 64, asserted to resolve to the resident family under 'auto') through
+  `cell_dense_init(charges=...)` and `make_molecular_dense_sim`:
+  equilibrated 2,000 steps with CSVR at 300 K on the plain config that
+  holds its lattice start ('cuda' named: 'auto' picks the streaming family
+  there, whose molecular terms are not ported), then re-initialised on the
+  spill config; the gated 600-step window runs there if its flag holds,
+  else on the plain config, with the flag's cause logged; then 'cuda'
+  (bonds in K2c) against 'torch' (bonds on the gather path) after 20 steps;
 - the 3-D grid-sharded engine (`emdee_tpu_torch.distributed`, every shard
   on this card, `LocalMesh`) on the equilibrated melt: (1,1,1) at the main
   path's config (M = 17, C = 32), then at the config
@@ -47,7 +64,9 @@ kernel; P2, the centre-expansion product in two layouts) against their plain
 versions, with their times.
 
 Each path is gated: no overflow (capacity, staleness, Kn, A), NVE drift ≤
-3e-5 over 1,000 steps (NVT: the mean T* of the last 500 steps within 2% of
+3e-5 over 1,000 steps (the water path: ≤ 1e-4 over 600 steps, K2c within
+2e-4 of the force scale and 1e-3 in energies and virials of its plain
+version) (NVT: the mean T* of the last 500 steps within 2% of
 the target; NPT: the box grows by more than 1% and half the pressure gap
 closes), launch counts that show every force evaluation, straggler pass,
 rebin pass and compaction went through the kernels (counts set to 0 just
@@ -482,11 +501,11 @@ def no_host_waits(label, fn) -> None:
     torch.cuda.synchronize()
 
 
-def gate_rollout(label, rollout, energy, st0, steps, rebin_every, expected):
+def gate_rollout(label, rollout, energy, st0, steps, rebin_every, expected, drift_gate=DRIFT_GATE):
     """Run one measured rollout with every launch counter set to 0 just
-    before it; gate overflow, NVE drift and the launch counts (`expected`,
-    by kernel, the two energy calls included).  Returns (final state,
-    seconds, drift, counts)."""
+    before it; gate overflow, NVE drift (≤ `drift_gate`) and the launch
+    counts (`expected`, by kernel, the two energy calls included).  Returns
+    (final state, seconds, drift, counts)."""
     mods = counters()
     for mod in mods.values():
         mod.LAUNCHES = 0
@@ -502,8 +521,8 @@ def gate_rollout(label, rollout, energy, st0, steps, rebin_every, expected):
     drift = abs(e1 - e0) / max(abs(e0), 1.0)
     if bool(getattr(out, "grid", out).overflow):
         raise AssertionError(f"{label}: overflow")
-    if not drift <= DRIFT_GATE:
-        raise AssertionError(f"{label}: NVE drift {drift:.3e} > {DRIFT_GATE}")
+    if not drift <= drift_gate:
+        raise AssertionError(f"{label}: NVE drift {drift:.3e} > {drift_gate}")
     if counts != expected:
         raise AssertionError(f"{label}: kernel launches {counts}, expected {expected}")
     return out, seconds, drift, counts
@@ -1289,6 +1308,272 @@ def phase_probes(device, tag):
     return p1, p2
 
 
+# ---------------------------------------------------------------------------
+# The molecular dense engine: K2c and the flexible-water box
+# ---------------------------------------------------------------------------
+
+MOL_FORCE_GATE = 2e-4  # K2c vs plain, of the force scale (the reference's K2c tolerance)
+MOL_E_GATE = 1e-3  # K2c vs plain, per-slot energies and virials
+WATER_DRIFT_GATE = 1e-4  # relative NVE drift of the water path (the verify recipe's healthy bound)
+WATER_EQ_STEPS = 2000
+WATER_STEPS = 600
+WATER_REBIN = 6
+# float32 operations of one molecular pair inside the cutoff, each pair once
+# with Newton's third law.  The force launch: OPS_PER_PAIR, the per-atom
+# mixing 3, DSF Coulomb's force part 47 (√r, 1/r, αr 3, erfc ≈ 20, exp and
+# its argument ≈ 11, the Gaussian and g(r) 6, qq 3, the force term 4) and 3
+# per exclusion tag (compare, mask, subtract); each bonded pair inside the
+# cutoff adds the bond force 4.  The energy launch (no bond tags):
+# OPS_PER_PAIR_ENERGY (mixing included), the same DSF force part, its energy
+# term 6, and the tags.
+OPS_MIX, OPS_DSF_FORCE, OPS_DSF_ENERGY, OPS_BOND_FORCE = 3, 47, 6, 4
+
+
+def mol_ops(pairs: int, bonded_pairs: int, e_tags: int, energy: bool) -> int:
+    """Operations of one K2c launch: `pairs` inside the cutoff, of which
+    `bonded_pairs` carry a bond term (forces launch only)."""
+    if energy:
+        return (OPS_PER_PAIR_ENERGY + OPS_DSF_FORCE + OPS_DSF_ENERGY + 3 * e_tags) * pairs
+    return (OPS_PER_PAIR + OPS_MIX + OPS_DSF_FORCE + 3 * e_tags) * pairs + OPS_BOND_FORCE * bonded_pairs
+
+
+def mol_bytes(config, e_tags: int, e_bonds: int, energy: bool) -> int:
+    """Bytes a K2c launch must move: positions 12, σ/2 and 2√ε 8, valid 1,
+    charge 4, atom id 4, the tags 12E and bond weights 8E_b (12E_b with
+    energies) per slot in; forces 12 (and energy and virial 8) out."""
+    per_slot = 12 + 8 + 1 + 4 + 4 + 12 * e_tags + (12 if energy else 8) * e_bonds + 12 + (8 if energy else 0)
+    return per_slot * config.num_slots
+
+
+def check_mol_kernel(st, config, model, coulomb, tags, label):
+    """K2c vs its plain version on one state, with DSF and the exclusion
+    tags, without and with the bond tags, forces alone and with energies:
+    forces within MOL_FORCE_GATE of the force scale, energies and virials
+    within MOL_E_GATE, exact zeros on empty slots.  Returns (max |dF|,
+    force scale, max |dE|, max |dW|)."""
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
+
+    v = st.valid
+    err = scale = err_e = err_w = 0.0
+    for excl in (tags[:3], tags):
+        for energy in (False, True):
+            kw = dict(compute_energy=energy, coulomb=coulomb, excl=excl)
+            fk, ek, wk = cell_forces(st, model, config, backend="cuda", **kw)
+            fp, ep, wp = cell_forces(st, model, config, backend="torch", **kw)
+            torch.cuda.synchronize()
+            sc = max(float(fp[v].abs().max()), 1.0)
+            scale = max(scale, sc)
+            what = f"{label} K2c {'with' if len(excl) > 3 else 'without'} bond tags{' + energies' if energy else ''}"
+            err = max(err, close(f"{what}: forces", fk[v], fp[v], atol=MOL_FORCE_GATE * sc))
+            if bool((fk[~v] != 0).any()):
+                raise AssertionError(f"{what}: nonzero forces on empty slots")
+            if energy:
+                err_e = max(err_e, close(f"{what}: energies", ek[v], ep[v], atol=MOL_E_GATE))
+                err_w = max(err_w, close(f"{what}: virials", wk[v], wp[v], atol=MOL_E_GATE))
+                if bool((ek[~v] != 0).any()) or bool((wk[~v] != 0).any()):
+                    raise AssertionError(f"{what}: nonzero energies on empty slots")
+    return err, scale, err_e, err_w
+
+
+def water_tags(box, n, device, st):
+    """The water box's slot tags as the 'cuda' path builds them (the O–H
+    bonds on the tags): (tags, E, E_b)."""
+    from emdee_tpu_torch import build_exclusion_tables, make_exclusion_aux_fn
+
+    tabs, _, bond_tabs, _ = build_exclusion_tables(
+        n, box["exclusion_pairs"], box["exclusion_scales"], None,
+        bonds=(box["bonds"], box["bond_k"], box["bond_r0"]))
+    return make_exclusion_aux_fn(n, *tabs, bond_tabs=bond_tabs)(st), tabs[0].shape[-1], bond_tabs[0].shape[-1]
+
+
+def water_blocks_to_flag(roll, st, blocks):
+    """Run up to `blocks` rebin blocks; return (blocks run, the state before
+    the last block, the last state)."""
+    prev, done = st, 0
+    while done < blocks and not bool(st.overflow):
+        prev, st, done = st, roll(st, num_steps=WATER_REBIN, rebin_every=WATER_REBIN), done + 1
+    return done, prev, st
+
+
+def phase_water(device, tag):
+    """The 98,304-atom flexible-water box (`tools/water.py`) on the molecular
+    dense engine: its spill config must resolve to the resident kernel
+    family under 'auto'; equilibrate with CSVR at 300 K on the plain config
+    that holds the lattice start ('cuda' named, since 'auto' picks the
+    streaming family there; the thermostat forwarded through
+    `make_molecular_dense_sim`), re-initialise on the spill config and, if
+    that holds, run the
+    gated NVE window there; else log the flag's cause and run it on the
+    plain config with 'cuda'.  Gates: flag false, exact launch counts,
+    drift ≤ 1e-4, bitwise reruns, no host waits; K2c vs plain on the
+    window's state; 'cuda' (bonds in K2c) vs 'torch' (the gather path) after
+    20 steps.  Returns (K2c row fields, {path: counts}, ms/step, facts)."""
+    from emdee_tpu_torch import cell_dense_init, gather_dense_atoms, resolve_dense_backend
+    from emdee_tpu_torch.tools import water
+
+    box, spill_cfg, model, coul, params = water.water_setup(device, spill=True)
+    _, plain_cfg, _, _, _ = water.water_setup(device, spill=False)
+    n = len(box["masses"])
+    rb = lambda cfg: resolve_dense_backend(cfg, "auto", device=device, with_coulomb=True, with_excl=True)  # noqa: E731
+    if (spill_cfg.cells_per_dim, spill_cfg.capacity) != (12, 64) or rb(spill_cfg) != "cuda":
+        raise AssertionError(f"water spill config M={spill_cfg.cells_per_dim} C={spill_cfg.capacity} resolves to "
+                             f"{rb(spill_cfg)!r}")
+    init = lambda pos, vel, cfg: cell_dense_init(pos, vel, box["masses"], params, cfg,  # noqa: E731
+                                                 charges=box["charges"], device=device)
+    st = init(box["positions"], box["velocities"], plain_cfg)
+    if bool(st.overflow):
+        raise AssertionError("water: init overflow on the plain config")
+    log(f"water box: {n} atoms ({n // 3} flexible TIP3P waters), L = {box['box']:.2f} Å; spill config "
+        f"M={spill_cfg.cells_per_dim} C={spill_cfg.capacity} "
+        f"-> 'auto' resolves to {rb(spill_cfg)!r}; the lattice start needs C={plain_cfg.capacity} "
+        f"(M={plain_cfg.cells_per_dim}), where 'auto' would pick {rb(plain_cfg)!r} (K5c not ported): "
+        "equilibrating on 'cuda'")
+    roll_eq, energy_eq = water.molecular_sim(box, plain_cfg, model, coul, params, "cuda", device)
+    roll_nvt, _ = water.molecular_sim(box, plain_cfg, model, coul, params, "cuda", device, water.csvr())
+    t0 = time.perf_counter()
+    eq = roll_nvt(st, num_steps=WATER_EQ_STEPS, rebin_every=WATER_REBIN,
+                  rng=torch.Generator(device=device).manual_seed(water.SEED))
+    if bool(eq.overflow):
+        raise AssertionError("water: equilibration overflow")
+    pos_eq, vel_eq = gather_dense_atoms(eq, n)
+    ke = float(energy_eq(eq)[2])
+    t_eq = 2.0 * ke / ((3 * n - 3) * water.KB)
+    log(f"water: equilibrated {WATER_EQ_STEPS} steps (dt {water.DT}, {WATER_EQ_STEPS * water.DT * 100:.1f} fs; CSVR "
+        f"{water.TEMPERATURE:.0f} K, tau {water.TAU * 100:.0f} fs) in {time.perf_counter() - t0:.2f} s on "
+        f"M={plain_cfg.cells_per_dim} C={plain_cfg.capacity}: T = {t_eq:.1f} K")
+
+    roll_s, energy_s = water.molecular_sim(box, spill_cfg, model, coul, params, "auto", device)
+    st_s = init(pos_eq, vel_eq, spill_cfg)
+    facts = {"spill_holds": False}
+    if bool(st_s.overflow):
+        occ = water.occupancy(pos_eq, spill_cfg)
+        eps = spill_cfg.cell_side - spill_cfg.cutoff - spill_cfg.skin
+        cause = (f"the spill init overflows: true-cell occupancy mean {occ.mean():.2f}, sd {occ.std():.2f}, max "
+                 f"{occ.max()}, {int((occ > spill_cfg.capacity).sum())} cells above C; only atoms within the spill "
+                 f"margin {eps:.3f} Å of a +face may move")
+    else:
+        blocks, prev, end = water_blocks_to_flag(roll_s, st_s, WATER_STEPS // WATER_REBIN)
+        facts["spill_holds"] = not bool(end.overflow)
+        cause = (f"sticky flag after {blocks} rebin blocks; its last rebin: {flag_cause(prev, spill_cfg)}"
+                 if bool(end.overflow) else f"no flag in {blocks} rebin blocks")
+    log(f"{tag} water spill config (M={spill_cfg.cells_per_dim} C={spill_cfg.capacity}): {cause}")
+    if facts["spill_holds"]:
+        cfg, roll, energy, st0, backend = spill_cfg, roll_s, energy_s, st_s, "auto"
+        kernel_counts = {"compact_window": 3 * -(-WATER_STEPS // WATER_REBIN)}
+    else:
+        cfg, roll, energy, backend = plain_cfg, roll_eq, energy_eq, "cuda"
+        st0 = init(pos_eq, vel_eq, plain_cfg)
+        kernel_counts = {"rebin_routing": 3 * -(-WATER_STEPS // WATER_REBIN)}
+        log(f"water: the gated path runs on the plain config M={cfg.cells_per_dim} C={cfg.capacity} with "
+            f"backend='cuda' named; 'auto' would pick {rb(cfg)!r}, whose molecular terms (K5c) are not ported")
+    roll(st0, num_steps=2 * WATER_REBIN, rebin_every=WATER_REBIN)  # warm-up
+    out, sec, drift, counts = gate_rollout(
+        "water path", roll, energy, st0, WATER_STEPS, WATER_REBIN,
+        launches(cell_forces=WATER_STEPS + 4, **kernel_counts), drift_gate=WATER_DRIFT_GATE,
+    )
+    bitwise_rerun("water path", roll, st0, 100, WATER_REBIN)
+    no_host_waits("water path", lambda: roll(st0, num_steps=2 * WATER_REBIN, rebin_every=WATER_REBIN))
+    ms = 1e3 * sec / WATER_STEPS
+    log(f"{tag} water path ({'spill' if facts['spill_holds'] else 'plain'} config M={cfg.cells_per_dim} "
+        f"C={cfg.capacity}, backend {backend!r}, DSF + tags + bonds in K2c, angles by scatter-set): "
+        f"{WATER_STEPS} steps in {sec:.3f} s = {ms:.4f} ms/step, {n * WATER_STEPS / sec:,.0f} atom-steps/s; "
+        f"NVE drift {drift:.3e} (gate {WATER_DRIFT_GATE}); launches {counts}; two 100-step rollouts bitwise "
+        "equal; no host waits")
+
+    # K2c vs plain on the window's end state, and its times there.
+    tags, e_tags, e_bonds = water_tags(box, n, device, out)
+    err, scale, err_e, err_w = check_mol_kernel(out, cfg, model, coul, tags, f"water {n}")
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
+
+    step_kw = dict(coulomb=coul, excl=tags)
+    e_kw = dict(coulomb=coul, excl=tags[:3], compute_energy=True)
+    k_ms = cuda_ms(lambda: cell_forces(out, model, cfg, backend="cuda", **step_kw), 20)
+    k_e_ms = cuda_ms(lambda: cell_forces(out, model, cfg, backend="cuda", **e_kw), 10)
+    p_ms = cuda_ms(lambda: cell_forces(out, model, cfg, backend="torch", **step_kw), 2)
+    p_e_ms = cuda_ms(lambda: cell_forces(out, model, cfg, backend="torch", **e_kw), 2)
+    px, py, pz = (out.positions[..., i].contiguous() for i in range(3))
+    pairs = grid_pairs(px, py, pz, out.valid, cfg)
+    pos_end, _ = gather_dense_atoms(out, n)
+    d = pos_end[box["bonds"][:, 1]] - pos_end[box["bonds"][:, 0]]
+    d -= np.round(d / box["box"]) * box["box"]
+    bonded_pairs = int(((d * d).sum(1) < cfg.cutoff**2).sum())
+    b_ms, b_by = bound(mol_bytes(cfg, e_tags, e_bonds, False), mol_ops(pairs, bonded_pairs, e_tags, False))
+    b_e = bound(mol_bytes(cfg, e_tags, 0, True), mol_ops(pairs, 0, e_tags, True))
+    log(f"{tag} K2c vs plain on the water path's end state (M={cfg.cells_per_dim} C={cfg.capacity}, E={e_tags} "
+        f"E_b={e_bonds}): max |dF| {err:.3e} (rel {err / scale:.3e}, scale {scale:.1f}), max |dE| {err_e:.3e}, "
+        f"max |dW| {err_w:.3e}; step launch (DSF + tags + bonds) {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}); energy launch (no bond tags) {k_e_ms:.4f} ms, plain {p_e_ms:.3f} ms, bound "
+        f"{b_e[0]:.5f} ms ({b_e[1]}); {pairs:,} pairs inside the cutoff ({bonded_pairs:,} bonded), "
+        f"{cfg.num_cells * cfg.capacity * 27 * cfg.capacity:,} candidates a launch")
+
+    # 'cuda' (bonds in K2c) vs 'torch' (the gather path) after 20 steps.
+    roll_t, energy_t = water.molecular_sim(box, cfg, model, coul, params, "torch", device)
+    a = roll(st0, num_steps=20, rebin_every=5)
+    b = roll_t(st0, num_steps=20, rebin_every=5)
+    (pa, va), (pb, vb) = gather_dense_atoms(a, n), gather_dense_atoms(b, n)
+    dp, dv = float(np.abs(pa - pb).max()), float(np.abs(va - vb).max())
+    if not (dp <= 2e-3 and dv <= 5e-2) or bool(a.overflow) or bool(b.overflow):
+        raise AssertionError(f"water 'cuda' vs 'torch' after 20 steps: positions {dp:.3e}, velocities {dv:.3e}")
+    pe_k, pe_t = float(energy(st0)[0]), float(energy_t(st0)[0])
+    log(f"{tag} water 'cuda' (bonds in K2c) vs 'torch' (bonds on the gather path) after 20 steps on the card: "
+        f"max |dx| {dp:.3e} Å (gate 2e-3), max |dv| {dv:.3e} Å/(0.1 ps) (gate 5e-2); PE {pe_k:.3f} vs {pe_t:.3f} "
+        "kJ/mol")
+    row = {"mol_water_max_abs_err": err, "mol_water_force_scale": scale, "mol_water_rel_err": err / scale,
+           "mol_water_energy_err": max(err_e, err_w), "mol_ms": k_ms, "mol_plain_ms": p_ms,
+           "mol_bound_ms": b_ms, "mol_bound_by": b_by, "mol_energy_ms": k_e_ms, "mol_energy_plain_ms": p_e_ms, "mol_energy_bound_ms": b_e[0],
+           "mol_pairs": pairs, "mol_bonded_pairs": bonded_pairs}
+    facts.update(config=f"M={cfg.cells_per_dim} C={cfg.capacity}", drift=drift, t_eq=t_eq)
+    return row, {"water": counts}, ms, facts
+
+
+def phase_molecular_fixtures(device, tag):
+    """K2c vs plain on the 864-atom charged fixture; the triatomic fixture
+    of tests/test_grid_sharded_pallas.py:36-104 (375 atoms, band 1: leftover
+    pairs, shared and exclusive terms) on 'cuda', rerun bitwise and held
+    against 'torch' (both fixtures from `tools/fixtures.py`).  Returns the
+    fixture's K2c row fields: its max |dF|, force scale, relative error and
+    max energy or virial error."""
+    from emdee_tpu_torch import gather_dense_atoms
+    from emdee_tpu_torch.tools import fixtures
+
+    st, config, model, coul, tags = fixtures.charged_fixture(device)
+    err, scale, err_e, err_w = check_mol_kernel(st, config, model, coul, tags, "864 fixture")
+    log(f"{tag} K2c vs plain, 864-atom charged fixture (drifted): max |dF| {err:.3e} (rel {err / scale:.3e}, "
+        f"scale {scale:.1f}), max |dE| {err_e:.3e}, max |dW| {err_w:.3e}; empty slots exactly 0")
+    row = {"mol_fixture_max_abs_err": err, "mol_fixture_force_scale": scale, "mol_fixture_rel_err": err / scale,
+           "mol_fixture_energy_err": max(err_e, err_w)}
+
+    st, (roll_k, _) = fixtures.triatomic_sim(device, "cuda")
+    _, (roll_t, _) = fixtures.triatomic_sim(device, "torch")
+    sims = {"cuda": roll_k, "torch": roll_t}
+    n = int(st.valid.sum())
+    bitwise_rerun("triatomic fixture", roll_k, st, 20, 5)
+    outs = {b: sims[b](st, num_steps=20, rebin_every=5) for b in sims}
+    (pk, vk), (pt, vt) = (gather_dense_atoms(outs[b], n) for b in ("cuda", "torch"))
+    dp, dv = float(np.abs(pk - pt).max()), float(np.abs(vk - vt).max())
+    if not (dp <= 2e-3 and dv <= 5e-2) or any(bool(o.overflow) for o in outs.values()):
+        raise AssertionError(f"triatomic 'cuda' vs 'torch': positions {dp:.3e}, velocities {dv:.3e}")
+    log(f"{tag} triatomic fixture ({n} atoms, band 1: leftover pairs, shared terms by the fixed-order add, "
+        f"exclusive angles by scatter-set) on 'cuda': two 20-step rollouts bitwise equal; vs 'torch' max |dx| "
+        f"{dp:.3e}, max |dv| {dv:.3e}")
+    return row
+
+
+def phase_gather_pass(device, tag, sconfig, model, uni, pos_eq, vel_eq, params, k):
+    """The straggler engine's gather pass (strag_pass="xla") on the card:
+    its reactions go through the fixed-order add, so two rollouts are
+    bitwise equal."""
+    from emdee_tpu_torch import make_straggler_sim, straggler_init
+
+    n = sconfig.grid.num_atoms
+    roll, _ = make_straggler_sim(sconfig, model, dt=DT, uniform_params=uni, uniform_mass=1.0, strag_pass="xla")
+    s0 = straggler_init(pos_eq, vel_eq, np.ones(n), params, sconfig, device=device)
+    t0 = time.perf_counter()
+    bitwise_rerun("straggler gather pass", roll, s0, 100, k)
+    log(f"{tag} straggler gather pass (strag_pass='xla', reactions by the fixed-order add): two 100-step rollouts "
+        f"bitwise equal ({time.perf_counter() - t0:.2f} s for both)")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke test of emdee_tpu_torch on one CUDA card.")
     parser.add_argument("--save-spill-flag", metavar="FILE",
@@ -1413,6 +1698,14 @@ def main() -> None:
         f"launches {s_counts}; two 100-step rollouts bitwise equal")
     log(f"{smi}: straggler path {s_ms:.4f} ms/step ({n * 1e3 / s_ms:,.0f} atom-steps/s) vs "
         f"dense main path {main_ms:.4f} ms/step ({n * 1e3 / main_ms:,.0f} atom-steps/s)")
+    phase_gather_pass(device, tag, production, model, uni, pos_eq, vel_eq, params, k)
+
+    # ---- the molecular dense engine: K2c, the triatomic fixture, the water box ----
+    mol_fixture_row = phase_molecular_fixtures(device, tag)
+    mol_row, counts_water, water_ms, water_facts = phase_water(device, tag)
+    log(f"{smi}: water path {water_ms:.4f} ms/step ({98_304 * 1e3 / water_ms:,.0f} atom-steps/s) on "
+        f"{water_facts['config']}, NVE drift {water_facts['drift']:.3e}, T {water_facts['t_eq']:.1f} K; "
+        f"spill config holds: {water_facts['spill_holds']}")
 
     # ---- the grid-sharded engine (virtual shards on this card) ----
     counts_grid, grid_ms, grid_err = phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_ms)
@@ -1428,7 +1721,7 @@ def main() -> None:
     p1, p2 = phase_probes(device, tag)
 
     paths = {"dense": main_counts, "straggler": s_counts, **counts_spill, **counts_thermo, **counts_grid,
-             **counts_1m}
+             **counts_1m, **counts_water}
     by_path = lambda name: {p: c[name] for p, c in paths.items() if c[name]}  # noqa: E731
     kernels = [
         dict(name="cell_forces", route="cuda", source="emdee_tpu_torch/csrc/cell_forces.cu",
@@ -1437,7 +1730,10 @@ def main() -> None:
              launches=sum(by_path("cell_forces").values()),
              launches_by_path=by_path("cell_forces"), **force, n1m_split_ms=k2_1m["k2_split_ms"],
              n1m_energy_ms=k2_1m["k2_energy_ms"],
-             **{f"strag_{key}": value for key, value in k3["strag"].items()}),
+             **{f"strag_{key}": value for key, value in k3["strag"].items()},
+             mol_replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:383",
+             mol_launches=counts_water["water"]["cell_forces"],
+             mol_launches_by_path={"water": counts_water["water"]["cell_forces"]}, **mol_fixture_row, **mol_row),
         dict(name="cell_forces_streaming", route="cuda", source="emdee_tpu_torch/csrc/cell_forces_streaming.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1158",
              launches=sum(by_path("cell_forces_streaming").values()),

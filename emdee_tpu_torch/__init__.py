@@ -12,9 +12,12 @@ rebin, the boundary-spill capacity mode with squeeze and
 `shrink_capacity`, `reconfigure_dense_state`, the energy closure) with the
 TPU engine's two force-kernel families — resident and streaming, picked by
 `resolve_dense_backend` as the TPU engine picks them — and the C-tight
-straggler engine on top of it, and the 3-D grid-sharded engine
+straggler engine on top of it, the 3-D grid-sharded engine
 (`distributed/`: NVE and CSVR NVT over an (nz, ny, nx) mesh of shards, every
-shard on one card or one a `torch.distributed` rank).  Its kernels are
+shard on one card or one a `torch.distributed` rank), and molecular systems
+on the dense engine (`neighbors/cell_dense_molecular.py`: charges with DSF
+Coulomb, exclusion tags, tag-borne bonds and the bonded terms of
+`potentials/bonded.py`).  Its kernels are
 hand-written CUDA for `sm_90a` (`csrc/cell_forces.cu`,
 `csrc/cell_forces_streaming.cu`, `csrc/rebin_routing.cu`,
 `csrc/rebin_window.cu`, `csrc/compact_window.cu`,
@@ -40,12 +43,20 @@ from emdee_tpu_torch.neighbors.cell_dense import (
     estimate_kernel_vmem_bytes,
     gather_dense_atoms,
     gather_dense_fields,
+    lj_params_from_numpy,
     make_cell_dense_sim,
     reconfigure_dense_state,
     resolve_dense_backend,
     shrink_capacity,
+    state_from_numpy,
+    state_to_numpy,
     suggest_cell_dense_config,
     suggest_rebin_interval,
+)
+from emdee_tpu_torch.neighbors.cell_dense_molecular import (
+    build_exclusion_tables,
+    make_exclusion_aux_fn,
+    make_molecular_dense_sim,
 )
 from emdee_tpu_torch.neighbors.cell_dense_straggler import (
     StragglerConfig,
@@ -58,6 +69,20 @@ from emdee_tpu_torch.neighbors.cell_dense_straggler import (
 from emdee_tpu_torch.neighbors.streaming_kernel import (
     cell_forces_streaming,
     cell_forces_streaming_split,
+)
+from emdee_tpu_torch.potentials.bonded import (
+    AngleTable,
+    BondedSystem,
+    BondTable,
+    TorsionTable,
+    bonded_from_numpy,
+)
+from emdee_tpu_torch.potentials.coulomb import (
+    KJMOL_ANGSTROM,
+    KJMOL_NM,
+    DSFCoulomb,
+    coulomb_from_numpy,
+    coulomb_interaction,
 )
 from emdee_tpu_torch.potentials.lennard_jones import (
     LennardJonesModel,
@@ -83,12 +108,18 @@ __all__ = [
     "estimate_kernel_vmem_bytes",
     "gather_dense_atoms",
     "gather_dense_fields",
+    "lj_params_from_numpy",
     "make_cell_dense_sim",
     "reconfigure_dense_state",
     "resolve_dense_backend",
     "shrink_capacity",
+    "state_from_numpy",
+    "state_to_numpy",
     "suggest_cell_dense_config",
     "suggest_rebin_interval",
+    "build_exclusion_tables",
+    "make_exclusion_aux_fn",
+    "make_molecular_dense_sim",
     "StragglerConfig",
     "StragglerState",
     "gather_straggler_atoms",
@@ -97,6 +128,16 @@ __all__ = [
     "suggest_straggler_config",
     "cell_forces_streaming",
     "cell_forces_streaming_split",
+    "AngleTable",
+    "BondedSystem",
+    "BondTable",
+    "TorsionTable",
+    "bonded_from_numpy",
+    "KJMOL_ANGSTROM",
+    "KJMOL_NM",
+    "DSFCoulomb",
+    "coulomb_from_numpy",
+    "coulomb_interaction",
     "LennardJonesModel",
     "lennard_jones_atom",
     "pair_interaction",

@@ -40,6 +40,12 @@ _SIGNATURES = {
     "emdee_cell_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                           _I, _I, _P, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                           _F, _I, _I, _P],
+    # pos, hs, tse, valid, q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb,
+    # alpha, rc, rc2_c, e_shift, f_shift, kc (0-d device tensors), f, e, w,
+    # m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, coulomb,
+    # excl, bond, energy, stream
+    "emdee_cell_forces_mol": [_P] * 12 + [_I, _I] + [_P] * 6 + [_P, _P, _P, _I, _I, _P] + [_F] * 8
+                             + [_I, _I, _I, _I, _P],
     # px, py, pz, valid, fx, fy, fz, ax, ay, az, table, kn, m, c, box (device),
     # rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u, stream
     "emdee_cell_forces_strag": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

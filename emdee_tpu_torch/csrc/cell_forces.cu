@@ -59,6 +59,27 @@
 // and no second exchange.  Plain version:
 // emdee_tpu_torch/neighbors/cell_kernel.py `ghost_forces_plain`.
 //
+// COULOMB, EXCL, BOND (the molecular branches of `_build_pair_pass`: K2c-q,
+// `coulomb` :420-424, :525-551 and `excl_e`/`excl_cs` :459-488; K2c-b,
+// `excl_eb` :468-487, :502-523; centre tags as `_unpack_centers` :347 lays
+// them out), on the per-atom path (not STRAG, not GHOST), entered through
+// `emdee_cell_forces_mol`.  Each staged neighbour cell also brings its
+// charges and int32 atom ids to shared memory; each centre keeps its E ≤ 8
+// exclusion tags (partner atom id, 1 − s_LJ, 1 − s_C) and its first E_b
+// bond weights (k, k·r0, k·r0²) in registers and matches them on integer
+// ids.  A matched pair scales the LJ t6 by 1 − Σ mlj and qq by 1 − Σ mcs;
+// a matched bond tag adds −r·dE/dr = k·r0·r − k·r² and E = ½(k·r² + k·r0²)
+// − k·r0·r, masked to r² < rc² (periodic images of a partner drop out).
+// DSF Coulomb is the exact form with IEEE erfcf and expf, as the plain
+// `coulomb_interaction` (the reference's XLA path, not its degree-10 fit),
+// zero at r² ≥ rc_C²; its constants are read from 0-d device tensors.
+// Pairs are skipped beyond the larger of the two squared cutoffs; LJ and
+// the bonds take only pairs inside rc².  Plain version: cell_dense.py
+// `cell_dense_forces(coulomb=, excl=)`.  At the 98,304-atom water box
+// (M = 12, C = 64) a launch walks 1,728 × 64 × 27 × 64 ≈ 191 M candidates,
+// and every pair inside the cutoff pays an erfc, an exp, a square root and
+// 3E tag operations; chip_smoke.py counts the pairs and gives the bound.
+//
 // Bound on this card: at the 97,556-atom melt (M = 17, C = 32) a launch
 // evaluates 4,913 × 32 × 864 ≈ 136 M candidate pairs, of which about 6% lie
 // inside the cutoff — arithmetic on registers and broadcast shared-memory
@@ -87,7 +108,22 @@ struct Ghost {
   int mz, my, mx, sy_n, sx_n, bz, by, bx;
 };
 
-template <bool UNIFORM, bool ENERGY, bool STRAG, bool GHOST>
+constexpr int kMaxTags = 8;  // E ≤ 8: the band rule of cell_dense_molecular.py
+constexpr float kTwoOverSqrtPi = 1.1283791670955126f;
+
+// The molecular operands: per-slot charges and int32 atom ids, the centre
+// tags (M³, C, ne) and bond weights (M³, C, neb), and the DSF constants as
+// pointers to 0-d device tensors.
+struct Mol {
+  const float* q;
+  const int* aid;
+  const float *ids, *mlj, *mcs, *kb, *kr0, *kr02;
+  int ne, neb;
+  const float *alpha, *rc, *rc2, *e_shift, *f_shift, *kc;
+};
+
+template <bool UNIFORM, bool ENERGY, bool STRAG, bool GHOST, bool COULOMB = false, bool EXCL = false,
+          bool BOND = false>
 __global__ void cell_forces_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, int pstride,
@@ -97,7 +133,7 @@ __global__ void cell_forces_kernel(
     int fstride, float* __restrict__ e_out, float* __restrict__ w_out,
     const float* __restrict__ ax, const float* __restrict__ ay,
     const float* __restrict__ az, const int* __restrict__ table, int kn,
-    int m, int c, const float* __restrict__ box_ptr, PairConsts k, Ghost g) {
+    int m, int c, const float* __restrict__ box_ptr, PairConsts k, Ghost g, Mol mol) {
   extern __shared__ float smem[];
   const float box = *box_ptr;
   float* sx = smem;
@@ -105,7 +141,9 @@ __global__ void cell_forces_kernel(
   float* sz = sy + c;
   float* shs = sz + c;
   float* stse = shs + c;
-  float* sax = stse + c;  // the STRAG list (kn = 0 otherwise)
+  float* sq = stse + c;  // the molecular fields (COULOMB or EXCL only)
+  int* said = reinterpret_cast<int*>(sq + c);
+  float* sax = (COULOMB || EXCL) ? reinterpret_cast<float*>(said + c) : sq;  // the STRAG list (kn = 0 otherwise)
   float* say = sax + kn;
   float* saz = say + kn;
   uint8_t* sv = reinterpret_cast<uint8_t*>(saz + kn);
@@ -157,6 +195,39 @@ __global__ void cell_forces_kernel(
   }
   float fxa = 0.f, fya = 0.f, fza = 0.f, ea = 0.f, wa = 0.f;
 
+  // Molecular centre operands: charge, tags and bond weights in registers.
+  float qi = 0.f, c_alpha = 0.f, c_rc = 0.f, c_rc2 = 0.f, c_eshift = 0.f, c_fshift = 0.f, c_kc = 0.f;
+  int tid[kMaxTags];
+  float tmlj[kMaxTags], tmcs[kMaxTags], tkb[kMaxTags], tkr0[kMaxTags], tkr02[kMaxTags];
+  float cut2 = k.rc2;
+  if (COULOMB) {
+    c_alpha = *mol.alpha;
+    c_rc = *mol.rc;
+    c_rc2 = *mol.rc2;
+    c_eshift = *mol.e_shift;
+    c_fshift = *mol.f_shift;
+    c_kc = *mol.kc;
+    cut2 = fmaxf(cut2, c_rc2);
+    if (center) qi = mol.q[own];
+  }
+#pragma unroll
+  for (int t = 0; t < kMaxTags; ++t) {
+    tid[t] = -1;
+    tmlj[t] = tmcs[t] = tkb[t] = tkr0[t] = tkr02[t] = 0.f;
+    if (EXCL && center && t < mol.ne) {
+      const long at = own * mol.ne + t;
+      tid[t] = __float2int_rn(mol.ids[at]);
+      tmlj[t] = mol.mlj[at];
+      if (COULOMB) tmcs[t] = mol.mcs[at];
+    }
+    if (BOND && center && t < mol.neb) {
+      const long at = own * mol.neb + t;
+      tkb[t] = mol.kb[at];
+      tkr0[t] = mol.kr0[at];
+      if (ENERGY) tkr02[t] = mol.kr02[at];
+    }
+  }
+
   for (int dz = -1; dz <= 1; ++dz) {
     int nz = cz + dz;
     float shz = 0.f;
@@ -183,6 +254,8 @@ __global__ void cell_forces_kernel(
             shs[i] = hs[s];
             stse[i] = tse[s];
           }
+          if (COULOMB) sq[i] = mol.q[s];
+          if (EXCL) said[i] = mol.aid[s];
         }
         __syncthreads();
         if (!center) continue;
@@ -194,28 +267,66 @@ __global__ void cell_forces_kernel(
           const float dvy = (yi - sy[j]) - shy;
           const float dvz = (zi - sz[j]) - shz;
           const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
-          if (!(r2 < k.rc2)) continue;
+          if (!(r2 < cut2)) continue;
           const float rinv = 1.0f / r2;
-          float t6, s6;
-          if (UNIFORM) {
-            const float s2 = k.sig2_u * rinv;
-            s6 = s2 * s2 * s2;
-            t6 = k.eps4_u * s6;
-          } else {
-            const float sig = hsi + shs[j];
-            const float s2 = sig * sig * rinv;
-            s6 = s2 * s2 * s2;
-            t6 = (tsei * stse[j]) * s6;
+          // Tag matches: the LJ and Coulomb scales and the bond weights.
+          float ljsc = 1.f, csc = 1.f, kbm = 0.f, kr0m = 0.f, kr02m = 0.f;
+          if (EXCL) {
+            const int aj = said[j];
+#pragma unroll
+            for (int t = 0; t < kMaxTags; ++t) {
+              if (tid[t] != aj) continue;  // pad tags hold −1, never an atom id
+              ljsc -= tmlj[t];
+              if (COULOMB) csc -= tmcs[t];
+              if (BOND) {
+                kbm += tkb[t];
+                kr0m += tkr0[t];
+                if (ENERGY) kr02m += tkr02[t];
+              }
+            }
           }
-          float t12, x;
-          const float tot = emdee::switched_tot(r2, t6, s6, k, t12, x);
+          float tot = 0.f, esum = 0.f;
+          const bool in_lj = !COULOMB || r2 < k.rc2;  // cut2 is rc² without COULOMB
+          if (in_lj) {
+            float t6, s6;
+            if (UNIFORM) {
+              const float s2 = k.sig2_u * rinv;
+              s6 = s2 * s2 * s2;
+              t6 = k.eps4_u * s6;
+            } else {
+              const float sig = hsi + shs[j];
+              const float s2 = sig * sig * rinv;
+              s6 = s2 * s2 * s2;
+              t6 = (tsei * stse[j]) * s6;
+            }
+            if (EXCL) t6 *= ljsc;
+            float t12, x;
+            tot = emdee::switched_tot(r2, t6, s6, k, t12, x);
+            if (ENERGY) esum = (t12 - t6) * (1.f + (x * x * x) * ((-6.f * x + 15.f) * x - 10.f));
+          }
+          if (COULOMB || BOND) {
+            const float r = sqrtf(r2);
+            if (COULOMB && r2 < c_rc2) {
+              const float ri = 1.0f / r;
+              const float ar = c_alpha * r;
+              const float erfc_ar = erfcf(ar);
+              const float gauss = kTwoOverSqrtPi * c_alpha * expf(-ar * ar);
+              const float g_r = erfc_ar * ri * ri + gauss * ri;
+              const float qq = c_kc * qi * sq[j] * csc;
+              tot += qq * r * (g_r - c_fshift);
+              if (ENERGY) esum += qq * (erfc_ar * ri - c_eshift + c_fshift * (r - c_rc));
+            }
+            if (BOND && in_lj) {
+              tot += kr0m * r - kbm * r2;
+              if (ENERGY) esum += 0.5f * (kbm * r2 + kr02m) - kr0m * r;
+            }
+          }
           const float gf = tot * rinv;
           fxa += gf * dvx;
           fya += gf * dvy;
           fza += gf * dvz;
           if (ENERGY) {
-            const float gsw = 1.f + (x * x * x) * ((-6.f * x + 15.f) * x - 10.f);
-            ea += 0.5f * ((t12 - t6) * gsw);
+            ea += 0.5f * esum;
             wa += 0.5f * tot;
           }
         }
@@ -266,12 +377,40 @@ void launch(const float* px, const float* py, const float* pz, int pstride,
             int c, const float* box, const PairConsts& k, cudaStream_t stream,
             const float* ax = nullptr, const float* ay = nullptr,
             const float* az = nullptr, const int* table = nullptr, int kn = 0,
-            const Ghost& g = Ghost{}, int blocks = 0) {
+            const Ghost& g = Ghost{}, int blocks = 0, const Mol& mol = Mol{}) {
   const int threads = ((c + 31) / 32) * 32;
   const size_t smem = sizeof(float) * (5 * c + 3 * kn) + c + kn;
   cell_forces_kernel<UNIFORM, ENERGY, STRAG, GHOST><<<GHOST ? blocks : m * m * m, threads, smem, stream>>>(
       px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, ax, ay,
-      az, table, kn, m, c, box, k, g);
+      az, table, kn, m, c, box, k, g, mol);
+}
+
+// The molecular variants: per-atom parameters, stacked positions and forces.
+template <bool ENERGY, bool COULOMB, bool EXCL, bool BOND>
+void launch_mol(const float* px, const float* hs, const float* tse, const uint8_t* valid, float* f,
+                float* e, float* w, int m, int c, const float* box, const PairConsts& k, const Mol& mol,
+                cudaStream_t stream) {
+  const int threads = ((c + 31) / 32) * 32;
+  const size_t smem = sizeof(float) * 7 * c + c;
+  cell_forces_kernel<false, ENERGY, false, false, COULOMB, EXCL, BOND><<<m * m * m, threads, smem, stream>>>(
+      px, px + 1, px + 2, 3, hs, tse, valid, f, f + 1, f + 2, 3, e, w, nullptr, nullptr, nullptr, nullptr, 0,
+      m, c, box, k, Ghost{}, mol);
+}
+
+template <bool ENERGY>
+void dispatch_mol(int coulomb, int excl, int bond, const float* px, const float* hs, const float* tse,
+                  const uint8_t* valid, float* f, float* e, float* w, int m, int c, const float* box,
+                  const PairConsts& k, const Mol& mol, cudaStream_t s) {
+  if (coulomb && bond)
+    launch_mol<ENERGY, true, true, true>(px, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
+  else if (coulomb && excl)
+    launch_mol<ENERGY, true, true, false>(px, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
+  else if (coulomb)
+    launch_mol<ENERGY, true, false, false>(px, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
+  else if (bond)
+    launch_mol<ENERGY, false, true, true>(px, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
+  else
+    launch_mol<ENERGY, false, true, false>(px, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
 }
 
 }  // namespace
@@ -294,6 +433,33 @@ extern "C" int emdee_cell_forces(
     launch<false, true>(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, m, c, box, k, s);
   else
     launch<false, false>(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, m, c, box, k, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The molecular entry (K2c): stacked positions and forces (M³, C, 3),
+// per-atom (σ/2, 2√ε), optional per-slot energies and virials; q (M³, C)
+// charges and the DSF constants' device pointers with `coulomb`; aid (M³,
+// C) int32 atom ids and the tags (M³, C, ne) with `excl` (mcs only with
+// `coulomb`); the bond weights (M³, C, neb) with `bond` (kr02 only with
+// `energy`).
+extern "C" int emdee_cell_forces_mol(
+    const float* pos, const float* hs, const float* tse, const uint8_t* valid, const float* q,
+    const int* aid, const float* ids, const float* mlj, const float* mcs, const float* kb,
+    const float* kr0, const float* kr02, int ne, int neb, const float* alpha, const float* rc,
+    const float* rc2_c, const float* e_shift, const float* f_shift, const float* kc, float* f, float* e,
+    float* w, int m, int c, const float* box, float rc2, float rs2, float invd2, float a_m, float pa1,
+    float pa2, float pb1, float pb2, int coulomb, int excl, int bond, int energy, void* stream) {
+  if (m < 3 || c < 1 || c > 1024 || (!coulomb && !excl) || (bond && !excl) ||
+      (excl && (ne < 1 || ne > kMaxTags)) || (bond && (neb < 1 || neb > ne)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
+  const Mol mol{q, aid, ids, mlj, mcs, kb, kr0, kr02, excl ? ne : 0, bond ? neb : 0,
+                alpha, rc, rc2_c, e_shift, f_shift, kc};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (energy)
+    dispatch_mol<true>(coulomb, excl, bond, pos, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
+  else
+    dispatch_mol<false>(coulomb, excl, bond, pos, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
   return static_cast<int>(cudaGetLastError());
 }
 

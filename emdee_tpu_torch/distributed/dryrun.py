@@ -10,7 +10,7 @@ Parts 1 and 2 of the reference (the atom-table slab decomposition of
 `distributed/domain.py` and the slab-sharded `cell_dense_sharded.py`) are not
 ported: a (D, 1, 1) grid mesh covers slabs (ROADMAP item 12).  Parts 4 to 6
 (charges, exclusion tags, bonded terms on the grid) wait for the molecular
-engine (ROADMAP item 10).
+grid (ROADMAP item 11.2, K2c-G).
 
 `run_ranks` is the launcher the tests share: n spawned processes, a
 `file://` rendezvous in a fresh temporary directory, results back through a

@@ -194,7 +194,7 @@ def make_grid_sharded_sim(
     Not ported yet, each raising NotImplementedError: Langevin, barostat and
     spill configs (ROADMAP item 11), the per-shard streaming backend (K5's
     sharded entries, item 11), coulomb, excl_tables, bonded, excl_leftover,
-    atom_params and atom_charges (item 10, K2c)."""
+    atom_params and atom_charges (the molecular grid, item 11.2, K2c-G)."""
     from emdee_tpu_torch.dynamics.bussi import _csvr_alpha2, csvr_draws
     from emdee_tpu_torch.neighbors import cell_kernel
     from emdee_tpu_torch.neighbors.rebin_kernel import SENTINEL_BITS
@@ -204,7 +204,7 @@ def make_grid_sharded_sim(
                  ("excl_leftover", excl_leftover), ("atom_params", atom_params), ("atom_charges", atom_charges))
     for name, value in molecular:
         if value is not None:
-            raise NotImplementedError(f"{name} on the grid-sharded engine is not ported yet (ROADMAP item 10, K2c)")
+            raise NotImplementedError(f"{name} on the grid-sharded engine is not ported yet (ROADMAP item 11.2, K2c-G)")
     if isinstance(thermostat, LangevinConfig):
         raise NotImplementedError("Langevin on the grid-sharded engine is not ported yet (ROADMAP item 11)")
     if thermostat is not None and not isinstance(thermostat, CSVRConfig):

@@ -92,6 +92,7 @@ class CellDenseState(NamedTuple):
     ref_positions: torch.Tensor  # (M³, C, 3) — positions at last rebin
     step: torch.Tensor  # () int32
     overflow: torch.Tensor  # () bool
+    charges: Optional[torch.Tensor] = None  # (M³, C) float32 — molecular systems only
     # Dynamic (NPT) box, a 0-d float32 tensor; None → the static config.box.
     # The cell count M stays static; only the cell side breathes.
     box: Optional[torch.Tensor] = None
@@ -158,20 +159,22 @@ def _numpy(a) -> np.ndarray:
 def state_from_numpy(fields: dict, device) -> CellDenseState:
     """Port state from the fields of a JAX `CellDenseState` taken to the
     host (`jax.device_get(state)._asdict()`) — both sides then start from
-    identical bits.  Charges belong to a later slice (ROADMAP item 10)."""
-    if fields.get("charges") is not None:
-        raise NotImplementedError("state field 'charges' is not ported yet (ROADMAP item 10)")
-    box = fields.get("box")
+    identical bits, charges and a dynamic box included when present."""
+    box, q = fields.get("box"), fields.get("charges")
     return CellDenseState(
         **{name: _tensor(fields[name], dt, device) for name, dt in _STATE_DTYPES.items()},
+        charges=None if q is None else _tensor(q, np.float32, device),
         box=None if box is None else _tensor(box, np.float32, device).reshape(()),
     )
 
 
 def state_to_numpy(state: CellDenseState) -> dict:
     """Inverse of `state_from_numpy`: a dict of numpy arrays whose keys are
-    the JAX `CellDenseState` fields; `box` only when the state has one."""
+    the JAX `CellDenseState` fields; `charges` and `box` only when the
+    state has them."""
     out = {name: _numpy(getattr(state, name)) for name in _STATE_DTYPES}
+    if state.charges is not None:
+        out["charges"] = _numpy(state.charges)
     if state.box is not None:
         out["box"] = _numpy(state.box)
     return out
@@ -467,16 +470,18 @@ def shrink_capacity(state: CellDenseState, config: CellDenseConfig, new_capacity
             atom_id=cut(state.atom_id),
             valid=cut(state.valid),
             ref_positions=cut(state.ref_positions),
+            charges=None if state.charges is None else cut(state.charges),
         ),
         config._replace(capacity=new_capacity, spill_target=0),
     )
 
 
 def cell_dense_init(
-    positions, velocities, masses, params: LJParams, config: CellDenseConfig, device=None
+    positions, velocities, masses, params: LJParams, config: CellDenseConfig, charges=None, device=None
 ) -> CellDenseState:
     """Pack (N, …) arrays into slot layout on `device` (default: the CUDA
-    card; `resolve_device`).
+    card; `resolve_device`); `charges` (N,), when given, becomes the
+    (M³, C) charge field of a molecular state.
 
     Positions are binned from their raw values and stored wrapped into
     [0, L), as every rebin stores them.  With a spill config the cells come
@@ -510,6 +515,8 @@ def cell_dense_init(
         "atom_id": (torch.arange(n, dtype=torch.int32, device=device), config.num_slots),
         "valid": (torch.ones(n, dtype=torch.bool, device=device), False),
     }
+    if charges is not None:
+        per_atom["charges"] = (_tensor(charges, np.float32, device), 0.0)
     out, overflow = _bin_to_slots(pos, per_atom, config, cell_override)
     valid = out["valid"]
     return CellDenseState(
@@ -523,6 +530,7 @@ def cell_dense_init(
         ref_positions=out["positions"],
         step=torch.zeros((), dtype=torch.int32, device=device),
         overflow=overflow,
+        charges=out.get("charges"),
     )
 
 
@@ -558,10 +566,85 @@ def _roll_cells(grid: torch.Tensor, offset, m: int) -> torch.Tensor:
     return rolled.reshape(grid.shape)
 
 
-def _dense_forces(pos, hs, tse, valid, model, config: CellDenseConfig, box, compute_energy):
+class Molecular(NamedTuple):
+    """The molecular operands of the plain force pass: charges (M³, C) with
+    the DSF model, and the exclusion tags of the centre slots.
+
+    aid: (M³, C) float32 atom ids, −2 on empty slots (never a tag);
+    excl: None or (ids, mlj, mcs, bond) — ids (M³, C, E) float32 partner
+    atom ids (−1 pad), mlj/mcs the 1 − scale weights, bond None or the
+    (kb, kr0, kr02) weights (M³, C, E_b) of harmonic bonds on the first E_b
+    tags (`cell_dense_molecular.build_exclusion_tables(bonds=…)`)."""
+
+    q: Optional[torch.Tensor]
+    coulomb: object
+    aid: Optional[torch.Tensor]
+    excl: Optional[tuple]
+
+
+def _molecular(state, coulomb, excl) -> Optional[Molecular]:
+    """The `Molecular` operands of a state, or None for plain LJ.  Missing
+    Coulomb scales default to the LJ scales (the correction-pass
+    convention, as the reference's `cell_dense_forces`)."""
+    if coulomb is None and excl is None:
+        return None
+    if coulomb is not None and state.charges is None:
+        raise ValueError("coulomb model given but state has no charges")
+    aid = None
+    if excl is not None:
+        ids, mlj, mcs = excl[:3]
+        bond = excl[3] if len(excl) > 3 else None
+        if coulomb is not None and mcs is None:
+            mcs = mlj
+        excl = (ids, mlj, mcs, bond)
+        aid = torch.where(state.valid, state.atom_id, -2).to(torch.float32)
+    return Molecular(state.charges if coulomb is not None else None, coulomb, aid, excl)
+
+
+def _molecular_terms(r2s, e, mre, model, mol: Molecular, cen: dict, nbr: dict):
+    """Add the molecular terms to one tile's LJ (e, −r·dE/dr): the tag
+    scaling of LJ and DSF, DSF Coulomb, and the harmonic bonds on the
+    first E_b tag matches, −r·dE/dr = kr0·r − kb·r² and E = ½(kb·r² +
+    kr02) − kr0·r, masked to r² < rc² so that periodic images of a partner
+    drop out.  cen: the centre slots' q (…, C, 1) and tags (…, C, 1, E);
+    nbr: the neighbours' q and aid (…, 1, K)."""
+    from emdee_tpu_torch.potentials.coulomb import coulomb_interaction
+
+    csc = match = None
+    if mol.excl is not None:
+        ids, mlj, mcs, _ = cen["excl"]
+        match = ids == nbr["aid"][..., None]
+        ljsc = 1.0 - torch.sum(torch.where(match, mlj, 0.0), dim=-1)
+        e = e * ljsc
+        mre = mre * ljsc
+        if mol.coulomb is not None:
+            csc = 1.0 - torch.sum(torch.where(match, mcs, 0.0), dim=-1)
+    if mol.coulomb is not None:
+        e_c, mre_c = coulomb_interaction(r2s, mol.coulomb, cen["q"], nbr["q"])
+        if csc is not None:
+            e_c = e_c * csc
+            mre_c = mre_c * csc
+        e = e + e_c
+        mre = mre + mre_c
+    bond = None if mol.excl is None else cen["excl"][3]
+    if bond is not None:
+        mb = match[..., : bond[0].shape[-1]]
+        kb, kr0, kr02 = (torch.sum(torch.where(mb, w, 0.0), dim=-1) for w in bond)
+        r = torch.sqrt(r2s)
+        inside = r2s < model.rc2
+        mre = mre + torch.where(inside, kr0 * r - kb * r2s, 0.0)
+        e = e + torch.where(inside, 0.5 * (kb * r2s + kr02) - kr0 * r, 0.0)
+    return e, mre
+
+
+def _dense_forces(pos, hs, tse, valid, model, config: CellDenseConfig, box, compute_energy,
+                  mol: Optional[Molecular] = None):
     """Forces (+ per-slot half-split energies and virials) by dense rolls:
     one C×C self tile (both directions) plus 13 half-shell offsets in
     4-offset tiles with Newton reactions rolled back onto their owners.
+    `mol` adds DSF Coulomb, the exclusion tags and the tag-borne bonds
+    (`_molecular_terms`); the tags are the centre's, so a pair's reaction
+    carries the term its centre computed.
 
     Displacements take the minimum image of the raw difference,
     d − L·round(d/L), so positions may overhang the box.  That is exact for
@@ -578,8 +661,21 @@ def _dense_forces(pos, hs, tse, valid, model, config: CellDenseConfig, box, comp
     def r2_of(dv):
         return dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1] + dv[..., 2] * dv[..., 2]
 
-    def pair_terms(r2s, ok, hs_i, tse_i, hs_j, tse_j):
+    cen = {}
+    if mol is not None:
+        cen["q"] = None if mol.q is None else mol.q[:, :, None]
+        if mol.excl is not None:
+            ids, mlj, mcs, bond = mol.excl
+            tag = lambda t: None if t is None else t[:, :, None, :]  # noqa: E731
+            cen["excl"] = (tag(ids), tag(mlj), tag(mcs), None if bond is None else tuple(map(tag, bond)))
+
+    def nbr_side(q, aid):
+        return {"q": None if q is None else q[:, None, :], "aid": None if aid is None else aid[:, None, :]}
+
+    def pair_terms(r2s, ok, hs_i, tse_i, hs_j, tse_j, nbr=None):
         e, mre = pair_interaction(r2s, model, hs_i, tse_i, hs_j, tse_j)
+        if mol is not None:
+            e, mre = _molecular_terms(r2s, e, mre, model, mol, cen, nbr)
         return torch.where(ok, e, 0.0), torch.where(ok, mre, 0.0)
 
     # ---- self-cell tile: (M³, C, C), both directions, mask i == j ----
@@ -588,7 +684,8 @@ def _dense_forces(pos, hs, tse, valid, model, config: CellDenseConfig, box, comp
     eye = torch.eye(c, dtype=torch.bool, device=pos.device)
     ok = valid[:, :, None] & valid[:, None, :] & ~eye[None]
     r2s = torch.where(ok, r2, 1.0)
-    e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], hs[:, None, :], tse[:, None, :])
+    e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], hs[:, None, :], tse[:, None, :],
+                        mol and nbr_side(mol.q, mol.aid))
     forces = torch.sum((mre / r2s)[..., None] * dv, dim=2)
     if compute_energy:
         energies = 0.5 * torch.sum(e, dim=2)
@@ -603,7 +700,11 @@ def _dense_forces(pos, hs, tse, valid, model, config: CellDenseConfig, box, comp
         r2 = r2_of(dv)
         ok = valid[:, :, None] & nbr_valid[:, None, :]
         r2s = torch.where(ok, r2, 1.0)
-        e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], nbr_hs[:, None, :], nbr_tse[:, None, :])
+        side = None
+        if mol is not None:
+            side = nbr_side(None if mol.q is None else nbr(mol.q), None if mol.aid is None else nbr(mol.aid))
+        e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], nbr_hs[:, None, :], nbr_tse[:, None, :],
+                            side)
         gdv = torch.where(ok, mre / r2s, 0.0)[..., None] * dv
         forces = forces + torch.sum(gdv, dim=2)
         reaction = -torch.sum(gdv, dim=1)  # (M³, 4·C, 3)
@@ -624,15 +725,24 @@ def _dense_forces(pos, hs, tse, valid, model, config: CellDenseConfig, box, comp
 
 
 def cell_dense_forces(
-    state: CellDenseState, model: LennardJonesModel, config: CellDenseConfig, *,
+    state: CellDenseState, model: LennardJonesModel, config: CellDenseConfig, coulomb=None, excl=None, *,
     compute_energy: bool = False,
 ):
     """Forces (+ per-slot energies/virials) for every live slot, in plain
     PyTorch: the plain version of the force kernel (`cell_kernel.py`), at
-    the state's box."""
+    the state's box.
+
+    coulomb: a `DSFCoulomb` model (the state must carry charges) — DSF
+    Coulomb on every pair.  excl: slot-space exclusion tags (ids, mlj, mcs[,
+    (kb, kr0, kr02)]) as `cell_dense_molecular.make_exclusion_aux_fn` gives
+    them: each pair compares its neighbour's atom id with the centre's E
+    tags and scales LJ by 1 − Σ match·mlj and Coulomb by 1 − Σ match·mcs
+    (mcs None → mlj); the bond weights add harmonic bonds on the first E_b
+    tags (the plain version of the kernel's bond branch; the reference's
+    XLA path has none)."""
     return _dense_forces(
         state.positions, state.half_sigma, state.twice_sqrt_eps, state.valid,
-        model, config, _box_of(state, config), compute_energy,
+        model, config, _box_of(state, config), compute_energy, _molecular(state, coulomb, excl),
     )
 
 
@@ -817,7 +927,8 @@ def _rebin_shift(
     Between rebins every atom moves less than skin/2 < cell side, so its new
     cell lies in its old cell's 27-neighborhood; factorized per axis, each
     pass routes between cells b−1, b, b+1 only.  Uniform constants (LJ
-    params, mass) are not routed: they are rebuilt from the new valid mask.
+    params, mass) are not routed: they are rebuilt from the new valid mask;
+    charges, when the state has them, ride as one more field.
     With `forces` (M³, C, 3), they ride along and (state, forces) is
     returned, so a synced rollout needs no force pass after the rebin."""
     valid = state.valid
@@ -837,6 +948,10 @@ def _rebin_shift(
     f_col = len(fields)
     if forces is not None:
         fields += [forces[..., i] for i in range(3)]
+    q_col = None
+    if state.charges is not None:
+        q_col = len(fields)
+        fields.append(state.charges)
     fields.append(state.atom_id)
 
     fields, valid, overflow = _rebin_shift_core(
@@ -858,6 +973,7 @@ def _rebin_shift(
         valid=valid,
         ref_positions=new_pos,
         overflow=overflow,
+        charges=None if q_col is None else zero(fields[q_col]),
     )
     if forces is None:
         return new_state
@@ -906,6 +1022,8 @@ def _rebin(state: CellDenseState, config: CellDenseConfig, forces: Optional[torc
     ]
     if forces is not None:
         fields.append(forces.reshape(ns, 3))
+    if state.charges is not None:
+        fields.append(state.charges.reshape(ns, 1))
     moved = torch.where(new_valid[:, None], torch.cat(fields, dim=1)[src], 0.0)
     pos = moved[:, 0:3]
     pos = torch.where(new_valid[:, None], pos - torch.floor(pos / sbox) * sbox, 0.0)
@@ -922,6 +1040,7 @@ def _rebin(state: CellDenseState, config: CellDenseConfig, forces: Optional[torc
         valid=new_valid.reshape(nc, c),
         ref_positions=new_pos,
         overflow=state.overflow | overflow,
+        charges=None if state.charges is None else moved[:, -1].reshape(nc, c),
     )
     if forces is None:
         return new_state
@@ -970,6 +1089,8 @@ def make_cell_dense_sim(
     coulomb=None,
     extra_forces=None,
     aux_fn=None,
+    extra_energy=None,
+    extra_aux_fn=None,
 ):
     """Build (rollout, energy) closures for slot-space NVE, NVT and NPT.
 
@@ -995,14 +1116,18 @@ def make_cell_dense_sim(
     thermostatted rollout needs `rng`, a `torch.Generator` on the state's
     device.
 
-    coulomb, extra_forces and aux_fn belong to the molecular slice and raise
-    NotImplementedError naming ROADMAP item 10."""
+    The molecular hooks (`cell_dense_molecular.make_molecular_dense_sim`
+    sets them): coulomb, a `DSFCoulomb` model — DSF Coulomb on every pair
+    over state.charges; aux_fn(state) → slot-space exclusion tags (ids,
+    mlj, mcs[, (kb, kr0, kr02)]) for the force pass; extra_aux_fn(state) →
+    per-rebin bindings handed to extra_forces(state, eaux) → (M³, C, 3) and
+    extra_energy(state, eaux) → (pe, vir).  Both aux functions run once
+    after every rebin, whatever the rollout path, and the energy closure
+    drops the bond tags (aux[:3]): extra_energy adds the full bonded
+    energy.  The streaming family has no molecular terms yet (K5c)."""
     from emdee_tpu_torch.dynamics.bussi import _csvr_alpha2, csvr_draws
     from emdee_tpu_torch.neighbors import cell_kernel, streaming_kernel
 
-    for name, value in (("coulomb", coulomb), ("extra_forces", extra_forces), ("aux_fn", aux_fn)):
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP item 10)")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: use one of {', '.join(BACKENDS)}")
     if rebin not in ("shift", "sort"):
@@ -1018,22 +1143,41 @@ def make_cell_dense_sim(
     dt_f = _f32(dt)
     half_dt = _f32(np.float32(0.5) * np.float32(dt))
     ndof = 3.0 * config.num_atoms - 3.0  # the integrator conserves the (zeroed) COM momentum
+    molecular = coulomb is not None or aux_fn is not None
     use_component_carry = (
         uniform_params is not None and uniform_mass is not None and thermostat is None
-        and barostat is None and rebin == "shift"
+        and barostat is None and rebin == "shift" and not molecular
+        and extra_forces is None and extra_aux_fn is None
     )
 
     def kernels(t: torch.Tensor):
         """(stacked force entry, split force entry, wrapper backend) of the
         family that `backend` resolves to for tensors like `t`."""
-        family = resolve_dense_backend(config, backend, device=t.device)
+        family = resolve_dense_backend(
+            config, backend, device=t.device, with_coulomb=coulomb is not None, with_excl=aux_fn is not None,
+        )
         if family == "cuda_streaming":
+            if molecular:
+                raise NotImplementedError(
+                    "the streaming kernel's molecular terms (K5c) are not ported yet (ROADMAP queue 2); "
+                    "pass backend='cuda' for the resident kernel")
             return streaming_kernel.cell_forces_streaming, streaming_kernel.cell_forces_streaming_split, "cuda"
         return cell_kernel.cell_forces, cell_kernel.cell_forces_split, family
 
-    def forces_of(st: CellDenseState):
+    def pair_forces(st: CellDenseState, aux=None, compute_energy=False):
         stacked, _, kb = kernels(st.positions)
-        return stacked(st, model, config, uniform_params=uniform_params, backend=kb)[0]
+        mol = {"coulomb": coulomb, "excl": aux} if molecular else {}
+        return stacked(st, model, config, compute_energy=compute_energy, uniform_params=uniform_params,
+                       backend=kb, **mol)
+
+    def auxes(st: CellDenseState):
+        """The per-rebin (tags, bindings) of a state's slot binding."""
+        return (aux_fn(st) if aux_fn is not None else None,
+                extra_aux_fn(st) if extra_aux_fn is not None else None)
+
+    def forces_of(st: CellDenseState, aux=None, eaux=None):
+        f = pair_forces(st, aux)[0]
+        return f if extra_forces is None else f + extra_forces(st, eaux)
 
     def rebin_fn(st: CellDenseState, forces=None):
         if rebin == "sort":
@@ -1042,12 +1186,14 @@ def make_cell_dense_sim(
 
     def energy(st: CellDenseState):
         """(potential energy, virial, kinetic energy) as 0-d tensors."""
-        stacked, _, kb = kernels(st.positions)
-        _, e, w = stacked(
-            st, model, config, compute_energy=True, uniform_params=uniform_params, backend=kb,
-        )
+        aux, eaux = auxes(st)
+        _, e, w = pair_forces(st, None if aux is None else aux[:3], compute_energy=True)
         pe = torch.sum(torch.where(st.valid, e, 0.0))
         vir = torch.sum(torch.where(st.valid, w, 0.0))
+        if extra_energy is not None:
+            pe_x, vir_x = extra_energy(st, eaux)
+            pe = pe + pe_x
+            vir = vir + vir_x
         ke = 0.5 * torch.sum(
             torch.where(
                 st.valid[..., None],
@@ -1120,10 +1266,11 @@ def make_cell_dense_sim(
     def rollout_stacked(state: CellDenseState, num_steps: int, rebin_every: int):
         # Leapfrog: velocities ride half a step ahead inside the rollout, so
         # no force field crosses a rebin; a closing half un-kick re-syncs.
-        f0 = forces_of(state)
+        f0 = forces_of(state, *auxes(state))
         st = state._replace(velocities=state.velocities + half_dt * f0 * state.inv_masses[..., None])
         for length in blocks_of(num_steps, rebin_every)[0]:
             st = rebin_fn(st)
+            aux, eaux = auxes(st)
             inv_m = st.inv_masses[..., None]
             pos, vel = st.positions, st.velocities
             comp = torch.zeros_like(pos)
@@ -1133,14 +1280,14 @@ def make_cell_dense_sim(
                 # coordinate, so a plain += loses about an ulp per step.
                 new_pos, comp = _comp_add(pos, dt_f * vel, comp)
                 pos = torch.where(st.valid[..., None], new_pos, pos)
-                f = forces_of(st._replace(positions=pos))
+                f = forces_of(st._replace(positions=pos), aux, eaux)
                 vel, vcomp = _comp_add(vel, dt_f * f * inv_m, vcomp)
             st = st._replace(positions=pos, velocities=vel, step=st.step + length)
             st = st._replace(overflow=st.overflow | _needs_rebin(st, config))
-        f_end = forces_of(st)
+        f_end = forces_of(st, aux, eaux)  # the last block's binding: no rebin since
         return st._replace(velocities=st.velocities - half_dt * f_end * st.inv_masses[..., None])
 
-    def kdk_step(st: CellDenseState, f, rng):
+    def kdk_step(st: CellDenseState, f, rng, aux, eaux):
         """One synced step: velocity-Verlet kick-drift-kick with the CSVR
         rescale after it, or BAOAB Langevin (kick, half drift, exact OU
         solve, half drift, kick).  Empty slots: inv_m = 0, so no noise and
@@ -1156,12 +1303,12 @@ def make_cell_dense_sim(
             v = c1 * v + c2 * torch.sqrt(inv_m) * noise
             x = torch.where(st.valid[..., None], x + half_dt * v, st.positions)
             st = st._replace(positions=x, velocities=v)
-            f = forces_of(st)
+            f = forces_of(st, aux, eaux)
             return st._replace(velocities=v + half_dt * f * inv_m, step=st.step + 1), f
         v_half = st.velocities + half_dt * f * inv_m
         x = torch.where(st.valid[..., None], st.positions + dt_f * v_half, st.positions)
         st = st._replace(positions=x, velocities=v_half)
-        f = forces_of(st)
+        f = forces_of(st, aux, eaux)
         v = v_half + half_dt * f * inv_m
         if isinstance(thermostat, CSVRConfig):
             kin = 0.5 * torch.sum(
@@ -1194,15 +1341,16 @@ def make_cell_dense_sim(
     def rollout_synced(state: CellDenseState, num_steps: int, rebin_every: int, record: bool, rng):
         if barostat is not None and state.box is None:
             state = state._replace(box=_box(config.box, state.positions).clone())
-        st, f = state, forces_of(state)
+        st, f = state, forces_of(state, *auxes(state))
         lengths, blocks = blocks_of(num_steps, rebin_every)
         records = []
         for i, length in enumerate(lengths):
             if barostat is not None:
                 st = rescale_box(st, length)
             st, f = rebin_fn(st, f)  # the permutation carries the forces along
+            aux, eaux = auxes(st)
             for _ in range(length):
-                st, f = kdk_step(st, f, rng)
+                st, f = kdk_step(st, f, rng, aux, eaux)
             st = st._replace(overflow=st.overflow | _needs_rebin(st, config))
             if record and i < blocks:
                 records.append((st.step, *energy(st)))
@@ -1252,7 +1400,7 @@ def gather_dense_atoms(state: CellDenseState, num_atoms: int):
 
 def gather_dense_fields(state: CellDenseState, num_atoms: int) -> dict:
     """Slot layout → every per-atom field in atom order (host): the inverse
-    of `cell_dense_init`."""
+    of `cell_dense_init` (charges None for a state without them)."""
     ids = _numpy(state.atom_id).reshape(-1)
     keep = _numpy(state.valid).reshape(-1)
     sel = ids[keep]
@@ -1270,6 +1418,7 @@ def gather_dense_fields(state: CellDenseState, num_atoms: int) -> dict:
         "masses": 1.0 / np.maximum(inv_m, 1e-30),
         "half_sigma": take(state.half_sigma),
         "twice_sqrt_eps": take(state.twice_sqrt_eps),
+        "charges": None if state.charges is None else take(state.charges),
     }
 
 
@@ -1309,7 +1458,8 @@ def reconfigure_dense_state(
 
     def init(cfg):
         return cell_dense_init(
-            fields["positions"], fields["velocities"], fields["masses"], params, cfg, device=device
+            fields["positions"], fields["velocities"], fields["masses"], params, cfg,
+            charges=fields["charges"], device=device,
         )
 
     new_state = init(new_config)

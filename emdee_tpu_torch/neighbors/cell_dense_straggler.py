@@ -15,7 +15,8 @@ emdee_tpu/neighbors/cell_dense_straggler.py (uniform-LJ NVE).
     atoms (`straggler_kernel.straggler_forces`: CUDA on the card, its plain
     version elsewhere);
   - `strag_pass="xla"`: the reference's 27-row gather pass in plain torch
-    ops, with the Newton reactions scatter-added onto the grid.
+    ops, with the Newton reactions folded onto the grid by the fixed-order
+    add of `core/scatter.py` (no float atomics).
 - The rebin widens the grid to C_w (the aux atoms go back into their
   parked cells' pad slots), runs the ±1-cell routing at C_w (K4), splits at
   C_t and re-parks the tail in ascending flat order.
@@ -328,14 +329,16 @@ def make_straggler_sim(
 
     backend: 'auto' (CUDA kernels for CUDA tensors, plain versions for CPU
     tensors), 'cuda' or 'torch'.  strag_pass: 'kernel' (K3; the default) or
-    'xla' (the 27-row gather in torch ops).  On the card the 'xla' pass's
-    reaction scatter is an `index_add_`, whose float atomics make reruns
-    differ in the last bits; the 'kernel' pass is bitwise reproducible."""
+    'xla' (the 27-row gather in torch ops, its reactions folded onto the
+    grid by the fixed-order add of `core/scatter.py`).  Both passes are
+    bitwise reproducible on the card."""
+    from emdee_tpu_torch.core.scatter import add_plan, fixed_add
     from emdee_tpu_torch.neighbors.cell_kernel import cell_forces, cell_forces_split
     from emdee_tpu_torch.neighbors.straggler_kernel import straggler_forces
 
-    if backend.startswith("pallas_streaming") or backend == "streaming":
-        raise NotImplementedError("the streaming backends are not ported yet (ROADMAP item 7)")
+    if backend in ("cuda_streaming", "streaming") or backend.startswith("pallas_streaming"):
+        raise NotImplementedError("the straggler engine on the streaming backends is not ported yet "
+                                  "(ROADMAP item 7)")
     if backend not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown backend {backend!r}: use 'auto', 'cuda' or 'torch'")
     if strag_pass == "auto":
@@ -364,7 +367,8 @@ def make_straggler_sim(
             if dev not in hoods:
                 hoods[dev] = _hood_matrix(m, dev)
             return _bindings(acell, avalid, config, hoods[dev])
-        return _gather_rows(acell, valid, avalid, m), torch.zeros((), dtype=torch.bool, device=acell.device)
+        idx, mask = _gather_rows(acell, valid, avalid, m)
+        return (idx, mask, add_plan(idx, nc)), torch.zeros((), dtype=torch.bool, device=acell.device)
 
     def forces(p, valid, a, acell, bind):
         """Grid forces (3, M³, C_t) and aux forces (3, A)."""
@@ -377,16 +381,12 @@ def make_straggler_sim(
         fx, fy, fz = cell_forces_split(
             p[0], p[1], p[2], valid, cfg_t, uniform_params=uniform_params, backend=backend
         )
-        idx, mask = bind
+        idx, mask, plan = bind
         gx, gy, gz = _gather_pair_forces(
             p[0], p[1], p[2], a[0], a[1], a[2], idx, mask, model, box_t, uniform_params
         )
-        rows = lambda t: -t.reshape(a_cap * 27, c_t)  # noqa: E731
-        fg = torch.stack([
-            fx.index_add(0, idx, rows(gx)),
-            fy.index_add(0, idx, rows(gy)),
-            fz.index_add(0, idx, rows(gz)),
-        ])
+        rows = torch.stack([-g.reshape(a_cap * 27, c_t) for g in (gx, gy, gz)], dim=1)
+        fg = fixed_add(torch.stack([fx, fy, fz], dim=1), plan, rows).transpose(0, 1)
         ss = _aux_pair_forces(a[0], a[1], a[2], acell < nc, model, box_t, uniform_params)
         fa = torch.stack([
             torch.sum(gx, dim=1) + ss[0],

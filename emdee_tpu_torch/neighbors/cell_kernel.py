@@ -1,10 +1,12 @@
-"""Dense-cell LJ force pass: the CUDA kernel and its plain version —
+"""Dense-cell force pass: the CUDA kernel and its plain version —
 counterpart of emdee_tpu/neighbors/pallas_cell_kernel.py.
 
 `cell_forces` (counterpart of `pallas_cell_forces`) takes the stacked
 state: per-atom or uniform parameters, optional per-slot energies and
-virials.  `cell_forces_split` (counterpart of `pallas_cell_forces_split`)
-takes (M³, C) component arrays, uniform parameters, forces only.  Both
+virials, and with `coulomb=`/`excl=` the molecular terms (K2c: DSF
+Coulomb over the state's charges, exclusion tags, tag-borne bonds).
+`cell_forces_split` (counterpart of `pallas_cell_forces_split`) takes
+(M³, C) component arrays, uniform parameters, forces only.  Both
 launch the one kernel of `csrc/cell_forces.cu` for CUDA tensors, with
 backend 'auto' or 'cuda', and run the plain version
 (`cell_dense.cell_dense_forces`) for CPU tensors or backend 'torch'.
@@ -37,6 +39,9 @@ from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel, pair_int
 
 # Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
+# The most exclusion tags per slot that the molecular kernel holds in
+# registers (kMaxTags of csrc/cell_forces.cu).
+MAX_TAGS = 8
 
 
 def _pair_consts(config: CellDenseConfig, uniform_params) -> Tuple[float, ...]:
@@ -112,18 +117,80 @@ def cell_forces(
     compute_energy: bool = False,
     uniform_params=None,
     backend: str = "auto",
+    coulomb=None,
+    excl=None,
 ):
     """Forces (M³, C, 3) and, with `compute_energy`, per-slot half-split
     energies and virials (M³, C) — else None, None.
 
     uniform_params: optional (half_sigma, twice_sqrt_eps) floats shared by
     every atom; the kernel then reads no per-atom parameter fields.  The box
-    is the state's (`state.box`, read on the device, else config.box)."""
+    is the state's (`state.box`, read on the device, else config.box).
+
+    coulomb (a `DSFCoulomb` model, the state carrying charges) and excl
+    (slot-space tags (ids, mlj, mcs[, (kb, kr0, kr02)]), contiguous, as
+    `cell_dense_molecular.make_exclusion_aux_fn` builds them) select the
+    molecular kernel (K2c), which reads the per-atom parameters; the plain
+    version is `cell_dense_forces(state, model, config, coulomb, excl)`."""
     if resolve_backend(backend, state.positions) == "torch":
-        return cell_dense_forces(state, model, config, compute_energy=compute_energy)
+        return cell_dense_forces(state, model, config, coulomb, excl, compute_energy=compute_energy)
+    if coulomb is not None or excl is not None:
+        return _launch_mol(state, config, coulomb, excl, compute_energy)
     operands, outputs = stacked_operands(state, config, uniform_params, compute_energy)
     _launch(*operands, config, _box_of(state, config), uniform_params, compute_energy)
     return outputs
+
+
+def _launch_mol(state: CellDenseState, config: CellDenseConfig, coulomb, excl, compute_energy: bool):
+    """One launch of the molecular kernel (K2c) on a CUDA state."""
+    global LAUNCHES
+    nc, c = config.num_cells, config.capacity
+    dev = state.positions.device
+    operands, (forces, e, w) = stacked_operands(state, config, None, compute_energy)
+    pos, hs, tse, valid = operands[0], operands[4], operands[5], operands[6]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    q = consts = aid = ids = mlj = mcs = bond = None
+    ne = neb = 0
+    if coulomb is not None:
+        if state.charges is None:
+            raise ValueError("coulomb model given but state has no charges")
+        q = state.charges
+        _check(q, "charges", torch.float32, (nc, c), dev)
+        consts = (coulomb.alpha, coulomb.rc, coulomb.rc2, coulomb.e_shift, coulomb.f_shift, coulomb.kc)
+        for name, t in zip(("alpha", "rc", "rc2", "e_shift", "f_shift", "kc"), consts):
+            _check(t, f"coulomb.{name}", torch.float32, (), dev)
+    if excl is not None:
+        ids, mlj, mcs = excl[:3]
+        bond = excl[3] if len(excl) > 3 else None
+        if coulomb is not None and mcs is None:
+            mcs = mlj
+        ne = ids.shape[-1]
+        if ne > MAX_TAGS:
+            raise ValueError(
+                f"{ne} exclusion tags per slot; the molecular kernel holds at most {MAX_TAGS}: build the tags "
+                f"with exclusion_band={MAX_TAGS} or less and correct the rest in slot space "
+                "(make_molecular_dense_sim does so on 'cuda')")
+        aid = state.atom_id
+        _check(aid, "atom_id", torch.int32, (nc, c), dev)
+        for name, t in (("ids", ids), ("mlj", mlj), ("mcs", mcs)):
+            if t is not None:
+                _check(t, f"excl {name}", torch.float32, (nc, c, ne), dev)
+        if bond is not None:
+            neb = bond[0].shape[-1]
+            for name, t in zip(("kb", "kr0", "kr02"), bond):
+                _check(t, f"bond {name}", torch.float32, (nc, c, neb), dev)
+    consts = consts or (None,) * 6
+    kb, kr0, kr02 = bond or (None, None, None)
+    err = build.load().emdee_cell_forces_mol(
+        pos.data_ptr(), ptr(hs), ptr(tse), valid.data_ptr(), ptr(q), ptr(aid), ptr(ids), ptr(mlj),
+        ptr(mcs), ptr(kb), ptr(kr0), ptr(kr02), ne, neb, *map(ptr, consts), forces.data_ptr(), ptr(e),
+        ptr(w), config.cells_per_dim, c, box_ptr(_box_of(state, config), pos), *_pair_consts(config, None)[:8],
+        int(coulomb is not None), int(excl is not None), int(bond is not None), int(compute_energy),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "cell_forces kernel (molecular)")
+    LAUNCHES += 1
+    return forces, e, w
 
 
 def stacked_operands(state: CellDenseState, config: CellDenseConfig, uniform_params, compute_energy: bool):

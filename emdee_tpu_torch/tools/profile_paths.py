@@ -5,11 +5,15 @@ the spill config's component carry (K7 in its rebin), CSVR NVT on the wide
 config, Langevin NVT on the spill config and the grid-sharded engine (every
 shard on the card) on (1,1,1) at the wide config and on (2,2,2) at M = 16;
 at 1,000,188 atoms the dense component carry on the streaming kernel
-family.
+family; and the molecular dense engine on the 98,304-atom flexible-water
+box of `tools/water.py` (NVE on its plain config with backend 'cuda', after
+the CSVR equilibration `chip_smoke.py` runs).
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 -m emdee_tpu_torch.tools.profile_paths
+    python3 -m emdee_tpu_torch.tools.profile_paths [water]
+
+(`water`: the water path alone.)
 
 For each path, after 60 steps of warm-up: the unprofiled ms/step of three
 600-step windows (host clock around work that ends in a synchronize), then
@@ -81,7 +85,24 @@ def profile_path(name, rollout, state, rebin_every, **kw):
     print(json.dumps(result), flush=True)
 
 
-def main() -> None:
+def profile_water(device) -> None:
+    from emdee_tpu_torch import cell_dense_init, gather_dense_atoms
+    from emdee_tpu_torch.tools import water
+
+    box, cfg, model, coul, params = water.water_setup(device, spill=False)
+    n = len(box["masses"])
+    init = lambda pos, vel: cell_dense_init(pos, vel, box["masses"], params, cfg,  # noqa: E731
+                                            charges=box["charges"], device=device)
+    nvt, _ = water.molecular_sim(box, cfg, model, coul, params, "cuda", device, water.csvr())
+    eq = nvt(init(box["positions"], box["velocities"]), num_steps=water.EQ_STEPS, rebin_every=water.REBIN_EVERY,
+             rng=torch.Generator(device=device).manual_seed(water.SEED))
+    nve, _ = water.molecular_sim(box, cfg, model, coul, params, "cuda", device)
+    print(f"{n} atoms (water), M={cfg.cells_per_dim} C={cfg.capacity}, rebin every {water.REBIN_EVERY} steps",
+          flush=True)
+    profile_path("water (DSF + tags + bonds in K2c)", nve, init(*gather_dense_atoms(eq, n)), water.REBIN_EVERY)
+
+
+def main(paths: str = "all") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: needs a CUDA device")
     smi = subprocess.run(
@@ -89,6 +110,10 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
+    device = torch.device("cuda", 0)
+    if paths == "water":
+        profile_water(device)
+        return
     from emdee_tpu_torch import (
         CSVRConfig, LangevinConfig, cell_dense_init, make_cell_dense_sim, make_straggler_sim,
         straggler_init, suggest_rebin_interval,
@@ -97,7 +122,6 @@ def main() -> None:
         DT, FRICTION, N_CELLS_1M, SKIN, T_NVT, TAU_T, equilibrate, melt, spill_config, straggler_config,
     )
 
-    device = torch.device("cuda", 0)
     st, config, model, params, uni, n = melt(device)
     dense, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
     pos_eq, vel_eq, _, k = equilibrate(dense, st, config, n)
@@ -136,7 +160,11 @@ def main() -> None:
     st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
     print(f"{n} atoms, rebin every {k} steps", flush=True)
     profile_path("1M dense component carry", dense, st0, k)
+    del st, st0
+    profile_water(device)
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    main(*sys.argv[1:2])

@@ -71,16 +71,20 @@ def test_component_carry_matches_jax_kernels():
 
 
 def test_unported_options_raise():
-    """What the port still refuses: the molecular options (ROADMAP item 10),
-    charges in a state, and the straggler engine on a spill config; an
-    unknown backend, rebin, thermostat or barostat is a ValueError."""
+    """What the port still refuses: the atom-space exclusion correction
+    (ROADMAP item 3), `dense_sim_from_system` (item 9) and the straggler
+    engine on a spill config; an unknown backend, rebin, thermostat or
+    barostat is a ValueError.  A state's charges now cross from JAX bit for bit."""
+    from emdee_tpu_torch.neighbors import cell_dense_molecular as tmol
     from emdee_tpu_torch.neighbors import cell_dense_straggler as tsd
 
     pos, vel, params, config, _ = lj_setup(864, 0.5, seed=3)
     model = LennardJonesModel.create(2.5, 2.0, device="cpu")
-    for kw in ({"coulomb": object()}, {"aux_fn": len}, {"extra_forces": len}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            tcd.make_cell_dense_sim(config, model, dt=DT, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
+        tmol.make_molecular_dense_sim(config, model, DT, len(pos), params=params,
+                                      exclusion_pairs=np.array([[0, 1]]), exclusion_mode="correction")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        tmol.dense_sim_from_system(None, cutoff=2.5, switch=2.0, dt=DT)
     for kw in ({"backend": "pallas"}, {"rebin": "shift_xla"}, {"thermostat": object()},
                {"barostat": object()}):
         with pytest.raises(ValueError):
@@ -88,9 +92,10 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="spill"):
         tcd.make_cell_dense_sim(config._replace(spill=True), model, dt=DT,
                                 barostat=tcd.BerendsenBarostatConfig(0.5, 0.4))
-    st = to_port(jcd.cell_dense_init(pos, vel, np.ones(len(pos)), params, config))
-    with pytest.raises(NotImplementedError, match="charges"):
-        tcd.state_from_numpy({**tcd.state_to_numpy(st), "charges": np.zeros(3)}, "cpu")
+    q = np.where(np.arange(len(pos)) % 2 == 0, 0.3, -0.3).astype(np.float32)
+    js = jcd.cell_dense_init(pos, vel, np.ones(len(pos)), params, config, charges=q)
+    st = to_port(js)
+    np.testing.assert_array_equal(tcd.state_to_numpy(st)["charges"], np.asarray(js.charges))
     sconfig = tsd.StragglerConfig(config._replace(spill=True), config.capacity + 8, 64, 32)
     with pytest.raises(ValueError, match="spill"):
         tsd.make_straggler_sim(sconfig, model, dt=DT, uniform_params=(0.5, 2.0))

@@ -18,6 +18,7 @@ from emdee_tpu_torch import (
 )
 from emdee_tpu_torch.neighbors import cell_kernel, rebin_kernel, streaming_kernel
 from emdee_tpu_torch.neighbors.cell_dense import _rebin_shift
+from emdee_tpu_torch.tools import fixtures
 from emdee_tpu_torch.utils.lattice import cubic_lattice, maxwell_boltzmann
 
 pytestmark = pytest.mark.gpu
@@ -477,3 +478,93 @@ def test_probe_kernels_match_plain(device):
         want = probes.probe_cen_plain(cen, expand, transposed)
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
     assert probes.LAUNCHES == before + 3
+
+
+def test_straggler_gather_pass_reruns_bitwise(device):
+    """strag_pass="xla": the gather pass's reactions folded by the
+    fixed-order add, so two rollouts on the card are bitwise equal (no
+    float atomics), and they agree with the kernel pass."""
+    from emdee_tpu_torch import make_straggler_sim
+
+    st, config = _straggler_state(device)
+    model = LennardJonesModel.create(2.5, 2.0, device=device)
+    roll_x, _ = make_straggler_sim(config, model, dt=0.003, uniform_params=(0.5, 2.0), strag_pass="xla")
+    roll_k, _ = make_straggler_sim(config, model, dt=0.003, uniform_params=(0.5, 2.0))
+    a = roll_x(st, num_steps=24, rebin_every=6)
+    b = roll_x(st, num_steps=24, rebin_every=6)
+    k = roll_k(st, num_steps=24, rebin_every=6)
+    for x, y in zip(list(a.grid) + list(a[1:]), list(b.grid) + list(b[1:])):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert not bool(a.grid.overflow) and torch.equal(a.grid.atom_id, k.grid.atom_id)
+    assert float((a.grid.positions - k.grid.positions).abs().max()) < 2e-5
+
+
+@pytest.mark.parametrize("variant", ["coulomb", "tags", "coulomb_tags", "bonds", "coulomb_bonds"])
+def test_molecular_kernel_matches_plain(device, variant):
+    """K2c (DSF, exclusion tags, tag-borne bonds) against its plain version:
+    forces within 2e-4 of the force scale, per-slot energies and virials
+    within 1e-3 (the reference's K2c tolerance), empty slots exactly 0."""
+    st, config, model, coul, tags = fixtures.charged_fixture(device)
+    c = coul if "coulomb" in variant else None
+    excl = None if variant == "coulomb" else (tags if "bonds" in variant else tags[:3])
+    before = cell_kernel.LAUNCHES
+    for energy in (False, True):
+        fk, ek, wk = cell_kernel.cell_forces(st, model, config, compute_energy=energy, backend="cuda",
+                                             coulomb=c, excl=excl)
+        fp, ep, wp = cell_kernel.cell_forces(st, model, config, compute_energy=energy, backend="torch",
+                                             coulomb=c, excl=excl)
+        torch.cuda.synchronize()
+        v = st.valid
+        scale = max(float(fp[v].abs().max()), 1.0)
+        assert float((fk - fp)[v].abs().max()) <= 2e-4 * scale
+        assert bool((fk[~v] == 0).all())
+        if energy:
+            assert float((ek - ep)[v].abs().max()) <= 1e-3 and float((wk - wp)[v].abs().max()) <= 1e-3
+            assert bool((ek[~v] == 0).all()) and bool((wk[~v] == 0).all())
+    assert cell_kernel.LAUNCHES == before + 2
+
+
+def test_molecular_water_rollout_matches_plain_and_reruns_bitwise(device):
+    """A 1,536-atom flexible-water box (`tools/water.py`, 8³ waters, M = 3)
+    on 'cuda' (bonds absorbed in K2c) against 'torch' (the gather path)
+    after 20 steps within 2e-3 / 5e-2; two 'cuda' rollouts bitwise equal;
+    the streaming family refuses molecular terms (K5c)."""
+    from emdee_tpu_torch import gather_dense_atoms, make_cell_dense_sim
+    from emdee_tpu_torch.tools import water
+
+    box, config, model, coul, params = water.water_setup(device, n_side=8, spill=False)
+    st = cell_dense_init(box["positions"], box["velocities"], box["masses"], params, config,
+                         charges=box["charges"], device=device)
+    roll_k, energy_k = water.molecular_sim(box, config, model, coul, params, "cuda", device)
+    roll_p, energy_p = water.molecular_sim(box, config, model, coul, params, "torch", device)
+    a = roll_k(st, num_steps=20, rebin_every=5)
+    b = roll_k(st, num_steps=20, rebin_every=5)
+    p = roll_p(st, num_steps=20, rebin_every=5)
+    for x, y in zip(a, b):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert not bool(a.overflow) and not bool(p.overflow)
+    n = len(box["masses"])
+    (pa, va), (pp, vp) = gather_dense_atoms(a, n), gather_dense_atoms(p, n)
+    assert np.abs(pa - pp).max() < 2e-3 and np.abs(va - vp).max() < 5e-2
+    pe_k, pe_p = float(energy_k(st)[0]), float(energy_p(st)[0])
+    assert abs(pe_k - pe_p) <= 1e-5 * abs(pe_p) + 1e-2
+    with pytest.raises(NotImplementedError, match="K5c"):
+        make_cell_dense_sim(config, model, dt=water.DT, backend="cuda_streaming", coulomb=coul)[0](st, 5, 5)
+
+
+def test_molecular_triatomic_reruns_bitwise(device):
+    """The triatomic fixture at band 1 (leftover pairs and shared terms by
+    the fixed-order add, exclusive angles by scatter-set, bonds in K2c) on
+    'cuda': two 20-step rollouts bitwise equal, and within 2e-3 / 5e-2 of
+    'torch' (the gather path)."""
+    from emdee_tpu_torch import gather_dense_atoms
+
+    st, (roll_k, _) = fixtures.triatomic_sim(device, "cuda")
+    _, (roll_p, _) = fixtures.triatomic_sim(device, "torch")
+    a, b, p = (r(st, num_steps=20, rebin_every=5) for r in (roll_k, roll_k, roll_p))
+    for x, y in zip(a, b):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert not bool(a.overflow) and not bool(p.overflow)
+    n = int(st.valid.sum())
+    (pa, va), (pp, vp) = gather_dense_atoms(a, n), gather_dense_atoms(p, n)
+    assert np.abs(pa - pp).max() < 2e-3 and np.abs(va - vp).max() < 5e-2

@@ -235,10 +235,10 @@ def test_refused_modes_raise(energy_case):
         ({"thermostat": LangevinConfig(1.0, 2.0)}, "item 11"),
         ({"barostat": tcd.BerendsenBarostatConfig(0.5, 0.4)}, "item 11"),
         ({"backend": "cuda_streaming"}, "item 11"),
-        ({"coulomb": object()}, "item 10"),
-        ({"excl_tables": object()}, "item 10"),
-        ({"bonded": object()}, "item 10"),
-        ({"excl_leftover": object()}, "item 10"),
+        ({"coulomb": object()}, "item 11.2"),
+        ({"excl_tables": object()}, "item 11.2"),
+        ({"bonded": object()}, "item 11.2"),
+        ({"excl_leftover": object()}, "item 11.2"),
     ]
     for kwargs, item in refused:
         with pytest.raises(NotImplementedError, match=item):

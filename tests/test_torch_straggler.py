@@ -199,3 +199,31 @@ def test_config_and_options():
             tsd.make_straggler_sim(cfg, TMODEL, dt=DT, uniform_params=UNI, **kw)
     with pytest.raises(ValueError, match="spill"):
         tsd.make_straggler_sim(cfg._replace(grid=cfg.grid._replace(spill=True)), TMODEL, dt=DT, uniform_params=UNI)
+
+
+@pytest.mark.parametrize("backend", ["cuda_streaming", "streaming", "pallas_streaming_interpret"])
+def test_streaming_backends_refused(setup, backend):
+    """Every streaming backend, the port's own `cuda_streaming` included,
+    raises the NotImplementedError that names ROADMAP item 7."""
+    config = setup[2]
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        tsd.make_straggler_sim(config, TMODEL, dt=DT, uniform_params=UNI, backend=backend)
+
+
+@pytest.mark.parametrize("width", [1, 28])
+def test_fixed_order_fold_matches_index_add(width):
+    """The gather pass's reaction fold (`core/scatter.py`): the fixed-order
+    add equals `index_add` within float32 rounding, on targets with many,
+    one and no rows; it is the same whatever the device's scheduling, since
+    no float atomics run."""
+    from emdee_tpu_torch.core.scatter import add_plan, fixed_add
+
+    rng = np.random.default_rng(width)
+    target = torch.from_numpy(np.concatenate([rng.integers(0, 40, 1500), np.full(300, 7), [63]]))
+    rows = torch.from_numpy(rng.normal(size=(target.numel(), width)).astype(np.float32))
+    base = torch.from_numpy(rng.normal(size=(64, width)).astype(np.float32))
+    got = fixed_add(base, add_plan(target, 64), rows)
+    want = base.index_add(0, target, rows)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-4)
+    untouched = np.setdiff1d(np.arange(64), target.numpy())
+    assert torch.equal(got[untouched], base[untouched])
