@@ -41,11 +41,22 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   C = 64, asserted to resolve to the resident family under 'auto') through
   `cell_dense_init(charges=...)` and `make_molecular_dense_sim`:
   equilibrated 2,000 steps with CSVR at 300 K on the plain config that
-  holds its lattice start ('cuda' named: 'auto' picks the streaming family
-  there, whose molecular terms are not ported), then re-initialised on the
-  spill config; the gated 600-step window runs there if its flag holds,
-  else on the plain config, with the flag's cause logged; then 'cuda'
-  (bonds in K2c) against 'torch' (bonds on the gather path) after 20 steps;
+  holds its lattice start (M = 12, C = 80, 'cuda' named), then
+  re-initialised on the spill config; the gated 600-step window runs there
+  if its flag holds, else on the plain config, with the flag's cause
+  logged; then 'cuda' (bonds in K2c) against 'torch' (bonds on the gather
+  path) after 20 steps;
+- the streaming kernel's molecular branches (K5c) against their plain
+  version (K2c's) and against K2c on the 864-atom fixture and on the water
+  box, and the water box on `backend="auto"`, asserted to resolve to the
+  streaming family at the plain config: a gated 600-step NVE window, 20
+  steps against 'cuda' and 'torch';
+- the water box on the grid-sharded engine (K2c-G: the GHOST mode with
+  DSF and the tags; bonds and angles as term rows) on (1,1,1) and (2,2,2):
+  pair forces bit for bit the one-card K2c-q's, total forces of the two
+  decompositions bitwise equal, the energy against the one-card closure,
+  a gated 600-step window on (2,2,2); the triatomic fixture on (2,2,2)
+  against the one-card 'torch' engine, and on a one-rank NCCL `DistMesh`;
 - the 3-D grid-sharded engine (`emdee_tpu_torch.distributed`, every shard
   on this card, `LocalMesh`) on the equilibrated melt: (1,1,1) at the main
   path's config (M = 17, C = 32), then at the config
@@ -57,16 +68,19 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
 - the dense-cell engine on bench_all.py's 1,000,188-atom melt (FCC 63³,
   M = 37, C = 32), where `backend="auto"` resolves to the streaming kernel
   family (equilibrated 200 steps at rebin every 2; bench_all.py settles
-  100), and a short stacked per-atom rollout at the same size.
+  100), and a short stacked per-atom rollout at the same size;
+- the 985,527-atom water box (69³ waters, M = 26, C = 88) on
+  `backend="auto"` (K5c): one K5c and one K2c launch timed and held to
+  each other, and a gated 200-step NVE window from the lattice start.
 
 Last, the two TPU probes of tools/ (P1, an fma chain shaped like the force
 kernel; P2, the centre-expansion product in two layouts) against their plain
 versions, with their times.
 
 Each path is gated: no overflow (capacity, staleness, Kn, A), NVE drift ≤
-3e-5 over 1,000 steps (the water path: ≤ 1e-4 over 600 steps, K2c within
-2e-4 of the force scale and 1e-3 in energies and virials of its plain
-version) (NVT: the mean T* of the last 500 steps within 2% of
+3e-5 over 1,000 steps (the water paths: ≤ 1e-4 over 600 steps, 200 at
+985,527 atoms; K2c, K5c and K2c-G within 2e-4 of the force scale and 1e-3
+in energies and virials of their plain versions) (NVT: the mean T* of the last 500 steps within 2% of
 the target; NPT: the box grows by more than 1% and half the pressure gap
 closes), launch counts that show every force evaluation, straggler pass,
 rebin pass and compaction went through the kernels (counts set to 0 just
@@ -1142,10 +1156,6 @@ def phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_
     bitwise equal, the (1,1,1) run through a one-rank NCCL `DistMesh`
     bitwise equal to `LocalMesh`, and a short CSVR run.  Returns ({path:
     counts}, {path: ms/step}, max |dF| vs plain)."""
-    import tempfile
-
-    import torch.distributed as dist
-
     from emdee_tpu_torch import cell_dense_init, gather_dense_atoms, make_cell_dense_sim, reconfigure_dense_state
     from emdee_tpu_torch.distributed.grid_sharded import (
         distribute_grid, gather_grid_atoms, gather_grid_state, make_grid_sharded_sim,
@@ -1198,22 +1208,7 @@ def phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_
     log(f"{tag} grid M=16: {', '.join(m16)} bitwise equal in every field after {steps} steps")
 
     # The (1,1,1) run through torch.distributed: a one-rank NCCL group.
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
-        try:
-            dmesh = make_grid_mesh((1, 1, 1), group=dist.group.WORLD, device=device)
-            lmesh = make_grid_mesh((1, 1, 1), device=device)
-            got, want = [], []
-            for mesh, sink in ((dmesh, got), (lmesh, want)):
-                roll, energy = make_grid_sharded_sim(config, model, DT, mesh, uniform_params=uni)
-                out = roll(distribute_grid(st17, config, mesh), num_steps=100, rebin_every=k)
-                sink.extend([*state_to_numpy(gather_grid_state(out, config, mesh)).values(),
-                             *(np.float32(float(e)) for e in energy(out))])
-            if not all(np.array_equal(np.atleast_1d(a).view(np.uint8), np.atleast_1d(b).view(np.uint8))
-                       for a, b in zip(got, want)):
-                raise AssertionError("grid (1,1,1): the NCCL DistMesh run differs from the LocalMesh run")
-        finally:
-            dist.destroy_process_group()
+    nccl_vs_local_mesh("grid (1,1,1)", config, model, DT, st17, {"uniform_params": uni}, 100, k, device)
     log(f"{tag} grid (1,1,1) M=17 through a one-rank NCCL DistMesh: 100 steps and the energies bitwise equal "
         "to LocalMesh")
 
@@ -1318,6 +1313,8 @@ WATER_DRIFT_GATE = 1e-4  # relative NVE drift of the water path (the verify reci
 WATER_EQ_STEPS = 2000
 WATER_STEPS = 600
 WATER_REBIN = 6
+WATER_1M_GEOMETRY = (26, 88)  # (M, C) of the 985,527-atom box's plain config
+WATER_1M_STEPS = 200
 # float32 operations of one molecular pair inside the cutoff, each pair once
 # with Newton's third law.  The force launch: OPS_PER_PAIR, the per-atom
 # mixing 3, DSF Coulomb's force part 47 (√r, 1/r, αr 3, erfc ≈ 20, exp and
@@ -1345,25 +1342,28 @@ def mol_bytes(config, e_tags: int, e_bonds: int, energy: bool) -> int:
     return per_slot * config.num_slots
 
 
-def check_mol_kernel(st, config, model, coulomb, tags, label):
-    """K2c vs its plain version on one state, with DSF and the exclusion
+def check_mol_kernel(st, config, model, coulomb, tags, label, kernel="K2c"):
+    """K2c (or, with kernel="K5c", the streaming kernel's molecular
+    branches) vs its plain version on one state, with DSF and the exclusion
     tags, without and with the bond tags, forces alone and with energies:
     forces within MOL_FORCE_GATE of the force scale, energies and virials
     within MOL_E_GATE, exact zeros on empty slots.  Returns (max |dF|,
     force scale, max |dE|, max |dW|)."""
     from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
 
+    fn = cell_forces_streaming if kernel == "K5c" else cell_forces
     v = st.valid
     err = scale = err_e = err_w = 0.0
     for excl in (tags[:3], tags):
         for energy in (False, True):
             kw = dict(compute_energy=energy, coulomb=coulomb, excl=excl)
-            fk, ek, wk = cell_forces(st, model, config, backend="cuda", **kw)
+            fk, ek, wk = fn(st, model, config, backend="cuda", **kw)
             fp, ep, wp = cell_forces(st, model, config, backend="torch", **kw)
             torch.cuda.synchronize()
             sc = max(float(fp[v].abs().max()), 1.0)
             scale = max(scale, sc)
-            what = f"{label} K2c {'with' if len(excl) > 3 else 'without'} bond tags{' + energies' if energy else ''}"
+            what = f"{label} {kernel} {'with' if len(excl) > 3 else 'without'} bond tags{' + energies' if energy else ''}"
             err = max(err, close(f"{what}: forces", fk[v], fp[v], atol=MOL_FORCE_GATE * sc))
             if bool((fk[~v] != 0).any()):
                 raise AssertionError(f"{what}: nonzero forces on empty slots")
@@ -1399,15 +1399,17 @@ def phase_water(device, tag):
     """The 98,304-atom flexible-water box (`tools/water.py`) on the molecular
     dense engine: its spill config must resolve to the resident kernel
     family under 'auto'; equilibrate with CSVR at 300 K on the plain config
-    that holds the lattice start ('cuda' named, since 'auto' picks the
-    streaming family there; the thermostat forwarded through
+    that holds the lattice start ('cuda' named, so that this window holds
+    K2c: 'auto' picks the streaming family there, which `phase_water_auto`
+    gates; the thermostat forwarded through
     `make_molecular_dense_sim`), re-initialise on the spill config and, if
     that holds, run the
     gated NVE window there; else log the flag's cause and run it on the
     plain config with 'cuda'.  Gates: flag false, exact launch counts,
     drift ≤ 1e-4, bitwise reruns, no host waits; K2c vs plain on the
     window's state; 'cuda' (bonds in K2c) vs 'torch' (the gather path) after
-    20 steps.  Returns (K2c row fields, {path: counts}, ms/step, facts)."""
+    20 steps.  Returns (K2c row fields, {path: counts}, ms/step, facts, the
+    box, config, models and equilibrated state for the later water phases)."""
     from emdee_tpu_torch import cell_dense_init, gather_dense_atoms, resolve_dense_backend
     from emdee_tpu_torch.tools import water
 
@@ -1426,8 +1428,8 @@ def phase_water(device, tag):
     log(f"water box: {n} atoms ({n // 3} flexible TIP3P waters), L = {box['box']:.2f} Å; spill config "
         f"M={spill_cfg.cells_per_dim} C={spill_cfg.capacity} "
         f"-> 'auto' resolves to {rb(spill_cfg)!r}; the lattice start needs C={plain_cfg.capacity} "
-        f"(M={plain_cfg.cells_per_dim}), where 'auto' would pick {rb(plain_cfg)!r} (K5c not ported): "
-        "equilibrating on 'cuda'")
+        f"(M={plain_cfg.cells_per_dim}), where 'auto' picks {rb(plain_cfg)!r} (K5c, gated after this window): "
+        "equilibrating, and this window, on 'cuda' (K2c)")
     roll_eq, energy_eq = water.molecular_sim(box, plain_cfg, model, coul, params, "cuda", device)
     roll_nvt, _ = water.molecular_sim(box, plain_cfg, model, coul, params, "cuda", device, water.csvr())
     t0 = time.perf_counter()
@@ -1465,7 +1467,7 @@ def phase_water(device, tag):
         st0 = init(pos_eq, vel_eq, plain_cfg)
         kernel_counts = {"rebin_routing": 3 * -(-WATER_STEPS // WATER_REBIN)}
         log(f"water: the gated path runs on the plain config M={cfg.cells_per_dim} C={cfg.capacity} with "
-            f"backend='cuda' named; 'auto' would pick {rb(cfg)!r}, whose molecular terms (K5c) are not ported")
+            f"backend='cuda' named, so that it holds K2c; 'auto' picks {rb(cfg)!r} (K5c) there")
     roll(st0, num_steps=2 * WATER_REBIN, rebin_every=WATER_REBIN)  # warm-up
     out, sec, drift, counts = gate_rollout(
         "water path", roll, energy, st0, WATER_STEPS, WATER_REBIN,
@@ -1523,7 +1525,352 @@ def phase_water(device, tag):
            "mol_bound_ms": b_ms, "mol_bound_by": b_by, "mol_energy_ms": k_e_ms, "mol_energy_plain_ms": p_e_ms, "mol_energy_bound_ms": b_e[0],
            "mol_pairs": pairs, "mol_bonded_pairs": bonded_pairs}
     facts.update(config=f"M={cfg.cells_per_dim} C={cfg.capacity}", drift=drift, t_eq=t_eq)
-    return row, {"water": counts}, ms, facts
+    w = dict(box=box, cfg=plain_cfg, model=model, coul=coul, params=params, pos_eq=pos_eq, vel_eq=vel_eq,
+             energy=energy_eq, init=init)
+    return row, {"water": counts}, ms, facts, w
+
+
+def k5c_vs_k2c(st, config, model, coulomb, tags, label):
+    """K5c vs K2c on one state: the step launch (bond tags) within
+    MOL_FORCE_GATE of K2c's force scale, the energy launch (no bond tags)
+    within MOL_E_GATE in per-slot energies and virials.  Returns (max |dF|,
+    max |dE| or |dW|)."""
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
+
+    v = st.valid
+    f5, _, _ = cell_forces_streaming(st, model, config, backend="cuda", coulomb=coulomb, excl=tags)
+    f2, _, _ = cell_forces(st, model, config, backend="cuda", coulomb=coulomb, excl=tags)
+    kw = dict(coulomb=coulomb, excl=tags[:3], compute_energy=True)
+    _, e5, w5 = cell_forces_streaming(st, model, config, backend="cuda", **kw)
+    _, e2, w2 = cell_forces(st, model, config, backend="cuda", **kw)
+    torch.cuda.synchronize()
+    scale = max(float(f2[v].abs().max()), 1.0)
+    err = close(f"{label} K5c vs K2c forces", f5[v], f2[v], atol=MOL_FORCE_GATE * scale)
+    err_e = max(close(f"{label} K5c vs K2c energies", e5[v], e2[v], atol=MOL_E_GATE),
+                close(f"{label} K5c vs K2c virials", w5[v], w2[v], atol=MOL_E_GATE))
+    return err, err_e
+
+
+def phase_k5c_fixture(device, tag):
+    """K5c vs its plain version on the 864-atom charged fixture, with and
+    without bond tags and energies, and vs K2c.  Returns the K5c row's
+    fixture fields."""
+    from emdee_tpu_torch.tools import fixtures
+
+    st, config, model, coul, tags = fixtures.charged_fixture(device)
+    err, scale, err_e, err_w = check_mol_kernel(st, config, model, coul, tags, "864 fixture", "K5c")
+    vs_f, vs_e = k5c_vs_k2c(st, config, model, coul, tags, "864 fixture")
+    log(f"{tag} K5c vs plain, 864-atom charged fixture (drifted, M={config.cells_per_dim} C={config.capacity}): "
+        f"max |dF| {err:.3e} (rel {err / scale:.3e}, scale {scale:.1f}), max |dE| {err_e:.3e}, max |dW| {err_w:.3e}; "
+        f"vs K2c max |dF| {vs_f:.3e}, max |dE|, |dW| {vs_e:.3e}; empty slots exactly 0")
+    return {"fixture_max_abs_err": err, "fixture_force_scale": scale, "fixture_rel_err": err / scale,
+            "fixture_energy_err": max(err_e, err_w), "fixture_vs_k2c_max_abs_err": vs_f}
+
+
+def mol_pairs(state, config, bonds, box_edge):
+    """(unique pairs inside the cutoff, bonded pairs inside it) of a water
+    state, for the bounds."""
+    from emdee_tpu_torch import gather_dense_atoms
+
+    px, py, pz = (state.positions[..., i].contiguous() for i in range(3))
+    pairs = grid_pairs(px, py, pz, state.valid, config)
+    pos, _ = gather_dense_atoms(state, config.num_atoms)
+    d = pos[bonds[:, 1]] - pos[bonds[:, 0]]
+    d -= np.round(d / box_edge) * box_edge
+    return pairs, int(((d * d).sum(1) < config.cutoff**2).sum())
+
+
+def phase_water_auto(device, tag, w):
+    """The 98,304-atom water box on `backend="auto"`, which resolves to the
+    streaming family (K5c) at its plain config: the gated 600-step NVE
+    window from the equilibrated state (drift ≤ 1e-4, no flag, two K5c
+    launches a force evaluation and three K4 a rebin, bitwise reruns, no
+    host waits); 20 steps against 'cuda' (K2c) and 'torch' within 2e-3 Å
+    and 5e-2 Å/(0.1 ps); K5c vs plain and vs K2c on the window's end state,
+    and their times.  Returns (K5c row fields, counts, ms/step, drift)."""
+    from emdee_tpu_torch import gather_dense_atoms, resolve_dense_backend
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
+    from emdee_tpu_torch.tools import water
+
+    box, cfg, model, coul, params = w["box"], w["cfg"], w["model"], w["coul"], w["params"]
+    n = len(box["masses"])
+    family = resolve_dense_backend(cfg, "auto", device=device, with_coulomb=True, with_excl=True)
+    if family != "cuda_streaming":
+        raise AssertionError(f"water plain config M={cfg.cells_per_dim} C={cfg.capacity}: 'auto' -> {family!r}")
+    st0 = w["init"](w["pos_eq"], w["vel_eq"], cfg)
+    roll, energy = water.molecular_sim(box, cfg, model, coul, params, "auto", device)
+    roll(st0, num_steps=2 * WATER_REBIN, rebin_every=WATER_REBIN)  # warm-up
+    out, sec, drift, counts = gate_rollout(
+        "water path ('auto', K5c)", roll, energy, st0, WATER_STEPS, WATER_REBIN,
+        launches(cell_forces_streaming=2 * (WATER_STEPS + 4), rebin_routing=3 * -(-WATER_STEPS // WATER_REBIN)),
+        drift_gate=WATER_DRIFT_GATE,
+    )
+    bitwise_rerun("water path ('auto')", roll, st0, 100, WATER_REBIN)
+    no_host_waits("water path ('auto')", lambda: roll(st0, num_steps=2 * WATER_REBIN, rebin_every=WATER_REBIN))
+    ms = 1e3 * sec / WATER_STEPS
+    log(f"{tag} water path (plain config M={cfg.cells_per_dim} C={cfg.capacity}, backend 'auto' -> {family!r}: "
+        f"DSF + tags + bonds in K5c, angles by scatter-set): {WATER_STEPS} steps in {sec:.3f} s = {ms:.4f} ms/step, "
+        f"{n * WATER_STEPS / sec:,.0f} atom-steps/s; NVE drift {drift:.3e} (gate {WATER_DRIFT_GATE}); launches "
+        f"{counts}; two 100-step rollouts bitwise equal; no host waits")
+
+    a = roll(st0, num_steps=20, rebin_every=5)
+    pa, va = gather_dense_atoms(a, n)
+    gaps = {}
+    for other in ("cuda", "torch"):
+        b = water.molecular_sim(box, cfg, model, coul, params, other, device)[0](st0, num_steps=20, rebin_every=5)
+        pb, vb = gather_dense_atoms(b, n)
+        gaps[other] = (float(np.abs(pa - pb).max()), float(np.abs(va - vb).max()))
+        if not (gaps[other][0] <= 2e-3 and gaps[other][1] <= 5e-2) or bool(a.overflow) or bool(b.overflow):
+            raise AssertionError(f"water 'auto' vs {other!r} after 20 steps: {gaps[other]}")
+    log(f"{tag} water 'auto' (K5c) after 20 steps vs 'cuda' (K2c): max |dx| {gaps['cuda'][0]:.3e} Å, max |dv| "
+        f"{gaps['cuda'][1]:.3e}; vs 'torch': max |dx| {gaps['torch'][0]:.3e} Å, max |dv| {gaps['torch'][1]:.3e} "
+        "(gates 2e-3, 5e-2)")
+
+    tags, e_tags, e_bonds = water_tags(box, n, device, out)
+    err, scale, err_e, err_w = check_mol_kernel(out, cfg, model, coul, tags, f"water {n}", "K5c")
+    vs_f, vs_e = k5c_vs_k2c(out, cfg, model, coul, tags, f"water {n}")
+    step_kw = dict(coulomb=coul, excl=tags)
+    e_kw = dict(coulomb=coul, excl=tags[:3], compute_energy=True)
+    k_ms = cuda_ms(lambda: cell_forces_streaming(out, model, cfg, backend="cuda", **step_kw), 20)
+    k_e_ms = cuda_ms(lambda: cell_forces_streaming(out, model, cfg, backend="cuda", **e_kw), 10)
+    k2_ms = cuda_ms(lambda: cell_forces(out, model, cfg, backend="cuda", **step_kw), 20)
+    k2_e_ms = cuda_ms(lambda: cell_forces(out, model, cfg, backend="cuda", **e_kw), 10)
+    p_ms = cuda_ms(lambda: cell_forces(out, model, cfg, backend="torch", **step_kw), 2)
+    p_e_ms = cuda_ms(lambda: cell_forces(out, model, cfg, backend="torch", **e_kw), 2)
+    pairs, bonded_pairs = mol_pairs(out, cfg, box["bonds"], box["box"])
+    b_ms, b_by = bound(mol_bytes(cfg, e_tags, e_bonds, False), mol_ops(pairs, bonded_pairs, e_tags, False))
+    b_e = bound(mol_bytes(cfg, e_tags, 0, True), mol_ops(pairs, 0, e_tags, True))
+    log(f"{tag} K5c vs plain on the 'auto' window's end state (M={cfg.cells_per_dim} C={cfg.capacity}, E={e_tags} "
+        f"E_b={e_bonds}): max |dF| {err:.3e} (rel {err / scale:.3e}, scale {scale:.1f}), max |dE| {err_e:.3e}, "
+        f"max |dW| {err_w:.3e}; vs K2c max |dF| {vs_f:.3e}, |dE|, |dW| {vs_e:.3e}")
+    log(f"{tag} K5c times at {n} atoms: step launch pair (DSF + tags + bonds) {k_ms:.4f} ms vs K2c {k2_ms:.4f} ms, "
+        f"plain {p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); energy launch pair {k_e_ms:.4f} ms vs K2c "
+        f"{k2_e_ms:.4f} ms, plain {p_e_ms:.3f} ms, bound {b_e[0]:.5f} ms ({b_e[1]}); {pairs:,} unique pairs inside "
+        f"the cutoff ({bonded_pairs:,} bonded)")
+    row = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "water_force_scale": scale, "water_rel_err": err / scale, "water_energy_err": max(err_e, err_w),
+           "water_vs_k2c_max_abs_err": vs_f, "water_vs_k2c_energy_err": vs_e, "k2c_ms": k2_ms,
+           "energy_ms": k_e_ms, "energy_plain_ms": p_e_ms, "energy_bound_ms": b_e[0], "k2c_energy_ms": k2_e_ms,
+           "pairs": pairs, "bonded_pairs": bonded_pairs, "water_auto_ms_per_step": ms, "water_auto_drift": drift}
+    return row, {"water_auto": counts}, ms, drift
+
+
+def phase_water_1m(device, tag):
+    """The 985,527-atom water box (69³ waters, plain config M = 26, C = 88)
+    on `backend="auto"` (asserted to resolve to the streaming family): one
+    K5c and one K2c launch timed, K5c held to K2c within MOL_FORCE_GATE of
+    the force scale (the plain version is not run at this size); a gated
+    NVE window of 200 steps from the lattice start (no flag, drift ≤ 1e-4,
+    exact launches).  Returns (row fields, counts, ms/step)."""
+    from emdee_tpu_torch import cell_dense_init, resolve_dense_backend
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
+    from emdee_tpu_torch.tools import water
+
+    t0 = time.perf_counter()
+    box, cfg, model, coul, params = water.water_setup(device, n_side=water.N_SIDE_1M, spill=False)
+    n = len(box["masses"])
+    family = resolve_dense_backend(cfg, "auto", device=device, with_coulomb=True, with_excl=True)
+    if (cfg.cells_per_dim, cfg.capacity) != WATER_1M_GEOMETRY or family != "cuda_streaming":
+        raise AssertionError(f"1M water config M={cfg.cells_per_dim} C={cfg.capacity} resolves to {family!r}")
+    st = cell_dense_init(box["positions"], box["velocities"], box["masses"], params, cfg, charges=box["charges"],
+                         device=device)
+    if bool(st.overflow):
+        raise AssertionError("1M water: init overflow")
+    tags, e_tags, e_bonds = water_tags(box, n, device, st)
+    roll, energy = water.molecular_sim(box, cfg, model, coul, params, "auto", device)
+    setup = time.perf_counter() - t0
+    v = st.valid
+    f5 = cell_forces_streaming(st, model, cfg, backend="cuda", coulomb=coul, excl=tags)[0]
+    f2 = cell_forces(st, model, cfg, backend="cuda", coulomb=coul, excl=tags)[0]
+    torch.cuda.synchronize()
+    scale = max(float(f2[v].abs().max()), 1.0)
+    err = close("1M water K5c vs K2c forces", f5[v], f2[v], atol=MOL_FORCE_GATE * scale)
+    k_ms = cuda_ms(lambda: cell_forces_streaming(st, model, cfg, backend="cuda", coulomb=coul, excl=tags), 5)
+    k2_ms = cuda_ms(lambda: cell_forces(st, model, cfg, backend="cuda", coulomb=coul, excl=tags), 5)
+    pairs, bonded_pairs = mol_pairs(st, cfg, box["bonds"], box["box"])
+    b_ms, b_by = bound(mol_bytes(cfg, e_tags, e_bonds, False), mol_ops(pairs, bonded_pairs, e_tags, False))
+    steps = WATER_1M_STEPS
+    roll(st, num_steps=WATER_REBIN, rebin_every=WATER_REBIN)  # warm-up
+    _, sec, drift, counts = gate_rollout(
+        "1M water path ('auto', K5c)", roll, energy, st, steps, WATER_REBIN,
+        launches(cell_forces_streaming=2 * (steps + 4), rebin_routing=3 * -(-steps // WATER_REBIN)),
+        drift_gate=WATER_DRIFT_GATE,
+    )
+    ms = 1e3 * sec / steps
+    log(f"{tag} 1M water box: {n:,} atoms ({n // 3:,} waters), L = {box['box']:.2f} Å, M={cfg.cells_per_dim} "
+        f"C={cfg.capacity}, 'auto' -> {family!r} (set-up {setup:.1f} s); K5c vs K2c max |dF| {err:.3e} (rel "
+        f"{err / scale:.3e}, scale {scale:.1f}); step launch K5c {k_ms:.4f} ms (2 launches) vs K2c {k2_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}; {pairs:,} pairs inside the cutoff); {steps} NVE steps from the lattice "
+        f"start in {sec:.3f} s = {ms:.4f} ms/step, {n * steps / sec:,.0f} atom-steps/s, drift {drift:.3e} (gate "
+        f"{WATER_DRIFT_GATE}), no flag; launches {counts}")
+    row = {"n1m_water_ms": k_ms, "n1m_water_k2c_ms": k2_ms, "n1m_water_bound_ms": b_ms,
+           "n1m_water_vs_k2c_max_abs_err": err, "n1m_water_force_scale": scale, "n1m_water_ms_per_step": ms,
+           "n1m_water_drift": drift, "n1m_water_pairs": pairs}
+    return row, {"water_1m": counts}, ms
+
+
+def nccl_vs_local_mesh(label, config, model, dt, st, kwargs, steps, rebin_every, device):
+    """A (1,1,1) grid run through a one-rank NCCL `DistMesh` (in-process,
+    `file://` rendezvous) bitwise equal, state and energies, to the same
+    run on a `LocalMesh`."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, gather_grid_state, make_grid_sharded_sim
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors.cell_dense import state_to_numpy
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            runs = []
+            for mesh in (make_grid_mesh((1, 1, 1), group=dist.group.WORLD, device=device),
+                         make_grid_mesh((1, 1, 1), device=device)):
+                roll, energy = make_grid_sharded_sim(config, model, dt, mesh, **kwargs)
+                out = roll(distribute_grid(st, config, mesh), num_steps=steps, rebin_every=rebin_every)
+                runs.append([*state_to_numpy(gather_grid_state(out, config, mesh)).values(),
+                             *(np.float32(float(e)) for e in energy(out))])
+        finally:
+            dist.destroy_process_group()
+    if not all(np.array_equal(np.atleast_1d(a).view(np.uint8), np.atleast_1d(b).view(np.uint8))
+               for a, b in zip(*runs)):
+        raise AssertionError(f"{label}: the NCCL DistMesh run differs from the LocalMesh run")
+
+
+def ghost_stack(sh, mesh):
+    """The molecular ghost grids of a grid-sharded state, as the grid
+    engine builds them: x, y, z (NaN in empty slots), σ/2, 2√ε, q and the
+    atom ids (−2 on empty slots) as a float32 bit view."""
+    from emdee_tpu_torch.distributed.grid_sharded import _ghost3
+
+    pos3 = sh.positions.movedim(-1, 0)
+    parts = [torch.where(sh.valid, pos3, float("nan")), sh.half_sigma[None], sh.twice_sqrt_eps[None],
+             sh.charges[None], torch.where(sh.valid, sh.atom_id, -2).view(torch.float32)[None]]
+    return _ghost3(torch.cat(parts), mesh)
+
+
+def phase_grid_water(device, tag, w, dense_drift):
+    """The water box on the grid-sharded engine (K2c-G), every shard on the
+    card, at the plain config (M = 12, C = 80): on (1,1,1) and (2,2,2) the
+    molecular pair forces, energies and virials bit for bit the one-card
+    K2c-q's (no bond tags) on the equilibrated state drifted 0.45·skin, the
+    total forces (pairs and term rows) bitwise equal between the two, the
+    energy within rel 1e-5 of the one-card engine's closure; K2c-G vs the
+    ghost pass's plain version and its times; the gated 600-step NVE window
+    on (2,2,2) (drift ≤ 1e-4, no flag, one K2c-G launch a force evaluation
+    and three K6 a rebin, bitwise reruns, no host waits); the triatomic
+    fixture on (2,2,2) against the one-card 'torch' engine after 20 steps
+    within 2e-4.  Returns (K2c-G row fields, counts, ms/step)."""
+    from emdee_tpu_torch import build_exclusion_tables, gather_dense_atoms, make_exclusion_aux_fn
+    from emdee_tpu_torch.distributed.grid_sharded import (
+        distribute_grid, gather_grid_atoms, gather_grid_state, make_grid_sharded_sim,
+    )
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces, ghost_forces
+    from emdee_tpu_torch.tools import fixtures, water
+
+    box, cfg, model, coul, params = w["box"], w["cfg"], w["model"], w["coul"], w["params"]
+    n = len(box["masses"])
+    st = w["init"](w["pos_eq"], w["vel_eq"], cfg)
+    tabs = build_exclusion_tables(n, box["exclusion_pairs"], box["exclusion_scales"], None)
+    kw = dict(coulomb=coul, excl_tables=tabs, bonded=water.bonded_system(box, device))
+    sd = drifted(st, water.SKIN)
+    aux = make_exclusion_aux_fn(n, *tabs)
+    ref = cell_forces(sd, model, cfg, compute_energy=True, backend="cuda", coulomb=coul, excl=aux(sd))
+    pe1 = float(w["energy"](st)[0])
+    totals, timing = {}, {}
+    for shape in ((1, 1, 1), (2, 2, 2)):
+        mesh = make_grid_mesh(shape, device=device)
+        sh = distribute_grid(sd, cfg, mesh)
+        roll, energy = make_grid_sharded_sim(cfg, model, water.DT, mesh, **kw)
+        whole = lambda f, e=None, w_=None: gather_grid_state(  # noqa: E731
+            sh._replace(positions=f, half_sigma=sh.half_sigma if e is None else e,
+                        twice_sqrt_eps=sh.twice_sqrt_eps if w_ is None else w_), cfg, mesh)
+        pair = whole(*roll.forces(sh, compute_energy=True, with_terms=False))
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip((pair.positions, pair.half_sigma, pair.twice_sqrt_eps), ref)):
+            raise AssertionError(f"grid water {shape}: K2c-G pair terms differ from the one-card K2c-q's")
+        totals[shape] = whole(roll.forces(sh)[0]).positions
+        pe = float(energy(distribute_grid(st, cfg, mesh))[0])
+        if not abs(pe - pe1) <= 1e-5 * abs(pe1):
+            raise AssertionError(f"grid water {shape}: PE {pe:.3f} vs the one-card closure's {pe1:.3f}")
+        gh, tags = ghost_stack(sh, mesh), aux(sh)[:3]
+        gk = dict(coulomb=coul, excl=tags)
+        call = lambda be, e=False: ghost_forces(gh, mesh.local_shape, mesh.base, cfg, model, backend=be,  # noqa: E731
+                                                compute_energy=e, **gk)
+        fk, ek, wk = call("cuda", True)
+        fp, ep, wp = call("torch", True)
+        torch.cuda.synchronize()
+        v = sh.valid
+        scale = max(float(fp.movedim(0, -1)[v].abs().max()), 1.0)
+        err = close(f"grid water {shape} K2c-G vs plain forces", fk.movedim(0, -1)[v], fp.movedim(0, -1)[v],
+                    atol=MOL_FORCE_GATE * scale)
+        err_e = max(close(f"grid water {shape} K2c-G vs plain energies", ek[v], ep[v], atol=MOL_E_GATE),
+                    close(f"grid water {shape} K2c-G vs plain virials", wk[v], wp[v], atol=MOL_E_GATE))
+        timing[shape] = dict(ms=cuda_ms(lambda: call("cuda"), 20), energy_ms=cuda_ms(lambda: call("cuda", True), 10),
+                             plain_ms=cuda_ms(lambda: call("torch"), 2), pass_ms=cuda_ms(lambda: roll.forces(sh), 10),
+                             err=err, err_e=err_e, scale=scale, ghost_slots=int(gh[0].numel()))
+        log(f"{tag} grid water {shape} (M={cfg.cells_per_dim} C={cfg.capacity}, LocalMesh): K2c-G pair forces, "
+            f"energies and virials bit for bit the one-card K2c-q's; PE {pe:.3f} vs one-card {pe1:.3f} kJ/mol; "
+            f"K2c-G vs plain max |dF| {err:.3e} (scale {scale:.1f}), |dE|, |dW| {err_e:.3e}; K2c-G launch "
+            f"{timing[shape]['ms']:.4f} ms, energy launch {timing[shape]['energy_ms']:.4f} ms, plain "
+            f"{timing[shape]['plain_ms']:.3f} ms, the force pass with halo and term rows "
+            f"{timing[shape]['pass_ms']:.4f} ms")
+    if not torch.equal(totals[(1, 1, 1)].view(torch.int32), totals[(2, 2, 2)].view(torch.int32)):
+        raise AssertionError("grid water: total forces (pairs + term rows) differ between (1,1,1) and (2,2,2)")
+
+    mesh = make_grid_mesh((2, 2, 2), device=device)
+    roll, energy = make_grid_sharded_sim(cfg, model, water.DT, mesh, **kw)
+    sh = distribute_grid(st, cfg, mesh)
+    roll(sh, num_steps=2 * WATER_REBIN, rebin_every=WATER_REBIN)  # warm-up
+    _, sec, drift, counts = gate_rollout(
+        "grid water (2,2,2)", roll, energy, sh, WATER_STEPS, WATER_REBIN,
+        launches(cell_forces=WATER_STEPS + 4, rebin_window=3 * -(-WATER_STEPS // WATER_REBIN)),
+        drift_gate=WATER_DRIFT_GATE,
+    )
+    bitwise_rerun("grid water (2,2,2)", roll, sh, 100, WATER_REBIN)
+    no_host_waits("grid water (2,2,2)", lambda: roll(sh, num_steps=2 * WATER_REBIN, rebin_every=WATER_REBIN))
+    ms = 1e3 * sec / WATER_STEPS
+    log(f"{tag} grid water (2,2,2) (DSF + tags in K2c-G, bonds and angles as term rows): {WATER_STEPS} steps in "
+        f"{sec:.3f} s = {ms:.4f} ms/step; NVE drift {drift:.3e} (gate {WATER_DRIFT_GATE}; no Kahan compensation on "
+        f"the grid, the dense path's {dense_drift:.3e}); launches {counts}; reruns bitwise equal; no host waits; "
+        "total forces of (1,1,1) and (2,2,2) bitwise equal")
+
+    st_t, (roll_t, _) = fixtures.triatomic_sim(device, "torch")
+    st_g, tcfg, tmodel = fixtures.triatomic_state(device)
+    tmesh = make_grid_mesh((2, 2, 2), device=device)
+    groll, _ = make_grid_sharded_sim(tcfg, tmodel, 1e-3, tmesh, **fixtures.triatomic_grid_kwargs(device))
+    a = groll(distribute_grid(st_g, tcfg, tmesh), num_steps=20, rebin_every=5)
+    b = roll_t(st_t, num_steps=20, rebin_every=5)
+    nt = tcfg.num_atoms
+    (pa, va), (pb, vb) = gather_grid_atoms(a, tcfg, nt, tmesh), gather_dense_atoms(b, nt)
+    gap = (float(np.abs(pa - pb).max()), float(np.abs(va - vb).max()))
+    if not max(gap) <= 2e-4 or bool(a.overflow) or bool(b.overflow):
+        raise AssertionError(f"grid triatomic (2,2,2) vs the one-card 'torch' engine after 20 steps: {gap}")
+    log(f"{tag} grid triatomic fixture (2,2,2) (bonded rows and leftover pairs, band 1) vs the one-card 'torch' "
+        f"engine after 20 steps: max |dx| {gap[0]:.3e}, max |dv| {gap[1]:.3e} (gate 2e-4)")
+    nccl_vs_local_mesh("grid triatomic (1,1,1)", tcfg, tmodel, 1e-3, st_g, fixtures.triatomic_grid_kwargs(device),
+                       20, 5, device)
+    log(f"{tag} grid triatomic (1,1,1) through a one-rank NCCL DistMesh (the term bindings' int32 psum through "
+        "NCCL's all_reduce): 20 steps and the energies bitwise equal to LocalMesh")
+
+    t = timing[(2, 2, 2)]
+    e_tags = int(tabs[0].shape[-1])
+    ns = cfg.num_slots
+    pairs = mol_pairs(st, cfg, box["bonds"], box["box"])[0]
+    # Bytes: the ghost grids (7 fields) in, the own slots' tags (12E) in, forces out.
+    b_ms, b_by = bound(4 * 7 * t["ghost_slots"] + 12 * e_tags * ns + 12 * ns, mol_ops(pairs, 0, e_tags, False))
+    row = {"max_abs_err": max(timing[s]["err"] for s in timing), "ms": t["ms"], "plain_ms": t["plain_ms"],
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "force_scale": t["scale"],
+           "energy_err": max(timing[s]["err_e"] for s in timing), "energy_ms": t["energy_ms"],
+           "n111_ms": timing[(1, 1, 1)]["ms"], "n111_energy_ms": timing[(1, 1, 1)]["energy_ms"],
+           "force_pass_ms": t["pass_ms"], "grid_water_ms_per_step": ms, "grid_water_drift": drift,
+           "triatomic_gap": max(gap), "pairs": pairs}
+    return row, {"grid_water_222": counts}, ms
 
 
 def phase_molecular_fixtures(device, tag):
@@ -1581,6 +1928,7 @@ def main() -> None:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA device")
+    t_start = time.perf_counter()
     smi = card()
     tag = f"[{smi}]"
     log(smi)
@@ -1702,10 +2050,17 @@ def main() -> None:
 
     # ---- the molecular dense engine: K2c, the triatomic fixture, the water box ----
     mol_fixture_row = phase_molecular_fixtures(device, tag)
-    mol_row, counts_water, water_ms, water_facts = phase_water(device, tag)
+    k5c_row = phase_k5c_fixture(device, tag)
+    mol_row, counts_water, water_ms, water_facts, w = phase_water(device, tag)
     log(f"{smi}: water path {water_ms:.4f} ms/step ({98_304 * 1e3 / water_ms:,.0f} atom-steps/s) on "
         f"{water_facts['config']}, NVE drift {water_facts['drift']:.3e}, T {water_facts['t_eq']:.1f} K; "
         f"spill config holds: {water_facts['spill_holds']}")
+    water_auto_row, counts_auto, auto_ms, auto_drift = phase_water_auto(device, tag, w)
+    k5c_row.update(water_auto_row)
+    ghost_mol_row, counts_grid_water, grid_water_ms = phase_grid_water(device, tag, w, auto_drift)
+    del w
+    log(f"{smi}: water ms/step at 98,304 atoms — 'cuda' (K2c) {water_ms:.4f}, 'auto' (K5c) {auto_ms:.4f}, "
+        f"grid (2,2,2) (K2c-G) {grid_water_ms:.4f}")
 
     # ---- the grid-sharded engine (virtual shards on this card) ----
     counts_grid, grid_ms, grid_err = phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_ms)
@@ -1717,12 +2072,20 @@ def main() -> None:
     log(f"{smi}: 1M path {ms_1m:.4f} ms/step ({1_000_188 * 1e3 / ms_1m:,.0f} atom-steps/s); K5 vs K2 split "
         f"{k5['ms']:.4f} vs {k2_1m['k2_split_ms']:.4f} ms at 1M, {k5_97k['ms']:.4f} vs "
         f"{k2_97k['k2_split_ms']:.4f} ms at 97,556 atoms")
+    water_1m_row, counts_water_1m, water_1m_ms = phase_water_1m(device, tag)
+    k5c_row.update(water_1m_row)
+    log(f"{smi}: 1M water path ('auto', K5c) {water_1m_ms:.4f} ms/step ({985_527 * 1e3 / water_1m_ms:,.0f} "
+        f"atom-steps/s); K5c step launch {water_1m_row['n1m_water_ms']:.4f} ms vs K2c "
+        f"{water_1m_row['n1m_water_k2c_ms']:.4f} ms")
 
     p1, p2 = phase_probes(device, tag)
 
     paths = {"dense": main_counts, "straggler": s_counts, **counts_spill, **counts_thermo, **counts_grid,
-             **counts_1m, **counts_water}
-    by_path = lambda name: {p: c[name] for p, c in paths.items() if c[name]}  # noqa: E731
+             **counts_1m, **counts_water, **counts_auto, **counts_water_1m, **counts_grid_water}
+    # The molecular paths' K5c and K2c-G launches count in their own rows.
+    mol_paths = {"cell_forces": set(counts_grid_water), "cell_forces_streaming": set(counts_auto) | set(counts_water_1m)}
+    by_path = lambda name: {p: c[name] for p, c in paths.items()  # noqa: E731
+                            if c[name] and p not in mol_paths.get(name, ())}
     kernels = [
         dict(name="cell_forces", route="cuda", source="emdee_tpu_torch/csrc/cell_forces.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:597",
@@ -1739,6 +2102,15 @@ def main() -> None:
              launches=sum(by_path("cell_forces_streaming").values()),
              launches_by_path=by_path("cell_forces_streaming"), **k5,
              **{f"n97556_{key}": value for key, value in k5_97k.items()}),
+        dict(name="cell_forces_streaming_mol", route="cuda", source="emdee_tpu_torch/csrc/cell_forces_streaming.cu",
+             replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1417",
+             launches=counts_auto["water_auto"]["cell_forces_streaming"],
+             launches_by_path={p: c["cell_forces_streaming"] for p, c in {**counts_auto, **counts_water_1m}.items()},
+             **k5c_row),
+        dict(name="cell_forces_ghost_mol", route="cuda", source="emdee_tpu_torch/csrc/cell_forces.cu",
+             replaces="emdee_tpu/distributed/grid_sharded.py:629",
+             launches=counts_grid_water["grid_water_222"]["cell_forces"],
+             launches_by_path={p: c["cell_forces"] for p, c in counts_grid_water.items()}, **ghost_mol_row),
         dict(name="rebin_routing", route="cuda", source="emdee_tpu_torch/csrc/rebin_routing.cu",
              replaces="emdee_tpu/neighbors/pallas_rebin.py:60",
              launches=sum(by_path("rebin_routing").values()),
@@ -1760,6 +2132,7 @@ def main() -> None:
              replaces="tools/perf_probe_cen_layout.py:95", dgt_replaces="tools/perf_probe_cen_layout.py:103",
              launches=0, launches_by_path={}, **p2),
     ]
+    log(f"{smi}: every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -8,8 +8,8 @@ rollout path goes through this module instead.
 
 `add_plan(target, num_targets)` is built once per binding (the targets
 change only at a rebin): a stable argsort of the (R,) target index, each
-sorted row's rank inside its target, and the row that closes each target's
-segment.  `fixed_add(base, plan, values)` gathers the rows in that order,
+sorted row's rank inside its target (its index less the first index of its
+target, by `searchsorted`), and the row that closes each target's segment.  `fixed_add(base, plan, values)` gathers the rows in that order,
 sums every segment by a segmented inclusive scan of ⌈log₂ R⌉ doubling steps
 (row k adds the partial sum 2^s rows back while its rank allows), and
 writes each segment's total, plus the base row, into its target with one
@@ -42,11 +42,11 @@ def add_plan(target: torch.Tensor, num_targets: int) -> AddPlan:
     order = torch.argsort(t, stable=True)
     ts = t[order]
     idx = torch.arange(r, device=t.device)
-    change = ts[1:] != ts[:-1]
     yes = torch.ones(1, dtype=torch.bool, device=t.device)
-    start = torch.cat([yes, change])
-    closes = torch.cat([change, yes])
-    rank = idx - torch.cummax(torch.where(start, idx, 0), dim=0).values
+    closes = torch.cat([ts[1:] != ts[:-1], yes])
+    # Each row's rank: its index less its segment's first (a binary search;
+    # CUDA's cummax scans one row in one block, ~5 ms at 1.8 M rows).
+    rank = idx - torch.searchsorted(ts, ts)
     masks = []
     s = 1
     while s < r:

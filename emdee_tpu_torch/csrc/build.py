@@ -62,6 +62,12 @@ _SIGNATURES = {
     "emdee_streaming_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                                _P, _P, _I, _I, _P, _F, _F, _F, _F, _F, _F, _F,
                                _F, _F, _F, _I, _I, _P],
+    # pos, hs, tse, valid, q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb,
+    # alpha, rc, rc2_c, e_shift, f_shift, kc (0-d device tensors), f, e, w,
+    # groups, m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2,
+    # coulomb, excl, bond, energy, stream
+    "emdee_streaming_forces_mol": [_P] * 12 + [_I, _I] + [_P] * 6 + [_P] * 4 + [_I, _I, _P] + [_F] * 8
+                                  + [_I, _I, _I, _I, _P],
     # fx, fy, fz, fstride, e, w, groups, num_slots, energy, stream
     "emdee_streaming_fold": [_P, _P, _P, _I, _P, _P, _P, _L, _I, _P],
     # in, out, flag, nf, m, c, axis, cf, num_slots, box (device), stream
@@ -75,6 +81,12 @@ _SIGNATURES = {
     "emdee_cell_forces_ghost": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _F,
                                 _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P],
+    # px, py, pz, hs, tse, q, aid, ids, mlj, mcs, ne, alpha, rc, rc2_c,
+    # e_shift, f_shift, kc (0-d device tensors), fx, fy, fz, e, w, mz, my,
+    # mx, shards, sy_n, sx_n, bz, by, bx, m, c, box (device), rc2, rs2,
+    # invd2, a_m, pa1, pa2, pb1, pb2, coulomb, excl, energy, stream
+    "emdee_cell_forces_ghost_mol": [_P] * 10 + [_I] + [_P] * 6 + [_P] * 5 + [_I] * 11 + [_P] + [_F] * 8
+                                   + [_I, _I, _I, _P],
     # x, wl, wr, b, out, flag, nf, rows, c, cf, m, num_slots, box (device),
     # stream
     "emdee_rebin_window": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P],

@@ -59,11 +59,21 @@
 // and no second exchange.  Plain version:
 // emdee_tpu_torch/neighbors/cell_kernel.py `ghost_forces_plain`.
 //
+// GHOST with COULOMB/EXCL (K2c-G: the molecular branches inside the grid's
+// per-shard pass, `_local_forces_pallas` :629-656 and `_local_energy_pallas`
+// :704-768 of grid_sharded.py), entered through
+// `emdee_cell_forces_ghost_mol`: the ghost grids also carry each slot's
+// charge and int32 atom id (−2 on empty slots), staged like the resident
+// mode's; the centre tags are per own slot; no bond tags (the grid keeps
+// its bonds as term rows, as the reference does).  The pair math and the
+// order of every sum are the per-atom path's, so the forces of any
+// decomposition equal the one-card K2c-q's bit for bit.
+//
 // COULOMB, EXCL, BOND (the molecular branches of `_build_pair_pass`: K2c-q,
 // `coulomb` :420-424, :525-551 and `excl_e`/`excl_cs` :459-488; K2c-b,
 // `excl_eb` :468-487, :502-523; centre tags as `_unpack_centers` :347 lays
-// them out), on the per-atom path (not STRAG, not GHOST), entered through
-// `emdee_cell_forces_mol`.  Each staged neighbour cell also brings its
+// them out), on the per-atom path (not STRAG), entered through
+// `emdee_cell_forces_mol` (and, without BOND, in GHOST mode above).  Each staged neighbour cell also brings its
 // charges and int32 atom ids to shared memory; each centre keeps its E ≤ 8
 // exclusion tags (partner atom id, 1 − s_LJ, 1 − s_C) and its first E_b
 // bond weights (k, k·r0, k·r0²) in registers and matches them on integer
@@ -72,7 +82,8 @@
 // − k·r0·r, masked to r² < rc² (periodic images of a partner drop out).
 // DSF Coulomb is the exact form with IEEE erfcf and expf, as the plain
 // `coulomb_interaction` (the reference's XLA path, not its degree-10 fit),
-// zero at r² ≥ rc_C²; its constants are read from 0-d device tensors.
+// zero at r² ≥ rc_C²; its constants are read from 0-d device tensors
+// (`emdee::mol_terms`, lj_pair.cuh, shared with the streaming kernel).
 // Pairs are skipped beyond the larger of the two squared cutoffs; LJ and
 // the bonds take only pairs inside rc².  Plain version: cell_dense.py
 // `cell_dense_forces(coulomb=, excl=)`.  At the 98,304-atom water box
@@ -99,6 +110,9 @@
 
 namespace {
 
+using emdee::Dsf;
+using emdee::kMaxTags;
+using emdee::Mol;
 using emdee::PairConsts;
 
 // GHOST geometry: local cells (mz, my, mx) per shard, the local shards'
@@ -106,20 +120,6 @@ using emdee::PairConsts;
 // (bz, by, bx) of the first local shard.
 struct Ghost {
   int mz, my, mx, sy_n, sx_n, bz, by, bx;
-};
-
-constexpr int kMaxTags = 8;  // E ≤ 8: the band rule of cell_dense_molecular.py
-constexpr float kTwoOverSqrtPi = 1.1283791670955126f;
-
-// The molecular operands: per-slot charges and int32 atom ids, the centre
-// tags (M³, C, ne) and bond weights (M³, C, neb), and the DSF constants as
-// pointers to 0-d device tensors.
-struct Mol {
-  const float* q;
-  const int* aid;
-  const float *ids, *mlj, *mcs, *kb, *kr0, *kr02;
-  int ne, neb;
-  const float *alpha, *rc, *rc2, *e_shift, *f_shift, *kc;
 };
 
 template <bool UNIFORM, bool ENERGY, bool STRAG, bool GHOST, bool COULOMB = false, bool EXCL = false,
@@ -195,20 +195,17 @@ __global__ void cell_forces_kernel(
   }
   float fxa = 0.f, fya = 0.f, fza = 0.f, ea = 0.f, wa = 0.f;
 
-  // Molecular centre operands: charge, tags and bond weights in registers.
-  float qi = 0.f, c_alpha = 0.f, c_rc = 0.f, c_rc2 = 0.f, c_eshift = 0.f, c_fshift = 0.f, c_kc = 0.f;
+  // Molecular centre operands: charge, tags and bond weights in registers
+  // (GHOST: the charge from the ghost grid's interior, the tags per own slot).
+  float qi = 0.f;
+  Dsf dsf{};
   int tid[kMaxTags];
   float tmlj[kMaxTags], tmcs[kMaxTags], tkb[kMaxTags], tkr0[kMaxTags], tkr02[kMaxTags];
   float cut2 = k.rc2;
   if (COULOMB) {
-    c_alpha = *mol.alpha;
-    c_rc = *mol.rc;
-    c_rc2 = *mol.rc2;
-    c_eshift = *mol.e_shift;
-    c_fshift = *mol.f_shift;
-    c_kc = *mol.kc;
-    cut2 = fmaxf(cut2, c_rc2);
-    if (center) qi = mol.q[own];
+    dsf = emdee::load_dsf(mol);
+    cut2 = fmaxf(cut2, dsf.rc2);
+    if (center) qi = mol.q[in_own];
   }
 #pragma unroll
   for (int t = 0; t < kMaxTags; ++t) {
@@ -304,23 +301,8 @@ __global__ void cell_forces_kernel(
             tot = emdee::switched_tot(r2, t6, s6, k, t12, x);
             if (ENERGY) esum = (t12 - t6) * (1.f + (x * x * x) * ((-6.f * x + 15.f) * x - 10.f));
           }
-          if (COULOMB || BOND) {
-            const float r = sqrtf(r2);
-            if (COULOMB && r2 < c_rc2) {
-              const float ri = 1.0f / r;
-              const float ar = c_alpha * r;
-              const float erfc_ar = erfcf(ar);
-              const float gauss = kTwoOverSqrtPi * c_alpha * expf(-ar * ar);
-              const float g_r = erfc_ar * ri * ri + gauss * ri;
-              const float qq = c_kc * qi * sq[j] * csc;
-              tot += qq * r * (g_r - c_fshift);
-              if (ENERGY) esum += qq * (erfc_ar * ri - c_eshift + c_fshift * (r - c_rc));
-            }
-            if (BOND && in_lj) {
-              tot += kr0m * r - kbm * r2;
-              if (ENERGY) esum += 0.5f * (kbm * r2 + kr02m) - kr0m * r;
-            }
-          }
+          emdee::mol_terms<COULOMB, BOND, ENERGY>(r2, in_lj, COULOMB ? dsf.kc * qi * sq[j] * csc : 0.f, dsf, kbm,
+                                                  kr0m, kr02m, tot, esum);
           const float gf = tot * rinv;
           fxa += gf * dvx;
           fya += gf * dvy;
@@ -395,6 +377,21 @@ void launch_mol(const float* px, const float* hs, const float* tse, const uint8_
   cell_forces_kernel<false, ENERGY, false, false, COULOMB, EXCL, BOND><<<m * m * m, threads, smem, stream>>>(
       px, px + 1, px + 2, 3, hs, tse, valid, f, f + 1, f + 2, 3, e, w, nullptr, nullptr, nullptr, nullptr, 0,
       m, c, box, k, Ghost{}, mol);
+}
+
+// The GHOST mode's molecular variants (K2c-G): per-atom parameters; the
+// charges and the int32 atom ids (a bit view in the float32 ghost stack)
+// from the ghost grids, the centre tags per own slot; no bond tags (the
+// grid keeps its bonds as term rows).
+template <bool ENERGY, bool COULOMB, bool EXCL>
+void launch_ghost_mol(const float* px, const float* py, const float* pz, const float* hs, const float* tse,
+                      float* fx, float* fy, float* fz, float* e, float* w, int m, int c, const float* box,
+                      const PairConsts& k, const Ghost& g, int blocks, const Mol& mol, cudaStream_t stream) {
+  const int threads = ((c + 31) / 32) * 32;
+  const size_t smem = sizeof(float) * 7 * c + c;
+  cell_forces_kernel<false, ENERGY, false, true, COULOMB, EXCL, false><<<blocks, threads, smem, stream>>>(
+      px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, nullptr, nullptr, nullptr, nullptr, 0, m, c, box, k,
+      g, mol);
 }
 
 template <bool ENERGY>
@@ -509,5 +506,42 @@ extern "C" int emdee_cell_forces_ghost(
   else
     launch<false, false, false, true>(px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, m, c, box, k, s,
                                       nullptr, nullptr, nullptr, nullptr, 0, g, blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The GHOST mode's molecular entry (K2c-G): the ghost grids as in
+// `emdee_cell_forces_ghost` with per-atom parameters, plus q (the charges)
+// with `coulomb` and aid (int32 atom ids, −2 on empty slots) with `excl`,
+// each (shards, mz+2, my+2, mx+2, C); the centre tags ids, mlj, mcs
+// (shards, mz, my, mx, C, ne) with `excl` (mcs only with `coulomb`); the
+// DSF constants' device pointers with `coulomb`.
+extern "C" int emdee_cell_forces_ghost_mol(
+    const float* px, const float* py, const float* pz, const float* hs, const float* tse, const float* q,
+    const int* aid, const float* ids, const float* mlj, const float* mcs, int ne, const float* alpha,
+    const float* rc, const float* rc2_c, const float* e_shift, const float* f_shift, const float* kc, float* fx,
+    float* fy, float* fz, float* e, float* w, int mz, int my, int mx, int shards, int sy_n, int sx_n, int bz,
+    int by, int bx, int m, int c, const float* box, float rc2, float rs2, float invd2, float a_m, float pa1,
+    float pa2, float pb1, float pb2, int coulomb, int excl, int energy, void* stream) {
+  if (m < 3 || c < 1 || c > 1024 || mz < 1 || my < 1 || mx < 1 || shards < 1 || sy_n < 1 || sx_n < 1 ||
+      shards % (sy_n * sx_n) != 0 || (!coulomb && !excl) || (excl && (ne < 1 || ne > kMaxTags)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
+  const Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx};
+  const Mol mol{q, aid, ids, mlj, mcs, nullptr, nullptr, nullptr, excl ? ne : 0, 0,
+                alpha, rc, rc2_c, e_shift, f_shift, kc};
+  const int blocks = shards * mz * my * mx;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define EMDEE_GHOST_MOL(EN, CO, EX) \
+  launch_ghost_mol<EN, CO, EX>(px, py, pz, hs, tse, fx, fy, fz, e, w, m, c, box, k, g, blocks, mol, s)
+  if (energy) {
+    if (coulomb && excl) EMDEE_GHOST_MOL(true, true, true);
+    else if (coulomb) EMDEE_GHOST_MOL(true, true, false);
+    else EMDEE_GHOST_MOL(true, false, true);
+  } else {
+    if (coulomb && excl) EMDEE_GHOST_MOL(false, true, true);
+    else if (coulomb) EMDEE_GHOST_MOL(false, true, false);
+    else EMDEE_GHOST_MOL(false, false, true);
+  }
+#undef EMDEE_GHOST_MOL
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,8 +26,8 @@
 // W steps every lane has met every packet and each packet is back on its own
 // lane with −Σᵢ f_ij summed in a fixed order.  At 1M a cell holds ~20 atoms
 // in its 32 slots, so a cell pair takes ~22 steps, not 32.  Capacities
-// above 32 take a second centre slot per lane and a second packet chunk
-// (C ≤ 64).
+// above 32 take a second centre slot per lane and a second packet chunk,
+// above 64 a third (C ≤ 96: the water boxes need C = 80 and 88).
 //
 // No float atomics.  Each block owns the centre accumulators of its pencil
 // and one reaction row per group in shared memory.  Within a phase the map
@@ -60,6 +60,29 @@
 // Numerics: the Horner form of the switched −r·dE/dr in r² with an exact
 // IEEE 1/r² (no fast math), pairs at r² ≥ rc² skipped, as in cell_forces.cu.
 //
+// COULOMB, EXCL, BOND (K5c: the streaming kernel's molecular branches,
+// `_make_streaming_kernel` :1185-1250 with `names` + q, aid and the centre
+// tags and bond weights of `_unpack_centers` :347; entry
+// `pallas_cell_forces_streaming` :1417-1500), through
+// `emdee_streaming_forces_mol`: per-atom parameters, the stacked state.
+// The tiles also carry each live slot's charge and int32 atom id, and the
+// packets take them round the ring (a ring lane past the live packets
+// carries atom id −2, which no tag holds).  The centre's E ≤ 8 tags (atom
+// id, 1 − s_LJ, 1 − s_C) and E_b bond weights (k, k·r0, k·r0²) are staged
+// per warp in shared memory, tag-major so that the lanes read consecutive
+// words: held in registers they would take 3 centre slots × 8 tags × 6
+// values a lane.  Each lane stages and reads only its own centre entries,
+// so the staging needs no barrier.  A pair matches the centre's tags
+// against the packet's atom id only: the tables are symmetric (a pair sits
+// in both atoms' rows with the same weights), so the scale is the one the
+// full shell gives from either side, and a bond is evaluated once, its
+// reaction on the packet.  The pair math is K2c's (`emdee::mol_terms`,
+// lj_pair.cuh): DSF in the exact erfcf/expf form with its constants read
+// from 0-d device tensors, the bond only inside the LJ cutoff, pairs
+// skipped beyond the larger of the two cutoffs.  Per-slot ½E and ½W go half
+// to the centre and half to the reaction row, as K5 does.  The plain
+// version is K2c's, `cell_dense_forces(coulomb=, excl=)`.
+//
 // Bound on this card: at the 1,000,188-atom melt (M = 37, C = 32) the ring
 // loop runs ~50,653 × 14 × 22 steps of 32 lanes, about 60% of the lanes
 // live, and ~27 M of the pairs lie inside the cutoff: ~1.4 GFLOP, ~0.02 ms
@@ -68,7 +91,9 @@
 // written once and read back by the fold) ~0.05 ms.  The launch pair takes
 // ~1.3 ms (chip_smoke.py): the candidate loop's instruction rate and
 // latency set it, not bytes or arithmetic; the same holds for the
-// full-shell kernel.
+// full-shell kernel.  At the 98,304-atom water box (M = 12, C = 80) K5c's
+// unique pairs inside the cutoff each pay an erfc, an exp, a square root
+// and 3E tag operations; chip_smoke.py counts them and gives the bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,13 +102,16 @@
 
 namespace {
 
+using emdee::Dsf;
+using emdee::kMaxTags;
+using emdee::Mol;
 using emdee::PairConsts;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kGroups = 4;  // row groups written to the scratch array
+constexpr int kMaxCapacity = 96;  // three centre slots per lane
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTile = 64;  // entries of a warp's cell tile (C ≤ 64)
 // The row groups (dz, dy) in fold order; the own row (0, 0) comes last.
 __constant__ int kGroupDz[kGroups] = {0, 1, 1, 1};
 __constant__ int kGroupDy[kGroups] = {1, -1, 0, 1};
@@ -98,9 +126,29 @@ struct Fields {
   const uint8_t* valid;
 };
 
-// Centre sums and one reaction row of a pencil, (2, n_r, M·C) float32, then
-// each warp's two cell tiles.
-size_t smem_bytes(int m, int c, bool energy);
+// Entries of a warp's cell tile: 64 up to two centre slots a lane (the LJ
+// kernel's tile since K5), 96 with three.
+template <int NA>
+__host__ __device__ constexpr int tile_entries() {
+  return NA <= 2 ? 64 : 96;
+}
+
+// A warp's compacted copy of one cell: the live slots' fields in slot
+// order at entries 0 … n−1 — x, y, z, σ/2, 2√ε and, with the molecular
+// terms (NF = 7), the charge and the atom id's bits — and each entry's slot.
+template <int NT, int NF>
+struct Tile {
+  float f[NF][NT];
+  int slot[NT];
+};
+
+// Floats of a warp's staged centre tags: per entry, three values for each
+// exclusion tag and each bond tag.
+__host__ __device__ constexpr int tag_floats(int nt, int ne, int neb) { return 3 * (ne + neb) * nt; }
+
+// Centre sums and one reaction row of a pencil, (2, n_r, M·C) float32, each
+// warp's two cell tiles and, with EXCL, its staged centre tags.
+size_t smem_bytes(int m, int c, bool energy, bool mol, int ne, int neb);
 
 __device__ __forceinline__ int wrap(int v, int m, const float* __restrict__ box, float& shift) {
   shift = 0.f;
@@ -109,17 +157,10 @@ __device__ __forceinline__ int wrap(int v, int m, const float* __restrict__ box,
   return v;
 }
 
-// A warp's compacted copy of one cell: the live slots' fields in slot
-// order at entries 0 … n−1, and each entry's slot.
-struct Tile {
-  float f[5][kTile];  // x, y, z, σ/2, 2√ε
-  int slot[kTile];
-};
-
 // Compact cell `cell`'s live slots into `t` (ballot ranks, slot order);
 // returns their count.  The caller brackets it with warp barriers.
-template <int NA, bool UNIFORM>
-__device__ __forceinline__ int compact(const Fields& f, long cell, int c, Tile& t) {
+template <int NA, int NT, int NF, bool UNIFORM>
+__device__ __forceinline__ int compact(const Fields& f, const Mol& mol, long cell, int c, Tile<NT, NF>& t) {
   const int lane = threadIdx.x & 31;
   int n = 0;
 #pragma unroll
@@ -137,6 +178,10 @@ __device__ __forceinline__ int compact(const Fields& f, long cell, int c, Tile& 
         t.f[3][e] = f.hs[s];
         t.f[4][e] = f.tse[s];
       }
+      if constexpr (NF > 5) {
+        t.f[5][e] = mol.q ? mol.q[s] : 0.f;
+        t.f[6][e] = __int_as_float(mol.aid ? mol.aid[s] : -2);
+      }
       t.slot[e] = j;
     }
     n += __popc(mask);
@@ -144,25 +189,60 @@ __device__ __forceinline__ int compact(const Fields& f, long cell, int c, Tile& 
   return n;
 }
 
-// All pairs of centre cell `cen` with neighbour cell `nb` (shifted by
-// (shx, shy, shz)) for one warp, through its two tiles.  Centre sums go to
-// cen_acc[k·mc + x·C + i]; with REACT, the reaction sums go to
-// row[k·mc + nx·C + j].
-template <int NA, bool UNIFORM, bool ENERGY, bool REACT>
-__device__ __forceinline__ void cell_pair(const Fields& f, long cen, long nb, int c, int x,
-                                          int nx, float shx, float shy, float shz, int mc,
-                                          float* cen_acc, float* row, Tile* tiles,
-                                          const PairConsts& k) {
+// Stage the tags of this lane's centre entries 32a + lane (a < NA) of
+// tile `t` (cell `cell`, `n` live entries), tag-major: tags[(3u + v)·NT +
+// e] holds tag u's atom id bits, 1 − s_LJ, 1 − s_C (v = 0, 1, 2), and
+// tags[(3(ne + u) + v)·NT + e] bond tag u's k, k·r0, k·r0².
+template <int NA, int NT, bool COULOMB, bool BOND, bool ENERGY>
+__device__ __forceinline__ void stage_tags(const Mol& mol, long cell, int c, const Tile<NT, 7>& t, int n,
+                                           float* tags) {
   const int lane = threadIdx.x & 31;
-  Tile& tc = tiles[0];
-  Tile& tn = REACT ? tiles[1] : tiles[0];  // the self pass pairs a cell with itself
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    const int e = 32 * a + lane;
+    if (e >= n) break;
+    const long s = cell * c + t.slot[e];
+    for (int u = 0; u < mol.ne; ++u) {
+      const long at = s * mol.ne + u;
+      tags[(3 * u) * NT + e] = __int_as_float(__float2int_rn(mol.ids[at]));
+      tags[(3 * u + 1) * NT + e] = mol.mlj[at];
+      if (COULOMB) tags[(3 * u + 2) * NT + e] = mol.mcs[at];
+    }
+    if (BOND) {
+      for (int u = 0; u < mol.neb; ++u) {
+        const long at = s * mol.neb + u;
+        float* b = tags + 3 * (mol.ne + u) * NT + e;
+        b[0] = mol.kb[at];
+        b[NT] = mol.kr0[at];
+        if (ENERGY) b[2 * NT] = mol.kr02[at];
+      }
+    }
+  }
+}
+
+// All pairs of centre cell `cen` with neighbour cell `nb` (shifted by
+// (shx, shy, shz)) for one warp, through its two tiles (and, with EXCL,
+// its tag tile).  Centre sums go to cen_acc[k·mc + x·C + i]; with REACT,
+// the reaction sums go to row[k·mc + nx·C + j].
+template <int NA, bool UNIFORM, bool ENERGY, bool REACT, bool COULOMB, bool EXCL, bool BOND>
+__device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const Dsf& dsf, float cut2, long cen,
+                                          long nb, int c, int x, int nx, float shx, float shy, float shz, int mc,
+                                          float* cen_acc, float* row,
+                                          Tile<tile_entries<NA>(), (COULOMB || EXCL) ? 7 : 5>* tiles,
+                                          float* tags, const PairConsts& k) {
+  constexpr int NT = tile_entries<NA>();
+  constexpr bool MOL = COULOMB || EXCL;
+  const int lane = threadIdx.x & 31;
+  auto& tc = tiles[0];
+  auto& tn = REACT ? tiles[1] : tiles[0];  // the self pass pairs a cell with itself
   __syncwarp();  // the previous cell pair's reads of the tiles are done
-  const int n_cen = compact<NA, UNIFORM>(f, cen, c, tc);
-  const int n_nb = REACT ? compact<NA, UNIFORM>(f, nb, c, tn) : n_cen;
+  const int n_cen = compact<NA, NT, MOL ? 7 : 5, UNIFORM>(f, mol, cen, c, tc);
+  const int n_nb = REACT ? compact<NA, NT, MOL ? 7 : 5, UNIFORM>(f, mol, nb, c, tn) : n_cen;
   __syncwarp();
   if (n_cen == 0 || n_nb == 0) return;
+  if constexpr (EXCL) stage_tags<NA, NT, COULOMB, BOND, ENERGY>(mol, cen, c, tc, n_cen, tags);
 
-  float xi[NA], yi[NA], zi[NA], hsi[NA], tsei[NA];
+  float xi[NA], yi[NA], zi[NA], hsi[NA], tsei[NA], qi[NA];
   bool vi[NA];
   float fxa[NA], fya[NA], fza[NA], ea[NA], wa[NA];
 #pragma unroll
@@ -174,6 +254,8 @@ __device__ __forceinline__ void cell_pair(const Fields& f, long cen, long nb, in
     zi[a] = vi[a] ? tc.f[2][e] : 0.f;
     hsi[a] = (!UNIFORM && vi[a]) ? tc.f[3][e] : 0.f;
     tsei[a] = (!UNIFORM && vi[a]) ? tc.f[4][e] : 0.f;
+    qi[a] = 0.f;
+    if constexpr (COULOMB) qi[a] = vi[a] ? tc.f[5][e] : 0.f;
     fxa[a] = fya[a] = fza[a] = ea[a] = wa[a] = 0.f;
   }
   const int ring_cen = min(n_cen, 32);  // live centre lanes of the fullest chunk
@@ -191,6 +273,12 @@ __device__ __forceinline__ void cell_pair(const Fields& f, long cen, long nb, in
     float nzp = vj ? tn.f[2][e] : nan;
     float nhs = (!UNIFORM && vj) ? tn.f[3][e] : 0.f;
     float ntse = (!UNIFORM && vj) ? tn.f[4][e] : 0.f;
+    float nq = 0.f;
+    int naid = -2;
+    if constexpr (MOL) {
+      nq = vj ? tn.f[5][e] : 0.f;
+      naid = vj ? __float_as_int(tn.f[6][e]) : -2;
+    }
     float rx = 0.f, ry = 0.f, rz = 0.f, re = 0.f, rw = 0.f;
     // Lane l takes the packet of lane l+1 round the ring: after `step`
     // rotations lane l holds entry 32b + (l + step) mod ring, and after
@@ -206,21 +294,45 @@ __device__ __forceinline__ void cell_pair(const Fields& f, long cen, long nb, in
         const float dvy = (yi[a] - nyp) - shy;
         const float dvz = (zi[a] - nzp) - shz;
         const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
-        if (!(r2 < k.rc2)) continue;
+        if (!(r2 < cut2)) continue;
         const float rinv = 1.0f / r2;
-        float t6, s6;
-        if (UNIFORM) {
-          const float s2 = k.sig2_u * rinv;
-          s6 = s2 * s2 * s2;
-          t6 = k.eps4_u * s6;
-        } else {
-          const float sig = hsi[a] + nhs;
-          const float s2 = sig * sig * rinv;
-          s6 = s2 * s2 * s2;
-          t6 = (tsei[a] * ntse) * s6;
+        // Tag matches: the LJ and Coulomb scales and the bond weights.
+        float ljsc = 1.f, csc = 1.f, kbm = 0.f, kr0m = 0.f, kr02m = 0.f;
+        if (EXCL) {
+          const float* tg = tags + 32 * a + lane;
+          for (int u = 0; u < mol.ne; ++u) {
+            if (__float_as_int(tg[(3 * u) * NT]) != naid) continue;
+            ljsc -= tg[(3 * u + 1) * NT];
+            if (COULOMB) csc -= tg[(3 * u + 2) * NT];
+            if (BOND && u < mol.neb) {
+              const float* bw = tg + 3 * (mol.ne + u) * NT;
+              kbm += bw[0];
+              kr0m += bw[NT];
+              if (ENERGY) kr02m += bw[2 * NT];
+            }
+          }
         }
-        float t12, xs;
-        const float tot = emdee::switched_tot(r2, t6, s6, k, t12, xs);
+        float tot = 0.f, esum = 0.f;
+        const bool in_lj = !COULOMB || r2 < k.rc2;  // cut2 is rc² without COULOMB
+        if (in_lj) {
+          float t6, s6;
+          if (UNIFORM) {
+            const float s2 = k.sig2_u * rinv;
+            s6 = s2 * s2 * s2;
+            t6 = k.eps4_u * s6;
+          } else {
+            const float sig = hsi[a] + nhs;
+            const float s2 = sig * sig * rinv;
+            s6 = s2 * s2 * s2;
+            t6 = (tsei[a] * ntse) * s6;
+          }
+          if (EXCL) t6 *= ljsc;
+          float t12, xs;
+          tot = emdee::switched_tot(r2, t6, s6, k, t12, xs);
+          if (ENERGY) esum = (t12 - t6) * (1.f + (xs * xs * xs) * ((-6.f * xs + 15.f) * xs - 10.f));
+        }
+        emdee::mol_terms<COULOMB, BOND, ENERGY>(r2, in_lj, COULOMB ? dsf.kc * qi[a] * nq * csc : 0.f, dsf, kbm,
+                                                kr0m, kr02m, tot, esum);
         const float gf = tot * rinv;
         const float gx = gf * dvx, gy = gf * dvy, gz = gf * dvz;
         fxa[a] += gx;
@@ -232,8 +344,7 @@ __device__ __forceinline__ void cell_pair(const Fields& f, long cen, long nb, in
           rz -= gz;
         }
         if (ENERGY) {
-          const float gsw = 1.f + (xs * xs * xs) * ((-6.f * xs + 15.f) * xs - 10.f);
-          const float he = 0.5f * ((t12 - t6) * gsw);
+          const float he = 0.5f * esum;
           const float hw = 0.5f * tot;
           ea[a] += he;
           wa[a] += hw;
@@ -250,6 +361,8 @@ __device__ __forceinline__ void cell_pair(const Fields& f, long cen, long nb, in
         nhs = __shfl_sync(kFull, nhs, from);
         ntse = __shfl_sync(kFull, ntse, from);
       }
+      if (COULOMB) nq = __shfl_sync(kFull, nq, from);
+      if (EXCL) naid = __shfl_sync(kFull, naid, from);
       if (REACT) {
         rx = __shfl_sync(kFull, rx, from);
         ry = __shfl_sync(kFull, ry, from);
@@ -285,30 +398,40 @@ __device__ __forceinline__ void cell_pair(const Fields& f, long cen, long nb, in
   }
 }
 
-template <int NA, bool UNIFORM, bool ENERGY>
+template <int NA, bool UNIFORM, bool ENERGY, bool COULOMB, bool EXCL, bool BOND>
 __global__ void __launch_bounds__(kThreads)
-    streaming_kernel(Fields f, float* __restrict__ fx, float* __restrict__ fy,
+    streaming_kernel(Fields f, Mol mol, float* __restrict__ fx, float* __restrict__ fy,
                      float* __restrict__ fz, int fstride, float* __restrict__ e_out,
                      float* __restrict__ w_out, float* __restrict__ groups, int m, int c,
                      const float* __restrict__ box_ptr, PairConsts k) {
   constexpr int NR = ENERGY ? 5 : 3;
+  constexpr int NT = tile_entries<NA>();
+  using TileT = Tile<NT, (COULOMB || EXCL) ? 7 : 5>;
   extern __shared__ float smem[];
   const int mc = m * c;
   float* cen_acc = smem;        // (NR, M·C) centre sums of this pencil
   float* row = smem + NR * mc;  // (NR, M·C) one group's reaction row
   const int warp = threadIdx.x >> 5;
-  Tile* tiles = reinterpret_cast<Tile*>(smem + 2 * NR * mc) + 2 * warp;  // this warp's two
+  TileT* tiles = reinterpret_cast<TileT*>(smem + 2 * NR * mc);
+  float* tags = reinterpret_cast<float*>(tiles + 2 * kWarps) + warp * tag_floats(NT, mol.ne, mol.neb);
+  tiles += 2 * warp;  // this warp's two
   const int z = blockIdx.x / m, y = blockIdx.x % m;
   const long pencil = static_cast<long>(blockIdx.x) * m;  // cell id of x = 0
   const long ns = static_cast<long>(m) * m * mc;
+  Dsf dsf{};
+  float cut2 = k.rc2;
+  if (COULOMB) {
+    dsf = emdee::load_dsf(mol);
+    cut2 = fmaxf(cut2, dsf.rc2);
+  }
 
   for (int t = threadIdx.x; t < 2 * NR * mc; t += kThreads) smem[t] = 0.f;
   __syncthreads();
 
   // Self cell: every ordered pair, no reaction.
   for (int x = warp; x < m; x += kWarps)
-    cell_pair<NA, UNIFORM, ENERGY, false>(f, pencil + x, pencil + x, c, x, x, 0.f, 0.f, 0.f,
-                                          mc, cen_acc, row, tiles, k);
+    cell_pair<NA, UNIFORM, ENERGY, false, COULOMB, EXCL, BOND>(f, mol, dsf, cut2, pencil + x, pencil + x, c, x, x,
+                                                                0.f, 0.f, 0.f, mc, cen_acc, row, tiles, tags, k);
 
   for (int g = 0; g <= kGroups; ++g) {
     const bool own = g == kGroups;  // the own row (0, 0): dx = +1 only
@@ -320,8 +443,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int x = warp; x < m; x += kWarps) {
         float shx;
         const int nx = wrap(x + dx, m, box_ptr, shx);
-        cell_pair<NA, UNIFORM, ENERGY, true>(f, pencil + x, nrow * m + nx, c, x, nx, shx, shy,
-                                             shz, mc, cen_acc, row, tiles, k);
+        cell_pair<NA, UNIFORM, ENERGY, true, COULOMB, EXCL, BOND>(f, mol, dsf, cut2, pencil + x, nrow * m + nx, c,
+                                                                   x, nx, shx, shy, shz, mc, cen_acc, row, tiles,
+                                                                   tags, k);
       }
       __syncthreads();
     }
@@ -361,16 +485,24 @@ __global__ void fold_kernel(float* fx, float* fy, float* fz, int fstride, float*
   }
 }
 
-size_t smem_bytes(int m, int c, bool energy) {
+int centre_slots(int c) { return c <= 32 ? 1 : (c <= 64 ? 2 : 3); }
+
+size_t smem_bytes(int m, int c, bool energy, bool mol, int ne, int neb) {
+  const int na = centre_slots(c);
+  const int nt = na <= 2 ? 64 : 96;
+  const int nf = mol ? 7 : 5;
   return sizeof(float) * 2 * (energy ? 5 : 3) * static_cast<size_t>(m) * c +
-         sizeof(Tile) * 2 * kWarps;
+         sizeof(float) * (nf + 1) * nt * 2 * kWarps + sizeof(float) * tag_floats(nt, ne, neb) * kWarps;
 }
 
-template <int NA, bool UNIFORM, bool ENERGY>
-int launch(const Fields& f, float* fx, float* fy, float* fz, int fstride, float* e, float* w,
+template <int NA, bool UNIFORM, bool ENERGY, bool COULOMB = false, bool EXCL = false, bool BOND = false>
+int launch(const Fields& f, const Mol& mol, float* fx, float* fy, float* fz, int fstride, float* e, float* w,
            float* groups, int m, int c, const float* box, const PairConsts& k, cudaStream_t stream) {
-  const size_t smem = smem_bytes(m, c, ENERGY);
-  auto kernel = streaming_kernel<NA, UNIFORM, ENERGY>;
+  static_assert(sizeof(Tile<tile_entries<NA>(), (COULOMB || EXCL) ? 7 : 5>) ==
+                    sizeof(float) * (((COULOMB || EXCL) ? 7 : 5) + 1) * tile_entries<NA>(),
+                "smem_bytes counts the tiles as packed floats");
+  const size_t smem = smem_bytes(m, c, ENERGY, COULOMB || EXCL, mol.ne, mol.neb);
+  auto kernel = streaming_kernel<NA, UNIFORM, ENERGY, COULOMB, EXCL, BOND>;
   static size_t smem_allowed = 48 * 1024;  // raised once per variant, not per launch
   if (smem > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -378,7 +510,7 @@ int launch(const Fields& f, float* fx, float* fy, float* fz, int fstride, float*
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
   }
-  kernel<<<m * m, kThreads, smem, stream>>>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k);
+  kernel<<<m * m, kThreads, smem, stream>>>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -386,10 +518,33 @@ template <int NA>
 int dispatch(const Fields& f, float* fx, float* fy, float* fz, int fstride, float* e, float* w,
              float* groups, int m, int c, const float* box, const PairConsts& k, int uniform,
              int energy, cudaStream_t s) {
-  if (uniform && energy) return launch<NA, true, true>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
-  if (uniform) return launch<NA, true, false>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
-  if (energy) return launch<NA, false, true>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
-  return launch<NA, false, false>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
+  const Mol mol{};
+  if (uniform && energy) return launch<NA, true, true>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
+  if (uniform) return launch<NA, true, false>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
+  if (energy) return launch<NA, false, true>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
+  return launch<NA, false, false>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
+}
+
+// The molecular variants: per-atom parameters, the flag sets of K2c.
+template <int NA, bool ENERGY>
+int dispatch_mol_e(int coulomb, int excl, int bond, const Fields& f, const Mol& mol, float* fo, float* e, float* w,
+                 float* groups, int m, int c, const float* box, const PairConsts& k, cudaStream_t s) {
+#define EMDEE_K5C(CO, EX, BO) \
+  launch<NA, false, ENERGY, CO, EX, BO>(f, mol, fo, fo + 1, fo + 2, 3, e, w, groups, m, c, box, k, s)
+  if (coulomb && bond) return EMDEE_K5C(true, true, true);
+  if (coulomb && excl) return EMDEE_K5C(true, true, false);
+  if (coulomb) return EMDEE_K5C(true, false, false);
+  if (bond) return EMDEE_K5C(false, true, true);
+  return EMDEE_K5C(false, true, false);
+#undef EMDEE_K5C
+}
+
+template <int NA>
+int dispatch_mol(int coulomb, int excl, int bond, int energy, const Fields& f, const Mol& mol, float* fo,
+                 float* e, float* w, float* groups, int m, int c, const float* box, const PairConsts& k,
+                 cudaStream_t s) {
+  if (energy) return dispatch_mol_e<NA, true>(coulomb, excl, bond, f, mol, fo, e, w, groups, m, c, box, k, s);
+  return dispatch_mol_e<NA, false>(coulomb, excl, bond, f, mol, fo, e, w, groups, m, c, box, k, s);
 }
 
 }  // namespace
@@ -402,13 +557,47 @@ extern "C" int emdee_streaming_forces(
     float* e, float* w, float* groups, int m, int c, const float* box, float rc2, float rs2,
     float invd2, float a_m, float pa1, float pa2, float pb1, float pb2, float sig2_u,
     float eps4_u, int uniform, int energy, void* stream) {
-  const size_t smem = smem_bytes(m, c, energy);
-  if (m < 3 || c < 1 || c > 64 || smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(m, c, energy, false, 0, 0);
+  if (m < 3 || c < 1 || c > kMaxCapacity || smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
   const Fields f{px, py, pz, pstride, hs, tse, valid};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c <= 32) return dispatch<1>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, uniform, energy, s);
-  return dispatch<2>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, uniform, energy, s);
+  switch (centre_slots(c)) {
+    case 1: return dispatch<1>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, uniform, energy, s);
+    case 2: return dispatch<2>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, uniform, energy, s);
+    default: return dispatch<3>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, uniform, energy, s);
+  }
+}
+
+// The molecular pair pass (K5c): stacked positions and forces (M³, C, 3),
+// per-atom (σ/2, 2√ε), optional per-slot energies and virials; q (M³, C)
+// charges and the DSF constants' device pointers with `coulomb`; aid (M³,
+// C) int32 atom ids and the tags (M³, C, ne) with `excl` (mcs only with
+// `coulomb`); the bond weights (M³, C, neb) with `bond` (kr02 only with
+// `energy`).  The reaction rows go to `groups` as in the LJ entry, and
+// `emdee_streaming_fold` (fstride 3) adds them.
+extern "C" int emdee_streaming_forces_mol(
+    const float* pos, const float* hs, const float* tse, const uint8_t* valid, const float* q,
+    const int* aid, const float* ids, const float* mlj, const float* mcs, const float* kb,
+    const float* kr0, const float* kr02, int ne, int neb, const float* alpha, const float* rc,
+    const float* rc2_c, const float* e_shift, const float* f_shift, const float* kc, float* f, float* e,
+    float* w, float* groups, int m, int c, const float* box, float rc2, float rs2, float invd2, float a_m,
+    float pa1, float pa2, float pb1, float pb2, int coulomb, int excl, int bond, int energy, void* stream) {
+  if (!excl) ne = 0;
+  if (!bond) neb = 0;
+  const size_t smem = smem_bytes(m, c, energy, true, ne, neb);
+  if (m < 3 || c < 1 || c > kMaxCapacity || smem > 232448 || (!coulomb && !excl) || (bond && !excl) ||
+      (excl && (ne < 1 || ne > kMaxTags)) || (bond && (neb < 1 || neb > ne)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
+  const Fields fl{pos, pos + 1, pos + 2, 3, hs, tse, valid};
+  const Mol mol{q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb, alpha, rc, rc2_c, e_shift, f_shift, kc};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (centre_slots(c)) {
+    case 1: return dispatch_mol<1>(coulomb, excl, bond, energy, fl, mol, f, e, w, groups, m, c, box, k, s);
+    case 2: return dispatch_mol<2>(coulomb, excl, bond, energy, fl, mol, f, e, w, groups, m, c, box, k, s);
+    default: return dispatch_mol<3>(coulomb, excl, bond, energy, fl, mol, f, e, w, groups, m, c, box, k, s);
+  }
 }
 
 // The fold: adds the four reaction slices to the outputs in place.

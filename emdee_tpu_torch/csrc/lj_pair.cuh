@@ -1,7 +1,9 @@
 // Pair math shared by the port's force kernels (cell_forces.cu,
-// straggler_forces.cu): the constants of the switched 12-6 Lennard-Jones
-// pair term, its Horner form, the uniform-parameter force factor, and the
-// minimum image of a raw difference.
+// cell_forces_streaming.cu, straggler_forces.cu): the constants of the
+// switched 12-6 Lennard-Jones pair term, its Horner form, the
+// uniform-parameter force factor, the minimum image of a raw difference,
+// and the molecular terms (DSF Coulomb and tag-borne harmonic bonds) of the
+// K2c and K5c variants.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,6 +43,56 @@ __device__ __forceinline__ float uniform_force_factor(float r2, const PairConsts
   const float s6 = s2 * s2 * s2;
   float t12, x;
   return switched_tot(r2, k.eps4_u * s6, s6, k, t12, x) * rinv;
+}
+
+constexpr int kMaxTags = 8;  // E ≤ 8: the band rule of cell_dense_molecular.py
+constexpr float kTwoOverSqrtPi = 1.1283791670955126f;
+
+// The molecular operands: per-slot charges and int32 atom ids, the centre
+// tags (…, C, ne) and bond weights (…, C, neb), and the DSF constants as
+// pointers to 0-d device tensors.
+struct Mol {
+  const float* q;
+  const int* aid;
+  const float *ids, *mlj, *mcs, *kb, *kr0, *kr02;
+  int ne, neb;
+  const float *alpha, *rc, *rc2, *e_shift, *f_shift, *kc;
+};
+
+// The DSF constants, read from the device once per thread.
+struct Dsf {
+  float alpha, rc, rc2, e_shift, f_shift, kc;
+};
+
+__device__ __forceinline__ Dsf load_dsf(const Mol& mol) {
+  return Dsf{*mol.alpha, *mol.rc, *mol.rc2, *mol.e_shift, *mol.f_shift, *mol.kc};
+}
+
+// The molecular terms of one pair at r² below the larger cutoff, added to
+// tot = −r·dE/dr and, with ENERGY, to esum: DSF Coulomb in its exact form
+// (IEEE erfcf and expf, as the plain `coulomb_interaction`), zero at r² ≥
+// rc_C², with qq = kC·qᵢ·qⱼ·(1 − Σ mcs); and the harmonic bond of the
+// tag-matched weights (kbm, kr0m, kr02m), −r·dE/dr = kr0·r − kb·r² and E =
+// ½(kb·r² + kr02) − kr0·r, only inside the LJ cutoff (`in_lj`), so that
+// periodic images of a partner drop out.
+template <bool COULOMB, bool BOND, bool ENERGY>
+__device__ __forceinline__ void mol_terms(float r2, bool in_lj, float qq, const Dsf& d, float kbm, float kr0m,
+                                          float kr02m, float& tot, float& esum) {
+  if (!COULOMB && !BOND) return;
+  const float r = sqrtf(r2);
+  if (COULOMB && r2 < d.rc2) {
+    const float ri = 1.0f / r;
+    const float ar = d.alpha * r;
+    const float erfc_ar = erfcf(ar);
+    const float gauss = kTwoOverSqrtPi * d.alpha * expf(-ar * ar);
+    const float g_r = erfc_ar * ri * ri + gauss * ri;
+    tot += qq * r * (g_r - d.f_shift);
+    if (ENERGY) esum += qq * (erfc_ar * ri - d.e_shift + d.f_shift * (r - d.rc));
+  }
+  if (BOND && in_lj) {
+    tot += kr0m * r - kbm * r2;
+    if (ENERGY) esum += 0.5f * (kbm * r2 + kr02m) - kr0m * r;
+  }
 }
 
 }  // namespace emdee

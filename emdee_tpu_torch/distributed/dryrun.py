@@ -9,8 +9,9 @@ or NCCL when n cards are present.
 Parts 1 and 2 of the reference (the atom-table slab decomposition of
 `distributed/domain.py` and the slab-sharded `cell_dense_sharded.py`) are not
 ported: a (D, 1, 1) grid mesh covers slabs (ROADMAP item 12).  Parts 4 to 6
-(charges, exclusion tags, bonded terms on the grid) wait for the molecular
-grid (ROADMAP item 11.2, K2c-G).
+(charges, exclusion tags, bonded terms on the grid) are not driven here;
+`grid_job` takes the molecular options, and tests/test_torch_grid_molecular.py
+runs the charged and the triatomic fixtures on two gloo ranks through it.
 
 `run_ranks` is the launcher the tests share: n spawned processes, a
 `file://` rendezvous in a fresh temporary directory, results back through a
@@ -108,11 +109,13 @@ def tiny_setup(n_devices: int, device):
     return state, config, LennardJonesModel.create(cutoff, switch, device=device), shape
 
 
-def grid_job(rank, n, shape, fields, config, steps, rebin_every, device_kind="cpu"):
+def grid_job(rank, n, shape, fields, config, steps, rebin_every, device_kind="cpu", kwargs_fn=None):
     """One rank of a grid-sharded run: the state `fields` (the one-card
     state as `cell_dense.state_to_numpy` gives it) distributed over a
     `DistMesh` of `shape`, `steps` NVE steps, then the whole state gathered
-    and the energies.  Returns (state fields as numpy, (pe, vir, ke))."""
+    and the energies.  kwargs_fn(device), a module-level function, gives
+    the engine's molecular options (e.g. `tools.fixtures.grid_charged_kwargs`).
+    Returns (state fields as numpy, (pe, vir, ke))."""
     import torch.distributed as dist
 
     from emdee_tpu_torch import LennardJonesModel
@@ -123,7 +126,7 @@ def grid_job(rank, n, shape, fields, config, steps, rebin_every, device_kind="cp
     device = torch.device("cuda", rank) if device_kind == "cuda" else torch.device("cpu")
     mesh = make_grid_mesh(shape, group=dist.group.WORLD, device=device)
     model = LennardJonesModel.create(config.cutoff, config.switch, device=device)
-    rollout, energy = make_grid_sharded_sim(config, model, 0.002, mesh)
+    rollout, energy = make_grid_sharded_sim(config, model, 0.002, mesh, **(kwargs_fn(device) if kwargs_fn else {}))
     st = distribute_grid(state_from_numpy(fields, device), config, mesh)
     st = rollout(st, num_steps=steps, rebin_every=rebin_every)
     energies = tuple(float(x) for x in energy(st))

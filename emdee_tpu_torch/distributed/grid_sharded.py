@@ -1,6 +1,7 @@
 """3-D grid-sharded dense-cell engine — counterpart of
-emdee_tpu/distributed/grid_sharded.py (the Lennard-Jones part: NVE and CSVR
-NVT).
+emdee_tpu/distributed/grid_sharded.py (NVE and CSVR NVT, with or without
+the molecular terms: DSF Coulomb, exclusion tags, bonded terms and the
+leftover exclusion pairs).
 
 The (M, M, M, C) slot grid is cut into an (nz, ny, nx) mesh of shards of
 (mz, my, mx) cells (`distributed/mesh.py`); a state's per-slot leaves are
@@ -16,13 +17,18 @@ goes through the mesh's `shift` (the reference's `ppermute`):
   index on raw coordinates: the forces of any decomposition equal the
   one-card kernel's bit for bit.  The reference runs K2's half shell with
   reaction ghosts and folds them back with three more exchanges; the full
-  shell needs no reaction rows, no fold and no second exchange.
+  shell needs no reaction rows, no fold and no second exchange.  With the
+  molecular terms the ghost grids also carry charges and atom ids, and the
+  kernel's molecular branches (K2c-G) match each own slot's tags; bonded
+  terms and leftover pairs are rows that each shard evaluates for its own
+  atoms (`_grid_terms`), so they need no reverse exchange either.
 - **Rebin**: the shift rebin's three passes (z, y, x), each over own, left
   and right windows built by one exchange along the pass axis, with each
   row's global coordinate (`rebin_window_kernel.rebin_window_pass`, K6).
-  Atom migration between shards is that exchange.
+  Atom migration between shards is that exchange; charges ride it.
 - **Reductions**: energies, the kinetic energy of CSVR and the sticky flag
-  are reduced over the shards (`psum`, `pmax`).
+  are reduced over the shards (`psum`, `pmax`), and, with term rows, the
+  atom → global slot map once a rebin (an int32 `psum`).
 
 Nothing in a rollout waits for the device; the flag stays there until the
 caller reads it.  A (1, 1, 1) mesh is the one-card engine's geometry; its
@@ -163,6 +169,166 @@ def _window(x: torch.Tensor, mesh: GridMesh, axis: int, d: int) -> torch.Tensor:
     return torch.cat([mesh.shift(x.narrow(dim, n - 1, 1), axis, -1), x.narrow(dim, 0, n - 1)], dim=dim)
 
 
+def _grid_terms(config: CellDenseConfig, mesh: GridMesh, model: LennardJonesModel, coulomb, bonded,
+                excl_leftover, atom_params, atom_charges):
+    """The bonded terms and the exclusion pairs beyond the tag band on the
+    grid: (bind, forces, energy), or None when there are none.
+
+    Owner computes, without a reverse exchange (the GHOST force pass has
+    none): every shard evaluates each term that has an atom it owns, from
+    its (mz+2, my+2, mx+2, C) extended grid — a term spans ≪ one cell, so
+    all its atoms lie within ±1 cell of any one of them — and keeps the rows
+    of its own atoms only, added in global term order by the fixed-order add
+    of `core/scatter.py`.  A term across a shard face is evaluated on each
+    side; in return each atom's rows arrive in the same order, with the
+    same values, on any decomposition, so every decomposition gives the same
+    forces bit for bit.  Term energies count on the shard that owns the
+    term's owner atom (bonds and leftover pairs: the first, angles and
+    torsions: the second), as the reference counts them (grid_sharded.py
+    `_ext_of` :420-452, `_term_energy_virial` :551-591).
+
+    bind(aid, valid) → (binding, bad), once per rebin: one int `psum` of
+    the (N+1,) atom → global slot map, then each table's extended-grid
+    indices, ownership masks and the fixed-order plan of its rows; `bad` is
+    True when an atom of a term is more than one cell from an owned atom of
+    the same term (a broken topology), OR'd into the sticky flag.
+    forces(pos_ext, binding, box) → (shards·mz·my·mx·C, 3) term forces of
+    the own slots; energy(pos_ext, binding, box) → (pe, vir) of this
+    process's shards.  pos_ext: (shards·(mz+2)(my+2)(mx+2)·C + 1, 3), the
+    ghost positions with a zero pad row."""
+    from emdee_tpu_torch.core.scatter import add_plan, fixed_add
+    from emdee_tpu_torch.neighbors.cell_dense import _numpy
+    from emdee_tpu_torch.neighbors.cell_dense_molecular import _FAMILIES, _row_targets
+    from emdee_tpu_torch.potentials.bonded import BondedSystem, bonded_force_rows
+    from emdee_tpu_torch.potentials.coulomb import coulomb_interaction
+    from emdee_tpu_torch.potentials.lennard_jones import pair_interaction
+
+    tables = [] if bonded is None else [(f, getattr(bonded, f)) for f in _FAMILIES if getattr(bonded, f) is not None]
+    has_leftover = excl_leftover is not None and len(excl_leftover[0]) > 0
+    if not tables and not has_leftover:
+        return None
+    dev = mesh.device
+    m, c, n_at = config.cells_per_dim, config.capacity, config.num_atoms
+    mz, my, mx = validate_grid_config(config, mesh)
+    lead = mesh.local_shape
+    shards = math.prod(lead)
+    n_ext = (mz + 2) * (my + 2) * (mx + 2) * c
+    n_own = mz * my * mx * c
+    loc = torch.tensor([mz, my, mx], device=dev)
+    # The local shards' global shard coordinates (shards, 3), z-major.
+    sc = torch.stack(torch.meshgrid(*(mesh.axis_index(a) for a in range(3)), indexing="ij"), -1).reshape(-1, 3)
+    # The global slot id (cell·C + slot) of every local slot, in the state's layout.
+    gcell = [(mesh.axis_index(a)[:, None] * (mz, my, mx)[a] + torch.arange((mz, my, mx)[a], device=dev)) for a in range(3)]
+    gz = gcell[0].reshape(lead[0], 1, 1, mz, 1, 1, 1)
+    gy = gcell[1].reshape(1, lead[1], 1, 1, my, 1, 1)
+    gx = gcell[2].reshape(1, 1, lead[2], 1, 1, mx, 1)
+    gslot = (((gz * m + gy) * m + gx) * c + torch.arange(c, device=dev)).expand(tuple(lead) + (mz, my, mx, c))
+    gslot = gslot.reshape(-1).to(torch.int32)
+    s_idx = torch.arange(shards, device=dev)[:, None, None]
+    owner_col = {"bonds": 0, "angles": 1, "torsions": 1, "impropers": 1}
+
+    if has_leftover:
+        if atom_params is None:
+            raise ValueError("excl_leftover needs atom-ordered LJ params (atom_params)")
+        lo_pairs = torch.from_numpy(np.asarray(_numpy(excl_leftover[0]), np.int64)).to(dev)
+        pi, pj = lo_pairs[:, 0], lo_pairs[:, 1]
+        tile = lambda a: a.repeat(shards)  # noqa: E731
+        hs_a = torch.as_tensor(_numpy(atom_params.half_sigma), dtype=torch.float32, device=dev)
+        tse_a = torch.as_tensor(_numpy(atom_params.twice_sqrt_eps), dtype=torch.float32, device=dev)
+        lo_hs_i, lo_tse_i, lo_hs_j, lo_tse_j = tile(hs_a[pi]), tile(tse_a[pi]), tile(hs_a[pj]), tile(tse_a[pj])
+        lo_wlj = tile(torch.from_numpy(1.0 - np.asarray(_numpy(excl_leftover[1]), np.float32)).to(dev))
+        lo_has_q = coulomb is not None and atom_charges is not None
+        if lo_has_q:
+            q_a = torch.as_tensor(np.asarray(_numpy(atom_charges), np.float32), device=dev)
+            lo_qi, lo_qj = tile(q_a[pi]), tile(q_a[pj])
+            cs = excl_leftover[2] if excl_leftover[2] is not None else excl_leftover[1]
+            lo_wc = tile(torch.from_numpy(1.0 - np.asarray(_numpy(cs), np.float32)).to(dev))
+
+    def locate(amap, atoms, valid):
+        """Term atoms (T, k) → extended-grid indices (shards·T, k), row
+        targets (shards·T, k) (own slot, else the dump row shards·n_own),
+        ownership (shards, T, k), and the bad flag."""
+        gs = amap[torch.clamp(atoms, max=n_at)].to(torch.int64)
+        slot, cell = gs % c, gs // c
+        g = torch.stack([cell // (m * m), (cell // m) % m, cell % m], -1)  # (T, k, 3) z, y, x
+        owned = ((g[None] // loc) == sc[:, None, None, :]).all(-1) & valid[None, :, None]  # (S, T, k)
+        rel = owned.any(-1)
+        d = g[:, :, None, :] - g[:, None, :, :]
+        far = (((d + m // 2) % m - m // 2).abs() > 1).any(-1)  # (T, k, k)
+        bad = (owned[..., None] & far[None]).any()
+        e = (g[None] - (sc[:, None, None, :] * loc - 1)) % m  # ext coordinate: the −1 ghost layer is 0
+        inside = (e <= loc + 1).all(-1)
+        ext = ((e[..., 0] * (my + 2) + e[..., 1]) * (mx + 2) + e[..., 2]) * c + slot + s_idx * n_ext
+        ext = torch.where(rel[..., None] & inside, ext, shards * n_ext)
+        lc = g[None] - sc[:, None, None, :] * loc
+        tgt = ((lc[..., 0] * my + lc[..., 1]) * mx + lc[..., 2]) * c + slot + s_idx * n_own
+        tgt = torch.where(owned, tgt, shards * n_own)
+        k = atoms.shape[1]
+        return ext.reshape(-1, k), tgt.reshape(-1, k), owned, bad
+
+    def bind(aid, valid):
+        ids = torch.where(valid, aid, n_at + 1).reshape(-1).to(torch.int64)
+        amap = torch.zeros(n_at + 2, dtype=torch.int32, device=dev).index_put((ids,), gslot)[: n_at + 1]
+        amap = mesh.psum(amap)
+        bad = torch.zeros((), dtype=torch.bool, device=dev)
+        rows_sys, tgt_sys, e_sys = {}, {}, {}
+        for name, t in tables:
+            ext, tgt, owned, b = locate(amap, t.atoms, t.valid)
+            bad = bad | b
+            rep = {f: torch.cat([getattr(t, f)] * shards) for f in t._fields if f not in ("atoms", "valid")}
+            rows_sys[name] = t._replace(atoms=ext, valid=owned.any(-1).reshape(-1), **rep)
+            tgt_sys[name] = t._replace(atoms=tgt)
+            e_sys[name] = rows_sys[name]._replace(valid=owned[..., owner_col[name]].reshape(-1))
+        blank = dict.fromkeys(_FAMILIES)
+        rows_sys = BondedSystem(**{**blank, **rows_sys}) if tables else None
+        e_sys = BondedSystem(**{**blank, **e_sys}) if tables else None
+        targets = [] if not tables else [_row_targets(BondedSystem(**{**blank, **tgt_sys}), shards * n_own + 1)]
+        lo = None
+        if has_leftover:
+            ext, tgt, owned, b = locate(amap, lo_pairs, torch.ones(len(lo_pairs), dtype=torch.bool, device=dev))
+            bad = bad | b
+            lo = (ext, owned.any(-1).reshape(-1), owned[..., 0].reshape(-1))
+            targets.append(tgt.t().reshape(-1))
+        plan = add_plan(torch.cat(targets), shards * n_own + 1)
+        return (rows_sys, e_sys, lo, plan), bad
+
+    def leftover_terms(pos_ext, lo, box):
+        ext, rel, _ = lo
+        dv = pos_ext[ext[:, 0]] - pos_ext[ext[:, 1]]
+        dv = dv - torch.round(dv / box) * box
+        r2 = torch.where(rel, torch.sum(dv * dv, dim=-1), 1.0)
+        e, mre = pair_interaction(r2, model, lo_hs_i, lo_tse_i, lo_hs_j, lo_tse_j)
+        e, mre = lo_wlj * e, lo_wlj * mre
+        if lo_has_q:
+            e_c, mre_c = coulomb_interaction(r2, coulomb, lo_qi, lo_qj)
+            e, mre = e + lo_wc * e_c, mre + lo_wc * mre_c
+        return dv, r2, e, mre
+
+    def forces(pos_ext, binding, box):
+        rows_sys, _, lo, plan = binding
+        rows = [] if rows_sys is None else [bonded_force_rows(pos_ext, box, rows_sys)[1]]
+        if lo is not None:
+            dv, r2, _, mre = leftover_terms(pos_ext, lo, box)
+            f_ij = torch.where(lo[1], mre / r2, 0.0)[:, None] * dv
+            rows.append(torch.cat([-f_ij, f_ij]))
+        out = torch.zeros((shards * n_own + 1, 3), dtype=pos_ext.dtype, device=dev)
+        return fixed_add(out, plan, torch.cat(rows))[:-1]
+
+    def energy(pos_ext, binding, box):
+        _, e_sys, lo, _ = binding
+        pe = torch.zeros((), dtype=pos_ext.dtype, device=dev)
+        vir = torch.zeros_like(pe)
+        if e_sys is not None:
+            pe, vir = e_sys.energy(pos_ext, box), e_sys.virial(pos_ext, box)
+        if lo is not None:
+            _, _, e, mre = leftover_terms(pos_ext, lo, box)
+            pe = pe - torch.sum(torch.where(lo[2], e, 0.0))
+            vir = vir - torch.sum(torch.where(lo[2], mre, 0.0))
+        return pe, vir
+
+    return bind, forces, energy
+
+
 def make_grid_sharded_sim(
     config: CellDenseConfig,
     model: LennardJonesModel,
@@ -185,26 +351,33 @@ def make_grid_sharded_sim(
     versions for CPU tensors), 'cuda' or 'torch' (the plain versions on any
     device).  uniform_params: optional (half_sigma, twice_sqrt_eps) floats
     shared by every atom (`detect_uniform_params`); the ghost grids then
-    carry positions only.  thermostat: None (leapfrog NVE, no Kahan
+    carry positions only (not with the molecular terms, which read the
+    per-atom parameters).  thermostat: None (leapfrog NVE, no Kahan
     compensation, as the reference's grid engine) or `CSVRConfig` (the
     synced kick-drift-kick with one global rescale a step: the kinetic
     energy summed over the shards, one draw from the rollout's `rng`, a
     `torch.Generator` on the mesh's device seeded alike on every rank).
 
+    The molecular terms (K2c-G), as the reference's grid engine takes them:
+    coulomb, a `DSFCoulomb` model (the state must carry charges, which ride
+    every rebin) — DSF on every pair; excl_tables, the atom-indexed (ids,
+    mlj, mcs) tag tables of `build_exclusion_tables` (E ≤ 8 on the kernel;
+    mcs None with coulomb: the LJ scales), from which each shard's centre
+    tags are rebuilt after every rebin; bonded, a `BondedSystem` in atom
+    order, and excl_leftover, the (pairs, lj_scales, coulomb_scales) beyond
+    the tag band (with atom_params, and atom_charges with coulomb), as term
+    rows that each shard evaluates for its own atoms (`_grid_terms`).  The
+    grid keeps its bonds as rows: no bond rides the tags.
+
     Not ported yet, each raising NotImplementedError: Langevin, barostat and
-    spill configs (ROADMAP item 11), the per-shard streaming backend (K5's
-    sharded entries, item 11), coulomb, excl_tables, bonded, excl_leftover,
-    atom_params and atom_charges (the molecular grid, item 11.2, K2c-G)."""
+    spill configs (ROADMAP item 11) and the per-shard streaming backend (K5
+    on shards, K5s, item 11)."""
     from emdee_tpu_torch.dynamics.bussi import _csvr_alpha2, csvr_draws
     from emdee_tpu_torch.neighbors import cell_kernel
+    from emdee_tpu_torch.neighbors.cell_dense import _numpy
     from emdee_tpu_torch.neighbors.rebin_kernel import SENTINEL_BITS
     from emdee_tpu_torch.neighbors.rebin_window_kernel import rebin_window_pass
 
-    molecular = (("coulomb", coulomb), ("excl_tables", excl_tables), ("bonded", bonded),
-                 ("excl_leftover", excl_leftover), ("atom_params", atom_params), ("atom_charges", atom_charges))
-    for name, value in molecular:
-        if value is not None:
-            raise NotImplementedError(f"{name} on the grid-sharded engine is not ported yet (ROADMAP item 11.2, K2c-G)")
     if isinstance(thermostat, LangevinConfig):
         raise NotImplementedError("Langevin on the grid-sharded engine is not ported yet (ROADMAP item 11)")
     if thermostat is not None and not isinstance(thermostat, CSVRConfig):
@@ -214,7 +387,7 @@ def make_grid_sharded_sim(
     if config.spill:
         raise NotImplementedError("spill configs on the grid-sharded engine are not ported yet (ROADMAP item 11)")
     if backend in ("cuda_streaming", "pallas_streaming"):
-        raise NotImplementedError("the per-shard streaming backend (K5's sharded entries) is not ported yet "
+        raise NotImplementedError("the per-shard streaming backend (K5 on shards, K5s) is not ported yet "
                                   "(ROADMAP item 11)")
     if backend not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown backend {backend!r}: use 'auto', 'cuda' or 'torch'")
@@ -227,7 +400,16 @@ def make_grid_sharded_sim(
     dt_f = _f32(dt)
     half_dt = _f32(np.float32(0.5) * np.float32(dt))
     ndof = 3.0 * config.num_atoms - 3.0
-    uniform = uniform_params is not None
+    has_q, has_excl = coulomb is not None, excl_tables is not None
+    uniform = uniform_params is not None and not (has_q or has_excl)
+    terms = _grid_terms(config, mesh, model, coulomb, bonded, excl_leftover, atom_params, atom_charges)
+    if has_excl:
+        ids_t, mlj_t, mcs_t = excl_tables
+        if has_q and mcs_t is None:
+            mcs_t = mlj_t  # never "skip Coulomb exclusions": the LJ scales stand in
+        cols = [t for t in (ids_t, mlj_t, mcs_t) if t is not None]
+        packed = torch.from_numpy(np.concatenate([np.asarray(_numpy(t), np.float32) for t in cols], -1)).to(dev)
+        n_tab, e_n = packed.shape[0] - 1, int(_numpy(ids_t).shape[-1])
 
     def b_global(axis: int) -> torch.Tensor:
         """(shards·mz, my·mx, 1) int32: each cell's global coordinate along
@@ -244,24 +426,51 @@ def make_grid_sharded_sim(
     sentinel = torch.full((), SENTINEL_BITS, dtype=torch.int32, device=dev).view(torch.float32)
     nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
 
-    def forces_of(pos3, valid, hs, tse, compute_energy=False):
-        """(forces (3, …), e, w) of the local shards; pos3 (3, sz, sy, sx,
-        mz, my, mx, C)."""
-        g = torch.where(valid, pos3, nan)
-        if not uniform:
-            g = torch.cat([g, hs[None], tse[None]])
-        return cell_kernel.ghost_forces(
-            _ghost3(g, mesh), lead, mesh.base, config, model, uniform_params=uniform_params,
-            compute_energy=compute_energy, backend=resolve_backend(backend, pos3),
-        )
+    def bindings(aid, valid):
+        """The per-rebin molecular bindings of a slot layout: (the atom ids
+        as the ghost grids carry them, the centre tags, the term binding),
+        and the term binding's bad flag (None without terms)."""
+        aidf = tags = tb = bad = None
+        if has_excl:
+            aidf = torch.where(valid, aid, -2).view(torch.float32)
+            g = packed[torch.clamp(aid, max=n_tab).to(torch.int64)]
+            parts = [t.contiguous() for t in torch.split(g, e_n, dim=-1)]
+            tags = (parts[0], parts[1], parts[2] if len(parts) > 2 else None)
+        if terms is not None:
+            tb, bad = terms[0](aid, valid)
+        return (aidf, tags, tb), bad
 
-    def rebin(pos3, vel3, inv_m, hs, tse, aid, valid, overflow, f3=None):
+    def forces_of(pos3, valid, hs, tse, q, bound, compute_energy=False, with_terms=True):
+        """(forces (3, …), e, w, term (pe, vir) or None) of the local
+        shards; pos3 (3, sz, sy, sx, mz, my, mx, C)."""
+        aidf, tags, tb = bound
+        parts = [torch.where(valid, pos3, nan)]
+        if not uniform:
+            parts += [hs[None], tse[None]]
+        if has_q:
+            parts.append(q[None])
+        if has_excl:
+            parts.append(aidf[None])
+        gh = _ghost3(torch.cat(parts), mesh)
+        f, e, w = cell_kernel.ghost_forces(
+            gh, lead, mesh.base, config, model, uniform_params=uniform_params if uniform else None,
+            compute_energy=compute_energy, backend=resolve_backend(backend, pos3), coulomb=coulomb, excl=tags,
+        )
+        if tb is None or not with_terms:
+            return f, e, w, None
+        pos_ext = torch.cat([gh[:3].reshape(3, -1).t(), gh.new_zeros((1, 3))])
+        box_t = _box(config.box, pos3)
+        f = f + terms[1](pos_ext, tb, box_t).reshape(tuple(lead) + (mz, my, mx, c, 3)).movedim(-1, 0)
+        return f, e, w, (terms[2](pos_ext, tb, box_t) if compute_energy else None)
+
+    def rebin(pos3, vel3, inv_m, hs, tse, aid, valid, q, overflow, f3=None):
         """The per-shard shift rebin: three K6 passes (z, y, x) over the
         transported fields stacked as int32.  Returns the routed (pos3, vel3,
-        inv_m, hs, tse, aid, valid, overflow, f3)."""
+        inv_m, hs, tse, aid, valid, q, overflow, f3)."""
         box_t = _box(config.box, pos3)
         posw = torch.where(valid, pos3 - torch.floor(pos3 / box_t) * box_t, sentinel)
-        parts = [posw, vel3, inv_m[None], hs[None], tse[None]] + ([] if f3 is None else [f3])
+        parts = ([posw, vel3, inv_m[None], hs[None], tse[None]] + ([] if q is None else [q[None]])
+                 + ([] if f3 is None else [f3]))
         x = torch.cat([p.view(torch.int32) for p in parts] + [aid[None]])
         nf, shape = x.shape[0], x.shape
         flat = (nf, shards * mz, my * mx, c)
@@ -276,15 +485,19 @@ def make_grid_sharded_sim(
         valid = aid < ns
         xf = x[:-1].view(torch.float32)  # empty slots: the fill, 0 beyond the positions
         pos3 = torch.where(valid, xf[0:3], 0.0)
-        return pos3, xf[3:6], xf[6], xf[7], xf[8], aid, valid, overflow, (None if f3 is None else xf[9:12])
+        k = 9 if q is None else 10
+        return (pos3, xf[3:6], xf[6], xf[7], xf[8], aid, valid, None if q is None else xf[9], overflow,
+                None if f3 is None else xf[k:k + 3])
 
     def stale(pos3, ref3, valid):
         d = pos3 - ref3
         return _stale(d[0], d[1], d[2], valid, config)
 
     def unpack(st: CellDenseState):
+        if has_q and st.charges is None:
+            raise ValueError("coulomb model given but state has no charges")
         return (st.positions.movedim(-1, 0).contiguous(), st.velocities.movedim(-1, 0).contiguous(),
-                st.inv_masses, st.half_sigma, st.twice_sqrt_eps, st.atom_id, st.valid)
+                st.inv_masses, st.half_sigma, st.twice_sqrt_eps, st.atom_id, st.valid, st.charges)
 
     def lengths_of(num_steps, rebin_every):
         blocks, rem = divmod(num_steps, rebin_every)
@@ -292,33 +505,38 @@ def make_grid_sharded_sim(
 
     def rollout(state: CellDenseState, num_steps: int, rebin_every: int = 10,
                 rng: Optional[torch.Generator] = None) -> CellDenseState:
-        """Blocked rollout: rebin every `rebin_every` steps, then run that
-        many steps; the flag is OR'd over the shards at the end.  A CSVR
-        rollout needs `rng`, a `torch.Generator` on the mesh's device."""
+        """Blocked rollout: rebin every `rebin_every` steps (the molecular
+        bindings rebuilt after each), then run that many steps; the flag is
+        OR'd over the shards at the end.  A CSVR rollout needs `rng`, a
+        `torch.Generator` on the mesh's device."""
         if thermostat is not None and rng is None:
             raise ValueError("a thermostatted rollout needs an rng: a torch.Generator on the mesh's device")
         if num_steps == 0:
             return state
-        pos3, vel3, inv_m, hs, tse, aid, valid = unpack(state)
+        pos3, vel3, inv_m, hs, tse, aid, valid, q = unpack(state)
         ref3, overflow = state.ref_positions.movedim(-1, 0), state.overflow
-        f = forces_of(pos3, valid, hs, tse)[0]
+        bound, bad = bindings(aid, valid)
+        overflow = overflow if bad is None else overflow | bad
+        f = forces_of(pos3, valid, hs, tse, q, bound)[0]
         if thermostat is None:
             # Leapfrog: velocities ride half a step ahead, so no force field
             # crosses a rebin; a closing half un-kick re-syncs.
             vel3 = torch.where(valid, vel3 + half_dt * f * inv_m, 0.0)
         for length in lengths_of(num_steps, rebin_every):
-            pos3, vel3, inv_m, hs, tse, aid, valid, overflow, f = rebin(
-                pos3, vel3, inv_m, hs, tse, aid, valid, overflow, None if thermostat is None else f)
+            pos3, vel3, inv_m, hs, tse, aid, valid, q, overflow, f = rebin(
+                pos3, vel3, inv_m, hs, tse, aid, valid, q, overflow, None if thermostat is None else f)
             ref3 = pos3
+            bound, bad = bindings(aid, valid)
+            overflow = overflow if bad is None else overflow | bad
             for _ in range(length):
                 if thermostat is None:
                     x = torch.where(valid, pos3 + dt_f * vel3, pos3)
-                    f = forces_of(x, valid, hs, tse)[0]
+                    f = forces_of(x, valid, hs, tse, q, bound)[0]
                     vel3 = torch.where(valid, vel3 + dt_f * f * inv_m, 0.0)
                 else:
                     v_half = vel3 + half_dt * f * inv_m
                     x = torch.where(valid, pos3 + dt_f * v_half, pos3)
-                    f = forces_of(x, valid, hs, tse)[0]
+                    f = forces_of(x, valid, hs, tse, q, bound)[0]
                     v = v_half + half_dt * f * inv_m
                     kin = 0.5 * torch.sum(torch.where(valid, v**2 / torch.clamp(inv_m, min=1e-30), 0.0))
                     kin = mesh.psum(kin)
@@ -329,31 +547,35 @@ def make_grid_sharded_sim(
                 pos3 = x
             overflow = overflow | stale(pos3, ref3, valid)
         if thermostat is None:
-            f = forces_of(pos3, valid, hs, tse)[0]
+            f = forces_of(pos3, valid, hs, tse, q, bound)[0]
             vel3 = torch.where(valid, vel3 - half_dt * f * inv_m, 0.0)
         return state._replace(
             positions=pos3.movedim(0, -1).contiguous(), velocities=vel3.movedim(0, -1).contiguous(),
             inv_masses=inv_m, half_sigma=hs, twice_sqrt_eps=tse, atom_id=aid, valid=valid,
             ref_positions=ref3.movedim(0, -1).contiguous(), step=state.step + num_steps,
-            overflow=mesh.pmax(overflow),
+            overflow=mesh.pmax(overflow), charges=q,
         )
 
     def energy(state: CellDenseState):
         """(potential energy, virial, kinetic energy) as 0-d tensors, summed
-        over every shard."""
-        pos3, vel3, inv_m, hs, tse, _, valid = unpack(state)
-        _, e, w = forces_of(pos3, valid, hs, tse, compute_energy=True)
+        over every shard: the pair terms' per-slot halves and the term rows'
+        energies."""
+        pos3, vel3, inv_m, hs, tse, aid, valid, q = unpack(state)
+        _, e, w, te = forces_of(pos3, valid, hs, tse, q, bindings(aid, valid)[0], compute_energy=True)
         pe = torch.sum(torch.where(valid, e, 0.0))
         vir = torch.sum(torch.where(valid, w, 0.0))
+        if te is not None:
+            pe, vir = pe + te[0], vir + te[1]
         ke = 0.5 * torch.sum(torch.where(valid, vel3**2 / torch.clamp(inv_m, min=1e-30), 0.0))
         out = mesh.psum(torch.stack([pe, vir, ke]))
         return out[0], out[1], out[2]
 
-    def forces(state: CellDenseState, compute_energy: bool = False):
+    def forces(state: CellDenseState, compute_energy: bool = False, with_terms: bool = True):
         """(forces (sz, sy, sx, mz, my, mx, C, 3), e, w) of a grid-sharded
-        state: the rollout's force pass, for checks."""
-        pos3, _, _, hs, tse, _, valid = unpack(state)
-        f, e, w = forces_of(pos3, valid, hs, tse, compute_energy)
+        state: the rollout's force pass (pairs and, with `with_terms`, the
+        term rows), for checks."""
+        pos3, _, _, hs, tse, aid, valid, q = unpack(state)
+        f, e, w, _ = forces_of(pos3, valid, hs, tse, q, bindings(aid, valid)[0], compute_energy, with_terms)
         return f.movedim(0, -1), e, w
 
     rollout.forces = forces

@@ -16,6 +16,8 @@ operations:
   `ppermute` of a boundary layer;
 - `psum(x)`, `pmax(x)`: a sum, a max over the shards of other processes
   (this process's own shards are reduced by the caller's sum over them);
+  `psum` takes float and int32 tensors alike (the molecular grid sums its
+  (N+1,) int32 atom → global slot map with it);
 - `axis_index(axis)`: each local shard's index along a mesh axis (the
   local shards' grid is `local_shape`, its first shard at `base`).
 

@@ -1124,7 +1124,9 @@ def make_cell_dense_sim(
     extra_energy(state, eaux) → (pe, vir).  Both aux functions run once
     after every rebin, whatever the rollout path, and the energy closure
     drops the bond tags (aux[:3]): extra_energy adds the full bonded
-    energy.  The streaming family has no molecular terms yet (K5c)."""
+    energy.  Both kernel families take the molecular terms (K2c, K5c); the
+    split entry stays LJ-only, since the component carry excludes
+    molecular runs."""
     from emdee_tpu_torch.dynamics.bussi import _csvr_alpha2, csvr_draws
     from emdee_tpu_torch.neighbors import cell_kernel, streaming_kernel
 
@@ -1157,10 +1159,6 @@ def make_cell_dense_sim(
             config, backend, device=t.device, with_coulomb=coulomb is not None, with_excl=aux_fn is not None,
         )
         if family == "cuda_streaming":
-            if molecular:
-                raise NotImplementedError(
-                    "the streaming kernel's molecular terms (K5c) are not ported yet (ROADMAP queue 2); "
-                    "pass backend='cuda' for the resident kernel")
             return streaming_kernel.cell_forces_streaming, streaming_kernel.cell_forces_streaming_split, "cuda"
         return cell_kernel.cell_forces, cell_kernel.cell_forces_split, family
 

@@ -6,8 +6,9 @@ A molecular force evaluation is
 1. the pair pass in slot space — LJ and DSF over the charge field, with
    the exclusions as per-pair tag comparisons (`exclusion_mode="kernel"`):
    every slot carries its atom's E exclusion partners (`aux_fn`, one
-   gather per rebin), and on the kernel backend ('cuda', K2c) the harmonic
-   bonds ride the first E_b tags as well;
+   gather per rebin), and on the kernel backends ('cuda', K2c;
+   'cuda_streaming', K5c) the harmonic bonds ride the first E_b tags as
+   well;
 2. slot-space corrections: the bonded terms that the pair pass does not
    absorb, and the exclusion pairs beyond the tag band, each term's atom
    indices remapped to slots once per rebin (`extra_aux_fn`).  Terms whose
@@ -421,14 +422,15 @@ def make_molecular_dense_sim(
     the pair pass; 'correction' (the atom-space correction pass) raises
     NotImplementedError (ROADMAP item 3).  exclusion_band caps the tag
     width E; pairs beyond it go through the slot-space pair correction.  On
-    'cuda' a band wider than the kernel's MAX_TAGS = 8 (or none, with some
-    atom past 8 partners) becomes 8 (`kernel_band`).
+    the kernel backends a band wider than the kernels' MAX_TAGS = 8 (or
+    none, with some atom past 8 partners) becomes 8 (`kernel_band`).
 
     The backend is resolved here, against the model's device, as the
-    engine resolves it per call: on 'cuda' (the resident kernel, K2c) the
-    harmonic bonds ride the exclusion tags, as the reference absorbs them
-    on its Pallas backends; 'torch' keeps them on the slot-space gather
-    path, as the reference's 'xla' does.  The virial covers pair,
+    engine resolves it per call, and `exclusion_setup` builds the tags for
+    it: on 'cuda' (the resident kernel, K2c) and 'cuda_streaming' (the
+    streaming kernel, K5c) the harmonic bonds ride the exclusion tags, as
+    the reference absorbs them on its Pallas backends; 'torch' keeps them
+    on the slot-space gather path, as the reference's 'xla' does.  The virial covers pair,
     exclusion and bonded terms."""
     if exclusion_mode not in ("kernel", "correction"):
         raise ValueError(f"unknown exclusion_mode {exclusion_mode!r}")
@@ -462,29 +464,11 @@ def make_molecular_dense_sim(
         return _bonded_only_sim(config, model, dt, num_atoms, bonded, coulomb, resolved, rebin, thermostat,
                                 barostat, atom_slot_of, pos_ext)
 
-    if resolved == "cuda":
-        exclusion_band = kernel_band(num_atoms, pairs, exclusion_band)
     cs_for_tables = None
     if coulomb is not None:
         cs_for_tables = exclusion_scales_coulomb if exclusion_scales_coulomb is not None else exclusion_scales
-    scales = _numpy(exclusion_scales)
-    cs_for_tables = None if cs_for_tables is None else _numpy(cs_for_tables)
-    absorb_bonds = bonded is not None and bonded.bonds is not None and resolved == "cuda"
-    bonded_force_sys, bond_tabs, leftover = bonded, None, None
-    if absorb_bonds:
-        bt = bonded.bonds
-        bvalid = _numpy(bt.valid).astype(bool)
-        bond_arg = (_numpy(bt.atoms)[bvalid], _numpy(bt.k)[bvalid], _numpy(bt.length)[bvalid])
-        tabs, leftover, bond_tabs, absorbed = build_exclusion_tables(
-            num_atoms, pairs, scales, cs_for_tables, band_e=exclusion_band, bonds=bond_arg,
-        )
-        bonded_force_sys = _without_absorbed_bonds(bonded, absorbed)
-    elif exclusion_band is not None:
-        tabs, leftover = build_exclusion_tables(num_atoms, pairs, scales, cs_for_tables, band_e=exclusion_band)
-    else:
-        tabs = build_exclusion_tables(num_atoms, pairs, scales, cs_for_tables)
-    if leftover is not None and leftover[0].shape[0] == 0:
-        leftover = None
+    tabs, leftover, bond_tabs, bonded_force_sys = exclusion_setup(
+        num_atoms, pairs, exclusion_scales, cs_for_tables, bonded, resolved, exclusion_band)
     aux_fn = make_exclusion_aux_fn(num_atoms, *tabs, bond_tabs=bond_tabs)
     corr = None
     if leftover is not None:
@@ -558,8 +542,44 @@ def make_molecular_dense_sim(
     )
 
 
+KERNEL_FAMILIES = ("cuda", "cuda_streaming")
+
+
+def exclusion_setup(num_atoms: int, pairs, scales, coulomb_scales, bonded: Optional[BondedSystem], family: str,
+                    band: Optional[int]):
+    """The tag tables of a resolved backend family, as the reference builds
+    them for its counterpart (cell_dense_molecular.py:543-560): on the
+    kernel families ('cuda' K2c, 'cuda_streaming' K5c, as the reference's
+    'pallas' and 'pallas_streaming') the harmonic bonds ride the tags and
+    the band is capped at MAX_TAGS (`kernel_band`); on 'torch' (the
+    reference's 'xla') the bonds stay on the gather path.  Touches no
+    device.  Returns (tabs, leftover pairs or None, bond tag weights or
+    None, the bonded system left for the slot-space rows)."""
+    scales = _numpy(scales)
+    coulomb_scales = None if coulomb_scales is None else _numpy(coulomb_scales)
+    kernel = family in KERNEL_FAMILIES
+    if kernel:
+        band = kernel_band(num_atoms, pairs, band)
+    bonded_force_sys, bond_tabs, leftover = bonded, None, None
+    if kernel and bonded is not None and bonded.bonds is not None:
+        bt = bonded.bonds
+        bvalid = _numpy(bt.valid).astype(bool)
+        bond_arg = (_numpy(bt.atoms)[bvalid], _numpy(bt.k)[bvalid], _numpy(bt.length)[bvalid])
+        tabs, leftover, bond_tabs, absorbed = build_exclusion_tables(
+            num_atoms, pairs, scales, coulomb_scales, band_e=band, bonds=bond_arg,
+        )
+        bonded_force_sys = _without_absorbed_bonds(bonded, absorbed)
+    elif band is not None:
+        tabs, leftover = build_exclusion_tables(num_atoms, pairs, scales, coulomb_scales, band_e=band)
+    else:
+        tabs = build_exclusion_tables(num_atoms, pairs, scales, coulomb_scales)
+    if leftover is not None and leftover[0].shape[0] == 0:
+        leftover = None
+    return tabs, leftover, bond_tabs, bonded_force_sys
+
+
 def kernel_band(num_atoms: int, pairs, band: Optional[int]) -> Optional[int]:
-    """The tag band on the kernel backend: K2c holds at most
+    """The tag band on the kernel backends: K2c and K5c hold at most
     `cell_kernel.MAX_TAGS` tags a slot, so when some atom has more exclusion
     partners than that (and the band does not already cap them), the band
     becomes MAX_TAGS and the rest goes through the slot-pair correction —

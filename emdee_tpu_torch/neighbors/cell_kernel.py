@@ -39,8 +39,8 @@ from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel, pair_int
 
 # Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
-# The most exclusion tags per slot that the molecular kernel holds in
-# registers (kMaxTags of csrc/cell_forces.cu).
+# The most exclusion tags per slot that the molecular kernels hold (kMaxTags
+# of csrc/lj_pair.cuh: in registers in K2c, in shared memory in K5c).
 MAX_TAGS = 8
 
 
@@ -141,52 +141,75 @@ def cell_forces(
     return outputs
 
 
-def _launch_mol(state: CellDenseState, config: CellDenseConfig, coulomb, excl, compute_energy: bool):
-    """One launch of the molecular kernel (K2c) on a CUDA state."""
-    global LAUNCHES
+def mol_operands(state: CellDenseState, config: CellDenseConfig, coulomb, excl):
+    """Check the molecular operands of a stacked state for K2c or K5c:
+    returns (q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb, *DSF constants)
+    for the C entries, each tensor None where the flags leave it out."""
     nc, c = config.num_cells, config.capacity
     dev = state.positions.device
-    operands, (forces, e, w) = stacked_operands(state, config, None, compute_energy)
-    pos, hs, tse, valid = operands[0], operands[4], operands[5], operands[6]
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    q = consts = aid = ids = mlj = mcs = bond = None
+    q = aid = ids = mlj = mcs = bond = None
+    consts = (None,) * 6
     ne = neb = 0
     if coulomb is not None:
         if state.charges is None:
             raise ValueError("coulomb model given but state has no charges")
         q = state.charges
         _check(q, "charges", torch.float32, (nc, c), dev)
-        consts = (coulomb.alpha, coulomb.rc, coulomb.rc2, coulomb.e_shift, coulomb.f_shift, coulomb.kc)
-        for name, t in zip(("alpha", "rc", "rc2", "e_shift", "f_shift", "kc"), consts):
-            _check(t, f"coulomb.{name}", torch.float32, (), dev)
+        consts = _dsf_operands(coulomb, dev)
     if excl is not None:
-        ids, mlj, mcs = excl[:3]
-        bond = excl[3] if len(excl) > 3 else None
-        if coulomb is not None and mcs is None:
-            mcs = mlj
-        ne = ids.shape[-1]
-        if ne > MAX_TAGS:
-            raise ValueError(
-                f"{ne} exclusion tags per slot; the molecular kernel holds at most {MAX_TAGS}: build the tags "
-                f"with exclusion_band={MAX_TAGS} or less and correct the rest in slot space "
-                "(make_molecular_dense_sim does so on 'cuda')")
         aid = state.atom_id
         _check(aid, "atom_id", torch.int32, (nc, c), dev)
-        for name, t in (("ids", ids), ("mlj", mlj), ("mcs", mcs)):
-            if t is not None:
-                _check(t, f"excl {name}", torch.float32, (nc, c, ne), dev)
+        ids, mlj, mcs, ne = _tag_operands(excl, coulomb is not None, (nc, c), dev)
+        bond = excl[3] if len(excl) > 3 else None
         if bond is not None:
             neb = bond[0].shape[-1]
             for name, t in zip(("kb", "kr0", "kr02"), bond):
                 _check(t, f"bond {name}", torch.float32, (nc, c, neb), dev)
-    consts = consts or (None,) * 6
     kb, kr0, kr02 = bond or (None, None, None)
+    return (q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb) + tuple(consts)
+
+
+def _dsf_operands(coulomb, dev):
+    """The DSF model's six constants, each checked to be a 0-d float32
+    tensor on `dev` (the kernels read them there)."""
+    consts = (coulomb.alpha, coulomb.rc, coulomb.rc2, coulomb.e_shift, coulomb.f_shift, coulomb.kc)
+    for name, t in zip(("alpha", "rc", "rc2", "e_shift", "f_shift", "kc"), consts):
+        _check(t, f"coulomb.{name}", torch.float32, (), dev)
+    return consts
+
+
+def _tag_operands(excl, coulomb: bool, slots, dev):
+    """Check a kernel's centre tags (ids, mlj, mcs), each (…slots, E)
+    float32 with E ≤ MAX_TAGS; missing Coulomb scales with `coulomb` are
+    the LJ scales.  Returns (ids, mlj, mcs, E)."""
+    ids, mlj, mcs = excl[:3]
+    if coulomb and mcs is None:
+        mcs = mlj
+    ne = ids.shape[-1]
+    if ne > MAX_TAGS:
+        raise ValueError(
+            f"{ne} exclusion tags per slot; the molecular kernels hold at most {MAX_TAGS}: build the tags "
+            f"with exclusion_band={MAX_TAGS} or less and correct the rest in slot space "
+            "(make_molecular_dense_sim does so on the kernel backends)")
+    for name, t in (("ids", ids), ("mlj", mlj), ("mcs", mcs)):
+        if t is not None:
+            _check(t, f"excl {name}", torch.float32, tuple(slots) + (ne,), dev)
+    return ids, mlj, mcs, ne
+
+
+def _launch_mol(state: CellDenseState, config: CellDenseConfig, coulomb, excl, compute_energy: bool):
+    """One launch of the molecular kernel (K2c) on a CUDA state."""
+    global LAUNCHES
+    operands, (forces, e, w) = stacked_operands(state, config, None, compute_energy)
+    pos, hs, tse, valid = operands[0], operands[4], operands[5], operands[6]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb, *consts = mol_operands(state, config, coulomb, excl)
     err = build.load().emdee_cell_forces_mol(
         pos.data_ptr(), ptr(hs), ptr(tse), valid.data_ptr(), ptr(q), ptr(aid), ptr(ids), ptr(mlj),
         ptr(mcs), ptr(kb), ptr(kr0), ptr(kr02), ne, neb, *map(ptr, consts), forces.data_ptr(), ptr(e),
-        ptr(w), config.cells_per_dim, c, box_ptr(_box_of(state, config), pos), *_pair_consts(config, None)[:8],
-        int(coulomb is not None), int(excl is not None), int(bond is not None), int(compute_energy),
-        torch.cuda.current_stream(dev).cuda_stream,
+        ptr(w), config.cells_per_dim, config.capacity, box_ptr(_box_of(state, config), pos),
+        *_pair_consts(config, None)[:8], int(coulomb is not None), int(excl is not None), int(kb is not None),
+        int(compute_energy), torch.cuda.current_stream(pos.device).cuda_stream,
     )
     build.check(err, "cell_forces kernel (molecular)")
     LAUNCHES += 1
@@ -259,7 +282,8 @@ def split_operands(px, py, pz, valid, config: CellDenseConfig):
 
 
 def ghost_forces(ghost, shards, base, config: CellDenseConfig, model: LennardJonesModel, *,
-                 uniform_params=None, compute_energy: bool = False, backend: str = "auto"):
+                 uniform_params=None, compute_energy: bool = False, backend: str = "auto", coulomb=None,
+                 excl=None):
     """The grid-sharded engine's per-shard force pass (the kernel's GHOST
     mode): forces (3, sz, sy, sx, mz, my, mx, C) of every own slot of the
     local shards and, with `compute_energy`, per-slot half-split energies and
@@ -267,16 +291,26 @@ def ghost_forces(ghost, shards, base, config: CellDenseConfig, model: LennardJon
 
     ghost: (F, sz, sy, sx, mz+2, my+2, mx+2, C) float32, each local shard's
     ghost grid: positions x, y, z with NaN in empty slots, then, without
-    uniform parameters, σ/2 and 2√ε.  shards: (sz, sy, sx), the local shards'
-    grid; base: the global shard coordinates (z, y, x) of its first shard,
-    so that the kernel takes each periodic shift from a neighbour's global
-    cell index.  The box is config.box."""
+    uniform parameters, σ/2 and 2√ε; with `coulomb`, the charges; with
+    `excl`, the int32 atom ids (−2 on empty slots) as a float32 bit view.
+    shards: (sz, sy, sx), the local shards' grid; base: the global shard
+    coordinates (z, y, x) of its first shard, so that the kernel takes each
+    periodic shift from a neighbour's global cell index.  The box is
+    config.box.
+
+    coulomb (a `DSFCoulomb` model) and excl (the own slots' centre tags
+    (ids, mlj, mcs), each (sz, sy, sx, mz, my, mx, C, E) contiguous, E ≤
+    MAX_TAGS; no bond tags) select the molecular branches (K2c-G), which
+    read the per-atom parameters."""
     if resolve_backend(backend, ghost) == "torch":
-        return ghost_forces_plain(ghost, config, model, uniform_params, compute_energy)
+        return ghost_forces_plain(ghost, config, model, uniform_params, compute_energy, coulomb, excl)
     global LAUNCHES
+    mol = coulomb is not None or excl is not None
+    if mol and uniform_params is not None:
+        raise ValueError("the molecular ghost pass reads per-atom parameters: pass uniform_params=None")
     sz, sy, sx = shards
     gz, gy, gx, c = ghost.shape[-4:]
-    nfield = 3 if uniform_params is not None else 5
+    nfield = (3 if uniform_params is not None else 5) + (coulomb is not None) + (excl is not None)
     dev = ghost.device
     _check(ghost, "ghost", torch.float32, (nfield, sz, sy, sx, gz, gy, gx, config.capacity), dev)
     local = (sz, sy, sx, gz - 2, gy - 2, gx - 2, c)
@@ -287,20 +321,39 @@ def ghost_forces(ghost, shards, base, config: CellDenseConfig, model: LennardJon
         w = torch.empty(local, dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     params = (ghost[3], ghost[4]) if uniform_params is None else (None, None)
-    err = build.load().emdee_cell_forces_ghost(
-        ghost[0].data_ptr(), ghost[1].data_ptr(), ghost[2].data_ptr(), *map(ptr, params),
-        f[0].data_ptr(), f[1].data_ptr(), f[2].data_ptr(), ptr(e), ptr(w),
-        gz - 2, gy - 2, gx - 2, sz * sy * sx, sy, sx, *base, config.cells_per_dim, c,
-        box_ptr(config.box, ghost), *_pair_consts(config, uniform_params),
-        int(uniform_params is not None), int(compute_energy), torch.cuda.current_stream(dev).cuda_stream,
+    geometry = (gz - 2, gy - 2, gx - 2, sz * sy * sx, sy, sx, *base, config.cells_per_dim, c,
+                box_ptr(config.box, ghost))
+    lib = build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if not mol:
+        err = lib.emdee_cell_forces_ghost(
+            ghost[0].data_ptr(), ghost[1].data_ptr(), ghost[2].data_ptr(), *map(ptr, params),
+            f[0].data_ptr(), f[1].data_ptr(), f[2].data_ptr(), ptr(e), ptr(w), *geometry,
+            *_pair_consts(config, uniform_params), int(uniform_params is not None), int(compute_energy), stream,
+        )
+        build.check(err, "cell_forces kernel (ghost grid)")
+        LAUNCHES += 1
+        return f, e, w
+    q = ghost[5] if coulomb is not None else None
+    aid = ghost[-1] if excl is not None else None
+    consts = (None,) * 6 if coulomb is None else _dsf_operands(coulomb, dev)
+    ids = mlj = mcs = None
+    ne = 0
+    if excl is not None:
+        ids, mlj, mcs, ne = _tag_operands(excl, coulomb is not None, local, dev)
+    err = lib.emdee_cell_forces_ghost_mol(
+        ghost[0].data_ptr(), ghost[1].data_ptr(), ghost[2].data_ptr(), *map(ptr, params), ptr(q), ptr(aid),
+        ptr(ids), ptr(mlj), ptr(mcs), ne, *map(ptr, consts), f[0].data_ptr(), f[1].data_ptr(), f[2].data_ptr(),
+        ptr(e), ptr(w), *geometry, *_pair_consts(config, None)[:8], int(coulomb is not None),
+        int(excl is not None), int(compute_energy), stream,
     )
-    build.check(err, "cell_forces kernel (ghost grid)")
+    build.check(err, "cell_forces kernel (ghost grid, molecular)")
     LAUNCHES += 1
     return f, e, w
 
 
 def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel, uniform_params,
-                       compute_energy: bool):
+                       compute_energy: bool, coulomb=None, excl=None):
     """The plain version of `ghost_forces`: `_dense_forces` on the ghost
     grids, with every roll of the slot grid replaced by a block of the ghost
     grid.  A half-shell offset's neighbour block is the ghost block at +o,
@@ -308,8 +361,13 @@ def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel,
     evaluates it — the pairs of the cell at −o (a ghost block) against the
     cell — in a tile of the same shape, so every pair term and every sum is
     the one-card plain version's, bit for bit, whatever the decomposition.
-    Displacements are d − L·round(d/L) of the raw ghost coordinates."""
-    from emdee_tpu_torch.neighbors.cell_dense import _GROUP, _OFFSETS, _box
+    Displacements are d − L·round(d/L) of the raw ghost coordinates.
+
+    With `excl`, the reaction tile matches the own cell's tags against the
+    ghost centre's atom id, where `_dense_forces` matches the centre's tags
+    against the own atom id: the tables are symmetric, so the scale is the
+    same number, and the ghost grids need not carry tags."""
+    from emdee_tpu_torch.neighbors.cell_dense import _GROUP, _OFFSETS, Molecular, _box, _molecular_terms
 
     lead = tuple(ghost.shape[1:-4])
     gz, gy, gx, c = ghost.shape[-4:]
@@ -322,6 +380,18 @@ def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel,
     else:
         hs_g, tse_g = torch.full_like(g[0], uniform_params[0]), torch.full_like(g[0], uniform_params[1])
     box_t = _box(config.box, ghost)
+    mol = None
+    if coulomb is not None or excl is not None:
+        q_g = g[5] if coulomb is not None else None
+        aid_g = g[-1].contiguous().view(torch.int32).to(torch.float32) if excl is not None else None
+        tags = None
+        if excl is not None:
+            ids, mlj, mcs = excl[:3]
+            if coulomb is not None and mcs is None:
+                mcs = mlj
+            flat = lambda t: None if t is None else t.reshape((-1, c, t.shape[-1]))  # noqa: E731
+            tags = (flat(ids), flat(mlj), flat(mcs), None)
+        mol = Molecular(q_g, coulomb, aid_g, tags)
 
     def block(a, o, sign=1):
         """Cell c + sign·o of every own cell c, as (cells, C, …); o = (ox, oy, oz)."""
@@ -336,13 +406,28 @@ def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel,
     def r2_of(dv):
         return dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1] + dv[..., 2] * dv[..., 2]
 
-    def pair_terms(r2s, ok, hs_i, tse_i, hs_j, tse_j):
+    def pair_terms(r2s, ok, hs_i, tse_i, hs_j, tse_j, cen=None, nbr=None):
         e, mre = pair_interaction(r2s, model, hs_i, tse_i, hs_j, tse_j)
+        if mol is not None:
+            e, mre = _molecular_terms(r2s, e, mre, model, mol, cen, nbr)
         return torch.where(ok, e, 0.0), torch.where(ok, mre, 0.0)
+
+    def side(q, aid, tags=None):
+        """The molecular operands of one side of a tile, as `_molecular_terms` takes them."""
+        if mol is None:
+            return None
+        return {"q": q, "aid": aid, "excl": tags}
 
     zero = (0, 0, 0)
     pos, hs, tse, valid = (block(a, zero) for a in (pos_g, hs_g, tse_g, valid_g))
     cells = pos.shape[0]
+    opt = lambda f, a: None if a is None else f(a)  # noqa: E731
+    if mol is not None:
+        q_own, aid_own = opt(lambda a: block(a, zero), mol.q), opt(lambda a: block(a, zero), mol.aid)
+        tags_own = None if mol.excl is None else tuple(opt(lambda t: t[:, :, None, :], t) for t in mol.excl)
+        cen_own = side(opt(lambda a: a[:, :, None], q_own), None, tags_own)
+    else:
+        q_own = aid_own = cen_own = None
 
     # ---- self-cell tile, as in `_dense_forces` ----
     dv = disp(pos[:, :, None, :], pos[:, None, :, :])
@@ -350,7 +435,8 @@ def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel,
     eye = torch.eye(c, dtype=torch.bool, device=pos.device)
     ok = valid[:, :, None] & valid[:, None, :] & ~eye[None]
     r2s = torch.where(ok, r2, 1.0)
-    e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], hs[:, None, :], tse[:, None, :])
+    e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], hs[:, None, :], tse[:, None, :], cen_own,
+                        side(opt(lambda a: a[:, None, :], q_own), opt(lambda a: a[:, None, :], aid_own)))
     forces = torch.sum((mre / r2s)[..., None] * dv, dim=2)
     if compute_energy:
         energies = 0.5 * torch.sum(e, dim=2)
@@ -365,7 +451,10 @@ def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel,
         dv = disp(pos[:, :, None, :], nbr_pos[:, None, :, :])
         ok = valid[:, :, None] & nbr_valid[:, None, :]
         r2s = torch.where(ok, r2_of(dv), 1.0)
-        e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], nbr_hs[:, None, :], nbr_tse[:, None, :])
+        fwd = None if mol is None else side(opt(lambda a: nbr(a)[:, None, :], mol.q),
+                                            opt(lambda a: nbr(a)[:, None, :], mol.aid))
+        e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], nbr_hs[:, None, :], nbr_tse[:, None, :],
+                            cen_own, fwd)
         gdv = torch.where(ok, mre / r2s, 0.0)[..., None] * dv
         forces = forces + torch.sum(gdv, dim=2)
         if compute_energy:
@@ -386,7 +475,13 @@ def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel,
         dv = disp(centres(pos_g), owns(pos))
         ok = centres(valid_g) & owns(valid)
         r2s = torch.where(ok, r2_of(dv), 1.0)
-        e, mre = pair_terms(r2s, ok, centres(hs_g), centres(tse_g), owns(hs), owns(tse))
+        cen_r = nbr_r = None
+        if mol is not None:
+            # The centre's charge; the own cell's tags against the centre's atom id.
+            tags_r = None if mol.excl is None else tuple(opt(owns, t) for t in mol.excl)
+            cen_r = side(opt(centres, mol.q), None, tags_r)
+            nbr_r = side(opt(owns, q_own), opt(centres, mol.aid))
+        e, mre = pair_terms(r2s, ok, centres(hs_g), centres(tse_g), owns(hs), owns(tse), cen_r, nbr_r)
         gdv = torch.where(ok, mre / r2s, 0.0)[..., None] * dv
         reaction = -torch.sum(gdv, dim=1)  # (cells, k·C, 3)
         for i in range(k):

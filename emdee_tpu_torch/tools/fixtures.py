@@ -11,6 +11,10 @@ tests (`tests/test_torch_cuda.py`), the CPU differential tests and
   bent A–B–C molecules on a 5³ lattice (375 atoms, box 12.5), bonds A–B and
   B–C, the A–B–C angle, and the 1-3 pair A–C scaled 0.5 / 0.8; at
   exclusion band 1 it has leftover pairs and shared and exclusive terms.
+- The grid's charged fixture of tests/test_grid_sharded.py:150-202: 2,048
+  atoms at ρ = 0.09, ±0.25 charges (neutral), the pairs (i, i+1) and
+  (i+1, i+2) of every triplet excluded at 0.5 (LJ) / 0.8 (Coulomb); M = 10,
+  C = 8.
 
 `*_arrays` return numpy only, so the JAX side of a differential test builds
 its own objects from the same numbers; the other functions build the
@@ -45,11 +49,11 @@ def charged_arrays() -> dict:
                 bonds=bonds)
 
 
-def charged_fixture(device):
+def charged_fixture(device, capacity=None):
     """The charged fixture on the port, every atom moved 0.45·skin along its
     velocity so that a real fraction crosses cell faces and the periodic
     seam: (state, config, LJ model, DSF model, slot tags with bond
-    weights)."""
+    weights).  capacity: C in place of the suggested one (24)."""
     from emdee_tpu_torch import (
         DSFCoulomb, LennardJonesModel, build_exclusion_tables, cell_dense_init, lennard_jones_atom,
         make_exclusion_aux_fn, suggest_cell_dense_config,
@@ -58,6 +62,8 @@ def charged_fixture(device):
     a = charged_arrays()
     n = a["n"]
     config = suggest_cell_dense_config(n, a["box"], cutoff=CUTOFF, switch=SWITCH, skin=CHARGED_SKIN)
+    if capacity is not None:
+        config = config._replace(capacity=capacity)
     st = cell_dense_init(a["pos"], a["vel"], np.ones(n), lennard_jones_atom(np.ones(n), np.ones(n), device=device),
                          config, charges=a["q"], device=device)
     v = st.velocities
@@ -110,19 +116,91 @@ def triatomic_bonded(fx: dict, device):
 def triatomic_sim(device, backend: str, dt: float = 1e-3):
     """The triatomic fixture on the molecular dense engine at band 1:
     (initial state, (rollout, energy) of `make_molecular_dense_sim`)."""
-    from emdee_tpu_torch import (
-        DSFCoulomb, LennardJonesModel, cell_dense_init, lennard_jones_atom, make_molecular_dense_sim,
-        suggest_cell_dense_config,
-    )
+    from emdee_tpu_torch import DSFCoulomb, lennard_jones_atom, make_molecular_dense_sim
 
     fx = triatomic_arrays()
     n = fx["n"]
-    cfg = suggest_cell_dense_config(n, fx["box"], cutoff=CUTOFF, switch=SWITCH, skin=0.3)
-    params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
-    st = cell_dense_init(fx["pos"], fx["vel"], np.ones(n), params, cfg, charges=fx["q"], device=device)
+    st, cfg, model = triatomic_state(device)
     sim = make_molecular_dense_sim(
-        cfg, LennardJonesModel.create(CUTOFF, SWITCH, device=device), dt, n, params=params, charges=fx["q"],
+        cfg, model, dt, n, params=lennard_jones_atom(np.ones(n), np.ones(n), device=device), charges=fx["q"],
         coulomb=DSFCoulomb.create(CUTOFF, alpha=0.25, coulomb_constant=1.0, device=device),
         exclusion_pairs=fx["pairs"], exclusion_scales=fx["ljs"], exclusion_scales_coulomb=fx["cs"],
         bonded=triatomic_bonded(fx, device), backend=backend, exclusion_band=1)
     return st, sim
+
+
+def grid_charged_arrays() -> dict:
+    """The grid's charged fixture as numpy arrays: n, pos, box, vel, q and
+    the exclusion pairs with their LJ and Coulomb scales."""
+    from emdee_tpu_torch.utils.lattice import cubic_lattice, maxwell_boltzmann
+
+    n = 2048
+    pos, box = cubic_lattice(n, 0.09, jitter=0.1, seed=31)
+    q = np.where(np.arange(n) % 2 == 0, 0.25, -0.25).astype(np.float32)
+    q -= q.mean()
+    base = np.arange(0, n - 2, 3)
+    pairs = np.concatenate([np.stack([base, base + 1], 1), np.stack([base + 1, base + 2], 1)])
+    return dict(n=n, pos=pos, box=box, vel=maxwell_boltzmann(n, 0.9, seed=32), q=q, pairs=pairs,
+                ljs=np.full(len(pairs), 0.5, np.float32), cs=np.full(len(pairs), 0.8, np.float32))
+
+
+def grid_charged_config(a: dict):
+    """The fixture's config: the suggested one with M cut to an even count
+    (at least 4), as the reference test cuts it."""
+    from emdee_tpu_torch import suggest_cell_dense_config
+
+    config = suggest_cell_dense_config(a["n"], a["box"], cutoff=CUTOFF, switch=SWITCH, skin=CHARGED_SKIN)
+    return config._replace(cells_per_dim=max((config.cells_per_dim // 2) * 2, 4))
+
+
+def grid_charged_kwargs(device) -> dict:
+    """The molecular options of `make_grid_sharded_sim` for the grid's
+    charged fixture on `device`: DSF (α = 0.25, kC = 1) and the full-width
+    tag tables."""
+    from emdee_tpu_torch import DSFCoulomb, build_exclusion_tables
+
+    a = grid_charged_arrays()
+    return dict(coulomb=DSFCoulomb.create(CUTOFF, alpha=0.25, coulomb_constant=1.0, device=device),
+                excl_tables=build_exclusion_tables(a["n"], a["pairs"], a["ljs"], a["cs"]))
+
+
+def grid_charged_state(device):
+    """(state, config, LJ model) of the grid's charged fixture on `device`."""
+    from emdee_tpu_torch import LennardJonesModel, cell_dense_init, lennard_jones_atom
+
+    a = grid_charged_arrays()
+    n = a["n"]
+    config = grid_charged_config(a)
+    st = cell_dense_init(a["pos"], a["vel"], np.ones(n), lennard_jones_atom(np.ones(n), np.ones(n), device=device),
+                         config, charges=a["q"], device=device)
+    return st, config, LennardJonesModel.create(CUTOFF, SWITCH, device=device)
+
+
+def triatomic_grid_kwargs(device, band: int = 1) -> dict:
+    """The molecular options of `make_grid_sharded_sim` for the triatomic
+    fixture at exclusion band `band` (tests/test_grid_sharded_pallas.py:
+    98-103): DSF, the tag tables, the bonds and angles as term rows, the
+    leftover pairs beyond the band with the atoms' LJ parameters and
+    charges."""
+    from emdee_tpu_torch import DSFCoulomb, build_exclusion_tables, lennard_jones_atom
+
+    fx = triatomic_arrays()
+    n = fx["n"]
+    tabs, leftover = build_exclusion_tables(n, fx["pairs"], fx["ljs"], fx["cs"], band_e=band)
+    return dict(coulomb=DSFCoulomb.create(CUTOFF, alpha=0.25, coulomb_constant=1.0, device=device),
+                excl_tables=tabs, bonded=triatomic_bonded(fx, device), excl_leftover=leftover,
+                atom_params=lennard_jones_atom(np.ones(n), np.ones(n), device=device), atom_charges=fx["q"])
+
+
+def triatomic_state(device, positions=None):
+    """(state, config, LJ model) of the triatomic fixture on `device`
+    (`positions` in place of the fixture's, if given)."""
+    from emdee_tpu_torch import LennardJonesModel, cell_dense_init, lennard_jones_atom, suggest_cell_dense_config
+
+    fx = triatomic_arrays()
+    n = fx["n"]
+    cfg = suggest_cell_dense_config(n, fx["box"], cutoff=CUTOFF, switch=SWITCH, skin=0.3)
+    pos = fx["pos"] if positions is None else positions
+    st = cell_dense_init(pos, fx["vel"], np.ones(n), lennard_jones_atom(np.ones(n), np.ones(n), device=device), cfg,
+                         charges=fx["q"], device=device)
+    return st, cfg, LennardJonesModel.create(CUTOFF, SWITCH, device=device)

@@ -5,15 +5,17 @@ the spill config's component carry (K7 in its rebin), CSVR NVT on the wide
 config, Langevin NVT on the spill config and the grid-sharded engine (every
 shard on the card) on (1,1,1) at the wide config and on (2,2,2) at M = 16;
 at 1,000,188 atoms the dense component carry on the streaming kernel
-family; and the molecular dense engine on the 98,304-atom flexible-water
-box of `tools/water.py` (NVE on its plain config with backend 'cuda', after
-the CSVR equilibration `chip_smoke.py` runs).
+family; and the molecular engines on the 98,304-atom flexible-water box of
+`tools/water.py` (NVE on its plain config after the CSVR equilibration
+`chip_smoke.py` runs): the dense engine with backend 'cuda' (K2c) and
+'auto' (the streaming family, K5c), and the grid-sharded engine on (2,2,2)
+(K2c-G, bonds and angles as term rows).
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 -m emdee_tpu_torch.tools.profile_paths [water]
 
-(`water`: the water path alone.)
+(`water`: the water paths alone.)
 
 For each path, after 60 steps of warm-up: the unprofiled ms/step of three
 600-step windows (host clock around work that ends in a synchronize), then
@@ -96,10 +98,22 @@ def profile_water(device) -> None:
     nvt, _ = water.molecular_sim(box, cfg, model, coul, params, "cuda", device, water.csvr())
     eq = nvt(init(box["positions"], box["velocities"]), num_steps=water.EQ_STEPS, rebin_every=water.REBIN_EVERY,
              rng=torch.Generator(device=device).manual_seed(water.SEED))
-    nve, _ = water.molecular_sim(box, cfg, model, coul, params, "cuda", device)
     print(f"{n} atoms (water), M={cfg.cells_per_dim} C={cfg.capacity}, rebin every {water.REBIN_EVERY} steps",
           flush=True)
-    profile_path("water (DSF + tags + bonds in K2c)", nve, init(*gather_dense_atoms(eq, n)), water.REBIN_EVERY)
+    start = init(*gather_dense_atoms(eq, n))
+    for backend, what in (("cuda", "K2c"), ("auto", "K5c")):
+        nve, _ = water.molecular_sim(box, cfg, model, coul, params, backend, device)
+        profile_path(f"water '{backend}' (DSF + tags + bonds in {what})", nve, start, water.REBIN_EVERY)
+    from emdee_tpu_torch import build_exclusion_tables
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, make_grid_sharded_sim
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    mesh = make_grid_mesh((2, 2, 2), device=device)
+    grid, _ = make_grid_sharded_sim(
+        cfg, model, water.DT, mesh, coulomb=coul, bonded=water.bonded_system(box, device),
+        excl_tables=build_exclusion_tables(n, box["exclusion_pairs"], box["exclusion_scales"], None))
+    profile_path("grid water (2,2,2) (DSF + tags in K2c-G, bonded term rows)", grid, distribute_grid(start, cfg, mesh),
+                 water.REBIN_EVERY)
 
 
 def main(paths: str = "all") -> None:

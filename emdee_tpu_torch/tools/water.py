@@ -1,9 +1,10 @@
-"""The flexible-water box that `chip_smoke.py` drives on the molecular
+"""The flexible-water boxes that `chip_smoke.py` drives on the molecular
 dense engine: 32³ = 32,768 waters (98,304 atoms) on a cubic lattice of
 spacing 3.11 Å (liquid density, the lattice of
 emdee_tpu/modelling/solvate.py `build_solvated_polyalanine`, without the
 peptide) in a 99.52 Å box, each water in a random orientation from a numpy
-seed.
+seed; and the same lattice at 69³ = 328,509 waters (985,527 atoms, 214.59 Å),
+the size of bench_all.py's 1M melt.
 
 Model: flexible TIP3P — Jorgensen et al., J. Chem. Phys. 79, 926 (1983),
 with the harmonic bond and angle terms of OpenMM's tip3p.xml — in the units
@@ -19,7 +20,9 @@ so an NVE start heats the box (to ~730 K in 100 fs on the H100), and
     python3 -m emdee_tpu_torch.tools.water [CHUNKS]
 
 runs the box on the card from its lattice start on the plain config (M =
-12, C = 80, `backend="cuda"`), with CSVR at 300 K and then without a
+12, C = 80, `backend="auto"`, which resolves to the streaming family K5c
+there; the 985,527-atom box's plain config is M = 26, C = 88, also
+streaming), with CSVR at 300 K and then without a
 thermostat, CHUNKS × 2,000 steps each (default 8: 800 fs), and after each
 chunk re-initialises the state on the spill config (M = 12, C = 64): it
 prints ms/step, T, the potential energy, the true-cell occupancy (mean,
@@ -33,6 +36,7 @@ import numpy as np
 
 SEED = 5
 N_SIDE = 32  # 32³ waters
+N_SIDE_1M = 69  # 69³ waters: 985,527 atoms
 SPACING = 3.11  # Å
 CUTOFF, SWITCH, SKIN, DT, ALPHA = 7.0, 6.0, 1.0, 5e-4, 0.2
 EQ_STEPS, REBIN_EVERY = 2000, 6  # the equilibration chunk (100 fs) and the rebin interval
@@ -128,13 +132,24 @@ def water_setup(device, n_side: int = N_SIDE, seed: int = SEED, spill: bool = Tr
 
     box = water_box(n_side, seed)
     n = len(box["masses"])
-    config = suggest_cell_dense_config(n, box["box"], cutoff=CUTOFF, switch=SWITCH, skin=SKIN, spill=spill)
-    if not spill:
-        config = config._replace(capacity=max(config.capacity, start_capacity(box["positions"], config)))
+    if spill:
+        config = suggest_cell_dense_config(n, box["box"], cutoff=CUTOFF, switch=SWITCH, skin=SKIN, spill=True)
+    else:
+        config = plain_config(box)
     model = LennardJonesModel.create(CUTOFF, SWITCH, device=device)
     coulomb = DSFCoulomb.create(CUTOFF, ALPHA, KJMOL_ANGSTROM, device=device)
     params = lennard_jones_atom(box["epsilon"], box["sigma"], device=device)
     return box, config, model, coulomb, params
+
+
+def plain_config(box: dict):
+    """The box's plain geometry (no spill), its capacity raised to the
+    start's largest cell occupancy, rounded up to 8, as the reference's
+    `dense_sim_from_system` does for a constructed start."""
+    from emdee_tpu_torch import suggest_cell_dense_config
+
+    config = suggest_cell_dense_config(len(box["masses"]), box["box"], cutoff=CUTOFF, switch=SWITCH, skin=SKIN)
+    return config._replace(capacity=max(config.capacity, start_capacity(box["positions"], config)))
 
 
 def occupancy(positions, config) -> np.ndarray:
@@ -152,8 +167,10 @@ def start_capacity(positions, config) -> int:
     return -(-int(occupancy(positions, config).max()) // 8) * 8
 
 
-def molecular_sim(box: dict, config, model, coulomb, params, backend: str, device, thermostat=None):
-    """`make_molecular_dense_sim` on the box: (rollout, energy)."""
+def molecular_sim(box: dict, config, model, coulomb, params, backend: str = "auto", device=None, thermostat=None):
+    """`make_molecular_dense_sim` on the box: (rollout, energy).  On the
+    card 'auto' resolves to the streaming family (K5c) at both boxes' plain
+    configs and to the resident one (K2c) at the spill config."""
     from emdee_tpu_torch.neighbors.cell_dense_molecular import make_molecular_dense_sim
 
     return make_molecular_dense_sim(
@@ -183,9 +200,9 @@ def main(chunks: int = 8) -> None:
     n = len(box["masses"])
     init = lambda pos, vel, cfg: cell_dense_init(pos, vel, box["masses"], params, cfg,  # noqa: E731
                                                  charges=box["charges"], device=dev)
-    roll_s, _ = molecular_sim(box, spill_cfg, model, coul, params, "cuda", dev)
+    roll_s, _ = molecular_sim(box, spill_cfg, model, coul, params, "auto", dev)
     for arm, thermostat in (("CSVR 300 K", csvr()), ("NVE", None)):
-        roll, energy = molecular_sim(box, plain_cfg, model, coul, params, "cuda", dev, thermostat)
+        roll, energy = molecular_sim(box, plain_cfg, model, coul, params, "auto", dev, thermostat)
         rng = torch.Generator(device=dev).manual_seed(1)
         st = init(box["positions"], box["velocities"], plain_cfg)
         for chunk in range(1, chunks + 1):

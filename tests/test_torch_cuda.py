@@ -528,8 +528,10 @@ def test_molecular_water_rollout_matches_plain_and_reruns_bitwise(device):
     """A 1,536-atom flexible-water box (`tools/water.py`, 8³ waters, M = 3)
     on 'cuda' (bonds absorbed in K2c) against 'torch' (the gather path)
     after 20 steps within 2e-3 / 5e-2; two 'cuda' rollouts bitwise equal;
-    the streaming family refuses molecular terms (K5c)."""
-    from emdee_tpu_torch import gather_dense_atoms, make_cell_dense_sim
+    the grid engine refuses the per-shard streaming backend (K5s)."""
+    from emdee_tpu_torch import gather_dense_atoms
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
     from emdee_tpu_torch.tools import water
 
     box, config, model, coul, params = water.water_setup(device, n_side=8, spill=False)
@@ -548,8 +550,9 @@ def test_molecular_water_rollout_matches_plain_and_reruns_bitwise(device):
     assert np.abs(pa - pp).max() < 2e-3 and np.abs(va - vp).max() < 5e-2
     pe_k, pe_p = float(energy_k(st)[0]), float(energy_p(st)[0])
     assert abs(pe_k - pe_p) <= 1e-5 * abs(pe_p) + 1e-2
-    with pytest.raises(NotImplementedError, match="K5c"):
-        make_cell_dense_sim(config, model, dt=water.DT, backend="cuda_streaming", coulomb=coul)[0](st, 5, 5)
+    with pytest.raises(NotImplementedError, match="K5s"):
+        gs.make_grid_sharded_sim(config, model, water.DT, make_grid_mesh((1, 1, 1), device=device),
+                                 backend="cuda_streaming", coulomb=coul)
 
 
 def test_molecular_triatomic_reruns_bitwise(device):
@@ -568,3 +571,130 @@ def test_molecular_triatomic_reruns_bitwise(device):
     n = int(st.valid.sum())
     (pa, va), (pp, vp) = gather_dense_atoms(a, n), gather_dense_atoms(p, n)
     assert np.abs(pa - pp).max() < 2e-3 and np.abs(va - vp).max() < 5e-2
+
+
+@pytest.mark.parametrize("capacity", [None, 40, 72])
+@pytest.mark.parametrize("variant", ["coulomb", "tags", "coulomb_tags", "bonds", "coulomb_bonds"])
+def test_streaming_molecular_kernel_matches_plain(device, variant, capacity):
+    """K5c (the streaming kernel's DSF, exclusion tags and tag-borne bonds)
+    against its plain version (K2c's) and against K2c, with one, two and
+    three centre slots a lane (C = 24, 40, 72): forces within 2e-4 of the
+    force scale, per-slot energies and virials within 1e-3, empty slots
+    exactly 0; two launches a call (the pair pass and the fold)."""
+    st, config, model, coul, tags = fixtures.charged_fixture(device, capacity)
+    c = coul if "coulomb" in variant else None
+    excl = None if variant == "coulomb" else (tags if "bonds" in variant else tags[:3])
+    before = streaming_kernel.LAUNCHES
+    for energy in (False, True):
+        kw = dict(compute_energy=energy, coulomb=c, excl=excl)
+        fk, ek, wk = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", **kw)
+        fp, ep, wp = streaming_kernel.cell_forces_streaming(st, model, config, backend="torch", **kw)
+        f2, e2, w2 = cell_kernel.cell_forces(st, model, config, backend="cuda", **kw)
+        torch.cuda.synchronize()
+        v = st.valid
+        scale = max(float(fp[v].abs().max()), 1.0)
+        assert float((fk - fp)[v].abs().max()) <= 2e-4 * scale
+        assert float((fk - f2)[v].abs().max()) <= 2e-4 * scale
+        assert bool((fk[~v] == 0).all())
+        if energy:
+            for a, b in ((ek, ep), (wk, wp), (ek, e2), (wk, w2)):
+                assert float((a - b)[v].abs().max()) <= 1e-3
+            assert bool((ek[~v] == 0).all()) and bool((wk[~v] == 0).all())
+    assert streaming_kernel.LAUNCHES == before + 4
+
+
+def test_streaming_molecular_water_rollout_matches_plain_and_reruns_bitwise(device):
+    """The 1,536-atom water box on 'cuda_streaming' (K5c, bonds on the
+    tags) against 'torch' after 20 steps within 2e-3 / 5e-2 and against
+    'cuda' (K2c); two rollouts bitwise equal; two K5c launches a force
+    evaluation."""
+    from emdee_tpu_torch import gather_dense_atoms
+    from emdee_tpu_torch.tools import water
+
+    box, config, model, coul, params = water.water_setup(device, n_side=8, spill=False)
+    st = cell_dense_init(box["positions"], box["velocities"], box["masses"], params, config,
+                         charges=box["charges"], device=device)
+    roll_s, energy_s = water.molecular_sim(box, config, model, coul, params, "cuda_streaming", device)
+    roll_k, _ = water.molecular_sim(box, config, model, coul, params, "cuda", device)
+    roll_p, energy_p = water.molecular_sim(box, config, model, coul, params, "torch", device)
+    before = streaming_kernel.LAUNCHES
+    a = roll_s(st, num_steps=20, rebin_every=5)
+    assert streaming_kernel.LAUNCHES == before + 2 * 22
+    b = roll_s(st, num_steps=20, rebin_every=5)
+    for x, y in zip(a, b):
+        assert (x is None and y is None) or torch.equal(x, y)
+    n = len(box["masses"])
+    pa, va = gather_dense_atoms(a, n)
+    for other in (roll_p(st, num_steps=20, rebin_every=5), roll_k(st, num_steps=20, rebin_every=5)):
+        assert not bool(a.overflow) and not bool(other.overflow)
+        po, vo = gather_dense_atoms(other, n)
+        assert np.abs(pa - po).max() < 2e-3 and np.abs(va - vo).max() < 5e-2
+    pe_s, pe_p = float(energy_s(st)[0]), float(energy_p(st)[0])
+    assert abs(pe_s - pe_p) <= 1e-5 * abs(pe_p) + 1e-2
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2)])
+def test_ghost_mol_kernel_equals_k2c_and_matches_plain(device, shape):
+    """K2c-G (GHOST with DSF and the tags) on the grid's charged fixture,
+    drifted across cell faces and the seam: forces, energies and virials
+    bit for bit the one-card K2c-q's (no bond tags), and within 2e-4 of the
+    force scale and 1e-3 of the plain ghost pass; one launch a call."""
+    from emdee_tpu_torch import make_exclusion_aux_fn
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    st, config, model = fixtures.grid_charged_state(device)
+    v = st.velocities
+    st = st._replace(positions=torch.where(st.valid[..., None], st.positions + (0.45 * 0.3 / float(v.abs().max())) * v, 0.0))
+    kw = fixtures.grid_charged_kwargs(device)
+    tags = make_exclusion_aux_fn(config.num_atoms, *kw["excl_tables"])(st)
+    mesh = make_grid_mesh(shape, device=device)
+    sh = gs.distribute_grid(st, config, mesh)
+    roll_k, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, backend="cuda", **kw)
+    roll_p, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, backend="torch", **kw)
+    before = cell_kernel.LAUNCHES
+    got = roll_k.forces(sh, compute_energy=True)
+    assert cell_kernel.LAUNCHES == before + 1
+    whole = lambda f, e, w: gs.gather_grid_state(sh._replace(positions=f, half_sigma=e, twice_sqrt_eps=w), config, mesh)  # noqa: E731
+    k, p = whole(*got), whole(*roll_p.forces(sh, compute_energy=True))
+    ref = cell_kernel.cell_forces(st, model, config, compute_energy=True, backend="cuda", coulomb=kw["coulomb"],
+                                  excl=tags)
+    for a, b in zip((k.positions, k.half_sigma, k.twice_sqrt_eps), ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    v = st.valid
+    scale = max(float(p.positions[v].abs().max()), 1.0)
+    assert float((k.positions[v] - p.positions[v]).abs().max()) <= 2e-4 * scale
+    assert float((k.half_sigma[v] - p.half_sigma[v]).abs().max()) <= 1e-3
+
+
+def test_grid_molecular_rollout_reruns_bitwise(device):
+    """The triatomic fixture (DSF, tags, bonds and angles as term rows,
+    leftover pairs) on the grid with K2c-G and K6: (1,1,1) and (2,2,2)
+    rerun bitwise and end bitwise equal to each other, within 2e-4 of the
+    plain versions' run; one K2c-G launch a force evaluation, three K6 a
+    rebin."""
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+
+    st, config, model = fixtures.triatomic_state(device)
+    kw = fixtures.triatomic_grid_kwargs(device)
+    outs = {}
+    for shape in ((1, 1, 1), (2, 2, 2)):
+        mesh = make_grid_mesh(shape, device=device)
+        sh = gs.distribute_grid(st, config, mesh)
+        roll, _ = gs.make_grid_sharded_sim(config, model, 1e-3, mesh, **kw)
+        k2, k6_before = cell_kernel.LAUNCHES, k6.LAUNCHES
+        out = roll(sh, num_steps=20, rebin_every=5)
+        assert (cell_kernel.LAUNCHES - k2, k6.LAUNCHES - k6_before) == (22, 12)
+        again = roll(sh, num_steps=20, rebin_every=5)
+        assert all(torch.equal(a, b) for a, b in zip(out, again) if isinstance(a, torch.Tensor))
+        assert not bool(out.overflow)
+        outs[shape] = gs.gather_grid_state(out, config, mesh)
+        if shape == (2, 2, 2):
+            roll_p, _ = gs.make_grid_sharded_sim(config, model, 1e-3, mesh, backend="torch", **kw)
+            plain = gs.gather_grid_state(roll_p(sh, num_steps=20, rebin_every=5), config, mesh)
+            assert torch.equal(plain.atom_id, outs[shape].atom_id)
+            assert float((plain.positions - outs[shape].positions).abs().max()) <= 2e-4
+    a, b = outs[(1, 1, 1)], outs[(2, 2, 2)]
+    assert all(torch.equal(x, y) for x, y in zip(a, b) if isinstance(x, torch.Tensor))

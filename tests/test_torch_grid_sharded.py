@@ -8,7 +8,9 @@ port's side alone: the ghost
 forces' plain version bit for bit equal to the one-card plain forces, the
 decompositions bitwise equal to each other, CSVR NVT against the one-card
 engine, a 2-rank gloo `DistMesh` run bitwise equal to `LocalMesh` (2,1,1),
-and the refused modes."""
+and the modes still refused (Langevin, the barostat and spill configs,
+ROADMAP item 11; the per-shard streaming backend, K5s), with or without
+the molecular terms (tests/test_torch_grid_molecular.py holds those)."""
 
 import jax
 import numpy as np
@@ -234,17 +236,19 @@ def test_refused_modes_raise(energy_case):
     refused = [
         ({"thermostat": LangevinConfig(1.0, 2.0)}, "item 11"),
         ({"barostat": tcd.BerendsenBarostatConfig(0.5, 0.4)}, "item 11"),
-        ({"backend": "cuda_streaming"}, "item 11"),
-        ({"coulomb": object()}, "item 11.2"),
-        ({"excl_tables": object()}, "item 11.2"),
-        ({"bonded": object()}, "item 11.2"),
-        ({"excl_leftover": object()}, "item 11.2"),
+        ({"backend": "cuda_streaming"}, "K5s"),
+        ({"backend": "pallas_streaming"}, "K5s"),
+        ({"thermostat": LangevinConfig(1.0, 2.0), "coulomb": object()}, "item 11"),
+        ({"barostat": tcd.BerendsenBarostatConfig(0.5, 0.4), "excl_tables": object()}, "item 11"),
+        ({"backend": "cuda_streaming", "bonded": object()}, "K5s"),
     ]
     for kwargs, item in refused:
         with pytest.raises(NotImplementedError, match=item):
             gs.make_grid_sharded_sim(config, model, 0.002, mesh, **kwargs)
     with pytest.raises(NotImplementedError, match="item 11"):
         gs.make_grid_sharded_sim(config._replace(spill=True), model, 0.002, mesh)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        gs.make_grid_sharded_sim(config._replace(spill=True), model, 0.002, mesh, excl_leftover=object())
     with pytest.raises(NotImplementedError, match="item 11"):
         gs.reconfigure_grid_state(None, config, mesh)
     if not torch.cuda.is_available():  # the mesh builds on the card unless told otherwise

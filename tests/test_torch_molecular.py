@@ -29,7 +29,6 @@ import torch
 from emdee_tpu.neighbors import cell_dense as jcd
 from emdee_tpu.neighbors import cell_dense_molecular as jmol
 from emdee_tpu.neighbors.pallas_cell_kernel import pallas_cell_forces
-from emdee_tpu.potentials import bonded as jb
 from emdee_tpu.potentials import coulomb as jc
 from emdee_tpu.potentials.lennard_jones import LennardJonesModel as JModel
 from emdee_tpu.potentials.lennard_jones import lennard_jones_atom as jlj
@@ -41,20 +40,13 @@ from emdee_tpu_torch.potentials import coulomb as tc
 from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel as TModel
 from emdee_tpu_torch.potentials.lennard_jones import lennard_jones_atom as tlj
 from emdee_tpu_torch.tools import fixtures
-from torch_port_utils import bits, drifted_state, to_port
+from torch_port_utils import bits, drifted_state, jax_triatomic_bonded, port_tags, to_port
 
 torch.set_num_threads(2)
 
 TMODEL = TModel.create(2.5, 2.0, device="cpu")
 JMODEL = JModel.create(2.5, 2.0)
 STEPS, REBIN_EVERY, DT = 20, 5, 1e-3
-
-
-def _port_tags(tags):
-    """JAX slot tags (ids, mlj, mcs[, bond]) → port tensors."""
-    t = lambda a: None if a is None else torch.from_numpy(np.array(a))  # noqa: E731
-    out = (t(tags[0]), t(tags[1]), t(tags[2]))
-    return out + ((tuple(t(a) for a in tags[3]),) if len(tags) > 3 else ())
 
 
 # ---------------------------------------------------------------------------
@@ -66,14 +58,7 @@ def _triatomic():
     """tests/test_grid_sharded_pallas.py's 125 bent triatomics (A-B-C) on a
     5³ lattice (`tools/fixtures.py`), with JAX's bonded system and config."""
     fx = fixtures.triatomic_arrays()
-    nb, na = len(fx["bond_pairs"]), len(fx["angles"])
-    fx["bonded"] = jb.BondedSystem(
-        bonds=jb.BondTable(jnp.asarray(fx["bond_pairs"], jnp.int32), jnp.full((nb,), fx["bond_r0"], jnp.float32),
-                           jnp.full((nb,), fx["bond_k"], jnp.float32), jnp.ones((nb,), bool)),
-        angles=jb.AngleTable(jnp.asarray(fx["angles"], jnp.int32), jnp.full((na,), fx["angle_theta0"], jnp.float32),
-                             jnp.full((na,), fx["angle_k"], jnp.float32), jnp.ones((na,), bool)),
-        torsions=None, impropers=None,
-    )
+    fx["bonded"] = jax_triatomic_bonded(fx)
     fx["config"] = jcd.suggest_cell_dense_config(fx["n"], fx["box"], cutoff=2.5, switch=2.0, skin=0.3)
     return fx
 
@@ -186,11 +171,11 @@ def test_plain_forces_coulomb_tags_match_jax():
         tabs = jmol.build_exclusion_tables(n, pairs, ljs, scales)
         aux = jmol.make_exclusion_aux_fn(n, *tabs)(st)
         want = jcd.cell_dense_forces(st, JMODEL, config, coul, aux, compute_energy=True)
-        got = tcd.cell_dense_forces(ts, TMODEL, config, tcoul, _port_tags(aux), compute_energy=True)
+        got = tcd.cell_dense_forces(ts, TMODEL, config, tcoul, port_tags(aux), compute_energy=True)
         _close_forces(got, want, valid)
     e0 = tcd.cell_dense_forces(ts, TMODEL, config, tcoul, None, compute_energy=True)[1]
     assert abs(float(torch.where(ts.valid, got[1] - e0, 0.0).sum())) > 1.0
-    f_only = tcd.cell_dense_forces(ts, TMODEL, config, tcoul, _port_tags(aux))
+    f_only = tcd.cell_dense_forces(ts, TMODEL, config, tcoul, port_tags(aux))
     assert f_only[1] is None and torch.equal(f_only[0], got[0])
 
 
@@ -206,9 +191,9 @@ def test_plain_forces_bond_tags_match_pallas_interpret():
                               coulomb=jc.coulomb_consts(coul), excl=aux)
     ts = to_port(st)
     tcoul = tc.coulomb_from_numpy(jax.device_get(coul), "cpu")
-    got = tcd.cell_dense_forces(ts, TMODEL, config, tcoul, _port_tags(aux), compute_energy=True)
+    got = tcd.cell_dense_forces(ts, TMODEL, config, tcoul, port_tags(aux), compute_energy=True)
     _close_forces(got, want, np.asarray(st.valid))
-    no_bond = tcd.cell_dense_forces(ts, TMODEL, config, tcoul, _port_tags(aux[:3]))[0]
+    no_bond = tcd.cell_dense_forces(ts, TMODEL, config, tcoul, port_tags(aux[:3]))[0]
     assert float((got[0] - no_bond).abs().max()) > 1.0
 
 

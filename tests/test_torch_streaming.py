@@ -142,8 +142,8 @@ def test_cuda_streaming_raises_on_cpu_tensors():
 
 
 def test_streaming_kernel_refuses_geometry_it_cannot_take():
-    with pytest.raises(ValueError, match="C ≤ 64"):
-        streaming_kernel._check_geometry(CONFIG._replace(capacity=72), energy=False)
+    with pytest.raises(ValueError, match="C ≤ 96"):
+        streaming_kernel._check_geometry(CONFIG._replace(capacity=104), energy=False)
     with pytest.raises(ValueError, match="shared memory"):
         streaming_kernel._check_geometry(CONFIG._replace(cells_per_dim=300), energy=True)
     streaming_kernel._check_geometry(_config(1_000_188)[1], energy=True)

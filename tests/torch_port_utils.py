@@ -79,3 +79,27 @@ def spill_lattice_setup(seed=9, skin=0.3):
     params = lennard_jones_atom(np.ones(1728), np.ones(1728))
     config = jcd.suggest_cell_dense_config(1728, box, cutoff=2.5, switch=2.0, skin=skin, spill=True)
     return pos, vel, params, config, LennardJonesModel.create(2.5, 2.0)
+
+
+def port_tags(tags):
+    """JAX slot tags (ids, mlj, mcs[, bond]) → port CPU tensors."""
+    import torch
+
+    t = lambda a: None if a is None else torch.from_numpy(np.array(a))  # noqa: E731
+    out = (t(tags[0]), t(tags[1]), t(tags[2]))
+    return out + ((tuple(t(a) for a in tags[3]),) if len(tags) > 3 else ())
+
+
+def jax_triatomic_bonded(fx):
+    """The triatomic fixture's bonds and angles (`tools/fixtures.py`
+    `triatomic_arrays`) as the JAX package's `BondedSystem`."""
+    from emdee_tpu.potentials import bonded as jb
+
+    nb, na = len(fx["bond_pairs"]), len(fx["angles"])
+    return jb.BondedSystem(
+        bonds=jb.BondTable(jnp.asarray(fx["bond_pairs"], jnp.int32), jnp.full((nb,), fx["bond_r0"], jnp.float32),
+                           jnp.full((nb,), fx["bond_k"], jnp.float32), jnp.ones((nb,), bool)),
+        angles=jb.AngleTable(jnp.asarray(fx["angles"], jnp.int32), jnp.full((na,), fx["angle_theta0"], jnp.float32),
+                             jnp.full((na,), fx["angle_k"], jnp.float32), jnp.ones((na,), bool)),
+        torsions=None, impropers=None,
+    )
