@@ -71,7 +71,17 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   100), and a short stacked per-atom rollout at the same size;
 - the 985,527-atom water box (69³ waters, M = 26, C = 88) on
   `backend="auto"` (K5c): one K5c and one K2c launch timed and held to
-  each other, and a gated 200-step NVE window from the lattice start.
+  each other, and a gated 200-step NVE window from the lattice start;
+- the grid engine's streaming family (K5s: the streaming kernel's GHOST
+  mode and the reverse fold) at full width: the 1M melt on (1,1,1), M = 37,
+  C = 32, through `backend="auto"` (asserted to resolve to K5s; 1,000 gated
+  steps), and at M = 36 on (2,1,1) (`'auto'`, K5s) and (2,2,2)
+  (`backend="cuda_streaming"` named), each against K5s's plain version,
+  the one-card K5 and the other decompositions; the 985,527-atom water box
+  on (2,2,2) `'auto'` (K5s-mol; 200 gated steps from the lattice start);
+- the grid's Langevin and Berendsen NPT (on K2-G's and on K5s's energy
+  pass) on the 97,556-atom melt at (2,2,2), M = 16, and
+  `reconfigure_grid_state` on the NPT end state.
 
 Last, the two TPU probes of tools/ (P1, an fma chain shaped like the force
 kernel; P2, the centre-expansion product in two layouts) against their plain
@@ -114,7 +124,7 @@ import torch
 
 from emdee_tpu_torch.tools.melt import (
     CUTOFF, DT, FRICTION, KAPPA, N_CELLS_1M, P_NPT, SKIN, SWITCH, T_NVT, TAU_P, TAU_T,
-    equilibrate, melt, spill_config, straggler_config,
+    equilibrate, even_config, melt, spill_config, straggler_config,
 )
 
 DRIFT_GATE = 3e-5
@@ -445,7 +455,9 @@ def phase_1m(device, tag):
     which must resolve to the streaming family: equilibrate, then the gated
     1,000-step component-carry rollout (overflow, drift, K5 and K4 launch
     counts), bitwise reruns, and a short stacked per-atom rollout.  Returns
-    {path: launch counts} and the rollout's ms/step."""
+    {path: launch counts}, the rollout's ms/step and the equilibrated melt
+    (positions, velocities, rebin interval, config, model, params, uniform
+    params) for the grid's 1M phase."""
     from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim, resolve_dense_backend
 
     state, config, model, params, uni, n = melt(device, N_CELLS_1M)
@@ -482,7 +494,8 @@ def phase_1m(device, tag):
     bitwise_rerun("1M stacked path", roll_s, st0, 50, k)
     log(f"{tag} 1M stacked path (per-atom params, K5): {steps_s} steps, {1e3 * sec_s / steps_s:.4f} ms/step; "
         f"NVE drift {drift_s:.3e}; launches {counts_s}; two 50-step rollouts bitwise equal")
-    return {"dense_1m": counts, "stacked_1m": counts_s}, ms
+    eq = dict(pos=pos_eq, vel=vel_eq, k=k, config=config, model=model, params=params, uni=uni)
+    return {"dense_1m": counts, "stacked_1m": counts_s}, ms, eq
 
 
 def counters():
@@ -1663,7 +1676,8 @@ def phase_water_1m(device, tag):
     K5c and one K2c launch timed, K5c held to K2c within MOL_FORCE_GATE of
     the force scale (the plain version is not run at this size); a gated
     NVE window of 200 steps from the lattice start (no flag, drift ≤ 1e-4,
-    exact launches).  Returns (row fields, counts, ms/step)."""
+    exact launches).  Returns (row fields, counts, ms/step, the box's set-up
+    for the grid's 1M water phase)."""
     from emdee_tpu_torch import cell_dense_init, resolve_dense_backend
     from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
     from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
@@ -1709,7 +1723,7 @@ def phase_water_1m(device, tag):
     row = {"n1m_water_ms": k_ms, "n1m_water_k2c_ms": k2_ms, "n1m_water_bound_ms": b_ms,
            "n1m_water_vs_k2c_max_abs_err": err, "n1m_water_force_scale": scale, "n1m_water_ms_per_step": ms,
            "n1m_water_drift": drift, "n1m_water_pairs": pairs}
-    return row, {"water_1m": counts}, ms
+    return row, {"water_1m": counts}, ms, dict(box=box, cfg=cfg, model=model, coul=coul, st=st)
 
 
 def nccl_vs_local_mesh(label, config, model, dt, st, kwargs, steps, rebin_every, device):
@@ -1741,16 +1755,345 @@ def nccl_vs_local_mesh(label, config, model, dt, st, kwargs, steps, rebin_every,
         raise AssertionError(f"{label}: the NCCL DistMesh run differs from the LocalMesh run")
 
 
-def ghost_stack(sh, mesh):
-    """The molecular ghost grids of a grid-sharded state, as the grid
-    engine builds them: x, y, z (NaN in empty slots), σ/2, 2√ε, q and the
-    atom ids (−2 on empty slots) as a float32 bit view."""
+def ghost_stack(sh, mesh, per_atom=True, mol=True):
+    """The ghost grids of a grid-sharded state, as the grid engine builds
+    them: x, y, z (NaN in empty slots), with `per_atom` σ/2 and 2√ε, with
+    `mol` q and the atom ids (−2 on empty slots) as a float32 bit view."""
     from emdee_tpu_torch.distributed.grid_sharded import _ghost3
 
-    pos3 = sh.positions.movedim(-1, 0)
-    parts = [torch.where(sh.valid, pos3, float("nan")), sh.half_sigma[None], sh.twice_sqrt_eps[None],
-             sh.charges[None], torch.where(sh.valid, sh.atom_id, -2).view(torch.float32)[None]]
+    parts = [torch.where(sh.valid, sh.positions.movedim(-1, 0), float("nan"))]
+    if per_atom:
+        parts += [sh.half_sigma[None], sh.twice_sqrt_eps[None]]
+    if mol:
+        parts += [sh.charges[None], torch.where(sh.valid, sh.atom_id, -2).view(torch.float32)[None]]
     return _ghost3(torch.cat(parts), mesh)
+
+
+# ---------------------------------------------------------------------------
+# The streaming kernel on the grid's shards (K5s) and the grid's ensembles
+# ---------------------------------------------------------------------------
+
+GRID_1M_STEPS = 1000  # the (1,1,1) window at 1M, bench.py's length
+GRID_1M_SHORT = 200  # the M = 36 windows
+
+
+def k5s_check(label, sh, mesh, cfg, model, one_card, gate, e_gate, w_gate, rtol, **kw):
+    """K5s on a grid-sharded state vs its plain version before the fold
+    (interior forces, the reaction ghost grid, per-slot energies and
+    virials) and, after the fold, vs the one-card forces `one_card` (M³, C,
+    3); empty slots exactly 0.  Returns (max |dF| vs plain, max |dF| vs one
+    card, force scale, max |dE|/|dW| vs plain, ghost slots, own slots).
+    Energies within e_gate + rtol·|E|, virials within w_gate + rtol·|W|."""
+    from emdee_tpu_torch.distributed.grid_sharded import _fold3, gather_grid_state
+    from emdee_tpu_torch.neighbors.streaming_kernel import streaming_ghost_forces
+
+    gh = ghost_stack(sh, mesh, kw.get("uniform_params") is None, kw.get("coulomb") is not None)
+    call = lambda be, e: streaming_ghost_forces(gh, mesh.local_shape, mesh.base, cfg, model,  # noqa: E731
+                                                compute_energy=e, backend=be, **kw)
+    fk, rk, ek, wk = call("cuda", True)
+    fp, rp, ep, wp = call("torch", True)
+    torch.cuda.synchronize()
+    v = sh.valid
+    scale = max(float(fp.movedim(0, -1)[v].abs().max()), 1.0)
+    err = max(close(f"{label} K5s vs plain forces", fk.movedim(0, -1)[v], fp.movedim(0, -1)[v], atol=gate * scale),
+              close(f"{label} K5s vs plain reaction ghosts", rk[:3], rp[:3], atol=gate * scale))
+    err_e = max(close(f"{label} K5s vs plain energies", ek[v], ep[v], atol=e_gate, rtol=rtol),
+                close(f"{label} K5s vs plain virials", wk[v], wp[v], atol=w_gate, rtol=rtol),
+                close(f"{label} K5s vs plain energy reaction ghosts", rk[3], rp[3], atol=e_gate, rtol=rtol),
+                close(f"{label} K5s vs plain virial reaction ghosts", rk[4], rp[4], atol=w_gate, rtol=rtol))
+    if bool(fk.movedim(0, -1)[~v].any()) or bool(ek[~v].any()) or bool(rk.movedim(0, -1)[torch.isnan(gh[0])].any()):
+        raise AssertionError(f"{label}: K5s wrote nonzero values on empty slots")
+    fk = call("cuda", False)
+    total = fk[0] + _fold3(fk[1], mesh)
+    whole = gather_grid_state(sh._replace(positions=total.movedim(0, -1)), cfg, mesh)
+    vs_one = close(f"{label} K5s + fold vs the one-card kernel", whole.positions[whole.valid], one_card[whole.valid],
+                   atol=gate * scale)
+    return err, vs_one, scale, err_e, int(gh[0].numel()), int(v.numel())
+
+
+def k5s_times(sh, mesh, cfg, model, reps, **kw):
+    """Device times of K5s (the pair pass and the assembly), of its energy
+    variant, of the plain version, of the fold alone, and of the resident
+    GHOST kernel (K2-G) on the same ghost grids, in ms."""
+    from emdee_tpu_torch.distributed.grid_sharded import _fold3
+    from emdee_tpu_torch.neighbors.cell_kernel import ghost_forces
+    from emdee_tpu_torch.neighbors.streaming_kernel import streaming_ghost_forces
+
+    gh = ghost_stack(sh, mesh, kw.get("uniform_params") is None, kw.get("coulomb") is not None)
+    args = (gh, mesh.local_shape, mesh.base, cfg, model)
+    react = streaming_ghost_forces(*args, backend="cuda", **kw)[1]
+    return dict(
+        ms=cuda_ms(lambda: streaming_ghost_forces(*args, backend="cuda", **kw), reps),
+        energy_ms=cuda_ms(lambda: streaming_ghost_forces(*args, backend="cuda", compute_energy=True, **kw), reps),
+        plain_ms=cuda_ms(lambda: streaming_ghost_forces(*args, backend="torch", **kw), 2),
+        fold_ms=cuda_ms(lambda: _fold3(react, mesh), reps),
+        k2g_ms=cuda_ms(lambda: ghost_forces(*args, backend="cuda", **kw), reps),
+    )
+
+
+def k5s_bound(pairs, ops_per_pair, ghost_slots, own_slots, in_fields, in_bytes=0):
+    """(bound ms, what bounds it) of K5s and the fold, forces only: the
+    pairs inside the cutoff at 67 TFLOP/s against the bytes at 3.35 TB/s —
+    the ghost grids' `in_fields` float32 fields (and `in_bytes` more) read
+    once, the interior forces and the reaction ghost grid written once, and
+    the fold reading the ghost slots' reactions and writing as many into
+    the boundary layers."""
+    nbytes = in_bytes + 4 * (in_fields * ghost_slots + 3 * own_slots + 3 * ghost_slots + 6 * (ghost_slots - own_slots))
+    return bound(nbytes, ops_per_pair * pairs)
+
+
+def phase_grid_1m(device, tag, eq):
+    """bench_all.py's 1M melt on the grid engine (every shard on the card):
+    (1,1,1) at M = 37, C = 32 on 'auto', which must resolve to the streaming
+    family (K5s + the fold); then M = 36, C = 40 (`melt.even_config`) on
+    (2,1,1) 'auto' (K5s again) and on (2,2,2) with backend="cuda_streaming"
+    named ('auto' gives K2-G there).  Gates: K5s
+    vs its plain version (2e-5 of the force scale) and, after the fold, vs
+    the one-card K5; E and W within rtol 1e-5 of the dense closure; the
+    decompositions' forces by atom within 2e-5 of the scale; 1,000 NVE
+    steps on (1,1,1) (no flag, drift ≤ 3e-5, exact launches: two K5s a force
+    evaluation, three K6 a rebin), 200 on each M = 36 mesh; reruns bitwise;
+    no host waits.  Returns (row fields, {path: counts}, {path: ms/step})."""
+    from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim
+    from emdee_tpu_torch.distributed.grid_sharded import (
+        distribute_grid, gather_grid_state, grid_vmem_estimate, make_grid_sharded_sim,
+    )
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
+
+    config, model, params, uni, k = eq["config"], eq["model"], eq["params"], eq["uni"], eq["k"]
+    n = config.num_atoms
+    st37 = cell_dense_init(eq["pos"], eq["vel"], np.ones(n), params, config, device=device)
+    cfg36 = even_config(st37, config)
+    st36 = cell_dense_init(eq["pos"], eq["vel"], np.ones(n), params, cfg36, device=device)
+    if (cfg36.cells_per_dim, cfg36.capacity) != (36, 40) or bool(st36.overflow):
+        raise AssertionError(f"1M grid config: M={cfg36.cells_per_dim} C={cfg36.capacity}, "
+                             f"overflow {bool(st36.overflow)}")
+    runs = [((1, 1, 1), config, st37, "auto"), ((2, 1, 1), cfg36, st36, "auto"),
+            ((2, 2, 2), cfg36, st36, "cuda_streaming")]
+    row, counts, ms, forces_by_atom = {}, {}, {}, {}
+    err = vs_one = err_e = 0.0
+    for shape, cfg, st, backend in runs:
+        name = f"grid_1m_{''.join(map(str, shape))}_m{cfg.cells_per_dim}"
+        label = f"1M grid {shape} M={cfg.cells_per_dim} C={cfg.capacity}"
+        mesh = make_grid_mesh(shape, device=device)
+        roll, energy = make_grid_sharded_sim(cfg, model, DT, mesh, backend=backend, uniform_params=uni)
+        est = grid_vmem_estimate(cfg, mesh, uni)
+        if roll.family != "cuda_streaming":
+            raise AssertionError(f"{label}: backend {backend!r} resolves to {roll.family!r} (estimate {est / 1e6:.2f} MB)")
+        sd = drifted(st, SKIN)
+        sh = distribute_grid(sd, cfg, mesh)
+        one = cell_forces_streaming(sd, model, cfg, backend="cuda", uniform_params=uni)[0]
+        e, o, scale, ee, ghost_slots, own_slots = k5s_check(label, sh, mesh, cfg, model, one, 2e-5, 1e-4, 2e-3,
+                                                            1e-4, uniform_params=uni)
+        err, vs_one, err_e = max(err, e), max(vs_one, o), max(err_e, ee)
+        f_grid = gather_grid_state(sh._replace(positions=roll.forces(sh)[0]), cfg, mesh)
+        forces_by_atom[name] = (by_atom(f_grid, f_grid.positions, n), scale)
+        d_energy = make_cell_dense_sim(cfg, model, dt=DT, uniform_params=uni, uniform_mass=1.0)[1]
+        sg = distribute_grid(st, cfg, mesh)
+        for a, b, what in zip(energy(sg), d_energy(st), ("pe", "virial", "ke")):
+            close(f"{label} {what} vs the dense energy closure", a, b, atol=0.0, rtol=1e-5)
+        t = k5s_times(sh, mesh, cfg, model, 10, uniform_params=uni)
+        t["pass_ms"] = cuda_ms(lambda: roll.forces(sh), 10)
+        px, py, pz = (sd.positions[..., i].contiguous() for i in range(3))
+        pairs = grid_pairs(px, py, pz, sd.valid, cfg)
+        t["bound_ms"], t["bound_by"] = k5s_bound(pairs, OPS_PER_PAIR, ghost_slots, own_slots, 3)
+        steps = GRID_1M_STEPS if shape == (1, 1, 1) else GRID_1M_SHORT
+        roll(sg, num_steps=2 * k, rebin_every=k)  # warm-up
+        _, sec, drift, c = gate_rollout(label, roll, energy, sg, steps, k,
+                                        launches(cell_forces_streaming=2 * (steps + 4),
+                                                 rebin_window=3 * -(-steps // k)))
+        bitwise_rerun(label, roll, sg, 100 if shape == (1, 1, 1) else 50, k)
+        no_host_waits(label, lambda: roll(sg, num_steps=2 * k, rebin_every=k))
+        counts[name], ms[name] = c, 1e3 * sec / steps
+        row[name] = {**t, "pairs": pairs, "estimate_mb": est / 1e6, "force_scale": scale}
+        log(f"{tag} {label} (LocalMesh, uniform params, backend {backend!r} -> {roll.family!r}, per-shard "
+            f"estimate {est / 1e6:.2f} MB): K5s vs plain max |dF| {e:.3e}, + fold vs one-card K5 {o:.3e} "
+            f"(scale {scale:.2f}); E, W vs the dense closure in rtol 1e-5; K5s {t['ms']:.4f} ms (2 launches), "
+            f"energy variant {t['energy_ms']:.4f}, plain {t['plain_ms']:.3f}, fold {t['fold_ms']:.4f}, the force "
+            f"pass with halo and fold {t['pass_ms']:.4f}, K2-G on the same ghost grids {t['k2g_ms']:.4f} ms; bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {pairs:,} pairs inside the cutoff); {steps} NVE steps in "
+            f"{sec:.3f} s = {ms[name]:.4f} ms/step, drift {drift:.3e}; launches {c}; reruns bitwise; no host waits")
+    names = list(forces_by_atom)
+    first, scale = forces_by_atom[names[0]]
+    decomp = max(close(f"1M grid forces by atom {a} vs {names[0]}", forces_by_atom[a][0], first,
+                       atol=2e-5 * scale) for a in names[1:])
+    log(f"{tag} 1M grid: forces by atom of {', '.join(names)} agree to max |dF| {decomp:.3e} (gate 2e-5 of the "
+        "scale; the fold's order, not bit for bit)")
+    return dict(runs=row, max_abs_err=err, vs_one_card=vs_one, energy_err=err_e, decomp_err=decomp), counts, ms
+
+
+def phase_grid_water_1m(device, tag, w1m):
+    """The 985,527-atom water box (M = 26, C = 88) on the grid (2,2,2) on
+    'auto', which must resolve to the streaming family's molecular branches
+    (K5s-mol: DSF + tags; bonds and angles as term rows), from the lattice
+    start: K5s-mol vs its plain version within 2e-4 of the force scale and
+    1e-3 kJ/mol in E and W, after the fold vs the one-card K5c the same;
+    200 gated NVE steps (drift ≤ 1e-4, no flag, exact launches), reruns
+    bitwise.  Returns (row fields, counts, ms/step)."""
+    from emdee_tpu_torch import build_exclusion_tables, make_exclusion_aux_fn
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, grid_vmem_estimate, make_grid_sharded_sim
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
+    from emdee_tpu_torch.tools import water
+
+    box, cfg, model, coul, st = w1m["box"], w1m["cfg"], w1m["model"], w1m["coul"], w1m["st"]
+    n = len(box["masses"])
+    tabs = build_exclusion_tables(n, box["exclusion_pairs"], box["exclusion_scales"], None)
+    aux = make_exclusion_aux_fn(n, *tabs)
+    mesh = make_grid_mesh((2, 2, 2), device=device)
+    roll, energy = make_grid_sharded_sim(cfg, model, water.DT, mesh, coulomb=coul, excl_tables=tabs,
+                                         bonded=water.bonded_system(box, device))
+    est = grid_vmem_estimate(cfg, mesh, None, True, True)
+    if roll.family != "cuda_streaming":
+        raise AssertionError(f"1M water grid: 'auto' resolves to {roll.family!r} (estimate {est / 1e6:.2f} MB)")
+    sh = distribute_grid(st, cfg, mesh)
+    one = cell_forces_streaming(st, model, cfg, backend="cuda", coulomb=coul, excl=aux(st))[0]
+    err, vs_one, scale, err_e, ghost_slots, own_slots = k5s_check(
+        "1M water grid (2,2,2)", sh, mesh, cfg, model, one, MOL_FORCE_GATE, MOL_E_GATE, MOL_E_GATE, 0.0,
+        coulomb=coul, excl=aux(sh)[:3])
+    t = k5s_times(sh, mesh, cfg, model, 5, coulomb=coul, excl=aux(sh)[:3])
+    t["pass_ms"] = cuda_ms(lambda: roll.forces(sh), 5)
+    e_tags = int(tabs[0].shape[-1])
+    pairs = mol_pairs(st, cfg, box["bonds"], box["box"])[0]
+    # Bytes: the ghost grids' 7 fields and the own slots' tags (12E a slot) in.
+    t["bound_ms"], t["bound_by"] = k5s_bound(pairs, OPS_PER_PAIR + OPS_MIX + OPS_DSF_FORCE + 3 * e_tags,
+                                             ghost_slots, own_slots, 7, 12 * e_tags * own_slots)
+    steps = WATER_1M_STEPS
+    roll(sh, num_steps=WATER_REBIN, rebin_every=WATER_REBIN)  # warm-up
+    _, sec, drift, counts = gate_rollout(
+        "1M water grid (2,2,2)", roll, energy, sh, steps, WATER_REBIN,
+        launches(cell_forces_streaming=2 * (steps + 4), rebin_window=3 * -(-steps // WATER_REBIN)),
+        drift_gate=WATER_DRIFT_GATE,
+    )
+    bitwise_rerun("1M water grid (2,2,2)", roll, sh, 2 * WATER_REBIN, WATER_REBIN)
+    ms = 1e3 * sec / steps
+    log(f"{tag} 1M water grid (2,2,2) (M={cfg.cells_per_dim} C={cfg.capacity}, 'auto' -> {roll.family!r}, "
+        f"per-shard estimate {est / 1e6:.2f} MB): K5s-mol vs plain max |dF| {err:.3e} (scale {scale:.1f}), "
+        f"|dE|, |dW| {err_e:.3e}; + fold vs the one-card K5c {vs_one:.3e}; K5s-mol {t['ms']:.4f} ms (2 launches), "
+        f"energy variant {t['energy_ms']:.4f}, plain {t['plain_ms']:.3f}, fold {t['fold_ms']:.4f}, the force pass "
+        f"with halo, fold and term rows {t['pass_ms']:.4f}, K2c-G on the same ghost grids {t['k2g_ms']:.4f} ms; "
+        f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}; {pairs:,} pairs inside the cutoff); {steps} NVE steps "
+        f"from the lattice start in {sec:.3f} s = {ms:.4f} ms/step, drift {drift:.3e} (gate {WATER_DRIFT_GATE}); "
+        f"launches {counts}; reruns bitwise")
+    row = {**t, "max_abs_err": err, "vs_one_card": vs_one, "energy_err": err_e, "force_scale": scale,
+           "pairs": pairs, "estimate_mb": est / 1e6, "ms_per_step": ms, "drift": drift}
+    return row, {"grid_water_1m_222": counts}, ms
+
+
+def phase_grid_ensembles(device, tag, config, model, uni, pos_eq, vel_eq, params):
+    """Langevin, Berendsen NPT and `reconfigure_grid_state` on the grid
+    engine, (2,2,2), at the 97,556-atom melt's M = 16, C = 40
+    (`reconfigure_dense_state(cells_multiple_of=2)`): Langevin (friction
+    2.0) 1,000 steps, mean T* of the last 500 within 2%; CSVR 500 steps,
+    then NPT (CSVR + Berendsen P* = 0.5) 1,000 steps on 'auto' (K2-G's
+    energy pass for the pressure) and on 'cuda_streaming' (K5s's): the box
+    grows by more than 1% and half the pressure gap closes; launches exact;
+    seeded reruns bitwise and another seed differs; no host waits; then
+    `reconfigure_grid_state` on the NPT end state and 100 more NPT steps
+    with no flag.  Returns ({path: counts}, {path: ms/step})."""
+    from emdee_tpu_torch import (
+        BerendsenBarostatConfig, CSVRConfig, LangevinConfig, cell_dense_init, reconfigure_dense_state,
+        suggest_rebin_interval,
+    )
+    from emdee_tpu_torch.distributed.grid_sharded import (
+        distribute_grid, gather_grid_atoms, make_grid_sharded_sim, reconfigure_grid_state,
+    )
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    n = config.num_atoms
+    k = suggest_rebin_interval(SKIN, DT, T_NVT)
+    st16, cfg = reconfigure_dense_state(cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device),
+                                        config, cells_multiple_of=2)
+    mesh = make_grid_mesh((2, 2, 2), device=device)
+    sh = distribute_grid(st16, cfg, mesh)
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)  # noqa: E731
+    counts, ms = {}, {}
+
+    def window(label, name, roll, st0, steps, expected, chunk=None, seed=7):
+        """`steps` steps from st0 (in chunks of `chunk`, the temperature read
+        after each) with every launch counter set to 0 just before; gates
+        the flag and the launches; reruns and host waits."""
+        roll(st0, num_steps=2 * k, rebin_every=k, rng=gen(1))  # warm-up
+        mods = counters()
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+        g, out, temps = gen(seed), st0, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps // (chunk or steps)):
+            out = roll(out, num_steps=chunk or steps, rebin_every=k, rng=g)
+            if chunk:
+                temps.append(2.0 * kinetic(out) / (3.0 * n - 3.0))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        c = {name_: mod.LAUNCHES for name_, mod in mods.items()}
+        if bool(out.overflow) or c != expected:
+            raise AssertionError(f"{label}: overflow {bool(out.overflow)}, launches {c}, expected {expected}")
+        bitwise_rerun(label, roll, st0, 50, k, seed=11)
+        no_host_waits(label, lambda: roll(st0, num_steps=2 * k, rebin_every=k, rng=gen(3)))
+        counts[name], ms[name] = c, 1e3 * sec / steps
+        return out, torch.stack(temps) if temps else None
+
+    def kinetic(s):  # on the device: the rollout's chunks are not synchronised
+        return 0.5 * torch.sum(torch.where(s.valid[..., None], s.velocities**2 / s.inv_masses[..., None].clamp(min=1e-30),
+                                           0.0))
+
+    # Langevin: 1,000 steps, T* read every 50.
+    lang, _ = make_grid_sharded_sim(cfg, model, DT, mesh, uniform_params=uni,
+                                    thermostat=LangevinConfig(T_NVT, FRICTION))
+    steps, chunk = 1000, 50
+    expected = launches(cell_forces=steps + steps // chunk, rebin_window=3 * (steps // chunk) * -(-chunk // k))
+    _, temps = window("grid Langevin (2,2,2)", "grid_222_m16_langevin", lang, sh, steps, expected, chunk)
+    t_last = float(temps[len(temps) // 2:].double().mean())
+    if not abs(t_last / T_NVT - 1.0) <= T_GATE:
+        raise AssertionError(f"grid Langevin: mean T* of the last 500 steps {t_last:.4f}, target {T_NVT}")
+    log(f"{tag} grid Langevin (2,2,2) M={cfg.cells_per_dim} C={cfg.capacity} (friction {FRICTION}, global noise "
+        f"field cut to the shards): {steps} steps, {ms['grid_222_m16_langevin']:.4f} ms/step; mean T* of the last "
+        f"500 steps {t_last:.4f} (gate {T_GATE:.0%} of {T_NVT}); launches {counts['grid_222_m16_langevin']}; "
+        "reruns from one seed bitwise equal, another seed differs; no host waits")
+
+    # CSVR to the target, then NPT on both energy passes.
+    csvr = CSVRConfig(T_NVT, TAU_T)
+    nvt, energy = make_grid_sharded_sim(cfg, model, DT, mesh, uniform_params=uni, thermostat=csvr)
+    st_nvt = nvt(sh, num_steps=500, rebin_every=k, rng=gen(5))
+    p0 = pressure(energy, st_nvt, cfg)
+    steps, blocks = 1000, -(-1000 // k)
+    baro = BerendsenBarostatConfig(P_NPT, TAU_P, KAPPA)
+    for backend in ("auto", "cuda_streaming"):
+        npt, _ = make_grid_sharded_sim(cfg, model, DT, mesh, uniform_params=uni, thermostat=csvr, barostat=baro,
+                                       backend=backend)
+        kernel = "cell_forces" if npt.family == "cuda" else "cell_forces_streaming"
+        per = 1 if npt.family == "cuda" else 2
+        name = f"grid_222_m16_npt_{npt.family}"
+        expected = launches(**{kernel: per * (1 + steps + blocks)}, rebin_window=3 * blocks)
+        out, _ = window(f"grid NPT (2,2,2) on {npt.family!r}", name, npt, st_nvt, steps, expected)
+        p1 = pressure(energy, out, cfg)
+        grew = float(out.box) / cfg.box - 1.0
+        if not (grew > 0.01 and abs(p1 - P_NPT) < 0.5 * abs(p0 - P_NPT)):
+            raise AssertionError(f"grid NPT on {npt.family!r}: box grew {grew:.4f}, P* {p0:.4f} -> {p1:.4f}")
+        log(f"{tag} grid NPT (2,2,2) on {backend!r} -> {npt.family!r} (the pressure from "
+            f"{'K2-G' if npt.family == 'cuda' else 'K5s'}'s energy pass): {steps} steps, {ms[name]:.4f} ms/step; "
+            f"P* {p0:.4f} -> {p1:.4f} (target {P_NPT}), box {cfg.box:.4f} -> {float(out.box):.4f} "
+            f"({100 * grew:+.2f}%); launches {counts[name]}; reruns from one seed bitwise equal, another seed "
+            "differs; no host waits")
+
+    # The geometry re-derive on the NPT end state, and a continued run.
+    p_a, v_a = gather_grid_atoms(out, cfg, n, mesh)
+    st2, cfg2 = reconfigure_grid_state(out, cfg, mesh)
+    p_b, v_b = gather_grid_atoms(st2, cfg2, n, mesh)
+    box2 = np.float32(cfg2.box)
+    wrap = lambda p: p - np.floor(p / box2) * box2  # noqa: E731
+    if not (np.array_equal(v_a, v_b) and np.array_equal(wrap(p_a), wrap(p_b))) or bool(st2.overflow):
+        raise AssertionError("reconfigure_grid_state: the atoms changed, or the re-init overflowed")
+    npt2, _ = make_grid_sharded_sim(cfg2, model, DT, mesh, uniform_params=uni, thermostat=csvr, barostat=baro)
+    cont = npt2(st2, num_steps=100, rebin_every=k, rng=gen(9))
+    if bool(cont.overflow):
+        raise AssertionError("reconfigure_grid_state: the continued NPT run flagged")
+    log(f"{tag} reconfigure_grid_state on the NPT end state: M={cfg.cells_per_dim} C={cfg.capacity} -> "
+        f"M={cfg2.cells_per_dim} C={cfg2.capacity} at box {cfg2.box:.4f}; every atom's position (up to the wrap) "
+        f"and velocity survive exactly; 100 more NPT steps on {npt2.family!r}: no flag, box {float(cont.box):.4f}")
+    return counts, ms
 
 
 def phase_grid_water(device, tag, w, dense_drift):
@@ -2065,25 +2408,42 @@ def main() -> None:
     # ---- the grid-sharded engine (virtual shards on this card) ----
     counts_grid, grid_ms, grid_err = phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_ms)
     force["max_abs_err"] = max(force["max_abs_err"], grid_err)
+    counts_ens, ens_ms = phase_grid_ensembles(device, tag, config, model, uni, pos_eq, vel_eq, params)
+    log(f"{smi}: grid ensembles ms/step at {n} atoms, (2,2,2) M=16: "
+        + ", ".join(f"{p} {v:.4f}" for p, v in ens_ms.items()))
 
     # ---- bench_all.py's 1M melt: the streaming kernel family ----
     k5, k2_1m = phase_streaming(device, tag, N_CELLS_1M)
-    counts_1m, ms_1m = phase_1m(device, tag)
+    counts_1m, ms_1m, eq_1m = phase_1m(device, tag)
     log(f"{smi}: 1M path {ms_1m:.4f} ms/step ({1_000_188 * 1e3 / ms_1m:,.0f} atom-steps/s); K5 vs K2 split "
         f"{k5['ms']:.4f} vs {k2_1m['k2_split_ms']:.4f} ms at 1M, {k5_97k['ms']:.4f} vs "
         f"{k2_97k['k2_split_ms']:.4f} ms at 97,556 atoms")
-    water_1m_row, counts_water_1m, water_1m_ms = phase_water_1m(device, tag)
+    k5s, counts_grid_1m, grid_1m_ms = phase_grid_1m(device, tag, eq_1m)
+    del eq_1m
+    log(f"{smi}: 1M grid ms/step " + ", ".join(f"{p} {v:.4f}" for p, v in grid_1m_ms.items())
+        + f" vs the dense 1M path {ms_1m:.4f}")
+    water_1m_row, counts_water_1m, water_1m_ms, w1m = phase_water_1m(device, tag)
     k5c_row.update(water_1m_row)
     log(f"{smi}: 1M water path ('auto', K5c) {water_1m_ms:.4f} ms/step ({985_527 * 1e3 / water_1m_ms:,.0f} "
         f"atom-steps/s); K5c step launch {water_1m_row['n1m_water_ms']:.4f} ms vs K2c "
         f"{water_1m_row['n1m_water_k2c_ms']:.4f} ms")
+    k5s_mol, counts_grid_water_1m, grid_water_1m_ms = phase_grid_water_1m(device, tag, w1m)
+    del w1m
+    log(f"{smi}: 1M water grid (2,2,2) ('auto', K5s-mol) {grid_water_1m_ms:.4f} ms/step vs the one-card 'auto' "
+        f"(K5c) {water_1m_ms:.4f}")
 
     p1, p2 = phase_probes(device, tag)
 
     paths = {"dense": main_counts, "straggler": s_counts, **counts_spill, **counts_thermo, **counts_grid,
-             **counts_1m, **counts_water, **counts_auto, **counts_water_1m, **counts_grid_water}
-    # The molecular paths' K5c and K2c-G launches count in their own rows.
-    mol_paths = {"cell_forces": set(counts_grid_water), "cell_forces_streaming": set(counts_auto) | set(counts_water_1m)}
+             **counts_1m, **counts_water, **counts_auto, **counts_water_1m, **counts_grid_water, **counts_ens,
+             **counts_grid_1m, **counts_grid_water_1m}
+    # The K5s paths: the streaming kernel's GHOST mode, counted in streaming_kernel.LAUNCHES.
+    k5s_paths = {p: c["cell_forces_streaming"] for p, c in {**counts_ens, **counts_grid_1m,
+                                                             **counts_grid_water_1m}.items()
+                 if c["cell_forces_streaming"]}
+    # The molecular paths' K5c and K2c-G launches, and the K5s paths', count in their own rows.
+    mol_paths = {"cell_forces": set(counts_grid_water),
+                 "cell_forces_streaming": set(counts_auto) | set(counts_water_1m) | set(k5s_paths)}
     by_path = lambda name: {p: c[name] for p, c in paths.items()  # noqa: E731
                             if c[name] and p not in mol_paths.get(name, ())}
     kernels = [
@@ -2111,6 +2471,16 @@ def main() -> None:
              replaces="emdee_tpu/distributed/grid_sharded.py:629",
              launches=counts_grid_water["grid_water_222"]["cell_forces"],
              launches_by_path={p: c["cell_forces"] for p, c in counts_grid_water.items()}, **ghost_mol_row),
+        dict(name="cell_forces_streaming_ghost", route="cuda", source="emdee_tpu_torch/csrc/cell_forces_streaming.cu",
+             replaces="emdee_tpu/distributed/grid_sharded.py:658",
+             kernel_replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1158",
+             launches=sum(k5s_paths.values()), launches_by_path=k5s_paths,
+             max_abs_err=max(k5s["max_abs_err"], k5s_mol["max_abs_err"]),
+             ms=k5s["runs"]["grid_1m_111_m37"]["ms"], plain_ms=k5s["runs"]["grid_1m_111_m37"]["plain_ms"],
+             bound_ms=k5s["runs"]["grid_1m_111_m37"]["bound_ms"], bound_by=k5s["runs"]["grid_1m_111_m37"]["bound_by"],
+             library_ms=None, vs_one_card_max_abs_err=k5s["vs_one_card"], energy_max_abs_err=k5s["energy_err"],
+             decomposition_max_abs_err=k5s["decomp_err"],
+             runs={**k5s["runs"], "grid_water_1m_222": k5s_mol}),
         dict(name="rebin_routing", route="cuda", source="emdee_tpu_torch/csrc/rebin_routing.cu",
              replaces="emdee_tpu/neighbors/pallas_rebin.py:60",
              launches=sum(by_path("rebin_routing").values()),

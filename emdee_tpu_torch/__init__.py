@@ -13,8 +13,9 @@ rebin, the boundary-spill capacity mode with squeeze and
 TPU engine's two force-kernel families — resident and streaming, picked by
 `resolve_dense_backend` as the TPU engine picks them — and the C-tight
 straggler engine on top of it, the 3-D grid-sharded engine
-(`distributed/`: NVE and CSVR NVT over an (nz, ny, nx) mesh of shards, every
-shard on one card or one a `torch.distributed` rank), and molecular systems
+(`distributed/`: NVE, CSVR and Langevin NVT and Berendsen NPT over an
+(nz, ny, nx) mesh of shards on either kernel family, every shard on one card
+or one a `torch.distributed` rank), and molecular systems
 on the dense engine (`neighbors/cell_dense_molecular.py`: charges with DSF
 Coulomb, exclusion tags, tag-borne bonds and the bonded terms of
 `potentials/bonded.py`).  Its kernels are

@@ -1,7 +1,9 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
 At first use, `load()` compiles every `*.cu` file of this directory with
-`nvcc` for `sm_90a` — one `nvcc` per source, all started together — and
+`nvcc` for `sm_90a` — one `nvcc` per source, all started together; a source
+that declares `// emdee-build-parts: N` is compiled as N objects at once,
+with -DEMDEE_PART=0 … N−1, each holding some of its entry points — and
 links the objects into one shared library with a plain C interface, under
 `build/emdee_tpu_torch/` beside the package (git-ignored), named by a hash
 of the sources, headers and flags so that an edited source rebuilds.  Nothing
@@ -16,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -70,6 +73,15 @@ _SIGNATURES = {
                                   + [_I, _I, _I, _I, _P],
     # fx, fy, fz, fstride, e, w, groups, num_slots, energy, stream
     "emdee_streaming_fold": [_P, _P, _P, _I, _P, _P, _P, _L, _I, _P],
+    # px, py, pz, hs, tse, q, aid, ids, mlj, mcs, ne, alpha, rc, rc2_c,
+    # e_shift, f_shift, kc (0-d device tensors), out, groups, mz, my, mx,
+    # shards, sy_n, sx_n, bz, by, bx, m, c, box (device), rc2, rs2, invd2,
+    # a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u, uniform, coulomb, excl,
+    # energy, stream
+    "emdee_streaming_ghost": [_P] * 10 + [_I] + [_P] * 6 + [_P, _P] + [_I] * 11 + [_P] + [_F] * 10
+                             + [_I] * 4 + [_P],
+    # out, groups, react, mz, my, mx, shards, c, energy, stream
+    "emdee_streaming_ghost_assemble": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # in, out, flag, nf, m, c, axis, cf, num_slots, box (device), stream
     "emdee_rebin_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # s, keep, win, out, rows, nf, c, win_f, win_r, out_f, out_r, last_fill,
@@ -112,6 +124,15 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _units():
+    """(source, part or None) for every object to compile."""
+    units = []
+    for src in _sources():
+        found = re.search(r"^// emdee-build-parts: (\d+)$", src.read_text(), re.M)
+        units += [(src, k) for k in range(int(found.group(1)))] if found else [(src, None)]
+    return units
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources() + sorted(CSRC.glob("*.cuh")):
@@ -128,10 +149,11 @@ def load() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         tag = f"{lib_path.stem}.{os.getpid()}"
-        objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+        units = _units()
+        objects = [BUILD_DIR / f"{tag}.{src.stem}{'' if k is None else f'.{k}'}.o" for src, k in units]
         _run([
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-            for src, obj in zip(_sources(), objects)
+            [nvcc, *NVCC_FLAGS, *([] if k is None else [f"-DEMDEE_PART={k}"]), "-c", "-o", str(obj), str(src)]
+            for (src, k), obj in zip(units, objects)
         ])
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])

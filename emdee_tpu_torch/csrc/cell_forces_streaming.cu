@@ -83,6 +83,35 @@
 // to the centre and half to the reaction row, as K5 does.  The plain
 // version is K2c's, `cell_dense_forces(coulomb=, excl=)`.
 //
+// GHOST (K5s: the streaming kernel on each shard of the grid-sharded
+// engine, `streaming_halfshell_call` with `wrap_reaction=False` as
+// emdee_tpu/distributed/grid_sharded.py `_local_forces_streaming` :658-702
+// and `_local_energy_pallas` :704-744 call it), through
+// `emdee_streaming_ghost`: one block per interior pencil (z, y) of each
+// local shard, centres and neighbours read from the shards' stacked
+// (mz+2, my+2, mx+2, C) ghost grids, whose positions carry NaN in empty
+// slots; nothing wraps.  The 14 phases are the one-card kernel's; each
+// periodic shift comes from the neighbour's GLOBAL cell index on raw
+// coordinates, as cell_forces.cu's GHOST mode takes it, so every
+// displacement is (x_i − x_j) − shift.  A group's reaction row is
+// (mx+2)·C wide, its x-ghost columns kept, and every group — the own row
+// (0, 0) too, whose column mx+1 belongs to the +x neighbour — leaves to its
+// own slice of a (5, n_r, pencils, (mx+2)·C) scratch at the block's own
+// pencil, so each slice is written whole by exactly one block.  A second
+// launch (`ghost_assemble_kernel`) adds, for each slot of the ghost grids,
+// the slices in the fixed order (0,0), (0,1), (1,−1), (1,0), (1,1) from the
+// pencils that wrote its row: onto the centre sums for an interior slot,
+// into a reaction ghost grid (n_r, shards, mz+2, my+2, mx+2, C) for a ghost
+// slot (exact zeros where no group wrote).  The engine returns the ghost
+// layers to their owners through the mesh (`grid_sharded._fold3`, the
+// reference's second exchange).  No float atomics: reruns are bitwise
+// equal; but the fold adds a shard's boundary reactions in another order
+// than one card's kernel, so decompositions agree to roundoff, not bit for
+// bit.  With COULOMB/EXCL (K5s-mol) the ghost grids also carry charges and
+// int32 atom ids, the centre tags are per own slot; no bond tags (the grid
+// keeps its bonds as term rows).  Plain version:
+// emdee_tpu_torch/neighbors/streaming_kernel.py `streaming_ghost_forces_plain`.
+//
 // Bound on this card: at the 1,000,188-atom melt (M = 37, C = 32) the ring
 // loop runs ~50,653 × 14 × 22 steps of 32 lanes, about 60% of the lanes
 // live, and ~27 M of the pairs lie inside the cutoff: ~1.4 GFLOP, ~0.02 ms
@@ -95,10 +124,21 @@
 // unique pairs inside the cutoff each pay an erfc, an exp, a square root
 // and 3E tag operations; chip_smoke.py counts them and gives the bound.
 
+// emdee-build-parts: 3
+// csrc/build.py compiles this file as three objects at once, to cut the
+// build's wall time: EMDEE_PART 0 holds the LJ entry and the fold, 1 the
+// molecular entry, 2 the GHOST entries (each part instantiates only its
+// entries' kernel variants); without EMDEE_PART the file holds them all.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "lj_pair.cuh"
+
+#ifndef EMDEE_PART
+#define EMDEE_PART (-1)
+#endif
+#define EMDEE_IN_PART(k) (EMDEE_PART < 0 || EMDEE_PART == (k))
 
 namespace {
 
@@ -158,7 +198,8 @@ __device__ __forceinline__ int wrap(int v, int m, const float* __restrict__ box,
 }
 
 // Compact cell `cell`'s live slots into `t` (ballot ranks, slot order);
-// returns their count.  The caller brackets it with warp barriers.
+// returns their count.  The caller brackets it with warp barriers.  Without
+// a valid mask (the ghost grids), a slot is live where its x is not NaN.
 template <int NA, int NT, int NF, bool UNIFORM>
 __device__ __forceinline__ int compact(const Fields& f, const Mol& mol, long cell, int c, Tile<NT, NF>& t) {
   const int lane = threadIdx.x & 31;
@@ -167,7 +208,8 @@ __device__ __forceinline__ int compact(const Fields& f, const Mol& mol, long cel
   for (int a = 0; a < NA; ++a) {
     const int j = 32 * a + lane;
     const long s = cell * c + j;
-    const bool live = j < c && f.valid[s];
+    // GHOST (no valid mask): an empty ghost slot holds NaN coordinates.
+    const bool live = j < c && (f.valid ? f.valid[s] != 0 : !isnan(f.px[s * f.pstride]));
     const unsigned mask = __ballot_sync(kFull, live);
     if (live) {
       const int e = n + __popc(mask & ((1u << lane) - 1u));
@@ -222,12 +264,13 @@ __device__ __forceinline__ void stage_tags(const Mol& mol, long cell, int c, con
 
 // All pairs of centre cell `cen` with neighbour cell `nb` (shifted by
 // (shx, shy, shz)) for one warp, through its two tiles (and, with EXCL,
-// its tag tile).  Centre sums go to cen_acc[k·mc + x·C + i]; with REACT,
-// the reaction sums go to row[k·mc + nx·C + j].
+// its tag tile, read at the centre's own cell `tag_cell`).  Centre sums go
+// to cen_acc[k·mc + x·C + i]; with REACT, the reaction sums go to
+// row[k·mr + nx·C + j].
 template <int NA, bool UNIFORM, bool ENERGY, bool REACT, bool COULOMB, bool EXCL, bool BOND>
 __device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const Dsf& dsf, float cut2, long cen,
-                                          long nb, int c, int x, int nx, float shx, float shy, float shz, int mc,
-                                          float* cen_acc, float* row,
+                                          long nb, long tag_cell, int c, int x, int nx, float shx, float shy,
+                                          float shz, int mc, int mr, float* cen_acc, float* row,
                                           Tile<tile_entries<NA>(), (COULOMB || EXCL) ? 7 : 5>* tiles,
                                           float* tags, const PairConsts& k) {
   constexpr int NT = tile_entries<NA>();
@@ -240,7 +283,7 @@ __device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const
   const int n_nb = REACT ? compact<NA, NT, MOL ? 7 : 5, UNIFORM>(f, mol, nb, c, tn) : n_cen;
   __syncwarp();
   if (n_cen == 0 || n_nb == 0) return;
-  if constexpr (EXCL) stage_tags<NA, NT, COULOMB, BOND, ENERGY>(mol, cen, c, tc, n_cen, tags);
+  if constexpr (EXCL) stage_tags<NA, NT, COULOMB, BOND, ENERGY>(mol, tag_cell, c, tc, n_cen, tags);
 
   float xi[NA], yi[NA], zi[NA], hsi[NA], tsei[NA], qi[NA];
   bool vi[NA];
@@ -376,11 +419,11 @@ __device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const
     if (REACT && vj) {
       float* r = row + nx * c + tn.slot[e];
       r[0] += rx;
-      r[mc] += ry;
-      r[2 * mc] += rz;
+      r[mr] += ry;
+      r[2 * mr] += rz;
       if (ENERGY) {
-        r[3 * mc] += re;
-        r[4 * mc] += rw;
+        r[3 * mr] += re;
+        r[4 * mr] += rw;
       }
     }
   }
@@ -430,8 +473,9 @@ __global__ void __launch_bounds__(kThreads)
 
   // Self cell: every ordered pair, no reaction.
   for (int x = warp; x < m; x += kWarps)
-    cell_pair<NA, UNIFORM, ENERGY, false, COULOMB, EXCL, BOND>(f, mol, dsf, cut2, pencil + x, pencil + x, c, x, x,
-                                                                0.f, 0.f, 0.f, mc, cen_acc, row, tiles, tags, k);
+    cell_pair<NA, UNIFORM, ENERGY, false, COULOMB, EXCL, BOND>(f, mol, dsf, cut2, pencil + x, pencil + x,
+                                                                pencil + x, c, x, x, 0.f, 0.f, 0.f, mc, mc,
+                                                                cen_acc, row, tiles, tags, k);
 
   for (int g = 0; g <= kGroups; ++g) {
     const bool own = g == kGroups;  // the own row (0, 0): dx = +1 only
@@ -443,9 +487,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int x = warp; x < m; x += kWarps) {
         float shx;
         const int nx = wrap(x + dx, m, box_ptr, shx);
-        cell_pair<NA, UNIFORM, ENERGY, true, COULOMB, EXCL, BOND>(f, mol, dsf, cut2, pencil + x, nrow * m + nx, c,
-                                                                   x, nx, shx, shy, shz, mc, cen_acc, row, tiles,
-                                                                   tags, k);
+        cell_pair<NA, UNIFORM, ENERGY, true, COULOMB, EXCL, BOND>(f, mol, dsf, cut2, pencil + x, nrow * m + nx,
+                                                                   pencil + x, c, x, nx, shx, shy, shz, mc, mc,
+                                                                   cen_acc, row, tiles, tags, k);
       }
       __syncthreads();
     }
@@ -485,6 +529,138 @@ __global__ void fold_kernel(float* fx, float* fy, float* fz, int fstride, float*
   }
 }
 
+// GHOST geometry, as cell_forces.cu's: local cells (mz, my, mx) per shard,
+// the local shards' grid (sy_n, sx_n after the leading z count), and the
+// global coordinates (bz, by, bx) of the first local shard.
+struct Ghost {
+  int mz, my, mx, sy_n, sx_n, bz, by, bx;
+};
+
+// The periodic shift of a neighbour at global cell coordinate v.
+__device__ __forceinline__ float ghost_shift(int v, int m, const float* __restrict__ box) {
+  return v < 0 ? -*box : (v >= m ? *box : 0.f);
+}
+
+// The row groups in assembly order: slice 0 is the own row (0, 0), slices
+// 1-4 the groups kGroupDz/kGroupDy.
+__constant__ int kSliceDz[kGroups + 1] = {0, 0, 1, 1, 1};
+__constant__ int kSliceDy[kGroups + 1] = {0, 1, -1, 0, 1};
+
+// GHOST (K5s): one block per interior pencil (s, lz, ly) of the local
+// shards, centres and neighbours read from the shards' ghost grids.  The
+// centre sums go to out (NR, shards·mz·my·mx·C); each group's reaction row,
+// (mx+2)·C wide, to its slice of groups (5, NR, pencils, (mx+2)·C) at the
+// block's own pencil.
+template <int NA, bool UNIFORM, bool ENERGY, bool COULOMB, bool EXCL>
+__global__ void __launch_bounds__(kThreads)
+    streaming_ghost_kernel(Fields f, Mol mol, float* __restrict__ out, float* __restrict__ groups, Ghost g, int m,
+                           int c, const float* __restrict__ box_ptr, PairConsts k) {
+  constexpr int NR = ENERGY ? 5 : 3;
+  constexpr int NT = tile_entries<NA>();
+  using TileT = Tile<NT, (COULOMB || EXCL) ? 7 : 5>;
+  extern __shared__ float smem[];
+  const int gy = g.my + 2, gx = g.mx + 2;
+  const int mc = g.mx * c;  // a centre row
+  const int mr = gx * c;    // a reaction row, x-ghost columns included
+  float* cen_acc = smem;        // (NR, mx·C) centre sums of this pencil
+  float* row = smem + NR * mc;  // (NR, (mx+2)·C) one group's reaction row
+  const int warp = threadIdx.x >> 5;
+  TileT* tiles = reinterpret_cast<TileT*>(smem + NR * (mc + mr));
+  float* tags = reinterpret_cast<float*>(tiles + 2 * kWarps) + warp * tag_floats(NT, mol.ne, 0);
+  tiles += 2 * warp;  // this warp's two
+  const int pencil = blockIdx.x;
+  const int ly = pencil % g.my, lz = (pencil / g.my) % g.mz, s = pencil / (g.my * g.mz);
+  // Global cell coordinates of the pencil (z, y) and of its x = 0.
+  const int cz = (g.bz + s / (g.sx_n * g.sy_n)) * g.mz + lz;
+  const int cy = (g.by + (s / g.sx_n) % g.sy_n) * g.my + ly;
+  const int cx0 = (g.bx + s % g.sx_n) * g.mx;
+  const long gbase = static_cast<long>(s) * (g.mz + 2) * gy * gx;  // the shard's ghost cell 0
+  const long cen_row = gbase + (static_cast<long>(lz + 1) * gy + ly + 1) * gx + 1;  // ghost cell of x = 0
+  const long own_row = static_cast<long>(pencil) * g.mx;  // own cell id of x = 0
+  const long n_own = static_cast<long>(gridDim.x) * mc;
+  Dsf dsf{};
+  float cut2 = k.rc2;
+  if (COULOMB) {
+    dsf = emdee::load_dsf(mol);
+    cut2 = fmaxf(cut2, dsf.rc2);
+  }
+
+  for (int t = threadIdx.x; t < NR * (mc + mr); t += kThreads) smem[t] = 0.f;
+  __syncthreads();
+
+  // Self cell: every ordered pair, no reaction.
+  for (int x = warp; x < g.mx; x += kWarps)
+    cell_pair<NA, UNIFORM, ENERGY, false, COULOMB, EXCL, false>(f, mol, dsf, cut2, cen_row + x, cen_row + x,
+                                                                 own_row + x, c, x, x, 0.f, 0.f, 0.f, mc, mr,
+                                                                 cen_acc, row, tiles, tags, k);
+
+  for (int gi = 0; gi <= kGroups; ++gi) {
+    const bool own = gi == kGroups;  // the own row (0, 0): dx = +1 only
+    const int dz = own ? 0 : kGroupDz[gi], dy = own ? 0 : kGroupDy[gi];
+    const float shz = ghost_shift(cz + dz, m, box_ptr);
+    const float shy = ghost_shift(cy + dy, m, box_ptr);
+    const long nrow = gbase + (static_cast<long>(lz + 1 + dz) * gy + ly + 1 + dy) * gx;  // ghost column 0
+    for (int dx = own ? 1 : -1; dx <= 1; ++dx) {
+      for (int x = warp; x < g.mx; x += kWarps) {
+        const float shx = ghost_shift(cx0 + x + dx, m, box_ptr);
+        cell_pair<NA, UNIFORM, ENERGY, true, COULOMB, EXCL, false>(f, mol, dsf, cut2, cen_row + x,
+                                                                    nrow + x + 1 + dx, own_row + x, c, x,
+                                                                    x + 1 + dx, shx, shy, shz, mc, mr, cen_acc,
+                                                                    row, tiles, tags, k);
+      }
+      __syncthreads();
+    }
+    const int slice = own ? 0 : gi + 1;
+    float* dst = groups + (static_cast<long>(slice) * NR * gridDim.x + pencil) * mr;
+    for (int t = threadIdx.x; t < NR * mr; t += kThreads) {
+      dst[static_cast<long>(t / mr) * gridDim.x * mr + t % mr] = row[t];
+      row[t] = 0.f;
+    }
+    __syncthreads();
+  }
+
+  for (int t = threadIdx.x; t < NR * mc; t += kThreads) out[(t / mc) * n_own + own_row * c + t % mc] = cen_acc[t];
+}
+
+// The GHOST assembly: one thread per slot of the shards' ghost grids.  An
+// interior slot's centre sums in `out` get the five slices in order, (0,0),
+// (0,1), (1,−1), (1,0), (1,1), each from the pencil that wrote that row;
+// a ghost slot's sum of the same goes to react (NR, shards, mz+2, my+2,
+// mx+2, C), whose interior slots are zero.
+template <int NR>
+__global__ void ghost_assemble_kernel(float* __restrict__ out, const float* __restrict__ groups,
+                                      float* __restrict__ react, Ghost g, int c, int pencils) {
+  const int gz = g.mz + 2, gy = g.my + 2, gx = g.mx + 2;
+  const long n_ghost = static_cast<long>(pencils / (g.mz * g.my)) * gz * gy * gx * c;
+  const long t = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= n_ghost) return;
+  const int slot = t % c;
+  long r = t / c;
+  const int xg = r % gx;
+  r /= gx;
+  const int yg = r % gy;
+  r /= gy;
+  const int zg = r % gz;
+  const int s = r / gz;
+  const bool interior = zg >= 1 && zg <= g.mz && yg >= 1 && yg <= g.my && xg >= 1 && xg <= g.mx;
+  const long n_own = static_cast<long>(pencils) * g.mx * c;
+  const long own = ((static_cast<long>(s * g.mz + zg - 1) * g.my + yg - 1) * g.mx + xg - 1) * c + slot;
+  const long mr = static_cast<long>(gx) * c;
+#pragma unroll
+  for (int comp = 0; comp < NR; ++comp) {
+    float v = interior ? out[comp * n_own + own] : 0.f;
+#pragma unroll
+    for (int sl = 0; sl <= kGroups; ++sl) {
+      const int sz = zg - 1 - kSliceDz[sl], sy = yg - 1 - kSliceDy[sl];
+      if (sz < 0 || sz >= g.mz || sy < 0 || sy >= g.my) continue;
+      const long p = (static_cast<long>(s) * g.mz + sz) * g.my + sy;
+      v += groups[((static_cast<long>(sl) * NR + comp) * pencils + p) * mr + xg * c + slot];
+    }
+    if (interior) out[comp * n_own + own] = v;
+    react[comp * n_ghost + t] = interior ? 0.f : v;
+  }
+}
+
 int centre_slots(int c) { return c <= 32 ? 1 : (c <= 64 ? 2 : 3); }
 
 size_t smem_bytes(int m, int c, bool energy, bool mol, int ne, int neb) {
@@ -493,6 +669,54 @@ size_t smem_bytes(int m, int c, bool energy, bool mol, int ne, int neb) {
   const int nf = mol ? 7 : 5;
   return sizeof(float) * 2 * (energy ? 5 : 3) * static_cast<size_t>(m) * c +
          sizeof(float) * (nf + 1) * nt * 2 * kWarps + sizeof(float) * tag_floats(nt, ne, neb) * kWarps;
+}
+
+// GHOST: the centre sums and one (mx+2)·C reaction row, the tiles and the
+// staged centre tags (no bond tags).
+size_t ghost_smem_bytes(int mx, int c, bool energy, bool mol, int ne) {
+  const int na = centre_slots(c);
+  const int nt = na <= 2 ? 64 : 96;
+  const int nf = mol ? 7 : 5;
+  return sizeof(float) * (energy ? 5 : 3) * static_cast<size_t>(2 * mx + 2) * c +
+         sizeof(float) * (nf + 1) * nt * 2 * kWarps + sizeof(float) * tag_floats(nt, ne, 0) * kWarps;
+}
+
+template <int NA, bool UNIFORM, bool ENERGY, bool COULOMB = false, bool EXCL = false>
+int launch_ghost(const Fields& f, const Mol& mol, float* out, float* groups, const Ghost& g, int blocks, int m,
+                 int c, const float* box, const PairConsts& k, cudaStream_t stream) {
+  const size_t smem = ghost_smem_bytes(g.mx, c, ENERGY, COULOMB || EXCL, mol.ne);
+  auto kernel = streaming_ghost_kernel<NA, UNIFORM, ENERGY, COULOMB, EXCL>;
+  static size_t smem_allowed = 48 * 1024;  // raised once per variant, not per launch
+  if (smem > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = smem;
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(f, mol, out, groups, g, m, c, box, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NA>
+int dispatch_ghost(const Fields& f, const Mol& mol, int coulomb, int excl, int uniform, int energy, float* out,
+                   float* groups, const Ghost& g, int blocks, int m, int c, const float* box, const PairConsts& k,
+                   cudaStream_t s) {
+#define EMDEE_K5S(UN, EN, CO, EX) launch_ghost<NA, UN, EN, CO, EX>(f, mol, out, groups, g, blocks, m, c, box, k, s)
+  if (coulomb || excl) {
+    if (energy) {
+      if (coulomb && excl) return EMDEE_K5S(false, true, true, true);
+      if (coulomb) return EMDEE_K5S(false, true, true, false);
+      return EMDEE_K5S(false, true, false, true);
+    }
+    if (coulomb && excl) return EMDEE_K5S(false, false, true, true);
+    if (coulomb) return EMDEE_K5S(false, false, true, false);
+    return EMDEE_K5S(false, false, false, true);
+  }
+  if (uniform && energy) return EMDEE_K5S(true, true, false, false);
+  if (uniform) return EMDEE_K5S(true, false, false, false);
+  if (energy) return EMDEE_K5S(false, true, false, false);
+  return EMDEE_K5S(false, false, false, false);
+#undef EMDEE_K5S
 }
 
 template <int NA, bool UNIFORM, bool ENERGY, bool COULOMB = false, bool EXCL = false, bool BOND = false>
@@ -549,6 +773,7 @@ int dispatch_mol(int coulomb, int excl, int bond, int energy, const Fields& f, c
 
 }  // namespace
 
+#if EMDEE_IN_PART(0)
 // The pair pass: centre sums (+ own-row reactions) into fx, fy, fz [, e, w]
 // and the four reaction rows of every pencil into `groups` (4, n_r, M³·C).
 extern "C" int emdee_streaming_forces(
@@ -569,6 +794,22 @@ extern "C" int emdee_streaming_forces(
   }
 }
 
+// The fold: adds the four reaction slices to the outputs in place.
+extern "C" int emdee_streaming_fold(float* fx, float* fy, float* fz, int fstride, float* e,
+                                    float* w, const float* groups, long ns, int energy,
+                                    void* stream) {
+  const int threads = 256;
+  const long blocks = (ns + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (energy)
+    fold_kernel<5><<<blocks, threads, 0, s>>>(fx, fy, fz, fstride, e, w, groups, ns);
+  else
+    fold_kernel<3><<<blocks, threads, 0, s>>>(fx, fy, fz, fstride, e, w, groups, ns);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
+#if EMDEE_IN_PART(1)
 // The molecular pair pass (K5c): stacked positions and forces (M³, C, 3),
 // per-atom (σ/2, 2√ε), optional per-slot energies and virials; q (M³, C)
 // charges and the DSF constants' device pointers with `coulomb`; aid (M³,
@@ -599,17 +840,59 @@ extern "C" int emdee_streaming_forces_mol(
     default: return dispatch_mol<3>(coulomb, excl, bond, energy, fl, mol, f, e, w, groups, m, c, box, k, s);
   }
 }
+#endif
 
-// The fold: adds the four reaction slices to the outputs in place.
-extern "C" int emdee_streaming_fold(float* fx, float* fy, float* fz, int fstride, float* e,
-                                    float* w, const float* groups, long ns, int energy,
-                                    void* stream) {
+#if EMDEE_IN_PART(2)
+// The GHOST pair pass (K5s): the ghost grids of `shards` local shards, px
+// … tse each (shards, mz+2, my+2, mx+2, C) float32 with NaN positions in
+// empty slots (hs, tse unused with uniform parameters); with `coulomb` the
+// charges q, with `excl` the int32 atom ids aid (−2 on empty slots) in the
+// same layout and the centre tags ids, mlj, mcs (shards, mz, my, mx, C, ne)
+// (mcs only with `coulomb`), the DSF constants' device pointers with
+// `coulomb`.  Writes the centre sums to out (3 or 5, shards·mz·my·mx·C) and
+// the reaction rows to groups (5, 3 or 5, shards·mz·my, (mx+2)·C);
+// `emdee_streaming_ghost_assemble` adds them up.
+extern "C" int emdee_streaming_ghost(
+    const float* px, const float* py, const float* pz, const float* hs, const float* tse, const float* q,
+    const int* aid, const float* ids, const float* mlj, const float* mcs, int ne, const float* alpha,
+    const float* rc, const float* rc2_c, const float* e_shift, const float* f_shift, const float* kc, float* out,
+    float* groups, int mz, int my, int mx, int shards, int sy_n, int sx_n, int bz, int by, int bx, int m, int c,
+    const float* box, float rc2, float rs2, float invd2, float a_m, float pa1, float pa2, float pb1, float pb2,
+    float sig2_u, float eps4_u, int uniform, int coulomb, int excl, int energy, void* stream) {
+  if (!excl) ne = 0;
+  const bool mol = coulomb || excl;
+  const size_t smem = ghost_smem_bytes(mx, c, energy, mol, ne);
+  if (m < 3 || c < 1 || c > kMaxCapacity || mz < 1 || my < 1 || mx < 1 || shards < 1 || sy_n < 1 || sx_n < 1 ||
+      shards % (sy_n * sx_n) != 0 || smem > 232448 || (mol && uniform) || (excl && (ne < 1 || ne > kMaxTags)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
+  const Fields f{px, py, pz, 1, hs, tse, nullptr};
+  const Mol mol_ops{q, aid, ids, mlj, mcs, nullptr, nullptr, nullptr, ne, 0, alpha, rc, rc2_c, e_shift, f_shift, kc};
+  const Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx};
+  const int blocks = shards * mz * my;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (centre_slots(c)) {
+    case 1: return dispatch_ghost<1>(f, mol_ops, coulomb, excl, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
+    case 2: return dispatch_ghost<2>(f, mol_ops, coulomb, excl, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
+    default: return dispatch_ghost<3>(f, mol_ops, coulomb, excl, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
+  }
+}
+
+// The GHOST assembly: adds the five reaction slices to the centre sums in
+// `out` in place and writes the ghost slots' sums to react (3 or 5,
+// shards, mz+2, my+2, mx+2, C).
+extern "C" int emdee_streaming_ghost_assemble(float* out, const float* groups, float* react, int mz, int my, int mx,
+                                              int shards, int c, int energy, void* stream) {
+  if (mz < 1 || my < 1 || mx < 1 || shards < 1 || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Ghost g{mz, my, mx, 1, 1, 0, 0, 0};
+  const long n_ghost = static_cast<long>(shards) * (mz + 2) * (my + 2) * (mx + 2) * c;
   const int threads = 256;
-  const long blocks = (ns + threads - 1) / threads;
+  const long blocks = (n_ghost + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (energy)
-    fold_kernel<5><<<blocks, threads, 0, s>>>(fx, fy, fz, fstride, e, w, groups, ns);
+    ghost_assemble_kernel<5><<<blocks, threads, 0, s>>>(out, groups, react, g, c, shards * mz * my);
   else
-    fold_kernel<3><<<blocks, threads, 0, s>>>(fx, fy, fz, fstride, e, w, groups, ns);
+    ghost_assemble_kernel<3><<<blocks, threads, 0, s>>>(out, groups, react, g, c, shards * mz * my);
   return static_cast<int>(cudaGetLastError());
 }
+#endif

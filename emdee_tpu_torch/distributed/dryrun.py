@@ -109,12 +109,15 @@ def tiny_setup(n_devices: int, device):
     return state, config, LennardJonesModel.create(cutoff, switch, device=device), shape
 
 
-def grid_job(rank, n, shape, fields, config, steps, rebin_every, device_kind="cpu", kwargs_fn=None):
+def grid_job(rank, n, shape, fields, config, steps, rebin_every, device_kind="cpu", kwargs_fn=None, kwargs=None,
+             seed=None):
     """One rank of a grid-sharded run: the state `fields` (the one-card
     state as `cell_dense.state_to_numpy` gives it) distributed over a
-    `DistMesh` of `shape`, `steps` NVE steps, then the whole state gathered
+    `DistMesh` of `shape`, `steps` steps, then the whole state gathered
     and the energies.  kwargs_fn(device), a module-level function, gives
-    the engine's molecular options (e.g. `tools.fixtures.grid_charged_kwargs`).
+    the engine's molecular options (e.g. `tools.fixtures.grid_charged_kwargs`);
+    kwargs, more options (a backend, a thermostat); seed, the seed of the
+    rollout's generator on the rank's device, the same on every rank.
     Returns (state fields as numpy, (pe, vir, ke))."""
     import torch.distributed as dist
 
@@ -126,9 +129,11 @@ def grid_job(rank, n, shape, fields, config, steps, rebin_every, device_kind="cp
     device = torch.device("cuda", rank) if device_kind == "cuda" else torch.device("cpu")
     mesh = make_grid_mesh(shape, group=dist.group.WORLD, device=device)
     model = LennardJonesModel.create(config.cutoff, config.switch, device=device)
-    rollout, energy = make_grid_sharded_sim(config, model, 0.002, mesh, **(kwargs_fn(device) if kwargs_fn else {}))
+    options = {**(kwargs_fn(device) if kwargs_fn else {}), **(kwargs or {})}
+    rollout, energy = make_grid_sharded_sim(config, model, 0.002, mesh, **options)
     st = distribute_grid(state_from_numpy(fields, device), config, mesh)
-    st = rollout(st, num_steps=steps, rebin_every=rebin_every)
+    rng = None if seed is None else torch.Generator(device=device).manual_seed(seed)
+    st = rollout(st, num_steps=steps, rebin_every=rebin_every, rng=rng)
     energies = tuple(float(x) for x in energy(st))
     return state_to_numpy(gather_grid_state(st, config, mesh)), energies
 

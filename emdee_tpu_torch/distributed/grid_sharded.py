@@ -1,7 +1,7 @@
 """3-D grid-sharded dense-cell engine — counterpart of
-emdee_tpu/distributed/grid_sharded.py (NVE and CSVR NVT, with or without
-the molecular terms: DSF Coulomb, exclusion tags, bonded terms and the
-leftover exclusion pairs).
+emdee_tpu/distributed/grid_sharded.py (NVE, CSVR and Langevin NVT and
+Berendsen NPT, with or without the molecular terms: DSF Coulomb, exclusion
+tags, bonded terms and the leftover exclusion pairs).
 
 The (M, M, M, C) slot grid is cut into an (nz, ny, nx) mesh of shards of
 (mz, my, mx) cells (`distributed/mesh.py`); a state's per-slot leaves are
@@ -11,28 +11,40 @@ goes through the mesh's `shift` (the reference's `ppermute`):
 
 - **Force pass**: each shard's (mz+2, my+2, mx+2, C) ghost grid is built by
   successive z, y and x exchanges of one boundary layer, so that edges and
-  corners arrive in two hops (`_ghost3`).  The force kernel's GHOST mode
-  (`cell_kernel.ghost_forces`, K2) walks the full 27-cell shell from the
-  ghost grid, taking each periodic shift from the neighbour's global cell
-  index on raw coordinates: the forces of any decomposition equal the
-  one-card kernel's bit for bit.  The reference runs K2's half shell with
-  reaction ghosts and folds them back with three more exchanges; the full
-  shell needs no reaction rows, no fold and no second exchange.  With the
-  molecular terms the ghost grids also carry charges and atom ids, and the
-  kernel's molecular branches (K2c-G) match each own slot's tags; bonded
-  terms and leftover pairs are rows that each shard evaluates for its own
-  atoms (`_grid_terms`), so they need no reverse exchange either.
+  corners arrive in two hops (`_ghost3`).  Two kernel families, as the
+  reference picks between its resident and streaming kernels
+  (`resolve_grid_backend`):
+  - the resident family: the force kernel's GHOST mode
+    (`cell_kernel.ghost_forces`, K2-G) walks the full 27-cell shell from the
+    ghost grid, taking each periodic shift from the neighbour's global cell
+    index on raw coordinates: the forces of any decomposition equal the
+    one-card kernel's bit for bit.  The full shell needs no reaction rows,
+    no fold and no second exchange;
+  - the streaming family: the streaming kernel's GHOST mode
+    (`streaming_kernel.streaming_ghost_forces`, K5s) walks the half shell,
+    writes each shard's reactions on ghost slots to a reaction ghost grid,
+    and `_fold3` returns its x, then y, then z layers to the shards that own
+    them (the reference's second exchange).  The fold adds boundary
+    reactions in another order than one card does, so decompositions agree
+    to roundoff, not bit for bit.
+  With the molecular terms the ghost grids also carry charges and atom ids,
+  and the kernels' molecular branches (K2c-G, K5s-mol) match each own
+  slot's tags; bonded terms and leftover pairs are rows that each shard
+  evaluates for its own atoms (`_grid_terms`), so they need no reverse
+  exchange either.
 - **Rebin**: the shift rebin's three passes (z, y, x), each over own, left
   and right windows built by one exchange along the pass axis, with each
   row's global coordinate (`rebin_window_kernel.rebin_window_pass`, K6).
   Atom migration between shards is that exchange; charges ride it.
-- **Reductions**: energies, the kinetic energy of CSVR and the sticky flag
-  are reduced over the shards (`psum`, `pmax`), and, with term rows, the
-  atom → global slot map once a rebin (an int32 `psum`).
+- **Reductions**: energies, the kinetic energy of CSVR, the pressure of
+  the barostat and the sticky flag are reduced over the shards (`psum`,
+  `pmax`), and, with term rows, the atom → global slot map once a rebin
+  (an int32 `psum`).
 
 Nothing in a rollout waits for the device; the flag stays there until the
-caller reads it.  A (1, 1, 1) mesh is the one-card engine's geometry; its
-leapfrog here, like the reference's grid engine, carries no Kahan
+caller reads it.  The box is the state's 0-d device tensor (a dynamic NPT
+box) or config.box.  A (1, 1, 1) mesh is the one-card engine's geometry;
+its leapfrog here, like the reference's grid engine, carries no Kahan
 compensation.
 """
 
@@ -46,15 +58,17 @@ import torch
 
 from emdee_tpu_torch.distributed.mesh import DistMesh, GridMesh, validate_grid_config
 from emdee_tpu_torch.neighbors.cell_dense import (
+    STREAMING_THRESHOLD_BYTES,
+    BerendsenBarostatConfig,
     CellDenseConfig,
     CellDenseState,
     CSVRConfig,
     LangevinConfig,
     _box,
+    _box_of,
     _f32,
     _stale,
     gather_dense_atoms,
-    resolve_backend,
 )
 from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel
 
@@ -143,8 +157,22 @@ def gather_grid_atoms(state: CellDenseState, config: CellDenseConfig, num_atoms:
 
 
 def reconfigure_grid_state(state: CellDenseState, config: CellDenseConfig, mesh: GridMesh):
-    """The reference's NPT geometry re-derive for a grid-sharded run."""
-    raise NotImplementedError("reconfigure_grid_state is not ported yet (ROADMAP item 11)")
+    """NPT geometry re-derive for a grid-sharded run (the reference's
+    `reconfigure_grid_state`): when the dynamic box has drifted past the
+    static geometry's guard (the sticky flag trips at box < M·(rc + skin)),
+    gather the state (on a `DistMesh` every rank takes part), re-derive the
+    cell grid at the current box with `reconfigure_dense_state` (M rounded
+    down to a multiple of every mesh axis, at least 2·max(mesh) cells), and
+    distribute it over the same mesh.  Returns (sharded state', config');
+    build new closures from config'."""
+    from emdee_tpu_torch.neighbors.cell_dense import reconfigure_dense_state
+
+    flat = gather_grid_state(state, config, mesh)
+    new_flat, new_config = reconfigure_dense_state(
+        flat, config, cells_multiple_of=math.lcm(*mesh.shape), min_cells_per_dim=2 * max(mesh.shape),
+    )
+    validate_grid_config(new_config, mesh)
+    return distribute_grid(new_flat, new_config, mesh), new_config
 
 
 def _ghost3(g: torch.Tensor, mesh: GridMesh) -> torch.Tensor:
@@ -157,6 +185,23 @@ def _ghost3(g: torch.Tensor, mesh: GridMesh) -> torch.Tensor:
         hi = mesh.shift(g.narrow(dim, 0, 1), axis, +1)
         g = torch.cat([lo, g, hi], dim=dim)
     return g
+
+
+def _fold3(r: torch.Tensor, mesh: GridMesh) -> torch.Tensor:
+    """(F, sz, sy, sx, mz+2, my+2, mx+2, C) reaction ghost grids → a view
+    (F, sz, sy, sx, mz, my, mx, C) of their interior: the x, then y, then z
+    ghost layers sent back to the shards that own them (`mesh.shift`
+    opposite to `_ghost3`'s) and added to their boundary layers in place,
+    so that edge and corner reactions arrive in two or three hops — the
+    reference's `_fold3`.  `r` is the caller's scratch: it is overwritten."""
+    for axis in (2, 1, 0):
+        dim, n = 4 + axis, r.shape[4 + axis]
+        lo = mesh.shift(r.narrow(dim, 0, 1), axis, +1)  # the +axis neighbour's −1 layer: my top layer
+        hi = mesh.shift(r.narrow(dim, n - 1, 1), axis, -1)  # the −axis neighbour's +1 layer: my bottom layer
+        r = r.narrow(dim, 1, n - 2)
+        r.narrow(dim, 0, 1).add_(hi)
+        r.narrow(dim, n - 3, 1).add_(lo)
+    return r
 
 
 def _window(x: torch.Tensor, mesh: GridMesh, axis: int, d: int) -> torch.Tensor:
@@ -329,6 +374,49 @@ def _grid_terms(config: CellDenseConfig, mesh: GridMesh, model: LennardJonesMode
     return bind, forces, energy
 
 
+GRID_BACKENDS = ("auto", "cuda", "cuda_streaming", "pallas_streaming", "torch", "torch_streaming")
+
+
+def grid_vmem_estimate(config: CellDenseConfig, mesh: GridMesh, uniform_params=None, with_coulomb: bool = False,
+                       with_excl: bool = False) -> int:
+    """The reference's per-shard VMEM estimate of its resident kernel
+    (grid_sharded.py:237-249): (n_gf + 3) ghost fields of (mz+2)(my+2)(mx+2)·C
+    float32 and the pair tiles 8·C·mx·C·4 B, with n_gf = 3 positions, 2 LJ
+    parameters without `uniform_params`, and one field each for the charges
+    and the atom ids."""
+    mz, my, mx = validate_grid_config(config, mesh)
+    c = config.capacity
+    gb = (mz + 2) * (my + 2) * (mx + 2) * c * 4
+    n_gf = 3 + (0 if uniform_params is not None else 2) + int(with_coulomb) + int(with_excl)
+    return (n_gf + 3) * gb + 8 * c * mx * c * 4
+
+
+def resolve_grid_backend(config: CellDenseConfig, mesh: GridMesh, backend: str = "auto", *, uniform_params=None,
+                         with_coulomb: bool = False, with_excl: bool = False) -> str:
+    """The grid engine's kernel family on the mesh's device: 'cuda' (K2-G),
+    'cuda_streaming' (K5s and the fold), or their plain versions 'torch'
+    and 'torch_streaming' ('torch_streaming' is the reference's
+    'pallas_streaming_interpret': the same half shell, reaction ghosts and
+    fold, on any device).  'auto' follows the reference's per-shard rule:
+    the streaming family on a CUDA device once `grid_vmem_estimate` passes
+    13 MB, else 'cuda'; 'torch' on the CPU.  'pallas_streaming' is
+    'cuda_streaming'; 'cuda' and 'cuda_streaming' raise for a mesh that is
+    not on a CUDA device.  Nothing here touches the card."""
+    if backend not in GRID_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: use one of {', '.join(GRID_BACKENDS)}")
+    on_card = mesh.device.type == "cuda"
+    if backend == "pallas_streaming":
+        backend = "cuda_streaming"
+    if backend == "auto":
+        if not on_card:
+            return "torch"
+        est = grid_vmem_estimate(config, mesh, uniform_params, with_coulomb, with_excl)
+        return "cuda_streaming" if est > STREAMING_THRESHOLD_BYTES else "cuda"
+    if backend in ("cuda", "cuda_streaming") and not on_card:
+        raise ValueError(f"backend={backend!r} needs a mesh on a CUDA device, got {mesh.device}")
+    return backend
+
+
 def make_grid_sharded_sim(
     config: CellDenseConfig,
     model: LennardJonesModel,
@@ -347,50 +435,60 @@ def make_grid_sharded_sim(
 ):
     """(rollout, energy) closures on a grid-sharded state (`distribute_grid`).
 
-    backend: 'auto' (the kernels K2 and K6 for CUDA tensors, their plain
-    versions for CPU tensors), 'cuda' or 'torch' (the plain versions on any
-    device).  uniform_params: optional (half_sigma, twice_sqrt_eps) floats
-    shared by every atom (`detect_uniform_params`); the ghost grids then
-    carry positions only (not with the molecular terms, which read the
-    per-atom parameters).  thermostat: None (leapfrog NVE, no Kahan
-    compensation, as the reference's grid engine) or `CSVRConfig` (the
-    synced kick-drift-kick with one global rescale a step: the kinetic
-    energy summed over the shards, one draw from the rollout's `rng`, a
-    `torch.Generator` on the mesh's device seeded alike on every rank).
+    backend: 'auto', 'cuda', 'cuda_streaming' (alias 'pallas_streaming'),
+    'torch' or 'torch_streaming', resolved once by `resolve_grid_backend`:
+    the resident family (K2-G, the rebins on K6) or the streaming family
+    (K5s and the fold, the rebins on K6) on the card, their plain versions
+    ('torch', 'torch_streaming') on any device; 'auto' picks by the
+    reference's per-shard VMEM rule on the card and 'torch' on the CPU.
+    uniform_params: optional (half_sigma, twice_sqrt_eps) floats shared by
+    every atom (`detect_uniform_params`); the ghost grids then carry
+    positions only (not with the molecular terms, which read the per-atom
+    parameters).
 
-    The molecular terms (K2c-G), as the reference's grid engine takes them:
-    coulomb, a `DSFCoulomb` model (the state must carry charges, which ride
-    every rebin) — DSF on every pair; excl_tables, the atom-indexed (ids,
-    mlj, mcs) tag tables of `build_exclusion_tables` (E ≤ 8 on the kernel;
-    mcs None with coulomb: the LJ scales), from which each shard's centre
-    tags are rebuilt after every rebin; bonded, a `BondedSystem` in atom
-    order, and excl_leftover, the (pairs, lj_scales, coulomb_scales) beyond
-    the tag band (with atom_params, and atom_charges with coulomb), as term
-    rows that each shard evaluates for its own atoms (`_grid_terms`).  The
-    grid keeps its bonds as rows: no bond rides the tags.
+    thermostat: None (leapfrog NVE, no Kahan compensation, as the
+    reference's grid engine), `CSVRConfig` (the synced kick-drift-kick with
+    one global rescale a step: the kinetic energy summed over the shards,
+    one draw from the rollout's `rng`) or `LangevinConfig` (BAOAB; the noise
+    is the global (M, M, M, C, 3) field of standard normals drawn from the
+    rollout's `rng`, as the one-card engine draws it, cut to this process's
+    shards, so any mesh and any number of ranks gets the same noise).  The
+    `rng` is a `torch.Generator` on the mesh's device, seeded alike on
+    every rank.  barostat: `BerendsenBarostatConfig` — at every block
+    boundary the pressure (2K + W)/(3V) from the force pass's energy mode
+    and the term rows' virial, summed over the shards, rescales positions
+    and the state's dynamic box (a 0-d device tensor, from config.box if
+    the state has none) by μ = clip(μ³, 0.9, 1.1)^(1/3), on the synced
+    step; the sticky flag trips when the box falls below M·(rc + skin)
+    (`reconfigure_grid_state` re-derives the geometry).
 
-    Not ported yet, each raising NotImplementedError: Langevin, barostat and
-    spill configs (ROADMAP item 11) and the per-shard streaming backend (K5
-    on shards, K5s, item 11)."""
+    The molecular terms (K2c-G, K5s-mol), as the reference's grid engine
+    takes them: coulomb, a `DSFCoulomb` model (the state must carry
+    charges, which ride every rebin) — DSF on every pair; excl_tables, the
+    atom-indexed (ids, mlj, mcs) tag tables of `build_exclusion_tables` (E ≤
+    8 on the kernels; mcs None with coulomb: the LJ scales), from which each
+    shard's centre tags are rebuilt after every rebin; bonded, a
+    `BondedSystem` in atom order, and excl_leftover, the (pairs, lj_scales,
+    coulomb_scales) beyond the tag band (with atom_params, and atom_charges
+    with coulomb), as term rows that each shard evaluates for its own atoms
+    (`_grid_terms`).  The grid keeps its bonds as rows: no bond rides the
+    tags.
+
+    Not ported yet, raising NotImplementedError: spill configs (ROADMAP
+    item 11)."""
     from emdee_tpu_torch.dynamics.bussi import _csvr_alpha2, csvr_draws
     from emdee_tpu_torch.neighbors import cell_kernel
     from emdee_tpu_torch.neighbors.cell_dense import _numpy
     from emdee_tpu_torch.neighbors.rebin_kernel import SENTINEL_BITS
     from emdee_tpu_torch.neighbors.rebin_window_kernel import rebin_window_pass
+    from emdee_tpu_torch.neighbors.streaming_kernel import streaming_ghost_forces
 
-    if isinstance(thermostat, LangevinConfig):
-        raise NotImplementedError("Langevin on the grid-sharded engine is not ported yet (ROADMAP item 11)")
-    if thermostat is not None and not isinstance(thermostat, CSVRConfig):
+    if thermostat is not None and not isinstance(thermostat, (CSVRConfig, LangevinConfig)):
         raise ValueError(f"unknown thermostat {thermostat!r}")
-    if barostat is not None:
-        raise NotImplementedError("the barostat on the grid-sharded engine is not ported yet (ROADMAP item 11)")
+    if barostat is not None and not isinstance(barostat, BerendsenBarostatConfig):
+        raise ValueError(f"unknown barostat {barostat!r}")
     if config.spill:
         raise NotImplementedError("spill configs on the grid-sharded engine are not ported yet (ROADMAP item 11)")
-    if backend in ("cuda_streaming", "pallas_streaming"):
-        raise NotImplementedError("the per-shard streaming backend (K5 on shards, K5s) is not ported yet "
-                                  "(ROADMAP item 11)")
-    if backend not in ("auto", "cuda", "torch"):
-        raise ValueError(f"unknown backend {backend!r}: use 'auto', 'cuda' or 'torch'")
 
     mz, my, mx = validate_grid_config(config, mesh)
     m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
@@ -402,6 +500,11 @@ def make_grid_sharded_sim(
     ndof = 3.0 * config.num_atoms - 3.0
     has_q, has_excl = coulomb is not None, excl_tables is not None
     uniform = uniform_params is not None and not (has_q or has_excl)
+    family = resolve_grid_backend(config, mesh, backend, uniform_params=uniform_params, with_coulomb=has_q,
+                                  with_excl=has_excl)
+    streaming = family.endswith("streaming")
+    kernels = "cuda" if family.startswith("cuda") else "torch"  # the kernel wrappers' backend
+    synced = thermostat is not None or barostat is not None
     terms = _grid_terms(config, mesh, model, coulomb, bonded, excl_leftover, atom_params, atom_charges)
     if has_excl:
         ids_t, mlj_t, mcs_t = excl_tables
@@ -440,7 +543,20 @@ def make_grid_sharded_sim(
             tb, bad = terms[0](aid, valid)
         return (aidf, tags, tb), bad
 
-    def forces_of(pos3, valid, hs, tse, q, bound, compute_energy=False, with_terms=True):
+    def pair_pass(gh, box_t, compute_energy, tags):
+        """(forces, e, w) of the own slots from the ghost grids: K2-G's full
+        shell, or K5s's half shell and the fold of its reaction ghosts."""
+        kw = dict(uniform_params=uniform_params if uniform else None, compute_energy=compute_energy,
+                  backend=kernels, coulomb=coulomb, excl=tags, box=box_t)
+        if not streaming:
+            return cell_kernel.ghost_forces(gh, lead, mesh.base, config, model, **kw)
+        f, react, e, w = streaming_ghost_forces(gh, lead, mesh.base, config, model, **kw)
+        back = _fold3(react, mesh)
+        if compute_energy:
+            return f + back[:3], e + back[3], w + back[4]
+        return f + back, None, None
+
+    def forces_of(pos3, valid, hs, tse, q, bound, box_t, compute_energy=False, with_terms=True):
         """(forces (3, …), e, w, term (pe, vir) or None) of the local
         shards; pos3 (3, sz, sy, sx, mz, my, mx, C)."""
         aidf, tags, tb = bound
@@ -452,22 +568,17 @@ def make_grid_sharded_sim(
         if has_excl:
             parts.append(aidf[None])
         gh = _ghost3(torch.cat(parts), mesh)
-        f, e, w = cell_kernel.ghost_forces(
-            gh, lead, mesh.base, config, model, uniform_params=uniform_params if uniform else None,
-            compute_energy=compute_energy, backend=resolve_backend(backend, pos3), coulomb=coulomb, excl=tags,
-        )
+        f, e, w = pair_pass(gh, box_t, compute_energy, tags)
         if tb is None or not with_terms:
             return f, e, w, None
         pos_ext = torch.cat([gh[:3].reshape(3, -1).t(), gh.new_zeros((1, 3))])
-        box_t = _box(config.box, pos3)
         f = f + terms[1](pos_ext, tb, box_t).reshape(tuple(lead) + (mz, my, mx, c, 3)).movedim(-1, 0)
         return f, e, w, (terms[2](pos_ext, tb, box_t) if compute_energy else None)
 
-    def rebin(pos3, vel3, inv_m, hs, tse, aid, valid, q, overflow, f3=None):
+    def rebin(pos3, vel3, inv_m, hs, tse, aid, valid, q, overflow, box_t, f3=None):
         """The per-shard shift rebin: three K6 passes (z, y, x) over the
         transported fields stacked as int32.  Returns the routed (pos3, vel3,
         inv_m, hs, tse, aid, valid, q, overflow, f3)."""
-        box_t = _box(config.box, pos3)
         posw = torch.where(valid, pos3 - torch.floor(pos3 / box_t) * box_t, sentinel)
         parts = ([posw, vel3, inv_m[None], hs[None], tse[None]] + ([] if q is None else [q[None]])
                  + ([] if f3 is None else [f3]))
@@ -477,7 +588,7 @@ def make_grid_sharded_sim(
         for axis in range(3):
             out, ovf = rebin_window_pass(
                 x.reshape(flat), _window(x, mesh, axis, -1).reshape(flat), _window(x, mesh, axis, +1).reshape(flat),
-                b_axes[axis], box_t, _COORD_OF_AXIS[axis], m, c, ns, backend=resolve_backend(backend, x),
+                b_axes[axis], box_t, _COORD_OF_AXIS[axis], m, c, ns, backend=kernels,
             )
             x = out.reshape(shape)
             overflow = overflow | ovf
@@ -489,9 +600,9 @@ def make_grid_sharded_sim(
         return (pos3, xf[3:6], xf[6], xf[7], xf[8], aid, valid, None if q is None else xf[9], overflow,
                 None if f3 is None else xf[k:k + 3])
 
-    def stale(pos3, ref3, valid):
+    def stale(pos3, ref3, valid, box_t):
         d = pos3 - ref3
-        return _stale(d[0], d[1], d[2], valid, config)
+        return _stale(d[0], d[1], d[2], valid, config, box_t)
 
     def unpack(st: CellDenseState):
         if has_q and st.charges is None:
@@ -499,15 +610,73 @@ def make_grid_sharded_sim(
         return (st.positions.movedim(-1, 0).contiguous(), st.velocities.movedim(-1, 0).contiguous(),
                 st.inv_masses, st.half_sigma, st.twice_sqrt_eps, st.atom_id, st.valid, st.charges)
 
+    def kinetic(vel3, inv_m, valid):
+        return 0.5 * torch.sum(torch.where(valid, vel3**2 / torch.clamp(inv_m, min=1e-30), 0.0))
+
     def lengths_of(num_steps, rebin_every):
         blocks, rem = divmod(num_steps, rebin_every)
         return [rebin_every] * blocks + ([rem] if rem else [])
 
+    def local_noise(rng):
+        """The global (M, M, M, C, 3) standard normals, drawn from `rng` as
+        the one-card engine draws its (M³, C, 3) noise, cut to this
+        process's shards: (3, sz, sy, sx, mz, my, mx, C)."""
+        nz, ny, nx = mesh.shape
+        lo, n = mesh.base, mesh.local_shape
+        z = torch.randn((m, m, m, c, 3), generator=rng, dtype=torch.float32, device=dev)
+        z = z.reshape(nz, mz, ny, my, nx, mx, c, 3).permute(7, 0, 2, 4, 1, 3, 5, 6)
+        return z[:, lo[0] : lo[0] + n[0], lo[1] : lo[1] + n[1], lo[2] : lo[2] + n[2]]
+
+    if isinstance(thermostat, LangevinConfig):
+        kT = thermostat.kB * thermostat.temperature
+        c1 = float(np.exp(-thermostat.friction * dt))
+        c2 = float(np.sqrt((1.0 - c1 * c1) * kT))
+
+    def synced_step(pos3, vel3, f, inv_m, valid, hs, tse, q, bound, box_t, rng):
+        """One synced step: velocity-Verlet kick-drift-kick with the CSVR
+        rescale after it, or BAOAB Langevin (kick, half drift, exact OU
+        solve, half drift, kick).  Returns (positions, velocities, forces)."""
+        if isinstance(thermostat, LangevinConfig):
+            v = vel3 + half_dt * f * inv_m
+            x = pos3 + half_dt * v
+            v = c1 * v + c2 * torch.sqrt(inv_m) * local_noise(rng)
+            x = torch.where(valid, x + half_dt * v, pos3)
+            f = forces_of(x, valid, hs, tse, q, bound, box_t)[0]
+            return x, torch.where(valid, v + half_dt * f * inv_m, 0.0), f
+        v_half = vel3 + half_dt * f * inv_m
+        x = torch.where(valid, pos3 + dt_f * v_half, pos3)
+        f = forces_of(x, valid, hs, tse, q, bound, box_t)[0]
+        v = v_half + half_dt * f * inv_m
+        if isinstance(thermostat, CSVRConfig):
+            kin = mesh.psum(kinetic(v, inv_m, valid))
+            r1, sum_r2 = csvr_draws(rng, ndof, v)
+            alpha2 = _csvr_alpha2(r1, sum_r2, torch.clamp(kin, min=1e-30), ndof,
+                                  thermostat.kB * thermostat.temperature, dt_f, thermostat.tau)
+            v = torch.sqrt(torch.clamp(alpha2, min=0.0)) * v
+        return x, v, f
+
+    def rescale_box(pos3, ref3, vel3, inv_m, valid, hs, tse, q, bound, box_t, length, overflow):
+        """Berendsen μ-rescale at a block boundary from the pressure of the
+        force pass's energy mode and the term rows, summed over the shards;
+        the forces carry over unrescaled (the weak-coupling approximation)."""
+        _, _, w, te = forces_of(pos3, valid, hs, tse, q, bound, box_t, compute_energy=True)
+        vir = torch.sum(torch.where(valid, w, 0.0))
+        if te is not None:
+            vir = vir + te[1]
+        pvk = mesh.psum(torch.stack([vir, kinetic(vel3, inv_m, valid)]))
+        p_inst = (2.0 * pvk[1] + pvk[0]) / (3.0 * box_t**3)
+        mu3 = 1.0 - (length * dt / barostat.tau) * barostat.kappa * (barostat.pressure - p_inst)
+        mu = torch.clamp(mu3, 0.9, 1.1) ** (1.0 / 3.0)
+        box_t = box_t * mu
+        overflow = overflow | (box_t < config.cells_per_dim * (config.cutoff + config.skin))
+        return pos3 * mu, ref3 * mu, box_t, overflow
+
     def rollout(state: CellDenseState, num_steps: int, rebin_every: int = 10,
                 rng: Optional[torch.Generator] = None) -> CellDenseState:
         """Blocked rollout: rebin every `rebin_every` steps (the molecular
-        bindings rebuilt after each), then run that many steps; the flag is
-        OR'd over the shards at the end.  A CSVR rollout needs `rng`, a
+        bindings rebuilt after each; with the barostat, the box rescaled
+        before each), then run that many steps; the flag is OR'd over the
+        shards at the end.  A thermostatted rollout needs `rng`, a
         `torch.Generator` on the mesh's device."""
         if thermostat is not None and rng is None:
             raise ValueError("a thermostatted rollout needs an rng: a torch.Generator on the mesh's device")
@@ -515,45 +684,40 @@ def make_grid_sharded_sim(
             return state
         pos3, vel3, inv_m, hs, tse, aid, valid, q = unpack(state)
         ref3, overflow = state.ref_positions.movedim(-1, 0), state.overflow
+        box_t = _box(_box_of(state, config), pos3)
         bound, bad = bindings(aid, valid)
         overflow = overflow if bad is None else overflow | bad
-        f = forces_of(pos3, valid, hs, tse, q, bound)[0]
-        if thermostat is None:
+        f = forces_of(pos3, valid, hs, tse, q, bound, box_t)[0]
+        if not synced:
             # Leapfrog: velocities ride half a step ahead, so no force field
             # crosses a rebin; a closing half un-kick re-syncs.
             vel3 = torch.where(valid, vel3 + half_dt * f * inv_m, 0.0)
         for length in lengths_of(num_steps, rebin_every):
+            if barostat is not None:
+                pos3, ref3, box_t, overflow = rescale_box(pos3, ref3, vel3, inv_m, valid, hs, tse, q, bound, box_t,
+                                                          length, overflow)
             pos3, vel3, inv_m, hs, tse, aid, valid, q, overflow, f = rebin(
-                pos3, vel3, inv_m, hs, tse, aid, valid, q, overflow, None if thermostat is None else f)
+                pos3, vel3, inv_m, hs, tse, aid, valid, q, overflow, box_t, f if synced else None)
             ref3 = pos3
             bound, bad = bindings(aid, valid)
             overflow = overflow if bad is None else overflow | bad
             for _ in range(length):
-                if thermostat is None:
-                    x = torch.where(valid, pos3 + dt_f * vel3, pos3)
-                    f = forces_of(x, valid, hs, tse, q, bound)[0]
-                    vel3 = torch.where(valid, vel3 + dt_f * f * inv_m, 0.0)
+                if synced:
+                    pos3, vel3, f = synced_step(pos3, vel3, f, inv_m, valid, hs, tse, q, bound, box_t, rng)
                 else:
-                    v_half = vel3 + half_dt * f * inv_m
-                    x = torch.where(valid, pos3 + dt_f * v_half, pos3)
-                    f = forces_of(x, valid, hs, tse, q, bound)[0]
-                    v = v_half + half_dt * f * inv_m
-                    kin = 0.5 * torch.sum(torch.where(valid, v**2 / torch.clamp(inv_m, min=1e-30), 0.0))
-                    kin = mesh.psum(kin)
-                    r1, sum_r2 = csvr_draws(rng, ndof, v)
-                    alpha2 = _csvr_alpha2(r1, sum_r2, torch.clamp(kin, min=1e-30), ndof,
-                                          thermostat.kB * thermostat.temperature, dt_f, thermostat.tau)
-                    vel3 = torch.sqrt(torch.clamp(alpha2, min=0.0)) * v
-                pos3 = x
-            overflow = overflow | stale(pos3, ref3, valid)
-        if thermostat is None:
-            f = forces_of(pos3, valid, hs, tse, q, bound)[0]
+                    pos3 = torch.where(valid, pos3 + dt_f * vel3, pos3)
+                    f = forces_of(pos3, valid, hs, tse, q, bound, box_t)[0]
+                    vel3 = torch.where(valid, vel3 + dt_f * f * inv_m, 0.0)
+            overflow = overflow | stale(pos3, ref3, valid, box_t)
+        if not synced:
+            f = forces_of(pos3, valid, hs, tse, q, bound, box_t)[0]
             vel3 = torch.where(valid, vel3 - half_dt * f * inv_m, 0.0)
         return state._replace(
             positions=pos3.movedim(0, -1).contiguous(), velocities=vel3.movedim(0, -1).contiguous(),
             inv_masses=inv_m, half_sigma=hs, twice_sqrt_eps=tse, atom_id=aid, valid=valid,
             ref_positions=ref3.movedim(0, -1).contiguous(), step=state.step + num_steps,
             overflow=mesh.pmax(overflow), charges=q,
+            box=box_t if barostat is not None or state.box is not None else None,
         )
 
     def energy(state: CellDenseState):
@@ -561,13 +725,13 @@ def make_grid_sharded_sim(
         over every shard: the pair terms' per-slot halves and the term rows'
         energies."""
         pos3, vel3, inv_m, hs, tse, aid, valid, q = unpack(state)
-        _, e, w, te = forces_of(pos3, valid, hs, tse, q, bindings(aid, valid)[0], compute_energy=True)
+        _, e, w, te = forces_of(pos3, valid, hs, tse, q, bindings(aid, valid)[0], _box(_box_of(state, config), pos3),
+                                compute_energy=True)
         pe = torch.sum(torch.where(valid, e, 0.0))
         vir = torch.sum(torch.where(valid, w, 0.0))
         if te is not None:
             pe, vir = pe + te[0], vir + te[1]
-        ke = 0.5 * torch.sum(torch.where(valid, vel3**2 / torch.clamp(inv_m, min=1e-30), 0.0))
-        out = mesh.psum(torch.stack([pe, vir, ke]))
+        out = mesh.psum(torch.stack([pe, vir, kinetic(vel3, inv_m, valid)]))
         return out[0], out[1], out[2]
 
     def forces(state: CellDenseState, compute_energy: bool = False, with_terms: bool = True):
@@ -575,17 +739,22 @@ def make_grid_sharded_sim(
         state: the rollout's force pass (pairs and, with `with_terms`, the
         term rows), for checks."""
         pos3, _, _, hs, tse, aid, valid, q = unpack(state)
-        f, e, w, _ = forces_of(pos3, valid, hs, tse, q, bindings(aid, valid)[0], compute_energy, with_terms)
+        f, e, w, _ = forces_of(pos3, valid, hs, tse, q, bindings(aid, valid)[0], _box(_box_of(state, config), pos3),
+                               compute_energy, with_terms)
         return f.movedim(0, -1), e, w
 
     rollout.forces = forces
+    rollout.family = family
     return rollout, energy
 
 
 __all__ = [
+    "GRID_BACKENDS",
     "distribute_grid",
     "gather_grid_atoms",
     "gather_grid_state",
+    "grid_vmem_estimate",
     "make_grid_sharded_sim",
     "reconfigure_grid_state",
+    "resolve_grid_backend",
 ]

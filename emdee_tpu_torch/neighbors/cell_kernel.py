@@ -283,7 +283,7 @@ def split_operands(px, py, pz, valid, config: CellDenseConfig):
 
 def ghost_forces(ghost, shards, base, config: CellDenseConfig, model: LennardJonesModel, *,
                  uniform_params=None, compute_energy: bool = False, backend: str = "auto", coulomb=None,
-                 excl=None):
+                 excl=None, box=None):
     """The grid-sharded engine's per-shard force pass (the kernel's GHOST
     mode): forces (3, sz, sy, sx, mz, my, mx, C) of every own slot of the
     local shards and, with `compute_energy`, per-slot half-split energies and
@@ -295,15 +295,16 @@ def ghost_forces(ghost, shards, base, config: CellDenseConfig, model: LennardJon
     `excl`, the int32 atom ids (−2 on empty slots) as a float32 bit view.
     shards: (sz, sy, sx), the local shards' grid; base: the global shard
     coordinates (z, y, x) of its first shard, so that the kernel takes each
-    periodic shift from a neighbour's global cell index.  The box is
-    config.box.
+    periodic shift from a neighbour's global cell index.  box: a number or
+    a 0-d float32 tensor on the device (the NPT engine's dynamic box), or
+    None for config.box.
 
     coulomb (a `DSFCoulomb` model) and excl (the own slots' centre tags
     (ids, mlj, mcs), each (sz, sy, sx, mz, my, mx, C, E) contiguous, E ≤
     MAX_TAGS; no bond tags) select the molecular branches (K2c-G), which
     read the per-atom parameters."""
     if resolve_backend(backend, ghost) == "torch":
-        return ghost_forces_plain(ghost, config, model, uniform_params, compute_energy, coulomb, excl)
+        return ghost_forces_plain(ghost, config, model, uniform_params, compute_energy, coulomb, excl, box)
     global LAUNCHES
     mol = coulomb is not None or excl is not None
     if mol and uniform_params is not None:
@@ -322,7 +323,7 @@ def ghost_forces(ghost, shards, base, config: CellDenseConfig, model: LennardJon
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     params = (ghost[3], ghost[4]) if uniform_params is None else (None, None)
     geometry = (gz - 2, gy - 2, gx - 2, sz * sy * sx, sy, sx, *base, config.cells_per_dim, c,
-                box_ptr(config.box, ghost))
+                box_ptr(config.box if box is None else box, ghost))
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if not mol:
@@ -352,34 +353,33 @@ def ghost_forces(ghost, shards, base, config: CellDenseConfig, model: LennardJon
     return f, e, w
 
 
-def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel, uniform_params,
-                       compute_energy: bool, coulomb=None, excl=None):
-    """The plain version of `ghost_forces`: `_dense_forces` on the ghost
-    grids, with every roll of the slot grid replaced by a block of the ghost
-    grid.  A half-shell offset's neighbour block is the ghost block at +o,
-    and its Newton reaction onto a cell is evaluated where `_dense_forces`
-    evaluates it — the pairs of the cell at −o (a ghost block) against the
-    cell — in a tile of the same shape, so every pair term and every sum is
-    the one-card plain version's, bit for bit, whatever the decomposition.
-    Displacements are d − L·round(d/L) of the raw ghost coordinates.
+def ghost_tiles(ghost, config: CellDenseConfig, model: LennardJonesModel, uniform_params, compute_energy: bool,
+                coulomb=None, excl=None, box=None):
+    """The operands the plain ghost passes share (`ghost_forces_plain`,
+    `streaming_kernel.streaming_ghost_forces_plain`), as a namespace: the
+    ghost grids' fields flattened over the local shards (pos_g, hs_g, tse_g,
+    valid_g, and `mol`), the own cells' (pos, hs, tse, valid, cen_own),
+    `block(a, o, sign)` (the cell c + sign·o of every own cell, (cells, C,
+    …)), `disp`, `r2_of`, `pair_terms`, `side` and the self-cell tile's sums
+    (forces, energies, virials; the energy sums None without
+    `compute_energy`).  The box: `box` (a number or a 0-d tensor) or
+    config.box."""
+    from types import SimpleNamespace
 
-    With `excl`, the reaction tile matches the own cell's tags against the
-    ghost centre's atom id, where `_dense_forces` matches the centre's tags
-    against the own atom id: the tables are symmetric, so the scale is the
-    same number, and the ghost grids need not carry tags."""
-    from emdee_tpu_torch.neighbors.cell_dense import _GROUP, _OFFSETS, Molecular, _box, _molecular_terms
+    from emdee_tpu_torch.neighbors.cell_dense import Molecular, _box, _molecular_terms
 
-    lead = tuple(ghost.shape[1:-4])
+    t = SimpleNamespace(lead=tuple(ghost.shape[1:-4]))
     gz, gy, gx, c = ghost.shape[-4:]
     mz, my, mx = gz - 2, gy - 2, gx - 2
+    t.shape = t.lead + (mz, my, mx, c)
     g = ghost.reshape((ghost.shape[0], -1) + tuple(ghost.shape[-4:]))
-    valid_g = ~torch.isnan(g[0])
-    pos_g = torch.where(valid_g[..., None], g[:3].movedim(0, -1), 0.0)
+    t.valid_g = ~torch.isnan(g[0])
+    t.pos_g = torch.where(t.valid_g[..., None], g[:3].movedim(0, -1), 0.0)
     if uniform_params is None:
-        hs_g, tse_g = g[3], g[4]
+        t.hs_g, t.tse_g = g[3], g[4]
     else:
-        hs_g, tse_g = torch.full_like(g[0], uniform_params[0]), torch.full_like(g[0], uniform_params[1])
-    box_t = _box(config.box, ghost)
+        t.hs_g, t.tse_g = torch.full_like(g[0], uniform_params[0]), torch.full_like(g[0], uniform_params[1])
+    box_t = _box(config.box if box is None else box, ghost)
     mol = None
     if coulomb is not None or excl is not None:
         q_g = g[5] if coulomb is not None else None
@@ -389,9 +389,10 @@ def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel,
             ids, mlj, mcs = excl[:3]
             if coulomb is not None and mcs is None:
                 mcs = mlj
-            flat = lambda t: None if t is None else t.reshape((-1, c, t.shape[-1]))  # noqa: E731
+            flat = lambda a: None if a is None else a.reshape((-1, c, a.shape[-1]))  # noqa: E731
             tags = (flat(ids), flat(mlj), flat(mcs), None)
         mol = Molecular(q_g, coulomb, aid_g, tags)
+    t.mol = mol
 
     def block(a, o, sign=1):
         """Cell c + sign·o of every own cell c, as (cells, C, …); o = (ox, oy, oz)."""
@@ -418,43 +419,68 @@ def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel,
             return None
         return {"q": q, "aid": aid, "excl": tags}
 
-    zero = (0, 0, 0)
-    pos, hs, tse, valid = (block(a, zero) for a in (pos_g, hs_g, tse_g, valid_g))
-    cells = pos.shape[0]
     opt = lambda f, a: None if a is None else f(a)  # noqa: E731
+    zero = (0, 0, 0)
+    t.pos, t.hs, t.tse, t.valid = (block(a, zero) for a in (t.pos_g, t.hs_g, t.tse_g, t.valid_g))
+    t.cells = t.pos.shape[0]
     if mol is not None:
-        q_own, aid_own = opt(lambda a: block(a, zero), mol.q), opt(lambda a: block(a, zero), mol.aid)
-        tags_own = None if mol.excl is None else tuple(opt(lambda t: t[:, :, None, :], t) for t in mol.excl)
-        cen_own = side(opt(lambda a: a[:, :, None], q_own), None, tags_own)
+        t.q_own, t.aid_own = opt(lambda a: block(a, zero), mol.q), opt(lambda a: block(a, zero), mol.aid)
+        tags_own = None if mol.excl is None else tuple(opt(lambda a: a[:, :, None, :], a) for a in mol.excl)
+        t.cen_own = side(opt(lambda a: a[:, :, None], t.q_own), None, tags_own)
     else:
-        q_own = aid_own = cen_own = None
+        t.q_own = t.aid_own = t.cen_own = None
+    t.block, t.disp, t.r2_of, t.pair_terms, t.side, t.opt = block, disp, r2_of, pair_terms, side, opt
 
     # ---- self-cell tile, as in `_dense_forces` ----
+    pos, valid = t.pos, t.valid
     dv = disp(pos[:, :, None, :], pos[:, None, :, :])
-    r2 = r2_of(dv)
     eye = torch.eye(c, dtype=torch.bool, device=pos.device)
     ok = valid[:, :, None] & valid[:, None, :] & ~eye[None]
-    r2s = torch.where(ok, r2, 1.0)
-    e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], hs[:, None, :], tse[:, None, :], cen_own,
-                        side(opt(lambda a: a[:, None, :], q_own), opt(lambda a: a[:, None, :], aid_own)))
-    forces = torch.sum((mre / r2s)[..., None] * dv, dim=2)
-    if compute_energy:
-        energies = 0.5 * torch.sum(e, dim=2)
-        virials = 0.5 * torch.sum(mre, dim=2)
+    r2s = torch.where(ok, r2_of(dv), 1.0)
+    e, mre = pair_terms(r2s, ok, t.hs[:, :, None], t.tse[:, :, None], t.hs[:, None, :], t.tse[:, None, :], t.cen_own,
+                        side(opt(lambda a: a[:, None, :], t.q_own), opt(lambda a: a[:, None, :], t.aid_own)))
+    t.forces = torch.sum((mre / r2s)[..., None] * dv, dim=2)
+    t.energies = 0.5 * torch.sum(e, dim=2) if compute_energy else None
+    t.virials = 0.5 * torch.sum(mre, dim=2) if compute_energy else None
+    return t
+
+
+def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel, uniform_params,
+                       compute_energy: bool, coulomb=None, excl=None, box=None):
+    """The plain version of `ghost_forces`: `_dense_forces` on the ghost
+    grids, with every roll of the slot grid replaced by a block of the ghost
+    grid.  A half-shell offset's neighbour block is the ghost block at +o,
+    and its Newton reaction onto a cell is evaluated where `_dense_forces`
+    evaluates it — the pairs of the cell at −o (a ghost block) against the
+    cell — in a tile of the same shape, so every pair term and every sum is
+    the one-card plain version's, bit for bit, whatever the decomposition.
+    Displacements are d − L·round(d/L) of the raw ghost coordinates.
+
+    With `excl`, the reaction tile matches the own cell's tags against the
+    ghost centre's atom id, where `_dense_forces` matches the centre's tags
+    against the own atom id: the tables are symmetric, so the scale is the
+    same number, and the ghost grids need not carry tags."""
+    from emdee_tpu_torch.neighbors.cell_dense import _GROUP, _OFFSETS
+
+    t = ghost_tiles(ghost, config, model, uniform_params, compute_energy, coulomb, excl, box)
+    mol, block, disp, r2_of, side, opt = t.mol, t.block, t.disp, t.r2_of, t.side, t.opt
+    pos, hs, tse, valid, cells = t.pos, t.hs, t.tse, t.valid, t.cells
+    c = ghost.shape[-1]
+    forces, energies, virials = t.forces, t.energies, t.virials
 
     for g0 in range(0, len(_OFFSETS), _GROUP):
         offs = _OFFSETS[g0 : g0 + _GROUP]
         k = len(offs)
         # Forward tile: own centres against the cells at +o.
         nbr = lambda a: torch.cat([block(a, o) for o in offs], dim=1)  # noqa: E731
-        nbr_pos, nbr_hs, nbr_tse, nbr_valid = nbr(pos_g), nbr(hs_g), nbr(tse_g), nbr(valid_g)
+        nbr_pos, nbr_hs, nbr_tse, nbr_valid = nbr(t.pos_g), nbr(t.hs_g), nbr(t.tse_g), nbr(t.valid_g)
         dv = disp(pos[:, :, None, :], nbr_pos[:, None, :, :])
         ok = valid[:, :, None] & nbr_valid[:, None, :]
         r2s = torch.where(ok, r2_of(dv), 1.0)
         fwd = None if mol is None else side(opt(lambda a: nbr(a)[:, None, :], mol.q),
                                             opt(lambda a: nbr(a)[:, None, :], mol.aid))
-        e, mre = pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], nbr_hs[:, None, :], nbr_tse[:, None, :],
-                            cen_own, fwd)
+        e, mre = t.pair_terms(r2s, ok, hs[:, :, None], tse[:, :, None], nbr_hs[:, None, :], nbr_tse[:, None, :],
+                              t.cen_own, fwd)
         gdv = torch.where(ok, mre / r2s, 0.0)[..., None] * dv
         forces = forces + torch.sum(gdv, dim=2)
         if compute_energy:
@@ -472,16 +498,16 @@ def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel,
             rest = tuple(a.shape[2:])
             return a[:, None, None].expand((cells, c, k, c) + rest).reshape((cells, c, k * c) + rest)
 
-        dv = disp(centres(pos_g), owns(pos))
-        ok = centres(valid_g) & owns(valid)
+        dv = disp(centres(t.pos_g), owns(pos))
+        ok = centres(t.valid_g) & owns(valid)
         r2s = torch.where(ok, r2_of(dv), 1.0)
         cen_r = nbr_r = None
         if mol is not None:
             # The centre's charge; the own cell's tags against the centre's atom id.
-            tags_r = None if mol.excl is None else tuple(opt(owns, t) for t in mol.excl)
+            tags_r = None if mol.excl is None else tuple(opt(owns, a) for a in mol.excl)
             cen_r = side(opt(centres, mol.q), None, tags_r)
-            nbr_r = side(opt(owns, q_own), opt(centres, mol.aid))
-        e, mre = pair_terms(r2s, ok, centres(hs_g), centres(tse_g), owns(hs), owns(tse), cen_r, nbr_r)
+            nbr_r = side(opt(owns, t.q_own), opt(centres, mol.aid))
+        e, mre = t.pair_terms(r2s, ok, centres(t.hs_g), centres(t.tse_g), owns(hs), owns(tse), cen_r, nbr_r)
         gdv = torch.where(ok, mre / r2s, 0.0)[..., None] * dv
         reaction = -torch.sum(gdv, dim=1)  # (cells, k·C, 3)
         for i in range(k):
@@ -493,8 +519,7 @@ def ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel,
                 energies = energies + e_r[:, i * c : (i + 1) * c]
                 virials = virials + w_r[:, i * c : (i + 1) * c]
 
-    shape = lead + (mz, my, mx, c)
-    forces = forces.reshape(shape + (3,)).movedim(-1, 0)
+    forces = forces.reshape(t.shape + (3,)).movedim(-1, 0)
     if compute_energy:
-        return forces, energies.reshape(shape), virials.reshape(shape)
+        return forces, energies.reshape(t.shape), virials.reshape(t.shape)
     return forces, None, None

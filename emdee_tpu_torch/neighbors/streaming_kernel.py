@@ -17,6 +17,17 @@ fold that adds the groups in a fixed order.  For CPU tensors, or backend
 'torch', they run the plain version: the half shell of
 `cell_dense._dense_forces`, the same as the resident kernel's (with the
 molecular terms, `cell_dense_forces(coulomb=, excl=)`, K2c's).
+
+`streaming_ghost_forces` (K5s) is the grid-sharded engine's per-shard pass
+of the same kernel (the reference's `_local_forces_streaming`, for shards
+beyond VMEM residency): two launches, the half-shell pair pass over each
+local shard's ghost grid and the assembly of its reaction rows into the
+interior forces and a reaction ghost grid, which the engine returns to the
+owning shards (`grid_sharded._fold3`).  Its plain version,
+`streaming_ghost_forces_plain`, has the structure of the reference's
+`_local_forces_xla`: each half-shell reaction written to the ghost cell at
++o.  Because the fold adds a shard's boundary reactions in another order,
+decompositions agree to roundoff, not bit for bit.
 """
 
 from __future__ import annotations
@@ -33,7 +44,11 @@ from emdee_tpu_torch.neighbors.cell_dense import (
     resolve_backend,
 )
 from emdee_tpu_torch.neighbors.cell_kernel import (
+    _check,
+    _dsf_operands,
     _pair_consts,
+    _tag_operands,
+    ghost_tiles,
     mol_operands,
     split_operands,
     split_plain,
@@ -42,7 +57,7 @@ from emdee_tpu_torch.neighbors.cell_kernel import (
 from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel
 
 # Kernel launches since import (or since a caller reset it to 0): two per
-# force evaluation, the pair pass and the fold.
+# force evaluation, the pair pass and the fold (K5s: the assembly).
 LAUNCHES = 0
 
 MAX_CAPACITY = 96  # three centre slots per lane
@@ -73,6 +88,28 @@ def _check_geometry(config: CellDenseConfig, energy: bool, mol: bool = False, ne
         raise ValueError(
             f"the streaming kernel takes M ≥ 3, C ≤ {MAX_CAPACITY} and a block's shared memory within "
             f"{_SMEM_BYTES} B; got M={m}, C={c} ({smem} B)"
+        )
+
+
+def ghost_smem_bytes(mx: int, c: int, energy: bool, mol: bool = False, ne: int = 0) -> int:
+    """K5s's shared memory a block, as its C entry counts it: the pencil's
+    centre sums, (n_r, mx·C), and one reaction row, (n_r, (mx+2)·C),
+    float32; the warps' tiles and staged centre tags as `smem_bytes`."""
+    entries = 64 if c <= 64 else 96
+    fields = 7 if mol else 5
+    return 4 * ((5 if energy else 3) * (2 * mx + 2) * c + _WARPS * (2 * (fields + 1) * entries + 3 * ne * entries))
+
+
+def _check_ghost_geometry(config: CellDenseConfig, mx: int, energy: bool, mol: bool, ne: int) -> None:
+    """Refuse what K5s's C entry would refuse, before any launch: M ≥ 3, C
+    ≤ MAX_CAPACITY and a block's shared memory (`ghost_smem_bytes`) within
+    what Hopper gives a block."""
+    m, c = config.cells_per_dim, config.capacity
+    smem = ghost_smem_bytes(mx, c, energy, mol, ne)
+    if m < 3 or c > MAX_CAPACITY or smem > _SMEM_BYTES:
+        raise ValueError(
+            f"the streaming kernel's ghost mode takes M ≥ 3, C ≤ {MAX_CAPACITY} and a block's shared memory "
+            f"within {_SMEM_BYTES} B; got M={m}, C={c}, mx={mx} ({smem} B)"
         )
 
 
@@ -189,3 +226,125 @@ def cell_forces_streaming_split(
     operands, outputs = split_operands(px, py, pz, valid, config)
     _launch(*operands, config, box, uniform_params, False)
     return outputs
+
+
+# The half shell (dz, dy, dx) > (0, 0, 0), in the reference's order.
+_HALF_SHELL = tuple((dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                    if (dz, dy, dx) > (0, 0, 0))
+
+
+def streaming_ghost_forces(ghost, shards, base, config: CellDenseConfig, model: LennardJonesModel, *, box=None,
+                           uniform_params=None, compute_energy: bool = False, backend: str = "auto", coulomb=None,
+                           excl=None):
+    """The grid-sharded engine's per-shard streaming pass (K5s), before the
+    fold: (forces (3, sz, sy, sx, mz, my, mx, C), the reaction ghost grid
+    (3 or 5, sz, sy, sx, mz+2, my+2, mx+2, C), e, w), with per-slot
+    half-split energies and virials (sz, sy, sx, mz, my, mx, C) and their
+    reaction rows (components 3 and 4 of the ghost grid) with
+    `compute_energy`, else e, w None.  A ghost slot of the reaction grid
+    holds the reactions of this shard's pairs on the atom in that slot; the
+    interior slots of the grid are zero.  `grid_sharded._fold3` returns the
+    ghost layers to their owners.
+
+    ghost, shards, base, uniform_params, coulomb and excl as
+    `cell_kernel.ghost_forces` takes them; box: a number or a 0-d float32
+    tensor on the device, or None for config.box.  For CUDA tensors
+    (backend 'auto' or 'cuda') two launches of `csrc/cell_forces_streaming.cu`
+    (GHOST): the pair pass and the assembly; for CPU tensors or backend
+    'torch' the plain version."""
+    if resolve_backend(backend, ghost) == "torch":
+        return streaming_ghost_forces_plain(ghost, config, model, uniform_params, compute_energy, coulomb, excl, box)
+    global LAUNCHES
+    mol = coulomb is not None or excl is not None
+    if mol and uniform_params is not None:
+        raise ValueError("the molecular ghost pass reads per-atom parameters: pass uniform_params=None")
+    sz, sy, sx = shards
+    gz, gy, gx, c = ghost.shape[-4:]
+    mz, my, mx = gz - 2, gy - 2, gx - 2
+    nfield = (3 if uniform_params is not None else 5) + (coulomb is not None) + (excl is not None)
+    dev = ghost.device
+    _check(ghost, "ghost", torch.float32, (nfield, sz, sy, sx, gz, gy, gx, config.capacity), dev)
+    local = (sz, sy, sx, mz, my, mx, c)
+    ids = mlj = mcs = None
+    ne = 0
+    if excl is not None:
+        ids, mlj, mcs, ne = _tag_operands(excl, coulomb is not None, local, dev)
+    _check_ghost_geometry(config, mx, compute_energy, mol, ne)
+    nr = 5 if compute_energy else 3
+    n_sh = sz * sy * sx
+    out = torch.empty((nr, n_sh * mz * my * mx * c), dtype=torch.float32, device=dev)
+    groups = torch.empty((_ROW_GROUPS + 1, nr, n_sh * mz * my, gx * c), dtype=torch.float32, device=dev)
+    react = torch.empty((nr,) + tuple(ghost.shape[1:]), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    params = (ghost[3], ghost[4]) if uniform_params is None else (None, None)
+    q = ghost[5] if coulomb is not None else None
+    aid = ghost[-1] if excl is not None else None
+    consts = (None,) * 6 if coulomb is None else _dsf_operands(coulomb, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = build.load()
+    err = lib.emdee_streaming_ghost(
+        ghost[0].data_ptr(), ghost[1].data_ptr(), ghost[2].data_ptr(), *map(ptr, params), ptr(q), ptr(aid),
+        ptr(ids), ptr(mlj), ptr(mcs), ne, *map(ptr, consts), out.data_ptr(), groups.data_ptr(), mz, my, mx, n_sh,
+        sy, sx, *base, config.cells_per_dim, c, box_ptr(config.box if box is None else box, ghost),
+        *_pair_consts(config, uniform_params), int(uniform_params is not None), int(coulomb is not None),
+        int(excl is not None), int(compute_energy), stream,
+    )
+    build.check(err, "cell_forces_streaming kernel (ghost grid)")
+    LAUNCHES += 1
+    err = lib.emdee_streaming_ghost_assemble(out.data_ptr(), groups.data_ptr(), react.data_ptr(), mz, my, mx, n_sh, c,
+                                             int(compute_energy), stream)
+    build.check(err, "cell_forces_streaming assembly (ghost grid)")
+    LAUNCHES += 1
+    f = out[:3].reshape((3,) + local)
+    if compute_energy:
+        return f, react, out[3].reshape(local), out[4].reshape(local)
+    return f, react, None, None
+
+
+def streaming_ghost_forces_plain(ghost, config: CellDenseConfig, model: LennardJonesModel, uniform_params,
+                                 compute_energy: bool, coulomb=None, excl=None, box=None):
+    """The plain version of `streaming_ghost_forces`: the half shell over
+    the ghost grids, the structure of the reference's `_local_forces_xla`
+    (grid_sharded.py:770-894).  The self cell adds every ordered pair to
+    its centres; each half-shell offset o adds its pairs to the own centres
+    and their Newton reactions to the ghost cell at +o of the reaction grid
+    (no reaction tile at −o); last, the reactions that landed on own slots
+    join the forces, as the kernel's assembly adds them, and only the ghost
+    slots of the grid stay.  Displacements are d − L·round(d/L) of the raw
+    ghost coordinates; with `excl`, the own centre's tags are matched
+    against the neighbour's atom id."""
+    t = ghost_tiles(ghost, config, model, uniform_params, compute_energy, coulomb, excl, box)
+    mol, side, opt = t.mol, t.side, t.opt
+    gz, gy, gx, c = ghost.shape[-4:]
+    mz, my, mx = gz - 2, gy - 2, gx - 2
+    nr = 5 if compute_energy else 3
+    react = ghost.new_zeros((t.cells // (mz * my * mx), gz, gy, gx, c, nr))
+    forces, energies, virials = t.forces, t.energies, t.virials
+    for dz, dy, dx in _HALF_SHELL:
+        nbr = lambda a: t.block(a, (dx, dy, dz))  # noqa: E731, B023
+        dv = t.disp(t.pos[:, :, None, :], nbr(t.pos_g)[:, None, :, :])
+        ok = t.valid[:, :, None] & nbr(t.valid_g)[:, None, :]
+        r2s = torch.where(ok, t.r2_of(dv), 1.0)
+        fwd = None if mol is None else side(opt(lambda a: nbr(a)[:, None, :], mol.q),  # noqa: B023
+                                            opt(lambda a: nbr(a)[:, None, :], mol.aid))  # noqa: B023
+        e, mre = t.pair_terms(r2s, ok, t.hs[:, :, None], t.tse[:, :, None], nbr(t.hs_g)[:, None, :],
+                              nbr(t.tse_g)[:, None, :], t.cen_own, fwd)
+        gdv = torch.where(ok, mre / r2s, 0.0)[..., None] * dv
+        forces = forces + torch.sum(gdv, dim=2)
+        parts = [-torch.sum(gdv, dim=1)]  # (cells, C, 3): the reactions on the neighbour's slots
+        if compute_energy:
+            energies = energies + 0.5 * torch.sum(e, dim=2)
+            virials = virials + 0.5 * torch.sum(mre, dim=2)
+            parts += [0.5 * torch.sum(e, dim=1)[..., None], 0.5 * torch.sum(mre, dim=1)[..., None]]
+        rows = torch.cat(parts, dim=-1).reshape((-1, mz, my, mx, c, nr))
+        react[:, 1 + dz : 1 + dz + mz, 1 + dy : 1 + dy + my, 1 + dx : 1 + dx + mx] += rows
+    # The reactions on own slots join the centre sums, as the kernel's assembly adds them.
+    inner = react[:, 1 : mz + 1, 1 : my + 1, 1 : mx + 1].reshape((-1, c, nr))
+    forces = (forces + inner[..., :3]).reshape(t.shape + (3,)).movedim(-1, 0)
+    if compute_energy:
+        energies, virials = energies + inner[..., 3], virials + inner[..., 4]
+    react[:, 1 : mz + 1, 1 : my + 1, 1 : mx + 1] = 0.0
+    react = react.movedim(-1, 0).reshape((nr,) + tuple(ghost.shape[1:]))
+    if compute_energy:
+        return forces, react, energies.reshape(t.shape), virials.reshape(t.shape)
+    return forces, react, None, None

@@ -3,9 +3,9 @@
 rc = 2.5σ, switch 2.0σ, skin 0.35, dt = 0.005, uniform unit parameters and
 masses — 29³ cells (97,556 atoms) on bench.py's wide dense config, its
 straggler configs and its boundary-spill config, and 63³ cells (1,000,188
-atoms, bench_all.py's 1M melt) — and the thermostat and barostat constants
-of tests/test_dense_thermostats.py.  One copy of the measured
-configurations for both scripts."""
+atoms, bench_all.py's 1M melt; on the grid also at M = 36, `even_config`) —
+and the thermostat and barostat constants of tests/test_dense_thermostats.py.
+One copy of the measured configurations for both scripts."""
 
 from __future__ import annotations
 
@@ -56,6 +56,20 @@ def equilibrate(rollout, state, config, n: int, steps: int = 200):
     pos, vel = gather_dense_atoms(state, n)
     t_eq = float((vel.astype(np.float64) ** 2).sum() / (3.0 * n - 3.0))
     return pos, vel, t_eq, suggest_rebin_interval(config.skin, DT, temperature=t_eq)
+
+
+def even_config(state, config):
+    """The config of `state` at an even cell count, for the grid meshes
+    that split an axis in two: `reconfigure_dense_state(cells_multiple_of=2)`'s
+    M (36 for the 1M melt), with the capacity the suggestion rule gives at
+    that M (40 at 1M).  `reconfigure_dense_state` keeps the capacity
+    suggested at the unrounded M (32 at M = 37), as the reference does, and
+    a cell of the 1M melt passes it within 200 steps (ROADMAP fault R9)."""
+    from emdee_tpu_torch import reconfigure_dense_state
+
+    cfg = reconfigure_dense_state(state, config, cells_multiple_of=2)[1]
+    mean = config.num_atoms / cfg.cells_per_dim**3
+    return cfg._replace(capacity=-(-int(np.ceil(mean + 2.5 * np.sqrt(mean) + 1.0)) // 8) * 8)
 
 
 def straggler_config(wide, ct_below: int, aux_capacity: int, kn: int):

@@ -9,13 +9,17 @@ family; and the molecular engines on the 98,304-atom flexible-water box of
 `tools/water.py` (NVE on its plain config after the CSVR equilibration
 `chip_smoke.py` runs): the dense engine with backend 'cuda' (K2c) and
 'auto' (the streaming family, K5c), and the grid-sharded engine on (2,2,2)
-(K2c-G, bonds and angles as term rows).
+(K2c-G, bonds and angles as term rows); and the grid's streaming family and
+ensembles: the 1M melt on the grid (1,1,1) at M = 37 on 'auto' (K5s and the
+fold) and on (2,2,2) at M = 36, C = 40 on 'cuda_streaming' and on 'cuda'
+(K2-G), Langevin and NPT (on 'auto' and on 'cuda_streaming') on the
+97,556-atom melt at (2,2,2), M = 16.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 -m emdee_tpu_torch.tools.profile_paths [water]
+    python3 -m emdee_tpu_torch.tools.profile_paths [water | grid]
 
-(`water`: the water paths alone.)
+(`water`, `grid`: those paths alone.)
 
 For each path, after 60 steps of warm-up: the unprofiled ms/step of three
 600-step windows (host clock around work that ends in a synchronize), then
@@ -116,6 +120,51 @@ def profile_water(device) -> None:
                  water.REBIN_EVERY)
 
 
+def profile_grid(device) -> None:
+    from emdee_tpu_torch import (
+        BerendsenBarostatConfig, CSVRConfig, LangevinConfig, cell_dense_init, make_cell_dense_sim,
+        reconfigure_dense_state, suggest_rebin_interval,
+    )
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, make_grid_sharded_sim
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.tools.melt import (
+        DT, FRICTION, KAPPA, N_CELLS_1M, P_NPT, SKIN, T_NVT, TAU_P, TAU_T, equilibrate, even_config, melt,
+    )
+
+    gen = lambda: torch.Generator(device=device).manual_seed(7)  # noqa: E731
+    st, config, model, params, uni, n = melt(device)
+    dense, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    pos_eq, vel_eq, _, _ = equilibrate(dense, st, config, n)
+    st16, cfg16 = reconfigure_dense_state(cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device),
+                                          config, cells_multiple_of=2)
+    mesh = make_grid_mesh((2, 2, 2), device=device)
+    sh = distribute_grid(st16, cfg16, mesh)
+    k_t = suggest_rebin_interval(SKIN, DT, T_NVT)
+    print(f"{n} atoms, M={cfg16.cells_per_dim} C={cfg16.capacity} on (2,2,2), rebin every {k_t} steps", flush=True)
+    lan, _ = make_grid_sharded_sim(cfg16, model, DT, mesh, uniform_params=uni, thermostat=LangevinConfig(T_NVT, FRICTION))
+    profile_path("grid (2,2,2) M=16 Langevin (K2-G)", lan, sh, k_t, rng=gen())
+    for backend in ("auto", "cuda_streaming"):
+        npt, _ = make_grid_sharded_sim(cfg16, model, DT, mesh, uniform_params=uni, backend=backend,
+                                       thermostat=CSVRConfig(T_NVT, TAU_T),
+                                       barostat=BerendsenBarostatConfig(P_NPT, TAU_P, KAPPA))
+        profile_path(f"grid (2,2,2) M=16 NPT on {npt.family!r}", npt, sh, k_t, rng=gen())
+    del st, st16, sh
+
+    st, config, model, params, uni, n = melt(device, N_CELLS_1M)
+    dense, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    pos_eq, vel_eq, _, k = equilibrate(dense, st, config, n)
+    st37 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
+    cfg36 = even_config(st37, config)
+    st36 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, cfg36, device=device)
+    print(f"{n} atoms, rebin every {k} steps", flush=True)
+    for shape, cfg, start, backend in (((1, 1, 1), config, st37, "auto"), ((2, 2, 2), cfg36, st36, "cuda_streaming"),
+                                       ((2, 2, 2), cfg36, st36, "cuda")):
+        mesh = make_grid_mesh(shape, device=device)
+        grid, _ = make_grid_sharded_sim(cfg, model, DT, mesh, uniform_params=uni, backend=backend)
+        profile_path(f"1M grid {shape} M={cfg.cells_per_dim} C={cfg.capacity} on {grid.family!r}", grid,
+                     distribute_grid(start, cfg, mesh), k)
+
+
 def main(paths: str = "all") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: needs a CUDA device")
@@ -125,8 +174,8 @@ def main(paths: str = "all") -> None:
     ).stdout.strip()
     print(smi, flush=True)
     device = torch.device("cuda", 0)
-    if paths == "water":
-        profile_water(device)
+    if paths in ("water", "grid"):
+        (profile_water if paths == "water" else profile_grid)(device)
         return
     from emdee_tpu_torch import (
         CSVRConfig, LangevinConfig, cell_dense_init, make_cell_dense_sim, make_straggler_sim,
@@ -176,6 +225,7 @@ def main(paths: str = "all") -> None:
     profile_path("1M dense component carry", dense, st0, k)
     del st, st0
     profile_water(device)
+    profile_grid(device)
 
 
 if __name__ == "__main__":

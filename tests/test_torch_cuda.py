@@ -528,7 +528,8 @@ def test_molecular_water_rollout_matches_plain_and_reruns_bitwise(device):
     """A 1,536-atom flexible-water box (`tools/water.py`, 8³ waters, M = 3)
     on 'cuda' (bonds absorbed in K2c) against 'torch' (the gather path)
     after 20 steps within 2e-3 / 5e-2; two 'cuda' rollouts bitwise equal;
-    the grid engine refuses the per-shard streaming backend (K5s)."""
+    the grid engine takes the per-shard streaming backend (K5s) on the box,
+    its energies with DSF alone within 1e-5 of the resident family's (K2-G)."""
     from emdee_tpu_torch import gather_dense_atoms
     from emdee_tpu_torch.distributed import grid_sharded as gs
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
@@ -550,9 +551,13 @@ def test_molecular_water_rollout_matches_plain_and_reruns_bitwise(device):
     assert np.abs(pa - pp).max() < 2e-3 and np.abs(va - vp).max() < 5e-2
     pe_k, pe_p = float(energy_k(st)[0]), float(energy_p(st)[0])
     assert abs(pe_k - pe_p) <= 1e-5 * abs(pe_p) + 1e-2
-    with pytest.raises(NotImplementedError, match="K5s"):
-        gs.make_grid_sharded_sim(config, model, water.DT, make_grid_mesh((1, 1, 1), device=device),
-                                 backend="cuda_streaming", coulomb=coul)
+    mesh = make_grid_mesh((1, 1, 1), device=device)
+    sh = gs.distribute_grid(st, config, mesh)
+    roll_s, energy_s = gs.make_grid_sharded_sim(config, model, water.DT, mesh, backend="cuda_streaming", coulomb=coul)
+    _, energy_r = gs.make_grid_sharded_sim(config, model, water.DT, mesh, backend="cuda", coulomb=coul)
+    assert roll_s.family == "cuda_streaming"
+    for got, want in zip(energy_s(sh), energy_r(sh)):
+        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want)) + 1e-2
 
 
 def test_molecular_triatomic_reruns_bitwise(device):
@@ -698,3 +703,153 @@ def test_grid_molecular_rollout_reruns_bitwise(device):
             assert float((plain.positions - outs[shape].positions).abs().max()) <= 2e-4
     a, b = outs[(1, 1, 1)], outs[(2, 2, 2)]
     assert all(torch.equal(x, y) for x, y in zip(a, b) if isinstance(x, torch.Tensor))
+
+
+def _ghost_stack(sh, mesh, uniform=False, coulomb=False, excl=False):
+    """A grid-sharded state's ghost grids as the grid engine builds them:
+    x, y, z (NaN in empty slots), [σ/2, 2√ε], [q], [atom ids as float32 bits]."""
+    from emdee_tpu_torch.distributed.grid_sharded import _ghost3
+
+    parts = [torch.where(sh.valid, sh.positions.movedim(-1, 0), float("nan"))]
+    if not uniform:
+        parts += [sh.half_sigma[None], sh.twice_sqrt_eps[None]]
+    if coulomb:
+        parts.append(sh.charges[None])
+    if excl:
+        parts.append(torch.where(sh.valid, sh.atom_id, -2).view(torch.float32)[None])
+    return _ghost3(torch.cat(parts), mesh)
+
+
+def _k5s_vs_plain(sh, mesh, config, model, one_card, gate, e_gate, w_gate, rtol, **kw):
+    """K5s vs its plain version before the fold (interior forces, the
+    reaction ghost grid, energies within e_gate + rtol·|E| and virials
+    within w_gate + rtol·|W|), then after the fold vs the one-card forces
+    `one_card` (M³, C, 3); empty slots exactly 0; reruns bitwise; two
+    launches a call."""
+    from emdee_tpu_torch.distributed.grid_sharded import _fold3, gather_grid_state
+
+    gh = _ghost_stack(sh, mesh, kw.get("uniform_params") is not None, kw.get("coulomb") is not None,
+                      kw.get("excl") is not None)
+    args = (gh, mesh.local_shape, mesh.base, config, model)
+    for energy in (False, True):
+        before = streaming_kernel.LAUNCHES
+        k = streaming_kernel.streaming_ghost_forces(*args, compute_energy=energy, backend="cuda", **kw)
+        again = streaming_kernel.streaming_ghost_forces(*args, compute_energy=energy, backend="cuda", **kw)
+        p = streaming_kernel.streaming_ghost_forces(*args, compute_energy=energy, backend="torch", **kw)
+        torch.cuda.synchronize()
+        assert streaming_kernel.LAUNCHES == before + 4
+        assert all(torch.equal(a, b) for a, b in zip(k, again) if a is not None)
+        valid = sh.valid
+        live_ghost = ~torch.isnan(gh[0])
+        scale = max(float(p[0].movedim(0, -1)[valid].abs().max()), 1.0)
+        assert float((k[0] - p[0]).movedim(0, -1)[valid].abs().max()) <= gate * scale
+        assert float((k[1][:3] - p[1][:3]).abs().max()) <= gate * scale
+        assert not bool(k[0].movedim(0, -1)[~valid].any()) and not bool(k[1].movedim(0, -1)[~live_ghost].any())
+        if energy:
+            for a, b, atol in ((k[2][valid], p[2][valid], e_gate), (k[3][valid], p[3][valid], w_gate),
+                               (k[1][3], p[1][3], e_gate), (k[1][4], p[1][4], w_gate)):
+                np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=rtol, atol=atol)
+        back = _fold3(k[1], mesh)
+        f = gather_grid_state(sh._replace(positions=(k[0] + back[:3]).movedim(0, -1)), config, mesh).positions
+        v1 = gather_grid_state(sh, config, mesh).valid
+        assert float((f - one_card)[v1].abs().max()) <= gate * scale
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+@pytest.mark.parametrize("geometry,shape", [((6, 24), (2, 2, 2)), ((5, 40), (1, 1, 1)), ((4, 88), (2, 2, 2))])
+def test_streaming_ghost_kernel_matches_plain(device, uniform, geometry, shape):
+    """K5s (the streaming kernel's GHOST mode) with one, two and three
+    centre slots a lane (C = 24, 40, 88), drifted across cell faces and the
+    seam: against its plain version within 2e-5 of the force scale, energies
+    and virials at the one-card K5 test's gates (1e-4 and 2e-3, rtol 1e-4),
+    and after the fold against the one-card K5."""
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    m, c = geometry
+    st, config, model = _state(device, varied=not uniform, drift=True, geometry={"cells_per_dim": m, "capacity": c})
+    assert not bool(st.overflow)
+    uni = (0.5, 2.0) if uniform else None
+    one = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", uniform_params=uni)[0]
+    mesh = make_grid_mesh(shape, device=device)
+    _k5s_vs_plain(distribute_grid(st, config, mesh), mesh, config, model, one, 2e-5, 1e-4, 2e-3, 1e-4,
+                  uniform_params=uni)
+
+
+@pytest.mark.parametrize("capacity", [None, 40, 88])
+@pytest.mark.parametrize("variant", ["coulomb", "tags", "coulomb_tags"])
+def test_streaming_ghost_molecular_kernel_matches_plain(device, variant, capacity):
+    """K5s-mol (DSF and the exclusion tags, no bond tags) on the charged
+    fixture over (2,2,2), C = 24, 40, 88: against its plain version within
+    2e-4 of the force scale and 1e-3 in energies and virials, and after the
+    fold against the one-card K5c."""
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    st, config, model, coul, tags = fixtures.charged_fixture(device, capacity)
+    c = coul if "coulomb" in variant else None
+    excl = None if variant == "coulomb" else tags[:3]
+    one = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", coulomb=c, excl=excl)[0]
+    mesh = make_grid_mesh((2, 2, 2), device=device)
+    sh = distribute_grid(st, config, mesh)
+    shard = lambda t: None if t is None else distribute_grid(st._replace(positions=t), config, mesh).positions  # noqa: E731
+    ghost_tags = None if excl is None else tuple(shard(t) for t in excl)
+    _k5s_vs_plain(sh, mesh, config, model, one, 2e-4, 1e-3, 1e-3, 0.0, coulomb=c, excl=ghost_tags)
+
+
+def test_streaming_ghost_geometry_refusals_and_cpu(device):
+    """K5s refuses what its C entry would, before any launch: C > 96, and a
+    block's shared memory past Hopper's 232,448 B (a wide pencil at C = 96
+    with energies and eight tags); 'cuda' on CPU tensors and the
+    'cuda_streaming' family on a CPU mesh raise, with no fallback."""
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    st, config, model = _state(device)
+    with pytest.raises(ValueError, match="C ≤ 96"):
+        streaming_kernel._check_ghost_geometry(config._replace(capacity=104), 4, False, False, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 28, True, True, 8)
+    streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 27, True, True, 8)
+    wide = config._replace(capacity=104)
+    gh = torch.full((5, 1, 1, 1, 5, 5, 5, 104), float("nan"), device=device)
+    with pytest.raises(ValueError, match="C ≤ 96"):
+        streaming_kernel.streaming_ghost_forces(gh, (1, 1, 1), (0, 0, 0), wide, model, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        streaming_kernel.streaming_ghost_forces(gh.cpu(), (1, 1, 1), (0, 0, 0), wide, model, backend="cuda")
+    for backend in ("cuda_streaming", "pallas_streaming"):
+        with pytest.raises(ValueError, match="CUDA"):
+            gs.make_grid_sharded_sim(config, model, 0.002, make_grid_mesh((1, 1, 1), device="cpu"), backend=backend)
+
+
+def test_streaming_grid_rollout_matches_plain_and_reruns_bitwise(device):
+    """The grid on 'cuda_streaming' (K5s + the fold, K6): (1,1,1) and
+    (2,2,2) rerun bitwise, within 2e-5 of 'torch_streaming' and of K2-G
+    after 12 steps; two K5s launches a force evaluation, three K6 a rebin.
+    Decompositions agree to roundoff (the fold's order), not bit for bit."""
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+
+    st, config, model = _state(device, varied=False, geometry={"cells_per_dim": 4, "capacity": 56})
+    uni = (0.5, 2.0)
+    outs = {}
+    for shape in ((1, 1, 1), (2, 2, 2)):
+        mesh = make_grid_mesh(shape, device=device)
+        sh = gs.distribute_grid(st, config, mesh)
+        roll, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, uniform_params=uni, backend="cuda_streaming")
+        assert roll.family == "cuda_streaming"
+        k5, k6_before = streaming_kernel.LAUNCHES, k6.LAUNCHES
+        out = roll(sh, num_steps=12, rebin_every=3)
+        assert (streaming_kernel.LAUNCHES - k5, k6.LAUNCHES - k6_before) == (28, 12)
+        again = roll(sh, num_steps=12, rebin_every=3)
+        assert all(torch.equal(a, b) for a, b in zip(out, again) if isinstance(a, torch.Tensor))
+        assert not bool(out.overflow)
+        outs[shape] = gs.gather_grid_state(out, config, mesh)
+        for backend in ("torch_streaming", "cuda"):
+            other, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, uniform_params=uni, backend=backend)
+            ref = gs.gather_grid_state(other(sh, num_steps=12, rebin_every=3), config, mesh)
+            assert torch.equal(ref.atom_id, outs[shape].atom_id)
+            assert float((ref.positions - outs[shape].positions).abs().max()) <= 2e-5
+    a, b = outs[(1, 1, 1)], outs[(2, 2, 2)]
+    assert torch.equal(a.atom_id, b.atom_id) and float((a.positions - b.positions).abs().max()) <= 2e-5

@@ -8,9 +8,10 @@ port's side alone: the ghost
 forces' plain version bit for bit equal to the one-card plain forces, the
 decompositions bitwise equal to each other, CSVR NVT against the one-card
 engine, a 2-rank gloo `DistMesh` run bitwise equal to `LocalMesh` (2,1,1),
-and the modes still refused (Langevin, the barostat and spill configs,
-ROADMAP item 11; the per-shard streaming backend, K5s), with or without
-the molecular terms (tests/test_torch_grid_molecular.py holds those)."""
+and the configs still refused (spill configs, ROADMAP item 11), with or
+without the molecular options (tests/test_torch_grid_molecular.py holds
+those).  The streaming family (K5s) is tests/test_torch_grid_streaming.py's,
+Langevin, NPT and `reconfigure_grid_state` tests/test_torch_grid_ensembles.py's."""
 
 import jax
 import numpy as np
@@ -22,7 +23,7 @@ from emdee_tpu.neighbors import cell_dense as jcd
 from emdee_tpu.potentials.lennard_jones import LennardJonesModel as JaxModel
 from emdee_tpu.potentials.lennard_jones import lennard_jones_atom as jax_lj_atom
 from emdee_tpu.utils.lattice import cubic_lattice, maxwell_boltzmann
-from emdee_tpu_torch import CSVRConfig, LangevinConfig, LennardJonesModel, make_cell_dense_sim
+from emdee_tpu_torch import CSVRConfig, LennardJonesModel, make_cell_dense_sim
 from emdee_tpu_torch.distributed import dryrun
 from emdee_tpu_torch.distributed import grid_sharded as gs
 from emdee_tpu_torch.distributed.mesh import make_grid_mesh, validate_grid_config
@@ -233,24 +234,10 @@ def test_refused_modes_raise(energy_case):
     _, config, _, _ = energy_case
     model = LennardJonesModel.create(2.5, 2.0, device="cpu")
     mesh = make_grid_mesh((2, 2, 2), device="cpu")
-    refused = [
-        ({"thermostat": LangevinConfig(1.0, 2.0)}, "item 11"),
-        ({"barostat": tcd.BerendsenBarostatConfig(0.5, 0.4)}, "item 11"),
-        ({"backend": "cuda_streaming"}, "K5s"),
-        ({"backend": "pallas_streaming"}, "K5s"),
-        ({"thermostat": LangevinConfig(1.0, 2.0), "coulomb": object()}, "item 11"),
-        ({"barostat": tcd.BerendsenBarostatConfig(0.5, 0.4), "excl_tables": object()}, "item 11"),
-        ({"backend": "cuda_streaming", "bonded": object()}, "K5s"),
-    ]
-    for kwargs, item in refused:
-        with pytest.raises(NotImplementedError, match=item):
-            gs.make_grid_sharded_sim(config, model, 0.002, mesh, **kwargs)
     with pytest.raises(NotImplementedError, match="item 11"):
         gs.make_grid_sharded_sim(config._replace(spill=True), model, 0.002, mesh)
     with pytest.raises(NotImplementedError, match="item 11"):
         gs.make_grid_sharded_sim(config._replace(spill=True), model, 0.002, mesh, excl_leftover=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gs.reconfigure_grid_state(None, config, mesh)
     if not torch.cuda.is_available():  # the mesh builds on the card unless told otherwise
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_grid_mesh((1, 1, 1))
