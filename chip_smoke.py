@@ -46,11 +46,13 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   if its flag holds, else on the plain config, with the flag's cause
   logged; then 'cuda' (bonds in K2c) against 'torch' (bonds on the gather
   path) after 20 steps;
-- the streaming kernel's molecular branches (K5c) against their plain
-  version (K2c's) and against K2c on the 864-atom fixture and on the water
-  box, and the water box on `backend="auto"`, asserted to resolve to the
+- the streaming kernel's molecular pass (K5c) against its plain version
+  (K2c's) and against K2c on the 864-atom fixture and on the water box,
+  and the water box on `backend="auto"`, asserted to resolve to the
   streaming family at the plain config: a gated 600-step NVE window, 20
-  steps against 'cuda' and 'torch';
+  steps against 'cuda' and 'torch'; K5c's times beside its times before
+  the redesign (from PERF.md), and its registers, shared bytes and resident
+  blocks an SM as the card reports them;
 - the water box on the grid-sharded engine (K2c-G: the GHOST mode with
   DSF and the tags; bonds and angles as term rows) on (1,1,1) and (2,2,2):
   pair forces bit for bit the one-card K2c-q's, total forces of the two
@@ -115,6 +117,7 @@ data.  The probe P1 issues no FMA, so each of its operations counts as two.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import time
@@ -1304,8 +1307,10 @@ def phase_probes(device, tag):
         t_plain = cuda_ms(lambda: probes.probe_cen_plain(cen, expand, transposed), 5)
         t_lib = cuda_ms(lambda: torch.matmul(a, expand), 50)
         rows[transposed] = (err, t, t_plain, t_lib)
+        before = P2_BEFORE["dgt" if transposed else "std"]
         log(f"{tag} P2 {'dgt (M, nC)' if transposed else 'std (nC, M)'}: vs plain and matmul within 1e-5 rel "
-            f"(max |d| {err:.3e}); {t:.4f} ms, plain {t_plain:.4f} ms, torch.matmul (TF32 off) {t_lib:.4f} ms")
+            f"(max |d| {err:.3e}); {t:.4f} ms (before the redesign {before}), plain {t_plain:.4f} ms, torch.matmul "
+            f"(TF32 off) {t_lib:.4f} ms")
     ops, nbytes = probes.cen_counts()
     bound_ms, bound_by = bound(nbytes, ops)
     err, t, t_plain, t_lib = rows[False]
@@ -1328,6 +1333,11 @@ WATER_STEPS = 600
 WATER_REBIN = 6
 WATER_1M_GEOMETRY = (26, 88)  # (M, C) of the 985,527-atom box's plain config
 WATER_1M_STEPS = 200
+# K5c and P2 before their redesign: the last times of the pencil K5c and
+# the one-thread-an-output P2 (PERF.md §6, chip_smoke.py's runs; NVIDIA H100
+# 80GB HBM3, 700.00 W), printed on the log lines beside this run's times.
+K5C_BEFORE = {"water_ms": 1.9579, "water_energy_ms": 1.8441, "n1m_water_ms": 15.1297}
+P2_BEFORE = {"std": 0.1178, "dgt": 0.1423}
 # float32 operations of one molecular pair inside the cutoff, each pair once
 # with Newton's third law.  The force launch: OPS_PER_PAIR, the per-atom
 # mixing 3, DSF Coulomb's force part 47 (√r, 1/r, αr 3, erfc ≈ 20, exp and
@@ -1565,6 +1575,14 @@ def k5c_vs_k2c(st, config, model, coulomb, tags, label):
     return err, err_e
 
 
+def resources_line(res) -> str:
+    """K5c's variants' resources (`streaming_kernel.k5c_resources`) on one line."""
+    return "; ".join(f"{name}: {r['registers']} registers and {r['local_bytes']} local bytes a thread, "
+                     f"{r['smem_bytes']:,} shared bytes a block of {r['warps_per_block']} warps, "
+                     f"{r['blocks_per_sm']} blocks an SM"
+                     for name, r in res.items())
+
+
 def phase_k5c_fixture(device, tag):
     """K5c vs its plain version on the 864-atom charged fixture, with and
     without bond tags and energies, and vs K2c.  Returns the K5c row's
@@ -1604,7 +1622,7 @@ def phase_water_auto(device, tag, w):
     and their times.  Returns (K5c row fields, counts, ms/step, drift)."""
     from emdee_tpu_torch import gather_dense_atoms, resolve_dense_backend
     from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
-    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming, k5c_resources
     from emdee_tpu_torch.tools import water
 
     box, cfg, model, coul, params = w["box"], w["cfg"], w["model"], w["coul"], w["params"]
@@ -1658,11 +1676,15 @@ def phase_water_auto(device, tag, w):
     log(f"{tag} K5c vs plain on the 'auto' window's end state (M={cfg.cells_per_dim} C={cfg.capacity}, E={e_tags} "
         f"E_b={e_bonds}): max |dF| {err:.3e} (rel {err / scale:.3e}, scale {scale:.1f}), max |dE| {err_e:.3e}, "
         f"max |dW| {err_w:.3e}; vs K2c max |dF| {vs_f:.3e}, |dE|, |dW| {vs_e:.3e}")
-    log(f"{tag} K5c times at {n} atoms: step launch pair (DSF + tags + bonds) {k_ms:.4f} ms vs K2c {k2_ms:.4f} ms, "
-        f"plain {p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); energy launch pair {k_e_ms:.4f} ms vs K2c "
-        f"{k2_e_ms:.4f} ms, plain {p_e_ms:.3f} ms, bound {b_e[0]:.5f} ms ({b_e[1]}); {pairs:,} unique pairs inside "
-        f"the cutoff ({bonded_pairs:,} bonded)")
+    res = {"step": k5c_resources(cfg, coul, tags, False), "energy": k5c_resources(cfg, coul, tags[:3], True)}
+    log(f"{tag} K5c times at {n} atoms: step launch pair (DSF + tags + bonds) {k_ms:.4f} ms (before the redesign "
+        f"{K5C_BEFORE['water_ms']}) vs K2c {k2_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); energy "
+        f"launch pair {k_e_ms:.4f} ms (before {K5C_BEFORE['water_energy_ms']}) vs K2c {k2_e_ms:.4f} ms, plain "
+        f"{p_e_ms:.3f} ms, bound {b_e[0]:.5f} ms ({b_e[1]}); {pairs:,} unique pairs inside the cutoff "
+        f"({bonded_pairs:,} bonded)")
+    log(f"{tag} K5c resources at M={cfg.cells_per_dim} C={cfg.capacity}: " + resources_line(res))
     row = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "resources": res,
            "water_force_scale": scale, "water_rel_err": err / scale, "water_energy_err": max(err_e, err_w),
            "water_vs_k2c_max_abs_err": vs_f, "water_vs_k2c_energy_err": vs_e, "k2c_ms": k2_ms,
            "energy_ms": k_e_ms, "energy_plain_ms": p_e_ms, "energy_bound_ms": b_e[0], "k2c_energy_ms": k2_e_ms,
@@ -1670,17 +1692,34 @@ def phase_water_auto(device, tag, w):
     return row, {"water_auto": counts}, ms, drift
 
 
+@contextlib.contextmanager
+def plain_one_offset_tiles():
+    """The plain version (`cell_dense._dense_forces`) with its half-shell
+    tiles one offset wide, (M³, C, C), in place of four: the same pair sums
+    grouped otherwise, in about a quarter of the memory.  At the 985,527-atom
+    box (M = 26, C = 88) the four-wide tiles' molecular terms outgrow the
+    card; `phase_water_1m` prints the one-wide peak."""
+    from emdee_tpu_torch.neighbors import cell_dense
+
+    group, cell_dense._GROUP = cell_dense._GROUP, 1
+    try:
+        yield
+    finally:
+        cell_dense._GROUP = group
+
+
 def phase_water_1m(device, tag):
     """The 985,527-atom water box (69³ waters, plain config M = 26, C = 88)
-    on `backend="auto"` (asserted to resolve to the streaming family): one
-    K5c and one K2c launch timed, K5c held to K2c within MOL_FORCE_GATE of
-    the force scale (the plain version is not run at this size); a gated
-    NVE window of 200 steps from the lattice start (no flag, drift ≤ 1e-4,
+    on `backend="auto"` (asserted to resolve to the streaming family): K5c
+    held to its plain version (`plain_one_offset_tiles`) and to K2c within
+    MOL_FORCE_GATE of the force scale on the path's operands (DSF, the tags
+    and the bonds on them); one K5c and one K2c launch timed; a gated NVE
+    window of 200 steps from the lattice start (no flag, drift ≤ 1e-4,
     exact launches).  Returns (row fields, counts, ms/step, the box's set-up
     for the grid's 1M water phase)."""
     from emdee_tpu_torch import cell_dense_init, resolve_dense_backend
     from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
-    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming, k5c_resources
     from emdee_tpu_torch.tools import water
 
     t0 = time.perf_counter()
@@ -1700,10 +1739,18 @@ def phase_water_1m(device, tag):
     f5 = cell_forces_streaming(st, model, cfg, backend="cuda", coulomb=coul, excl=tags)[0]
     f2 = cell_forces(st, model, cfg, backend="cuda", coulomb=coul, excl=tags)[0]
     torch.cuda.synchronize()
-    scale = max(float(f2[v].abs().max()), 1.0)
+    torch.cuda.reset_peak_memory_stats(device)
+    with plain_one_offset_tiles():
+        fp = cell_forces_streaming(st, model, cfg, backend="torch", coulomb=coul, excl=tags)[0]
+    torch.cuda.synchronize()
+    plain_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    scale = max(float(fp[v].abs().max()), 1.0)
+    err_p = close("1M water K5c vs plain forces", f5[v], fp[v], atol=MOL_FORCE_GATE * scale)
     err = close("1M water K5c vs K2c forces", f5[v], f2[v], atol=MOL_FORCE_GATE * scale)
+    del f5, f2, fp
     k_ms = cuda_ms(lambda: cell_forces_streaming(st, model, cfg, backend="cuda", coulomb=coul, excl=tags), 5)
     k2_ms = cuda_ms(lambda: cell_forces(st, model, cfg, backend="cuda", coulomb=coul, excl=tags), 5)
+    res = {"step": k5c_resources(cfg, coul, tags, False)}
     pairs, bonded_pairs = mol_pairs(st, cfg, box["bonds"], box["box"])
     b_ms, b_by = bound(mol_bytes(cfg, e_tags, e_bonds, False), mol_ops(pairs, bonded_pairs, e_tags, False))
     steps = WATER_1M_STEPS
@@ -1715,13 +1762,14 @@ def phase_water_1m(device, tag):
     )
     ms = 1e3 * sec / steps
     log(f"{tag} 1M water box: {n:,} atoms ({n // 3:,} waters), L = {box['box']:.2f} Å, M={cfg.cells_per_dim} "
-        f"C={cfg.capacity}, 'auto' -> {family!r} (set-up {setup:.1f} s); K5c vs K2c max |dF| {err:.3e} (rel "
-        f"{err / scale:.3e}, scale {scale:.1f}); step launch K5c {k_ms:.4f} ms (2 launches) vs K2c {k2_ms:.4f} ms, "
-        f"bound {b_ms:.5f} ms ({b_by}; {pairs:,} pairs inside the cutoff); {steps} NVE steps from the lattice "
-        f"start in {sec:.3f} s = {ms:.4f} ms/step, {n * steps / sec:,.0f} atom-steps/s, drift {drift:.3e} (gate "
-        f"{WATER_DRIFT_GATE}), no flag; launches {counts}")
-    row = {"n1m_water_ms": k_ms, "n1m_water_k2c_ms": k2_ms, "n1m_water_bound_ms": b_ms,
-           "n1m_water_vs_k2c_max_abs_err": err, "n1m_water_force_scale": scale, "n1m_water_ms_per_step": ms,
+        f"C={cfg.capacity}, 'auto' -> {family!r} (set-up {setup:.1f} s); K5c vs plain max |dF| {err_p:.3e} (rel "
+        f"{err_p / scale:.3e}, scale {scale:.1f}; the card's peak allocation while the plain ran {plain_gb:.1f} GB), vs K2c "
+        f"{err:.3e} (rel {err / scale:.3e}); step launch K5c {k_ms:.4f} ms (2 launches; before the redesign "
+        f"{K5C_BEFORE['n1m_water_ms']}) vs K2c {k2_ms:.4f} ms, K5c {resources_line(res)}, bound {b_ms:.5f} ms "
+        f"({b_by}; {pairs:,} pairs inside the cutoff); {steps} NVE steps from the lattice start in {sec:.3f} s = {ms:.4f} ms/step, "
+        f"{n * steps / sec:,.0f} atom-steps/s, drift {drift:.3e} (gate {WATER_DRIFT_GATE}), no flag; launches {counts}")
+    row = {"n1m_water_ms": k_ms, "n1m_water_resources": res, "n1m_water_k2c_ms": k2_ms, "n1m_water_bound_ms": b_ms,
+           "n1m_water_max_abs_err": err_p, "n1m_water_rel_err": err_p / scale, "n1m_water_vs_k2c_max_abs_err": err, "n1m_water_force_scale": scale, "n1m_water_ms_per_step": ms,
            "n1m_water_drift": drift, "n1m_water_pairs": pairs}
     return row, {"water_1m": counts}, ms, dict(box=box, cfg=cfg, model=model, coul=coul, st=st)
 

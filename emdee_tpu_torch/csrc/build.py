@@ -66,11 +66,15 @@ _SIGNATURES = {
                                _P, _P, _I, _I, _P, _F, _F, _F, _F, _F, _F, _F,
                                _F, _F, _F, _I, _I, _P],
     # pos, hs, tse, valid, q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb,
-    # alpha, rc, rc2_c, e_shift, f_shift, kc (0-d device tensors), f, e, w,
-    # groups, m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2,
-    # coulomb, excl, bond, energy, stream
-    "emdee_streaming_forces_mol": [_P] * 12 + [_I, _I] + [_P] * 6 + [_P] * 4 + [_I, _I, _P] + [_F] * 8
+    # alpha, rc, rc2_c, e_shift, f_shift, kc (0-d device tensors), slices,
+    # m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, coulomb,
+    # excl, bond, energy, stream
+    "emdee_streaming_forces_mol": [_P] * 12 + [_I, _I] + [_P] * 6 + [_P, _I, _I, _P] + [_F] * 8
                                   + [_I, _I, _I, _I, _P],
+    # c, ne, neb, coulomb, excl, bond, energy, out (int[4])
+    "emdee_streaming_mol_attrs": [_I] * 7 + [_P],
+    # f, e, w, slices, n_slices, num_slots, energy, stream
+    "emdee_streaming_fold_mol": [_P, _P, _P, _P, _I, _L, _I, _P],
     # fx, fy, fz, fstride, e, w, groups, num_slots, energy, stream
     "emdee_streaming_fold": [_P, _P, _P, _I, _P, _P, _P, _L, _I, _P],
     # px, py, pz, hs, tse, q, aid, ids, mlj, mcs, ne, alpha, rc, rc2_c,

@@ -64,24 +64,68 @@
 // `_make_streaming_kernel` :1185-1250 with `names` + q, aid and the centre
 // tags and bond weights of `_unpack_centers` :347; entry
 // `pallas_cell_forces_streaming` :1417-1500), through
-// `emdee_streaming_forces_mol`: per-atom parameters, the stacked state.
+// `emdee_streaming_forces_mol`: per-atom parameters, the stacked state, and
+// a kernel of its own (`streaming_owned_kernel`).  The pencil layout gives
+// too few blocks at these boxes (144 blocks of 8 warps at the 98,304-atom
+// box, one ~141 KB block an SM at 985,527 atoms) and a barrier after each
+// phase, and only ~9% of a ring's candidates lie inside the cutoff.
+//
+// Warp-owned centre cells.  A warp owns one phase of one centre cell, in
+// the pencil kernel's order: phase 0 is the self cell, phase 1 + k the
+// half-shell offset k of kOff* (dx = −1, 0, +1 of the row groups (0, 1),
+// (1, −1), (1, 0), (1, 1), and dx = +1 of the own row); warp
+// phase · M³ + cell, so that the warps resident at once walk one offset
+// over neighbouring cells.  (A trial on this card split a cell's 14 phases
+// over 1, 2, 7 and 14 warps: one phase a warp ran fastest at both water
+// sizes.)  The warp sums its centres in a row of its shared memory and
+// writes them once, to centre slice `phase` of a scratch (27, n_r, M³·C);
+// the reactions of offset k go to slice 14 + k at the neighbour's own
+// slots, every slot of the neighbour cell (zeros where no pair reached
+// it).  For a fixed offset the map from centre cell to neighbour cell is a
+// bijection, so every slot of every slice is written by exactly one warp,
+// once.  A second launch (`owned_fold_kernel`) adds the 14 centre slices
+// and then the 13 reaction slices in that fixed order: no block barrier,
+// no float atomics, bitwise reruns.  Blocks of 4 warps; a warp's shared
+// memory is its two tiles, its staged tags and its centre and reaction
+// rows, ~12.7 KB at C = 80 (E = E_b = 2), so registers (at most 128 a
+// thread, `__launch_bounds__`) and shared memory both allow 16 warps an SM.
+// Every warp evaluates one cell pair.  Scratch, forces only: 27 slices × 3
+// × 138,240 slots = 44.8 MB at the 98,304-atom box, 27 × 3 × 1,546,688 =
+// 501 MB at 985,527 atoms; the fold reads it once (~0.013 and ~0.15 ms at
+// 3.35 TB/s).  The scratch is stored and read with the streaming cache hint
+// (`__stcs`, `__ldcs`), so that it does not evict from L2 the cells that
+// the warps read.
+//
+// The cull.  After compacting a cell pair's two tiles, the warp reduces the
+// bounding box of the neighbour's live entries by shuffles, shifted by the
+// phase's periodic shift, and keeps only the centre entries whose distance
+// to that box is below the cutoff; then it keeps only the neighbour entries
+// within the cutoff of the kept centres' box.  Both tiles stay in slot
+// order.  The test is conservative: each axis' gap is lowered by a slack of
+// 2⁻¹⁹ of the magnitudes in play (≤ 1e-3 Å at these boxes, against a
+// rounding error of ~1e-5 Å in a displacement), so no pair whose computed
+// r² lies below cut2 is dropped (`streaming_kernel.cull_keep` mirrors it for
+// the CPU tests).  The boxes come from the atoms, so an atom that overhangs
+// its cell between rebins needs no assumption.  At the 98,304-atom box
+// (cell 8.29 Å, cutoff 7 Å) it keeps ~0.84 of a cell against a face, ~0.56
+// against an edge and ~0.31 against a corner.  The self phase is not culled.
+//
 // The tiles also carry each live slot's charge and int32 atom id, and the
 // packets take them round the ring (a ring lane past the live packets
 // carries atom id −2, which no tag holds).  The centre's E ≤ 8 tags (atom
 // id, 1 − s_LJ, 1 − s_C) and E_b bond weights (k, k·r0, k·r0²) are staged
 // per warp in shared memory, tag-major so that the lanes read consecutive
-// words: held in registers they would take 3 centre slots × 8 tags × 6
-// values a lane.  Each lane stages and reads only its own centre entries,
-// so the staging needs no barrier.  A pair matches the centre's tags
-// against the packet's atom id only: the tables are symmetric (a pair sits
-// in both atoms' rows with the same weights), so the scale is the one the
-// full shell gives from either side, and a bond is evaluated once, its
-// reaction on the packet.  The pair math is K2c's (`emdee::mol_terms`,
-// lj_pair.cuh): DSF in the exact erfcf/expf form with its constants read
-// from 0-d device tensors, the bond only inside the LJ cutoff, pairs
-// skipped beyond the larger of the two cutoffs.  Per-slot ½E and ½W go half
-// to the centre and half to the reaction row, as K5 does.  The plain
-// version is K2c's, `cell_dense_forces(coulomb=, excl=)`.
+// words.  Each lane stages and reads only its own centre entries, so the
+// staging needs no barrier.  A pair matches the centre's tags against the
+// packet's atom id only: the tables are symmetric (a pair sits in both
+// atoms' rows with the same weights), so the scale is the one the full
+// shell gives from either side, and a bond is evaluated once, its reaction
+// on the packet.  The pair math is K2c's (`emdee::mol_terms`, lj_pair.cuh):
+// DSF in the exact erfcf/expf form with its constants read from 0-d device
+// tensors, the bond only inside the LJ cutoff, pairs skipped beyond the
+// larger of the two cutoffs.  Per-slot ½E and ½W go half to the centre and
+// half to the reaction, as K5 does.  The plain version is K2c's,
+// `cell_dense_forces(coulomb=, excl=)`.
 //
 // GHOST (K5s: the streaming kernel on each shard of the grid-sharded
 // engine, `streaming_halfshell_call` with `wrap_reaction=False` as
@@ -124,11 +168,12 @@
 // unique pairs inside the cutoff each pay an erfc, an exp, a square root
 // and 3E tag operations; chip_smoke.py counts them and gives the bound.
 
-// emdee-build-parts: 3
-// csrc/build.py compiles this file as three objects at once, to cut the
+// emdee-build-parts: 4
+// csrc/build.py compiles this file as four objects at once, to cut the
 // build's wall time: EMDEE_PART 0 holds the LJ entry and the fold, 1 the
-// molecular entry, 2 the GHOST entries (each part instantiates only its
-// entries' kernel variants); without EMDEE_PART the file holds them all.
+// molecular entries and their force variants, 2 the GHOST entries, 3 the
+// molecular energy variants (each part instantiates only its kernel
+// variants); without EMDEE_PART the file holds them all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -156,6 +201,12 @@ constexpr unsigned kFull = 0xffffffffu;
 __constant__ int kGroupDz[kGroups] = {0, 1, 1, 1};
 __constant__ int kGroupDy[kGroups] = {1, -1, 0, 1};
 
+}  // namespace
+
+namespace emdee {
+
+// A kernel's input fields (named, not file-local: K5c's energy variants
+// are built in another object than its entry).
 struct Fields {
   const float* px;
   const float* py;
@@ -165,6 +216,25 @@ struct Fields {
   const float* tse;
   const uint8_t* valid;
 };
+
+// A K5c kernel: every variant takes these arguments.
+using OwnedKernel = void (*)(Fields, Mol, float*, int, int, const float*, PairConsts);
+
+// A K5c variant and the dynamic shared memory it is allowed so far.
+struct OwnedVariant {
+  OwnedKernel kernel;
+  size_t* smem_allowed;
+};
+
+// K5c's variants without and with energies, each in its own build part.
+OwnedVariant k5c_force_variant(int c, int coulomb, int excl, int bond);
+OwnedVariant k5c_energy_variant(int c, int coulomb, int excl, int bond);
+
+}  // namespace emdee
+
+namespace {
+
+using emdee::Fields;
 
 // Entries of a warp's cell tile: 64 up to two centre slots a lane (the LJ
 // kernel's tile since K5), 96 with three.
@@ -186,9 +256,9 @@ struct Tile {
 // exclusion tag and each bond tag.
 __host__ __device__ constexpr int tag_floats(int nt, int ne, int neb) { return 3 * (ne + neb) * nt; }
 
-// Centre sums and one reaction row of a pencil, (2, n_r, M·C) float32, each
-// warp's two cell tiles and, with EXCL, its staged centre tags.
-size_t smem_bytes(int m, int c, bool energy, bool mol, int ne, int neb);
+// K5: centre sums and one reaction row of a pencil, (2, n_r, M·C)
+// float32, and each warp's two cell tiles.
+size_t smem_bytes(int m, int c, bool energy);
 
 __device__ __forceinline__ int wrap(int v, int m, const float* __restrict__ box, float& shift) {
   shift = 0.f;
@@ -262,12 +332,95 @@ __device__ __forceinline__ void stage_tags(const Mol& mol, long cell, int c, con
   }
 }
 
+// The cull's slack: each axis' gap to a box is lowered by this share of
+// the magnitudes in play, far above the rounding of a displacement.
+constexpr float kCullSlack = 1.0f / 524288.0f;  // 2⁻¹⁹
+
+// The bounding box of tile `t`'s first `n` entries, on every lane.
+template <int NA, int NT, int NF>
+__device__ __forceinline__ void tile_box(const Tile<NT, NF>& t, int n, float lo[3], float hi[3]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    lo[v] = __int_as_float(0x7f800000);
+    hi[v] = -lo[v];
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      const int e = 32 * a + lane;
+      if (e < n) {
+        lo[v] = fminf(lo[v], t.f[v][e]);
+        hi[v] = fmaxf(hi[v], t.f[v][e]);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo[v] = fminf(lo[v], __shfl_xor_sync(kFull, lo[v], off));
+      hi[v] = fmaxf(hi[v], __shfl_xor_sync(kFull, hi[v], off));
+    }
+  }
+}
+
+// Whether point p lies within the cutoff of the box [lo + o, hi + o],
+// conservatively: each axis' gap less the slack (mirrored by
+// streaming_kernel.cull_keep).
+__device__ __forceinline__ bool near_box(const float p[3], const float lo[3], const float hi[3], const float o[3],
+                                         float cut2) {
+  float g2 = 0.f;
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    const float gap = fmaxf(fmaxf((lo[v] + o[v]) - p[v], p[v] - (hi[v] + o[v])), 0.f);
+    const float slack = kCullSlack * (fabsf(p[v]) + fabsf(lo[v]) + fabsf(hi[v]) + 2.f * fabsf(o[v]));
+    const float g = fmaxf(gap - slack, 0.f);
+    g2 += g * g;
+  }
+  return g2 < cut2;
+}
+
+// Keep the entries of tile `t` (n live) within the cutoff of the box [lo +
+// o, hi + o], compacted in place in slot order; returns their count.
+template <int NA, int NT, int NF>
+__device__ __forceinline__ int cull(Tile<NT, NF>& t, int n, const float lo[3], const float hi[3], const float o[3],
+                                    float cut2) {
+  const int lane = threadIdx.x & 31;
+  float val[NA][NF];
+  int slot[NA];
+  bool keep[NA];
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    const int e = 32 * a + lane;
+    keep[a] = false;
+    if (e < n) {
+#pragma unroll
+      for (int v = 0; v < NF; ++v) val[a][v] = t.f[v][e];
+      slot[a] = t.slot[e];
+      const float p[3] = {val[a][0], val[a][1], val[a][2]};
+      keep[a] = near_box(p, lo, hi, o, cut2);
+    }
+  }
+  __syncwarp();  // every entry is read before any moves
+  int kept = 0;
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    const unsigned mask = __ballot_sync(kFull, keep[a]);
+    if (keep[a]) {
+      const int e = kept + __popc(mask & ((1u << lane) - 1u));
+#pragma unroll
+      for (int v = 0; v < NF; ++v) t.f[v][e] = val[a][v];
+      t.slot[e] = slot[a];
+    }
+    kept += __popc(mask);
+  }
+  __syncwarp();
+  return kept;
+}
+
 // All pairs of centre cell `cen` with neighbour cell `nb` (shifted by
 // (shx, shy, shz)) for one warp, through its two tiles (and, with EXCL,
 // its tag tile, read at the centre's own cell `tag_cell`).  Centre sums go
 // to cen_acc[k·mc + x·C + i]; with REACT, the reaction sums go to
-// row[k·mr + nx·C + j].
-template <int NA, bool UNIFORM, bool ENERGY, bool REACT, bool COULOMB, bool EXCL, bool BOND>
+// row[k·mr + nx·C + j].  With CULL (K5c), a neighbour pair first drops
+// the entries beyond the cutoff of the other cell's bounding box.
+template <int NA, bool UNIFORM, bool ENERGY, bool REACT, bool COULOMB, bool EXCL, bool BOND, bool CULL = false>
 __device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const Dsf& dsf, float cut2, long cen,
                                           long nb, long tag_cell, int c, int x, int nx, float shx, float shy,
                                           float shz, int mc, int mr, float* cen_acc, float* row,
@@ -279,10 +432,21 @@ __device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const
   auto& tc = tiles[0];
   auto& tn = REACT ? tiles[1] : tiles[0];  // the self pass pairs a cell with itself
   __syncwarp();  // the previous cell pair's reads of the tiles are done
-  const int n_cen = compact<NA, NT, MOL ? 7 : 5, UNIFORM>(f, mol, cen, c, tc);
-  const int n_nb = REACT ? compact<NA, NT, MOL ? 7 : 5, UNIFORM>(f, mol, nb, c, tn) : n_cen;
+  int n_cen = compact<NA, NT, MOL ? 7 : 5, UNIFORM>(f, mol, cen, c, tc);
+  int n_nb = REACT ? compact<NA, NT, MOL ? 7 : 5, UNIFORM>(f, mol, nb, c, tn) : n_cen;
   __syncwarp();
   if (n_cen == 0 || n_nb == 0) return;
+  if constexpr (CULL && REACT) {
+    // d = (x_i − x_j) − shift: the neighbour sits at x_j + shift, a centre at x_i − shift from it.
+    const float sh[3] = {shx, shy, shz}, back[3] = {-shx, -shy, -shz};
+    float lo[3], hi[3];
+    tile_box<NA>(tn, n_nb, lo, hi);
+    n_cen = cull<NA>(tc, n_cen, lo, hi, sh, cut2);
+    if (n_cen == 0) return;
+    tile_box<NA>(tc, n_cen, lo, hi);
+    n_nb = cull<NA>(tn, n_nb, lo, hi, back, cut2);
+    if (n_nb == 0) return;
+  }
   if constexpr (EXCL) stage_tags<NA, NT, COULOMB, BOND, ENERGY>(mol, tag_cell, c, tc, n_cen, tags);
 
   float xi[NA], yi[NA], zi[NA], hsi[NA], tsei[NA], qi[NA];
@@ -441,7 +605,8 @@ __device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const
   }
 }
 
-template <int NA, bool UNIFORM, bool ENERGY, bool COULOMB, bool EXCL, bool BOND>
+// The LJ pass (K5): one block per (z, y) pencil.
+template <int NA, bool UNIFORM, bool ENERGY>
 __global__ void __launch_bounds__(kThreads)
     streaming_kernel(Fields f, Mol mol, float* __restrict__ fx, float* __restrict__ fy,
                      float* __restrict__ fz, int fstride, float* __restrict__ e_out,
@@ -449,7 +614,7 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ box_ptr, PairConsts k) {
   constexpr int NR = ENERGY ? 5 : 3;
   constexpr int NT = tile_entries<NA>();
-  using TileT = Tile<NT, (COULOMB || EXCL) ? 7 : 5>;
+  using TileT = Tile<NT, 5>;
   extern __shared__ float smem[];
   const int mc = m * c;
   float* cen_acc = smem;        // (NR, M·C) centre sums of this pencil
@@ -461,19 +626,15 @@ __global__ void __launch_bounds__(kThreads)
   const int z = blockIdx.x / m, y = blockIdx.x % m;
   const long pencil = static_cast<long>(blockIdx.x) * m;  // cell id of x = 0
   const long ns = static_cast<long>(m) * m * mc;
-  Dsf dsf{};
-  float cut2 = k.rc2;
-  if (COULOMB) {
-    dsf = emdee::load_dsf(mol);
-    cut2 = fmaxf(cut2, dsf.rc2);
-  }
+  const Dsf dsf{};
+  const float cut2 = k.rc2;
 
   for (int t = threadIdx.x; t < 2 * NR * mc; t += kThreads) smem[t] = 0.f;
   __syncthreads();
 
   // Self cell: every ordered pair, no reaction.
   for (int x = warp; x < m; x += kWarps)
-    cell_pair<NA, UNIFORM, ENERGY, false, COULOMB, EXCL, BOND>(f, mol, dsf, cut2, pencil + x, pencil + x,
+    cell_pair<NA, UNIFORM, ENERGY, false, false, false, false>(f, mol, dsf, cut2, pencil + x, pencil + x,
                                                                 pencil + x, c, x, x, 0.f, 0.f, 0.f, mc, mc,
                                                                 cen_acc, row, tiles, tags, k);
 
@@ -487,7 +648,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int x = warp; x < m; x += kWarps) {
         float shx;
         const int nx = wrap(x + dx, m, box_ptr, shx);
-        cell_pair<NA, UNIFORM, ENERGY, true, COULOMB, EXCL, BOND>(f, mol, dsf, cut2, pencil + x, nrow * m + nx,
+        cell_pair<NA, UNIFORM, ENERGY, true, false, false, false>(f, mol, dsf, cut2, pencil + x, nrow * m + nx,
                                                                    pencil + x, c, x, nx, shx, shy, shz, mc, mc,
                                                                    cen_acc, row, tiles, tags, k);
       }
@@ -526,6 +687,94 @@ __global__ void fold_kernel(float* fx, float* fy, float* fz, int fstride, float*
 #pragma unroll
     for (int g = 0; g < kGroups; ++g) v += groups[(static_cast<long>(g) * NR + comp) * ns + s];
     *o = v;
+  }
+}
+
+// K5c: kOwnedWarps warps a block, each owning one (part, centre cell).
+constexpr int kOwnedWarps = 4;
+constexpr int kOwnedThreads = 32 * kOwnedWarps;
+constexpr int kPhases = 14;  // the self cell and the 13 half-shell offsets
+constexpr int kOffsets = 13;
+// The half-shell offsets in phase order: dx = −1, 0, +1 of the row groups
+// (0, 1), (1, −1), (1, 0), (1, 1), then dx = +1 of the own row.
+__constant__ int kOffDz[kOffsets] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0};
+__constant__ int kOffDy[kOffsets] = {1, 1, 1, -1, -1, -1, 0, 0, 0, 1, 1, 1, 0};
+__constant__ int kOffDx[kOffsets] = {-1, 0, 1, -1, 0, 1, -1, 0, 1, -1, 0, 1, 1};
+
+// Floats of one K5c warp's shared memory: its two tiles (7 fields and the
+// slot), its staged tags, and its centre and reaction rows (n_r, C).
+__host__ __device__ constexpr int owned_warp_floats(int nt, int ne, int neb, int nr, int c) {
+  return 2 * (7 + 1) * nt + tag_floats(nt, ne, neb) + 2 * nr * c;
+}
+
+// K5c's pair pass: warp phase · M³ + cell evaluates that phase of its
+// centre cell; its centre sums go to slices[phase] and, for phase 1 + k,
+// the reactions to slices[14 + k], each (n_r, M³·C), every slot of the
+// cells it writes.
+template <int NA, bool ENERGY, bool COULOMB, bool EXCL, bool BOND>
+__global__ void __launch_bounds__(kOwnedThreads, 4)
+    streaming_owned_kernel(Fields f, Mol mol, float* __restrict__ slices, int m, int c,
+                           const float* __restrict__ box_ptr, PairConsts k) {
+  constexpr int NR = ENERGY ? 5 : 3;
+  constexpr int NT = tile_entries<NA>();
+  using TileT = Tile<NT, 7>;
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long cells = static_cast<long>(m) * m * m;
+  const long item = static_cast<long>(blockIdx.x) * kOwnedWarps + warp;
+  if (item >= cells * kPhases) return;  // no block barrier follows
+  float* mine = smem + warp * owned_warp_floats(NT, mol.ne, mol.neb, NR, c);
+  TileT* tiles = reinterpret_cast<TileT*>(mine);
+  float* tags = reinterpret_cast<float*>(tiles + 2);
+  float* cen = tags + tag_floats(NT, mol.ne, mol.neb);  // (NR, C) centre sums
+  float* react = cen + NR * c;                          // (NR, C) the offset's reactions
+  const int ph = static_cast<int>(item / cells);
+  const long cell = item - ph * cells;
+  const long ns = cells * c;
+  Dsf dsf{};
+  float cut2 = k.rc2;
+  if (COULOMB) {
+    dsf = emdee::load_dsf(mol);
+    cut2 = fmaxf(cut2, dsf.rc2);
+  }
+  for (int t = lane; t < NR * c; t += 32) cen[t] = react[t] = 0.f;  // cell_pair's first __syncwarp orders these
+  if (ph == 0) {  // the self cell: every ordered pair, no reaction
+    cell_pair<NA, false, ENERGY, false, COULOMB, EXCL, BOND, true>(f, mol, dsf, cut2, cell, cell, cell, c, 0, 0, 0.f,
+                                                                    0.f, 0.f, c, c, cen, react, tiles, tags, k);
+  } else {
+    const int o = ph - 1;
+    const int x = static_cast<int>(cell % m), y = static_cast<int>((cell / m) % m), z = static_cast<int>(cell / m / m);
+    float shx, shy, shz;
+    const int nx = wrap(x + kOffDx[o], m, box_ptr, shx);
+    const int ny = wrap(y + kOffDy[o], m, box_ptr, shy);
+    const int nz = wrap(z + kOffDz[o], m, box_ptr, shz);
+    const long nb = (static_cast<long>(nz) * m + ny) * m + nx;
+    cell_pair<NA, false, ENERGY, true, COULOMB, EXCL, BOND, true>(f, mol, dsf, cut2, cell, nb, cell, c, 0, 0, shx,
+                                                                   shy, shz, c, c, cen, react, tiles, tags, k);
+    __syncwarp();
+    float* out = slices + static_cast<long>(kPhases + o) * NR * ns + nb * c;
+    for (int t = lane; t < NR * c; t += 32) __stcs(out + (t / c) * ns + t % c, react[t]);
+  }
+  __syncwarp();
+  float* out = slices + static_cast<long>(ph) * NR * ns + cell * c;
+  for (int t = lane; t < NR * c; t += 32) __stcs(out + (t / c) * ns + t % c, cen[t]);
+}
+
+// K5c's fold: f[s, k] (and e, w) = Σ slices[i][k][s] over i = 0 … n − 1 in
+// that order: the 14 centre slices, then the 13 reaction slices.
+template <int NR>
+__global__ void owned_fold_kernel(float* __restrict__ f, float* __restrict__ e_out, float* __restrict__ w_out,
+                                  const float* __restrict__ slices, int n_slices, long ns) {
+  const long s = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (s >= ns) return;
+#pragma unroll
+  for (int comp = 0; comp < NR; ++comp) {
+    float v = __ldcs(slices + comp * ns + s);
+    for (int i = 1; i < n_slices; ++i) v += __ldcs(slices + (static_cast<long>(i) * NR + comp) * ns + s);
+    if (comp < 3)
+      f[3 * s + comp] = v;
+    else
+      (comp == 3 ? e_out : w_out)[s] = v;
   }
 }
 
@@ -663,12 +912,15 @@ __global__ void ghost_assemble_kernel(float* __restrict__ out, const float* __re
 
 int centre_slots(int c) { return c <= 32 ? 1 : (c <= 64 ? 2 : 3); }
 
-size_t smem_bytes(int m, int c, bool energy, bool mol, int ne, int neb) {
-  const int na = centre_slots(c);
-  const int nt = na <= 2 ? 64 : 96;
-  const int nf = mol ? 7 : 5;
-  return sizeof(float) * 2 * (energy ? 5 : 3) * static_cast<size_t>(m) * c +
-         sizeof(float) * (nf + 1) * nt * 2 * kWarps + sizeof(float) * tag_floats(nt, ne, neb) * kWarps;
+size_t smem_bytes(int m, int c, bool energy) {
+  const int nt = centre_slots(c) <= 2 ? 64 : 96;
+  return sizeof(float) * 2 * (energy ? 5 : 3) * static_cast<size_t>(m) * c + sizeof(float) * (5 + 1) * nt * 2 * kWarps;
+}
+
+// K5c: a block's shared memory, kOwnedWarps × `owned_warp_floats`.
+size_t owned_smem_bytes(int c, bool energy, int ne, int neb) {
+  const int nt = centre_slots(c) <= 2 ? 64 : 96;
+  return sizeof(float) * kOwnedWarps * static_cast<size_t>(owned_warp_floats(nt, ne, neb, energy ? 5 : 3, c));
 }
 
 // GHOST: the centre sums and one (mx+2)·C reaction row, the tiles and the
@@ -719,14 +971,13 @@ int dispatch_ghost(const Fields& f, const Mol& mol, int coulomb, int excl, int u
 #undef EMDEE_K5S
 }
 
-template <int NA, bool UNIFORM, bool ENERGY, bool COULOMB = false, bool EXCL = false, bool BOND = false>
+template <int NA, bool UNIFORM, bool ENERGY>
 int launch(const Fields& f, const Mol& mol, float* fx, float* fy, float* fz, int fstride, float* e, float* w,
            float* groups, int m, int c, const float* box, const PairConsts& k, cudaStream_t stream) {
-  static_assert(sizeof(Tile<tile_entries<NA>(), (COULOMB || EXCL) ? 7 : 5>) ==
-                    sizeof(float) * (((COULOMB || EXCL) ? 7 : 5) + 1) * tile_entries<NA>(),
+  static_assert(sizeof(Tile<tile_entries<NA>(), 5>) == sizeof(float) * (5 + 1) * tile_entries<NA>(),
                 "smem_bytes counts the tiles as packed floats");
-  const size_t smem = smem_bytes(m, c, ENERGY, COULOMB || EXCL, mol.ne, mol.neb);
-  auto kernel = streaming_kernel<NA, UNIFORM, ENERGY, COULOMB, EXCL, BOND>;
+  const size_t smem = smem_bytes(m, c, ENERGY);
+  auto kernel = streaming_kernel<NA, UNIFORM, ENERGY>;
   static size_t smem_allowed = 48 * 1024;  // raised once per variant, not per launch
   if (smem > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -749,29 +1000,73 @@ int dispatch(const Fields& f, float* fx, float* fy, float* fz, int fstride, floa
   return launch<NA, false, false>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
 }
 
-// The molecular variants: per-atom parameters, the flag sets of K2c.
-template <int NA, bool ENERGY>
-int dispatch_mol_e(int coulomb, int excl, int bond, const Fields& f, const Mol& mol, float* fo, float* e, float* w,
-                 float* groups, int m, int c, const float* box, const PairConsts& k, cudaStream_t s) {
-#define EMDEE_K5C(CO, EX, BO) \
-  launch<NA, false, ENERGY, CO, EX, BO>(f, mol, fo, fo + 1, fo + 2, 3, e, w, groups, m, c, box, k, s)
-  if (coulomb && bond) return EMDEE_K5C(true, true, true);
-  if (coulomb && excl) return EMDEE_K5C(true, true, false);
-  if (coulomb) return EMDEE_K5C(true, false, false);
-  if (bond) return EMDEE_K5C(false, true, true);
-  return EMDEE_K5C(false, true, false);
-#undef EMDEE_K5C
+// K5c's variant for one flag set (K2c's), with its own record of the
+// dynamic shared memory raised so far (raised once per variant, not per
+// launch).
+template <int NA, bool ENERGY, bool COULOMB, bool EXCL, bool BOND>
+emdee::OwnedVariant owned_variant() {
+  static_assert(sizeof(Tile<tile_entries<NA>(), 7>) == sizeof(float) * (7 + 1) * tile_entries<NA>(),
+                "owned_smem_bytes counts the tiles as packed floats");
+  static size_t smem_allowed = 48 * 1024;
+  return {streaming_owned_kernel<NA, ENERGY, COULOMB, EXCL, BOND>, &smem_allowed};
 }
 
-template <int NA>
-int dispatch_mol(int coulomb, int excl, int bond, int energy, const Fields& f, const Mol& mol, float* fo,
-                 float* e, float* w, float* groups, int m, int c, const float* box, const PairConsts& k,
-                 cudaStream_t s) {
-  if (energy) return dispatch_mol_e<NA, true>(coulomb, excl, bond, f, mol, fo, e, w, groups, m, c, box, k, s);
-  return dispatch_mol_e<NA, false>(coulomb, excl, bond, f, mol, fo, e, w, groups, m, c, box, k, s);
+template <int NA, bool ENERGY>
+emdee::OwnedVariant owned_variant_e(int coulomb, int excl, int bond) {
+  if (coulomb && bond) return owned_variant<NA, ENERGY, true, true, true>();
+  if (coulomb && excl) return owned_variant<NA, ENERGY, true, true, false>();
+  if (coulomb) return owned_variant<NA, ENERGY, true, false, false>();
+  if (bond) return owned_variant<NA, ENERGY, false, true, true>();
+  return owned_variant<NA, ENERGY, false, true, false>();
 }
+
+template <bool ENERGY>
+emdee::OwnedVariant owned_variant_c(int c, int coulomb, int excl, int bond) {
+  switch (centre_slots(c)) {
+    case 1: return owned_variant_e<1, ENERGY>(coulomb, excl, bond);
+    case 2: return owned_variant_e<2, ENERGY>(coulomb, excl, bond);
+    default: return owned_variant_e<3, ENERGY>(coulomb, excl, bond);
+  }
+}
+
+#if EMDEE_IN_PART(1)
+// The K5c variant for these flags, refused as the launch entry refuses it
+// (but for M), its dynamic shared memory (`*smem`) allowed.
+int owned_kernel(int c, int ne, int neb, int coulomb, int excl, int bond, int energy,
+                 emdee::OwnedKernel* kernel, size_t* smem) {
+  if (!excl) ne = 0;
+  if (!bond) neb = 0;
+  *smem = owned_smem_bytes(c, energy, ne, neb);
+  if (c < 1 || c > kMaxCapacity || *smem > 232448 || (!coulomb && !excl) || (bond && !excl) ||
+      (excl && (ne < 1 || ne > kMaxTags)) || (bond && (neb < 1 || neb > ne)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const emdee::OwnedVariant v = energy ? emdee::k5c_energy_variant(c, coulomb, excl, bond)
+                                       : emdee::k5c_force_variant(c, coulomb, excl, bond);
+  if (*smem > *v.smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(v.kernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(*smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *v.smem_allowed = *smem;
+  }
+  *kernel = v.kernel;
+  return 0;
+}
+#endif
 
 }  // namespace
+
+#if EMDEE_IN_PART(1)
+emdee::OwnedVariant emdee::k5c_force_variant(int c, int coulomb, int excl, int bond) {
+  return owned_variant_c<false>(c, coulomb, excl, bond);
+}
+#endif
+
+#if EMDEE_IN_PART(3)
+emdee::OwnedVariant emdee::k5c_energy_variant(int c, int coulomb, int excl, int bond) {
+  return owned_variant_c<true>(c, coulomb, excl, bond);
+}
+#endif
 
 #if EMDEE_IN_PART(0)
 // The pair pass: centre sums (+ own-row reactions) into fx, fy, fz [, e, w]
@@ -782,7 +1077,7 @@ extern "C" int emdee_streaming_forces(
     float* e, float* w, float* groups, int m, int c, const float* box, float rc2, float rs2,
     float invd2, float a_m, float pa1, float pa2, float pb1, float pb2, float sig2_u,
     float eps4_u, int uniform, int energy, void* stream) {
-  const size_t smem = smem_bytes(m, c, energy, false, 0, 0);
+  const size_t smem = smem_bytes(m, c, energy);
   if (m < 3 || c < 1 || c > kMaxCapacity || smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
   const Fields f{px, py, pz, pstride, hs, tse, valid};
@@ -810,35 +1105,73 @@ extern "C" int emdee_streaming_fold(float* fx, float* fy, float* fz, int fstride
 #endif
 
 #if EMDEE_IN_PART(1)
-// The molecular pair pass (K5c): stacked positions and forces (M³, C, 3),
-// per-atom (σ/2, 2√ε), optional per-slot energies and virials; q (M³, C)
-// charges and the DSF constants' device pointers with `coulomb`; aid (M³,
-// C) int32 atom ids and the tags (M³, C, ne) with `excl` (mcs only with
-// `coulomb`); the bond weights (M³, C, neb) with `bond` (kr02 only with
-// `energy`).  The reaction rows go to `groups` as in the LJ entry, and
-// `emdee_streaming_fold` (fstride 3) adds them.
+// The molecular pair pass (K5c): stacked positions (M³, C, 3), per-atom
+// (σ/2, 2√ε), q (M³, C) charges and the DSF constants' device pointers
+// with `coulomb`; aid (M³, C) int32 atom ids and the tags (M³, C, ne) with
+// `excl` (mcs only with `coulomb`); the bond weights (M³, C, neb) with
+// `bond` (kr02 only with `energy`).  Writes the centre sums and the
+// reactions to slices (27, 3 or 5, M³·C), every slot, one warp a phase of
+// a centre cell; `emdee_streaming_fold_mol` adds them up.
 extern "C" int emdee_streaming_forces_mol(
     const float* pos, const float* hs, const float* tse, const uint8_t* valid, const float* q,
     const int* aid, const float* ids, const float* mlj, const float* mcs, const float* kb,
     const float* kr0, const float* kr02, int ne, int neb, const float* alpha, const float* rc,
-    const float* rc2_c, const float* e_shift, const float* f_shift, const float* kc, float* f, float* e,
-    float* w, float* groups, int m, int c, const float* box, float rc2, float rs2, float invd2, float a_m,
-    float pa1, float pa2, float pb1, float pb2, int coulomb, int excl, int bond, int energy, void* stream) {
+    const float* rc2_c, const float* e_shift, const float* f_shift, const float* kc, float* slices,
+    int m, int c, const float* box, float rc2, float rs2, float invd2, float a_m, float pa1, float pa2, float pb1,
+    float pb2, int coulomb, int excl, int bond, int energy, void* stream) {
+  if (m < 3) return static_cast<int>(cudaErrorInvalidValue);
+  emdee::OwnedKernel kernel;
+  size_t smem;
+  const int err = owned_kernel(c, ne, neb, coulomb, excl, bond, energy, &kernel, &smem);
+  if (err) return err;
   if (!excl) ne = 0;
   if (!bond) neb = 0;
-  const size_t smem = smem_bytes(m, c, energy, true, ne, neb);
-  if (m < 3 || c < 1 || c > kMaxCapacity || smem > 232448 || (!coulomb && !excl) || (bond && !excl) ||
-      (excl && (ne < 1 || ne > kMaxTags)) || (bond && (neb < 1 || neb > ne)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
-  const Fields fl{pos, pos + 1, pos + 2, 3, hs, tse, valid};
-  const Mol mol{q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb, alpha, rc, rc2_c, e_shift, f_shift, kc};
+  PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
+  Fields fl{pos, pos + 1, pos + 2, 3, hs, tse, valid};
+  Mol mol{q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb, alpha, rc, rc2_c, e_shift, f_shift, kc};
+  const long warps = static_cast<long>(m) * m * m * kPhases;
+  const unsigned blocks = static_cast<unsigned>((warps + kOwnedWarps - 1) / kOwnedWarps);
+  void* args[] = {&fl, &mol, &slices, &m, &c, &box, &k};
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
+                                           dim3(kOwnedThreads), args, smem, static_cast<cudaStream_t>(stream)));
+}
+
+// The K5c variant these flags select, as the card reports it: out[0..3] =
+// registers a thread, local (spill) bytes a thread, shared bytes a block,
+// resident blocks an SM.  Launches nothing.
+extern "C" int emdee_streaming_mol_attrs(int c, int ne, int neb, int coulomb, int excl, int bond, int energy,
+                                         int* out) {
+  emdee::OwnedKernel kernel;
+  size_t smem;
+  int err = owned_kernel(c, ne, neb, coulomb, excl, bond, energy, &kernel, &smem);
+  if (err) return err;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, reinterpret_cast<const void*>(kernel), kOwnedThreads,
+                                                    smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(smem + fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
+}
+
+// K5c's fold: f (M³·C, 3) [, e, w (M³·C)] = the sum of the n_slices
+// slices, in order.
+extern "C" int emdee_streaming_fold_mol(float* f, float* e, float* w, const float* slices, int n_slices, long ns,
+                                        int energy, void* stream) {
+  if (n_slices < 1 || ns < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 256;
+  const long blocks = (ns + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (centre_slots(c)) {
-    case 1: return dispatch_mol<1>(coulomb, excl, bond, energy, fl, mol, f, e, w, groups, m, c, box, k, s);
-    case 2: return dispatch_mol<2>(coulomb, excl, bond, energy, fl, mol, f, e, w, groups, m, c, box, k, s);
-    default: return dispatch_mol<3>(coulomb, excl, bond, energy, fl, mol, f, e, w, groups, m, c, box, k, s);
-  }
+  if (energy)
+    owned_fold_kernel<5><<<blocks, threads, 0, s>>>(f, e, w, slices, n_slices, ns);
+  else
+    owned_fold_kernel<3><<<blocks, threads, 0, s>>>(f, e, w, slices, n_slices, ns);
+  return static_cast<int>(cudaGetLastError());
 }
 #endif
 

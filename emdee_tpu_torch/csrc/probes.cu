@@ -17,10 +17,19 @@
 // (kernels `_std3` and `_dgt3`): per program p, the centre-expansion product
 // (NC, K) @ (K, NCOL) in float32, the centres stored (NC, K) ("std") or
 // (K, NC) ("dgt", the lhs-transposed layout whose lowering the TPU probe
-// asked about).  A plain float32 FMA tile: one thread per output element,
-// fmaf over k in order, no TF32 and no tensor cores (the reference asks for
-// HIGHEST precision).  Bound: bytes, the (P, NC, NCOL) output written once
-// (60 MB at the probe's shape) at 3.35 TB/s.
+// asked about).  fmaf over k in order from 0, no TF32 and no tensor cores
+// (the reference asks for HIGHEST precision).  Bound: bytes, the (P, NC,
+// NCOL) output written once (60 MB at the probe's shape) at 3.35 TB/s.
+// Design (redesigned for this card; one thread an output with its 2K loads
+// ran at ~0.51 TB/s of output): one block a program.  The block stages the
+// program's centre tile in shared memory k-major, whatever its storage (a
+// coalesced copy in both layouts), and the expansion beside it (37 KB at
+// the probe's shape, from L2 after the first blocks); each thread then
+// computes register tiles of kRows rows × 4 columns, reading a k's four
+// columns and kRows centres as 128-bit shared loads, and stores each row's
+// four as one 128-bit streaming store, a warp's 32 stores covering 512
+// consecutive bytes.  NC and NCOL must be multiples of 4 and the two tiles
+// must fit a block's shared memory (the C entry refuses the rest).
 
 #include <cuda_runtime.h>
 
@@ -50,20 +59,59 @@ __global__ void probe_fma_kernel(const float* __restrict__ ghost, const float* _
   out[at] = acc;
 }
 
+constexpr int kRows = 8;  // P2: rows of a thread's register tile
+
 template <bool TRANSPOSED>
-__global__ void probe_cen_kernel(const float* __restrict__ cen, const float* __restrict__ expand,
-                                 float* __restrict__ out, int nc, int kd, int ncol) {
-  const long e = static_cast<long>(blockIdx.y) * kThreads + threadIdx.x;
-  if (e >= static_cast<long>(nc) * ncol) return;
+__global__ void __launch_bounds__(kThreads)
+    probe_cen_kernel(const float* __restrict__ cen, const float* __restrict__ expand, float* __restrict__ out,
+                     int nc, int kd, int ncol) {
+  extern __shared__ float4 smem4[];
+  float* s_exp = reinterpret_cast<float*>(smem4);  // (K, NCOL)
+  float* s_cen = s_exp + kd * ncol;                // (K, NC), k-major, and kRows floats of padding
   const long p = blockIdx.x;
-  const int r = static_cast<int>(e / ncol), col = static_cast<int>(e % ncol);
   const float* a = cen + p * nc * kd;
-  float acc = 0.f;
-  for (int k = 0; k < kd; ++k) {
-    const float ak = TRANSPOSED ? a[static_cast<long>(k) * nc + r] : a[static_cast<long>(r) * kd + k];
-    acc = fmaf(ak, expand[static_cast<long>(k) * ncol + col], acc);
+  for (int i = threadIdx.x; i < kd * ncol / 4; i += kThreads)
+    smem4[i] = reinterpret_cast<const float4*>(expand)[i];
+  for (int i = threadIdx.x; i < nc * kd; i += kThreads) {
+    if (TRANSPOSED)
+      s_cen[i] = a[i];
+    else
+      s_cen[(i % kd) * nc + i / kd] = a[i];
   }
-  out[p * nc * ncol + e] = acc;
+  __syncthreads();
+  const int quads = ncol / 4;
+  const int row_blocks = (nc + kRows - 1) / kRows;
+  float* o = out + p * nc * ncol;
+  for (int item = threadIdx.x; item < quads * row_blocks; item += kThreads) {
+    const int q = item % quads, r0 = (item / quads) * kRows;
+    float4 acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < kd; ++k) {
+      const float4 b = reinterpret_cast<const float4*>(s_exp + k * ncol)[q];
+      const float4* ak4 = reinterpret_cast<const float4*>(s_cen + k * nc + r0);
+      float ak[kRows];
+#pragma unroll
+      for (int h = 0; h < kRows / 4; ++h) {
+        const float4 a4 = ak4[h];
+        ak[4 * h] = a4.x;
+        ak[4 * h + 1] = a4.y;
+        ak[4 * h + 2] = a4.z;
+        ak[4 * h + 3] = a4.w;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float av = r0 + r < nc ? ak[r] : 0.f;
+        acc[r].x = fmaf(av, b.x, acc[r].x);
+        acc[r].y = fmaf(av, b.y, acc[r].y);
+        acc[r].z = fmaf(av, b.z, acc[r].z);
+        acc[r].w = fmaf(av, b.w, acc[r].w);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (r0 + r < nc) __stcs(reinterpret_cast<float4*>(o + static_cast<long>(r0 + r) * ncol) + q, acc[r]);
+  }
 }
 
 }  // namespace
@@ -79,16 +127,21 @@ extern "C" int emdee_probe_fma(const float* ghost, const float* centers, float* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// cen (P, NC, K) or, transposed, (P, K, NC); expand (K, NCOL); out (P, NC, NCOL).
+// cen (P, NC, K) or, transposed, (P, K, NC); expand (K, NCOL); out (P, NC,
+// NCOL); NC and NCOL multiples of 4, the two tiles within a block's shared
+// memory.
 extern "C" int emdee_probe_cen(const float* cen, const float* expand, float* out, int progs, int nc,
                                int kd, int ncol, int transposed, void* stream) {
-  if (progs < 1 || nc < 1 || kd < 1 || ncol < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long n = static_cast<long>(nc) * ncol;
-  const dim3 grid(progs, static_cast<unsigned>((n + kThreads - 1) / kThreads));
+  const size_t smem = sizeof(float) * (static_cast<size_t>(kd) * (ncol + nc) + kRows);
+  if (progs < 1 || nc < 4 || nc % 4 != 0 || kd < 1 || ncol < 4 || ncol % 4 != 0 || smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (transposed)
-    probe_cen_kernel<true><<<grid, kThreads, 0, s>>>(cen, expand, out, nc, kd, ncol);
-  else
-    probe_cen_kernel<false><<<grid, kThreads, 0, s>>>(cen, expand, out, nc, kd, ncol);
+  auto kernel = transposed ? probe_cen_kernel<true> : probe_cen_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<progs, kThreads, smem, s>>>(cen, expand, out, nc, kd, ncol);
   return static_cast<int>(cudaGetLastError());
 }

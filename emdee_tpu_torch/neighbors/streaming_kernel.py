@@ -13,7 +13,12 @@ tag-borne bonds); `cell_forces_streaming_split` takes (M³, C) component
 arrays with uniform parameters, forces only.  For CUDA tensors (backend 'auto' or 'cuda') each
 call makes two launches of `csrc/cell_forces_streaming.cu`: the half-shell
 pair pass, which writes centre sums and four reaction row groups, and the
-fold that adds the groups in a fixed order.  For CPU tensors, or backend
+fold that adds the groups in a fixed order.  K5c has a pass of its own: a
+warp owns one phase (the self cell or one half-shell offset) of one centre
+cell, culls a neighbour pair to the atoms within the cutoff of the other
+cell's bounding box (`cull_keep` mirrors the predicate), and writes its
+centre sums and the offset's reactions to scratch slices, which its fold
+adds in a fixed order.  For CPU tensors, or backend
 'torch', they run the plain version: the half shell of
 `cell_dense._dense_forces`, the same as the resident kernel's (with the
 molecular terms, `cell_dense_forces(coulomb=, excl=)`, K2c's).
@@ -31,6 +36,8 @@ decompositions agree to roundoff, not bit for bit.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -64,22 +71,55 @@ MAX_CAPACITY = 96  # three centre slots per lane
 _SMEM_BYTES = 232_448  # shared memory a block can use on Hopper
 _WARPS = 8
 _ROW_GROUPS = 4  # reaction row groups that leave the pair pass
+_OWNED_WARPS = 4  # K5c: warps a block, each owning a phase of a centre cell
+_SLICES = 14 + 13  # K5c's scratch: the centre sums of each phase, the reactions of each offset
+CULL_SLACK = 2.0**-19  # the cull's slack, as csrc/cell_forces_streaming.cu `kCullSlack`
 
 
 def smem_bytes(config: CellDenseConfig, energy: bool, mol: bool = False, ne: int = 0, neb: int = 0) -> int:
-    """A block's shared memory, as the C entry counts it: a pencil's centre
-    sums and reaction row, (2, n_r, M·C) float32; each warp's two compacted
-    cell tiles (64 entries up to C = 64, else 96; x, y, z, σ/2, 2√ε, with
-    the molecular terms q and the atom id, and the slot); with exclusion
-    tags, each warp's staged centre tags, 3 values a tag and a bond tag."""
+    """A block's shared memory, as the C entries count it.  K5: a pencil's
+    centre sums and reaction row, (2, n_r, M·C) float32, and each of its 8
+    warps' two compacted cell tiles (64 entries up to C = 64, else 96; x, y,
+    z, σ/2, 2√ε and the slot).  K5c (`mol`): for each of its 4 warps, two
+    tiles (with q and the atom id), the staged centre tags (3 values a tag
+    and a bond tag) and its centre and reaction rows, (2, n_r, C)."""
     m, c = config.cells_per_dim, config.capacity
     entries = 64 if c <= 64 else 96
-    fields = 7 if mol else 5
-    return 4 * (2 * (5 if energy else 3) * m * c + _WARPS * (2 * (fields + 1) * entries + 3 * (ne + neb) * entries))
+    nr = 5 if energy else 3
+    if mol:
+        return 4 * _OWNED_WARPS * (2 * 8 * entries + 3 * (ne + neb) * entries + 2 * nr * c)
+    return 4 * (2 * nr * m * c + _WARPS * 2 * 6 * entries)
+
+
+def cull_keep(p, lo, hi, shift, cut2: float):
+    """The cull's predicate, as K5c evaluates it in float32 (for the tests):
+    whether each point p (..., 3) lies within the cutoff of the box [lo +
+    shift, hi + shift] (each (3,)), every axis' gap lowered by CULL_SLACK of
+    the magnitudes in play, so that no pair inside cut2 is dropped."""
+    f32 = torch.float32
+    p, lo, hi, shift = (torch.as_tensor(t, dtype=f32) for t in (p, lo, hi, shift))
+    gap = torch.clamp(torch.maximum((lo + shift) - p, p - (hi + shift)), min=0.0)
+    slack = torch.tensor(CULL_SLACK, dtype=f32) * (p.abs() + lo.abs() + hi.abs() + 2.0 * shift.abs())
+    g = torch.clamp(gap - slack, min=0.0)
+    g2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2]
+    return g2 < torch.tensor(cut2, dtype=f32)
+
+
+def cull_pair(cen, nb, shift, cut2: float):
+    """K5c's cull of one cell pair (for the tests): the centre points cen
+    (n, 3) kept within the cutoff of the neighbour points' box shifted by
+    `shift` (displacements are (x_i − x_j) − shift), then the neighbour
+    points nb (k, 3) kept within the cutoff of the kept centres' box shifted
+    back.  Returns (centre mask, neighbour mask)."""
+    keep_c = cull_keep(cen, nb.min(0).values, nb.max(0).values, shift, cut2)
+    if not bool(keep_c.any()):
+        return keep_c, torch.zeros(nb.shape[0], dtype=torch.bool)
+    kept = cen[keep_c]
+    return keep_c, cull_keep(nb, kept.min(0).values, kept.max(0).values, -torch.as_tensor(shift), cut2)
 
 
 def _check_geometry(config: CellDenseConfig, energy: bool, mol: bool = False, ne: int = 0, neb: int = 0) -> None:
-    """Refuse what the kernel's C entry would refuse, before any launch: M
+    """Refuse what the kernel's C entries would refuse, before any launch: M
     ≥ 3, C ≤ MAX_CAPACITY, and the block's shared memory (`smem_bytes`)
     within what Hopper gives a block."""
     m, c = config.cells_per_dim, config.capacity
@@ -185,28 +225,51 @@ def cell_forces_streaming(
 
 
 def _launch_mol(state: CellDenseState, config: CellDenseConfig, coulomb, excl, compute_energy: bool):
-    """The molecular pair pass (K5c) and the fold on a CUDA state."""
+    """K5c's pair pass and its fold on a CUDA state."""
     global LAUNCHES
     operands, (forces, e, w) = stacked_operands(state, config, None, compute_energy)
     pos, hs, tse, valid = operands[0], operands[4], operands[5], operands[6]
     q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb, *consts = mol_operands(state, config, coulomb, excl)
     _check_geometry(config, compute_energy, True, ne, neb)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    groups = _groups(config, compute_energy, pos.device)
+    slices = torch.empty((_SLICES, 5 if compute_energy else 3, config.num_slots), dtype=torch.float32,
+                         device=pos.device)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     lib = build.load()
     err = lib.emdee_streaming_forces_mol(
-        pos.data_ptr(), ptr(hs), ptr(tse), valid.data_ptr(), ptr(q), ptr(aid), ptr(ids), ptr(mlj),
-        ptr(mcs), ptr(kb), ptr(kr0), ptr(kr02), ne, neb, *map(ptr, consts), forces.data_ptr(), ptr(e),
-        ptr(w), groups.data_ptr(), config.cells_per_dim, config.capacity, box_ptr(_box_of(state, config), pos),
-        *_pair_consts(config, None)[:8], int(coulomb is not None), int(excl is not None), int(kb is not None),
-        int(compute_energy), stream,
+        pos.data_ptr(), _ptr(hs), _ptr(tse), valid.data_ptr(), _ptr(q), _ptr(aid), _ptr(ids), _ptr(mlj), _ptr(mcs),
+        _ptr(kb), _ptr(kr0), _ptr(kr02), ne, neb, *map(_ptr, consts), slices.data_ptr(), config.cells_per_dim,
+        config.capacity, box_ptr(_box_of(state, config), pos), *_pair_consts(config, None)[:8],
+        int(coulomb is not None), int(excl is not None), int(kb is not None), int(compute_energy), stream,
     )
     build.check(err, "cell_forces_streaming kernel (molecular)")
     LAUNCHES += 1
-    fv = forces.view(-1)
-    _fold(lib, fv, fv[1:], fv[2:], 3, e, w, groups, config, compute_energy, stream)
+    err = lib.emdee_streaming_fold_mol(forces.data_ptr(), _ptr(e), _ptr(w), slices.data_ptr(), _SLICES,
+                                       config.num_slots, int(compute_energy), stream)
+    build.check(err, "cell_forces_streaming fold (molecular)")
+    LAUNCHES += 1
     return forces, e, w
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def k5c_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) -> dict:
+    """The K5c variant that these flags and tags (`excl`, as
+    `cell_forces_streaming` takes them) select at C, as the card reports it
+    (`cudaFuncGetAttributes`, `cudaOccupancyMaxActiveBlocksPerMultiprocessor`):
+    registers and local (spill) bytes a thread, shared bytes and warps a
+    block, and resident blocks an SM.  Launches nothing."""
+    ne = 0 if excl is None else excl[0].shape[-1]
+    bond = None if excl is None or len(excl) < 4 else excl[3]
+    neb = 0 if bond is None else bond[0].shape[-1]
+    out = (ctypes.c_int * 4)()
+    err = build.load().emdee_streaming_mol_attrs(config.capacity, ne, neb, int(coulomb is not None),
+                                                 int(excl is not None), int(bond is not None), int(compute_energy),
+                                                 ctypes.addressof(out))
+    build.check(err, "cell_forces_streaming resource query (molecular)")
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2], "warps_per_block": _OWNED_WARPS,
+            "blocks_per_sm": out[3]}
 
 
 def cell_forces_streaming_split(

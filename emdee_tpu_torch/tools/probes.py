@@ -29,6 +29,7 @@ TILES = 14
 K_SWEEP = (5, 15, 25, 45)
 # P2: the reference's shape — M² programs of (NC, M) @ (M, M·C).
 M, C, NC = 17, 32, 96
+CEN_SMEM_BYTES = 232_448  # a block's shared memory on Hopper: P2 stages both tiles there
 
 
 def probe_fma_inputs(m: int, c: int, device, seed: int = 0):
@@ -99,7 +100,9 @@ def probe_cen_plain(cen, expand, transposed: bool):
 
 def probe_cen(cen, expand, transposed: bool, backend: str = "auto"):
     """P2: out (progs, NC, NCOL) = centres @ expand per program, the
-    centres stored (NC, K) or, transposed, (K, NC); float32 FMA, no TF32."""
+    centres stored (NC, K) or, transposed, (K, NC); float32 FMA, no TF32.
+    The kernel (one block a program, both tiles in shared memory, register
+    tiles of 8 rows × 4 columns) takes NC and NCOL multiples of 4."""
     if resolve_backend(backend, cen) == "torch":
         return probe_cen_plain(cen, expand, transposed)
     global LAUNCHES
@@ -112,6 +115,9 @@ def probe_cen(cen, expand, transposed: bool, backend: str = "auto"):
     for t in (cen, expand):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != cen.device:
             raise ValueError("probe_cen: inputs must be contiguous float32 on one device")
+    if nc % 4 or ncol % 4 or 4 * (kd * (ncol + nc) + 8) > CEN_SMEM_BYTES or expand.data_ptr() % 16:
+        raise ValueError(f"probe_cen: the kernel takes NC and NCOL multiples of 4, a 16-byte aligned expansion and "
+                         f"(K, NCOL + NC) float32 within {CEN_SMEM_BYTES} B; got K={kd}, NCOL={ncol}, NC={nc}")
     out = torch.empty((progs, nc, ncol), dtype=torch.float32, device=cen.device)
     err = build.load().emdee_probe_cen(cen.data_ptr(), expand.data_ptr(), out.data_ptr(), progs, nc, kd, ncol,
                                        int(transposed), torch.cuda.current_stream(cen.device).cuda_stream)

@@ -480,6 +480,26 @@ def test_probe_kernels_match_plain(device):
     assert probes.LAUNCHES == before + 3
 
 
+@pytest.mark.parametrize("transposed", [False, True])
+def test_probe_cen_matches_plain_and_matmul_at_the_probe_shape(device, transposed):
+    """P2 (register-tiled) at the probe's full shape (289 programs of (96,
+    17) @ (17, 544)) in both layouts: within 1e-5 relative of its plain
+    version and of `torch.matmul` with TF32 off."""
+    from emdee_tpu_torch.tools import probes
+
+    cen, expand = probes.probe_cen_inputs(transposed, device)
+    got = probes.probe_cen(cen, expand, transposed)
+    want = probes.probe_cen_plain(cen, expand, transposed)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib = torch.matmul(cen.transpose(1, 2) if transposed else cen, expand)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    for other in (want, lib):
+        np.testing.assert_allclose(got.cpu().numpy(), other.cpu().numpy(), rtol=1e-5)
+
+
 def test_straggler_gather_pass_reruns_bitwise(device):
     """strag_pass="xla": the gather pass's reactions folded by the
     fixed-order add, so two rollouts on the card are bitwise equal (no
@@ -606,6 +626,111 @@ def test_streaming_molecular_kernel_matches_plain(device, variant, capacity):
                 assert float((a - b)[v].abs().max()) <= 1e-3
             assert bool((ek[~v] == 0).all()) and bool((wk[~v] == 0).all())
     assert streaming_kernel.LAUNCHES == before + 4
+
+
+@pytest.mark.parametrize("capacity", [80, 88])
+def test_k5c_matches_plain_at_water_capacities_and_reruns_bitwise(device, capacity):
+    """K5c (warp-owned centre cells, the bounding-box cull) at the water
+    boxes' capacities (C = 80 and 88: three centre slots a lane) on the
+    charged fixture, DSF with the bond tags, forces alone and with energies:
+    within 2e-4 of the force scale and 1e-3 of its plain version, empty
+    slots exactly 0; a second call bitwise equal; the variant's resources
+    as the card reports them."""
+    st, config, model, coul, tags = fixtures.charged_fixture(device, capacity)
+    v = st.valid
+    for energy, excl in ((False, tags), (True, tags[:3])):
+        kw = dict(compute_energy=energy, coulomb=coul, excl=excl)
+        got = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", **kw)
+        again = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", **kw)
+        fp, ep, wp = streaming_kernel.cell_forces_streaming(st, model, config, backend="torch", **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+        scale = max(float(fp[v].abs().max()), 1.0)
+        assert float((got[0] - fp)[v].abs().max()) <= 2e-4 * scale
+        assert bool((got[0][~v] == 0).all())
+        if energy:
+            for a, b in ((got[1], ep), (got[2], wp)):
+                assert float((a - b)[v].abs().max()) <= 1e-3
+                assert bool((a[~v] == 0).all())
+        res = streaming_kernel.k5c_resources(config, coul, excl, energy)
+        assert res["registers"] > 0 and res["blocks_per_sm"] >= 1
+        assert res["smem_bytes"] >= streaming_kernel.smem_bytes(config, energy, True, excl[0].shape[-1],
+                                                                0 if len(excl) == 3 else excl[3][0].shape[-1])
+
+
+# Seven bonded pairs 2.47–2.48 apart (the cutoff is 2.5) in a 12³ box of
+# 4³ cells, each atom alone in its cell, so that a cell's bounding box is
+# the atom itself: across a face, an edge and a corner, each also across
+# the periodic seam, and a face pair whose second atom is stored in the
+# cell at x = 6.1 but overhangs it by 0.2 toward its partner, as atoms do
+# between rebins.  (first atom, second atom as binned, second atom's x.)
+_CULL_PAIRS = (
+    ((0.30, 4.5, 4.5), (9.82, 4.5, 4.5), None),  # face, across the seam in x
+    ((2.125, 2.125, 7.5), (3.875, 3.875, 7.5), None),  # edge
+    ((7.5, 0.62, 0.62), (7.5, 10.87, 10.87), None),  # edge, across the seam in y and z
+    ((2.29, 8.29, 5.29), (3.72, 9.72, 6.72), None),  # corner
+    ((0.70, 0.70, 0.70), (11.27, 11.27, 11.27), None),  # corner, across the seam in x, y and z
+    ((5.29, 6.71, 8.29), (6.72, 5.28, 9.72), None),  # corner, the y offset negative
+    ((3.42, 10.5, 1.5), (6.1, 10.5, 1.5), 5.9),  # face, the second atom overhanging its cell
+)
+
+
+def _cull_pairs_state(device, capacity):
+    """The `_CULL_PAIRS` box on the port: (state, config, LJ model, DSF
+    model, slot tags with the bond weights).  Each pair is a harmonic bond
+    (k = 40, r0 = 1.1) with its LJ and Coulomb excluded, charges ±0.4."""
+    from emdee_tpu_torch import (
+        DSFCoulomb, LennardJonesModel, build_exclusion_tables, cell_dense_init, lennard_jones_atom,
+        make_exclusion_aux_fn,
+    )
+
+    pos = np.array([p for a, b, _ in _CULL_PAIRS for p in (a, b)], np.float64)
+    n = len(pos)
+    config = suggest_cell_dense_config(n, 12.0, cutoff=fixtures.CUTOFF, switch=fixtures.SWITCH,
+                                       skin=fixtures.CHARGED_SKIN)._replace(capacity=capacity)
+    q = np.tile(np.array([0.4, -0.4], np.float32), n // 2)
+    st = cell_dense_init(pos, np.zeros_like(pos), np.ones(n), lennard_jones_atom(np.ones(n), np.ones(n),
+                         device=device), config, charges=q, device=device)
+    for a, b, x in _CULL_PAIRS:
+        if x is not None:
+            hit = st.valid & ((st.positions - torch.tensor(b, dtype=torch.float32, device=device)).abs()
+                              .amax(-1) < 1e-5)
+            assert int(hit.sum()) == 1
+            st = st._replace(positions=torch.where(hit[..., None] & (torch.arange(3, device=device) == 0),
+                                                   torch.tensor(x, dtype=torch.float32, device=device),
+                                                   st.positions))
+    bonds = np.arange(n).reshape(-1, 2)
+    zeros = np.zeros(len(bonds), np.float32)
+    tabs, _, bond_tabs, _ = build_exclusion_tables(
+        n, bonds, zeros, zeros, bonds=(bonds, np.full(len(bonds), 40.0, np.float32), np.full(len(bonds), 1.1,
+                                                                                              np.float32)))
+    tags = make_exclusion_aux_fn(n, *tabs, bond_tabs=bond_tabs)(st)
+    coul = DSFCoulomb.create(fixtures.CUTOFF, alpha=0.25, coulomb_constant=1.0, device=device)
+    return st, config, LennardJonesModel.create(fixtures.CUTOFF, fixtures.SWITCH, device=device), coul, tags
+
+
+@pytest.mark.parametrize("capacity", [24, 88])
+def test_k5c_cull_keeps_bonded_pairs_just_inside_the_cutoff(device, capacity):
+    """K5c's cull drops no pair inside the cutoff across a face, an edge or
+    a corner offset, the periodic seam, or an atom's overhang
+    (`_CULL_PAIRS`).  The switched LJ and the shifted-force DSF vanish at
+    the cutoff and could not show a dropped pair; each pair's bond force
+    there is ~55, beyond the 2e-4-of-scale gate by more than a hundredfold,
+    so a cull a few hundredths too tight fails it."""
+    st, config, model, coul, tags = _cull_pairs_state(device, capacity)
+    v = st.valid
+    for energy in (False, True):
+        kw = dict(compute_energy=energy, coulomb=coul, excl=tags)
+        got = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", **kw)
+        fp, ep, wp = streaming_kernel.cell_forces_streaming(st, model, config, backend="torch", **kw)
+        torch.cuda.synchronize()
+        scale = max(float(fp[v].abs().max()), 1.0)
+        tol = 2e-4 * scale
+        assert float(fp[v].norm(dim=-1).min()) > 100 * tol  # every atom feels its bond
+        assert float((got[0] - fp)[v].abs().max()) <= tol
+        if energy:
+            for a, b in ((got[1], ep), (got[2], wp)):
+                assert float((a - b)[v].abs().max()) <= 1e-3
 
 
 def test_streaming_molecular_water_rollout_matches_plain_and_reruns_bitwise(device):

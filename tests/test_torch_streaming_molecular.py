@@ -146,25 +146,34 @@ def test_water_boxes_resolve_to_the_streaming_family():
 
 
 def test_k5c_refuses_geometry_it_cannot_take(charged):
-    """What the C entry refuses raises before a launch: C > 96, and wide
-    tags whose staging does not fit a block's shared memory; too many tags
-    for the kernels' MAX_TAGS."""
+    """What the C entries refuse raises before a launch: C > 96 and M < 3;
+    K5 (LJ) refuses a pencil whose rows outgrow a block's shared memory.
+    K5c's block holds four warps' tiles, staged tags and centre and reaction
+    rows, whatever M: its widest block (C = 96, E = E_b = 8, energies) fits
+    at M = 40, and the two entries count the bytes alike."""
     _, config, _, _ = charged
     with pytest.raises(ValueError, match="C ≤ 96"):
         streaming_kernel._check_geometry(config._replace(capacity=104), True, True, 2, 2)
+    with pytest.raises(ValueError, match="M ≥ 3"):
+        streaming_kernel._check_geometry(config._replace(cells_per_dim=2), True, True, 2, 2)
     with pytest.raises(ValueError, match="shared memory"):
-        streaming_kernel._check_geometry(config._replace(cells_per_dim=40, capacity=96), True, True, 8, 8)
+        streaming_kernel._check_geometry(config._replace(cells_per_dim=60, capacity=96), True)
+    widest = config._replace(cells_per_dim=40, capacity=96)
+    streaming_kernel._check_geometry(widest, True, True, 8, 8)
+    assert streaming_kernel.smem_bytes(widest, True, True, 8, 8) == 4 * 4 * (2 * 8 * 96 + 3 * 16 * 96 + 2 * 5 * 96)
+    assert streaming_kernel.smem_bytes(config, False, True, 2, 2) == 4 * 4 * (2 * 8 * 64 + 3 * 4 * 64 + 2 * 3 * 24)
     assert streaming_kernel.smem_bytes(config, False) == 4 * (2 * 3 * 4 * 24 + 8 * 2 * 6 * 64)
 
 
 def test_c_entries_match_ctypes_signatures():
     """Every `extern "C"` entry of csrc/ has a ctypes signature of the same
-    arity and kinds (pointer, int, float, long), the new K5c and K2c-G
-    entries among them."""
+    arity and kinds (pointer, int, float, long), the K5c pair pass, its
+    fold, its resource query and the K2c-G entry among them."""
     kinds = {"int": "c_int", "float": "c_float", "long": "c_long"}
     src = "".join(p.read_text() for p in sorted(Path(build.CSRC).glob("*.cu")))
     entries = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
-    assert {"emdee_streaming_forces_mol", "emdee_cell_forces_ghost_mol"} <= set(entries)
+    assert {"emdee_streaming_forces_mol", "emdee_streaming_fold_mol", "emdee_streaming_mol_attrs",
+            "emdee_cell_forces_ghost_mol"} <= set(entries)
     assert set(entries) == set(build._SIGNATURES)
     for name, params in entries.items():
         want = ["c_void_p" if "*" in p else kinds[p.split()[0]] for p in params.split(",")]
