@@ -1338,6 +1338,12 @@ WATER_1M_STEPS = 200
 # 80GB HBM3, 700.00 W), printed on the log lines beside this run's times.
 K5C_BEFORE = {"water_ms": 1.9579, "water_energy_ms": 1.8441, "n1m_water_ms": 15.1297}
 P2_BEFORE = {"std": 0.1178, "dgt": 0.1423}
+# K2c (one thread a centre slot, the full shell unculled) and K5s-mol (the
+# pencil kernel on the ghost grids) before their redesign: their last
+# chip_smoke.py times (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W), printed
+# on the log lines beside this run's times.
+K2C_BEFORE = {"water_ms": 1.4731, "water_energy_ms": 1.2764, "n1m_water_ms": 11.6446}
+K5S_MOL_BEFORE = {"ms": 9.4924}
 # float32 operations of one molecular pair inside the cutoff, each pair once
 # with Newton's third law.  The force launch: OPS_PER_PAIR, the per-atom
 # mixing 3, DSF Coulomb's force part 47 (√r, 1/r, αr 3, erfc ≈ 20, exp and
@@ -1434,6 +1440,7 @@ def phase_water(device, tag):
     20 steps.  Returns (K2c row fields, {path: counts}, ms/step, facts, the
     box, config, models and equilibrated state for the later water phases)."""
     from emdee_tpu_torch import cell_dense_init, gather_dense_atoms, resolve_dense_backend
+    from emdee_tpu_torch.neighbors.cell_kernel import k2c_resources
     from emdee_tpu_torch.tools import water
 
     box, spill_cfg, model, coul, params = water.water_setup(device, spill=True)
@@ -1524,12 +1531,15 @@ def phase_water(device, tag):
     bonded_pairs = int(((d * d).sum(1) < cfg.cutoff**2).sum())
     b_ms, b_by = bound(mol_bytes(cfg, e_tags, e_bonds, False), mol_ops(pairs, bonded_pairs, e_tags, False))
     b_e = bound(mol_bytes(cfg, e_tags, 0, True), mol_ops(pairs, 0, e_tags, True))
+    res = {"step": k2c_resources(cfg, coul, tags, False), "energy": k2c_resources(cfg, coul, tags[:3], True)}
     log(f"{tag} K2c vs plain on the water path's end state (M={cfg.cells_per_dim} C={cfg.capacity}, E={e_tags} "
         f"E_b={e_bonds}): max |dF| {err:.3e} (rel {err / scale:.3e}, scale {scale:.1f}), max |dE| {err_e:.3e}, "
-        f"max |dW| {err_w:.3e}; step launch (DSF + tags + bonds) {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
-        f"{b_ms:.5f} ms ({b_by}); energy launch (no bond tags) {k_e_ms:.4f} ms, plain {p_e_ms:.3f} ms, bound "
+        f"max |dW| {err_w:.3e}; step launch (DSF + tags + bonds) {k_ms:.4f} ms (before the redesign "
+        f"{K2C_BEFORE['water_ms']}), plain {p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); energy launch (no bond "
+        f"tags) {k_e_ms:.4f} ms (before {K2C_BEFORE['water_energy_ms']}), plain {p_e_ms:.3f} ms, bound "
         f"{b_e[0]:.5f} ms ({b_e[1]}); {pairs:,} pairs inside the cutoff ({bonded_pairs:,} bonded), "
-        f"{cfg.num_cells * cfg.capacity * 27 * cfg.capacity:,} candidates a launch")
+        f"{cfg.num_cells * cfg.capacity * 27 * cfg.capacity:,} candidates a launch before the cull")
+    log(f"{tag} K2c resources at M={cfg.cells_per_dim} C={cfg.capacity}: " + resources_line(res))
 
     # 'cuda' (bonds in K2c) vs 'torch' (the gather path) after 20 steps.
     roll_t, energy_t = water.molecular_sim(box, cfg, model, coul, params, "torch", device)
@@ -1546,7 +1556,7 @@ def phase_water(device, tag):
     row = {"mol_water_max_abs_err": err, "mol_water_force_scale": scale, "mol_water_rel_err": err / scale,
            "mol_water_energy_err": max(err_e, err_w), "mol_ms": k_ms, "mol_plain_ms": p_ms,
            "mol_bound_ms": b_ms, "mol_bound_by": b_by, "mol_energy_ms": k_e_ms, "mol_energy_plain_ms": p_e_ms, "mol_energy_bound_ms": b_e[0],
-           "mol_pairs": pairs, "mol_bonded_pairs": bonded_pairs}
+           "mol_pairs": pairs, "mol_bonded_pairs": bonded_pairs, "mol_resources": res}
     facts.update(config=f"M={cfg.cells_per_dim} C={cfg.capacity}", drift=drift, t_eq=t_eq)
     w = dict(box=box, cfg=plain_cfg, model=model, coul=coul, params=params, pos_eq=pos_eq, vel_eq=vel_eq,
              energy=energy_eq, init=init)
@@ -1576,7 +1586,7 @@ def k5c_vs_k2c(st, config, model, coulomb, tags, label):
 
 
 def resources_line(res) -> str:
-    """K5c's variants' resources (`streaming_kernel.k5c_resources`) on one line."""
+    """A kernel's variants' resources (`cell_kernel.resources`) on one line."""
     return "; ".join(f"{name}: {r['registers']} registers and {r['local_bytes']} local bytes a thread, "
                      f"{r['smem_bytes']:,} shared bytes a block of {r['warps_per_block']} warps, "
                      f"{r['blocks_per_sm']} blocks an SM"
@@ -1678,8 +1688,9 @@ def phase_water_auto(device, tag, w):
         f"max |dW| {err_w:.3e}; vs K2c max |dF| {vs_f:.3e}, |dE|, |dW| {vs_e:.3e}")
     res = {"step": k5c_resources(cfg, coul, tags, False), "energy": k5c_resources(cfg, coul, tags[:3], True)}
     log(f"{tag} K5c times at {n} atoms: step launch pair (DSF + tags + bonds) {k_ms:.4f} ms (before the redesign "
-        f"{K5C_BEFORE['water_ms']}) vs K2c {k2_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); energy "
-        f"launch pair {k_e_ms:.4f} ms (before {K5C_BEFORE['water_energy_ms']}) vs K2c {k2_e_ms:.4f} ms, plain "
+        f"{K5C_BEFORE['water_ms']}) vs K2c {k2_ms:.4f} ms (K2c before its redesign {K2C_BEFORE['water_ms']}), plain "
+        f"{p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); energy launch pair {k_e_ms:.4f} ms (before "
+        f"{K5C_BEFORE['water_energy_ms']}) vs K2c {k2_e_ms:.4f} ms (before {K2C_BEFORE['water_energy_ms']}), plain "
         f"{p_e_ms:.3f} ms, bound {b_e[0]:.5f} ms ({b_e[1]}); {pairs:,} unique pairs inside the cutoff "
         f"({bonded_pairs:,} bonded)")
     log(f"{tag} K5c resources at M={cfg.cells_per_dim} C={cfg.capacity}: " + resources_line(res))
@@ -1765,7 +1776,8 @@ def phase_water_1m(device, tag):
         f"C={cfg.capacity}, 'auto' -> {family!r} (set-up {setup:.1f} s); K5c vs plain max |dF| {err_p:.3e} (rel "
         f"{err_p / scale:.3e}, scale {scale:.1f}; the card's peak allocation while the plain ran {plain_gb:.1f} GB), vs K2c "
         f"{err:.3e} (rel {err / scale:.3e}); step launch K5c {k_ms:.4f} ms (2 launches; before the redesign "
-        f"{K5C_BEFORE['n1m_water_ms']}) vs K2c {k2_ms:.4f} ms, K5c {resources_line(res)}, bound {b_ms:.5f} ms "
+        f"{K5C_BEFORE['n1m_water_ms']}) vs K2c {k2_ms:.4f} ms (before its redesign {K2C_BEFORE['n1m_water_ms']}), "
+        f"K5c {resources_line(res)}, bound {b_ms:.5f} ms "
         f"({b_by}; {pairs:,} pairs inside the cutoff); {steps} NVE steps from the lattice start in {sec:.3f} s = {ms:.4f} ms/step, "
         f"{n * steps / sec:,.0f} atom-steps/s, drift {drift:.3e} (gate {WATER_DRIFT_GATE}), no flag; launches {counts}")
     row = {"n1m_water_ms": k_ms, "n1m_water_resources": res, "n1m_water_k2c_ms": k2_ms, "n1m_water_bound_ms": b_ms,
@@ -1978,12 +1990,19 @@ def phase_grid_water_1m(device, tag, w1m):
     start: K5s-mol vs its plain version within 2e-4 of the force scale and
     1e-3 kJ/mol in E and W, after the fold vs the one-card K5c the same;
     200 gated NVE steps (drift ≤ 1e-4, no flag, exact launches), reruns
-    bitwise.  Returns (row fields, counts, ms/step)."""
+    bitwise; K5s-mol's resources and the card's peak allocation while its
+    energy variant (the largest scratch) runs and over the phase.  Returns
+    (row fields, counts, ms/step)."""
     from emdee_tpu_torch import build_exclusion_tables, make_exclusion_aux_fn
     from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, grid_vmem_estimate, make_grid_sharded_sim
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
-    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
+    from emdee_tpu_torch.neighbors.streaming_kernel import (
+        cell_forces_streaming, ghost_mol_scratch_bytes, k5s_mol_resources, streaming_ghost_forces,
+    )
     from emdee_tpu_torch.tools import water
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
 
     box, cfg, model, coul, st = w1m["box"], w1m["cfg"], w1m["model"], w1m["coul"], w1m["st"]
     n = len(box["masses"])
@@ -2002,6 +2021,17 @@ def phase_grid_water_1m(device, tag, w1m):
         coulomb=coul, excl=aux(sh)[:3])
     t = k5s_times(sh, mesh, cfg, model, 5, coulomb=coul, excl=aux(sh)[:3])
     t["pass_ms"] = cuda_ms(lambda: roll.forces(sh), 5)
+    t["resources"] = {"step": k5s_mol_resources(cfg, coul, aux(sh)[:3], False),
+                      "energy": k5s_mol_resources(cfg, coul, aux(sh)[:3], True)}
+    gh = ghost_stack(sh, mesh)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated(device) / 1e9
+    torch.cuda.reset_peak_memory_stats(device)
+    streaming_ghost_forces(gh, mesh.local_shape, mesh.base, cfg, model, compute_energy=True, backend="cuda",
+                           coulomb=coul, excl=aux(sh)[:3])
+    torch.cuda.synchronize()
+    t["energy_peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    del gh
     e_tags = int(tabs[0].shape[-1])
     pairs = mol_pairs(st, cfg, box["bonds"], box["box"])[0]
     # Bytes: the ghost grids' 7 fields and the own slots' tags (12E a slot) in.
@@ -2016,16 +2046,22 @@ def phase_grid_water_1m(device, tag, w1m):
     )
     bitwise_rerun("1M water grid (2,2,2)", roll, sh, 2 * WATER_REBIN, WATER_REBIN)
     ms = 1e3 * sec / steps
+    phase_gb = torch.cuda.max_memory_allocated(device) / 1e9
     log(f"{tag} 1M water grid (2,2,2) (M={cfg.cells_per_dim} C={cfg.capacity}, 'auto' -> {roll.family!r}, "
         f"per-shard estimate {est / 1e6:.2f} MB): K5s-mol vs plain max |dF| {err:.3e} (scale {scale:.1f}), "
-        f"|dE|, |dW| {err_e:.3e}; + fold vs the one-card K5c {vs_one:.3e}; K5s-mol {t['ms']:.4f} ms (2 launches), "
-        f"energy variant {t['energy_ms']:.4f}, plain {t['plain_ms']:.3f}, fold {t['fold_ms']:.4f}, the force pass "
-        f"with halo, fold and term rows {t['pass_ms']:.4f}, K2c-G on the same ghost grids {t['k2g_ms']:.4f} ms; "
-        f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}; {pairs:,} pairs inside the cutoff); {steps} NVE steps "
-        f"from the lattice start in {sec:.3f} s = {ms:.4f} ms/step, drift {drift:.3e} (gate {WATER_DRIFT_GATE}); "
-        f"launches {counts}; reruns bitwise")
+        f"|dE|, |dW| {err_e:.3e}; + fold vs the one-card K5c {vs_one:.3e}; K5s-mol {t['ms']:.4f} ms (2 launches; "
+        f"before the redesign {K5S_MOL_BEFORE['ms']}), energy variant {t['energy_ms']:.4f}, plain "
+        f"{t['plain_ms']:.3f}, fold {t['fold_ms']:.4f}, the force pass with halo, fold and term rows "
+        f"{t['pass_ms']:.4f}, K2c-G on the same ghost grids {t['k2g_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
+        f"({t['bound_by']}; {pairs:,} pairs inside the cutoff); {steps} NVE steps from the lattice start in "
+        f"{sec:.3f} s = {ms:.4f} ms/step, drift {drift:.3e} (gate {WATER_DRIFT_GATE}); launches {counts}; reruns "
+        "bitwise")
+    log(f"{tag} K5s-mol resources at C={cfg.capacity}: {resources_line(t['resources'])}; the card's peak "
+        f"allocation {t['energy_peak_gb']:.2f} GB while the energy variant ran ({base_gb:.2f} GB held before it; "
+        f"scratch {ghost_mol_scratch_bytes(8, (cfg.cells_per_dim // 2,) * 3, cfg.capacity, True) / 1e9:.2f} GB), "
+        f"{phase_gb:.2f} GB over the phase")
     row = {**t, "max_abs_err": err, "vs_one_card": vs_one, "energy_err": err_e, "force_scale": scale,
-           "pairs": pairs, "estimate_mb": est / 1e6, "ms_per_step": ms, "drift": drift}
+           "pairs": pairs, "estimate_mb": est / 1e6, "ms_per_step": ms, "drift": drift, "phase_peak_gb": phase_gb}
     return row, {"grid_water_1m_222": counts}, ms
 
 
@@ -2485,13 +2521,15 @@ def main() -> None:
     paths = {"dense": main_counts, "straggler": s_counts, **counts_spill, **counts_thermo, **counts_grid,
              **counts_1m, **counts_water, **counts_auto, **counts_water_1m, **counts_grid_water, **counts_ens,
              **counts_grid_1m, **counts_grid_water_1m}
-    # The K5s paths: the streaming kernel's GHOST mode, counted in streaming_kernel.LAUNCHES.
-    k5s_paths = {p: c["cell_forces_streaming"] for p, c in {**counts_ens, **counts_grid_1m,
-                                                             **counts_grid_water_1m}.items()
+    # The K5s paths (LJ) and the K5s-mol path: the streaming kernel's GHOST
+    # modes, counted in streaming_kernel.LAUNCHES.
+    k5s_paths = {p: c["cell_forces_streaming"] for p, c in {**counts_ens, **counts_grid_1m}.items()
                  if c["cell_forces_streaming"]}
-    # The molecular paths' K5c and K2c-G launches, and the K5s paths', count in their own rows.
+    k5s_mol_paths = {p: c["cell_forces_streaming"] for p, c in counts_grid_water_1m.items()}
+    # The molecular paths' K5c, K2c-G and K5s-mol launches, and the K5s paths', count in their own rows.
     mol_paths = {"cell_forces": set(counts_grid_water),
-                 "cell_forces_streaming": set(counts_auto) | set(counts_water_1m) | set(k5s_paths)}
+                 "cell_forces_streaming": set(counts_auto) | set(counts_water_1m) | set(k5s_paths)
+                 | set(k5s_mol_paths)}
     by_path = lambda name: {p: c[name] for p, c in paths.items()  # noqa: E731
                             if c[name] and p not in mol_paths.get(name, ())}
     kernels = [
@@ -2522,13 +2560,21 @@ def main() -> None:
         dict(name="cell_forces_streaming_ghost", route="cuda", source="emdee_tpu_torch/csrc/cell_forces_streaming.cu",
              replaces="emdee_tpu/distributed/grid_sharded.py:658",
              kernel_replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1158",
-             launches=sum(k5s_paths.values()), launches_by_path=k5s_paths,
-             max_abs_err=max(k5s["max_abs_err"], k5s_mol["max_abs_err"]),
+             launches=sum(k5s_paths.values()), launches_by_path=k5s_paths, max_abs_err=k5s["max_abs_err"],
              ms=k5s["runs"]["grid_1m_111_m37"]["ms"], plain_ms=k5s["runs"]["grid_1m_111_m37"]["plain_ms"],
              bound_ms=k5s["runs"]["grid_1m_111_m37"]["bound_ms"], bound_by=k5s["runs"]["grid_1m_111_m37"]["bound_by"],
              library_ms=None, vs_one_card_max_abs_err=k5s["vs_one_card"], energy_max_abs_err=k5s["energy_err"],
-             decomposition_max_abs_err=k5s["decomp_err"],
-             runs={**k5s["runs"], "grid_water_1m_222": k5s_mol}),
+             decomposition_max_abs_err=k5s["decomp_err"], runs=k5s["runs"]),
+        dict(name="cell_forces_streaming_ghost_mol", route="cuda",
+             source="emdee_tpu_torch/csrc/cell_forces_streaming.cu",
+             replaces="emdee_tpu/distributed/grid_sharded.py:658",
+             kernel_replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1158",
+             launches=sum(k5s_mol_paths.values()), launches_by_path=k5s_mol_paths,
+             max_abs_err=k5s_mol["max_abs_err"], ms=k5s_mol["ms"], plain_ms=k5s_mol["plain_ms"],
+             bound_ms=k5s_mol["bound_ms"], bound_by=k5s_mol["bound_by"], library_ms=None,
+             vs_one_card_max_abs_err=k5s_mol["vs_one_card"], energy_max_abs_err=k5s_mol["energy_err"],
+             **{key: value for key, value in k5s_mol.items()
+                if key not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "vs_one_card", "energy_err")}),
         dict(name="rebin_routing", route="cuda", source="emdee_tpu_torch/csrc/rebin_routing.cu",
              replaces="emdee_tpu/neighbors/pallas_rebin.py:60",
              launches=sum(by_path("rebin_routing").values()),

@@ -49,6 +49,8 @@ _SIGNATURES = {
     # excl, bond, energy, stream
     "emdee_cell_forces_mol": [_P] * 12 + [_I, _I] + [_P] * 6 + [_P, _P, _P, _I, _I, _P] + [_F] * 8
                              + [_I, _I, _I, _I, _P],
+    # c, ne, neb, coulomb, excl, bond, energy, out (int[4])
+    "emdee_cell_forces_mol_attrs": [_I] * 7 + [_P],
     # px, py, pz, valid, fx, fy, fz, ax, ay, az, table, kn, m, c, box (device),
     # rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u, stream
     "emdee_cell_forces_strag": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -77,15 +79,22 @@ _SIGNATURES = {
     "emdee_streaming_fold_mol": [_P, _P, _P, _P, _I, _L, _I, _P],
     # fx, fy, fz, fstride, e, w, groups, num_slots, energy, stream
     "emdee_streaming_fold": [_P, _P, _P, _I, _P, _P, _P, _L, _I, _P],
-    # px, py, pz, hs, tse, q, aid, ids, mlj, mcs, ne, alpha, rc, rc2_c,
-    # e_shift, f_shift, kc (0-d device tensors), out, groups, mz, my, mx,
-    # shards, sy_n, sx_n, bz, by, bx, m, c, box (device), rc2, rs2, invd2,
-    # a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u, uniform, coulomb, excl,
-    # energy, stream
-    "emdee_streaming_ghost": [_P] * 10 + [_I] + [_P] * 6 + [_P, _P] + [_I] * 11 + [_P] + [_F] * 10
-                             + [_I] * 4 + [_P],
+    # px, py, pz, hs, tse, out, groups, mz, my, mx, shards, sy_n, sx_n, bz,
+    # by, bx, m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2,
+    # sig2_u, eps4_u, uniform, energy, stream
+    "emdee_streaming_ghost": [_P] * 7 + [_I] * 11 + [_P] + [_F] * 10 + [_I, _I, _P],
     # out, groups, react, mz, my, mx, shards, c, energy, stream
     "emdee_streaming_ghost_assemble": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # px, py, pz, hs, tse, q, aid, ids, mlj, mcs, ne, alpha, rc, rc2_c,
+    # e_shift, f_shift, kc (0-d device tensors), slices, mz, my, mx, shards,
+    # sy_n, sx_n, bz, by, bx, m, c, box (device), rc2, rs2, invd2, a_m, pa1,
+    # pa2, pb1, pb2, coulomb, excl, energy, stream
+    "emdee_streaming_ghost_mol": [_P] * 10 + [_I] + [_P] * 6 + [_P] + [_I] * 11 + [_P] + [_F] * 8
+                                 + [_I] * 3 + [_P],
+    # c, ne, coulomb, excl, energy, out (int[4])
+    "emdee_streaming_ghost_mol_attrs": [_I] * 5 + [_P],
+    # out, slices, react, mz, my, mx, shards, c, energy, stream
+    "emdee_streaming_ghost_assemble_mol": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # in, out, flag, nf, m, c, axis, cf, num_slots, box (device), stream
     "emdee_rebin_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # s, keep, win, out, rows, nf, c, win_f, win_r, out_f, out_r, last_fill,

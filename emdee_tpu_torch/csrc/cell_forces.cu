@@ -66,31 +66,56 @@
 // charge and int32 atom id (−2 on empty slots), staged like the resident
 // mode's; the centre tags are per own slot; no bond tags (the grid keeps
 // its bonds as term rows, as the reference does).  The pair math and the
-// order of every sum are the per-atom path's, so the forces of any
-// decomposition equal the one-card K2c-q's bit for bit.
+// order of every sum are K2c's (the same `pair_force` and `accumulate`, the same order of
+// each centre's pairs), so the forces of any decomposition equal the
+// one-card K2c-q's bit for bit.
 //
-// COULOMB, EXCL, BOND (the molecular branches of `_build_pair_pass`: K2c-q,
-// `coulomb` :420-424, :525-551 and `excl_e`/`excl_cs` :459-488; K2c-b,
-// `excl_eb` :468-487, :502-523; centre tags as `_unpack_centers` :347 lays
-// them out), on the per-atom path (not STRAG), entered through
-// `emdee_cell_forces_mol` (and, without BOND, in GHOST mode above).  Each staged neighbour cell also brings its
-// charges and int32 atom ids to shared memory; each centre keeps its E ≤ 8
-// exclusion tags (partner atom id, 1 − s_LJ, 1 − s_C) and its first E_b
-// bond weights (k, k·r0, k·r0²) in registers and matches them on integer
-// ids.  A matched pair scales the LJ t6 by 1 − Σ mlj and qq by 1 − Σ mcs;
-// a matched bond tag adds −r·dE/dr = k·r0·r − k·r² and E = ½(k·r² + k·r0²)
-// − k·r0·r, masked to r² < rc² (periodic images of a partner drop out).
-// DSF Coulomb is the exact form with IEEE erfcf and expf, as the plain
+// COULOMB, EXCL, BOND (K2c: the molecular branches of `_build_pair_pass`,
+// K2c-q `coulomb` :420-424, :525-551 and `excl_e`/`excl_cs` :459-488;
+// K2c-b `excl_eb` :468-487, :502-523; centre tags as `_unpack_centers`
+// :347 lays them out), on the per-atom path, entered through
+// `emdee_cell_forces_mol`: a kernel of its own, `cell_mol_kernel`.  A
+// matched tag scales the LJ t6 by 1 − Σ mlj and qq by 1 − Σ mcs; a matched
+// bond tag adds −r·dE/dr = k·r0·r − k·r² and E = ½(k·r² + k·r0²) − k·r0·r,
+// masked to r² < rc² (periodic images of a partner drop out).  DSF Coulomb
+// is the exact form with IEEE erfcf and expf, as the plain
 // `coulomb_interaction` (the reference's XLA path, not its degree-10 fit),
 // zero at r² ≥ rc_C²; its constants are read from 0-d device tensors
-// (`emdee::mol_terms`, lj_pair.cuh, shared with the streaming kernel).
-// Pairs are skipped beyond the larger of the two squared cutoffs; LJ and
-// the bonds take only pairs inside rc².  Plain version: cell_dense.py
-// `cell_dense_forces(coulomb=, excl=)`.  At the 98,304-atom water box
-// (M = 12, C = 64) a launch walks 1,728 × 64 × 27 × 64 ≈ 191 M candidates,
-// and every pair inside the cutoff pays an erfc, an exp, a square root and
-// 3E tag operations; chip_smoke.py counts the pairs and gives the bound.
+// (`emdee::mol_terms`, lj_pair.cuh).  Pairs are skipped beyond the larger of
+// the two squared cutoffs; LJ and the bonds take only pairs inside rc².
+// Plain version: cell_dense.py `cell_dense_forces(coulomb=, excl=)`.
 //
+// K2c's design.  Only ~9% of the full shell's live candidates lie inside
+// the cutoff at the water box (M = 12, C = 80: ~143 of ~1,536 a centre), so
+// a warp that steps through the erfc/exp body whenever one of its 32
+// centres has a pair inside runs it at ~7% lane efficiency.  So a warp
+// takes 32 live centres of one cell (ranks 32·part … by ballot; warp
+// part · M³ + cell, 4 a block, no block barrier) and walks the 27
+// neighbour cells in the fixed (dz, dy, dx) order.  For each it stages in
+// its shared memory, in slot order, only the neighbour's live slots within
+// the cutoff of its centres' bounding box (`emdee::near_box`, K5c's
+// conservative cull, the box shifted back by the cell's periodic shift), at
+// most 256 at a time; pass A has every lane list, in that order, the staged
+// entries at r² < cut2 (a byte an entry); pass B runs the pair term over
+// each lane's own list, recomputing the displacement with the same float
+// operations.  Each centre's pairs are evaluated by the same `pair_force`
+// and added by the same `accumulate` (one FMA a component) in the order the
+// full-shell kernel adds them, and only pairs at r² ≥ cut2, which it skips
+// too, are left out: K2c's sums equal the GHOST mode's (K2c-G) bit for bit.
+// The centre tags and bond weights are staged per lane in shared memory.
+// Shared memory a block: 4 × (16·C' + 96·(E + E_b) + 32) floats, C' = C
+// rounded up to a warp and at most 256 (31,232 B at C = 80, E = E_b = 2);
+// C ≤ 1024 as before.  The warps are part-major, so that a block's warps
+// are all of one part and the blocks of a part that no cell fills (at C =
+// 80, part 2) leave at once instead of holding a quarter of an SM's warp
+// slots: that took the launch from ~0.82 ms to ~0.72 at the water box
+// (NVIDIA H100, 700 W; `tools/ab_mol.py` against the cell-major order).
+// In trials on this card the pair term takes about half of the launch, the
+// staging and the candidate loop the rest; a form that evaluated the
+// listed pairs 32 at a time across lanes and added them in order from a
+// buffer ran the body on fewer warp steps but was no faster, nor were more
+// blocks an SM or an unrolled pass B.
+
 // Bound on this card: at the 97,556-atom melt (M = 17, C = 32) a launch
 // evaluates 4,913 × 32 × 864 ≈ 136 M candidate pairs, of which about 6% lie
 // inside the cutoff — arithmetic on registers and broadcast shared-memory
@@ -122,8 +147,59 @@ struct Ghost {
   int mz, my, mx, sy_n, sx_n, bz, by, bx;
 };
 
-template <bool UNIFORM, bool ENERGY, bool STRAG, bool GHOST, bool COULOMB = false, bool EXCL = false,
-          bool BOND = false>
+constexpr int kMaxMolCapacity = 1024;  // K2c: as the full-shell kernel
+
+// The pair term of one pair at r² < cut2: the switched LJ (per-atom or
+// uniform parameters, t6 scaled by the tags' ljsc with EXCL) and the
+// molecular terms (qq = kC·qᵢ·qⱼ·csc and the matched bond weights).
+// Returns gf = tot/r² and sets tot = −r·dE/dr and, with ENERGY, esum = E.
+// Every force kernel of this file evaluates a centre's pairs through this
+// code and adds them through `accumulate`, so that K2c and the GHOST mode
+// round every pair alike.
+template <bool UNIFORM, bool ENERGY, bool COULOMB, bool EXCL, bool BOND>
+__device__ __forceinline__ float pair_force(float r2, float hsi, float hsj, float tsei, float tsej, float qq,
+                                            float ljsc, float kbm, float kr0m, float kr02m, const PairConsts& k,
+                                            const Dsf& dsf, float& tot, float& esum) {
+  const float rinv = 1.0f / r2;
+  tot = 0.f;
+  esum = 0.f;
+  const bool in_lj = !COULOMB || r2 < k.rc2;  // cut2 is rc² without COULOMB
+  if (in_lj) {
+    float t6, s6;
+    if (UNIFORM) {
+      const float s2 = k.sig2_u * rinv;
+      s6 = s2 * s2 * s2;
+      t6 = k.eps4_u * s6;
+    } else {
+      const float sig = hsi + hsj;
+      const float s2 = sig * sig * rinv;
+      s6 = s2 * s2 * s2;
+      t6 = (tsei * tsej) * s6;
+    }
+    if (EXCL) t6 *= ljsc;
+    float t12, x;
+    tot = emdee::switched_tot(r2, t6, s6, k, t12, x);
+    if (ENERGY) esum = (t12 - t6) * (1.f + (x * x * x) * ((-6.f * x + 15.f) * x - 10.f));
+  }
+  emdee::mol_terms<COULOMB, BOND, ENERGY>(r2, in_lj, qq, dsf, kbm, kr0m, kr02m, tot, esum);
+  return tot * rinv;
+}
+
+// A pair's force gf·d, and with ENERGY its half-split energy and virial,
+// added to its centre's sums.
+template <bool ENERGY>
+__device__ __forceinline__ void accumulate(float gf, float dvx, float dvy, float dvz, float tot, float esum,
+                                           float& fxa, float& fya, float& fza, float& ea, float& wa) {
+  fxa += gf * dvx;
+  fya += gf * dvy;
+  fza += gf * dvz;
+  if (ENERGY) {
+    ea += 0.5f * esum;
+    wa += 0.5f * tot;
+  }
+}
+
+template <bool UNIFORM, bool ENERGY, bool STRAG, bool GHOST, bool COULOMB = false, bool EXCL = false>
 __global__ void cell_forces_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, int pstride,
@@ -195,12 +271,13 @@ __global__ void cell_forces_kernel(
   }
   float fxa = 0.f, fya = 0.f, fza = 0.f, ea = 0.f, wa = 0.f;
 
-  // Molecular centre operands: charge, tags and bond weights in registers
-  // (GHOST: the charge from the ghost grid's interior, the tags per own slot).
+  // Molecular centre operands (GHOST only since K2c has a kernel of its
+  // own): the charge from the ghost grid's interior, the tags per own slot,
+  // in registers.
   float qi = 0.f;
   Dsf dsf{};
   int tid[kMaxTags];
-  float tmlj[kMaxTags], tmcs[kMaxTags], tkb[kMaxTags], tkr0[kMaxTags], tkr02[kMaxTags];
+  float tmlj[kMaxTags], tmcs[kMaxTags];
   float cut2 = k.rc2;
   if (COULOMB) {
     dsf = emdee::load_dsf(mol);
@@ -210,18 +287,12 @@ __global__ void cell_forces_kernel(
 #pragma unroll
   for (int t = 0; t < kMaxTags; ++t) {
     tid[t] = -1;
-    tmlj[t] = tmcs[t] = tkb[t] = tkr0[t] = tkr02[t] = 0.f;
+    tmlj[t] = tmcs[t] = 0.f;
     if (EXCL && center && t < mol.ne) {
       const long at = own * mol.ne + t;
       tid[t] = __float2int_rn(mol.ids[at]);
       tmlj[t] = mol.mlj[at];
       if (COULOMB) tmcs[t] = mol.mcs[at];
-    }
-    if (BOND && center && t < mol.neb) {
-      const long at = own * mol.neb + t;
-      tkb[t] = mol.kb[at];
-      tkr0[t] = mol.kr0[at];
-      if (ENERGY) tkr02[t] = mol.kr02[at];
     }
   }
 
@@ -265,9 +336,8 @@ __global__ void cell_forces_kernel(
           const float dvz = (zi - sz[j]) - shz;
           const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
           if (!(r2 < cut2)) continue;
-          const float rinv = 1.0f / r2;
           // Tag matches: the LJ and Coulomb scales and the bond weights.
-          float ljsc = 1.f, csc = 1.f, kbm = 0.f, kr0m = 0.f, kr02m = 0.f;
+          float ljsc = 1.f, csc = 1.f;
           if (EXCL) {
             const int aj = said[j];
 #pragma unroll
@@ -275,42 +345,13 @@ __global__ void cell_forces_kernel(
               if (tid[t] != aj) continue;  // pad tags hold −1, never an atom id
               ljsc -= tmlj[t];
               if (COULOMB) csc -= tmcs[t];
-              if (BOND) {
-                kbm += tkb[t];
-                kr0m += tkr0[t];
-                if (ENERGY) kr02m += tkr02[t];
-              }
             }
           }
-          float tot = 0.f, esum = 0.f;
-          const bool in_lj = !COULOMB || r2 < k.rc2;  // cut2 is rc² without COULOMB
-          if (in_lj) {
-            float t6, s6;
-            if (UNIFORM) {
-              const float s2 = k.sig2_u * rinv;
-              s6 = s2 * s2 * s2;
-              t6 = k.eps4_u * s6;
-            } else {
-              const float sig = hsi + shs[j];
-              const float s2 = sig * sig * rinv;
-              s6 = s2 * s2 * s2;
-              t6 = (tsei * stse[j]) * s6;
-            }
-            if (EXCL) t6 *= ljsc;
-            float t12, x;
-            tot = emdee::switched_tot(r2, t6, s6, k, t12, x);
-            if (ENERGY) esum = (t12 - t6) * (1.f + (x * x * x) * ((-6.f * x + 15.f) * x - 10.f));
-          }
-          emdee::mol_terms<COULOMB, BOND, ENERGY>(r2, in_lj, COULOMB ? dsf.kc * qi * sq[j] * csc : 0.f, dsf, kbm,
-                                                  kr0m, kr02m, tot, esum);
-          const float gf = tot * rinv;
-          fxa += gf * dvx;
-          fya += gf * dvy;
-          fza += gf * dvz;
-          if (ENERGY) {
-            ea += 0.5f * esum;
-            wa += 0.5f * tot;
-          }
+          float tot, esum;
+          const float gf = pair_force<UNIFORM, ENERGY, COULOMB, EXCL, false>(
+              r2, hsi, shs[j], tsei, stse[j], COULOMB ? dsf.kc * qi * sq[j] * csc : 0.f, ljsc, 0.f, 0.f, 0.f, k, dsf,
+              tot, esum);
+          accumulate<ENERGY>(gf, dvx, dvy, dvz, tot, esum, fxa, fya, fza, ea, wa);
         }
       }
     }
@@ -367,16 +408,265 @@ void launch(const float* px, const float* py, const float* pz, int pstride,
       az, table, kn, m, c, box, k, g, mol);
 }
 
-// The molecular variants: per-atom parameters, stacked positions and forces.
+// K2c: kMolWarps warps a block, each owning up to 32 live centres of one
+// cell; no block barrier.
+constexpr int kMolWarps = 4;
+constexpr int kMolThreads = 32 * kMolWarps;
+constexpr unsigned kFull = 0xffffffffu;
+
+constexpr int kStage = 256;  // K2c: the most neighbour slots a warp stages at once (a list entry is a byte)
+
+// Floats of one K2c warp's shared memory at tile width nt (C rounded up to
+// a warp, at most kStage): the staged neighbour tile (x, y, z, σ/2, 2√ε, q,
+// atom id, slot), each lane's list of inside entries (nt bytes a lane),
+// the centres' tags (three values a tag and a bond tag, 32 lanes) and the
+// rank-to-slot map.
+__host__ __device__ constexpr int mol_warp_floats(int nt, int ne, int neb) {
+  return 8 * nt + nt * 32 / 4 + 3 * (ne + neb) * 32 + 32;
+}
+
+// K2c's pair pass: warp part · M³ + cell takes the live centres of rank
+// 32·part … 32·part + 31 of its cell (lane l the centre of rank 32·part + l)
+// and walks the 27 neighbour cells in cell_forces_kernel's (dz, dy, dx) order.
+// For each it stages, in slot order, the neighbour's live slots within the
+// cutoff of the warp's centre box (the conservative `near_box`, the box
+// shifted back by the cell's periodic shift), at most kStage at a time;
+// pass A lists, per lane and in that order, the staged entries at r² <
+// cut2 (the self pair left out); pass B runs the pair term over each
+// lane's list.  A centre's pairs are evaluated by `pair_force` and added by
+// `accumulate` in cell_forces_kernel's order, and only pairs at r² ≥ cut2,
+// which it skips too, are left out: the sums are its sums, bit for bit.
+// Part 0 also writes the zeros of the empty slots.
 template <bool ENERGY, bool COULOMB, bool EXCL, bool BOND>
-void launch_mol(const float* px, const float* hs, const float* tse, const uint8_t* valid, float* f,
-                float* e, float* w, int m, int c, const float* box, const PairConsts& k, const Mol& mol,
-                cudaStream_t stream) {
-  const int threads = ((c + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * 7 * c + c;
-  cell_forces_kernel<false, ENERGY, false, false, COULOMB, EXCL, BOND><<<m * m * m, threads, smem, stream>>>(
-      px, px + 1, px + 2, 3, hs, tse, valid, f, f + 1, f + 2, 3, e, w, nullptr, nullptr, nullptr, nullptr, 0,
-      m, c, box, k, Ghost{}, mol);
+__global__ void __launch_bounds__(kMolThreads, 4)
+    cell_mol_kernel(const float* __restrict__ pos, const float* __restrict__ hs, const float* __restrict__ tse,
+                    const uint8_t* __restrict__ valid, float* __restrict__ f, float* __restrict__ e_out,
+                    float* __restrict__ w_out, int m, int c, const float* __restrict__ box_ptr, PairConsts k,
+                    Mol mol) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  const int parts = (c + 31) / 32, nt = min(32 * parts, kStage);
+  const long item = static_cast<long>(blockIdx.x) * kMolWarps + warp;
+  if (item >= static_cast<long>(m) * m * m * parts) return;  // no block barrier follows
+  const long cells = static_cast<long>(m) * m * m;
+  const int part = static_cast<int>(item / cells);  // part-major: a block's warps are all of one part
+  const long cell = item - part * cells;
+  float* tile = smem + warp * mol_warp_floats(nt, mol.ne, mol.neb);  // (7, nt) fields
+  int* tslot = reinterpret_cast<int*>(tile + 7 * nt);
+  uint8_t* list = reinterpret_cast<uint8_t*>(tslot + nt);  // entry k of lane l at k·32 + l
+  float* tags = reinterpret_cast<float*>(list + 32 * nt);   // value v of tag u at (3u + v)·32 + lane
+  int* cslot = reinterpret_cast<int*>(tags + 3 * (mol.ne + mol.neb) * 32);
+
+  // This warp's centres: the live slots of rank 32·part + lane.
+  int n_live = 0;
+  for (int a = 0; a < parts; ++a) {
+    const int j = 32 * a + lane;
+    const bool live = j < c && valid[cell * c + j];
+    const unsigned mask = __ballot_sync(kFull, live);
+    const int r = n_live + __popc(mask & below) - 32 * part;
+    if (live && r >= 0 && r < 32) cslot[r] = j;
+    if (part == 0 && j < c && !live) {
+      const long s = cell * c + j;
+      f[3 * s] = f[3 * s + 1] = f[3 * s + 2] = 0.f;
+      if (ENERGY) e_out[s] = w_out[s] = 0.f;
+    }
+    n_live += __popc(mask);
+  }
+  const int n_mine = min(n_live - 32 * part, 32);
+  if (n_mine <= 0) return;
+  __syncwarp();
+  const bool centre = lane < n_mine;
+  const int si = centre ? cslot[lane] : -1;
+  const long own = cell * c + si;
+  const float box = *box_ptr;
+  float xi = 0.f, yi = 0.f, zi = 0.f, hsi = 0.f, tsei = 0.f, qi = 0.f;
+  Dsf dsf{};
+  float cut2 = k.rc2;
+  if (COULOMB) {
+    dsf = emdee::load_dsf(mol);
+    cut2 = fmaxf(cut2, dsf.rc2);
+  }
+  if (centre) {
+    xi = pos[3 * own];
+    yi = pos[3 * own + 1];
+    zi = pos[3 * own + 2];
+    hsi = hs[own];
+    tsei = tse[own];
+    if (COULOMB) qi = mol.q[own];
+    for (int u = 0; u < mol.ne; ++u) {
+      const long at = own * mol.ne + u;
+      tags[(3 * u) * 32 + lane] = __int_as_float(__float2int_rn(mol.ids[at]));
+      tags[(3 * u + 1) * 32 + lane] = mol.mlj[at];
+      if (COULOMB) tags[(3 * u + 2) * 32 + lane] = mol.mcs[at];
+    }
+    if (BOND) {
+      for (int u = 0; u < mol.neb; ++u) {
+        const long at = own * mol.neb + u;
+        float* b = tags + 3 * (mol.ne + u) * 32 + lane;
+        b[0] = mol.kb[at];
+        b[32] = mol.kr0[at];
+        if (ENERGY) b[64] = mol.kr02[at];
+      }
+    }
+  }
+  // The centres' bounding box, on every lane.
+  float lo[3], hi[3];
+  {
+    const float p[3] = {xi, yi, zi};
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      lo[v] = centre ? p[v] : __int_as_float(0x7f800000);
+      hi[v] = centre ? p[v] : -__int_as_float(0x7f800000);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        lo[v] = fminf(lo[v], __shfl_xor_sync(kFull, lo[v], off));
+        hi[v] = fmaxf(hi[v], __shfl_xor_sync(kFull, hi[v], off));
+      }
+    }
+  }
+
+  const int cx = static_cast<int>(cell % m), cy = static_cast<int>((cell / m) % m), cz = static_cast<int>(cell / (m * m));
+  float fxa = 0.f, fya = 0.f, fza = 0.f, ea = 0.f, wa = 0.f;
+  for (int dz = -1; dz <= 1; ++dz) {
+    int nz = cz + dz;
+    float shz = 0.f;
+    if (nz < 0) { nz += m; shz = -box; } else if (nz >= m) { nz -= m; shz = box; }
+    for (int dy = -1; dy <= 1; ++dy) {
+      int ny = cy + dy;
+      float shy = 0.f;
+      if (ny < 0) { ny += m; shy = -box; } else if (ny >= m) { ny -= m; shy = box; }
+      for (int dx = -1; dx <= 1; ++dx) {
+        int nx = cx + dx;
+        float shx = 0.f;
+        if (nx < 0) { nx += m; shx = -box; } else if (nx >= m) { nx -= m; shx = box; }
+        const long nb = static_cast<long>(nx + m * (ny + m * nz)) * c;
+        const bool self_cell = dz == 0 && dy == 0 && dx == 0;
+        const float back[3] = {-shx, -shy, -shz};
+        for (int a0 = 0; a0 < parts; a0 += kStage / 32) {
+          // Stage the neighbour's live slots near the centre box, in slot
+          // order; each chunk's loads go out together.
+          __syncwarp();  // the previous stage's reads of the tile are done
+          int n = 0;
+          for (int a = a0; a < min(parts, a0 + kStage / 32); ++a) {
+            const int j = 32 * a + lane;
+            const long s = nb + min(j, c - 1);
+            const bool live = j < c && valid[s];
+            const float p[3] = {pos[3 * s], pos[3 * s + 1], pos[3 * s + 2]};
+            const float h = hs[s], t = tse[s], q = COULOMB ? mol.q[s] : 0.f;
+            const int id = EXCL ? mol.aid[s] : 0;
+            const bool keep = live && emdee::near_box(p, lo, hi, back, cut2);
+            const unsigned mask = __ballot_sync(kFull, keep);
+            if (keep) {
+              const int e = n + __popc(mask & below);
+              tile[e] = p[0];
+              tile[nt + e] = p[1];
+              tile[2 * nt + e] = p[2];
+              tile[3 * nt + e] = h;
+              tile[4 * nt + e] = t;
+              if (COULOMB) tile[5 * nt + e] = q;
+              if (EXCL) tile[6 * nt + e] = __int_as_float(id);
+              tslot[e] = j;
+            }
+            n += __popc(mask);
+          }
+          __syncwarp();
+          if (n == 0) continue;
+          // Pass A: this lane's entries inside the cutoff, in slot order.
+          int len = 0;
+          if (centre) {
+#pragma unroll 4
+            for (int e = 0; e < n; ++e) {
+              const float dvx = (xi - tile[e]) - shx;
+              const float dvy = (yi - tile[nt + e]) - shy;
+              const float dvz = (zi - tile[2 * nt + e]) - shz;
+              const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
+              if (r2 < cut2 && !(self_cell && tslot[e] == si)) list[32 * len++ + lane] = static_cast<uint8_t>(e);
+            }
+          }
+          // Pass B: the pair term over the list.
+          const int steps = __reduce_max_sync(kFull, len);
+          for (int t = 0; t < steps; ++t) {
+            if (t >= len) continue;
+            const int e = list[32 * t + lane];
+            const float dvx = (xi - tile[e]) - shx;
+            const float dvy = (yi - tile[nt + e]) - shy;
+            const float dvz = (zi - tile[2 * nt + e]) - shz;
+            const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
+            // Tag matches: the LJ and Coulomb scales and the bond weights.
+            float ljsc = 1.f, csc = 1.f, kbm = 0.f, kr0m = 0.f, kr02m = 0.f;
+            if (EXCL) {
+              const int aj = __float_as_int(tile[6 * nt + e]);
+              for (int u = 0; u < mol.ne; ++u) {
+                if (__float_as_int(tags[(3 * u) * 32 + lane]) != aj) continue;
+                ljsc -= tags[(3 * u + 1) * 32 + lane];
+                if (COULOMB) csc -= tags[(3 * u + 2) * 32 + lane];
+                if (BOND && u < mol.neb) {
+                  const float* b = tags + 3 * (mol.ne + u) * 32 + lane;
+                  kbm += b[0];
+                  kr0m += b[32];
+                  if (ENERGY) kr02m += b[64];
+                }
+              }
+            }
+            float tot, esum;
+            const float gf = pair_force<false, ENERGY, COULOMB, EXCL, BOND>(
+                r2, hsi, tile[3 * nt + e], tsei, tile[4 * nt + e],
+                COULOMB ? dsf.kc * qi * tile[5 * nt + e] * csc : 0.f, ljsc, kbm, kr0m, kr02m, k, dsf, tot, esum);
+            accumulate<ENERGY>(gf, dvx, dvy, dvz, tot, esum, fxa, fya, fza, ea, wa);
+          }
+        }
+      }
+    }
+  }
+  if (centre) {
+    f[3 * own] = fxa;
+    f[3 * own + 1] = fya;
+    f[3 * own + 2] = fza;
+    if (ENERGY) {
+      e_out[own] = ea;
+      w_out[own] = wa;
+    }
+  }
+}
+
+// K2c's variant for these flags, and its dynamic shared memory a block.
+using MolKernel = void (*)(const float*, const float*, const float*, const uint8_t*, float*, float*, float*, int, int,
+                           const float*, PairConsts, Mol);
+
+template <bool ENERGY>
+MolKernel mol_variant_e(int coulomb, int excl, int bond) {
+  if (coulomb && bond) return cell_mol_kernel<ENERGY, true, true, true>;
+  if (coulomb && excl) return cell_mol_kernel<ENERGY, true, true, false>;
+  if (coulomb) return cell_mol_kernel<ENERGY, true, false, false>;
+  if (bond) return cell_mol_kernel<ENERGY, false, true, true>;
+  return cell_mol_kernel<ENERGY, false, true, false>;
+}
+
+size_t mol_smem_bytes(int c, int ne, int neb) {
+  return sizeof(float) * kMolWarps * static_cast<size_t>(mol_warp_floats(32 * ((c + 31) / 32), ne, neb));
+}
+
+// The K2c variant for these flags, refused as the launch entry refuses it
+// (but for M), its dynamic shared memory (`*smem`) allowed.
+int mol_kernel(int c, int ne, int neb, int coulomb, int excl, int bond, int energy, MolKernel* kernel,
+               size_t* smem) {
+  if (!excl) ne = 0;
+  if (!bond) neb = 0;
+  *smem = mol_smem_bytes(c, ne, neb);
+  if (c < 1 || c > kMaxMolCapacity || *smem > 232448 || (!coulomb && !excl) || (bond && !excl) ||
+      (excl && (ne < 1 || ne > kMaxTags)) || (bond && (neb < 1 || neb > ne)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  *kernel = energy ? mol_variant_e<true>(coulomb, excl, bond) : mol_variant_e<false>(coulomb, excl, bond);
+  static size_t smem_allowed[2][5] = {};  // raised once per variant, not per launch
+  size_t& allowed = smem_allowed[energy ? 1 : 0][coulomb && bond ? 0 : coulomb && excl ? 1 : coulomb ? 2 : bond ? 3 : 4];
+  if (*smem > 48 * 1024 && *smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(*kernel),
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = *smem;
+  }
+  return 0;
 }
 
 // The GHOST mode's molecular variants (K2c-G): per-atom parameters; the
@@ -389,25 +679,9 @@ void launch_ghost_mol(const float* px, const float* py, const float* pz, const f
                       const PairConsts& k, const Ghost& g, int blocks, const Mol& mol, cudaStream_t stream) {
   const int threads = ((c + 31) / 32) * 32;
   const size_t smem = sizeof(float) * 7 * c + c;
-  cell_forces_kernel<false, ENERGY, false, true, COULOMB, EXCL, false><<<blocks, threads, smem, stream>>>(
+  cell_forces_kernel<false, ENERGY, false, true, COULOMB, EXCL><<<blocks, threads, smem, stream>>>(
       px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, nullptr, nullptr, nullptr, nullptr, 0, m, c, box, k,
       g, mol);
-}
-
-template <bool ENERGY>
-void dispatch_mol(int coulomb, int excl, int bond, const float* px, const float* hs, const float* tse,
-                  const uint8_t* valid, float* f, float* e, float* w, int m, int c, const float* box,
-                  const PairConsts& k, const Mol& mol, cudaStream_t s) {
-  if (coulomb && bond)
-    launch_mol<ENERGY, true, true, true>(px, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
-  else if (coulomb && excl)
-    launch_mol<ENERGY, true, true, false>(px, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
-  else if (coulomb)
-    launch_mol<ENERGY, true, false, false>(px, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
-  else if (bond)
-    launch_mol<ENERGY, false, true, true>(px, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
-  else
-    launch_mol<ENERGY, false, true, false>(px, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
 }
 
 }  // namespace
@@ -438,7 +712,7 @@ extern "C" int emdee_cell_forces(
 // charges and the DSF constants' device pointers with `coulomb`; aid (M³,
 // C) int32 atom ids and the tags (M³, C, ne) with `excl` (mcs only with
 // `coulomb`); the bond weights (M³, C, neb) with `bond` (kr02 only with
-// `energy`).
+// `energy`).  C ≤ 256 (a list entry is one byte).
 extern "C" int emdee_cell_forces_mol(
     const float* pos, const float* hs, const float* tse, const uint8_t* valid, const float* q,
     const int* aid, const float* ids, const float* mlj, const float* mcs, const float* kb,
@@ -446,18 +720,41 @@ extern "C" int emdee_cell_forces_mol(
     const float* rc2_c, const float* e_shift, const float* f_shift, const float* kc, float* f, float* e,
     float* w, int m, int c, const float* box, float rc2, float rs2, float invd2, float a_m, float pa1,
     float pa2, float pb1, float pb2, int coulomb, int excl, int bond, int energy, void* stream) {
-  if (m < 3 || c < 1 || c > 1024 || (!coulomb && !excl) || (bond && !excl) ||
-      (excl && (ne < 1 || ne > kMaxTags)) || (bond && (neb < 1 || neb > ne)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
-  const Mol mol{q, aid, ids, mlj, mcs, kb, kr0, kr02, excl ? ne : 0, bond ? neb : 0,
-                alpha, rc, rc2_c, e_shift, f_shift, kc};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (energy)
-    dispatch_mol<true>(coulomb, excl, bond, pos, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
-  else
-    dispatch_mol<false>(coulomb, excl, bond, pos, hs, tse, valid, f, e, w, m, c, box, k, mol, s);
-  return static_cast<int>(cudaGetLastError());
+  if (m < 3) return static_cast<int>(cudaErrorInvalidValue);
+  MolKernel kernel;
+  size_t smem;
+  const int err = mol_kernel(c, ne, neb, coulomb, excl, bond, energy, &kernel, &smem);
+  if (err) return err;
+  PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
+  Mol mol{q, aid, ids, mlj, mcs, kb, kr0, kr02, excl ? ne : 0, bond ? neb : 0, alpha, rc, rc2_c, e_shift, f_shift,
+          kc};
+  const long warps = static_cast<long>(m) * m * m * ((c + 31) / 32);
+  const unsigned blocks = static_cast<unsigned>((warps + kMolWarps - 1) / kMolWarps);
+  void* args[] = {&pos, &hs, &tse, &valid, &f, &e, &w, &m, &c, &box, &k, &mol};
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks), dim3(kMolThreads),
+                                           args, smem, static_cast<cudaStream_t>(stream)));
+}
+
+// The K2c variant these flags select, as the card reports it: out[0..3] =
+// registers a thread, local (spill) bytes a thread, shared bytes a block,
+// resident blocks an SM.  Launches nothing.
+extern "C" int emdee_cell_forces_mol_attrs(int c, int ne, int neb, int coulomb, int excl, int bond, int energy,
+                                           int* out) {
+  MolKernel kernel;
+  size_t smem;
+  const int err = mol_kernel(c, ne, neb, coulomb, excl, bond, energy, &kernel, &smem);
+  if (err) return err;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, reinterpret_cast<const void*>(kernel), kMolThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(smem + fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
 }
 
 // The STRAG variant: component arrays (stride 1), uniform parameters,

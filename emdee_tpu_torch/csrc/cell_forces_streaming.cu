@@ -131,7 +131,7 @@
 // engine, `streaming_halfshell_call` with `wrap_reaction=False` as
 // emdee_tpu/distributed/grid_sharded.py `_local_forces_streaming` :658-702
 // and `_local_energy_pallas` :704-744 call it), through
-// `emdee_streaming_ghost`: one block per interior pencil (z, y) of each
+// `emdee_streaming_ghost` (LJ): one block per interior pencil (z, y) of each
 // local shard, centres and neighbours read from the shards' stacked
 // (mz+2, my+2, mx+2, C) ghost grids, whose positions carry NaN in empty
 // slots; nothing wraps.  The 14 phases are the one-card kernel's; each
@@ -151,11 +151,31 @@
 // reference's second exchange).  No float atomics: reruns are bitwise
 // equal; but the fold adds a shard's boundary reactions in another order
 // than one card's kernel, so decompositions agree to roundoff, not bit for
-// bit.  With COULOMB/EXCL (K5s-mol) the ghost grids also carry charges and
-// int32 atom ids, the centre tags are per own slot; no bond tags (the grid
-// keeps its bonds as term rows).  Plain version:
-// emdee_tpu_torch/neighbors/streaming_kernel.py `streaming_ghost_forces_plain`.
+// bit.  Plain version: emdee_tpu_torch/neighbors/streaming_kernel.py
+// `streaming_ghost_forces_plain`.
 //
+// GHOST with COULOMB/EXCL (K5s-mol), through `emdee_streaming_ghost_mol`:
+// K5c's warp-owned kernel (`streaming_owned_kernel` with GHOST) on the
+// ghost grids, which also carry charges and int32 atom ids; the centre
+// tags are per own slot; no bond tags (the grid keeps its bonds as term
+// rows).  A warp owns one phase of one own cell, warp = phase · cells +
+// cell over the local shards' own cells, and culls each neighbour pair as
+// K5c does, with the shift from the neighbour's global cell index (a shard
+// face that is no periodic seam has none).  Its centre sums go to centre
+// slice `phase` (n_r, own slots) and offset k's reactions to reaction
+// slice k (n_r, ghost slots) at the neighbour's ghost-grid slots, every
+// slot of the neighbour cell: for a fixed offset the map from own cell to
+// ghost cell is one to one, so every written slot is written by one warp,
+// once.  A second launch (`owned_ghost_assemble_kernel`) adds, for each
+// slot of the ghost grids, the 14 centre slices (interior slots) and then
+// the reaction slices whose offset's image holds that slot, in a fixed
+// order, to the centre sums or the reaction ghost grid: the return
+// contract of the pencil's assembly, so `_fold3` and the engine are
+// unchanged.  Scratch at the 985,527-atom box on (2,2,2): 14 × 3 ×
+// 1,546,688 + 13 × 3 × 2,376,000 floats, 630 MB (1.05 GB with energies).
+// The pencil kernel ran these flags before, with 13 centre cells over 8
+// warps, a barrier after each phase and no cull.
+
 // Bound on this card: at the 1,000,188-atom melt (M = 37, C = 32) the ring
 // loop runs ~50,653 × 14 × 22 steps of 32 lanes, about 60% of the lanes
 // live, and ~27 M of the pairs lie inside the cutoff: ~1.4 GFLOP, ~0.02 ms
@@ -168,12 +188,13 @@
 // unique pairs inside the cutoff each pay an erfc, an exp, a square root
 // and 3E tag operations; chip_smoke.py counts them and gives the bound.
 
-// emdee-build-parts: 4
-// csrc/build.py compiles this file as four objects at once, to cut the
-// build's wall time: EMDEE_PART 0 holds the LJ entry and the fold, 1 the
-// molecular entries and their force variants, 2 the GHOST entries, 3 the
-// molecular energy variants (each part instantiates only its kernel
-// variants); without EMDEE_PART the file holds them all.
+// emdee-build-parts: 5
+// csrc/build.py compiles this file as five objects at once, to cut the
+// build's wall time: EMDEE_PART 0 holds the LJ entry and the fold, 1 K5c's
+// entries and force variants, 2 the GHOST entries and K5s-mol's force
+// variants, 3 K5c's energy variants, 4 K5s-mol's energy variants (each
+// part instantiates only its kernel variants); without EMDEE_PART the file
+// holds them all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -217,24 +238,36 @@ struct Fields {
   const uint8_t* valid;
 };
 
-// A K5c kernel: every variant takes these arguments.
-using OwnedKernel = void (*)(Fields, Mol, float*, int, int, const float*, PairConsts);
+// GHOST geometry, as cell_forces.cu's: local cells (mz, my, mx) per shard,
+// the local shards' grid (sy_n, sx_n after the leading z count), and the
+// global coordinates (bz, by, bx) of the first local shard.  One card's
+// grid is the geometry (m, m, m, 1, 1, 0, 0, 0) of one shard.
+struct Ghost {
+  int mz, my, mx, sy_n, sx_n, bz, by, bx;
+};
 
-// A K5c variant and the dynamic shared memory it is allowed so far.
+// A warp-owned kernel (K5c, K5s-mol): every variant takes these arguments.
+using OwnedKernel = void (*)(Fields, Mol, float*, Ghost, int, int, int, const float*, PairConsts);
+
+// A warp-owned variant and the dynamic shared memory it is allowed so far.
 struct OwnedVariant {
   OwnedKernel kernel;
   size_t* smem_allowed;
 };
 
-// K5c's variants without and with energies, each in its own build part.
+// K5c's and K5s-mol's variants without and with energies, each in its own
+// build part.
 OwnedVariant k5c_force_variant(int c, int coulomb, int excl, int bond);
 OwnedVariant k5c_energy_variant(int c, int coulomb, int excl, int bond);
+OwnedVariant k5s_mol_force_variant(int c, int coulomb, int excl);
+OwnedVariant k5s_mol_energy_variant(int c, int coulomb, int excl);
 
 }  // namespace emdee
 
 namespace {
 
 using emdee::Fields;
+using emdee::Ghost;
 
 // Entries of a warp's cell tile: 64 up to two centre slots a lane (the LJ
 // kernel's tile since K5), 96 with three.
@@ -332,10 +365,6 @@ __device__ __forceinline__ void stage_tags(const Mol& mol, long cell, int c, con
   }
 }
 
-// The cull's slack: each axis' gap to a box is lowered by this share of
-// the magnitudes in play, far above the rounding of a displacement.
-constexpr float kCullSlack = 1.0f / 524288.0f;  // 2⁻¹⁹
-
 // The bounding box of tile `t`'s first `n` entries, on every lane.
 template <int NA, int NT, int NF>
 __device__ __forceinline__ void tile_box(const Tile<NT, NF>& t, int n, float lo[3], float hi[3]) {
@@ -360,22 +389,6 @@ __device__ __forceinline__ void tile_box(const Tile<NT, NF>& t, int n, float lo[
   }
 }
 
-// Whether point p lies within the cutoff of the box [lo + o, hi + o],
-// conservatively: each axis' gap less the slack (mirrored by
-// streaming_kernel.cull_keep).
-__device__ __forceinline__ bool near_box(const float p[3], const float lo[3], const float hi[3], const float o[3],
-                                         float cut2) {
-  float g2 = 0.f;
-#pragma unroll
-  for (int v = 0; v < 3; ++v) {
-    const float gap = fmaxf(fmaxf((lo[v] + o[v]) - p[v], p[v] - (hi[v] + o[v])), 0.f);
-    const float slack = kCullSlack * (fabsf(p[v]) + fabsf(lo[v]) + fabsf(hi[v]) + 2.f * fabsf(o[v]));
-    const float g = fmaxf(gap - slack, 0.f);
-    g2 += g * g;
-  }
-  return g2 < cut2;
-}
-
 // Keep the entries of tile `t` (n live) within the cutoff of the box [lo +
 // o, hi + o], compacted in place in slot order; returns their count.
 template <int NA, int NT, int NF>
@@ -394,7 +407,7 @@ __device__ __forceinline__ int cull(Tile<NT, NF>& t, int n, const float lo[3], c
       for (int v = 0; v < NF; ++v) val[a][v] = t.f[v][e];
       slot[a] = t.slot[e];
       const float p[3] = {val[a][0], val[a][1], val[a][2]};
-      keep[a] = near_box(p, lo, hi, o, cut2);
+      keep[a] = emdee::near_box(p, lo, hi, o, cut2);
     }
   }
   __syncwarp();  // every entry is read before any moves
@@ -707,20 +720,31 @@ __host__ __device__ constexpr int owned_warp_floats(int nt, int ne, int neb, int
   return 2 * (7 + 1) * nt + tag_floats(nt, ne, neb) + 2 * nr * c;
 }
 
-// K5c's pair pass: warp phase · M³ + cell evaluates that phase of its
-// centre cell; its centre sums go to slices[phase] and, for phase 1 + k,
-// the reactions to slices[14 + k], each (n_r, M³·C), every slot of the
-// cells it writes.
-template <int NA, bool ENERGY, bool COULOMB, bool EXCL, bool BOND>
+// The periodic shift of a neighbour at global cell coordinate v.
+__device__ __forceinline__ float ghost_shift(int v, int m, const float* __restrict__ box) {
+  return v < 0 ? -*box : (v >= m ? *box : 0.f);
+}
+
+// The warp-owned pair pass (K5c; with GHOST, K5s-mol): warp phase · cells
+// + cell evaluates that phase of its centre cell, cells = shards·mz·my·mx
+// own cells; its centre sums go to centre slice `phase`, (n_r, cells·C) at
+// the cell's own slots, and, for phase 1 + k, the reactions to reaction
+// slice k, (n_r, n_g) at the neighbour's slots, every slot of the cells it
+// writes.  One card: the neighbour index wraps and n_g = cells·C.  GHOST:
+// centres and neighbours are read from the shards' ghost grids, the shift
+// comes from the neighbour's global cell index, and a reaction slice spans
+// the ghost grids, n_g = shards·(mz+2)(my+2)(mx+2)·C; the centre tags are
+// per own slot.
+template <int NA, bool ENERGY, bool COULOMB, bool EXCL, bool BOND, bool GHOST>
 __global__ void __launch_bounds__(kOwnedThreads, 4)
-    streaming_owned_kernel(Fields f, Mol mol, float* __restrict__ slices, int m, int c,
+    streaming_owned_kernel(Fields f, Mol mol, float* __restrict__ slices, Ghost g, int shards, int m, int c,
                            const float* __restrict__ box_ptr, PairConsts k) {
   constexpr int NR = ENERGY ? 5 : 3;
   constexpr int NT = tile_entries<NA>();
   using TileT = Tile<NT, 7>;
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long cells = static_cast<long>(m) * m * m;
+  const long cells = static_cast<long>(shards) * g.mz * g.my * g.mx;
   const long item = static_cast<long>(blockIdx.x) * kOwnedWarps + warp;
   if (item >= cells * kPhases) return;  // no block barrier follows
   float* mine = smem + warp * owned_warp_floats(NT, mol.ne, mol.neb, NR, c);
@@ -731,29 +755,48 @@ __global__ void __launch_bounds__(kOwnedThreads, 4)
   const int ph = static_cast<int>(item / cells);
   const long cell = item - ph * cells;
   const long ns = cells * c;
+  const long ng = GHOST ? static_cast<long>(shards) * (g.mz + 2) * (g.my + 2) * (g.mx + 2) * c : ns;
   Dsf dsf{};
   float cut2 = k.rc2;
   if (COULOMB) {
     dsf = emdee::load_dsf(mol);
     cut2 = fmaxf(cut2, dsf.rc2);
   }
+  // The cell's local coordinates and, with GHOST, its ghost-grid index.
+  const int x = static_cast<int>(cell % g.mx), y = static_cast<int>((cell / g.mx) % g.my);
+  const int z = static_cast<int>((cell / (static_cast<long>(g.mx) * g.my)) % g.mz);
+  const int sh = static_cast<int>(cell / (static_cast<long>(g.mx) * g.my * g.mz));
+  const int gy = g.my + 2, gx = g.mx + 2;
+  const long gbase = static_cast<long>(sh) * (g.mz + 2) * gy * gx;  // the shard's ghost cell 0
+  const long home = GHOST ? gbase + (static_cast<long>(z + 1) * gy + y + 1) * gx + x + 1 : cell;
   for (int t = lane; t < NR * c; t += 32) cen[t] = react[t] = 0.f;  // cell_pair's first __syncwarp orders these
   if (ph == 0) {  // the self cell: every ordered pair, no reaction
-    cell_pair<NA, false, ENERGY, false, COULOMB, EXCL, BOND, true>(f, mol, dsf, cut2, cell, cell, cell, c, 0, 0, 0.f,
+    cell_pair<NA, false, ENERGY, false, COULOMB, EXCL, BOND, true>(f, mol, dsf, cut2, home, home, cell, c, 0, 0, 0.f,
                                                                     0.f, 0.f, c, c, cen, react, tiles, tags, k);
   } else {
     const int o = ph - 1;
-    const int x = static_cast<int>(cell % m), y = static_cast<int>((cell / m) % m), z = static_cast<int>(cell / m / m);
     float shx, shy, shz;
-    const int nx = wrap(x + kOffDx[o], m, box_ptr, shx);
-    const int ny = wrap(y + kOffDy[o], m, box_ptr, shy);
-    const int nz = wrap(z + kOffDz[o], m, box_ptr, shz);
-    const long nb = (static_cast<long>(nz) * m + ny) * m + nx;
-    cell_pair<NA, false, ENERGY, true, COULOMB, EXCL, BOND, true>(f, mol, dsf, cut2, cell, nb, cell, c, 0, 0, shx,
+    long nb;
+    if (GHOST) {
+      // Global cell coordinates of the centre, and the neighbour's shift from its own.
+      const int cz = (g.bz + sh / (g.sx_n * g.sy_n)) * g.mz + z;
+      const int cy = (g.by + (sh / g.sx_n) % g.sy_n) * g.my + y;
+      const int cx = (g.bx + sh % g.sx_n) * g.mx + x;
+      shx = ghost_shift(cx + kOffDx[o], m, box_ptr);
+      shy = ghost_shift(cy + kOffDy[o], m, box_ptr);
+      shz = ghost_shift(cz + kOffDz[o], m, box_ptr);
+      nb = gbase + (static_cast<long>(z + 1 + kOffDz[o]) * gy + y + 1 + kOffDy[o]) * gx + x + 1 + kOffDx[o];
+    } else {
+      const int nx = wrap(x + kOffDx[o], m, box_ptr, shx);
+      const int ny = wrap(y + kOffDy[o], m, box_ptr, shy);
+      const int nz = wrap(z + kOffDz[o], m, box_ptr, shz);
+      nb = (static_cast<long>(nz) * m + ny) * m + nx;
+    }
+    cell_pair<NA, false, ENERGY, true, COULOMB, EXCL, BOND, true>(f, mol, dsf, cut2, home, nb, cell, c, 0, 0, shx,
                                                                    shy, shz, c, c, cen, react, tiles, tags, k);
     __syncwarp();
-    float* out = slices + static_cast<long>(kPhases + o) * NR * ns + nb * c;
-    for (int t = lane; t < NR * c; t += 32) __stcs(out + (t / c) * ns + t % c, react[t]);
+    float* out = slices + static_cast<long>(kPhases) * NR * ns + static_cast<long>(o) * NR * ng + nb * c;
+    for (int t = lane; t < NR * c; t += 32) __stcs(out + (t / c) * ng + t % c, react[t]);
   }
   __syncwarp();
   float* out = slices + static_cast<long>(ph) * NR * ns + cell * c;
@@ -778,35 +821,23 @@ __global__ void owned_fold_kernel(float* __restrict__ f, float* __restrict__ e_o
   }
 }
 
-// GHOST geometry, as cell_forces.cu's: local cells (mz, my, mx) per shard,
-// the local shards' grid (sy_n, sx_n after the leading z count), and the
-// global coordinates (bz, by, bx) of the first local shard.
-struct Ghost {
-  int mz, my, mx, sy_n, sx_n, bz, by, bx;
-};
-
-// The periodic shift of a neighbour at global cell coordinate v.
-__device__ __forceinline__ float ghost_shift(int v, int m, const float* __restrict__ box) {
-  return v < 0 ? -*box : (v >= m ? *box : 0.f);
-}
-
 // The row groups in assembly order: slice 0 is the own row (0, 0), slices
 // 1-4 the groups kGroupDz/kGroupDy.
 __constant__ int kSliceDz[kGroups + 1] = {0, 0, 1, 1, 1};
 __constant__ int kSliceDy[kGroups + 1] = {0, 1, -1, 0, 1};
 
-// GHOST (K5s): one block per interior pencil (s, lz, ly) of the local
+// GHOST (K5s, LJ): one block per interior pencil (s, lz, ly) of the local
 // shards, centres and neighbours read from the shards' ghost grids.  The
 // centre sums go to out (NR, shards·mz·my·mx·C); each group's reaction row,
 // (mx+2)·C wide, to its slice of groups (5, NR, pencils, (mx+2)·C) at the
 // block's own pencil.
-template <int NA, bool UNIFORM, bool ENERGY, bool COULOMB, bool EXCL>
+template <int NA, bool UNIFORM, bool ENERGY>
 __global__ void __launch_bounds__(kThreads)
-    streaming_ghost_kernel(Fields f, Mol mol, float* __restrict__ out, float* __restrict__ groups, Ghost g, int m,
-                           int c, const float* __restrict__ box_ptr, PairConsts k) {
+    streaming_ghost_kernel(Fields f, float* __restrict__ out, float* __restrict__ groups, Ghost g, int m, int c,
+                           const float* __restrict__ box_ptr, PairConsts k) {
   constexpr int NR = ENERGY ? 5 : 3;
   constexpr int NT = tile_entries<NA>();
-  using TileT = Tile<NT, (COULOMB || EXCL) ? 7 : 5>;
+  using TileT = Tile<NT, 5>;
   extern __shared__ float smem[];
   const int gy = g.my + 2, gx = g.mx + 2;
   const int mc = g.mx * c;  // a centre row
@@ -814,9 +845,7 @@ __global__ void __launch_bounds__(kThreads)
   float* cen_acc = smem;        // (NR, mx·C) centre sums of this pencil
   float* row = smem + NR * mc;  // (NR, (mx+2)·C) one group's reaction row
   const int warp = threadIdx.x >> 5;
-  TileT* tiles = reinterpret_cast<TileT*>(smem + NR * (mc + mr));
-  float* tags = reinterpret_cast<float*>(tiles + 2 * kWarps) + warp * tag_floats(NT, mol.ne, 0);
-  tiles += 2 * warp;  // this warp's two
+  TileT* tiles = reinterpret_cast<TileT*>(smem + NR * (mc + mr)) + 2 * warp;  // this warp's two
   const int pencil = blockIdx.x;
   const int ly = pencil % g.my, lz = (pencil / g.my) % g.mz, s = pencil / (g.my * g.mz);
   // Global cell coordinates of the pencil (z, y) and of its x = 0.
@@ -827,21 +856,18 @@ __global__ void __launch_bounds__(kThreads)
   const long cen_row = gbase + (static_cast<long>(lz + 1) * gy + ly + 1) * gx + 1;  // ghost cell of x = 0
   const long own_row = static_cast<long>(pencil) * g.mx;  // own cell id of x = 0
   const long n_own = static_cast<long>(gridDim.x) * mc;
-  Dsf dsf{};
-  float cut2 = k.rc2;
-  if (COULOMB) {
-    dsf = emdee::load_dsf(mol);
-    cut2 = fmaxf(cut2, dsf.rc2);
-  }
+  const Mol mol{};
+  const Dsf dsf{};
+  const float cut2 = k.rc2;
 
   for (int t = threadIdx.x; t < NR * (mc + mr); t += kThreads) smem[t] = 0.f;
   __syncthreads();
 
   // Self cell: every ordered pair, no reaction.
   for (int x = warp; x < g.mx; x += kWarps)
-    cell_pair<NA, UNIFORM, ENERGY, false, COULOMB, EXCL, false>(f, mol, dsf, cut2, cen_row + x, cen_row + x,
-                                                                 own_row + x, c, x, x, 0.f, 0.f, 0.f, mc, mr,
-                                                                 cen_acc, row, tiles, tags, k);
+    cell_pair<NA, UNIFORM, ENERGY, false, false, false, false>(f, mol, dsf, cut2, cen_row + x, cen_row + x,
+                                                                own_row + x, c, x, x, 0.f, 0.f, 0.f, mc, mr,
+                                                                cen_acc, row, tiles, nullptr, k);
 
   for (int gi = 0; gi <= kGroups; ++gi) {
     const bool own = gi == kGroups;  // the own row (0, 0): dx = +1 only
@@ -852,10 +878,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int dx = own ? 1 : -1; dx <= 1; ++dx) {
       for (int x = warp; x < g.mx; x += kWarps) {
         const float shx = ghost_shift(cx0 + x + dx, m, box_ptr);
-        cell_pair<NA, UNIFORM, ENERGY, true, COULOMB, EXCL, false>(f, mol, dsf, cut2, cen_row + x,
-                                                                    nrow + x + 1 + dx, own_row + x, c, x,
-                                                                    x + 1 + dx, shx, shy, shz, mc, mr, cen_acc,
-                                                                    row, tiles, tags, k);
+        cell_pair<NA, UNIFORM, ENERGY, true, false, false, false>(f, mol, dsf, cut2, cen_row + x,
+                                                                   nrow + x + 1 + dx, own_row + x, c, x,
+                                                                   x + 1 + dx, shx, shy, shz, mc, mr, cen_acc,
+                                                                   row, tiles, nullptr, k);
       }
       __syncthreads();
     }
@@ -910,6 +936,49 @@ __global__ void ghost_assemble_kernel(float* __restrict__ out, const float* __re
   }
 }
 
+// K5s-mol's assembly: one thread per slot t of the shards' ghost grids.
+// An interior slot's sums are the 14 centre slices at its own slot, then
+// the reaction slices k = 0 … 12 at t, in that order, to out (NR,
+// shards·mz·my·mx·C); a ghost slot's reaction slices in the same order go
+// to react (NR, shards, mz+2, my+2, mx+2, C), whose interior slots are
+// zero.  Reaction slice k is read only where offset k's image of the own
+// cells lies, the slots its warps wrote.
+template <int NR>
+__global__ void owned_ghost_assemble_kernel(float* __restrict__ out, const float* __restrict__ slices,
+                                            float* __restrict__ react, Ghost g, int shards, int c) {
+  const int gz = g.mz + 2, gy = g.my + 2, gx = g.mx + 2;
+  const long ng = static_cast<long>(shards) * gz * gy * gx * c;
+  const long ns = static_cast<long>(shards) * g.mz * g.my * g.mx * c;
+  const long t = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= ng) return;
+  const int slot = t % c;
+  long r = t / c;
+  const int xg = r % gx;
+  r /= gx;
+  const int yg = r % gy;
+  r /= gy;
+  const int zg = r % gz;
+  const int s = r / gz;
+  const bool interior = zg >= 1 && zg <= g.mz && yg >= 1 && yg <= g.my && xg >= 1 && xg <= g.mx;
+  const long own = ((static_cast<long>(s * g.mz + zg - 1) * g.my + yg - 1) * g.mx + xg - 1) * c + slot;
+  const float* rs = slices + static_cast<long>(kPhases) * NR * ns;
+#pragma unroll
+  for (int comp = 0; comp < NR; ++comp) {
+    float v = 0.f;
+    if (interior) {
+      v = __ldcs(slices + comp * ns + own);
+      for (int i = 1; i < kPhases; ++i) v += __ldcs(slices + (static_cast<long>(i) * NR + comp) * ns + own);
+    }
+    for (int o = 0; o < kOffsets; ++o) {
+      const int z = zg - 1 - kOffDz[o], y = yg - 1 - kOffDy[o], x = xg - 1 - kOffDx[o];
+      if (z < 0 || z >= g.mz || y < 0 || y >= g.my || x < 0 || x >= g.mx) continue;
+      v += __ldcs(rs + (static_cast<long>(o) * NR + comp) * ng + t);
+    }
+    if (interior) out[comp * ns + own] = v;
+    react[comp * ng + t] = interior ? 0.f : v;
+  }
+}
+
 int centre_slots(int c) { return c <= 32 ? 1 : (c <= 64 ? 2 : 3); }
 
 size_t smem_bytes(int m, int c, bool energy) {
@@ -923,21 +992,18 @@ size_t owned_smem_bytes(int c, bool energy, int ne, int neb) {
   return sizeof(float) * kOwnedWarps * static_cast<size_t>(owned_warp_floats(nt, ne, neb, energy ? 5 : 3, c));
 }
 
-// GHOST: the centre sums and one (mx+2)·C reaction row, the tiles and the
-// staged centre tags (no bond tags).
-size_t ghost_smem_bytes(int mx, int c, bool energy, bool mol, int ne) {
-  const int na = centre_slots(c);
-  const int nt = na <= 2 ? 64 : 96;
-  const int nf = mol ? 7 : 5;
+// GHOST (LJ): the centre sums and one (mx+2)·C reaction row, and the tiles.
+size_t ghost_smem_bytes(int mx, int c, bool energy) {
+  const int nt = centre_slots(c) <= 2 ? 64 : 96;
   return sizeof(float) * (energy ? 5 : 3) * static_cast<size_t>(2 * mx + 2) * c +
-         sizeof(float) * (nf + 1) * nt * 2 * kWarps + sizeof(float) * tag_floats(nt, ne, 0) * kWarps;
+         sizeof(float) * (5 + 1) * nt * 2 * kWarps;
 }
 
-template <int NA, bool UNIFORM, bool ENERGY, bool COULOMB = false, bool EXCL = false>
-int launch_ghost(const Fields& f, const Mol& mol, float* out, float* groups, const Ghost& g, int blocks, int m,
-                 int c, const float* box, const PairConsts& k, cudaStream_t stream) {
-  const size_t smem = ghost_smem_bytes(g.mx, c, ENERGY, COULOMB || EXCL, mol.ne);
-  auto kernel = streaming_ghost_kernel<NA, UNIFORM, ENERGY, COULOMB, EXCL>;
+template <int NA, bool UNIFORM, bool ENERGY>
+int launch_ghost(const Fields& f, float* out, float* groups, const Ghost& g, int blocks, int m, int c,
+                 const float* box, const PairConsts& k, cudaStream_t stream) {
+  const size_t smem = ghost_smem_bytes(g.mx, c, ENERGY);
+  auto kernel = streaming_ghost_kernel<NA, UNIFORM, ENERGY>;
   static size_t smem_allowed = 48 * 1024;  // raised once per variant, not per launch
   if (smem > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -945,30 +1011,17 @@ int launch_ghost(const Fields& f, const Mol& mol, float* out, float* groups, con
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
   }
-  kernel<<<blocks, kThreads, smem, stream>>>(f, mol, out, groups, g, m, c, box, k);
+  kernel<<<blocks, kThreads, smem, stream>>>(f, out, groups, g, m, c, box, k);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NA>
-int dispatch_ghost(const Fields& f, const Mol& mol, int coulomb, int excl, int uniform, int energy, float* out,
-                   float* groups, const Ghost& g, int blocks, int m, int c, const float* box, const PairConsts& k,
-                   cudaStream_t s) {
-#define EMDEE_K5S(UN, EN, CO, EX) launch_ghost<NA, UN, EN, CO, EX>(f, mol, out, groups, g, blocks, m, c, box, k, s)
-  if (coulomb || excl) {
-    if (energy) {
-      if (coulomb && excl) return EMDEE_K5S(false, true, true, true);
-      if (coulomb) return EMDEE_K5S(false, true, true, false);
-      return EMDEE_K5S(false, true, false, true);
-    }
-    if (coulomb && excl) return EMDEE_K5S(false, false, true, true);
-    if (coulomb) return EMDEE_K5S(false, false, true, false);
-    return EMDEE_K5S(false, false, false, true);
-  }
-  if (uniform && energy) return EMDEE_K5S(true, true, false, false);
-  if (uniform) return EMDEE_K5S(true, false, false, false);
-  if (energy) return EMDEE_K5S(false, true, false, false);
-  return EMDEE_K5S(false, false, false, false);
-#undef EMDEE_K5S
+int dispatch_ghost(const Fields& f, int uniform, int energy, float* out, float* groups, const Ghost& g, int blocks,
+                   int m, int c, const float* box, const PairConsts& k, cudaStream_t s) {
+  if (uniform && energy) return launch_ghost<NA, true, true>(f, out, groups, g, blocks, m, c, box, k, s);
+  if (uniform) return launch_ghost<NA, true, false>(f, out, groups, g, blocks, m, c, box, k, s);
+  if (energy) return launch_ghost<NA, false, true>(f, out, groups, g, blocks, m, c, box, k, s);
+  return launch_ghost<NA, false, false>(f, out, groups, g, blocks, m, c, box, k, s);
 }
 
 template <int NA, bool UNIFORM, bool ENERGY>
@@ -1000,48 +1053,53 @@ int dispatch(const Fields& f, float* fx, float* fy, float* fz, int fstride, floa
   return launch<NA, false, false>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
 }
 
-// K5c's variant for one flag set (K2c's), with its own record of the
-// dynamic shared memory raised so far (raised once per variant, not per
-// launch).
-template <int NA, bool ENERGY, bool COULOMB, bool EXCL, bool BOND>
+// A warp-owned variant for one flag set (K2c's; GHOST: K5s-mol), with its
+// own record of the dynamic shared memory raised so far (raised once per
+// variant, not per launch).
+template <int NA, bool ENERGY, bool COULOMB, bool EXCL, bool BOND, bool GHOST>
 emdee::OwnedVariant owned_variant() {
   static_assert(sizeof(Tile<tile_entries<NA>(), 7>) == sizeof(float) * (7 + 1) * tile_entries<NA>(),
                 "owned_smem_bytes counts the tiles as packed floats");
   static size_t smem_allowed = 48 * 1024;
-  return {streaming_owned_kernel<NA, ENERGY, COULOMB, EXCL, BOND>, &smem_allowed};
+  return {streaming_owned_kernel<NA, ENERGY, COULOMB, EXCL, BOND, GHOST>, &smem_allowed};
 }
 
-template <int NA, bool ENERGY>
+template <int NA, bool ENERGY, bool GHOST>
 emdee::OwnedVariant owned_variant_e(int coulomb, int excl, int bond) {
-  if (coulomb && bond) return owned_variant<NA, ENERGY, true, true, true>();
-  if (coulomb && excl) return owned_variant<NA, ENERGY, true, true, false>();
-  if (coulomb) return owned_variant<NA, ENERGY, true, false, false>();
-  if (bond) return owned_variant<NA, ENERGY, false, true, true>();
-  return owned_variant<NA, ENERGY, false, true, false>();
+  if constexpr (!GHOST) {  // the grid keeps its bonds as term rows
+    if (coulomb && bond) return owned_variant<NA, ENERGY, true, true, true, false>();
+    if (bond) return owned_variant<NA, ENERGY, false, true, true, false>();
+  }
+  if (coulomb && excl) return owned_variant<NA, ENERGY, true, true, false, GHOST>();
+  if (coulomb) return owned_variant<NA, ENERGY, true, false, false, GHOST>();
+  return owned_variant<NA, ENERGY, false, true, false, GHOST>();
 }
 
-template <bool ENERGY>
+template <bool ENERGY, bool GHOST>
 emdee::OwnedVariant owned_variant_c(int c, int coulomb, int excl, int bond) {
   switch (centre_slots(c)) {
-    case 1: return owned_variant_e<1, ENERGY>(coulomb, excl, bond);
-    case 2: return owned_variant_e<2, ENERGY>(coulomb, excl, bond);
-    default: return owned_variant_e<3, ENERGY>(coulomb, excl, bond);
+    case 1: return owned_variant_e<1, ENERGY, GHOST>(coulomb, excl, bond);
+    case 2: return owned_variant_e<2, ENERGY, GHOST>(coulomb, excl, bond);
+    default: return owned_variant_e<3, ENERGY, GHOST>(coulomb, excl, bond);
   }
 }
 
-#if EMDEE_IN_PART(1)
-// The K5c variant for these flags, refused as the launch entry refuses it
-// (but for M), its dynamic shared memory (`*smem`) allowed.
-int owned_kernel(int c, int ne, int neb, int coulomb, int excl, int bond, int energy,
+#if EMDEE_IN_PART(1) || EMDEE_IN_PART(2)
+// The K5c (GHOST: K5s-mol, no bond tags) variant for these flags, refused
+// as the launch entries refuse it (but for the geometry), its dynamic
+// shared memory (`*smem`) allowed.
+int owned_kernel(int c, int ne, int neb, int coulomb, int excl, int bond, int energy, bool ghost,
                  emdee::OwnedKernel* kernel, size_t* smem) {
   if (!excl) ne = 0;
   if (!bond) neb = 0;
   *smem = owned_smem_bytes(c, energy, ne, neb);
-  if (c < 1 || c > kMaxCapacity || *smem > 232448 || (!coulomb && !excl) || (bond && !excl) ||
+  if (c < 1 || c > kMaxCapacity || *smem > 232448 || (!coulomb && !excl) || (bond && !excl) || (ghost && bond) ||
       (excl && (ne < 1 || ne > kMaxTags)) || (bond && (neb < 1 || neb > ne)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const emdee::OwnedVariant v = energy ? emdee::k5c_energy_variant(c, coulomb, excl, bond)
-                                       : emdee::k5c_force_variant(c, coulomb, excl, bond);
+  const emdee::OwnedVariant v =
+      ghost ? (energy ? emdee::k5s_mol_energy_variant(c, coulomb, excl) : emdee::k5s_mol_force_variant(c, coulomb, excl))
+            : (energy ? emdee::k5c_energy_variant(c, coulomb, excl, bond)
+                      : emdee::k5c_force_variant(c, coulomb, excl, bond));
   if (*smem > *v.smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
         reinterpret_cast<const void*>(v.kernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1052,19 +1110,49 @@ int owned_kernel(int c, int ne, int neb, int coulomb, int excl, int bond, int en
   *kernel = v.kernel;
   return 0;
 }
+
+// A warp-owned variant's resources as the card reports them: out[0..3] =
+// registers a thread, local (spill) bytes a thread, shared bytes a block,
+// resident blocks an SM.
+int owned_attrs(emdee::OwnedKernel kernel, size_t smem, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, reinterpret_cast<const void*>(kernel), kOwnedThreads,
+                                                    smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(smem + fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
+}
 #endif
 
 }  // namespace
 
 #if EMDEE_IN_PART(1)
 emdee::OwnedVariant emdee::k5c_force_variant(int c, int coulomb, int excl, int bond) {
-  return owned_variant_c<false>(c, coulomb, excl, bond);
+  return owned_variant_c<false, false>(c, coulomb, excl, bond);
 }
 #endif
 
 #if EMDEE_IN_PART(3)
 emdee::OwnedVariant emdee::k5c_energy_variant(int c, int coulomb, int excl, int bond) {
-  return owned_variant_c<true>(c, coulomb, excl, bond);
+  return owned_variant_c<true, false>(c, coulomb, excl, bond);
+}
+#endif
+
+#if EMDEE_IN_PART(2)
+emdee::OwnedVariant emdee::k5s_mol_force_variant(int c, int coulomb, int excl) {
+  return owned_variant_c<false, true>(c, coulomb, excl, 0);
+}
+#endif
+
+#if EMDEE_IN_PART(4)
+emdee::OwnedVariant emdee::k5s_mol_energy_variant(int c, int coulomb, int excl) {
+  return owned_variant_c<true, true>(c, coulomb, excl, 0);
 }
 #endif
 
@@ -1122,16 +1210,18 @@ extern "C" int emdee_streaming_forces_mol(
   if (m < 3) return static_cast<int>(cudaErrorInvalidValue);
   emdee::OwnedKernel kernel;
   size_t smem;
-  const int err = owned_kernel(c, ne, neb, coulomb, excl, bond, energy, &kernel, &smem);
+  const int err = owned_kernel(c, ne, neb, coulomb, excl, bond, energy, false, &kernel, &smem);
   if (err) return err;
   if (!excl) ne = 0;
   if (!bond) neb = 0;
   PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
   Fields fl{pos, pos + 1, pos + 2, 3, hs, tse, valid};
   Mol mol{q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb, alpha, rc, rc2_c, e_shift, f_shift, kc};
+  Ghost g{m, m, m, 1, 1, 0, 0, 0};
+  int shards = 1;
   const long warps = static_cast<long>(m) * m * m * kPhases;
   const unsigned blocks = static_cast<unsigned>((warps + kOwnedWarps - 1) / kOwnedWarps);
-  void* args[] = {&fl, &mol, &slices, &m, &c, &box, &k};
+  void* args[] = {&fl, &mol, &slices, &g, &shards, &m, &c, &box, &k};
   return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
                                            dim3(kOwnedThreads), args, smem, static_cast<cudaStream_t>(stream)));
 }
@@ -1143,20 +1233,9 @@ extern "C" int emdee_streaming_mol_attrs(int c, int ne, int neb, int coulomb, in
                                          int* out) {
   emdee::OwnedKernel kernel;
   size_t smem;
-  int err = owned_kernel(c, ne, neb, coulomb, excl, bond, energy, &kernel, &smem);
+  int err = owned_kernel(c, ne, neb, coulomb, excl, bond, energy, false, &kernel, &smem);
   if (err) return err;
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(kernel));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, reinterpret_cast<const void*>(kernel), kOwnedThreads,
-                                                    smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = fa.numRegs;
-  out[1] = static_cast<int>(fa.localSizeBytes);
-  out[2] = static_cast<int>(smem + fa.sharedSizeBytes);
-  out[3] = blocks;
-  return 0;
+  return owned_attrs(kernel, smem, out);
 }
 
 // K5c's fold: f (M³·C, 3) [, e, w (M³·C)] = the sum of the n_slices
@@ -1175,39 +1254,32 @@ extern "C" int emdee_streaming_fold_mol(float* f, float* e, float* w, const floa
 }
 #endif
 
+
 #if EMDEE_IN_PART(2)
-// The GHOST pair pass (K5s): the ghost grids of `shards` local shards, px
-// … tse each (shards, mz+2, my+2, mx+2, C) float32 with NaN positions in
-// empty slots (hs, tse unused with uniform parameters); with `coulomb` the
-// charges q, with `excl` the int32 atom ids aid (−2 on empty slots) in the
-// same layout and the centre tags ids, mlj, mcs (shards, mz, my, mx, C, ne)
-// (mcs only with `coulomb`), the DSF constants' device pointers with
-// `coulomb`.  Writes the centre sums to out (3 or 5, shards·mz·my·mx·C) and
-// the reaction rows to groups (5, 3 or 5, shards·mz·my, (mx+2)·C);
-// `emdee_streaming_ghost_assemble` adds them up.
+// The GHOST pair pass (K5s, LJ): the ghost grids of `shards` local shards,
+// px … tse each (shards, mz+2, my+2, mx+2, C) float32 with NaN positions in
+// empty slots (hs, tse unused with uniform parameters).  Writes the centre
+// sums to out (3 or 5, shards·mz·my·mx·C) and the reaction rows to groups
+// (5, 3 or 5, shards·mz·my, (mx+2)·C); `emdee_streaming_ghost_assemble`
+// adds them up.
 extern "C" int emdee_streaming_ghost(
-    const float* px, const float* py, const float* pz, const float* hs, const float* tse, const float* q,
-    const int* aid, const float* ids, const float* mlj, const float* mcs, int ne, const float* alpha,
-    const float* rc, const float* rc2_c, const float* e_shift, const float* f_shift, const float* kc, float* out,
-    float* groups, int mz, int my, int mx, int shards, int sy_n, int sx_n, int bz, int by, int bx, int m, int c,
-    const float* box, float rc2, float rs2, float invd2, float a_m, float pa1, float pa2, float pb1, float pb2,
-    float sig2_u, float eps4_u, int uniform, int coulomb, int excl, int energy, void* stream) {
-  if (!excl) ne = 0;
-  const bool mol = coulomb || excl;
-  const size_t smem = ghost_smem_bytes(mx, c, energy, mol, ne);
+    const float* px, const float* py, const float* pz, const float* hs, const float* tse, float* out, float* groups,
+    int mz, int my, int mx, int shards, int sy_n, int sx_n, int bz, int by, int bx, int m, int c, const float* box,
+    float rc2, float rs2, float invd2, float a_m, float pa1, float pa2, float pb1, float pb2, float sig2_u,
+    float eps4_u, int uniform, int energy, void* stream) {
+  const size_t smem = ghost_smem_bytes(mx, c, energy);
   if (m < 3 || c < 1 || c > kMaxCapacity || mz < 1 || my < 1 || mx < 1 || shards < 1 || sy_n < 1 || sx_n < 1 ||
-      shards % (sy_n * sx_n) != 0 || smem > 232448 || (mol && uniform) || (excl && (ne < 1 || ne > kMaxTags)))
+      shards % (sy_n * sx_n) != 0 || smem > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
   const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
   const Fields f{px, py, pz, 1, hs, tse, nullptr};
-  const Mol mol_ops{q, aid, ids, mlj, mcs, nullptr, nullptr, nullptr, ne, 0, alpha, rc, rc2_c, e_shift, f_shift, kc};
   const Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx};
   const int blocks = shards * mz * my;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (centre_slots(c)) {
-    case 1: return dispatch_ghost<1>(f, mol_ops, coulomb, excl, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
-    case 2: return dispatch_ghost<2>(f, mol_ops, coulomb, excl, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
-    default: return dispatch_ghost<3>(f, mol_ops, coulomb, excl, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
+    case 1: return dispatch_ghost<1>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
+    case 2: return dispatch_ghost<2>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
+    default: return dispatch_ghost<3>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
   }
 }
 
@@ -1226,6 +1298,69 @@ extern "C" int emdee_streaming_ghost_assemble(float* out, const float* groups, f
     ghost_assemble_kernel<5><<<blocks, threads, 0, s>>>(out, groups, react, g, c, shards * mz * my);
   else
     ghost_assemble_kernel<3><<<blocks, threads, 0, s>>>(out, groups, react, g, c, shards * mz * my);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The GHOST molecular pair pass (K5s-mol): the ghost grids as in
+// `emdee_streaming_ghost` with per-atom parameters, plus the charges q
+// with `coulomb` and the int32 atom ids aid (−2 on empty slots) with
+// `excl`, in the same layout; the centre tags ids, mlj, mcs (shards, mz,
+// my, mx, C, ne) with `excl` (mcs only with `coulomb`); the DSF constants'
+// device pointers with `coulomb`.  Writes the 14 centre slices (3 or 5,
+// shards·mz·my·mx·C) and then the 13 reaction slices (3 or 5,
+// shards·(mz+2)(my+2)(mx+2)·C) to `slices`, one warp a phase of an own
+// cell; `emdee_streaming_ghost_assemble_mol` adds them up.
+extern "C" int emdee_streaming_ghost_mol(
+    const float* px, const float* py, const float* pz, const float* hs, const float* tse, const float* q,
+    const int* aid, const float* ids, const float* mlj, const float* mcs, int ne, const float* alpha,
+    const float* rc, const float* rc2_c, const float* e_shift, const float* f_shift, const float* kc, float* slices,
+    int mz, int my, int mx, int shards, int sy_n, int sx_n, int bz, int by, int bx, int m, int c, const float* box,
+    float rc2, float rs2, float invd2, float a_m, float pa1, float pa2, float pb1, float pb2, int coulomb, int excl,
+    int energy, void* stream) {
+  if (m < 3 || mz < 1 || my < 1 || mx < 1 || shards < 1 || sy_n < 1 || sx_n < 1 || shards % (sy_n * sx_n) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  emdee::OwnedKernel kernel;
+  size_t smem;
+  const int err = owned_kernel(c, ne, 0, coulomb, excl, 0, energy, true, &kernel, &smem);
+  if (err) return err;
+  if (!excl) ne = 0;
+  PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
+  Fields fl{px, py, pz, 1, hs, tse, nullptr};
+  Mol mol{q, aid, ids, mlj, mcs, nullptr, nullptr, nullptr, ne, 0, alpha, rc, rc2_c, e_shift, f_shift, kc};
+  Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx};
+  const long warps = static_cast<long>(shards) * mz * my * mx * kPhases;
+  const unsigned blocks = static_cast<unsigned>((warps + kOwnedWarps - 1) / kOwnedWarps);
+  void* args[] = {&fl, &mol, &slices, &g, &shards, &m, &c, &box, &k};
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
+                                           dim3(kOwnedThreads), args, smem, static_cast<cudaStream_t>(stream)));
+}
+
+// The K5s-mol variant these flags select, as the card reports it (as
+// `emdee_streaming_mol_attrs`).  Launches nothing.
+extern "C" int emdee_streaming_ghost_mol_attrs(int c, int ne, int coulomb, int excl, int energy, int* out) {
+  emdee::OwnedKernel kernel;
+  size_t smem;
+  const int err = owned_kernel(c, ne, 0, coulomb, excl, 0, energy, true, &kernel, &smem);
+  if (err) return err;
+  return owned_attrs(kernel, smem, out);
+}
+
+// K5s-mol's assembly: the centre sums of the own slots to out (3 or 5,
+// shards·mz·my·mx·C) and the ghost slots' reactions to react (3 or 5,
+// shards, mz+2, my+2, mx+2, C), from the slices of
+// `emdee_streaming_ghost_mol`.
+extern "C" int emdee_streaming_ghost_assemble_mol(float* out, const float* slices, float* react, int mz, int my,
+                                                  int mx, int shards, int c, int energy, void* stream) {
+  if (mz < 1 || my < 1 || mx < 1 || shards < 1 || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Ghost g{mz, my, mx, 1, 1, 0, 0, 0};
+  const long n_ghost = static_cast<long>(shards) * (mz + 2) * (my + 2) * (mx + 2) * c;
+  const int threads = 256;
+  const long blocks = (n_ghost + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (energy)
+    owned_ghost_assemble_kernel<5><<<blocks, threads, 0, s>>>(out, slices, react, g, shards, c);
+  else
+    owned_ghost_assemble_kernel<3><<<blocks, threads, 0, s>>>(out, slices, react, g, shards, c);
   return static_cast<int>(cudaGetLastError());
 }
 #endif

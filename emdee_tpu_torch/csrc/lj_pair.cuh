@@ -2,8 +2,9 @@
 // cell_forces_streaming.cu, straggler_forces.cu): the constants of the
 // switched 12-6 Lennard-Jones pair term, its Horner form, the
 // uniform-parameter force factor, the minimum image of a raw difference,
-// and the molecular terms (DSF Coulomb and tag-borne harmonic bonds) of the
-// K2c and K5c variants.
+// the molecular terms (DSF Coulomb and tag-borne harmonic bonds) of the
+// K2c and K5c variants, and the bounding-box cull's predicate of K2c, K5c
+// and K5s-mol.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -93,6 +94,27 @@ __device__ __forceinline__ void mol_terms(float r2, bool in_lj, float qq, const 
     tot += kr0m * r - kbm * r2;
     if (ENERGY) esum += 0.5f * (kbm * r2 + kr02m) - kr0m * r;
   }
+}
+
+// The cull's slack: each axis' gap to a box is lowered by this share of
+// the magnitudes in play, far above the rounding of a displacement.
+constexpr float kCullSlack = 1.0f / 524288.0f;  // 2⁻¹⁹
+
+// Whether point p lies within the cutoff of the box [lo + o, hi + o],
+// conservatively: each axis' gap less the slack, so that no pair whose
+// computed r² lies below cut2 is dropped (mirrored by
+// cell_kernel.cull_keep for the CPU tests).
+__device__ __forceinline__ bool near_box(const float p[3], const float lo[3], const float hi[3], const float o[3],
+                                         float cut2) {
+  float g2 = 0.f;
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    const float gap = fmaxf(fmaxf((lo[v] + o[v]) - p[v], p[v] - (hi[v] + o[v])), 0.f);
+    const float slack = kCullSlack * (fabsf(p[v]) + fabsf(lo[v]) + fabsf(hi[v]) + 2.f * fabsf(o[v]));
+    const float g = fmaxf(gap - slack, 0.f);
+    g2 += g * g;
+  }
+  return g2 < cut2;
 }
 
 }  // namespace emdee

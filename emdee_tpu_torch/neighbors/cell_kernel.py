@@ -7,9 +7,14 @@ virials, and with `coulomb=`/`excl=` the molecular terms (K2c: DSF
 Coulomb over the state's charges, exclusion tags, tag-borne bonds).
 `cell_forces_split` (counterpart of `pallas_cell_forces_split`) takes
 (M³, C) component arrays, uniform parameters, forces only.  Both
-launch the one kernel of `csrc/cell_forces.cu` for CUDA tensors, with
+launch one kernel of `csrc/cell_forces.cu` for CUDA tensors, with
 backend 'auto' or 'cuda', and run the plain version
 (`cell_dense.cell_dense_forces`) for CPU tensors or backend 'torch'.
+K2c has a kernel of its own: a warp takes 32 live centres of a cell,
+stages each neighbour cell's slots within the cutoff of its centres'
+bounding box (`k2c_cull` mirrors the predicate), lists each lane's
+pairs inside the cutoff and runs the pair term over the lists, adding
+every centre's pairs in the full-shell kernel's order.
 
 The TPU kernel's ghost grid, far sentinels, MXU segment sums and reaction
 folds (`_ghost`, `_prep_inputs`, `_fold_ghosts`, `_const_tiles`,
@@ -40,8 +45,50 @@ from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel, pair_int
 # Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
 # The most exclusion tags per slot that the molecular kernels hold (kMaxTags
-# of csrc/lj_pair.cuh: in registers in K2c, in shared memory in K5c).
+# of csrc/lj_pair.cuh: in shared memory in K2c and K5c, in registers in
+# K2c-G).
 MAX_TAGS = 8
+_MOL_WARPS = 4  # K2c: warps a block, each owning 32 live centres of a cell
+_SMEM_BYTES = 232_448  # shared memory a block can use on Hopper
+CULL_SLACK = 2.0**-19  # the cull's slack, as csrc/lj_pair.cuh `kCullSlack`
+
+
+def cull_keep(p, lo, hi, shift, cut2: float):
+    """The cull's predicate (`near_box` of csrc/lj_pair.cuh), as K2c, K5c
+    and K5s-mol evaluate it in float32 (for the tests): whether each point p
+    (..., 3) lies within the cutoff of the box [lo + shift, hi + shift]
+    (each (3,)), every axis' gap lowered by CULL_SLACK of the magnitudes in
+    play, so that no pair inside cut2 is dropped."""
+    f32 = torch.float32
+    p, lo, hi, shift = (torch.as_tensor(t, dtype=f32) for t in (p, lo, hi, shift))
+    gap = torch.clamp(torch.maximum((lo + shift) - p, p - (hi + shift)), min=0.0)
+    slack = torch.tensor(CULL_SLACK, dtype=f32) * (p.abs() + lo.abs() + hi.abs() + 2.0 * shift.abs())
+    g = torch.clamp(gap - slack, min=0.0)
+    g2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2]
+    return g2 < torch.tensor(cut2, dtype=f32)
+
+
+def k2c_cull(cen, nb, shift, cut2: float):
+    """K2c's cull of one neighbour cell for one warp (for the tests): the
+    neighbour points nb (k, 3) kept within the cutoff of the box of the
+    warp's centres cen (n, 3), shifted back by the cell's periodic shift
+    (displacements are (x_i − x_j) − shift)."""
+    return cull_keep(nb, cen.min(0).values, cen.max(0).values, -torch.as_tensor(shift), cut2)
+
+
+_STAGE = 256  # K2c: the most neighbour slots a warp stages at once
+
+
+def mol_smem_bytes(c: int, ne: int, neb: int) -> int:
+    """K2c's shared memory a block, as its C entry counts it: for each of
+    its 4 warps, the staged neighbour tile (C rounded up to a warp, at most
+    256: x, y, z, σ/2, 2√ε, q, atom id, slot), each lane's list (a byte an
+    entry), the centres' tags (three values a tag and a bond tag, 32 lanes)
+    and the rank-to-slot map."""
+    nt = min(32 * -(-c // 32), _STAGE)
+    return 4 * _MOL_WARPS * (8 * nt + 8 * nt + 3 * (ne + neb) * 32 + 32)
+
+
 
 
 def _pair_consts(config: CellDenseConfig, uniform_params) -> Tuple[float, ...]:
@@ -214,6 +261,36 @@ def _launch_mol(state: CellDenseState, config: CellDenseConfig, coulomb, excl, c
     build.check(err, "cell_forces kernel (molecular)")
     LAUNCHES += 1
     return forces, e, w
+
+
+def resources(entry: str, what: str, *args) -> dict:
+    """A kernel variant's resources, as the card reports them through the C
+    query `entry` (`cudaFuncGetAttributes`,
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor`): registers and local
+    (spill) bytes a thread, shared bytes and warps a block, resident blocks
+    an SM.  Launches nothing."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    err = getattr(build.load(), entry)(*args, ctypes.addressof(out))
+    build.check(err, f"{what} resource query")
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2], "warps_per_block": _MOL_WARPS,
+            "blocks_per_sm": out[3]}
+
+
+def tag_counts(excl):
+    """(E, E_b, bond weights or None) of slot tags as the kernels take them."""
+    ne = 0 if excl is None else excl[0].shape[-1]
+    bond = None if excl is None or len(excl) < 4 else excl[3]
+    return ne, 0 if bond is None else bond[0].shape[-1], bond
+
+
+def k2c_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) -> dict:
+    """The K2c variant that these flags and tags (`excl`, as `cell_forces`
+    takes them) select at C, as the card reports it (`resources`)."""
+    ne, neb, bond = tag_counts(excl)
+    return resources("emdee_cell_forces_mol_attrs", "cell_forces (molecular)", config.capacity, ne, neb,
+                     int(coulomb is not None), int(excl is not None), int(bond is not None), int(compute_energy))
 
 
 def stacked_operands(state: CellDenseState, config: CellDenseConfig, uniform_params, compute_energy: bool):

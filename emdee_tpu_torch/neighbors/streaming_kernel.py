@@ -28,7 +28,11 @@ of the same kernel (the reference's `_local_forces_streaming`, for shards
 beyond VMEM residency): two launches, the half-shell pair pass over each
 local shard's ghost grid and the assembly of its reaction rows into the
 interior forces and a reaction ghost grid, which the engine returns to the
-owning shards (`grid_sharded._fold3`).  Its plain version,
+owning shards (`grid_sharded._fold3`).  With the molecular terms (K5s-mol)
+the pair pass is K5c's warp-owned pass with its cull on the ghost grids (a
+warp owns one phase of one own cell, the shift from the neighbour's global
+cell index, `ghost_phase` mirrors it), and the assembly adds its 27 scratch
+slices in a fixed order.  Its plain version,
 `streaming_ghost_forces_plain`, has the structure of the reference's
 `_local_forces_xla`: each half-shell reaction written to the ghost cell at
 +o.  Because the fold adds a shard's boundary reactions in another order,
@@ -36,8 +40,6 @@ decompositions agree to roundoff, not bit for bit.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -50,16 +52,20 @@ from emdee_tpu_torch.neighbors.cell_dense import (
     cell_dense_forces,
     resolve_backend,
 )
-from emdee_tpu_torch.neighbors.cell_kernel import (
+from emdee_tpu_torch.neighbors.cell_kernel import (  # noqa: F401 (CULL_SLACK, cull_keep: re-exported)
+    CULL_SLACK,
     _check,
     _dsf_operands,
     _pair_consts,
     _tag_operands,
+    cull_keep,
     ghost_tiles,
     mol_operands,
+    resources,
     split_operands,
     split_plain,
     stacked_operands,
+    tag_counts,
 )
 from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel
 
@@ -72,8 +78,11 @@ _SMEM_BYTES = 232_448  # shared memory a block can use on Hopper
 _WARPS = 8
 _ROW_GROUPS = 4  # reaction row groups that leave the pair pass
 _OWNED_WARPS = 4  # K5c: warps a block, each owning a phase of a centre cell
-_SLICES = 14 + 13  # K5c's scratch: the centre sums of each phase, the reactions of each offset
-CULL_SLACK = 2.0**-19  # the cull's slack, as csrc/cell_forces_streaming.cu `kCullSlack`
+_PHASES, _OFFSETS = 14, 13  # the self cell and the half-shell offsets
+_SLICES = _PHASES + _OFFSETS  # K5c's scratch: the centre sums of each phase, the reactions of each offset
+# The half-shell offsets (dz, dy, dx) in phase order (kOffDz/Dy/Dx of the C source).
+PHASE_OFFSETS = ((0, 1, -1), (0, 1, 0), (0, 1, 1), (1, -1, -1), (1, -1, 0), (1, -1, 1), (1, 0, -1), (1, 0, 0),
+                 (1, 0, 1), (1, 1, -1), (1, 1, 0), (1, 1, 1), (0, 0, 1))
 
 
 def smem_bytes(config: CellDenseConfig, energy: bool, mol: bool = False, ne: int = 0, neb: int = 0) -> int:
@@ -84,25 +93,15 @@ def smem_bytes(config: CellDenseConfig, energy: bool, mol: bool = False, ne: int
     tiles (with q and the atom id), the staged centre tags (3 values a tag
     and a bond tag) and its centre and reaction rows, (2, n_r, C)."""
     m, c = config.cells_per_dim, config.capacity
-    entries = 64 if c <= 64 else 96
-    nr = 5 if energy else 3
     if mol:
-        return 4 * _OWNED_WARPS * (2 * 8 * entries + 3 * (ne + neb) * entries + 2 * nr * c)
-    return 4 * (2 * nr * m * c + _WARPS * 2 * 6 * entries)
+        return _owned_smem_bytes(c, energy, ne, neb)
+    return 4 * (2 * (5 if energy else 3) * m * c + _WARPS * 2 * 6 * (64 if c <= 64 else 96))
 
 
-def cull_keep(p, lo, hi, shift, cut2: float):
-    """The cull's predicate, as K5c evaluates it in float32 (for the tests):
-    whether each point p (..., 3) lies within the cutoff of the box [lo +
-    shift, hi + shift] (each (3,)), every axis' gap lowered by CULL_SLACK of
-    the magnitudes in play, so that no pair inside cut2 is dropped."""
-    f32 = torch.float32
-    p, lo, hi, shift = (torch.as_tensor(t, dtype=f32) for t in (p, lo, hi, shift))
-    gap = torch.clamp(torch.maximum((lo + shift) - p, p - (hi + shift)), min=0.0)
-    slack = torch.tensor(CULL_SLACK, dtype=f32) * (p.abs() + lo.abs() + hi.abs() + 2.0 * shift.abs())
-    g = torch.clamp(gap - slack, min=0.0)
-    g2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2]
-    return g2 < torch.tensor(cut2, dtype=f32)
+def _owned_smem_bytes(c: int, energy: bool, ne: int, neb: int) -> int:
+    """A warp-owned block's shared memory (K5c, K5s-mol), whatever M."""
+    entries = 64 if c <= 64 else 96
+    return 4 * _OWNED_WARPS * (2 * 8 * entries + 3 * (ne + neb) * entries + 2 * (5 if energy else 3) * c)
 
 
 def cull_pair(cen, nb, shift, cut2: float):
@@ -132,17 +131,50 @@ def _check_geometry(config: CellDenseConfig, energy: bool, mol: bool = False, ne
 
 
 def ghost_smem_bytes(mx: int, c: int, energy: bool, mol: bool = False, ne: int = 0) -> int:
-    """K5s's shared memory a block, as its C entry counts it: the pencil's
-    centre sums, (n_r, mx·C), and one reaction row, (n_r, (mx+2)·C),
-    float32; the warps' tiles and staged centre tags as `smem_bytes`."""
+    """K5s's shared memory a block, as its C entries count it.  LJ: the
+    pencil's centre sums, (n_r, mx·C), and one reaction row, (n_r,
+    (mx+2)·C), float32, and the 8 warps' tiles as `smem_bytes`.  K5s-mol
+    (`mol`): K5c's warp-owned block with E tags and no bond tags, whatever
+    mx."""
+    if mol:
+        return _owned_smem_bytes(c, energy, ne, 0)
     entries = 64 if c <= 64 else 96
-    fields = 7 if mol else 5
-    return 4 * ((5 if energy else 3) * (2 * mx + 2) * c + _WARPS * (2 * (fields + 1) * entries + 3 * ne * entries))
+    return 4 * ((5 if energy else 3) * (2 * mx + 2) * c + _WARPS * 2 * 6 * entries)
+
+
+def ghost_mol_scratch_bytes(shards: int, local, c: int, energy: bool) -> int:
+    """K5s-mol's scratch, as `streaming_ghost_forces` allocates it: 14 centre
+    slices over the own slots of `shards` local shards of `local` = (mz, my,
+    mx) cells and 13 reaction slices over their ghost grids, (n_r, slots)
+    float32 each."""
+    mz, my, mx = local
+    own, ghost = shards * mz * my * mx * c, shards * (mz + 2) * (my + 2) * (mx + 2) * c
+    return 4 * (5 if energy else 3) * (_PHASES * own + _OFFSETS * ghost)
+
+
+def ghost_phase(cell: int, phase: int, shards, base, local, m: int, box: float):
+    """K5s-mol's geometry of one warp (for the tests): own cell `cell`
+    (index over the local shards (sz, sy, sx) of `local` = (mz, my, mx)
+    cells, shard-major) at phase 1 + k (offset k of PHASE_OFFSETS): the
+    centre's and the neighbour's cell indices in the stacked ghost grids,
+    and the periodic shift (x, y, z) that the kernel takes off (x_i − x_j),
+    from the neighbour's GLOBAL cell index (the shards' global coordinates
+    start at `base`)."""
+    mz, my, mx = local
+    sy, sx = shards[1], shards[2]
+    x, y, z, s = cell % mx, (cell // mx) % my, (cell // (mx * my)) % mz, cell // (mx * my * mz)
+    dz, dy, dx = PHASE_OFFSETS[phase - 1]
+    glob = ((base[2] + s % sx) * mx + x + dx, (base[1] + (s // sx) % sy) * my + y + dy,
+            (base[0] + s // (sx * sy)) * mz + z + dz)
+    shift = [-box if v < 0 else (box if v >= m else 0.0) for v in glob]
+    gy, gx = my + 2, mx + 2
+    ghost = lambda dz, dy, dx: s * (mz + 2) * gy * gx + ((z + 1 + dz) * gy + y + 1 + dy) * gx + x + 1 + dx  # noqa: E731
+    return ghost(0, 0, 0), ghost(dz, dy, dx), shift
 
 
 def _check_ghost_geometry(config: CellDenseConfig, mx: int, energy: bool, mol: bool, ne: int) -> None:
-    """Refuse what K5s's C entry would refuse, before any launch: M ≥ 3, C
-    ≤ MAX_CAPACITY and a block's shared memory (`ghost_smem_bytes`) within
+    """Refuse what K5s's C entries would refuse, before any launch: M ≥ 3,
+    C ≤ MAX_CAPACITY and a block's shared memory (`ghost_smem_bytes`) within
     what Hopper gives a block."""
     m, c = config.cells_per_dim, config.capacity
     smem = ghost_smem_bytes(mx, c, energy, mol, ne)
@@ -257,19 +289,19 @@ def _ptr(t):
 def k5c_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) -> dict:
     """The K5c variant that these flags and tags (`excl`, as
     `cell_forces_streaming` takes them) select at C, as the card reports it
-    (`cudaFuncGetAttributes`, `cudaOccupancyMaxActiveBlocksPerMultiprocessor`):
-    registers and local (spill) bytes a thread, shared bytes and warps a
-    block, and resident blocks an SM.  Launches nothing."""
-    ne = 0 if excl is None else excl[0].shape[-1]
-    bond = None if excl is None or len(excl) < 4 else excl[3]
-    neb = 0 if bond is None else bond[0].shape[-1]
-    out = (ctypes.c_int * 4)()
-    err = build.load().emdee_streaming_mol_attrs(config.capacity, ne, neb, int(coulomb is not None),
-                                                 int(excl is not None), int(bond is not None), int(compute_energy),
-                                                 ctypes.addressof(out))
-    build.check(err, "cell_forces_streaming resource query (molecular)")
-    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2], "warps_per_block": _OWNED_WARPS,
-            "blocks_per_sm": out[3]}
+    (`cell_kernel.resources`)."""
+    ne, neb, bond = tag_counts(excl)
+    return resources("emdee_streaming_mol_attrs", "cell_forces_streaming (molecular)", config.capacity, ne, neb,
+                     int(coulomb is not None), int(excl is not None), int(bond is not None), int(compute_energy))
+
+
+def k5s_mol_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) -> dict:
+    """The K5s-mol variant that these flags and centre tags (`excl`, as
+    `streaming_ghost_forces` takes them) select at C, as the card reports
+    it (`cell_kernel.resources`)."""
+    return resources("emdee_streaming_ghost_mol_attrs", "cell_forces_streaming (ghost grid, molecular)",
+                     config.capacity, tag_counts(excl)[0], int(coulomb is not None), int(excl is not None),
+                     int(compute_energy))
 
 
 def cell_forces_streaming_split(
@@ -336,27 +368,40 @@ def streaming_ghost_forces(ghost, shards, base, config: CellDenseConfig, model: 
     nr = 5 if compute_energy else 3
     n_sh = sz * sy * sx
     out = torch.empty((nr, n_sh * mz * my * mx * c), dtype=torch.float32, device=dev)
-    groups = torch.empty((_ROW_GROUPS + 1, nr, n_sh * mz * my, gx * c), dtype=torch.float32, device=dev)
     react = torch.empty((nr,) + tuple(ghost.shape[1:]), dtype=torch.float32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    params = (ghost[3], ghost[4]) if uniform_params is None else (None, None)
-    q = ghost[5] if coulomb is not None else None
-    aid = ghost[-1] if excl is not None else None
-    consts = (None,) * 6 if coulomb is None else _dsf_operands(coulomb, dev)
+    params = (None, None) if uniform_params is not None else (ghost[3].data_ptr(), ghost[4].data_ptr())
+    geometry = (mz, my, mx, n_sh, sy, sx, *base, config.cells_per_dim, c,
+                box_ptr(config.box if box is None else box, ghost))
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = build.load()
-    err = lib.emdee_streaming_ghost(
-        ghost[0].data_ptr(), ghost[1].data_ptr(), ghost[2].data_ptr(), *map(ptr, params), ptr(q), ptr(aid),
-        ptr(ids), ptr(mlj), ptr(mcs), ne, *map(ptr, consts), out.data_ptr(), groups.data_ptr(), mz, my, mx, n_sh,
-        sy, sx, *base, config.cells_per_dim, c, box_ptr(config.box if box is None else box, ghost),
-        *_pair_consts(config, uniform_params), int(uniform_params is not None), int(coulomb is not None),
-        int(excl is not None), int(compute_energy), stream,
-    )
-    build.check(err, "cell_forces_streaming kernel (ghost grid)")
-    LAUNCHES += 1
-    err = lib.emdee_streaming_ghost_assemble(out.data_ptr(), groups.data_ptr(), react.data_ptr(), mz, my, mx, n_sh, c,
-                                             int(compute_energy), stream)
-    build.check(err, "cell_forces_streaming assembly (ghost grid)")
+    xyz = (ghost[0].data_ptr(), ghost[1].data_ptr(), ghost[2].data_ptr())
+    if mol:
+        scratch = torch.empty(ghost_mol_scratch_bytes(n_sh, (mz, my, mx), c, compute_energy) // 4,
+                              dtype=torch.float32, device=dev)
+        q = ghost[5] if coulomb is not None else None
+        aid = ghost[-1] if excl is not None else None
+        consts = (None,) * 6 if coulomb is None else _dsf_operands(coulomb, dev)
+        err = lib.emdee_streaming_ghost_mol(
+            *xyz, *params, _ptr(q), _ptr(aid), _ptr(ids), _ptr(mlj), _ptr(mcs), ne, *map(_ptr, consts),
+            scratch.data_ptr(), *geometry, *_pair_consts(config, None)[:8], int(coulomb is not None),
+            int(excl is not None), int(compute_energy), stream,
+        )
+        build.check(err, "cell_forces_streaming kernel (ghost grid, molecular)")
+        LAUNCHES += 1
+        err = lib.emdee_streaming_ghost_assemble_mol(out.data_ptr(), scratch.data_ptr(), react.data_ptr(), mz, my, mx,
+                                                     n_sh, c, int(compute_energy), stream)
+        build.check(err, "cell_forces_streaming assembly (ghost grid, molecular)")
+    else:
+        groups = torch.empty((_ROW_GROUPS + 1, nr, n_sh * mz * my, gx * c), dtype=torch.float32, device=dev)
+        err = lib.emdee_streaming_ghost(
+            *xyz, *params, out.data_ptr(), groups.data_ptr(), *geometry, *_pair_consts(config, uniform_params),
+            int(uniform_params is not None), int(compute_energy), stream,
+        )
+        build.check(err, "cell_forces_streaming kernel (ghost grid)")
+        LAUNCHES += 1
+        err = lib.emdee_streaming_ghost_assemble(out.data_ptr(), groups.data_ptr(), react.data_ptr(), mz, my, mx,
+                                                 n_sh, c, int(compute_energy), stream)
+        build.check(err, "cell_forces_streaming assembly (ghost grid)")
     LAUNCHES += 1
     f = out[:3].reshape((3,) + local)
     if compute_energy:

@@ -1,0 +1,116 @@
+"""A/B the molecular resident kernel (K2c) against other versions of its
+source on the card, in one process: the checkout's `csrc/cell_forces.cu` (A,
+through `cell_kernel.cell_forces`) and the one in each `DIR` (B, C, …, each
+built alone into `build/emdee_tpu_torch/ab_mol_<i>.so`, with the checkout's
+`lj_pair.cuh` unless `DIR` has one), on the 98,304-atom water box of
+`tools/water.py` (M = 12, C = 80; the lattice with every atom moved by up
+to 0.3 Å on each axis, numpy seed 1), DSF and the water's tags with and
+without the bond tags.
+
+Run from the repository root on a machine with a CUDA card, with the other
+versions from an unpacked parent commit or a kept working copy:
+
+    python3 -m emdee_tpu_torch.tools.ab_mol DIR [DIR ...]
+
+It prints, with `nvidia-smi`'s card name and power limit, whether each
+version's forces, energies and virials equal A's bit for bit, and the
+CUDA-event ms of the step launch (bond tags) and the energy launch (no bond
+tags) of every version in turns, forwards and back.  Each version must
+keep the C entry `emdee_cell_forces_mol` with A's signature.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from emdee_tpu_torch.csrc import build
+
+
+def _load(src_dir: Path, i: int) -> ctypes.CDLL:
+    lib_path = build.BUILD_DIR / f"ab_mol_{i}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    include = src_dir if (src_dir / "lj_pair.cuh").exists() else build.CSRC
+    build._run([[build._nvcc(), *build.NVCC_FLAGS, "-I", str(include), "-shared", "-o", str(lib_path),
+                 str(src_dir / "cell_forces.cu")]])
+    lib = ctypes.CDLL(str(lib_path))
+    lib.emdee_cell_forces_mol.argtypes = build._SIGNATURES["emdee_cell_forces_mol"]
+    lib.emdee_cell_forces_mol.restype = ctypes.c_int
+    return lib
+
+
+def _call(lib, st, config, coul, excl, energy):
+    """One launch of `lib`'s K2c entry, as `cell_kernel._launch_mol` makes it."""
+    from emdee_tpu_torch.neighbors.cell_dense import _box_of, box_ptr
+    from emdee_tpu_torch.neighbors.cell_kernel import _pair_consts, mol_operands, stacked_operands
+
+    operands, (forces, e, w) = stacked_operands(st, config, None, energy)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb, *consts = mol_operands(st, config, coul, excl)
+    build.check(lib.emdee_cell_forces_mol(
+        operands[0].data_ptr(), ptr(operands[4]), ptr(operands[5]), operands[6].data_ptr(), ptr(q), ptr(aid),
+        ptr(ids), ptr(mlj), ptr(mcs), ptr(kb), ptr(kr0), ptr(kr02), ne, neb, *map(ptr, consts), forces.data_ptr(),
+        ptr(e), ptr(w), config.cells_per_dim, config.capacity, box_ptr(_box_of(st, config), operands[0]),
+        *_pair_consts(config, None)[:8], 1, 1, int(kb is not None), int(energy),
+        torch.cuda.current_stream(st.positions.device).cuda_stream,
+    ), "K2c (A/B version)")
+    return forces, e, w
+
+
+def _ms(fn, reps: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main(dirs) -> None:
+    from emdee_tpu_torch import build_exclusion_tables, cell_dense_init, make_exclusion_aux_fn
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
+    from emdee_tpu_torch.tools import water
+
+    if not torch.cuda.is_available() or not dirs:
+        raise SystemExit("ab_mol: needs a CUDA device and at least one DIR")
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    device = torch.device("cuda", 0)
+    libs = {"A": None, **{chr(ord("B") + i): _load(Path(d), i) for i, d in enumerate(dirs)}}
+    box, config, model, coul, params = water.water_setup(device, spill=False)
+    n = len(box["masses"])
+    pos = box["positions"] + np.random.default_rng(1).uniform(-0.3, 0.3, box["positions"].shape)
+    st = cell_dense_init(pos, box["velocities"], box["masses"], params, config, charges=box["charges"], device=device)
+    tabs, _, bond_tabs, _ = build_exclusion_tables(n, box["exclusion_pairs"], box["exclusion_scales"], None,
+                                                   bonds=(box["bonds"], box["bond_k"], box["bond_r0"]))
+    tags = make_exclusion_aux_fn(n, *tabs, bond_tabs=bond_tabs)(st)
+    print(f"{smi}: K2c A/B at {n} atoms, M={config.cells_per_dim} C={config.capacity}; A = the checkout, "
+          + ", ".join(f"{k} = {d}" for k, d in zip(list(libs)[1:], dirs)), flush=True)
+    for excl, energy, what in ((tags, False, "step launch (bond tags)"), (tags[:3], True, "energy launch")):
+        run = {k: (lambda lib=lib: cell_forces(st, model, config, compute_energy=energy, backend="cuda",
+                                               coulomb=coul, excl=excl) if lib is None
+                   else _call(lib, st, config, coul, excl, energy)) for k, lib in libs.items()}
+        ref = run["A"]()
+        same = {}
+        for k in list(libs)[1:]:
+            got = run[k]()
+            torch.cuda.synchronize()
+            same[k] = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                          for a, b in zip(ref, got) if a is not None)
+        times = {k: [] for k in libs}
+        for k in list(libs) + list(libs)[::-1]:
+            times[k].append(_ms(run[k]))
+        print(f"{smi}: {what}: bit for bit A " + ", ".join(f"{k} {v}" for k, v in same.items()) + "; ms "
+              + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v) for k, v in times.items()), flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

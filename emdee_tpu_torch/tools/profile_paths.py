@@ -13,13 +13,17 @@ family; and the molecular engines on the 98,304-atom flexible-water box of
 ensembles: the 1M melt on the grid (1,1,1) at M = 37 on 'auto' (K5s and the
 fold) and on (2,2,2) at M = 36, C = 40 on 'cuda_streaming' and on 'cuda'
 (K2-G), Langevin and NPT (on 'auto' and on 'cuda_streaming') on the
-97,556-atom melt at (2,2,2), M = 16.
+97,556-atom melt at (2,2,2), M = 16.  `water1m`: the 985,527-atom water
+box (69³ waters, M = 26, C = 88) on the grid (2,2,2) on 'auto' (K5s-mol,
+bonds and angles as term rows) from the lattice start, with windows of 100
+steps and a profiled window of 40.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 -m emdee_tpu_torch.tools.profile_paths [water | grid]
+    python3 -m emdee_tpu_torch.tools.profile_paths [water | grid | water1m]
 
-(`water`, `grid`: those paths alone.)
+(`water`, `grid`, `water1m`: those paths alone; `water1m` is not in the
+default run.)
 
 For each path, after 60 steps of warm-up: the unprofiled ms/step of three
 600-step windows (host clock around work that ends in a synchronize), then
@@ -51,13 +55,13 @@ def _sync_ms(fn, steps: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / steps
 
 
-def profile_path(name, rollout, state, rebin_every, **kw):
+def profile_path(name, rollout, state, rebin_every, window=WINDOW, profiled=PROFILED, **kw):
     run = lambda steps: rollout(state, num_steps=steps, rebin_every=rebin_every, **kw)  # noqa: E731
     run(WARMUP)
-    windows = [_sync_ms(run, WINDOW) for _ in range(WINDOWS)]
+    windows = [_sync_ms(run, window) for _ in range(WINDOWS)]
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        run(PROFILED)
+        run(profiled)
         torch.cuda.synchronize()
     kernels = Counter()
     kernel_us = Counter()
@@ -68,10 +72,10 @@ def profile_path(name, rollout, state, rebin_every, **kw):
             kernel_us[e.name] += e.device_time_total
         elif e.name.startswith("cuda") and e.name[4:5].isupper():
             runtime[e.name] += 1
-    busy_ms = sum(kernel_us.values()) / 1e3 / PROFILED
+    busy_ms = sum(kernel_us.values()) / 1e3 / profiled
     best = min(windows)
     top = [
-        {"kernel": k[:80], "us_per_step": kernel_us[k] / PROFILED, "per_step": kernels[k] / PROFILED}
+        {"kernel": k[:80], "us_per_step": kernel_us[k] / profiled, "per_step": kernels[k] / profiled}
         for k, _ in kernel_us.most_common(6)
     ]
     result = {
@@ -79,8 +83,8 @@ def profile_path(name, rollout, state, rebin_every, **kw):
         "ms_per_step": windows,
         "device_busy_ms_per_step": busy_ms,
         "busy_share_of_best_window": busy_ms / best,
-        "device_kernels_per_step": sum(kernels.values()) / PROFILED,
-        "runtime_calls_per_step": {k: v / PROFILED for k, v in runtime.most_common()},
+        "device_kernels_per_step": sum(kernels.values()) / profiled,
+        "runtime_calls_per_step": {k: v / profiled for k, v in runtime.most_common()},
         "top_kernels": top,
     }
     print(f"{name}: ms/step {', '.join(f'{w:.4f}' for w in windows)}; device busy {busy_ms:.4f} ms/step "
@@ -118,6 +122,26 @@ def profile_water(device) -> None:
         excl_tables=build_exclusion_tables(n, box["exclusion_pairs"], box["exclusion_scales"], None))
     profile_path("grid water (2,2,2) (DSF + tags in K2c-G, bonded term rows)", grid, distribute_grid(start, cfg, mesh),
                  water.REBIN_EVERY)
+
+
+def profile_water_1m(device) -> None:
+    from emdee_tpu_torch import build_exclusion_tables, cell_dense_init
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, make_grid_sharded_sim
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.tools import water
+
+    box, cfg, model, coul, params = water.water_setup(device, n_side=water.N_SIDE_1M, spill=False)
+    n = len(box["masses"])
+    st = cell_dense_init(box["positions"], box["velocities"], box["masses"], params, cfg, charges=box["charges"],
+                         device=device)
+    mesh = make_grid_mesh((2, 2, 2), device=device)
+    grid, _ = make_grid_sharded_sim(
+        cfg, model, water.DT, mesh, coulomb=coul, bonded=water.bonded_system(box, device),
+        excl_tables=build_exclusion_tables(n, box["exclusion_pairs"], box["exclusion_scales"], None))
+    print(f"{n} atoms (water), M={cfg.cells_per_dim} C={cfg.capacity}, grid (2,2,2) on {grid.family!r}, rebin every "
+          f"{water.REBIN_EVERY} steps, from the lattice start", flush=True)
+    profile_path("985,527 water grid (2,2,2) 'auto' (DSF + tags in K5s-mol, bonded term rows)", grid,
+                 distribute_grid(st, cfg, mesh), water.REBIN_EVERY, window=100, profiled=40)
 
 
 def profile_grid(device) -> None:
@@ -174,8 +198,8 @@ def main(paths: str = "all") -> None:
     ).stdout.strip()
     print(smi, flush=True)
     device = torch.device("cuda", 0)
-    if paths in ("water", "grid"):
-        (profile_water if paths == "water" else profile_grid)(device)
+    if paths in ("water", "grid", "water1m"):
+        {"water": profile_water, "grid": profile_grid, "water1m": profile_water_1m}[paths](device)
         return
     from emdee_tpu_torch import (
         CSVRConfig, LangevinConfig, cell_dense_init, make_cell_dense_sim, make_straggler_sim,

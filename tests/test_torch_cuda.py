@@ -544,6 +544,48 @@ def test_molecular_kernel_matches_plain(device, variant):
     assert cell_kernel.LAUNCHES == before + 2
 
 
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2)])
+@pytest.mark.parametrize("capacity", [24, 80, 88])
+def test_k2c_matches_plain_reruns_bitwise_and_equals_k2c_g(device, capacity, shape):
+    """K2c (the culled kernel with per-lane lists) on the charged fixture at
+    C = 24, 80, 88 (one to three warps a cell): with and without the bond
+    tags and energies, within 2e-4 of the force scale and 1e-3 of its plain
+    version, empty slots exactly 0, a second call bitwise equal; without the
+    bond tags its forces, energies and virials bit for bit K2c-G's (the
+    resident full-shell GHOST mode) on the same state sharded over `shape`:
+    the cull and the lists drop no pair and reorder no sum."""
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, gather_grid_state
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    st, config, model, coul, tags = fixtures.charged_fixture(device, capacity)
+    v = st.valid
+    for excl in (tags, tags[:3]):
+        for energy in (False, True):
+            kw = dict(compute_energy=energy, coulomb=coul, excl=excl)
+            got = cell_kernel.cell_forces(st, model, config, backend="cuda", **kw)
+            again = cell_kernel.cell_forces(st, model, config, backend="cuda", **kw)
+            fp, ep, wp = cell_kernel.cell_forces(st, model, config, backend="torch", **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+            scale = max(float(fp[v].abs().max()), 1.0)
+            assert float((got[0] - fp)[v].abs().max()) <= 2e-4 * scale
+            assert bool((got[0][~v] == 0).all())
+            if energy:
+                for a, b in ((got[1], ep), (got[2], wp)):
+                    assert float((a - b)[v].abs().max()) <= 1e-3
+                    assert bool((a[~v] == 0).all())
+    ref = cell_kernel.cell_forces(st, model, config, compute_energy=True, backend="cuda", coulomb=coul, excl=tags[:3])
+    mesh = make_grid_mesh(shape, device=device)
+    sh = distribute_grid(st, config, mesh)
+    shard = lambda t: distribute_grid(st._replace(positions=t), config, mesh).positions  # noqa: E731
+    gh = _ghost_stack(sh, mesh, coulomb=True, excl=True)
+    f, e, w = cell_kernel.ghost_forces(gh, mesh.local_shape, mesh.base, config, model, compute_energy=True,
+                                       backend="cuda", coulomb=coul, excl=tuple(shard(t) for t in tags[:3]))
+    k = gather_grid_state(sh._replace(positions=f.movedim(0, -1), half_sigma=e, twice_sqrt_eps=w), config, mesh)
+    for a, b in zip((k.positions, k.half_sigma, k.twice_sqrt_eps), ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_molecular_water_rollout_matches_plain_and_reruns_bitwise(device):
     """A 1,536-atom flexible-water box (`tools/water.py`, 8³ waters, M = 3)
     on 'cuda' (bonds absorbed in K2c) against 'torch' (the gather path)
@@ -675,59 +717,79 @@ _CULL_PAIRS = (
 )
 
 
-def _cull_pairs_state(device, capacity):
+def _cull_pairs_state(device, capacity, bonded=True, copies=1):
     """The `_CULL_PAIRS` box on the port: (state, config, LJ model, DSF
-    model, slot tags with the bond weights).  Each pair is a harmonic bond
-    (k = 40, r0 = 1.1) with its LJ and Coulomb excluded, charges ±0.4."""
+    model, slot tags, exclusion tables).  bonded: each pair is a harmonic
+    bond (k = 40, r0 = 1.1) with its LJ and Coulomb excluded, the tags
+    carry the bond weights; else each pair's LJ is excluded and its DSF
+    Coulomb kept, no bond.  Charges ±0.4.  copies = 2: the 12³ box tiled
+    2 × 2 × 2 into a 24³ box of 8³ cells (the same periodic system, every
+    atom with its one partner, some pairs now across the inner faces at 12),
+    so that (2,4,1) has two cell layers a shard."""
     from emdee_tpu_torch import (
         DSFCoulomb, LennardJonesModel, build_exclusion_tables, cell_dense_init, lennard_jones_atom,
         make_exclusion_aux_fn,
     )
 
-    pos = np.array([p for a, b, _ in _CULL_PAIRS for p in (a, b)], np.float64)
-    n = len(pos)
-    config = suggest_cell_dense_config(n, 12.0, cutoff=fixtures.CUTOFF, switch=fixtures.SWITCH,
+    base = np.array([p for a, b, _ in _CULL_PAIRS for p in (a, b)], np.float64)
+    tiles = 12.0 * np.array([(i, j, k) for i in range(copies) for j in range(copies) for k in range(copies)])
+    pos = (base[None] + tiles[:, None]).reshape(-1, 3)
+    n, edge = len(pos), 12.0 * copies
+    config = suggest_cell_dense_config(n, edge, cutoff=fixtures.CUTOFF, switch=fixtures.SWITCH,
                                        skin=fixtures.CHARGED_SKIN)._replace(capacity=capacity)
     q = np.tile(np.array([0.4, -0.4], np.float32), n // 2)
     st = cell_dense_init(pos, np.zeros_like(pos), np.ones(n), lennard_jones_atom(np.ones(n), np.ones(n),
                          device=device), config, charges=q, device=device)
     for a, b, x in _CULL_PAIRS:
-        if x is not None:
-            hit = st.valid & ((st.positions - torch.tensor(b, dtype=torch.float32, device=device)).abs()
+        for t in tiles if x is not None else ():
+            hit = st.valid & ((st.positions - torch.tensor(b + t, dtype=torch.float32, device=device)).abs()
                               .amax(-1) < 1e-5)
             assert int(hit.sum()) == 1
             st = st._replace(positions=torch.where(hit[..., None] & (torch.arange(3, device=device) == 0),
-                                                   torch.tensor(x, dtype=torch.float32, device=device),
+                                                   torch.tensor(x + t[0], dtype=torch.float32, device=device),
                                                    st.positions))
-    bonds = np.arange(n).reshape(-1, 2)
+            pos[np.all(np.abs(pos - (b + t)) < 1e-5, axis=1), 0] = x + t[0]
+    d = pos[:, None] - pos[None]
+    d -= edge * np.round(d / edge)
+    bonds = np.argwhere(np.triu((d * d).sum(-1) < fixtures.CUTOFF**2, 1))  # each atom's one partner
+    assert len(bonds) == n // 2
     zeros = np.zeros(len(bonds), np.float32)
-    tabs, _, bond_tabs, _ = build_exclusion_tables(
-        n, bonds, zeros, zeros, bonds=(bonds, np.full(len(bonds), 40.0, np.float32), np.full(len(bonds), 1.1,
-                                                                                              np.float32)))
-    tags = make_exclusion_aux_fn(n, *tabs, bond_tabs=bond_tabs)(st)
+    if bonded:
+        tabs, _, bond_tabs, _ = build_exclusion_tables(
+            n, bonds, zeros, zeros, bonds=(bonds, np.full(len(bonds), 40.0, np.float32),
+                                           np.full(len(bonds), 1.1, np.float32)))
+        tags = make_exclusion_aux_fn(n, *tabs, bond_tabs=bond_tabs)(st)
+    else:
+        tabs = build_exclusion_tables(n, bonds, zeros, np.ones(len(bonds), np.float32))
+        tags = make_exclusion_aux_fn(n, *tabs)(st)
     coul = DSFCoulomb.create(fixtures.CUTOFF, alpha=0.25, coulomb_constant=1.0, device=device)
-    return st, config, LennardJonesModel.create(fixtures.CUTOFF, fixtures.SWITCH, device=device), coul, tags
+    return st, config, LennardJonesModel.create(fixtures.CUTOFF, fixtures.SWITCH, device=device), coul, tags, tabs
 
 
 @pytest.mark.parametrize("capacity", [24, 88])
-def test_k5c_cull_keeps_bonded_pairs_just_inside_the_cutoff(device, capacity):
-    """K5c's cull drops no pair inside the cutoff across a face, an edge or
-    a corner offset, the periodic seam, or an atom's overhang
-    (`_CULL_PAIRS`).  The switched LJ and the shifted-force DSF vanish at
-    the cutoff and could not show a dropped pair; each pair's bond force
-    there is ~55, beyond the 2e-4-of-scale gate by more than a hundredfold,
-    so a cull a few hundredths too tight fails it."""
-    st, config, model, coul, tags = _cull_pairs_state(device, capacity)
+@pytest.mark.parametrize("kernel", ["K5c", "K2c"])
+def test_k5c_cull_keeps_bonded_pairs_just_inside_the_cutoff(device, kernel, capacity):
+    """K5c's cull (and K2c's: the warp's centre box against each neighbour
+    cell) drops no pair inside the cutoff across a face, an edge or a corner
+    offset, the periodic seam, or an atom's overhang (`_CULL_PAIRS`).  The
+    switched LJ and the shifted-force DSF vanish at the cutoff and could not
+    show a dropped pair; each pair's bond force there is ~55, beyond the
+    2e-4-of-scale gate by more than a hundredfold, so a cull a few
+    hundredths too tight fails it; each atom's force is also held within
+    1e-3 of its own magnitude."""
+    fn = streaming_kernel.cell_forces_streaming if kernel == "K5c" else cell_kernel.cell_forces
+    st, config, model, coul, tags, _ = _cull_pairs_state(device, capacity)
     v = st.valid
     for energy in (False, True):
         kw = dict(compute_energy=energy, coulomb=coul, excl=tags)
-        got = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", **kw)
-        fp, ep, wp = streaming_kernel.cell_forces_streaming(st, model, config, backend="torch", **kw)
+        got = fn(st, model, config, backend="cuda", **kw)
+        fp, ep, wp = fn(st, model, config, backend="torch", **kw)
         torch.cuda.synchronize()
         scale = max(float(fp[v].abs().max()), 1.0)
         tol = 2e-4 * scale
         assert float(fp[v].norm(dim=-1).min()) > 100 * tol  # every atom feels its bond
         assert float((got[0] - fp)[v].abs().max()) <= tol
+        assert bool(((got[0] - fp)[v].norm(dim=-1) <= 1e-3 * fp[v].norm(dim=-1)).all())
         if energy:
             for a, b in ((got[1], ep), (got[2], wp)):
                 assert float((a - b)[v].abs().max()) <= 1e-3
@@ -922,11 +984,105 @@ def test_streaming_ghost_molecular_kernel_matches_plain(device, variant, capacit
     _k5s_vs_plain(sh, mesh, config, model, one, 2e-4, 1e-3, 1e-3, 0.0, coulomb=c, excl=ghost_tags)
 
 
+def _grid_charged_m8(device, capacity):
+    """The grid's charged fixture (2,048 atoms, box 28.3) on M = 8 cells at
+    capacity C, drifted 0.45·skin along the velocities: (state, config, LJ
+    model, DSF model, slot tags), so that (2,4,1) has two cell layers a
+    shard."""
+    from emdee_tpu_torch import make_exclusion_aux_fn
+
+    a = fixtures.grid_charged_arrays()
+    config = fixtures.grid_charged_config(a)._replace(cells_per_dim=8, capacity=capacity)
+    st = cell_dense_init(a["pos"], a["vel"], np.ones(a["n"]), lennard_jones_atom(np.ones(a["n"]), np.ones(a["n"]),
+                         device=device), config, charges=a["q"], device=device)
+    assert not bool(st.overflow)
+    v = st.velocities
+    st = st._replace(positions=torch.where(
+        st.valid[..., None], st.positions + (0.45 * fixtures.CHARGED_SKIN / float(v.abs().max())) * v, 0.0))
+    kw = fixtures.grid_charged_kwargs(device)
+    tags = make_exclusion_aux_fn(a["n"], *kw["excl_tables"])(st)
+    return st, config, LennardJonesModel.create(fixtures.CUTOFF, fixtures.SWITCH, device=device), kw["coulomb"], tags
+
+
+@pytest.mark.parametrize("capacity", [24, 40, 88])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 4, 1)])
+def test_k5s_mol_matches_plain_on_every_mesh_shape(device, shape, capacity):
+    """K5s-mol (warp-owned cells with the cull on the ghost grids) with DSF
+    and the tags over (1,1,1) (the 864-atom charged fixture) and (2,4,1)
+    (the grid's charged fixture at M = 8; the (2,2,2) cases are above), C =
+    24, 40, 88: against its plain version within 2e-4 of the force scale and
+    1e-3 in energies and virials, reruns bitwise, after the fold against
+    the one-card K5c."""
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    if shape == (1, 1, 1):
+        st, config, model, coul, tags = fixtures.charged_fixture(device, capacity)
+    else:
+        st, config, model, coul, tags = _grid_charged_m8(device, capacity)
+    one = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", coulomb=coul, excl=tags[:3])[0]
+    mesh = make_grid_mesh(shape, device=device)
+    sh = distribute_grid(st, config, mesh)
+    shard = lambda t: distribute_grid(st._replace(positions=t), config, mesh).positions  # noqa: E731
+    _k5s_vs_plain(sh, mesh, config, model, one, 2e-4, 1e-3, 1e-3, 0.0, coulomb=coul,
+                  excl=tuple(shard(t) for t in tags[:3]))
+    res = streaming_kernel.k5s_mol_resources(config, coul, tags[:3], True)
+    assert res["registers"] > 0 and res["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (2, 4, 1)])
+@pytest.mark.parametrize("capacity", [24, 88])
+def test_k5s_mol_cull_keeps_pairs_just_inside_the_cutoff(device, capacity, shape):
+    """K5s-mol's cull drops no pair inside the cutoff (`_CULL_PAIRS` tiled
+    into a 24³ box of 8³ cells: a face, an edge and a corner offset, the
+    periodic seam, an overhang, and on these meshes shard faces, some of
+    them seams) on the ghost grids.
+    The grid keeps its bonds as term rows, so each pair is held by its DSF
+    Coulomb alone (its LJ excluded by the tags): at r = rc − 0.02…0.03 the
+    shifted force is small, and each atom's force is held within 1e-3 of its
+    own magnitude, before the fold against the plain ghost pass and after
+    it against the one-card plain forces; a dropped pair misses by all of
+    it."""
+    from emdee_tpu_torch import make_exclusion_aux_fn
+    from emdee_tpu_torch.distributed.grid_sharded import _fold3, distribute_grid, gather_grid_state
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    st, config, model, coul, _, tabs = _cull_pairs_state(device, capacity, bonded=False, copies=2)
+    n = config.num_atoms
+    one = streaming_kernel.cell_forces_streaming(st, model, config, backend="torch", coulomb=coul,
+                                                 excl=make_exclusion_aux_fn(n, *tabs)(st)[:3])[0]
+    v1 = st.valid
+    assert float(one[v1].norm(dim=-1).min()) > 1e-4  # every atom feels its partner
+    mesh = make_grid_mesh(shape, device=device)
+    sh = distribute_grid(st, config, mesh)
+    gh = _ghost_stack(sh, mesh, coulomb=True, excl=True)
+    kw = dict(coulomb=coul, excl=make_exclusion_aux_fn(n, *tabs)(sh)[:3])
+    args = (gh, mesh.local_shape, mesh.base, config, model)
+    for energy in (False, True):
+        k = streaming_kernel.streaming_ghost_forces(*args, compute_energy=energy, backend="cuda", **kw)
+        p = streaming_kernel.streaming_ghost_forces(*args, compute_energy=energy, backend="torch", **kw)
+        torch.cuda.synchronize()
+        v = sh.valid
+        fk, fp = k[0].movedim(0, -1)[v], p[0].movedim(0, -1)[v]
+        assert bool(((fk - fp).norm(dim=-1) <= 1e-3 * fp.norm(dim=-1) + 1e-7).all())
+        live = ~torch.isnan(gh[0])
+        rk, rp = k[1][:3].movedim(0, -1)[live], p[1][:3].movedim(0, -1)[live]
+        assert bool(((rk - rp).norm(dim=-1) <= 1e-3 * rp.norm(dim=-1) + 1e-7).all())
+        if energy:
+            for a, b in ((k[2], p[2]), (k[3], p[3])):
+                assert float((a - b)[v].abs().max()) <= 1e-3
+        total = (k[0] + _fold3(k[1], mesh)[:3]).movedim(0, -1)
+        f = gather_grid_state(sh._replace(positions=total), config, mesh).positions[v1]
+        assert bool(((f - one[v1]).norm(dim=-1) <= 1e-3 * one[v1].norm(dim=-1)).all())
+
+
 def test_streaming_ghost_geometry_refusals_and_cpu(device):
-    """K5s refuses what its C entry would, before any launch: C > 96, and a
-    block's shared memory past Hopper's 232,448 B (a wide pencil at C = 96
-    with energies and eight tags); 'cuda' on CPU tensors and the
-    'cuda_streaming' family on a CPU mesh raise, with no fallback."""
+    """K5s refuses what its C entries would, before any launch: C > 96, and
+    a block's shared memory past Hopper's 232,448 B (an LJ pencil of 50
+    cells at C = 96 with energies; 49 fit); K5s-mol's warp-owned block,
+    whatever the pencil, takes the same row with eight tags; 'cuda' on CPU
+    tensors and the 'cuda_streaming' family on a CPU mesh raise, with no
+    fallback."""
     from emdee_tpu_torch.distributed import grid_sharded as gs
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
 
@@ -934,8 +1090,9 @@ def test_streaming_ghost_geometry_refusals_and_cpu(device):
     with pytest.raises(ValueError, match="C ≤ 96"):
         streaming_kernel._check_ghost_geometry(config._replace(capacity=104), 4, False, False, 0)
     with pytest.raises(ValueError, match="shared memory"):
-        streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 28, True, True, 8)
-    streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 27, True, True, 8)
+        streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 50, True, False, 0)
+    streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 49, True, False, 0)
+    streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 50, True, True, 8)
     wide = config._replace(capacity=104)
     gh = torch.full((5, 1, 1, 1, 5, 5, 5, 104), float("nan"), device=device)
     with pytest.raises(ValueError, match="C ≤ 96"):

@@ -251,11 +251,13 @@ def test_grid_auto_rule(m, c, shape, uniform, mol, mb, family):
 
 
 def test_k5s_shared_memory_fits_the_smoke_shapes():
-    """K5s's shared memory a block (`ghost_smem_bytes`, the C entry's
+    """K5s's shared memory a block (`ghost_smem_bytes`, the C entries'
     count) fits Hopper's 232,448 B at the shapes the grid runs it: the 1M
     melt's (1,1,1) pencil row (mx = 37, C = 32) and the 985,527-atom water
     box's (2,2,2) (mx = 13, C = 88, DSF and eight tags, with energies); the
-    geometry check refuses C > 96 and a pencil row too wide for a block."""
+    geometry check refuses C > 96 and an LJ pencil row too wide for a
+    block.  K5s-mol's warp-owned block (K5c's, no bond tags) does not grow
+    with the pencil row, so the same row is taken with the molecular terms."""
     from emdee_tpu_torch.neighbors import streaming_kernel as sk
 
     sk._check_ghost_geometry(_config(37, 32), 37, True, False, 0)
@@ -264,4 +266,6 @@ def test_k5s_shared_memory_fits_the_smoke_shapes():
     with pytest.raises(ValueError, match="C ≤ 96"):
         sk._check_ghost_geometry(_config(26, 104), 13, False, False, 0)
     with pytest.raises(ValueError, match="shared memory"):
-        sk._check_ghost_geometry(_config(60, 96), 60, True, True, 8)
+        sk._check_ghost_geometry(_config(60, 96), 60, True, False, 0)
+    sk._check_ghost_geometry(_config(60, 96), 60, True, True, 8)
+    assert sk.ghost_smem_bytes(60, 96, True, True, 8) == sk.ghost_smem_bytes(13, 96, True, True, 8)

@@ -8,12 +8,20 @@ half-shell offset and periodic shift; on the undrifted water lattice, the
 kept share of a centre cell against a face, an edge and a corner
 neighbour agrees with the geometric reckoning (0.84, 0.56, 0.31 at a cell
 of 8.29 Å and a cutoff of 7 Å) within 0.1; and K5c's block fits four to an
-SM at the water boxes' geometries.  No card is touched."""
+SM at the water boxes' geometries.  The same predicate as K5s-mol applies
+it on the grid's ghost grids, with the shift from the neighbour's global
+cell index (`streaming_kernel.ghost_phase`, held to the plain ghost pass's
+blocks), on the grid's charged fixture and a drifted (2,2,2) water box;
+and as K2c applies it (`cell_kernel.k2c_cull`: a warp's box of 32 centres
+against each of the 27 neighbour cells) on the 864-atom fixture and the
+water slice; and the two kernels' shared memory and K5s-mol's scratch at
+the smoke's shapes.  No card is touched."""
 
 import numpy as np
 import pytest
 import torch
 
+from emdee_tpu_torch.neighbors import cell_kernel
 from emdee_tpu_torch.neighbors import streaming_kernel as sk
 from emdee_tpu_torch.tools import fixtures, water
 
@@ -140,3 +148,192 @@ def test_k5c_blocks_fit_four_an_sm(geometry, energy):
     smem = sk.smem_bytes(config, energy, True, 2, 0 if energy else 2)
     assert smem == 4 * 4 * (2 * 8 * 96 + 3 * (2 if energy else 4) * 96 + 2 * (5 if energy else 3) * c)
     assert 4 * (smem + 1024) <= 233_472
+
+
+# ---------------------------------------------------------------------------
+# K5s-mol (the cull on the grid's ghost grids) and K2c (the warp's centre box
+# against each neighbour cell)
+# ---------------------------------------------------------------------------
+
+
+def _ghost_grid(st, config, shape):
+    """A state's positions as the grid engine's ghost grids on a CPU
+    `LocalMesh` (NaN in empty slots): ((shards·(mz+2)(my+2)(mx+2), C, 3),
+    the mesh)."""
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import LocalMesh
+
+    mesh = LocalMesh(shape, "cpu")
+    sh = gs.distribute_grid(st, config, mesh)
+    g = gs._ghost3(torch.where(sh.valid, sh.positions.movedim(-1, 0), float("nan")), mesh)
+    return g.movedim(0, -1).reshape(-1, config.capacity, 3), mesh
+
+
+def _check_ghost_cull(st, config, shape, cut2, edge_cells_only=False):
+    """For every own cell of the (2,2,2)-or-other mesh and every half-shell
+    offset, K5s-mol's cull (`cull_pair` with the shift `ghost_phase` takes
+    from the neighbour's global cell index, on the raw ghost coordinates)
+    keeps both atoms of every pair whose float32 r² is below cut2 (with a
+    margin of 1e-5); returns the pairs checked."""
+    gpos, mesh = _ghost_grid(st, config, shape)
+    m = config.cells_per_dim
+    local = tuple(m // s for s in shape)
+    n_own = int(np.prod(shape)) * int(np.prod(local))
+    checked = 0
+    for cell in range(n_own):
+        x, y, z = cell % local[2], (cell // local[2]) % local[1], (cell // (local[2] * local[1])) % local[0]
+        if edge_cells_only and all(0 < v < n - 1 for v, n in zip((z, y, x), local)):
+            continue
+        for phase in range(1, 14):
+            home, nbi, shift = sk.ghost_phase(cell, phase, shape, mesh.base, local, m, float(config.box))
+            cen, nb = gpos[home], gpos[nbi]
+            cen, nb = cen[~torch.isnan(cen[:, 0])], nb[~torch.isnan(nb[:, 0])]
+            if len(cen) == 0 or len(nb) == 0:
+                continue
+            shift = torch.tensor(shift, dtype=torch.float32)
+            keep_c, keep_n = sk.cull_pair(cen, nb, shift, cut2)
+            d = (cen[:, None, :] - nb[None, :, :]) - shift
+            r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+            inside = r2 < cut2 * (1 + 1e-5)
+            assert bool(keep_c[inside.any(1)].all()), (cell, phase)
+            assert bool(keep_n[inside.any(0)].all()), (cell, phase)
+            checked += int(inside.sum())
+    return checked
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (2, 5, 1)])
+def test_ghost_cull_keeps_every_inside_pair_on_the_grid_charged_fixture(shape):
+    """The grid's charged fixture (2,048 atoms, M = 10, as the reference's
+    grid test builds it), drifted 0.45·skin along the velocities across cell
+    faces, shard faces and the seam, on (2,2,2) and (2,5,1)."""
+    st, config, _ = fixtures.grid_charged_state("cpu")
+    v = st.velocities
+    st = st._replace(positions=torch.where(
+        st.valid[..., None], st.positions + (0.45 * fixtures.CHARGED_SKIN / float(v.abs().max())) * v, 0.0))
+    cut2 = max(float(config.cutoff) ** 2, float(fixtures.CUTOFF) ** 2)
+    assert _check_ghost_cull(st, config, shape, cut2) > 4_000
+
+
+def test_ghost_cull_keeps_every_inside_pair_on_a_drifted_water_slice():
+    """The 98,304-atom water box binned (M = 12), then every atom moved by
+    up to skin/2 on each axis (numpy seed 5), as between rebins, on (2,2,2):
+    the own cells on a shard face, whose neighbours lie in the ghost
+    layers, some across the seam."""
+    from emdee_tpu_torch import cell_dense_init
+
+    box, config, _, _, params = water.water_setup("cpu", spill=False)
+    st = cell_dense_init(box["positions"], box["velocities"], box["masses"], params, config,
+                         charges=box["charges"], device="cpu")
+    rng = np.random.default_rng(5)
+    drift = torch.from_numpy(rng.uniform(-0.5 * water.SKIN, 0.5 * water.SKIN, st.positions.shape).astype(np.float32))
+    st = st._replace(positions=torch.where(st.valid[..., None], st.positions + drift, 0.0))
+    assert _check_ghost_cull(st, config, (2, 2, 2), config.cutoff**2, edge_cells_only=True) > 1_000_000
+
+
+def _check_k2c_cull(pos, valid, m, box, cut2, cells):
+    """For each cell of `cells`, every warp of 32 live centres (slot order)
+    and each of the 27 neighbour cells, K2c's cull (`k2c_cull`, the warp's
+    centre box shifted back by the cell's periodic shift) keeps every
+    neighbour atom within the cutoff (float32 r², margin 1e-5) of a centre
+    of the warp; returns the pairs checked.  pos (M³, C, 3), valid (M³, C)."""
+    checked = 0
+    for cell in cells:
+        cen_all = pos[cell][valid[cell]]
+        z, y, x = cell // (m * m), (cell // m) % m, cell % m
+        for dz in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    idx, shift = [], []
+                    for v, d in zip((x, y, z), (dx, dy, dz)):
+                        shift.append(-box if v + d < 0 else (box if v + d >= m else 0.0))
+                        idx.append((v + d) % m)
+                    j = (idx[2] * m + idx[1]) * m + idx[0]
+                    nb = pos[j][valid[j]]
+                    shift = torch.tensor(shift, dtype=torch.float32)
+                    for w0 in range(0, len(cen_all) if len(nb) else 0, 32):
+                        cen = cen_all[w0:w0 + 32]
+                        keep = cell_kernel.k2c_cull(cen, nb, shift, cut2)
+                        d = (cen[:, None, :] - nb[None, :, :]) - shift
+                        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+                        inside = r2 < cut2 * (1 + 1e-5)
+                        assert bool(keep[inside.any(0)].all()), (cell, dz, dy, dx, w0)
+                        checked += int(inside.sum())
+    return checked
+
+
+@pytest.mark.parametrize("capacity", [None, 80])
+def test_k2c_cull_keeps_every_inside_pair_on_the_charged_fixture(capacity):
+    """The 864-atom fixture (drifted 0.45·skin across faces and the seam),
+    at C = 24 and at C = 80 (up to three warps a cell, each its own box)."""
+    st, config, _, coul, _ = fixtures.charged_fixture("cpu", capacity)
+    m = config.cells_per_dim
+    cut2 = max(float(config.cutoff) ** 2, float(coul.rc2))
+    assert _check_k2c_cull(st.positions, st.valid, m, float(config.box), cut2, range(m**3)) > 10_000
+
+
+def test_k2c_cull_keeps_every_inside_pair_on_a_drifted_water_slice(water_lattice):
+    """The water lattice binned, then every atom moved by up to skin/2 on
+    each axis (numpy seed 3): the cells of the z = 0 and z = M − 1 layers at
+    y ∈ {0, M − 1}, which meet every seam, their atoms in warps of 32."""
+    pos, cell_of, m, edge, cut2 = water_lattice
+    rng = np.random.default_rng(3)
+    cells = _cells(pos + rng.uniform(-0.5 * water.SKIN, 0.5 * water.SKIN, pos.shape), cell_of, m)
+    c = max(len(t) for t in cells)
+    stacked = torch.zeros((m**3, c, 3))
+    valid = torch.zeros((m**3, c), dtype=torch.bool)
+    for i, t in enumerate(cells):
+        stacked[i, : len(t)] = t
+        valid[i, : len(t)] = True
+    centres = [(z * m + y) * m + x for z in (0, m - 1) for y in (0, m - 1) for x in range(m)]
+    assert _check_k2c_cull(stacked, valid, m, edge, cut2, centres) > 100_000
+
+
+def test_k2c_and_k5s_mol_shared_memory_and_scratch_at_the_smoke_shapes():
+    """K2c's block (`cell_kernel.mol_smem_bytes`: four warps' tiles, lists,
+    tags and rank maps) at the water box's C = 80 (the step launch with E =
+    E_b = 2, the energy launch with E = 2) and from C = 256 on (a warp
+    stages at most 256 slots at once) with eight tags and bond tags, within
+    a block's 232,448 B.
+    K5s-mol's block at the 985,527-atom box (C = 88, E = 2, energies) is
+    K5c's without bond tags, and its scratch on (2,2,2) (8 shards of 13³
+    cells: 14 slices over 1,546,688 own slots and 13 over 2,376,000 ghost
+    slots) is 630.5 MB forces only and 1.05 GB with energies."""
+    assert cell_kernel.mol_smem_bytes(80, 2, 2) == 4 * 4 * (8 * 96 + 8 * 96 + 3 * 4 * 32 + 32) == 31_232
+    assert cell_kernel.mol_smem_bytes(80, 2, 0) == 28_160
+    assert cell_kernel.mol_smem_bytes(1024, 8, 8) == cell_kernel.mol_smem_bytes(256, 8, 8) == 90_624 <= 232_448
+    config = fixtures.charged_fixture("cpu")[1]
+    assert sk.ghost_smem_bytes(13, 88, True, True, 2) == sk.smem_bytes(config._replace(capacity=88), True, True, 2, 0)
+    assert sk.ghost_smem_bytes(13, 88, True, True, 2) == 47_872
+    assert sk.ghost_mol_scratch_bytes(8, (13, 13, 13), 88, False) == 630_499_584
+    assert sk.ghost_mol_scratch_bytes(8, (13, 13, 13), 88, True) == 1_050_832_640
+
+
+def test_ghost_phase_matches_the_plain_ghost_blocks():
+    """`ghost_phase`'s neighbour index is the block of the ghost grid that
+    the plain ghost pass takes for each offset (`ghost_tiles.block`), and
+    its shift is ±box exactly where the neighbour's global cell index
+    wraps, on (2,2,2) and (1,2,4) over M = 4."""
+    from emdee_tpu_torch import LennardJonesModel
+    from emdee_tpu_torch.neighbors.cell_kernel import ghost_tiles
+
+    m, c = 4, 2
+    for shape in ((2, 2, 2), (1, 2, 4)):
+        local = tuple(m // s for s in shape)
+        gz, gy, gx = (v + 2 for v in local)
+        n_sh = int(np.prod(shape))
+        index = torch.arange(n_sh * gz * gy * gx, dtype=torch.float32).reshape(n_sh, gz, gy, gx, 1)
+        ghost = index.expand(n_sh, gz, gy, gx, c).reshape((1, *shape, gz, gy, gx, c)).expand(5, *shape, gz, gy, gx, c)
+        config = fixtures.charged_fixture("cpu")[1]._replace(cells_per_dim=m, capacity=c)
+        t = ghost_tiles(ghost.contiguous(), config, LennardJonesModel.create(2.5, 2.0, device="cpu"), (0.5, 2.0), False)
+        base = (0, 0, 0)
+        for phase in range(1, 14):
+            dz, dy, dx = sk.PHASE_OFFSETS[phase - 1]
+            block = t.block(t.pos_g[..., 0], (dx, dy, dz))[:, 0]
+            for cell in range(n_sh * int(np.prod(local))):
+                home, nb, shift = sk.ghost_phase(cell, phase, shape, base, local, m, 12.0)
+                assert nb == int(block[cell]) and home == int(t.pos[cell, 0, 0])
+                x, y, z = cell % local[2], (cell // local[2]) % local[1], (cell // (local[2] * local[1])) % local[0]
+                s = cell // int(np.prod(local))
+                glob = ((s % shape[2]) * local[2] + x + dx, ((s // shape[2]) % shape[1]) * local[1] + y + dy,
+                        (s // (shape[2] * shape[1])) * local[0] + z + dz)
+                assert shift == [12.0 * ((v >= m) - (v < 0)) for v in glob]

@@ -168,12 +168,14 @@ def test_k5c_refuses_geometry_it_cannot_take(charged):
 def test_c_entries_match_ctypes_signatures():
     """Every `extern "C"` entry of csrc/ has a ctypes signature of the same
     arity and kinds (pointer, int, float, long), the K5c pair pass, its
-    fold, its resource query and the K2c-G entry among them."""
+    fold, its resource query, the K2c-G entry, K5s-mol's pair pass,
+    assembly and resource query and K2c's resource query among them."""
     kinds = {"int": "c_int", "float": "c_float", "long": "c_long"}
     src = "".join(p.read_text() for p in sorted(Path(build.CSRC).glob("*.cu")))
     entries = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
     assert {"emdee_streaming_forces_mol", "emdee_streaming_fold_mol", "emdee_streaming_mol_attrs",
-            "emdee_cell_forces_ghost_mol"} <= set(entries)
+            "emdee_cell_forces_ghost_mol", "emdee_streaming_ghost_mol", "emdee_streaming_ghost_assemble_mol",
+            "emdee_streaming_ghost_mol_attrs", "emdee_cell_forces_mol_attrs"} <= set(entries)
     assert set(entries) == set(build._SIGNATURES)
     for name, params in entries.items():
         want = ["c_void_p" if "*" in p else kinds[p.split()[0]] for p in params.split(",")]
