@@ -14,6 +14,23 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   wide config, through `cell_dense_init` and `make_cell_dense_sim`
   (equilibrates the melt 200 steps first), where `backend="auto"` resolves
   to the resident kernel family;
+- the portable engine (`make_force_fn`, the dynamics of
+  `emdee_tpu_torch/dynamics`; plain torch ops, no kernel) from the
+  equilibrated melt at the README example's config (cutoff 2.5, switch 2.0,
+  skin 0.3; 'auto' asserted to resolve to the neighbor list): its forces,
+  energies and virials against K2b's by atom id (rtol 1e-4, atol 5e-4);
+  NVE 1,000 steps (drift ≤ 1e-4, overflow false, exactly one host read a
+  step — the rebuild flag — counted by `update` and by the card's sync
+  warnings, no kernel launched, bitwise reruns); CSVR and Langevin, ten
+  blocks of 100 (mean T* of the last five within 2%), Berendsen NPT on the
+  CSVR step on a list that follows the box (200 steps: the pressure gap
+  shrinks, the box moves the way the pressure says, the list's virial at
+  the end box matches all-pairs'; `make_force_fn`'s own list at that box,
+  on the first box's geometry, measured: ROADMAP fault R10); on a
+  jittered FCC 14³ (10,976 atoms) all-pairs
+  against the list, LJ and DSF (rtol 1e-4, atol 2e-4), and FIRE (1,000
+  steps, max |F| below 2% of its start); the exclusion corrections on the
+  864-atom charged fixture (bitwise reruns);
 - the boundary-spill capacity mode on the same melt (M = 16, C = 32,
   squeezed toward 28 atoms a cell, this script's own choice; the script
   also measures how long the suggested capacity alone, the config users
@@ -126,7 +143,7 @@ import numpy as np
 import torch
 
 from emdee_tpu_torch.tools.melt import (
-    CUTOFF, DT, FRICTION, KAPPA, N_CELLS_1M, P_NPT, SKIN, SWITCH, T_NVT, TAU_P, TAU_T,
+    CUTOFF, DENSITY, DT, FRICTION, KAPPA, N_CELLS_1M, P_NPT, SKIN, SWITCH, T_NVT, TAU_P, TAU_T,
     equilibrate, even_config, melt, spill_config, straggler_config,
 )
 
@@ -2348,6 +2365,309 @@ def phase_gather_pass(device, tag, sconfig, model, uni, pos_eq, vel_eq, params, 
         f"bitwise equal ({time.perf_counter() - t0:.2f} s for both)")
 
 
+# ---------------------------------------------------------------------------
+# The portable engine: State, all-pairs, the neighbor list, make_force_fn
+# and the dynamics of emdee_tpu_torch/dynamics (plain torch ops, no kernel)
+# ---------------------------------------------------------------------------
+
+PORTABLE_DRIFT_GATE = 1e-4  # relative NVE drift, the bound of tests/test_verlet.py:39
+PORTABLE_FORCE_RTOL, PORTABLE_FORCE_ATOL = 1e-4, 5e-4  # vs K2b (tests/test_cell_dense.py:55-57)
+ALLPAIRS_ATOL = 2e-4  # all-pairs vs the list (tests/test_coulomb.py:96-99)
+PORTABLE_SKIN = 0.3  # README's portable example: NonbondedConfig(cutoff=2.5, switch=2.0, skin=0.3)
+SEED_PORTABLE = 13  # thermostat generators and the 10,976-atom lattice's jitter
+
+
+def host_syncs(fn):
+    """(fn's result, the host waits it made): every call that waits for the
+    device warns under `set_sync_debug_mode("warn")`, and the warnings are
+    counted."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, sum(str(w.message).startswith("called a synchronizing CUDA operation") for w in caught)
+
+
+def box_following_force_fn(nbc, model, params, cells_per_dim, cell_capacity, max_neighbors):
+    """A neighbor-list force function for a moving box, from the port's
+    primitives: the rebuild check, the rebuild and the pair pass each at
+    the box it is given.  The cell grid keeps the first box's M, which
+    covers the list cutoff while the box grows."""
+    from emdee_tpu_torch.core.types import FORCES
+    from emdee_tpu_torch.neighbors import api
+    from emdee_tpu_torch.neighbors.neighbor_force import compute_nonbonded_neighborlist
+    from emdee_tpu_torch.neighbors.neighbor_list import build_neighbor_list, needs_rebuild
+
+    list_cutoff, skin = nbc.cutoff + nbc.effective_skin, nbc.effective_skin
+
+    def force_fn(p, box_, nbrs):
+        if bool(needs_rebuild(nbrs, p, box_, skin)):
+            api.REBUILDS += 1
+            new = build_neighbor_list(p, box_, list_cutoff, cells_per_dim=cells_per_dim, cell_capacity=cell_capacity,
+                                      max_neighbors=max_neighbors)
+            nbrs = new._replace(overflow=new.overflow | nbrs.overflow)
+        return compute_nonbonded_neighborlist(p, box_, model, params, nbrs, outputs=FORCES).forces, nbrs
+
+    return force_fn
+
+
+def thermostat_blocks(label, block, st, aux, blocks=10):
+    """Run `blocks` blocks of `block(st, aux) → (st, aux)`; gate the mean
+    T* of the last half within T_GATE of T_NVT.  Returns (st, aux, T* per
+    block, seconds)."""
+    from emdee_tpu_torch.dynamics.observables import temperature
+
+    temps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(blocks):
+        st, aux = block(st, aux)
+        temps.append(float(temperature(st)))
+    seconds = time.perf_counter() - t0
+    t_last = float(np.mean(temps[blocks // 2:]))
+    if not abs(t_last / T_NVT - 1.0) <= T_GATE:
+        raise AssertionError(f"{label}: mean T* of the last {blocks // 2} blocks {t_last:.4f}, target {T_NVT}")
+    if bool(aux.overflow):
+        raise AssertionError(f"{label}: neighbor-list overflow")
+    return st, aux, temps, seconds
+
+
+def phase_portable(device, tag, pos_eq, vel_eq, st0, config, model):
+    """The portable engine on the card, after the main path's equilibration
+    and from its positions and velocities (97,556 atoms):
+    1. `make_force_fn` at the README example's config ('auto' must resolve to
+       the neighbor list): forces, energies and virials against the dense
+       engine's K2b per-atom pass at the same positions, by atom id;
+    2. `nve_rollout`, 1,000 steps with a record every 100: drift and
+       overflow gates, one host read a step (the rebuild flag: `update`'s
+       counter and the card's sync warnings agree), no kernel launched,
+       bitwise reruns;
+    3. CSVR and Langevin, ten blocks of 100 (mean T* of the last five
+       within 2%), then Berendsen NPT on the CSVR step, 200 steps, on a
+       list that follows the box (`make_force_fn` binds its box: fault
+       R10, measured at the end box): the pressure gap shrinks, the box
+       moves the way the pressure says, the list's virial at the end box
+       matches all-pairs';
+    4. on a jittered FCC 14³ (10,976 atoms): all-pairs against the list, LJ
+       and DSF, and FIRE's 1,000 steps;
+    5. `apply_exclusion_corrections` on the 864-atom charged fixture: reruns
+       bitwise, and the CPU's result within the force tolerance.
+    Returns the numbers it prints."""
+    from emdee_tpu_torch import (
+        FireConfig, NonbondedConfig, csvr_rollout, fire_minimize, lennard_jones_atom, make_force_fn, make_state,
+        npt_rollout, nve_rollout, nvt_rollout,
+    )
+    from emdee_tpu_torch.core.types import ENERGIES, VIRIALS, NonbondedOutput
+    from emdee_tpu_torch.dynamics.bussi import bussi_step
+    from emdee_tpu_torch.dynamics.npt import instantaneous_pressure
+    from emdee_tpu_torch.dynamics.observables import energy_drift, kinetic_energy
+    from emdee_tpu_torch.neighbors import api
+    from emdee_tpu_torch.neighbors.allpairs import compute_nonbonded_allpairs
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
+    from emdee_tpu_torch.neighbors.neighbor_force import apply_exclusion_corrections, compute_nonbonded_neighborlist
+    from emdee_tpu_torch.potentials.coulomb import DSFCoulomb
+    from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel
+    from emdee_tpu_torch.tools.fixtures import charged_arrays
+    from emdee_tpu_torch.utils.lattice import fcc_lattice
+
+    t_phase = time.perf_counter()
+    facts = {}
+    n, box = len(pos_eq), config.box
+    nbc = NonbondedConfig(cutoff=CUTOFF, switch=SWITCH, skin=PORTABLE_SKIN)
+    if api.resolve_method(nbc, box, n) != "neighbor_list":
+        raise AssertionError(f"portable: 'auto' does not resolve to the neighbor list at {n} atoms")
+    params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
+    nb = make_force_fn(nbc, params, box, n, device=device)
+    state = make_state(pos_eq, vel_eq, box=box, device=device)
+
+    # ---- 1. forces at full width against K2b ----
+    torch.cuda.reset_peak_memory_stats(device)
+    aux = nb.init(state.positions)
+    out = nb.compute(state.positions, aux)
+    torch.cuda.synchronize()
+    facts["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    fk, ek, wk = cell_forces(st0, model, config, compute_energy=True, backend="cuda")
+    errs = [close(f"portable {name} vs K2b", got, by_atom(st0, want, n), atol=PORTABLE_FORCE_ATOL,
+                  rtol=PORTABLE_FORCE_RTOL)
+            for name, got, want in (("forces", out.forces, fk), ("energies", out.energies, ek),
+                                    ("virials", out.virials, wk))]
+    m = nbc.list_geometry(box)[1]
+    facts.update(k=aux.max_neighbors, cell_capacity=aux.cell_capacity, m=m, vs_k2b=errs)
+    log(f"{tag} portable: make_force_fn('auto') -> neighbor_list at {n} atoms: K={aux.max_neighbors}, cell "
+        f"capacity {aux.cell_capacity}, M={m}; forces/energies/virials vs K2b by atom max |d| "
+        + ", ".join(f"{e:.3e}" for e in errs) + f" (rtol {PORTABLE_FORCE_RTOL}, atol {PORTABLE_FORCE_ATOL}); "
+        f"peak allocation {facts['peak_gb']:.3f} GB over init + compute")
+
+    # ---- 2. NVE ----
+    def energy_fn(p, a):
+        o = nb.compute(p, a, outputs=ENERGIES | VIRIALS)
+        return torch.sum(o.energies), torch.sum(o.virials)
+
+    steps = 1000
+    e0 = energy_fn(state.positions, aux)[0] + kinetic_energy(state)
+    mods = counters()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    api.HOST_READS = api.REBUILDS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, aux1, traj = nve_rollout(state, aux, nb.force_fn, DT, steps, record_every=100, energy_fn=energy_fn)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    reads, rebuilds = api.HOST_READS, api.REBUILDS
+    launched = {name: mod.LAUNCHES for name, mod in mods.items()}
+    drift = float(energy_drift(torch.cat([e0[None], traj.potential_energy + traj.kinetic_energy])))
+    if bool(aux1.overflow):
+        raise AssertionError("portable NVE: neighbor-list overflow")
+    if not drift <= PORTABLE_DRIFT_GATE:
+        raise AssertionError(f"portable NVE: drift {drift:.3e} > {PORTABLE_DRIFT_GATE}")
+    if reads != steps + 1 or rebuilds < 1:
+        raise AssertionError(f"portable NVE: {reads} host reads, {rebuilds} rebuilds in {steps} steps")
+    if launched != launches():
+        raise AssertionError(f"portable NVE launched port kernels: {launched}")
+    facts.update(nve_ms=1e3 * sec / steps, rebuilds=rebuilds, reads_per_step=reads / steps, drift=drift)
+    log(f"{tag} portable NVE ({steps} steps, dt {DT}, records every 100): {sec:.3f} s = {facts['nve_ms']:.4f} "
+        f"ms/step, {n * steps / sec:,.0f} atom-steps/s; drift {drift:.3e}; {rebuilds} rebuilds; {reads} host reads "
+        f"({reads / steps:.3f} a step); overflow False; no port kernel launched")
+
+    rerun = lambda: nve_rollout(state, aux, nb.force_fn, DT, 100)  # noqa: E731
+    api.HOST_READS = 0
+    (a, a_aux, _), syncs = host_syncs(rerun)
+    if syncs != api.HOST_READS or syncs != 101:
+        raise AssertionError(f"portable NVE rerun: {syncs} host waits on the card, {api.HOST_READS} rebuild-flag "
+                             "reads, expected 101 each")
+    b, b_aux, _ = rerun()
+    same_fields("portable NVE rerun", [a.positions, a.velocities, a.box, a.step, a_aux.idx, a_aux.overflow],
+                [b.positions, b.velocities, b.box, b.step, b_aux.idx, b_aux.overflow])
+    log(f"{tag} portable NVE: two 100-step reruns bitwise equal; the card's sync warnings count {syncs} host "
+        "waits, all of them the rebuild flag's reads")
+
+    # ---- 3. thermostats and the barostat ----
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)  # noqa: E731
+    csvr, aux_c, temps_c, sec_c = thermostat_blocks(
+        "portable CSVR", lambda s, x: csvr_rollout(s, x, nb.force_fn, DT, TAU_T, T_NVT, 100),
+        final._replace(rng=gen(SEED_PORTABLE)), aux1)
+    _, _, temps_l, sec_l = thermostat_blocks(
+        "portable Langevin", lambda s, x: nvt_rollout(s, x, nb.force_fn, DT, FRICTION, T_NVT, 100)[:2],
+        final._replace(rng=gen(SEED_PORTABLE + 1)), aux1)
+    facts.update(csvr_ms=sec_c, langevin_ms=sec_l, csvr_t=temps_c, langevin_t=temps_l)  # 1,000 steps: s = ms/step
+    log(f"{tag} portable CSVR (T*={T_NVT}, tau={TAU_T}): 1,000 steps in {sec_c:.3f} s, T* by block "
+        f"{', '.join(f'{t:.4f}' for t in temps_c)}; Langevin (friction {FRICTION}): 1,000 steps in {sec_l:.3f} s, T* "
+        + ", ".join(f"{t:.4f}" for t in temps_l))
+
+    # The bundle binds its box when made (ROADMAP fault R10): under NPT its
+    # list stays on the first box's geometry.  The barostat runs on a list
+    # force function that takes the box it is given everywhere.
+    moving = box_following_force_fn(nbc, nb.model, params, m, aux.cell_capacity, aux.max_neighbors)
+
+    def virial_fn(p, b_, a_):
+        return torch.sum(compute_nonbonded_neighborlist(p, b_, nb.model, params, a_, outputs=VIRIALS).virials)
+
+    thermo = lambda s, f, a_, ffn, dt: bussi_step(s, f, a_, ffn, dt, TAU_T, T_NVT)  # noqa: E731
+    p0 = float(instantaneous_pressure(csvr, virial_fn(csvr.positions, csvr.box, aux_c)))
+    api.REBUILDS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    npt, aux_p, boxes = npt_rollout(csvr, aux_c, moving, virial_fn, DT, TAU_P, P_NPT, 200, kappa=KAPPA,
+                                    thermostat_step=thermo)
+    torch.cuda.synchronize()
+    sec_p = time.perf_counter() - t0
+    p1 = float(instantaneous_pressure(npt, virial_fn(npt.positions, npt.box, aux_p)))
+    box0, box1 = float(csvr.box), float(npt.box)
+    if not abs(p1 - P_NPT) < abs(p0 - P_NPT):
+        raise AssertionError(f"portable NPT: P* {p0:.4f} -> {p1:.4f}, target {P_NPT}")
+    if np.sign(box1 - box0) != np.sign(p0 - P_NPT) or not float(boxes.min()) >= box0:
+        raise AssertionError(f"portable NPT: box {box0:.4f} -> {box1:.4f} at P* {p0:.4f}, target {P_NPT}")
+    if not bool(torch.isfinite(boxes).all()) or bool(aux_p.overflow):
+        raise AssertionError("portable NPT: non-finite box or neighbor-list overflow")
+    w_list = float(virial_fn(npt.positions, npt.box, aux_p))
+    w_all = float(torch.sum(compute_nonbonded_allpairs(npt.positions, npt.box, nb.model, params, outputs=VIRIALS,
+                                                       row_chunk=1024).virials))
+    if not abs(w_list / w_all - 1) <= PORTABLE_FORCE_RTOL:
+        raise AssertionError(f"portable NPT: the list's virial {w_list:.3f} vs all-pairs' {w_all:.3f} at the final box")
+    # Fault R10, measured: the bundle's own force_fn at the final box, its
+    # list rebuilt on the first box's geometry.
+    f_r10, nbrs_r10 = nb.force_fn(npt.positions, npt.box, aux_c)
+    r10_err = float((f_r10 - moving(npt.positions, npt.box, aux_p)[0]).abs().max())
+    facts.update(npt_ms=1e3 * sec_p / 200, p0=p0, p1=p1, box0=box0, box1=box1, npt_virial_rel=abs(w_list / w_all - 1),
+                 r10_overflow=bool(nbrs_r10.overflow), r10_max_abs_err=r10_err)
+    log(f"{tag} portable NPT (P*={P_NPT}, tau_P={TAU_P}, kappa {KAPPA}, CSVR step; the list at the box it is given): "
+        f"200 steps {facts['npt_ms']:.4f} ms/step, {api.REBUILDS} rebuilds; P* {p0:.4f} -> {p1:.4f}; box {box0:.4f} -> "
+        f"{box1:.4f} ({100 * (box1 / box0 - 1):+.2f}%); virial at the final box vs all-pairs' rel "
+        f"{facts['npt_virial_rel']:.3e}. Fault R10 (make_force_fn's force_fn, its list on the first box's geometry) at "
+        f"the final box: overflow {facts['r10_overflow']}, max |dF| {r10_err:.3e} against the list above")
+
+    # ---- 4. all-pairs and FIRE at 10,976 atoms ----
+    pos, box_s = fcc_lattice(14, density=DENSITY)
+    n_s = len(pos)
+    pos = pos + np.random.default_rng(SEED_PORTABLE).uniform(-0.05, 0.05, pos.shape)
+    q = np.where(np.arange(n_s) % 2 == 0, 0.4, -0.4)
+    params_s = lennard_jones_atom(np.ones(n_s), np.ones(n_s), device=device)
+    x = torch.from_numpy(pos.astype(np.float32)).to(device)
+    ap_ms = {}
+    for label, charges in (("LJ", None), ("LJ+DSF", q)):
+        kw = dict(cutoff=CUTOFF, switch=SWITCH, coulomb_alpha=0.25, coulomb_constant=1.0)
+        ap = make_force_fn(NonbondedConfig(method="allpairs", **kw), params_s, box_s, n_s, charges=charges,
+                           device=device)
+        nl = make_force_fn(NonbondedConfig(method="neighbor_list", skin=PORTABLE_SKIN, **kw), params_s, box_s, n_s,
+                           charges=charges, device=device)
+        ref, got = ap.compute(x, ()), nl.compute(x, nl.init(x))
+        for name in ("forces", "energies", "virials"):
+            close(f"portable all-pairs vs list {label} {name}", getattr(ref, name), getattr(got, name),
+                  atol=ALLPAIRS_ATOL, rtol=1e-4)
+        ap_ms[label] = cuda_ms(lambda: ap.compute(x, ()), 5)
+    facts["allpairs_ms"] = ap_ms
+    nb_s = make_force_fn(NonbondedConfig(cutoff=CUTOFF, switch=SWITCH, skin=PORTABLE_SKIN), params_s, box_s, n_s,
+                         device=device)
+    st_s = make_state(pos, box=box_s, device=device)
+    aux_s = nb_s.init(st_s.positions)
+    f0 = float(nb_s.force_fn(st_s.positions, st_s.box, aux_s)[0].abs().max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    relaxed, aux_s, hist = fire_minimize(st_s, aux_s, nb_s.force_fn, 1000, FireConfig(dt_start=0.001, dt_max=0.008))
+    torch.cuda.synchronize()
+    sec_f = time.perf_counter() - t0
+    f1 = float(nb_s.force_fn(relaxed.positions, relaxed.box, aux_s)[0].abs().max())
+    if not f1 < 0.02 * f0:
+        raise AssertionError(f"portable FIRE: max |F| {f0:.4f} -> {f1:.4f}, not below 2% of the start")
+    facts.update(fire_ms=1e3 * sec_f / 1000, fire_f0=f0, fire_f1=f1)
+    log(f"{tag} portable at {n_s} atoms (jittered FCC 14^3): all-pairs vs the list within rtol 1e-4, atol "
+        f"{ALLPAIRS_ATOL} (LJ and DSF alpha 0.25, q = +-0.4); all-pairs {ap_ms['LJ']:.3f} ms a call (LJ), "
+        f"{ap_ms['LJ+DSF']:.3f} (LJ+DSF); FIRE 1,000 steps {facts['fire_ms']:.4f} ms/step, max |F| {f0:.4f} -> "
+        f"{f1:.3e}")
+
+    # ---- 5. exclusion corrections on the 864-atom charged fixture ----
+    fx = charged_arrays()
+    n_c = fx["n"]
+
+    def corrections(dev):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        zero = NonbondedOutput(t(np.zeros((n_c, 3), np.float32)), t(np.zeros(n_c, np.float32)),
+                               t(np.zeros(n_c, np.float32)))
+        return apply_exclusion_corrections(
+            zero, t(fx["pos"].astype(np.float32)), fx["box"], LennardJonesModel.create(CUTOFF, SWITCH, device=dev),
+            lennard_jones_atom(np.ones(n_c), np.ones(n_c), device=dev), t(fx["pairs"]), t(fx["ljs"]), t(fx["q"]),
+            DSFCoulomb.create(CUTOFF, alpha=0.25, coulomb_constant=1.0, device=dev), t(fx["cs"]))
+
+    a, b, on_cpu = corrections(device), corrections(device), corrections(torch.device("cpu"))
+    same_fields("portable exclusion corrections rerun", list(a), list(b))
+    err_c = max(close(f"portable exclusion corrections {name} vs the CPU", getattr(a, name).cpu(),
+                      getattr(on_cpu, name), atol=PORTABLE_FORCE_ATOL, rtol=PORTABLE_FORCE_RTOL)
+                for name in ("forces", "energies", "virials"))
+    facts["corrections_vs_cpu"] = err_c
+    log(f"{tag} portable apply_exclusion_corrections ({n_c}-atom charged fixture, {len(fx['pairs'])} pairs): reruns "
+        f"bitwise equal on the card; vs the CPU max |d| {err_c:.3e}")
+    log(f"{tag} portable phase: {time.perf_counter() - t_phase:.1f} s")
+    return facts
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke test of emdee_tpu_torch on one CUDA card.")
     parser.add_argument("--save-spill-flag", metavar="FILE",
@@ -2428,6 +2748,13 @@ def main() -> None:
     log(f"{tag} timings at {n} atoms: kernel path {main_ms:.4f} ms/step "
         f"({n * 1e3 / main_ms:,.0f} atom-steps/s); plain path {plain_ms:.3f} ms/step "
         f"({n * 1e3 / plain_ms:,.0f} atom-steps/s)")
+
+    # ---- the portable engine from the equilibrated melt ----
+    portable = phase_portable(device, tag, pos_eq, vel_eq, st0, config, model)
+    log(f"{smi}: portable neighbor-list NVE at {n} atoms {portable['nve_ms']:.4f} ms/step, drift "
+        f"{portable['drift']:.3e}, {portable['rebuilds']} rebuilds, {portable['reads_per_step']:.3f} host reads a "
+        f"step; all-pairs at 10,976 atoms {portable['allpairs_ms']['LJ']:.3f} ms a call; peak allocation "
+        f"{portable['peak_gb']:.3f} GB")
 
     # ---- the spill mode (K7), NVT and NPT on the same melt ----
     seam_err = phase_seam(device, tag, model, uni)

@@ -18,7 +18,10 @@ straggler engine on top of it, the 3-D grid-sharded engine
 or one a `torch.distributed` rank), and molecular systems
 on the dense engine (`neighbors/cell_dense_molecular.py`: charges with DSF
 Coulomb, exclusion tags, tag-borne bonds and the bonded terms of
-`potentials/bonded.py`).  Its kernels are
+`potentials/bonded.py`), and the portable engine on plain torch ops —
+`State`, all-pairs, cell and neighbor lists, `make_force_fn`, and the
+velocity-Verlet, CSVR, Langevin, Berendsen NPT and FIRE rollouts of
+`dynamics/`.  Its kernels are
 hand-written CUDA for `sm_90a` (`csrc/cell_forces.cu`,
 `csrc/cell_forces_streaming.cu`, `csrc/rebin_routing.cu`,
 `csrc/rebin_window.cu`, `csrc/compact_window.cu`,
@@ -32,7 +35,23 @@ tensors.  Entry points build their tensors on the CUDA card unless the
 caller names a device (`device="cpu"` for the CPU).
 """
 
-from emdee_tpu_torch.core.types import ALL_OUTPUTS, ENERGIES, FORCES, VIRIALS, LJParams
+from emdee_tpu_torch.core.types import (
+    ALL_OUTPUTS,
+    ENERGIES,
+    FORCES,
+    VIRIALS,
+    LJParams,
+    NonbondedOutput,
+    State,
+    make_state,
+)
+from emdee_tpu_torch.dynamics.bussi import csvr_rollout
+from emdee_tpu_torch.dynamics.langevin import nvt_rollout
+from emdee_tpu_torch.dynamics.minimize import FireConfig, fire_minimize
+from emdee_tpu_torch.dynamics.npt import npt_rollout
+from emdee_tpu_torch.dynamics.verlet import nve_rollout, velocity_verlet_step
+from emdee_tpu_torch.neighbors.allpairs import compute_nonbonded_allpairs
+from emdee_tpu_torch.neighbors.api import NonbondedConfig, make_force_fn
 from emdee_tpu_torch.neighbors.cell_dense import (
     BerendsenBarostatConfig,
     CellDenseConfig,
@@ -54,6 +73,8 @@ from emdee_tpu_torch.neighbors.cell_dense import (
     suggest_cell_dense_config,
     suggest_rebin_interval,
 )
+from emdee_tpu_torch.neighbors.cell_list import CellList, build_cell_list
+from emdee_tpu_torch.neighbors.neighbor_list import NeighborList, build_neighbor_list
 from emdee_tpu_torch.neighbors.cell_dense_molecular import (
     build_exclusion_tables,
     make_exclusion_aux_fn,
@@ -99,6 +120,23 @@ __all__ = [
     "FORCES",
     "VIRIALS",
     "LJParams",
+    "NonbondedOutput",
+    "State",
+    "make_state",
+    "compute_nonbonded_allpairs",
+    "CellList",
+    "build_cell_list",
+    "NeighborList",
+    "build_neighbor_list",
+    "NonbondedConfig",
+    "make_force_fn",
+    "velocity_verlet_step",
+    "nve_rollout",
+    "nvt_rollout",
+    "csvr_rollout",
+    "npt_rollout",
+    "fire_minimize",
+    "FireConfig",
     "BerendsenBarostatConfig",
     "CellDenseConfig",
     "CellDenseState",

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from emdee_tpu_torch.core.pbc import wrap_scaled
-from emdee_tpu_torch.core.types import LJParams, resolve_device
+from emdee_tpu_torch.core.types import LJParams, _f32, _tensor, resolve_device
 from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel, pair_interaction
 
 
@@ -142,16 +142,6 @@ _STATE_DTYPES = {
 }
 
 
-_TORCH_DTYPES = {np.float32: torch.float32, np.int32: torch.int32, np.bool_: torch.bool}
-
-
-def _tensor(a, dtype, device) -> torch.Tensor:
-    """Copy an array-like (numpy, list, tensor) into a tensor on `device`."""
-    if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=_TORCH_DTYPES[dtype])
-    return torch.from_numpy(np.array(a, dtype=dtype, copy=True)).to(device)
-
-
 def _numpy(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
@@ -238,11 +228,6 @@ def box_ptr(box, like: torch.Tensor) -> int:
         raise ValueError(f"box: expected a 0-d float32 tensor on {like.device}, got {box.dtype} "
                          f"{tuple(box.shape)} on {box.device}")
     return box.data_ptr()
-
-
-def _f32(x) -> float:
-    """A Python float holding exactly the float32 value of `x`."""
-    return float(np.float32(x))
 
 
 def suggest_cell_dense_config(

@@ -17,10 +17,11 @@ A molecular force evaluation is
    a float-atomic `index_add_`.
 
 The host-side table builders are numpy, as in the reference.
-`exclusion_mode="correction"` (the atom-space correction pass) needs the
-portable neighbor engine's `apply_exclusion_corrections` (ROADMAP item 3)
-and raises; `dense_sim_from_system` needs the modelling layer and its
-fixture files (ROADMAP item 9) and raises.
+`exclusion_mode="correction"` is the atom-space alternative to step 1's
+tags: slots → atoms, the portable engine's `apply_exclusion_corrections`
+(and the bonded terms) in atom order through the fixed-order add, atoms →
+slots.  `dense_sim_from_system` needs the modelling layer and its fixture
+files (ROADMAP item 9) and raises.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ import numpy as np
 import torch
 
 from emdee_tpu_torch.core.scatter import add_plan, fixed_add
+from emdee_tpu_torch.core.types import ENERGIES, FORCES, VIRIALS, LJParams, NonbondedOutput
 from emdee_tpu_torch.neighbors.cell_dense import (
     CellDenseConfig,
     CellDenseState,
+    _box,
     _numpy,
     _state_box,
     make_cell_dense_sim,
@@ -419,8 +422,10 @@ def make_molecular_dense_sim(
     the model's device.
 
     exclusion_mode: 'kernel' — exclusions as per-pair tag comparisons in
-    the pair pass; 'correction' (the atom-space correction pass) raises
-    NotImplementedError (ROADMAP item 3).  exclusion_band caps the tag
+    the pair pass; 'correction' — the pair pass counts every pair, and an
+    atom-space pass (`apply_exclusion_corrections` and the bonded forces,
+    on the state's slots gathered into atom order) corrects it, as the
+    reference's portable mode does.  exclusion_band caps the tag
     width E; pairs beyond it go through the slot-space pair correction.  On
     the kernel backends a band wider than the kernels' MAX_TAGS = 8 (or
     none, with some atom past 8 partners) becomes 8 (`kernel_band`).
@@ -436,14 +441,13 @@ def make_molecular_dense_sim(
         raise ValueError(f"unknown exclusion_mode {exclusion_mode!r}")
     pairs = None if exclusion_pairs is None else np.asarray(_numpy(exclusion_pairs))
     has_excl = pairs is not None and pairs.shape[0] > 0
-    if has_excl and exclusion_mode == "correction":
-        raise NotImplementedError(
-            "exclusion_mode='correction' needs apply_exclusion_corrections of the portable neighbor "
-            "engine, which is not ported yet (ROADMAP item 3); use exclusion_mode='kernel'")
     if has_excl and exclusion_scales is None:
         exclusion_scales = np.zeros(pairs.shape[0], np.float32)
     if has_excl and params is None:
         raise ValueError("exclusion corrections need atom-ordered LJ params")
+    if has_excl and exclusion_mode == "correction":
+        return _correction_sim(config, model, dt, num_atoms, params, charges, coulomb, pairs, exclusion_scales,
+                               exclusion_scales_coulomb, bonded, backend, rebin, thermostat, barostat)
     ns = config.num_slots
     resolved = resolve_dense_backend(
         config, backend, device=model.rc2.device, with_coulomb=coulomb is not None, with_excl=has_excl,
@@ -540,6 +544,64 @@ def make_molecular_dense_sim(
         extra_energy=extra_energy, aux_fn=aux_fn, extra_aux_fn=extra_aux_fn, thermostat=thermostat,
         barostat=barostat,
     )
+
+
+def slots_to_atoms(state: CellDenseState, num_atoms: int):
+    """(positions in atom order (N, 3), each slot's atom row): a slot's row
+    is its atom id, an empty slot's the dump row N, which is cut off."""
+    ids = torch.where(state.valid, state.atom_id, num_atoms).reshape(-1).to(torch.int64)
+    flat = state.positions.reshape(-1, 3)
+    pos = flat.new_zeros((num_atoms + 1, 3)).index_put((ids,), flat)
+    return pos[:num_atoms], ids
+
+
+def _correction_sim(config, model, dt, num_atoms, params, charges, coulomb, pairs, scales, scales_coulomb, bonded,
+                    backend, rebin, thermostat, barostat):
+    """`exclusion_mode="correction"` (reference cell_dense_molecular.py:
+    712-735): the pair pass without tags, and the exclusion corrections and
+    bonded forces in atom order, at the config's box.  Every scatter-add is
+    the fixed-order add, its plan built once from the static pairs."""
+    from emdee_tpu_torch.neighbors.neighbor_force import apply_exclusion_corrections, exclusion_plan
+
+    dev = model.rc2.device
+    box = _box(config.box, model.rc2)
+    t = lambda a, dtype=torch.float32: None if a is None else torch.as_tensor(  # noqa: E731
+        _numpy(a), dtype=dtype, device=dev)
+    pairs_t, scales_t, scales_c = t(pairs, torch.int64), t(scales), t(scales_coulomb)
+    params = LJParams(t(params.half_sigma), t(params.twice_sqrt_eps))
+    q_at = t(charges) if coulomb is not None else None
+    plan = exclusion_plan(pairs_t, num_atoms)
+    bonded_force = bonded.force_fn() if bonded is not None else None
+
+    def corrections_at(pos_at, outputs):
+        zeros = lambda *shape: pos_at.new_zeros(shape)  # noqa: E731
+        out = NonbondedOutput(
+            forces=zeros(num_atoms, 3) if outputs & FORCES else None,
+            energies=zeros(num_atoms) if outputs & ENERGIES else None,
+            virials=zeros(num_atoms) if outputs & VIRIALS else None,
+        )
+        return apply_exclusion_corrections(out, pos_at, box, model, params, pairs_t, scales_t, q_at, coulomb,
+                                           scales_c, outputs=outputs, plan=plan)
+
+    def extra_forces(state, eaux=None):
+        pos_at, ids = slots_to_atoms(state, num_atoms)
+        f_at = corrections_at(pos_at, FORCES).forces
+        if bonded_force is not None:
+            f_at = f_at + bonded_force(pos_at, box)
+        return torch.cat([f_at, f_at.new_zeros((1, 3))])[ids].reshape(state.positions.shape)
+
+    def extra_energy(state, eaux=None):
+        pos_at, _ = slots_to_atoms(state, num_atoms)
+        out = corrections_at(pos_at, ENERGIES | VIRIALS)
+        pe, vir = torch.sum(out.energies), torch.sum(out.virials)
+        if bonded is not None:
+            pe = pe + bonded.energy(pos_at, box)
+            vir = vir + bonded.virial(pos_at, box)
+        return pe, vir
+
+    return make_cell_dense_sim(config, model, dt, backend=backend, rebin=rebin, coulomb=coulomb,
+                               extra_forces=extra_forces, extra_energy=extra_energy, thermostat=thermostat,
+                               barostat=barostat)
 
 
 KERNEL_FAMILIES = ("cuda", "cuda_streaming")

@@ -22,8 +22,9 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 -m emdee_tpu_torch.tools.profile_paths [water | grid | water1m]
 
-(`water`, `grid`, `water1m`: those paths alone; `water1m` is not in the
-default run.)
+(`water`, `grid`, `water1m`, `portable`: those paths alone; `water1m` and
+`portable` are not in the default run.  `portable`: the portable engine's
+neighbor-list NVE at 97,556 atoms, and its rebuild and force pass apart.)
 
 For each path, after 60 steps of warm-up: the unprofiled ms/step of three
 600-step windows (host clock around work that ends in a synchronize), then
@@ -189,6 +190,56 @@ def profile_grid(device) -> None:
                      distribute_grid(start, cfg, mesh), k)
 
 
+def profile_portable(device) -> None:
+    """The portable engine's NVE on the neighbor list (plain torch ops) at
+    the 97,556-atom melt after the main path's equilibration, at the README
+    example's config (cutoff 2.5, switch 2.0, skin 0.3), and the times of
+    its two parts apart: a rebuild (`build_neighbor_list`) and a force pass
+    (`compute_nonbonded_neighborlist`, at its default block and at the
+    reference's 8,192 atoms a block)."""
+    from emdee_tpu_torch import (
+        NonbondedConfig, lennard_jones_atom, make_cell_dense_sim, make_force_fn, make_state, nve_rollout,
+    )
+    from emdee_tpu_torch.core.types import FORCES
+    from emdee_tpu_torch.neighbors import api
+    from emdee_tpu_torch.neighbors.neighbor_force import compute_nonbonded_neighborlist
+    from emdee_tpu_torch.neighbors.neighbor_list import build_neighbor_list
+    from emdee_tpu_torch.tools.melt import CUTOFF, DT, SWITCH, equilibrate, melt
+
+    st, config, model, params, uni, n = melt(device)
+    dense, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    pos_eq, vel_eq, _, _ = equilibrate(dense, st, config, n)
+    nbc = NonbondedConfig(cutoff=CUTOFF, switch=SWITCH, skin=0.3)
+    lj = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
+    nb = make_force_fn(nbc, lj, config.box, n, device=device)
+    state = make_state(pos_eq, vel_eq, box=config.box, device=device)
+    aux = nb.init(state.positions)
+    list_cutoff, m = nbc.list_geometry(config.box)
+    print(f"{n} atoms, neighbor list K={aux.max_neighbors}, cell capacity {aux.cell_capacity}, M={m}", flush=True)
+    build = lambda: build_neighbor_list(state.positions, config.box, list_cutoff, cells_per_dim=m,  # noqa: E731
+                                        cell_capacity=aux.cell_capacity, max_neighbors=aux.max_neighbors)
+    force = lambda **kw: compute_nonbonded_neighborlist(state.positions, state.box, nb.model, lj, aux,  # noqa: E731
+                                                        outputs=FORCES, **kw)
+    for label, fn in (("rebuild", build), ("force pass", force),
+                      ("force pass at the reference's atom_chunk 8192", lambda: force(atom_chunk=8192))):
+        host = _sync_ms(lambda steps: [fn() for _ in range(steps)], 20)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        print(f"  {label}: {host:.4f} ms a call on the host clock, {start.elapsed_time(stop) / 20:.4f} ms between "
+              "CUDA events", flush=True)
+    print(f"  forces bitwise equal at both block sizes: {torch.equal(force().forces, force(atom_chunk=8192).forces)}",
+          flush=True)
+    api.HOST_READS = api.REBUILDS = 0
+    profile_path("portable NVE (neighbor list, plain torch ops)",
+                 lambda s, num_steps, rebin_every: nve_rollout(s, aux, nb.force_fn, DT, num_steps)[0],
+                 state, 0, window=200, profiled=50)
+    print(f"  rebuilds {api.REBUILDS} in {api.HOST_READS} force evaluations", flush=True)
+
+
 def main(paths: str = "all") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: needs a CUDA device")
@@ -198,8 +249,9 @@ def main(paths: str = "all") -> None:
     ).stdout.strip()
     print(smi, flush=True)
     device = torch.device("cuda", 0)
-    if paths in ("water", "grid", "water1m"):
-        {"water": profile_water, "grid": profile_grid, "water1m": profile_water_1m}[paths](device)
+    if paths in ("water", "grid", "water1m", "portable"):
+        {"water": profile_water, "grid": profile_grid, "water1m": profile_water_1m,
+         "portable": profile_portable}[paths](device)
         return
     from emdee_tpu_torch import (
         CSVRConfig, LangevinConfig, cell_dense_init, make_cell_dense_sim, make_straggler_sim,

@@ -71,18 +71,15 @@ def test_component_carry_matches_jax_kernels():
 
 
 def test_unported_options_raise():
-    """What the port still refuses: the atom-space exclusion correction
-    (ROADMAP item 3), `dense_sim_from_system` (item 9) and the straggler
-    engine on a spill config; an unknown backend, rebin, thermostat or
-    barostat is a ValueError.  A state's charges now cross from JAX bit for bit."""
+    """What the port still refuses: `dense_sim_from_system` (ROADMAP item 9)
+    and the straggler engine on a spill config; an unknown backend, rebin,
+    thermostat or barostat is a ValueError.  A state's charges now cross
+    from JAX bit for bit."""
     from emdee_tpu_torch.neighbors import cell_dense_molecular as tmol
     from emdee_tpu_torch.neighbors import cell_dense_straggler as tsd
 
     pos, vel, params, config, _ = lj_setup(864, 0.5, seed=3)
     model = LennardJonesModel.create(2.5, 2.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        tmol.make_molecular_dense_sim(config, model, DT, len(pos), params=params,
-                                      exclusion_pairs=np.array([[0, 1]]), exclusion_mode="correction")
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         tmol.dense_sim_from_system(None, cutoff=2.5, switch=2.0, dt=DT)
     for kw in ({"backend": "pallas"}, {"rebin": "shift_xla"}, {"thermostat": object()},

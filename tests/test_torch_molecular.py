@@ -17,6 +17,8 @@ JAX package's, on the CPU.
   port's absorbed-bond path against JAX's 'pallas_interpret' (the same
   tolerances), each side to the other's gather path at
   tests/test_cell_dense_molecular.py:363-368's 2e-3 / 5e-2.
+- The atom-space correction mode (`exclusion_mode="correction"`) on the
+  864-atom fixture with bonds against JAX's correction mode.
 - Charges ride every rebin bit for bit; the water box of `tools/water.py`
   at full width resolves to the resident kernel family."""
 
@@ -266,6 +268,45 @@ def test_absorbed_bond_rollout_matches_jax_pallas_interpret(monkeypatch):
     pt, vt = tcd.gather_dense_atoms(ta, fx["n"])
     np.testing.assert_allclose(pt, px, atol=2e-3)
     np.testing.assert_allclose(vt, vx, atol=5e-2)
+
+
+def test_correction_mode_rollout_matches_jax():
+    """`exclusion_mode="correction"` (slots → atoms, the exclusion
+    corrections and the bonded forces in atom order, atoms → slots) on the
+    864-atom charged fixture with its bonds, against JAX's correction mode
+    over 20 steps (positions and velocities within 2e-4, energies within
+    1e-6 relative), and against the port's own tag path ('kernel' mode) to
+    tests/test_cell_dense_molecular.py:363-368's 2e-3 / 5e-2; a rerun is
+    bitwise equal."""
+    from emdee_tpu.potentials import bonded as jb
+
+    a = fixtures.charged_arrays()
+    n = a["n"]
+    bpairs, bk, br0 = a["bonds"]
+    jbonded = jb.BondedSystem(bonds=jb.BondTable(jnp.asarray(bpairs, jnp.int32), jnp.asarray(br0), jnp.asarray(bk),
+                                                 jnp.ones(len(bpairs), bool)), angles=None, torsions=None,
+                              impropers=None)
+    config = jcd.suggest_cell_dense_config(n, a["box"], cutoff=2.5, switch=2.0, skin=0.3)
+    jparams = jlj(np.ones(n), np.ones(n))
+    coul = jc.DSFCoulomb.create(2.5, alpha=0.25, coulomb_constant=1.0)
+    kw = dict(charges=a["q"], exclusion_pairs=a["pairs"], exclusion_scales=a["ljs"],
+              exclusion_scales_coulomb=a["cs"], exclusion_mode="correction")
+    js = jcd.cell_dense_init(a["pos"], a["vel"], np.ones(n), jparams, config, charges=a["q"])
+    jsim = jmol.make_molecular_dense_sim(config, JMODEL, DT, n, params=jparams, coulomb=coul, bonded=jbonded,
+                                         backend="xla", **kw)
+    tkw = dict(params=tcd.lj_params_from_numpy(jax.device_get(jparams), "cpu"),
+               coulomb=tc.coulomb_from_numpy(jax.device_get(coul), "cpu"),
+               bonded=tb.bonded_from_numpy(jax.device_get(jbonded), "cpu"))
+    tsim = tmol.make_molecular_dense_sim(config, TMODEL, DT, n, **tkw, **kw)
+    ta = _run_and_compare(js, jsim, tsim, n, 2e-4, 2e-4, 1e-6)
+    tb_ = tsim[0](to_port(js), num_steps=STEPS, rebin_every=REBIN_EVERY)
+    for name, arr in tcd.state_to_numpy(ta).items():
+        np.testing.assert_array_equal(bits(arr), bits(tcd.state_to_numpy(tb_)[name]), err_msg=name)
+    tags = tmol.make_molecular_dense_sim(config, TMODEL, DT, n, **tkw, **{**kw, "exclusion_mode": "kernel"})
+    tk = tags[0](to_port(js), num_steps=STEPS, rebin_every=REBIN_EVERY)
+    (pt, vt), (pk, vk) = tcd.gather_dense_atoms(ta, n), tcd.gather_dense_atoms(tk, n)
+    np.testing.assert_allclose(pt, pk, atol=2e-3)
+    np.testing.assert_allclose(vt, vk, atol=5e-2)
 
 
 def _wide_exclusions(fx):
