@@ -162,6 +162,11 @@ OPS_PER_MIN_IMAGED_PAIR = OPS_PER_PAIR + 12
 # With per-atom parameters and energies: mixing 3, the switched energy and
 # the half-split energy and virial sums 15.
 OPS_PER_PAIR_ENERGY = OPS_PER_PAIR + 18
+# K2a/K2b and K3's grid side before their redesign (the full-shell kernel,
+# one block a cell): their last chip_smoke.py times (PERF.md §6; NVIDIA
+# H100 80GB HBM3, 700.00 W), printed on the log lines beside this run's.
+K2_BEFORE = {"split_ms": 0.1898, "energy_ms": 0.2266, "n1m_split_ms": 1.4660, "n1m_energy_ms": 1.7765}
+K3_BEFORE = {"strag_ms": 0.1875}
 
 
 def log(msg: str) -> None:
@@ -363,11 +368,25 @@ def phase_forces(device, tag):
     bound_ms, bound_by = bound(25 * config.num_slots, OPS_PER_PAIR * pairs)
     # in: positions 12 B, σ/2 and 2√ε 8 B, valid 1 B; out: forces, energy, virial 20 B
     bound_e = bound(41 * config.num_slots, OPS_PER_PAIR_ENERGY * pairs)
-    log(f"{tag} force kernel time at {n} atoms: split {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by}); per-atom+energies {ms_e:.4f} ms/launch, plain "
-        f"{plain_ms_e:.3f} ms, bound {bound_e[0]:.5f} ms ({bound_e[1]}); {pairs:,} pairs inside the cutoff")
+    log(f"{tag} force kernel time at {n} atoms: split (K2a) {ms:.4f} ms/launch (before the redesign "
+        f"{K2_BEFORE['split_ms']}), plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}); per-atom+energies "
+        f"(K2b) {ms_e:.4f} ms/launch (before {K2_BEFORE['energy_ms']}), plain {plain_ms_e:.3f} ms, bound "
+        f"{bound_e[0]:.5f} ms ({bound_e[1]}); {pairs:,} pairs inside the cutoff")
+    res = lj_resources_all()
+    log(f"{tag} LJ pass (cell_lj_kernel) resources: {resources_line(res)}")
     return {"max_abs_err": max(err, err_s), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "energy_ms": ms_e,
+            "energy_plain_ms": plain_ms_e, "energy_bound_ms": bound_e[0], "resources": res}
+
+
+def lj_resources_all():
+    """The LJ pass's variants (K2a, K2b with and without energies, K3's
+    grid side) as the card reports them (`cell_kernel.lj_resources`)."""
+    from emdee_tpu_torch.neighbors.cell_kernel import lj_resources
+
+    return {name: lj_resources(*flags) for name, flags in (
+        ("K2a", (True, False, False)), ("K2b energies", (False, True, False)), ("K2b forces", (False, False, False)),
+        ("K3 grid side", (True, False, True)))}
 
 
 def phase_rebin(device, tag):
@@ -460,10 +479,13 @@ def phase_streaming(device, tag, cells=None):
         f"vs plain max |dF| per-atom+energies {err_e:.3e}, split {err_s:.3e} (rel {err / scale:.3e}); "
         f"vs K2 max |dF| {vs_k2:.3e} (rel {vs_k2 / scale:.3e}); energies, virials in tolerance, "
         "empty slots exactly 0")
-    log(f"{tag} K5 vs K2 times at {n} atoms: split K5 {ms:.4f} ms (2 launches) vs K2 {k2_ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; reaction rows alone "
-        f"{rows_ms:.5f} ms); per-atom+energies K5 {ms_e:.4f} ms vs K2 {k2_ms_e:.4f} ms, plain "
-        f"{plain_ms_e:.3f} ms, bound {bound_e[0]:.5f} ms ({bound_e[1]}); {pairs:,} pairs inside the cutoff")
+    before = (K2_BEFORE["n1m_split_ms"], K2_BEFORE["n1m_energy_ms"]) if big else (
+        K2_BEFORE["split_ms"], K2_BEFORE["energy_ms"])
+    log(f"{tag} K5 vs K2 times at {n} atoms: split K5 {ms:.4f} ms (2 launches) vs K2 {k2_ms:.4f} ms (K2 before "
+        f"its redesign {before[0]}), plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; reaction rows "
+        f"alone {rows_ms:.5f} ms); per-atom+energies K5 {ms_e:.4f} ms vs K2 {k2_ms_e:.4f} ms (before "
+        f"{before[1]}), plain {plain_ms_e:.3f} ms, bound {bound_e[0]:.5f} ms ({bound_e[1]}); {pairs:,} pairs "
+        "inside the cutoff")
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": None, "energy_ms": ms_e, "energy_plain_ms": plain_ms_e,
            "energy_bound_ms": bound_e[0], "vs_k2_max_abs_err": vs_k2}
@@ -669,7 +691,11 @@ def phase_straggler_kernel(device, tag, label, sconfig, pos_eq, vel_eq, params, 
     err_x = max(close(f"K3 {label} gather pass grid", xg[:, v], fg[:, v], atol=2e-5 * scale),
                 close(f"K3 {label} gather pass aux", xa[:, av], fa[:, av], atol=2e-5 * scale))
 
+    # K3's grid side with nothing listed is K2a, bit for bit.
     out_g = torch.empty_like(fg)
+    cell_kernel.launch_strag(*args[:7], torch.full_like(table, -1), out_g, cfg, uni)
+    same_fields(f"K3 {label} grid side with an empty table vs K2a", list(out_g),
+                list(cell_kernel.cell_forces_split(*args[:4], cfg, uniform_params=uni, backend="cuda")))
     out_a = torch.empty_like(fa)
     strag_ms = cuda_ms(lambda: cell_kernel.launch_strag(*args[:7], table, out_g, cfg, uni), 50)
     aux_ms = cuda_ms(lambda: sk.launch_aux(*args[:8], out_a, sconfig, uni), 200)
@@ -683,11 +709,13 @@ def phase_straggler_kernel(device, tag, label, sconfig, pos_eq, vel_eq, params, 
     log(f"{tag} K3 {label}: C_t={cfg.capacity} C_w={sconfig.wide_capacity} A={a_cap} Kn={sconfig.kn}, "
         f"{parked} parked, {int((table >= 0).sum())} list entries; kernel vs plain max |dF| grid "
         f"{err_g:.3e} aux {err_a:.3e} (scale {scale:.3f}); vs wide state max |dF| {err_w:.3e} "
-        f"(rel {err_w / wscale:.3e}); gather pass vs kernel {err_x:.3e}; empty slots and lanes exactly 0")
+        f"(rel {err_w / wscale:.3e}); gather pass vs kernel {err_x:.3e}; empty slots and lanes exactly 0; "
+        "with an empty table the grid side equals K2a bit for bit")
     log(f"{tag} K3 {label} at C_w={cfg_w.capacity}: K2b kernel vs plain max |dF| {err_e:.3e} (energies, "
         f"virials in tolerance, empty slots exactly 0); K4 kernel vs plain bit-exact in every field and "
         f"the flag, {moved_w} slots moved, {tail_w} atoms in the pad slots after the rebin")
-    log(f"{tag} K3 {label} times: grid launch (STRAG) {strag_ms:.4f} ms (plain {strag_plain_ms:.3f} ms, "
+    before = f"before the redesign {K3_BEFORE['strag_ms']}, " if label == "production" else ""
+    log(f"{tag} K3 {label} times: grid launch (STRAG) {strag_ms:.4f} ms ({before}plain {strag_plain_ms:.3f} ms, "
         f"bound {strag_bound[0]:.5f} ms {strag_bound[1]}); aux launch {aux_ms:.4f} ms (plain "
         f"{aux_plain_ms:.3f} ms, bound {aux_bound[0]:.6f} ms {aux_bound[1]}); pairs: grid {gg:,}, "
         f"aux-grid {ag:,}, aux-aux {aa}")
@@ -1138,7 +1166,9 @@ def grid_forces_check(tag, label, cfg, model, uni, mesh, st):
     err = close(f"{label} ghost kernel vs plain", fu[v], fp[v], atol=2e-5 * scale)
     ms_grid = cuda_ms(lambda: roll_u.forces(sh), 20)
     ms_k2 = cuda_ms(lambda: cell_forces_split(px, py, pz, sd.valid, cfg, uniform_params=uni, backend="cuda"), 20)
-    log(f"{tag} {label}: force pass with the halo exchange {ms_grid:.4f} ms, one-card K2a at this config {ms_k2:.4f} ms; "
+    before = f" (before its redesign {K2_BEFORE['split_ms']})" if cfg.cells_per_dim == 17 else ""
+    log(f"{tag} {label}: force pass with the halo exchange {ms_grid:.4f} ms, one-card K2a at this config "
+        f"{ms_k2:.4f} ms{before}; "
         f"GHOST kernel vs plain max |dF| {err:.3e} (scale {scale:.3f})")
     return err
 

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "emdee_cell_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                           _I, _I, _P, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                           _F, _I, _I, _P],
+    # uniform, energy, strag, out (int[4])
+    "emdee_cell_forces_attrs": [_I, _I, _I, _P],
     # pos, hs, tse, valid, q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb,
     # alpha, rc, rc2_c, e_shift, f_shift, kc (0-d device tensors), f, e, w,
     # m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, coulomb,

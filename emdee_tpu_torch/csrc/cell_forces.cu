@@ -8,25 +8,38 @@
 // Plain PyTorch version: emdee_tpu_torch/neighbors/cell_dense.py
 // `cell_dense_forces`; wrapper: emdee_tpu_torch/neighbors/cell_kernel.py.
 //
-// Design.  One block per cell (M³ blocks), one thread per center slot (C
-// rounded up to a warp; tail threads only help stage).  The block walks the
-// 27 neighbor cells in a fixed (dz, dy, dx) order, stages each one's C slots
-// in shared memory, and every thread runs the pair math of its center slot
-// against them.  A neighbor index that wraps the periodic grid takes ±box
-// off that axis's raw difference, (x_i − x_j) − shift (the TPU kernel's
-// ghost copies, applied after the difference so that a pair inside the
-// cutoff gets the plain version's minimum image bit for bit); atoms are
-// never wrapped, because between rebins positions overhang the box by up to
-// skin/2.  Empty slots are skipped through the valid mask, the
-// self pair (same cell, same slot) is skipped, and an empty center slot
+// Design (`cell_lj_kernel`).  A warp owns up to 32 live centres of one cell
+// (warp part · M³ + cell, the centres ranked by ballot; 4 warps a block, no
+// block barrier) and walks the 27 neighbour cells in a fixed (dz, dy, dx)
+// order, 32 slots at a time.  Of each chunk it stages in shared memory, in
+// slot order, only the live slots within the cutoff of its centres'
+// bounding box (`emdee::near_box` at rc², the conservative cull of K2c and
+// K5c), and every lane runs the pair term of its centre on the staged
+// entries at r² < rc² in that order.  At the 97,556-atom melt (M = 17, C =
+// 32: ~20 live centres a cell, ~536 live candidates a centre, ~54 inside
+// the cutoff) the cull keeps ~60% of the candidates; the old kernel (one
+// block a cell, a thread a centre slot, every slot of every neighbour
+// tested) stepped through the pair term whenever one of its 32 threads had
+// a pair inside, at ~10% lane efficiency.  A form that listed each lane's
+// pairs first and ran the term over the lists (K2c's, whose DSF term costs
+// far more) was 8% slower, per neighbour cell 40% slower (tools/ab_lj.py).
+// A neighbour index that wraps the periodic grid takes ±box off that axis's
+// raw difference, (x_i − x_j) − shift (the TPU kernel's ghost copies,
+// applied after the difference so that a pair inside the cutoff gets the
+// plain version's minimum image bit for bit); atoms are never wrapped,
+// because between rebins positions overhang the box by up to skin/2.  The
+// self pair (same cell, same slot) is skipped, and an empty centre slot
 // writes exact zeros.  The box is read from a 0-d float32 device tensor (the
 // NPT engine's dynamic box, or the static box held on the device), so no
 // launch waits for a host read of it.
 //
 // Full shell, not half shell: each pair is evaluated from both sides, twice
 // the TPU kernel's pair work, in exchange for no atomics, no reaction buffer
-// and no fold.  Every sum runs in a fixed order, so results are bitwise
-// reproducible run to run (the engine's determinism contract).
+// and no fold.  Every centre's pairs go through `pair_force` and
+// `accumulate` in the order of the GHOST mode below (the full-shell kernel
+// the grid engine keeps), which skips only pairs at r² ≥ rc² too: the sums
+// are its sums bit for bit, and reproducible run to run (the engine's
+// determinism contract).
 //
 // Numerics: the TPU kernel's Horner form of the switched −r·dE/dr in r²,
 // tot = t12·pa(x) − t6·pb(x), with an exact IEEE 1/r² (no fast math, no
@@ -36,26 +49,28 @@
 //
 // STRAG (the grid side of the straggler pass, K3 — the `strag_kn > 0` tile
 // of `_make_kernel`, pallas_cell_kernel.py:620-670 and :807-862; uniform
-// parameters, forces only): after the 27 cells the block stages the ≤ Kn aux
-// atoms that the (M², Kn) int32 list table holds for its pencil row
-// (z·M + y) and every center thread adds those pairs in list order, on
+// parameters, forces only): after the 27 cells the warp stages, 32 at a
+// time, the ≤ Kn aux atoms that the (M², Kn) int32 list table holds for its
+// pencil row (z·M + y) and every centre lane adds those pairs in list order, on
 // min-imaged raw differences d − L·rint(d/L) (aux atoms are parked outside
 // the grid and carry no ghost shift).  The aux side of the same pairs is
 // straggler_forces.cu; each side evaluates each pair once, so there is no
 // reaction fold.  Plain version: emdee_tpu_torch/neighbors/straggler_kernel.py
 // `grid_forces_plain`.
 //
-// GHOST (the grid-sharded engine's per-shard force pass, in place of
+// GHOST (`cell_forces_kernel`, the grid-sharded engine's per-shard force
+// pass, in place of
 // emdee_tpu/distributed/grid_sharded.py `_local_forces_pallas` and the
 // energy pass of `_local_energy_pallas`, which run K2's half shell with
-// reaction ghosts and a reverse fold): the block's neighbours come from a
+// reaction ghosts and a reverse fold): one block a cell, a thread a centre
+// slot, every slot of every neighbour tested.  The block's neighbours come from a
 // shard's (mz+2, my+2, mx+2, C) ghost grid, stacked over the local shards,
 // whose positions carry NaN in empty slots (the validity mask).  The block
 // walks the same 27 cells in the same order, and takes the periodic shift
 // from the neighbour's GLOBAL cell index (the shard's offset plus the local
 // index), the raw ghost coordinates unshifted — so every displacement is
 // (x_i − x_j) − shift and the forces of any decomposition equal the
-// one-card kernel's bit for bit.  Full shell, so no reaction rows, no fold
+// one-card LJ pass's bit for bit.  Full shell, so no reaction rows, no fold
 // and no second exchange.  Plain version:
 // emdee_tpu_torch/neighbors/cell_kernel.py `ghost_forces_plain`.
 //
@@ -116,18 +131,20 @@
 // buffer ran the body on fewer warp steps but was no faster, nor were more
 // blocks an SM or an unrolled pass B.
 
-// Bound on this card: at the 97,556-atom melt (M = 17, C = 32) a launch
-// evaluates 4,913 × 32 × 864 ≈ 136 M candidate pairs, of which about 6% lie
-// inside the cutoff — arithmetic on registers and broadcast shared-memory
-// reads, with ~1.3 MB of inputs.  One 32-thread block per cell caps
-// residency at 32 warps per SM (half of 64).  The half-shell kernel
-// (cell_forces_streaming.cu, K5) halves the pair work and is not faster at
-// this size (chip_smoke.py times both).
-// The least time for the work is ~2 µs (2.63 M unique pairs inside the
-// cutoff at ~51 float32 operations each, at 67 TFLOP/s; chip_smoke.py counts
-// them); a launch takes ~0.18 ms, the same at C_t = 28 with STRAG as at
-// C = 32, so the candidate-pair count does not set its time.
+// Bound on this card: at the 97,556-atom melt the least time for the work
+// is ~2 µs (2.63 M unique pairs inside the cutoff at ~51 float32 operations
+// each, at 67 TFLOP/s; ~1.3 MB of inputs; chip_smoke.py counts them).  The
+// LJ pass takes ~0.11 ms a launch there (the old kernel ~0.19; ~0.81 ms at
+// the 1M melt against ~1.46; NVIDIA H100 80GB HBM3, 700 W,
+// tools/ab_lj.py): 4,913 warps of 48–55 registers, 9–10 blocks of 4 warps
+// an SM, about one wave.  In trials on this card the time did not follow the
+// pair term (running it on the culled chunk or over per-lane lists batched
+// over cells, more or fewer blocks an SM, loads of the next chunk issued
+// early: all within 8%), but fell by 15–21% when the walk's per-chunk integer work (the
+// wrapped neighbour index) moved into a per-warp table: the walk's
+// instructions and their latency, not the arithmetic, set the time.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -199,16 +216,19 @@ __device__ __forceinline__ void accumulate(float gf, float dvx, float dvy, float
   }
 }
 
-template <bool UNIFORM, bool ENERGY, bool STRAG, bool GHOST, bool COULOMB = false, bool EXCL = false>
+// The GHOST mode (K2-G, K2c-G): one block per own cell of the local
+// shards, one thread per centre slot (C rounded up to a warp; tail threads
+// only help stage).  The block walks the 27 neighbour cells of the ghost
+// grid in the fixed (dz, dy, dx) order, stages each one's C slots in shared
+// memory, and every thread runs the pair term of its centre slot against
+// them in slot order.
+template <bool UNIFORM, bool ENERGY, bool COULOMB = false, bool EXCL = false>
 __global__ void cell_forces_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, int pstride,
+    const float* __restrict__ pz,
     const float* __restrict__ hs, const float* __restrict__ tse,
-    const uint8_t* __restrict__ valid,
     float* __restrict__ fx, float* __restrict__ fy, float* __restrict__ fz,
-    int fstride, float* __restrict__ e_out, float* __restrict__ w_out,
-    const float* __restrict__ ax, const float* __restrict__ ay,
-    const float* __restrict__ az, const int* __restrict__ table, int kn,
+    float* __restrict__ e_out, float* __restrict__ w_out,
     int m, int c, const float* __restrict__ box_ptr, PairConsts k, Ghost g, Mol mol) {
   extern __shared__ float smem[];
   const float box = *box_ptr;
@@ -219,51 +239,34 @@ __global__ void cell_forces_kernel(
   float* stse = shs + c;
   float* sq = stse + c;  // the molecular fields (COULOMB or EXCL only)
   int* said = reinterpret_cast<int*>(sq + c);
-  float* sax = (COULOMB || EXCL) ? reinterpret_cast<float*>(said + c) : sq;  // the STRAG list (kn = 0 otherwise)
-  float* say = sax + kn;
-  float* saz = say + kn;
-  uint8_t* sv = reinterpret_cast<uint8_t*>(saz + kn);
-  uint8_t* sav = sv + c;
+  uint8_t* sv = reinterpret_cast<uint8_t*>((COULOMB || EXCL) ? reinterpret_cast<float*>(said + c) : sq);
 
   const int cell = blockIdx.x;
   const int i = threadIdx.x;
-  // Global cell coordinates; GHOST: the cell's local coordinates and its
-  // shard's first ghost cell.
-  int cx, cy, cz, lx = 0, ly = 0, lz = 0;
-  long gbase = 0;
-  if (GHOST) {
-    lx = cell % g.mx;
-    ly = (cell / g.mx) % g.my;
-    const int r = cell / (g.mx * g.my);
-    lz = r % g.mz;
-    const int s = r / g.mz;
-    cx = (g.bx + s % g.sx_n) * g.mx + lx;
-    cy = (g.by + (s / g.sx_n) % g.sy_n) * g.my + ly;
-    cz = (g.bz + s / (g.sx_n * g.sy_n)) * g.mz + lz;
-    gbase = static_cast<long>(s) * (g.mz + 2) * (g.my + 2) * (g.mx + 2);
-  } else {
-    cx = cell % m;
-    cy = (cell / m) % m;
-    cz = cell / (m * m);
-  }
+  // The cell's local coordinates, its global ones and its shard's first
+  // ghost cell.
+  const int lx = cell % g.mx;
+  const int ly = (cell / g.mx) % g.my;
+  const int r = cell / (g.mx * g.my);
+  const int lz = r % g.mz;
+  const int shard = r / g.mz;
+  const int cx = (g.bx + shard % g.sx_n) * g.mx + lx;
+  const int cy = (g.by + (shard / g.sx_n) % g.sy_n) * g.my + ly;
+  const int cz = (g.bz + shard / (g.sx_n * g.sy_n)) * g.mz + lz;
+  const long gbase = static_cast<long>(shard) * (g.mz + 2) * (g.my + 2) * (g.mx + 2);
   const long own = static_cast<long>(cell) * c + i;
-  // The center slot's input index (GHOST: in the ghost grid's interior).
-  const long in_own = GHOST ? (gbase + ((lz + 1) * (g.my + 2) + ly + 1) * (g.mx + 2) + lx + 1) * c + i
-                            : own;
+  // The center slot's input index, in the ghost grid's interior.
+  const long in_own = (gbase + ((lz + 1) * (g.my + 2) + ly + 1) * (g.mx + 2) + lx + 1) * c + i;
   bool center = false;
   float xi = 0.f, yi = 0.f, zi = 0.f, hsi = 0.f, tsei = 0.f;
   if (i < c) {
-    if (GHOST) {
-      xi = px[in_own];
-      center = !isnan(xi);
-    } else {
-      center = valid[own];
-    }
+    xi = px[in_own];
+    center = !isnan(xi);
   }
   if (center) {
-    xi = px[in_own * pstride];
-    yi = py[in_own * pstride];
-    zi = pz[in_own * pstride];
+    xi = px[in_own];
+    yi = py[in_own];
+    zi = pz[in_own];
     if (!UNIFORM) {
       hsi = hs[in_own];
       tsei = tse[in_own];
@@ -271,9 +274,8 @@ __global__ void cell_forces_kernel(
   }
   float fxa = 0.f, fya = 0.f, fza = 0.f, ea = 0.f, wa = 0.f;
 
-  // Molecular centre operands (GHOST only since K2c has a kernel of its
-  // own): the charge from the ghost grid's interior, the tags per own slot,
-  // in registers.
+  // Molecular centre operands: the charge from the ghost grid's interior,
+  // the tags per own slot, in registers.
   float qi = 0.f;
   Dsf dsf{};
   int tid[kMaxTags];
@@ -297,27 +299,23 @@ __global__ void cell_forces_kernel(
   }
 
   for (int dz = -1; dz <= 1; ++dz) {
-    int nz = cz + dz;
     float shz = 0.f;
-    if (nz < 0) { nz += m; shz = -box; } else if (nz >= m) { nz -= m; shz = box; }
+    if (cz + dz < 0) shz = -box; else if (cz + dz >= m) shz = box;
     for (int dy = -1; dy <= 1; ++dy) {
-      int ny = cy + dy;
       float shy = 0.f;
-      if (ny < 0) { ny += m; shy = -box; } else if (ny >= m) { ny -= m; shy = box; }
+      if (cy + dy < 0) shy = -box; else if (cy + dy >= m) shy = box;
       for (int dx = -1; dx <= 1; ++dx) {
-        int nx = cx + dx;
         float shx = 0.f;
-        if (nx < 0) { nx += m; shx = -box; } else if (nx >= m) { nx -= m; shx = box; }
-        const long nb = GHOST ? (gbase + ((lz + 1 + dz) * (g.my + 2) + ly + 1 + dy) * (g.mx + 2) + lx + 1 + dx) * c
-                              : static_cast<long>(nx + m * (ny + m * nz)) * c;
+        if (cx + dx < 0) shx = -box; else if (cx + dx >= m) shx = box;
+        const long nb = (gbase + ((lz + 1 + dz) * (g.my + 2) + ly + 1 + dy) * (g.mx + 2) + lx + 1 + dx) * c;
 
         __syncthreads();  // the previous neighbor cell is consumed
         if (i < c) {
           const long s = nb + i;
-          sx[i] = px[s * pstride];
-          sv[i] = GHOST ? !isnan(sx[i]) : valid[s];
-          sy[i] = py[s * pstride];
-          sz[i] = pz[s * pstride];
+          sx[i] = px[s];
+          sv[i] = !isnan(sx[i]);
+          sy[i] = py[s];
+          sz[i] = pz[s];
           if (!UNIFORM) {
             shs[i] = hs[s];
             stse[i] = tse[s];
@@ -336,7 +334,7 @@ __global__ void cell_forces_kernel(
           const float dvz = (zi - sz[j]) - shz;
           const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
           if (!(r2 < cut2)) continue;
-          // Tag matches: the LJ and Coulomb scales and the bond weights.
+          // Tag matches: the LJ and Coulomb scales.
           float ljsc = 1.f, csc = 1.f;
           if (EXCL) {
             const int aj = said[j];
@@ -356,23 +354,203 @@ __global__ void cell_forces_kernel(
       }
     }
   }
-  if (STRAG) {
-    __syncthreads();  // the last neighbor cell is consumed
-    const long row = cell / m;  // pencil row z·M + y
-    for (int s = i; s < kn; s += blockDim.x) {
-      const int a = table[row * kn + s];
-      sav[s] = a >= 0;
-      sax[s] = a >= 0 ? ax[a] : 0.f;
-      say[s] = a >= 0 ? ay[a] : 0.f;
-      saz[s] = a >= 0 ? az[a] : 0.f;
+  if (i < c) {
+    fx[own] = fxa;
+    fy[own] = fya;
+    fz[own] = fza;
+    if (ENERGY) {
+      e_out[own] = ea;
+      w_out[own] = wa;
     }
-    __syncthreads();
-    if (center) {
-      for (int s = 0; s < kn; ++s) {
-        if (!sav[s]) continue;
-        const float dvx = emdee::min_image(xi - sax[s], box);
-        const float dvy = emdee::min_image(yi - say[s], box);
-        const float dvz = emdee::min_image(zi - saz[s], box);
+  }
+}
+
+template <bool UNIFORM, bool ENERGY, bool COULOMB = false, bool EXCL = false>
+void launch_ghost(const float* px, const float* py, const float* pz, const float* hs, const float* tse, float* fx,
+                  float* fy, float* fz, float* e, float* w, int m, int c, const float* box, const PairConsts& k,
+                  const Ghost& g, int blocks, const Mol& mol, cudaStream_t stream) {
+  const int threads = ((c + 31) / 32) * 32;
+  const size_t smem = sizeof(float) * ((COULOMB || EXCL) ? 7 : 5) * c + c;
+  cell_forces_kernel<UNIFORM, ENERGY, COULOMB, EXCL><<<blocks, threads, smem, stream>>>(
+      px, py, pz, hs, tse, fx, fy, fz, e, w, m, c, box, k, g, mol);
+}
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// K2a, K2b and K3's grid side (`cell_lj_kernel`): kLjWarps warps a block,
+// each owning up to 32 live centres of one cell; no block barrier.  The
+// launch bounds ask for kLjMinBlocks blocks an SM (≤ 64 registers).
+constexpr int kLjWarps = 4;
+constexpr int kLjThreads = 32 * kLjWarps;
+constexpr int kLjMinBlocks = 8;
+
+// Words of one warp's shared memory: the staged chunk (x, y, z, σ/2, 2√ε
+// and slot of up to 32 entries), the 27 neighbours' periodic shifts and
+// first slots, and the rank-to-slot map.
+constexpr int kLjWarpWords = 6 * 32 + 4 * 27 + 32;
+
+// K2a/K2b/K3's pair pass.  Warp part · M³ + cell takes the live centres of
+// rank 32·part … 32·part + 31 of its cell (lane l the centre of rank
+// 32·part + l) and walks the 27 neighbour cells in the GHOST mode's
+// (dz, dy, dx) order, 32 slots at a time.  It stages in shared memory, in
+// slot order, the chunk's live slots within the cutoff of the warp's
+// centre box (`near_box` at rc², the box shifted back by the cell's
+// periodic shift), and each lane runs the pair term on the staged entries
+// at r² < rc² (the self pair left out), in that order.  So a centre's pairs
+// go through `pair_force` and `accumulate` in the GHOST mode's order, and
+// only pairs at r² ≥ rc², which it skips too, are left out: the sums are
+// its sums, bit for bit.  STRAG: then the ≤ Kn aux atoms that the (M², Kn)
+// table lists for the cell's pencil row, staged 32 at a time and added in
+// list order on min-imaged differences at the static box.  Part 0 also
+// writes the zeros of the empty slots.
+template <bool UNIFORM, bool ENERGY, bool STRAG>
+__global__ void __launch_bounds__(kLjThreads, kLjMinBlocks)
+    cell_lj_kernel(const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
+                   int pstride, const float* __restrict__ hs, const float* __restrict__ tse,
+                   const uint8_t* __restrict__ valid, float* __restrict__ fx, float* __restrict__ fy,
+                   float* __restrict__ fz, int fstride, float* __restrict__ e_out, float* __restrict__ w_out,
+                   const float* __restrict__ ax, const float* __restrict__ ay, const float* __restrict__ az,
+                   const int* __restrict__ table, int kn, int m, int c, const float* __restrict__ box_ptr,
+                   PairConsts k) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  const int parts = (c + 31) / 32;
+  const long cells = static_cast<long>(m) * m * m;
+  const long item = static_cast<long>(blockIdx.x) * kLjWarps + warp;
+  if (item >= cells * parts) return;  // no block barrier follows
+  const int part = static_cast<int>(item / cells);  // part-major: a block's warps are all of one part
+  const long cell = item - part * cells;
+  float* tx = smem + warp * kLjWarpWords;  // the staged chunk, (5, 32) fields
+  float* ty = tx + 32;
+  float* tz = ty + 32;
+  float* ths = tz + 32;
+  float* ttse = ths + 32;
+  int* tslot = reinterpret_cast<int*>(ttse + 32);
+  float* tsh = reinterpret_cast<float*>(tslot + 32);  // (27, 3) periodic shifts
+  int* tnb = reinterpret_cast<int*>(tsh + 3 * 27);    // (27,) first slot of each neighbour cell
+  int* cslot = tnb + 27;
+
+  // This warp's centres: the live slots of rank 32·part + lane.
+  int n_live = 0;
+  for (int a = 0; a < parts; ++a) {
+    const int j = 32 * a + lane;
+    const bool live = j < c && valid[cell * c + j];
+    const unsigned mask = __ballot_sync(kFull, live);
+    const int r = n_live + __popc(mask & below) - 32 * part;
+    if (live && r >= 0 && r < 32) cslot[r] = j;
+    if (part == 0 && j < c && !live) {
+      const long s = cell * c + j;
+      fx[s * fstride] = fy[s * fstride] = fz[s * fstride] = 0.f;
+      if (ENERGY) e_out[s] = w_out[s] = 0.f;
+    }
+    n_live += __popc(mask);
+  }
+  const int n_mine = min(n_live - 32 * part, 32);
+  if (n_mine <= 0) return;
+  const int cx = static_cast<int>(cell % m), cy = static_cast<int>((cell / m) % m), cz = static_cast<int>(cell / (m * m));
+  const float box = *box_ptr;
+  if (lane < 27) {  // neighbour code (dz + 1)·9 + (dy + 1)·3 + dx + 1: its first slot, ±box where it wraps
+    const int w[3] = {cx + lane % 3 - 1, cy + (lane / 3) % 3 - 1, cz + lane / 9 - 1};
+#pragma unroll
+    for (int v = 0; v < 3; ++v) tsh[3 * lane + v] = w[v] < 0 ? -box : (w[v] >= m ? box : 0.f);
+    tnb[lane] = (((w[2] + m) % m * m + (w[1] + m) % m) * m + (w[0] + m) % m) * c;
+  }
+  __syncwarp();
+  const bool centre = lane < n_mine;
+  const int si = centre ? cslot[lane] : -1;
+  const long own = cell * c + si;
+  float xi = 0.f, yi = 0.f, zi = 0.f, hsi = 0.f, tsei = 0.f;
+  if (centre) {
+    xi = px[own * pstride];
+    yi = py[own * pstride];
+    zi = pz[own * pstride];
+    if (!UNIFORM) {
+      hsi = hs[own];
+      tsei = tse[own];
+    }
+  }
+  // The centres' bounding box, on every lane.
+  float lo[3], hi[3];
+  {
+    const float p[3] = {xi, yi, zi};
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      lo[v] = centre ? p[v] : __int_as_float(0x7f800000);
+      hi[v] = centre ? p[v] : -__int_as_float(0x7f800000);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        lo[v] = fminf(lo[v], __shfl_xor_sync(kFull, lo[v], off));
+        hi[v] = fmaxf(hi[v], __shfl_xor_sync(kFull, hi[v], off));
+      }
+    }
+  }
+
+  float fxa = 0.f, fya = 0.f, fza = 0.f, ea = 0.f, wa = 0.f;
+  const Dsf dsf{};
+  for (int code = 0; code < 27; ++code) {
+    const float shx = tsh[3 * code], shy = tsh[3 * code + 1], shz = tsh[3 * code + 2];
+    const float back[3] = {-shx, -shy, -shz};
+    const int nb = tnb[code];
+    const bool self_cell = code == 13;
+    for (int j0 = 0; j0 < c; j0 += 32) {
+      // Stage the chunk's live slots near the centre box, in slot order.
+      const int j = j0 + lane;
+      const long s = nb + min(j, c - 1);
+      const bool live = j < c && valid[s];
+      const float p[3] = {px[s * pstride], py[s * pstride], pz[s * pstride]};
+      const float h = UNIFORM ? 0.f : hs[s], t = UNIFORM ? 0.f : tse[s];
+      const bool keep = live && emdee::near_box(p, lo, hi, back, k.rc2);
+      const unsigned mask = __ballot_sync(kFull, keep);
+      const int n = __popc(mask);
+      if (n == 0) continue;
+      __syncwarp();  // the previous chunk's reads are done
+      if (keep) {
+        const int e = __popc(mask & below);
+        tx[e] = p[0];
+        ty[e] = p[1];
+        tz[e] = p[2];
+        if (!UNIFORM) {
+          ths[e] = h;
+          ttse[e] = t;
+        }
+        tslot[e] = j;
+      }
+      __syncwarp();
+      if (!centre) continue;
+      // The pair term on this lane's staged entries inside the cutoff.
+#pragma unroll 4
+      for (int e = 0; e < n; ++e) {
+        const float dvx = (xi - tx[e]) - shx;
+        const float dvy = (yi - ty[e]) - shy;
+        const float dvz = (zi - tz[e]) - shz;
+        const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
+        if (!(r2 < k.rc2) || (self_cell && tslot[e] == si)) continue;
+        float tot, esum;
+        const float gf = pair_force<UNIFORM, ENERGY, false, false, false>(
+            r2, hsi, UNIFORM ? 0.f : ths[e], tsei, UNIFORM ? 0.f : ttse[e], 0.f, 1.f, 0.f, 0.f, 0.f, k, dsf, tot,
+            esum);
+        accumulate<ENERGY>(gf, dvx, dvy, dvz, tot, esum, fxa, fya, fza, ea, wa);
+      }
+    }
+  }
+
+  if (STRAG) {
+    const long row = cell / m;  // pencil row z·M + y
+    for (int s0 = 0; s0 < kn; s0 += 32) {
+      __syncwarp();  // the chunk's reads are done
+      const int a = s0 + lane < kn ? table[row * kn + s0 + lane] : -1;
+      tx[lane] = a >= 0 ? ax[a] : 0.f;
+      ty[lane] = a >= 0 ? ay[a] : 0.f;
+      tz[lane] = a >= 0 ? az[a] : 0.f;
+      tslot[lane] = a >= 0;
+      __syncwarp();
+      if (!centre) continue;
+      for (int e = 0; e < min(32, kn - s0); ++e) {
+        if (!tslot[e]) continue;
+        const float dvx = emdee::min_image(xi - tx[e], box);
+        const float dvy = emdee::min_image(yi - ty[e], box);
+        const float dvz = emdee::min_image(zi - tz[e], box);
         const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
         if (!(r2 < k.rc2)) continue;
         const float gf = emdee::uniform_force_factor(r2, k);
@@ -382,7 +560,7 @@ __global__ void cell_forces_kernel(
       }
     }
   }
-  if (i < c) {
+  if (centre) {
     fx[own * fstride] = fxa;
     fy[own * fstride] = fya;
     fz[own * fstride] = fza;
@@ -393,26 +571,35 @@ __global__ void cell_forces_kernel(
   }
 }
 
-template <bool UNIFORM, bool ENERGY, bool STRAG = false, bool GHOST = false>
-void launch(const float* px, const float* py, const float* pz, int pstride,
-            const float* hs, const float* tse, const uint8_t* valid, float* fx,
-            float* fy, float* fz, int fstride, float* e, float* w, int m,
-            int c, const float* box, const PairConsts& k, cudaStream_t stream,
-            const float* ax = nullptr, const float* ay = nullptr,
-            const float* az = nullptr, const int* table = nullptr, int kn = 0,
-            const Ghost& g = Ghost{}, int blocks = 0, const Mol& mol = Mol{}) {
-  const int threads = ((c + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * (5 * c + 3 * kn) + c + kn;
-  cell_forces_kernel<UNIFORM, ENERGY, STRAG, GHOST><<<GHOST ? blocks : m * m * m, threads, smem, stream>>>(
-      px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, ax, ay,
-      az, table, kn, m, c, box, k, g, mol);
+// The K2a/K2b/K3 variant for these flags.
+using LjKernel = void (*)(const float*, const float*, const float*, int, const float*, const float*, const uint8_t*,
+                          float*, float*, float*, int, float*, float*, const float*, const float*, const float*,
+                          const int*, int, int, int, const float*, PairConsts);
+
+LjKernel lj_variant(int uniform, int energy, int strag) {
+  if (strag) return cell_lj_kernel<true, false, true>;
+  if (uniform) return energy ? cell_lj_kernel<true, true, false> : cell_lj_kernel<true, false, false>;
+  return energy ? cell_lj_kernel<false, true, false> : cell_lj_kernel<false, false, false>;
+}
+
+constexpr size_t kLjSmemBytes = sizeof(float) * kLjWarps * kLjWarpWords;
+
+int launch_lj(LjKernel kernel, const float* px, const float* py, const float* pz, int pstride, const float* hs,
+              const float* tse, const uint8_t* valid, float* fx, float* fy, float* fz, int fstride, float* e,
+              float* w, const float* ax, const float* ay, const float* az, const int* table, int kn, int m, int c,
+              const float* box, const PairConsts& k, void* stream) {
+  const long warps = static_cast<long>(m) * m * m * ((c + 31) / 32);
+  const unsigned blocks = static_cast<unsigned>((warps + kLjWarps - 1) / kLjWarps);
+  void* args[] = {&px, &py, &pz, &pstride, &hs, &tse, &valid, &fx, &fy, &fz, &fstride, &e, &w,
+                  &ax, &ay, &az, &table, &kn, &m, &c, &box, const_cast<PairConsts*>(&k)};
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks), dim3(kLjThreads),
+                                           args, kLjSmemBytes, static_cast<cudaStream_t>(stream)));
 }
 
 // K2c: kMolWarps warps a block, each owning up to 32 live centres of one
 // cell; no block barrier.
 constexpr int kMolWarps = 4;
 constexpr int kMolThreads = 32 * kMolWarps;
-constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kStage = 256;  // K2c: the most neighbour slots a warp stages at once (a list entry is a byte)
 
@@ -669,21 +856,6 @@ int mol_kernel(int c, int ne, int neb, int coulomb, int excl, int bond, int ener
   return 0;
 }
 
-// The GHOST mode's molecular variants (K2c-G): per-atom parameters; the
-// charges and the int32 atom ids (a bit view in the float32 ghost stack)
-// from the ghost grids, the centre tags per own slot; no bond tags (the
-// grid keeps its bonds as term rows).
-template <bool ENERGY, bool COULOMB, bool EXCL>
-void launch_ghost_mol(const float* px, const float* py, const float* pz, const float* hs, const float* tse,
-                      float* fx, float* fy, float* fz, float* e, float* w, int m, int c, const float* box,
-                      const PairConsts& k, const Ghost& g, int blocks, const Mol& mol, cudaStream_t stream) {
-  const int threads = ((c + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * 7 * c + c;
-  cell_forces_kernel<false, ENERGY, false, true, COULOMB, EXCL><<<blocks, threads, smem, stream>>>(
-      px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, nullptr, nullptr, nullptr, nullptr, 0, m, c, box, k,
-      g, mol);
-}
-
 }  // namespace
 
 extern "C" int emdee_cell_forces(
@@ -693,18 +865,29 @@ extern "C" int emdee_cell_forces(
     const float* box, float rc2, float rs2, float invd2, float a_m, float pa1,
     float pa2, float pb1, float pb2, float sig2_u, float eps4_u, int uniform,
     int energy, void* stream) {
-  if (m < 3 || c < 1 || c > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 3 || c < 1 || c > 1024 || static_cast<long>(m) * m * m * c > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (uniform && energy)
-    launch<true, true>(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, m, c, box, k, s);
-  else if (uniform)
-    launch<true, false>(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, m, c, box, k, s);
-  else if (energy)
-    launch<false, true>(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, m, c, box, k, s);
-  else
-    launch<false, false>(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, m, c, box, k, s);
-  return static_cast<int>(cudaGetLastError());
+  return launch_lj(lj_variant(uniform, energy, 0), px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w,
+                   nullptr, nullptr, nullptr, nullptr, 0, m, c, box, k, stream);
+}
+
+// The K2a/K2b/K3 variant these flags select, as the card reports it:
+// out[0..3] = registers a thread, local (spill) bytes a thread, shared
+// bytes a block, resident blocks an SM.  Launches nothing.
+extern "C" int emdee_cell_forces_attrs(int uniform, int energy, int strag, int* out) {
+  const void* kernel = reinterpret_cast<const void*>(lj_variant(uniform, energy, strag));
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kLjThreads, kLjSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(kLjSmemBytes + fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
 }
 
 // The molecular entry (K2c): stacked positions and forces (M³, C, 3),
@@ -765,13 +948,11 @@ extern "C" int emdee_cell_forces_strag(
     const float* az, const int* table, int kn, int m, int c, const float* box,
     float rc2, float rs2, float invd2, float a_m, float pa1, float pa2,
     float pb1, float pb2, float sig2_u, float eps4_u, void* stream) {
-  if (m < 3 || c < 1 || c > 1024 || kn < 1 || kn > 4096)
+  if (m < 3 || c < 1 || c > 1024 || kn < 1 || kn > 4096 || static_cast<long>(m) * m * m * c > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
-  launch<true, false, true>(px, py, pz, 1, nullptr, nullptr, valid, fx, fy, fz, 1,
-                            nullptr, nullptr, m, c, box, k,
-                            static_cast<cudaStream_t>(stream), ax, ay, az, table, kn);
-  return static_cast<int>(cudaGetLastError());
+  return launch_lj(lj_variant(1, 0, 1), px, py, pz, 1, nullptr, nullptr, valid, fx, fy, fz, 1, nullptr, nullptr, ax,
+                   ay, az, table, kn, m, c, box, k, stream);
 }
 
 // The GHOST mode: the ghost grids of `shards` local shards, px … tse each
@@ -791,18 +972,13 @@ extern "C" int emdee_cell_forces_ghost(
   const Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx};
   const int blocks = shards * mz * my * mx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (uniform && energy)
-    launch<true, true, false, true>(px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, m, c, box, k, s,
-                                    nullptr, nullptr, nullptr, nullptr, 0, g, blocks);
-  else if (uniform)
-    launch<true, false, false, true>(px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, m, c, box, k, s,
-                                     nullptr, nullptr, nullptr, nullptr, 0, g, blocks);
-  else if (energy)
-    launch<false, true, false, true>(px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, m, c, box, k, s,
-                                     nullptr, nullptr, nullptr, nullptr, 0, g, blocks);
-  else
-    launch<false, false, false, true>(px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, m, c, box, k, s,
-                                      nullptr, nullptr, nullptr, nullptr, 0, g, blocks);
+#define EMDEE_GHOST(UN, EN) \
+  launch_ghost<UN, EN>(px, py, pz, hs, tse, fx, fy, fz, e, w, m, c, box, k, g, blocks, Mol{}, s)
+  if (uniform && energy) EMDEE_GHOST(true, true);
+  else if (uniform) EMDEE_GHOST(true, false);
+  else if (energy) EMDEE_GHOST(false, true);
+  else EMDEE_GHOST(false, false);
+#undef EMDEE_GHOST
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -829,7 +1005,7 @@ extern "C" int emdee_cell_forces_ghost_mol(
   const int blocks = shards * mz * my * mx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define EMDEE_GHOST_MOL(EN, CO, EX) \
-  launch_ghost_mol<EN, CO, EX>(px, py, pz, hs, tse, fx, fy, fz, e, w, m, c, box, k, g, blocks, mol, s)
+  launch_ghost<false, EN, CO, EX>(px, py, pz, hs, tse, fx, fy, fz, e, w, m, c, box, k, g, blocks, mol, s)
   if (energy) {
     if (coulomb && excl) EMDEE_GHOST_MOL(true, true, true);
     else if (coulomb) EMDEE_GHOST_MOL(true, true, false);

@@ -10,11 +10,15 @@ Coulomb over the state's charges, exclusion tags, tag-borne bonds).
 launch one kernel of `csrc/cell_forces.cu` for CUDA tensors, with
 backend 'auto' or 'cuda', and run the plain version
 (`cell_dense.cell_dense_forces`) for CPU tensors or backend 'torch'.
-K2c has a kernel of its own: a warp takes 32 live centres of a cell,
-stages each neighbour cell's slots within the cutoff of its centres'
-bounding box (`k2c_cull` mirrors the predicate), lists each lane's
-pairs inside the cutoff and runs the pair term over the lists, adding
-every centre's pairs in the full-shell kernel's order.
+The LJ pass (K2a, K2b, and K3's grid side through `launch_strag`) and
+K2c run on one design: a warp takes 32 live centres of a cell and stages
+each neighbour cell's slots within the cutoff of its centres' bounding
+box (`k2c_cull` mirrors the predicate); the LJ pass runs the pair term on
+the staged slots straight away, K2c lists each lane's pairs inside the
+cutoff first and runs its costlier term over the lists.  Both add every
+centre's pairs in the full-shell kernel's order (the grid's GHOST mode,
+which stays on that kernel, is the witness: its sums are equal bit for
+bit).
 
 The TPU kernel's ghost grid, far sentinels, MXU segment sums and reaction
 folds (`_ghost`, `_prep_inputs`, `_fold_ghosts`, `_const_tiles`,
@@ -49,6 +53,11 @@ LAUNCHES = 0
 # K2c-G).
 MAX_TAGS = 8
 _MOL_WARPS = 4  # K2c: warps a block, each owning 32 live centres of a cell
+# K2a/K2b/K3 (`cell_lj_kernel`): warps a block, and the resident blocks an
+# SM that its launch bounds ask for (so its registers allow).
+LJ_WARPS, LJ_MIN_BLOCKS = 4, 8
+_SM_SMEM_BYTES = 233_472  # shared memory of an SM on Hopper (1,024 reserved a block)
+_SM_WARPS = 64  # resident warps an SM
 _SMEM_BYTES = 232_448  # shared memory a block can use on Hopper
 CULL_SLACK = 2.0**-19  # the cull's slack, as csrc/lj_pair.cuh `kCullSlack`
 
@@ -69,10 +78,11 @@ def cull_keep(p, lo, hi, shift, cut2: float):
 
 
 def k2c_cull(cen, nb, shift, cut2: float):
-    """K2c's cull of one neighbour cell for one warp (for the tests): the
-    neighbour points nb (k, 3) kept within the cutoff of the box of the
-    warp's centres cen (n, 3), shifted back by the cell's periodic shift
-    (displacements are (x_i − x_j) − shift)."""
+    """K2c's cull of one neighbour cell for one warp, which the LJ pass
+    (K2a/K2b/K3) applies at rc² (for the tests): the neighbour points nb
+    (k, 3) kept within the cutoff of the box of the warp's centres cen
+    (n, 3), shifted back by the cell's periodic shift (displacements are
+    (x_i − x_j) − shift)."""
     return cull_keep(nb, cen.min(0).values, cen.max(0).values, -torch.as_tensor(shift), cut2)
 
 
@@ -87,6 +97,28 @@ def mol_smem_bytes(c: int, ne: int, neb: int) -> int:
     and the rank-to-slot map."""
     nt = min(32 * -(-c // 32), _STAGE)
     return 4 * _MOL_WARPS * (8 * nt + 8 * nt + 3 * (ne + neb) * 32 + 32)
+
+
+def lj_smem_bytes() -> int:
+    """The LJ pass's shared memory a block, as its C entry counts it
+    (`kLjSmemBytes`): for each of its warps, the staged chunk (x, y, z,
+    σ/2, 2√ε and slot of up to 32 entries), the 27 neighbours' periodic
+    shifts and first slots, and the rank-to-slot map.  The same at every C,
+    M and Kn: a cell is staged 32 slots at a time, the aux atoms too."""
+    return 4 * LJ_WARPS * (6 * 32 + 4 * 27 + 32)
+
+
+def lj_launch_shape(config: CellDenseConfig) -> dict:
+    """The LJ pass's launch at `config`, reckoned on the host: its warps (a
+    warp 32 live centres of a cell), blocks, shared bytes a block, the
+    resident blocks an SM that shared memory and the warp slots allow (the
+    registers allow LJ_MIN_BLOCKS by the launch bounds), and the waves of
+    warps over the card's 132 SMs at LJ_MIN_BLOCKS blocks an SM."""
+    warps = config.cells_per_dim**3 * -(-config.capacity // 32)
+    smem = lj_smem_bytes()
+    return {"warps": warps, "blocks": -(-warps // LJ_WARPS), "smem_bytes": smem,
+            "blocks_per_sm_smem": _SM_SMEM_BYTES // (smem + 1024), "blocks_per_sm_warps": _SM_WARPS // LJ_WARPS,
+            "waves": warps / (132 * LJ_WARPS * LJ_MIN_BLOCKS)}
 
 
 
@@ -138,11 +170,12 @@ def _launch(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w,
 
 def launch_strag(px, py, pz, valid, ax, ay, az, table, out,
                  config: CellDenseConfig, uniform_params) -> None:
-    """One launch of the force kernel's STRAG variant on CUDA tensors (the
-    grid side of the straggler pass, K3): the split pass of
-    `cell_forces_split` plus, for every center slot, the ≤ Kn aux atoms that
-    `table` (M², Kn) lists for its pencil row.  Writes out[0..2] (M³, C);
-    the caller (`straggler_kernel.straggler_forces`) checks the inputs."""
+    """One launch of the LJ pass's STRAG variant on CUDA tensors (the grid
+    side of the straggler pass, K3): the split pass of `cell_forces_split`
+    plus, for every center slot, the ≤ Kn aux atoms that `table` (M², Kn)
+    lists for its pencil row, added after its grid pairs in list order.
+    Writes out[0..2] (M³, C); the caller
+    (`straggler_kernel.straggler_forces`) checks the inputs."""
     global LAUNCHES
     stream = torch.cuda.current_stream(px.device).cuda_stream
     err = build.load().emdee_cell_forces_strag(
@@ -263,7 +296,7 @@ def _launch_mol(state: CellDenseState, config: CellDenseConfig, coulomb, excl, c
     return forces, e, w
 
 
-def resources(entry: str, what: str, *args) -> dict:
+def resources(entry: str, what: str, *args, warps: int = _MOL_WARPS) -> dict:
     """A kernel variant's resources, as the card reports them through the C
     query `entry` (`cudaFuncGetAttributes`,
     `cudaOccupancyMaxActiveBlocksPerMultiprocessor`): registers and local
@@ -274,7 +307,7 @@ def resources(entry: str, what: str, *args) -> dict:
     out = (ctypes.c_int * 4)()
     err = getattr(build.load(), entry)(*args, ctypes.addressof(out))
     build.check(err, f"{what} resource query")
-    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2], "warps_per_block": _MOL_WARPS,
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2], "warps_per_block": warps,
             "blocks_per_sm": out[3]}
 
 
@@ -291,6 +324,14 @@ def k2c_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) 
     ne, neb, bond = tag_counts(excl)
     return resources("emdee_cell_forces_mol_attrs", "cell_forces (molecular)", config.capacity, ne, neb,
                      int(coulomb is not None), int(excl is not None), int(bond is not None), int(compute_energy))
+
+
+def lj_resources(uniform: bool, energy: bool, strag: bool = False) -> dict:
+    """The LJ pass's variant (K2a: uniform; K2b: per-atom, with or without
+    energies; K3's grid side: `strag`) as the card reports it
+    (`resources`)."""
+    return resources("emdee_cell_forces_attrs", "cell_forces", int(uniform), int(energy), int(strag),
+                     warps=LJ_WARPS)
 
 
 def stacked_operands(state: CellDenseState, config: CellDenseConfig, uniform_params, compute_energy: bool):

@@ -2,7 +2,8 @@
 `chip_smoke.py` drives: at 97,556 atoms the dense component carry, the
 dense stacked path, the straggler engine at bench.py's production config,
 the spill config's component carry (K7 in its rebin), CSVR NVT on the wide
-config, Langevin NVT on the spill config and the grid-sharded engine (every
+config, Langevin NVT on the spill config, Berendsen NPT (on the CSVR step)
+on the wide config and the grid-sharded engine (every
 shard on the card) on (1,1,1) at the wide config and on (2,2,2) at M = 16;
 at 1,000,188 atoms the dense component carry on the streaming kernel
 family; and the molecular engines on the 98,304-atom flexible-water box of
@@ -20,9 +21,10 @@ steps and a profiled window of 40.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 -m emdee_tpu_torch.tools.profile_paths [water | grid | water1m]
+    python3 -m emdee_tpu_torch.tools.profile_paths [lj | water | grid | water1m | portable]
 
-(`water`, `grid`, `water1m`, `portable`: those paths alone; `water1m` and
+(`lj`: the 97,556-atom paths of the dense and straggler engines alone;
+`water`, `grid`, `water1m`, `portable`: those paths alone; `water1m` and
 `portable` are not in the default run.  `portable`: the portable engine's
 neighbor-list NVE at 97,556 atoms, and its rebuild and force pass apart.)
 
@@ -32,7 +34,9 @@ one `torch.profiler` window of 120 steps, from which it prints per step the
 device kernels, their summed device time (the device's busy time: one
 stream, so kernels do not overlap), the host's CUDA runtime calls
 (launches, copies, stream synchronizations), and the kernels that take the
-most device time.  One JSON line per path follows its text lines.
+most device time, each with its device time a launch (the force pass's
+launch time: `cell_lj_kernel` on the LJ paths).  One JSON line per path
+follows its text lines.
 """
 
 from __future__ import annotations
@@ -76,7 +80,8 @@ def profile_path(name, rollout, state, rebin_every, window=WINDOW, profiled=PROF
     busy_ms = sum(kernel_us.values()) / 1e3 / profiled
     best = min(windows)
     top = [
-        {"kernel": k[:80], "us_per_step": kernel_us[k] / profiled, "per_step": kernels[k] / profiled}
+        {"kernel": k[:80], "us_per_step": kernel_us[k] / profiled, "per_step": kernels[k] / profiled,
+         "us_per_launch": kernel_us[k] / kernels[k]}
         for k, _ in kernel_us.most_common(6)
     ]
     result = {
@@ -92,7 +97,8 @@ def profile_path(name, rollout, state, rebin_every, window=WINDOW, profiled=PROF
           f"({100 * busy_ms / best:.1f}% of the best window); {result['device_kernels_per_step']:.1f} device "
           f"kernels/step; runtime calls/step {result['runtime_calls_per_step']}", flush=True)
     for t in top:
-        print(f"  {t['us_per_step']:9.2f} us/step  {t['per_step']:6.2f}/step  {t['kernel']}", flush=True)
+        print(f"  {t['us_per_step']:9.2f} us/step  {t['per_step']:6.2f}/step  {t['us_per_launch']:9.2f} us/launch  "
+              f"{t['kernel']}", flush=True)
     print(json.dumps(result), flush=True)
 
 
@@ -254,11 +260,12 @@ def main(paths: str = "all") -> None:
          "portable": profile_portable}[paths](device)
         return
     from emdee_tpu_torch import (
-        CSVRConfig, LangevinConfig, cell_dense_init, make_cell_dense_sim, make_straggler_sim,
-        straggler_init, suggest_rebin_interval,
+        BerendsenBarostatConfig, CSVRConfig, LangevinConfig, cell_dense_init, make_cell_dense_sim,
+        make_straggler_sim, straggler_init, suggest_rebin_interval,
     )
     from emdee_tpu_torch.tools.melt import (
-        DT, FRICTION, N_CELLS_1M, SKIN, T_NVT, TAU_T, equilibrate, melt, spill_config, straggler_config,
+        DT, FRICTION, KAPPA, N_CELLS_1M, P_NPT, SKIN, T_NVT, TAU_P, TAU_T, equilibrate, melt, spill_config,
+        straggler_config,
     )
 
     st, config, model, params, uni, n = melt(device)
@@ -282,6 +289,11 @@ def main(paths: str = "all") -> None:
     profile_path("NVT CSVR (wide)", csvr, st0, k_t, rng=torch.Generator(device=device).manual_seed(7))
     langevin, _ = make_cell_dense_sim(scfg, model, dt=DT, thermostat=LangevinConfig(T_NVT, FRICTION))
     profile_path("NVT Langevin (spill)", langevin, sp0, k_t, rng=torch.Generator(device=device).manual_seed(7))
+    npt, _ = make_cell_dense_sim(config, model, dt=DT, thermostat=CSVRConfig(T_NVT, TAU_T),
+                                 barostat=BerendsenBarostatConfig(P_NPT, TAU_P, KAPPA))
+    profile_path("NPT CSVR + Berendsen (wide)", npt, st0, k_t, rng=torch.Generator(device=device).manual_seed(7))
+    if paths == "lj":
+        return
     from emdee_tpu_torch import reconfigure_dense_state
     from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, make_grid_sharded_sim
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh

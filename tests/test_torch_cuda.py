@@ -31,8 +31,8 @@ def device():
     return torch.device("cuda", 0)
 
 
-def _state(device, n=2048, varied=True, drift=False, geometry=None):
-    pos, box = cubic_lattice(n, 0.6, jitter=0.15, seed=11)
+def _state(device, n=2048, varied=True, drift=False, geometry=None, density=0.6):
+    pos, box = cubic_lattice(n, density, jitter=0.15, seed=11)
     rng = np.random.default_rng(11)
     eps, sig = (rng.uniform(0.8, 1.2, n), rng.uniform(0.9, 1.1, n)) if varied else (np.ones(n), np.ones(n))
     config = suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.35)
@@ -414,24 +414,53 @@ def test_rebin_window_kernel_matches_plain_and_k4(device):
     assert int((x[-1] != st.atom_id).sum()) > 10
 
 
+# (atoms, density, M) of the jittered lattice for each capacity: every cell
+# fits (the fullest holds 18, 27, 27, 46, 46), and at C = 56 and 88 a cell's
+# second warp takes live centres.
+_GHOST_GEOMETRY = {24: (2048, 0.4, 6), 32: (1372, 0.6, 4), 40: (1372, 0.6, 4), 56: (2048, 0.6, 4),
+                   88: (2048, 0.6, 4)}
+
+
 @pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2)])
-def test_ghost_force_kernel_equals_k2_and_matches_plain(device, shape):
+@pytest.mark.parametrize("capacity", [24, 32, 40, 56, 88])
+def test_ghost_force_kernel_equals_k2_and_matches_plain(device, capacity, shape):
+    """The grid's GHOST mode, which keeps the full-shell kernel, against
+    the one-card LJ pass (K2a/K2b: warp-owned cells, the cull, per-lane
+    lists) on the same drifted state, sharded over `shape`: per-atom forces
+    with energies and virials, per-atom forces alone and uniform forces
+    (K2a's component entry) bit for bit, at C = 24 … 88 (one to three warps
+    a cell); the GHOST kernel within 2e-5 of the force scale of its plain
+    version."""
     from emdee_tpu_torch.distributed import grid_sharded as gs
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
 
-    st, config, model = _state(device, drift=True, geometry={"cells_per_dim": 4, "capacity": 56})
+    n, density, m = _GHOST_GEOMETRY[capacity]
+    st, config, model = _state(device, n=n, drift=True, density=density,
+                               geometry={"cells_per_dim": m, "capacity": capacity})
+    assert not bool(st.overflow)
     mesh = make_grid_mesh(shape, device=device)
     sh = gs.distribute_grid(st, config, mesh)
     roll_k, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, backend="cuda")
+    roll_u, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, uniform_params=(0.5, 2.0), backend="cuda")
     roll_p, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, backend="torch")
     before = cell_kernel.LAUNCHES
     got = roll_k.forces(sh, compute_energy=True)
     assert cell_kernel.LAUNCHES == before + 1
-    whole = lambda f, e, w: gs.gather_grid_state(sh._replace(positions=f, half_sigma=e, twice_sqrt_eps=w), config, mesh)  # noqa: E731
+    whole = lambda f, e=None, w=None: gs.gather_grid_state(sh._replace(  # noqa: E731
+        positions=f, half_sigma=sh.half_sigma if e is None else e,
+        twice_sqrt_eps=sh.twice_sqrt_eps if w is None else w), config, mesh)
     k, p = whole(*got), whole(*roll_p.forces(sh, compute_energy=True))
     ref = cell_kernel.cell_forces(st, model, config, compute_energy=True, backend="cuda")
     for a, b in zip((k.positions, k.half_sigma, k.twice_sqrt_eps), ref):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    f_only = whole(roll_k.forces(sh)[0]).positions
+    assert torch.equal(f_only.view(torch.int32), cell_kernel.cell_forces(st, model, config, backend="cuda")[0]
+                       .view(torch.int32))
+    f_uni = whole(roll_u.forces(sh)[0]).positions
+    comps = [st.positions[..., i].contiguous() for i in range(3)]
+    ref_u = cell_kernel.cell_forces_split(*comps, st.valid, config, uniform_params=(0.5, 2.0), backend="cuda")
+    for i in range(3):
+        assert torch.equal(f_uni[..., i].view(torch.int32), ref_u[i].view(torch.int32))
     v = st.valid
     scale = max(float(p.positions[v].abs().max()), 1.0)
     assert float((k.positions[v] - p.positions[v]).abs().max()) <= 2e-5 * scale
@@ -717,19 +746,11 @@ _CULL_PAIRS = (
 )
 
 
-def _cull_pairs_state(device, capacity, bonded=True, copies=1):
-    """The `_CULL_PAIRS` box on the port: (state, config, LJ model, DSF
-    model, slot tags, exclusion tables).  bonded: each pair is a harmonic
-    bond (k = 40, r0 = 1.1) with its LJ and Coulomb excluded, the tags
-    carry the bond weights; else each pair's LJ is excluded and its DSF
-    Coulomb kept, no bond.  Charges ±0.4.  copies = 2: the 12³ box tiled
-    2 × 2 × 2 into a 24³ box of 8³ cells (the same periodic system, every
-    atom with its one partner, some pairs now across the inner faces at 12),
-    so that (2,4,1) has two cell layers a shard."""
-    from emdee_tpu_torch import (
-        DSFCoulomb, LennardJonesModel, build_exclusion_tables, cell_dense_init, lennard_jones_atom,
-        make_exclusion_aux_fn,
-    )
+def _cull_pairs_positions(device, capacity, copies=1, charges=None):
+    """The `_CULL_PAIRS` box as a dense state with unit LJ parameters (and
+    `charges`, if given): (state, config, the positions as stored (n, 3),
+    box edge), each overhanging atom moved after binning."""
+    from emdee_tpu_torch import cell_dense_init, lennard_jones_atom
 
     base = np.array([p for a, b, _ in _CULL_PAIRS for p in (a, b)], np.float64)
     tiles = 12.0 * np.array([(i, j, k) for i in range(copies) for j in range(copies) for k in range(copies)])
@@ -737,9 +758,8 @@ def _cull_pairs_state(device, capacity, bonded=True, copies=1):
     n, edge = len(pos), 12.0 * copies
     config = suggest_cell_dense_config(n, edge, cutoff=fixtures.CUTOFF, switch=fixtures.SWITCH,
                                        skin=fixtures.CHARGED_SKIN)._replace(capacity=capacity)
-    q = np.tile(np.array([0.4, -0.4], np.float32), n // 2)
     st = cell_dense_init(pos, np.zeros_like(pos), np.ones(n), lennard_jones_atom(np.ones(n), np.ones(n),
-                         device=device), config, charges=q, device=device)
+                         device=device), config, charges=charges, device=device)
     for a, b, x in _CULL_PAIRS:
         for t in tiles if x is not None else ():
             hit = st.valid & ((st.positions - torch.tensor(b + t, dtype=torch.float32, device=device)).abs()
@@ -749,6 +769,23 @@ def _cull_pairs_state(device, capacity, bonded=True, copies=1):
                                                    torch.tensor(x + t[0], dtype=torch.float32, device=device),
                                                    st.positions))
             pos[np.all(np.abs(pos - (b + t)) < 1e-5, axis=1), 0] = x + t[0]
+    return st, config, pos, edge
+
+
+def _cull_pairs_state(device, capacity, bonded=True, copies=1):
+    """The `_CULL_PAIRS` box on the port: (state, config, LJ model, DSF
+    model, slot tags, exclusion tables).  bonded: each pair is a harmonic
+    bond (k = 40, r0 = 1.1) with its LJ and Coulomb excluded, the tags
+    carry the bond weights; else each pair's LJ is excluded and its DSF
+    Coulomb kept, no bond.  Charges ±0.4.  copies = 2: the 12³ box tiled
+    2 × 2 × 2 into a 24³ box of 8³ cells (the same periodic system, every
+    atom with its one partner, some pairs now across the inner faces at 12),
+    so that (2,4,1) has two cell layers a shard."""
+    from emdee_tpu_torch import DSFCoulomb, LennardJonesModel, build_exclusion_tables, make_exclusion_aux_fn
+
+    n = 2 * len(_CULL_PAIRS) * copies**3
+    q = np.tile(np.array([0.4, -0.4], np.float32), n // 2)
+    st, config, pos, edge = _cull_pairs_positions(device, capacity, copies, q)
     d = pos[:, None] - pos[None]
     d -= edge * np.round(d / edge)
     bonds = np.argwhere(np.triu((d * d).sum(-1) < fixtures.CUTOFF**2, 1))  # each atom's one partner
@@ -793,6 +830,111 @@ def test_k5c_cull_keeps_bonded_pairs_just_inside_the_cutoff(device, kernel, capa
         if energy:
             for a, b in ((got[1], ep), (got[2], wp)):
                 assert float((a - b)[v].abs().max()) <= 1e-3
+
+
+def _empty_strag_operands(st, config):
+    """K3's operands with nothing parked: the state's component arrays, an
+    empty aux buffer (A = 8, every lane at cell M³) and an all-empty (M²,
+    Kn = 4) list table; (args for `straggler_forces`, StragglerConfig)."""
+    from emdee_tpu_torch import StragglerConfig
+
+    dev = st.positions.device
+    sconfig = StragglerConfig(config, config.capacity + 4, 8, 4)
+    comps = [st.positions[..., i].contiguous() for i in range(3)]
+    aux = [torch.zeros(8, dtype=torch.float32, device=dev) for _ in range(3)]
+    acell = torch.full((8,), config.num_cells, dtype=torch.int32, device=dev)
+    table = torch.full((config.cells_per_dim**2, 4), -1, dtype=torch.int32, device=dev)
+    return (*comps, st.valid, *aux, acell, table, sconfig), sconfig
+
+
+@pytest.mark.parametrize("capacity", [24, 32])
+def test_lj_cull_keeps_switch_region_pairs_per_atom(device, capacity):
+    """The LJ pass (K2a, K2b with and without energies, K3's grid side with
+    nothing parked) drops no pair in the switch region just inside the
+    cutoff: the `_CULL_PAIRS` geometry with unit LJ and nothing else — each
+    atom alone in its cell with one partner at 0.988–0.992 rc across a face,
+    an edge or a corner, the periodic seam, or an overhang — so each atom's
+    force is its one pair's (~4e-3, the switch nearly closed) and a dropped
+    pair fails by its whole force.  Each atom is held to its own plain force
+    within 1e-3 of its magnitude, and with energies each slot's energy and
+    virial within 1e-2 of theirs (the energy there is the switch's small
+    remainder, S ≈ 3e-3, whose float32 rounding reaches ~1e-3 of it; a
+    dropped pair misses it whole)."""
+    from emdee_tpu_torch.neighbors import straggler_kernel
+
+    st, config, pos, edge = _cull_pairs_positions(device, capacity)
+    d = pos[:, None] - pos[None]
+    d -= edge * np.round(d / edge)
+    r = np.sqrt((d * d).sum(-1)) + 99.0 * np.eye(len(pos))
+    assert (r.min(1) >= 0.97 * fixtures.CUTOFF).all() and (np.sort(r, 1)[:, 1] > fixtures.CUTOFF).all()
+    model = LennardJonesModel.create(fixtures.CUTOFF, fixtures.SWITCH, device=device)
+    v = st.valid
+    uni = (0.5, 2.0)
+    comps = [st.positions[..., i].contiguous() for i in range(3)]
+    args, sconfig = _empty_strag_operands(st, config)
+    runs = {
+        "K2a": (lambda b: torch.stack(cell_kernel.cell_forces_split(*comps, v, config, uniform_params=uni,
+                                                                    backend=b), -1), None),
+        "K2b": (lambda b: cell_kernel.cell_forces(st, model, config, backend=b)[0], None),
+        "K2b energies": (None, lambda b: cell_kernel.cell_forces(st, model, config, compute_energy=True, backend=b)),
+        "K3": (lambda b: straggler_kernel.straggler_forces(*args, uni, backend=b)[0].permute(1, 2, 0), None),
+    }
+    for name, (forces, energies) in runs.items():
+        if energies is not None:
+            got, want = energies("cuda"), energies("torch")
+        else:
+            got, want = (forces("cuda"),), (forces("torch"),)
+        torch.cuda.synchronize()
+        fk, fp = got[0][v], want[0][v]
+        assert float(fp.norm(dim=-1).min()) > 1e-3, name
+        assert bool(((fk - fp).norm(dim=-1) <= 1e-3 * fp.norm(dim=-1)).all()), name
+        for a, b in zip(got[1:], want[1:]):
+            assert bool(((a - b)[v].abs() <= 1e-2 * b[v].abs()).all()) and float(b[v].abs().min()) > 0, name
+
+
+def test_k3_with_nothing_parked_equals_k2a_and_reruns_bitwise(device):
+    """K3's grid side with an all-empty aux table equals K2a bit for bit on
+    the straggler fixture's grid (C_t two below the fullest cell, drifted
+    0.45·skin); K2a, K2b (with and without energies) and K3 with the
+    fixture's own table rerun bitwise; and the card reports the LJ pass's
+    shared memory as `cell_kernel.lj_smem_bytes` counts it, with at least
+    the LJ_MIN_BLOCKS blocks an SM that its launch bounds ask for."""
+    from emdee_tpu_torch.neighbors import straggler_kernel
+    from emdee_tpu_torch.neighbors.cell_dense_straggler import _bindings, _hood_matrix
+
+    sst, sconfig = _straggler_state(device)
+    cfg = sconfig.grid
+    vel = sst.grid.velocities
+    grid = sst.grid._replace(positions=torch.where(
+        sst.grid.valid[..., None], sst.grid.positions + (0.45 * 0.35 / float(vel.abs().max())) * vel, 0.0))
+    args, _ = _empty_strag_operands(grid, cfg)
+    out = torch.empty((3, cfg.num_cells, cfg.capacity), dtype=torch.float32, device=device)
+    before = cell_kernel.LAUNCHES
+    cell_kernel.launch_strag(*args[:7], args[8], out, cfg, (0.5, 2.0))
+    assert cell_kernel.LAUNCHES == before + 1
+    ref = cell_kernel.cell_forces_split(*args[:4], cfg, uniform_params=(0.5, 2.0), backend="cuda")
+    for i in range(3):
+        assert torch.equal(out[i].view(torch.int32), ref[i].view(torch.int32))
+
+    av = sst.aux_cell < cfg.num_cells
+    table, _ = _bindings(sst.aux_cell, av, sconfig, _hood_matrix(cfg.cells_per_dim, device))
+    assert int((table >= 0).sum()) > 0
+    p = grid.positions.permute(2, 0, 1).contiguous()
+    a = sst.aux_positions.t().contiguous()
+    strag = (p[0], p[1], p[2], grid.valid, a[0], a[1], a[2], sst.aux_cell, table, sconfig, (0.5, 2.0))
+    model = LennardJonesModel.create(2.5, 2.0, device=device)
+    calls = (lambda: straggler_kernel.straggler_forces(*strag, backend="cuda"),
+             lambda: cell_kernel.cell_forces_split(*args[:4], cfg, uniform_params=(0.5, 2.0), backend="cuda"),
+             lambda: cell_kernel.cell_forces(grid, model, cfg, backend="cuda"),
+             lambda: cell_kernel.cell_forces(grid, model, cfg, compute_energy=True, backend="cuda"))
+    for call in calls:
+        x, y = call(), call()
+        assert all(torch.equal(s.view(torch.int32), t.view(torch.int32)) for s, t in zip(x, y) if s is not None)
+    for flags in ((True, False, False), (False, True, False), (False, False, False), (True, False, True)):
+        res = cell_kernel.lj_resources(*flags)
+        assert res["registers"] > 0 and res["warps_per_block"] == cell_kernel.LJ_WARPS
+        assert res["smem_bytes"] == cell_kernel.lj_smem_bytes()
+        assert res["blocks_per_sm"] >= cell_kernel.LJ_MIN_BLOCKS, (flags, res)
 
 
 def test_streaming_molecular_water_rollout_matches_plain_and_reruns_bitwise(device):
