@@ -167,6 +167,10 @@ OPS_PER_PAIR_ENERGY = OPS_PER_PAIR + 18
 # H100 80GB HBM3, 700.00 W), printed on the log lines beside this run's.
 K2_BEFORE = {"split_ms": 0.1898, "energy_ms": 0.2266, "n1m_split_ms": 1.4660, "n1m_energy_ms": 1.7765}
 K3_BEFORE = {"strag_ms": 0.1875}
+# K5 before its redesign (the pencil kernel, one block a (z, y) pencil): its
+# chip_smoke.py times, split and with energies (PERF.md §6; NVIDIA H100
+# 80GB HBM3, 700.00 W; at 97,556 atoms only the split time was kept).
+K5_BEFORE = {"split_ms": 0.2236, "n1m_split_ms": 1.3159, "n1m_energy_ms": 1.7722}
 
 
 def log(msg: str) -> None:
@@ -425,9 +429,13 @@ def phase_streaming(device, tag, cells=None):
     across the seam: both entries vs the plain version (forces within 2e-5
     of the force scale, energies and virials, exact zeros on empty slots),
     vs the resident kernel (K2) on the same state, and the times of K5, K2
-    and the plain version, each entry.  Returns (K5 row, K2 times)."""
+    and the plain version, each entry, beside K5's before its redesign and
+    its scratch traffic; K5's variants' resources as the card reports them.
+    Returns (K5 row, K2 times)."""
     from emdee_tpu_torch.neighbors.cell_kernel import cell_forces, cell_forces_split
-    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming, cell_forces_streaming_split
+    from emdee_tpu_torch.neighbors.streaming_kernel import (
+        cell_forces_streaming, cell_forces_streaming_split, k5_resources, scratch_bytes,
+    )
 
     st, config, model, _, uni, n = melt(device) if cells is None else melt(device, cells)
     st = drifted(st, SKIN)
@@ -473,22 +481,29 @@ def phase_streaming(device, tag, cells=None):
     ns = config.num_slots
     bound_ms, bound_by = bound(25 * ns, OPS_PER_PAIR * pairs)
     bound_e = bound(41 * ns, OPS_PER_PAIR_ENERGY * pairs)
-    # The design's own traffic: four reaction row groups written and read back.
-    rows_ms = 1e3 * 2 * 4 * 3 * 4 * ns / HBM_BYTES_PER_S
+    # The design's own traffic: the scratch slices, written once and read back by the fold.
+    scratch_ms = [1e3 * 2 * scratch_bytes(config, e) / HBM_BYTES_PER_S for e in (False, True)]
     log(f"{tag} K5 at {n} atoms (M={config.cells_per_dim} C={config.capacity}), drifted across the seam: "
         f"vs plain max |dF| per-atom+energies {err_e:.3e}, split {err_s:.3e} (rel {err / scale:.3e}); "
         f"vs K2 max |dF| {vs_k2:.3e} (rel {vs_k2 / scale:.3e}); energies, virials in tolerance, "
         "empty slots exactly 0")
     before = (K2_BEFORE["n1m_split_ms"], K2_BEFORE["n1m_energy_ms"]) if big else (
         K2_BEFORE["split_ms"], K2_BEFORE["energy_ms"])
-    log(f"{tag} K5 vs K2 times at {n} atoms: split K5 {ms:.4f} ms (2 launches) vs K2 {k2_ms:.4f} ms (K2 before "
-        f"its redesign {before[0]}), plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; reaction rows "
-        f"alone {rows_ms:.5f} ms); per-atom+energies K5 {ms_e:.4f} ms vs K2 {k2_ms_e:.4f} ms (before "
-        f"{before[1]}), plain {plain_ms_e:.3f} ms, bound {bound_e[0]:.5f} ms ({bound_e[1]}); {pairs:,} pairs "
+    k5_before = (K5_BEFORE["n1m_split_ms"], K5_BEFORE["n1m_energy_ms"]) if big else (
+        K5_BEFORE["split_ms"], "not kept")
+    log(f"{tag} K5 vs K2 times at {n} atoms: split K5 {ms:.4f} ms (2 launches; K5 before its redesign "
+        f"{k5_before[0]}) vs K2 {k2_ms:.4f} ms (K2 before its redesign {before[0]}), plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}; K5's scratch, {scratch_bytes(config, False):,} B written and read "
+        f"back, alone {scratch_ms[0]:.5f} ms); per-atom+energies K5 {ms_e:.4f} ms (before {k5_before[1]}) vs K2 "
+        f"{k2_ms_e:.4f} ms (before {before[1]}), plain {plain_ms_e:.3f} ms, bound {bound_e[0]:.5f} ms "
+        f"({bound_e[1]}; scratch {scratch_bytes(config, True):,} B, {scratch_ms[1]:.5f} ms); {pairs:,} pairs "
         "inside the cutoff")
+    res = {name: k5_resources(config, *flags) for name, flags in (
+        ("uniform", (True, False)), ("per-atom", (False, False)), ("per-atom energies", (False, True)))}
+    log(f"{tag} K5 (streaming_lj_kernel) resources at C={config.capacity}: {resources_line(res)}")
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": None, "energy_ms": ms_e, "energy_plain_ms": plain_ms_e,
-           "energy_bound_ms": bound_e[0], "vs_k2_max_abs_err": vs_k2}
+           "energy_bound_ms": bound_e[0], "vs_k2_max_abs_err": vs_k2, "resources": res}
     return row, {"k2_split_ms": k2_ms, "k2_energy_ms": k2_ms_e}
 
 

@@ -63,12 +63,12 @@ _SIGNATURES = {
     "emdee_straggler_aux": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                             _F, _F, _F, _P],
-    # px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w, groups,
-    # m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u,
-    # eps4_u, uniform, energy, stream
-    "emdee_streaming_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
-                               _P, _P, _I, _I, _P, _F, _F, _F, _F, _F, _F, _F,
-                               _F, _F, _F, _I, _I, _P],
+    # px, py, pz, pstride, hs, tse, valid, slices, m, c, box (device), rc2,
+    # rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u, uniform, energy,
+    # stream
+    "emdee_streaming_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P] + [_F] * 10 + [_I, _I, _P],
+    # c, uniform, energy, out (int[4])
+    "emdee_streaming_attrs": [_I, _I, _I, _P],
     # pos, hs, tse, valid, q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb,
     # alpha, rc, rc2_c, e_shift, f_shift, kc (0-d device tensors), slices,
     # m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, coulomb,
@@ -79,7 +79,7 @@ _SIGNATURES = {
     "emdee_streaming_mol_attrs": [_I] * 7 + [_P],
     # f, e, w, slices, n_slices, num_slots, energy, stream
     "emdee_streaming_fold_mol": [_P, _P, _P, _P, _I, _L, _I, _P],
-    # fx, fy, fz, fstride, e, w, groups, num_slots, energy, stream
+    # fx, fy, fz, fstride, e, w, slices, num_slots, energy, stream
     "emdee_streaming_fold": [_P, _P, _P, _I, _P, _P, _P, _L, _I, _P],
     # px, py, pz, hs, tse, out, groups, mz, my, mx, shards, sy_n, sx_n, bz,
     # by, bx, m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2,

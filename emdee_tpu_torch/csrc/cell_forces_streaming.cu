@@ -13,35 +13,59 @@
 // `_dense_forces` (the same half shell with rolled reactions); wrapper:
 // emdee_tpu_torch/neighbors/streaming_kernel.py.
 //
-// Design.  One block per (z, y) pencil (M² blocks of 8 warps).  The block
-// walks 14 phases: the self cell; dx = −1, 0, +1 of the row groups (0, 1),
-// (1, −1), (1, 0), (1, 1); and dx = +1 of the own row (0, 0).  In a phase
-// warp w takes the centre cells x ≡ w (mod 8) of the pencil and evaluates
-// every pair of centre cell x with neighbour cell (x+dx, y+dy, z+dz), each
-// unique pair once.  The warp first compacts the live slots of both cells
-// into its two shared tiles (ballot ranks, slot order).  A lane holds a
-// live centre slot; the neighbour cell's live slots travel round a ring of
-// W = max(live centre, live neighbour) lanes as packets (position,
-// parameters and the reaction sums), one lane per step by shuffle, so after
-// W steps every lane has met every packet and each packet is back on its own
-// lane with −Σᵢ f_ij summed in a fixed order.  At 1M a cell holds ~20 atoms
-// in its 32 slots, so a cell pair takes ~22 steps, not 32.  Capacities
-// above 32 take a second centre slot per lane and a second packet chunk,
-// above 64 a third (C ≤ 96: the water boxes need C = 80 and 88).
+// Design.  Warps own a centre cell's phases, in the pencil's order:
+// phase 0 is the self cell, phase 1 + k the half-shell offset k of kOff*
+// (dx = −1, 0, +1 of the row groups (0, 1), (1, −1), (1, 0), (1, 1), then dx
+// = +1 of the own row (0, 0)).  In a phase the warp evaluates every pair of
+// its centre cell with the neighbour cell, each unique pair once.  It
+// compacts the live slots of its cell once into a shared tile (ballot
+// ranks, slot order) and, in each phase, the neighbour cell's into a
+// second; it culls the pair to the atoms within the cutoff of the other
+// cell's bounding box (below; the centres kept go to a third tile, so the
+// first stays whole for the next phase), and runs the ring: a lane holds
+// a live centre slot; the neighbour's live slots travel round a ring of W =
+// max(live centres, live neighbours) lanes as packets (position, parameters
+// and the reaction sums), one lane per step by shuffle, so after W steps
+// every lane has met every packet and each packet is back on its own lane
+// with −Σᵢ f_ij summed in a fixed order.  Capacities above 32 take a second
+// centre slot per lane and a second packet chunk, above 64 a third (C ≤ 96).
+// The tiles hold x, y, z (and σ/2, 2√ε with per-atom parameters): 3 KB a
+// warp with uniform parameters at C ≤ 64, 4.5 KB per atom.
 //
-// No float atomics.  Each block owns the centre accumulators of its pencil
-// and one reaction row per group in shared memory.  Within a phase the map
-// x → x+dx is a bijection, so no two warps touch the same reaction lane, and
-// phases are separated by barriers, so each slot's contributions arrive in
-// the order of the phases.  The wrapped x lanes fold by indexing modulo M
-// (the TPU kernel's `wrap_reaction`).  After its three dx phases a group's
-// row is written to its own slice of a (4, n_r, M³·C) scratch array at the
-// wrapped row (z+dz, y+dy): each group is a bijection on rows, so every row
-// of every slice is written by exactly one block.  The own row (0, 0) is the
-// block's own pencil: its reactions are added to the centre sums in the
-// kernel.  A second small launch (`fold_kernel`) adds the four group slices
-// in a fixed order — centre + (0,0), then (0,1), (1,−1), (1,0), (1,1) — so
-// reruns are bitwise equal (the engine's determinism contract).
+// No block barrier, no float atomics.  A warp walks all 14 phases of one
+// cell (a trial on this card against one phase a warp, K5c's form, is in
+// PERF.md): its centre sums gather in its shared row over the phases and
+// leave once, to centre slice 0 of a scratch (14, n_r, M³·C); offset k's
+// reactions go to reaction slice k (slice 1 + k) at the neighbour's own
+// slots, every slot of the neighbour cell (zeros where no pair reached
+// it).  For a fixed offset the map from centre cell to neighbour cell is a
+// bijection, so every slot of every slice is written by exactly one warp,
+// once.  A second launch (`lj_fold_kernel`) adds, for each slot, the centre
+// sums, then the own row's reactions (offset 12), then each row group's
+// three reaction slices as one term: the association of the pencil kernel,
+// which summed the phases in a shared centre row, added its own row's
+// reactions on writing the outputs and left each row group's three dx
+// phases summed in one reaction row for its fold.  Reruns are bitwise equal
+// (the engine's determinism contract); built without the cull
+// (-DEMDEE_K5_NO_CULL, tools/ab_streaming.py only) each phase's sums are
+// formed by the same ring (`pair_tiles`) on the same tile contents as the
+// pencil's, so the outputs equal the pencil kernel's bit for bit.  The scratch is
+// stored and read with the streaming cache hint (`__stcs`, `__ldcs`), so
+// that it does not evict from L2 the cells that the warps read.
+//
+// The cull (K5c's, at rc²).  The warp reduces the bounding box of the
+// neighbour's live entries (by the warp's integer min and max reductions,
+// `tile_box`), shifted by the phase's periodic shift, and keeps only the
+// centre entries whose distance to that box is below the cutoff; then it
+// keeps only the neighbour entries within the cutoff of the kept centres'
+// box.  Both tiles stay in slot order, so the cull changes only which
+// lanes meet in the ring, and roundoff.  The test is conservative (the
+// slack of `emdee::near_box`), so no pair whose computed r² lies below rc²
+// is dropped (`streaming_kernel.cull_pair` mirrors it for the CPU tests);
+// the boxes come from the atoms, so an atom that overhangs its cell
+// between rebins needs no assumption.  At the 1M melt (cell 2.86σ, rc
+// 2.5σ) it keeps ~0.82 of a cell against a face, ~0.52 against an edge and
+// ~0.27 against a corner.  The self phase is not culled.
 //
 // Coordinates: across a periodic face the displacement is the raw
 // difference less ±box on that axis, (x_i − x_j) − shift, the TPU kernel's
@@ -55,7 +79,8 @@
 // wraps: holding it in a register from the kernel's start cost ~2% at 1M.
 // Ring lanes past the live packets carry NaN coordinates, which fail the
 // cutoff test; lanes past the live centre slots and the self pair are
-// skipped; an empty slot's outputs are exact zeros.
+// skipped; an empty slot's outputs are exact zeros (its slices are written
+// as zeros).
 //
 // Numerics: the Horner form of the switched −r·dE/dr in r² with an exact
 // IEEE 1/r² (no fast math), pairs at r² ≥ rc² skipped, as in cell_forces.cu.
@@ -70,14 +95,11 @@
 // box, one ~141 KB block an SM at 985,527 atoms) and a barrier after each
 // phase, and only ~9% of a ring's candidates lie inside the cutoff.
 //
-// Warp-owned centre cells.  A warp owns one phase of one centre cell, in
-// the pencil kernel's order: phase 0 is the self cell, phase 1 + k the
-// half-shell offset k of kOff* (dx = −1, 0, +1 of the row groups (0, 1),
-// (1, −1), (1, 0), (1, 1), and dx = +1 of the own row); warp
-// phase · M³ + cell, so that the warps resident at once walk one offset
-// over neighbouring cells.  (A trial on this card split a cell's 14 phases
-// over 1, 2, 7 and 14 warps: one phase a warp ran fastest at both water
-// sizes.)  The warp sums its centres in a row of its shared memory and
+// Warp-owned centre cells, in K5's phase order.  A warp owns one phase of
+// one centre cell, warp phase · M³ + cell, so that the warps resident at
+// once walk one offset over neighbouring cells.  (A trial on this card split
+// a cell's 14 phases over 1, 2, 7 and 14 warps: one phase a warp ran fastest
+// at both water sizes.)  The warp sums its centres in a row of its shared memory and
 // writes them once, to centre slice `phase` of a scratch (27, n_r, M³·C);
 // the reactions of offset k go to slice 14 + k at the neighbour's own
 // slots, every slot of the neighbour cell (zeros where no pair reached
@@ -96,12 +118,8 @@
 // (`__stcs`, `__ldcs`), so that it does not evict from L2 the cells that
 // the warps read.
 //
-// The cull.  After compacting a cell pair's two tiles, the warp reduces the
-// bounding box of the neighbour's live entries by shuffles, shifted by the
-// phase's periodic shift, and keeps only the centre entries whose distance
-// to that box is below the cutoff; then it keeps only the neighbour entries
-// within the cutoff of the kept centres' box.  Both tiles stay in slot
-// order.  The test is conservative: each axis' gap is lowered by a slack of
+// The cull, as K5's at the larger of the two cutoffs.  The test is
+// conservative: each axis' gap is lowered by a slack of
 // 2⁻¹⁹ of the magnitudes in play (≤ 1e-3 Å at these boxes, against a
 // rounding error of ~1e-5 Å in a displacement), so no pair whose computed
 // r² lies below cut2 is dropped (`streaming_kernel.cull_keep` mirrors it for
@@ -131,11 +149,17 @@
 // engine, `streaming_halfshell_call` with `wrap_reaction=False` as
 // emdee_tpu/distributed/grid_sharded.py `_local_forces_streaming` :658-702
 // and `_local_energy_pallas` :704-744 call it), through
-// `emdee_streaming_ghost` (LJ): one block per interior pencil (z, y) of each
-// local shard, centres and neighbours read from the shards' stacked
-// (mz+2, my+2, mx+2, C) ghost grids, whose positions carry NaN in empty
-// slots; nothing wraps.  The 14 phases are the one-card kernel's; each
-// periodic shift comes from the neighbour's GLOBAL cell index on raw
+// `emdee_streaming_ghost` (LJ), keeps the pencil design: one block of 8
+// warps per interior pencil (z, y) of each local shard, centres and
+// neighbours read from the shards' stacked (mz+2, my+2, mx+2, C) ghost
+// grids, whose positions carry NaN in empty slots; nothing wraps.  The
+// block walks the 14 phases in K5's order, a barrier after each; in a
+// phase warp w takes the centre cells x ≡ w (mod 8) of the pencil and runs
+// `cell_pair` without the cull, its centre sums into the pencil's shared
+// centre row and its reactions into the group's shared reaction row (within
+// a phase the map x → x+dx is a bijection, so no two warps touch one
+// reaction lane).  Each periodic shift comes from the neighbour's GLOBAL
+// cell index on raw
 // coordinates, as cell_forces.cu's GHOST mode takes it, so every
 // displacement is (x_i − x_j) − shift.  A group's reaction row is
 // (mx+2)·C wide, its x-ghost columns kept, and every group — the own row
@@ -151,7 +175,8 @@
 // reference's second exchange).  No float atomics: reruns are bitwise
 // equal; but the fold adds a shard's boundary reactions in another order
 // than one card's kernel, so decompositions agree to roundoff, not bit for
-// bit.  Plain version: emdee_tpu_torch/neighbors/streaming_kernel.py
+// bit.  Its sums on (1,1,1) agree with K5's to roundoff (the cull reorders
+// K5's rings).  Plain version: emdee_tpu_torch/neighbors/streaming_kernel.py
 // `streaming_ghost_forces_plain`.
 //
 // GHOST with COULOMB/EXCL (K5s-mol), through `emdee_streaming_ghost_mol`:
@@ -176,21 +201,20 @@
 // The pencil kernel ran these flags before, with 13 centre cells over 8
 // warps, a barrier after each phase and no cull.
 
-// Bound on this card: at the 1,000,188-atom melt (M = 37, C = 32) the ring
-// loop runs ~50,653 × 14 × 22 steps of 32 lanes, about 60% of the lanes
-// live, and ~27 M of the pairs lie inside the cutoff: ~1.4 GFLOP, ~0.02 ms
-// at 67 TFLOP/s.  The function's own bytes (25 B a slot in, out) take
-// ~0.012 ms at 3.35 TB/s, the four reaction slices (78 MB forces only,
-// written once and read back by the fold) ~0.05 ms.  The launch pair takes
-// ~1.3 ms (chip_smoke.py): the candidate loop's instruction rate and
-// latency set it, not bytes or arithmetic; the same holds for the
-// full-shell kernel.  At the 98,304-atom water box (M = 12, C = 80) K5c's
-// unique pairs inside the cutoff each pay an erfc, an exp, a square root
-// and 3E tag operations; chip_smoke.py counts them and gives the bound.
+// Bound on this card: at the 1,000,188-atom melt (M = 37, C = 32) ~27 M
+// pairs lie inside the cutoff: ~1.4 GFLOP, ~0.02 ms at 67 TFLOP/s; the
+// function's own bytes (25 B a slot in, 12 out) ~0.018 ms at 3.35 TB/s.
+// The design adds the scratch: 14 slices × 3 × 1,620,896 floats, 272 MB
+// forces only (454 MB with energies), written once and read back by the
+// fold, ~0.16 ms (0.27).  The ring loop's instruction rate and latency set
+// the rest (PERF.md): the cull leaves ~150 ring steps a cell against ~308
+// without it.  At the 98,304-atom water box (M = 12, C = 80) K5c's unique
+// pairs inside the cutoff each pay an erfc, an exp, a square root and 3E
+// tag operations; chip_smoke.py counts them and gives the bound.
 
 // emdee-build-parts: 5
 // csrc/build.py compiles this file as five objects at once, to cut the
-// build's wall time: EMDEE_PART 0 holds the LJ entry and the fold, 1 K5c's
+// build's wall time: EMDEE_PART 0 holds K5's entries and its variants, 1 K5c's
 // entries and force variants, 2 the GHOST entries and K5s-mol's force
 // variants, 3 K5c's energy variants, 4 K5s-mol's energy variants (each
 // part instantiates only its kernel variants); without EMDEE_PART the file
@@ -213,9 +237,9 @@ using emdee::kMaxTags;
 using emdee::Mol;
 using emdee::PairConsts;
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 8;  // K5s: warps a pencil block
 constexpr int kThreads = 32 * kWarps;
-constexpr int kGroups = 4;  // row groups written to the scratch array
+constexpr int kGroups = 4;  // the half shell's row groups besides the own row
 constexpr int kMaxCapacity = 96;  // three centre slots per lane
 constexpr unsigned kFull = 0xffffffffu;
 // The row groups (dz, dy) in fold order; the own row (0, 0) comes last.
@@ -277,8 +301,10 @@ __host__ __device__ constexpr int tile_entries() {
 }
 
 // A warp's compacted copy of one cell: the live slots' fields in slot
-// order at entries 0 … n−1 — x, y, z, σ/2, 2√ε and, with the molecular
-// terms (NF = 7), the charge and the atom id's bits — and each entry's slot.
+// order at entries 0 … n−1 — x, y, z, then σ/2, 2√ε (NF ≥ 5; K5 with
+// uniform parameters keeps only the positions, NF = 3) and, with the
+// molecular terms (NF = 7), the charge and the atom id's bits — and each
+// entry's slot.
 template <int NT, int NF>
 struct Tile {
   float f[NF][NT];
@@ -288,10 +314,6 @@ struct Tile {
 // Floats of a warp's staged centre tags: per entry, three values for each
 // exclusion tag and each bond tag.
 __host__ __device__ constexpr int tag_floats(int nt, int ne, int neb) { return 3 * (ne + neb) * nt; }
-
-// K5: centre sums and one reaction row of a pencil, (2, n_r, M·C)
-// float32, and each warp's two cell tiles.
-size_t smem_bytes(int m, int c, bool energy);
 
 __device__ __forceinline__ int wrap(int v, int m, const float* __restrict__ box, float& shift) {
   shift = 0.f;
@@ -319,7 +341,7 @@ __device__ __forceinline__ int compact(const Fields& f, const Mol& mol, long cel
       t.f[0][e] = f.px[s * f.pstride];
       t.f[1][e] = f.py[s * f.pstride];
       t.f[2][e] = f.pz[s * f.pstride];
-      if (!UNIFORM) {
+      if constexpr (!UNIFORM && NF >= 5) {
         t.f[3][e] = f.hs[s];
         t.f[4][e] = f.tse[s];
       }
@@ -365,35 +387,38 @@ __device__ __forceinline__ void stage_tags(const Mol& mol, long cell, int c, con
   }
 }
 
-// The bounding box of tile `t`'s first `n` entries, on every lane.
+// The bounding box of tile `t`'s first `n` entries, on every lane, by the
+// warp's integer min and max reductions: each float taken to an int of the
+// same order (its bits, the magnitude bits flipped when negative).
 template <int NA, int NT, int NF>
 __device__ __forceinline__ void tile_box(const Tile<NT, NF>& t, int n, float lo[3], float hi[3]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int v = 0; v < 3; ++v) {
-    lo[v] = __int_as_float(0x7f800000);
-    hi[v] = -lo[v];
+    int kl = 0x7fffffff, kh = -0x7fffffff - 1;
 #pragma unroll
     for (int a = 0; a < NA; ++a) {
       const int e = 32 * a + lane;
       if (e < n) {
-        lo[v] = fminf(lo[v], t.f[v][e]);
-        hi[v] = fmaxf(hi[v], t.f[v][e]);
+        const int b = __float_as_int(t.f[v][e]);
+        const int key = b >= 0 ? b : b ^ 0x7fffffff;
+        kl = min(kl, key);
+        kh = max(kh, key);
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lo[v] = fminf(lo[v], __shfl_xor_sync(kFull, lo[v], off));
-      hi[v] = fmaxf(hi[v], __shfl_xor_sync(kFull, hi[v], off));
-    }
+    kl = __reduce_min_sync(kFull, kl);
+    kh = __reduce_max_sync(kFull, kh);
+    lo[v] = __int_as_float(kl >= 0 ? kl : kl ^ 0x7fffffff);
+    hi[v] = __int_as_float(kh >= 0 ? kh : kh ^ 0x7fffffff);
   }
 }
 
-// Keep the entries of tile `t` (n live) within the cutoff of the box [lo +
-// o, hi + o], compacted in place in slot order; returns their count.
+// Keep the entries of tile `src` (n live) within the cutoff of the box [lo
+// + o, hi + o], compacted in slot order into `dst` (which may be `src`);
+// returns their count.
 template <int NA, int NT, int NF>
-__device__ __forceinline__ int cull(Tile<NT, NF>& t, int n, const float lo[3], const float hi[3], const float o[3],
-                                    float cut2) {
+__device__ __forceinline__ int cull(const Tile<NT, NF>& src, int n, Tile<NT, NF>& dst, const float lo[3],
+                                    const float hi[3], const float o[3], float cut2) {
   const int lane = threadIdx.x & 31;
   float val[NA][NF];
   int slot[NA];
@@ -404,8 +429,8 @@ __device__ __forceinline__ int cull(Tile<NT, NF>& t, int n, const float lo[3], c
     keep[a] = false;
     if (e < n) {
 #pragma unroll
-      for (int v = 0; v < NF; ++v) val[a][v] = t.f[v][e];
-      slot[a] = t.slot[e];
+      for (int v = 0; v < NF; ++v) val[a][v] = src.f[v][e];
+      slot[a] = src.slot[e];
       const float p[3] = {val[a][0], val[a][1], val[a][2]};
       keep[a] = emdee::near_box(p, lo, hi, o, cut2);
     }
@@ -418,8 +443,8 @@ __device__ __forceinline__ int cull(Tile<NT, NF>& t, int n, const float lo[3], c
     if (keep[a]) {
       const int e = kept + __popc(mask & ((1u << lane) - 1u));
 #pragma unroll
-      for (int v = 0; v < NF; ++v) t.f[v][e] = val[a][v];
-      t.slot[e] = slot[a];
+      for (int v = 0; v < NF; ++v) dst.f[v][e] = val[a][v];
+      dst.slot[e] = slot[a];
     }
     kept += __popc(mask);
   }
@@ -427,39 +452,40 @@ __device__ __forceinline__ int cull(Tile<NT, NF>& t, int n, const float lo[3], c
   return kept;
 }
 
-// All pairs of centre cell `cen` with neighbour cell `nb` (shifted by
-// (shx, shy, shz)) for one warp, through its two tiles (and, with EXCL,
-// its tag tile, read at the centre's own cell `tag_cell`).  Centre sums go
-// to cen_acc[k·mc + x·C + i]; with REACT, the reaction sums go to
-// row[k·mr + nx·C + j].  With CULL (K5c), a neighbour pair first drops
-// the entries beyond the cutoff of the other cell's bounding box.
-template <int NA, bool UNIFORM, bool ENERGY, bool REACT, bool COULOMB, bool EXCL, bool BOND, bool CULL = false>
-__device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const Dsf& dsf, float cut2, long cen,
-                                          long nb, long tag_cell, int c, int x, int nx, float shx, float shy,
-                                          float shz, int mc, int mr, float* cen_acc, float* row,
-                                          Tile<tile_entries<NA>(), (COULOMB || EXCL) ? 7 : 5>* tiles,
-                                          float* tags, const PairConsts& k) {
-  constexpr int NT = tile_entries<NA>();
+// All pairs of a centre cell's compacted tile `src` (n_cen live entries)
+// with a neighbour cell's `tn` (n_nb; shifted by (shx, shy, shz)) for one
+// warp (and, with EXCL, its tag tile, read at the centre's own cell
+// `tag_cell`).  Centre sums go to cen_acc[k·mc + x·C + i]; with REACT, the
+// reaction sums go to row[k·mr + nx·C + j].  With CULL (K5, K5c), the pair
+// first drops the entries beyond the cutoff of the other cell's bounding
+// box: the centres kept go to `work` (which may be `src`), the neighbours
+// kept stay in `tn`.  Without REACT (the self cell) tn is src.  The tiles
+// hold NF fields (`Tile`).
+template <int NA, bool UNIFORM, bool ENERGY, bool REACT, bool COULOMB, bool EXCL, bool BOND, bool CULL, int NT,
+          int NF>
+__device__ __forceinline__ void pair_tiles(const Mol& mol, const Dsf& dsf, float cut2, long tag_cell, int c, int x,
+                                           int nx, float shx, float shy, float shz, int mc, int mr, float* cen_acc,
+                                           float* row, const Tile<NT, NF>& src, int n_cen, Tile<NT, NF>& work,
+                                           Tile<NT, NF>& tn, int n_nb, float* tags, const PairConsts& k) {
   constexpr bool MOL = COULOMB || EXCL;
+  // The rows of σ/2 and 2√ε (row 0 in a tile that holds neither: UNIFORM reads none).
+  constexpr int kHs = NF >= 5 ? 3 : 0, kTse = NF >= 5 ? 4 : 0;
   const int lane = threadIdx.x & 31;
-  auto& tc = tiles[0];
-  auto& tn = REACT ? tiles[1] : tiles[0];  // the self pass pairs a cell with itself
-  __syncwarp();  // the previous cell pair's reads of the tiles are done
-  int n_cen = compact<NA, NT, MOL ? 7 : 5, UNIFORM>(f, mol, cen, c, tc);
-  int n_nb = REACT ? compact<NA, NT, MOL ? 7 : 5, UNIFORM>(f, mol, nb, c, tn) : n_cen;
-  __syncwarp();
   if (n_cen == 0 || n_nb == 0) return;
+  const Tile<NT, NF>* cen_tile = &src;
   if constexpr (CULL && REACT) {
     // d = (x_i − x_j) − shift: the neighbour sits at x_j + shift, a centre at x_i − shift from it.
     const float sh[3] = {shx, shy, shz}, back[3] = {-shx, -shy, -shz};
     float lo[3], hi[3];
     tile_box<NA>(tn, n_nb, lo, hi);
-    n_cen = cull<NA>(tc, n_cen, lo, hi, sh, cut2);
+    n_cen = cull<NA>(src, n_cen, work, lo, hi, sh, cut2);
     if (n_cen == 0) return;
-    tile_box<NA>(tc, n_cen, lo, hi);
-    n_nb = cull<NA>(tn, n_nb, lo, hi, back, cut2);
+    tile_box<NA>(work, n_cen, lo, hi);
+    n_nb = cull<NA>(tn, n_nb, tn, lo, hi, back, cut2);
     if (n_nb == 0) return;
+    cen_tile = &work;
   }
+  const Tile<NT, NF>& tc = *cen_tile;
   if constexpr (EXCL) stage_tags<NA, NT, COULOMB, BOND, ENERGY>(mol, tag_cell, c, tc, n_cen, tags);
 
   float xi[NA], yi[NA], zi[NA], hsi[NA], tsei[NA], qi[NA];
@@ -472,8 +498,8 @@ __device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const
     xi[a] = vi[a] ? tc.f[0][e] : 0.f;
     yi[a] = vi[a] ? tc.f[1][e] : 0.f;
     zi[a] = vi[a] ? tc.f[2][e] : 0.f;
-    hsi[a] = (!UNIFORM && vi[a]) ? tc.f[3][e] : 0.f;
-    tsei[a] = (!UNIFORM && vi[a]) ? tc.f[4][e] : 0.f;
+    hsi[a] = (!UNIFORM && vi[a]) ? tc.f[kHs][e] : 0.f;
+    tsei[a] = (!UNIFORM && vi[a]) ? tc.f[kTse][e] : 0.f;
     qi[a] = 0.f;
     if constexpr (COULOMB) qi[a] = vi[a] ? tc.f[5][e] : 0.f;
     fxa[a] = fya[a] = fza[a] = ea[a] = wa[a] = 0.f;
@@ -491,8 +517,8 @@ __device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const
     float nxp = vj ? tn.f[0][e] : nan;
     float nyp = vj ? tn.f[1][e] : nan;
     float nzp = vj ? tn.f[2][e] : nan;
-    float nhs = (!UNIFORM && vj) ? tn.f[3][e] : 0.f;
-    float ntse = (!UNIFORM && vj) ? tn.f[4][e] : 0.f;
+    float nhs = (!UNIFORM && vj) ? tn.f[kHs][e] : 0.f;
+    float ntse = (!UNIFORM && vj) ? tn.f[kTse][e] : 0.f;
     float nq = 0.f;
     int naid = -2;
     if constexpr (MOL) {
@@ -618,89 +644,25 @@ __device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const
   }
 }
 
-// The LJ pass (K5): one block per (z, y) pencil.
-template <int NA, bool UNIFORM, bool ENERGY>
-__global__ void __launch_bounds__(kThreads)
-    streaming_kernel(Fields f, Mol mol, float* __restrict__ fx, float* __restrict__ fy,
-                     float* __restrict__ fz, int fstride, float* __restrict__ e_out,
-                     float* __restrict__ w_out, float* __restrict__ groups, int m, int c,
-                     const float* __restrict__ box_ptr, PairConsts k) {
-  constexpr int NR = ENERGY ? 5 : 3;
-  constexpr int NT = tile_entries<NA>();
-  using TileT = Tile<NT, 5>;
-  extern __shared__ float smem[];
-  const int mc = m * c;
-  float* cen_acc = smem;        // (NR, M·C) centre sums of this pencil
-  float* row = smem + NR * mc;  // (NR, M·C) one group's reaction row
-  const int warp = threadIdx.x >> 5;
-  TileT* tiles = reinterpret_cast<TileT*>(smem + 2 * NR * mc);
-  float* tags = reinterpret_cast<float*>(tiles + 2 * kWarps) + warp * tag_floats(NT, mol.ne, mol.neb);
-  tiles += 2 * warp;  // this warp's two
-  const int z = blockIdx.x / m, y = blockIdx.x % m;
-  const long pencil = static_cast<long>(blockIdx.x) * m;  // cell id of x = 0
-  const long ns = static_cast<long>(m) * m * mc;
-  const Dsf dsf{};
-  const float cut2 = k.rc2;
-
-  for (int t = threadIdx.x; t < 2 * NR * mc; t += kThreads) smem[t] = 0.f;
-  __syncthreads();
-
-  // Self cell: every ordered pair, no reaction.
-  for (int x = warp; x < m; x += kWarps)
-    cell_pair<NA, UNIFORM, ENERGY, false, false, false, false>(f, mol, dsf, cut2, pencil + x, pencil + x,
-                                                                pencil + x, c, x, x, 0.f, 0.f, 0.f, mc, mc,
-                                                                cen_acc, row, tiles, tags, k);
-
-  for (int g = 0; g <= kGroups; ++g) {
-    const bool own = g == kGroups;  // the own row (0, 0): dx = +1 only
-    float shy, shz;
-    const int ny = wrap(y + (own ? 0 : kGroupDy[g]), m, box_ptr, shy);
-    const int nz = wrap(z + (own ? 0 : kGroupDz[g]), m, box_ptr, shz);
-    const long nrow = static_cast<long>(nz) * m + ny;
-    for (int dx = own ? 1 : -1; dx <= 1; ++dx) {
-      for (int x = warp; x < m; x += kWarps) {
-        float shx;
-        const int nx = wrap(x + dx, m, box_ptr, shx);
-        cell_pair<NA, UNIFORM, ENERGY, true, false, false, false>(f, mol, dsf, cut2, pencil + x, nrow * m + nx,
-                                                                   pencil + x, c, x, nx, shx, shy, shz, mc, mc,
-                                                                   cen_acc, row, tiles, tags, k);
-      }
-      __syncthreads();
-    }
-    if (!own) {
-      float* out = groups + static_cast<long>(g) * NR * ns + nrow * mc;
-      for (int t = threadIdx.x; t < NR * mc; t += kThreads) {
-        out[(t / mc) * ns + t % mc] = row[t];
-        row[t] = 0.f;
-      }
-      __syncthreads();
-    }
-  }
-
-  // Centre sums + the own row's reactions, to this pencil's output slots.
-  float* outs[5] = {fx, fy, fz, e_out, w_out};
-  for (int t = threadIdx.x; t < NR * mc; t += kThreads) {
-    const int comp = t / mc;
-    const long s = pencil * c + t % mc;
-    outs[comp][comp < 3 ? s * fstride : s] = cen_acc[t] + row[t];
-  }
-}
-
-// out_k[s] += group 0..3 of component k at slot s, in that order.
-template <int NR>
-__global__ void fold_kernel(float* fx, float* fy, float* fz, int fstride, float* e_out,
-                            float* w_out, const float* __restrict__ groups, long ns) {
-  const long s = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (s >= ns) return;
-  float* outs[5] = {fx, fy, fz, e_out, w_out};
-#pragma unroll
-  for (int comp = 0; comp < NR; ++comp) {
-    float* o = outs[comp] + (comp < 3 ? s * fstride : s);
-    float v = *o;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) v += groups[(static_cast<long>(g) * NR + comp) * ns + s];
-    *o = v;
-  }
+// All pairs of centre cell `cen` with neighbour cell `nb` for one warp,
+// through its two tiles: both cells compacted (ballot ranks, slot order),
+// then `pair_tiles` with the cull in place.
+template <int NA, bool UNIFORM, bool ENERGY, bool REACT, bool COULOMB, bool EXCL, bool BOND, bool CULL = false>
+__device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const Dsf& dsf, float cut2, long cen,
+                                          long nb, long tag_cell, int c, int x, int nx, float shx, float shy,
+                                          float shz, int mc, int mr, float* cen_acc, float* row,
+                                          Tile<tile_entries<NA>(), (COULOMB || EXCL) ? 7 : 5>* tiles,
+                                          float* tags, const PairConsts& k) {
+  constexpr int NT = tile_entries<NA>(), NF = (COULOMB || EXCL) ? 7 : 5;
+  auto& tc = tiles[0];
+  auto& tn = REACT ? tiles[1] : tiles[0];  // the self pass pairs a cell with itself
+  __syncwarp();  // the previous cell pair's reads of the tiles are done
+  const int n_cen = compact<NA, NT, NF, UNIFORM>(f, mol, cen, c, tc);
+  const int n_nb = REACT ? compact<NA, NT, NF, UNIFORM>(f, mol, nb, c, tn) : n_cen;
+  __syncwarp();
+  pair_tiles<NA, UNIFORM, ENERGY, REACT, COULOMB, EXCL, BOND, CULL>(mol, dsf, cut2, tag_cell, c, x, nx, shx, shy,
+                                                                    shz, mc, mr, cen_acc, row, tc, n_cen, tc, tn,
+                                                                    n_nb, tags, k);
 }
 
 // K5c: kOwnedWarps warps a block, each owning one (part, centre cell).
@@ -818,6 +780,107 @@ __global__ void owned_fold_kernel(float* __restrict__ f, float* __restrict__ e_o
       f[3 * s + comp] = v;
     else
       (comp == 3 ? e_out : w_out)[s] = v;
+  }
+}
+
+// K5: kLjWarps warps a block, each owning a centre cell's phases; the
+// blocks an SM its launch bounds ask the registers for (one centre slot a
+// lane; two or three take more registers).
+constexpr int kLjWarps = 4;
+constexpr int kLjThreads = 32 * kLjWarps;
+constexpr int kLjMinBlocks = 8;
+// The cull; tools/ab_streaming.py alone builds K5 without it
+// (-DEMDEE_K5_NO_CULL), whose sums are then the pencil kernel's bit for bit.
+#ifdef EMDEE_K5_NO_CULL
+constexpr bool kLjCull = false;
+#else
+constexpr bool kLjCull = true;
+#endif
+
+// Floats of one K5 warp's shared memory: its three tiles (NF fields and the
+// slot: its cell compacted once, the centres a phase's cull keeps, the
+// phase's neighbour cell) and its centre and reaction rows (n_r, C).
+__host__ __device__ constexpr int lj_warp_floats(int nt, int nf, int nr, int c) { return 3 * (nf + 1) * nt + 2 * nr * c; }
+
+// The LJ pair pass (K5): warp w of the grid walks the 14 phases of centre
+// cell w.  Its centre sums gather in its shared row over the phases and go
+// to slice 0, (n_r, M³·C) at the cell's own slots; phase 1 + k's reactions
+// go to slice 1 + k at the neighbour's slots, every slot of that cell.  The
+// tiles hold x, y, z (and σ/2, 2√ε without UNIFORM).
+template <int NA, bool UNIFORM, bool ENERGY>
+__global__ void __launch_bounds__(kLjThreads, NA == 1 ? kLjMinBlocks : kLjMinBlocks / 2)
+    streaming_lj_kernel(Fields f, float* __restrict__ slices, int m, int c, const float* __restrict__ box_ptr,
+                        PairConsts k) {
+  constexpr int NR = ENERGY ? 5 : 3;
+  constexpr int NT = tile_entries<NA>();
+  constexpr int NF = UNIFORM ? 3 : 5;
+  using TileT = Tile<NT, NF>;
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long cells = static_cast<long>(m) * m * m;
+  const long cell = static_cast<long>(blockIdx.x) * kLjWarps + warp;
+  if (cell >= cells) return;  // no block barrier follows
+  TileT* tiles = reinterpret_cast<TileT*>(smem + warp * lj_warp_floats(NT, NF, NR, c));
+  TileT& own = tiles[0];   // the centre cell, compacted once
+  TileT& kept = tiles[1];  // the centres a phase's cull keeps
+  TileT& nbt = tiles[2];   // the phase's neighbour cell
+  float* cen = reinterpret_cast<float*>(tiles + 3);  // (NR, C) centre sums
+  float* react = cen + NR * c;                       // (NR, C) a phase's reactions
+  const long ns = cells * c;
+  const int x = static_cast<int>(cell % m), y = static_cast<int>((cell / m) % m), z = static_cast<int>(cell / m / m);
+  const Mol mol{};
+  const Dsf dsf{};
+  for (int t = lane; t < NR * c; t += 32) cen[t] = 0.f;
+  const int n_own = compact<NA, NT, NF, UNIFORM>(f, mol, cell, c, own);
+  __syncwarp();
+  // Phase 0, the self cell: every ordered pair, no reaction.
+  pair_tiles<NA, UNIFORM, ENERGY, false, false, false, false, false>(
+      mol, dsf, k.rc2, cell, c, 0, 0, 0.f, 0.f, 0.f, c, c, cen, react, own, n_own, own, own, n_own, nullptr, k);
+  for (int o = 0; o < kOffsets; ++o) {  // phase 1 + o
+    float shx, shy, shz;
+    const int nx = wrap(x + kOffDx[o], m, box_ptr, shx);
+    const int ny = wrap(y + kOffDy[o], m, box_ptr, shy);
+    const int nz = wrap(z + kOffDz[o], m, box_ptr, shz);
+    const long nb = (static_cast<long>(nz) * m + ny) * m + nx;
+    for (int t = lane; t < NR * c; t += 32) react[t] = 0.f;
+    __syncwarp();  // the previous phase's reads of the tiles are done
+    const int n_nb = compact<NA, NT, NF, UNIFORM>(f, mol, nb, c, nbt);
+    __syncwarp();
+    pair_tiles<NA, UNIFORM, ENERGY, true, false, false, false, kLjCull>(
+        mol, dsf, k.rc2, cell, c, 0, 0, shx, shy, shz, c, c, cen, react, own, n_own, kept, nbt, n_nb, nullptr, k);
+    __syncwarp();
+    float* out = slices + static_cast<long>(1 + o) * NR * ns + nb * c;
+    for (int t = lane; t < NR * c; t += 32) __stcs(out + (t / c) * ns + t % c, react[t]);
+  }
+  __syncwarp();
+  float* out = slices + cell * c;
+  for (int t = lane; t < NR * c; t += 32) __stcs(out + (t / c) * ns + t % c, cen[t]);
+}
+
+// K5's fold: out_k[s] = the centre sums (slice 0); then the own row's
+// reactions (offset 12, dx = +1); then each row group g = 0 … 3's three
+// reaction slices, (r₃g + r₃g₊₁) + r₃g₊₂, added as one term — the
+// association of the pencil kernel, which summed a pencil's phases in its
+// shared centre row, added its own row on writing the outputs, and left a
+// group's three dx phases summed in one reaction row for its fold.  Writes
+// every slot; fx … through `fstride` (1: component arrays, 3: stacked).
+template <int NR>
+__global__ void lj_fold_kernel(float* fx, float* fy, float* fz, int fstride, float* e_out, float* w_out,
+                               const float* __restrict__ slices, long ns) {
+  const long s = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (s >= ns) return;
+  float* outs[5] = {fx, fy, fz, e_out, w_out};
+  const long stride = static_cast<long>(NR) * ns;  // one slice
+#pragma unroll
+  for (int comp = 0; comp < NR; ++comp) {
+    const float* at = slices + comp * ns + s;
+    float v = __ldcs(at);
+    const float* r = at + stride;  // offset 0's reactions
+    v += __ldcs(r + (kOffsets - 1) * stride);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+      v += (__ldcs(r + 3 * g * stride) + __ldcs(r + (3 * g + 1) * stride)) + __ldcs(r + (3 * g + 2) * stride);
+    outs[comp][comp < 3 ? s * fstride : s] = v;
   }
 }
 
@@ -981,11 +1044,6 @@ __global__ void owned_ghost_assemble_kernel(float* __restrict__ out, const float
 
 int centre_slots(int c) { return c <= 32 ? 1 : (c <= 64 ? 2 : 3); }
 
-size_t smem_bytes(int m, int c, bool energy) {
-  const int nt = centre_slots(c) <= 2 ? 64 : 96;
-  return sizeof(float) * 2 * (energy ? 5 : 3) * static_cast<size_t>(m) * c + sizeof(float) * (5 + 1) * nt * 2 * kWarps;
-}
-
 // K5c: a block's shared memory, kOwnedWarps × `owned_warp_floats`.
 size_t owned_smem_bytes(int c, bool energy, int ne, int neb) {
   const int nt = centre_slots(c) <= 2 ? 64 : 96;
@@ -1024,35 +1082,6 @@ int dispatch_ghost(const Fields& f, int uniform, int energy, float* out, float* 
   return launch_ghost<NA, false, false>(f, out, groups, g, blocks, m, c, box, k, s);
 }
 
-template <int NA, bool UNIFORM, bool ENERGY>
-int launch(const Fields& f, const Mol& mol, float* fx, float* fy, float* fz, int fstride, float* e, float* w,
-           float* groups, int m, int c, const float* box, const PairConsts& k, cudaStream_t stream) {
-  static_assert(sizeof(Tile<tile_entries<NA>(), 5>) == sizeof(float) * (5 + 1) * tile_entries<NA>(),
-                "smem_bytes counts the tiles as packed floats");
-  const size_t smem = smem_bytes(m, c, ENERGY);
-  auto kernel = streaming_kernel<NA, UNIFORM, ENERGY>;
-  static size_t smem_allowed = 48 * 1024;  // raised once per variant, not per launch
-  if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
-  }
-  kernel<<<m * m, kThreads, smem, stream>>>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int NA>
-int dispatch(const Fields& f, float* fx, float* fy, float* fz, int fstride, float* e, float* w,
-             float* groups, int m, int c, const float* box, const PairConsts& k, int uniform,
-             int energy, cudaStream_t s) {
-  const Mol mol{};
-  if (uniform && energy) return launch<NA, true, true>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
-  if (uniform) return launch<NA, true, false>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
-  if (energy) return launch<NA, false, true>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
-  return launch<NA, false, false>(f, mol, fx, fy, fz, fstride, e, w, groups, m, c, box, k, s);
-}
-
 // A warp-owned variant for one flag set (K2c's; GHOST: K5s-mol), with its
 // own record of the dynamic shared memory raised so far (raised once per
 // variant, not per launch).
@@ -1084,6 +1113,65 @@ emdee::OwnedVariant owned_variant_c(int c, int coulomb, int excl, int bond) {
   }
 }
 
+#if EMDEE_IN_PART(0) || EMDEE_IN_PART(1) || EMDEE_IN_PART(2)
+// A kernel's resources as the card reports them, launched with `threads`
+// threads and `smem` dynamic shared bytes a block: out[0..3] = registers a
+// thread, local (spill) bytes a thread, shared bytes a block, resident
+// blocks an SM.
+int kernel_attrs(const void* kernel, int threads, size_t smem, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(smem + fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
+}
+#endif
+
+#if EMDEE_IN_PART(0)
+// A K5 variant and its dynamic shared memory (`*smem`), allowed once per
+// variant, not per launch.
+template <int NA, bool UNIFORM, bool ENERGY>
+int lj_variant(int c, const void** kernel, size_t* smem) {
+  constexpr int NT = tile_entries<NA>(), NF = UNIFORM ? 3 : 5;
+  static_assert(sizeof(Tile<NT, NF>) == sizeof(float) * (NF + 1) * NT,
+                "lj_warp_floats counts the tiles as packed floats");
+  static size_t smem_allowed = 48 * 1024;
+  *kernel = reinterpret_cast<const void*>(streaming_lj_kernel<NA, UNIFORM, ENERGY>);
+  *smem = sizeof(float) * kLjWarps * static_cast<size_t>(lj_warp_floats(NT, NF, ENERGY ? 5 : 3, c));
+  if (*smem > smem_allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = *smem;
+  }
+  return 0;
+}
+
+template <int NA>
+int lj_variant_ue(int c, int uniform, int energy, const void** kernel, size_t* smem) {
+  if (uniform && energy) return lj_variant<NA, true, true>(c, kernel, smem);
+  if (uniform) return lj_variant<NA, true, false>(c, kernel, smem);
+  if (energy) return lj_variant<NA, false, true>(c, kernel, smem);
+  return lj_variant<NA, false, false>(c, kernel, smem);
+}
+
+// The K5 variant for C and these flags (C ≤ 96), its shared memory allowed.
+int lj_kernel(int c, int uniform, int energy, const void** kernel, size_t* smem) {
+  if (c < 1 || c > kMaxCapacity) return static_cast<int>(cudaErrorInvalidValue);
+  switch (centre_slots(c)) {
+    case 1: return lj_variant_ue<1>(c, uniform, energy, kernel, smem);
+    case 2: return lj_variant_ue<2>(c, uniform, energy, kernel, smem);
+    default: return lj_variant_ue<3>(c, uniform, energy, kernel, smem);
+  }
+}
+#endif
+
 #if EMDEE_IN_PART(1) || EMDEE_IN_PART(2)
 // The K5c (GHOST: K5s-mol, no bond tags) variant for these flags, refused
 // as the launch entries refuse it (but for the geometry), its dynamic
@@ -1111,22 +1199,9 @@ int owned_kernel(int c, int ne, int neb, int coulomb, int excl, int bond, int en
   return 0;
 }
 
-// A warp-owned variant's resources as the card reports them: out[0..3] =
-// registers a thread, local (spill) bytes a thread, shared bytes a block,
-// resident blocks an SM.
+// A warp-owned variant's resources as the card reports them (`kernel_attrs`).
 int owned_attrs(emdee::OwnedKernel kernel, size_t smem, int* out) {
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(kernel));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, reinterpret_cast<const void*>(kernel), kOwnedThreads,
-                                                    smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = fa.numRegs;
-  out[1] = static_cast<int>(fa.localSizeBytes);
-  out[2] = static_cast<int>(smem + fa.sharedSizeBytes);
-  out[3] = blocks;
-  return 0;
+  return kernel_attrs(reinterpret_cast<const void*>(kernel), kOwnedThreads, smem, out);
 }
 #endif
 
@@ -1157,41 +1232,56 @@ emdee::OwnedVariant emdee::k5s_mol_energy_variant(int c, int coulomb, int excl) 
 #endif
 
 #if EMDEE_IN_PART(0)
-// The pair pass: centre sums (+ own-row reactions) into fx, fy, fz [, e, w]
-// and the four reaction rows of every pencil into `groups` (4, n_r, M³·C).
+// The LJ pair pass (K5): positions px, py, pz read at stride `pstride` (1:
+// component arrays, 3: the stacked (M³, C, 3) state), per-atom (σ/2, 2√ε)
+// unless `uniform`, the valid mask.  Writes the centre sums and the
+// reactions to slices (14, 3 or 5, M³·C), every slot; `emdee_streaming_fold`
+// adds them up.
 extern "C" int emdee_streaming_forces(
-    const float* px, const float* py, const float* pz, int pstride, const float* hs,
-    const float* tse, const uint8_t* valid, float* fx, float* fy, float* fz, int fstride,
-    float* e, float* w, float* groups, int m, int c, const float* box, float rc2, float rs2,
-    float invd2, float a_m, float pa1, float pa2, float pb1, float pb2, float sig2_u,
-    float eps4_u, int uniform, int energy, void* stream) {
-  const size_t smem = smem_bytes(m, c, energy);
-  if (m < 3 || c < 1 || c > kMaxCapacity || smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
-  const Fields f{px, py, pz, pstride, hs, tse, valid};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (centre_slots(c)) {
-    case 1: return dispatch<1>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, uniform, energy, s);
-    case 2: return dispatch<2>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, uniform, energy, s);
-    default: return dispatch<3>(f, fx, fy, fz, fstride, e, w, groups, m, c, box, k, uniform, energy, s);
-  }
+    const float* px, const float* py, const float* pz, int pstride, const float* hs, const float* tse,
+    const uint8_t* valid, float* slices, int m, int c, const float* box, float rc2, float rs2,
+    float invd2, float a_m, float pa1, float pa2, float pb1, float pb2, float sig2_u, float eps4_u, int uniform,
+    int energy, void* stream) {
+  if (m < 3) return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel;
+  size_t smem;
+  const int err = lj_kernel(c, uniform, energy, &kernel, &smem);
+  if (err) return err;
+  PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
+  Fields fl{px, py, pz, pstride, hs, tse, valid};
+  const long warps = static_cast<long>(m) * m * m;
+  const unsigned blocks = static_cast<unsigned>((warps + kLjWarps - 1) / kLjWarps);
+  void* args[] = {&fl, &slices, &m, &c, &box, &k};
+  return static_cast<int>(
+      cudaLaunchKernel(kernel, dim3(blocks), dim3(kLjThreads), args, smem, static_cast<cudaStream_t>(stream)));
 }
 
-// The fold: adds the four reaction slices to the outputs in place.
-extern "C" int emdee_streaming_fold(float* fx, float* fy, float* fz, int fstride, float* e,
-                                    float* w, const float* groups, long ns, int energy,
-                                    void* stream) {
+// K5's fold: writes fx, fy, fz (through `fstride`) [, e, w] at every slot
+// from the slices of `emdee_streaming_forces`.
+extern "C" int emdee_streaming_fold(float* fx, float* fy, float* fz, int fstride, float* e, float* w,
+                                    const float* slices, long ns, int energy, void* stream) {
+  if (ns < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 256;
   const long blocks = (ns + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (energy)
-    fold_kernel<5><<<blocks, threads, 0, s>>>(fx, fy, fz, fstride, e, w, groups, ns);
+    lj_fold_kernel<5><<<blocks, threads, 0, s>>>(fx, fy, fz, fstride, e, w, slices, ns);
   else
-    fold_kernel<3><<<blocks, threads, 0, s>>>(fx, fy, fz, fstride, e, w, groups, ns);
+    lj_fold_kernel<3><<<blocks, threads, 0, s>>>(fx, fy, fz, fstride, e, w, slices, ns);
   return static_cast<int>(cudaGetLastError());
 }
-#endif
 
+// The K5 variant for C and these flags, as the card reports it: out[0..3] =
+// registers a thread, local (spill) bytes a thread, shared bytes a block,
+// resident blocks an SM.  Launches nothing.
+extern "C" int emdee_streaming_attrs(int c, int uniform, int energy, int* out) {
+  const void* kernel;
+  size_t smem;
+  const int err = lj_kernel(c, uniform, energy, &kernel, &smem);
+  if (err) return err;
+  return kernel_attrs(kernel, kLjThreads, smem, out);
+}
+#endif
 #if EMDEE_IN_PART(1)
 // The molecular pair pass (K5c): stacked positions (M³, C, 3), per-atom
 // (σ/2, 2√ε), q (M³, C) charges and the DSF constants' device pointers

@@ -10,23 +10,25 @@ the 1,000,188-atom melt and the 98,304-atom water box here.
 parameters, optional per-slot ½E and ½W) and, with `coulomb=`/`excl=`, the
 molecular terms (K5c: DSF Coulomb over the state's charges, exclusion tags,
 tag-borne bonds); `cell_forces_streaming_split` takes (M³, C) component
-arrays with uniform parameters, forces only.  For CUDA tensors (backend 'auto' or 'cuda') each
-call makes two launches of `csrc/cell_forces_streaming.cu`: the half-shell
-pair pass, which writes centre sums and four reaction row groups, and the
-fold that adds the groups in a fixed order.  K5c has a pass of its own: a
-warp owns one phase (the self cell or one half-shell offset) of one centre
-cell, culls a neighbour pair to the atoms within the cutoff of the other
-cell's bounding box (`cull_keep` mirrors the predicate), and writes its
-centre sums and the offset's reactions to scratch slices, which its fold
-adds in a fixed order.  For CPU tensors, or backend
-'torch', they run the plain version: the half shell of
-`cell_dense._dense_forces`, the same as the resident kernel's (with the
-molecular terms, `cell_dense_forces(coulomb=, excl=)`, K2c's).
+arrays with uniform parameters, forces only.  For CUDA tensors (backend
+'auto' or 'cuda') each call makes two launches of
+`csrc/cell_forces_streaming.cu`: the half-shell pair pass and the fold.  In
+the pair pass warps own centre cells: K5's warp walks the self cell and the
+13 half-shell offsets of its cell (K5c's warp one of them), culls each
+neighbour pair to the atoms within the cutoff of the other cell's bounding
+box (`cull_pair` mirrors it), and writes its centre sums and each offset's
+reactions to scratch slices (`scratch_bytes`), which the fold adds in a
+fixed order — K5's in the association of the pencil kernel it replaced.
+For CPU tensors, or backend 'torch', they run the plain version: the half
+shell of `cell_dense._dense_forces`, the same as the resident kernel's
+(with the molecular terms, `cell_dense_forces(coulomb=, excl=)`, K2c's).
 
 `streaming_ghost_forces` (K5s) is the grid-sharded engine's per-shard pass
 of the same kernel (the reference's `_local_forces_streaming`, for shards
 beyond VMEM residency): two launches, the half-shell pair pass over each
-local shard's ghost grid and the assembly of its reaction rows into the
+local shard's ghost grid (LJ: one block of 8 warps a pencil, the design K5
+had before it moved to warp-owned cells) and the assembly of its reaction
+rows into the
 interior forces and a reaction ghost grid, which the engine returns to the
 owning shards (`grid_sharded._fold3`).  With the molecular terms (K5s-mol)
 the pair pass is K5c's warp-owned pass with its cull on the ghost grids (a
@@ -75,27 +77,44 @@ LAUNCHES = 0
 
 MAX_CAPACITY = 96  # three centre slots per lane
 _SMEM_BYTES = 232_448  # shared memory a block can use on Hopper
-_WARPS = 8
-_ROW_GROUPS = 4  # reaction row groups that leave the pair pass
+_WARPS = 8  # K5s (LJ): warps a pencil block
+_ROW_GROUPS = 4  # K5s (LJ): reaction row groups besides the own row
 _OWNED_WARPS = 4  # K5c: warps a block, each owning a phase of a centre cell
 _PHASES, _OFFSETS = 14, 13  # the self cell and the half-shell offsets
 _SLICES = _PHASES + _OFFSETS  # K5c's scratch: the centre sums of each phase, the reactions of each offset
+# K5: warps a block, each walking the 14 phases of a centre cell, and the
+# blocks an SM its launch bounds ask the registers for at C ≤ 32 (the C
+# source's kLjWarps, kLjMinBlocks); its scratch: one centre slice and the
+# 13 reaction slices.
+K5_WARPS, K5_MIN_BLOCKS = 4, 8
+K5_SLICES = 1 + _OFFSETS
 # The half-shell offsets (dz, dy, dx) in phase order (kOffDz/Dy/Dx of the C source).
 PHASE_OFFSETS = ((0, 1, -1), (0, 1, 0), (0, 1, 1), (1, -1, -1), (1, -1, 0), (1, -1, 1), (1, 0, -1), (1, 0, 0),
                  (1, 0, 1), (1, 1, -1), (1, 1, 0), (1, 1, 1), (0, 0, 1))
 
 
-def smem_bytes(config: CellDenseConfig, energy: bool, mol: bool = False, ne: int = 0, neb: int = 0) -> int:
-    """A block's shared memory, as the C entries count it.  K5: a pencil's
-    centre sums and reaction row, (2, n_r, M·C) float32, and each of its 8
-    warps' two compacted cell tiles (64 entries up to C = 64, else 96; x, y,
-    z, σ/2, 2√ε and the slot).  K5c (`mol`): for each of its 4 warps, two
-    tiles (with q and the atom id), the staged centre tags (3 values a tag
-    and a bond tag) and its centre and reaction rows, (2, n_r, C)."""
-    m, c = config.cells_per_dim, config.capacity
+def smem_bytes(config: CellDenseConfig, energy: bool, mol: bool = False, ne: int = 0, neb: int = 0,
+               uniform: bool = False) -> int:
+    """A block's shared memory, as the C entries count it, whatever M.  K5:
+    for each of its 4 warps, three compacted cell tiles (its cell, the
+    centres a phase's cull keeps, the phase's neighbour; 64 entries up to C
+    = 64, else 96; x, y, z, with per-atom parameters σ/2 and 2√ε, and the
+    slot) and its centre and reaction rows, (2, n_r, C) float32.  K5c
+    (`mol`): for each of its 4 warps, two tiles (x, y, z, σ/2, 2√ε, q, the
+    atom id and the slot), the staged centre tags (3 values a tag and a
+    bond tag) and its centre and reaction rows."""
+    c = config.capacity
     if mol:
         return _owned_smem_bytes(c, energy, ne, neb)
-    return 4 * (2 * (5 if energy else 3) * m * c + _WARPS * 2 * 6 * (64 if c <= 64 else 96))
+    entries = 64 if c <= 64 else 96
+    return 4 * K5_WARPS * (3 * (4 if uniform else 6) * entries + 2 * (5 if energy else 3) * c)
+
+
+def scratch_bytes(config: CellDenseConfig, energy: bool) -> int:
+    """K5's scratch, as `cell_forces_streaming` allocates it: K5_SLICES
+    slices of (n_r, M³·C) float32, written once by the pair pass and read
+    once by the fold."""
+    return 4 * K5_SLICES * (5 if energy else 3) * config.num_slots
 
 
 def _owned_smem_bytes(c: int, energy: bool, ne: int, neb: int) -> int:
@@ -118,9 +137,10 @@ def cull_pair(cen, nb, shift, cut2: float):
 
 
 def _check_geometry(config: CellDenseConfig, energy: bool, mol: bool = False, ne: int = 0, neb: int = 0) -> None:
-    """Refuse what the kernel's C entries would refuse, before any launch: M
-    ≥ 3, C ≤ MAX_CAPACITY, and the block's shared memory (`smem_bytes`)
-    within what Hopper gives a block."""
+    """Refuse what the one-card C entries (K5, K5c) would refuse, before any
+    launch: M ≥ 3, C ≤ MAX_CAPACITY, and the block's shared memory
+    (`smem_bytes`, which does not grow with M) within what Hopper gives a
+    block."""
     m, c = config.cells_per_dim, config.capacity
     smem = smem_bytes(config, energy, mol, ne, neb)
     if m < 3 or c > MAX_CAPACITY or smem > _SMEM_BYTES:
@@ -187,39 +207,23 @@ def _check_ghost_geometry(config: CellDenseConfig, mx: int, energy: bool, mol: b
 
 def _launch(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w,
             config: CellDenseConfig, box, uniform_params, energy: bool) -> None:
-    """The pair pass and the fold; `box` is a number or a 0-d float32
-    tensor on the device, read there either way (`cell_dense.box_ptr`)."""
+    """K5's pair pass into its scratch slices, then the fold into fx … w;
+    `box` is a number or a 0-d float32 tensor on the device, read there
+    either way (`cell_dense.box_ptr`)."""
     global LAUNCHES
     _check_geometry(config, energy)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    groups = _groups(config, energy, px.device)
+    slices = torch.empty(scratch_bytes(config, energy) // 4, dtype=torch.float32, device=px.device)
     stream = torch.cuda.current_stream(px.device).cuda_stream
     lib = build.load()
     err = lib.emdee_streaming_forces(
-        ptr(px), ptr(py), ptr(pz), pstride, ptr(hs), ptr(tse), ptr(valid),
-        ptr(fx), ptr(fy), ptr(fz), fstride, ptr(e), ptr(w), ptr(groups),
-        config.cells_per_dim, config.capacity, box_ptr(box, px),
-        *_pair_consts(config, uniform_params),
+        _ptr(px), _ptr(py), _ptr(pz), pstride, _ptr(hs), _ptr(tse), _ptr(valid), slices.data_ptr(),
+        config.cells_per_dim, config.capacity, box_ptr(box, px), *_pair_consts(config, uniform_params),
         int(uniform_params is not None), int(energy), stream,
     )
     build.check(err, "cell_forces_streaming kernel")
     LAUNCHES += 1
-    _fold(lib, fx, fy, fz, fstride, e, w, groups, config, energy, stream)
-
-
-def _groups(config: CellDenseConfig, energy: bool, device) -> torch.Tensor:
-    """The pair pass's reaction row groups, (4, n_r, M³·C) float32."""
-    return torch.empty((_ROW_GROUPS, 5 if energy else 3, config.num_slots), dtype=torch.float32, device=device)
-
-
-def _fold(lib, fx, fy, fz, fstride, e, w, groups, config: CellDenseConfig, energy: bool, stream) -> None:
-    """The fold launch: the four row groups added to the outputs in order."""
-    global LAUNCHES
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = lib.emdee_streaming_fold(
-        ptr(fx), ptr(fy), ptr(fz), fstride, ptr(e), ptr(w), ptr(groups),
-        config.num_slots, int(energy), stream,
-    )
+    err = lib.emdee_streaming_fold(_ptr(fx), _ptr(fy), _ptr(fz), fstride, _ptr(e), _ptr(w), slices.data_ptr(),
+                                   config.num_slots, int(energy), stream)
     build.check(err, "cell_forces_streaming fold")
     LAUNCHES += 1
 
@@ -284,6 +288,13 @@ def _launch_mol(state: CellDenseState, config: CellDenseConfig, coulomb, excl, c
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def k5_resources(config: CellDenseConfig, uniform: bool, compute_energy: bool) -> dict:
+    """The K5 variant for C and these flags, as the card reports it
+    (`cell_kernel.resources`)."""
+    return resources("emdee_streaming_attrs", "cell_forces_streaming", config.capacity, int(uniform),
+                     int(compute_energy), warps=K5_WARPS)
 
 
 def k5c_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) -> dict:

@@ -21,12 +21,15 @@ steps and a profiled window of 40.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 -m emdee_tpu_torch.tools.profile_paths [lj | water | grid | water1m | portable]
+    python3 -m emdee_tpu_torch.tools.profile_paths [lj | 1m | water | grid | water1m | portable]
 
 (`lj`: the 97,556-atom paths of the dense and straggler engines alone;
-`water`, `grid`, `water1m`, `portable`: those paths alone; `water1m` and
-`portable` are not in the default run.  `portable`: the portable engine's
-neighbor-list NVE at 97,556 atoms, and its rebuild and force pass apart.)
+`1m`: the 1,000,188-atom dense component carry alone, on 'auto' (the
+streaming kernel, K5) and on 'cuda' (the resident kernel, K2a), from one
+equilibrated melt; `water`, `grid`, `water1m`, `portable`: those paths
+alone; `water1m` and `portable` are not in the default run.  `portable`:
+the portable engine's neighbor-list NVE at 97,556 atoms, and its rebuild
+and force pass apart.)
 
 For each path, after 60 steps of warm-up: the unprofiled ms/step of three
 600-step windows (host clock around work that ends in a synchronize), then
@@ -129,6 +132,24 @@ def profile_water(device) -> None:
         excl_tables=build_exclusion_tables(n, box["exclusion_pairs"], box["exclusion_scales"], None))
     profile_path("grid water (2,2,2) (DSF + tags in K2c-G, bonded term rows)", grid, distribute_grid(start, cfg, mesh),
                  water.REBIN_EVERY)
+
+
+def profile_1m(device, backends=("auto", "cuda")) -> None:
+    """The 1M melt's dense component carry on each backend, from one
+    equilibrated state ('auto' resolves to the streaming family there)."""
+    from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim, resolve_dense_backend
+    from emdee_tpu_torch.tools.melt import DT, N_CELLS_1M, equilibrate, melt
+
+    st, config, model, params, uni, n = melt(device, N_CELLS_1M)
+    dense, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    pos_eq, vel_eq, _, k = equilibrate(dense, st, config, n)
+    st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
+    print(f"{n} atoms, M={config.cells_per_dim} C={config.capacity}, rebin every {k} steps", flush=True)
+    for backend in backends:
+        family = resolve_dense_backend(config, backend, device=device)
+        rollout, _ = make_cell_dense_sim(config, model, dt=DT, backend=backend, uniform_params=uni,
+                                         uniform_mass=1.0)
+        profile_path(f"1M dense component carry on {backend!r} ({family})", rollout, st0, k)
 
 
 def profile_water_1m(device) -> None:
@@ -255,8 +276,8 @@ def main(paths: str = "all") -> None:
     ).stdout.strip()
     print(smi, flush=True)
     device = torch.device("cuda", 0)
-    if paths in ("water", "grid", "water1m", "portable"):
-        {"water": profile_water, "grid": profile_grid, "water1m": profile_water_1m,
+    if paths in ("1m", "water", "grid", "water1m", "portable"):
+        {"1m": profile_1m, "water": profile_water, "grid": profile_grid, "water1m": profile_water_1m,
          "portable": profile_portable}[paths](device)
         return
     from emdee_tpu_torch import (
@@ -264,8 +285,7 @@ def main(paths: str = "all") -> None:
         make_straggler_sim, straggler_init, suggest_rebin_interval,
     )
     from emdee_tpu_torch.tools.melt import (
-        DT, FRICTION, KAPPA, N_CELLS_1M, P_NPT, SKIN, T_NVT, TAU_P, TAU_T, equilibrate, melt, spill_config,
-        straggler_config,
+        DT, FRICTION, KAPPA, P_NPT, SKIN, T_NVT, TAU_P, TAU_T, equilibrate, melt, spill_config, straggler_config,
     )
 
     st, config, model, params, uni, n = melt(device)
@@ -305,13 +325,7 @@ def main(paths: str = "all") -> None:
         profile_path(f"grid {shape} M={cfg.cells_per_dim}", grid, distribute_grid(start, cfg, mesh), k)
     del st, st0, s0, sp0
 
-    st, config, model, params, uni, n = melt(device, N_CELLS_1M)
-    dense, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
-    pos_eq, vel_eq, _, k = equilibrate(dense, st, config, n)
-    st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
-    print(f"{n} atoms, rebin every {k} steps", flush=True)
-    profile_path("1M dense component carry", dense, st0, k)
-    del st, st0
+    profile_1m(device, ("auto",))
     profile_water(device)
     profile_grid(device)
 

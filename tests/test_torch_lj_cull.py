@@ -9,17 +9,25 @@ and on the 864-atom charged fixture at C = 32, no pair whose float32 r² is
 below rc² is dropped; on a uniform fluid at the melt's density the kept
 share of a neighbour's atoms by face, edge and corner offset agrees with
 the geometric reckoning; and the kernel's shared memory and launch fit the
-smoke's shapes.  No card is touched."""
+smoke's shapes.  The one-card streaming LJ pass's cull (K5:
+`csrc/cell_forces_streaming.cu` `streaming_lj_kernel`), through its mirror
+`streaming_kernel.cull_pair` at rc² over the 13 half-shell offsets — the
+neighbour's box against the centres, then the kept centres' box against
+the neighbour — drops no such pair on the 1,000,188-atom melt (FCC 63³, M
+= 37) drifted by up to skin/2 (and on the 864-atom fixture at C = 32, in
+test_torch_streaming_cull.py); and K5's scratch at the melts is what the wrapper allocates.  No card is
+touched."""
 
 import numpy as np
 import pytest
 import torch
 
 from emdee_tpu_torch.neighbors import cell_kernel
+from emdee_tpu_torch.neighbors import streaming_kernel as sk
 from emdee_tpu_torch.tools import fixtures
-from emdee_tpu_torch.tools.melt import CUTOFF, DENSITY, N_CELLS, SKIN
+from emdee_tpu_torch.tools.melt import CUTOFF, DENSITY, N_CELLS, N_CELLS_1M, SKIN
 from emdee_tpu_torch.utils.lattice import fcc_lattice
-from test_torch_streaming_cull import _check_k2c_cull
+from test_torch_streaming_cull import _cells, _check_k2c_cull, _check_no_inside_pair_dropped
 
 M = 17  # the melt's wide config: 97,556 atoms in 17³ cells of 2.865σ
 
@@ -123,3 +131,33 @@ def test_lj_shared_memory_and_launch_fit_the_smoke_shapes(m, capacity):
     assert shape["warps"] == m**3 * -(-capacity // 32) and shape["blocks"] == -(-shape["warps"] // 4)
     if (m, capacity) == (17, 32):
         assert shape["warps"] == 4_913 and round(shape["waves"], 3) == 1.163
+
+
+def test_k5_cull_keeps_every_inside_pair_on_the_drifted_1m_melt():
+    """bench_all.py's 1M melt (FCC 63³ at ρ* = 0.8442, 1,000,188 atoms)
+    binned into M = 37 cells of 2.86σ (the C = 32 config), then every atom
+    moved by up to skin/2 on each axis (numpy seed 6), as between rebins:
+    K5's cull over the 13 half-shell offsets, for the cells of the z = 0 and
+    z = M − 1 layers at y ∈ {0, M − 1}, which meet every seam."""
+    m = 37
+    pos, box = fcc_lattice(N_CELLS_1M, density=DENSITY)
+    assert len(pos) == 1_000_188 and box / m > CUTOFF
+    cell_of = (np.floor(pos / (box / m)).astype(np.int64) % m) @ np.array([1, m, m * m])
+    assert np.bincount(cell_of, minlength=m**3).max() <= 32
+    drift = np.random.default_rng(6).uniform(-0.5 * SKIN, 0.5 * SKIN, pos.shape)
+    cells = _cells(pos + drift, cell_of, m)
+    centres = [(z * m + y) * m + x for z in (0, m - 1) for y in (0, m - 1) for x in range(m)]
+    assert _check_no_inside_pair_dropped(cells, centres, m, box, CUTOFF**2) > 40_000
+
+
+@pytest.mark.parametrize("m,want", [(17, (26_412_288, 44_020_480)), (37, (272_310_528, 453_850_880))])
+def test_k5_scratch_at_the_melts(m, want):
+    """K5's scratch as `cell_forces_streaming` allocates it, a warp walking
+    its cell's 14 phases: one centre slice and 13 reaction slices of (n_r,
+    M³·C) float32 — at the 97,556-atom melt (M = 17, C = 32) 26.4 MB forces
+    only and 44.0 MB with energies, at the 1M melt (M = 37) 272.3 MB and
+    453.9 MB, written once by the pair pass and read once by the fold."""
+    config = fixtures.charged_fixture("cpu")[1]._replace(cells_per_dim=m, capacity=32)
+    assert sk.K5_SLICES == 14
+    assert (sk.scratch_bytes(config, False), sk.scratch_bytes(config, True)) == want
+    assert want[0] == 4 * 14 * 3 * m**3 * 32

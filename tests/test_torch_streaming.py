@@ -142,8 +142,12 @@ def test_cuda_streaming_raises_on_cpu_tensors():
 
 
 def test_streaming_kernel_refuses_geometry_it_cannot_take():
+    """K5's entries refuse C > 96 and M < 3 (a cell would meet itself
+    through the seam); the warp-owned block does not grow with M, so the 1M
+    melt and M = 300 pass."""
     with pytest.raises(ValueError, match="C ≤ 96"):
         streaming_kernel._check_geometry(CONFIG._replace(capacity=104), energy=False)
-    with pytest.raises(ValueError, match="shared memory"):
-        streaming_kernel._check_geometry(CONFIG._replace(cells_per_dim=300), energy=True)
+    with pytest.raises(ValueError, match="M ≥ 3"):
+        streaming_kernel._check_geometry(CONFIG._replace(cells_per_dim=2), energy=True)
     streaming_kernel._check_geometry(_config(1_000_188)[1], energy=True)
+    streaming_kernel._check_geometry(CONFIG._replace(cells_per_dim=300, capacity=96), energy=True)

@@ -8,7 +8,8 @@ half-shell offset and periodic shift; on the undrifted water lattice, the
 kept share of a centre cell against a face, an edge and a corner
 neighbour agrees with the geometric reckoning (0.84, 0.56, 0.31 at a cell
 of 8.29 Å and a cutoff of 7 Å) within 0.1; and K5c's block fits four to an
-SM at the water boxes' geometries.  The same predicate as K5s-mol applies
+SM at the water boxes' geometries.  The same predicate at rc² alone, as
+K5 (LJ) applies it, keeps every inside pair of the fixture at C = 32.  The same predicate as K5s-mol applies
 it on the grid's ghost grids, with the shift from the neighbour's global
 cell index (`streaming_kernel.ghost_phase`, held to the plain ghost pass's
 blocks), on the grid's charged fixture and a drifted (2,2,2) water box;
@@ -72,14 +73,19 @@ def _check_no_inside_pair_dropped(cells, centres, m, box, cut2):
     return checked
 
 
-def test_cull_keeps_every_inside_pair_on_the_charged_fixture():
-    st, config, _, coul, _ = fixtures.charged_fixture("cpu")
+@pytest.mark.parametrize("capacity,lj_only", [pytest.param(None, False, id="k5c"),
+                                               pytest.param(32, True, id="k5-c32")])
+def test_cull_keeps_every_inside_pair_on_the_charged_fixture(capacity, lj_only):
+    """Every cell and offset of the 864-atom fixture: K5c's cull at the
+    larger of the two cutoffs at the fixture's capacity, and K5's at rc²
+    alone at C = 32."""
+    st, config, _, coul, _ = fixtures.charged_fixture("cpu", capacity)
     m, c = config.cells_per_dim, config.capacity
     pos = st.positions.reshape(-1, 3).numpy()
     valid = st.valid.reshape(-1).numpy()
     cell_of = np.repeat(np.arange(m**3), c)[valid]
     cells = _cells(pos[valid], cell_of, m)
-    cut2 = max(float(config.cutoff) ** 2, float(coul.rc2))
+    cut2 = float(config.cutoff) ** 2 if lj_only else max(float(config.cutoff) ** 2, float(coul.rc2))
     assert _check_no_inside_pair_dropped(cells, range(m**3), m, float(config.box), cut2) > 5_000
 
 
@@ -136,15 +142,30 @@ def test_cull_keep_is_conservative_at_the_boundary():
 
 
 @pytest.mark.parametrize("energy", [False, True])
-@pytest.mark.parametrize("geometry", [(12, 80), (26, 88)])
+@pytest.mark.parametrize("geometry", [(12, 80), (26, 88), pytest.param((17, 32, "lj"), id="lj-97556"),
+                                      pytest.param((37, 32, "lj"), id="lj-1m")])
 def test_k5c_blocks_fit_four_an_sm(geometry, energy):
     """K5c's block (4 warps) at the water boxes' geometries, with the water
     tags (E = 2, E_b = 2 on the step launch, none on the energy launch),
     fits four to an SM's 233,472 shared bytes (1,024 reserved a block):
     shared memory allows the 16 warps an SM that its 128 registers a thread
-    allow, whatever M."""
-    m, c = geometry
+    allow, whatever M.  K5's block (LJ, 4 warps, each with three tiles of x,
+    y, z with uniform parameters, with σ/2 and 2√ε per atom) at the melts'
+    geometries (M = 17 and 37, C = 32) is 15,360 B (uniform), 17,408
+    (uniform with energies), 21,504 (per atom) and 23,552 (per atom with
+    energies), so shared memory and the warp slots allow the
+    K5_MIN_BLOCKS blocks an SM that its launch bounds ask the registers
+    for."""
+    m, c, *lj = geometry
     config = fixtures.charged_fixture("cpu")[1]._replace(cells_per_dim=m, capacity=c)
+    if lj:
+        for uniform in (False, True):
+            smem = sk.smem_bytes(config, energy, uniform=uniform)
+            assert smem == 4 * sk.K5_WARPS * (3 * (4 if uniform else 6) * 64 + 2 * (5 if energy else 3) * c)
+            assert smem == {(True, False): 15_360, (True, True): 17_408, (False, False): 21_504,
+                            (False, True): 23_552}[uniform, energy]
+            assert sk.K5_MIN_BLOCKS * (smem + 1024) <= 233_472 and sk.K5_MIN_BLOCKS * sk.K5_WARPS <= 64
+        return
     smem = sk.smem_bytes(config, energy, True, 2, 0 if energy else 2)
     assert smem == 4 * 4 * (2 * 8 * 96 + 3 * (2 if energy else 4) * 96 + 2 * (5 if energy else 3) * c)
     assert 4 * (smem + 1024) <= 233_472

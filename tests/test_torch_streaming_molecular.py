@@ -146,34 +146,36 @@ def test_water_boxes_resolve_to_the_streaming_family():
 
 
 def test_k5c_refuses_geometry_it_cannot_take(charged):
-    """What the C entries refuse raises before a launch: C > 96 and M < 3;
-    K5 (LJ) refuses a pencil whose rows outgrow a block's shared memory.
-    K5c's block holds four warps' tiles, staged tags and centre and reaction
-    rows, whatever M: its widest block (C = 96, E = E_b = 8, energies) fits
-    at M = 40, and the two entries count the bytes alike."""
+    """What the C entries refuse raises before a launch: C > 96 and M < 3,
+    for K5c and for K5 (LJ).  Both blocks hold four warps' tiles and centre
+    and reaction rows (K5c's also its staged tags), whatever M: K5c's widest
+    block (C = 96, E = E_b = 8, energies) and K5's fit at M = 60, and the
+    entries count the bytes alike."""
     _, config, _, _ = charged
     with pytest.raises(ValueError, match="C ≤ 96"):
         streaming_kernel._check_geometry(config._replace(capacity=104), True, True, 2, 2)
     with pytest.raises(ValueError, match="M ≥ 3"):
         streaming_kernel._check_geometry(config._replace(cells_per_dim=2), True, True, 2, 2)
-    with pytest.raises(ValueError, match="shared memory"):
-        streaming_kernel._check_geometry(config._replace(cells_per_dim=60, capacity=96), True)
+    with pytest.raises(ValueError, match="M ≥ 3"):
+        streaming_kernel._check_geometry(config._replace(cells_per_dim=2), True)
+    streaming_kernel._check_geometry(config._replace(cells_per_dim=60, capacity=96), True)
     widest = config._replace(cells_per_dim=40, capacity=96)
     streaming_kernel._check_geometry(widest, True, True, 8, 8)
     assert streaming_kernel.smem_bytes(widest, True, True, 8, 8) == 4 * 4 * (2 * 8 * 96 + 3 * 16 * 96 + 2 * 5 * 96)
     assert streaming_kernel.smem_bytes(config, False, True, 2, 2) == 4 * 4 * (2 * 8 * 64 + 3 * 4 * 64 + 2 * 3 * 24)
-    assert streaming_kernel.smem_bytes(config, False) == 4 * (2 * 3 * 4 * 24 + 8 * 2 * 6 * 64)
+    assert streaming_kernel.smem_bytes(config, False) == 4 * 4 * (3 * 6 * 64 + 2 * 3 * 24)
 
 
 def test_c_entries_match_ctypes_signatures():
     """Every `extern "C"` entry of csrc/ has a ctypes signature of the same
-    arity and kinds (pointer, int, float, long), the K5c pair pass, its
-    fold, its resource query, the K2c-G entry, K5s-mol's pair pass,
-    assembly and resource query and K2c's resource query among them."""
+    arity and kinds (pointer, int, float, long), K5's pair pass, fold and
+    resource query, the K5c pair pass, its fold, its resource query, the
+    K2c-G entry, K5s-mol's pair pass, assembly and resource query and K2c's
+    resource query among them."""
     kinds = {"int": "c_int", "float": "c_float", "long": "c_long"}
     src = "".join(p.read_text() for p in sorted(Path(build.CSRC).glob("*.cu")))
     entries = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
-    assert {"emdee_streaming_forces_mol", "emdee_streaming_fold_mol", "emdee_streaming_mol_attrs",
+    assert {"emdee_streaming_forces", "emdee_streaming_fold", "emdee_streaming_attrs", "emdee_streaming_forces_mol", "emdee_streaming_fold_mol", "emdee_streaming_mol_attrs",
             "emdee_cell_forces_ghost_mol", "emdee_streaming_ghost_mol", "emdee_streaming_ghost_assemble_mol",
             "emdee_streaming_ghost_mol_attrs", "emdee_cell_forces_mol_attrs"} <= set(entries)
     assert set(entries) == set(build._SIGNATURES)
