@@ -43,6 +43,11 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   (friction 2.0) on the spill config, 1,000 steps each with per-block
   records, and NPT (CSVR + Berendsen P* = 0.5, τ_P = 0.4) on the wide
   config from the CSVR state, then `reconfigure_dense_state` on its end;
+- F1, the streaming family above three centre slots a lane: the
+  equilibrated melt at M = 12, C = 104, where 'auto' must resolve to the
+  streaming family (the TPU engine's estimate passes 13 MB): K5's chunked
+  variant, both entries, against plain, and 200 gated NVE steps; after the
+  water phases, the water box at C = 104 on 'auto': K5c against plain;
 - the C-tight straggler engine at bench.py's production config (C_t =
   wide−4, C_w = wide+4, A = 64, Kn = 16), through `straggler_init` and
   `make_straggler_sim`, from the equilibrated melt, and its gather pass
@@ -81,7 +86,8 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   path's config (M = 17, C = 32), then at the config
   `reconfigure_dense_state(cells_multiple_of=2)` gives (M = 16) on (1,1,1),
   (2,2,2) and (2,4,1), each gated like the main path and bitwise equal to
-  the others, with forces bit for bit the one-card kernel's; the (1,1,1)
+  the others, with forces bit for bit the one-card kernel's, and K2-G's
+  time beside its time before the redesign, its bound and resources; the (1,1,1)
   run also through a one-rank NCCL `DistMesh`, and a short CSVR run; before
   it, the window rebin kernel (K6) vs its plain version and vs K4;
 - the dense-cell engine on bench_all.py's 1,000,188-atom melt (FCC 63³,
@@ -96,7 +102,10 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   C = 32, through `backend="auto"` (asserted to resolve to K5s; 1,000 gated
   steps), and at M = 36 on (2,1,1) (`'auto'`, K5s) and (2,2,2)
   (`backend="cuda_streaming"` named), each against K5s's plain version,
-  the one-card K5 and the other decompositions; the 985,527-atom water box
+  the one-card K5 and the other decompositions, then (2,2,2) at M = 36 on
+  'auto', which picks the resident family there: K2-G (the LJ pass's GHOST
+  mode) bit for bit the one-card K2a/K2b, against plain, its time beside
+  its time before the redesign, 200 gated steps; the 985,527-atom water box
   on (2,2,2) `'auto'` (K5s-mol; 200 gated steps from the lattice start);
 - the grid's Langevin and Berendsen NPT (on K2-G's and on K5s's energy
   pass) on the 97,556-atom melt at (2,2,2), M = 16, and
@@ -171,6 +180,14 @@ K3_BEFORE = {"strag_ms": 0.1875}
 # chip_smoke.py times, split and with energies (PERF.md §6; NVIDIA H100
 # 80GB HBM3, 700.00 W; at 97,556 atoms only the split time was kept).
 K5_BEFORE = {"split_ms": 0.2236, "n1m_split_ms": 1.3159, "n1m_energy_ms": 1.7722}
+# K2-G (the grid's per-shard LJ pass, uniform parameters) before its
+# redesign: a launch's device time in `profile_paths.py`'s profiles of the
+# old kernel (PERF.md §5; NVIDIA H100 80GB HBM3, 700.00 W), keyed by (M,
+# mesh shape), printed beside this run's times.
+K2G_BEFORE = {(17, (1, 1, 1)): 0.1954, (16, (2, 2, 2)): 0.3215, (36, (2, 2, 2)): 3.0568}
+# F1's capacity: above three centre slots a lane, the streaming family's
+# chunked variants; at M = 12 the 97,556-atom melt's estimate passes 13 MB.
+C_F1 = 104
 
 
 def log(msg: str) -> None:
@@ -505,6 +522,76 @@ def phase_streaming(device, tag, cells=None):
            "bound_by": bound_by, "library_ms": None, "energy_ms": ms_e, "energy_plain_ms": plain_ms_e,
            "energy_bound_ms": bound_e[0], "vs_k2_max_abs_err": vs_k2, "resources": res}
     return row, {"k2_split_ms": k2_ms, "k2_energy_ms": k2_ms_e}
+
+
+def phase_streaming_c104(device, tag, config, model, params, uni, pos_eq, vel_eq, k):
+    """F1 on the equilibrated 97,556-atom melt at M = 12, C = 104, a config
+    the reference's streaming kernel takes: the TPU engine's VMEM estimate
+    (13,310,336 B) passes 13 MB, so 'auto' must resolve to the streaming
+    family, whose chunked variants run above 96.  K5 on the state drifted
+    0.45·skin, both entries, vs the plain version (forces within 2e-5 of the
+    force scale, energies and virials, empty slots exactly 0) and their
+    times; then 200 NVE steps on 'auto' (no flag, drift ≤ 3e-5, exact
+    launches: two K5 a force evaluation, three K4 a rebin), bitwise reruns,
+    no host waits.  Returns (K5 row fields, {path: counts}, ms/step)."""
+    from emdee_tpu_torch import cell_dense_init, estimate_kernel_vmem_bytes, make_cell_dense_sim, resolve_dense_backend
+    from emdee_tpu_torch.neighbors.streaming_kernel import (
+        cell_forces_streaming, cell_forces_streaming_split, k5_resources,
+    )
+
+    cfg = config._replace(cells_per_dim=12, capacity=C_F1)
+    n = cfg.num_atoms
+    est = estimate_kernel_vmem_bytes(cfg)
+    family = resolve_dense_backend(cfg, "auto", device=device)
+    if family != "cuda_streaming":
+        raise AssertionError(f"melt M=12 C={C_F1}: 'auto' resolves to {family!r} (estimate {est:,} B)")
+    st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, cfg, device=device)
+    if bool(st0.overflow):
+        raise AssertionError(f"melt M=12 C={C_F1}: init overflow")
+    st = drifted(st0, SKIN)
+    v = st.valid
+    fk, ek, wk = cell_forces_streaming(st, model, cfg, compute_energy=True, backend="cuda")
+    fp, ep, wp = cell_forces_streaming(st, model, cfg, compute_energy=True, backend="torch")
+    px, py, pz = (st.positions[..., i].contiguous() for i in range(3))
+    sk = cell_forces_streaming_split(px, py, pz, v, cfg, uniform_params=uni, backend="cuda")
+    sp = cell_forces_streaming_split(px, py, pz, v, cfg, uniform_params=uni, backend="torch")
+    torch.cuda.synchronize()
+    scale = max(float(fp[v].abs().max()), 1.0)
+    err = max(close(f"K5 M=12 C={C_F1} per-atom forces", fk[v], fp[v], atol=2e-5 * scale),
+              *(close(f"K5 M=12 C={C_F1} split f{a}", a_k[v], a_p[v], atol=2e-5 * scale)
+                for a, a_k, a_p in zip("xyz", sk, sp)))
+    close(f"K5 M=12 C={C_F1} energies", ek[v], ep[v], atol=1e-4, rtol=1e-4)
+    close(f"K5 M=12 C={C_F1} virials", wk[v], wp[v], atol=2e-3, rtol=1e-4)
+    if bool((fk[~v] != 0).any()) or bool((ek[~v] != 0).any()) or any(bool((a[~v] != 0).any()) for a in sk):
+        raise AssertionError(f"K5 M=12 C={C_F1}: nonzero values on empty slots")
+    ms_k = cuda_ms(lambda: cell_forces_streaming_split(px, py, pz, v, cfg, uniform_params=uni, backend="cuda"), 50)
+    ms_e = cuda_ms(lambda: cell_forces_streaming(st, model, cfg, compute_energy=True, backend="cuda"), 20)
+    plain = cuda_ms(lambda: cell_forces_streaming_split(px, py, pz, v, cfg, uniform_params=uni, backend="torch"), 3)
+    pairs = grid_pairs(px, py, pz, v, cfg)
+    b_ms, b_by = bound(25 * cfg.num_slots, OPS_PER_PAIR * pairs)
+    res = {name: k5_resources(cfg, *flags) for name, flags in (
+        ("uniform", (True, False)), ("per-atom", (False, False)), ("per-atom energies", (False, True)))}
+    log(f"{tag} F1: melt M=12 C={C_F1} (estimate {est:,} B) 'auto' -> {family!r}; K5 (chunked variant) vs plain max "
+        f"|dF| {err:.3e} (scale {scale:.2f}), energies, virials in tolerance, empty slots 0; split {ms_k:.4f} ms a "
+        f"launch pair, per-atom + energies {ms_e:.4f}, plain {plain:.3f}, bound {b_ms:.5f} ms ({b_by}; {pairs:,} "
+        f"pairs); resources {resources_line(res)}")
+
+    roll, energy = make_cell_dense_sim(cfg, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    roll(st0, num_steps=2 * k, rebin_every=k)  # warm-up
+    steps = 200
+    label = f"melt M=12 C={C_F1} ('auto', K5)"
+    _, sec, drift, counts = gate_rollout(label, roll, energy, st0, steps, k,
+                                         launches(cell_forces_streaming=2 * (steps + 2 + 2),
+                                                  rebin_routing=3 * -(-steps // k)))
+    bitwise_rerun(label, roll, st0, 50, k)
+    no_host_waits(label, lambda: roll(st0, num_steps=2 * k, rebin_every=k))
+    ms = 1e3 * sec / steps
+    log(f"{tag} {label}: {steps} NVE steps in {sec:.3f} s = {ms:.4f} ms/step, drift {drift:.3e}; launches {counts}; "
+        "reruns bitwise; no host waits")
+    row = {"c104_max_abs_err": err, "c104_ms": ms_k, "c104_energy_ms": ms_e, "c104_plain_ms": plain,
+           "c104_bound_ms": b_ms, "c104_bound_by": b_by, "c104_pairs": pairs, "c104_resources": res,
+           "c104_ms_per_step": ms, "c104_drift": drift}
+    return row, {"melt_m12_c104": counts}, ms
 
 
 def phase_1m(device, tag):
@@ -1147,14 +1234,16 @@ def phase_rebin_window(device, tag):
 
 
 def grid_forces_check(tag, label, cfg, model, uni, mesh, st):
-    """The grid engine's force pass (K2's GHOST mode) on `st` drifted
-    0.45·skin: the uniform entry vs the one-card split kernel (K2a) and the
-    per-atom entry with energies vs K2b, bit for bit; the kernel vs the
-    ghost grid's plain version within 2e-5 of the force scale; the times of
-    the grid's force pass (halo exchange included) and of K2a at the same
-    config.  Returns max |dF| vs plain."""
+    """The grid engine's force pass (K2-G, the LJ pass's GHOST mode) on `st`
+    drifted 0.45·skin: the uniform entry vs the one-card split kernel (K2a)
+    and the per-atom entry with energies vs K2b, bit for bit; the kernel vs
+    the ghost grid's plain version within 2e-5 of the force scale; the
+    times of K2-G alone (beside its time before the redesign, where
+    PERF.md has one), of its plain version, of the grid's force pass (halo
+    exchange included) and of K2a at the same config, and K2-G's bound.
+    Returns (max |dF| vs plain, K2-G's row fields)."""
     from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, gather_grid_state, make_grid_sharded_sim
-    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces, cell_forces_split
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces, cell_forces_split, ghost_forces
 
     sd = drifted(st, SKIN)
     sh = distribute_grid(sd, cfg, mesh)
@@ -1181,11 +1270,21 @@ def grid_forces_check(tag, label, cfg, model, uni, mesh, st):
     err = close(f"{label} ghost kernel vs plain", fu[v], fp[v], atol=2e-5 * scale)
     ms_grid = cuda_ms(lambda: roll_u.forces(sh), 20)
     ms_k2 = cuda_ms(lambda: cell_forces_split(px, py, pz, sd.valid, cfg, uniform_params=uni, backend="cuda"), 20)
-    before = f" (before its redesign {K2_BEFORE['split_ms']})" if cfg.cells_per_dim == 17 else ""
-    log(f"{tag} {label}: force pass with the halo exchange {ms_grid:.4f} ms, one-card K2a at this config "
-        f"{ms_k2:.4f} ms{before}; "
-        f"GHOST kernel vs plain max |dF| {err:.3e} (scale {scale:.3f})")
-    return err
+    gh = ghost_stack(sh, mesh, per_atom=False, mol=False)
+    args = (gh, mesh.local_shape, mesh.base, cfg, model)
+    ms_g = cuda_ms(lambda: ghost_forces(*args, uniform_params=uni, backend="cuda"), 20)
+    plain_g = cuda_ms(lambda: ghost_forces(*args, uniform_params=uni, backend="torch"), 2)
+    pairs = grid_pairs(px, py, pz, sd.valid, cfg)
+    # in: the ghost grids' x, y, z; out: the own slots' forces
+    b_ms, b_by = bound(12 * gh[0].numel() + 12 * sd.valid.numel(), OPS_PER_PAIR * pairs)
+    before = K2G_BEFORE.get((cfg.cells_per_dim, tuple(mesh.shape)), "not measured")
+    k2_before = f" (before its redesign {K2_BEFORE['split_ms']})" if cfg.cells_per_dim == 17 else ""
+    log(f"{tag} {label}: K2-G (uniform) {ms_g:.4f} ms a launch (before its redesign {before}), plain {plain_g:.3f} "
+        f"ms, bound {b_ms:.5f} ms ({b_by}; {pairs:,} pairs inside the cutoff); force pass with the halo exchange "
+        f"{ms_grid:.4f} ms, one-card K2a at this config {ms_k2:.4f} ms{k2_before}; K2-G vs plain max |dF| "
+        f"{err:.3e} (scale {scale:.3f}); per-atom + energies and uniform bit for bit the one-card K2b and K2a")
+    return err, {"ms": ms_g, "plain_ms": plain_g, "bound_ms": b_ms, "bound_by": b_by,
+                 "pairs": pairs, "pass_ms": ms_grid, "k2a_ms": ms_k2, "max_abs_err": err, "force_scale": scale}
 
 
 def grid_vs_dense_fixture(shape, device) -> float:
@@ -1232,8 +1331,9 @@ def phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_
     measured), 1,000 gated NVE steps (no flag, drift, exact K2/K6
     launches), bitwise reruns, no host waits.  Then the three M = 16 runs
     bitwise equal, the (1,1,1) run through a one-rank NCCL `DistMesh`
-    bitwise equal to `LocalMesh`, and a short CSVR run.  Returns ({path:
-    counts}, {path: ms/step}, max |dF| vs plain)."""
+    bitwise equal to `LocalMesh`, and a short CSVR run; K2-G's variants'
+    resources as the card reports them.  Returns ({path: counts}, {path:
+    ms/step}, max |dF| vs plain, K2-G's row fields by path)."""
     from emdee_tpu_torch import cell_dense_init, gather_dense_atoms, make_cell_dense_sim, reconfigure_dense_state
     from emdee_tpu_torch.distributed.grid_sharded import (
         distribute_grid, gather_grid_atoms, gather_grid_state, make_grid_sharded_sim,
@@ -1248,13 +1348,14 @@ def phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_
         raise AssertionError(f"grid config: M={cfg16.cells_per_dim}, overflow {bool(st16.overflow)}")
     runs = [((1, 1, 1), config, st17), ((1, 1, 1), cfg16, st16), ((2, 2, 2), cfg16, st16), ((2, 4, 1), cfg16, st16)]
     steps, short = 1000, 30
-    counts, ms, finals, err = {}, {}, {}, 0.0
+    counts, ms, finals, err, k2g = {}, {}, {}, 0.0, {}
     fixture_gap = {shape: grid_vs_dense_fixture(shape, device) for shape in dict.fromkeys(r[0] for r in runs)}
     for shape, cfg, st in runs:
         name = f"grid_{''.join(map(str, shape))}_m{cfg.cells_per_dim}"
         label = f"grid {shape} M={cfg.cells_per_dim} C={cfg.capacity}"
         mesh = make_grid_mesh(shape, device=device)
-        err = max(err, grid_forces_check(tag, label, cfg, model, uni, mesh, st))
+        e, k2g[name] = grid_forces_check(tag, label, cfg, model, uni, mesh, st)
+        err = max(err, e)
         roll, energy = make_grid_sharded_sim(cfg, model, DT, mesh, uniform_params=uni)
         d_roll, d_energy = make_cell_dense_sim(cfg, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
         sh = distribute_grid(st, cfg, mesh)
@@ -1321,7 +1422,12 @@ def phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_
         "bitwise equal, another seed differs; no host waits")
     log(f"{tag}: grid ms/step " + ", ".join(f"{p} {v:.4f} ({v / main_ms:.2f}x)" for p, v in ms.items())
         + f" vs dense main path {main_ms:.4f}")
-    return counts, ms, err
+    from emdee_tpu_torch.neighbors.cell_kernel import lj_resources
+
+    res = {name: lj_resources(u, e, False, True) for name, u, e in (
+        ("uniform", True, False), ("per-atom", False, False), ("per-atom energies", False, True))}
+    log(f"{tag} K2-G (cell_lj_kernel, GHOST) resources: {resources_line(res)}")
+    return counts, ms, err, {**k2g, "resources": res}
 
 
 def phase_probes(device, tag):
@@ -1765,6 +1871,41 @@ def phase_water_auto(device, tag, w):
     return row, {"water_auto": counts}, ms, drift
 
 
+def phase_water_c104(device, tag, w):
+    """F1 on the 98,304-atom water box at C = 104 (its plain geometry, M =
+    12): 'auto' must resolve to the streaming family, whose chunked
+    molecular variant (K5c) runs above 96; K5c vs its plain version on the
+    equilibrated state re-initialised there, with DSF and the tags, without
+    and with the bond tags, forces alone and with energies (within 2e-4 of
+    the force scale and 1e-3), and its step launch's time.  Returns K5c
+    row fields."""
+    from emdee_tpu_torch import resolve_dense_backend
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming, k5c_resources
+
+    box, model, coul = w["box"], w["model"], w["coul"]
+    cfg = w["cfg"]._replace(capacity=C_F1)
+    n = len(box["masses"])
+    family = resolve_dense_backend(cfg, "auto", device=device, with_coulomb=True, with_excl=True)
+    if family != "cuda_streaming":
+        raise AssertionError(f"water M={cfg.cells_per_dim} C={C_F1}: 'auto' -> {family!r}")
+    st = w["init"](w["pos_eq"], w["vel_eq"], cfg)
+    if bool(st.overflow):
+        raise AssertionError(f"water C={C_F1}: init overflow")
+    tags, e_tags, e_bonds = water_tags(box, n, device, st)
+    err, scale, err_e, err_w = check_mol_kernel(st, cfg, model, coul, tags, f"water C={C_F1}", "K5c")
+    k_ms = cuda_ms(lambda: cell_forces_streaming(st, model, cfg, backend="cuda", coulomb=coul, excl=tags), 20)
+    p_ms = cuda_ms(lambda: cell_forces(st, model, cfg, backend="torch", coulomb=coul, excl=tags), 2)
+    pairs, bonded_pairs = mol_pairs(st, cfg, box["bonds"], box["box"])
+    b_ms, b_by = bound(mol_bytes(cfg, e_tags, e_bonds, False), mol_ops(pairs, bonded_pairs, e_tags, False))
+    res = k5c_resources(cfg, coul, tags, False)
+    log(f"{tag} F1: water M={cfg.cells_per_dim} C={C_F1} 'auto' -> {family!r}; K5c (chunked variant) vs plain max "
+        f"|dF| {err:.3e} (rel {err / scale:.3e}), max |dE| {err_e:.3e}, max |dW| {err_w:.3e}; step launch pair "
+        f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); resources {resources_line({'step': res})}")
+    return {"water_c104_max_abs_err": err, "water_c104_energy_err": max(err_e, err_w), "water_c104_ms": k_ms,
+            "water_c104_plain_ms": p_ms, "water_c104_bound_ms": b_ms, "water_c104_resources": res}
+
+
 @contextlib.contextmanager
 def plain_one_offset_tiles():
     """The plain version (`cell_dense._dense_forces`) with its half-shell
@@ -1969,13 +2110,17 @@ def phase_grid_1m(device, tag, eq):
     (1,1,1) at M = 37, C = 32 on 'auto', which must resolve to the streaming
     family (K5s + the fold); then M = 36, C = 40 (`melt.even_config`) on
     (2,1,1) 'auto' (K5s again) and on (2,2,2) with backend="cuda_streaming"
-    named ('auto' gives K2-G there).  Gates: K5s
+    named ('auto' gives K2-G there, run last).  Gates: K5s
     vs its plain version (2e-5 of the force scale) and, after the fold, vs
     the one-card K5; E and W within rtol 1e-5 of the dense closure; the
     decompositions' forces by atom within 2e-5 of the scale; 1,000 NVE
     steps on (1,1,1) (no flag, drift ≤ 3e-5, exact launches: two K5s a force
     evaluation, three K6 a rebin), 200 on each M = 36 mesh; reruns bitwise;
-    no host waits.  Returns (row fields, {path: counts}, {path: ms/step})."""
+    no host waits.  Last, (2,2,2) at M = 36 on 'auto', which must resolve to
+    the resident family (K2-G): K2-G bit for bit the one-card K2a and K2b
+    and within 2e-5 of the force scale of its plain version, its time, and
+    200 gated NVE steps (one K2-G launch a force evaluation).  Returns (row
+    fields, {path: counts}, {path: ms/step}, K2-G's row fields)."""
     from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim
     from emdee_tpu_torch.distributed.grid_sharded import (
         distribute_grid, gather_grid_state, grid_vmem_estimate, make_grid_sharded_sim,
@@ -2042,7 +2187,29 @@ def phase_grid_1m(device, tag, eq):
                        atol=2e-5 * scale) for a in names[1:])
     log(f"{tag} 1M grid: forces by atom of {', '.join(names)} agree to max |dF| {decomp:.3e} (gate 2e-5 of the "
         "scale; the fold's order, not bit for bit)")
-    return dict(runs=row, max_abs_err=err, vs_one_card=vs_one, energy_err=err_e, decomp_err=decomp), counts, ms
+
+    # (2,2,2) M = 36 on 'auto', which picks the resident family there: K2-G.
+    shape, name = (2, 2, 2), "grid_1m_222_m36_auto"
+    label = f"1M grid {shape} M={cfg36.cells_per_dim} C={cfg36.capacity} 'auto'"
+    mesh = make_grid_mesh(shape, device=device)
+    roll, energy = make_grid_sharded_sim(cfg36, model, DT, mesh, uniform_params=uni)
+    est = grid_vmem_estimate(cfg36, mesh, uni)
+    if roll.family != "cuda":
+        raise AssertionError(f"{label}: 'auto' resolves to {roll.family!r} (estimate {est / 1e6:.2f} MB), not K2-G")
+    _, k2g = grid_forces_check(tag, label, cfg36, model, uni, mesh, st36)
+    sg = distribute_grid(st36, cfg36, mesh)
+    roll(sg, num_steps=2 * k, rebin_every=k)  # warm-up
+    _, sec, drift, c = gate_rollout(label, roll, energy, sg, GRID_1M_SHORT, k,
+                                    launches(cell_forces=GRID_1M_SHORT + 4, rebin_window=3 * -(-GRID_1M_SHORT // k)))
+    bitwise_rerun(label, roll, sg, 50, k)
+    no_host_waits(label, lambda: roll(sg, num_steps=2 * k, rebin_every=k))
+    counts[name], ms[name] = c, 1e3 * sec / GRID_1M_SHORT
+    k2g.update(ms_per_step=ms[name], drift=drift, estimate_mb=est / 1e6)
+    log(f"{tag} {label} -> {roll.family!r} (K2-G; per-shard estimate {est / 1e6:.2f} MB): {GRID_1M_SHORT} NVE steps "
+        f"in {sec:.3f} s = {ms[name]:.4f} ms/step (before K2-G's redesign 3.55, PERF.md §5), drift {drift:.3e}; "
+        f"launches {c}; reruns bitwise; no host waits")
+    return (dict(runs=row, max_abs_err=err, vs_one_card=vs_one, energy_err=err_e, decomp_err=decomp), counts, ms,
+            k2g)
 
 
 def phase_grid_water_1m(device, tag, w1m):
@@ -2847,6 +3014,9 @@ def main() -> None:
         f"dense main path {main_ms:.4f} ms/step ({n * 1e3 / main_ms:,.0f} atom-steps/s)")
     phase_gather_pass(device, tag, production, model, uni, pos_eq, vel_eq, params, k)
 
+    # ---- F1: the melt at M = 12, C = 104 on the streaming family ----
+    c104_row, counts_c104, c104_ms = phase_streaming_c104(device, tag, config, model, params, uni, pos_eq, vel_eq, k)
+
     # ---- the molecular dense engine: K2c, the triatomic fixture, the water box ----
     mol_fixture_row = phase_molecular_fixtures(device, tag)
     k5c_row = phase_k5c_fixture(device, tag)
@@ -2856,13 +3026,15 @@ def main() -> None:
         f"spill config holds: {water_facts['spill_holds']}")
     water_auto_row, counts_auto, auto_ms, auto_drift = phase_water_auto(device, tag, w)
     k5c_row.update(water_auto_row)
+    k5c_row.update(phase_water_c104(device, tag, w))
     ghost_mol_row, counts_grid_water, grid_water_ms = phase_grid_water(device, tag, w, auto_drift)
     del w
     log(f"{smi}: water ms/step at 98,304 atoms — 'cuda' (K2c) {water_ms:.4f}, 'auto' (K5c) {auto_ms:.4f}, "
         f"grid (2,2,2) (K2c-G) {grid_water_ms:.4f}")
 
     # ---- the grid-sharded engine (virtual shards on this card) ----
-    counts_grid, grid_ms, grid_err = phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_ms)
+    counts_grid, grid_ms, grid_err, k2g_rows = phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k,
+                                                          main_ms)
     force["max_abs_err"] = max(force["max_abs_err"], grid_err)
     counts_ens, ens_ms = phase_grid_ensembles(device, tag, config, model, uni, pos_eq, vel_eq, params)
     log(f"{smi}: grid ensembles ms/step at {n} atoms, (2,2,2) M=16: "
@@ -2874,7 +3046,7 @@ def main() -> None:
     log(f"{smi}: 1M path {ms_1m:.4f} ms/step ({1_000_188 * 1e3 / ms_1m:,.0f} atom-steps/s); K5 vs K2 split "
         f"{k5['ms']:.4f} vs {k2_1m['k2_split_ms']:.4f} ms at 1M, {k5_97k['ms']:.4f} vs "
         f"{k2_97k['k2_split_ms']:.4f} ms at 97,556 atoms")
-    k5s, counts_grid_1m, grid_1m_ms = phase_grid_1m(device, tag, eq_1m)
+    k5s, counts_grid_1m, grid_1m_ms, k2g_1m = phase_grid_1m(device, tag, eq_1m)
     del eq_1m
     log(f"{smi}: 1M grid ms/step " + ", ".join(f"{p} {v:.4f}" for p, v in grid_1m_ms.items())
         + f" vs the dense 1M path {ms_1m:.4f}")
@@ -2892,14 +3064,17 @@ def main() -> None:
 
     paths = {"dense": main_counts, "straggler": s_counts, **counts_spill, **counts_thermo, **counts_grid,
              **counts_1m, **counts_water, **counts_auto, **counts_water_1m, **counts_grid_water, **counts_ens,
-             **counts_grid_1m, **counts_grid_water_1m}
+             **counts_grid_1m, **counts_grid_water_1m, **counts_c104}
     # The K5s paths (LJ) and the K5s-mol path: the streaming kernel's GHOST
     # modes, counted in streaming_kernel.LAUNCHES.
     k5s_paths = {p: c["cell_forces_streaming"] for p, c in {**counts_ens, **counts_grid_1m}.items()
                  if c["cell_forces_streaming"]}
     k5s_mol_paths = {p: c["cell_forces_streaming"] for p, c in counts_grid_water_1m.items()}
-    # The molecular paths' K5c, K2c-G and K5s-mol launches, and the K5s paths', count in their own rows.
-    mol_paths = {"cell_forces": set(counts_grid_water),
+    # The grid's LJ paths on the resident family: K2-G, counted in cell_kernel.LAUNCHES.
+    k2g_paths = {p: c["cell_forces"] for p, c in {**counts_grid, **counts_ens, **counts_grid_1m}.items()
+                 if c["cell_forces"]}
+    # The molecular paths' K5c, K2c-G and K5s-mol launches, and the K5s and K2-G paths', count in their own rows.
+    mol_paths = {"cell_forces": set(counts_grid_water) | set(k2g_paths),
                  "cell_forces_streaming": set(counts_auto) | set(counts_water_1m) | set(k5s_paths)
                  | set(k5s_mol_paths)}
     by_path = lambda name: {p: c[name] for p, c in paths.items()  # noqa: E731
@@ -2919,12 +3094,20 @@ def main() -> None:
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1158",
              launches=sum(by_path("cell_forces_streaming").values()),
              launches_by_path=by_path("cell_forces_streaming"), **k5,
-             **{f"n97556_{key}": value for key, value in k5_97k.items()}),
+             **{f"n97556_{key}": value for key, value in k5_97k.items()}, **c104_row),
         dict(name="cell_forces_streaming_mol", route="cuda", source="emdee_tpu_torch/csrc/cell_forces_streaming.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1417",
              launches=counts_auto["water_auto"]["cell_forces_streaming"],
              launches_by_path={p: c["cell_forces_streaming"] for p, c in {**counts_auto, **counts_water_1m}.items()},
              **k5c_row),
+        dict(name="cell_forces_ghost", route="cuda", source="emdee_tpu_torch/csrc/cell_forces.cu",
+             replaces="emdee_tpu/distributed/grid_sharded.py:629",
+             kernel_replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:597",
+             launches=sum(k2g_paths.values()), launches_by_path=k2g_paths,
+             max_abs_err=max(k2g_1m["max_abs_err"], *(r["max_abs_err"] for p, r in k2g_rows.items()
+                                                        if p != "resources")),
+             ms=k2g_1m["ms"], plain_ms=k2g_1m["plain_ms"], bound_ms=k2g_1m["bound_ms"], bound_by=k2g_1m["bound_by"],
+             library_ms=None, grid_1m_222_m36_auto=k2g_1m, **k2g_rows),
         dict(name="cell_forces_ghost_mol", route="cuda", source="emdee_tpu_torch/csrc/cell_forces.cu",
              replaces="emdee_tpu/distributed/grid_sharded.py:629",
              launches=counts_grid_water["grid_water_222"]["cell_forces"],

@@ -3,8 +3,9 @@
 At first use, `load()` compiles every `*.cu` file of this directory with
 `nvcc` for `sm_90a` — one `nvcc` per source, all started together; a source
 that declares `// emdee-build-parts: N` is compiled as N objects at once,
-with -DEMDEE_PART=0 … N−1, each holding some of its entry points — and
-links the objects into one shared library with a plain C interface, under
+with -DEMDEE_PART=0 … N−1, each holding some of its entry points and
+kernel variants — and links the objects into one shared library with a
+plain C interface, under
 `build/emdee_tpu_torch/` beside the package (git-ignored), named by a hash
 of the sources, headers and flags so that an edited source rebuilds.  Nothing
 beyond the CUDA toolkit is needed; a failed build raises with nvcc's
@@ -43,8 +44,8 @@ _SIGNATURES = {
     "emdee_cell_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                           _I, _I, _P, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                           _F, _I, _I, _P],
-    # uniform, energy, strag, out (int[4])
-    "emdee_cell_forces_attrs": [_I, _I, _I, _P],
+    # uniform, energy, strag, ghost, out (int[4])
+    "emdee_cell_forces_attrs": [_I, _I, _I, _I, _P],
     # pos, hs, tse, valid, q, aid, ids, mlj, mcs, kb, kr0, kr02, ne, neb,
     # alpha, rc, rc2_c, e_shift, f_shift, kc (0-d device tensors), f, e, w,
     # m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, coulomb,

@@ -36,10 +36,10 @@
 // Full shell, not half shell: each pair is evaluated from both sides, twice
 // the TPU kernel's pair work, in exchange for no atomics, no reaction buffer
 // and no fold.  Every centre's pairs go through `pair_force` and
-// `accumulate` in the order of the GHOST mode below (the full-shell kernel
-// the grid engine keeps), which skips only pairs at r² ≥ rc² too: the sums
-// are its sums bit for bit, and reproducible run to run (the engine's
-// determinism contract).
+// `accumulate` in the order of the old full-shell kernel (one block a
+// cell, a thread a centre slot: `cell_forces_kernel`, which K2c-G keeps),
+// which skips only pairs at r² ≥ rc² too: the sums are its sums bit for
+// bit, and reproducible run to run (the engine's determinism contract).
 //
 // Numerics: the TPU kernel's Horner form of the switched −r·dE/dr in r²,
 // tot = t12·pa(x) − t6·pb(x), with an exact IEEE 1/r² (no fast math, no
@@ -58,22 +58,22 @@
 // reaction fold.  Plain version: emdee_tpu_torch/neighbors/straggler_kernel.py
 // `grid_forces_plain`.
 //
-// GHOST (`cell_forces_kernel`, the grid-sharded engine's per-shard force
-// pass, in place of
+// GHOST (K2-G: `cell_lj_kernel` with GHOST, the grid-sharded engine's
+// per-shard force pass, in place of
 // emdee_tpu/distributed/grid_sharded.py `_local_forces_pallas` and the
 // energy pass of `_local_energy_pallas`, which run K2's half shell with
-// reaction ghosts and a reverse fold): one block a cell, a thread a centre
-// slot, every slot of every neighbour tested.  The block's neighbours come from a
-// shard's (mz+2, my+2, mx+2, C) ghost grid, stacked over the local shards,
-// whose positions carry NaN in empty slots (the validity mask).  The block
-// walks the same 27 cells in the same order, and takes the periodic shift
-// from the neighbour's GLOBAL cell index (the shard's offset plus the local
-// index), the raw ghost coordinates unshifted — so every displacement is
-// (x_i − x_j) − shift and the forces of any decomposition equal the
-// one-card LJ pass's bit for bit.  Full shell, so no reaction rows, no fold
-// and no second exchange.  Plain version:
+// reaction ghosts and a reverse fold): the LJ pass's design over the local
+// shards' own cells.  Its neighbours come from a shard's (mz+2, my+2,
+// mx+2, C) ghost grid, stacked over the local shards, whose positions carry
+// NaN in empty slots (the validity mask).  The warp walks the same 27
+// cells in the same order, and takes the periodic shift from the
+// neighbour's GLOBAL cell index (the shard's offset plus the local index),
+// the raw ghost coordinates unshifted — so every displacement is (x_i −
+// x_j) − shift and the forces of any decomposition equal the one-card LJ
+// pass's bit for bit.  Full shell, so no reaction rows, no fold and no
+// second exchange.  Plain version:
 // emdee_tpu_torch/neighbors/cell_kernel.py `ghost_forces_plain`.
-//
+
 // GHOST with COULOMB/EXCL (K2c-G: the molecular branches inside the grid's
 // per-shard pass, `_local_forces_pallas` :629-656 and `_local_energy_pallas`
 // :704-768 of grid_sharded.py), entered through
@@ -158,10 +158,10 @@ using emdee::Mol;
 using emdee::PairConsts;
 
 // GHOST geometry: local cells (mz, my, mx) per shard, the local shards'
-// grid (sy_n, sx_n after the leading z count), and the global coordinates
-// (bz, by, bx) of the first local shard.
+// grid (sy_n, sx_n after the leading z count), the global coordinates
+// (bz, by, bx) of the first local shard, and the number of local shards.
 struct Ghost {
-  int mz, my, mx, sy_n, sx_n, bz, by, bx;
+  int mz, my, mx, sy_n, sx_n, bz, by, bx, shards;
 };
 
 constexpr int kMaxMolCapacity = 1024;  // K2c: as the full-shell kernel
@@ -216,13 +216,13 @@ __device__ __forceinline__ void accumulate(float gf, float dvx, float dvy, float
   }
 }
 
-// The GHOST mode (K2-G, K2c-G): one block per own cell of the local
-// shards, one thread per centre slot (C rounded up to a warp; tail threads
-// only help stage).  The block walks the 27 neighbour cells of the ghost
+// K2c-G, the GHOST mode's molecular branches (per-atom parameters): one
+// block per own cell of the local shards, one thread per centre slot (C
+// rounded up to a warp; tail threads only help stage).  The block walks the 27 neighbour cells of the ghost
 // grid in the fixed (dz, dy, dx) order, stages each one's C slots in shared
 // memory, and every thread runs the pair term of its centre slot against
 // them in slot order.
-template <bool UNIFORM, bool ENERGY, bool COULOMB = false, bool EXCL = false>
+template <bool ENERGY, bool COULOMB, bool EXCL>
 __global__ void cell_forces_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz,
@@ -230,6 +230,7 @@ __global__ void cell_forces_kernel(
     float* __restrict__ fx, float* __restrict__ fy, float* __restrict__ fz,
     float* __restrict__ e_out, float* __restrict__ w_out,
     int m, int c, const float* __restrict__ box_ptr, PairConsts k, Ghost g, Mol mol) {
+  static_assert(COULOMB || EXCL, "the LJ GHOST mode (K2-G) is cell_lj_kernel's");
   extern __shared__ float smem[];
   const float box = *box_ptr;
   float* sx = smem;
@@ -237,9 +238,9 @@ __global__ void cell_forces_kernel(
   float* sz = sy + c;
   float* shs = sz + c;
   float* stse = shs + c;
-  float* sq = stse + c;  // the molecular fields (COULOMB or EXCL only)
+  float* sq = stse + c;  // the molecular fields
   int* said = reinterpret_cast<int*>(sq + c);
-  uint8_t* sv = reinterpret_cast<uint8_t*>((COULOMB || EXCL) ? reinterpret_cast<float*>(said + c) : sq);
+  uint8_t* sv = reinterpret_cast<uint8_t*>(said + c);
 
   const int cell = blockIdx.x;
   const int i = threadIdx.x;
@@ -267,10 +268,8 @@ __global__ void cell_forces_kernel(
     xi = px[in_own];
     yi = py[in_own];
     zi = pz[in_own];
-    if (!UNIFORM) {
-      hsi = hs[in_own];
-      tsei = tse[in_own];
-    }
+    hsi = hs[in_own];
+    tsei = tse[in_own];
   }
   float fxa = 0.f, fya = 0.f, fza = 0.f, ea = 0.f, wa = 0.f;
 
@@ -316,10 +315,8 @@ __global__ void cell_forces_kernel(
           sv[i] = !isnan(sx[i]);
           sy[i] = py[s];
           sz[i] = pz[s];
-          if (!UNIFORM) {
-            shs[i] = hs[s];
-            stse[i] = tse[s];
-          }
+          shs[i] = hs[s];
+          stse[i] = tse[s];
           if (COULOMB) sq[i] = mol.q[s];
           if (EXCL) said[i] = mol.aid[s];
         }
@@ -346,7 +343,7 @@ __global__ void cell_forces_kernel(
             }
           }
           float tot, esum;
-          const float gf = pair_force<UNIFORM, ENERGY, COULOMB, EXCL, false>(
+          const float gf = pair_force<false, ENERGY, COULOMB, EXCL, false>(
               r2, hsi, shs[j], tsei, stse[j], COULOMB ? dsf.kc * qi * sq[j] * csc : 0.f, ljsc, 0.f, 0.f, 0.f, k, dsf,
               tot, esum);
           accumulate<ENERGY>(gf, dvx, dvy, dvz, tot, esum, fxa, fya, fza, ea, wa);
@@ -365,13 +362,13 @@ __global__ void cell_forces_kernel(
   }
 }
 
-template <bool UNIFORM, bool ENERGY, bool COULOMB = false, bool EXCL = false>
+template <bool ENERGY, bool COULOMB, bool EXCL>
 void launch_ghost(const float* px, const float* py, const float* pz, const float* hs, const float* tse, float* fx,
                   float* fy, float* fz, float* e, float* w, int m, int c, const float* box, const PairConsts& k,
                   const Ghost& g, int blocks, const Mol& mol, cudaStream_t stream) {
   const int threads = ((c + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * ((COULOMB || EXCL) ? 7 : 5) * c + c;
-  cell_forces_kernel<UNIFORM, ENERGY, COULOMB, EXCL><<<blocks, threads, smem, stream>>>(
+  const size_t smem = sizeof(float) * 7 * c + c;
+  cell_forces_kernel<ENERGY, COULOMB, EXCL><<<blocks, threads, smem, stream>>>(
       px, py, pz, hs, tse, fx, fy, fz, e, w, m, c, box, k, g, mol);
 }
 
@@ -391,19 +388,30 @@ constexpr int kLjWarpWords = 6 * 32 + 4 * 27 + 32;
 
 // K2a/K2b/K3's pair pass.  Warp part · M³ + cell takes the live centres of
 // rank 32·part … 32·part + 31 of its cell (lane l the centre of rank
-// 32·part + l) and walks the 27 neighbour cells in the GHOST mode's
+// 32·part + l) and walks the 27 neighbour cells in `cell_forces_kernel`'s
 // (dz, dy, dx) order, 32 slots at a time.  It stages in shared memory, in
 // slot order, the chunk's live slots within the cutoff of the warp's
 // centre box (`near_box` at rc², the box shifted back by the cell's
 // periodic shift), and each lane runs the pair term on the staged entries
 // at r² < rc² (the self pair left out), in that order.  So a centre's pairs
-// go through `pair_force` and `accumulate` in the GHOST mode's order, and
+// go through `pair_force` and `accumulate` in that kernel's order, and
 // only pairs at r² ≥ rc², which it skips too, are left out: the sums are
 // its sums, bit for bit.  STRAG: then the ≤ Kn aux atoms that the (M², Kn)
 // table lists for the cell's pencil row, staged 32 at a time and added in
 // list order on min-imaged differences at the static box.  Part 0 also
 // writes the zeros of the empty slots.
-template <bool UNIFORM, bool ENERGY, bool STRAG>
+//
+// GHOST (K2-G, the grid's per-shard pass): the same walk over the local
+// shards' own cells (g.shards·mz·my·mx of them, their outputs in that
+// order), centres and neighbours read from the stacked (mz+2, my+2, mx+2,
+// C) ghost grids, a slot live where its x is not NaN (no valid mask).  The
+// per-warp table holds each neighbour's first ghost-grid slot and the
+// shift of its GLOBAL cell index (the shard's offset plus the local one),
+// ±box where that index leaves [0, M), as `cell_forces_kernel` takes it:
+// the raw ghost coordinates are the one-card state's, and each neighbour's
+// slots are those of the one-card neighbour cell with the one-card shift,
+// so the sums are the one-card pass's bit for bit on every decomposition.
+template <bool UNIFORM, bool ENERGY, bool STRAG, bool GHOST = false>
 __global__ void __launch_bounds__(kLjThreads, kLjMinBlocks)
     cell_lj_kernel(const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
                    int pstride, const float* __restrict__ hs, const float* __restrict__ tse,
@@ -411,16 +419,35 @@ __global__ void __launch_bounds__(kLjThreads, kLjMinBlocks)
                    float* __restrict__ fz, int fstride, float* __restrict__ e_out, float* __restrict__ w_out,
                    const float* __restrict__ ax, const float* __restrict__ ay, const float* __restrict__ az,
                    const int* __restrict__ table, int kn, int m, int c, const float* __restrict__ box_ptr,
-                   PairConsts k) {
+                   PairConsts k, Ghost g) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;  // the lanes before this one
   const int parts = (c + 31) / 32;
-  const long cells = static_cast<long>(m) * m * m;
+  const long cells = GHOST ? static_cast<long>(g.shards) * g.mz * g.my * g.mx : static_cast<long>(m) * m * m;
   const long item = static_cast<long>(blockIdx.x) * kLjWarps + warp;
   if (item >= cells * parts) return;  // no block barrier follows
   const int part = static_cast<int>(item / cells);  // part-major: a block's warps are all of one part
-  const long cell = item - part * cells;
+  const long cell = item - part * cells;  // the own cell, whose output slots are cell·C …
+  // The cell's global coordinates and its input cell (GHOST: its own cell
+  // of the ghost grid), whose slots hold its centres.
+  int cx, cy, cz;
+  long home = cell;
+  if constexpr (GHOST) {
+    const int lx = static_cast<int>(cell % g.mx), ly = static_cast<int>((cell / g.mx) % g.my);
+    const long r = cell / (static_cast<long>(g.mx) * g.my);
+    const int lz = static_cast<int>(r % g.mz), shard = static_cast<int>(r / g.mz);
+    cx = (g.bx + shard % g.sx_n) * g.mx + lx;
+    cy = (g.by + (shard / g.sx_n) % g.sy_n) * g.my + ly;
+    cz = (g.bz + shard / (g.sx_n * g.sy_n)) * g.mz + lz;
+    const long gbase = static_cast<long>(shard) * (g.mz + 2) * (g.my + 2) * (g.mx + 2);  // the shard's ghost cell 0
+    home = gbase + (static_cast<long>(lz + 1) * (g.my + 2) + ly + 1) * (g.mx + 2) + lx + 1;
+  }
+  // Whether input slot s holds an atom: the valid mask; GHOST: x not NaN.
+  auto live_at = [&](long s) -> bool {
+    if constexpr (GHOST) return !isnan(px[s * pstride]);
+    else return valid[s] != 0;
+  };
   float* tx = smem + warp * kLjWarpWords;  // the staged chunk, (5, 32) fields
   float* ty = tx + 32;
   float* tz = ty + 32;
@@ -435,7 +462,7 @@ __global__ void __launch_bounds__(kLjThreads, kLjMinBlocks)
   int n_live = 0;
   for (int a = 0; a < parts; ++a) {
     const int j = 32 * a + lane;
-    const bool live = j < c && valid[cell * c + j];
+    const bool live = j < c && live_at(home * c + j);
     const unsigned mask = __ballot_sync(kFull, live);
     const int r = n_live + __popc(mask & below) - 32 * part;
     if (live && r >= 0 && r < 32) cslot[r] = j;
@@ -448,26 +475,36 @@ __global__ void __launch_bounds__(kLjThreads, kLjMinBlocks)
   }
   const int n_mine = min(n_live - 32 * part, 32);
   if (n_mine <= 0) return;
-  const int cx = static_cast<int>(cell % m), cy = static_cast<int>((cell / m) % m), cz = static_cast<int>(cell / (m * m));
+  if constexpr (!GHOST) {
+    cx = static_cast<int>(cell % m);
+    cy = static_cast<int>((cell / m) % m);
+    cz = static_cast<int>(cell / (m * m));
+  }
   const float box = *box_ptr;
   if (lane < 27) {  // neighbour code (dz + 1)·9 + (dy + 1)·3 + dx + 1: its first slot, ±box where it wraps
     const int w[3] = {cx + lane % 3 - 1, cy + (lane / 3) % 3 - 1, cz + lane / 9 - 1};
 #pragma unroll
     for (int v = 0; v < 3; ++v) tsh[3 * lane + v] = w[v] < 0 ? -box : (w[v] >= m ? box : 0.f);
-    tnb[lane] = (((w[2] + m) % m * m + (w[1] + m) % m) * m + (w[0] + m) % m) * c;
+    if constexpr (GHOST) {
+      tnb[lane] = static_cast<int>((home + ((lane / 9 - 1) * (g.my + 2) + (lane / 3) % 3 - 1) * (g.mx + 2) +
+                                    lane % 3 - 1) * c);
+    } else {
+      tnb[lane] = (((w[2] + m) % m * m + (w[1] + m) % m) * m + (w[0] + m) % m) * c;
+    }
   }
   __syncwarp();
   const bool centre = lane < n_mine;
   const int si = centre ? cslot[lane] : -1;
-  const long own = cell * c + si;
+  const long own = cell * c + si;     // the centre's output slot
+  const long own_in = home * c + si;  // and its input slot
   float xi = 0.f, yi = 0.f, zi = 0.f, hsi = 0.f, tsei = 0.f;
   if (centre) {
-    xi = px[own * pstride];
-    yi = py[own * pstride];
-    zi = pz[own * pstride];
+    xi = px[own_in * pstride];
+    yi = py[own_in * pstride];
+    zi = pz[own_in * pstride];
     if (!UNIFORM) {
-      hsi = hs[own];
-      tsei = tse[own];
+      hsi = hs[own_in];
+      tsei = tse[own_in];
     }
   }
   // The centres' bounding box, on every lane.
@@ -497,7 +534,7 @@ __global__ void __launch_bounds__(kLjThreads, kLjMinBlocks)
       // Stage the chunk's live slots near the centre box, in slot order.
       const int j = j0 + lane;
       const long s = nb + min(j, c - 1);
-      const bool live = j < c && valid[s];
+      const bool live = j < c && live_at(s);
       const float p[3] = {px[s * pstride], py[s * pstride], pz[s * pstride]};
       const float h = UNIFORM ? 0.f : hs[s], t = UNIFORM ? 0.f : tse[s];
       const bool keep = live && emdee::near_box(p, lo, hi, back, k.rc2);
@@ -571,27 +608,33 @@ __global__ void __launch_bounds__(kLjThreads, kLjMinBlocks)
   }
 }
 
-// The K2a/K2b/K3 variant for these flags.
+// The K2a/K2b/K3 (GHOST: K2-G) variant for these flags.
 using LjKernel = void (*)(const float*, const float*, const float*, int, const float*, const float*, const uint8_t*,
                           float*, float*, float*, int, float*, float*, const float*, const float*, const float*,
-                          const int*, int, int, int, const float*, PairConsts);
+                          const int*, int, int, int, const float*, PairConsts, Ghost);
 
-LjKernel lj_variant(int uniform, int energy, int strag) {
+LjKernel lj_variant(int uniform, int energy, int strag, int ghost) {
   if (strag) return cell_lj_kernel<true, false, true>;
+  if (ghost) {
+    if (uniform) return energy ? cell_lj_kernel<true, true, false, true> : cell_lj_kernel<true, false, false, true>;
+    return energy ? cell_lj_kernel<false, true, false, true> : cell_lj_kernel<false, false, false, true>;
+  }
   if (uniform) return energy ? cell_lj_kernel<true, true, false> : cell_lj_kernel<true, false, false>;
   return energy ? cell_lj_kernel<false, true, false> : cell_lj_kernel<false, false, false>;
 }
 
 constexpr size_t kLjSmemBytes = sizeof(float) * kLjWarps * kLjWarpWords;
 
+// One launch over the g.shards·mz·my·mx own cells of `g` (one card: the
+// geometry (m, m, m, 1, 1, 0, 0, 0, 1) of one shard).
 int launch_lj(LjKernel kernel, const float* px, const float* py, const float* pz, int pstride, const float* hs,
               const float* tse, const uint8_t* valid, float* fx, float* fy, float* fz, int fstride, float* e,
               float* w, const float* ax, const float* ay, const float* az, const int* table, int kn, int m, int c,
-              const float* box, const PairConsts& k, void* stream) {
-  const long warps = static_cast<long>(m) * m * m * ((c + 31) / 32);
+              const float* box, const PairConsts& k, const Ghost& g, void* stream) {
+  const long warps = static_cast<long>(g.shards) * g.mz * g.my * g.mx * ((c + 31) / 32);
   const unsigned blocks = static_cast<unsigned>((warps + kLjWarps - 1) / kLjWarps);
   void* args[] = {&px, &py, &pz, &pstride, &hs, &tse, &valid, &fx, &fy, &fz, &fstride, &e, &w,
-                  &ax, &ay, &az, &table, &kn, &m, &c, &box, const_cast<PairConsts*>(&k)};
+                  &ax, &ay, &az, &table, &kn, &m, &c, &box, const_cast<PairConsts*>(&k), const_cast<Ghost*>(&g)};
   return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks), dim3(kLjThreads),
                                            args, kLjSmemBytes, static_cast<cudaStream_t>(stream)));
 }
@@ -868,15 +911,15 @@ extern "C" int emdee_cell_forces(
   if (m < 3 || c < 1 || c > 1024 || static_cast<long>(m) * m * m * c > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
-  return launch_lj(lj_variant(uniform, energy, 0), px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w,
-                   nullptr, nullptr, nullptr, nullptr, 0, m, c, box, k, stream);
+  return launch_lj(lj_variant(uniform, energy, 0, 0), px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e,
+                   w, nullptr, nullptr, nullptr, nullptr, 0, m, c, box, k, Ghost{m, m, m, 1, 1, 0, 0, 0, 1}, stream);
 }
 
-// The K2a/K2b/K3 variant these flags select, as the card reports it:
-// out[0..3] = registers a thread, local (spill) bytes a thread, shared
-// bytes a block, resident blocks an SM.  Launches nothing.
-extern "C" int emdee_cell_forces_attrs(int uniform, int energy, int strag, int* out) {
-  const void* kernel = reinterpret_cast<const void*>(lj_variant(uniform, energy, strag));
+// The K2a/K2b/K3 (`ghost`: K2-G) variant these flags select, as the card
+// reports it: out[0..3] = registers a thread, local (spill) bytes a
+// thread, shared bytes a block, resident blocks an SM.  Launches nothing.
+extern "C" int emdee_cell_forces_attrs(int uniform, int energy, int strag, int ghost, int* out) {
+  const void* kernel = reinterpret_cast<const void*>(lj_variant(uniform, energy, strag, ghost));
   cudaFuncAttributes fa;
   cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -951,13 +994,14 @@ extern "C" int emdee_cell_forces_strag(
   if (m < 3 || c < 1 || c > 1024 || kn < 1 || kn > 4096 || static_cast<long>(m) * m * m * c > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
-  return launch_lj(lj_variant(1, 0, 1), px, py, pz, 1, nullptr, nullptr, valid, fx, fy, fz, 1, nullptr, nullptr, ax,
-                   ay, az, table, kn, m, c, box, k, stream);
+  return launch_lj(lj_variant(1, 0, 1, 0), px, py, pz, 1, nullptr, nullptr, valid, fx, fy, fz, 1, nullptr, nullptr,
+                   ax, ay, az, table, kn, m, c, box, k, Ghost{m, m, m, 1, 1, 0, 0, 0, 1}, stream);
 }
 
-// The GHOST mode: the ghost grids of `shards` local shards, px … tse each
-// (shards, mz+2, my+2, mx+2, C) float32 with NaN positions in empty slots
-// (hs, tse unused with uniform parameters); outputs (shards, mz, my, mx, C).
+// The GHOST mode (K2-G): the ghost grids of `shards` local shards, px …
+// tse each (shards, mz+2, my+2, mx+2, C) float32 with NaN positions in
+// empty slots (hs, tse unused with uniform parameters); outputs (shards,
+// mz, my, mx, C).  One launch of `cell_lj_kernel`'s GHOST variant.
 extern "C" int emdee_cell_forces_ghost(
     const float* px, const float* py, const float* pz, const float* hs,
     const float* tse, float* fx, float* fy, float* fz, float* e, float* w,
@@ -966,20 +1010,13 @@ extern "C" int emdee_cell_forces_ghost(
     float a_m, float pa1, float pa2, float pb1, float pb2, float sig2_u,
     float eps4_u, int uniform, int energy, void* stream) {
   if (m < 3 || c < 1 || c > 1024 || mz < 1 || my < 1 || mx < 1 || shards < 1 ||
-      sy_n < 1 || sx_n < 1 || shards % (sy_n * sx_n) != 0)
+      sy_n < 1 || sx_n < 1 || shards % (sy_n * sx_n) != 0 ||
+      static_cast<long>(shards) * (mz + 2) * (my + 2) * (mx + 2) * c > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
-  const Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx};
-  const int blocks = shards * mz * my * mx;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define EMDEE_GHOST(UN, EN) \
-  launch_ghost<UN, EN>(px, py, pz, hs, tse, fx, fy, fz, e, w, m, c, box, k, g, blocks, Mol{}, s)
-  if (uniform && energy) EMDEE_GHOST(true, true);
-  else if (uniform) EMDEE_GHOST(true, false);
-  else if (energy) EMDEE_GHOST(false, true);
-  else EMDEE_GHOST(false, false);
-#undef EMDEE_GHOST
-  return static_cast<int>(cudaGetLastError());
+  const Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx, shards};
+  return launch_lj(lj_variant(uniform, energy, 0, 1), px, py, pz, 1, hs, tse, nullptr, fx, fy, fz, 1, e, w, nullptr,
+                   nullptr, nullptr, nullptr, 0, m, c, box, k, g, stream);
 }
 
 // The GHOST mode's molecular entry (K2c-G): the ghost grids as in
@@ -999,13 +1036,13 @@ extern "C" int emdee_cell_forces_ghost_mol(
       shards % (sy_n * sx_n) != 0 || (!coulomb && !excl) || (excl && (ne < 1 || ne > kMaxTags)))
     return static_cast<int>(cudaErrorInvalidValue);
   const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
-  const Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx};
+  const Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx, shards};
   const Mol mol{q, aid, ids, mlj, mcs, nullptr, nullptr, nullptr, excl ? ne : 0, 0,
                 alpha, rc, rc2_c, e_shift, f_shift, kc};
   const int blocks = shards * mz * my * mx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define EMDEE_GHOST_MOL(EN, CO, EX) \
-  launch_ghost<false, EN, CO, EX>(px, py, pz, hs, tse, fx, fy, fz, e, w, m, c, box, k, g, blocks, mol, s)
+  launch_ghost<EN, CO, EX>(px, py, pz, hs, tse, fx, fy, fz, e, w, m, c, box, k, g, blocks, mol, s)
   if (energy) {
     if (coulomb && excl) EMDEE_GHOST_MOL(true, true, true);
     else if (coulomb) EMDEE_GHOST_MOL(true, true, false);

@@ -28,9 +28,24 @@
 // and the reaction sums), one lane per step by shuffle, so after W steps
 // every lane has met every packet and each packet is back on its own lane
 // with −Σᵢ f_ij summed in a fixed order.  Capacities above 32 take a second
-// centre slot per lane and a second packet chunk, above 64 a third (C ≤ 96).
+// centre slot per lane and a second packet chunk, above 64 a third.
 // The tiles hold x, y, z (and σ/2, 2√ε with per-atom parameters): 3 KB a
 // warp with uniform parameters at C ≤ 64, 4.5 KB per atom.
+//
+// C > 96 (up to the resident family's 1024; the reference's streaming
+// kernel has no limit): every kernel of this file (K5, K5c, K5s, K5s-mol)
+// has a chunked variant (NA = kChunked).  A cell is compacted into
+// 96-entry chunks in slot order (`compact_chunks`), and a cell pair runs
+// as its chunk pairs, centre chunk p outer and neighbour chunk q inner,
+// each through the three-slot ring of `pair_tiles` with the cull per chunk
+// pair (`pair_chunks`), so the registers stay those of three slots a lane.
+// The centre and reaction rows stay (n_r, C) in shared memory and gather a
+// slot's sums over its chunk pairs in that fixed order: no float atomics,
+// bitwise reruns.  A warp's chunks take (2K + 2)·(NF + 1)·96 floats (K =
+// ⌈C/96⌉), so a block holds as many warps as its shared memory allows, at
+// most the kernel's usual count; only a C whose one warp (and, for the
+// pencil, its rows) does not fit is refused.  C ≤ 96 runs the three-slot
+// variants, whose sums the chunked code does not touch.
 //
 // No block barrier, no float atomics.  A warp walks all 14 phases of one
 // cell (a trial on this card against one phase a warp, K5c's form, is in
@@ -212,16 +227,20 @@
 // pairs inside the cutoff each pay an erfc, an exp, a square root and 3E
 // tag operations; chip_smoke.py counts them and gives the bound.
 
-// emdee-build-parts: 5
-// csrc/build.py compiles this file as five objects at once, to cut the
+// emdee-build-parts: 8
+// csrc/build.py compiles this file as eight objects at once, to cut the
 // build's wall time: EMDEE_PART 0 holds K5's entries and its variants, 1 K5c's
-// entries and force variants, 2 the GHOST entries and K5s-mol's force
-// variants, 3 K5c's energy variants, 4 K5s-mol's energy variants (each
-// part instantiates only its kernel variants); without EMDEE_PART the file
-// holds them all.
+// entries and force variants, 2 the GHOST entries, the K5s pencil's variants
+// and K5s-mol's force variants, 3 K5c's energy variants, 4 K5s-mol's energy
+// variants, and the chunked variants (C > 96) of the warp-owned kernel —
+// the costliest to compile — 5 K5c's without and 6 with energies, 7
+// K5s-mol's (each part instantiates only its kernel variants); without
+// EMDEE_PART the file holds them all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "lj_pair.cuh"
 
@@ -240,7 +259,13 @@ using emdee::PairConsts;
 constexpr int kWarps = 8;  // K5s: warps a pencil block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kGroups = 4;  // the half shell's row groups besides the own row
-constexpr int kMaxCapacity = 96;  // three centre slots per lane
+constexpr int kMaxCapacity = 1024;  // as the resident family (cell_forces.cu)
+// Above three centre slots a lane (C > 96) the variants take NA = kChunked:
+// a cell is compacted into kChunk-entry chunks, and a cell pair runs as its
+// chunk pairs, each through the three-slot ring.
+constexpr int kChunk = 96;
+constexpr int kChunked = 4;
+constexpr int kSmemBytes = 232448;  // shared memory a block can use on Hopper
 constexpr unsigned kFull = 0xffffffffu;
 // The row groups (dz, dy) in fold order; the own row (0, 0) comes last.
 __constant__ int kGroupDz[kGroups] = {0, 1, 1, 1};
@@ -280,11 +305,14 @@ struct OwnedVariant {
 };
 
 // K5c's and K5s-mol's variants without and with energies, each in its own
-// build part.
+// build part, and their chunked variants (C > 96), in three more.
 OwnedVariant k5c_force_variant(int c, int coulomb, int excl, int bond);
 OwnedVariant k5c_energy_variant(int c, int coulomb, int excl, int bond);
 OwnedVariant k5s_mol_force_variant(int c, int coulomb, int excl);
 OwnedVariant k5s_mol_energy_variant(int c, int coulomb, int excl);
+OwnedVariant k5c_chunked_force_variant(int coulomb, int excl, int bond);
+OwnedVariant k5c_chunked_energy_variant(int coulomb, int excl, int bond);
+OwnedVariant k5s_mol_chunked_variant(int energy, int coulomb, int excl);
 
 }  // namespace emdee
 
@@ -294,11 +322,14 @@ using emdee::Fields;
 using emdee::Ghost;
 
 // Entries of a warp's cell tile: 64 up to two centre slots a lane (the LJ
-// kernel's tile since K5), 96 with three.
+// kernel's tile since K5), 96 with three (and a chunk's with kChunked).
 template <int NA>
 __host__ __device__ constexpr int tile_entries() {
   return NA <= 2 ? 64 : 96;
 }
+
+// The chunks a cell of capacity C takes at kChunked.
+__host__ __device__ constexpr int chunks_of(int c) { return (c + kChunk - 1) / kChunk; }
 
 // A warp's compacted copy of one cell: the live slots' fields in slot
 // order at entries 0 … n−1 — x, y, z, then σ/2, 2√ε (NF ≥ 5; K5 with
@@ -322,6 +353,29 @@ __device__ __forceinline__ int wrap(int v, int m, const float* __restrict__ box,
   return v;
 }
 
+// Entry e of tile `t`: the fields of input slot s, slot j of its cell.
+template <int NT, int NF, bool UNIFORM>
+__device__ __forceinline__ void put_entry(const Fields& f, const Mol& mol, long s, int j, Tile<NT, NF>& t, int e) {
+  t.f[0][e] = f.px[s * f.pstride];
+  t.f[1][e] = f.py[s * f.pstride];
+  t.f[2][e] = f.pz[s * f.pstride];
+  if constexpr (!UNIFORM && NF >= 5) {
+    t.f[3][e] = f.hs[s];
+    t.f[4][e] = f.tse[s];
+  }
+  if constexpr (NF > 5) {
+    t.f[5][e] = mol.q ? mol.q[s] : 0.f;
+    t.f[6][e] = __int_as_float(mol.aid ? mol.aid[s] : -2);
+  }
+  t.slot[e] = j;
+}
+
+// Whether input slot s holds an atom: the valid mask, or (GHOST, no valid
+// mask) an x that is not NaN, as an empty ghost slot holds.
+__device__ __forceinline__ bool slot_live(const Fields& f, long s) {
+  return f.valid ? f.valid[s] != 0 : !isnan(f.px[s * f.pstride]);
+}
+
 // Compact cell `cell`'s live slots into `t` (ballot ranks, slot order);
 // returns their count.  The caller brackets it with warp barriers.  Without
 // a valid mask (the ghost grids), a slot is live where its x is not NaN.
@@ -333,23 +387,30 @@ __device__ __forceinline__ int compact(const Fields& f, const Mol& mol, long cel
   for (int a = 0; a < NA; ++a) {
     const int j = 32 * a + lane;
     const long s = cell * c + j;
-    // GHOST (no valid mask): an empty ghost slot holds NaN coordinates.
-    const bool live = j < c && (f.valid ? f.valid[s] != 0 : !isnan(f.px[s * f.pstride]));
+    const bool live = j < c && slot_live(f, s);
+    const unsigned mask = __ballot_sync(kFull, live);
+    if (live) put_entry<NT, NF, UNIFORM>(f, mol, s, j, t, n + __popc(mask & ((1u << lane) - 1u)));
+    n += __popc(mask);
+  }
+  return n;
+}
+
+// `compact` at C > 96: the live slots into the chunks t[0], t[1], … in
+// slot order (entry e at t[e / 96], index e % 96), 32 slots at a time;
+// returns their count.  The caller brackets it with warp barriers.
+template <int NF, bool UNIFORM>
+__device__ __forceinline__ int compact_chunks(const Fields& f, const Mol& mol, long cell, int c,
+                                              Tile<kChunk, NF>* t) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;
+  for (int j0 = 0; j0 < c; j0 += 32) {
+    const int j = j0 + lane;
+    const long s = cell * c + j;
+    const bool live = j < c && slot_live(f, s);
     const unsigned mask = __ballot_sync(kFull, live);
     if (live) {
       const int e = n + __popc(mask & ((1u << lane) - 1u));
-      t.f[0][e] = f.px[s * f.pstride];
-      t.f[1][e] = f.py[s * f.pstride];
-      t.f[2][e] = f.pz[s * f.pstride];
-      if constexpr (!UNIFORM && NF >= 5) {
-        t.f[3][e] = f.hs[s];
-        t.f[4][e] = f.tse[s];
-      }
-      if constexpr (NF > 5) {
-        t.f[5][e] = mol.q ? mol.q[s] : 0.f;
-        t.f[6][e] = __int_as_float(mol.aid ? mol.aid[s] : -2);
-      }
-      t.slot[e] = j;
+      put_entry<kChunk, NF, UNIFORM>(f, mol, s, j, t[e / kChunk], e % kChunk);
     }
     n += __popc(mask);
   }
@@ -459,10 +520,12 @@ __device__ __forceinline__ int cull(const Tile<NT, NF>& src, int n, Tile<NT, NF>
 // reaction sums go to row[k·mr + nx·C + j].  With CULL (K5, K5c), the pair
 // first drops the entries beyond the cutoff of the other cell's bounding
 // box: the centres kept go to `work` (which may be `src`), the neighbours
-// kept stay in `tn`.  Without REACT (the self cell) tn is src.  The tiles
-// hold NF fields (`Tile`).
+// kept stay in `tn`.  Without REACT (the self cell) tn is src, and the
+// self pair is skipped (SKIP_SELF; the off-diagonal chunk pairs of a self
+// cell at C > 96 pair two chunks of one cell without it).  The tiles hold
+// NF fields (`Tile`).
 template <int NA, bool UNIFORM, bool ENERGY, bool REACT, bool COULOMB, bool EXCL, bool BOND, bool CULL, int NT,
-          int NF>
+          int NF, bool SKIP_SELF = !REACT>
 __device__ __forceinline__ void pair_tiles(const Mol& mol, const Dsf& dsf, float cut2, long tag_cell, int c, int x,
                                            int nx, float shx, float shy, float shz, int mc, int mr, float* cen_acc,
                                            float* row, const Tile<NT, NF>& src, int n_cen, Tile<NT, NF>& work,
@@ -534,7 +597,7 @@ __device__ __forceinline__ void pair_tiles(const Mol& mol, const Dsf& dsf, float
 #pragma unroll
       for (int a = 0; a < NA; ++a) {
         // The self pair (same cell, same slot) meets its own packet at step 0.
-        if (!REACT && a == b && step == 0) continue;
+        if (SKIP_SELF && a == b && step == 0) continue;
         if (!vi[a]) continue;
         const float dvx = (xi[a] - nxp) - shx;
         const float dvy = (yi[a] - nyp) - shy;
@@ -665,6 +728,73 @@ __device__ __forceinline__ void cell_pair(const Fields& f, const Mol& mol, const
                                                                     n_nb, tags, k);
 }
 
+// `pair_tiles` at C > 96: all pairs of a centre cell's chunks `cen` (n_cen
+// live entries) with a neighbour cell's chunks `nbc` (n_nb), a centre
+// chunk p at a time and, within it, a neighbour chunk q at a time, each
+// chunk pair through the three-slot ring in that fixed order; its centre
+// and reaction sums are added to the shared rows, so a slot's sums gather
+// over its chunk pairs in that order.  With the cull (REACT), chunk q is
+// first copied to `nw`, since the cull compacts its neighbours in place,
+// and the centres kept go to `work`.  The self cell (!REACT, nbc = cen)
+// skips the self pair in its diagonal chunk pairs only.
+template <bool UNIFORM, bool ENERGY, bool REACT, bool COULOMB, bool EXCL, bool BOND, bool CULL, int NF>
+__device__ __forceinline__ void pair_chunks(const Mol& mol, const Dsf& dsf, float cut2, long tag_cell, int c, int x,
+                                            int nx, float shx, float shy, float shz, int mc, int mr, float* cen_acc,
+                                            float* row, Tile<kChunk, NF>* cen, int n_cen, Tile<kChunk, NF>* nbc,
+                                            int n_nb, Tile<kChunk, NF>& work, Tile<kChunk, NF>& nw, float* tags,
+                                            const PairConsts& k) {
+  const int lane = threadIdx.x & 31;
+  for (int p = 0; p * kChunk < n_cen; ++p) {
+    const int np = min(n_cen - p * kChunk, kChunk);
+    for (int q = 0; q * kChunk < n_nb; ++q) {
+      const int nq = min(n_nb - q * kChunk, kChunk);
+      __syncwarp();  // the previous chunk pair's reads and sums are done
+      if constexpr (!REACT) {
+        if (p == q) {
+          pair_tiles<3, UNIFORM, ENERGY, false, COULOMB, EXCL, BOND, false>(
+              mol, dsf, cut2, tag_cell, c, x, nx, shx, shy, shz, mc, mr, cen_acc, row, cen[p], np, cen[p], cen[p],
+              np, tags, k);
+          continue;
+        }
+      }
+      Tile<kChunk, NF>* tn = nbc + q;
+      if constexpr (CULL && REACT) {
+        for (int e = lane; e < nq; e += 32) {
+#pragma unroll
+          for (int v = 0; v < NF; ++v) nw.f[v][e] = nbc[q].f[v][e];
+          nw.slot[e] = nbc[q].slot[e];
+        }
+        __syncwarp();
+        tn = &nw;
+      }
+      pair_tiles<3, UNIFORM, ENERGY, REACT, COULOMB, EXCL, BOND, CULL, kChunk, NF, false>(
+          mol, dsf, cut2, tag_cell, c, x, nx, shx, shy, shz, mc, mr, cen_acc, row, cen[p], np, work, *tn, nq, tags,
+          k);
+    }
+  }
+}
+
+// `cell_pair` at C > 96: both cells compacted into chunks, the centre's at
+// ch[0 … K), the neighbour's at ch[K … 2K) (K = ⌈C/96⌉; the self cell uses
+// the first only), then `pair_chunks` with the work tiles ch[2K] and
+// ch[2K + 1].
+template <bool UNIFORM, bool ENERGY, bool REACT, bool COULOMB, bool EXCL, bool BOND, bool CULL = false, int NF>
+__device__ __forceinline__ void cell_pair_chunks(const Fields& f, const Mol& mol, const Dsf& dsf, float cut2,
+                                                 long cen, long nb, long tag_cell, int c, int x, int nx, float shx,
+                                                 float shy, float shz, int mc, int mr, float* cen_acc, float* row,
+                                                 Tile<kChunk, NF>* ch, float* tags, const PairConsts& k) {
+  const int nch = chunks_of(c);
+  Tile<kChunk, NF>* tc = ch;
+  Tile<kChunk, NF>* tn = REACT ? ch + nch : ch;
+  __syncwarp();  // the previous cell pair's reads of the tiles are done
+  const int n_cen = compact_chunks<NF, UNIFORM>(f, mol, cen, c, tc);
+  const int n_nb = REACT ? compact_chunks<NF, UNIFORM>(f, mol, nb, c, tn) : n_cen;
+  __syncwarp();
+  pair_chunks<UNIFORM, ENERGY, REACT, COULOMB, EXCL, BOND, CULL, NF>(mol, dsf, cut2, tag_cell, c, x, nx, shx, shy,
+                                                                      shz, mc, mr, cen_acc, row, tc, n_cen, tn, n_nb,
+                                                                      ch[2 * nch], ch[2 * nch + 1], tags, k);
+}
+
 // K5c: kOwnedWarps warps a block, each owning one (part, centre cell).
 constexpr int kOwnedWarps = 4;
 constexpr int kOwnedThreads = 32 * kOwnedWarps;
@@ -677,9 +807,11 @@ __constant__ int kOffDy[kOffsets] = {1, 1, 1, -1, -1, -1, 0, 0, 0, 1, 1, 1, 0};
 __constant__ int kOffDx[kOffsets] = {-1, 0, 1, -1, 0, 1, -1, 0, 1, -1, 0, 1, 1};
 
 // Floats of one K5c warp's shared memory: its two tiles (7 fields and the
-// slot), its staged tags, and its centre and reaction rows (n_r, C).
-__host__ __device__ constexpr int owned_warp_floats(int nt, int ne, int neb, int nr, int c) {
-  return 2 * (7 + 1) * nt + tag_floats(nt, ne, neb) + 2 * nr * c;
+// slot), its staged tags, and its centre and reaction rows (n_r, C).  At
+// C > 96 (`nch` = K chunks a cell) the two cells' chunks and the two work
+// tiles of `pair_chunks` in place of the two tiles.
+__host__ __device__ constexpr int owned_warp_floats(int nt, int ne, int neb, int nr, int c, int nch = 0) {
+  return (nch ? 2 * nch + 2 : 2) * (7 + 1) * nt + tag_floats(nt, ne, neb) + 2 * nr * c;
 }
 
 // The periodic shift of a neighbour at global cell coordinate v.
@@ -696,22 +828,28 @@ __device__ __forceinline__ float ghost_shift(int v, int m, const float* __restri
 // centres and neighbours are read from the shards' ghost grids, the shift
 // comes from the neighbour's global cell index, and a reaction slice spans
 // the ghost grids, n_g = shards·(mz+2)(my+2)(mx+2)·C; the centre tags are
-// per own slot.
+// per own slot.  NA = kChunked (C > 96): each cell pair by its chunk
+// pairs (`cell_pair_chunks`), blockDim.x / 32 warps a block, as many as a
+// block's shared memory holds, at most kOwnedWarps; shared memory then
+// holds at most eight of its warps an SM, so it asks its registers for two
+// blocks an SM (255 a thread) where the others ask for four (128).
 template <int NA, bool ENERGY, bool COULOMB, bool EXCL, bool BOND, bool GHOST>
-__global__ void __launch_bounds__(kOwnedThreads, 4)
+__global__ void __launch_bounds__(kOwnedThreads, NA == kChunked ? 2 : 4)
     streaming_owned_kernel(Fields f, Mol mol, float* __restrict__ slices, Ghost g, int shards, int m, int c,
                            const float* __restrict__ box_ptr, PairConsts k) {
   constexpr int NR = ENERGY ? 5 : 3;
   constexpr int NT = tile_entries<NA>();
+  constexpr bool CHUNKED = NA == kChunked;
   using TileT = Tile<NT, 7>;
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long cells = static_cast<long>(shards) * g.mz * g.my * g.mx;
-  const long item = static_cast<long>(blockIdx.x) * kOwnedWarps + warp;
+  const long item = static_cast<long>(blockIdx.x) * (CHUNKED ? blockDim.x >> 5 : kOwnedWarps) + warp;
   if (item >= cells * kPhases) return;  // no block barrier follows
-  float* mine = smem + warp * owned_warp_floats(NT, mol.ne, mol.neb, NR, c);
+  const int nch = CHUNKED ? chunks_of(c) : 0;
+  float* mine = smem + warp * owned_warp_floats(NT, mol.ne, mol.neb, NR, c, nch);
   TileT* tiles = reinterpret_cast<TileT*>(mine);
-  float* tags = reinterpret_cast<float*>(tiles + 2);
+  float* tags = reinterpret_cast<float*>(tiles + (CHUNKED ? 2 * nch + 2 : 2));
   float* cen = tags + tag_floats(NT, mol.ne, mol.neb);  // (NR, C) centre sums
   float* react = cen + NR * c;                          // (NR, C) the offset's reactions
   const int ph = static_cast<int>(item / cells);
@@ -733,8 +871,12 @@ __global__ void __launch_bounds__(kOwnedThreads, 4)
   const long home = GHOST ? gbase + (static_cast<long>(z + 1) * gy + y + 1) * gx + x + 1 : cell;
   for (int t = lane; t < NR * c; t += 32) cen[t] = react[t] = 0.f;  // cell_pair's first __syncwarp orders these
   if (ph == 0) {  // the self cell: every ordered pair, no reaction
-    cell_pair<NA, false, ENERGY, false, COULOMB, EXCL, BOND, true>(f, mol, dsf, cut2, home, home, cell, c, 0, 0, 0.f,
-                                                                    0.f, 0.f, c, c, cen, react, tiles, tags, k);
+    if constexpr (CHUNKED)
+      cell_pair_chunks<false, ENERGY, false, COULOMB, EXCL, BOND>(f, mol, dsf, cut2, home, home, cell, c, 0, 0, 0.f,
+                                                                   0.f, 0.f, c, c, cen, react, tiles, tags, k);
+    else
+      cell_pair<NA, false, ENERGY, false, COULOMB, EXCL, BOND, true>(f, mol, dsf, cut2, home, home, cell, c, 0, 0,
+                                                                      0.f, 0.f, 0.f, c, c, cen, react, tiles, tags, k);
   } else {
     const int o = ph - 1;
     float shx, shy, shz;
@@ -754,8 +896,12 @@ __global__ void __launch_bounds__(kOwnedThreads, 4)
       const int nz = wrap(z + kOffDz[o], m, box_ptr, shz);
       nb = (static_cast<long>(nz) * m + ny) * m + nx;
     }
-    cell_pair<NA, false, ENERGY, true, COULOMB, EXCL, BOND, true>(f, mol, dsf, cut2, home, nb, cell, c, 0, 0, shx,
-                                                                   shy, shz, c, c, cen, react, tiles, tags, k);
+    if constexpr (CHUNKED)
+      cell_pair_chunks<false, ENERGY, true, COULOMB, EXCL, BOND, true>(f, mol, dsf, cut2, home, nb, cell, c, 0, 0,
+                                                                       shx, shy, shz, c, c, cen, react, tiles, tags, k);
+    else
+      cell_pair<NA, false, ENERGY, true, COULOMB, EXCL, BOND, true>(f, mol, dsf, cut2, home, nb, cell, c, 0, 0, shx,
+                                                                     shy, shz, c, c, cen, react, tiles, tags, k);
     __syncwarp();
     float* out = slices + static_cast<long>(kPhases) * NR * ns + static_cast<long>(o) * NR * ng + nb * c;
     for (int t = lane; t < NR * c; t += 32) __stcs(out + (t / c) * ng + t % c, react[t]);
@@ -799,14 +945,23 @@ constexpr bool kLjCull = true;
 
 // Floats of one K5 warp's shared memory: its three tiles (NF fields and the
 // slot: its cell compacted once, the centres a phase's cull keeps, the
-// phase's neighbour cell) and its centre and reaction rows (n_r, C).
-__host__ __device__ constexpr int lj_warp_floats(int nt, int nf, int nr, int c) { return 3 * (nf + 1) * nt + 2 * nr * c; }
+// phase's neighbour cell) and its centre and reaction rows (n_r, C).  At
+// C > 96 (`nch` = K chunks a cell) its cell's chunks and a phase's
+// neighbour's, and the two work tiles of `pair_chunks`, in place of the
+// three tiles.
+__host__ __device__ constexpr int lj_warp_floats(int nt, int nf, int nr, int c, int nch = 0) {
+  return (nch ? 2 * nch + 2 : 3) * (nf + 1) * nt + 2 * nr * c;
+}
 
 // The LJ pair pass (K5): warp w of the grid walks the 14 phases of centre
 // cell w.  Its centre sums gather in its shared row over the phases and go
 // to slice 0, (n_r, M³·C) at the cell's own slots; phase 1 + k's reactions
 // go to slice 1 + k at the neighbour's slots, every slot of that cell.  The
-// tiles hold x, y, z (and σ/2, 2√ε without UNIFORM).
+// tiles hold x, y, z (and σ/2, 2√ε without UNIFORM).  NA = kChunked (C >
+// 96): the cell is compacted once into chunks and each phase runs chunk
+// pair by chunk pair (`pair_chunks`, the cull per chunk pair);
+// blockDim.x / 32 warps a block, as many as a block's shared memory
+// holds, at most kLjWarps.
 template <int NA, bool UNIFORM, bool ENERGY>
 __global__ void __launch_bounds__(kLjThreads, NA == 1 ? kLjMinBlocks : kLjMinBlocks / 2)
     streaming_lj_kernel(Fields f, float* __restrict__ slices, int m, int c, const float* __restrict__ box_ptr,
@@ -814,28 +969,39 @@ __global__ void __launch_bounds__(kLjThreads, NA == 1 ? kLjMinBlocks : kLjMinBlo
   constexpr int NR = ENERGY ? 5 : 3;
   constexpr int NT = tile_entries<NA>();
   constexpr int NF = UNIFORM ? 3 : 5;
+  constexpr bool CHUNKED = NA == kChunked;
   using TileT = Tile<NT, NF>;
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long cells = static_cast<long>(m) * m * m;
-  const long cell = static_cast<long>(blockIdx.x) * kLjWarps + warp;
+  const long cell = static_cast<long>(blockIdx.x) * (CHUNKED ? blockDim.x >> 5 : kLjWarps) + warp;
   if (cell >= cells) return;  // no block barrier follows
-  TileT* tiles = reinterpret_cast<TileT*>(smem + warp * lj_warp_floats(NT, NF, NR, c));
-  TileT& own = tiles[0];   // the centre cell, compacted once
+  const int nch = CHUNKED ? chunks_of(c) : 0;
+  TileT* tiles = reinterpret_cast<TileT*>(smem + warp * lj_warp_floats(NT, NF, NR, c, nch));
+  TileT& own = tiles[0];   // the centre cell, compacted once (at C > 96 its K chunks)
   TileT& kept = tiles[1];  // the centres a phase's cull keeps
-  TileT& nbt = tiles[2];   // the phase's neighbour cell
-  float* cen = reinterpret_cast<float*>(tiles + 3);  // (NR, C) centre sums
-  float* react = cen + NR * c;                       // (NR, C) a phase's reactions
+  TileT& nbt = CHUNKED ? tiles[nch] : tiles[2];  // the phase's neighbour cell (K chunks)
+  float* cen = reinterpret_cast<float*>(tiles + (CHUNKED ? 2 * nch + 2 : 3));  // (NR, C) centre sums
+  float* react = cen + NR * c;                                                  // (NR, C) a phase's reactions
   const long ns = cells * c;
   const int x = static_cast<int>(cell % m), y = static_cast<int>((cell / m) % m), z = static_cast<int>(cell / m / m);
   const Mol mol{};
   const Dsf dsf{};
   for (int t = lane; t < NR * c; t += 32) cen[t] = 0.f;
-  const int n_own = compact<NA, NT, NF, UNIFORM>(f, mol, cell, c, own);
+  int n_own;
+  if constexpr (CHUNKED)
+    n_own = compact_chunks<NF, UNIFORM>(f, mol, cell, c, tiles);
+  else
+    n_own = compact<NA, NT, NF, UNIFORM>(f, mol, cell, c, own);
   __syncwarp();
   // Phase 0, the self cell: every ordered pair, no reaction.
-  pair_tiles<NA, UNIFORM, ENERGY, false, false, false, false, false>(
-      mol, dsf, k.rc2, cell, c, 0, 0, 0.f, 0.f, 0.f, c, c, cen, react, own, n_own, own, own, n_own, nullptr, k);
+  if constexpr (CHUNKED)
+    pair_chunks<UNIFORM, ENERGY, false, false, false, false, false, NF>(
+        mol, dsf, k.rc2, cell, c, 0, 0, 0.f, 0.f, 0.f, c, c, cen, react, tiles, n_own, tiles, n_own,
+        tiles[2 * nch], tiles[2 * nch + 1], nullptr, k);
+  else
+    pair_tiles<NA, UNIFORM, ENERGY, false, false, false, false, false>(
+        mol, dsf, k.rc2, cell, c, 0, 0, 0.f, 0.f, 0.f, c, c, cen, react, own, n_own, own, own, n_own, nullptr, k);
   for (int o = 0; o < kOffsets; ++o) {  // phase 1 + o
     float shx, shy, shz;
     const int nx = wrap(x + kOffDx[o], m, box_ptr, shx);
@@ -844,10 +1010,19 @@ __global__ void __launch_bounds__(kLjThreads, NA == 1 ? kLjMinBlocks : kLjMinBlo
     const long nb = (static_cast<long>(nz) * m + ny) * m + nx;
     for (int t = lane; t < NR * c; t += 32) react[t] = 0.f;
     __syncwarp();  // the previous phase's reads of the tiles are done
-    const int n_nb = compact<NA, NT, NF, UNIFORM>(f, mol, nb, c, nbt);
+    int n_nb;
+    if constexpr (CHUNKED)
+      n_nb = compact_chunks<NF, UNIFORM>(f, mol, nb, c, &nbt);
+    else
+      n_nb = compact<NA, NT, NF, UNIFORM>(f, mol, nb, c, nbt);
     __syncwarp();
-    pair_tiles<NA, UNIFORM, ENERGY, true, false, false, false, kLjCull>(
-        mol, dsf, k.rc2, cell, c, 0, 0, shx, shy, shz, c, c, cen, react, own, n_own, kept, nbt, n_nb, nullptr, k);
+    if constexpr (CHUNKED)
+      pair_chunks<UNIFORM, ENERGY, true, false, false, false, kLjCull, NF>(
+          mol, dsf, k.rc2, cell, c, 0, 0, shx, shy, shz, c, c, cen, react, tiles, n_own, &nbt, n_nb,
+          tiles[2 * nch], tiles[2 * nch + 1], nullptr, k);
+    else
+      pair_tiles<NA, UNIFORM, ENERGY, true, false, false, false, kLjCull>(
+          mol, dsf, k.rc2, cell, c, 0, 0, shx, shy, shz, c, c, cen, react, own, n_own, kept, nbt, n_nb, nullptr, k);
     __syncwarp();
     float* out = slices + static_cast<long>(1 + o) * NR * ns + nb * c;
     for (int t = lane; t < NR * c; t += 32) __stcs(out + (t / c) * ns + t % c, react[t]);
@@ -893,13 +1068,16 @@ __constant__ int kSliceDy[kGroups + 1] = {0, 1, -1, 0, 1};
 // shards, centres and neighbours read from the shards' ghost grids.  The
 // centre sums go to out (NR, shards·mz·my·mx·C); each group's reaction row,
 // (mx+2)·C wide, to its slice of groups (5, NR, pencils, (mx+2)·C) at the
-// block's own pencil.
+// block's own pencil.  NA = kChunked (C > 96): each cell pair by its chunk
+// pairs (`cell_pair_chunks`), blockDim.x / 32 warps a block, as many as a
+// block's shared memory holds beside the rows, at most kWarps.
 template <int NA, bool UNIFORM, bool ENERGY>
 __global__ void __launch_bounds__(kThreads)
     streaming_ghost_kernel(Fields f, float* __restrict__ out, float* __restrict__ groups, Ghost g, int m, int c,
                            const float* __restrict__ box_ptr, PairConsts k) {
   constexpr int NR = ENERGY ? 5 : 3;
   constexpr int NT = tile_entries<NA>();
+  constexpr bool CHUNKED = NA == kChunked;
   using TileT = Tile<NT, 5>;
   extern __shared__ float smem[];
   const int gy = g.my + 2, gx = g.mx + 2;
@@ -908,7 +1086,10 @@ __global__ void __launch_bounds__(kThreads)
   float* cen_acc = smem;        // (NR, mx·C) centre sums of this pencil
   float* row = smem + NR * mc;  // (NR, (mx+2)·C) one group's reaction row
   const int warp = threadIdx.x >> 5;
-  TileT* tiles = reinterpret_cast<TileT*>(smem + NR * (mc + mr)) + 2 * warp;  // this warp's two
+  const int warps = CHUNKED ? blockDim.x >> 5 : kWarps;
+  const int threads = CHUNKED ? blockDim.x : kThreads;
+  // This warp's tiles: two, or at C > 96 its chunks and work tiles.
+  TileT* tiles = reinterpret_cast<TileT*>(smem + NR * (mc + mr)) + (CHUNKED ? 2 * chunks_of(c) + 2 : 2) * warp;
   const int pencil = blockIdx.x;
   const int ly = pencil % g.my, lz = (pencil / g.my) % g.mz, s = pencil / (g.my * g.mz);
   // Global cell coordinates of the pencil (z, y) and of its x = 0.
@@ -923,14 +1104,20 @@ __global__ void __launch_bounds__(kThreads)
   const Dsf dsf{};
   const float cut2 = k.rc2;
 
-  for (int t = threadIdx.x; t < NR * (mc + mr); t += kThreads) smem[t] = 0.f;
+  for (int t = threadIdx.x; t < NR * (mc + mr); t += threads) smem[t] = 0.f;
   __syncthreads();
 
   // Self cell: every ordered pair, no reaction.
-  for (int x = warp; x < g.mx; x += kWarps)
-    cell_pair<NA, UNIFORM, ENERGY, false, false, false, false>(f, mol, dsf, cut2, cen_row + x, cen_row + x,
-                                                                own_row + x, c, x, x, 0.f, 0.f, 0.f, mc, mr,
-                                                                cen_acc, row, tiles, nullptr, k);
+  for (int x = warp; x < g.mx; x += warps) {
+    if constexpr (CHUNKED)
+      cell_pair_chunks<UNIFORM, ENERGY, false, false, false, false>(f, mol, dsf, cut2, cen_row + x, cen_row + x,
+                                                                     own_row + x, c, x, x, 0.f, 0.f, 0.f, mc, mr,
+                                                                     cen_acc, row, tiles, nullptr, k);
+    else
+      cell_pair<NA, UNIFORM, ENERGY, false, false, false, false>(f, mol, dsf, cut2, cen_row + x, cen_row + x,
+                                                                  own_row + x, c, x, x, 0.f, 0.f, 0.f, mc, mr,
+                                                                  cen_acc, row, tiles, nullptr, k);
+  }
 
   for (int gi = 0; gi <= kGroups; ++gi) {
     const bool own = gi == kGroups;  // the own row (0, 0): dx = +1 only
@@ -939,25 +1126,31 @@ __global__ void __launch_bounds__(kThreads)
     const float shy = ghost_shift(cy + dy, m, box_ptr);
     const long nrow = gbase + (static_cast<long>(lz + 1 + dz) * gy + ly + 1 + dy) * gx;  // ghost column 0
     for (int dx = own ? 1 : -1; dx <= 1; ++dx) {
-      for (int x = warp; x < g.mx; x += kWarps) {
+      for (int x = warp; x < g.mx; x += warps) {
         const float shx = ghost_shift(cx0 + x + dx, m, box_ptr);
-        cell_pair<NA, UNIFORM, ENERGY, true, false, false, false>(f, mol, dsf, cut2, cen_row + x,
-                                                                   nrow + x + 1 + dx, own_row + x, c, x,
-                                                                   x + 1 + dx, shx, shy, shz, mc, mr, cen_acc,
-                                                                   row, tiles, nullptr, k);
+        if constexpr (CHUNKED)
+          cell_pair_chunks<UNIFORM, ENERGY, true, false, false, false>(f, mol, dsf, cut2, cen_row + x,
+                                                                        nrow + x + 1 + dx, own_row + x, c, x,
+                                                                        x + 1 + dx, shx, shy, shz, mc, mr, cen_acc,
+                                                                        row, tiles, nullptr, k);
+        else
+          cell_pair<NA, UNIFORM, ENERGY, true, false, false, false>(f, mol, dsf, cut2, cen_row + x,
+                                                                     nrow + x + 1 + dx, own_row + x, c, x,
+                                                                     x + 1 + dx, shx, shy, shz, mc, mr, cen_acc,
+                                                                     row, tiles, nullptr, k);
       }
       __syncthreads();
     }
     const int slice = own ? 0 : gi + 1;
     float* dst = groups + (static_cast<long>(slice) * NR * gridDim.x + pencil) * mr;
-    for (int t = threadIdx.x; t < NR * mr; t += kThreads) {
+    for (int t = threadIdx.x; t < NR * mr; t += threads) {
       dst[static_cast<long>(t / mr) * gridDim.x * mr + t % mr] = row[t];
       row[t] = 0.f;
     }
     __syncthreads();
   }
 
-  for (int t = threadIdx.x; t < NR * mc; t += kThreads) out[(t / mc) * n_own + own_row * c + t % mc] = cen_acc[t];
+  for (int t = threadIdx.x; t < NR * mc; t += threads) out[(t / mc) * n_own + own_row * c + t % mc] = cen_acc[t];
 }
 
 // The GHOST assembly: one thread per slot of the shards' ghost grids.  An
@@ -1042,25 +1235,46 @@ __global__ void owned_ghost_assemble_kernel(float* __restrict__ out, const float
   }
 }
 
-int centre_slots(int c) { return c <= 32 ? 1 : (c <= 64 ? 2 : 3); }
+int centre_slots(int c) { return c <= 32 ? 1 : (c <= 64 ? 2 : (c <= 96 ? 3 : kChunked)); }
 
-// K5c: a block's shared memory, kOwnedWarps × `owned_warp_floats`.
-size_t owned_smem_bytes(int c, bool energy, int ne, int neb) {
-  const int nt = centre_slots(c) <= 2 ? 64 : 96;
-  return sizeof(float) * kOwnedWarps * static_cast<size_t>(owned_warp_floats(nt, ne, neb, energy ? 5 : 3, c));
+// Warps a block at C > 96: as many as fit a block's shared memory at
+// `per_warp` bytes each beside `fixed` bytes, at most `most`; 0 where not
+// even one fits.
+int fit_warps(size_t fixed, size_t per_warp, int most) {
+  if (fixed + per_warp > static_cast<size_t>(kSmemBytes)) return 0;
+  return static_cast<int>(std::min(static_cast<size_t>(most), (kSmemBytes - fixed) / per_warp));
 }
 
-// GHOST (LJ): the centre sums and one (mx+2)·C reaction row, and the tiles.
-size_t ghost_smem_bytes(int mx, int c, bool energy) {
-  const int nt = centre_slots(c) <= 2 ? 64 : 96;
-  return sizeof(float) * (energy ? 5 : 3) * static_cast<size_t>(2 * mx + 2) * c +
-         sizeof(float) * (5 + 1) * nt * 2 * kWarps;
+// K5c: a block's shared memory, `*warps` × `owned_warp_floats` (kOwnedWarps
+// up to C = 96; at C > 96 as many as fit, one warp's bytes where none does).
+size_t owned_smem_bytes(int c, bool energy, int ne, int neb, int* warps) {
+  const int slots = centre_slots(c);
+  const int nt = slots <= 2 ? 64 : 96;
+  const size_t per = sizeof(float) * static_cast<size_t>(owned_warp_floats(nt, ne, neb, energy ? 5 : 3, c,
+                                                                           slots == kChunked ? chunks_of(c) : 0));
+  *warps = slots == kChunked ? fit_warps(0, per, kOwnedWarps) : kOwnedWarps;
+  return per * std::max(*warps, 1);
+}
+
+// GHOST (LJ): the centre sums and one (mx+2)·C reaction row, and the
+// `*warps` warps' tiles (kWarps up to C = 96; at C > 96 the chunks and work
+// tiles of as many warps as fit, one warp's where none does).
+size_t ghost_smem_bytes(int mx, int c, bool energy, int* warps) {
+  const size_t rows = sizeof(float) * (energy ? 5 : 3) * static_cast<size_t>(2 * mx + 2) * c;
+  if (centre_slots(c) != kChunked) {
+    *warps = kWarps;
+    return rows + sizeof(float) * (5 + 1) * (centre_slots(c) <= 2 ? 64 : 96) * 2 * kWarps;
+  }
+  const size_t per = sizeof(float) * (5 + 1) * kChunk * static_cast<size_t>(2 * chunks_of(c) + 2);
+  *warps = fit_warps(rows, per, kWarps);
+  return rows + per * std::max(*warps, 1);
 }
 
 template <int NA, bool UNIFORM, bool ENERGY>
 int launch_ghost(const Fields& f, float* out, float* groups, const Ghost& g, int blocks, int m, int c,
                  const float* box, const PairConsts& k, cudaStream_t stream) {
-  const size_t smem = ghost_smem_bytes(g.mx, c, ENERGY);
+  int warps;
+  const size_t smem = ghost_smem_bytes(g.mx, c, ENERGY, &warps);
   auto kernel = streaming_ghost_kernel<NA, UNIFORM, ENERGY>;
   static size_t smem_allowed = 48 * 1024;  // raised once per variant, not per launch
   if (smem > smem_allowed) {
@@ -1069,7 +1283,7 @@ int launch_ghost(const Fields& f, float* out, float* groups, const Ghost& g, int
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
   }
-  kernel<<<blocks, kThreads, smem, stream>>>(f, out, groups, g, m, c, box, k);
+  kernel<<<blocks, 32 * warps, smem, stream>>>(f, out, groups, g, m, c, box, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1109,7 +1323,13 @@ emdee::OwnedVariant owned_variant_c(int c, int coulomb, int excl, int bond) {
   switch (centre_slots(c)) {
     case 1: return owned_variant_e<1, ENERGY, GHOST>(coulomb, excl, bond);
     case 2: return owned_variant_e<2, ENERGY, GHOST>(coulomb, excl, bond);
-    default: return owned_variant_e<3, ENERGY, GHOST>(coulomb, excl, bond);
+    case 3: return owned_variant_e<3, ENERGY, GHOST>(coulomb, excl, bond);
+    default:
+      if constexpr (GHOST)
+        return emdee::k5s_mol_chunked_variant(ENERGY, coulomb, excl);
+      else
+        return ENERGY ? emdee::k5c_chunked_energy_variant(coulomb, excl, bond)
+                      : emdee::k5c_chunked_force_variant(coulomb, excl, bond);
   }
 }
 
@@ -1134,16 +1354,21 @@ int kernel_attrs(const void* kernel, int threads, size_t smem, int* out) {
 #endif
 
 #if EMDEE_IN_PART(0)
-// A K5 variant and its dynamic shared memory (`*smem`), allowed once per
-// variant, not per launch.
+// A K5 variant, its warps a block (`*warps`) and its dynamic shared memory
+// (`*smem`), allowed once per variant, not per launch; refused where a
+// block's shared memory holds no warp.
 template <int NA, bool UNIFORM, bool ENERGY>
-int lj_variant(int c, const void** kernel, size_t* smem) {
-  constexpr int NT = tile_entries<NA>(), NF = UNIFORM ? 3 : 5;
+int lj_variant(int c, const void** kernel, size_t* smem, int* warps) {
+  constexpr int NT = tile_entries<NA>(), NF = UNIFORM ? 3 : 5, NR = ENERGY ? 5 : 3;
   static_assert(sizeof(Tile<NT, NF>) == sizeof(float) * (NF + 1) * NT,
                 "lj_warp_floats counts the tiles as packed floats");
   static size_t smem_allowed = 48 * 1024;
   *kernel = reinterpret_cast<const void*>(streaming_lj_kernel<NA, UNIFORM, ENERGY>);
-  *smem = sizeof(float) * kLjWarps * static_cast<size_t>(lj_warp_floats(NT, NF, ENERGY ? 5 : 3, c));
+  const size_t per =
+      sizeof(float) * static_cast<size_t>(lj_warp_floats(NT, NF, NR, c, NA == kChunked ? chunks_of(c) : 0));
+  *warps = NA == kChunked ? fit_warps(0, per, kLjWarps) : kLjWarps;
+  *smem = per * std::max(*warps, 1);
+  if (*warps == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (*smem > smem_allowed) {
     const cudaError_t err =
         cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
@@ -1154,20 +1379,22 @@ int lj_variant(int c, const void** kernel, size_t* smem) {
 }
 
 template <int NA>
-int lj_variant_ue(int c, int uniform, int energy, const void** kernel, size_t* smem) {
-  if (uniform && energy) return lj_variant<NA, true, true>(c, kernel, smem);
-  if (uniform) return lj_variant<NA, true, false>(c, kernel, smem);
-  if (energy) return lj_variant<NA, false, true>(c, kernel, smem);
-  return lj_variant<NA, false, false>(c, kernel, smem);
+int lj_variant_ue(int c, int uniform, int energy, const void** kernel, size_t* smem, int* warps) {
+  if (uniform && energy) return lj_variant<NA, true, true>(c, kernel, smem, warps);
+  if (uniform) return lj_variant<NA, true, false>(c, kernel, smem, warps);
+  if (energy) return lj_variant<NA, false, true>(c, kernel, smem, warps);
+  return lj_variant<NA, false, false>(c, kernel, smem, warps);
 }
 
-// The K5 variant for C and these flags (C ≤ 96), its shared memory allowed.
-int lj_kernel(int c, int uniform, int energy, const void** kernel, size_t* smem) {
+// The K5 variant for C and these flags (C ≤ 1024; above 96 the chunked
+// variants), its warps a block and its shared memory allowed.
+int lj_kernel(int c, int uniform, int energy, const void** kernel, size_t* smem, int* warps) {
   if (c < 1 || c > kMaxCapacity) return static_cast<int>(cudaErrorInvalidValue);
   switch (centre_slots(c)) {
-    case 1: return lj_variant_ue<1>(c, uniform, energy, kernel, smem);
-    case 2: return lj_variant_ue<2>(c, uniform, energy, kernel, smem);
-    default: return lj_variant_ue<3>(c, uniform, energy, kernel, smem);
+    case 1: return lj_variant_ue<1>(c, uniform, energy, kernel, smem, warps);
+    case 2: return lj_variant_ue<2>(c, uniform, energy, kernel, smem, warps);
+    case 3: return lj_variant_ue<3>(c, uniform, energy, kernel, smem, warps);
+    default: return lj_variant_ue<kChunked>(c, uniform, energy, kernel, smem, warps);
   }
 }
 #endif
@@ -1177,11 +1404,11 @@ int lj_kernel(int c, int uniform, int energy, const void** kernel, size_t* smem)
 // as the launch entries refuse it (but for the geometry), its dynamic
 // shared memory (`*smem`) allowed.
 int owned_kernel(int c, int ne, int neb, int coulomb, int excl, int bond, int energy, bool ghost,
-                 emdee::OwnedKernel* kernel, size_t* smem) {
+                 emdee::OwnedKernel* kernel, size_t* smem, int* warps) {
   if (!excl) ne = 0;
   if (!bond) neb = 0;
-  *smem = owned_smem_bytes(c, energy, ne, neb);
-  if (c < 1 || c > kMaxCapacity || *smem > 232448 || (!coulomb && !excl) || (bond && !excl) || (ghost && bond) ||
+  *smem = owned_smem_bytes(c, energy, ne, neb, warps);
+  if (c < 1 || c > kMaxCapacity || *smem > static_cast<size_t>(kSmemBytes) || (!coulomb && !excl) || (bond && !excl) || (ghost && bond) ||
       (excl && (ne < 1 || ne > kMaxTags)) || (bond && (neb < 1 || neb > ne)))
     return static_cast<int>(cudaErrorInvalidValue);
   const emdee::OwnedVariant v =
@@ -1200,8 +1427,8 @@ int owned_kernel(int c, int ne, int neb, int coulomb, int excl, int bond, int en
 }
 
 // A warp-owned variant's resources as the card reports them (`kernel_attrs`).
-int owned_attrs(emdee::OwnedKernel kernel, size_t smem, int* out) {
-  return kernel_attrs(reinterpret_cast<const void*>(kernel), kOwnedThreads, smem, out);
+int owned_attrs(emdee::OwnedKernel kernel, size_t smem, int warps, int* out) {
+  return kernel_attrs(reinterpret_cast<const void*>(kernel), 32 * warps, smem, out);
 }
 #endif
 
@@ -1231,6 +1458,25 @@ emdee::OwnedVariant emdee::k5s_mol_energy_variant(int c, int coulomb, int excl) 
 }
 #endif
 
+#if EMDEE_IN_PART(5)
+emdee::OwnedVariant emdee::k5c_chunked_force_variant(int coulomb, int excl, int bond) {
+  return owned_variant_e<kChunked, false, false>(coulomb, excl, bond);
+}
+#endif
+
+#if EMDEE_IN_PART(6)
+emdee::OwnedVariant emdee::k5c_chunked_energy_variant(int coulomb, int excl, int bond) {
+  return owned_variant_e<kChunked, true, false>(coulomb, excl, bond);
+}
+#endif
+
+#if EMDEE_IN_PART(7)
+emdee::OwnedVariant emdee::k5s_mol_chunked_variant(int energy, int coulomb, int excl) {
+  return energy ? owned_variant_e<kChunked, true, true>(coulomb, excl, 0)
+                : owned_variant_e<kChunked, false, true>(coulomb, excl, 0);
+}
+#endif
+
 #if EMDEE_IN_PART(0)
 // The LJ pair pass (K5): positions px, py, pz read at stride `pstride` (1:
 // component arrays, 3: the stacked (M³, C, 3) state), per-atom (σ/2, 2√ε)
@@ -1245,15 +1491,16 @@ extern "C" int emdee_streaming_forces(
   if (m < 3) return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel;
   size_t smem;
-  const int err = lj_kernel(c, uniform, energy, &kernel, &smem);
+  int warps;
+  const int err = lj_kernel(c, uniform, energy, &kernel, &smem, &warps);
   if (err) return err;
   PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
   Fields fl{px, py, pz, pstride, hs, tse, valid};
-  const long warps = static_cast<long>(m) * m * m;
-  const unsigned blocks = static_cast<unsigned>((warps + kLjWarps - 1) / kLjWarps);
+  const long cells = static_cast<long>(m) * m * m;
+  const unsigned blocks = static_cast<unsigned>((cells + warps - 1) / warps);
   void* args[] = {&fl, &slices, &m, &c, &box, &k};
   return static_cast<int>(
-      cudaLaunchKernel(kernel, dim3(blocks), dim3(kLjThreads), args, smem, static_cast<cudaStream_t>(stream)));
+      cudaLaunchKernel(kernel, dim3(blocks), dim3(32 * warps), args, smem, static_cast<cudaStream_t>(stream)));
 }
 
 // K5's fold: writes fx, fy, fz (through `fstride`) [, e, w] at every slot
@@ -1277,9 +1524,10 @@ extern "C" int emdee_streaming_fold(float* fx, float* fy, float* fz, int fstride
 extern "C" int emdee_streaming_attrs(int c, int uniform, int energy, int* out) {
   const void* kernel;
   size_t smem;
-  const int err = lj_kernel(c, uniform, energy, &kernel, &smem);
+  int warps;
+  const int err = lj_kernel(c, uniform, energy, &kernel, &smem, &warps);
   if (err) return err;
-  return kernel_attrs(kernel, kLjThreads, smem, out);
+  return kernel_attrs(kernel, 32 * warps, smem, out);
 }
 #endif
 #if EMDEE_IN_PART(1)
@@ -1300,7 +1548,8 @@ extern "C" int emdee_streaming_forces_mol(
   if (m < 3) return static_cast<int>(cudaErrorInvalidValue);
   emdee::OwnedKernel kernel;
   size_t smem;
-  const int err = owned_kernel(c, ne, neb, coulomb, excl, bond, energy, false, &kernel, &smem);
+  int wpb;
+  const int err = owned_kernel(c, ne, neb, coulomb, excl, bond, energy, false, &kernel, &smem, &wpb);
   if (err) return err;
   if (!excl) ne = 0;
   if (!bond) neb = 0;
@@ -1310,10 +1559,10 @@ extern "C" int emdee_streaming_forces_mol(
   Ghost g{m, m, m, 1, 1, 0, 0, 0};
   int shards = 1;
   const long warps = static_cast<long>(m) * m * m * kPhases;
-  const unsigned blocks = static_cast<unsigned>((warps + kOwnedWarps - 1) / kOwnedWarps);
+  const unsigned blocks = static_cast<unsigned>((warps + wpb - 1) / wpb);
   void* args[] = {&fl, &mol, &slices, &g, &shards, &m, &c, &box, &k};
   return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
-                                           dim3(kOwnedThreads), args, smem, static_cast<cudaStream_t>(stream)));
+                                           dim3(32 * wpb), args, smem, static_cast<cudaStream_t>(stream)));
 }
 
 // The K5c variant these flags select, as the card reports it: out[0..3] =
@@ -1323,9 +1572,10 @@ extern "C" int emdee_streaming_mol_attrs(int c, int ne, int neb, int coulomb, in
                                          int* out) {
   emdee::OwnedKernel kernel;
   size_t smem;
-  int err = owned_kernel(c, ne, neb, coulomb, excl, bond, energy, false, &kernel, &smem);
+  int wpb;
+  int err = owned_kernel(c, ne, neb, coulomb, excl, bond, energy, false, &kernel, &smem, &wpb);
   if (err) return err;
-  return owned_attrs(kernel, smem, out);
+  return owned_attrs(kernel, smem, wpb, out);
 }
 
 // K5c's fold: f (M³·C, 3) [, e, w (M³·C)] = the sum of the n_slices
@@ -1357,9 +1607,10 @@ extern "C" int emdee_streaming_ghost(
     int mz, int my, int mx, int shards, int sy_n, int sx_n, int bz, int by, int bx, int m, int c, const float* box,
     float rc2, float rs2, float invd2, float a_m, float pa1, float pa2, float pb1, float pb2, float sig2_u,
     float eps4_u, int uniform, int energy, void* stream) {
-  const size_t smem = ghost_smem_bytes(mx, c, energy);
+  int warps;
+  const size_t smem = ghost_smem_bytes(mx, c, energy, &warps);
   if (m < 3 || c < 1 || c > kMaxCapacity || mz < 1 || my < 1 || mx < 1 || shards < 1 || sy_n < 1 || sx_n < 1 ||
-      shards % (sy_n * sx_n) != 0 || smem > 232448)
+      shards % (sy_n * sx_n) != 0 || smem > static_cast<size_t>(kSmemBytes))
     return static_cast<int>(cudaErrorInvalidValue);
   const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
   const Fields f{px, py, pz, 1, hs, tse, nullptr};
@@ -1369,7 +1620,8 @@ extern "C" int emdee_streaming_ghost(
   switch (centre_slots(c)) {
     case 1: return dispatch_ghost<1>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
     case 2: return dispatch_ghost<2>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
-    default: return dispatch_ghost<3>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
+    case 3: return dispatch_ghost<3>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
+    default: return dispatch_ghost<kChunked>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
   }
 }
 
@@ -1411,7 +1663,8 @@ extern "C" int emdee_streaming_ghost_mol(
     return static_cast<int>(cudaErrorInvalidValue);
   emdee::OwnedKernel kernel;
   size_t smem;
-  const int err = owned_kernel(c, ne, 0, coulomb, excl, 0, energy, true, &kernel, &smem);
+  int wpb;
+  const int err = owned_kernel(c, ne, 0, coulomb, excl, 0, energy, true, &kernel, &smem, &wpb);
   if (err) return err;
   if (!excl) ne = 0;
   PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
@@ -1419,10 +1672,10 @@ extern "C" int emdee_streaming_ghost_mol(
   Mol mol{q, aid, ids, mlj, mcs, nullptr, nullptr, nullptr, ne, 0, alpha, rc, rc2_c, e_shift, f_shift, kc};
   Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx};
   const long warps = static_cast<long>(shards) * mz * my * mx * kPhases;
-  const unsigned blocks = static_cast<unsigned>((warps + kOwnedWarps - 1) / kOwnedWarps);
+  const unsigned blocks = static_cast<unsigned>((warps + wpb - 1) / wpb);
   void* args[] = {&fl, &mol, &slices, &g, &shards, &m, &c, &box, &k};
   return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
-                                           dim3(kOwnedThreads), args, smem, static_cast<cudaStream_t>(stream)));
+                                           dim3(32 * wpb), args, smem, static_cast<cudaStream_t>(stream)));
 }
 
 // The K5s-mol variant these flags select, as the card reports it (as
@@ -1430,9 +1683,10 @@ extern "C" int emdee_streaming_ghost_mol(
 extern "C" int emdee_streaming_ghost_mol_attrs(int c, int ne, int coulomb, int excl, int energy, int* out) {
   emdee::OwnedKernel kernel;
   size_t smem;
-  const int err = owned_kernel(c, ne, 0, coulomb, excl, 0, energy, true, &kernel, &smem);
+  int wpb;
+  const int err = owned_kernel(c, ne, 0, coulomb, excl, 0, energy, true, &kernel, &smem, &wpb);
   if (err) return err;
-  return owned_attrs(kernel, smem, out);
+  return owned_attrs(kernel, smem, wpb, out);
 }
 
 // K5s-mol's assembly: the centre sums of the own slots to out (3 or 5,

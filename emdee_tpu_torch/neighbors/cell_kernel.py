@@ -10,15 +10,16 @@ Coulomb over the state's charges, exclusion tags, tag-borne bonds).
 launch one kernel of `csrc/cell_forces.cu` for CUDA tensors, with
 backend 'auto' or 'cuda', and run the plain version
 (`cell_dense.cell_dense_forces`) for CPU tensors or backend 'torch'.
-The LJ pass (K2a, K2b, and K3's grid side through `launch_strag`) and
-K2c run on one design: a warp takes 32 live centres of a cell and stages
-each neighbour cell's slots within the cutoff of its centres' bounding
-box (`k2c_cull` mirrors the predicate); the LJ pass runs the pair term on
-the staged slots straight away, K2c lists each lane's pairs inside the
-cutoff first and runs its costlier term over the lists.  Both add every
-centre's pairs in the full-shell kernel's order (the grid's GHOST mode,
-which stays on that kernel, is the witness: its sums are equal bit for
-bit).
+The LJ pass (K2a, K2b, K3's grid side through `launch_strag`, and the
+grid's per-shard pass K2-G through `ghost_forces`) and K2c run on one
+design: a warp takes 32 live centres of a cell and stages each neighbour
+cell's slots within the cutoff of its centres' bounding box (`k2c_cull`
+mirrors the predicate); the LJ pass runs the pair term on the staged
+slots straight away, K2c lists each lane's pairs inside the cutoff first
+and runs its costlier term over the lists.  Both add every centre's pairs
+in the old full-shell kernel's order, so K2-G on any decomposition equals
+the one-card pass bit for bit (its per-warp neighbour table:
+`ghost_lj_table`), and K2c-G, which keeps the old kernel, equals K2c.
 
 The TPU kernel's ghost grid, far sentinels, MXU segment sums and reaction
 folds (`_ghost`, `_prep_inputs`, `_fold_ghosts`, `_const_tiles`,
@@ -326,11 +327,11 @@ def k2c_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) 
                      int(coulomb is not None), int(excl is not None), int(bond is not None), int(compute_energy))
 
 
-def lj_resources(uniform: bool, energy: bool, strag: bool = False) -> dict:
+def lj_resources(uniform: bool, energy: bool, strag: bool = False, ghost: bool = False) -> dict:
     """The LJ pass's variant (K2a: uniform; K2b: per-atom, with or without
-    energies; K3's grid side: `strag`) as the card reports it
-    (`resources`)."""
-    return resources("emdee_cell_forces_attrs", "cell_forces", int(uniform), int(energy), int(strag),
+    energies; K3's grid side: `strag`; K2-G, the grid's: `ghost`) as the
+    card reports it (`resources`)."""
+    return resources("emdee_cell_forces_attrs", "cell_forces", int(uniform), int(energy), int(strag), int(ghost),
                      warps=LJ_WARPS)
 
 
@@ -399,11 +400,37 @@ def split_operands(px, py, pz, valid, config: CellDenseConfig):
     return (px, py, pz, 1, None, None, valid, fx, fy, fz, 1, None, None), (fx, fy, fz)
 
 
+def ghost_lj_table(cell: int, shards, base, local, m: int, box: float):
+    """K2-G's per-warp table for own cell `cell` (for the tests; the C
+    source's `tnb`, `tsh`): the own cell's index in the stacked ghost grids,
+    and for each neighbour code (dz + 1)·9 + (dy + 1)·3 + dx + 1 the
+    neighbour's ghost cell index (its first slot is that times C) and the
+    shift (x, y, z) the kernel takes off (x_i − x_j), ±box where the
+    neighbour's GLOBAL cell index leaves [0, M).  `cell` indexes the own
+    cells of the local shards (sz, sy, sx) of `local` = (mz, my, mx) cells,
+    shard-major; the shards' global coordinates start at `base` (z, y, x)."""
+    mz, my, mx = local
+    sy, sx = shards[1], shards[2]
+    lx, ly, lz, s = cell % mx, (cell // mx) % my, (cell // (mx * my)) % mz, cell // (mx * my * mz)
+    cx = (base[2] + s % sx) * mx + lx
+    cy = (base[1] + (s // sx) % sy) * my + ly
+    cz = (base[0] + s // (sx * sy)) * mz + lz
+    gy, gx = my + 2, mx + 2
+    home = s * (mz + 2) * gy * gx + ((lz + 1) * gy + ly + 1) * gx + lx + 1
+    first, shift = [], []
+    for code in range(27):
+        dz, dy, dx = code // 9 - 1, (code // 3) % 3 - 1, code % 3 - 1
+        first.append(home + (dz * gy + dy) * gx + dx)
+        shift.append([-box if w < 0 else (box if w >= m else 0.0) for w in (cx + dx, cy + dy, cz + dz)])
+    return home, first, shift
+
+
 def ghost_forces(ghost, shards, base, config: CellDenseConfig, model: LennardJonesModel, *,
                  uniform_params=None, compute_energy: bool = False, backend: str = "auto", coulomb=None,
                  excl=None, box=None):
-    """The grid-sharded engine's per-shard force pass (the kernel's GHOST
-    mode): forces (3, sz, sy, sx, mz, my, mx, C) of every own slot of the
+    """The grid-sharded engine's per-shard force pass (the LJ pass's GHOST
+    mode, K2-G; with the molecular terms K2c-G): forces (3, sz, sy, sx,
+    mz, my, mx, C) of every own slot of the
     local shards and, with `compute_energy`, per-slot half-split energies and
     virials (sz, sy, sx, mz, my, mx, C) — else None, None.
 

@@ -19,6 +19,11 @@ neighbour pair to the atoms within the cutoff of the other cell's bounding
 box (`cull_pair` mirrors it), and writes its centre sums and each offset's
 reactions to scratch slices (`scratch_bytes`), which the fold adds in a
 fixed order — K5's in the association of the pencil kernel it replaced.
+Every kernel of the family takes C up to 1024, as the resident family (the
+reference's streaming kernel has no limit): above C = 96, three centre
+slots a lane, its variant compacts a cell into 96-entry chunks and runs a
+cell pair chunk pair by chunk pair through the same ring, a block holding
+as many warps as its shared memory allows (`smem_bytes`).
 For CPU tensors, or backend 'torch', they run the plain version: the half
 shell of `cell_dense._dense_forces`, the same as the resident kernel's
 (with the molecular terms, `cell_dense_forces(coulomb=, excl=)`, K2c's).
@@ -75,7 +80,10 @@ from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel
 # force evaluation, the pair pass and the fold (K5s: the assembly).
 LAUNCHES = 0
 
-MAX_CAPACITY = 96  # three centre slots per lane
+MAX_CAPACITY = 1024  # as the resident family (csrc/cell_forces.cu)
+# Up to C = 96 a lane holds three centre slots; above it a cell is compacted
+# into 96-entry chunks and a cell pair runs as its chunk pairs (kChunk).
+_CHUNK = 96
 _SMEM_BYTES = 232_448  # shared memory a block can use on Hopper
 _WARPS = 8  # K5s (LJ): warps a pencil block
 _ROW_GROUPS = 4  # K5s (LJ): reaction row groups besides the own row
@@ -93,21 +101,45 @@ PHASE_OFFSETS = ((0, 1, -1), (0, 1, 0), (0, 1, 1), (1, -1, -1), (1, -1, 0), (1, 
                  (1, 0, 1), (1, 1, -1), (1, 1, 0), (1, 1, 1), (0, 0, 1))
 
 
+def _chunks(c: int) -> int:
+    """The 96-entry chunks of a cell at C > 96 (the C source's chunks_of)."""
+    return -(-c // _CHUNK)
+
+
+def _fit(per_warp: int, most: int, fixed: int = 0):
+    """A block at C > 96, as the C entries size it (`fit_warps`): (its
+    shared bytes, its warps) — as many warps of `per_warp` bytes beside
+    `fixed` as fit a block's shared memory, at most `most`; one warp's
+    bytes and 0 warps where none fits."""
+    warps = 0 if fixed + per_warp > _SMEM_BYTES else min(most, (_SMEM_BYTES - fixed) // per_warp)
+    return fixed + per_warp * max(warps, 1), warps
+
+
+def _k5_block(c: int, energy: bool, uniform: bool):
+    """K5's block: (shared bytes, warps).  For each warp, up to C = 96 three
+    compacted cell tiles (its cell, the centres a phase's cull keeps, the
+    phase's neighbour; 64 entries up to C = 64, else 96; x, y, z, with
+    per-atom parameters σ/2 and 2√ε, and the slot), above it its cell's and
+    the neighbour's chunks and two work tiles; and its centre and reaction
+    rows, (2, n_r, C) float32.  4 warps up to C = 96, else as many as fit."""
+    fields, rows = (4 if uniform else 6), 2 * (5 if energy else 3) * c
+    if c <= 3 * 32:
+        return 4 * K5_WARPS * (3 * fields * (64 if c <= 64 else 96) + rows), K5_WARPS
+    return _fit(4 * ((2 * _chunks(c) + 2) * fields * _CHUNK + rows), K5_WARPS)
+
+
 def smem_bytes(config: CellDenseConfig, energy: bool, mol: bool = False, ne: int = 0, neb: int = 0,
                uniform: bool = False) -> int:
-    """A block's shared memory, as the C entries count it, whatever M.  K5:
-    for each of its 4 warps, three compacted cell tiles (its cell, the
-    centres a phase's cull keeps, the phase's neighbour; 64 entries up to C
-    = 64, else 96; x, y, z, with per-atom parameters σ/2 and 2√ε, and the
-    slot) and its centre and reaction rows, (2, n_r, C) float32.  K5c
-    (`mol`): for each of its 4 warps, two tiles (x, y, z, σ/2, 2√ε, q, the
-    atom id and the slot), the staged centre tags (3 values a tag and a
-    bond tag) and its centre and reaction rows."""
+    """A block's shared memory, as the C entries count it, whatever M: K5's
+    (`_k5_block`); K5c's (`mol`): for each of its 4 warps (at C > 96, as
+    many as fit), two tiles (x, y, z, σ/2, 2√ε, q, the atom id and the
+    slot; at C > 96 both cells' chunks and two work tiles), the staged
+    centre tags (3 values a tag and a bond tag) and its centre and reaction
+    rows.  Above Hopper's 232,448 B where not one warp fits."""
     c = config.capacity
     if mol:
-        return _owned_smem_bytes(c, energy, ne, neb)
-    entries = 64 if c <= 64 else 96
-    return 4 * K5_WARPS * (3 * (4 if uniform else 6) * entries + 2 * (5 if energy else 3) * c)
+        return _owned_block(c, energy, ne, neb)[0]
+    return _k5_block(c, energy, uniform)[0]
 
 
 def scratch_bytes(config: CellDenseConfig, energy: bool) -> int:
@@ -117,10 +149,14 @@ def scratch_bytes(config: CellDenseConfig, energy: bool) -> int:
     return 4 * K5_SLICES * (5 if energy else 3) * config.num_slots
 
 
-def _owned_smem_bytes(c: int, energy: bool, ne: int, neb: int) -> int:
-    """A warp-owned block's shared memory (K5c, K5s-mol), whatever M."""
-    entries = 64 if c <= 64 else 96
-    return 4 * _OWNED_WARPS * (2 * 8 * entries + 3 * (ne + neb) * entries + 2 * (5 if energy else 3) * c)
+def _owned_block(c: int, energy: bool, ne: int, neb: int):
+    """A warp-owned block (K5c, K5s-mol), whatever M: (shared bytes,
+    warps)."""
+    rows = 2 * (5 if energy else 3) * c
+    if c <= 3 * 32:
+        entries = 64 if c <= 64 else 96
+        return 4 * _OWNED_WARPS * (2 * 8 * entries + 3 * (ne + neb) * entries + rows), _OWNED_WARPS
+    return _fit(4 * ((2 * _chunks(c) + 2) * 8 * _CHUNK + 3 * (ne + neb) * _CHUNK + rows), _OWNED_WARPS)
 
 
 def cull_pair(cen, nb, shift, cut2: float):
@@ -140,7 +176,7 @@ def _check_geometry(config: CellDenseConfig, energy: bool, mol: bool = False, ne
     """Refuse what the one-card C entries (K5, K5c) would refuse, before any
     launch: M ≥ 3, C ≤ MAX_CAPACITY, and the block's shared memory
     (`smem_bytes`, which does not grow with M) within what Hopper gives a
-    block."""
+    block — above C = 96, one warp's chunks and rows."""
     m, c = config.cells_per_dim, config.capacity
     smem = smem_bytes(config, energy, mol, ne, neb)
     if m < 3 or c > MAX_CAPACITY or smem > _SMEM_BYTES:
@@ -153,13 +189,16 @@ def _check_geometry(config: CellDenseConfig, energy: bool, mol: bool = False, ne
 def ghost_smem_bytes(mx: int, c: int, energy: bool, mol: bool = False, ne: int = 0) -> int:
     """K5s's shared memory a block, as its C entries count it.  LJ: the
     pencil's centre sums, (n_r, mx·C), and one reaction row, (n_r,
-    (mx+2)·C), float32, and the 8 warps' tiles as `smem_bytes`.  K5s-mol
-    (`mol`): K5c's warp-owned block with E tags and no bond tags, whatever
-    mx."""
+    (mx+2)·C), float32, and the 8 warps' two tiles as `smem_bytes` (at C >
+    96 the chunks and work tiles of as many warps as fit beside the rows).
+    K5s-mol (`mol`): K5c's warp-owned block with E tags and no bond tags,
+    whatever mx."""
     if mol:
-        return _owned_smem_bytes(c, energy, ne, 0)
-    entries = 64 if c <= 64 else 96
-    return 4 * ((5 if energy else 3) * (2 * mx + 2) * c + _WARPS * 2 * 6 * entries)
+        return _owned_block(c, energy, ne, 0)[0]
+    rows = 4 * (5 if energy else 3) * (2 * mx + 2) * c
+    if c <= 3 * 32:
+        return rows + 4 * _WARPS * 2 * 6 * (64 if c <= 64 else 96)
+    return _fit(4 * 6 * _CHUNK * (2 * _chunks(c) + 2), _WARPS, rows)[0]
 
 
 def ghost_mol_scratch_bytes(shards: int, local, c: int, energy: bool) -> int:
@@ -195,7 +234,8 @@ def ghost_phase(cell: int, phase: int, shards, base, local, m: int, box: float):
 def _check_ghost_geometry(config: CellDenseConfig, mx: int, energy: bool, mol: bool, ne: int) -> None:
     """Refuse what K5s's C entries would refuse, before any launch: M ≥ 3,
     C ≤ MAX_CAPACITY and a block's shared memory (`ghost_smem_bytes`) within
-    what Hopper gives a block."""
+    what Hopper gives a block (above C = 96, one warp's chunks beside the
+    pencil's rows)."""
     m, c = config.cells_per_dim, config.capacity
     smem = ghost_smem_bytes(mx, c, energy, mol, ne)
     if m < 3 or c > MAX_CAPACITY or smem > _SMEM_BYTES:
@@ -294,7 +334,7 @@ def k5_resources(config: CellDenseConfig, uniform: bool, compute_energy: bool) -
     """The K5 variant for C and these flags, as the card reports it
     (`cell_kernel.resources`)."""
     return resources("emdee_streaming_attrs", "cell_forces_streaming", config.capacity, int(uniform),
-                     int(compute_energy), warps=K5_WARPS)
+                     int(compute_energy), warps=_k5_block(config.capacity, compute_energy, uniform)[1])
 
 
 def k5c_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) -> dict:
@@ -303,16 +343,18 @@ def k5c_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) 
     (`cell_kernel.resources`)."""
     ne, neb, bond = tag_counts(excl)
     return resources("emdee_streaming_mol_attrs", "cell_forces_streaming (molecular)", config.capacity, ne, neb,
-                     int(coulomb is not None), int(excl is not None), int(bond is not None), int(compute_energy))
+                     int(coulomb is not None), int(excl is not None), int(bond is not None), int(compute_energy),
+                     warps=_owned_block(config.capacity, compute_energy, ne, neb)[1])
 
 
 def k5s_mol_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) -> dict:
     """The K5s-mol variant that these flags and centre tags (`excl`, as
     `streaming_ghost_forces` takes them) select at C, as the card reports
     it (`cell_kernel.resources`)."""
+    ne = tag_counts(excl)[0]
     return resources("emdee_streaming_ghost_mol_attrs", "cell_forces_streaming (ghost grid, molecular)",
-                     config.capacity, tag_counts(excl)[0], int(coulomb is not None), int(excl is not None),
-                     int(compute_energy))
+                     config.capacity, ne, int(coulomb is not None), int(excl is not None), int(compute_energy),
+                     warps=_owned_block(config.capacity, compute_energy, ne, 0)[1])
 
 
 def cell_forces_streaming_split(

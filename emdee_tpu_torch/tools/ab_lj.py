@@ -1,5 +1,6 @@
-"""A/B the LJ resident force pass (K2a, K2b and K3's grid side) against
-other versions of its source on the card, in one process: the checkout's
+"""A/B the LJ resident force pass (K2a, K2b and K3's grid side; with
+`--ghost` its GHOST mode K2-G, the grid's per-shard pass) against other
+versions of its source on the card, in one process: the checkout's
 `csrc/cell_forces.cu` (A, through `cell_kernel`) and the one in each `DIR`
 (B, C, …, each built alone into `build/emdee_tpu_torch/ab_lj_<i>.so`, with
 the checkout's `lj_pair.cuh` unless `DIR` has one).  The inputs are the
@@ -7,20 +8,28 @@ smoke's: the 97,556-atom melt of `tools/melt.py` after its 200-step
 equilibration, every atom then moved 0.45·skin along its velocity (M =
 17, C = 32), and its straggler state at bench.py's production config (C_t
 = 28, A = 64, Kn = 16) moved alike; with `--1m`, also the 1,000,188-atom
-melt (M = 37, C = 32) drifted from the lattice.
+melt (M = 37, C = 32) drifted from the lattice.  With `--ghost`, K2-G in
+place of those launches, on the smoke's grid states: the equilibrated
+97,556-atom melt on (1,1,1) at M = 17 and, at
+`reconfigure_dense_state(cells_multiple_of=2)`'s M = 16, C = 40, on
+(2,2,2); with `--1m` also the 1M melt at `melt.even_config`'s M = 36, C =
+40 on (2,2,2); each drifted 0.45·skin, its shards' ghost grids built as
+the grid engine builds them (`LocalMesh`, every shard on the card).
 
 Run from the repository root on a machine with a CUDA card, with the other
 versions from an unpacked parent commit or a kept working copy:
 
-    python3 -m emdee_tpu_torch.tools.ab_lj [--1m] DIR [DIR ...]
+    python3 -m emdee_tpu_torch.tools.ab_lj [--1m] [--ghost] DIR [DIR ...]
 
 It prints, with `nvidia-smi`'s card name and power limit, the checkout's
 registers, spills, shared bytes and resident blocks an SM for each
 variant, then for each launch (K2a: uniform, forces, component arrays;
 K2b: per-atom with energies, and forces only; K3's grid side) whether each
 version's outputs equal A's bit for bit, and the CUDA-event ms of every
-version in turns, forwards and back.  Each version must keep the C entries
-`emdee_cell_forces` and `emdee_cell_forces_strag` with A's signatures.
+version in turns, forwards and back (`--ghost`: K2-G uniform forces,
+per-atom with energies and per-atom forces).  Each version must keep the
+C entries `emdee_cell_forces`, `emdee_cell_forces_strag` and
+`emdee_cell_forces_ghost` with A's signatures.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import torch
 
 from emdee_tpu_torch.csrc import build
 
-ENTRIES = ("emdee_cell_forces", "emdee_cell_forces_strag")
+ENTRIES = ("emdee_cell_forces", "emdee_cell_forces_strag", "emdee_cell_forces_ghost")
 
 
 def _load_all(dirs) -> list:
@@ -126,6 +135,67 @@ def _strag_run(lib, args, sconfig, uni):
     return run
 
 
+def _ghost_runs(lib, gh, mesh, config, uni):
+    """{launch: callable} of one version's GHOST mode (K2-G) on the ghost
+    grids `gh` (x, y, z with NaN in empty slots, σ/2, 2√ε) of `mesh`'s
+    shards: uniform forces, per-atom with energies, per-atom forces."""
+    from emdee_tpu_torch.neighbors import cell_kernel as ck
+    from emdee_tpu_torch.neighbors.cell_dense import box_ptr
+
+    sz, sy, sx = mesh.local_shape
+    gz, gy, gx, c = gh.shape[-4:]
+    local = (sz, sy, sx, gz - 2, gy - 2, gx - 2, c)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+
+    def call(params, energy):
+        ghost = gh[:3] if params is not None else gh
+
+        def run():
+            if lib is None:
+                return ck.ghost_forces(ghost, mesh.local_shape, mesh.base, config, None, uniform_params=params,
+                                       compute_energy=energy, backend="cuda")
+            f = torch.empty((3,) + local, dtype=torch.float32, device=gh.device)
+            e = torch.empty(local, dtype=torch.float32, device=gh.device) if energy else None
+            w = torch.empty(local, dtype=torch.float32, device=gh.device) if energy else None
+            hs, tse = (None, None) if params is not None else (gh[3], gh[4])
+            build.check(lib.emdee_cell_forces_ghost(
+                gh[0].data_ptr(), gh[1].data_ptr(), gh[2].data_ptr(), ptr(hs), ptr(tse), f[0].data_ptr(),
+                f[1].data_ptr(), f[2].data_ptr(), ptr(e), ptr(w), gz - 2, gy - 2, gx - 2, sz * sy * sx, sy, sx,
+                *mesh.base, config.cells_per_dim, c, box_ptr(config.box, gh), *ck._pair_consts(config, params),
+                int(params is not None), int(energy), torch.cuda.current_stream(gh.device).cuda_stream),
+                "cell_forces ghost (A/B version)")
+            return f, e, w
+        return run
+
+    return {"K2-G (uniform, forces)": call(uni, False), "K2-G (per-atom, energies)": call(None, True),
+            "K2-G (per-atom, forces)": call(None, False)}
+
+
+def _ghost_states(device, big):
+    """(label, state, config, mesh shape) of the smoke's grid states, each
+    drifted 0.45·skin: the equilibrated 97,556-atom melt at M = 17 on
+    (1,1,1) and at M = 16, C = 40 on (2,2,2); with `big` the 1M melt at
+    M = 36, C = 40 on (2,2,2).  Also the uniform parameters."""
+    from emdee_tpu_torch import cell_dense_init, gather_dense_atoms, make_cell_dense_sim, reconfigure_dense_state
+    from emdee_tpu_torch.tools.melt import DT, N_CELLS_1M, SKIN, equilibrate, even_config, melt
+
+    st, config, model, params, uni, n = melt(device)
+    rollout, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    pos_eq, vel_eq, _, _ = equilibrate(rollout, st, config, n)
+    st17 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
+    st16, cfg16 = reconfigure_dense_state(st17, config, cells_multiple_of=2)
+    drift = lambda s: s._replace(positions=_drift(s.positions, s.velocities, s.valid, SKIN))  # noqa: E731
+    states = [(f"{n} atoms (1,1,1) M=17 C={config.capacity}", drift(st17), config, (1, 1, 1)),
+              (f"{n} atoms (2,2,2) M=16 C={cfg16.capacity}", drift(st16), cfg16, (2, 2, 2))]
+    if big:
+        st37, config37, _, params37, _, n37 = melt(device, N_CELLS_1M)
+        cfg36 = even_config(st37, config37)
+        pos, vel = gather_dense_atoms(st37, n37)
+        st36 = cell_dense_init(pos, vel, np.ones(n37), params37, cfg36, device=device)
+        states.append((f"{n37} atoms (2,2,2) M=36 C={cfg36.capacity}", drift(st36), cfg36, (2, 2, 2)))
+    return states, uni
+
+
 def _compare(smi, what, runs, reps):
     """Bit for bit against A, then ms of every version in turns."""
     ref = runs["A"]()
@@ -149,8 +219,8 @@ def main(argv) -> None:
     from emdee_tpu_torch.neighbors.cell_kernel import lj_resources
     from emdee_tpu_torch.tools.melt import DT, N_CELLS_1M, SKIN, equilibrate, melt, straggler_config
 
-    big = "--1m" in argv
-    dirs = [a for a in argv if a != "--1m"]
+    big, ghost = "--1m" in argv, "--ghost" in argv
+    dirs = [a for a in argv if a not in ("--1m", "--ghost")]
     if not torch.cuda.is_available() or not dirs:
         raise SystemExit("ab_lj: needs a CUDA device and at least one DIR")
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -162,8 +232,13 @@ def main(argv) -> None:
     print(f"{smi}: K2a/K2b/K3 A/B; A = the checkout, " + ", ".join(f"{k} = {d}" for k, d in zip(list(libs)[1:], dirs)),
           flush=True)
     for name, flags in (("K2a", (True, False, False)), ("K2b energies", (False, True, False)),
-                        ("K2b forces", (False, False, False)), ("K3 grid side", (True, False, True))):
+                        ("K2b forces", (False, False, False)), ("K3 grid side", (True, False, True)),
+                        ("K2-G uniform", (True, False, False, True)), ("K2-G energies", (False, True, False, True)),
+                        ("K2-G forces", (False, False, False, True))):
         print(f"{smi}: A's {name} variant: {lj_resources(*flags)}", flush=True)
+    if ghost:
+        _ghost_main(smi, device, libs, big)
+        return
 
     st, config, model, params, uni, n = melt(device)
     rollout, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
@@ -198,6 +273,28 @@ def main(argv) -> None:
             runs = {k: _dense_runs(lib, st, config, uni)[what] for k, lib in libs.items()}
             bits.append(_compare(smi, f"{what} at {n} atoms, M={config.cells_per_dim} C={config.capacity}", runs, 20))
     print(f"{smi}: every version bit for bit A in every launch: {all(all(b.values()) for b in bits)}", flush=True)
+
+
+def _ghost_main(smi, device, libs, big) -> None:
+    """K2-G of every version on the smoke's grid states: bit for bit A, ms
+    in turns."""
+    from emdee_tpu_torch.distributed.grid_sharded import _ghost3, distribute_grid
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    states, uni = _ghost_states(device, big)
+    bits = []
+    for label, st, config, shape in states:
+        mesh = make_grid_mesh(shape, device=device)
+        sh = distribute_grid(st, config, mesh)
+        gh = _ghost3(torch.cat([torch.where(sh.valid, sh.positions.movedim(-1, 0), float("nan")),
+                                sh.half_sigma[None], sh.twice_sqrt_eps[None]]), mesh)
+        for what in _ghost_runs(None, gh, mesh, config, uni):
+            runs = {k: _ghost_runs(lib, gh, mesh, config, uni)[what] for k, lib in libs.items()}
+            bits.append(_compare(smi, f"{what} at {label}", runs, 20 if config.num_atoms > 500_000 else 50))
+        del sh, gh
+        torch.cuda.empty_cache()
+    print(f"{smi}: every version bit for bit A in every K2-G launch: {all(all(b.values()) for b in bits)}",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""A/B the one-card streaming LJ pass (K5) against the pencil kernel it
-replaced, on the card, in one process.  Builds of K5's part of
+"""A/B the one-card streaming LJ pass (K5) against other versions of it —
+a parent's warp-owned K5, or the pencil kernel it replaced — on the card,
+in one process.  Builds of K5's part of
 `csrc/cell_forces_streaming.cu` (`-DEMDEE_PART=0`), each into its own
 library under `build/emdee_tpu_torch/`, all compiled at once:
 
@@ -23,12 +24,14 @@ On the 97,556- and 1,000,188-atom melts of `tools/melt.py`, every atom
 moved 0.45·skin along its velocity (across cell faces and the seam), for
 K5's two entries — the split one (uniform parameters, forces) and the
 stacked one (per-atom parameters, forces, and with energies) — it prints
-whether W equals B bit for bit in every output (else the largest
-difference), the largest difference of every other version from B (gated
-at 2e-5 of the force scale), and the CUDA-event ms of each version in
-turns A, B, C, …, W and back, with the resident kernel's (K2a, K2b)
-beside them; first the card's name and power limit and A's variants'
-registers, spills, shared bytes and blocks an SM.
+whether each warp-owned DIR equals A bit for bit in every output (a
+parent's K5 at C ≤ 96, where the checkout runs the same variants), whether
+W equals each pencil DIR bit for bit (else the largest difference), the
+largest difference of every version from B (gated at 2e-5 of the force
+scale), and the CUDA-event ms of each version in turns A, B, C, …, W and
+back, with the resident kernel's (K2a, K2b) beside them; first the card's
+name and power limit and A's variants' registers, spills, shared bytes and
+blocks an SM.
 """
 
 from __future__ import annotations
@@ -143,7 +146,8 @@ def main(argv) -> None:
     print(f"{smi}: K5 A/B; A = the checkout ({K5_SLICES} slices), "
           + ", ".join(f"{k} = {'warp-owned' if owned[k] else 'the pencil'} in {d}" for k, d in dirs.items())
           + ", W = A without the cull", flush=True)
-    witness = []
+    witness, same_a = [], []
+    pencils = [k for k in dirs if not owned[k]]
     for cells in (N_CELLS, N_CELLS_1M):
         st, config, model, _, uni, n = melt(device, cells)
         st = chip_smoke.drifted(st, SKIN)
@@ -175,9 +179,14 @@ def main(argv) -> None:
             scale = max(float(ref[v].abs().max()), 1.0)
             diffs = {k: chip_smoke.close(f"{k} vs B {what} at {n}", forces(outs[k])[v], ref[v], atol=2e-5 * scale)
                      for k in runs if k != "B"}
-            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(outs["W"], outs["B"]))
-            worst = max(float((a.double() - b.double()).abs().max()) for a, b in zip(outs["W"], outs["B"]))
-            witness.append(same)
+            bits = lambda x, y: all(torch.equal(a.view(torch.int32), b.view(torch.int32))  # noqa: E731
+                                    for a, b in zip(outs[x], outs[y]))
+            owned_same = {k: bits(k, "A") for k in dirs if owned[k]}
+            same_a += list(owned_same.values())
+            pencil_same = {k: bits("W", k) for k in pencils}
+            witness += list(pencil_same.values())
+            worst = {k: max(float((a.double() - b.double()).abs().max()) for a, b in zip(outs["W"], outs[k]))
+                     for k in pencils}
 
             def timed(run):
                 def call():
@@ -189,14 +198,19 @@ def main(argv) -> None:
             for k in list(runs) + list(runs)[::-1]:
                 times[k].append(chip_smoke.cuda_ms(timed(runs[k]), 20 if big else 50))
             k2_ms = chip_smoke.cuda_ms(k2, 20 if big else 50)
-            print(f"{smi}: {what} at {n} atoms (M={config.cells_per_dim} C={config.capacity}): W bit for bit B "
-                  f"{same} (largest |W - B| {worst:.3e}); max |dF| vs B (scale {scale:.1f}) "
+            print(f"{smi}: {what} at {n} atoms (M={config.cells_per_dim} C={config.capacity}): bit for bit A "
+                  + ", ".join(f"{k} {v}" for k, v in owned_same.items()) + "; W bit for bit the pencil "
+                  + ", ".join(f"{k} {v} (largest |W - {k}| {worst[k]:.3e})" for k, v in pencil_same.items())
+                  + f"; max |dF| vs B (scale {scale:.1f}) "
                   + ", ".join(f"{k} {d:.3e}" for k, d in diffs.items()) + "; ms "
                   + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in ts) for k, ts in times.items())
                   + f"; K2 {k2_ms:.4f}", flush=True)
         del st
         torch.cuda.empty_cache()
-    print(f"{smi}: the cull-off build bit for bit the pencil kernel in every launch: {all(witness)}", flush=True)
+    if same_a:
+        print(f"{smi}: every warp-owned version bit for bit A in every launch: {all(same_a)}", flush=True)
+    if witness:
+        print(f"{smi}: the cull-off build bit for bit the pencil kernel in every launch: {all(witness)}", flush=True)
 
 
 if __name__ == "__main__":

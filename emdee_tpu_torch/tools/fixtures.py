@@ -11,6 +11,10 @@ tests (`tests/test_torch_cuda.py`), the CPU differential tests and
   bent A–B–C molecules on a 5³ lattice (375 atoms, box 12.5), bonds A–B and
   B–C, the A–B–C angle, and the 1-3 pair A–C scaled 0.5 / 0.8; at
   exclusion band 1 it has leftover pairs and shared and exclusive terms.
+- A crowded charged box (`crowded_arrays`): M³ cells each holding one
+  jittered lattice of more than 96 or 192 atoms, with the charged
+  fixture's charges, exclusions and bonds, for the streaming family's
+  variants above three centre slots a lane (C > 96).
 - The grid's charged fixture of tests/test_grid_sharded.py:150-202: 2,048
   atoms at ρ = 0.09, ±0.25 charges (neutral), the pairs (i, i+1) and
   (i+1, i+2) of every triplet excluded at 0.5 (LJ) / 0.8 (Coulomb); M = 10,
@@ -38,6 +42,13 @@ def charged_arrays() -> dict:
 
     n = 864
     pos, box = cubic_lattice(n, 0.5, jitter=0.15, seed=5)
+    return dict(n=n, pos=pos, box=box, vel=maxwell_boltzmann(n, 1.0, seed=7), **_charged_terms(n))
+
+
+def _charged_terms(n: int) -> dict:
+    """The charged fixture's terms over atoms 0 … n−1: ±0.3 charges
+    (neutral), the triplet exclusions (i, i+1), (i+1, i+2) with their LJ
+    and Coulomb scales, and bonds on every other pair."""
     q = np.where(np.arange(n) % 2 == 0, 0.3, -0.3).astype(np.float32)
     q -= q.mean()
     base = np.arange(0, n - 2, 3)
@@ -45,25 +56,49 @@ def charged_arrays() -> dict:
     ljs = np.where(np.arange(len(pairs)) % 2 == 0, 0.0, 0.5).astype(np.float32)
     cs = np.where(np.arange(len(pairs)) % 2 == 0, 0.0, 0.8).astype(np.float32)
     bonds = (pairs[0::2], np.full(len(base), 40.0, np.float32), np.full(len(base), 1.1, np.float32))
-    return dict(n=n, pos=pos, box=box, vel=maxwell_boltzmann(n, 1.0, seed=7), q=q, pairs=pairs, ljs=ljs, cs=cs,
-                bonds=bonds)
+    return dict(q=q, pairs=pairs, ljs=ljs, cs=cs, bonds=bonds)
 
 
-def charged_fixture(device, capacity=None):
+def crowded_arrays(per_cell, m: int = 3, edge: float = 5.0, seed: int = 9) -> dict:
+    """A box of m³ cells of side `edge`, each holding one lattice of
+    per_cell = (nx, ny, nz) sites, each site moved by at most 0.1 on each
+    axis (numpy `seed`), so every cell holds exactly nx·ny·nz atoms; with
+    the charged fixture's terms (`_charged_terms`) over the atoms in cell
+    order.  (5, 5, 4) at edge 6 gives cells of 100 atoms (two 96-entry
+    chunks), (7, 7, 4) at edge 8.5 cells of 196 (three), their forces,
+    energies and virials no larger than the charged fixture's."""
+    from emdee_tpu_torch.utils.lattice import maxwell_boltzmann
+
+    rng = np.random.default_rng(seed)
+    dims = np.asarray(per_cell)
+    site = np.stack(np.meshgrid(*(np.arange(d) for d in dims), indexing="ij"), -1).reshape(-1, 3)
+    site = (site + 0.5) * edge / dims
+    corner = np.stack(np.meshgrid(*([np.arange(m)] * 3), indexing="ij"), -1).reshape(-1, 3) * edge
+    pos = (corner[:, None, :] + site[None]).reshape(-1, 3)
+    pos = pos + rng.uniform(-0.1, 0.1, pos.shape)
+    n = len(pos)
+    return dict(n=n, pos=pos, box=m * edge, vel=maxwell_boltzmann(n, 1.0, seed=seed + 1), **_charged_terms(n))
+
+
+def charged_fixture(device, capacity=None, arrays=None, cells_per_dim=None):
     """The charged fixture on the port, every atom moved 0.45·skin along its
     velocity so that a real fraction crosses cell faces and the periodic
     seam: (state, config, LJ model, DSF model, slot tags with bond
-    weights).  capacity: C in place of the suggested one (24)."""
+    weights).  capacity: C in place of the suggested one (24); arrays: the
+    system's arrays in place of `charged_arrays()` (e.g. `crowded_arrays`),
+    cells_per_dim its M."""
     from emdee_tpu_torch import (
         DSFCoulomb, LennardJonesModel, build_exclusion_tables, cell_dense_init, lennard_jones_atom,
         make_exclusion_aux_fn, suggest_cell_dense_config,
     )
 
-    a = charged_arrays()
+    a = charged_arrays() if arrays is None else arrays
     n = a["n"]
     config = suggest_cell_dense_config(n, a["box"], cutoff=CUTOFF, switch=SWITCH, skin=CHARGED_SKIN)
     if capacity is not None:
         config = config._replace(capacity=capacity)
+    if cells_per_dim is not None:
+        config = config._replace(cells_per_dim=cells_per_dim)
     st = cell_dense_init(a["pos"], a["vel"], np.ones(n), lennard_jones_atom(np.ones(n), np.ones(n), device=device),
                          config, charges=a["q"], device=device)
     v = st.velocities

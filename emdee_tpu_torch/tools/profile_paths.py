@@ -12,8 +12,8 @@ family; and the molecular engines on the 98,304-atom flexible-water box of
 'auto' (the streaming family, K5c), and the grid-sharded engine on (2,2,2)
 (K2c-G, bonds and angles as term rows); and the grid's streaming family and
 ensembles: the 1M melt on the grid (1,1,1) at M = 37 on 'auto' (K5s and the
-fold) and on (2,2,2) at M = 36, C = 40 on 'cuda_streaming' and on 'cuda'
-(K2-G), Langevin and NPT (on 'auto' and on 'cuda_streaming') on the
+fold) and on (2,2,2) at M = 36, C = 40 on 'cuda_streaming' and on 'auto'
+(which resolves to 'cuda' there: K2-G), Langevin and NPT (on 'auto' and on 'cuda_streaming') on the
 97,556-atom melt at (2,2,2), M = 16.  `water1m`: the 985,527-atom water
 box (69³ waters, M = 26, C = 88) on the grid (2,2,2) on 'auto' (K5s-mol,
 bonds and angles as term rows) from the lattice start, with windows of 100
@@ -210,10 +210,10 @@ def profile_grid(device) -> None:
     st36 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, cfg36, device=device)
     print(f"{n} atoms, rebin every {k} steps", flush=True)
     for shape, cfg, start, backend in (((1, 1, 1), config, st37, "auto"), ((2, 2, 2), cfg36, st36, "cuda_streaming"),
-                                       ((2, 2, 2), cfg36, st36, "cuda")):
+                                       ((2, 2, 2), cfg36, st36, "auto")):
         mesh = make_grid_mesh(shape, device=device)
         grid, _ = make_grid_sharded_sim(cfg, model, DT, mesh, uniform_params=uni, backend=backend)
-        profile_path(f"1M grid {shape} M={cfg.cells_per_dim} C={cfg.capacity} on {grid.family!r}", grid,
+        profile_path(f"1M grid {shape} M={cfg.cells_per_dim} C={cfg.capacity} on {backend!r} -> {grid.family!r}", grid,
                      distribute_grid(start, cfg, mesh), k)
 
 

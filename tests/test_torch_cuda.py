@@ -424,9 +424,10 @@ _GHOST_GEOMETRY = {24: (2048, 0.4, 6), 32: (1372, 0.6, 4), 40: (1372, 0.6, 4), 5
 @pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2)])
 @pytest.mark.parametrize("capacity", [24, 32, 40, 56, 88])
 def test_ghost_force_kernel_equals_k2_and_matches_plain(device, capacity, shape):
-    """The grid's GHOST mode, which keeps the full-shell kernel, against
-    the one-card LJ pass (K2a/K2b: warp-owned cells, the cull, per-lane
-    lists) on the same drifted state, sharded over `shape`: per-atom forces
+    """The grid's GHOST mode (K2-G: the LJ pass's warp-owned kernel on the
+    ghost grids since its redesign) against the one-card LJ pass (K2a/K2b:
+    warp-owned cells, the cull) on the same drifted state, sharded over
+    `shape`: per-atom forces
     with energies and virials, per-atom forces alone and uniform forces
     (K2a's component entry) bit for bit, at C = 24 … 88 (one to three warps
     a cell); the GHOST kernel within 2e-5 of the force scale of its plain
@@ -729,6 +730,117 @@ def test_k5c_matches_plain_at_water_capacities_and_reruns_bitwise(device, capaci
                                                                 0 if len(excl) == 3 else excl[3][0].shape[-1])
 
 
+# Cells fuller than 96 and 192 atoms (`fixtures.crowded_arrays`): at C =
+# 104 the streaming family runs two 96-entry chunks a cell, at C = 200 three.
+_CROWDED = {104: ((5, 5, 4), 6.0), 200: ((7, 7, 4), 8.5)}
+
+
+def _crowded(device, capacity, m=3):
+    """The crowded charged box at C: (state, config, LJ model, DSF model,
+    slot tags with bond weights), every cell holding 100 (C = 104) or 196
+    (C = 200) atoms, drifted 0.45·skin."""
+    per, edge = _CROWDED[capacity]
+    st, config, model, coul, tags = fixtures.charged_fixture(device, capacity, fixtures.crowded_arrays(per, m, edge), m)
+    assert not bool(st.overflow) and int(st.valid.sum(1).min()) > 96 * ((capacity - 1) // 96)
+    return st, config, model, coul, tags
+
+
+@pytest.mark.parametrize("capacity", [104, 200])
+def test_streaming_chunked_kernel_matches_plain_and_reruns_bitwise(device, capacity):
+    """F1: K5 above three centre slots a lane (its chunked variant: a cell
+    compacted into 96-entry chunks, a cell pair run chunk pair by chunk
+    pair with the cull) on cells of 100 and 196 atoms, two and three chunks:
+    the stacked entry (per-atom, forces alone and with energies) and the
+    split entry (uniform) against the plain version within 2e-5 of the
+    force scale, energies and virials at the one-card test's gates, empty
+    slots exactly 0, two launches a call, a second call bitwise equal; the
+    split entry equals the stacked uniform one bit for bit; the card reports
+    the variant's resources."""
+    st, config, model, _, _ = _crowded(device, capacity)
+    v = st.valid
+    uni = (0.5, 2.0)
+    for energy in (False, True):
+        before = streaming_kernel.LAUNCHES
+        got = streaming_kernel.cell_forces_streaming(st, model, config, compute_energy=energy, backend="cuda")
+        again = streaming_kernel.cell_forces_streaming(st, model, config, compute_energy=energy, backend="cuda")
+        fp, ep, wp = streaming_kernel.cell_forces_streaming(st, model, config, compute_energy=energy, backend="torch")
+        torch.cuda.synchronize()
+        assert streaming_kernel.LAUNCHES == before + 4
+        assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+        scale = max(float(fp[v].abs().max()), 1.0)
+        assert float((got[0] - fp)[v].abs().max()) <= 2e-5 * scale
+        assert bool((got[0][~v] == 0).all())
+        if energy:
+            np.testing.assert_allclose(got[1][v].cpu().numpy(), ep[v].cpu().numpy(), rtol=1e-4, atol=1e-4)
+            np.testing.assert_allclose(got[2][v].cpu().numpy(), wp[v].cpu().numpy(), rtol=1e-4, atol=2e-3)
+        res = streaming_kernel.k5_resources(config, False, energy)
+        assert res["registers"] > 0 and res["blocks_per_sm"] >= 1 and res["warps_per_block"] >= 1
+    comps = [st.positions[..., i].contiguous() for i in range(3)]
+    fk = streaming_kernel.cell_forces_streaming_split(*comps, v, config, uniform_params=uni, backend="cuda")
+    f2 = streaming_kernel.cell_forces_streaming_split(*comps, v, config, uniform_params=uni, backend="cuda")
+    fp = streaming_kernel.cell_forces_streaming_split(*comps, v, config, uniform_params=uni, backend="torch")
+    stacked = streaming_kernel.cell_forces_streaming(st, model, config, uniform_params=uni, backend="cuda")[0]
+    assert all(torch.equal(a, b) for a, b in zip(fk, f2))
+    assert torch.equal(torch.stack(fk, -1), stacked)
+    scale = max(max(float(f[v].abs().max()) for f in fp), 1.0)
+    assert max(float((a - b)[v].abs().max()) for a, b in zip(fk, fp)) <= 2e-5 * scale
+
+
+@pytest.mark.parametrize("capacity", [104, 200])
+@pytest.mark.parametrize("variant", ["coulomb_tags", "coulomb_bonds"])
+def test_k5c_chunked_matches_plain_and_reruns_bitwise(device, variant, capacity):
+    """F1: K5c's chunked variant on cells of 100 and 196 atoms (two and
+    three chunks), DSF with the tags (and the bond tags): within 2e-4 of the
+    force scale and 1e-3 in energies and virials of its plain version and
+    of K2c, empty slots exactly 0, a second call bitwise equal; the card
+    reports the variant's resources (its warps a block as the wrapper
+    counts them; no spill, its launch bounds asking for two blocks an SM)."""
+    st, config, model, coul, tags = _crowded(device, capacity)
+    v = st.valid
+    excl = tags if variant == "coulomb_bonds" else tags[:3]
+    for energy in (False, True):
+        kw = dict(compute_energy=energy, coulomb=coul, excl=excl)
+        got = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", **kw)
+        again = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", **kw)
+        fp, ep, wp = streaming_kernel.cell_forces_streaming(st, model, config, backend="torch", **kw)
+        f2, e2, w2 = cell_kernel.cell_forces(st, model, config, backend="cuda", **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+        scale = max(float(fp[v].abs().max()), 1.0)
+        assert float((got[0] - fp)[v].abs().max()) <= 2e-4 * scale
+        assert float((got[0] - f2)[v].abs().max()) <= 2e-4 * scale
+        assert bool((got[0][~v] == 0).all())
+        if energy:
+            for a, b in ((got[1], ep), (got[2], wp), (got[1], e2), (got[2], w2)):
+                assert float((a - b)[v].abs().max()) <= 1e-3
+        res = streaming_kernel.k5c_resources(config, coul, excl, energy)
+        assert res["registers"] > 0 and res["blocks_per_sm"] >= 1 and res["warps_per_block"] >= 1
+        assert res["local_bytes"] == 0, res
+
+
+@pytest.mark.parametrize("capacity", [104, 200])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2)])
+def test_k5s_chunked_kernels_match_plain(device, shape, capacity):
+    """F1 on the grid's shards: the K5s pencil (LJ, uniform and per-atom)
+    and K5s-mol (DSF and the tags) in their chunked variants on the crowded
+    box at M = 4 (cells of 100 and 196 atoms), against their plain versions
+    before the fold and, after it, against the one-card K5 and K5c, at the
+    gates of the C ≤ 96 tests; reruns bitwise (`_k5s_vs_plain`)."""
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+
+    st, config, model, coul, tags = _crowded(device, capacity, m=4)
+    mesh = make_grid_mesh(shape, device=device)
+    sh = distribute_grid(st, config, mesh)
+    for uni in (None, (0.5, 2.0)):
+        one = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", uniform_params=uni)[0]
+        _k5s_vs_plain(sh, mesh, config, model, one, 2e-5, 1e-4, 2e-3, 1e-4, uniform_params=uni)
+    one = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", coulomb=coul, excl=tags[:3])[0]
+    shard = lambda t: distribute_grid(st._replace(positions=t), config, mesh).positions  # noqa: E731
+    _k5s_vs_plain(sh, mesh, config, model, one, 2e-4, 1e-3, 1e-3, 0.0, coulomb=coul,
+                  excl=tuple(shard(t) for t in tags[:3]))
+
+
 # Seven bonded pairs 2.47–2.48 apart (the cutoff is 2.5) in a 12³ box of
 # 4³ cells, each atom alone in its cell, so that a cell's bounding box is
 # the atom itself: across a face, an edge and a corner, each also across
@@ -847,11 +959,13 @@ def _empty_strag_operands(st, config):
     return (*comps, st.valid, *aux, acell, table, sconfig), sconfig
 
 
-@pytest.mark.parametrize("capacity", [24, 32])
+@pytest.mark.parametrize("capacity", [24, 32, 104])
 def test_lj_cull_keeps_switch_region_pairs_per_atom(device, capacity):
     """The LJ pass (K2a, K2b with and without energies, K3's grid side with
-    nothing parked) and the one-card streaming pass (K5's split entry and
-    its stacked entry with and without energies) drop no pair in the
+    nothing parked, and K2-G, the grid's GHOST mode, on (1,1,1) and (2,2,2)
+    with and without energies, gathered to the one-card slots) and the
+    one-card streaming pass (K5's split entry and its stacked entry with and
+    without energies; at C = 104 its chunked variant) drop no pair in the
     switch region just inside the cutoff: the `_CULL_PAIRS` geometry with unit LJ and nothing else — each
     atom alone in its cell with one partner at 0.988–0.992 rc across a face,
     an edge or a corner, the periodic seam, or an overhang — so each atom's
@@ -861,6 +975,8 @@ def test_lj_cull_keeps_switch_region_pairs_per_atom(device, capacity):
     virial within 1e-2 of theirs (the energy there is the switch's small
     remainder, S ≈ 3e-3, whose float32 rounding reaches ~1e-3 of it; a
     dropped pair misses it whole)."""
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
     from emdee_tpu_torch.neighbors import straggler_kernel
 
     st, config, pos, edge = _cull_pairs_positions(device, capacity)
@@ -885,6 +1001,25 @@ def test_lj_cull_keeps_switch_region_pairs_per_atom(device, capacity):
         "K5 energies": (None, lambda b: streaming_kernel.cell_forces_streaming(st, model, config,
                                                                               compute_energy=True, backend=b)),
     }
+
+    def k2g(shape, energy):
+        """K2-G's forces (and energies, virials) on `shape`, in one-card slots."""
+        mesh = make_grid_mesh(shape, device=device)
+        sh = gs.distribute_grid(st, config, mesh)
+
+        def run(b):
+            roll, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, backend="cuda" if b == "cuda" else "torch")
+            f, e, w = roll.forces(sh, compute_energy=energy)
+            whole = gs.gather_grid_state(sh._replace(positions=f, half_sigma=sh.half_sigma if e is None else e,
+                                                     twice_sqrt_eps=sh.twice_sqrt_eps if w is None else w),
+                                         config, mesh)
+            return (whole.positions, whole.half_sigma, whole.twice_sqrt_eps) if energy else whole.positions
+        return run
+
+    for shape in ((1, 1, 1), (2, 2, 2)):
+        name = f"K2-G {shape}"
+        runs[name] = (k2g(shape, False), None)
+        runs[name + " energies"] = (None, k2g(shape, True))
     failed = []  # every launch is held, so that one run names each that drops a pair
     for name, (forces, energies) in runs.items():
         if energies is not None:
@@ -908,8 +1043,9 @@ def test_k3_with_nothing_parked_equals_k2a_and_reruns_bitwise(device):
     the straggler fixture's grid (C_t two below the fullest cell, drifted
     0.45·skin); K2a, K2b (with and without energies) and K3 with the
     fixture's own table rerun bitwise; and the card reports the LJ pass's
-    shared memory as `cell_kernel.lj_smem_bytes` counts it, with at least
-    the LJ_MIN_BLOCKS blocks an SM that its launch bounds ask for."""
+    shared memory (its K2-G variants' too) as `cell_kernel.lj_smem_bytes`
+    counts it, with at least the LJ_MIN_BLOCKS blocks an SM that its launch
+    bounds ask for."""
     from emdee_tpu_torch.neighbors import straggler_kernel
     from emdee_tpu_torch.neighbors.cell_dense_straggler import _bindings, _hood_matrix
 
@@ -941,7 +1077,8 @@ def test_k3_with_nothing_parked_equals_k2a_and_reruns_bitwise(device):
     for call in calls:
         x, y = call(), call()
         assert all(torch.equal(s.view(torch.int32), t.view(torch.int32)) for s, t in zip(x, y) if s is not None)
-    for flags in ((True, False, False), (False, True, False), (False, False, False), (True, False, True)):
+    for flags in ((True, False, False), (False, True, False), (False, False, False), (True, False, True),
+                  *((u, e, False, True) for u in (True, False) for e in (False, True))):
         res = cell_kernel.lj_resources(*flags)
         assert res["registers"] > 0 and res["warps_per_block"] == cell_kernel.LJ_WARPS
         assert res["smem_bytes"] == cell_kernel.lj_smem_bytes()
@@ -1230,9 +1367,10 @@ def test_k5s_mol_cull_keeps_pairs_just_inside_the_cutoff(device, capacity, shape
 
 
 def test_streaming_ghost_geometry_refusals_and_cpu(device):
-    """K5s refuses what its C entries would, before any launch: C > 96, and
-    a block's shared memory past Hopper's 232,448 B (an LJ pencil of 50
-    cells at C = 96 with energies; 49 fit); K5s-mol's warp-owned block,
+    """K5s refuses what its C entries would, before any launch: C > 1024,
+    and a block's shared memory past Hopper's 232,448 B (an LJ pencil of 50
+    cells at C = 96 with energies, 49 fit; at C = 1024 one warp's chunks
+    beside a pencil of 4 cells, 3 fit); K5s-mol's warp-owned block,
     whatever the pencil, takes the same row with eight tags; 'cuda' on CPU
     tensors and the 'cuda_streaming' family on a CPU mesh raise, with no
     fallback."""
@@ -1240,15 +1378,18 @@ def test_streaming_ghost_geometry_refusals_and_cpu(device):
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
 
     st, config, model = _state(device)
-    with pytest.raises(ValueError, match="C ≤ 96"):
-        streaming_kernel._check_ghost_geometry(config._replace(capacity=104), 4, False, False, 0)
+    with pytest.raises(ValueError, match="C ≤ 1024"):
+        streaming_kernel._check_ghost_geometry(config._replace(capacity=1025), 4, False, False, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        streaming_kernel._check_ghost_geometry(config._replace(capacity=1024), 4, True, False, 0)
+    streaming_kernel._check_ghost_geometry(config._replace(capacity=1024), 3, True, False, 0)
     with pytest.raises(ValueError, match="shared memory"):
         streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 50, True, False, 0)
     streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 49, True, False, 0)
     streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 50, True, True, 8)
-    wide = config._replace(capacity=104)
-    gh = torch.full((5, 1, 1, 1, 5, 5, 5, 104), float("nan"), device=device)
-    with pytest.raises(ValueError, match="C ≤ 96"):
+    wide = config._replace(capacity=1025)
+    gh = torch.full((5, 1, 1, 1, 5, 5, 5, 1025), float("nan"), device=device)
+    with pytest.raises(ValueError, match="C ≤ 1024"):
         streaming_kernel.streaming_ghost_forces(gh, (1, 1, 1), (0, 0, 0), wide, model, backend="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         streaming_kernel.streaming_ghost_forces(gh.cpu(), (1, 1, 1), (0, 0, 0), wide, model, backend="cuda")

@@ -257,14 +257,22 @@ def test_k5s_shared_memory_fits_the_smoke_shapes():
     box's (2,2,2) (mx = 13, C = 88, DSF and eight tags, with energies); the
     geometry check refuses C > 96 and an LJ pencil row too wide for a
     block.  K5s-mol's warp-owned block (K5c's, no bond tags) does not grow
-    with the pencil row, so the same row is taken with the molecular terms."""
+    with the pencil row, so the same row is taken with the molecular terms.
+    Above C = 96 the pencil's warps hold chunks: C = 104 at mx = 13 takes
+    its eight warps, C = 1024 one warp beside the rows up to mx = 3; C >
+    1024 is refused."""
     from emdee_tpu_torch.neighbors import streaming_kernel as sk
 
     sk._check_ghost_geometry(_config(37, 32), 37, True, False, 0)
     sk._check_ghost_geometry(_config(26, 88), 13, True, True, 8)
     assert sk.ghost_smem_bytes(13, 88, True, True, 2) < sk.ghost_smem_bytes(13, 88, True, True, 8) <= 232_448
-    with pytest.raises(ValueError, match="C ≤ 96"):
-        sk._check_ghost_geometry(_config(26, 104), 13, False, False, 0)
+    with pytest.raises(ValueError, match="C ≤ 1024"):
+        sk._check_ghost_geometry(_config(26, 1025), 13, False, False, 0)
+    sk._check_ghost_geometry(_config(26, 104), 13, False, False, 0)
+    assert sk.ghost_smem_bytes(13, 104, False) == 4 * (3 * 28 * 104 + 8 * 6 * 96 * 6)
+    sk._check_ghost_geometry(_config(24, 1024), 3, True, False, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        sk._check_ghost_geometry(_config(24, 1024), 4, True, False, 0)
     with pytest.raises(ValueError, match="shared memory"):
         sk._check_ghost_geometry(_config(60, 96), 60, True, False, 0)
     sk._check_ghost_geometry(_config(60, 96), 60, True, True, 8)

@@ -16,7 +16,10 @@ neighbour's box against the centres, then the kept centres' box against
 the neighbour — drops no such pair on the 1,000,188-atom melt (FCC 63³, M
 = 37) drifted by up to skin/2 (and on the 864-atom fixture at C = 32, in
 test_torch_streaming_cull.py); and K5's scratch at the melts is what the wrapper allocates.  No card is
-touched."""
+touched.  K2-G, the LJ pass on the grid's ghost grids: its per-warp
+table (`cell_kernel.ghost_lj_table`) against the plain ghost pass's blocks
+and the one-card neighbours on (1,1,1), (2,2,2) and (2,4,1), and its cull
+(the table's shift, `k2c_cull` at rc²) on the drifted melt sharded (2,2,2)."""
 
 import numpy as np
 import pytest
@@ -161,3 +164,110 @@ def test_k5_scratch_at_the_melts(m, want):
     assert sk.K5_SLICES == 14
     assert (sk.scratch_bytes(config, False), sk.scratch_bytes(config, True)) == want
     assert want[0] == 4 * 14 * 3 * m**3 * 32
+
+
+# ---------------------------------------------------------------------------
+# K2-G: the LJ pass's GHOST mode on the grid's ghost grids
+# ---------------------------------------------------------------------------
+
+
+def _slots_state(stacked, valid):
+    """A one-card CellDenseState of binned positions and their valid mask
+    (every other field zero), for sharding with `distribute_grid`."""
+    from emdee_tpu_torch.neighbors.cell_dense import CellDenseState
+
+    z = torch.zeros(valid.shape)
+    return CellDenseState(stacked, torch.zeros_like(stacked), z, z, z, torch.zeros(valid.shape, dtype=torch.int32),
+                          valid, stacked, torch.tensor(0, dtype=torch.int32), torch.tensor(False))
+
+
+def _ghost_positions(stacked, valid, config, shape):
+    """The grid engine's ghost grids of these slots on a CPU `LocalMesh` of
+    `shape` (NaN in empty slots), flattened: ((shards·(mz+2)(my+2)(mx+2), C,
+    3), the mesh)."""
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import LocalMesh
+
+    mesh = LocalMesh(shape, "cpu")
+    sh = gs.distribute_grid(_slots_state(stacked, valid), config, mesh)
+    g = gs._ghost3(torch.where(sh.valid, sh.positions.movedim(-1, 0), float("nan")), mesh)
+    return g.movedim(0, -1).reshape(-1, config.capacity, 3), mesh
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2), (2, 4, 1)])
+def test_k2g_table_matches_the_ghost_blocks_and_the_one_card_neighbours(shape):
+    """K2-G's per-warp table (`cell_kernel.ghost_lj_table`: each of the 27
+    neighbours' ghost cell and the shift of its global cell index): the
+    ghost cell is the block of the ghost grid that the plain
+    ghost pass takes at that offset (`ghost_tiles.block`), it holds the
+    one-card neighbour cell at the wrapped index (the slots carry each
+    cell's global id), and the shift is the one the one-card LJ pass takes
+    for that neighbour — ±box exactly where the index wraps.  M = 8, so
+    that (2,4,1) has two cell layers a shard.  So the warp
+    sees the one-card walk's slots and shifts, the ground of bit-for-bit
+    equality on every decomposition."""
+    from emdee_tpu_torch import LennardJonesModel
+
+    m, c, box = 8, 2, 24.0
+    config = fixtures.charged_fixture("cpu")[1]._replace(cells_per_dim=m, capacity=c, box=box)
+    ids = torch.arange(m**3, dtype=torch.float32)[:, None, None].expand(m**3, c, 3).contiguous()
+    gpos, mesh = _ghost_positions(ids, torch.ones((m**3, c), dtype=torch.bool), config, shape)
+    local = tuple(m // s for s in shape)
+    n_sh, gdims = int(np.prod(shape)), tuple(v + 2 for v in local)
+    index = torch.arange(n_sh * int(np.prod(gdims)), dtype=torch.float32).reshape((n_sh, *gdims, 1))
+    ghost = index.expand((n_sh, *gdims, c)).reshape((1, *shape, *gdims, c)).expand((5, *shape, *gdims, c))
+    t = cell_kernel.ghost_tiles(ghost.contiguous(), config, LennardJonesModel.create(2.5, 2.0, device="cpu"),
+                                (0.5, 2.0), False)
+    for cell in range(n_sh * int(np.prod(local))):
+        home, first, shift = cell_kernel.ghost_lj_table(cell, shape, mesh.base, local, m, box)
+        assert home == int(t.pos[cell, 0, 0])
+        own = int(gpos[home, 0, 0])
+        z, y, x = own // (m * m), (own // m) % m, own % m
+        for code in range(27):
+            dz, dy, dx = code // 9 - 1, (code // 3) % 3 - 1, code % 3 - 1
+            assert first[code] == int(t.block(t.pos_g[..., 0], (dx, dy, dz))[cell, 0])
+            wrapped = (((z + dz) % m) * m + (y + dy) % m) * m + (x + dx) % m
+            assert int(gpos[first[code], 0, 0]) == wrapped
+            assert shift[code] == [box * ((v + d >= m) - (v + d < 0)) for v, d in zip((x, y, z), (dx, dy, dz))]
+
+
+def test_k2g_cull_keeps_every_inside_pair_on_the_drifted_melt_sharded_222():
+    """K2-G's cull on the ghost grids: the melt's lattice binned at the
+    grid's M = 16, C = 40 (`reconfigure_dense_state(cells_multiple_of=2)`'s
+    config for the smoke's (2,2,2) runs), every atom moved by up to skin/2
+    on each axis (numpy seed 7), as between rebins, sharded (2,2,2) into
+    ghost grids: for the own cells on a shard's z and y faces (whose
+    neighbours lie in the ghost layers, some across the seam), each warp of
+    32 live centres (slot order) keeps, by `k2c_cull` at rc² with the
+    table's shift (`ghost_lj_table`), every neighbour atom whose float32 r²
+    to one of its centres ((x_i − x_j) − shift, on the raw ghost
+    coordinates) is below rc²."""
+    m, capacity, shape = 16, 40, (2, 2, 2)
+    pos, box = fcc_lattice(N_CELLS, density=DENSITY)
+    stacked, valid = _binned(pos, box, m, capacity)
+    assert int(valid.sum()) == len(pos)
+    drift = np.random.default_rng(7).uniform(-0.5 * SKIN, 0.5 * SKIN, stacked.shape).astype(np.float32)
+    stacked = torch.where(valid[..., None], stacked + torch.from_numpy(drift), 0.0)
+    config = fixtures.charged_fixture("cpu")[1]._replace(cells_per_dim=m, capacity=capacity, box=box)
+    gpos, mesh = _ghost_positions(stacked, valid, config, shape)
+    local = (8, 8, 8)
+    cut2 = CUTOFF**2
+    checked = 0
+    for cell in range(8 * 512):
+        y, z = (cell // 8) % 8, (cell // 64) % 8
+        if z not in (0, 7) or y not in (0, 7):
+            continue
+        home, first, shift = cell_kernel.ghost_lj_table(cell, shape, mesh.base, local, m, box)
+        cen_all = gpos[home][~torch.isnan(gpos[home][:, 0])]
+        for code in range(27):
+            nb = gpos[first[code]][~torch.isnan(gpos[first[code]][:, 0])]
+            sh = torch.tensor(shift[code], dtype=torch.float32)
+            for w0 in range(0, len(cen_all) if len(nb) else 0, 32):
+                cen = cen_all[w0:w0 + 32]
+                keep = cell_kernel.k2c_cull(cen, nb, sh, cut2)
+                d = (cen[:, None, :] - nb[None, :, :]) - sh
+                r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+                inside = r2 < cut2 * (1 + 1e-5)
+                assert bool(keep[inside.any(0)].all()), (cell, code, w0)
+                checked += int(inside.sum())
+    assert checked > 200_000

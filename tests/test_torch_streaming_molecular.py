@@ -146,14 +146,17 @@ def test_water_boxes_resolve_to_the_streaming_family():
 
 
 def test_k5c_refuses_geometry_it_cannot_take(charged):
-    """What the C entries refuse raises before a launch: C > 96 and M < 3,
+    """What the C entries refuse raises before a launch: C > 1024 and M < 3,
     for K5c and for K5 (LJ).  Both blocks hold four warps' tiles and centre
     and reaction rows (K5c's also its staged tags), whatever M: K5c's widest
     block (C = 96, E = E_b = 8, energies) and K5's fit at M = 60, and the
-    entries count the bytes alike."""
+    entries count the bytes alike; at C = 1024 with eight tags and bond
+    tags one K5c warp's chunks, tags and rows fill a block."""
     _, config, _, _ = charged
-    with pytest.raises(ValueError, match="C ≤ 96"):
-        streaming_kernel._check_geometry(config._replace(capacity=104), True, True, 2, 2)
+    with pytest.raises(ValueError, match="C ≤ 1024"):
+        streaming_kernel._check_geometry(config._replace(capacity=1025), True, True, 2, 2)
+    streaming_kernel._check_geometry(config._replace(capacity=1024), True, True, 8, 8)
+    assert streaming_kernel._owned_block(1024, True, 8, 8) == (4 * (24 * 8 * 96 + 3 * 16 * 96 + 2 * 5 * 1024), 1)
     with pytest.raises(ValueError, match="M ≥ 3"):
         streaming_kernel._check_geometry(config._replace(cells_per_dim=2), True, True, 2, 2)
     with pytest.raises(ValueError, match="M ≥ 3"):
