@@ -185,6 +185,11 @@ K5_BEFORE = {"split_ms": 0.2236, "n1m_split_ms": 1.3159, "n1m_energy_ms": 1.7722
 # old kernel (PERF.md §5; NVIDIA H100 80GB HBM3, 700.00 W), keyed by (M,
 # mesh shape), printed beside this run's times.
 K2G_BEFORE = {(17, (1, 1, 1)): 0.1954, (16, (2, 2, 2)): 0.3215, (36, (2, 2, 2)): 3.0568}
+# K5s (LJ, uniform parameters, forces) before its redesign (the pencil
+# kernel, one block a (z, y) pencil of a shard): its last chip_smoke.py
+# times at the 1M melt, a launch pair (PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700.00 W), keyed by (M, mesh shape), printed beside this run's times.
+K5S_BEFORE = {(37, (1, 1, 1)): 1.3782, (36, (2, 2, 2)): 1.6075}
 # F1's capacity: above three centre slots a lane, the streaming family's
 # chunked variants; at M = 12 the 97,556-atom melt's estimate passes 13 MB.
 C_F1 = 104
@@ -2095,13 +2100,13 @@ def k5s_times(sh, mesh, cfg, model, reps, **kw):
 
 
 def k5s_bound(pairs, ops_per_pair, ghost_slots, own_slots, in_fields, in_bytes=0):
-    """(bound ms, what bounds it) of K5s and the fold, forces only: the
-    pairs inside the cutoff at 67 TFLOP/s against the bytes at 3.35 TB/s —
-    the ghost grids' `in_fields` float32 fields (and `in_bytes` more) read
-    once, the interior forces and the reaction ghost grid written once, and
-    the fold reading the ghost slots' reactions and writing as many into
-    the boundary layers."""
-    nbytes = in_bytes + 4 * (in_fields * ghost_slots + 3 * own_slots + 3 * ghost_slots + 6 * (ghost_slots - own_slots))
+    """(bound ms, what bounds it) of K5s, forces only — the pair pass and
+    the assembly that `k5s_times` times as `ms`, not the fold (timed apart
+    as `fold_ms`): the pairs inside the cutoff at 67 TFLOP/s against the
+    bytes at 3.35 TB/s — the ghost grids' `in_fields` float32 fields (and
+    `in_bytes` more) read once, the interior forces and the reaction ghost
+    grid written once."""
+    nbytes = in_bytes + 4 * (in_fields * ghost_slots + 3 * own_slots + 3 * ghost_slots)
     return bound(nbytes, ops_per_pair * pairs)
 
 
@@ -2126,7 +2131,7 @@ def phase_grid_1m(device, tag, eq):
         distribute_grid, gather_grid_state, grid_vmem_estimate, make_grid_sharded_sim,
     )
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
-    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming, k5_resources
 
     config, model, params, uni, k = eq["config"], eq["model"], eq["params"], eq["uni"], eq["k"]
     n = config.num_atoms
@@ -2174,9 +2179,11 @@ def phase_grid_1m(device, tag, eq):
         no_host_waits(label, lambda: roll(sg, num_steps=2 * k, rebin_every=k))
         counts[name], ms[name] = c, 1e3 * sec / steps
         row[name] = {**t, "pairs": pairs, "estimate_mb": est / 1e6, "force_scale": scale}
+        before = K5S_BEFORE.get((cfg.cells_per_dim, shape))
         log(f"{tag} {label} (LocalMesh, uniform params, backend {backend!r} -> {roll.family!r}, per-shard "
             f"estimate {est / 1e6:.2f} MB): K5s vs plain max |dF| {e:.3e}, + fold vs one-card K5 {o:.3e} "
-            f"(scale {scale:.2f}); E, W vs the dense closure in rtol 1e-5; K5s {t['ms']:.4f} ms (2 launches), "
+            f"(scale {scale:.2f}); E, W vs the dense closure in rtol 1e-5; K5s {t['ms']:.4f} ms (2 launches"
+            + ("" if before is None else f"; the pencil before the redesign {before:.4f}, PERF.md §6") + "), "
             f"energy variant {t['energy_ms']:.4f}, plain {t['plain_ms']:.3f}, fold {t['fold_ms']:.4f}, the force "
             f"pass with halo and fold {t['pass_ms']:.4f}, K2-G on the same ghost grids {t['k2g_ms']:.4f} ms; bound "
             f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {pairs:,} pairs inside the cutoff); {steps} NVE steps in "
@@ -2187,6 +2194,10 @@ def phase_grid_1m(device, tag, eq):
                        atol=2e-5 * scale) for a in names[1:])
     log(f"{tag} 1M grid: forces by atom of {', '.join(names)} agree to max |dF| {decomp:.3e} (gate 2e-5 of the "
         "scale; the fold's order, not bit for bit)")
+    res = {f"C={cfg.capacity} {what}": k5_resources(cfg, u, e, ghost=True) for cfg in (config, cfg36)
+           for what, u, e in (("uniform", True, False), ("uniform energies", True, True),
+                              ("per-atom", False, False), ("per-atom energies", False, True))}
+    log(f"{tag} K5s (streaming_lj_kernel, GHOST) resources: {resources_line(res)}")
 
     # (2,2,2) M = 36 on 'auto', which picks the resident family there: K2-G.
     shape, name = (2, 2, 2), "grid_1m_222_m36_auto"
@@ -2208,8 +2219,8 @@ def phase_grid_1m(device, tag, eq):
     log(f"{tag} {label} -> {roll.family!r} (K2-G; per-shard estimate {est / 1e6:.2f} MB): {GRID_1M_SHORT} NVE steps "
         f"in {sec:.3f} s = {ms[name]:.4f} ms/step (before K2-G's redesign 3.55, PERF.md §5), drift {drift:.3e}; "
         f"launches {c}; reruns bitwise; no host waits")
-    return (dict(runs=row, max_abs_err=err, vs_one_card=vs_one, energy_err=err_e, decomp_err=decomp), counts, ms,
-            k2g)
+    return (dict(runs=row, max_abs_err=err, vs_one_card=vs_one, energy_err=err_e, decomp_err=decomp, resources=res),
+            counts, ms, k2g)
 
 
 def phase_grid_water_1m(device, tag, w1m):
@@ -2226,7 +2237,7 @@ def phase_grid_water_1m(device, tag, w1m):
     from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, grid_vmem_estimate, make_grid_sharded_sim
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
     from emdee_tpu_torch.neighbors.streaming_kernel import (
-        cell_forces_streaming, ghost_mol_scratch_bytes, k5s_mol_resources, streaming_ghost_forces,
+        cell_forces_streaming, ghost_scratch_bytes, k5s_mol_resources, streaming_ghost_forces,
     )
     from emdee_tpu_torch.tools import water
 
@@ -2287,7 +2298,7 @@ def phase_grid_water_1m(device, tag, w1m):
         "bitwise")
     log(f"{tag} K5s-mol resources at C={cfg.capacity}: {resources_line(t['resources'])}; the card's peak "
         f"allocation {t['energy_peak_gb']:.2f} GB while the energy variant ran ({base_gb:.2f} GB held before it; "
-        f"scratch {ghost_mol_scratch_bytes(8, (cfg.cells_per_dim // 2,) * 3, cfg.capacity, True) / 1e9:.2f} GB), "
+        f"scratch {ghost_scratch_bytes(8, (cfg.cells_per_dim // 2,) * 3, cfg.capacity, True, mol=True) / 1e9:.2f} GB), "
         f"{phase_gb:.2f} GB over the phase")
     row = {**t, "max_abs_err": err, "vs_one_card": vs_one, "energy_err": err_e, "force_scale": scale,
            "pairs": pairs, "estimate_mb": est / 1e6, "ms_per_step": ms, "drift": drift, "phase_peak_gb": phase_gb}
@@ -3119,7 +3130,7 @@ def main() -> None:
              ms=k5s["runs"]["grid_1m_111_m37"]["ms"], plain_ms=k5s["runs"]["grid_1m_111_m37"]["plain_ms"],
              bound_ms=k5s["runs"]["grid_1m_111_m37"]["bound_ms"], bound_by=k5s["runs"]["grid_1m_111_m37"]["bound_by"],
              library_ms=None, vs_one_card_max_abs_err=k5s["vs_one_card"], energy_max_abs_err=k5s["energy_err"],
-             decomposition_max_abs_err=k5s["decomp_err"], runs=k5s["runs"]),
+             decomposition_max_abs_err=k5s["decomp_err"], resources=k5s["resources"], runs=k5s["runs"]),
         dict(name="cell_forces_streaming_ghost_mol", route="cuda",
              source="emdee_tpu_torch/csrc/cell_forces_streaming.cu",
              replaces="emdee_tpu/distributed/grid_sharded.py:658",

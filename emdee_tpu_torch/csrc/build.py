@@ -82,11 +82,13 @@ _SIGNATURES = {
     "emdee_streaming_fold_mol": [_P, _P, _P, _P, _I, _L, _I, _P],
     # fx, fy, fz, fstride, e, w, slices, num_slots, energy, stream
     "emdee_streaming_fold": [_P, _P, _P, _I, _P, _P, _P, _L, _I, _P],
-    # px, py, pz, hs, tse, out, groups, mz, my, mx, shards, sy_n, sx_n, bz,
-    # by, bx, m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2,
+    # px, py, pz, hs, tse, slices, mz, my, mx, shards, sy_n, sx_n, bz, by,
+    # bx, m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2,
     # sig2_u, eps4_u, uniform, energy, stream
-    "emdee_streaming_ghost": [_P] * 7 + [_I] * 11 + [_P] + [_F] * 10 + [_I, _I, _P],
-    # out, groups, react, mz, my, mx, shards, c, energy, stream
+    "emdee_streaming_ghost": [_P] * 6 + [_I] * 11 + [_P] + [_F] * 10 + [_I, _I, _P],
+    # c, uniform, energy, out (int[4])
+    "emdee_streaming_ghost_attrs": [_I, _I, _I, _P],
+    # out, slices, react, mz, my, mx, shards, c, energy, stream
     "emdee_streaming_ghost_assemble": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # px, py, pz, hs, tse, q, aid, ids, mlj, mcs, ne, alpha, rc, rc2_c,
     # e_shift, f_shift, kc (0-d device tensors), slices, mz, my, mx, shards,

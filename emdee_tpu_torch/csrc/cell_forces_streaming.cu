@@ -43,9 +43,9 @@
 // slot's sums over its chunk pairs in that fixed order: no float atomics,
 // bitwise reruns.  A warp's chunks take (2K + 2)·(NF + 1)·96 floats (K =
 // ⌈C/96⌉), so a block holds as many warps as its shared memory allows, at
-// most the kernel's usual count; only a C whose one warp (and, for the
-// pencil, its rows) does not fit is refused.  C ≤ 96 runs the three-slot
-// variants, whose sums the chunked code does not touch.
+// most the kernel's usual count; only a C whose one warp does not fit is
+// refused.  C ≤ 96 runs the three-slot variants, whose sums the chunked
+// code does not touch.
 //
 // No block barrier, no float atomics.  A warp walks all 14 phases of one
 // cell (a trial on this card against one phase a warp, K5c's form, is in
@@ -164,35 +164,40 @@
 // engine, `streaming_halfshell_call` with `wrap_reaction=False` as
 // emdee_tpu/distributed/grid_sharded.py `_local_forces_streaming` :658-702
 // and `_local_energy_pallas` :704-744 call it), through
-// `emdee_streaming_ghost` (LJ), keeps the pencil design: one block of 8
-// warps per interior pencil (z, y) of each local shard, centres and
-// neighbours read from the shards' stacked (mz+2, my+2, mx+2, C) ghost
-// grids, whose positions carry NaN in empty slots; nothing wraps.  The
-// block walks the 14 phases in K5's order, a barrier after each; in a
-// phase warp w takes the centre cells x ≡ w (mod 8) of the pencil and runs
-// `cell_pair` without the cull, its centre sums into the pencil's shared
-// centre row and its reactions into the group's shared reaction row (within
-// a phase the map x → x+dx is a bijection, so no two warps touch one
-// reaction lane).  Each periodic shift comes from the neighbour's GLOBAL
-// cell index on raw
-// coordinates, as cell_forces.cu's GHOST mode takes it, so every
-// displacement is (x_i − x_j) − shift.  A group's reaction row is
-// (mx+2)·C wide, its x-ghost columns kept, and every group — the own row
-// (0, 0) too, whose column mx+1 belongs to the +x neighbour — leaves to its
-// own slice of a (5, n_r, pencils, (mx+2)·C) scratch at the block's own
-// pencil, so each slice is written whole by exactly one block.  A second
-// launch (`ghost_assemble_kernel`) adds, for each slot of the ghost grids,
-// the slices in the fixed order (0,0), (0,1), (1,−1), (1,0), (1,1) from the
-// pencils that wrote its row: onto the centre sums for an interior slot,
-// into a reaction ghost grid (n_r, shards, mz+2, my+2, mx+2, C) for a ghost
-// slot (exact zeros where no group wrote).  The engine returns the ghost
+// `emdee_streaming_ghost` (LJ): K5's kernel (`streaming_lj_kernel` with
+// GHOST) on the shards' stacked (mz+2, my+2, mx+2, C) ghost grids, whose
+// positions carry NaN in empty slots (no valid mask); nothing wraps.  Warp
+// w owns own cell w of the local shards (s, lz, ly, lx) and walks its 14
+// phases in K5's order, its cell compacted once, each neighbour tile per
+// phase, with K5's cull and three-slot ring.  Each phase's periodic shift
+// comes from the neighbour's GLOBAL cell index on raw coordinates, as
+// cell_forces.cu's GHOST mode takes it, so every displacement is (x_i −
+// x_j) − shift.  The centre sums gather in the warp's shared row over the
+// phases and leave once, to a centre slice (n_r, own slots); offset k's
+// reactions go to reaction slice k (n_r, ghost slots) at the neighbour's
+// ghost-grid slots, every slot of that cell: for a fixed offset the map
+// from own cell to ghost cell is one to one, so every written slot is
+// written by one warp, once.  A second launch (`lj_ghost_assemble_kernel`)
+// adds, for each slot of the ghost grids, the centre sums (interior slots),
+// then offset 12's reactions and each row group's three dx slices as one
+// term, reading slice k only where offset k's image of the own cells lies:
+// `lj_fold_kernel`'s association, which is the pencil kernel's that K5s ran
+// before (its assembly added the own row's slice and then the four row
+// groups, each group's three dx phases summed in one shared row).  The sums
+// go to the interior forces, or to a reaction ghost grid (n_r, shards,
+// mz+2, my+2, mx+2, C) for a ghost slot (exact zeros where no offset
+// reaches it, and on the interior slots).  The engine returns the ghost
 // layers to their owners through the mesh (`grid_sharded._fold3`, the
-// reference's second exchange).  No float atomics: reruns are bitwise
-// equal; but the fold adds a shard's boundary reactions in another order
-// than one card's kernel, so decompositions agree to roundoff, not bit for
-// bit.  Its sums on (1,1,1) agree with K5's to roundoff (the cull reorders
-// K5's rings).  Plain version: emdee_tpu_torch/neighbors/streaming_kernel.py
-// `streaming_ghost_forces_plain`.
+// reference's second exchange).  No block barrier, no float atomics:
+// reruns are bitwise equal; but the fold adds a shard's boundary reactions
+// in another order than one card's kernel, so decompositions agree to
+// roundoff, not bit for bit.  Built without the cull (-DEMDEE_K5_NO_CULL,
+// tools/ab_streaming.py --ghost only) the outputs equal the pencil's bit for
+// bit at C ≤ 96 (at C > 96 a phase's reaction rows gather their centre
+// chunks before the dx phases join, the pencil after).  Scratch, forces
+// only: 3 × (1,620,896 own + 13 × 1,898,208 ghost slots) floats, 316 MB, at
+// the 1M melt on (1,1,1), M = 37, C = 32.  Plain version:
+// emdee_tpu_torch/neighbors/streaming_kernel.py `streaming_ghost_forces_plain`.
 //
 // GHOST with COULOMB/EXCL (K5s-mol), through `emdee_streaming_ghost_mol`:
 // K5c's warp-owned kernel (`streaming_owned_kernel` with GHOST) on the
@@ -209,12 +214,10 @@
 // once.  A second launch (`owned_ghost_assemble_kernel`) adds, for each
 // slot of the ghost grids, the 14 centre slices (interior slots) and then
 // the reaction slices whose offset's image holds that slot, in a fixed
-// order, to the centre sums or the reaction ghost grid: the return
-// contract of the pencil's assembly, so `_fold3` and the engine are
-// unchanged.  Scratch at the 985,527-atom box on (2,2,2): 14 × 3 ×
-// 1,546,688 + 13 × 3 × 2,376,000 floats, 630 MB (1.05 GB with energies).
-// The pencil kernel ran these flags before, with 13 centre cells over 8
-// warps, a barrier after each phase and no cull.
+// order, to the centre sums or the reaction ghost grid: K5s's return
+// contract, so `_fold3` and the engine take either.  Scratch at the
+// 985,527-atom box on (2,2,2): 14 × 3 × 1,546,688 + 13 × 3 × 2,376,000
+// floats, 630 MB (1.05 GB with energies).
 
 // Bound on this card: at the 1,000,188-atom melt (M = 37, C = 32) ~27 M
 // pairs lie inside the cutoff: ~1.4 GFLOP, ~0.02 ms at 67 TFLOP/s; the
@@ -227,15 +230,16 @@
 // pairs inside the cutoff each pay an erfc, an exp, a square root and 3E
 // tag operations; chip_smoke.py counts them and gives the bound.
 
-// emdee-build-parts: 8
-// csrc/build.py compiles this file as eight objects at once, to cut the
-// build's wall time: EMDEE_PART 0 holds K5's entries and its variants, 1 K5c's
-// entries and force variants, 2 the GHOST entries, the K5s pencil's variants
-// and K5s-mol's force variants, 3 K5c's energy variants, 4 K5s-mol's energy
-// variants, and the chunked variants (C > 96) of the warp-owned kernel —
-// the costliest to compile — 5 K5c's without and 6 with energies, 7
-// K5s-mol's (each part instantiates only its kernel variants); without
-// EMDEE_PART the file holds them all.
+// emdee-build-parts: 9
+// csrc/build.py compiles this file as nine objects at once, to cut the
+// build's wall time: EMDEE_PART 0 holds K5's entries and its variants, 1
+// K5s's (the GHOST LJ variants of the same kernel, and its assembly), 2
+// K5c's entries and force variants, 3 K5s-mol's entries and force
+// variants, 4 K5c's and 5 K5s-mol's energy variants, and the chunked
+// variants (C > 96) of the warp-owned kernel — the costliest to compile —
+// 6 K5c's without and 7 with energies, 8 K5s-mol's (each part instantiates
+// only its kernel variants; parts 0 and 1 stand alone); without EMDEE_PART
+// the file holds them all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -256,8 +260,6 @@ using emdee::kMaxTags;
 using emdee::Mol;
 using emdee::PairConsts;
 
-constexpr int kWarps = 8;  // K5s: warps a pencil block
-constexpr int kThreads = 32 * kWarps;
 constexpr int kGroups = 4;  // the half shell's row groups besides the own row
 constexpr int kMaxCapacity = 1024;  // as the resident family (cell_forces.cu)
 // Above three centre slots a lane (C > 96) the variants take NA = kChunked:
@@ -267,9 +269,6 @@ constexpr int kChunk = 96;
 constexpr int kChunked = 4;
 constexpr int kSmemBytes = 232448;  // shared memory a block can use on Hopper
 constexpr unsigned kFull = 0xffffffffu;
-// The row groups (dz, dy) in fold order; the own row (0, 0) comes last.
-__constant__ int kGroupDz[kGroups] = {0, 1, 1, 1};
-__constant__ int kGroupDy[kGroups] = {1, -1, 0, 1};
 
 }  // namespace
 
@@ -819,6 +818,13 @@ __device__ __forceinline__ float ghost_shift(int v, int m, const float* __restri
   return v < 0 ? -*box : (v >= m ? *box : 0.f);
 }
 
+// `ghost_shift` of the neighbour at offset d ∈ {−1, 0, 1} on axis v of a
+// cell whose global coordinates lie on the seams `seams` (bit v: 0; bit 3 +
+// v: M − 1): −box past the low seam, +box past the high one (M ≥ 3).
+__device__ __forceinline__ float seam_shift(int seams, int v, int d, const float* __restrict__ box) {
+  return (d < 0 && (seams >> v & 1)) ? -*box : ((d > 0 && (seams >> (3 + v) & 1)) ? *box : 0.f);
+}
+
 // The warp-owned pair pass (K5c; with GHOST, K5s-mol): warp phase · cells
 // + cell evaluates that phase of its centre cell, cells = shards·mz·my·mx
 // own cells; its centre sums go to centre slice `phase`, (n_r, cells·C) at
@@ -935,7 +941,7 @@ __global__ void owned_fold_kernel(float* __restrict__ f, float* __restrict__ e_o
 constexpr int kLjWarps = 4;
 constexpr int kLjThreads = 32 * kLjWarps;
 constexpr int kLjMinBlocks = 8;
-// The cull; tools/ab_streaming.py alone builds K5 without it
+// The cull; tools/ab_streaming.py alone builds K5 and K5s without it
 // (-DEMDEE_K5_NO_CULL), whose sums are then the pencil kernel's bit for bit.
 #ifdef EMDEE_K5_NO_CULL
 constexpr bool kLjCull = false;
@@ -953,19 +959,24 @@ __host__ __device__ constexpr int lj_warp_floats(int nt, int nf, int nr, int c, 
   return (nch ? 2 * nch + 2 : 3) * (nf + 1) * nt + 2 * nr * c;
 }
 
-// The LJ pair pass (K5): warp w of the grid walks the 14 phases of centre
-// cell w.  Its centre sums gather in its shared row over the phases and go
-// to slice 0, (n_r, M³·C) at the cell's own slots; phase 1 + k's reactions
-// go to slice 1 + k at the neighbour's slots, every slot of that cell.  The
-// tiles hold x, y, z (and σ/2, 2√ε without UNIFORM).  NA = kChunked (C >
-// 96): the cell is compacted once into chunks and each phase runs chunk
-// pair by chunk pair (`pair_chunks`, the cull per chunk pair);
-// blockDim.x / 32 warps a block, as many as a block's shared memory
-// holds, at most kLjWarps.
-template <int NA, bool UNIFORM, bool ENERGY>
+// The LJ pair pass (K5; with GHOST, K5s): warp w of the grid walks the 14
+// phases of centre cell w.  Its centre sums gather in its shared row over
+// the phases and go to slice 0, (n_r, cells·C) at the cell's own slots;
+// phase 1 + k's reactions go to reaction slice k (slice 1 + k), (n_r, n_g)
+// at the neighbour's slots, every slot of that cell.  One card: cells = M³,
+// the neighbour index wraps and n_g = M³·C.  GHOST: cells = shards·mz·my·mx
+// own cells, whose centres and neighbours are read from the shards' ghost
+// grids (empty slots hold NaN; f.valid is null), the shift comes from the
+// neighbour's global cell index, and a reaction slice spans the ghost
+// grids, n_g = shards·(mz+2)(my+2)(mx+2)·C.  The tiles hold x, y, z (and
+// σ/2, 2√ε without UNIFORM).  NA = kChunked (C > 96): the cell is compacted
+// once into chunks and each phase runs chunk pair by chunk pair
+// (`pair_chunks`, the cull per chunk pair); blockDim.x / 32 warps a block,
+// as many as a block's shared memory holds, at most kLjWarps.
+template <int NA, bool UNIFORM, bool ENERGY, bool GHOST>
 __global__ void __launch_bounds__(kLjThreads, NA == 1 ? kLjMinBlocks : kLjMinBlocks / 2)
-    streaming_lj_kernel(Fields f, float* __restrict__ slices, int m, int c, const float* __restrict__ box_ptr,
-                        PairConsts k) {
+    streaming_lj_kernel(Fields f, float* __restrict__ slices, Ghost g, int shards, int m, int c,
+                        const float* __restrict__ box_ptr, PairConsts k) {
   constexpr int NR = ENERGY ? 5 : 3;
   constexpr int NT = tile_entries<NA>();
   constexpr int NF = UNIFORM ? 3 : 5;
@@ -973,7 +984,7 @@ __global__ void __launch_bounds__(kLjThreads, NA == 1 ? kLjMinBlocks : kLjMinBlo
   using TileT = Tile<NT, NF>;
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long cells = static_cast<long>(m) * m * m;
+  const long cells = GHOST ? static_cast<long>(shards) * g.mz * g.my * g.mx : static_cast<long>(m) * m * m;
   const long cell = static_cast<long>(blockIdx.x) * (CHUNKED ? blockDim.x >> 5 : kLjWarps) + warp;
   if (cell >= cells) return;  // no block barrier follows
   const int nch = CHUNKED ? chunks_of(c) : 0;
@@ -984,15 +995,31 @@ __global__ void __launch_bounds__(kLjThreads, NA == 1 ? kLjMinBlocks : kLjMinBlo
   float* cen = reinterpret_cast<float*>(tiles + (CHUNKED ? 2 * nch + 2 : 3));  // (NR, C) centre sums
   float* react = cen + NR * c;                                                  // (NR, C) a phase's reactions
   const long ns = cells * c;
-  const int x = static_cast<int>(cell % m), y = static_cast<int>((cell / m) % m), z = static_cast<int>(cell / m / m);
+  // The cell's local coordinates; with GHOST, its ghost-grid index and the
+  // periodic seams it lies on (`seam_shift`), from its global coordinates.
+  const int mx = GHOST ? g.mx : m, my = GHOST ? g.my : m;
+  const int x = static_cast<int>(cell % mx), y = static_cast<int>((cell / mx) % my);
+  const int z = static_cast<int>(GHOST ? (cell / (static_cast<long>(mx) * my)) % g.mz : cell / m / m);
+  const int gy = g.my + 2, gx = g.mx + 2;
+  long home = cell;
+  int seams = 0;
+  if constexpr (GHOST) {
+    const int sh = static_cast<int>(cell / (static_cast<long>(mx) * my * g.mz));
+    home = static_cast<long>(sh) * (g.mz + 2) * gy * gx + (static_cast<long>(z + 1) * gy + y + 1) * gx + x + 1;
+    const int glob[3] = {(g.bx + sh % g.sx_n) * g.mx + x, (g.by + (sh / g.sx_n) % g.sy_n) * g.my + y,
+                         (g.bz + sh / (g.sx_n * g.sy_n)) * g.mz + z};
+#pragma unroll
+    for (int v = 0; v < 3; ++v) seams |= (glob[v] == 0 ? 1 << v : 0) | (glob[v] == m - 1 ? 8 << v : 0);
+  }
+  const long ng = GHOST ? static_cast<long>(shards) * (g.mz + 2) * gy * gx * c : ns;
   const Mol mol{};
   const Dsf dsf{};
   for (int t = lane; t < NR * c; t += 32) cen[t] = 0.f;
   int n_own;
   if constexpr (CHUNKED)
-    n_own = compact_chunks<NF, UNIFORM>(f, mol, cell, c, tiles);
+    n_own = compact_chunks<NF, UNIFORM>(f, mol, home, c, tiles);
   else
-    n_own = compact<NA, NT, NF, UNIFORM>(f, mol, cell, c, own);
+    n_own = compact<NA, NT, NF, UNIFORM>(f, mol, home, c, own);
   __syncwarp();
   // Phase 0, the self cell: every ordered pair, no reaction.
   if constexpr (CHUNKED)
@@ -1004,10 +1031,18 @@ __global__ void __launch_bounds__(kLjThreads, NA == 1 ? kLjMinBlocks : kLjMinBlo
         mol, dsf, k.rc2, cell, c, 0, 0, 0.f, 0.f, 0.f, c, c, cen, react, own, n_own, own, own, n_own, nullptr, k);
   for (int o = 0; o < kOffsets; ++o) {  // phase 1 + o
     float shx, shy, shz;
-    const int nx = wrap(x + kOffDx[o], m, box_ptr, shx);
-    const int ny = wrap(y + kOffDy[o], m, box_ptr, shy);
-    const int nz = wrap(z + kOffDz[o], m, box_ptr, shz);
-    const long nb = (static_cast<long>(nz) * m + ny) * m + nx;
+    long nb;
+    if constexpr (GHOST) {
+      shx = seam_shift(seams, 0, kOffDx[o], box_ptr);
+      shy = seam_shift(seams, 1, kOffDy[o], box_ptr);
+      shz = seam_shift(seams, 2, kOffDz[o], box_ptr);
+      nb = home + (static_cast<long>(kOffDz[o]) * gy + kOffDy[o]) * gx + kOffDx[o];
+    } else {
+      const int nx = wrap(x + kOffDx[o], m, box_ptr, shx);
+      const int ny = wrap(y + kOffDy[o], m, box_ptr, shy);
+      const int nz = wrap(z + kOffDz[o], m, box_ptr, shz);
+      nb = (static_cast<long>(nz) * m + ny) * m + nx;
+    }
     for (int t = lane; t < NR * c; t += 32) react[t] = 0.f;
     __syncwarp();  // the previous phase's reads of the tiles are done
     int n_nb;
@@ -1024,8 +1059,8 @@ __global__ void __launch_bounds__(kLjThreads, NA == 1 ? kLjMinBlocks : kLjMinBlo
       pair_tiles<NA, UNIFORM, ENERGY, true, false, false, false, kLjCull>(
           mol, dsf, k.rc2, cell, c, 0, 0, shx, shy, shz, c, c, cen, react, own, n_own, kept, nbt, n_nb, nullptr, k);
     __syncwarp();
-    float* out = slices + static_cast<long>(1 + o) * NR * ns + nb * c;
-    for (int t = lane; t < NR * c; t += 32) __stcs(out + (t / c) * ns + t % c, react[t]);
+    float* out = slices + static_cast<long>(NR) * ns + static_cast<long>(o) * NR * ng + nb * c;
+    for (int t = lane; t < NR * c; t += 32) __stcs(out + (t / c) * ng + t % c, react[t]);
   }
   __syncwarp();
   float* out = slices + cell * c;
@@ -1059,112 +1094,30 @@ __global__ void lj_fold_kernel(float* fx, float* fy, float* fz, int fstride, flo
   }
 }
 
-// The row groups in assembly order: slice 0 is the own row (0, 0), slices
-// 1-4 the groups kGroupDz/kGroupDy.
-__constant__ int kSliceDz[kGroups + 1] = {0, 0, 1, 1, 1};
-__constant__ int kSliceDy[kGroups + 1] = {0, 1, -1, 0, 1};
-
-// GHOST (K5s, LJ): one block per interior pencil (s, lz, ly) of the local
-// shards, centres and neighbours read from the shards' ghost grids.  The
-// centre sums go to out (NR, shards·mz·my·mx·C); each group's reaction row,
-// (mx+2)·C wide, to its slice of groups (5, NR, pencils, (mx+2)·C) at the
-// block's own pencil.  NA = kChunked (C > 96): each cell pair by its chunk
-// pairs (`cell_pair_chunks`), blockDim.x / 32 warps a block, as many as a
-// block's shared memory holds beside the rows, at most kWarps.
-template <int NA, bool UNIFORM, bool ENERGY>
-__global__ void __launch_bounds__(kThreads)
-    streaming_ghost_kernel(Fields f, float* __restrict__ out, float* __restrict__ groups, Ghost g, int m, int c,
-                           const float* __restrict__ box_ptr, PairConsts k) {
-  constexpr int NR = ENERGY ? 5 : 3;
-  constexpr int NT = tile_entries<NA>();
-  constexpr bool CHUNKED = NA == kChunked;
-  using TileT = Tile<NT, 5>;
-  extern __shared__ float smem[];
-  const int gy = g.my + 2, gx = g.mx + 2;
-  const int mc = g.mx * c;  // a centre row
-  const int mr = gx * c;    // a reaction row, x-ghost columns included
-  float* cen_acc = smem;        // (NR, mx·C) centre sums of this pencil
-  float* row = smem + NR * mc;  // (NR, (mx+2)·C) one group's reaction row
-  const int warp = threadIdx.x >> 5;
-  const int warps = CHUNKED ? blockDim.x >> 5 : kWarps;
-  const int threads = CHUNKED ? blockDim.x : kThreads;
-  // This warp's tiles: two, or at C > 96 its chunks and work tiles.
-  TileT* tiles = reinterpret_cast<TileT*>(smem + NR * (mc + mr)) + (CHUNKED ? 2 * chunks_of(c) + 2 : 2) * warp;
-  const int pencil = blockIdx.x;
-  const int ly = pencil % g.my, lz = (pencil / g.my) % g.mz, s = pencil / (g.my * g.mz);
-  // Global cell coordinates of the pencil (z, y) and of its x = 0.
-  const int cz = (g.bz + s / (g.sx_n * g.sy_n)) * g.mz + lz;
-  const int cy = (g.by + (s / g.sx_n) % g.sy_n) * g.my + ly;
-  const int cx0 = (g.bx + s % g.sx_n) * g.mx;
-  const long gbase = static_cast<long>(s) * (g.mz + 2) * gy * gx;  // the shard's ghost cell 0
-  const long cen_row = gbase + (static_cast<long>(lz + 1) * gy + ly + 1) * gx + 1;  // ghost cell of x = 0
-  const long own_row = static_cast<long>(pencil) * g.mx;  // own cell id of x = 0
-  const long n_own = static_cast<long>(gridDim.x) * mc;
-  const Mol mol{};
-  const Dsf dsf{};
-  const float cut2 = k.rc2;
-
-  for (int t = threadIdx.x; t < NR * (mc + mr); t += threads) smem[t] = 0.f;
-  __syncthreads();
-
-  // Self cell: every ordered pair, no reaction.
-  for (int x = warp; x < g.mx; x += warps) {
-    if constexpr (CHUNKED)
-      cell_pair_chunks<UNIFORM, ENERGY, false, false, false, false>(f, mol, dsf, cut2, cen_row + x, cen_row + x,
-                                                                     own_row + x, c, x, x, 0.f, 0.f, 0.f, mc, mr,
-                                                                     cen_acc, row, tiles, nullptr, k);
-    else
-      cell_pair<NA, UNIFORM, ENERGY, false, false, false, false>(f, mol, dsf, cut2, cen_row + x, cen_row + x,
-                                                                  own_row + x, c, x, x, 0.f, 0.f, 0.f, mc, mr,
-                                                                  cen_acc, row, tiles, nullptr, k);
-  }
-
-  for (int gi = 0; gi <= kGroups; ++gi) {
-    const bool own = gi == kGroups;  // the own row (0, 0): dx = +1 only
-    const int dz = own ? 0 : kGroupDz[gi], dy = own ? 0 : kGroupDy[gi];
-    const float shz = ghost_shift(cz + dz, m, box_ptr);
-    const float shy = ghost_shift(cy + dy, m, box_ptr);
-    const long nrow = gbase + (static_cast<long>(lz + 1 + dz) * gy + ly + 1 + dy) * gx;  // ghost column 0
-    for (int dx = own ? 1 : -1; dx <= 1; ++dx) {
-      for (int x = warp; x < g.mx; x += warps) {
-        const float shx = ghost_shift(cx0 + x + dx, m, box_ptr);
-        if constexpr (CHUNKED)
-          cell_pair_chunks<UNIFORM, ENERGY, true, false, false, false>(f, mol, dsf, cut2, cen_row + x,
-                                                                        nrow + x + 1 + dx, own_row + x, c, x,
-                                                                        x + 1 + dx, shx, shy, shz, mc, mr, cen_acc,
-                                                                        row, tiles, nullptr, k);
-        else
-          cell_pair<NA, UNIFORM, ENERGY, true, false, false, false>(f, mol, dsf, cut2, cen_row + x,
-                                                                     nrow + x + 1 + dx, own_row + x, c, x,
-                                                                     x + 1 + dx, shx, shy, shz, mc, mr, cen_acc,
-                                                                     row, tiles, nullptr, k);
-      }
-      __syncthreads();
-    }
-    const int slice = own ? 0 : gi + 1;
-    float* dst = groups + (static_cast<long>(slice) * NR * gridDim.x + pencil) * mr;
-    for (int t = threadIdx.x; t < NR * mr; t += threads) {
-      dst[static_cast<long>(t / mr) * gridDim.x * mr + t % mr] = row[t];
-      row[t] = 0.f;
-    }
-    __syncthreads();
-  }
-
-  for (int t = threadIdx.x; t < NR * mc; t += threads) out[(t / mc) * n_own + own_row * c + t % mc] = cen_acc[t];
+// The slots (zg, yg, xg) of one shard's ghost grid (mz+2, my+2, mx+2)
+// that are an own cell's image under offset o, the slots its warps wrote.
+__device__ __forceinline__ bool offset_image(const Ghost& g, int o, int zg, int yg, int xg) {
+  const int z = zg - 1 - kOffDz[o], y = yg - 1 - kOffDy[o], x = xg - 1 - kOffDx[o];
+  return z >= 0 && z < g.mz && y >= 0 && y < g.my && x >= 0 && x < g.mx;
 }
 
-// The GHOST assembly: one thread per slot of the shards' ghost grids.  An
-// interior slot's centre sums in `out` get the five slices in order, (0,0),
-// (0,1), (1,−1), (1,0), (1,1), each from the pencil that wrote that row;
-// a ghost slot's sum of the same goes to react (NR, shards, mz+2, my+2,
-// mx+2, C), whose interior slots are zero.
+// K5s's assembly: one thread per slot t of the shards' ghost grids, adding
+// in `lj_fold_kernel`'s association: an interior slot's centre sums (slice
+// 0 at its own slot; a ghost slot starts from 0), then the own row's
+// reactions (offset 12), then each row group's three reaction slices as
+// one term, (r₃g + r₃g₊₁) + r₃g₊₂; reaction slice o is read at t only where
+// offset o's image of the own cells lies, and a group's term holds the
+// slices read.  The sums go to out (NR, shards·mz·my·mx·C) for an interior
+// slot, to react (NR, shards, mz+2, my+2, mx+2, C) for a ghost slot; react
+// is zero on the interior slots.
 template <int NR>
-__global__ void ghost_assemble_kernel(float* __restrict__ out, const float* __restrict__ groups,
-                                      float* __restrict__ react, Ghost g, int c, int pencils) {
+__global__ void lj_ghost_assemble_kernel(float* __restrict__ out, const float* __restrict__ slices,
+                                         float* __restrict__ react, Ghost g, int shards, int c) {
   const int gz = g.mz + 2, gy = g.my + 2, gx = g.mx + 2;
-  const long n_ghost = static_cast<long>(pencils / (g.mz * g.my)) * gz * gy * gx * c;
+  const long ng = static_cast<long>(shards) * gz * gy * gx * c;
+  const long ns = static_cast<long>(shards) * g.mz * g.my * g.mx * c;
   const long t = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n_ghost) return;
+  if (t >= ng) return;
   const int slot = t % c;
   long r = t / c;
   const int xg = r % gx;
@@ -1174,21 +1127,29 @@ __global__ void ghost_assemble_kernel(float* __restrict__ out, const float* __re
   const int zg = r % gz;
   const int s = r / gz;
   const bool interior = zg >= 1 && zg <= g.mz && yg >= 1 && yg <= g.my && xg >= 1 && xg <= g.mx;
-  const long n_own = static_cast<long>(pencils) * g.mx * c;
   const long own = ((static_cast<long>(s * g.mz + zg - 1) * g.my + yg - 1) * g.mx + xg - 1) * c + slot;
-  const long mr = static_cast<long>(gx) * c;
+  const long stride = static_cast<long>(NR) * ng;  // one reaction slice
 #pragma unroll
   for (int comp = 0; comp < NR; ++comp) {
-    float v = interior ? out[comp * n_own + own] : 0.f;
+    float v = interior ? __ldcs(slices + comp * ns + own) : 0.f;
+    const float* rs = slices + static_cast<long>(NR) * ns + comp * ng + t;  // offset 0's reactions at t
+    if (offset_image(g, kOffsets - 1, zg, yg, xg)) v += __ldcs(rs + (kOffsets - 1) * stride);
 #pragma unroll
-    for (int sl = 0; sl <= kGroups; ++sl) {
-      const int sz = zg - 1 - kSliceDz[sl], sy = yg - 1 - kSliceDy[sl];
-      if (sz < 0 || sz >= g.mz || sy < 0 || sy >= g.my) continue;
-      const long p = (static_cast<long>(s) * g.mz + sz) * g.my + sy;
-      v += groups[((static_cast<long>(sl) * NR + comp) * pencils + p) * mr + xg * c + slot];
+    for (int gi = 0; gi < kGroups; ++gi) {
+      float term = 0.f;
+      bool any = false;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const int o = 3 * gi + d;
+        if (!offset_image(g, o, zg, yg, xg)) continue;
+        const float x = __ldcs(rs + o * stride);
+        term = any ? term + x : x;
+        any = true;
+      }
+      if (any) v += term;
     }
-    if (interior) out[comp * n_own + own] = v;
-    react[comp * n_ghost + t] = interior ? 0.f : v;
+    if (interior) out[comp * ns + own] = v;
+    react[comp * ng + t] = interior ? 0.f : v;
   }
 }
 
@@ -1225,11 +1186,8 @@ __global__ void owned_ghost_assemble_kernel(float* __restrict__ out, const float
       v = __ldcs(slices + comp * ns + own);
       for (int i = 1; i < kPhases; ++i) v += __ldcs(slices + (static_cast<long>(i) * NR + comp) * ns + own);
     }
-    for (int o = 0; o < kOffsets; ++o) {
-      const int z = zg - 1 - kOffDz[o], y = yg - 1 - kOffDy[o], x = xg - 1 - kOffDx[o];
-      if (z < 0 || z >= g.mz || y < 0 || y >= g.my || x < 0 || x >= g.mx) continue;
-      v += __ldcs(rs + (static_cast<long>(o) * NR + comp) * ng + t);
-    }
+    for (int o = 0; o < kOffsets; ++o)
+      if (offset_image(g, o, zg, yg, xg)) v += __ldcs(rs + (static_cast<long>(o) * NR + comp) * ng + t);
     if (interior) out[comp * ns + own] = v;
     react[comp * ng + t] = interior ? 0.f : v;
   }
@@ -1254,46 +1212,6 @@ size_t owned_smem_bytes(int c, bool energy, int ne, int neb, int* warps) {
                                                                            slots == kChunked ? chunks_of(c) : 0));
   *warps = slots == kChunked ? fit_warps(0, per, kOwnedWarps) : kOwnedWarps;
   return per * std::max(*warps, 1);
-}
-
-// GHOST (LJ): the centre sums and one (mx+2)·C reaction row, and the
-// `*warps` warps' tiles (kWarps up to C = 96; at C > 96 the chunks and work
-// tiles of as many warps as fit, one warp's where none does).
-size_t ghost_smem_bytes(int mx, int c, bool energy, int* warps) {
-  const size_t rows = sizeof(float) * (energy ? 5 : 3) * static_cast<size_t>(2 * mx + 2) * c;
-  if (centre_slots(c) != kChunked) {
-    *warps = kWarps;
-    return rows + sizeof(float) * (5 + 1) * (centre_slots(c) <= 2 ? 64 : 96) * 2 * kWarps;
-  }
-  const size_t per = sizeof(float) * (5 + 1) * kChunk * static_cast<size_t>(2 * chunks_of(c) + 2);
-  *warps = fit_warps(rows, per, kWarps);
-  return rows + per * std::max(*warps, 1);
-}
-
-template <int NA, bool UNIFORM, bool ENERGY>
-int launch_ghost(const Fields& f, float* out, float* groups, const Ghost& g, int blocks, int m, int c,
-                 const float* box, const PairConsts& k, cudaStream_t stream) {
-  int warps;
-  const size_t smem = ghost_smem_bytes(g.mx, c, ENERGY, &warps);
-  auto kernel = streaming_ghost_kernel<NA, UNIFORM, ENERGY>;
-  static size_t smem_allowed = 48 * 1024;  // raised once per variant, not per launch
-  if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
-  }
-  kernel<<<blocks, 32 * warps, smem, stream>>>(f, out, groups, g, m, c, box, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int NA>
-int dispatch_ghost(const Fields& f, int uniform, int energy, float* out, float* groups, const Ghost& g, int blocks,
-                   int m, int c, const float* box, const PairConsts& k, cudaStream_t s) {
-  if (uniform && energy) return launch_ghost<NA, true, true>(f, out, groups, g, blocks, m, c, box, k, s);
-  if (uniform) return launch_ghost<NA, true, false>(f, out, groups, g, blocks, m, c, box, k, s);
-  if (energy) return launch_ghost<NA, false, true>(f, out, groups, g, blocks, m, c, box, k, s);
-  return launch_ghost<NA, false, false>(f, out, groups, g, blocks, m, c, box, k, s);
 }
 
 // A warp-owned variant for one flag set (K2c's; GHOST: K5s-mol), with its
@@ -1333,7 +1251,7 @@ emdee::OwnedVariant owned_variant_c(int c, int coulomb, int excl, int bond) {
   }
 }
 
-#if EMDEE_IN_PART(0) || EMDEE_IN_PART(1) || EMDEE_IN_PART(2)
+#if EMDEE_IN_PART(0) || EMDEE_IN_PART(1) || EMDEE_IN_PART(2) || EMDEE_IN_PART(3)
 // A kernel's resources as the card reports them, launched with `threads`
 // threads and `smem` dynamic shared bytes a block: out[0..3] = registers a
 // thread, local (spill) bytes a thread, shared bytes a block, resident
@@ -1353,17 +1271,17 @@ int kernel_attrs(const void* kernel, int threads, size_t smem, int* out) {
 }
 #endif
 
-#if EMDEE_IN_PART(0)
-// A K5 variant, its warps a block (`*warps`) and its dynamic shared memory
-// (`*smem`), allowed once per variant, not per launch; refused where a
-// block's shared memory holds no warp.
-template <int NA, bool UNIFORM, bool ENERGY>
+#if EMDEE_IN_PART(0) || EMDEE_IN_PART(1)
+// A K5 (GHOST: K5s) variant, its warps a block (`*warps`) and its dynamic
+// shared memory (`*smem`), allowed once per variant, not per launch;
+// refused where a block's shared memory holds no warp.
+template <int NA, bool UNIFORM, bool ENERGY, bool GHOST>
 int lj_variant(int c, const void** kernel, size_t* smem, int* warps) {
   constexpr int NT = tile_entries<NA>(), NF = UNIFORM ? 3 : 5, NR = ENERGY ? 5 : 3;
   static_assert(sizeof(Tile<NT, NF>) == sizeof(float) * (NF + 1) * NT,
                 "lj_warp_floats counts the tiles as packed floats");
   static size_t smem_allowed = 48 * 1024;
-  *kernel = reinterpret_cast<const void*>(streaming_lj_kernel<NA, UNIFORM, ENERGY>);
+  *kernel = reinterpret_cast<const void*>(streaming_lj_kernel<NA, UNIFORM, ENERGY, GHOST>);
   const size_t per =
       sizeof(float) * static_cast<size_t>(lj_warp_floats(NT, NF, NR, c, NA == kChunked ? chunks_of(c) : 0));
   *warps = NA == kChunked ? fit_warps(0, per, kLjWarps) : kLjWarps;
@@ -1378,28 +1296,29 @@ int lj_variant(int c, const void** kernel, size_t* smem, int* warps) {
   return 0;
 }
 
-template <int NA>
+template <int NA, bool GHOST>
 int lj_variant_ue(int c, int uniform, int energy, const void** kernel, size_t* smem, int* warps) {
-  if (uniform && energy) return lj_variant<NA, true, true>(c, kernel, smem, warps);
-  if (uniform) return lj_variant<NA, true, false>(c, kernel, smem, warps);
-  if (energy) return lj_variant<NA, false, true>(c, kernel, smem, warps);
-  return lj_variant<NA, false, false>(c, kernel, smem, warps);
+  if (uniform && energy) return lj_variant<NA, true, true, GHOST>(c, kernel, smem, warps);
+  if (uniform) return lj_variant<NA, true, false, GHOST>(c, kernel, smem, warps);
+  if (energy) return lj_variant<NA, false, true, GHOST>(c, kernel, smem, warps);
+  return lj_variant<NA, false, false, GHOST>(c, kernel, smem, warps);
 }
 
-// The K5 variant for C and these flags (C ≤ 1024; above 96 the chunked
-// variants), its warps a block and its shared memory allowed.
+// The K5 (GHOST: K5s) variant for C and these flags (C ≤ 1024; above 96
+// the chunked variants), its warps a block and its shared memory allowed.
+template <bool GHOST>
 int lj_kernel(int c, int uniform, int energy, const void** kernel, size_t* smem, int* warps) {
   if (c < 1 || c > kMaxCapacity) return static_cast<int>(cudaErrorInvalidValue);
   switch (centre_slots(c)) {
-    case 1: return lj_variant_ue<1>(c, uniform, energy, kernel, smem, warps);
-    case 2: return lj_variant_ue<2>(c, uniform, energy, kernel, smem, warps);
-    case 3: return lj_variant_ue<3>(c, uniform, energy, kernel, smem, warps);
-    default: return lj_variant_ue<kChunked>(c, uniform, energy, kernel, smem, warps);
+    case 1: return lj_variant_ue<1, GHOST>(c, uniform, energy, kernel, smem, warps);
+    case 2: return lj_variant_ue<2, GHOST>(c, uniform, energy, kernel, smem, warps);
+    case 3: return lj_variant_ue<3, GHOST>(c, uniform, energy, kernel, smem, warps);
+    default: return lj_variant_ue<kChunked, GHOST>(c, uniform, energy, kernel, smem, warps);
   }
 }
 #endif
 
-#if EMDEE_IN_PART(1) || EMDEE_IN_PART(2)
+#if EMDEE_IN_PART(2) || EMDEE_IN_PART(3)
 // The K5c (GHOST: K5s-mol, no bond tags) variant for these flags, refused
 // as the launch entries refuse it (but for the geometry), its dynamic
 // shared memory (`*smem`) allowed.
@@ -1434,43 +1353,43 @@ int owned_attrs(emdee::OwnedKernel kernel, size_t smem, int warps, int* out) {
 
 }  // namespace
 
-#if EMDEE_IN_PART(1)
+#if EMDEE_IN_PART(2)
 emdee::OwnedVariant emdee::k5c_force_variant(int c, int coulomb, int excl, int bond) {
   return owned_variant_c<false, false>(c, coulomb, excl, bond);
 }
 #endif
 
-#if EMDEE_IN_PART(3)
+#if EMDEE_IN_PART(4)
 emdee::OwnedVariant emdee::k5c_energy_variant(int c, int coulomb, int excl, int bond) {
   return owned_variant_c<true, false>(c, coulomb, excl, bond);
 }
 #endif
 
-#if EMDEE_IN_PART(2)
+#if EMDEE_IN_PART(3)
 emdee::OwnedVariant emdee::k5s_mol_force_variant(int c, int coulomb, int excl) {
   return owned_variant_c<false, true>(c, coulomb, excl, 0);
 }
 #endif
 
-#if EMDEE_IN_PART(4)
+#if EMDEE_IN_PART(5)
 emdee::OwnedVariant emdee::k5s_mol_energy_variant(int c, int coulomb, int excl) {
   return owned_variant_c<true, true>(c, coulomb, excl, 0);
 }
 #endif
 
-#if EMDEE_IN_PART(5)
+#if EMDEE_IN_PART(6)
 emdee::OwnedVariant emdee::k5c_chunked_force_variant(int coulomb, int excl, int bond) {
   return owned_variant_e<kChunked, false, false>(coulomb, excl, bond);
 }
 #endif
 
-#if EMDEE_IN_PART(6)
+#if EMDEE_IN_PART(7)
 emdee::OwnedVariant emdee::k5c_chunked_energy_variant(int coulomb, int excl, int bond) {
   return owned_variant_e<kChunked, true, false>(coulomb, excl, bond);
 }
 #endif
 
-#if EMDEE_IN_PART(7)
+#if EMDEE_IN_PART(8)
 emdee::OwnedVariant emdee::k5s_mol_chunked_variant(int energy, int coulomb, int excl) {
   return energy ? owned_variant_e<kChunked, true, true>(coulomb, excl, 0)
                 : owned_variant_e<kChunked, false, true>(coulomb, excl, 0);
@@ -1492,13 +1411,15 @@ extern "C" int emdee_streaming_forces(
   const void* kernel;
   size_t smem;
   int warps;
-  const int err = lj_kernel(c, uniform, energy, &kernel, &smem, &warps);
+  const int err = lj_kernel<false>(c, uniform, energy, &kernel, &smem, &warps);
   if (err) return err;
   PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
   Fields fl{px, py, pz, pstride, hs, tse, valid};
+  Ghost g{m, m, m, 1, 1, 0, 0, 0};
+  int shards = 1;
   const long cells = static_cast<long>(m) * m * m;
   const unsigned blocks = static_cast<unsigned>((cells + warps - 1) / warps);
-  void* args[] = {&fl, &slices, &m, &c, &box, &k};
+  void* args[] = {&fl, &slices, &g, &shards, &m, &c, &box, &k};
   return static_cast<int>(
       cudaLaunchKernel(kernel, dim3(blocks), dim3(32 * warps), args, smem, static_cast<cudaStream_t>(stream)));
 }
@@ -1525,12 +1446,72 @@ extern "C" int emdee_streaming_attrs(int c, int uniform, int energy, int* out) {
   const void* kernel;
   size_t smem;
   int warps;
-  const int err = lj_kernel(c, uniform, energy, &kernel, &smem, &warps);
+  const int err = lj_kernel<false>(c, uniform, energy, &kernel, &smem, &warps);
   if (err) return err;
   return kernel_attrs(kernel, 32 * warps, smem, out);
 }
 #endif
+
 #if EMDEE_IN_PART(1)
+// The GHOST LJ pair pass (K5s): the ghost grids of `shards` local shards,
+// px … tse each (shards, mz+2, my+2, mx+2, C) float32 with NaN positions in
+// empty slots (hs, tse unused with uniform parameters).  Writes the centre
+// slice (3 or 5, shards·mz·my·mx·C) and then the 13 reaction slices (3 or
+// 5, shards·(mz+2)(my+2)(mx+2)·C) to `slices`, one warp an own cell;
+// `emdee_streaming_ghost_assemble` adds them up.
+extern "C" int emdee_streaming_ghost(
+    const float* px, const float* py, const float* pz, const float* hs, const float* tse, float* slices, int mz,
+    int my, int mx, int shards, int sy_n, int sx_n, int bz, int by, int bx, int m, int c, const float* box,
+    float rc2, float rs2, float invd2, float a_m, float pa1, float pa2, float pb1, float pb2, float sig2_u,
+    float eps4_u, int uniform, int energy, void* stream) {
+  if (m < 3 || mz < 1 || my < 1 || mx < 1 || shards < 1 || sy_n < 1 || sx_n < 1 || shards % (sy_n * sx_n) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel;
+  size_t smem;
+  int warps;
+  const int err = lj_kernel<true>(c, uniform, energy, &kernel, &smem, &warps);
+  if (err) return err;
+  PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
+  Fields fl{px, py, pz, 1, hs, tse, nullptr};
+  Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx};
+  const long cells = static_cast<long>(shards) * mz * my * mx;
+  const unsigned blocks = static_cast<unsigned>((cells + warps - 1) / warps);
+  void* args[] = {&fl, &slices, &g, &shards, &m, &c, &box, &k};
+  return static_cast<int>(
+      cudaLaunchKernel(kernel, dim3(blocks), dim3(32 * warps), args, smem, static_cast<cudaStream_t>(stream)));
+}
+
+// K5s's assembly: the centre sums of the own slots to out (3 or 5,
+// shards·mz·my·mx·C) and the ghost slots' reactions to react (3 or 5,
+// shards, mz+2, my+2, mx+2, C), from the slices of `emdee_streaming_ghost`.
+extern "C" int emdee_streaming_ghost_assemble(float* out, const float* slices, float* react, int mz, int my, int mx,
+                                              int shards, int c, int energy, void* stream) {
+  if (mz < 1 || my < 1 || mx < 1 || shards < 1 || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Ghost g{mz, my, mx, 1, 1, 0, 0, 0};
+  const long n_ghost = static_cast<long>(shards) * (mz + 2) * (my + 2) * (mx + 2) * c;
+  const int threads = 256;
+  const long blocks = (n_ghost + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (energy)
+    lj_ghost_assemble_kernel<5><<<blocks, threads, 0, s>>>(out, slices, react, g, shards, c);
+  else
+    lj_ghost_assemble_kernel<3><<<blocks, threads, 0, s>>>(out, slices, react, g, shards, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The K5s variant for C and these flags, as the card reports it (as
+// `emdee_streaming_attrs`).  Launches nothing.
+extern "C" int emdee_streaming_ghost_attrs(int c, int uniform, int energy, int* out) {
+  const void* kernel;
+  size_t smem;
+  int warps;
+  const int err = lj_kernel<true>(c, uniform, energy, &kernel, &smem, &warps);
+  if (err) return err;
+  return kernel_attrs(kernel, 32 * warps, smem, out);
+}
+#endif
+
+#if EMDEE_IN_PART(2)
 // The molecular pair pass (K5c): stacked positions (M³, C, 3), per-atom
 // (σ/2, 2√ε), q (M³, C) charges and the DSF constants' device pointers
 // with `coulomb`; aid (M³, C) int32 atom ids and the tags (M³, C, ne) with
@@ -1594,55 +1575,7 @@ extern "C" int emdee_streaming_fold_mol(float* f, float* e, float* w, const floa
 }
 #endif
 
-
-#if EMDEE_IN_PART(2)
-// The GHOST pair pass (K5s, LJ): the ghost grids of `shards` local shards,
-// px … tse each (shards, mz+2, my+2, mx+2, C) float32 with NaN positions in
-// empty slots (hs, tse unused with uniform parameters).  Writes the centre
-// sums to out (3 or 5, shards·mz·my·mx·C) and the reaction rows to groups
-// (5, 3 or 5, shards·mz·my, (mx+2)·C); `emdee_streaming_ghost_assemble`
-// adds them up.
-extern "C" int emdee_streaming_ghost(
-    const float* px, const float* py, const float* pz, const float* hs, const float* tse, float* out, float* groups,
-    int mz, int my, int mx, int shards, int sy_n, int sx_n, int bz, int by, int bx, int m, int c, const float* box,
-    float rc2, float rs2, float invd2, float a_m, float pa1, float pa2, float pb1, float pb2, float sig2_u,
-    float eps4_u, int uniform, int energy, void* stream) {
-  int warps;
-  const size_t smem = ghost_smem_bytes(mx, c, energy, &warps);
-  if (m < 3 || c < 1 || c > kMaxCapacity || mz < 1 || my < 1 || mx < 1 || shards < 1 || sy_n < 1 || sx_n < 1 ||
-      shards % (sy_n * sx_n) != 0 || smem > static_cast<size_t>(kSmemBytes))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u};
-  const Fields f{px, py, pz, 1, hs, tse, nullptr};
-  const Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx};
-  const int blocks = shards * mz * my;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (centre_slots(c)) {
-    case 1: return dispatch_ghost<1>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
-    case 2: return dispatch_ghost<2>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
-    case 3: return dispatch_ghost<3>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
-    default: return dispatch_ghost<kChunked>(f, uniform, energy, out, groups, g, blocks, m, c, box, k, s);
-  }
-}
-
-// The GHOST assembly: adds the five reaction slices to the centre sums in
-// `out` in place and writes the ghost slots' sums to react (3 or 5,
-// shards, mz+2, my+2, mx+2, C).
-extern "C" int emdee_streaming_ghost_assemble(float* out, const float* groups, float* react, int mz, int my, int mx,
-                                              int shards, int c, int energy, void* stream) {
-  if (mz < 1 || my < 1 || mx < 1 || shards < 1 || c < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Ghost g{mz, my, mx, 1, 1, 0, 0, 0};
-  const long n_ghost = static_cast<long>(shards) * (mz + 2) * (my + 2) * (mx + 2) * c;
-  const int threads = 256;
-  const long blocks = (n_ghost + threads - 1) / threads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (energy)
-    ghost_assemble_kernel<5><<<blocks, threads, 0, s>>>(out, groups, react, g, c, shards * mz * my);
-  else
-    ghost_assemble_kernel<3><<<blocks, threads, 0, s>>>(out, groups, react, g, c, shards * mz * my);
-  return static_cast<int>(cudaGetLastError());
-}
-
+#if EMDEE_IN_PART(3)
 // The GHOST molecular pair pass (K5s-mol): the ghost grids as in
 // `emdee_streaming_ghost` with per-atom parameters, plus the charges q
 // with `coulomb` and the int32 atom ids aid (−2 on empty slots) with

@@ -31,15 +31,14 @@ shell of `cell_dense._dense_forces`, the same as the resident kernel's
 `streaming_ghost_forces` (K5s) is the grid-sharded engine's per-shard pass
 of the same kernel (the reference's `_local_forces_streaming`, for shards
 beyond VMEM residency): two launches, the half-shell pair pass over each
-local shard's ghost grid (LJ: one block of 8 warps a pencil, the design K5
-had before it moved to warp-owned cells) and the assembly of its reaction
-rows into the
+local shard's ghost grid and the assembly of its scratch slices into the
 interior forces and a reaction ghost grid, which the engine returns to the
-owning shards (`grid_sharded._fold3`).  With the molecular terms (K5s-mol)
-the pair pass is K5c's warp-owned pass with its cull on the ghost grids (a
-warp owns one phase of one own cell, the shift from the neighbour's global
-cell index, `ghost_phase` mirrors it), and the assembly adds its 27 scratch
-slices in a fixed order.  Its plain version,
+owning shards (`grid_sharded._fold3`).  The pair pass is K5's (LJ: a warp
+walks the 14 phases of an own cell) or K5c's (K5s-mol: a warp one phase
+of an own cell), with scratch slices (`ghost_scratch_bytes`) and
+the cull, on the ghost grids, the shift from the neighbour's global cell
+index (`ghost_phase` mirrors it); the assembly adds the slices in a fixed
+order, K5s's in K5's association.  Its plain version,
 `streaming_ghost_forces_plain`, has the structure of the reference's
 `_local_forces_xla`: each half-shell reaction written to the ghost cell at
 +o.  Because the fold adds a shard's boundary reactions in another order,
@@ -85,15 +84,13 @@ MAX_CAPACITY = 1024  # as the resident family (csrc/cell_forces.cu)
 # into 96-entry chunks and a cell pair runs as its chunk pairs (kChunk).
 _CHUNK = 96
 _SMEM_BYTES = 232_448  # shared memory a block can use on Hopper
-_WARPS = 8  # K5s (LJ): warps a pencil block
-_ROW_GROUPS = 4  # K5s (LJ): reaction row groups besides the own row
 _OWNED_WARPS = 4  # K5c: warps a block, each owning a phase of a centre cell
 _PHASES, _OFFSETS = 14, 13  # the self cell and the half-shell offsets
 _SLICES = _PHASES + _OFFSETS  # K5c's scratch: the centre sums of each phase, the reactions of each offset
-# K5: warps a block, each walking the 14 phases of a centre cell, and the
-# blocks an SM its launch bounds ask the registers for at C ≤ 32 (the C
-# source's kLjWarps, kLjMinBlocks); its scratch: one centre slice and the
-# 13 reaction slices.
+# K5 (and K5s): warps a block, each walking the 14 phases of a centre cell,
+# and the blocks an SM its launch bounds ask the registers for at C ≤ 32
+# (the C source's kLjWarps, kLjMinBlocks); its scratch: one centre slice and
+# the 13 reaction slices.
 K5_WARPS, K5_MIN_BLOCKS = 4, 8
 K5_SLICES = 1 + _OFFSETS
 # The half-shell offsets (dz, dy, dx) in phase order (kOffDz/Dy/Dx of the C source).
@@ -130,12 +127,13 @@ def _k5_block(c: int, energy: bool, uniform: bool):
 
 def smem_bytes(config: CellDenseConfig, energy: bool, mol: bool = False, ne: int = 0, neb: int = 0,
                uniform: bool = False) -> int:
-    """A block's shared memory, as the C entries count it, whatever M: K5's
-    (`_k5_block`); K5c's (`mol`): for each of its 4 warps (at C > 96, as
-    many as fit), two tiles (x, y, z, σ/2, 2√ε, q, the atom id and the
-    slot; at C > 96 both cells' chunks and two work tiles), the staged
-    centre tags (3 values a tag and a bond tag) and its centre and reaction
-    rows.  Above Hopper's 232,448 B where not one warp fits."""
+    """A block's shared memory, as the C entries count it, whatever M (on
+    the grid, whatever the shards): K5's and K5s's (`_k5_block`); K5c's and
+    K5s-mol's (`mol`; K5s-mol has no bond tags, neb = 0): for each of its 4
+    warps (at C > 96, as many as fit), two tiles (x, y, z, σ/2, 2√ε, q, the
+    atom id and the slot; at C > 96 both cells' chunks and two work tiles),
+    the staged centre tags (3 values a tag and a bond tag) and its centre
+    and reaction rows.  Above Hopper's 232,448 B where not one warp fits."""
     c = config.capacity
     if mol:
         return _owned_block(c, energy, ne, neb)[0]
@@ -172,13 +170,15 @@ def cull_pair(cen, nb, shift, cut2: float):
     return keep_c, cull_keep(nb, kept.min(0).values, kept.max(0).values, -torch.as_tensor(shift), cut2)
 
 
-def _check_geometry(config: CellDenseConfig, energy: bool, mol: bool = False, ne: int = 0, neb: int = 0) -> None:
-    """Refuse what the one-card C entries (K5, K5c) would refuse, before any
-    launch: M ≥ 3, C ≤ MAX_CAPACITY, and the block's shared memory
-    (`smem_bytes`, which does not grow with M) within what Hopper gives a
-    block — above C = 96, one warp's chunks and rows."""
+def _check_geometry(config: CellDenseConfig, energy: bool, mol: bool = False, ne: int = 0, neb: int = 0,
+                    uniform: bool = False) -> None:
+    """Refuse what the C entries (K5, K5c and, on the grid's shards, K5s,
+    K5s-mol) would refuse, before any launch: M ≥ 3, C ≤ MAX_CAPACITY, and
+    the block's shared memory (`smem_bytes`, which grows neither with M nor
+    with the shards) within what Hopper gives a block — above C = 96, one
+    warp's chunks and rows."""
     m, c = config.cells_per_dim, config.capacity
-    smem = smem_bytes(config, energy, mol, ne, neb)
+    smem = smem_bytes(config, energy, mol, ne, neb, uniform)
     if m < 3 or c > MAX_CAPACITY or smem > _SMEM_BYTES:
         raise ValueError(
             f"the streaming kernel takes M ≥ 3, C ≤ {MAX_CAPACITY} and a block's shared memory within "
@@ -186,33 +186,19 @@ def _check_geometry(config: CellDenseConfig, energy: bool, mol: bool = False, ne
         )
 
 
-def ghost_smem_bytes(mx: int, c: int, energy: bool, mol: bool = False, ne: int = 0) -> int:
-    """K5s's shared memory a block, as its C entries count it.  LJ: the
-    pencil's centre sums, (n_r, mx·C), and one reaction row, (n_r,
-    (mx+2)·C), float32, and the 8 warps' two tiles as `smem_bytes` (at C >
-    96 the chunks and work tiles of as many warps as fit beside the rows).
-    K5s-mol (`mol`): K5c's warp-owned block with E tags and no bond tags,
-    whatever mx."""
-    if mol:
-        return _owned_block(c, energy, ne, 0)[0]
-    rows = 4 * (5 if energy else 3) * (2 * mx + 2) * c
-    if c <= 3 * 32:
-        return rows + 4 * _WARPS * 2 * 6 * (64 if c <= 64 else 96)
-    return _fit(4 * 6 * _CHUNK * (2 * _chunks(c) + 2), _WARPS, rows)[0]
-
-
-def ghost_mol_scratch_bytes(shards: int, local, c: int, energy: bool) -> int:
-    """K5s-mol's scratch, as `streaming_ghost_forces` allocates it: 14 centre
+def ghost_scratch_bytes(shards: int, local, c: int, energy: bool, mol: bool = False) -> int:
+    """K5s's scratch, as `streaming_ghost_forces` allocates it: the centre
     slices over the own slots of `shards` local shards of `local` = (mz, my,
-    mx) cells and 13 reaction slices over their ghost grids, (n_r, slots)
-    float32 each."""
+    mx) cells — one (LJ: a warp walks the 14 phases of a cell), or 14
+    (K5s-mol, `mol`: a warp a phase) — and 13 reaction slices over their
+    ghost grids, (n_r, slots) float32 each."""
     mz, my, mx = local
     own, ghost = shards * mz * my * mx * c, shards * (mz + 2) * (my + 2) * (mx + 2) * c
-    return 4 * (5 if energy else 3) * (_PHASES * own + _OFFSETS * ghost)
+    return 4 * (5 if energy else 3) * ((_PHASES if mol else 1) * own + _OFFSETS * ghost)
 
 
 def ghost_phase(cell: int, phase: int, shards, base, local, m: int, box: float):
-    """K5s-mol's geometry of one warp (for the tests): own cell `cell`
+    """K5s's geometry of one phase of a warp (for the tests): own cell `cell`
     (index over the local shards (sz, sy, sx) of `local` = (mz, my, mx)
     cells, shard-major) at phase 1 + k (offset k of PHASE_OFFSETS): the
     centre's and the neighbour's cell indices in the stacked ghost grids,
@@ -231,27 +217,13 @@ def ghost_phase(cell: int, phase: int, shards, base, local, m: int, box: float):
     return ghost(0, 0, 0), ghost(dz, dy, dx), shift
 
 
-def _check_ghost_geometry(config: CellDenseConfig, mx: int, energy: bool, mol: bool, ne: int) -> None:
-    """Refuse what K5s's C entries would refuse, before any launch: M ≥ 3,
-    C ≤ MAX_CAPACITY and a block's shared memory (`ghost_smem_bytes`) within
-    what Hopper gives a block (above C = 96, one warp's chunks beside the
-    pencil's rows)."""
-    m, c = config.cells_per_dim, config.capacity
-    smem = ghost_smem_bytes(mx, c, energy, mol, ne)
-    if m < 3 or c > MAX_CAPACITY or smem > _SMEM_BYTES:
-        raise ValueError(
-            f"the streaming kernel's ghost mode takes M ≥ 3, C ≤ {MAX_CAPACITY} and a block's shared memory "
-            f"within {_SMEM_BYTES} B; got M={m}, C={c}, mx={mx} ({smem} B)"
-        )
-
-
 def _launch(px, py, pz, pstride, hs, tse, valid, fx, fy, fz, fstride, e, w,
             config: CellDenseConfig, box, uniform_params, energy: bool) -> None:
     """K5's pair pass into its scratch slices, then the fold into fx … w;
     `box` is a number or a 0-d float32 tensor on the device, read there
     either way (`cell_dense.box_ptr`)."""
     global LAUNCHES
-    _check_geometry(config, energy)
+    _check_geometry(config, energy, uniform=uniform_params is not None)
     slices = torch.empty(scratch_bytes(config, energy) // 4, dtype=torch.float32, device=px.device)
     stream = torch.cuda.current_stream(px.device).cuda_stream
     lib = build.load()
@@ -330,11 +302,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def k5_resources(config: CellDenseConfig, uniform: bool, compute_energy: bool) -> dict:
-    """The K5 variant for C and these flags, as the card reports it
-    (`cell_kernel.resources`)."""
-    return resources("emdee_streaming_attrs", "cell_forces_streaming", config.capacity, int(uniform),
-                     int(compute_energy), warps=_k5_block(config.capacity, compute_energy, uniform)[1])
+def k5_resources(config: CellDenseConfig, uniform: bool, compute_energy: bool, ghost: bool = False) -> dict:
+    """The K5 variant (`ghost`: K5s's, the same kernel's GHOST mode) for C
+    and these flags, as the card reports it (`cell_kernel.resources`).  The
+    two modes keep an entry each, `emdee_streaming_attrs` and
+    `emdee_streaming_ghost_attrs`, as they keep a build part each."""
+    entry, what = ("emdee_streaming_ghost_attrs", " (ghost grid)") if ghost else ("emdee_streaming_attrs", "")
+    return resources(entry, "cell_forces_streaming" + what, config.capacity, int(uniform), int(compute_energy),
+                     warps=_k5_block(config.capacity, compute_energy, uniform)[1])
 
 
 def k5c_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) -> dict:
@@ -417,7 +392,7 @@ def streaming_ghost_forces(ghost, shards, base, config: CellDenseConfig, model: 
     ne = 0
     if excl is not None:
         ids, mlj, mcs, ne = _tag_operands(excl, coulomb is not None, local, dev)
-    _check_ghost_geometry(config, mx, compute_energy, mol, ne)
+    _check_geometry(config, compute_energy, mol, ne, 0, uniform_params is not None)
     nr = 5 if compute_energy else 3
     n_sh = sz * sy * sx
     out = torch.empty((nr, n_sh * mz * my * mx * c), dtype=torch.float32, device=dev)
@@ -428,9 +403,9 @@ def streaming_ghost_forces(ghost, shards, base, config: CellDenseConfig, model: 
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = build.load()
     xyz = (ghost[0].data_ptr(), ghost[1].data_ptr(), ghost[2].data_ptr())
+    scratch = torch.empty(ghost_scratch_bytes(n_sh, (mz, my, mx), c, compute_energy, mol) // 4, dtype=torch.float32,
+                          device=dev)
     if mol:
-        scratch = torch.empty(ghost_mol_scratch_bytes(n_sh, (mz, my, mx), c, compute_energy) // 4,
-                              dtype=torch.float32, device=dev)
         q = ghost[5] if coulomb is not None else None
         aid = ghost[-1] if excl is not None else None
         consts = (None,) * 6 if coulomb is None else _dsf_operands(coulomb, dev)
@@ -439,22 +414,18 @@ def streaming_ghost_forces(ghost, shards, base, config: CellDenseConfig, model: 
             scratch.data_ptr(), *geometry, *_pair_consts(config, None)[:8], int(coulomb is not None),
             int(excl is not None), int(compute_energy), stream,
         )
-        build.check(err, "cell_forces_streaming kernel (ghost grid, molecular)")
-        LAUNCHES += 1
-        err = lib.emdee_streaming_ghost_assemble_mol(out.data_ptr(), scratch.data_ptr(), react.data_ptr(), mz, my, mx,
-                                                     n_sh, c, int(compute_energy), stream)
-        build.check(err, "cell_forces_streaming assembly (ghost grid, molecular)")
     else:
-        groups = torch.empty((_ROW_GROUPS + 1, nr, n_sh * mz * my, gx * c), dtype=torch.float32, device=dev)
         err = lib.emdee_streaming_ghost(
-            *xyz, *params, out.data_ptr(), groups.data_ptr(), *geometry, *_pair_consts(config, uniform_params),
+            *xyz, *params, scratch.data_ptr(), *geometry, *_pair_consts(config, uniform_params),
             int(uniform_params is not None), int(compute_energy), stream,
         )
-        build.check(err, "cell_forces_streaming kernel (ghost grid)")
-        LAUNCHES += 1
-        err = lib.emdee_streaming_ghost_assemble(out.data_ptr(), groups.data_ptr(), react.data_ptr(), mz, my, mx,
-                                                 n_sh, c, int(compute_energy), stream)
-        build.check(err, "cell_forces_streaming assembly (ghost grid)")
+    what = "ghost grid, molecular" if mol else "ghost grid"
+    build.check(err, f"cell_forces_streaming kernel ({what})")
+    LAUNCHES += 1
+    assemble = lib.emdee_streaming_ghost_assemble_mol if mol else lib.emdee_streaming_ghost_assemble
+    err = assemble(out.data_ptr(), scratch.data_ptr(), react.data_ptr(), mz, my, mx, n_sh, c, int(compute_energy),
+                   stream)
+    build.check(err, f"cell_forces_streaming assembly ({what})")
     LAUNCHES += 1
     f = out[:3].reshape((3,) + local)
     if compute_energy:

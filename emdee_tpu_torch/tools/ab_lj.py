@@ -12,9 +12,10 @@ melt (M = 37, C = 32) drifted from the lattice.  With `--ghost`, K2-G in
 place of those launches, on the smoke's grid states: the equilibrated
 97,556-atom melt on (1,1,1) at M = 17 and, at
 `reconfigure_dense_state(cells_multiple_of=2)`'s M = 16, C = 40, on
-(2,2,2); with `--1m` also the 1M melt at `melt.even_config`'s M = 36, C =
-40 on (2,2,2); each drifted 0.45·skin, its shards' ghost grids built as
-the grid engine builds them (`LocalMesh`, every shard on the card).
+(2,2,2); with `--1m` also the 1M melt at M = 37, C = 32 on (1,1,1) and
+at `melt.even_config`'s M = 36, C = 40 on (2,1,1) and (2,2,2); each
+drifted 0.45·skin, its shards' ghost grids built as the grid engine
+builds them (`LocalMesh`, every shard on the card).
 
 Run from the repository root on a machine with a CUDA card, with the other
 versions from an unpacked parent commit or a kept working copy:
@@ -175,7 +176,8 @@ def _ghost_states(device, big):
     """(label, state, config, mesh shape) of the smoke's grid states, each
     drifted 0.45·skin: the equilibrated 97,556-atom melt at M = 17 on
     (1,1,1) and at M = 16, C = 40 on (2,2,2); with `big` the 1M melt at
-    M = 36, C = 40 on (2,2,2).  Also the uniform parameters."""
+    M = 37, C = 32 on (1,1,1) and at M = 36, C = 40 on (2,1,1) and (2,2,2).
+    Also the uniform parameters."""
     from emdee_tpu_torch import cell_dense_init, gather_dense_atoms, make_cell_dense_sim, reconfigure_dense_state
     from emdee_tpu_torch.tools.melt import DT, N_CELLS_1M, SKIN, equilibrate, even_config, melt
 
@@ -191,8 +193,10 @@ def _ghost_states(device, big):
         st37, config37, _, params37, _, n37 = melt(device, N_CELLS_1M)
         cfg36 = even_config(st37, config37)
         pos, vel = gather_dense_atoms(st37, n37)
-        st36 = cell_dense_init(pos, vel, np.ones(n37), params37, cfg36, device=device)
-        states.append((f"{n37} atoms (2,2,2) M=36 C={cfg36.capacity}", drift(st36), cfg36, (2, 2, 2)))
+        st36 = drift(cell_dense_init(pos, vel, np.ones(n37), params37, cfg36, device=device))
+        states += [(f"{n37} atoms (1,1,1) M=37 C={config37.capacity}", drift(st37), config37, (1, 1, 1)),
+                   (f"{n37} atoms (2,1,1) M=36 C={cfg36.capacity}", st36, cfg36, (2, 1, 1)),
+                   (f"{n37} atoms (2,2,2) M=36 C={cfg36.capacity}", st36, cfg36, (2, 2, 2))]
     return states, uni
 
 

@@ -965,7 +965,9 @@ def test_lj_cull_keeps_switch_region_pairs_per_atom(device, capacity):
     nothing parked, and K2-G, the grid's GHOST mode, on (1,1,1) and (2,2,2)
     with and without energies, gathered to the one-card slots) and the
     one-card streaming pass (K5's split entry and its stacked entry with and
-    without energies; at C = 104 its chunked variant) drop no pair in the
+    without energies; at C = 104 its chunked variant) and its GHOST mode
+    (K5s with the fold, on (1,1,1) and (2,2,2) with and without energies,
+    gathered alike) drop no pair in the
     switch region just inside the cutoff: the `_CULL_PAIRS` geometry with unit LJ and nothing else — each
     atom alone in its cell with one partner at 0.988–0.992 rc across a face,
     an edge or a corner, the periodic seam, or an overhang — so each atom's
@@ -1002,13 +1004,17 @@ def test_lj_cull_keeps_switch_region_pairs_per_atom(device, capacity):
                                                                               compute_energy=True, backend=b)),
     }
 
-    def k2g(shape, energy):
-        """K2-G's forces (and energies, virials) on `shape`, in one-card slots."""
+    def grid(shape, energy, family):
+        """The grid's forces (and energies, virials) on `shape` through the
+        kernel `family` ('cuda': K2-G; 'cuda_streaming': K5s and the fold)
+        or its plain version, in one-card slots."""
         mesh = make_grid_mesh(shape, device=device)
         sh = gs.distribute_grid(st, config, mesh)
+        plain = "torch" if family == "cuda" else "torch_streaming"
 
         def run(b):
-            roll, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, backend="cuda" if b == "cuda" else "torch")
+            roll, _ = gs.make_grid_sharded_sim(config, model, 0.002, mesh, backend=family if b == "cuda" else plain)
+            assert roll.family == (family if b == "cuda" else plain)
             f, e, w = roll.forces(sh, compute_energy=energy)
             whole = gs.gather_grid_state(sh._replace(positions=f, half_sigma=sh.half_sigma if e is None else e,
                                                      twice_sqrt_eps=sh.twice_sqrt_eps if w is None else w),
@@ -1017,9 +1023,10 @@ def test_lj_cull_keeps_switch_region_pairs_per_atom(device, capacity):
         return run
 
     for shape in ((1, 1, 1), (2, 2, 2)):
-        name = f"K2-G {shape}"
-        runs[name] = (k2g(shape, False), None)
-        runs[name + " energies"] = (None, k2g(shape, True))
+        for kernel, family in (("K2-G", "cuda"), ("K5s", "cuda_streaming")):
+            name = f"{kernel} {shape}"
+            runs[name] = (grid(shape, False, family), None)
+            runs[name + " energies"] = (None, grid(shape, True, family))
     failed = []  # every launch is held, so that one run names each that drops a pair
     for name, (forces, energies) in runs.items():
         if energies is not None:
@@ -1233,24 +1240,35 @@ def _k5s_vs_plain(sh, mesh, config, model, one_card, gate, e_gate, w_gate, rtol,
 
 
 @pytest.mark.parametrize("uniform", [False, True])
-@pytest.mark.parametrize("geometry,shape", [((6, 24), (2, 2, 2)), ((5, 40), (1, 1, 1)), ((4, 88), (2, 2, 2))])
+@pytest.mark.parametrize("geometry,shape", [((6, 24), (2, 2, 2)), ((5, 40), (1, 1, 1)), ((4, 88), (2, 2, 2)),
+                                            ((4, 104), (2, 2, 2)), ((4, 200), (2, 2, 2))])
 def test_streaming_ghost_kernel_matches_plain(device, uniform, geometry, shape):
-    """K5s (the streaming kernel's GHOST mode) with one, two and three
-    centre slots a lane (C = 24, 40, 88), drifted across cell faces and the
-    seam: against its plain version within 2e-5 of the force scale, energies
-    and virials at the one-card K5 test's gates (1e-4 and 2e-3, rtol 1e-4),
-    and after the fold against the one-card K5."""
+    """K5s (K5's warp-owned kernel in its GHOST mode) with one, two and
+    three centre slots a lane (C = 24, 40, 88) and its chunked variant (C =
+    104, one chunk a cell; the crowded box's C = 200, cells of 196 atoms in
+    three chunks), drifted across cell faces and the seam: against its plain
+    version within 2e-5 of the force scale, energies and virials at the
+    one-card K5 test's gates (1e-4 and 2e-3, rtol 1e-4), and after the fold
+    against the one-card K5; reruns bitwise; the card reports no local
+    (spill) bytes for the variant, with and without energies."""
     from emdee_tpu_torch.distributed.grid_sharded import distribute_grid
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
 
     m, c = geometry
-    st, config, model = _state(device, varied=not uniform, drift=True, geometry={"cells_per_dim": m, "capacity": c})
+    if c == 200:
+        st, config, model, _, _ = _crowded(device, c, m=m)
+    else:
+        st, config, model = _state(device, varied=not uniform, drift=True,
+                                   geometry={"cells_per_dim": m, "capacity": c})
     assert not bool(st.overflow)
     uni = (0.5, 2.0) if uniform else None
     one = streaming_kernel.cell_forces_streaming(st, model, config, backend="cuda", uniform_params=uni)[0]
     mesh = make_grid_mesh(shape, device=device)
     _k5s_vs_plain(distribute_grid(st, config, mesh), mesh, config, model, one, 2e-5, 1e-4, 2e-3, 1e-4,
                   uniform_params=uni)
+    for energy in (False, True):
+        res = streaming_kernel.k5_resources(config, uniform, energy, ghost=True)
+        assert res["registers"] > 0 and res["blocks_per_sm"] >= 1 and res["local_bytes"] == 0, res
 
 
 @pytest.mark.parametrize("capacity", [None, 40, 88])
@@ -1366,27 +1384,39 @@ def test_k5s_mol_cull_keeps_pairs_just_inside_the_cutoff(device, capacity, shape
         assert bool(((f - one[v1]).norm(dim=-1) <= 1e-3 * one[v1].norm(dim=-1)).all())
 
 
-def test_streaming_ghost_geometry_refusals_and_cpu(device):
-    """K5s refuses what its C entries would, before any launch: C > 1024,
-    and a block's shared memory past Hopper's 232,448 B (an LJ pencil of 50
-    cells at C = 96 with energies, 49 fit; at C = 1024 one warp's chunks
-    beside a pencil of 4 cells, 3 fit); K5s-mol's warp-owned block,
-    whatever the pencil, takes the same row with eight tags; 'cuda' on CPU
-    tensors and the 'cuda_streaming' family on a CPU mesh raise, with no
-    fallback."""
+def test_streaming_ghost_geometry_refusals_and_cpu(device, monkeypatch):
+    """K5s refuses what its C entries would, before any launch, and nothing
+    else: its block is K5's whatever the shards' rows, so a (1,1,1) shard
+    row of 60 cells at C = 96 with energies (which the pencil's shared
+    memory refused past 49) launches, and the pass writes exact zeros on an
+    empty row; C = 1025 is refused, and so is a C whose one warp's chunks
+    and rows pass Hopper's 232,448 B a block (C = 2,600 with the capacity
+    limit lifted); K5s-mol takes the same row with eight tags; 'cuda' on
+    CPU tensors and the 'cuda_streaming' family on a CPU mesh raise, with
+    no fallback."""
     from emdee_tpu_torch.distributed import grid_sharded as gs
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
 
     st, config, model = _state(device)
+    row = config._replace(cells_per_dim=60, capacity=96)
+    streaming_kernel._check_geometry(row, True)
+    streaming_kernel._check_geometry(row, True, True, 8)
+    gh = torch.full((5, 1, 1, 1, 3, 3, 62, 96), float("nan"), device=device)  # one shard row, mz = my = 1
+    gh[3:] = 1.0
+    f, react, e, w = streaming_kernel.streaming_ghost_forces(gh, (1, 1, 1), (0, 0, 0), row, model,
+                                                             compute_energy=True, backend="cuda")
+    torch.cuda.synchronize()
+    assert not any(bool(t.any()) for t in (f, react, e, w))
+    del gh
     with pytest.raises(ValueError, match="C ≤ 1024"):
-        streaming_kernel._check_ghost_geometry(config._replace(capacity=1025), 4, False, False, 0)
+        streaming_kernel._check_geometry(config._replace(capacity=1025), False)
+    assert (streaming_kernel.smem_bytes(config._replace(capacity=1024), True) <= 232_448
+            < streaming_kernel.smem_bytes(config._replace(capacity=2600), True))
+    monkeypatch.setattr(streaming_kernel, "MAX_CAPACITY", 4096)
+    streaming_kernel._check_geometry(config._replace(capacity=1024), True)
     with pytest.raises(ValueError, match="shared memory"):
-        streaming_kernel._check_ghost_geometry(config._replace(capacity=1024), 4, True, False, 0)
-    streaming_kernel._check_ghost_geometry(config._replace(capacity=1024), 3, True, False, 0)
-    with pytest.raises(ValueError, match="shared memory"):
-        streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 50, True, False, 0)
-    streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 49, True, False, 0)
-    streaming_kernel._check_ghost_geometry(config._replace(capacity=96), 50, True, True, 8)
+        streaming_kernel._check_geometry(config._replace(capacity=2600), True)
+    monkeypatch.undo()
     wide = config._replace(capacity=1025)
     gh = torch.full((5, 1, 1, 1, 5, 5, 5, 1025), float("nan"), device=device)
     with pytest.raises(ValueError, match="C ≤ 1024"):

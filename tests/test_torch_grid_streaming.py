@@ -251,29 +251,38 @@ def test_grid_auto_rule(m, c, shape, uniform, mol, mb, family):
 
 
 def test_k5s_shared_memory_fits_the_smoke_shapes():
-    """K5s's shared memory a block (`ghost_smem_bytes`, the C entries'
-    count) fits Hopper's 232,448 B at the shapes the grid runs it: the 1M
-    melt's (1,1,1) pencil row (mx = 37, C = 32) and the 985,527-atom water
-    box's (2,2,2) (mx = 13, C = 88, DSF and eight tags, with energies); the
-    geometry check refuses C > 96 and an LJ pencil row too wide for a
-    block.  K5s-mol's warp-owned block (K5c's, no bond tags) does not grow
-    with the pencil row, so the same row is taken with the molecular terms.
-    Above C = 96 the pencil's warps hold chunks: C = 104 at mx = 13 takes
-    its eight warps, C = 1024 one warp beside the rows up to mx = 3; C >
-    1024 is refused."""
+    """K5s's shared memory a block (`smem_bytes`, the C entries' count) is
+    K5's warp-owned block, whatever the shards' geometry: four
+    warps of three 64-entry tiles (x, y, z, with per-atom parameters σ/2 and
+    2√ε, and the slot) and the (n_r, C) centre and reaction rows, at the 1M
+    melt's C = 32 and the M = 36 grids' C = 40, uniform and per-atom, with
+    and without energies; K5s-mol's at the 985,527-atom water box (C = 88,
+    DSF and eight tags, with energies) is K5c's.  The geometry check takes
+    any shard row (a 60-cell grid at C = 96 with energies, which the pencil
+    refused) and C up to 1024, and refuses C > 1024.  K5s's scratch
+    (`ghost_scratch_bytes`: a centre slice over the own slots and 13
+    reaction slices over the ghost slots, (n_r, slots) float32 each) at the
+    smoke's shapes: the 1M melt on (1,1,1), M = 37, C = 32 — 315.6 MB forces
+    only, 526.0 MB with energies — and on (2,2,2), M = 36, C = 40 — 421.8
+    MB; the 97,556-atom melt on (1,1,1), M = 17, C = 32 — 36.1 MB."""
     from emdee_tpu_torch.neighbors import streaming_kernel as sk
 
-    sk._check_ghost_geometry(_config(37, 32), 37, True, False, 0)
-    sk._check_ghost_geometry(_config(26, 88), 13, True, True, 8)
-    assert sk.ghost_smem_bytes(13, 88, True, True, 2) < sk.ghost_smem_bytes(13, 88, True, True, 8) <= 232_448
+    for c in (32, 40):
+        for uniform, fields in ((True, 4), (False, 6)):
+            for energy, nr in ((False, 3), (True, 5)):
+                assert sk.smem_bytes(_config(36, c), energy, uniform=uniform) == 4 * 4 * (3 * fields * 64
+                                                                                          + 2 * nr * c)
+    assert sk.smem_bytes(_config(37, 32), False, uniform=True) == 15_360
+    assert sk.smem_bytes(_config(37, 32), True) == 23_552
+    sk._check_geometry(_config(37, 32), True)
+    sk._check_geometry(_config(26, 88), True, True, 8)
+    assert sk.smem_bytes(_config(26, 88), True, True, 2) < sk.smem_bytes(_config(26, 88), True, True, 8) <= 232_448
+    sk._check_geometry(_config(60, 96), True)
+    sk._check_geometry(_config(60, 96), True, True, 8)
+    sk._check_geometry(_config(24, 1024), True)
     with pytest.raises(ValueError, match="C ≤ 1024"):
-        sk._check_ghost_geometry(_config(26, 1025), 13, False, False, 0)
-    sk._check_ghost_geometry(_config(26, 104), 13, False, False, 0)
-    assert sk.ghost_smem_bytes(13, 104, False) == 4 * (3 * 28 * 104 + 8 * 6 * 96 * 6)
-    sk._check_ghost_geometry(_config(24, 1024), 3, True, False, 0)
-    with pytest.raises(ValueError, match="shared memory"):
-        sk._check_ghost_geometry(_config(24, 1024), 4, True, False, 0)
-    with pytest.raises(ValueError, match="shared memory"):
-        sk._check_ghost_geometry(_config(60, 96), 60, True, False, 0)
-    sk._check_ghost_geometry(_config(60, 96), 60, True, True, 8)
-    assert sk.ghost_smem_bytes(60, 96, True, True, 8) == sk.ghost_smem_bytes(13, 96, True, True, 8)
+        sk._check_geometry(_config(26, 1025), False)
+    assert sk.ghost_scratch_bytes(1, (37, 37, 37), 32, False) == 4 * 3 * (1_620_896 + 13 * 1_898_208) == 315_571_200
+    assert sk.ghost_scratch_bytes(1, (37, 37, 37), 32, True) == 525_952_000
+    assert sk.ghost_scratch_bytes(8, (18, 18, 18), 40, False) == 4 * 3 * (1_866_240 + 13 * 2_560_000) == 421_754_880
+    assert sk.ghost_scratch_bytes(1, (17, 17, 17), 32, False) == 36_126_720

@@ -19,7 +19,10 @@ test_torch_streaming_cull.py); and K5's scratch at the melts is what the wrapper
 touched.  K2-G, the LJ pass on the grid's ghost grids: its per-warp
 table (`cell_kernel.ghost_lj_table`) against the plain ghost pass's blocks
 and the one-card neighbours on (1,1,1), (2,2,2) and (2,4,1), and its cull
-(the table's shift, `k2c_cull` at rc²) on the drifted melt sharded (2,2,2)."""
+(the table's shift, `k2c_cull` at rc²) on the drifted melt sharded (2,2,2);
+and K5s's, K5's kernel on the ghost grids (`cull_pair` at rc² with the
+shift `streaming_kernel.ghost_phase` takes from the neighbour's global cell
+index), on the same sharded melt."""
 
 import numpy as np
 import pytest
@@ -271,3 +274,43 @@ def test_k2g_cull_keeps_every_inside_pair_on_the_drifted_melt_sharded_222():
                 assert bool(keep[inside.any(0)].all()), (cell, code, w0)
                 checked += int(inside.sum())
     assert checked > 200_000
+
+
+def test_k5s_cull_keeps_every_inside_pair_on_the_drifted_melt_sharded_222():
+    """K5s's cull on the ghost grids (K5's, at rc²): the same drifted melt
+    at M = 16, C = 40, sharded (2,2,2) into ghost grids: for the own cells
+    on a shard's z and y faces and every half-shell offset, `cull_pair` with
+    the shift that `ghost_phase` takes from the neighbour's global cell
+    index, on the raw ghost coordinates, keeps both atoms of every pair
+    whose float32 r² ((x_i − x_j) − shift) is below rc² (with a margin of
+    1e-5), across shard faces and the seam."""
+    m, capacity, shape = 16, 40, (2, 2, 2)
+    pos, box = fcc_lattice(N_CELLS, density=DENSITY)
+    stacked, valid = _binned(pos, box, m, capacity)
+    drift = np.random.default_rng(7).uniform(-0.5 * SKIN, 0.5 * SKIN, stacked.shape).astype(np.float32)
+    stacked = torch.where(valid[..., None], stacked + torch.from_numpy(drift), 0.0)
+    config = fixtures.charged_fixture("cpu")[1]._replace(cells_per_dim=m, capacity=capacity, box=box)
+    gpos, mesh = _ghost_positions(stacked, valid, config, shape)
+    local = (8, 8, 8)
+    cut2 = CUTOFF**2
+    checked = seams = 0
+    for cell in range(8 * 512):
+        y, z = (cell // 8) % 8, (cell // 64) % 8
+        if z not in (0, 7) or y not in (0, 7):
+            continue
+        for phase in range(1, 14):
+            home, nbi, shift = sk.ghost_phase(cell, phase, shape, mesh.base, local, m, float(box))
+            cen, nb = gpos[home], gpos[nbi]
+            cen, nb = cen[~torch.isnan(cen[:, 0])], nb[~torch.isnan(nb[:, 0])]
+            if len(cen) == 0 or len(nb) == 0:
+                continue
+            sh = torch.tensor(shift, dtype=torch.float32)
+            keep_c, keep_n = sk.cull_pair(cen, nb, sh, cut2)
+            d = (cen[:, None, :] - nb[None, :, :]) - sh
+            r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+            inside = r2 < cut2 * (1 + 1e-5)
+            assert bool(keep_c[inside.any(1)].all()), (cell, phase)
+            assert bool(keep_n[inside.any(0)].all()), (cell, phase)
+            checked += int(inside.sum())
+            seams += int(inside.sum()) if any(shift) else 0
+    assert checked > 100_000 and seams > 10_000, (checked, seams)

@@ -161,10 +161,9 @@ def test_streaming_matches_pallas_streaming_at_c104():
 def test_streaming_family_takes_m12_c104(energy):
     """F1: the geometry checks of the streaming family take M = 12, C = 104
     — K5 (uniform and per-atom parameters) and K5c (the water tags, E = E_b
-    = 2) on one card, K5s (an LJ pencil row of mx = 6) and K5s-mol (E = 2)
-    on the grid's shards — with the chunked blocks' shared memory as the C
-    entries count it: two 96-entry chunks a cell, four warps a block (eight
-    for the pencil)."""
+    = 2) on one card, K5s (K5's block) and K5s-mol (E = 2) on the grid's
+    shards — with the chunked blocks' shared memory as the C entries count
+    it: two 96-entry chunks a cell, four warps a block."""
     config = CONFIG._replace(cells_per_dim=12, capacity=104)
     nr = 5 if energy else 3
     for uniform, fields in ((True, 4), (False, 6)):
@@ -175,9 +174,8 @@ def test_streaming_family_takes_m12_c104(energy):
     streaming_kernel._check_geometry(config, energy, True, 2, 2)
     assert streaming_kernel.smem_bytes(config, energy, True, 2, 2) == 4 * 4 * (6 * 8 * 96 + 3 * 4 * 96
                                                                                + 2 * nr * 104)
-    streaming_kernel._check_ghost_geometry(config, 6, energy, False, 0)
-    streaming_kernel._check_ghost_geometry(config, 6, energy, True, 2)
-    assert streaming_kernel.ghost_smem_bytes(6, 104, energy) == 4 * (nr * 14 * 104 + 8 * 6 * 96 * 6)
+    streaming_kernel._check_geometry(config, energy, True, 2)
+    assert streaming_kernel.smem_bytes(config, energy, True, 2) == 4 * 4 * (6 * 8 * 96 + 3 * 2 * 96 + 2 * nr * 104)
 
 
 def test_m12_c104_resolves_to_the_streaming_family():

@@ -323,10 +323,9 @@ def test_k2c_and_k5s_mol_shared_memory_and_scratch_at_the_smoke_shapes():
     assert cell_kernel.mol_smem_bytes(80, 2, 0) == 28_160
     assert cell_kernel.mol_smem_bytes(1024, 8, 8) == cell_kernel.mol_smem_bytes(256, 8, 8) == 90_624 <= 232_448
     config = fixtures.charged_fixture("cpu")[1]
-    assert sk.ghost_smem_bytes(13, 88, True, True, 2) == sk.smem_bytes(config._replace(capacity=88), True, True, 2, 0)
-    assert sk.ghost_smem_bytes(13, 88, True, True, 2) == 47_872
-    assert sk.ghost_mol_scratch_bytes(8, (13, 13, 13), 88, False) == 630_499_584
-    assert sk.ghost_mol_scratch_bytes(8, (13, 13, 13), 88, True) == 1_050_832_640
+    assert sk.smem_bytes(config._replace(capacity=88), True, True, 2) == 47_872
+    assert sk.ghost_scratch_bytes(8, (13, 13, 13), 88, False, mol=True) == 630_499_584
+    assert sk.ghost_scratch_bytes(8, (13, 13, 13), 88, True, mol=True) == 1_050_832_640
 
 
 def test_ghost_phase_matches_the_plain_ghost_blocks():
