@@ -1517,6 +1517,11 @@ P2_BEFORE = {"std": 0.1178, "dgt": 0.1423}
 # on the log lines beside this run's times.
 K2C_BEFORE = {"water_ms": 1.4731, "water_energy_ms": 1.2764, "n1m_water_ms": 11.6446}
 K5S_MOL_BEFORE = {"ms": 9.4924}
+# K2c-G before it moved onto K2c's kernel (a block a cell, a thread a centre
+# slot, every slot of the 27 ghost neighbours tested): its last chip_smoke.py
+# times on the (2,2,2) water grid and on the 985,527-atom grid's ghost grids
+# (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
+K2CG_BEFORE = {"ms": 1.2185, "energy_ms": 1.2803, "n111_ms": 1.2271, "n1m_ms": 9.7770}
 # float32 operations of one molecular pair inside the cutoff, each pair once
 # with Newton's third law.  The force launch: OPS_PER_PAIR, the per-atom
 # mixing 3, DSF Coulomb's force part 47 (√r, 1/r, αr 3, erfc ≈ 20, exp and
@@ -2292,7 +2297,8 @@ def phase_grid_water_1m(device, tag, w1m):
         f"|dE|, |dW| {err_e:.3e}; + fold vs the one-card K5c {vs_one:.3e}; K5s-mol {t['ms']:.4f} ms (2 launches; "
         f"before the redesign {K5S_MOL_BEFORE['ms']}), energy variant {t['energy_ms']:.4f}, plain "
         f"{t['plain_ms']:.3f}, fold {t['fold_ms']:.4f}, the force pass with halo, fold and term rows "
-        f"{t['pass_ms']:.4f}, K2c-G on the same ghost grids {t['k2g_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
+        f"{t['pass_ms']:.4f}, K2c-G on the same ghost grids {t['k2g_ms']:.4f} ms (before its redesign "
+        f"{K2CG_BEFORE['n1m_ms']}); bound {t['bound_ms']:.5f} ms "
         f"({t['bound_by']}; {pairs:,} pairs inside the cutoff); {steps} NVE steps from the lattice start in "
         f"{sec:.3f} s = {ms:.4f} ms/step, drift {drift:.3e} (gate {WATER_DRIFT_GATE}); launches {counts}; reruns "
         "bitwise")
@@ -2427,7 +2433,8 @@ def phase_grid_water(device, tag, w, dense_drift):
     K2c-q's (no bond tags) on the equilibrated state drifted 0.45·skin, the
     total forces (pairs and term rows) bitwise equal between the two, the
     energy within rel 1e-5 of the one-card engine's closure; K2c-G vs the
-    ghost pass's plain version and its times; the gated 600-step NVE window
+    ghost pass's plain version and its times; K2c-G's variants' resources
+    as the card reports them (no local bytes); the gated 600-step NVE window
     on (2,2,2) (drift ≤ 1e-4, no flag, one K2c-G launch a force evaluation
     and three K6 a rebin, bitwise reruns, no host waits); the triatomic
     fixture on (2,2,2) against the one-card 'torch' engine after 20 steps
@@ -2437,7 +2444,7 @@ def phase_grid_water(device, tag, w, dense_drift):
         distribute_grid, gather_grid_atoms, gather_grid_state, make_grid_sharded_sim,
     )
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
-    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces, ghost_forces
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces, ghost_forces, k2c_resources
     from emdee_tpu_torch.tools import fixtures, water
 
     box, cfg, model, coul, params = w["box"], w["cfg"], w["model"], w["coul"], w["params"]
@@ -2481,14 +2488,21 @@ def phase_grid_water(device, tag, w, dense_drift):
         timing[shape] = dict(ms=cuda_ms(lambda: call("cuda"), 20), energy_ms=cuda_ms(lambda: call("cuda", True), 10),
                              plain_ms=cuda_ms(lambda: call("torch"), 2), pass_ms=cuda_ms(lambda: roll.forces(sh), 10),
                              err=err, err_e=err_e, scale=scale, ghost_slots=int(gh[0].numel()))
+        before = K2CG_BEFORE["n111_ms" if shape == (1, 1, 1) else "ms"]
         log(f"{tag} grid water {shape} (M={cfg.cells_per_dim} C={cfg.capacity}, LocalMesh): K2c-G pair forces, "
             f"energies and virials bit for bit the one-card K2c-q's; PE {pe:.3f} vs one-card {pe1:.3f} kJ/mol; "
             f"K2c-G vs plain max |dF| {err:.3e} (scale {scale:.1f}), |dE|, |dW| {err_e:.3e}; K2c-G launch "
-            f"{timing[shape]['ms']:.4f} ms, energy launch {timing[shape]['energy_ms']:.4f} ms, plain "
+            f"{timing[shape]['ms']:.4f} ms (before its redesign {before}), energy launch "
+            f"{timing[shape]['energy_ms']:.4f} ms (before {K2CG_BEFORE['energy_ms']}), plain "
             f"{timing[shape]['plain_ms']:.3f} ms, the force pass with halo and term rows "
             f"{timing[shape]['pass_ms']:.4f} ms")
     if not torch.equal(totals[(1, 1, 1)].view(torch.int32), totals[(2, 2, 2)].view(torch.int32)):
         raise AssertionError("grid water: total forces (pairs + term rows) differ between (1,1,1) and (2,2,2)")
+    res = {"step": k2c_resources(cfg, coul, tags, False, ghost=True),
+           "energy": k2c_resources(cfg, coul, tags, True, ghost=True)}
+    if any(r["local_bytes"] for r in res.values()):
+        raise AssertionError(f"grid water: a K2c-G variant keeps local bytes: {res}")
+    log(f"{tag} K2c-G resources at M={cfg.cells_per_dim} C={cfg.capacity}: {resources_line(res)}")
 
     mesh = make_grid_mesh((2, 2, 2), device=device)
     roll, energy = make_grid_sharded_sim(cfg, model, water.DT, mesh, **kw)
@@ -2536,7 +2550,7 @@ def phase_grid_water(device, tag, w, dense_drift):
            "energy_err": max(timing[s]["err_e"] for s in timing), "energy_ms": t["energy_ms"],
            "n111_ms": timing[(1, 1, 1)]["ms"], "n111_energy_ms": timing[(1, 1, 1)]["energy_ms"],
            "force_pass_ms": t["pass_ms"], "grid_water_ms_per_step": ms, "grid_water_drift": drift,
-           "triatomic_gap": max(gap), "pairs": pairs}
+           "triatomic_gap": max(gap), "pairs": pairs, "resources": res}
     return row, {"grid_water_222": counts}, ms
 
 

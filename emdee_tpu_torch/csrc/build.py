@@ -117,6 +117,8 @@ _SIGNATURES = {
     # invd2, a_m, pa1, pa2, pb1, pb2, coulomb, excl, energy, stream
     "emdee_cell_forces_ghost_mol": [_P] * 10 + [_I] + [_P] * 6 + [_P] * 5 + [_I] * 11 + [_P] + [_F] * 8
                                    + [_I, _I, _I, _P],
+    # c, ne, coulomb, excl, energy, out (int[4])
+    "emdee_cell_forces_ghost_mol_attrs": [_I] * 5 + [_P],
     # x, wl, wr, b, out, flag, nf, rows, c, cf, m, num_slots, box (device),
     # stream
     "emdee_rebin_window": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P],

@@ -35,11 +35,15 @@
 //
 // Full shell, not half shell: each pair is evaluated from both sides, twice
 // the TPU kernel's pair work, in exchange for no atomics, no reaction buffer
-// and no fold.  Every centre's pairs go through `pair_force` and
-// `accumulate` in the order of the old full-shell kernel (one block a
-// cell, a thread a centre slot: `cell_forces_kernel`, which K2c-G keeps),
-// which skips only pairs at r² ≥ rc² too: the sums are its sums bit for
-// bit, and reproducible run to run (the engine's determinism contract).
+// and no fold.  The full-shell order: every centre's pairs go through
+// `pair_force` and `accumulate` neighbour cell by neighbour cell in (dz, dy,
+// dx) order (z outermost, each from −1 to 1), each cell's slots in slot
+// order, and only pairs at r² ≥ rc² (cut2 for the molecular pass) are left
+// out.  Every force kernel of this file keeps that order however it stages
+// and culls, so its sums do not depend on the design, are reproducible run
+// to run (the engine's determinism contract), and the GHOST modes, which
+// walk the same slots with the same shifts, equal the one-card passes bit
+// for bit on every decomposition.
 //
 // Numerics: the TPU kernel's Horner form of the switched −r·dE/dr in r²,
 // tot = t12·pa(x) − t6·pb(x), with an exact IEEE 1/r² (no fast math, no
@@ -77,14 +81,14 @@
 // GHOST with COULOMB/EXCL (K2c-G: the molecular branches inside the grid's
 // per-shard pass, `_local_forces_pallas` :629-656 and `_local_energy_pallas`
 // :704-768 of grid_sharded.py), entered through
-// `emdee_cell_forces_ghost_mol`: the ghost grids also carry each slot's
-// charge and int32 atom id (−2 on empty slots), staged like the resident
-// mode's; the centre tags are per own slot; no bond tags (the grid keeps
-// its bonds as term rows, as the reference does).  The pair math and the
-// order of every sum are K2c's (the same `pair_force` and `accumulate`, the same order of
-// each centre's pairs), so the forces of any decomposition equal the
-// one-card K2c-q's bit for bit.
-//
+// `emdee_cell_forces_ghost_mol`: K2c's kernel, `cell_mol_kernel` with
+// GHOST, over the local shards' own cells.  The ghost grids also carry each
+// slot's charge and int32 atom id (−2 on empty slots); the centre tags are
+// per own slot; no bond tags (the grid keeps its bonds as term rows, as the
+// reference does).  The walk and the per-warp neighbour table are K2-G's,
+// the staging, cull, lists and pair term K2c's, so the forces of any
+// decomposition equal the one-card K2c-q's bit for bit.
+
 // COULOMB, EXCL, BOND (K2c: the molecular branches of `_build_pair_pass`,
 // K2c-q `coulomb` :420-424, :525-551 and `excl_e`/`excl_cs` :459-488;
 // K2c-b `excl_eb` :468-487, :502-523; centre tags as `_unpack_centers`
@@ -113,10 +117,9 @@
 // most 256 at a time; pass A has every lane list, in that order, the staged
 // entries at r² < cut2 (a byte an entry); pass B runs the pair term over
 // each lane's own list, recomputing the displacement with the same float
-// operations.  Each centre's pairs are evaluated by the same `pair_force`
-// and added by the same `accumulate` (one FMA a component) in the order the
-// full-shell kernel adds them, and only pairs at r² ≥ cut2, which it skips
-// too, are left out: K2c's sums equal the GHOST mode's (K2c-G) bit for bit.
+// operations.  Each centre's pairs are evaluated by `pair_force` and added
+// by `accumulate` (one FMA a component) in the full-shell order, so K2c's
+// sums equal its GHOST mode's (K2c-G) bit for bit.
 // The centre tags and bond weights are staged per lane in shared memory.
 // Shared memory a block: 4 × (16·C' + 96·(E + E_b) + 32) floats, C' = C
 // rounded up to a warp and at most 256 (31,232 B at C = 80, E = E_b = 2);
@@ -125,6 +128,8 @@
 // 80, part 2) leave at once instead of holding a quarter of an SM's warp
 // slots: that took the launch from ~0.82 ms to ~0.72 at the water box
 // (NVIDIA H100, 700 W; `tools/ab_mol.py` against the cell-major order).
+// A GHOST variant (K2c-G) adds 4·27 words a warp for its neighbour table
+// (29,888 B a block at C = 80, E = 2).
 // In trials on this card the pair term takes about half of the launch, the
 // staging and the candidate loop the rest; a form that evaluated the
 // listed pairs 32 at a time across lanes and added them in order from a
@@ -164,7 +169,40 @@ struct Ghost {
   int mz, my, mx, sy_n, sx_n, bz, by, bx, shards;
 };
 
-constexpr int kMaxMolCapacity = 1024;  // K2c: as the full-shell kernel
+// GHOST: own cell `cell` of the local shards (shard-major) — its global
+// cell coordinates (cx, cy, cz), and its cell in the stacked ghost grids
+// (returned), whose slots hold its centres.
+__device__ __forceinline__ long ghost_home(const Ghost& g, long cell, int& cx, int& cy, int& cz) {
+  const int lx = static_cast<int>(cell % g.mx), ly = static_cast<int>((cell / g.mx) % g.my);
+  const long r = cell / (static_cast<long>(g.mx) * g.my);
+  const int lz = static_cast<int>(r % g.mz), shard = static_cast<int>(r / g.mz);
+  cx = (g.bx + shard % g.sx_n) * g.mx + lx;
+  cy = (g.by + (shard / g.sx_n) % g.sy_n) * g.my + ly;
+  cz = (g.bz + shard / (g.sx_n * g.sy_n)) * g.mz + lz;
+  const long gbase = static_cast<long>(shard) * (g.mz + 2) * (g.my + 2) * (g.mx + 2);  // the shard's ghost cell 0
+  return gbase + (static_cast<long>(lz + 1) * (g.my + 2) + ly + 1) * (g.mx + 2) + lx + 1;
+}
+
+// Entry `code` = (dz + 1)·9 + (dy + 1)·3 + dx + 1 of a warp's neighbour
+// table for the cell at global (cx, cy, cz): the neighbour's periodic
+// shift tsh[3·code …], ±box where its global cell index leaves [0, M), and
+// its first input slot tnb[code] — GHOST: the ghost-grid neighbour of
+// `home`; one card: the wrapped cell.
+template <bool GHOST>
+__device__ __forceinline__ void table_entry(int code, int cx, int cy, int cz, int m, int c, float box, long home,
+                                            const Ghost& g, float* tsh, int* tnb) {
+  const int w[3] = {cx + code % 3 - 1, cy + (code / 3) % 3 - 1, cz + code / 9 - 1};
+#pragma unroll
+  for (int v = 0; v < 3; ++v) tsh[3 * code + v] = w[v] < 0 ? -box : (w[v] >= m ? box : 0.f);
+  if constexpr (GHOST) {
+    tnb[code] = static_cast<int>((home + ((code / 9 - 1) * (g.my + 2) + (code / 3) % 3 - 1) * (g.mx + 2) +
+                                  code % 3 - 1) * c);
+  } else {
+    tnb[code] = (((w[2] + m) % m * m + (w[1] + m) % m) * m + (w[0] + m) % m) * c;
+  }
+}
+
+constexpr int kMaxMolCapacity = 1024;  // K2c, K2c-G: the most slots a cell
 
 // The pair term of one pair at r² < cut2: the switched LJ (per-atom or
 // uniform parameters, t6 scaled by the tags' ljsc with EXCL) and the
@@ -216,162 +254,6 @@ __device__ __forceinline__ void accumulate(float gf, float dvx, float dvy, float
   }
 }
 
-// K2c-G, the GHOST mode's molecular branches (per-atom parameters): one
-// block per own cell of the local shards, one thread per centre slot (C
-// rounded up to a warp; tail threads only help stage).  The block walks the 27 neighbour cells of the ghost
-// grid in the fixed (dz, dy, dx) order, stages each one's C slots in shared
-// memory, and every thread runs the pair term of its centre slot against
-// them in slot order.
-template <bool ENERGY, bool COULOMB, bool EXCL>
-__global__ void cell_forces_kernel(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz,
-    const float* __restrict__ hs, const float* __restrict__ tse,
-    float* __restrict__ fx, float* __restrict__ fy, float* __restrict__ fz,
-    float* __restrict__ e_out, float* __restrict__ w_out,
-    int m, int c, const float* __restrict__ box_ptr, PairConsts k, Ghost g, Mol mol) {
-  static_assert(COULOMB || EXCL, "the LJ GHOST mode (K2-G) is cell_lj_kernel's");
-  extern __shared__ float smem[];
-  const float box = *box_ptr;
-  float* sx = smem;
-  float* sy = sx + c;
-  float* sz = sy + c;
-  float* shs = sz + c;
-  float* stse = shs + c;
-  float* sq = stse + c;  // the molecular fields
-  int* said = reinterpret_cast<int*>(sq + c);
-  uint8_t* sv = reinterpret_cast<uint8_t*>(said + c);
-
-  const int cell = blockIdx.x;
-  const int i = threadIdx.x;
-  // The cell's local coordinates, its global ones and its shard's first
-  // ghost cell.
-  const int lx = cell % g.mx;
-  const int ly = (cell / g.mx) % g.my;
-  const int r = cell / (g.mx * g.my);
-  const int lz = r % g.mz;
-  const int shard = r / g.mz;
-  const int cx = (g.bx + shard % g.sx_n) * g.mx + lx;
-  const int cy = (g.by + (shard / g.sx_n) % g.sy_n) * g.my + ly;
-  const int cz = (g.bz + shard / (g.sx_n * g.sy_n)) * g.mz + lz;
-  const long gbase = static_cast<long>(shard) * (g.mz + 2) * (g.my + 2) * (g.mx + 2);
-  const long own = static_cast<long>(cell) * c + i;
-  // The center slot's input index, in the ghost grid's interior.
-  const long in_own = (gbase + ((lz + 1) * (g.my + 2) + ly + 1) * (g.mx + 2) + lx + 1) * c + i;
-  bool center = false;
-  float xi = 0.f, yi = 0.f, zi = 0.f, hsi = 0.f, tsei = 0.f;
-  if (i < c) {
-    xi = px[in_own];
-    center = !isnan(xi);
-  }
-  if (center) {
-    xi = px[in_own];
-    yi = py[in_own];
-    zi = pz[in_own];
-    hsi = hs[in_own];
-    tsei = tse[in_own];
-  }
-  float fxa = 0.f, fya = 0.f, fza = 0.f, ea = 0.f, wa = 0.f;
-
-  // Molecular centre operands: the charge from the ghost grid's interior,
-  // the tags per own slot, in registers.
-  float qi = 0.f;
-  Dsf dsf{};
-  int tid[kMaxTags];
-  float tmlj[kMaxTags], tmcs[kMaxTags];
-  float cut2 = k.rc2;
-  if (COULOMB) {
-    dsf = emdee::load_dsf(mol);
-    cut2 = fmaxf(cut2, dsf.rc2);
-    if (center) qi = mol.q[in_own];
-  }
-#pragma unroll
-  for (int t = 0; t < kMaxTags; ++t) {
-    tid[t] = -1;
-    tmlj[t] = tmcs[t] = 0.f;
-    if (EXCL && center && t < mol.ne) {
-      const long at = own * mol.ne + t;
-      tid[t] = __float2int_rn(mol.ids[at]);
-      tmlj[t] = mol.mlj[at];
-      if (COULOMB) tmcs[t] = mol.mcs[at];
-    }
-  }
-
-  for (int dz = -1; dz <= 1; ++dz) {
-    float shz = 0.f;
-    if (cz + dz < 0) shz = -box; else if (cz + dz >= m) shz = box;
-    for (int dy = -1; dy <= 1; ++dy) {
-      float shy = 0.f;
-      if (cy + dy < 0) shy = -box; else if (cy + dy >= m) shy = box;
-      for (int dx = -1; dx <= 1; ++dx) {
-        float shx = 0.f;
-        if (cx + dx < 0) shx = -box; else if (cx + dx >= m) shx = box;
-        const long nb = (gbase + ((lz + 1 + dz) * (g.my + 2) + ly + 1 + dy) * (g.mx + 2) + lx + 1 + dx) * c;
-
-        __syncthreads();  // the previous neighbor cell is consumed
-        if (i < c) {
-          const long s = nb + i;
-          sx[i] = px[s];
-          sv[i] = !isnan(sx[i]);
-          sy[i] = py[s];
-          sz[i] = pz[s];
-          shs[i] = hs[s];
-          stse[i] = tse[s];
-          if (COULOMB) sq[i] = mol.q[s];
-          if (EXCL) said[i] = mol.aid[s];
-        }
-        __syncthreads();
-        if (!center) continue;
-
-        const bool self_cell = dz == 0 && dy == 0 && dx == 0;
-        for (int j = 0; j < c; ++j) {
-          if (!sv[j] || (self_cell && j == i)) continue;
-          const float dvx = (xi - sx[j]) - shx;
-          const float dvy = (yi - sy[j]) - shy;
-          const float dvz = (zi - sz[j]) - shz;
-          const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
-          if (!(r2 < cut2)) continue;
-          // Tag matches: the LJ and Coulomb scales.
-          float ljsc = 1.f, csc = 1.f;
-          if (EXCL) {
-            const int aj = said[j];
-#pragma unroll
-            for (int t = 0; t < kMaxTags; ++t) {
-              if (tid[t] != aj) continue;  // pad tags hold −1, never an atom id
-              ljsc -= tmlj[t];
-              if (COULOMB) csc -= tmcs[t];
-            }
-          }
-          float tot, esum;
-          const float gf = pair_force<false, ENERGY, COULOMB, EXCL, false>(
-              r2, hsi, shs[j], tsei, stse[j], COULOMB ? dsf.kc * qi * sq[j] * csc : 0.f, ljsc, 0.f, 0.f, 0.f, k, dsf,
-              tot, esum);
-          accumulate<ENERGY>(gf, dvx, dvy, dvz, tot, esum, fxa, fya, fza, ea, wa);
-        }
-      }
-    }
-  }
-  if (i < c) {
-    fx[own] = fxa;
-    fy[own] = fya;
-    fz[own] = fza;
-    if (ENERGY) {
-      e_out[own] = ea;
-      w_out[own] = wa;
-    }
-  }
-}
-
-template <bool ENERGY, bool COULOMB, bool EXCL>
-void launch_ghost(const float* px, const float* py, const float* pz, const float* hs, const float* tse, float* fx,
-                  float* fy, float* fz, float* e, float* w, int m, int c, const float* box, const PairConsts& k,
-                  const Ghost& g, int blocks, const Mol& mol, cudaStream_t stream) {
-  const int threads = ((c + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * 7 * c + c;
-  cell_forces_kernel<ENERGY, COULOMB, EXCL><<<blocks, threads, smem, stream>>>(
-      px, py, pz, hs, tse, fx, fy, fz, e, w, m, c, box, k, g, mol);
-}
-
 constexpr unsigned kFull = 0xffffffffu;
 
 // K2a, K2b and K3's grid side (`cell_lj_kernel`): kLjWarps warps a block,
@@ -388,15 +270,14 @@ constexpr int kLjWarpWords = 6 * 32 + 4 * 27 + 32;
 
 // K2a/K2b/K3's pair pass.  Warp part · M³ + cell takes the live centres of
 // rank 32·part … 32·part + 31 of its cell (lane l the centre of rank
-// 32·part + l) and walks the 27 neighbour cells in `cell_forces_kernel`'s
-// (dz, dy, dx) order, 32 slots at a time.  It stages in shared memory, in
-// slot order, the chunk's live slots within the cutoff of the warp's
-// centre box (`near_box` at rc², the box shifted back by the cell's
-// periodic shift), and each lane runs the pair term on the staged entries
-// at r² < rc² (the self pair left out), in that order.  So a centre's pairs
-// go through `pair_force` and `accumulate` in that kernel's order, and
-// only pairs at r² ≥ rc², which it skips too, are left out: the sums are
-// its sums, bit for bit.  STRAG: then the ≤ Kn aux atoms that the (M², Kn)
+// 32·part + l) and walks the 27 neighbour cells in the full-shell (dz, dy,
+// dx) order, 32 slots at a time.  It stages in shared memory, in slot
+// order, the chunk's live slots within the cutoff of the warp's centre box
+// (`near_box` at rc², the box shifted back by the cell's periodic shift),
+// and each lane runs the pair term on the staged entries at r² < rc² (the
+// self pair left out), in that order.  So a centre's pairs go through
+// `pair_force` and `accumulate` in the full-shell order, and only pairs at
+// r² ≥ rc² are left out.  STRAG: then the ≤ Kn aux atoms that the (M², Kn)
 // table lists for the cell's pencil row, staged 32 at a time and added in
 // list order on min-imaged differences at the static box.  Part 0 also
 // writes the zeros of the empty slots.
@@ -407,10 +288,10 @@ constexpr int kLjWarpWords = 6 * 32 + 4 * 27 + 32;
 // C) ghost grids, a slot live where its x is not NaN (no valid mask).  The
 // per-warp table holds each neighbour's first ghost-grid slot and the
 // shift of its GLOBAL cell index (the shard's offset plus the local one),
-// ±box where that index leaves [0, M), as `cell_forces_kernel` takes it:
-// the raw ghost coordinates are the one-card state's, and each neighbour's
-// slots are those of the one-card neighbour cell with the one-card shift,
-// so the sums are the one-card pass's bit for bit on every decomposition.
+// ±box where that index leaves [0, M): the raw ghost coordinates are the
+// one-card state's, and each neighbour's slots are those of the one-card
+// neighbour cell with the one-card shift, so the sums are the one-card
+// pass's bit for bit on every decomposition.
 template <bool UNIFORM, bool ENERGY, bool STRAG, bool GHOST = false>
 __global__ void __launch_bounds__(kLjThreads, kLjMinBlocks)
     cell_lj_kernel(const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
@@ -433,16 +314,7 @@ __global__ void __launch_bounds__(kLjThreads, kLjMinBlocks)
   // of the ghost grid), whose slots hold its centres.
   int cx, cy, cz;
   long home = cell;
-  if constexpr (GHOST) {
-    const int lx = static_cast<int>(cell % g.mx), ly = static_cast<int>((cell / g.mx) % g.my);
-    const long r = cell / (static_cast<long>(g.mx) * g.my);
-    const int lz = static_cast<int>(r % g.mz), shard = static_cast<int>(r / g.mz);
-    cx = (g.bx + shard % g.sx_n) * g.mx + lx;
-    cy = (g.by + (shard / g.sx_n) % g.sy_n) * g.my + ly;
-    cz = (g.bz + shard / (g.sx_n * g.sy_n)) * g.mz + lz;
-    const long gbase = static_cast<long>(shard) * (g.mz + 2) * (g.my + 2) * (g.mx + 2);  // the shard's ghost cell 0
-    home = gbase + (static_cast<long>(lz + 1) * (g.my + 2) + ly + 1) * (g.mx + 2) + lx + 1;
-  }
+  if constexpr (GHOST) home = ghost_home(g, cell, cx, cy, cz);
   // Whether input slot s holds an atom: the valid mask; GHOST: x not NaN.
   auto live_at = [&](long s) -> bool {
     if constexpr (GHOST) return !isnan(px[s * pstride]);
@@ -481,17 +353,7 @@ __global__ void __launch_bounds__(kLjThreads, kLjMinBlocks)
     cz = static_cast<int>(cell / (m * m));
   }
   const float box = *box_ptr;
-  if (lane < 27) {  // neighbour code (dz + 1)·9 + (dy + 1)·3 + dx + 1: its first slot, ±box where it wraps
-    const int w[3] = {cx + lane % 3 - 1, cy + (lane / 3) % 3 - 1, cz + lane / 9 - 1};
-#pragma unroll
-    for (int v = 0; v < 3; ++v) tsh[3 * lane + v] = w[v] < 0 ? -box : (w[v] >= m ? box : 0.f);
-    if constexpr (GHOST) {
-      tnb[lane] = static_cast<int>((home + ((lane / 9 - 1) * (g.my + 2) + (lane / 3) % 3 - 1) * (g.mx + 2) +
-                                    lane % 3 - 1) * c);
-    } else {
-      tnb[lane] = (((w[2] + m) % m * m + (w[1] + m) % m) * m + (w[0] + m) % m) * c;
-    }
-  }
+  if (lane < 27) table_entry<GHOST>(lane, cx, cy, cz, m, c, box, home, g, tsh, tnb);
   __syncwarp();
   const bool centre = lane < n_mine;
   const int si = centre ? cslot[lane] : -1;
@@ -639,8 +501,8 @@ int launch_lj(LjKernel kernel, const float* px, const float* py, const float* pz
                                            args, kLjSmemBytes, static_cast<cudaStream_t>(stream)));
 }
 
-// K2c: kMolWarps warps a block, each owning up to 32 live centres of one
-// cell; no block barrier.
+// K2c and K2c-G: kMolWarps warps a block, each owning up to 32 live
+// centres of one cell; no block barrier.
 constexpr int kMolWarps = 4;
 constexpr int kMolThreads = 32 * kMolWarps;
 
@@ -650,66 +512,103 @@ constexpr int kStage = 256;  // K2c: the most neighbour slots a warp stages at o
 // a warp, at most kStage): the staged neighbour tile (x, y, z, σ/2, 2√ε, q,
 // atom id, slot), each lane's list of inside entries (nt bytes a lane),
 // the centres' tags (three values a tag and a bond tag, 32 lanes) and the
-// rank-to-slot map.
-__host__ __device__ constexpr int mol_warp_floats(int nt, int ne, int neb) {
-  return 8 * nt + nt * 32 / 4 + 3 * (ne + neb) * 32 + 32;
+// rank-to-slot map; GHOST adds the 27 neighbours' periodic shifts and
+// first slots.
+__host__ __device__ constexpr int mol_warp_floats(int nt, int ne, int neb, bool ghost) {
+  return 8 * nt + nt * 32 / 4 + 3 * (ne + neb) * 32 + 32 + (ghost ? 4 * 27 : 0);
 }
 
 // K2c's pair pass: warp part · M³ + cell takes the live centres of rank
 // 32·part … 32·part + 31 of its cell (lane l the centre of rank 32·part + l)
-// and walks the 27 neighbour cells in cell_forces_kernel's (dz, dy, dx) order.
+// and walks the 27 neighbour cells in the full-shell (dz, dy, dx) order.
 // For each it stages, in slot order, the neighbour's live slots within the
 // cutoff of the warp's centre box (the conservative `near_box`, the box
 // shifted back by the cell's periodic shift), at most kStage at a time;
 // pass A lists, per lane and in that order, the staged entries at r² <
 // cut2 (the self pair left out); pass B runs the pair term over each
 // lane's list.  A centre's pairs are evaluated by `pair_force` and added by
-// `accumulate` in cell_forces_kernel's order, and only pairs at r² ≥ cut2,
-// which it skips too, are left out: the sums are its sums, bit for bit.
-// Part 0 also writes the zeros of the empty slots.
-template <bool ENERGY, bool COULOMB, bool EXCL, bool BOND>
+// `accumulate` in the full-shell order, and only pairs at r² ≥ cut2 are
+// left out.  Part 0 also writes the zeros of the empty slots.  One card:
+// px is the stacked (M³, C, 3) positions and fx the forces, so a slot's y
+// and z follow its x (py, pz, fy, fz unused).
+//
+// GHOST (K2c-G, the grid's per-shard molecular pass): the same walk over
+// the local shards' own cells (g.shards·mz·my·mx of them, shard-major,
+// their outputs in that order), centres and neighbours read from the
+// stacked (mz+2, my+2, mx+2, C) component ghost grids (px, py, pz, σ/2,
+// 2√ε, q, atom id), a slot live where its x is not NaN (no valid mask);
+// the centre tags per own slot, the outputs component arrays.  The
+// per-warp table is K2-G's: each neighbour's first ghost-grid slot and the
+// shift of its GLOBAL cell index, ±box where that index leaves [0, M).  So
+// each neighbour's staged slots and shift are the one-card walk's, and the
+// sums are K2c's bit for bit on every decomposition.
+template <bool ENERGY, bool COULOMB, bool EXCL, bool BOND, bool GHOST = false>
 __global__ void __launch_bounds__(kMolThreads, 4)
-    cell_mol_kernel(const float* __restrict__ pos, const float* __restrict__ hs, const float* __restrict__ tse,
-                    const uint8_t* __restrict__ valid, float* __restrict__ f, float* __restrict__ e_out,
-                    float* __restrict__ w_out, int m, int c, const float* __restrict__ box_ptr, PairConsts k,
-                    Mol mol) {
+    cell_mol_kernel(const float* __restrict__ px, const float* __restrict__ py, const float* __restrict__ pz,
+                    const float* __restrict__ hs, const float* __restrict__ tse, const uint8_t* __restrict__ valid,
+                    float* __restrict__ fx, float* __restrict__ fy, float* __restrict__ fz,
+                    float* __restrict__ e_out, float* __restrict__ w_out, int m, int c,
+                    const float* __restrict__ box_ptr, PairConsts k, Mol mol, Ghost g) {
+  static_assert(!(GHOST && BOND), "the grid keeps its bonds as term rows");
   extern __shared__ float smem[];
+  constexpr int kS = GHOST ? 1 : 3;  // a slot's stride in the positions and forces
+  const float* const qy = GHOST ? py : px + 1;
+  const float* const qz = GHOST ? pz : px + 2;
+  float* const gy = GHOST ? fy : fx + 1;
+  float* const gz = GHOST ? fz : fx + 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;  // the lanes before this one
   const int parts = (c + 31) / 32, nt = min(32 * parts, kStage);
+  const long cells = GHOST ? static_cast<long>(g.shards) * g.mz * g.my * g.mx : static_cast<long>(m) * m * m;
   const long item = static_cast<long>(blockIdx.x) * kMolWarps + warp;
-  if (item >= static_cast<long>(m) * m * m * parts) return;  // no block barrier follows
-  const long cells = static_cast<long>(m) * m * m;
+  if (item >= cells * parts) return;  // no block barrier follows
   const int part = static_cast<int>(item / cells);  // part-major: a block's warps are all of one part
-  const long cell = item - part * cells;
-  float* tile = smem + warp * mol_warp_floats(nt, mol.ne, mol.neb);  // (7, nt) fields
+  const long cell = item - part * cells;  // the own cell, whose output slots are cell·C …
+  float* tile = smem + warp * mol_warp_floats(nt, mol.ne, mol.neb, GHOST);  // (7, nt) fields
   int* tslot = reinterpret_cast<int*>(tile + 7 * nt);
   uint8_t* list = reinterpret_cast<uint8_t*>(tslot + nt);  // entry k of lane l at k·32 + l
   float* tags = reinterpret_cast<float*>(list + 32 * nt);   // value v of tag u at (3u + v)·32 + lane
   int* cslot = reinterpret_cast<int*>(tags + 3 * (mol.ne + mol.neb) * 32);
+  float* tsh = reinterpret_cast<float*>(cslot + 32);  // GHOST: (27, 3) periodic shifts
+  int* tnb = reinterpret_cast<int*>(tsh + 3 * 27);    // GHOST: (27,) first slot of each neighbour cell
+
+  // The cell's global coordinates and its input cell (GHOST: its own cell
+  // of the ghost grid), whose slots hold its centres.
+  int cx, cy, cz;
+  long home = cell;
+  if constexpr (GHOST) home = ghost_home(g, cell, cx, cy, cz);
+  // Whether input slot s holds an atom: the valid mask; GHOST: x not NaN.
+  auto live_at = [&](long s) -> bool {
+    if constexpr (GHOST) return !isnan(px[s]);
+    else return valid[s] != 0;
+  };
 
   // This warp's centres: the live slots of rank 32·part + lane.
   int n_live = 0;
   for (int a = 0; a < parts; ++a) {
     const int j = 32 * a + lane;
-    const bool live = j < c && valid[cell * c + j];
+    const bool live = j < c && live_at(home * c + j);
     const unsigned mask = __ballot_sync(kFull, live);
     const int r = n_live + __popc(mask & below) - 32 * part;
     if (live && r >= 0 && r < 32) cslot[r] = j;
     if (part == 0 && j < c && !live) {
       const long s = cell * c + j;
-      f[3 * s] = f[3 * s + 1] = f[3 * s + 2] = 0.f;
+      fx[kS * s] = gy[kS * s] = gz[kS * s] = 0.f;
       if (ENERGY) e_out[s] = w_out[s] = 0.f;
     }
     n_live += __popc(mask);
   }
   const int n_mine = min(n_live - 32 * part, 32);
   if (n_mine <= 0) return;
+  const float box = *box_ptr;
+  if constexpr (GHOST) {
+    if (lane < 27) table_entry<true>(lane, cx, cy, cz, m, c, box, home, g, tsh, tnb);
+  }
   __syncwarp();
   const bool centre = lane < n_mine;
   const int si = centre ? cslot[lane] : -1;
-  const long own = cell * c + si;
-  const float box = *box_ptr;
+  const long own = cell * c + si;     // the centre's output slot (and its tags')
+  const long own_in = home * c + si;  // and its input slot
   float xi = 0.f, yi = 0.f, zi = 0.f, hsi = 0.f, tsei = 0.f, qi = 0.f;
   Dsf dsf{};
   float cut2 = k.rc2;
@@ -718,12 +617,12 @@ __global__ void __launch_bounds__(kMolThreads, 4)
     cut2 = fmaxf(cut2, dsf.rc2);
   }
   if (centre) {
-    xi = pos[3 * own];
-    yi = pos[3 * own + 1];
-    zi = pos[3 * own + 2];
-    hsi = hs[own];
-    tsei = tse[own];
-    if (COULOMB) qi = mol.q[own];
+    xi = px[kS * own_in];
+    yi = qy[kS * own_in];
+    zi = qz[kS * own_in];
+    hsi = hs[own_in];
+    tsei = tse[own_in];
+    if (COULOMB) qi = mol.q[own_in];
     for (int u = 0; u < mol.ne; ++u) {
       const long at = own * mol.ne + u;
       tags[(3 * u) * 32 + lane] = __int_as_float(__float2int_rn(mol.ids[at]));
@@ -756,103 +655,112 @@ __global__ void __launch_bounds__(kMolThreads, 4)
     }
   }
 
-  const int cx = static_cast<int>(cell % m), cy = static_cast<int>((cell / m) % m), cz = static_cast<int>(cell / (m * m));
   float fxa = 0.f, fya = 0.f, fza = 0.f, ea = 0.f, wa = 0.f;
-  for (int dz = -1; dz <= 1; ++dz) {
-    int nz = cz + dz;
-    float shz = 0.f;
-    if (nz < 0) { nz += m; shz = -box; } else if (nz >= m) { nz -= m; shz = box; }
-    for (int dy = -1; dy <= 1; ++dy) {
-      int ny = cy + dy;
-      float shy = 0.f;
-      if (ny < 0) { ny += m; shy = -box; } else if (ny >= m) { ny -= m; shy = box; }
-      for (int dx = -1; dx <= 1; ++dx) {
-        int nx = cx + dx;
-        float shx = 0.f;
-        if (nx < 0) { nx += m; shx = -box; } else if (nx >= m) { nx -= m; shx = box; }
-        const long nb = static_cast<long>(nx + m * (ny + m * nz)) * c;
-        const bool self_cell = dz == 0 && dy == 0 && dx == 0;
-        const float back[3] = {-shx, -shy, -shz};
-        for (int a0 = 0; a0 < parts; a0 += kStage / 32) {
-          // Stage the neighbour's live slots near the centre box, in slot
-          // order; each chunk's loads go out together.
-          __syncwarp();  // the previous stage's reads of the tile are done
-          int n = 0;
-          for (int a = a0; a < min(parts, a0 + kStage / 32); ++a) {
-            const int j = 32 * a + lane;
-            const long s = nb + min(j, c - 1);
-            const bool live = j < c && valid[s];
-            const float p[3] = {pos[3 * s], pos[3 * s + 1], pos[3 * s + 2]};
-            const float h = hs[s], t = tse[s], q = COULOMB ? mol.q[s] : 0.f;
-            const int id = EXCL ? mol.aid[s] : 0;
-            const bool keep = live && emdee::near_box(p, lo, hi, back, cut2);
-            const unsigned mask = __ballot_sync(kFull, keep);
-            if (keep) {
-              const int e = n + __popc(mask & below);
-              tile[e] = p[0];
-              tile[nt + e] = p[1];
-              tile[2 * nt + e] = p[2];
-              tile[3 * nt + e] = h;
-              tile[4 * nt + e] = t;
-              if (COULOMB) tile[5 * nt + e] = q;
-              if (EXCL) tile[6 * nt + e] = __int_as_float(id);
-              tslot[e] = j;
-            }
-            n += __popc(mask);
-          }
-          __syncwarp();
-          if (n == 0) continue;
-          // Pass A: this lane's entries inside the cutoff, in slot order.
-          int len = 0;
-          if (centre) {
+  // One neighbour cell, its slots from input slot nb on, its periodic shift.
+  auto visit = [&](long nb, float shx, float shy, float shz, bool self_cell) {
+    const float back[3] = {-shx, -shy, -shz};
+    for (int a0 = 0; a0 < parts; a0 += kStage / 32) {
+      // Stage the neighbour's live slots near the centre box, in slot
+      // order; each chunk's loads go out together.
+      __syncwarp();  // the previous stage's reads of the tile are done
+      int n = 0;
+      for (int a = a0; a < min(parts, a0 + kStage / 32); ++a) {
+        const int j = 32 * a + lane;
+        const long s = nb + min(j, c - 1);
+        const bool live = j < c && live_at(s);
+        const float p[3] = {px[kS * s], qy[kS * s], qz[kS * s]};
+        const float h = hs[s], t = tse[s], q = COULOMB ? mol.q[s] : 0.f;
+        const int id = EXCL ? mol.aid[s] : 0;
+        const bool keep = live && emdee::near_box(p, lo, hi, back, cut2);
+        const unsigned mask = __ballot_sync(kFull, keep);
+        if (keep) {
+          const int e = n + __popc(mask & below);
+          tile[e] = p[0];
+          tile[nt + e] = p[1];
+          tile[2 * nt + e] = p[2];
+          tile[3 * nt + e] = h;
+          tile[4 * nt + e] = t;
+          if (COULOMB) tile[5 * nt + e] = q;
+          if (EXCL) tile[6 * nt + e] = __int_as_float(id);
+          tslot[e] = j;
+        }
+        n += __popc(mask);
+      }
+      __syncwarp();
+      if (n == 0) continue;
+      // Pass A: this lane's entries inside the cutoff, in slot order.
+      int len = 0;
+      if (centre) {
 #pragma unroll 4
-            for (int e = 0; e < n; ++e) {
-              const float dvx = (xi - tile[e]) - shx;
-              const float dvy = (yi - tile[nt + e]) - shy;
-              const float dvz = (zi - tile[2 * nt + e]) - shz;
-              const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
-              if (r2 < cut2 && !(self_cell && tslot[e] == si)) list[32 * len++ + lane] = static_cast<uint8_t>(e);
+        for (int e = 0; e < n; ++e) {
+          const float dvx = (xi - tile[e]) - shx;
+          const float dvy = (yi - tile[nt + e]) - shy;
+          const float dvz = (zi - tile[2 * nt + e]) - shz;
+          const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
+          if (r2 < cut2 && !(self_cell && tslot[e] == si)) list[32 * len++ + lane] = static_cast<uint8_t>(e);
+        }
+      }
+      // Pass B: the pair term over the list.
+      const int steps = __reduce_max_sync(kFull, len);
+      for (int t = 0; t < steps; ++t) {
+        if (t >= len) continue;
+        const int e = list[32 * t + lane];
+        const float dvx = (xi - tile[e]) - shx;
+        const float dvy = (yi - tile[nt + e]) - shy;
+        const float dvz = (zi - tile[2 * nt + e]) - shz;
+        const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
+        // Tag matches: the LJ and Coulomb scales and the bond weights.
+        float ljsc = 1.f, csc = 1.f, kbm = 0.f, kr0m = 0.f, kr02m = 0.f;
+        if (EXCL) {
+          const int aj = __float_as_int(tile[6 * nt + e]);
+          for (int u = 0; u < mol.ne; ++u) {
+            if (__float_as_int(tags[(3 * u) * 32 + lane]) != aj) continue;
+            ljsc -= tags[(3 * u + 1) * 32 + lane];
+            if (COULOMB) csc -= tags[(3 * u + 2) * 32 + lane];
+            if (BOND && u < mol.neb) {
+              const float* b = tags + 3 * (mol.ne + u) * 32 + lane;
+              kbm += b[0];
+              kr0m += b[32];
+              if (ENERGY) kr02m += b[64];
             }
           }
-          // Pass B: the pair term over the list.
-          const int steps = __reduce_max_sync(kFull, len);
-          for (int t = 0; t < steps; ++t) {
-            if (t >= len) continue;
-            const int e = list[32 * t + lane];
-            const float dvx = (xi - tile[e]) - shx;
-            const float dvy = (yi - tile[nt + e]) - shy;
-            const float dvz = (zi - tile[2 * nt + e]) - shz;
-            const float r2 = dvx * dvx + dvy * dvy + dvz * dvz;
-            // Tag matches: the LJ and Coulomb scales and the bond weights.
-            float ljsc = 1.f, csc = 1.f, kbm = 0.f, kr0m = 0.f, kr02m = 0.f;
-            if (EXCL) {
-              const int aj = __float_as_int(tile[6 * nt + e]);
-              for (int u = 0; u < mol.ne; ++u) {
-                if (__float_as_int(tags[(3 * u) * 32 + lane]) != aj) continue;
-                ljsc -= tags[(3 * u + 1) * 32 + lane];
-                if (COULOMB) csc -= tags[(3 * u + 2) * 32 + lane];
-                if (BOND && u < mol.neb) {
-                  const float* b = tags + 3 * (mol.ne + u) * 32 + lane;
-                  kbm += b[0];
-                  kr0m += b[32];
-                  if (ENERGY) kr02m += b[64];
-                }
-              }
-            }
-            float tot, esum;
-            const float gf = pair_force<false, ENERGY, COULOMB, EXCL, BOND>(
-                r2, hsi, tile[3 * nt + e], tsei, tile[4 * nt + e],
-                COULOMB ? dsf.kc * qi * tile[5 * nt + e] * csc : 0.f, ljsc, kbm, kr0m, kr02m, k, dsf, tot, esum);
-            accumulate<ENERGY>(gf, dvx, dvy, dvz, tot, esum, fxa, fya, fza, ea, wa);
-          }
+        }
+        float tot, esum;
+        const float gf = pair_force<false, ENERGY, COULOMB, EXCL, BOND>(
+            r2, hsi, tile[3 * nt + e], tsei, tile[4 * nt + e],
+            COULOMB ? dsf.kc * qi * tile[5 * nt + e] * csc : 0.f, ljsc, kbm, kr0m, kr02m, k, dsf, tot, esum);
+        accumulate<ENERGY>(gf, dvx, dvy, dvz, tot, esum, fxa, fya, fza, ea, wa);
+      }
+    }
+  };
+  if constexpr (GHOST) {
+    for (int code = 0; code < 27; ++code)
+      visit(tnb[code], tsh[3 * code], tsh[3 * code + 1], tsh[3 * code + 2], code == 13);
+  } else {
+    cx = static_cast<int>(cell % m);
+    cy = static_cast<int>((cell / m) % m);
+    cz = static_cast<int>(cell / (m * m));
+    for (int dz = -1; dz <= 1; ++dz) {
+      int nz = cz + dz;
+      float shz = 0.f;
+      if (nz < 0) { nz += m; shz = -box; } else if (nz >= m) { nz -= m; shz = box; }
+      for (int dy = -1; dy <= 1; ++dy) {
+        int ny = cy + dy;
+        float shy = 0.f;
+        if (ny < 0) { ny += m; shy = -box; } else if (ny >= m) { ny -= m; shy = box; }
+        for (int dx = -1; dx <= 1; ++dx) {
+          int nx = cx + dx;
+          float shx = 0.f;
+          if (nx < 0) { nx += m; shx = -box; } else if (nx >= m) { nx -= m; shx = box; }
+          visit(static_cast<long>(nx + m * (ny + m * nz)) * c, shx, shy, shz, dz == 0 && dy == 0 && dx == 0);
         }
       }
     }
   }
   if (centre) {
-    f[3 * own] = fxa;
-    f[3 * own + 1] = fya;
-    f[3 * own + 2] = fza;
+    fx[kS * own] = fxa;
+    gy[kS * own] = fya;
+    gz[kS * own] = fza;
     if (ENERGY) {
       e_out[own] = ea;
       w_out[own] = wa;
@@ -860,12 +768,18 @@ __global__ void __launch_bounds__(kMolThreads, 4)
   }
 }
 
-// K2c's variant for these flags, and its dynamic shared memory a block.
-using MolKernel = void (*)(const float*, const float*, const float*, const uint8_t*, float*, float*, float*, int, int,
-                           const float*, PairConsts, Mol);
+// K2c's (GHOST: K2c-G's) variant for these flags, and its dynamic shared
+// memory a block.
+using MolKernel = void (*)(const float*, const float*, const float*, const float*, const float*, const uint8_t*,
+                           float*, float*, float*, float*, float*, int, int, const float*, PairConsts, Mol, Ghost);
 
 template <bool ENERGY>
-MolKernel mol_variant_e(int coulomb, int excl, int bond) {
+MolKernel mol_variant_e(int coulomb, int excl, int bond, int ghost) {
+  if (ghost) {
+    if (coulomb && excl) return cell_mol_kernel<ENERGY, true, true, false, true>;
+    if (coulomb) return cell_mol_kernel<ENERGY, true, false, false, true>;
+    return cell_mol_kernel<ENERGY, false, true, false, true>;
+  }
   if (coulomb && bond) return cell_mol_kernel<ENERGY, true, true, true>;
   if (coulomb && excl) return cell_mol_kernel<ENERGY, true, true, false>;
   if (coulomb) return cell_mol_kernel<ENERGY, true, false, false>;
@@ -873,29 +787,62 @@ MolKernel mol_variant_e(int coulomb, int excl, int bond) {
   return cell_mol_kernel<ENERGY, false, true, false>;
 }
 
-size_t mol_smem_bytes(int c, int ne, int neb) {
-  return sizeof(float) * kMolWarps * static_cast<size_t>(mol_warp_floats(32 * ((c + 31) / 32), ne, neb));
+size_t mol_smem_bytes(int c, int ne, int neb, bool ghost) {
+  return sizeof(float) * kMolWarps * static_cast<size_t>(mol_warp_floats(32 * ((c + 31) / 32), ne, neb, ghost));
 }
 
-// The K2c variant for these flags, refused as the launch entry refuses it
-// (but for M), its dynamic shared memory (`*smem`) allowed.
-int mol_kernel(int c, int ne, int neb, int coulomb, int excl, int bond, int energy, MolKernel* kernel,
+// The K2c (`ghost`: K2c-G) variant for these flags, refused as the launch
+// entries refuse it (but for the geometry), its dynamic shared memory
+// (`*smem`) allowed.
+int mol_kernel(int c, int ne, int neb, int coulomb, int excl, int bond, int energy, int ghost, MolKernel* kernel,
                size_t* smem) {
   if (!excl) ne = 0;
   if (!bond) neb = 0;
-  *smem = mol_smem_bytes(c, ne, neb);
-  if (c < 1 || c > kMaxMolCapacity || *smem > 232448 || (!coulomb && !excl) || (bond && !excl) ||
+  *smem = mol_smem_bytes(c, ne, neb, ghost);
+  if (c < 1 || c > kMaxMolCapacity || *smem > 232448 || (!coulomb && !excl) || (bond && (!excl || ghost)) ||
       (excl && (ne < 1 || ne > kMaxTags)) || (bond && (neb < 1 || neb > ne)))
     return static_cast<int>(cudaErrorInvalidValue);
-  *kernel = energy ? mol_variant_e<true>(coulomb, excl, bond) : mol_variant_e<false>(coulomb, excl, bond);
-  static size_t smem_allowed[2][5] = {};  // raised once per variant, not per launch
-  size_t& allowed = smem_allowed[energy ? 1 : 0][coulomb && bond ? 0 : coulomb && excl ? 1 : coulomb ? 2 : bond ? 3 : 4];
+  *kernel = energy ? mol_variant_e<true>(coulomb, excl, bond, ghost) : mol_variant_e<false>(coulomb, excl, bond, ghost);
+  static size_t smem_allowed[2][8] = {};  // raised once per variant, not per launch
+  const int which = ghost ? 5 + (coulomb && excl ? 0 : coulomb ? 1 : 2)
+                          : coulomb && bond ? 0 : coulomb && excl ? 1 : coulomb ? 2 : bond ? 3 : 4;
+  size_t& allowed = smem_allowed[energy ? 1 : 0][which];
   if (*smem > 48 * 1024 && *smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(*kernel),
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     allowed = *smem;
   }
+  return 0;
+}
+
+// One launch of a K2c or K2c-G variant over the g.shards·mz·my·mx own cells
+// of `g` (one card: the geometry (m, m, m, 1, 1, 0, 0, 0, 1) of one shard).
+int launch_mol(MolKernel kernel, size_t smem, const float* px, const float* py, const float* pz, const float* hs,
+               const float* tse, const uint8_t* valid, float* fx, float* fy, float* fz, float* e, float* w, int m,
+               int c, const float* box, const PairConsts& k, const Mol& mol, const Ghost& g, void* stream) {
+  const long warps = static_cast<long>(g.shards) * g.mz * g.my * g.mx * ((c + 31) / 32);
+  const unsigned blocks = static_cast<unsigned>((warps + kMolWarps - 1) / kMolWarps);
+  void* args[] = {&px, &py, &pz, &hs, &tse, &valid, &fx, &fy, &fz, &e, &w, &m, &c, &box,
+                  const_cast<PairConsts*>(&k), const_cast<Mol*>(&mol), const_cast<Ghost*>(&g)};
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks), dim3(kMolThreads),
+                                           args, smem, static_cast<cudaStream_t>(stream)));
+}
+
+// A K2c or K2c-G variant as the card reports it: out[0..3] = registers a
+// thread, local (spill) bytes a thread, shared bytes a block, resident
+// blocks an SM.  Launches nothing.
+int mol_attrs(MolKernel kernel, size_t smem, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, reinterpret_cast<const void*>(kernel), kMolThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(smem + fa.sharedSizeBytes);
+  out[3] = blocks;
   return 0;
 }
 
@@ -938,7 +885,8 @@ extern "C" int emdee_cell_forces_attrs(int uniform, int energy, int strag, int g
 // charges and the DSF constants' device pointers with `coulomb`; aid (M³,
 // C) int32 atom ids and the tags (M³, C, ne) with `excl` (mcs only with
 // `coulomb`); the bond weights (M³, C, neb) with `bond` (kr02 only with
-// `energy`).  C ≤ 256 (a list entry is one byte).
+// `energy`).  C ≤ 1024, staged at most 256 slots at a time (a list entry
+// is one byte).
 extern "C" int emdee_cell_forces_mol(
     const float* pos, const float* hs, const float* tse, const uint8_t* valid, const float* q,
     const int* aid, const float* ids, const float* mlj, const float* mcs, const float* kb,
@@ -949,16 +897,13 @@ extern "C" int emdee_cell_forces_mol(
   if (m < 3) return static_cast<int>(cudaErrorInvalidValue);
   MolKernel kernel;
   size_t smem;
-  const int err = mol_kernel(c, ne, neb, coulomb, excl, bond, energy, &kernel, &smem);
+  const int err = mol_kernel(c, ne, neb, coulomb, excl, bond, energy, 0, &kernel, &smem);
   if (err) return err;
-  PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
-  Mol mol{q, aid, ids, mlj, mcs, kb, kr0, kr02, excl ? ne : 0, bond ? neb : 0, alpha, rc, rc2_c, e_shift, f_shift,
-          kc};
-  const long warps = static_cast<long>(m) * m * m * ((c + 31) / 32);
-  const unsigned blocks = static_cast<unsigned>((warps + kMolWarps - 1) / kMolWarps);
-  void* args[] = {&pos, &hs, &tse, &valid, &f, &e, &w, &m, &c, &box, &k, &mol};
-  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks), dim3(kMolThreads),
-                                           args, smem, static_cast<cudaStream_t>(stream)));
+  const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
+  const Mol mol{q, aid, ids, mlj, mcs, kb, kr0, kr02, excl ? ne : 0, bond ? neb : 0, alpha, rc, rc2_c, e_shift,
+                f_shift, kc};
+  return launch_mol(kernel, smem, pos, nullptr, nullptr, hs, tse, valid, f, nullptr, nullptr, e, w, m, c, box, k,
+                    mol, Ghost{m, m, m, 1, 1, 0, 0, 0, 1}, stream);
 }
 
 // The K2c variant these flags select, as the card reports it: out[0..3] =
@@ -968,19 +913,8 @@ extern "C" int emdee_cell_forces_mol_attrs(int c, int ne, int neb, int coulomb, 
                                            int* out) {
   MolKernel kernel;
   size_t smem;
-  const int err = mol_kernel(c, ne, neb, coulomb, excl, bond, energy, &kernel, &smem);
-  if (err) return err;
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(kernel));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, reinterpret_cast<const void*>(kernel), kMolThreads, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = fa.numRegs;
-  out[1] = static_cast<int>(fa.localSizeBytes);
-  out[2] = static_cast<int>(smem + fa.sharedSizeBytes);
-  out[3] = blocks;
-  return 0;
+  const int err = mol_kernel(c, ne, neb, coulomb, excl, bond, energy, 0, &kernel, &smem);
+  return err ? err : mol_attrs(kernel, smem, out);
 }
 
 // The STRAG variant: component arrays (stride 1), uniform parameters,
@@ -1024,7 +958,8 @@ extern "C" int emdee_cell_forces_ghost(
 // with `coulomb` and aid (int32 atom ids, −2 on empty slots) with `excl`,
 // each (shards, mz+2, my+2, mx+2, C); the centre tags ids, mlj, mcs
 // (shards, mz, my, mx, C, ne) with `excl` (mcs only with `coulomb`); the
-// DSF constants' device pointers with `coulomb`.
+// DSF constants' device pointers with `coulomb`.  One launch of
+// `cell_mol_kernel`'s GHOST variant.
 extern "C" int emdee_cell_forces_ghost_mol(
     const float* px, const float* py, const float* pz, const float* hs, const float* tse, const float* q,
     const int* aid, const float* ids, const float* mlj, const float* mcs, int ne, const float* alpha,
@@ -1032,26 +967,25 @@ extern "C" int emdee_cell_forces_ghost_mol(
     float* fy, float* fz, float* e, float* w, int mz, int my, int mx, int shards, int sy_n, int sx_n, int bz,
     int by, int bx, int m, int c, const float* box, float rc2, float rs2, float invd2, float a_m, float pa1,
     float pa2, float pb1, float pb2, int coulomb, int excl, int energy, void* stream) {
-  if (m < 3 || c < 1 || c > 1024 || mz < 1 || my < 1 || mx < 1 || shards < 1 || sy_n < 1 || sx_n < 1 ||
-      shards % (sy_n * sx_n) != 0 || (!coulomb && !excl) || (excl && (ne < 1 || ne > kMaxTags)))
+  if (m < 3 || mz < 1 || my < 1 || mx < 1 || shards < 1 || sy_n < 1 || sx_n < 1 || shards % (sy_n * sx_n) != 0 ||
+      static_cast<long>(shards) * (mz + 2) * (my + 2) * (mx + 2) * c > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
+  MolKernel kernel;
+  size_t smem;
+  const int err = mol_kernel(c, ne, 0, coulomb, excl, 0, energy, 1, &kernel, &smem);
+  if (err) return err;
   const PairConsts k{rc2, rs2, invd2, a_m, pa1, pa2, pb1, pb2, 0.f, 0.f};
-  const Ghost g{mz, my, mx, sy_n, sx_n, bz, by, bx, shards};
   const Mol mol{q, aid, ids, mlj, mcs, nullptr, nullptr, nullptr, excl ? ne : 0, 0,
                 alpha, rc, rc2_c, e_shift, f_shift, kc};
-  const int blocks = shards * mz * my * mx;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define EMDEE_GHOST_MOL(EN, CO, EX) \
-  launch_ghost<EN, CO, EX>(px, py, pz, hs, tse, fx, fy, fz, e, w, m, c, box, k, g, blocks, mol, s)
-  if (energy) {
-    if (coulomb && excl) EMDEE_GHOST_MOL(true, true, true);
-    else if (coulomb) EMDEE_GHOST_MOL(true, true, false);
-    else EMDEE_GHOST_MOL(true, false, true);
-  } else {
-    if (coulomb && excl) EMDEE_GHOST_MOL(false, true, true);
-    else if (coulomb) EMDEE_GHOST_MOL(false, true, false);
-    else EMDEE_GHOST_MOL(false, false, true);
-  }
-#undef EMDEE_GHOST_MOL
-  return static_cast<int>(cudaGetLastError());
+  return launch_mol(kernel, smem, px, py, pz, hs, tse, nullptr, fx, fy, fz, e, w, m, c, box, k, mol,
+                    Ghost{mz, my, mx, sy_n, sx_n, bz, by, bx, shards}, stream);
+}
+
+// The K2c-G variant these flags select, as the card reports it
+// (`emdee_cell_forces_mol_attrs`).  Launches nothing.
+extern "C" int emdee_cell_forces_ghost_mol_attrs(int c, int ne, int coulomb, int excl, int energy, int* out) {
+  MolKernel kernel;
+  size_t smem;
+  const int err = mol_kernel(c, ne, 0, coulomb, excl, 0, energy, 1, &kernel, &smem);
+  return err ? err : mol_attrs(kernel, smem, out);
 }

@@ -11,15 +11,17 @@ launch one kernel of `csrc/cell_forces.cu` for CUDA tensors, with
 backend 'auto' or 'cuda', and run the plain version
 (`cell_dense.cell_dense_forces`) for CPU tensors or backend 'torch'.
 The LJ pass (K2a, K2b, K3's grid side through `launch_strag`, and the
-grid's per-shard pass K2-G through `ghost_forces`) and K2c run on one
-design: a warp takes 32 live centres of a cell and stages each neighbour
-cell's slots within the cutoff of its centres' bounding box (`k2c_cull`
-mirrors the predicate); the LJ pass runs the pair term on the staged
-slots straight away, K2c lists each lane's pairs inside the cutoff first
-and runs its costlier term over the lists.  Both add every centre's pairs
-in the old full-shell kernel's order, so K2-G on any decomposition equals
-the one-card pass bit for bit (its per-warp neighbour table:
-`ghost_lj_table`), and K2c-G, which keeps the old kernel, equals K2c.
+grid's per-shard pass K2-G through `ghost_forces`) and K2c (and the grid's
+molecular pass K2c-G) run on one design: a warp takes 32 live centres of
+a cell and stages each neighbour cell's slots within the cutoff of its
+centres' bounding box (`k2c_cull` mirrors the predicate); the LJ pass runs
+the pair term on the staged slots straight away, K2c lists each lane's
+pairs inside the cutoff first and runs its costlier term over the lists.
+Both add every centre's pairs in the full-shell order — neighbour cells in
+(dz, dy, dx) order, z outermost, each cell's slots in slot order — so the
+GHOST modes K2-G and K2c-G, which walk the ghost grids with a per-warp
+neighbour table (`ghost_lj_table`), equal the one-card passes bit for bit
+on any decomposition.
 
 The TPU kernel's ghost grid, far sentinels, MXU segment sums and reaction
 folds (`_ghost`, `_prep_inputs`, `_fold_ghosts`, `_const_tiles`,
@@ -50,10 +52,9 @@ from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel, pair_int
 # Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
 # The most exclusion tags per slot that the molecular kernels hold (kMaxTags
-# of csrc/lj_pair.cuh: in shared memory in K2c and K5c, in registers in
-# K2c-G).
+# of csrc/lj_pair.cuh, in shared memory).
 MAX_TAGS = 8
-_MOL_WARPS = 4  # K2c: warps a block, each owning 32 live centres of a cell
+_MOL_WARPS = 4  # K2c, K2c-G: warps a block, each owning 32 live centres of a cell
 # K2a/K2b/K3 (`cell_lj_kernel`): warps a block, and the resident blocks an
 # SM that its launch bounds ask for (so its registers allow).
 LJ_WARPS, LJ_MIN_BLOCKS = 4, 8
@@ -90,14 +91,15 @@ def k2c_cull(cen, nb, shift, cut2: float):
 _STAGE = 256  # K2c: the most neighbour slots a warp stages at once
 
 
-def mol_smem_bytes(c: int, ne: int, neb: int) -> int:
-    """K2c's shared memory a block, as its C entry counts it: for each of
-    its 4 warps, the staged neighbour tile (C rounded up to a warp, at most
-    256: x, y, z, σ/2, 2√ε, q, atom id, slot), each lane's list (a byte an
-    entry), the centres' tags (three values a tag and a bond tag, 32 lanes)
-    and the rank-to-slot map."""
+def mol_smem_bytes(c: int, ne: int, neb: int, ghost: bool = False) -> int:
+    """K2c's (`ghost`: K2c-G's) shared memory a block, as its C entries
+    count it: for each of its 4 warps, the staged neighbour tile (C rounded
+    up to a warp, at most 256: x, y, z, σ/2, 2√ε, q, atom id, slot), each
+    lane's list (a byte an entry), the centres' tags (three values a tag and
+    a bond tag, 32 lanes) and the rank-to-slot map; K2c-G adds the 27
+    neighbours' periodic shifts and first slots."""
     nt = min(32 * -(-c // 32), _STAGE)
-    return 4 * _MOL_WARPS * (8 * nt + 8 * nt + 3 * (ne + neb) * 32 + 32)
+    return 4 * _MOL_WARPS * (8 * nt + 8 * nt + 3 * (ne + neb) * 32 + 32 + (4 * 27 if ghost else 0))
 
 
 def lj_smem_bytes() -> int:
@@ -319,12 +321,17 @@ def tag_counts(excl):
     return ne, 0 if bond is None else bond[0].shape[-1], bond
 
 
-def k2c_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool) -> dict:
+def k2c_resources(config: CellDenseConfig, coulomb, excl, compute_energy: bool, ghost: bool = False) -> dict:
     """The K2c variant that these flags and tags (`excl`, as `cell_forces`
-    takes them) select at C, as the card reports it (`resources`)."""
+    takes them; with `ghost`, K2c-G's, as `ghost_forces` takes them, no
+    bond tags) select at C, as the card reports it (`resources`)."""
     ne, neb, bond = tag_counts(excl)
-    return resources("emdee_cell_forces_mol_attrs", "cell_forces (molecular)", config.capacity, ne, neb,
-                     int(coulomb is not None), int(excl is not None), int(bond is not None), int(compute_energy))
+    flags = (int(coulomb is not None), int(excl is not None))
+    if ghost:
+        return resources("emdee_cell_forces_ghost_mol_attrs", "cell_forces (ghost grid, molecular)",
+                         config.capacity, ne, *flags, int(compute_energy))
+    return resources("emdee_cell_forces_mol_attrs", "cell_forces (molecular)", config.capacity, ne, neb, *flags,
+                     int(bond is not None), int(compute_energy))
 
 
 def lj_resources(uniform: bool, energy: bool, strag: bool = False, ghost: bool = False) -> dict:
@@ -401,8 +408,9 @@ def split_operands(px, py, pz, valid, config: CellDenseConfig):
 
 
 def ghost_lj_table(cell: int, shards, base, local, m: int, box: float):
-    """K2-G's per-warp table for own cell `cell` (for the tests; the C
-    source's `tnb`, `tsh`): the own cell's index in the stacked ghost grids,
+    """K2-G's and K2c-G's per-warp table for own cell `cell` (for the
+    tests; the C source's `tnb`, `tsh`): the own cell's index in the stacked
+    ghost grids,
     and for each neighbour code (dz + 1)·9 + (dy + 1)·3 + dx + 1 the
     neighbour's ghost cell index (its first slot is that times C) and the
     shift (x, y, z) the kernel takes off (x_i − x_j), ±box where the

@@ -199,13 +199,16 @@ def grid_charged_kwargs(device) -> dict:
                 excl_tables=build_exclusion_tables(a["n"], a["pairs"], a["ljs"], a["cs"]))
 
 
-def grid_charged_state(device):
-    """(state, config, LJ model) of the grid's charged fixture on `device`."""
+def grid_charged_state(device, capacity=None):
+    """(state, config, LJ model) of the grid's charged fixture on `device`
+    (capacity: C in place of the suggested one)."""
     from emdee_tpu_torch import LennardJonesModel, cell_dense_init, lennard_jones_atom
 
     a = grid_charged_arrays()
     n = a["n"]
     config = grid_charged_config(a)
+    if capacity is not None:
+        config = config._replace(capacity=capacity)
     st = cell_dense_init(a["pos"], a["vel"], np.ones(n), lennard_jones_atom(np.ones(n), np.ones(n), device=device),
                          config, charges=a["q"], device=device)
     return st, config, LennardJonesModel.create(CUTOFF, SWITCH, device=device)

@@ -574,16 +574,17 @@ def test_molecular_kernel_matches_plain(device, variant):
     assert cell_kernel.LAUNCHES == before + 2
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2), (2, 1, 2)])
 @pytest.mark.parametrize("capacity", [24, 80, 88])
 def test_k2c_matches_plain_reruns_bitwise_and_equals_k2c_g(device, capacity, shape):
     """K2c (the culled kernel with per-lane lists) on the charged fixture at
     C = 24, 80, 88 (one to three warps a cell): with and without the bond
     tags and energies, within 2e-4 of the force scale and 1e-3 of its plain
     version, empty slots exactly 0, a second call bitwise equal; without the
-    bond tags its forces, energies and virials bit for bit K2c-G's (the
-    resident full-shell GHOST mode) on the same state sharded over `shape`:
-    the cull and the lists drop no pair and reorder no sum."""
+    bond tags its forces, energies and virials bit for bit K2c-G's (its
+    GHOST mode on the ghost grids) on the same state sharded over `shape`:
+    the cull, the lists and the ghost walk drop no pair and reorder no
+    sum."""
     from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, gather_grid_state
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
 
@@ -1123,16 +1124,21 @@ def test_streaming_molecular_water_rollout_matches_plain_and_reruns_bitwise(devi
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2)])
-def test_ghost_mol_kernel_equals_k2c_and_matches_plain(device, shape):
-    """K2c-G (GHOST with DSF and the tags) on the grid's charged fixture,
-    drifted across cell faces and the seam: forces, energies and virials
-    bit for bit the one-card K2c-q's (no bond tags), and within 2e-4 of the
-    force scale and 1e-3 of the plain ghost pass; one launch a call."""
+@pytest.mark.parametrize("capacity", [24, 80, 88, 200])
+def test_ghost_mol_kernel_equals_k2c_and_matches_plain(device, capacity, shape):
+    """K2c-G (`cell_mol_kernel` with GHOST, DSF and the tags) on the grid's
+    charged fixture at C = 24, 80, 88, 200 (one to seven warps a cell, C =
+    200 in one stage of the 256-slot tile), drifted across cell faces and
+    the seam: forces, energies and virials bit for bit the one-card K2c-q's
+    (no bond tags), and within 2e-4 of the force scale and 1e-3 of the
+    plain ghost pass; one launch a call; the variants keep no local
+    bytes."""
     from emdee_tpu_torch import make_exclusion_aux_fn
     from emdee_tpu_torch.distributed import grid_sharded as gs
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
 
-    st, config, model = fixtures.grid_charged_state(device)
+    st, config, model = fixtures.grid_charged_state(device, capacity)
+    assert not bool(st.overflow)
     v = st.velocities
     st = st._replace(positions=torch.where(st.valid[..., None], st.positions + (0.45 * 0.3 / float(v.abs().max())) * v, 0.0))
     kw = fixtures.grid_charged_kwargs(device)
@@ -1154,6 +1160,9 @@ def test_ghost_mol_kernel_equals_k2c_and_matches_plain(device, shape):
     scale = max(float(p.positions[v].abs().max()), 1.0)
     assert float((k.positions[v] - p.positions[v]).abs().max()) <= 2e-4 * scale
     assert float((k.half_sigma[v] - p.half_sigma[v]).abs().max()) <= 1e-3
+    for energy in (False, True):
+        res = cell_kernel.k2c_resources(config, kw["coulomb"], tags[:3], energy, ghost=True)
+        assert res["registers"] > 0 and res["local_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
 
 
 def test_grid_molecular_rollout_reruns_bitwise(device):
@@ -1340,17 +1349,19 @@ def test_k5s_mol_matches_plain_on_every_mesh_shape(device, shape, capacity):
 
 @pytest.mark.parametrize("shape", [(2, 2, 2), (2, 4, 1)])
 @pytest.mark.parametrize("capacity", [24, 88])
-def test_k5s_mol_cull_keeps_pairs_just_inside_the_cutoff(device, capacity, shape):
-    """K5s-mol's cull drops no pair inside the cutoff (`_CULL_PAIRS` tiled
-    into a 24³ box of 8³ cells: a face, an edge and a corner offset, the
-    periodic seam, an overhang, and on these meshes shard faces, some of
+@pytest.mark.parametrize("kernel", ["K5s-mol", "K2c-G"])
+def test_k5s_mol_cull_keeps_pairs_just_inside_the_cutoff(device, kernel, capacity, shape):
+    """K5s-mol's cull (and K2c-G's: the warp's centre box against each of
+    the 27 ghost neighbours) drops no pair inside the cutoff (`_CULL_PAIRS`
+    tiled into a 24³ box of 8³ cells: a face, an edge and a corner offset,
+    the periodic seam, an overhang, and on these meshes shard faces, some of
     them seams) on the ghost grids.
     The grid keeps its bonds as term rows, so each pair is held by its DSF
     Coulomb alone (its LJ excluded by the tags): at r = rc − 0.02…0.03 the
     shifted force is small, and each atom's force is held within 1e-3 of its
     own magnitude, before the fold against the plain ghost pass and after
-    it against the one-card plain forces; a dropped pair misses by all of
-    it."""
+    it against the one-card plain forces (K2c-G has no fold: its forces are
+    the totals); a dropped pair misses by all of it."""
     from emdee_tpu_torch import make_exclusion_aux_fn
     from emdee_tpu_torch.distributed.grid_sharded import _fold3, distribute_grid, gather_grid_state
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
@@ -1366,21 +1377,24 @@ def test_k5s_mol_cull_keeps_pairs_just_inside_the_cutoff(device, capacity, shape
     gh = _ghost_stack(sh, mesh, coulomb=True, excl=True)
     kw = dict(coulomb=coul, excl=make_exclusion_aux_fn(n, *tabs)(sh)[:3])
     args = (gh, mesh.local_shape, mesh.base, config, model)
+    fn = cell_kernel.ghost_forces if kernel == "K2c-G" else streaming_kernel.streaming_ghost_forces
     for energy in (False, True):
-        k = streaming_kernel.streaming_ghost_forces(*args, compute_energy=energy, backend="cuda", **kw)
-        p = streaming_kernel.streaming_ghost_forces(*args, compute_energy=energy, backend="torch", **kw)
+        k = fn(*args, compute_energy=energy, backend="cuda", **kw)
+        p = fn(*args, compute_energy=energy, backend="torch", **kw)
         torch.cuda.synchronize()
         v = sh.valid
         fk, fp = k[0].movedim(0, -1)[v], p[0].movedim(0, -1)[v]
         assert bool(((fk - fp).norm(dim=-1) <= 1e-3 * fp.norm(dim=-1) + 1e-7).all())
-        live = ~torch.isnan(gh[0])
-        rk, rp = k[1][:3].movedim(0, -1)[live], p[1][:3].movedim(0, -1)[live]
-        assert bool(((rk - rp).norm(dim=-1) <= 1e-3 * rp.norm(dim=-1) + 1e-7).all())
+        total = k[0]
+        if kernel == "K5s-mol":
+            live = ~torch.isnan(gh[0])
+            rk, rp = k[1][:3].movedim(0, -1)[live], p[1][:3].movedim(0, -1)[live]
+            assert bool(((rk - rp).norm(dim=-1) <= 1e-3 * rp.norm(dim=-1) + 1e-7).all())
+            total = k[0] + _fold3(k[1], mesh)[:3]
         if energy:
-            for a, b in ((k[2], p[2]), (k[3], p[3])):
+            for a, b in zip(k[-2:], p[-2:]):
                 assert float((a - b)[v].abs().max()) <= 1e-3
-        total = (k[0] + _fold3(k[1], mesh)[:3]).movedim(0, -1)
-        f = gather_grid_state(sh._replace(positions=total), config, mesh).positions[v1]
+        f = gather_grid_state(sh._replace(positions=total.movedim(0, -1)), config, mesh).positions[v1]
         assert bool(((f - one[v1]).norm(dim=-1) <= 1e-3 * one[v1].norm(dim=-1)).all())
 
 

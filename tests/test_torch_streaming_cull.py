@@ -15,8 +15,10 @@ cell index (`streaming_kernel.ghost_phase`, held to the plain ghost pass's
 blocks), on the grid's charged fixture and a drifted (2,2,2) water box;
 and as K2c applies it (`cell_kernel.k2c_cull`: a warp's box of 32 centres
 against each of the 27 neighbour cells) on the 864-atom fixture and the
-water slice; and the two kernels' shared memory and K5s-mol's scratch at
-the smoke's shapes.  No card is touched."""
+water slice, and as K2c-G applies it on the ghost grids (the shift of
+`cell_kernel.ghost_lj_table`) on the grid's charged fixture and a drifted
+(2,2,2) water slice; and the kernels' shared memory and K5s-mol's scratch
+at the smoke's shapes.  No card is touched."""
 
 import numpy as np
 import pytest
@@ -326,6 +328,90 @@ def test_k2c_and_k5s_mol_shared_memory_and_scratch_at_the_smoke_shapes():
     assert sk.smem_bytes(config._replace(capacity=88), True, True, 2) == 47_872
     assert sk.ghost_scratch_bytes(8, (13, 13, 13), 88, False, mol=True) == 630_499_584
     assert sk.ghost_scratch_bytes(8, (13, 13, 13), 88, True, mol=True) == 1_050_832_640
+
+
+def _check_k2cg_cull(st, config, shape, cut2, face_cells_only=False):
+    """For the own cells of `shape`'s ghost grids (with `face_cells_only`,
+    those on a shard's z and y faces), every warp of 32 live centres (slot
+    order) and each of the 27 ghost neighbours, K2c-G's cull (`k2c_cull`
+    with the shift of `ghost_lj_table`, the neighbour's global cell index,
+    on the raw ghost coordinates) keeps every neighbour atom whose float32
+    r² ((x_i − x_j) − shift) to a centre of the warp is below cut2 (margin
+    1e-5); returns (pairs checked, those across the seam)."""
+    gpos, mesh = _ghost_grid(st, config, shape)
+    m = config.cells_per_dim
+    local = tuple(m // s for s in shape)
+    checked = seams = 0
+    for cell in range(int(np.prod(shape)) * int(np.prod(local))):
+        y, z = (cell // local[2]) % local[1], (cell // (local[2] * local[1])) % local[0]
+        if face_cells_only and (z not in (0, local[0] - 1) or y not in (0, local[1] - 1)):
+            continue
+        home, first, shift = cell_kernel.ghost_lj_table(cell, shape, mesh.base, local, m, float(config.box))
+        cen_all = gpos[home][~torch.isnan(gpos[home][:, 0])]
+        for code in range(27):
+            nb = gpos[first[code]][~torch.isnan(gpos[first[code]][:, 0])]
+            sh = torch.tensor(shift[code], dtype=torch.float32)
+            for w0 in range(0, len(cen_all) if len(nb) else 0, 32):
+                cen = cen_all[w0:w0 + 32]
+                keep = cell_kernel.k2c_cull(cen, nb, sh, cut2)
+                d = (cen[:, None, :] - nb[None, :, :]) - sh
+                r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+                inside = r2 < cut2 * (1 + 1e-5)
+                assert bool(keep[inside.any(0)].all()), (cell, code, w0)
+                checked += int(inside.sum())
+                seams += int(inside.sum()) if any(shift[code]) else 0
+    return checked, seams
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (2, 5, 1)])
+def test_k2cg_cull_keeps_every_inside_pair_on_the_grid_charged_fixture(shape):
+    """K2c-G's cull at max(rc², rc_C²) on the grid's charged fixture (2,048
+    atoms, M = 10), drifted 0.45·skin along the velocities across cell
+    faces, shard faces and the seam, on (2,2,2) and (2,5,1): every own cell
+    against its 27 ghost neighbours."""
+    st, config, _ = fixtures.grid_charged_state("cpu")
+    v = st.velocities
+    st = st._replace(positions=torch.where(
+        st.valid[..., None], st.positions + (0.45 * fixtures.CHARGED_SKIN / float(v.abs().max())) * v, 0.0))
+    coul = fixtures.grid_charged_kwargs("cpu")["coulomb"]
+    cut2 = max(float(config.cutoff) ** 2, float(coul.rc2))
+    checked, seams = _check_k2cg_cull(st, config, shape, cut2)
+    assert checked > 10_000 and seams > 400, (checked, seams)
+
+
+def test_k2cg_cull_keeps_every_inside_pair_on_a_drifted_water_slice():
+    """K2c-G's cull at max(rc², rc_C²) on the 98,304-atom water box binned
+    at M = 12, C = 80, every atom then moved by up to skin/2 on each axis
+    (numpy seed 8), as between rebins, sharded (2,2,2): the own cells on a
+    shard's z and y faces, whose neighbours lie in the ghost layers, some
+    across the seam, their centres in warps of 32 (up to three a cell)."""
+    from emdee_tpu_torch import cell_dense_init
+
+    box, config, _, coul, params = water.water_setup("cpu", spill=False)
+    st = cell_dense_init(box["positions"], box["velocities"], box["masses"], params, config,
+                         charges=box["charges"], device="cpu")
+    rng = np.random.default_rng(8)
+    drift = torch.from_numpy(rng.uniform(-0.5 * water.SKIN, 0.5 * water.SKIN, st.positions.shape).astype(np.float32))
+    st = st._replace(positions=torch.where(st.valid[..., None], st.positions + drift, 0.0))
+    assert int(st.valid.sum(1).max()) > 64  # three warps in the fullest cells
+    cut2 = max(float(config.cutoff) ** 2, float(coul.rc2))
+    checked, seams = _check_k2cg_cull(st, config, (2, 2, 2), cut2, face_cells_only=True)
+    assert checked > 1_000_000 and seams > 100_000, (checked, seams)
+
+
+@pytest.mark.parametrize("c,ne", [(80, 2), (1024, 8)])
+def test_k2cg_shared_memory_fits_a_block(c, ne):
+    """K2c-G's block (`mol_smem_bytes(..., ghost=True)`: K2c's four warps'
+    tiles, lists, tags and rank maps with no bond tags, plus each warp's
+    table of the 27 neighbours' shifts and first slots, 4·27 words) at the
+    water box's C = 80 with its two tags, and at the largest C the entry
+    takes with eight tags (a warp stages at most 256 slots at once), as the
+    C source's `mol_warp_floats` counts it, within a block's 232,448 B."""
+    nt = min(32 * -(-c // 32), 256)
+    want = 4 * 4 * (8 * nt + 8 * nt + 3 * ne * 32 + 32 + 4 * 27)
+    got = cell_kernel.mol_smem_bytes(c, ne, 0, ghost=True)
+    assert got == want == {80: 29_888, 1024: 80_064}[c] <= 232_448
+    assert got == cell_kernel.mol_smem_bytes(c, ne, 0) + 4 * 4 * 4 * 27
 
 
 def test_ghost_phase_matches_the_plain_ghost_blocks():

@@ -173,14 +173,15 @@ def test_c_entries_match_ctypes_signatures():
     """Every `extern "C"` entry of csrc/ has a ctypes signature of the same
     arity and kinds (pointer, int, float, long), K5's pair pass, fold and
     resource query, the K5c pair pass, its fold, its resource query, the
-    K2c-G entry, K5s-mol's pair pass, assembly and resource query and K2c's
-    resource query among them."""
+    K2c-G entry and its resource query, K5s-mol's pair pass, assembly and
+    resource query and K2c's resource query among them."""
     kinds = {"int": "c_int", "float": "c_float", "long": "c_long"}
     src = "".join(p.read_text() for p in sorted(Path(build.CSRC).glob("*.cu")))
     entries = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
     assert {"emdee_streaming_forces", "emdee_streaming_fold", "emdee_streaming_attrs", "emdee_streaming_forces_mol", "emdee_streaming_fold_mol", "emdee_streaming_mol_attrs",
             "emdee_cell_forces_ghost_mol", "emdee_streaming_ghost_mol", "emdee_streaming_ghost_assemble_mol",
-            "emdee_streaming_ghost_mol_attrs", "emdee_cell_forces_mol_attrs"} <= set(entries)
+            "emdee_streaming_ghost_mol_attrs", "emdee_cell_forces_mol_attrs",
+            "emdee_cell_forces_ghost_mol_attrs"} <= set(entries)
     assert set(entries) == set(build._SIGNATURES)
     for name, params in entries.items():
         want = ["c_void_p" if "*" in p else kinds[p.split()[0]] for p in params.split(",")]
