@@ -415,35 +415,103 @@ def lj_resources_all():
         ("K3 grid side", (True, False, True)))}
 
 
-def phase_rebin(device, tag):
-    """Rebin kernel vs plain on the drifted melt: bit-exact in every field."""
-    from emdee_tpu_torch.neighbors.cell_dense import _rebin_shift
-    from emdee_tpu_torch.neighbors.rebin_kernel import SENTINEL_BITS, rebin_routing
+def phase_rebin(device, tag, cells=None):
+    """K4 on the melt of `cells`³ FCC cells (default the 97,556-atom one),
+    drifted across the seam: at 97,556 atoms `_rebin_shift` (per-atom
+    fields, strided views) kernel vs plain, bit-exact in every field; then
+    the rebin as the component carry calls it (raw positions and velocities
+    as strided views, atom id, the valid mask, the wrap) — at 97,556 atoms
+    also with one atom moved two cells and with the cells at y = 0 moved one
+    cell up, so that the y pass overflows between the other two — vs the
+    plain version and vs the former three launches (`emdee_rebin_pass`,
+    kept in the source as the witness) on the parked fields: bit for bit in
+    every field and the flag.  Times on both clocks (CUDA events around
+    back-to-back calls, and behind a device spin), the three launches'
+    beside them (`before_*`, without and with the torch ops that parked the
+    fields for them), and the cooperative grid."""
+    import ctypes
 
-    st, config, _, _, _, n = melt(device)
+    from emdee_tpu_torch.csrc import build
+    from emdee_tpu_torch.neighbors.cell_dense import _box, _rebin_shift
+    from emdee_tpu_torch.neighbors.rebin_kernel import _parked, rebin_routing
+    from emdee_tpu_torch.tools.ab_rebin import three_pass
+
+    st, config, _, _, _, n = melt(device) if cells is None else melt(device, cells)
     st = drifted(st, SKIN)
-    a = _rebin_shift(st, config, backend="cuda")
-    b = _rebin_shift(st, config, backend="torch")
-    torch.cuda.synchronize()
-    same_fields("rebin kernel vs plain", a, b)
-    moved = int(((a.atom_id != st.atom_id) & a.valid).sum())
-    if bool(a.overflow) or moved < 1000:
-        raise AssertionError(f"rebin fixture: overflow {bool(a.overflow)}, {moved} slots moved")
-
-    box = torch.tensor(config.box, dtype=torch.float32, device=device)
-    sent = torch.tensor(SENTINEL_BITS, dtype=torch.int32, device=device).view(torch.float32)
-    pos = st.positions - torch.floor(st.positions / box) * box
-    fields = tuple(torch.where(st.valid, pos[..., i], sent) for i in range(3))
-    fields += tuple(st.velocities[..., i].contiguous() for i in range(3)) + (st.atom_id,)
     m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
-    ms = cuda_ms(lambda: rebin_routing(fields, config.box, m, c, ns, backend="cuda"), 50)
-    plain_ms = cuda_ms(lambda: rebin_routing(fields, config.box, m, c, ns, backend="torch"), 10)
-    bound_ms, bound_by = bound(2 * 4 * len(fields) * ns, 0)
-    log(f"{tag} rebin kernel vs plain, {n} atoms, M={m} C={c}: bit-exact in every field, "
-        f"{moved} slots moved; 3 passes {ms:.4f} ms per rebin (plain {plain_ms:.3f} ms), "
-        f"bound {bound_ms:.5f} ms ({bound_by})")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    if cells is None:
+        a = _rebin_shift(st, config, backend="cuda")
+        b = _rebin_shift(st, config, backend="torch")
+        torch.cuda.synchronize()
+        same_fields("rebin kernel vs plain", a, b)
+        moved = int(((a.atom_id != st.atom_id) & a.valid).sum())
+        if bool(a.overflow) or moved < 1000:
+            raise AssertionError(f"rebin fixture: overflow {bool(a.overflow)}, {moved} slots moved")
+
+    lib = build.load()
+    box = _box(config.box, st.positions)
+    valid = st.valid
+
+    def fields_of(pos):
+        return [pos[..., i] for i in range(3)] + [st.velocities[..., i] for i in range(3)] + [st.atom_id]
+
+    def held(label, fields, flag):
+        """The kernel vs plain and vs the three launches, bit for bit."""
+        got = rebin_routing(fields, box, m, c, ns, backend="cuda", valid=valid, wrap=True)
+        plain = rebin_routing(fields, box, m, c, ns, backend="torch", valid=valid, wrap=True)
+        before = three_pass(lib, _parked(fields, valid, box, True), box, m, c, ns)
+        torch.cuda.synchronize()
+        same_fields(f"K4 {label} vs plain", list(got[0]) + [got[1]], list(plain[0]) + [plain[1]])
+        same_fields(f"K4 {label} vs the three launches", list(got[0]) + [got[1]], list(before[0]) + [before[1]])
+        if bool(got[1]) != flag:
+            raise AssertionError(f"K4 {label}: flag {bool(got[1])}, expected {flag}")
+        return int(((got[0][-1] != st.atom_id) & (got[0][-1] < ns)).sum())
+
+    fields = fields_of(st.positions)
+    moved = held("drifted", fields, False)
+    if moved < 1000:
+        raise AssertionError(f"K4 fixture: {moved} slots moved")
+    cases = "drifted"
+    if cells is None:
+        h = float(config.cell_side)
+        crowd = ((torch.arange(m**3, device=device) // m) % m == 0)[:, None] & valid
+        crowded = st.positions.clone()
+        crowded[..., 1] += torch.where(crowd, h, 0.0)
+        held("y pass overflowing", fields_of(crowded), True)
+        jump = st.positions.clone()
+        first = int(torch.nonzero(valid.reshape(-1))[0])
+        jump[first // c, first % c, 0] += 2.0 * h
+        held("two-cell jump", fields_of(jump), True)
+        cases = "drifted, a y pass overflowing between the other two, a two-cell jump"
+
+    # Few enough calls that the host queues them all within device_ms's spin:
+    # the torch ops that parked the fields cost the host ~0.3 ms a call.
+    reps = 20 if cells else 50
+    call = lambda: rebin_routing(fields, box, m, c, ns, backend="cuda", valid=valid, wrap=True)  # noqa: E731
+    parked = _parked(fields, valid, box, True)
+    three = lambda: three_pass(lib, parked, box, m, c, ns)  # noqa: E731
+    park_three = lambda: three_pass(lib, _parked(fields, valid, box, True), box, m, c, ns)  # noqa: E731
+    t = dict(before_device_ms=device_ms(three, reps), device_ms=device_ms(call, reps),
+             before_ms=cuda_ms(three, reps), ms=cuda_ms(call, reps),
+             before_park_device_ms=device_ms(park_three, reps), before_park_ms=cuda_ms(park_three, reps))
+    plain_ms = cuda_ms(lambda: rebin_routing(fields, box, m, c, ns, backend="torch", valid=valid, wrap=True),
+                       3 if cells else 10)
+    grid = (ctypes.c_int * 4)()
+    build.check(lib.emdee_rebin_routing_attrs(grid), "rebin_routing attrs")
+    resident = grid[0] * grid[1] * grid[3]
+    # The seven fields read and written once each, and the valid mask.
+    bound_ms, bound_by = bound(2 * 4 * len(fields) * ns + ns, 0)
+    log(f"{tag} K4 at {n} atoms, M={m} C={c}, nf={len(fields)} (strided positions and velocities, the valid "
+        f"mask, the wrap): bit for bit the plain version and the former three launches in every field and the "
+        f"flag ({cases}; {moved} slots moved); one cooperative launch, {grid[0]} blocks an SM on {grid[1]} SMs, "
+        f"{grid[2]} threads a block, a warp a row: {resident} rows at a time of {m**3}; "
+        f"{t['device_ms']:.5f} ms a rebin "
+        f"on the device ({t['ms']:.5f} with the host's launch cost); the three launches {t['before_device_ms']:.5f} "
+        f"({t['before_ms']:.5f}), with the torch ops that parked for them {t['before_park_device_ms']:.5f} "
+        f"({t['before_park_ms']:.5f}); plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"max_abs_err": 0.0, **t, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "grid": {"blocks_per_sm": grid[0], "sms": grid[1], "threads": grid[2],
+                                         "rows_a_block": grid[3], "rows": m**3}}
 
 
 def phase_streaming(device, tag, cells=None):
@@ -587,7 +655,7 @@ def phase_streaming_c104(device, tag, config, model, params, uni, pos_eq, vel_eq
     label = f"melt M=12 C={C_F1} ('auto', K5)"
     _, sec, drift, counts = gate_rollout(label, roll, energy, st0, steps, k,
                                          launches(cell_forces_streaming=2 * (steps + 2 + 2),
-                                                  rebin_routing=3 * -(-steps // k)))
+                                                  rebin_routing=-(-steps // k)))
     bitwise_rerun(label, roll, st0, 50, k)
     no_host_waits(label, lambda: roll(st0, num_steps=2 * k, rebin_every=k))
     ms = 1e3 * sec / steps
@@ -626,7 +694,7 @@ def phase_1m(device, tag):
     steps = 1000
     _, sec, drift, counts = gate_rollout(
         "1M path", rollout, energy, st0, steps, k,
-        launches(cell_forces_streaming=2 * (steps + 2 + 2), rebin_routing=3 * -(-steps // k)),
+        launches(cell_forces_streaming=2 * (steps + 2 + 2), rebin_routing=-(-steps // k)),
     )
     bitwise_rerun("1M path", rollout, st0, 100, k)
     ms = 1e3 * sec / steps
@@ -638,7 +706,7 @@ def phase_1m(device, tag):
     steps_s = 100
     _, sec_s, drift_s, counts_s = gate_rollout(
         "1M stacked path", roll_s, energy_s, st0, steps_s, k,
-        launches(cell_forces_streaming=2 * (steps_s + 2 + 2), rebin_routing=3 * -(-steps_s // k)),
+        launches(cell_forces_streaming=2 * (steps_s + 2 + 2), rebin_routing=-(-steps_s // k)),
     )
     bitwise_rerun("1M stacked path", roll_s, st0, 50, k)
     log(f"{tag} 1M stacked path (per-atom params, K5): {steps_s} steps, {1e3 * sec_s / steps_s:.4f} ms/step; "
@@ -728,8 +796,10 @@ def phase_straggler_kernel(device, tag, label, sconfig, pos_eq, vel_eq, params, 
     wide state and the widened fields that the path's energy closure and
     rebin hand them."""
     from emdee_tpu_torch import make_straggler_sim, straggler_init
+    from emdee_tpu_torch.csrc import build
     from emdee_tpu_torch.neighbors import cell_kernel
     from emdee_tpu_torch.neighbors import straggler_kernel as sk
+    from emdee_tpu_torch.tools.ab_rebin import aux_call
     from emdee_tpu_torch.neighbors.cell_dense import _rebin_shift_core, cell_dense_forces
     from emdee_tpu_torch.neighbors.cell_dense_straggler import _bindings, _hood_matrix
 
@@ -803,9 +873,18 @@ def phase_straggler_kernel(device, tag, label, sconfig, pos_eq, vel_eq, params, 
     cell_kernel.launch_strag(*args[:7], torch.full_like(table, -1), out_g, cfg, uni)
     same_fields(f"K3 {label} grid side with an empty table vs K2a", list(out_g),
                 list(cell_kernel.cell_forces_split(*args[:4], cfg, uniform_params=uni, backend="cuda")))
+    # The aux side vs the former one-warp-a-slot kernel (the source's
+    # witness), bit for bit in every lane.
     out_a = torch.empty_like(fa)
+    out_w = torch.empty_like(fa)
+    aux = lambda: sk.launch_aux(*args[:8], out_a, sconfig, uni)  # noqa: E731
+    aux_w = lambda: aux_call(build.load(), "emdee_straggler_aux_warp", args[:8], out_w, sconfig, uni)  # noqa: E731
+    aux_w()
+    torch.cuda.synchronize()
+    same_fields(f"K3 {label} aux side vs the former kernel", [fa], [out_w])
     strag_ms = cuda_ms(lambda: cell_kernel.launch_strag(*args[:7], table, out_g, cfg, uni), 50)
-    aux_ms = cuda_ms(lambda: sk.launch_aux(*args[:8], out_a, sconfig, uni), 200)
+    aux_t = dict(before_device_ms=device_ms(aux_w, 200), device_ms=device_ms(aux, 200),
+                 before_ms=cuda_ms(aux_w, 200), ms=cuda_ms(aux, 200))
     strag_plain_ms = cuda_ms(lambda: sk.grid_forces_plain(*args[:7], table, sconfig, uni), 5)
     aux_plain_ms = cuda_ms(lambda: sk.aux_forces_plain(*args[:8], sconfig, uni), 20)
     gg = grid_pairs(p[0], p[1], p[2], v, cfg)
@@ -823,13 +902,14 @@ def phase_straggler_kernel(device, tag, label, sconfig, pos_eq, vel_eq, params, 
         f"the flag, {moved_w} slots moved, {tail_w} atoms in the pad slots after the rebin")
     before = f"before the redesign {K3_BEFORE['strag_ms']}, " if label == "production" else ""
     log(f"{tag} K3 {label} times: grid launch (STRAG) {strag_ms:.4f} ms ({before}plain {strag_plain_ms:.3f} ms, "
-        f"bound {strag_bound[0]:.5f} ms {strag_bound[1]}); aux launch {aux_ms:.4f} ms (plain "
-        f"{aux_plain_ms:.3f} ms, bound {aux_bound[0]:.6f} ms {aux_bound[1]}); pairs: grid {gg:,}, "
-        f"aux-grid {ag:,}, aux-aux {aa}")
+        f"bound {strag_bound[0]:.5f} ms {strag_bound[1]}); aux launch {aux_t['device_ms']:.5f} ms on the device, "
+        f"{aux_t['ms']:.5f} with the host's launch cost (bit for bit the former one-warp-a-slot kernel: "
+        f"{aux_t['before_device_ms']:.5f} and {aux_t['before_ms']:.5f}; plain {aux_plain_ms:.3f} ms, bound "
+        f"{aux_bound[0]:.6f} ms {aux_bound[1]}); pairs: grid {gg:,}, aux-grid {ag:,}, aux-aux {aa}")
     return {
         "strag": {"max_abs_err": err_g, "ms": strag_ms, "plain_ms": strag_plain_ms,
                   "bound_ms": strag_bound[0], "bound_by": strag_bound[1]},
-        "aux": {"max_abs_err": err_a, "ms": aux_ms, "plain_ms": aux_plain_ms,
+        "aux": {"max_abs_err": err_a, **aux_t, "plain_ms": aux_plain_ms,
                 "bound_ms": aux_bound[0], "bound_by": aux_bound[1], "library_ms": None},
         "wide_force_err": err_e,
     }
@@ -1105,7 +1185,7 @@ def phase_thermostat(tag, label, config, model, st0, thermostat, rebin, main_ms,
     # One force pass a step and one to start; K2b with energies for each
     # record and, with a barostat, for each block's pressure.
     forces = 1 + steps + records + (rebins if "barostat" in extra else 0)
-    routing = {"compact_window" if config.spill else "rebin_routing": 3 * rebins}
+    routing = {"compact_window": 3 * rebins} if config.spill else {"rebin_routing": rebins}
     expected = launches(cell_forces=forces, **routing)
     mods = counters()
     for mod in mods.values():
@@ -1673,7 +1753,7 @@ def phase_water(device, tag):
     else:
         cfg, roll, energy, backend = plain_cfg, roll_eq, energy_eq, "cuda"
         st0 = init(pos_eq, vel_eq, plain_cfg)
-        kernel_counts = {"rebin_routing": 3 * -(-WATER_STEPS // WATER_REBIN)}
+        kernel_counts = {"rebin_routing": -(-WATER_STEPS // WATER_REBIN)}
         log(f"water: the gated path runs on the plain config M={cfg.cells_per_dim} C={cfg.capacity} with "
             f"backend='cuda' named, so that it holds K2c; 'auto' picks {rb(cfg)!r} (K5c) there")
     roll(st0, num_steps=2 * WATER_REBIN, rebin_every=WATER_REBIN)  # warm-up
@@ -1823,7 +1903,7 @@ def phase_water_auto(device, tag, w):
     roll(st0, num_steps=2 * WATER_REBIN, rebin_every=WATER_REBIN)  # warm-up
     out, sec, drift, counts = gate_rollout(
         "water path ('auto', K5c)", roll, energy, st0, WATER_STEPS, WATER_REBIN,
-        launches(cell_forces_streaming=2 * (WATER_STEPS + 4), rebin_routing=3 * -(-WATER_STEPS // WATER_REBIN)),
+        launches(cell_forces_streaming=2 * (WATER_STEPS + 4), rebin_routing=-(-WATER_STEPS // WATER_REBIN)),
         drift_gate=WATER_DRIFT_GATE,
     )
     bitwise_rerun("water path ('auto')", roll, st0, 100, WATER_REBIN)
@@ -1981,7 +2061,7 @@ def phase_water_1m(device, tag):
     roll(st, num_steps=WATER_REBIN, rebin_every=WATER_REBIN)  # warm-up
     _, sec, drift, counts = gate_rollout(
         "1M water path ('auto', K5c)", roll, energy, st, steps, WATER_REBIN,
-        launches(cell_forces_streaming=2 * (steps + 4), rebin_routing=3 * -(-steps // WATER_REBIN)),
+        launches(cell_forces_streaming=2 * (steps + 4), rebin_routing=-(-steps // WATER_REBIN)),
         drift_gate=WATER_DRIFT_GATE,
     )
     ms = 1e3 * sec / steps
@@ -2951,7 +3031,7 @@ def main() -> None:
     n_rebins = -(-steps // k)
     out, sec, drift, main_counts = gate_rollout(
         "main path", rollout, energy, st0, steps, k,
-        launches(cell_forces=steps + 2 + 2, rebin_routing=3 * n_rebins),
+        launches(cell_forces=steps + 2 + 2, rebin_routing=n_rebins),
     )
     main_ms = 1e3 * sec / steps
     log(f"{tag} main path (component carry, uniform params): {steps} steps in {sec:.3f} s = "
@@ -2965,7 +3045,7 @@ def main() -> None:
     steps_s = 200
     _, sec_s, drift_s, counts_s = gate_rollout(
         "README path", roll_s, energy_s, st0, steps_s, k,
-        launches(cell_forces=steps_s + 2 + 2, rebin_routing=3 * -(-steps_s // k)),
+        launches(cell_forces=steps_s + 2 + 2, rebin_routing=-(-steps_s // k)),
     )
     bitwise_rerun("README path", roll_s, st0, 100, k)
     log(f"{tag} README path (stacked, per-atom params): {steps_s} steps, "
@@ -3024,7 +3104,7 @@ def main() -> None:
     s_roll(s0, num_steps=2 * k, rebin_every=k)  # warm-up
     s_out, s_sec, s_drift, s_counts = gate_rollout(
         "straggler path", s_roll, s_energy, s0, steps, k,
-        launches(cell_forces=steps + 2 + 2, rebin_routing=3 * n_rebins, straggler_aux=steps + 2),
+        launches(cell_forces=steps + 2 + 2, rebin_routing=n_rebins, straggler_aux=steps + 2),
     )
     parked1 = int((s_out.aux_cell < nc).sum())
     if parked1 < 1:
@@ -3066,6 +3146,7 @@ def main() -> None:
         + ", ".join(f"{p} {v:.4f}" for p, v in ens_ms.items()))
 
     # ---- bench_all.py's 1M melt: the streaming kernel family ----
+    rebin.update({f"n1m_{key}": value for key, value in phase_rebin(device, tag, N_CELLS_1M).items()})
     k5, k2_1m = phase_streaming(device, tag, N_CELLS_1M)
     counts_1m, ms_1m, eq_1m = phase_1m(device, tag)
     log(f"{smi}: 1M path {ms_1m:.4f} ms/step ({1_000_188 * 1e3 / ms_1m:,.0f} atom-steps/s); K5 vs K2 split "

@@ -64,6 +64,10 @@ _SIGNATURES = {
     "emdee_straggler_aux": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                             _F, _F, _F, _P],
+    # the same arguments: the former one-warp-a-slot kernel, kept as a witness
+    "emdee_straggler_aux_warp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                                 _F, _F, _F, _P],
     # px, py, pz, pstride, hs, tse, valid, slices, m, c, box (device), rc2,
     # rs2, invd2, a_m, pa1, pa2, pb1, pb2, sig2_u, eps4_u, uniform, energy,
     # stream
@@ -100,7 +104,13 @@ _SIGNATURES = {
     "emdee_streaming_ghost_mol_attrs": [_I] * 5 + [_P],
     # out, slices, react, mz, my, mx, shards, c, energy, stream
     "emdee_streaming_ghost_assemble_mol": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # in, out, flag, nf, m, c, axis, cf, num_slots, box (device), stream
+    # ptrs (host void*[nf]), strides (host long[nf]), nf, valid (or null),
+    # wrap, out, mid, flag, m, c, num_slots, box (device), stream
+    "emdee_rebin_routing": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    # out (int[4])
+    "emdee_rebin_routing_attrs": [_P],
+    # in, out, flag, nf, m, c, axis, cf, num_slots, box (device), stream: one
+    # pass of the former three-launch design, kept as a witness
     "emdee_rebin_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # s, keep, win, out, rows, nf, c, win_f, win_r, out_f, out_r, last_fill,
     # stream

@@ -1,7 +1,7 @@
 // The per-row routing of the shift rebin's ±1-cell passes, shared by the
-// whole-grid pass (rebin_routing.cu, K4) and the window pass
-// (rebin_window.cu, K6): the two differ only in where a candidate lane's
-// slot comes from.
+// whole-grid rebin (rebin_routing.cu, K4) and the window pass
+// (rebin_window.cu, K6): a candidate's routing decision and the fill of
+// empty slots, and K6's placement of a row by a block.
 //
 // A block routes one destination row (cell): 3C candidate lanes, rounded up
 // to a warp, in the reference's order [cell b−1's +1 movers, the row's
@@ -12,7 +12,8 @@
 // fill: the NaN-pattern sentinel in the position fields 0-2, num_slots in
 // the last field (atom_id), 0 elsewhere.  The sticky flag is raised on
 // count > C or on an illegal move (more than one cell) among the row's own
-// atoms, and stays on the device.
+// atoms, and stays on the device.  K4 ranks the same candidates in the
+// same order with a warp per row.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,10 +36,16 @@ __device__ __forceinline__ void route_lane(int bits, float box, int m, int bs, i
   const float w = __fsub_rn(s, floorf(s));
   int t = static_cast<int>(floorf(__fmul_rn(static_cast<float>(m), w)));
   t = min(max(t, 0), m - 1);
-  const int d = ((t - bs) % m + m) % m;
+  int d = t - bs;  // (t − bs) mod m: both lie in [0, m)
+  if (d < 0) d += m;
   const int want = seg == 0 ? 1 : (seg == 1 ? 0 : m - 1);
   keep = d == want;
   if (seg == 1) bad = !(d == 0 || d == 1 || d == m - 1);
+}
+
+// The fill of an empty slot in field f of nf.
+__device__ __forceinline__ int fill_value(int f, int nf, int num_slots) {
+  return f < 3 ? kSentinel : (f == nf - 1 ? num_slots : 0);
 }
 
 // Place one destination row.  Every thread of the block calls it.  `src`
@@ -67,7 +74,7 @@ __device__ __forceinline__ void place_row(bool keep, bool bad, const int* __rest
   }
   if (k < c && k >= count) {
     for (int f = 0; f < nf; ++f)
-      out[f * out_fstride + k] = f < 3 ? kSentinel : (f == nf - 1 ? num_slots : 0);
+      out[f * out_fstride + k] = fill_value(f, nf, num_slots);
   }
   if (k == 0 && (any_bad || count > c)) atomicOr(flag, 1);
 }

@@ -823,8 +823,8 @@ def _route_windows(fields, valid, overflow, cf, b, m, c, nbr, box, spill=None):
 def _route_axis_pass(fields, valid, overflow, cf, b, m, c, nbr, box, spill=None,
                      last_fill=0, backend="torch"):
     """One ±1-cell routing pass along one grid axis — the plain version of
-    one launch of csrc/rebin_routing.cu, and with `spill` the pass of the
-    spill route (arguments as `_route_windows`).  A kept candidate of
+    one of the three passes of csrc/rebin_routing.cu, and with `spill` the
+    pass of the spill route (arguments as `_route_windows`).  A kept candidate of
     exclusive rank r < C lands in slot r, through
     `compact_kernel.compact_stacked` (`backend`: the window-compaction
     kernel on the card, its plain version otherwise); slots ≥ count hold 0,
@@ -866,37 +866,35 @@ def _rebin_shift_core(fields, valid, overflow, config: CellDenseConfig, backend:
                       wrap: bool = True, box=None):
     """Field-list heart of the shift rebin: wrap positions into [0, L) (unless
     the caller did), then the three routing passes — the whole-pass rebin
-    kernel (`rebin_kernel.rebin_routing`, empty slots' positions parked at
-    the NaN-pattern sentinel) without spill, the spill route
-    (`_spill_route`, with the window-compaction kernel) with spill.
+    kernel (`rebin_kernel.rebin_routing`, which parks empty slots'
+    positions at the NaN-pattern sentinel and wraps on its own) without
+    spill, the spill route (`_spill_route`, with the window-compaction
+    kernel) with spill.
 
     fields: list of (M³, C) tensors — positions x, y, z first, int32 atom_id
     last; box: the state's box (default config.box).  Returns (fields,
     valid, overflow); empty slots hold the routing fill (atom_id =
     num_slots) that callers mask."""
-    from emdee_tpu_torch.neighbors.rebin_kernel import SENTINEL_BITS, rebin_routing
+    from emdee_tpu_torch.neighbors.rebin_kernel import rebin_routing
 
     box_t = _box(config.box if box is None else box, fields[0])
     # The reference's condition: spill mode with a positive margin ε = h − rc − skin.
     spills = config.spill and float(config.cell_side) - float(config.cutoff) - float(config.skin) > 0.0
+    if not spills:
+        out, ovf = rebin_routing(
+            tuple(fields), box_t, config.cells_per_dim, config.capacity, config.num_slots,
+            backend=backend, valid=valid, wrap=wrap,
+        )
+        fields = list(out)
+        return fields, fields[-1] < config.num_slots, overflow | ovf
     fields = list(fields)
-    if spills:
-        park = torch.zeros((), dtype=torch.float32, device=box_t.device)
-    else:
-        park = torch.full((), SENTINEL_BITS, dtype=torch.int32, device=box_t.device).view(torch.float32)
+    park = torch.zeros((), dtype=torch.float32, device=box_t.device)
     for i in range(3):
         f = fields[i]
         if wrap:
             f = f - torch.floor(f / box_t) * box_t
         fields[i] = torch.where(valid, f, park)
-    if spills:
-        return _spill_route(fields, valid, overflow, config, box_t, backend)
-    out, ovf = rebin_routing(
-        tuple(fields), box_t, config.cells_per_dim,
-        config.capacity, config.num_slots, backend=backend,
-    )
-    fields = list(out)
-    return fields, fields[-1] < config.num_slots, overflow | ovf
+    return _spill_route(fields, valid, overflow, config, box_t, backend)
 
 
 def _rebin_shift(

@@ -121,7 +121,7 @@ def test_rebin_kernel_bitexact(device, uniform):
     before = rebin_kernel.LAUNCHES
     a = _rebin_shift(st, config, backend="cuda", **kw)
     b = _rebin_shift(st, config, backend="torch", **kw)
-    assert rebin_kernel.LAUNCHES == before + 3
+    assert rebin_kernel.LAUNCHES == before + 1  # one cooperative launch a rebin
     for name in a._fields:
         x, y = getattr(a, name), getattr(b, name)
         if x is None and y is None:
@@ -130,6 +130,101 @@ def test_rebin_kernel_bitexact(device, uniform):
             x, y = x.view(torch.int32), y.view(torch.int32)
         assert torch.equal(x, y), name
     assert not bool(a.overflow) and int(((a.atom_id != st.atom_id) & a.valid).sum()) > 10
+
+
+def _k4_fields(st, pos):
+    """The component carry's routed fields: positions and velocities as
+    strided views of their (M³, C, 3) tensors, atom id."""
+    return [pos[..., i] for i in range(3)] + [st.velocities[..., i] for i in range(3)] + [st.atom_id]
+
+
+@pytest.mark.parametrize("case", ["strided", "y pass overflows", "rows outnumber the grid"])
+def test_fused_rebin_matches_plain_and_three_launches(device, case):
+    """K4's one cooperative launch on raw positions with the valid mask and
+    the wrap, as `_rebin_shift_core` calls it, against the plain version and
+    against the former three launches (`emdee_rebin_pass`) on the parked
+    fields: bit for bit in every field and the flag — on strided views of
+    the drifted 2,048-atom state; with every atom of the cells at y = 0
+    moved one cell up y, so that the y pass overflows between the z and x
+    passes; and on 100,000 atoms at M = 23, whose 12,167 rows outnumber
+    the rows the card routes at a time (a warp a row), so that each warp
+    routes several rows a pass."""
+    import ctypes
+
+    from emdee_tpu_torch.csrc import build
+    from emdee_tpu_torch.neighbors.cell_dense import _box
+    from emdee_tpu_torch.tools.ab_rebin import three_pass
+
+    big = case == "rows outnumber the grid"
+    st, config, _ = _state(device, n=100000, varied=False, drift=True, density=0.35) if big else \
+        _state(device, drift=True)
+    m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
+    pos = st.positions
+    if case == "y pass overflows":
+        low = ((torch.arange(m**3, device=device) // m) % m == 0)[:, None] & st.valid
+        pos = pos.clone()
+        pos[..., 1] += torch.where(low, float(config.cell_side), 0.0)
+    fields = _k4_fields(st, pos)
+    assert fields[0].stride() == (3 * c, 3) and fields[3].stride() == (3 * c, 3)
+    box = _box(config.box, pos)
+    grid = (ctypes.c_int * 4)()  # blocks an SM, SMs, threads a block, rows a block at a time
+    build.check(build.load().emdee_rebin_routing_attrs(grid), "attrs")
+    assert (m**3 > grid[0] * grid[1] * grid[3]) == big, (m, tuple(grid))
+    before = rebin_kernel.LAUNCHES
+    got = rebin_kernel.rebin_routing(fields, box, m, c, ns, backend="cuda", valid=st.valid, wrap=True)
+    assert rebin_kernel.LAUNCHES == before + 1
+    plain = rebin_kernel.rebin_routing(fields, box, m, c, ns, backend="torch", valid=st.valid, wrap=True)
+    three = three_pass(build.load(), rebin_kernel._parked(fields, st.valid, box, True), box, m, c, ns)
+    for ref in (plain, three):
+        assert bool(got[1]) == bool(ref[1]) == (case == "y pass overflows")
+        for i, (x, y) in enumerate(zip(got[0], ref[0])):
+            assert torch.equal(_bits(x), _bits(y)), f"field {i}"
+    assert int(((got[0][-1] != st.atom_id) & (got[0][-1] < ns)).sum()) > 10
+
+
+def test_straggler_aux_staging_loops_and_empty_buffer(device):
+    """K3's aux side at C_t = 40, where the 27·C = 1,080 candidates exceed a
+    block of 1,024 threads and the staging loops: against the plain version
+    within 2e-5 of the force scale and bit for bit the former
+    one-warp-a-slot kernel (`emdee_straggler_aux_warp`), rerunning bitwise;
+    then with an all-empty aux buffer: exact zeros."""
+    from emdee_tpu_torch import StragglerConfig, straggler_init
+    from emdee_tpu_torch.csrc import build
+    from emdee_tpu_torch.neighbors import straggler_kernel
+    from emdee_tpu_torch.tools.ab_rebin import aux_call
+
+    n = 2048
+    pos, box = cubic_lattice(n, 0.8442, jitter=0.1, seed=7)
+    vel = maxwell_boltzmann(n, 0.8, seed=8)
+    params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
+    wide = suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.35)
+    config = StragglerConfig(wide._replace(capacity=40), wide.capacity + 8, 64, 48)
+    st = straggler_init(pos, vel, np.ones(n), params, config, device=device)
+    nc, a_cap = config.grid.num_cells, config.aux_capacity
+    av = st.aux_cell < nc
+    assert 27 * config.grid.capacity > 1024 and int(av.sum()) >= 10 and not bool(st.grid.overflow)
+    p = st.grid.positions.permute(2, 0, 1).contiguous()
+    a = st.aux_positions.t().contiguous()
+    args = (p[0], p[1], p[2], st.grid.valid, a[0], a[1], a[2], st.aux_cell)
+    uni = (0.5, 2.0)
+    outs = [torch.empty((3, a_cap), dtype=torch.float32, device=device) for _ in range(3)]
+    before = straggler_kernel.LAUNCHES
+    straggler_kernel.launch_aux(*args, outs[0], config, uni)
+    straggler_kernel.launch_aux(*args, outs[1], config, uni)
+    assert straggler_kernel.LAUNCHES == before + 2
+    aux_call(build.load(), "emdee_straggler_aux_warp", args, outs[2], config, uni)
+    want = straggler_kernel.aux_forces_plain(*args, config, uni)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(outs[0]), _bits(outs[1])) and torch.equal(_bits(outs[0]), _bits(outs[2]))
+    scale = max(float(want[:, av].abs().max()), 1.0)
+    assert float((outs[0] - want)[:, av].abs().max()) <= 2e-5 * scale
+    assert bool((outs[0][:, ~av] == 0).all())
+
+    empty = args[:7] + (torch.full_like(st.aux_cell, nc),)
+    out = torch.full((3, a_cap), float("nan"), dtype=torch.float32, device=device)
+    straggler_kernel.launch_aux(*empty, out, config, uni)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), torch.zeros_like(_bits(out)))
 
 
 @pytest.mark.parametrize("uniform", [False, True])

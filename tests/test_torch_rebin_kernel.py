@@ -1,7 +1,10 @@
 """The rebin kernel's wrapper (`rebin_kernel.rebin_routing`) on CPU tensors
 — where it runs the plain version — against the TPU kernel in interpret
 mode, and the port's `_rebin_shift` against the JAX package's XLA rebin:
-bit-exact in every field, including fill lanes and the overflow flag."""
+bit-exact in every field, including fill lanes and the overflow flag.  The
+wrapper takes either parked fields (the reference kernel's input) or raw
+positions, any strides, with the valid mask, parking and wrapping them
+itself as the card's kernel does in its first pass."""
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +41,23 @@ def _routing_fields(st, config, jump=False):
     return tuple(fields)
 
 
+def _moved(st, config, case):
+    """The drifted state with, for `case` 'jump', one atom moved two cells
+    along x, and for 'crowded_y' every atom of the cells at y = 0 moved one
+    cell up y, so that the y pass — between the other two — overflows the
+    cells at y = 1 (two cells' atoms, ~37 on average, for C = 32)."""
+    pos = st.positions
+    if case == "jump":
+        first = int(np.flatnonzero(np.asarray(st.valid).reshape(-1))[0])
+        cell, slot = divmod(first, config.capacity)
+        pos = pos.at[cell, slot, 0].add(2.0 * config.cell_side)
+    elif case == "crowded_y":
+        m = config.cells_per_dim
+        low = (jnp.arange(m**3) // m) % m == 0
+        pos = pos.at[..., 1].add(jnp.where(low[:, None] & st.valid, config.cell_side, 0.0))
+    return st._replace(positions=pos)
+
+
 @pytest.mark.parametrize("jump", [False, True])
 def test_rebin_routing_matches_pallas(jump):
     st, config, _ = DRIFTED
@@ -61,3 +81,31 @@ def test_rebin_shift_matches_jax(uniform):
     assert_states_bitequal(ref, got)
     assert not bool(got.overflow)
     assert int(((got.atom_id != to_port(st).atom_id) & got.valid).sum()) > 10
+
+
+@pytest.mark.parametrize("case", ["drift", "jump", "crowded_y"])
+def test_rebin_routing_parks_raw_strided_fields_as_pallas(case):
+    """The wrapper's plain path on raw positions and velocities given as
+    strided views of their (M³, C, 3) tensors, with the valid mask and
+    wrap=True (`_rebin_shift_core`'s call), against the TPU kernel in
+    interpret mode on the parked, wrapped fields: bit-exact in every field
+    and the flag — through an illegal two-cell move, and through a y pass
+    that overflows between the z and x passes."""
+    st, config, _ = DRIFTED
+    st = _moved(st, config, case)
+    args = (config.box, config.cells_per_dim, config.capacity, config.num_slots)
+    ref, ref_ovf = rebin_routing_pallas(_routing_fields(st, config), *args, interpret=True)
+    pos = torch.from_numpy(np.array(st.positions))
+    vel = torch.from_numpy(np.array(st.velocities))
+    fields = [pos[..., i] for i in range(3)] + [vel[..., i] for i in range(3)]
+    fields += [torch.from_numpy(np.array(f)) for f in (st.inv_masses, st.half_sigma, st.twice_sqrt_eps, st.atom_id)]
+    assert fields[0].stride() == (3 * config.capacity, 3)
+    valid = torch.from_numpy(np.array(st.valid))
+    got, ovf = rebin_kernel.rebin_routing(tuple(fields), *args, valid=valid, wrap=True)
+    assert bool(ovf) == bool(ref_ovf) == (case != "drift")
+    for i, (a, b) in enumerate(zip(ref, got)):
+        np.testing.assert_array_equal(bits(b.numpy()), bits(a), err_msg=f"field {i}")
+    if case == "crowded_y":  # the overflow drops atoms: fewer slots than atoms stay live
+        assert int((got[-1] < config.num_slots).sum()) < int(valid.sum())
+    with pytest.raises(ValueError, match="wrap needs the valid mask"):
+        rebin_kernel.rebin_routing(tuple(fields), *args, wrap=True)
