@@ -1005,20 +1005,33 @@ def phase_spill_init(device, tag, pos_eq, vel_eq, params, model, uni, wide):
 
 
 def phase_compact(device, tag, st, scfg):
-    """The spill route with K7 vs its plain version on the spill state
-    drifted 0.45·skin (every field, the valid mask and the flag, bit for
-    bit), then K7 alone on the real windows of the route's first pass: its
-    output vs the plain version's in every slot, and the times of K7, the
-    plain version and the plain version's one `scatter_` call."""
-    from emdee_tpu_torch.neighbors.cell_dense import (
-        _axis_coords, _rebin_shift_core, _roll_cells, _route_windows, _spill_params,
-    )
-    from emdee_tpu_torch.neighbors.compact_kernel import compact_stacked
+    """K7, the spill route's three passes in one cooperative launch, on the
+    spill state drifted 0.45·skin as the component carry calls it (raw
+    positions and velocities as strided views, atom id, the valid mask, the
+    wrap) — and with the cells at y = 0 moved one cell up, so that the y
+    pass overflows between the other two — vs its plain version and vs the
+    former route on the card (the torch masks and ranks with the former
+    compaction kernel, `compact_window.cu`, three launches): every field,
+    the valid mask and the flag, bit for bit; then the times of K7, of the
+    former route, of the plain version and of one pass's compaction by one
+    `scatter_` call, on both clocks, and K7's bound and cooperative grid."""
+    import ctypes
+
+    from emdee_tpu_torch.csrc import build
+    from emdee_tpu_torch.neighbors.cell_dense import _axis_coords, _rebin_shift_core, _roll_cells, _route_windows, \
+        _spill_params
+    from emdee_tpu_torch.neighbors.compact_kernel import spill_route_plain, spill_routing
 
     sd = drifted(st, SKIN)
-    fields = [sd.positions[..., i] for i in range(3)] + [sd.velocities[..., i] for i in range(3)]
-    fields.append(sd.atom_id)
+    m, c, ns = scfg.cells_per_dim, scfg.capacity, scfg.num_slots
+    box = torch.full((), scfg.box, dtype=torch.float32, device=device)
+    spill = _spill_params(scfg)
     ovf0 = torch.zeros((), dtype=torch.bool, device=device)
+
+    def fields_of(pos):
+        return [pos[..., i] for i in range(3)] + [sd.velocities[..., i] for i in range(3)] + [sd.atom_id]
+
+    fields = fields_of(sd.positions)
     rk, vk, ok_ = _rebin_shift_core(list(fields), sd.valid, ovf0, scfg, "cuda")
     rp, vp, op_ = _rebin_shift_core(list(fields), sd.valid, ovf0, scfg, "torch")
     torch.cuda.synchronize()
@@ -1027,40 +1040,59 @@ def phase_compact(device, tag, st, scfg):
     if bool(ok_) or moved < 1000:
         raise AssertionError(f"spill route fixture: overflow {bool(ok_)}, {moved} slots moved")
 
-    m, c, ns = scfg.cells_per_dim, scfg.capacity, scfg.num_slots
-    box = torch.full((), scfg.box, dtype=torch.float32, device=device)
+    def held(label, flds, flag):
+        args = (flds, box, m, c, ns, spill, sd.valid)
+        plain = spill_routing(*args, backend="torch")
+        witness = spill_route_plain(*args, compact="cuda")
+        flat = lambda r: list(r[0]) + [r[1], r[2]]  # noqa: E731
+        got = spill_routing(*args, backend="cuda")
+        torch.cuda.synchronize()
+        same_fields(f"K7 {label} vs plain", flat(got), flat(plain))
+        same_fields(f"K7 {label} vs the former route", flat(got), flat(witness))
+        if bool(plain[2]) != flag:
+            raise AssertionError(f"K7 {label}: flag {bool(plain[2])}, expected {flag}")
+
+    held("drifted", fields, False)
+    crowd = ((torch.arange(m**3, device=device) // m) % m == 0)[:, None] & sd.valid
+    crowded = sd.positions.clone()
+    crowded[..., 1] += torch.where(crowd, float(scfg.cell_side), 0.0)
+    held("y pass overflowing", fields_of(crowded), True)
+
+    args = (fields, box, m, c, ns, spill, sd.valid)
+    call = lambda: spill_routing(*args, backend="cuda")  # noqa: E731
+    former = lambda: spill_route_plain(*args, compact="cuda")  # noqa: E731
+    reps = 50
+    t = dict(device_ms=device_ms(call, reps), before_device_ms=device_ms(former, reps), ms=cuda_ms(call, reps),
+             before_ms=cuda_ms(former, reps))
+    plain_ms = cuda_ms(lambda: spill_routing(*args, backend="torch"), 10)
+    # One pass's compaction as one scatter_ (the z pass's windows): the part
+    # of the route that one PyTorch call computes.
     wrapped = [torch.where(sd.valid, f - torch.floor(f / box) * box, 0.0) for f in fields[:3]] + fields[3:]
     nbr = lambda x, d: _roll_cells(x, (0, 0, d), m)  # noqa: E731  the z pass
-    s_, keep, win, counts, _ = _route_windows(
-        wrapped, sd.valid, ovf0, 2, _axis_coords(m, device)[0], m, c, nbr, box, _spill_params(scfg))
-    args = (s_, keep, win, c, ns)
-    out_k = compact_stacked(*args, backend="cuda")
-    out_p = compact_stacked(*args, backend="torch")
-    torch.cuda.synchronize()
-    if not torch.equal(out_k, out_p):
-        raise AssertionError("K7 vs plain: output slots differ")
+    s_, keep, win, _, _ = _route_windows(wrapped, sd.valid, ovf0, 2, _axis_coords(m, device)[0], m, c, nbr, box,
+                                         spill)
     nf, rows, k3 = win.shape
-    ms = device_ms(lambda: compact_stacked(*args, backend="cuda"), 200)
-    host_ms = cuda_ms(lambda: compact_stacked(*args, backend="cuda"), 200)
-    plain_ms = cuda_ms(lambda: compact_stacked(*args, backend="torch"), 20)
     lane = torch.arange(k3, device=device)
     placed = keep & (lane - s_ < c)
     dest = torch.where(placed, lane - s_.long(), c).expand(nf, rows, k3)
     dump = torch.zeros((nf, rows, c + 1), dtype=torch.int32, device=device)
-    library_ms = device_ms(lambda: dump.scatter_(2, dest, win), 200)
-    # This run's data: s (4 B) and keep (1 B) of every lane, the nf window
-    # words of each kept lane that lands in a slot (no other window word is
-    # needed), and nf output words per slot.
-    kept = int(placed.sum())
-    bound_ms, bound_by = bound(rows * k3 * 5 + 4 * nf * kept + 4 * nf * rows * c, 0)
-    log(f"{tag} K7 at the spill config (M={m} C={c}, {rows} rows, nf={nf}): spill route kernel vs plain bit-exact "
-        f"in every field, the mask and the flag ({moved} slots moved); K7 vs plain equal in every slot of the "
-        f"z pass ({int(counts.sum())} arrivals, {kept} kept lanes placed of {rows * k3}); {ms:.5f} ms a pass on "
-        f"the device ({host_ms:.5f} ms a call with the host's launch cost), plain {plain_ms:.4f} ms, one "
-        f"scatter_ {library_ms:.5f} ms on the device; bound {bound_ms:.5f} ms ({bound_by}, "
-        f"{ms and bound_ms / ms:.1%} of it reached)")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "host_bound_ms": host_ms, "kept_lanes": kept}
+    scatter_ms = device_ms(lambda: dump.scatter_(2, dest, win), 200)
+    grid = (ctypes.c_int * 4)()
+    build.check(build.load().emdee_spill_routing_attrs(grid), "spill_routing attrs")
+    # The nf fields read once and written once, and the valid mask.
+    bound_ms, bound_by = bound(2 * 4 * nf * ns + ns, 0)
+    log(f"{tag} K7 at the spill config (M={m} C={c} squeeze target {scfg.spill_target}, nf={nf}, strided "
+        f"positions and velocities, the valid mask, the wrap): bit for bit the plain version and the former route "
+        f"(torch masks + compact_window.cu) in every field, the mask and the flag (drifted, {moved} slots moved; a "
+        f"y pass overflowing between the other two); one cooperative launch, {grid[0]} blocks an SM on {grid[1]} "
+        f"SMs, {grid[2]} threads a block, a warp a row: {t['device_ms']:.5f} ms a rebin on the device "
+        f"({t['ms']:.5f} with the host's launch cost); the former route {t['before_device_ms']:.5f} "
+        f"({t['before_ms']:.5f}); plain {plain_ms:.3f} ms; one pass's compaction by one scatter_ {scatter_ms:.5f} "
+        f"ms; bound {bound_ms:.5f} ms ({bound_by}, {bound_ms / t['device_ms']:.1%} of it reached)")
+    return {"max_abs_err": 0.0, **t, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "scatter_ms": scatter_ms,
+            "grid": {"blocks_per_sm": grid[0], "sms": grid[1], "threads": grid[2], "rows_a_block": grid[3],
+                     "rows": m**3}}
 
 
 def off_true_cell(st, config) -> int:
@@ -1111,7 +1143,7 @@ def phase_spill_path(tag, st0, scfg, model, uni, k, main_ms, save_flag=None):
     without squeeze, how many rebin blocks pass before the sticky flag trips
     (a measurement, not a gate; with `save_flag`, the state before the
     flagged block's rebin and its config go to that .npz file); then at the
-    squeeze target 1,000 gated steps (K7 three times a rebin, K4 never),
+    squeeze target 1,000 gated steps (K7 once a rebin, K4 never),
     bitwise reruns, no host waits; then a short stacked per-atom run.
     Returns ({path: counts}, ms/step)."""
     from emdee_tpu_torch import make_cell_dense_sim
@@ -1136,7 +1168,7 @@ def phase_spill_path(tag, st0, scfg, model, uni, k, main_ms, save_flag=None):
     steps = 1000
     out, sec, drift, counts = gate_rollout(
         "spill path", rollout, energy, st0, steps, k,
-        launches(cell_forces=steps + 2 + 2, compact_window=3 * -(-steps // k)),
+        launches(cell_forces=steps + 2 + 2, compact_window=-(-steps // k)),
     )
     off = off_true_cell(_rebin_shift(out, scfg, backend="cuda"), scfg)
     bitwise_rerun("spill path", rollout, st0, 100, k)
@@ -1151,7 +1183,7 @@ def phase_spill_path(tag, st0, scfg, model, uni, k, main_ms, save_flag=None):
     steps_s = 100
     _, sec_s, drift_s, counts_s = gate_rollout(
         "spill stacked path", roll_s, energy_s, st0, steps_s, k,
-        launches(cell_forces=steps_s + 2 + 2, compact_window=3 * -(-steps_s // k)),
+        launches(cell_forces=steps_s + 2 + 2, compact_window=-(-steps_s // k)),
     )
     bitwise_rerun("spill stacked path", roll_s, st0, 50, k)
     no_host_waits("spill stacked path", lambda: roll_s(st0, num_steps=2 * k, rebin_every=k))
@@ -1185,7 +1217,7 @@ def phase_thermostat(tag, label, config, model, st0, thermostat, rebin, main_ms,
     # One force pass a step and one to start; K2b with energies for each
     # record and, with a barostat, for each block's pressure.
     forces = 1 + steps + records + (rebins if "barostat" in extra else 0)
-    routing = {"compact_window": 3 * rebins} if config.spill else {"rebin_routing": rebins}
+    routing = {"compact_window": rebins} if config.spill else {"rebin_routing": rebins}
     expected = launches(cell_forces=forces, **routing)
     mods = counters()
     for mod in mods.values():
@@ -1265,57 +1297,118 @@ def phase_nvt_npt(device, tag, wide, spill_st, scfg, model, pos_eq, vel_eq, para
 
 
 def phase_rebin_window(device, tag):
-    """K6 (the grid engine's window pass) on the drifted melt, as one shard
-    holding the whole periodic grid: each axis pass vs its plain version,
-    bit for bit in every slot and the flag; the three passes vs K4's rebin,
-    bit for bit; then the device time of the z pass and its bound."""
+    """K6 (the grid engine's rebin pass: a warp a row over each shard's own
+    rows, with only the halo planes exchanged) as the grid's rebin calls it
+    — the first pass on the transported fields where they lie (strided
+    position and velocity views, per-atom parameters, atom id), parked and
+    wrapped in the kernel — on the drifted melt as one shard holding the
+    whole periodic grid (M = 17, C = 32) and on (2,2,2) at M = 16, C = 40:
+    each pass vs its plain version and vs the former kernel over whole
+    windows, bit for bit in every slot and the flag; on one shard the three
+    passes vs K4's rebin; then, on both clocks, the z pass alone and the
+    whole rebin (halo planes and three passes) beside the former ones
+    (`before_*`: the former kernel alone on pre-built windows, and the torch
+    park, stack and window copies with it), the plain version and the
+    bound."""
+    from emdee_tpu_torch import cell_dense_init, gather_dense_atoms
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid
+    from emdee_tpu_torch.distributed.mesh import LocalMesh
     from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
-    from emdee_tpu_torch.neighbors.cell_dense import _PASSES
-    from emdee_tpu_torch.neighbors.rebin_kernel import SENTINEL_BITS, rebin_routing
+    from emdee_tpu_torch.neighbors.rebin_kernel import rebin_routing
 
-    st, config, _, _, _, n = melt(device)
-    st = drifted(st, SKIN)
-    m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
+    st, config, _, params, _, n = melt(device)
     box = torch.full((), config.box, dtype=torch.float32, device=device)
-    sent = torch.full((), SENTINEL_BITS, dtype=torch.int32, device=device).view(torch.float32)
-    pos = st.positions - torch.floor(st.positions / box) * box
-    # The grid engine's routed fields: positions, velocities, 1/m, σ/2, 2√ε, atom id.
-    fields = [torch.where(st.valid, pos[..., i], sent) for i in range(3)]
-    fields += [st.velocities[..., i].contiguous() for i in range(3)]
-    fields += [st.inv_masses, st.half_sigma, st.twice_sqrt_eps, st.atom_id]
-    x = torch.stack([f.view(torch.int32) for f in fields[:-1]] + [st.atom_id])
-    z_pass = None
-    for axis, _, cf in _PASSES:
-        args = k6.periodic_windows(x, m, axis) + (box, cf, m, c, ns)
-        out_k, ovf_k = k6.rebin_window_pass(*args, backend="cuda")
-        out_p, ovf_p = k6.rebin_window_pass(*args, backend="torch")
+
+    def grid_fields(sh, ns):
+        pos3, vel3 = sh.positions.movedim(-1, 0), sh.velocities.movedim(-1, 0)
+        return ([pos3[i] for i in range(3)] + [vel3[i] for i in range(3)]
+                + [sh.inv_masses, sh.half_sigma, sh.twice_sqrt_eps, torch.where(sh.valid, sh.atom_id, ns)])
+
+    def new_rebin(x, mesh, local, m, c, ns):
+        flag = None
+        for axis in range(3):
+            lo, hi = k6.halo_planes(x, mesh, axis)
+            x, flag = k6.rebin_halo_pass(x, lo, hi, k6.global_coords(mesh, local, axis), box, axis, m, c, ns,
+                                         raw=axis == 0, flag=flag, backend="cuda")
+        return x, flag
+
+    out = {}
+    for shape in ((1, 1, 1), (2, 2, 2)):
+        if shape == (1, 1, 1):
+            cfg, s = config, drifted(st, SKIN)
+        else:  # M = 16, C = 40
+            cfg = even_config(st, config)
+            pos, vel = gather_dense_atoms(st, n)
+            s = drifted(cell_dense_init(pos, vel, np.ones(n), params, cfg, device=device), SKIN)
+        m, c, ns = cfg.cells_per_dim, cfg.capacity, cfg.num_slots
+        mesh = LocalMesh(shape, device)
+        local = tuple(m // d for d in shape)
+        sh = distribute_grid(s, cfg, mesh)
+        fields = grid_fields(sh, ns)
+        x = fields
+        z_pass = None
+        for axis in range(3):
+            lo, hi = k6.halo_planes(x, mesh, axis)
+            args = (x, lo, hi, k6.global_coords(mesh, local, axis), box, axis, m, c, ns, axis == 0)
+            got, flag = k6.rebin_halo_pass(*args, backend="cuda")
+            plain, ovf_p = k6.rebin_halo_plain(*args)
+            witness, ovf_w = k6.rebin_halo_plain(*args, windows="cuda")
+            torch.cuda.synchronize()
+            if not (torch.equal(got, plain) and torch.equal(got, witness)) or not int(flag) == int(ovf_p) == \
+                    int(ovf_w) == 0:
+                raise AssertionError(f"K6 {shape}: the {'zyx'[axis]} pass differs from its plain version or the "
+                                     "former kernel")
+            z_pass = z_pass or args
+            x = got
+        moved = int(((x[-1] != fields[-1]) & (x[-1] < ns)).sum())
+        if moved < 1000:
+            raise AssertionError(f"K6 {shape} fixture: {moved} slots moved")
+        if shape == (1, 1, 1):
+            flds = [s.positions[..., i] for i in range(3)] + [s.velocities[..., i] for i in range(3)]
+            flds += [s.inv_masses, s.half_sigma, s.twice_sqrt_eps, s.atom_id]
+            ref, ovf = rebin_routing(tuple(flds), box, m, c, ns, backend="cuda", valid=s.valid, wrap=True)
+            torch.cuda.synchronize()
+            for i, r in enumerate(ref):
+                if not torch.equal(x[i].reshape(m**3, c), r.view(torch.int32)):
+                    raise AssertionError(f"K6 (one shard) vs K4: field {i} differs")
+        former, fflag = k6.grid_rebin_witness(fields, mesh, local, box, m, c, ns)
         torch.cuda.synchronize()
-        if not torch.equal(out_k, out_p) or bool(ovf_k) != bool(ovf_p):
-            raise AssertionError(f"K6 vs plain: the {'zyx'[axis]} pass differs")
-        z_pass = z_pass or args
-        x = out_k.reshape(x.shape)
-    ref, ovf = rebin_routing(tuple(fields), box, m, c, ns, backend="cuda")
-    torch.cuda.synchronize()
-    for i, r in enumerate(ref):
-        if not torch.equal(x[i], r.view(torch.int32)):
-            raise AssertionError(f"K6 (one shard) vs K4: field {i} differs")
-    moved = int(((x[-1] != st.atom_id) & (x[-1] < ns)).sum())
-    if bool(ovf) or moved < 1000:
-        raise AssertionError(f"K6 fixture: overflow {bool(ovf)}, {moved} slots moved")
-    ms = device_ms(lambda: k6.rebin_window_pass(*z_pass, backend="cuda"), 200)
-    host_ms = cuda_ms(lambda: k6.rebin_window_pass(*z_pass, backend="cuda"), 200)
-    plain_ms = cuda_ms(lambda: k6.rebin_window_pass(*z_pass, backend="torch"), 10)
-    # This run's data: the coordinate word of every candidate lane and each
-    # row's coordinate, the nf words of each atom (every atom is kept once),
-    # and nf output words per slot.
-    nf, rows = x.shape[0], config.num_cells
-    bound_ms, bound_by = bound(4 * rows * 3 * c + 4 * rows + 4 * nf * n + 4 * nf * rows * c, 0)
-    log(f"{tag} K6 at {n} atoms drifted, M={m} C={c}, nf={nf}: each pass vs plain bit-exact in every slot and "
-        f"the flag; three one-shard passes vs K4 bit-exact in every field ({moved} slots moved); z pass "
-        f"{ms:.5f} ms on the device ({host_ms:.5f} ms a call with the host's launch cost), plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by}, {ms and bound_ms / ms:.1%} of it reached)")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "host_bound_ms": host_ms}
+        if not torch.equal(former, x) or bool(fflag):
+            raise AssertionError(f"K6 {shape}: the rebin differs from the former grid rebin")
+        # The former kernel alone on the z pass's pre-built windows.
+        xs = torch.stack(k6._parked(fields, box, ns))
+        win_args = k6.whole_windows(xs, *k6.halo_planes(xs, mesh, 0), 0) + (k6.global_coords(mesh, local, 0), box, 2,
+                                                                             m, c, ns)
+        z = lambda: k6.rebin_halo_pass(*z_pass, backend="cuda")  # noqa: E731
+        z_former = lambda: k6.rebin_halo_plain(*z_pass, windows="cuda")  # noqa: E731
+        z_kernel = lambda: k6.rebin_window_pass(*win_args, backend="cuda")  # noqa: E731
+        whole = lambda: new_rebin(fields, mesh, local, m, c, ns)  # noqa: E731
+        whole_former = lambda: k6.grid_rebin_witness(fields, mesh, local, box, m, c, ns)  # noqa: E731
+        reps = 50
+        t = dict(device_ms=device_ms(z, reps), before_kernel_device_ms=device_ms(z_kernel, reps),
+                 before_device_ms=device_ms(z_former, reps), ms=cuda_ms(z, reps),
+                 before_kernel_ms=cuda_ms(z_kernel, reps), before_ms=cuda_ms(z_former, reps),
+                 rebin_device_ms=device_ms(whole, 20), before_rebin_device_ms=device_ms(whole_former, 20),
+                 rebin_ms=cuda_ms(whole, 20), before_rebin_ms=cuda_ms(whole_former, 20))
+        plain_ms = cuda_ms(lambda: k6.rebin_halo_plain(*z_pass), 10)
+        # Each field read once and written once, the halo planes read once
+        # (none on an axis of one shard), and each row's coordinate.
+        nf, rows = len(fields), m**3
+        halo_slots = 0 if shape[0] == 1 else 2 * rows // local[0] * c
+        bound_ms, bound_by = bound(4 * nf * (2 * rows * c + halo_slots) + 4 * rows, 0)
+        log(f"{tag} K6 {shape} at {n} atoms drifted, M={m} C={c}, nf={nf} (strided positions and velocities, "
+            f"parked and wrapped in the first pass): each pass vs plain and vs the former kernel over whole windows "
+            f"bit-exact in every slot and the flag" + (", the three vs K4 bit-exact" if shape == (1, 1, 1) else "")
+            + f" ({moved} slots moved); z pass {t['device_ms']:.5f} ms on the device ({t['ms']:.5f} with the host's "
+            f"launch cost), the former kernel on pre-built windows {t['before_kernel_device_ms']:.5f} "
+            f"({t['before_kernel_ms']:.5f}), with the torch park, stack and windows {t['before_device_ms']:.5f} "
+            f"({t['before_ms']:.5f}); the whole rebin {t['rebin_device_ms']:.5f} ({t['rebin_ms']:.5f}), the former "
+            f"{t['before_rebin_device_ms']:.5f} ({t['before_rebin_ms']:.5f}); plain z pass {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.5f} ms ({bound_by}, {bound_ms / t['device_ms']:.1%} of it reached)")
+        out[shape] = {**t, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "m": m, "c": c}
+    one = out[(1, 1, 1)]
+    return {"max_abs_err": 0.0, **{key: value for key, value in one.items() if key not in ("m", "c")},
+            "library_ms": None, "grid_222_m16": out[(2, 2, 2)]}
 
 
 def grid_forces_check(tag, label, cfg, model, uni, mesh, st):
@@ -1749,7 +1842,7 @@ def phase_water(device, tag):
     log(f"{tag} water spill config (M={spill_cfg.cells_per_dim} C={spill_cfg.capacity}): {cause}")
     if facts["spill_holds"]:
         cfg, roll, energy, st0, backend = spill_cfg, roll_s, energy_s, st_s, "auto"
-        kernel_counts = {"compact_window": 3 * -(-WATER_STEPS // WATER_REBIN)}
+        kernel_counts = {"compact_window": -(-WATER_STEPS // WATER_REBIN)}
     else:
         cfg, roll, energy, backend = plain_cfg, roll_eq, energy_eq, "cuda"
         st0 = init(pos_eq, vel_eq, plain_cfg)
@@ -3243,12 +3336,13 @@ def main() -> None:
         dict(name="straggler_aux", route="cuda", source="emdee_tpu_torch/csrc/straggler_forces.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:807",
              launches=s_counts["straggler_aux"], launches_by_path=by_path("straggler_aux"), **k3["aux"]),
-        dict(name="compact_window", route="cuda", source="emdee_tpu_torch/csrc/compact_window.cu",
-             replaces="emdee_tpu/neighbors/pallas_compact.py:34",
+        dict(name="compact_window", route="cuda", source="emdee_tpu_torch/csrc/spill_routing.cu",
+             replaces="emdee_tpu/neighbors/pallas_compact.py:34", witness="emdee_tpu_torch/csrc/compact_window.cu",
              launches=sum(by_path("compact_window").values()),
              launches_by_path=by_path("compact_window"), **k7),
         dict(name="rebin_window", route="cuda", source="emdee_tpu_torch/csrc/rebin_window.cu",
-             replaces="emdee_tpu/neighbors/pallas_rebin.py:291",
+             replaces="emdee_tpu/neighbors/pallas_rebin.py:291", kernel="rebin_halo_kernel",
+             witness="rebin_window_kernel (the same source)",
              launches=sum(by_path("rebin_window").values()),
              launches_by_path=by_path("rebin_window"), **k6),
         dict(name="probe_fma", route="cuda", source="emdee_tpu_torch/csrc/probes.cu",

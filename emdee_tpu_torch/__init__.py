@@ -24,7 +24,7 @@ velocity-Verlet, CSVR, Langevin, Berendsen NPT and FIRE rollouts of
 `dynamics/`.  Its kernels are
 hand-written CUDA for `sm_90a` (`csrc/cell_forces.cu`,
 `csrc/cell_forces_streaming.cu`, `csrc/rebin_routing.cu`,
-`csrc/rebin_window.cu`, `csrc/compact_window.cu`,
+`csrc/rebin_window.cu`, `csrc/spill_routing.cu`,
 `csrc/straggler_forces.cu`, and the TPU probes' `csrc/probes.cu`), each
 with a plain PyTorch version beside it (`neighbors/cell_kernel.py`,
 `neighbors/streaming_kernel.py`, `neighbors/rebin_kernel.py`,

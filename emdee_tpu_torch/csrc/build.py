@@ -113,8 +113,14 @@ _SIGNATURES = {
     # pass of the former three-launch design, kept as a witness
     "emdee_rebin_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # s, keep, win, out, rows, nf, c, win_f, win_r, out_f, out_r, last_fill,
-    # stream
+    # stream: the former K7, kept as a witness
     "emdee_compact_window": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _P],
+    # ptrs (host void*[nf]), strides (host long[nf]), nf, valid, wrap, out,
+    # mid, counts, scratch, flag, m, c, num_slots, target, threshold, box
+    # (device), stream
+    "emdee_spill_routing": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+    # out (int[4])
+    "emdee_spill_routing_attrs": [_P],
     # px, py, pz, hs, tse, fx, fy, fz, e, w, mz, my, mx, shards, sy_n, sx_n,
     # bz, by, bx, m, c, box (device), rc2, rs2, invd2, a_m, pa1, pa2, pb1,
     # pb2, sig2_u, eps4_u, uniform, energy, stream
@@ -129,8 +135,12 @@ _SIGNATURES = {
                                    + [_I, _I, _I, _P],
     # c, ne, coulomb, excl, energy, out (int[4])
     "emdee_cell_forces_ghost_mol_attrs": [_I] * 5 + [_P],
+    # ptrs (host void*[nf]), strides (host long[nf]), nf, lo, lo strides
+    # (host long[8]), hi, hi strides, b, out, flag, shape (host int[6]), c,
+    # axis, cf, m, num_slots, raw, box (device), stream
+    "emdee_rebin_halo": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # x, wl, wr, b, out, flag, nf, rows, c, cf, m, num_slots, box (device),
-    # stream
+    # stream: the former K6 over whole windows, kept as a witness
     "emdee_rebin_window": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P],
     # ghost, centers, out, m, c, tiles, k_ops, a, b, stream
     "emdee_probe_fma": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],

@@ -28,10 +28,10 @@
 // cell (seg 1, kept if it stays) or of cell b+1 (seg 2, kept if it moves
 // −1) along the pass axis, periodically — the candidate order of the
 // reference.  The warp takes them in that order in chunks of 32 j of one
-// segment, so no lane divides by C; it loads three chunks' coordinates at
-// once, decides each candidate (`rebin_row.cuh` `route_lane`, shared with
-// K6), and a ballot a chunk gives each kept candidate its exclusive rank in
-// candidate order, so a row needs no barrier.  A kept candidate of rank
+// segment, so no lane divides by C (`rebin_row.cuh` `route_row`, shared
+// with K6); it loads three chunks' coordinates at once, decides each
+// candidate (`route_lane`), and a ballot a chunk gives each kept candidate
+// its exclusive rank in candidate order, so a row needs no barrier.  A kept candidate of rank
 // r < C moves its nf fields to slot r; slots at or beyond the count take
 // the fill.  A grid-wide barrier separates the z pass (caller's fields →
 // out), the y pass (out → mid) and the x pass (mid → out): each pass routes
@@ -65,21 +65,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxFields = 16;
-
-// The caller's fields: a pointer and an element stride between slots each.
-struct Fields {
-  const int* ptr[kMaxFields];
-  long stride[kMaxFields];
-};
-
-// This cell's coordinate and index stride along the pass axis
-// (axis 0 = z, 1 = y, 2 = x; cell id = x + M·(y + M·z)).
-__device__ __forceinline__ void axis_of(int cell, int m, int axis, int& b, int& stride) {
-  if (axis == 0) { b = cell / (m * m); stride = m * m; }
-  else if (axis == 1) { b = (cell / m) % m; stride = m; }
-  else { b = cell % m; stride = 1; }
-}
+using emdee::axis_of;
+using emdee::Fields;
+using emdee::kMaxFields;
+using emdee::wrapped;
 
 // Lane k's candidate slot (flat index) for destination `cell`, and the
 // coordinate bs of the cell it sits in.
@@ -89,88 +78,7 @@ __device__ __forceinline__ long candidate(int cell, int m, int c, int axis, int 
   axis_of(cell, m, axis, b, stride);
   seg = k / c;
   const int j = k - seg * c;
-  bs = b + seg - 1;
-  int src_cell = cell + (seg - 1) * stride;
-  if (bs < 0) { bs += m; src_cell += m * stride; }
-  else if (bs >= m) { bs -= m; src_cell -= m * stride; }
-  return static_cast<long>(src_cell) * c + j;
-}
-
-// x − floor(x/L)·L, each operation rounded on its own, as the torch ops.
-__device__ __forceinline__ int wrapped(int bits, float box) {
-  const float x = __int_as_float(bits);
-  return __float_as_int(__fsub_rn(x, __fmul_rn(floorf(__fdiv_rn(x, box)), box)));
-}
-
-// A kept lane's nf fields to its slot.  `dst` is restrict: no load of a
-// field waits on the store of the one before.
-template <class Field>
-__device__ __forceinline__ void copy_fields(Field field, long src, int* __restrict__ dst, long slots,
-                                            int nf) {
-  for (int f = 0; f < nf; ++f) dst[f * slots] = field(f, src);
-}
-
-// Candidate chunks a warp looks at before it ranks them: their coordinate
-// loads are issued together.  Three cover the three segments of C ≤ 32.
-constexpr int kAhead = 3;
-
-// Route destination row `cell` with one warp into `row` (field f at
-// row[f·slots + slot]).  The candidates, k = seg·C + j, are taken in the
-// reference's order as chunks of 32 consecutive j of one segment, lane l
-// taking j = j0 + l; a kept candidate's exclusive rank is the count of
-// kept candidates before it, from one ballot a chunk.  `coord(src)` is a
-// candidate slot's coordinate bits along the pass axis (the sentinel in an
-// empty slot), `field(f, src)` its bits in field f.  Returns, uniformly
-// over the warp, whether the row raises the flag.
-template <class Coord, class Field>
-__device__ __forceinline__ bool route_row(Coord coord, Field field, int* row, long slots, int nf, int m,
-                                          int c, int axis, int cell, int num_slots, float box) {
-  const int lane = threadIdx.x & 31;
-  const unsigned before = (1u << lane) - 1u;
-  int b, stride;
-  axis_of(cell, m, axis, b, stride);
-  // Segment seg's source cell and its coordinate along the axis.
-  const auto source = [&](int seg, int& bs) {
-    bs = b + seg - 1;
-    int src_cell = cell + (seg - 1) * stride;
-    if (bs < 0) { bs += m; src_cell += m * stride; }
-    else if (bs >= m) { bs -= m; src_cell -= m * stride; }
-    return static_cast<long>(src_cell) * c;
-  };
-  int count = 0;
-  bool bad_any = false;
-  int seg = 0, j0 = 0;  // the next chunk
-  while (seg < 3) {
-    int bits[kAhead];
-    int s = seg, jj = j0;
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      int bs;
-      const int j = jj + lane;
-      bits[u] = s < 3 && j < c ? coord(source(s, bs) + j) : emdee::kSentinel;
-      jj += 32;
-      if (jj >= c) { jj = 0; ++s; }
-    }
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      if (seg < 3) {  // uniform over the warp
-        int bs;
-        const long src = source(seg, bs) + j0 + lane;
-        bool keep = false, bad = false;
-        if (j0 + lane < c) emdee::route_lane(bits[u], box, m, bs, seg, keep, bad);
-        const unsigned kept = __ballot_sync(0xffffffffu, keep);
-        bad_any |= __any_sync(0xffffffffu, bad);
-        const int rank = count + __popc(kept & before);
-        if (keep && rank < c) copy_fields(field, src, row + rank, slots, nf);
-        count += __popc(kept);
-        j0 += 32;
-        if (j0 >= c) { j0 = 0; ++seg; }
-      }
-    }
-  }
-  for (int j = count + lane; j < c; j += 32)
-    for (int f = 0; f < nf; ++f) row[f * slots + j] = emdee::fill_value(f, nf, num_slots);
-  return bad_any || count > c;
+  return static_cast<long>(emdee::cell_at(cell, b, stride, m, seg - 1, bs)) * c + j;
 }
 
 // Threads a block (8 rows at a time), and the blocks an SM that the
@@ -192,31 +100,39 @@ rebin_routing_kernel(Fields in, const uint8_t* __restrict__ valid, int wrap, int
 
   // z pass: the caller's fields → out, parked and wrapped on the way (a
   // kept lane is a live atom, which the park leaves as it is).
-  const auto caller = [&](int f, long src) {
-    const int bits = in.ptr[f][src * in.stride[f]];
+  const auto caller = [&](int f, long base, int j) {
+    const int bits = in.ptr[f][(base + j) * in.stride[f]];
     return f < 3 && wrap ? wrapped(bits, box) : bits;
   };
-  const auto parked = [&](long src) {
+  const auto parked = [&](long base, int j) {
+    const long src = base + j;
     const int bits = in.ptr[2][src * in.stride[2]];
     if (valid != nullptr && !valid[src]) return emdee::kSentinel;
     return wrap ? wrapped(bits, box) : bits;
   };
   bool raised = false;
-  for (int cell = first; cell < rows; cell += warps)
-    raised |= route_row(parked, caller, out + static_cast<long>(cell) * c, slots, nf, m, c, 0, cell,
-                        num_slots, box);
+  // Route every row of this warp's share along `axis` from `coord` and
+  // `field` into `to`.
+  const auto pass = [&](int axis, int* to, auto coord, auto field) {
+    for (int cell = first; cell < rows; cell += warps) {
+      int b, stride;
+      axis_of(cell, m, axis, b, stride);
+      const auto source = [&](int seg, int& bs) {
+        return static_cast<long>(emdee::cell_at(cell, b, stride, m, seg - 1, bs)) * c;
+      };
+      raised |= emdee::route_row(source, coord, field, to + static_cast<long>(cell) * c, slots, nf, m, c,
+                                 num_slots, box);
+    }
+  };
+  pass(0, out, parked, caller);
   cg::this_grid().sync();
   // y pass: out → mid.
-  const auto from_out = [&](int f, long src) { return out[f * slots + src]; };
-  for (int cell = first; cell < rows; cell += warps)
-    raised |= route_row([&](long src) { return from_out(1, src); }, from_out,
-                        mid + static_cast<long>(cell) * c, slots, nf, m, c, 1, cell, num_slots, box);
+  const auto from_out = [&](int f, long base, int j) { return out[f * slots + base + j]; };
+  pass(1, mid, [&](long base, int j) { return from_out(1, base, j); }, from_out);
   cg::this_grid().sync();
   // x pass: mid → out.
-  const auto from_mid = [&](int f, long src) { return mid[f * slots + src]; };
-  for (int cell = first; cell < rows; cell += warps)
-    raised |= route_row([&](long src) { return from_mid(0, src); }, from_mid,
-                        out + static_cast<long>(cell) * c, slots, nf, m, c, 2, cell, num_slots, box);
+  const auto from_mid = [&](int f, long base, int j) { return mid[f * slots + base + j]; };
+  pass(2, out, [&](long base, int j) { return from_mid(0, base, j); }, from_mid);
   if (__syncthreads_or(raised) && threadIdx.x == 0) atomicOr(flag, 1);
 }
 

@@ -32,10 +32,11 @@ goes through the mesh's `shift` (the reference's `ppermute`):
   slot's tags; bonded terms and leftover pairs are rows that each shard
   evaluates for its own atoms (`_grid_terms`), so they need no reverse
   exchange either.
-- **Rebin**: the shift rebin's three passes (z, y, x), each over own, left
-  and right windows built by one exchange along the pass axis, with each
-  row's global coordinate (`rebin_window_kernel.rebin_window_pass`, K6).
-  Atom migration between shards is that exchange; charges ride it.
+- **Rebin**: the shift rebin's three passes (z, y, x), each over the
+  shards' own rows and the two halo planes that one exchange along the pass
+  axis brings, with each row's global coordinate
+  (`rebin_window_kernel.rebin_halo_pass`, K6).  Atom migration between
+  shards is that exchange; charges ride it.
 - **Reductions**: energies, the kinetic energy of CSVR, the pressure of
   the barostat and the sticky flag are reduced over the shards (`psum`,
   `pmax`), and, with term rows, the atom → global slot map once a rebin
@@ -71,10 +72,6 @@ from emdee_tpu_torch.neighbors.cell_dense import (
     gather_dense_atoms,
 )
 from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel
-
-# Grid axis k (0 = z, 1 = y, 2 = x) ↔ position component (x = 0, y = 1, z = 2).
-_COORD_OF_AXIS = (2, 1, 0)
-
 
 def _grid_leaves(state: CellDenseState, config: CellDenseConfig) -> CellDenseState:
     """(M³, C, …) leaves → (M, M, M, C, …) grid layout (axes z, y, x)."""
@@ -202,16 +199,6 @@ def _fold3(r: torch.Tensor, mesh: GridMesh) -> torch.Tensor:
         r.narrow(dim, 0, 1).add_(hi)
         r.narrow(dim, n - 3, 1).add_(lo)
     return r
-
-
-def _window(x: torch.Tensor, mesh: GridMesh, axis: int, d: int) -> torch.Tensor:
-    """Each cell's d = ±1 neighbour along grid axis `axis` for (F, sz, sy,
-    sx, mz, my, mx, C) x: the local layers shifted by one, the missing layer
-    from the neighbour shard."""
-    dim, n = 4 + axis, x.shape[4 + axis]
-    if d > 0:
-        return torch.cat([x.narrow(dim, 1, n - 1), mesh.shift(x.narrow(dim, 0, 1), axis, +1)], dim=dim)
-    return torch.cat([mesh.shift(x.narrow(dim, n - 1, 1), axis, -1), x.narrow(dim, 0, n - 1)], dim=dim)
 
 
 def _grid_terms(config: CellDenseConfig, mesh: GridMesh, model: LennardJonesModel, coulomb, bonded,
@@ -479,8 +466,7 @@ def make_grid_sharded_sim(
     from emdee_tpu_torch.dynamics.bussi import _csvr_alpha2, csvr_draws
     from emdee_tpu_torch.neighbors import cell_kernel
     from emdee_tpu_torch.neighbors.cell_dense import _numpy
-    from emdee_tpu_torch.neighbors.rebin_kernel import SENTINEL_BITS
-    from emdee_tpu_torch.neighbors.rebin_window_kernel import rebin_window_pass
+    from emdee_tpu_torch.neighbors.rebin_window_kernel import global_coords, halo_planes, rebin_halo_pass
     from emdee_tpu_torch.neighbors.streaming_kernel import streaming_ghost_forces
 
     if thermostat is not None and not isinstance(thermostat, (CSVRConfig, LangevinConfig)):
@@ -493,7 +479,6 @@ def make_grid_sharded_sim(
     mz, my, mx = validate_grid_config(config, mesh)
     m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
     lead = mesh.local_shape
-    shards = math.prod(lead)
     dev = mesh.device
     dt_f = _f32(dt)
     half_dt = _f32(np.float32(0.5) * np.float32(dt))
@@ -514,19 +499,8 @@ def make_grid_sharded_sim(
         packed = torch.from_numpy(np.concatenate([np.asarray(_numpy(t), np.float32) for t in cols], -1)).to(dev)
         n_tab, e_n = packed.shape[0] - 1, int(_numpy(ids_t).shape[-1])
 
-    def b_global(axis: int) -> torch.Tensor:
-        """(shards·mz, my·mx, 1) int32: each cell's global coordinate along
-        grid axis `axis`, as K6 reads it (planes = the shards' z layers)."""
-        loc = (mz, my, mx)[axis]
-        idx = mesh.axis_index(axis)[:, None] * loc + torch.arange(loc, device=dev)
-        shape = [1] * 6
-        shape[axis], shape[3 + axis] = lead[axis], loc
-        full = idx.reshape(shape).expand(tuple(lead) + (mz, my, mx))
-        return full.reshape(shards * mz, my * mx, 1).to(torch.int32).contiguous()
-
-    b_axes = [b_global(axis) for axis in range(3)]
-    # The routing fill of empty position slots, and the ghost grids' mark of them.
-    sentinel = torch.full((), SENTINEL_BITS, dtype=torch.int32, device=dev).view(torch.float32)
+    b_axes = [global_coords(mesh, (mz, my, mx), axis) for axis in range(3)]
+    # The ghost grids' mark of empty position slots.
     nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
 
     def bindings(aid, valid):
@@ -577,21 +551,19 @@ def make_grid_sharded_sim(
 
     def rebin(pos3, vel3, inv_m, hs, tse, aid, valid, q, overflow, box_t, f3=None):
         """The per-shard shift rebin: three K6 passes (z, y, x) over the
-        transported fields stacked as int32.  Returns the routed (pos3, vel3,
+        shards' own rows, each with the two halo planes that `mesh.shift`
+        brings; the first reads the transported fields where they lie and
+        parks (by atom id) and wraps them.  Returns the routed (pos3, vel3,
         inv_m, hs, tse, aid, valid, q, overflow, f3)."""
-        posw = torch.where(valid, pos3 - torch.floor(pos3 / box_t) * box_t, sentinel)
-        parts = ([posw, vel3, inv_m[None], hs[None], tse[None]] + ([] if q is None else [q[None]])
+        parts = ([pos3, vel3, inv_m[None], hs[None], tse[None]] + ([] if q is None else [q[None]])
                  + ([] if f3 is None else [f3]))
-        x = torch.cat([p.view(torch.int32) for p in parts] + [aid[None]])
-        nf, shape = x.shape[0], x.shape
-        flat = (nf, shards * mz, my * mx, c)
+        x = [p[i] for p in parts for i in range(p.shape[0])] + [torch.where(valid, aid, ns)]
+        flag = None
         for axis in range(3):
-            out, ovf = rebin_window_pass(
-                x.reshape(flat), _window(x, mesh, axis, -1).reshape(flat), _window(x, mesh, axis, +1).reshape(flat),
-                b_axes[axis], box_t, _COORD_OF_AXIS[axis], m, c, ns, backend=kernels,
-            )
-            x = out.reshape(shape)
-            overflow = overflow | ovf
+            lo, hi = halo_planes(x, mesh, axis)
+            x, flag = rebin_halo_pass(x, lo, hi, b_axes[axis], box_t, axis, m, c, ns, raw=axis == 0, flag=flag,
+                                      backend=kernels)
+        overflow = overflow | (flag != 0)
         aid = x[-1]
         valid = aid < ns
         xf = x[:-1].view(torch.float32)  # empty slots: the fill, 0 beyond the positions

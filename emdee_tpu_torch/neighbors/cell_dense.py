@@ -14,9 +14,9 @@ rebins they may overhang the box by skin/2.
 Spill configs (`suggest_cell_dense_config(spill=True)`) set capacity near
 the mean occupancy and shed each over-full cell's near-face atoms into its
 +axis neighbour: the stored cell is the true cell or the next one along
-each axis, never further (`_route_axis_pass`).  Their rebin runs the torch
-routing passes with the window-compaction kernel (`compact_kernel.py`);
-the whole-pass rebin kernel (`rebin_kernel.py`) serves every other config.
+each axis, never further (`_route_axis_pass`).  Their rebin runs the spill
+routing kernel (`compact_kernel.py`), one launch for its three passes; the
+whole-pass rebin kernel (`rebin_kernel.py`) serves every other config.
 
 Backends of the engine (`resolve_dense_backend`): "auto" picks, for CUDA
 tensors, the kernel family that the TPU engine picks for the same config —
@@ -823,12 +823,13 @@ def _route_windows(fields, valid, overflow, cf, b, m, c, nbr, box, spill=None):
 def _route_axis_pass(fields, valid, overflow, cf, b, m, c, nbr, box, spill=None,
                      last_fill=0, backend="torch"):
     """One ±1-cell routing pass along one grid axis — the plain version of
-    one of the three passes of csrc/rebin_routing.cu, and with `spill` the
-    pass of the spill route (arguments as `_route_windows`).  A kept candidate of
-    exclusive rank r < C lands in slot r, through
-    `compact_kernel.compact_stacked` (`backend`: the window-compaction
-    kernel on the card, its plain version otherwise); slots ≥ count hold 0,
-    in the last field `last_fill`.  Returns (fields, valid, overflow)."""
+    one of the three passes of csrc/rebin_routing.cu, and with `spill` of
+    csrc/spill_routing.cu (arguments as `_route_windows`).  A kept candidate
+    of exclusive rank r < C lands in slot r, through
+    `compact_kernel.compact_stacked` (`backend`: 'cuda' the former
+    compaction kernel, the spill route's witness on the card; 'torch' its
+    plain version); slots ≥ count hold 0, in the last field `last_fill`.
+    Returns (fields, valid, overflow)."""
     from emdee_tpu_torch.neighbors.compact_kernel import compact_stacked
 
     s, keep, win, counts, overflow = _route_windows(fields, valid, overflow, cf, b, m, c, nbr, box, spill)
@@ -846,55 +847,32 @@ def _spill_params(config: CellDenseConfig):
     return config.spill_target or config.capacity, _f32(1.0 - eps / h)
 
 
-def _spill_route(fields, valid, overflow, config: CellDenseConfig, box, backend: str):
-    """The spill configs' rebin: three `_route_axis_pass`es with boundary
-    spill, each compacting its windows through the window-compaction kernel
-    (K7) on the card.  Empty output slots hold 0, atom_id num_slots."""
-    m = config.cells_per_dim
-    spill = _spill_params(config)
-    coords = _axis_coords(m, box.device)
-    for axis, off, cf in _PASSES:
-        nbr = lambda x, d, off=off: _roll_cells(x, tuple(d * o for o in off), m)  # noqa: E731
-        fields, valid, overflow = _route_axis_pass(
-            fields, valid, overflow, cf, coords[axis], m, config.capacity, nbr, box,
-            spill=spill, last_fill=config.num_slots, backend=backend,
-        )
-    return fields, valid, overflow
-
-
 def _rebin_shift_core(fields, valid, overflow, config: CellDenseConfig, backend: str,
                       wrap: bool = True, box=None):
     """Field-list heart of the shift rebin: wrap positions into [0, L) (unless
     the caller did), then the three routing passes — the whole-pass rebin
     kernel (`rebin_kernel.rebin_routing`, which parks empty slots'
     positions at the NaN-pattern sentinel and wraps on its own) without
-    spill, the spill route (`_spill_route`, with the window-compaction
-    kernel) with spill.
+    spill, the spill routing kernel (`compact_kernel.spill_routing`, which
+    parks and wraps on its own too) with spill.
 
     fields: list of (M³, C) tensors — positions x, y, z first, int32 atom_id
     last; box: the state's box (default config.box).  Returns (fields,
     valid, overflow); empty slots hold the routing fill (atom_id =
     num_slots) that callers mask."""
+    from emdee_tpu_torch.neighbors.compact_kernel import spill_routing
     from emdee_tpu_torch.neighbors.rebin_kernel import rebin_routing
 
     box_t = _box(config.box if box is None else box, fields[0])
+    m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
     # The reference's condition: spill mode with a positive margin ε = h − rc − skin.
-    spills = config.spill and float(config.cell_side) - float(config.cutoff) - float(config.skin) > 0.0
-    if not spills:
-        out, ovf = rebin_routing(
-            tuple(fields), box_t, config.cells_per_dim, config.capacity, config.num_slots,
-            backend=backend, valid=valid, wrap=wrap,
-        )
-        fields = list(out)
-        return fields, fields[-1] < config.num_slots, overflow | ovf
-    fields = list(fields)
-    park = torch.zeros((), dtype=torch.float32, device=box_t.device)
-    for i in range(3):
-        f = fields[i]
-        if wrap:
-            f = f - torch.floor(f / box_t) * box_t
-        fields[i] = torch.where(valid, f, park)
-    return _spill_route(fields, valid, overflow, config, box_t, backend)
+    if config.spill and float(config.cell_side) - float(config.cutoff) - float(config.skin) > 0.0:
+        fields, valid, ovf = spill_routing(tuple(fields), box_t, m, c, ns, _spill_params(config), valid, wrap,
+                                           backend=backend)
+        return list(fields), valid, overflow | ovf
+    out, ovf = rebin_routing(tuple(fields), box_t, m, c, ns, backend=backend, valid=valid, wrap=wrap)
+    fields = list(out)
+    return fields, fields[-1] < ns, overflow | ovf
 
 
 def _rebin_shift(

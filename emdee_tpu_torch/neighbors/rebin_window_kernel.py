@@ -1,29 +1,44 @@
-"""One ±1-cell routing pass over pre-built candidate windows: the CUDA
+"""One ±1-cell routing pass of the grid-sharded engine's rebin: the CUDA
 kernel (K6) and its plain version — counterpart of
-emdee_tpu/neighbors/pallas_rebin.py `rebin_window_pass_pallas`, the
-grid-sharded engine's rebin pass (`distributed/grid_sharded.py`).
+emdee_tpu/neighbors/pallas_rebin.py `rebin_window_pass_pallas`
+(`distributed/grid_sharded.py` calls it three times a rebin).
 
-`rebin_window_pass` takes the own cells' fields and their neighbours' one
-cell down and up the pass axis, as the caller exchanged them across shard
-boundaries, and each row's global cell coordinate along that axis.  For
-CUDA tensors, with backend 'auto' or 'cuda', it launches
-`csrc/rebin_window.cu` once; for CPU tensors, or backend 'torch', it runs
-`rebin_window_plain`: `cell_dense._route_axis_pass` with a window-backed
-neighbour, then the kernel's fill.  Both give the same bits in every slot;
-on a one-shard grid whose windows are the periodic neighbours they equal
-one pass of `rebin_kernel.rebin_routing` (K4).
+`rebin_halo_pass` routes the local shards' own rows, with only the halo
+planes along the pass axis exchanged: the layer that `mesh.shift` brings
+from the shard below and the one from the shard above (`halo_planes`), and
+each row's global cell coordinate along that axis.  The first pass of a
+rebin (`raw`) reads the transported fields where they lie, parks empty
+slots (atom_id = num_slots) and wraps positions.  For CUDA tensors, with
+backend 'auto' or 'cuda', it launches `csrc/rebin_window.cu`'s halo kernel
+once; for CPU tensors, or backend 'torch', it runs `rebin_halo_plain`: the
+park with torch ops, the whole windows built from the halo planes, then
+`rebin_window_plain` — `cell_dense._route_axis_pass` with a window-backed
+neighbour and the kernel's fill.  Both give the same bits in every slot;
+on a one-shard grid they equal one pass of `rebin_kernel.rebin_routing`
+(K4).
+
+`rebin_window_pass` is the former K6 over three pre-built windows of the
+whole grid (own, one cell down, one cell up), kept as the in-tree witness
+of the halo kernel; no engine path calls it.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from emdee_tpu_torch.csrc import build
 from emdee_tpu_torch.neighbors.cell_dense import _box, _route_axis_pass, box_ptr, resolve_backend
-from emdee_tpu_torch.neighbors.rebin_kernel import SENTINEL_BITS
+from emdee_tpu_torch.neighbors.rebin_kernel import MAX_FIELDS, SENTINEL_BITS
 
-# Kernel launches (one per pass) since import (or a reset to 0).
+# Kernel launches (one per pass) since import (or a reset to 0): the halo
+# kernel's, and the witness's.
 LAUNCHES = 0
+WINDOW_LAUNCHES = 0
+
+# The coordinate field each grid axis bins on (z = 2, y = 1, x = 0).
+COORD_OF_AXIS = (2, 1, 0)
 
 
 def rebin_window_plain(x, wl, wr, b, box, cf: int, m_global: int, c: int, num_slots: int):
@@ -70,7 +85,7 @@ def rebin_window_pass(x, wl, wr, b, box, cf: int, m_global: int, c: int, num_slo
     num_slots, zeros)."""
     if resolve_backend(backend, x) == "torch":
         return rebin_window_plain(x, wl, wr, b, box, cf, m_global, c, num_slots)
-    global LAUNCHES
+    global WINDOW_LAUNCHES
     nf, planes, rows, _ = x.shape
     for name, t in (("x", x), ("wl", wl), ("wr", wr)):
         if t.dtype != torch.int32 or tuple(t.shape) != (nf, planes, rows, c) or t.device != x.device:
@@ -89,7 +104,7 @@ def rebin_window_pass(x, wl, wr, b, box, cf: int, m_global: int, c: int, num_slo
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "rebin_window kernel")
-    LAUNCHES += 1
+    WINDOW_LAUNCHES += 1
     return out, flag != 0
 
 
@@ -109,3 +124,184 @@ def periodic_windows(x, m: int, axis: int):
 
     b = _axis_coords(m, x.device)[axis].to(torch.int32).reshape(m, m * m, 1)
     return x.reshape(shape), nbr(-1), nbr(+1), b
+
+
+def halo_planes(x, mesh, axis: int):
+    """The halo planes of a pass along grid axis `axis` (0 = z, 1 = y,
+    2 = x): (lo, hi), each (nf, sz, sy, sx, hz, hy, hx, C) int32 with the
+    axis' extent 1 — the top layer of the shard below and the bottom layer
+    of the shard above, brought by `mesh.shift` — or (None, None) where the
+    axis holds one shard, whose own far layer is its neighbour (the grid is
+    periodic).  x: nf fields of (sz, sy, sx, mz, my, mx, C) slots, as a
+    sequence (their planes are stacked, float32 fields as their int32 bits)
+    or as one (nf, …) int32 tensor."""
+    if mesh.shape[axis] == 1:
+        return None, None
+    if isinstance(x, torch.Tensor):
+        dim, n = 4 + axis, x.shape[4 + axis]
+        lo, hi = x.narrow(dim, n - 1, 1), x.narrow(dim, 0, 1)
+    else:
+        dim, n = 3 + axis, x[0].shape[3 + axis]
+        lo = torch.stack([f.view(torch.int32).narrow(dim, n - 1, 1) for f in x])
+        hi = torch.stack([f.view(torch.int32).narrow(dim, 0, 1) for f in x])
+    return mesh.shift(lo, axis, -1), mesh.shift(hi, axis, +1)
+
+
+def global_coords(mesh, local, axis: int) -> torch.Tensor:
+    """(shards·mz, my·mx, 1) int32 on the mesh's device: each local row's
+    global cell coordinate along grid axis `axis`, rows in (sz, sy, sx, mz,
+    my, mx) order; local = (mz, my, mx), the cells of a shard."""
+    lead = mesh.local_shape
+    loc = local[axis]
+    idx = mesh.axis_index(axis)[:, None] * loc + torch.arange(loc, device=mesh.device)
+    shape = [1] * 6
+    shape[axis], shape[3 + axis] = lead[axis], loc
+    full = idx.reshape(shape).expand(tuple(lead) + tuple(local))
+    return full.reshape(-1, local[1] * local[2], 1).to(torch.int32).contiguous()
+
+
+def _parked(fields, box_t, num_slots: int):
+    """The first pass's park: positions (fields 0-2) wrapped into [0, L)
+    where atom_id (the last field) < num_slots, the sentinel elsewhere; all
+    as int32 bits."""
+    fields = [f.view(torch.int32) for f in fields]
+    valid = fields[-1] < num_slots
+    sent = torch.full((), SENTINEL_BITS, dtype=torch.int32, device=box_t.device).view(torch.float32)
+    for i in range(3):
+        f = fields[i].view(torch.float32)
+        fields[i] = torch.where(valid, f - torch.floor(f / box_t) * box_t, sent).view(torch.int32)
+    return fields
+
+
+def whole_windows(xs, lo, hi, axis: int):
+    """The former pass's inputs: the own rows of (nf, sz, sy, sx, mz, my,
+    mx, C) int32 xs and the whole windows one cell down and up grid axis
+    `axis`, built from xs and the halo planes (None: xs's own far layers),
+    each (nf, sz·sy·sx·mz, my·mx, C)."""
+    dim, n = 4 + axis, xs.shape[4 + axis]
+    if lo is None:
+        lo, hi = xs.narrow(dim, n - 1, 1), xs.narrow(dim, 0, 1)
+    wl = torch.cat([lo, xs.narrow(dim, 0, n - 1)], dim=dim)
+    wr = torch.cat([xs.narrow(dim, 1, n - 1), hi], dim=dim)
+    nf, sz, sy, sx, mz, my, mx, c = xs.shape
+    flat = (nf, sz * sy * sx * mz, my * mx, c)
+    return xs.reshape(flat), wl.reshape(flat), wr.reshape(flat)
+
+
+def rebin_halo_plain(x, lo, hi, b, box, axis: int, m_global: int, c: int, num_slots: int, raw: bool = False,
+                     windows: str = "torch"):
+    """The plain version of `rebin_halo_pass` (its arguments; without `raw`
+    x is the previous pass's (nf, …) output): the park (with `raw`), the
+    whole windows (`whole_windows`), then `rebin_window_pass` over them
+    (`windows`: 'torch' its plain version, 'cuda' the former kernel — the
+    witness on the card).  Returns (out, overflow as a 0-d bool)."""
+    box_t = _box(box, x[0])
+    xs = torch.stack(_parked(x, box_t, num_slots)) if raw else x
+    if raw and lo is not None:
+        lo, hi = torch.stack(_parked(lo, box_t, num_slots)), torch.stack(_parked(hi, box_t, num_slots))
+    out, ovf = rebin_window_pass(*whole_windows(xs, lo, hi, axis), b, box_t, COORD_OF_AXIS[axis], m_global, c,
+                                 num_slots, backend=windows)
+    return out.reshape(xs.shape), ovf
+
+
+def _slot_stride(t: torch.Tensor):
+    """The element stride between consecutive slots of `t` when its slots
+    lie evenly spaced in flat order, else None."""
+    step, size = t.stride(-1), 1
+    for dim in range(t.dim() - 1, -1, -1):
+        if t.shape[dim] != 1 and t.stride(dim) != step * size:
+            return None
+        size *= t.shape[dim]
+    return step
+
+
+def rebin_halo_pass(x, lo, hi, b, box, axis: int, m_global: int, c: int, num_slots: int, raw: bool = False,
+                    flag=None, backend: str = "auto"):
+    """One routing pass along grid axis `axis` (0 = z, 1 = y, 2 = x) of the
+    local shards' own rows.
+
+    x: the nf transported fields, each (sz, sy, sx, mz, my, mx, C) — a
+    sequence of tensors (with `raw`: float32 positions x, y, z first,
+    further float32 fields, the int32 atom_id last, read where they lie, the
+    slots of each evenly spaced; empty slots are those with atom_id ≥
+    num_slots, and positions are wrapped into [0, L)), or the previous
+    pass's (nf, …) int32 output, positions with the `SENTINEL_BITS` pattern
+    in empty slots; lo, hi: the halo planes (`halo_planes`), int32, any
+    strides, or both None where the axis holds one shard; b: (sz·sy·sx·mz, my·mx, 1) int32, each row's global cell
+    coordinate along the axis; box: a number or a 0-d float32 tensor on the
+    device; m_global: the global cell count on the axis.  flag: None or a
+    0-d int32 tensor on the device that a raised flag is OR'd into (several
+    passes can share one).  Returns (out (nf, sz, sy, sx, mz, my, mx, C)
+    int32 with the fill in empty slots — sentinel positions, atom_id =
+    num_slots, zeros — and the flag as a 0-d int32 tensor, nonzero if
+    raised)."""
+    fields = list(x)
+    dev = fields[0].device
+    if resolve_backend(backend, fields[0]) == "torch":
+        out, ovf = rebin_halo_plain(x, lo, hi, b, box, axis, m_global, c, num_slots, raw)
+        if flag is None:
+            return out, ovf.to(torch.int32)
+        return out, flag.bitwise_or_(ovf.to(torch.int32))
+    global LAUNCHES
+    nf = len(fields)
+    shape = tuple(fields[0].shape)
+    if not 4 <= nf <= MAX_FIELDS or len(shape) != 7 or shape[-1] != c:
+        raise ValueError(f"rebin_halo_pass: {nf} fields of {shape}, the kernel takes 4 to {MAX_FIELDS} fields of "
+                         f"(sz, sy, sx, mz, my, mx, {c})")
+    if not raw and not (isinstance(x, torch.Tensor) and x.is_contiguous()):
+        raise ValueError("rebin_halo_pass: a pass after the first takes the previous pass's contiguous output")
+    strides = []
+    for i, f in enumerate(fields):
+        want = torch.int32 if i == nf - 1 or not raw else torch.float32
+        if f.dtype != want or tuple(f.shape) != shape or f.device != dev:
+            raise ValueError(f"field {i}: expected {want} {shape} on {dev}, got {f.dtype} {tuple(f.shape)} "
+                             f"on {f.device}")
+        step = 1 if f.is_contiguous() else _slot_stride(f)
+        if step is None:
+            raise ValueError(f"field {i}: strides {f.stride()}, the kernel needs its slots evenly spaced")
+        strides.append(step)
+    plane = list(shape)
+    plane[3 + axis] = 1
+    for name, h in (("lo", lo), ("hi", hi)):
+        if (lo is None) != (h is None):
+            raise ValueError("rebin_halo_pass: give both halo planes or neither")
+        if h is not None and (h.dtype != torch.int32 or tuple(h.shape) != (nf, *plane) or h.device != dev):
+            raise ValueError(f"{name}: expected int32 {(nf, *plane)} on {dev}, got {h.dtype} {tuple(h.shape)} "
+                             f"on {h.device}")
+    rows = shape[0] * shape[1] * shape[2] * shape[3] * shape[4] * shape[5]
+    if b.dtype != torch.int32 or b.numel() != rows or b.device != dev or not b.is_contiguous():
+        raise ValueError(f"b: expected {rows} contiguous int32 on {dev}, got {b.dtype} {tuple(b.shape)} on {b.device}")
+    out = torch.empty((nf,) + shape, dtype=torch.int32, device=dev)
+    if flag is None:
+        flag = torch.zeros((), dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * nf)(*(f.data_ptr() for f in fields))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    long8 = lambda t: (ctypes.c_long * 8)(*((0,) * 8 if t is None else t.stride()))  # noqa: E731
+    err = build.load().emdee_rebin_halo(
+        ptrs, (ctypes.c_long * nf)(*strides), nf, ptr(lo), long8(lo), ptr(hi), long8(hi),
+        b.data_ptr(), out.data_ptr(), flag.data_ptr(), (ctypes.c_int * 6)(*shape[:6]), c, axis,
+        COORD_OF_AXIS[axis], m_global, num_slots, int(raw), box_ptr(box, fields[0]),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "rebin_window halo kernel")
+    LAUNCHES += 1
+    return out, flag
+
+
+def grid_rebin_witness(fields, mesh, local, box, m_global: int, c: int, num_slots: int):
+    """The grid's rebin as it ran before the halo kernel, the witness of its
+    three passes: the positions parked and wrapped and every field stacked
+    by torch ops, then three passes of the former kernel over whole
+    windows, each built by a `torch.cat` of the shifted own layers and the
+    exchanged layer.  fields: as the first `rebin_halo_pass`; local: (mz,
+    my, mx).  Returns the (nf, …) int32 output and the flag as a 0-d
+    bool."""
+    box_t = _box(box, fields[0])
+    x = torch.stack(_parked(fields, box_t, num_slots))
+    flag = torch.zeros((), dtype=torch.bool, device=x.device)
+    for axis in range(3):
+        lo, hi = halo_planes(x, mesh, axis)
+        x, ovf = rebin_halo_plain(x, lo, hi, global_coords(mesh, local, axis), box_t, axis, m_global, c, num_slots,
+                                  windows="cuda")
+        flag = flag | ovf
+    return x, flag

@@ -21,7 +21,7 @@ steps and a profiled window of 40.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 -m emdee_tpu_torch.tools.profile_paths [lj | 1m | water | grid | water1m | portable]
+    python3 -m emdee_tpu_torch.tools.profile_paths [lj | 1m | water | grid | water1m | portable | route]
 
 (`lj`: the 97,556-atom paths of the dense and straggler engines alone;
 `1m`: the 1,000,188-atom dense component carry alone, on 'auto' (the
@@ -29,7 +29,9 @@ streaming kernel, K5) and on 'cuda' (the resident kernel, K2a), from one
 equilibrated melt; `water`, `grid`, `water1m`, `portable`: those paths
 alone; `water1m` and `portable` are not in the default run.  `portable`:
 the portable engine's neighbor-list NVE at 97,556 atoms, and its rebuild
-and force pass apart.)
+and force pass apart; `route`: the paths whose rebin K7 and K6 run — the
+spill component carry and Langevin, the grid on (1,1,1) and (2,2,2) at
+97,556 atoms, the 1M grid (2,2,2) on 'auto' — not in the default run.)
 
 For each path, after 60 steps of warm-up: the unprofiled ms/step of three
 600-step windows (host clock around work that ends in a synchronize), then
@@ -217,6 +219,51 @@ def profile_grid(device) -> None:
                      distribute_grid(start, cfg, mesh), k)
 
 
+def profile_route(device) -> None:
+    """The paths whose rebin K7 and K6 run: at 97,556 atoms, after the main
+    path's equilibration, the spill config's component carry and Langevin
+    (K7) and the grid's NVE on (1,1,1) and on (2,2,2) at M = 16 (K6); the
+    1M melt on the grid (2,2,2) at M = 36, C = 40 on 'auto' (K2-G and K6)."""
+    from emdee_tpu_torch import (
+        LangevinConfig, cell_dense_init, make_cell_dense_sim, reconfigure_dense_state, suggest_rebin_interval,
+    )
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, make_grid_sharded_sim
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.tools.melt import (
+        DT, FRICTION, N_CELLS_1M, SKIN, T_NVT, equilibrate, even_config, melt, spill_config,
+    )
+
+    st, config, model, params, uni, n = melt(device)
+    dense, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    pos_eq, vel_eq, _, k = equilibrate(dense, st, config, n)
+    st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
+    scfg = spill_config(config)
+    sp0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, scfg, device=device)
+    print(f"{n} atoms, rebin every {k} steps", flush=True)
+    spill, _ = make_cell_dense_sim(scfg, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    profile_path("spill component carry", spill, sp0, k)
+    langevin, _ = make_cell_dense_sim(scfg, model, dt=DT, thermostat=LangevinConfig(T_NVT, FRICTION))
+    profile_path("NVT Langevin (spill)", langevin, sp0, suggest_rebin_interval(SKIN, DT, T_NVT),
+                 rng=torch.Generator(device=device).manual_seed(7))
+    st16, cfg16 = reconfigure_dense_state(st0, config, cells_multiple_of=2)
+    for shape, cfg, start in (((1, 1, 1), config, st0), ((2, 2, 2), cfg16, st16)):
+        mesh = make_grid_mesh(shape, device=device)
+        grid, _ = make_grid_sharded_sim(cfg, model, DT, mesh, uniform_params=uni)
+        profile_path(f"grid {shape} M={cfg.cells_per_dim}", grid, distribute_grid(start, cfg, mesh), k)
+    del st, st0, sp0, st16
+
+    st, config, model, params, uni, n = melt(device, N_CELLS_1M)
+    dense, _ = make_cell_dense_sim(config, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    pos_eq, vel_eq, _, k = equilibrate(dense, st, config, n)
+    cfg36 = even_config(st, config)
+    st36 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, cfg36, device=device)
+    mesh = make_grid_mesh((2, 2, 2), device=device)
+    grid, _ = make_grid_sharded_sim(cfg36, model, DT, mesh, uniform_params=uni)
+    print(f"{n} atoms, rebin every {k} steps", flush=True)
+    profile_path(f"1M grid (2, 2, 2) M={cfg36.cells_per_dim} C={cfg36.capacity} on 'auto' -> {grid.family!r}", grid,
+                 distribute_grid(st36, cfg36, mesh), k)
+
+
 def profile_portable(device) -> None:
     """The portable engine's NVE on the neighbor list (plain torch ops) at
     the 97,556-atom melt after the main path's equilibration, at the README
@@ -276,9 +323,9 @@ def main(paths: str = "all") -> None:
     ).stdout.strip()
     print(smi, flush=True)
     device = torch.device("cuda", 0)
-    if paths in ("1m", "water", "grid", "water1m", "portable"):
+    if paths in ("1m", "water", "grid", "water1m", "portable", "route"):
         {"1m": profile_1m, "water": profile_water, "grid": profile_grid, "water1m": profile_water_1m,
-         "portable": profile_portable}[paths](device)
+         "portable": profile_portable, "route": profile_route}[paths](device)
         return
     from emdee_tpu_torch import (
         BerendsenBarostatConfig, CSVRConfig, LangevinConfig, cell_dense_init, make_cell_dense_sim,

@@ -365,11 +365,11 @@ def test_compact_kernel_matches_plain_every_slot(device):
     args = [torch.from_numpy(a).to(device) for a in (s, keep)]
     cand = [torch.from_numpy(f).to(device) for f in (f1, f2)]
     win = torch.stack([f.view(torch.int32) for f in cand])
-    before = compact_kernel.LAUNCHES
+    before = compact_kernel.COMPACT_LAUNCHES
     got = compact_kernel.compact_stacked(*args, win, c, last_fill=777, backend="cuda")
     ref = compact_kernel.compact_stacked(*args, win, c, last_fill=777, backend="torch")
     torch.cuda.synchronize()
-    assert compact_kernel.LAUNCHES == before + 1
+    assert compact_kernel.COMPACT_LAUNCHES == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, ref)
     assert int((got[1] == 777).sum()) > 0
 
@@ -377,7 +377,8 @@ def test_compact_kernel_matches_plain_every_slot(device):
 @pytest.mark.parametrize("stacked", [False, True])
 def test_spill_rebin_kernel_matches_plain(device, stacked):
     """The spill route with K7 vs its plain version: every field of every
-    slot, the valid mask and the flag; 3 K7 launches and no K4 launch."""
+    slot, the valid mask and the flag; one K7 launch (its three passes)
+    and no K4 launch."""
     from emdee_tpu_torch.neighbors import compact_kernel
     from emdee_tpu_torch.neighbors.cell_dense import _rebin_shift_core
 
@@ -388,7 +389,7 @@ def test_spill_rebin_kernel_matches_plain(device, stacked):
         before = (compact_kernel.LAUNCHES, rebin_kernel.LAUNCHES)
         a, fa = _rebin_shift(st, config, forces=f, backend="cuda")
         b, fb = _rebin_shift(st, config, forces=f, backend="torch")
-        assert (compact_kernel.LAUNCHES, rebin_kernel.LAUNCHES) == (before[0] + 3, before[1])
+        assert (compact_kernel.LAUNCHES, rebin_kernel.LAUNCHES) == (before[0] + 1, before[1])
         for name in a._fields:
             if getattr(a, name) is not None:
                 assert torch.equal(_bits(getattr(a, name)), _bits(getattr(b, name))), name
@@ -402,6 +403,88 @@ def test_spill_rebin_kernel_matches_plain(device, stacked):
     rp, vp, op = _rebin_shift_core(list(fields), st.valid, ovf, config, "torch")
     for x, y in zip(rk + [vk, ok], rp + [vp, op]):
         assert torch.equal(_bits(x), _bits(y))
+
+
+def _spill_case(device, case):
+    """(state, config, extra fields) of a spill routing case: 'drifted',
+    the 1,728-atom fixture squeezed toward 27, every atom moved 0.5σ per
+    axis along its velocity's sign (its lattice sits 0.55σ inside the
+    cell faces, so `_spill_state`'s 0.4σ crosses none); 'overflow', the
+    same with every atom of the cells at y = 0 moved one cell up y, so
+    that the y pass, between the other two, overflows; 'seam', 1,500 atoms
+    at random on their spill config squeezed toward 24 and moved 0.4σ per
+    axis along their velocities' signs (spills, hold-backs and seam wraps
+    fire); 'c40', the same at C = 40 toward 28 (two chunks a segment);
+    'water', the 98,304-atom water box on its spill geometry at C = 80
+    toward the suggested 64, drifted 0.5 Å, with per-atom parameters,
+    forces and charges riding (14 fields)."""
+    from emdee_tpu_torch.tools import water
+    from emdee_tpu_torch.utils.lattice import random_fluid
+
+    extra = []
+    if case in ("drifted", "overflow"):
+        st, config, _ = _spill_state(device, drift=True)
+        st = st._replace(positions=torch.where(st.valid[..., None], st.positions + 0.1 * torch.sign(st.velocities),
+                                               0.0))
+        if case == "overflow":
+            m = config.cells_per_dim
+            crowd = ((torch.arange(m**3, device=device) // m) % m == 0)[:, None] & st.valid
+            pos = st.positions.clone()
+            pos[..., 1] += torch.where(crowd, float(config.cell_side), 0.0)
+            st = st._replace(positions=pos)
+    elif case == "water":
+        box, config, _, _, params = water.water_setup(device, spill=True)
+        config = config._replace(capacity=80, spill_target=config.capacity)
+        st = cell_dense_init(box["positions"], box["velocities"], box["masses"], params, config,
+                             charges=box["charges"], device=device)
+        st = st._replace(positions=torch.where(st.valid[..., None], st.positions + 0.5 * torch.sign(st.velocities),
+                                               0.0))
+        f = 0.1 * st.positions
+        extra = [st.inv_masses, st.half_sigma, st.twice_sqrt_eps] + [f[..., i] for i in range(3)] + [st.charges]
+    else:
+        n = 1500
+        pos, box = random_fluid(n, 0.75, 0.85, 0)
+        config = suggest_cell_dense_config(n, box, 2.5, 2.0, 0.3, spill=True)
+        config = config._replace(spill_target=24) if case == "seam" else config._replace(capacity=40, spill_target=28)
+        st = cell_dense_init(pos, maxwell_boltzmann(n, 1.0, seed=1), np.ones(n),
+                             lennard_jones_atom(np.ones(n), np.ones(n), device=device), config, device=device)
+        st = st._replace(positions=torch.where(st.valid[..., None], st.positions + 0.4 * torch.sign(st.velocities),
+                                               0.0))
+    assert config.spill and not bool(st.overflow)
+    return st, config, extra
+
+
+@pytest.mark.parametrize("case", ["drifted", "overflow", "seam", "c40", "water"])
+def test_spill_routing_kernel_matches_plain_and_witness(device, case):
+    """K7, the spill route's three passes in one launch, against its plain
+    version and against the former route on the card (the torch masks with
+    the former compaction kernel): every field of every slot, the valid
+    mask and the flag, bit for bit, on the caller's raw fields (strided
+    position and velocity views, the valid mask, the wrap)."""
+    from emdee_tpu_torch.neighbors import compact_kernel
+    from emdee_tpu_torch.neighbors.cell_dense import _spill_params
+
+    st, config, extra = _spill_case(device, case)
+    fields = [st.positions[..., i] for i in range(3)] + [st.velocities[..., i] for i in range(3)] + extra
+    fields.append(st.atom_id)
+    m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
+    args = (fields, config.box, m, c, ns, _spill_params(config), st.valid)
+    plain = compact_kernel.spill_routing(*args, backend="torch")
+    before = (compact_kernel.COMPACT_LAUNCHES, compact_kernel.LAUNCHES)
+    witness = compact_kernel.spill_route_plain(*args, compact="cuda")
+    assert compact_kernel.COMPACT_LAUNCHES == before[0] + 3
+    flat = lambda r: list(r[0]) + [r[1], r[2]]  # noqa: E731
+    got = compact_kernel.spill_routing(*args, backend="cuda")
+    torch.cuda.synchronize()
+    for name, ref in (("plain", plain), ("witness", witness)):
+        for i, (x, y) in enumerate(zip(flat(got), flat(ref))):
+            assert torch.equal(_bits(x), _bits(y)), (name, i)
+    assert compact_kernel.LAUNCHES == before[1] + 1
+    assert bool(plain[2]) == (case == "overflow")
+    moved = int(((plain[0][-1] != st.atom_id) & plain[1]).sum())
+    assert moved > 100, moved
+    if case in ("seam", "water"):  # seam spills and holds: coordinates stored below 0
+        assert int(sum(int((plain[0][i][plain[1]] < 0).sum()) for i in range(3))) > 0
 
 
 def test_device_box_launches_equal_value_box(device):
@@ -443,7 +526,7 @@ def test_spill_rollout_matches_plain_and_reruns_bitwise(device):
     roll_p, _ = make_cell_dense_sim(config, model, dt=0.004, backend="torch", **kw)
     compact_kernel.LAUNCHES = rebin_kernel.LAUNCHES = 0
     a = roll_k(st, num_steps=24, rebin_every=3)
-    assert (compact_kernel.LAUNCHES, rebin_kernel.LAUNCHES) == (3 * 8, 0)
+    assert (compact_kernel.LAUNCHES, rebin_kernel.LAUNCHES) == (8, 0)  # one a rebin
     b = roll_k(st, num_steps=24, rebin_every=3)
     p = roll_p(st, num_steps=24, rebin_every=3)
     for name in a._fields:
@@ -494,19 +577,71 @@ def test_rebin_window_kernel_matches_plain_and_k4(device):
     st, config, _ = _state(device, varied=False, drift=True)
     m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
     x = _routing_stack(st, config)
-    before = k6.LAUNCHES
+    before = k6.WINDOW_LAUNCHES
     for axis, _, cf in _PASSES:
         args = k6.periodic_windows(x, m, axis)
         out_k, ovf_k = k6.rebin_window_pass(*args, config.box, cf, m, c, ns, backend="cuda")
         out_p, ovf_p = k6.rebin_window_pass(*args, config.box, cf, m, c, ns, backend="torch")
         assert torch.equal(out_k, out_p) and bool(ovf_k) == bool(ovf_p) is False
         x = out_k.reshape(x.shape)
-    assert k6.LAUNCHES == before + 3
+    assert k6.WINDOW_LAUNCHES == before + 3
     fields = tuple(_routing_stack(st, config)[i].view(torch.float32) for i in range(6)) + (st.atom_id,)
     ref, ovf = rebin_kernel.rebin_routing(fields, config.box, m, c, ns, backend="cuda")
     for i, r in enumerate(ref):
         assert torch.equal(x[i], r.view(torch.int32)), f"field {i}"
     assert int((x[-1] != st.atom_id).sum()) > 10
+
+
+def _grid_fields(sh, ns):
+    """A grid-sharded state's transported fields as the grid engine's rebin
+    reads them: x, y, z, vx, vy, vz, 1/m, σ/2, 2√ε (views of the state's
+    tensors), atom id (ns in empty slots)."""
+    pos3, vel3 = sh.positions.movedim(-1, 0), sh.velocities.movedim(-1, 0)
+    return ([pos3[i] for i in range(3)] + [vel3[i] for i in range(3)]
+            + [sh.inv_masses, sh.half_sigma, sh.twice_sqrt_eps, torch.where(sh.valid, sh.atom_id, ns)])
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2), (2, 4, 1)])
+def test_rebin_halo_kernel_matches_plain_witness_and_k4(device, shape):
+    """K6 as the grid's rebin calls it (each pass on the shards' own rows
+    with the two halo planes `mesh.shift` brings, the first on the raw
+    fields, parked and wrapped in the kernel) on the drifted per-atom
+    lattice at M = 8, C = 24, sharded over `shape`: every pass against its
+    plain version and against the former kernel over whole windows, bit for
+    bit in every slot and the flag; on one shard the three passes against
+    K4's rebin of the one-card state."""
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+
+    st, config, _ = _state(device, varied=True, drift=True, geometry={"cells_per_dim": 8, "capacity": 24})
+    m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
+    mesh = make_grid_mesh(shape, device=device)
+    sh = gs.distribute_grid(st, config, mesh)
+    local = tuple(m // s for s in shape)
+    x = _grid_fields(sh, ns)
+    before = k6.LAUNCHES
+    for axis in range(3):
+        lo, hi = k6.halo_planes(x, mesh, axis)
+        args = (x, lo, hi, k6.global_coords(mesh, local, axis), config.box, axis, m, c, ns, axis == 0)
+        out, flag = k6.rebin_halo_pass(*args, backend="cuda")
+        plain, ovf_p = k6.rebin_halo_plain(*args)
+        witness, ovf_w = k6.rebin_halo_plain(*args, windows="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(out, plain) and torch.equal(out, witness), axis
+        assert int(flag) == int(ovf_p) == int(ovf_w) == 0
+        x = out
+    assert k6.LAUNCHES == before + 3
+    whole = gs.gather_grid_state(sh._replace(atom_id=x[-1]), config, mesh).atom_id
+    assert int((whole != st.atom_id).sum()) > 50
+    if shape == (1, 1, 1):
+        fields = [st.positions[..., i] for i in range(3)] + [st.velocities[..., i] for i in range(3)]
+        fields += [st.inv_masses, st.half_sigma, st.twice_sqrt_eps, st.atom_id]
+        ref, ovf = rebin_kernel.rebin_routing(tuple(fields), config.box, m, c, ns, backend="cuda", valid=st.valid,
+                                              wrap=True)
+        assert not bool(ovf)
+        for i, r in enumerate(ref):
+            assert torch.equal(x[i].reshape(m**3, c), r.view(torch.int32)), f"field {i}"
 
 
 # (atoms, density, M) of the jittered lattice for each capacity: every cell
