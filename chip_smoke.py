@@ -68,6 +68,16 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   if its flag holds, else on the plain config, with the flag's cause
   logged; then 'cuda' (bonds in K2c) against 'torch' (bonds on the gather
   path) after 20 steps;
+- the molecular front door on the same box (`phase_modelling`): written as
+  a PDB, typed by `ForceField` (`emdee_tpu_torch/data/tip3p_flexible.xml`)
+  and `System` with the native library asserted loaded, its tables equal to
+  the hand-built box's; `dense_sim_from_system` on 'auto' with CSVR at 300
+  K (asserted to resolve to the streaming family, K5c): K5c vs plain, the
+  total forces vs the hand-built box's at the same positions and masses;
+  2,000 equilibration steps, then `run_dense_simulation` (4 chunks of 500
+  steps, XYZ dumps and checkpoints, exact K5c and K4 launches) and a bitwise
+  resume from the checkpoint with its generator; the System at the run's
+  end on 'cuda' (K2c): K2c vs plain and a gated 500-step NVE chunk;
 - the streaming kernel's molecular pass (K5c) against its plain version
   (K2c's) and against K2c on the 864-atom fixture and on the water box,
   and the water box on `backend="auto"`, asserted to resolve to the
@@ -1914,6 +1924,230 @@ def phase_water(device, tag):
     return row, {"water": counts}, ms, facts, w
 
 
+MODEL_CHUNK, MODEL_CHUNKS = 500, 4  # the runner's chunks on the System-built water box
+
+
+def atom_forces(st, config, model, coulomb, tags, bonded, n, kernel):
+    """Total forces in atom order: the pair pass (`kernel`, on the card,
+    with DSF and the exclusion tags `tags`) plus every bonded term of
+    `bonded` at the state's positions.  Returns (forces, positions)."""
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming
+    from emdee_tpu_torch.potentials.bonded import bonded_forces_analytic
+
+    fn = cell_forces_streaming if kernel == "K5c" else cell_forces
+    pair = fn(st, model, config, backend="cuda", coulomb=coulomb, excl=tags)[0]
+    ids = st.atom_id[st.valid].long()
+    f = pair.new_zeros((n, 3)).index_put_((ids,), pair[st.valid])
+    pos = st.positions.new_zeros((n, 3)).index_put_((ids,), st.positions[st.valid])
+    return f + bonded_forces_analytic(pos, config.box, bonded), pos
+
+
+def system_tags(system, bonded, n, st):
+    """The System's slot tags as its kernel paths build them (the harmonic
+    bonds on the tags), by `water_tags` on the System's tables (their
+    Coulomb scales equal the LJ scales here, as `water.check_system`
+    holds): (tags, E, E_b)."""
+    valid = bonded.bonds.valid.cpu().numpy()
+    atoms, k, r0 = (getattr(bonded.bonds, f).cpu().numpy()[valid] for f in ("atoms", "k", "length"))
+    pairs, ljs = system.exclusions()
+    return water_tags({"exclusion_pairs": pairs, "exclusion_scales": ljs, "bonds": atoms, "bond_k": k,
+                       "bond_r0": r0}, n, st.positions.device, st)
+
+
+def phase_modelling(device, tag):
+    """The molecular front door at full width: the 98,304-atom water box of
+    `tools/water.py` written as a PDB and typed by the modelling layer
+    (`ForceField` on `tip3p_flexible.xml`, `System`, the native library's
+    parser and canonical forms, asserted loaded), its tables held against
+    the hand-built box's; `dense_sim_from_system` on 'auto' with CSVR at
+    300 K from Maxwell-Boltzmann velocities (a seeded generator, the
+    System's masses), which must resolve to the streaming family (K5c): K5c
+    vs plain on its start, the start's total forces vs the hand-built box's
+    at the same positions and masses (both within MOL_FORCE_GATE of the
+    force scale); 2,000 steps of the path's own rollout to equilibrate, then
+    `run_dense_simulation` for 4 chunks of 500 steps (rebin every 6) with
+    trajectory and checkpoint files (guards on; launches: K5c and K4 only,
+    K4 once a rebin block; 4 XYZ frames of 98,304 atoms); the
+    checkpoint loaded with its generator and resumed for one chunk equals
+    the uninterrupted run bit for bit; then the same System at the run's
+    end state on `backend="cuda"` (K2c): K2c vs plain and one gated NVE
+    chunk.  Logs the host seconds of each modelling step and the ms/step.
+    Returns ({path: counts}, the K5c and K2c check fields, ms/step)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from emdee_tpu_torch import (
+        ForceField, LennardJonesModel, System, cell_dense_init, dense_sim_from_system, gather_dense_atoms,
+        resolve_dense_backend,
+    )
+    from emdee_tpu_torch.modelling.bonded import build_bonded_system
+    from emdee_tpu_torch.native import build as native_build, canon, chemio
+    from emdee_tpu_torch.potentials.coulomb import KJMOL_ANGSTROM, DSFCoulomb
+    from emdee_tpu_torch.tools import water
+    from emdee_tpu_torch.utils.checkpoint import load_state
+    from emdee_tpu_torch.utils.runner import RunnerConfig, run_dense_simulation
+
+    t0 = time.perf_counter()
+    if not (canon.available() and chemio.available()):
+        raise AssertionError("modelling: the native library (canon, chemio) did not build or load")
+    log(f"modelling: native library built and loaded in {time.perf_counter() - t0:.2f} s "
+        f"({native_build.library_path().name})")
+    secs = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="emdee_modelling_") as tmp:
+        box = water.water_box()
+        pdb = os.path.join(tmp, "water.pdb")
+        timed("write_pdb", lambda: water.write_box_pdb(pdb, box))
+        ff = timed("ForceField", lambda: ForceField(str(water.FORCE_FIELD)))
+        system = timed("System", lambda: System(pdb, ff))
+        bonded = timed("build_bonded_system",
+                       lambda: build_bonded_system(system, length_scale=water.LENGTH_SCALE, device=device))
+        timed("check_system", lambda: water.check_system(system, bonded, box))
+        n = len(system)
+        log(f"modelling: {n} atoms, {system.count_residues()} residues, {len(system.bonds)} bonds from the PDB "
+            f"alias table; host seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+            + "; the System's tables equal tools/water.py's (types, charges, masses per pdb_aliases.json, "
+            "exclusions, bonds, angles)")
+
+        rng = np.random.default_rng(water.SEED + 1)
+        masses = system.masses
+        vel = rng.normal(size=(n, 3)) * np.sqrt(water.KB * water.TEMPERATURE / masses)[:, None]
+        vel -= (masses[:, None] * vel).sum(0) / masses.sum()
+        kw = dict(cutoff=water.CUTOFF, switch=water.SWITCH, skin=water.SKIN, dt=water.DT,
+                  coulomb_alpha=water.ALPHA, length_scale=water.LENGTH_SCALE, device=device)
+        st, roll, energy, cfg = timed("dense_sim_auto", lambda: dense_sim_from_system(
+            system, **kw, backend="auto", velocities=vel, thermostat=water.csvr()))
+        hand_cfg = water.plain_config(box)
+        geometry = (cfg.cells_per_dim, cfg.capacity)
+        if geometry != (hand_cfg.cells_per_dim, hand_cfg.capacity):
+            log(f"modelling: dense_sim_from_system chose M={geometry[0]} C={geometry[1]}, tools/water.py "
+                f"M={hand_cfg.cells_per_dim} C={hand_cfg.capacity}; the path runs on the former")
+        family = resolve_dense_backend(cfg, "auto", device=device, with_coulomb=True, with_excl=True)
+        if family != "cuda_streaming" or bool(st.overflow):
+            raise AssertionError(f"modelling: M={geometry[0]} C={geometry[1]} resolves to {family!r} "
+                                 f"(overflow {bool(st.overflow)})")
+        model = LennardJonesModel.create(water.CUTOFF, water.SWITCH, device=device)
+        coul = DSFCoulomb.create(water.CUTOFF, water.ALPHA, KJMOL_ANGSTROM, device=device)
+        tags, e_tags, e_bonds = system_tags(system, bonded, n, st)
+        k5c_err, k5c_scale, k5c_e, k5c_w = check_mol_kernel(st, cfg, model, coul, tags, "System-built water", "K5c")
+        hbox, hcfg, hmodel, hcoul, hparams = water.water_setup(device, spill=False)
+        hst = cell_dense_init(system.positions, vel, masses, hparams, hcfg, charges=hbox["charges"], device=device)
+        f_sys, _ = atom_forces(st, cfg, model, coul, tags[:3], bonded, n, "K5c")
+        f_hand, _ = atom_forces(hst, hcfg, hmodel, hcoul, water_tags(hbox, n, device, hst)[0][:3],
+                                water.bonded_system(hbox, device), n, "K5c")
+        hand_scale = max(float(f_hand.abs().max()), 1.0)
+        hand_err = close("modelling: System-built vs hand-built forces", f_sys, f_hand,
+                         atol=MOL_FORCE_GATE * hand_scale)
+        log(f"{tag} modelling: dense_sim_from_system('auto', CSVR) in {secs['dense_sim_auto']:.3f} s -> M={geometry[0]} "
+            f"C={geometry[1]} (tools/water.py: M={hand_cfg.cells_per_dim} C={hand_cfg.capacity}), {family!r}, E={e_tags} "
+            f"E_b={e_bonds}; K5c vs plain max |dF| {k5c_err:.3e} (rel {k5c_err / k5c_scale:.3e}, scale "
+            f"{k5c_scale:.1f}), max |dE| {k5c_e:.3e}, max |dW| {k5c_w:.3e}; total forces vs the hand-built box at the "
+            f"same positions and masses: max |dF| {hand_err:.3e} (rel {hand_err / hand_scale:.3e}, scale "
+            f"{hand_scale:.1f}, gate {MOL_FORCE_GATE})")
+        del hst, f_sys, f_hand
+
+        # The lattice start holds much potential energy, which CSVR takes out
+        # as the box melts: the total falls several-fold in the first chunks,
+        # past the runner's energy-jump guard (50% a chunk).  So the same
+        # thermostatted rollout first equilibrates it, as `phase_water` does.
+        gen = torch.Generator(device=device).manual_seed(water.SEED)
+        totals = []
+        for _ in range(WATER_EQ_STEPS // MODEL_CHUNK):
+            st = roll(st, num_steps=MODEL_CHUNK, rebin_every=WATER_REBIN, rng=gen)
+            pe, _, ke = energy(st)
+            totals.append(float(pe + ke))
+        if bool(st.overflow):
+            raise AssertionError("modelling: equilibration overflow")
+        log(f"modelling: equilibrated {WATER_EQ_STEPS} steps with the path's own CSVR rollout; total energy by "
+            f"chunk of {MODEL_CHUNK}: " + ", ".join(f"{e:.0f}" for e in totals) + " kJ/mol")
+        traj, ckpt = os.path.join(tmp, "traj.xyz"), os.path.join(tmp, "ckpt.npz")
+        mods = counters()
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        final, history = run_dense_simulation(
+            st, roll, energy, RunnerConfig(total_steps=MODEL_CHUNKS * MODEL_CHUNK, chunk_steps=MODEL_CHUNK,
+                                           trajectory_path=traj, checkpoint_path=ckpt),
+            n, names=system.names, rebin_every=WATER_REBIN, rng=gen)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = {name: mod.LAUNCHES for name, mod in mods.items()}
+        # K5c: two launches a force evaluation, each chunk's first forces, its
+        # steps and its energy; K4: one a rebin block.
+        expected = launches(cell_forces_streaming=2 * MODEL_CHUNKS * (MODEL_CHUNK + 2),
+                            rebin_routing=MODEL_CHUNKS * -(-MODEL_CHUNK // WATER_REBIN))
+        if counts != expected:
+            raise AssertionError(f"modelling runner: kernel launches {counts}, expected {expected}")
+        with open(traj) as fh:
+            lines = fh.read().splitlines()
+        if lines.count(str(n)) != MODEL_CHUNKS or len(lines) != MODEL_CHUNKS * (n + 2):
+            raise AssertionError(f"modelling: {traj} holds {lines.count(str(n))} frame headers, {len(lines)} lines")
+        frame = np.array([line.split()[1:4] for line in lines[-n:]], np.float64)
+        if not np.isfinite(frame).all():
+            raise AssertionError("modelling: the last XYZ frame is not finite")
+        ke = history[-1]["kinetic"]
+        meter_ms = 1e3 / history[-1]["steps_per_s"]
+        log(f"{tag} modelling: run_dense_simulation {MODEL_CHUNKS} x {MODEL_CHUNK} steps (CSVR "
+            f"{water.TEMPERATURE:.0f} K, rebin every {WATER_REBIN}) in {run_s:.3f} s, ThroughputMeter "
+            f"{meter_ms:.4f} ms/step (dumps and checkpoints included); guards passed; T "
+            f"{2.0 * ke / ((3 * n - 3) * water.KB):.1f} K, PE {history[-1]['potential']:.1f} kJ/mol; "
+            f"{MODEL_CHUNKS} XYZ frames of {n} atoms; launches {counts}")
+
+        t0 = time.perf_counter()
+        cont, cont_hist = run_dense_simulation(
+            final, roll, energy, RunnerConfig(total_steps=MODEL_CHUNK, chunk_steps=MODEL_CHUNK, log=True),
+            n, rebin_every=WATER_REBIN, rng=gen)
+        torch.cuda.synchronize()
+        chunk_ms = 1e3 * (time.perf_counter() - t0) / MODEL_CHUNK
+        gen2 = torch.Generator(device=device).manual_seed(water.SEED + 7)
+        loaded, meta = load_state(ckpt, final, rng=gen2)
+        if meta["step"] != int(final.step) or loaded.positions.device != final.positions.device:
+            raise AssertionError(f"modelling: checkpoint meta {meta}, device {loaded.positions.device}")
+        resumed, _ = run_dense_simulation(
+            loaded, roll, energy, RunnerConfig(total_steps=MODEL_CHUNK, chunk_steps=MODEL_CHUNK, log=False),
+            n, rebin_every=WATER_REBIN, rng=gen2)
+        for (name, a), (_, b) in zip(tensors(cont), tensors(resumed)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"modelling: the resumed run differs from the uninterrupted one in {name}")
+        log(f"{tag} modelling: load_state of the step-{meta['step']} checkpoint (its generator restored) resumed "
+            f"for {MODEL_CHUNK} steps equals the uninterrupted run bit for bit; that chunk {chunk_ms:.4f} ms/step "
+            f"(ThroughputMeter {1e3 / cont_hist[-1]['steps_per_s']:.4f}) on the card")
+
+    pos_end, vel_end = gather_dense_atoms(resumed, n)
+    del st, final, cont, loaded, resumed
+    moved = dataclasses.replace(system, positions=pos_end.astype(np.float64), velocities=vel_end.astype(np.float64))
+    st_c, roll_c, energy_c, cfg_c = timed("dense_sim_cuda", lambda: dense_sim_from_system(
+        moved, **kw, backend="cuda"))
+    tags_c, _, _ = system_tags(system, bonded, n, st_c)
+    k2c_err, k2c_scale, k2c_e, k2c_w = check_mol_kernel(st_c, cfg_c, model, coul, tags_c, "System-built water")
+    _, sec, drift, counts_c = gate_rollout(
+        "modelling 'cuda' path", roll_c, energy_c, st_c, MODEL_CHUNK, WATER_REBIN,
+        launches(cell_forces=MODEL_CHUNK + 4, rebin_routing=-(-MODEL_CHUNK // WATER_REBIN)),
+        drift_gate=WATER_DRIFT_GATE)
+    cuda_ms = 1e3 * sec / MODEL_CHUNK
+    log(f"{tag} modelling: the System at the run's end on backend 'cuda' (K2c; dense_sim_from_system in "
+        f"{secs['dense_sim_cuda']:.3f} s, M={cfg_c.cells_per_dim} C={cfg_c.capacity}): K2c vs plain max |dF| "
+        f"{k2c_err:.3e} (rel {k2c_err / k2c_scale:.3e}), max |dE| {k2c_e:.3e}, max |dW| {k2c_w:.3e}; {MODEL_CHUNK} "
+        f"gated NVE steps {cuda_ms:.4f} ms/step, drift {drift:.3e} (gate {WATER_DRIFT_GATE}); launches {counts_c}")
+    log(f"{card()}: modelling path at {n} atoms — 'auto' (K5c, CSVR) {meter_ms:.4f} ms/step by the ThroughputMeter "
+        f"over the runner's chunks, {chunk_ms:.4f} a chunk without dumps; 'cuda' (K2c, NVE) {cuda_ms:.4f}")
+    checks = {"k5c": {"modelling_max_abs_err": k5c_err, "modelling_force_scale": k5c_scale,
+                      "modelling_energy_err": max(k5c_e, k5c_w), "modelling_vs_hand_built_max_abs_err": hand_err,
+                      "modelling_ms_per_step": meter_ms, "modelling_chunk_ms_per_step": chunk_ms},
+              "k2c": {"modelling_max_abs_err": k2c_err, "modelling_force_scale": k2c_scale,
+                      "modelling_energy_err": max(k2c_e, k2c_w), "modelling_ms_per_step": cuda_ms},
+              "host_seconds": secs}
+    return {"modelling_auto": counts, "modelling_cuda": counts_c}, checks
+
+
 def k5c_vs_k2c(st, config, model, coulomb, tags, label):
     """K5c vs K2c on one state: the step launch (bond tags) within
     MOL_FORCE_GATE of K2c's force scale, the energy launch (no bond tags)
@@ -3222,6 +3456,7 @@ def main() -> None:
     log(f"{smi}: water path {water_ms:.4f} ms/step ({98_304 * 1e3 / water_ms:,.0f} atom-steps/s) on "
         f"{water_facts['config']}, NVE drift {water_facts['drift']:.3e}, T {water_facts['t_eq']:.1f} K; "
         f"spill config holds: {water_facts['spill_holds']}")
+    counts_modelling, modelling = phase_modelling(device, tag)
     water_auto_row, counts_auto, auto_ms, auto_drift = phase_water_auto(device, tag, w)
     k5c_row.update(water_auto_row)
     k5c_row.update(phase_water_c104(device, tag, w))
@@ -3263,7 +3498,7 @@ def main() -> None:
 
     paths = {"dense": main_counts, "straggler": s_counts, **counts_spill, **counts_thermo, **counts_grid,
              **counts_1m, **counts_water, **counts_auto, **counts_water_1m, **counts_grid_water, **counts_ens,
-             **counts_grid_1m, **counts_grid_water_1m, **counts_c104}
+             **counts_grid_1m, **counts_grid_water_1m, **counts_c104, **counts_modelling}
     # The K5s paths (LJ) and the K5s-mol path: the streaming kernel's GHOST
     # modes, counted in streaming_kernel.LAUNCHES.
     k5s_paths = {p: c["cell_forces_streaming"] for p, c in {**counts_ens, **counts_grid_1m}.items()
@@ -3275,7 +3510,7 @@ def main() -> None:
     # The molecular paths' K5c, K2c-G and K5s-mol launches, and the K5s and K2-G paths', count in their own rows.
     mol_paths = {"cell_forces": set(counts_grid_water) | set(k2g_paths),
                  "cell_forces_streaming": set(counts_auto) | set(counts_water_1m) | set(k5s_paths)
-                 | set(k5s_mol_paths)}
+                 | set(k5s_mol_paths) | {"modelling_auto"}}
     by_path = lambda name: {p: c[name] for p, c in paths.items()  # noqa: E731
                             if c[name] and p not in mol_paths.get(name, ())}
     kernels = [
@@ -3288,7 +3523,9 @@ def main() -> None:
              **{f"strag_{key}": value for key, value in k3["strag"].items()},
              mol_replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:383",
              mol_launches=counts_water["water"]["cell_forces"],
-             mol_launches_by_path={"water": counts_water["water"]["cell_forces"]}, **mol_fixture_row, **mol_row),
+             mol_launches_by_path={"water": counts_water["water"]["cell_forces"],
+                                   "modelling_cuda": counts_modelling["modelling_cuda"]["cell_forces"]},
+             **mol_fixture_row, **mol_row, **modelling["k2c"]),
         dict(name="cell_forces_streaming", route="cuda", source="emdee_tpu_torch/csrc/cell_forces_streaming.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1158",
              launches=sum(by_path("cell_forces_streaming").values()),
@@ -3297,8 +3534,10 @@ def main() -> None:
         dict(name="cell_forces_streaming_mol", route="cuda", source="emdee_tpu_torch/csrc/cell_forces_streaming.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1417",
              launches=counts_auto["water_auto"]["cell_forces_streaming"],
-             launches_by_path={p: c["cell_forces_streaming"] for p, c in {**counts_auto, **counts_water_1m}.items()},
-             **k5c_row),
+             launches_by_path={p: c["cell_forces_streaming"]
+                               for p, c in {**counts_auto, **counts_water_1m, **counts_modelling}.items()
+                               if c["cell_forces_streaming"]},
+             **k5c_row, **modelling["k5c"], modelling_host_seconds=modelling["host_seconds"]),
         dict(name="cell_forces_ghost", route="cuda", source="emdee_tpu_torch/csrc/cell_forces.cu",
              replaces="emdee_tpu/distributed/grid_sharded.py:629",
              kernel_replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:597",

@@ -18,7 +18,11 @@ straggler engine on top of it, the 3-D grid-sharded engine
 or one a `torch.distributed` rank), and molecular systems
 on the dense engine (`neighbors/cell_dense_molecular.py`: charges with DSF
 Coulomb, exclusion tags, tag-borne bonds and the bonded terms of
-`potentials/bonded.py`), and the portable engine on plain torch ops —
+`potentials/bonded.py`), the molecular front door (`ForceField` and
+`System` of `modelling/`, the PDB/XYZ readers of `io/` with the g++-built
+parsers and graph canonicalisation of `native/`, `dense_sim_from_system`,
+and the runner, checkpoints and guards of `utils/`), and the portable
+engine on plain torch ops —
 `State`, all-pairs, cell and neighbor lists, `make_force_fn`, and the
 velocity-Verlet, CSVR, Langevin, Berendsen NPT and FIRE rollouts of
 `dynamics/`.  Its kernels are
@@ -77,6 +81,7 @@ from emdee_tpu_torch.neighbors.cell_list import CellList, build_cell_list
 from emdee_tpu_torch.neighbors.neighbor_list import NeighborList, build_neighbor_list
 from emdee_tpu_torch.neighbors.cell_dense_molecular import (
     build_exclusion_tables,
+    dense_sim_from_system,
     make_exclusion_aux_fn,
     make_molecular_dense_sim,
 )
@@ -113,6 +118,21 @@ from emdee_tpu_torch.potentials.lennard_jones import (
 )
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # Lazy imports keep `import emdee_tpu_torch` light: the modelling layer
+    # pulls in XML/graph machinery only when actually used.
+    if name == "ForceField":
+        from emdee_tpu_torch.modelling.forcefield import ForceField
+
+        return ForceField
+    if name == "System":
+        from emdee_tpu_torch.modelling.system import System
+
+        return System
+    raise AttributeError(f"module 'emdee_tpu_torch' has no attribute {name!r}")
+
 
 __all__ = [
     "ALL_OUTPUTS",
@@ -157,6 +177,7 @@ __all__ = [
     "suggest_cell_dense_config",
     "suggest_rebin_interval",
     "build_exclusion_tables",
+    "dense_sim_from_system",
     "make_exclusion_aux_fn",
     "make_molecular_dense_sim",
     "StragglerConfig",

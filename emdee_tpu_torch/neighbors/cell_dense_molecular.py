@@ -20,27 +20,31 @@ The host-side table builders are numpy, as in the reference.
 `exclusion_mode="correction"` is the atom-space alternative to step 1's
 tags: slots → atoms, the portable engine's `apply_exclusion_corrections`
 (and the bonded terms) in atom order through the fixed-order add, atoms →
-slots.  `dense_sim_from_system` needs the modelling layer and its fixture
-files (ROADMAP item 9) and raises.
+slots.  `dense_sim_from_system` builds all of it from a `System`
+(`modelling/`): the exclusion tables from its bond graph, the bonded tables
+from its force field.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import numpy as np
 import torch
 
 from emdee_tpu_torch.core.scatter import add_plan, fixed_add
-from emdee_tpu_torch.core.types import ENERGIES, FORCES, VIRIALS, LJParams, NonbondedOutput
+from emdee_tpu_torch.core.types import ENERGIES, FORCES, VIRIALS, LJParams, NonbondedOutput, resolve_device
 from emdee_tpu_torch.neighbors.cell_dense import (
     CellDenseConfig,
     CellDenseState,
     _box,
     _numpy,
     _state_box,
+    cell_dense_init,
     make_cell_dense_sim,
     resolve_dense_backend,
+    suggest_cell_dense_config,
 )
 from emdee_tpu_torch.neighbors.cell_kernel import MAX_TAGS
 from emdee_tpu_torch.potentials.bonded import (
@@ -50,6 +54,7 @@ from emdee_tpu_torch.potentials.bonded import (
     TorsionTable,
     bonded_force_rows,
 )
+from emdee_tpu_torch.potentials.coulomb import KJMOL_ANGSTROM, DSFCoulomb
 from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel, pair_interaction
 
 _FAMILIES = ("bonds", "angles", "torsions", "impropers")
@@ -684,10 +689,90 @@ def _bonded_only_sim(config, model, dt, num_atoms, bonded, coulomb, backend, reb
                                thermostat=thermostat, barostat=barostat)
 
 
-def dense_sim_from_system(system, **kwargs):
-    """The one-call System → dense-engine simulation needs the modelling
-    layer (`System`, `ForceField`, `build_bonded_system`) and its fixture
-    files, which are not ported yet (ROADMAP item 9)."""
-    raise NotImplementedError(
-        "dense_sim_from_system needs the modelling layer and its fixture files (ROADMAP item 9); "
-        "build the tables and call make_molecular_dense_sim")
+def dense_sim_from_system(
+    system,
+    *,
+    cutoff: float,
+    switch: float,
+    dt: float,
+    skin: float = 0.4,
+    coulomb_alpha: float = 0.2,
+    length_scale: float = 10.0,  # OpenMM-XML nm → PDB Å
+    with_coulomb: bool = True,
+    with_bonded: bool = True,
+    backend: str = "auto",
+    spill: bool = False,
+    velocities=None,
+    exclusion_mode: str = "kernel",
+    exclusion_band="auto",
+    thermostat=None,
+    barostat=None,
+    device=None,
+):
+    """One-call System → dense-engine simulation (reference
+    cell_dense_molecular.py:759-871), on `device` (default: the CUDA card).
+
+    exclusion_band="auto" caps the tag width at 4 when the system's natural
+    width exceeds 8, as the reference does (the remainder runs through the
+    slot-space pair correction; on the kernel backends `kernel_band` caps
+    it at MAX_TAGS in any case).  Pass None to force everything into the
+    tags, or an int to pick the band.
+
+    The start's capacity is raised to its real cell occupancy, rounded up
+    to 8, when that exceeds the suggested one (constructed starts
+    concentrate atoms past the occupancy statistics); the sticky flag stays
+    the in-run guard.
+
+    Returns (state, rollout, energy, config).  Uses Å/amu/e units with
+    kC = 1389.35456 (kJ/mol·Å·e²) so energies come out in kJ/mol when the
+    force field is an OpenMM-style XML."""
+    from emdee_tpu_torch.modelling.bonded import build_bonded_system
+
+    device = resolve_device(device)
+    n = len(system)
+    if system.box_lengths is None:
+        raise ValueError("System has no periodic box")
+    if not np.allclose(system.box_lengths, system.box_lengths[0]):
+        raise NotImplementedError(f"non-cubic boxes not yet supported (got {system.box_lengths})")
+    box = float(system.box_lengths[0])
+    params = system.lj_params(length_scale, device=device)
+    pairs, lj_s, c_s = system.exclusions(coulomb=True)
+    config = suggest_cell_dense_config(n, box, cutoff=cutoff, switch=switch, skin=skin, spill=spill)
+    model = LennardJonesModel.create(cutoff, switch, device=device)
+    coulomb = DSFCoulomb.create(cutoff, coulomb_alpha, KJMOL_ANGSTROM, device=device) if with_coulomb else None
+    bonded = build_bonded_system(system, length_scale=length_scale, device=device) if with_bonded else None
+
+    if exclusion_band == "auto":
+        exclusion_band = None
+        if exclusion_mode == "kernel" and len(pairs):
+            e_nat = int(build_exclusion_tables(n, pairs, lj_s)[0].shape[-1])
+            if e_nat > 8:
+                exclusion_band = 4
+                logging.getLogger(__name__).info(
+                    "exclusion width E=%d > 8: capping kernel tags at band=4, remaining pairs via the "
+                    "slot-space correction", e_nat)
+
+    vel = velocities if velocities is not None else system.velocities
+    if not spill:
+        pos64 = np.asarray(system.positions, np.float64)
+        m = config.cells_per_dim
+        frac = pos64 / box - np.floor(pos64 / box)
+        v = np.clip(np.floor(m * frac).astype(np.int64), 0, m - 1)
+        occ = np.bincount(v[:, 0] + m * (v[:, 1] + m * v[:, 2]), minlength=m**3).max()
+        need = -(-int(occ) // 8) * 8
+        if need > config.capacity:
+            config = config._replace(capacity=need)
+
+    charges = np.asarray(system.charges, np.float32) if with_coulomb else None
+    state = cell_dense_init(
+        np.asarray(system.positions, np.float32), np.asarray(vel, np.float32),
+        np.asarray(system.masses, np.float32), params, config, charges=charges, device=device,
+    )
+    rollout, energy = make_molecular_dense_sim(
+        config, model, dt, n, params=params, charges=system.charges if with_coulomb else None,
+        coulomb=coulomb, exclusion_pairs=np.asarray(pairs, np.int32),
+        exclusion_scales=np.asarray(lj_s, np.float32), exclusion_scales_coulomb=np.asarray(c_s, np.float32),
+        bonded=bonded, backend=backend, exclusion_mode=exclusion_mode, exclusion_band=exclusion_band,
+        thermostat=thermostat, barostat=barostat,
+    )
+    return state, rollout, energy, config

@@ -17,6 +17,14 @@ Maxwell-Boltzmann at 300 K; the lattice start holds much potential energy,
 so an NVE start heats the box (to ~730 K in 100 fs on the H100), and
 `chip_smoke.py` equilibrates it with CSVR at 300 K (τ = 10 fs) instead.
 
+The same model as an OpenMM-style force-field XML is `FORCE_FIELD`
+(`emdee_tpu_torch/data/tip3p_flexible.xml`, nm and kJ/mol), and
+`write_box_pdb` writes the box as a PDB of standard HOH residues, so that
+`System(pdb, ForceField(FORCE_FIELD))` builds the same box through the
+modelling layer (bonds from the PDB alias table; masses from it too: O
+15.999 there, 15.9994 here); `check_system` holds such a System's tables
+against the box's.  The hand-built box stays the witness.
+
     python3 -m emdee_tpu_torch.tools.water [CHUNKS]
 
 runs the box on the card from its lattice start on the plain config (M =
@@ -31,6 +39,8 @@ blocks the spill rollout runs before its flag.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -51,6 +61,10 @@ BOND_R0, BOND_K = 0.9572, 4627.504  # Å, kJ/mol/Å²
 ANGLE_THETA0, ANGLE_K = 1.82421813418, 836.8  # rad, kJ/mol/rad²
 # The rigid TIP3P geometry: O at the origin, H1 along x, H2 at θ0.
 _LOCAL = np.array([[0.0, 0.0, 0.0], [0.9572, 0.0, 0.0], [-0.2400, 0.9266, 0.0]])
+# The model as a force-field XML (nm, kJ/mol), shared by the CPU tests and
+# chip_smoke.py.
+FORCE_FIELD = Path(__file__).resolve().parent.parent / "data" / "tip3p_flexible.xml"
+LENGTH_SCALE = 10.0  # the XML's nm → Å
 
 
 def water_box(n_side: int = N_SIDE, seed: int = SEED) -> dict:
@@ -90,6 +104,77 @@ def water_box(n_side: int = N_SIDE, seed: int = SEED) -> dict:
         "exclusion_pairs": pairs, "exclusion_scales": np.zeros(len(pairs), np.float32),
         "box": float(box),
     }
+
+
+def write_box_pdb(path, box: dict) -> None:
+    """Write the box as a PDB through the port's `io/pdb.py`: its CRYST1
+    cell, and per water one HOH residue of ATOM records O, H1, H2 (chain A,
+    resids 1, 2, … written modulo 10,000), no CONECT records."""
+    from emdee_tpu_torch.io.pdb import PDBFrame, write_pdb
+
+    n = len(box["masses"])
+    n_w = n // 3
+    write_pdb(str(path), PDBFrame(
+        names=["O", "H1", "H2"] * n_w, resnames=["HOH"] * n, resids=np.repeat(np.arange(1, n_w + 1), 3),
+        chainids=["A"] * n, is_hetatm=np.zeros(n, bool), elements=["O", "H", "H"] * n_w,
+        positions=box["positions"], box_lengths=np.full(3, box["box"]),
+    ))
+
+
+def check_system(system, bonded, box: dict) -> None:
+    """Raise AssertionError unless a System built from `write_box_pdb`'s file
+    and `FORCE_FIELD`, with its bonded tables `bonded` (`build_bonded_system`
+    at `LENGTH_SCALE`), describes the box: atoms, residues, positions (to
+    the PDB's 1e-3 Å), charges; masses per the PDB alias table; LJ after the
+    unit change (σ only where ε ≠ 0: the XML's σ_H = 1 nm meets ε_H = 0);
+    exclusion pairs with their LJ and Coulomb scales; bonds and angles
+    (atoms, r0, k, θ0) in float32, as the kernels read them."""
+    from emdee_tpu_torch.modelling.pdb_data import load_pdb_aliases
+
+    def same(what, got, want):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"System vs tools/water.py: {what} differ")
+
+    n = len(box["masses"])
+    n_w = n // 3
+    same("atom count", len(system), n)
+    same("names", system.names, ["O", "H1", "H2"] * n_w)
+    same("residues", system.resnames, ["HOH"] * n_w)
+    same("residue spans", system.residue_spans, [(3 * i, 3 * i + 3) for i in range(n_w)])
+    if not np.abs(system.positions - box["positions"]).max() <= 5e-4:
+        raise AssertionError("System vs tools/water.py: positions differ beyond the PDB's rounding")
+    same("charges", system.charges, box["charges"])
+    masses = load_pdb_aliases()[0]
+    same("masses", system.masses, np.tile([masses["O"], masses["H"], masses["H"]], n_w))
+    nb = system.force_field.nonbonded
+    eps = np.array([nb[t]["epsilon"] for t in system.ff_types])
+    sigma = np.array([nb[t]["sigma"] for t in system.ff_types]) * LENGTH_SCALE
+    same("LJ epsilon", eps, box["epsilon"])
+    same("LJ sigma", np.where(eps > 0, sigma, 0.0), box["sigma"])
+    by_pair = lambda a: np.lexsort(np.asarray(a).T[::-1])  # noqa: E731  (row order of sorted pairs)
+    pairs, lj_s, c_s = system.exclusions(coulomb=True)
+    mine, ref = by_pair(pairs), by_pair(box["exclusion_pairs"])
+    same("exclusion pairs", pairs[mine], box["exclusion_pairs"][ref])
+    same("exclusion LJ scales", lj_s[mine], box["exclusion_scales"][ref])
+    same("exclusion Coulomb scales", c_s[mine], box["exclusion_scales"][ref])
+    same("bonds", np.asarray(system.bonds), box["bonds"][by_pair(box["bonds"])])
+
+    def rows(table, *fields):
+        valid = table.valid.cpu().numpy()
+        return [getattr(table, f).cpu().numpy()[valid] for f in fields]
+
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    b_atoms, b_len, b_k = rows(bonded.bonds, "atoms", "length", "k")
+    bond_of = {tuple(ab): i for i, ab in enumerate(box["bonds"].tolist())}
+    idx = np.array([bond_of[tuple(ab)] for ab in b_atoms.tolist()])
+    same("bonds' r0", b_len, f32(box["bond_r0"])[idx])
+    same("bonds' k", b_k, f32(box["bond_k"])[idx])
+    a_atoms, a_t0, a_k = rows(bonded.angles, "atoms", "theta0", "k")
+    same("angles", a_atoms, box["angles"])
+    same("angles' theta0", a_t0, f32(box["angle_theta0"]))
+    same("angles' k", a_k, f32(box["angle_k"]))
+    if bonded.torsions is not None or bonded.impropers is not None:
+        raise AssertionError("System vs tools/water.py: torsions where the box has none")
 
 
 def _pad8(a: np.ndarray, fill) -> tuple:

@@ -71,17 +71,25 @@ def test_component_carry_matches_jax_kernels():
 
 
 def test_unported_options_raise():
-    """What the port still refuses: `dense_sim_from_system` (ROADMAP item 9)
+    """What the port still refuses: `dense_sim_from_system` on a System
+    without a periodic box or with a non-cubic one (as the reference does),
     and the straggler engine on a spill config; an unknown backend, rebin,
     thermostat or barostat is a ValueError.  A state's charges now cross
     from JAX bit for bit."""
+    from emdee_tpu_torch.modelling.system import System
     from emdee_tpu_torch.neighbors import cell_dense_molecular as tmol
     from emdee_tpu_torch.neighbors import cell_dense_straggler as tsd
 
     pos, vel, params, config, _ = lj_setup(864, 0.5, seed=3)
     model = LennardJonesModel.create(2.5, 2.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        tmol.dense_sim_from_system(None, cutoff=2.5, switch=2.0, dt=DT)
+    system = System(names=["AR"] * 4, resnames=["UNK"], residue_spans=[(0, 4)], positions=np.eye(4, 3),
+                    velocities=np.zeros((4, 3)), masses=np.ones(4), bonds=[], ff_types=[""] * 4,
+                    charges=np.zeros(4), box_lengths=None)
+    with pytest.raises(ValueError, match="no periodic box"):
+        tmol.dense_sim_from_system(system, cutoff=2.5, switch=2.0, dt=DT, device="cpu")
+    system.box_lengths = np.array([10.0, 10.0, 12.0])
+    with pytest.raises(NotImplementedError, match="non-cubic"):
+        tmol.dense_sim_from_system(system, cutoff=2.5, switch=2.0, dt=DT, device="cpu")
     for kw in ({"backend": "pallas"}, {"rebin": "shift_xla"}, {"thermostat": object()},
                {"barostat": object()}):
         with pytest.raises(ValueError):
