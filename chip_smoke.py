@@ -119,7 +119,24 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   on (2,2,2) `'auto'` (K5s-mol; 200 gated steps from the lattice start);
 - the grid's Langevin and Berendsen NPT (on K2-G's and on K5s's energy
   pass) on the 97,556-atom melt at (2,2,2), M = 16, and
-  `reconfigure_grid_state` on the NPT end state.
+  `reconfigure_grid_state` on the NPT end state;
+- spill configs on the grid engine (`phase_grid_spill`): the melt's spill
+  config (M = 16, C = 32, squeezed toward 28) from its spill init, its
+  rebin through K7-G (the grid's spill pass over two-layer halo planes,
+  three launches a rebin): K7-G vs its plain version on (1,1,1) and
+  (2,2,2), drifted and with the y pass overflowing, and on (1,1,1) vs
+  K7; 1,000 gated NVE steps on (1,1,1) and (2,2,2) on 'auto' (K2-G), the
+  end states bitwise equal; 200 on (2,2,2) 'cuda_streaming' (K5s);
+  Langevin on (2,2,2); the (1,1,1) run on a one-rank NCCL `DistMesh`;
+- parts 3 to 6 of the multi-device dry run (`distributed/dryrun.py`: the
+  LJ grid, DSF charges and tags, bonded terms with leftover exclusions,
+  the same on the kernels) on one NCCL rank, each bitwise equal to the
+  `LocalMesh` run;
+- the straggler engine on the streaming family at 1M
+  (`phase_straggler_1m`: M = 37, C_t = 30, C_w = 36, A = 96, Kn = 16 on
+  'cuda_streaming', K5's split entry and the gather pass): K5 vs plain,
+  600 gated steps, beside the dense 1M carry on 'auto' (K5) and 'cuda'
+  (K2a).
 
 Last, the two TPU probes of tools/ (P1, an fma chain shaped like the force
 kernel; P2, the centre-expansion product in two layouts) against their plain
@@ -725,15 +742,102 @@ def phase_1m(device, tag):
     return {"dense_1m": counts, "stacked_1m": counts_s}, ms, eq
 
 
+def phase_straggler_1m(device, tag, eq):
+    """The straggler engine on the streaming family at 1M: the equilibrated
+    1M melt of `phase_1m` at the reference's 1M straggler config
+    (tools/perf_strag_1m.py: M = 37, C_t = 30, C_w = 36, A = 96, Kn = 16,
+    rebin every 6) on 'cuda_streaming' (K5's split entry for the grid, the
+    gather pass with the fixed-order fold for the tail, K4 for the wide
+    rebin, K2b for the energies): K5 split vs its plain version on the
+    straggler grid within 2e-5 of the force scale; 600 gated steps (no
+    overflow and no Kn flag, drift, launches), a parked tail at the end,
+    bitwise reruns, no host waits; its ms/step and device kernels a step
+    beside the dense 1M carry's on 'auto' (K5) and 'cuda' (K2a) at the
+    same rebin interval.  Returns ({path: counts}, ms/step, K5's max |dF|
+    vs plain)."""
+    from emdee_tpu_torch import cell_dense_init, make_cell_dense_sim, make_straggler_sim, straggler_init
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming_split
+
+    config, model, params, uni = eq["config"], eq["model"], eq["params"], eq["uni"]
+    n = config.num_atoms
+    sconfig = straggler_config(config, 2, 96, 16)
+    if (sconfig.grid.cells_per_dim, sconfig.grid.capacity, sconfig.wide_capacity) != (37, 30, 36):
+        raise AssertionError(f"1M straggler config: {sconfig}")
+    k = 6
+    s0 = straggler_init(eq["pos"], eq["vel"], np.ones(n), params, sconfig, device=device)
+    nc = sconfig.grid.num_cells
+    parked0 = int((s0.aux_cell < nc).sum())
+    if bool(s0.grid.overflow) or parked0 < 1:
+        raise AssertionError(f"1M straggler init: overflow {bool(s0.grid.overflow)}, {parked0} parked")
+    p3 = s0.grid.positions.permute(2, 0, 1).contiguous()
+    args = (p3[0], p3[1], p3[2], s0.grid.valid, sconfig.grid)
+    got = torch.stack(cell_forces_streaming_split(*args, uniform_params=uni, backend="cuda"))
+    want = torch.stack(cell_forces_streaming_split(*args, uniform_params=uni, backend="torch"))
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = close("1M straggler grid: K5 split vs plain", got, want, atol=2e-5 * scale)
+    del got, want, p3
+
+    roll, energy = make_straggler_sim(sconfig, model, dt=DT, uniform_params=uni, uniform_mass=1.0,
+                                      backend="cuda_streaming")
+    roll(s0, num_steps=2 * k, rebin_every=k)  # warm-up
+    steps = 600
+    out, sec, drift, counts = gate_rollout(
+        "1M straggler path", roll, energy, s0, steps, k,
+        launches(cell_forces_streaming=2 * (steps + 2), cell_forces=2, rebin_routing=-(-steps // k)),
+    )
+    parked1 = int((out.aux_cell < nc).sum())
+    if parked1 < 1:
+        raise AssertionError("1M straggler path: no parked aux atom at the end")
+    bitwise_rerun("1M straggler path", roll, s0, 60, k)
+    no_host_waits("1M straggler path", lambda: roll(s0, num_steps=2 * k, rebin_every=k))
+    ms = 1e3 * sec / steps
+    kps = kernels_per_step(lambda: roll(s0, num_steps=30, rebin_every=k), 30)
+    del out
+    st0 = cell_dense_init(eq["pos"], eq["vel"], np.ones(n), params, config, device=device)
+    dense = {}
+    for backend in ("auto", "cuda"):
+        d_roll, _ = make_cell_dense_sim(config, model, dt=DT, backend=backend, uniform_params=uni, uniform_mass=1.0)
+        d_roll(st0, num_steps=2 * k, rebin_every=k)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if bool(d_roll(st0, num_steps=300, rebin_every=k).overflow):
+            raise AssertionError(f"1M dense carry on {backend!r}: overflow")
+        dense[backend] = (1e3 * (time.perf_counter() - t0) / 300,
+                          kernels_per_step(lambda: d_roll(st0, num_steps=30, rebin_every=k), 30))
+    fmt = lambda v: "not measured" if v is None else f"{v:.1f}"  # noqa: E731
+    log(f"{tag} 1M straggler path ('cuda_streaming': K5 split + the gather pass; C_t={sconfig.grid.capacity} "
+        f"C_w={sconfig.wide_capacity} A={sconfig.aux_capacity} Kn={sconfig.kn}, rebin every {k}): K5 split vs plain "
+        f"max |dF| {err:.3e} (scale {scale:.3f}); {steps} steps in {sec:.3f} s = {ms:.4f} ms/step, "
+        f"{n * steps / sec:,.0f} atom-steps/s, {fmt(kps)} device kernels a step; NVE drift {drift:.3e}; parked "
+        f"{parked0} -> {parked1}; launches {counts}; reruns bitwise equal; no host waits.  The dense 1M carry at "
+        f"the same rebin interval: 'auto' (K5) {dense['auto'][0]:.4f} ms/step, {fmt(dense['auto'][1])} kernels a "
+        f"step; 'cuda' (K2a) {dense['cuda'][0]:.4f} ms/step, {fmt(dense['cuda'][1])} kernels a step")
+    return {"straggler_1m": counts}, ms, err
+
+
 def counters():
+    """{kernel: (its wrapper's module, the module's launch counter)}."""
     from emdee_tpu_torch.neighbors import (
         cell_kernel, compact_kernel, rebin_kernel, rebin_window_kernel, straggler_kernel, streaming_kernel,
     )
     from emdee_tpu_torch.tools import probes
 
-    return {"cell_forces": cell_kernel, "cell_forces_streaming": streaming_kernel,
-            "rebin_routing": rebin_kernel, "straggler_aux": straggler_kernel,
-            "compact_window": compact_kernel, "rebin_window": rebin_window_kernel, "probes": probes}
+    return {"cell_forces": (cell_kernel, "LAUNCHES"), "cell_forces_streaming": (streaming_kernel, "LAUNCHES"),
+            "rebin_routing": (rebin_kernel, "LAUNCHES"), "straggler_aux": (straggler_kernel, "LAUNCHES"),
+            "compact_window": (compact_kernel, "LAUNCHES"), "rebin_window": (rebin_window_kernel, "LAUNCHES"),
+            "spill_window": (rebin_window_kernel, "SPILL_LAUNCHES"), "probes": (probes, "LAUNCHES")}
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count set to 0."""
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    """{kernel: launches since `zero_counts`}."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
 
 
 def launches(**nonzero):
@@ -755,14 +859,26 @@ def no_host_waits(label, fn) -> None:
     torch.cuda.synchronize()
 
 
+def kernels_per_step(run, steps: int):
+    """Device kernels a step of `run()`, a call that runs `steps` steps, from
+    one `torch.profiler` window after a warm-up call; None (not measured)
+    where the profiler records no device activity."""
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n / steps if n else None
+
+
 def gate_rollout(label, rollout, energy, st0, steps, rebin_every, expected, drift_gate=DRIFT_GATE):
     """Run one measured rollout with every launch counter set to 0 just
     before it; gate overflow, NVE drift (≤ `drift_gate`) and the launch
     counts (`expected`, by kernel, the two energy calls included).  Returns
     (final state, seconds, drift, counts)."""
-    mods = counters()
-    for mod in mods.values():
-        mod.LAUNCHES = 0
+    zero_counts()
     pe0, _, ke0 = energy(st0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -770,7 +886,7 @@ def gate_rollout(label, rollout, energy, st0, steps, rebin_every, expected, drif
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     pe1, _, ke1 = energy(out)
-    counts = {name: mod.LAUNCHES for name, mod in mods.items()}
+    counts = read_counts()
     e0, e1 = float(pe0 + ke0), float(pe1 + ke1)
     drift = abs(e1 - e0) / max(abs(e0), 1.0)
     if bool(getattr(out, "grid", out).overflow):
@@ -1229,16 +1345,14 @@ def phase_thermostat(tag, label, config, model, st0, thermostat, rebin, main_ms,
     forces = 1 + steps + records + (rebins if "barostat" in extra else 0)
     routing = {"compact_window": rebins} if config.spill else {"rebin_routing": rebins}
     expected = launches(cell_forces=forces, **routing)
-    mods = counters()
-    for mod in mods.values():
-        mod.LAUNCHES = 0
+    zero_counts()
     g = torch.Generator(device=device).manual_seed(7)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, rec = rollout(st0, num_steps=steps, rebin_every=rebin, record=True, rng=g)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    counts = {name: mod.LAUNCHES for name, mod in mods.items()}
+    counts = read_counts()
     if bool(out.overflow):
         raise AssertionError(f"{label}: overflow")
     if counts != expected:
@@ -1306,6 +1420,15 @@ def phase_nvt_npt(device, tag, wide, spill_st, scfg, model, pos_eq, vel_eq, para
             {"nvt_csvr": ms_nvt, "nvt_langevin_spill": ms_lan, "npt": ms_npt})
 
 
+def grid_fields(sh, ns):
+    """A grid-sharded state's transported fields as the grid engine's NVE
+    rebin reads them: x, y, z, vx, vy, vz, 1/m, σ/2, 2√ε (views of the
+    state's tensors), atom id (ns in empty slots)."""
+    pos3, vel3 = sh.positions.movedim(-1, 0), sh.velocities.movedim(-1, 0)
+    return ([pos3[i] for i in range(3)] + [vel3[i] for i in range(3)]
+            + [sh.inv_masses, sh.half_sigma, sh.twice_sqrt_eps, torch.where(sh.valid, sh.atom_id, ns)])
+
+
 def phase_rebin_window(device, tag):
     """K6 (the grid engine's rebin pass: a warp a row over each shard's own
     rows, with only the halo planes exchanged) as the grid's rebin calls it
@@ -1328,11 +1451,6 @@ def phase_rebin_window(device, tag):
 
     st, config, _, params, _, n = melt(device)
     box = torch.full((), config.box, dtype=torch.float32, device=device)
-
-    def grid_fields(sh, ns):
-        pos3, vel3 = sh.positions.movedim(-1, 0), sh.velocities.movedim(-1, 0)
-        return ([pos3[i] for i in range(3)] + [vel3[i] for i in range(3)]
-                + [sh.inv_masses, sh.half_sigma, sh.twice_sqrt_eps, torch.where(sh.valid, sh.atom_id, ns)])
 
     def new_rebin(x, mesh, local, m, c, ns):
         flag = None
@@ -1521,7 +1639,8 @@ def phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_
     bitwise equal, the (1,1,1) run through a one-rank NCCL `DistMesh`
     bitwise equal to `LocalMesh`, and a short CSVR run; K2-G's variants'
     resources as the card reports them.  Returns ({path: counts}, {path:
-    ms/step}, max |dF| vs plain, K2-G's row fields by path)."""
+    ms/step}, max |dF| vs plain, K2-G's row fields by path, {path: device
+    kernels a step})."""
     from emdee_tpu_torch import cell_dense_init, gather_dense_atoms, make_cell_dense_sim, reconfigure_dense_state
     from emdee_tpu_torch.distributed.grid_sharded import (
         distribute_grid, gather_grid_atoms, gather_grid_state, make_grid_sharded_sim,
@@ -1536,7 +1655,7 @@ def phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_
         raise AssertionError(f"grid config: M={cfg16.cells_per_dim}, overflow {bool(st16.overflow)}")
     runs = [((1, 1, 1), config, st17), ((1, 1, 1), cfg16, st16), ((2, 2, 2), cfg16, st16), ((2, 4, 1), cfg16, st16)]
     steps, short = 1000, 30
-    counts, ms, finals, err, k2g = {}, {}, {}, 0.0, {}
+    counts, ms, finals, err, k2g, kps = {}, {}, {}, 0.0, {}, {}
     fixture_gap = {shape: grid_vs_dense_fixture(shape, device) for shape in dict.fromkeys(r[0] for r in runs)}
     for shape, cfg, st in runs:
         name = f"grid_{''.join(map(str, shape))}_m{cfg.cells_per_dim}"
@@ -1562,6 +1681,7 @@ def phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_
         no_host_waits(label, lambda: roll(sh, num_steps=2 * k, rebin_every=k))
         counts[name], ms[name] = c, 1e3 * sec / steps
         finals[name] = state_to_numpy(gather_grid_state(out, cfg, mesh))
+        kps[name] = kernels_per_step(lambda: roll(sh, num_steps=60, rebin_every=k), 60)
         log(f"{tag} {label} (LocalMesh, uniform params): {steps} steps in {sec:.3f} s = {ms[name]:.4f} ms/step, "
             f"{ms[name] / main_ms:.2f}x the dense main path ({main_ms:.4f}); NVE drift {drift:.3e}; launches {c}; "
             f"forces bit-exact vs one-card K2; {short} steps vs the dense engine: the JAX test's fixture max |d| "
@@ -1586,15 +1706,13 @@ def phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_
     sh = distribute_grid(st16, cfg16, mesh)
     roll, energy = make_grid_sharded_sim(cfg16, model, DT, mesh, uniform_params=uni, thermostat=CSVRConfig(T_NVT, TAU_T))
     roll(sh, num_steps=2 * k, rebin_every=k, rng=torch.Generator(device=device).manual_seed(1))  # warm-up
-    mods = counters()
-    for mod in mods.values():
-        mod.LAUNCHES = 0
+    zero_counts()
     csvr_steps = 200
     t0 = time.perf_counter()
     out = roll(sh, num_steps=csvr_steps, rebin_every=k, rng=torch.Generator(device=device).manual_seed(7))
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    c = {name: mod.LAUNCHES for name, mod in mods.items()}
+    c = read_counts()
     if c != launches(cell_forces=csvr_steps + 1, rebin_window=3 * -(-csvr_steps // k)) or bool(out.overflow):
         raise AssertionError(f"grid CSVR: launches {c}, overflow {bool(out.overflow)}")
     t_of = lambda s: 2.0 * float(energy(s)[2]) / (3.0 * n - 3.0)  # noqa: E731
@@ -1615,7 +1733,7 @@ def phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k, main_
     res = {name: lj_resources(u, e, False, True) for name, u, e in (
         ("uniform", True, False), ("per-atom", False, False), ("per-atom energies", False, True))}
     log(f"{tag} K2-G (cell_lj_kernel, GHOST) resources: {resources_line(res)}")
-    return counts, ms, err, {**k2g, "resources": res}
+    return counts, ms, err, {**k2g, "resources": res}, kps
 
 
 def phase_probes(device, tag):
@@ -2069,9 +2187,7 @@ def phase_modelling(device, tag):
         log(f"modelling: equilibrated {WATER_EQ_STEPS} steps with the path's own CSVR rollout; total energy by "
             f"chunk of {MODEL_CHUNK}: " + ", ".join(f"{e:.0f}" for e in totals) + " kJ/mol")
         traj, ckpt = os.path.join(tmp, "traj.xyz"), os.path.join(tmp, "ckpt.npz")
-        mods = counters()
-        for mod in mods.values():
-            mod.LAUNCHES = 0
+        zero_counts()
         t0 = time.perf_counter()
         final, history = run_dense_simulation(
             st, roll, energy, RunnerConfig(total_steps=MODEL_CHUNKS * MODEL_CHUNK, chunk_steps=MODEL_CHUNK,
@@ -2079,7 +2195,7 @@ def phase_modelling(device, tag):
             n, names=system.names, rebin_every=WATER_REBIN, rng=gen)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        counts = {name: mod.LAUNCHES for name, mod in mods.items()}
+        counts = read_counts()
         # K5c: two launches a force evaluation, each chunk's first forces, its
         # steps and its energy; K4: one a rebin block.
         expected = launches(cell_forces_streaming=2 * MODEL_CHUNKS * (MODEL_CHUNK + 2),
@@ -2752,9 +2868,7 @@ def phase_grid_ensembles(device, tag, config, model, uni, pos_eq, vel_eq, params
         after each) with every launch counter set to 0 just before; gates
         the flag and the launches; reruns and host waits."""
         roll(st0, num_steps=2 * k, rebin_every=k, rng=gen(1))  # warm-up
-        mods = counters()
-        for mod in mods.values():
-            mod.LAUNCHES = 0
+        zero_counts()
         g, out, temps = gen(seed), st0, []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2764,7 +2878,7 @@ def phase_grid_ensembles(device, tag, config, model, uni, pos_eq, vel_eq, params
                 temps.append(2.0 * kinetic(out) / (3.0 * n - 3.0))
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        c = {name_: mod.LAUNCHES for name_, mod in mods.items()}
+        c = read_counts()
         if bool(out.overflow) or c != expected:
             raise AssertionError(f"{label}: overflow {bool(out.overflow)}, launches {c}, expected {expected}")
         bitwise_rerun(label, roll, st0, 50, k, seed=11)
@@ -2831,6 +2945,259 @@ def phase_grid_ensembles(device, tag, config, model, uni, pos_eq, vel_eq, params
         f"M={cfg2.cells_per_dim} C={cfg2.capacity} at box {cfg2.box:.4f}; every atom's position (up to the wrap) "
         f"and velocity survive exactly; 100 more NPT steps on {npt2.family!r}: no flag, box {float(cont.box):.4f}")
     return counts, ms
+
+
+def phase_grid_spill(device, tag, st, scfg, model, uni, params, grid_ms, grid_kps):
+    """Spill configs on the grid engine, at the melt's spill config (M = 16,
+    C = 32, squeezed toward 28) from its spill init.  K7-G (the grid's spill
+    pass) as the grid's rebin calls it — each pass on the shards' own rows
+    with the two-layer halo planes, the first on the raw fields, parked and
+    wrapped — on the state drifted 0.45·skin and on it with the cells at
+    y = 0 moved one cell up (the y pass overflows), on (1,1,1) and (2,2,2):
+    every pass vs its plain version, bit for bit in every slot and the
+    flag; how many spills and hold-backs fired, across shard faces and the
+    periodic seam; on (1,1,1) the three passes vs K7's route of the
+    one-card state (the live slots, every slot of the fields but the
+    positions, whose fill differs, the mask, the flag); K7-G's times (a
+    pass, and the whole rebin with its halo planes), its plain version's,
+    one `scatter_` compaction of a pass, and its bound.  Then, measured and
+    not gated, whether 1,000 NVE steps at C = 32 on (2,2,2) 'auto' raise the
+    flag, and at which rebin, with that rebin's cause (ROADMAP fault R6: on
+    this trajectory a cell's true occupancy passes C).  Then the engine at
+    C = 40 (the grid's plain-config capacity at M = 16), still squeezed
+    toward 28: 1,000 gated NVE steps on (1,1,1) and (2,2,2) on 'auto'
+    (K2-G), rebinning every 6 (drift, three K7-G launches a rebin, reruns,
+    no host waits), the two end states bitwise equal; 200 gated steps on
+    (2,2,2) 'cuda_streaming' (K5s within 2e-5 of its plain version's
+    forces); Langevin on (2,2,2), the mean T* of the last 500 of 1,000
+    steps within 2%; the (1,1,1) run through a one-rank NCCL `DistMesh`;
+    ms/step and device kernels a step beside the plain-config grid's.
+    Returns (K7-G's row, {path: counts}, {path: ms/step})."""
+    from emdee_tpu_torch import LangevinConfig, cell_dense_init, gather_dense_atoms, suggest_rebin_interval
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, gather_grid_state, make_grid_sharded_sim
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+    from emdee_tpu_torch.neighbors.cell_dense import (
+        _axis_coords, _roll_cells, _route_windows, _spill_params, state_to_numpy,
+    )
+    from emdee_tpu_torch.neighbors.compact_kernel import spill_routing
+    from emdee_tpu_torch.tools.fixtures import spill_census
+
+    m, c, ns, n = scfg.cells_per_dim, scfg.capacity, scfg.num_slots, scfg.num_atoms
+    box = torch.full((), scfg.box, dtype=torch.float32, device=device)
+    spill = _spill_params(scfg)
+    sd = drifted(st, SKIN)
+    crowd = ((torch.arange(m**3, device=device) // m) % m == 0)[:, None, None] & sd.valid[..., None]
+    up_y = torch.tensor([0.0, float(scfg.cell_side), 0.0], device=device)
+    crowded = sd._replace(positions=sd.positions + torch.where(crowd, up_y, 0.0))
+    before = state_to_numpy(sd)
+
+    def passes(x, mesh, local, check):
+        """The three K7-G passes; with `check`, each vs its plain version."""
+        raised = torch.zeros((), dtype=torch.int32, device=device)
+        for axis in range(3):
+            lo, hi = k6.halo_planes(x, mesh, axis, depth=2)
+            args = (x, lo, hi, k6.global_coords(mesh, local, axis), box, axis, m, c, ns, spill, axis == 0)
+            got, flag = k6.spill_halo_pass(*args, backend="cuda")
+            if check:
+                plain, ovf = k6.spill_halo_plain(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(got, plain) or bool(flag) != bool(ovf):
+                    raise AssertionError(f"K7-G: the {'zyx'[axis]} pass differs from its plain version")
+            raised = raised | flag
+            x = got
+        return x, raised
+
+    # One pass's compaction by one scatter_ (the z pass's windows of the
+    # one-card fields): the part of the pass that one PyTorch call computes.
+    flds = [sd.positions[..., i] for i in range(3)] + [sd.velocities[..., i] for i in range(3)]
+    flds += [sd.inv_masses, sd.half_sigma, sd.twice_sqrt_eps]
+    wrapped = [torch.where(sd.valid, f - torch.floor(f / box) * box, 0.0) for f in flds[:3]] + flds[3:] + [sd.atom_id]
+    ovf0 = torch.zeros((), dtype=torch.bool, device=device)
+    nbr = lambda x, d: _roll_cells(x, (0, 0, d), m)  # noqa: E731  the z pass
+    s_, keep, win, _, _ = _route_windows(wrapped, sd.valid, ovf0, 2, _axis_coords(m, device)[0], m, c, nbr, box, spill)
+    nf_, rows_, k3 = win.shape
+    lane = torch.arange(k3, device=device)
+    dest = torch.where(keep & (lane - s_ < c), lane - s_.long(), c).expand(nf_, rows_, k3)
+    dump = torch.zeros((nf_, rows_, c + 1), dtype=torch.int32, device=device)
+    scatter_ms = device_ms(lambda: dump.scatter_(2, dest, win), 200)
+    del s_, keep, win, dest, dump
+
+    timing, census = {}, {}
+    for shape in ((1, 1, 1), (2, 2, 2)):
+        mesh = make_grid_mesh(shape, device=device)
+        local = tuple(m // d for d in shape)
+        for label, s, want in (("drifted", sd, False), ("crowded", crowded, True)):
+            sh = distribute_grid(s, scfg, mesh)
+            x, raised = passes(grid_fields(sh, ns), mesh, local, True)
+            if bool(raised) != want:
+                raise AssertionError(f"K7-G {shape} {label}: flag {bool(raised)}, expected {want}")
+            if shape == (1, 1, 1):
+                one = [s.positions[..., i] for i in range(3)] + [s.velocities[..., i] for i in range(3)]
+                one += [s.inv_masses, s.half_sigma, s.twice_sqrt_eps, s.atom_id]
+                ref, valid, ovf = spill_routing(tuple(one), box, m, c, ns, spill, s.valid, backend="cuda")
+                got = x.reshape(len(one), m**3, c)
+                torch.cuda.synchronize()
+                if bool(ovf) != want or not torch.equal(got[-1] < ns, valid):
+                    raise AssertionError(f"K7-G (one shard) vs K7, {label}: the flag or the mask differs")
+                for i, r in enumerate(ref):
+                    mask = valid if i < 3 else torch.ones_like(valid)
+                    if not torch.equal(got[i][mask], r.view(torch.int32)[mask]):
+                        raise AssertionError(f"K7-G (one shard) vs K7, {label}: field {i} differs")
+            if label == "drifted":
+                xf, valid = x[:-1].view(torch.float32), x[-1] < ns
+                routed = sh._replace(positions=torch.where(valid, xf[0:3], 0.0).movedim(0, -1), atom_id=x[-1],
+                                     valid=valid)
+                census[shape] = spill_census(before, state_to_numpy(gather_grid_state(routed, scfg, mesh)), scfg, shape)
+        cs = census[shape]
+        if cs["spills"] < 1 or cs["holds"] < 1 or cs["seam"] < 1 or (shape != (1, 1, 1) and cs["faces"] < 1):
+            raise AssertionError(f"K7-G {shape} fixture: {cs}")
+        sh = distribute_grid(sd, scfg, mesh)
+        fields = grid_fields(sh, ns)
+        z_args = (fields, *k6.halo_planes(fields, mesh, 0, depth=2), k6.global_coords(mesh, local, 0), box, 0, m, c,
+                  ns, spill, True)
+        z = lambda: k6.spill_halo_pass(*z_args, backend="cuda")  # noqa: E731
+        whole = lambda: passes(fields, mesh, local, False)  # noqa: E731
+        t = dict(device_ms=device_ms(z, 50), ms=cuda_ms(z, 50), rebin_device_ms=device_ms(whole, 20),
+                 rebin_ms=cuda_ms(whole, 20), plain_ms=cuda_ms(lambda: k6.spill_halo_plain(*z_args), 10))
+        # Each field read once and written once, the halo planes (two layers
+        # each side; none on an axis of one shard) read once, and each row's
+        # coordinate.
+        nf, rows = len(fields), m**3
+        halo_slots = 0 if shape[0] == 1 else 4 * rows // local[0] * c
+        t["bound_ms"], t["bound_by"] = bound(4 * nf * (2 * rows * c + halo_slots) + 4 * rows, 0)
+        timing[shape] = {**t, "census": cs}
+        log(f"{tag} K7-G {shape} at the spill config (M={m} C={c} target {scfg.spill_target}, nf={nf}, strided "
+            f"positions and velocities parked and wrapped in the first pass): every pass vs plain bit-exact in every "
+            f"slot and the flag, drifted and with the y pass overflowing"
+            + (", the three vs K7's route bit-exact in the live slots, the mask and the flag" if shape == (1, 1, 1)
+               else "")
+            + f"; the rebin of the drifted state: {cs['spills']} spills, {cs['holds']} hold-backs, {cs['faces']} "
+            f"across a shard face, {cs['seam']} across the seam; z pass {t['device_ms']:.5f} ms on the device "
+            f"({t['ms']:.5f} with the host's launch cost); the whole rebin {t['rebin_device_ms']:.5f} "
+            f"({t['rebin_ms']:.5f}); plain z pass {t['plain_ms']:.4f} ms; one pass's compaction by one scatter_ "
+            f"{scatter_ms:.5f} ms; bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
+            f"{t['bound_ms'] / t['device_ms']:.1%} of it reached)")
+
+    k, steps = 6, 1000
+    # C = 32: does one 1,000-step call hold? (a measurement, not a gate)
+    mesh = make_grid_mesh((2, 2, 2), device=device)
+    roll32, _ = make_grid_sharded_sim(scfg, model, DT, mesh, uniform_params=uni)
+    sh32 = distribute_grid(st, scfg, mesh)
+    blocks = -(-steps // k)
+    if bool(roll32(sh32, num_steps=steps, rebin_every=k).overflow):
+        lo, hi = 0, blocks  # the flag is raised after block hi, not after block lo
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if bool(roll32(sh32, num_steps=k * mid, rebin_every=k).overflow) else (mid, hi)
+        start = roll32(sh32, num_steps=k * lo, rebin_every=k) if lo else sh32
+        held32 = f"the flag trips in rebin block {hi} of {blocks}; that rebin: " \
+            f"{flag_cause(gather_grid_state(start, scfg, mesh), scfg)}"
+    else:
+        held32 = f"no flag in {blocks} rebin blocks"
+    log(f"{tag} grid spill (2,2,2) at C={c} (squeezed toward {scfg.spill_target}), one {steps}-step call on 'auto', "
+        f"rebin every {k} (measured, not gated): {held32}")
+    del sh32
+
+    # The gated runs at C = 40, squeezed toward 28 all the same.
+    gcfg = scfg._replace(capacity=40)
+    gst = cell_dense_init(*gather_dense_atoms(st, n), np.ones(n), params, gcfg, device=device)
+    if bool(gst.overflow):
+        raise AssertionError("grid spill: re-init overflow at C = 40")
+    st, scfg, c = gst, gcfg, gcfg.capacity
+    counts, ms, finals, kps = {}, {}, {}, {}
+    for shape in ((1, 1, 1), (2, 2, 2)):
+        mesh = make_grid_mesh(shape, device=device)
+        name = f"grid_spill_{''.join(map(str, shape))}"
+        label = f"grid spill {shape} M={m} C={c}"
+        roll, energy = make_grid_sharded_sim(scfg, model, DT, mesh, uniform_params=uni)
+        if roll.family != "cuda":
+            raise AssertionError(f"{label}: 'auto' resolves to {roll.family!r}")
+        sh = distribute_grid(st, scfg, mesh)
+        roll(sh, num_steps=2 * k, rebin_every=k)  # warm-up
+        out, sec, drift, cnt = gate_rollout(label, roll, energy, sh, steps, k,
+                                            launches(cell_forces=steps + 4, spill_window=3 * -(-steps // k)))
+        bitwise_rerun(label, roll, sh, 100, k)
+        no_host_waits(label, lambda: roll(sh, num_steps=2 * k, rebin_every=k))
+        finals[name] = state_to_numpy(gather_grid_state(out, scfg, mesh))
+        held = spill_census(finals[name], finals[name], scfg)["holds"]
+        kps[name] = kernels_per_step(lambda: roll(sh, num_steps=60, rebin_every=k), 60)
+        counts[name], ms[name] = cnt, 1e3 * sec / steps
+        log(f"{tag} {label} ('auto' -> K2-G, K7-G rebin every {k}): {steps} steps in {sec:.3f} s = "
+            f"{ms[name]:.4f} ms/step; NVE drift {drift:.3e}; launches {cnt}; {held} atoms stored one cell above "
+            "their true cell at the end; reruns bitwise equal; no host waits")
+    a, b = finals.values()
+    if not all(np.array_equal(np.atleast_1d(b[f]).view(np.uint8), np.atleast_1d(v).view(np.uint8))
+               for f, v in a.items()):
+        raise AssertionError("grid spill: the (1,1,1) and (2,2,2) end states differ")
+
+    mesh = make_grid_mesh((2, 2, 2), device=device)
+    sh = distribute_grid(st, scfg, mesh)
+    roll_s, energy_s = make_grid_sharded_sim(scfg, model, DT, mesh, uniform_params=uni, backend="cuda_streaming")
+    roll_p, _ = make_grid_sharded_sim(scfg, model, DT, mesh, uniform_params=uni, backend="torch_streaming")
+    sdd = distribute_grid(drifted(st, SKIN), scfg, mesh)
+    fk, fp = roll_s.forces(sdd)[0], roll_p.forces(sdd)[0]
+    torch.cuda.synchronize()
+    scale = float(fp.abs().max())
+    k5s_err = close("grid spill (2,2,2): K5s vs plain", fk, fp, atol=2e-5 * scale)
+    del fk, fp, sdd
+    name, steps_s = "grid_spill_222_streaming", 200
+    roll_s(sh, num_steps=2 * k, rebin_every=k)  # warm-up
+    _, sec, drift, cnt = gate_rollout("grid spill (2,2,2) cuda_streaming", roll_s, energy_s, sh, steps_s, k,
+                                      launches(cell_forces_streaming=2 * (steps_s + 4),
+                                               spill_window=3 * -(-steps_s // k)))
+    bitwise_rerun("grid spill (2,2,2) cuda_streaming", roll_s, sh, 50, k)
+    counts[name], ms[name] = cnt, 1e3 * sec / steps_s
+    kps[name] = kernels_per_step(lambda: roll_s(sh, num_steps=60, rebin_every=k), 60)
+    log(f"{tag} grid spill (2,2,2) on 'cuda_streaming' (K5s, K7-G): K5s vs plain max |dF| {k5s_err:.3e} (scale "
+        f"{scale:.3f}); {steps_s} steps, {ms[name]:.4f} ms/step; NVE drift {drift:.3e}; launches {cnt}; reruns "
+        "bitwise equal")
+
+    k_t = suggest_rebin_interval(SKIN, DT, T_NVT)
+    lang, _ = make_grid_sharded_sim(scfg, model, DT, mesh, uniform_params=uni, thermostat=LangevinConfig(T_NVT, FRICTION))
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)  # noqa: E731
+    lang(sh, num_steps=2 * k_t, rebin_every=k_t, rng=gen(1))  # warm-up
+    steps_l, chunk = 1000, 50
+    zero_counts()
+    g, out, temps = gen(7), sh, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps_l // chunk):
+        out = lang(out, num_steps=chunk, rebin_every=k_t, rng=g)
+        ke = 0.5 * torch.sum(torch.where(out.valid[..., None], out.velocities**2, 0.0) / out.inv_masses[..., None]
+                             .clamp(min=1e-30))
+        temps.append(2.0 * ke / (3.0 * n - 3.0))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    cnt = read_counts()
+    expected = launches(cell_forces=steps_l + steps_l // chunk,
+                        spill_window=3 * (steps_l // chunk) * -(-chunk // k_t))
+    if bool(out.overflow) or cnt != expected:
+        raise AssertionError(f"grid spill Langevin: overflow {bool(out.overflow)}, launches {cnt}, "
+                             f"expected {expected}")
+    t_last = float(torch.stack(temps[len(temps) // 2:]).double().mean())
+    if not abs(t_last / T_NVT - 1.0) <= T_GATE:
+        raise AssertionError(f"grid spill Langevin: mean T* of the last 500 steps {t_last:.4f}, target {T_NVT}")
+    bitwise_rerun("grid spill Langevin", lang, sh, 50, k_t, seed=11)
+    name = "grid_spill_222_langevin"
+    counts[name], ms[name] = cnt, 1e3 * sec / steps_l
+    log(f"{tag} grid spill Langevin (2,2,2) (friction {FRICTION}, rebin every {k_t}): {steps_l} steps, "
+        f"{ms[name]:.4f} ms/step; mean T* of the last 500 steps {t_last:.4f} (gate {T_GATE:.0%} of {T_NVT}); "
+        f"launches {cnt}; reruns from one seed bitwise equal, another seed differs")
+
+    nccl_vs_local_mesh("grid spill (1,1,1)", scfg, model, DT, st, {"uniform_params": uni}, 100, k, device)
+    log(f"{tag} grid spill (1,1,1) through a one-rank NCCL DistMesh: 100 steps and the energies bitwise equal to "
+        "LocalMesh")
+    fmt = lambda v: "not measured" if v is None else f"{v:.1f}"  # noqa: E731
+    log(f"{tag}: grid spill (M={m} C={c} target {scfg.spill_target}) ms/step and device kernels a step "
+        + ", ".join(f"{p} {ms[p]:.4f} ({fmt(kps.get(p))})" for p in ms)
+        + "; the plain-config grid (M=16 C=40) " + ", ".join(f"{p} {grid_ms[p]:.4f} ({fmt(grid_kps.get(p))})"
+                                                          for p in ("grid_111_m16", "grid_222_m16")))
+    one = timing[(1, 1, 1)]
+    row = {"max_abs_err": 0.0, **{key: v for key, v in one.items() if key != "census"}, "library_ms": scatter_ms,
+           "census": one["census"], "grid_222": timing[(2, 2, 2)], "k5s_max_abs_err": k5s_err,
+           "kernels_per_step": kps}
+    return row, counts, ms
 
 
 def phase_grid_water(device, tag, w, dense_drift):
@@ -3156,9 +3523,7 @@ def phase_portable(device, tag, pos_eq, vel_eq, st0, config, model):
 
     steps = 1000
     e0 = energy_fn(state.positions, aux)[0] + kinetic_energy(state)
-    mods = counters()
-    for mod in mods.values():
-        mod.LAUNCHES = 0
+    zero_counts()
     api.HOST_READS = api.REBUILDS = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3166,7 +3531,7 @@ def phase_portable(device, tag, pos_eq, vel_eq, st0, config, model):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     reads, rebuilds = api.HOST_READS, api.REBUILDS
-    launched = {name: mod.LAUNCHES for name, mod in mods.items()}
+    launched = read_counts()
     drift = float(energy_drift(torch.cat([e0[None], traj.potential_energy + traj.kinetic_energy])))
     if bool(aux1.overflow):
         raise AssertionError("portable NVE: neighbor-list overflow")
@@ -3466,12 +3831,24 @@ def main() -> None:
         f"grid (2,2,2) (K2c-G) {grid_water_ms:.4f}")
 
     # ---- the grid-sharded engine (virtual shards on this card) ----
-    counts_grid, grid_ms, grid_err, k2g_rows = phase_grid(device, tag, config, model, uni, pos_eq, vel_eq, params, k,
-                                                          main_ms)
+    counts_grid, grid_ms, grid_err, k2g_rows, grid_kps = phase_grid(device, tag, config, model, uni, pos_eq, vel_eq,
+                                                                    params, k, main_ms)
     force["max_abs_err"] = max(force["max_abs_err"], grid_err)
     counts_ens, ens_ms = phase_grid_ensembles(device, tag, config, model, uni, pos_eq, vel_eq, params)
     log(f"{smi}: grid ensembles ms/step at {n} atoms, (2,2,2) M=16: "
         + ", ".join(f"{p} {v:.4f}" for p, v in ens_ms.items()))
+    k7g, counts_grid_spill, grid_spill_ms = phase_grid_spill(device, tag, spill_st, scfg, model, uni, params, grid_ms,
+                                                             grid_kps)
+    log(f"{smi}: grid spill ms/step at {n} atoms (M={scfg.cells_per_dim} C=40 target {scfg.spill_target}): "
+        + ", ".join(f"{p} {v:.4f}" for p, v in grid_spill_ms.items()))
+    del spill_st
+
+    # ---- parts 3 to 6 of the multi-device dry run on one NCCL rank ----
+    from emdee_tpu_torch.distributed import dryrun
+
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(1)
+    log(f"{tag} dry run parts 3-6 on one NCCL rank (a spawned process) in {time.perf_counter() - t0:.1f} s")
 
     # ---- bench_all.py's 1M melt: the streaming kernel family ----
     rebin.update({f"n1m_{key}": value for key, value in phase_rebin(device, tag, N_CELLS_1M).items()})
@@ -3480,6 +3857,8 @@ def main() -> None:
     log(f"{smi}: 1M path {ms_1m:.4f} ms/step ({1_000_188 * 1e3 / ms_1m:,.0f} atom-steps/s); K5 vs K2 split "
         f"{k5['ms']:.4f} vs {k2_1m['k2_split_ms']:.4f} ms at 1M, {k5_97k['ms']:.4f} vs "
         f"{k2_97k['k2_split_ms']:.4f} ms at 97,556 atoms")
+    counts_strag_1m, strag_1m_ms, strag_1m_err = phase_straggler_1m(device, tag, eq_1m)
+    log(f"{smi}: 1M straggler path ('cuda_streaming') {strag_1m_ms:.4f} ms/step vs the dense 1M path {ms_1m:.4f}")
     k5s, counts_grid_1m, grid_1m_ms, k2g_1m = phase_grid_1m(device, tag, eq_1m)
     del eq_1m
     log(f"{smi}: 1M grid ms/step " + ", ".join(f"{p} {v:.4f}" for p, v in grid_1m_ms.items())
@@ -3498,15 +3877,16 @@ def main() -> None:
 
     paths = {"dense": main_counts, "straggler": s_counts, **counts_spill, **counts_thermo, **counts_grid,
              **counts_1m, **counts_water, **counts_auto, **counts_water_1m, **counts_grid_water, **counts_ens,
-             **counts_grid_1m, **counts_grid_water_1m, **counts_c104, **counts_modelling}
+             **counts_grid_1m, **counts_grid_water_1m, **counts_c104, **counts_modelling, **counts_grid_spill,
+             **counts_strag_1m}
     # The K5s paths (LJ) and the K5s-mol path: the streaming kernel's GHOST
     # modes, counted in streaming_kernel.LAUNCHES.
-    k5s_paths = {p: c["cell_forces_streaming"] for p, c in {**counts_ens, **counts_grid_1m}.items()
+    k5s_paths = {p: c["cell_forces_streaming"] for p, c in {**counts_ens, **counts_grid_1m, **counts_grid_spill}.items()
                  if c["cell_forces_streaming"]}
     k5s_mol_paths = {p: c["cell_forces_streaming"] for p, c in counts_grid_water_1m.items()}
     # The grid's LJ paths on the resident family: K2-G, counted in cell_kernel.LAUNCHES.
-    k2g_paths = {p: c["cell_forces"] for p, c in {**counts_grid, **counts_ens, **counts_grid_1m}.items()
-                 if c["cell_forces"]}
+    k2g_paths = {p: c["cell_forces"] for p, c in {**counts_grid, **counts_ens, **counts_grid_1m,
+                                                   **counts_grid_spill}.items() if c["cell_forces"]}
     # The molecular paths' K5c, K2c-G and K5s-mol launches, and the K5s and K2-G paths', count in their own rows.
     mol_paths = {"cell_forces": set(counts_grid_water) | set(k2g_paths),
                  "cell_forces_streaming": set(counts_auto) | set(counts_water_1m) | set(k5s_paths)
@@ -3530,7 +3910,8 @@ def main() -> None:
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1158",
              launches=sum(by_path("cell_forces_streaming").values()),
              launches_by_path=by_path("cell_forces_streaming"), **k5,
-             **{f"n97556_{key}": value for key, value in k5_97k.items()}, **c104_row),
+             **{f"n97556_{key}": value for key, value in k5_97k.items()}, **c104_row,
+             n1m_straggler_max_abs_err=strag_1m_err),
         dict(name="cell_forces_streaming_mol", route="cuda", source="emdee_tpu_torch/csrc/cell_forces_streaming.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:1417",
              launches=counts_auto["water_auto"]["cell_forces_streaming"],
@@ -3584,6 +3965,9 @@ def main() -> None:
              witness="rebin_window_kernel (the same source)",
              launches=sum(by_path("rebin_window").values()),
              launches_by_path=by_path("rebin_window"), **k6),
+        dict(name="spill_window", route="cuda", source="emdee_tpu_torch/csrc/spill_window.cu",
+             replaces="emdee_tpu/neighbors/pallas_compact.py:101", kernel="spill_halo_kernel",
+             launches=sum(by_path("spill_window").values()), launches_by_path=by_path("spill_window"), **k7g),
         dict(name="probe_fma", route="cuda", source="emdee_tpu_torch/csrc/probes.cu",
              replaces="tools/perf_probe3.py:29", launches=0, launches_by_path={}, **p1),
         dict(name="probe_cen_layout", route="cuda", source="emdee_tpu_torch/csrc/probes.cu",

@@ -139,6 +139,9 @@ _SIGNATURES = {
     # (host long[8]), hi, hi strides, b, out, flag, shape (host int[6]), c,
     # axis, cf, m, num_slots, raw, box (device), stream
     "emdee_rebin_halo": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # K7-G: emdee_rebin_halo's arguments with two-layer halo planes, and
+    # target, threshold before the box
+    "emdee_spill_halo": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
     # x, wl, wr, b, out, flag, nf, rows, c, cf, m, num_slots, box (device),
     # stream: the former K6 over whole windows, kept as a witness
     "emdee_rebin_window": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P],

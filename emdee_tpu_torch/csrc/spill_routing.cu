@@ -35,7 +35,8 @@
 // as live.
 //
 // Design.  One cooperative launch of a persistent grid, a warp a
-// destination row (K4's layout, `rebin_row.cuh`).  Each pass first has
+// destination row (K4's layout, `rebin_row.cuh`; the per-row logic in
+// `spill_row.cuh`, shared with the grid's spill pass K7-G).  Each pass first has
 // every warp count its own row's classes (coordinate words only: one
 // ballot a class a chunk of 32 slots) into scratch, five words a row; a
 // grid barrier later each warp reads the counts of rows q−2 … q+2 there,
@@ -66,36 +67,19 @@
 #include <stdint.h>
 
 #include "rebin_row.cuh"
+#include "spill_row.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using emdee::Counts;
 using emdee::Fields;
-
-// A live slot's class along the pass axis.
-enum : int { kNone = 0, kStay, kPlus, kMinus, kIllegal };
-
-// The class of a slot whose coordinate bits are `bits`, in a row at
-// coordinate bs, and whether it is near the +face; `live` false gives
-// kNone.  Bit-exact with the torch ops of `cell_dense._route_windows`.
-__device__ __forceinline__ int classify(bool live, int bits, float box, int m, int bs, float threshold,
-                                        bool& near) {
-  near = false;
-  if (!live) return kNone;
-  const float s = __fdiv_rn(__int_as_float(bits), box);
-  const float ms = __fmul_rn(static_cast<float>(m), __fsub_rn(s, floorf(s)));
-  int t = static_cast<int>(floorf(ms));
-  t = min(max(t, 0), m - 1);
-  near = __fsub_rn(ms, static_cast<float>(t)) > threshold;
-  int d = t - bs;  // (t − bs) mod m: both lie in [0, m)
-  if (d < 0) d += m;
-  return d == 0 ? kStay : (d == 1 ? kPlus : (d == m - 1 ? kMinus : kIllegal));
-}
 
 // Where a pass reads: the caller's fields with its valid mask (the first
 // pass, which wraps positions when `wrap`), or the previous pass's output
-// (field f at prev[f·slots + slot]) with its row counts.
+// (field f at prev[f·slots + slot]) with its row counts.  A row is its cell
+// index.
 struct Source {
   const Fields* f;       // first pass
   const uint8_t* valid;  // first pass
@@ -116,110 +100,33 @@ struct Source {
   }
 };
 
-// A row's class counts: +1 movers, stayers, −1 movers, near-face stayers
-// (spill candidates), near-face −1 movers (hold candidates).
-struct Counts {
-  int plus, stay, minus, near_stay, near_minus;
-};
-
 // The class counts of row `cell` at coordinate bs, warp uniform.
-__device__ __forceinline__ Counts count_row(const Source& in, int cell, int bs, int cf, float box, int m,
+__device__ __forceinline__ Counts cell_counts(const Source& in, int cell, int bs, int cf, float box, int m,
                                             float threshold) {
-  Counts k{0, 0, 0, 0, 0};
-  for (int j0 = 0; j0 < in.c; j0 += 32) {
-    const int j = j0 + (threadIdx.x & 31);
-    const bool live = j < in.c && in.live(cell, j);
-    bool near;
-    const int cls = classify(live, live ? in.word(cf, cell, j, box) : 0, box, m, bs, threshold, near);
-    k.plus += __popc(__ballot_sync(0xffffffffu, cls == kPlus));
-    k.stay += __popc(__ballot_sync(0xffffffffu, cls == kStay));
-    k.minus += __popc(__ballot_sync(0xffffffffu, cls == kMinus));
-    k.near_stay += __popc(__ballot_sync(0xffffffffu, cls == kStay && near));
-    k.near_minus += __popc(__ballot_sync(0xffffffffu, cls == kMinus && near));
-  }
-  return k;
+  const auto live = [&](int r, int j) { return in.live(r, j); };
+  const auto word = [&](int f, int r, int j) { return in.word(f, r, j, box); };
+  return emdee::count_row(cell, live, word, in.c, bs, cf, box, m, threshold);
 }
 
 // Route destination row `cell` of a pass along `axis` with one warp into
 // `row` (field f at row[f·slots + slot]); `k` holds the class counts of
-// rows q−2 … q+2.  Writes the row's count to `count_out` and returns,
+// rows q−2 … q+2.  Slots at or beyond the count hold 0, num_slots in the
+// last field.  Writes the row's count to `count_out` and returns,
 // uniformly over the warp, whether the row raises the flag.
-__device__ __forceinline__ bool spill_row(const Source& in, const Counts* k, int* row, int* count_out,
+__device__ __forceinline__ bool route_cell(const Source& in, const Counts* k, int* row, int* count_out,
                                           long slots, int nf, int m, int axis, int cf, int cell, int num_slots,
                                           float box, int target, float threshold) {
-  const int lane = threadIdx.x & 31;
-  const unsigned before = (1u << lane) - 1u;
-  const int c = in.c;
   int b, stride;
   emdee::axis_of(cell, m, axis, b, stride);
-  // excess and room of rows q−1, q, q+1 (index 0, 1, 2).
-  int excess[3], room[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const int count0 = k[i].plus + k[i + 1].stay + k[i + 2].minus;
-    excess[i] = max(count0 - target, 0);
-    room[i] = max(target - count0, 0);
-  }
-  // Spills out of a row (n_plus) and holds in the row above it (n_hold),
-  // decided by rows q−1 and q.
-  int spills[2], holds[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    spills[i] = min(min(excess[i], room[i + 1]), k[i + 1].near_stay);
-    holds[i] = min(min(excess[i] - spills[i], room[i + 1] - spills[i]), k[i + 2].near_minus);
-  }
-
-  int count = 0;
-  bool bad_any = false;
-  for (int seg = 0; seg < 3; ++seg) {
-    int bs;
-    const int src = emdee::cell_at(cell, b, stride, m, seg - 1, bs);
-    int ranked_stay = 0, ranked_minus = 0;  // the row's near-face stayers and −1 movers so far
-    for (int j0 = 0; j0 < c; j0 += 32) {
-      const int j = j0 + lane;
-      const bool live = j < c && in.live(src, j);
-      const int bits = live ? in.word(cf, src, j, box) : 0;
-      bool near;
-      const int cls = classify(live, bits, box, m, bs, threshold, near);
-      const bool near_stay = cls == kStay && near, near_minus = cls == kMinus && near;
-      const unsigned ballot_stay = __ballot_sync(0xffffffffu, near_stay);
-      const unsigned ballot_minus = __ballot_sync(0xffffffffu, near_minus);
-      // In-cell exclusive ranks among the row's spill and hold candidates.
-      const int rank_stay = ranked_stay + __popc(ballot_stay & before);
-      const int rank_minus = ranked_minus + __popc(ballot_minus & before);
-      ranked_stay += __popc(ballot_stay);
-      ranked_minus += __popc(ballot_minus);
-      bool keep, seam = false;
-      if (seg == 0) {  // row q−1: its +1 movers and its spills
-        const bool spill = near_stay && rank_stay < spills[0];
-        keep = cls == kPlus || spill;
-        seam = spill && bs == m - 1;
-      } else if (seg == 1) {  // row q: its stayers but its spills, and its holds
-        const bool spill = near_stay && rank_stay < spills[1];
-        const bool hold = near_minus && rank_minus < holds[0];
-        keep = (cls == kStay && !spill) || hold;
-        seam = hold && bs == 0;
-        bad_any |= __any_sync(0xffffffffu, cls == kIllegal);
-      } else {  // row q+1: its −1 movers but its holds
-        keep = cls == kMinus && !(near_minus && rank_minus < holds[1]);
-      }
-      const unsigned kept = __ballot_sync(0xffffffffu, keep);
-      const int rank = count + __popc(kept & before);
-      if (keep && rank < c) {
-        int* __restrict__ dst = row + rank;
-        for (int f = 0; f < nf; ++f) {
-          int v = f == cf ? bits : in.word(f, src, j, box);
-          if (f == cf && seam) v = __float_as_int(__fsub_rn(__int_as_float(v), box));
-          dst[f * slots] = v;
-        }
-      }
-      count += __popc(kept);
-    }
-  }
-  for (int j = count + lane; j < c; j += 32)
-    for (int f = 0; f < nf; ++f) row[f * slots + j] = f == nf - 1 ? num_slots : 0;
-  if (lane == 0) count_out[cell] = count;
-  return bad_any || count > c;
+  const auto source = [&](int seg, int& bs) { return emdee::cell_at(cell, b, stride, m, seg - 1, bs); };
+  const auto live = [&](int r, int j) { return in.live(r, j); };
+  const auto word = [&](int f, int r, int j) { return in.word(f, r, j, box); };
+  const auto fill = [&](int f) { return f == nf - 1 ? num_slots : 0; };
+  int count;
+  const bool raised =
+      emdee::spill_row(source, live, word, fill, k, row, slots, nf, m, in.c, cf, box, target, threshold, count);
+  if ((threadIdx.x & 31) == 0) count_out[cell] = count;
+  return raised;
 }
 
 // Threads a block (8 rows at a time), and the blocks an SM that the launch
@@ -236,7 +143,7 @@ __device__ __forceinline__ void stage_counts(const Source& in, int* scratch, int
   for (int cell = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5); cell < rows; cell += warps) {
     int b, stride;
     emdee::axis_of(cell, m, axis, b, stride);
-    const Counts k = count_row(in, cell, b, cf, box, m, threshold);
+    const Counts k = cell_counts(in, cell, b, cf, box, m, threshold);
     if ((threadIdx.x & 31) == 0) {
       int* w = scratch + 5L * cell;
       w[0] = k.plus;
@@ -267,7 +174,7 @@ __device__ __forceinline__ bool spill_pass(const Source& in, int* out, int* coun
       const int* w = scratch + 5L * emdee::cell_at(cell, b, stride, m, r - 2, bs);
       k[r] = Counts{w[0], w[1], w[2], w[3], w[4]};
     }
-    raised |= spill_row(in, k, out + static_cast<long>(cell) * in.c, count_out, slots, nf, m, axis, cf, cell,
+    raised |= route_cell(in, k, out + static_cast<long>(cell) * in.c, count_out, slots, nf, m, axis, cf, cell,
                         num_slots, box, target, threshold);
   }
   return raised;

@@ -1,17 +1,27 @@
-"""A multi-process dry run of the grid-sharded engine — counterpart of part 3
-of `dryrun_multichip` in the repository's `__graft_entry__.py`: the LJ grid
-engine at its tiny shapes on an (nz, ny, nx) factorisation of n ranks, one
-shard a rank, over `torch.distributed` (`DistMesh`): gloo ranks on the CPU,
-or NCCL when n cards are present.
+"""A multi-process dry run of the grid-sharded engine — counterpart of parts
+3 to 6 of `dryrun_multichip` in the repository's `__graft_entry__.py`, at
+its tiny shapes on an (nz, ny, nx) factorisation of n ranks, one shard a
+rank, over `torch.distributed` (`DistMesh`): gloo ranks on the CPU, or NCCL
+when n cards are present.
 
     python -m emdee_tpu_torch.distributed.dryrun [N]
 
-Parts 1 and 2 of the reference (the atom-table slab decomposition of
-`distributed/domain.py` and the slab-sharded `cell_dense_sharded.py`) are not
-ported: a (D, 1, 1) grid mesh covers slabs (ROADMAP item 12).  Parts 4 to 6
-(charges, exclusion tags, bonded terms on the grid) are not driven here;
-`grid_job` takes the molecular options, and tests/test_torch_grid_molecular.py
-runs the charged and the triatomic fixtures on two gloo ranks through it.
+- Part 3: the LJ grid engine, 4 NVE steps, rebinning every 2.
+- Part 4: DSF charges (±0.2) and exclusion tags on every (2i, 2i+1) pair,
+  2 steps.
+- Part 5: the full molecular decomposition: pairs bonded at the LJ minimum
+  on a lattice, the bonds as term rows, half of the bonded pairs in the
+  tags and the other half as leftover exclusion pairs, capacity 16, 2
+  steps.
+- Part 6: part 5 on the kernels ('cuda' on NCCL ranks; on gloo ranks the
+  plain streaming family 'torch_streaming'), its energy within 1e-4 of part
+  5's.
+
+Every rank of every part must gather a state bit for bit equal to the same
+run on a `LocalMesh` in this process.  Parts 1 and 2 of the reference (the
+atom-table slab decomposition of `distributed/domain.py` and the
+slab-sharded `cell_dense_sharded.py`) are not ported: a (D, 1, 1) grid mesh
+covers slabs (ROADMAP item 12).
 
 `run_ranks` is the launcher the tests share: n spawned processes, a
 `file://` rendezvous in a fresh temporary directory, results back through a
@@ -27,8 +37,12 @@ import tempfile
 import time
 import traceback
 
+import functools
+
 import numpy as np
 import torch
+
+CUTOFF, SWITCH = 2.5, 2.0
 
 
 def _rank_main(rank, n, path, backend, fn, args, results):
@@ -88,25 +102,83 @@ def mesh_shape(n: int):
     return {8: (2, 2, 2), 4: (2, 2, 1), 2: (2, 1, 1), 1: (1, 1, 1)}.get(n, (n, 1, 1))
 
 
-def tiny_setup(n_devices: int, device):
-    """The reference dry run's part-3 system: 64 atoms a device at random in
-    a box of M = 4·max(shape) cells of side rc + 0.4, capacity 8 — (state,
-    config, model, shape)."""
-    from emdee_tpu_torch import LennardJonesModel, cell_dense_init, lennard_jones_atom
+def tiny_arrays(n_devices: int):
+    """The reference dry run's part-3 system as numpy: 64 atoms a device at
+    random in a box of M = 4·max(shape) cells of side rc + 0.4, capacity 8
+    — (positions, velocities, config, shape, the generator that drew the
+    positions, for the later parts' draws)."""
     from emdee_tpu_torch.neighbors.cell_dense import CellDenseConfig
     from emdee_tpu_torch.utils.lattice import maxwell_boltzmann
 
-    cutoff, switch = 2.5, 2.0
     n = 64 * n_devices
     shape = mesh_shape(n_devices)
     m = 4 * max(shape)
-    config = CellDenseConfig(cells_per_dim=m, capacity=8, box=m * (cutoff + 0.4), cutoff=cutoff,
-                             switch=switch, skin=0.4, num_atoms=n)
+    config = CellDenseConfig(cells_per_dim=m, capacity=8, box=m * (CUTOFF + 0.4), cutoff=CUTOFF, switch=SWITCH,
+                             skin=0.4, num_atoms=n)
     rng = np.random.default_rng(0)
     pos = rng.uniform(0.0, config.box, (n, 3))
+    return pos, maxwell_boltzmann(n, 1.0, seed=1), config, shape, rng
+
+
+def tiny_setup(n_devices: int, device):
+    """Part 3's system on `device`: (state, config, model, shape)."""
+    from emdee_tpu_torch import LennardJonesModel, cell_dense_init, lennard_jones_atom
+
+    pos, vel, config, shape, _ = tiny_arrays(n_devices)
+    n = len(pos)
     params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
-    state = cell_dense_init(pos, maxwell_boltzmann(n, 1.0, seed=1), np.ones(n), params, config, device=device)
-    return state, config, LennardJonesModel.create(cutoff, switch, device=device), shape
+    state = cell_dense_init(pos, vel, np.ones(n), params, config, device=device)
+    return state, config, LennardJonesModel.create(CUTOFF, SWITCH, device=device), shape
+
+
+def molecular_arrays(n_devices: int) -> dict:
+    """Parts 4 to 6's fixtures as numpy, built as `__graft_entry__.py`
+    builds them: q, ±0.2 alternating; tags4, the (2i, 2i+1) pairs that part
+    4 excludes fully; pos5, n/2 lattice sites of the part-3 box each with a
+    partner at the LJ minimum r_min = 2^(1/6) in a random direction; bonds,
+    those (2i, 2i+1) pairs; tags5 their first half (the tag tables at scale
+    0) and leftover the second half (scale 0.5 for LJ and Coulomb); config4
+    part 3's config, config5 it at capacity 16 (the pairs need headroom)."""
+    pos, vel, config, shape, rng = tiny_arrays(n_devices)
+    n = len(pos)
+    half = n // 2
+    side = int(np.ceil(half ** (1 / 3)))
+    g = np.stack(np.meshgrid(*(np.arange(side),) * 3, indexing="ij"), -1).reshape(-1, 3)[:half]
+    off = rng.normal(size=(half, 3))
+    r_min = 2.0 ** (1 / 6)
+    off = r_min * off / np.linalg.norm(off, axis=1, keepdims=True)
+    pos5 = np.empty((n, 3))
+    pos5[0::2] = (g + 0.5) * (config.box / side)
+    pos5[1::2] = pos5[0::2] + off
+    base = np.arange(0, n - 1, 2)
+    bonds = np.stack([np.arange(0, n, 2), np.arange(1, n, 2)], 1)
+    return dict(n=n, pos=pos, vel=vel, shape=shape, q=np.where(np.arange(n) % 2 == 0, 0.2, -0.2).astype(np.float32),
+                tags4=np.stack([base, base + 1], 1), pos5=pos5, bonds=bonds, r_min=r_min, tags5=bonds[: half // 2],
+                leftover=bonds[half // 2:], config4=config, config5=config._replace(capacity=16))
+
+
+def molecular_kwargs(part: int, n_devices: int, device) -> dict:
+    """The molecular options of `make_grid_sharded_sim` for part 4, or for
+    parts 5 and 6, on `device` (with `functools.partial` over the first two
+    arguments, `grid_job`'s kwargs_fn)."""
+    import torch
+
+    from emdee_tpu_torch import BondedSystem, BondTable, DSFCoulomb, build_exclusion_tables, lennard_jones_atom
+
+    a = molecular_arrays(n_devices)
+    n = a["n"]
+    kw = dict(coulomb=DSFCoulomb.create(CUTOFF, alpha=0.25, coulomb_constant=1.0, device=device))
+    if part == 4:
+        return dict(kw, excl_tables=build_exclusion_tables(n, a["tags4"], np.zeros(len(a["tags4"]), np.float32)))
+    nb, left = len(a["bonds"]), a["leftover"]
+    t = lambda x, dt: torch.from_numpy(np.asarray(x, dt)).to(device)  # noqa: E731
+    bonded = BondedSystem(bonds=BondTable(t(a["bonds"], np.int64), t(np.full(nb, a["r_min"]), np.float32),
+                                          t(np.full(nb, 10.0), np.float32), t(np.ones(nb), np.bool_)),
+                          angles=None, torsions=None, impropers=None)
+    half = np.full(len(left), 0.5, np.float32)
+    return dict(kw, excl_tables=build_exclusion_tables(n, a["tags5"], np.zeros(len(a["tags5"]), np.float32)),
+                bonded=bonded, excl_leftover=(left.astype(np.int32), half, half),
+                atom_params=lennard_jones_atom(np.ones(n), np.ones(n), device=device), atom_charges=a["q"])
 
 
 def grid_job(rank, n, shape, fields, config, steps, rebin_every, device_kind="cpu", kwargs_fn=None, kwargs=None,
@@ -138,32 +210,70 @@ def grid_job(rank, n, shape, fields, config, steps, rebin_every, device_kind="cp
     return state_to_numpy(gather_grid_state(st, config, mesh)), energies
 
 
+def grid_jobs(rank, n, jobs):
+    """`grid_job` for each (args, options) of `jobs` in turn, in one process
+    group: [result, ...]."""
+    return [grid_job(rank, n, *args, **options) for args, options in jobs]
+
+
+def _bitwise_equal(got: dict, want: dict) -> bool:
+    return all(np.array_equal(np.atleast_1d(got[k]).view(np.uint8), np.atleast_1d(v).view(np.uint8))
+               for k, v in want.items())
+
+
 def dryrun_multichip(n_devices: int) -> None:
-    """Part 3 of the reference's dry run on n ranks (NCCL with n cards,
-    gloo on the CPU otherwise): 4 NVE steps, rebin every 2, then the
-    energies; every rank must gather the same state, bit for bit equal to
-    the same run on a `LocalMesh` in this process."""
+    """Parts 3 to 6 of the reference's dry run on n ranks (NCCL with n
+    cards, gloo on the CPU otherwise); every rank must gather the same
+    state, bit for bit equal to the same run on a `LocalMesh` in this
+    process, parts 5 and 6 raise no flag, and part 6's energy is part 5's
+    within 1e-4."""
+    from emdee_tpu_torch import LennardJonesModel, cell_dense_init, lennard_jones_atom
     from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, gather_grid_state, make_grid_sharded_sim
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
-    from emdee_tpu_torch.neighbors.cell_dense import state_to_numpy
+    from emdee_tpu_torch.neighbors.cell_dense import state_from_numpy, state_to_numpy
 
     on_cards = torch.cuda.is_available() and torch.cuda.device_count() >= n_devices
     device = torch.device("cuda", 0) if on_cards else torch.device("cpu")
-    state, config, model, shape = tiny_setup(n_devices, device)
-    fields = state_to_numpy(state)
-    runs = run_ranks(n_devices, grid_job, (shape, fields, config, 4, 2, device.type),
-                     backend="nccl" if on_cards else "gloo")
+    a = molecular_arrays(n_devices)
+    n, shape = a["n"], a["shape"]
+    params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
+    init = lambda pos, cfg, q=None: state_to_numpy(  # noqa: E731
+        cell_dense_init(pos, a["vel"], np.ones(n), params, cfg, charges=q, device=device))
+    kernels = {"backend": "cuda" if on_cards else "torch_streaming"}
+    # (part, its state fields, config, steps, rebin_every, kwargs_fn, kwargs)
+    parts = [
+        (3, init(a["pos"], a["config4"]), a["config4"], 4, 2, None, None),
+        (4, init(a["pos"], a["config4"], a["q"]), a["config4"], 2, 2, functools.partial(molecular_kwargs, 4, n_devices),
+         None),
+        (5, init(a["pos5"], a["config5"], a["q"]), a["config5"], 2, 2, functools.partial(molecular_kwargs, 5, n_devices),
+         None),
+        (6, init(a["pos5"], a["config5"], a["q"]), a["config5"], 2, 2, functools.partial(molecular_kwargs, 5, n_devices),
+         kernels),
+    ]
+    jobs = [((shape, fields, cfg, steps, every, device.type), dict(kwargs_fn=fn, kwargs=kw))
+            for _, fields, cfg, steps, every, fn, kw in parts]
+    runs = run_ranks(n_devices, grid_jobs, (jobs,), backend="nccl" if on_cards else "gloo")
     mesh = make_grid_mesh(shape, device=device)
-    rollout, energy = make_grid_sharded_sim(config, model, 0.002, mesh)
-    local = state_to_numpy(gather_grid_state(rollout(distribute_grid(state, config, mesh), 4, 2), config, mesh))
-    for rank, (got, energies) in enumerate(runs):
-        if int(got["step"]) != 4:
-            raise AssertionError(f"rank {rank}: step {got['step']}")
-        for name, want in local.items():
-            if not np.array_equal(np.atleast_1d(got[name]).view(np.uint8), np.atleast_1d(want).view(np.uint8)):
-                raise AssertionError(f"rank {rank}: {name} differs from the LocalMesh run")
-    print(f"dryrun_multichip({n_devices}): {shape} mesh on {'NCCL' if on_cards else 'gloo'} ranks, 4 steps, "
-          f"pe {runs[0][1][0]:.6f}; every rank bitwise equal to the LocalMesh run", flush=True)
+    model = LennardJonesModel.create(CUTOFF, SWITCH, device=device)
+    pe = {}
+    for k, (part, fields, cfg, steps, every, fn, kw) in enumerate(parts):
+        rollout, energy = make_grid_sharded_sim(cfg, model, 0.002, mesh, **(fn(device) if fn else {}), **(kw or {}))
+        out = rollout(distribute_grid(state_from_numpy(fields, device), cfg, mesh), steps, every)
+        local = state_to_numpy(gather_grid_state(out, cfg, mesh))
+        for rank, results in enumerate(runs):
+            got, energies = results[k]
+            if int(got["step"]) != steps:
+                raise AssertionError(f"part {part}, rank {rank}: step {got['step']}")
+            if not _bitwise_equal(got, local):
+                raise AssertionError(f"part {part}, rank {rank}: the state differs from the LocalMesh run")
+        if part >= 5 and bool(local["overflow"]):
+            raise AssertionError(f"part {part}: the sticky flag is raised")
+        pe[part] = runs[0][k][1][0]
+    if abs(pe[6] - pe[5]) > 1e-4 * max(1.0, abs(pe[5])):
+        raise AssertionError(f"part 6's energy {pe[6]} is not part 5's {pe[5]} within 1e-4")
+    print(f"dryrun_multichip({n_devices}): {shape} mesh on {'NCCL' if on_cards else 'gloo'} ranks, parts 3-6 "
+          f"(part 6 on {kernels['backend']}); pe " + ", ".join(f"{p} {v:.6f}" for p, v in pe.items())
+          + "; every rank bitwise equal to the LocalMesh run", flush=True)
 
 
 if __name__ == "__main__":

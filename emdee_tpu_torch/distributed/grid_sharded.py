@@ -1,7 +1,8 @@
 """3-D grid-sharded dense-cell engine — counterpart of
 emdee_tpu/distributed/grid_sharded.py (NVE, CSVR and Langevin NVT and
 Berendsen NPT, with or without the molecular terms: DSF Coulomb, exclusion
-tags, bonded terms and the leftover exclusion pairs).
+tags, bonded terms and the leftover exclusion pairs; plain and spill
+configs).
 
 The (M, M, M, C) slot grid is cut into an (nz, ny, nx) mesh of shards of
 (mz, my, mx) cells (`distributed/mesh.py`); a state's per-slot leaves are
@@ -35,8 +36,10 @@ goes through the mesh's `shift` (the reference's `ppermute`):
 - **Rebin**: the shift rebin's three passes (z, y, x), each over the
   shards' own rows and the two halo planes that one exchange along the pass
   axis brings, with each row's global coordinate
-  (`rebin_window_kernel.rebin_halo_pass`, K6).  Atom migration between
-  shards is that exchange; charges ride it.
+  (`rebin_window_kernel.rebin_halo_pass`, K6); a spill config's passes
+  add boundary spill and hold-backs, reading two halo layers each side
+  (`spill_halo_pass`, K7-G).  Atom migration between shards is that
+  exchange; charges ride it.
 - **Reductions**: energies, the kinetic energy of CSVR, the pressure of
   the barostat and the sticky flag are reduced over the shards (`psum`,
   `pmax`), and, with term rows, the atom → global slot map once a rebin
@@ -68,6 +71,7 @@ from emdee_tpu_torch.neighbors.cell_dense import (
     _box,
     _box_of,
     _f32,
+    _spill_params,
     _stale,
     gather_dense_atoms,
 )
@@ -461,20 +465,25 @@ def make_grid_sharded_sim(
     (`_grid_terms`).  The grid keeps its bonds as rows: no bond rides the
     tags.
 
-    Not ported yet, raising NotImplementedError: spill configs (ROADMAP
-    item 11)."""
+    A spill config (config.spill, with a positive margin ε = h − rc − skin
+    at the static cell side h, the reference's rule) rebins through the
+    spill pass (`rebin_window_kernel.spill_halo_pass`, K7-G) over halo
+    planes two layers deep; both force families run on it unchanged."""
     from emdee_tpu_torch.dynamics.bussi import _csvr_alpha2, csvr_draws
     from emdee_tpu_torch.neighbors import cell_kernel
     from emdee_tpu_torch.neighbors.cell_dense import _numpy
-    from emdee_tpu_torch.neighbors.rebin_window_kernel import global_coords, halo_planes, rebin_halo_pass
+    from emdee_tpu_torch.neighbors.rebin_window_kernel import (
+        global_coords,
+        halo_planes,
+        rebin_halo_pass,
+        spill_halo_pass,
+    )
     from emdee_tpu_torch.neighbors.streaming_kernel import streaming_ghost_forces
 
     if thermostat is not None and not isinstance(thermostat, (CSVRConfig, LangevinConfig)):
         raise ValueError(f"unknown thermostat {thermostat!r}")
     if barostat is not None and not isinstance(barostat, BerendsenBarostatConfig):
         raise ValueError(f"unknown barostat {barostat!r}")
-    if config.spill:
-        raise NotImplementedError("spill configs on the grid-sharded engine are not ported yet (ROADMAP item 11)")
 
     mz, my, mx = validate_grid_config(config, mesh)
     m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
@@ -500,6 +509,7 @@ def make_grid_sharded_sim(
         n_tab, e_n = packed.shape[0] - 1, int(_numpy(ids_t).shape[-1])
 
     b_axes = [global_coords(mesh, (mz, my, mx), axis) for axis in range(3)]
+    spill = _spill_params(config) if config.spill and float(config.cell_side) - config.cutoff - config.skin > 0 else None
     # The ghost grids' mark of empty position slots.
     nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
 
@@ -550,9 +560,10 @@ def make_grid_sharded_sim(
         return f, e, w, (terms[2](pos_ext, tb, box_t) if compute_energy else None)
 
     def rebin(pos3, vel3, inv_m, hs, tse, aid, valid, q, overflow, box_t, f3=None):
-        """The per-shard shift rebin: three K6 passes (z, y, x) over the
-        shards' own rows, each with the two halo planes that `mesh.shift`
-        brings; the first reads the transported fields where they lie and
+        """The per-shard shift rebin: three passes (z, y, x) over the
+        shards' own rows, each with the halo planes that `mesh.shift`
+        brings — K6 with one layer each side, or for a spill config K7-G
+        with two; the first reads the transported fields where they lie and
         parks (by atom id) and wraps them.  Returns the routed (pos3, vel3,
         inv_m, hs, tse, aid, valid, q, overflow, f3)."""
         parts = ([pos3, vel3, inv_m[None], hs[None], tse[None]] + ([] if q is None else [q[None]])
@@ -560,9 +571,14 @@ def make_grid_sharded_sim(
         x = [p[i] for p in parts for i in range(p.shape[0])] + [torch.where(valid, aid, ns)]
         flag = None
         for axis in range(3):
-            lo, hi = halo_planes(x, mesh, axis)
-            x, flag = rebin_halo_pass(x, lo, hi, b_axes[axis], box_t, axis, m, c, ns, raw=axis == 0, flag=flag,
-                                      backend=kernels)
+            if spill is None:
+                lo, hi = halo_planes(x, mesh, axis)
+                x, flag = rebin_halo_pass(x, lo, hi, b_axes[axis], box_t, axis, m, c, ns, raw=axis == 0, flag=flag,
+                                          backend=kernels)
+            else:
+                lo, hi = halo_planes(x, mesh, axis, depth=2)
+                x, flag = spill_halo_pass(x, lo, hi, b_axes[axis], box_t, axis, m, c, ns, spill, raw=axis == 0,
+                                          flag=flag, backend=kernels)
         overflow = overflow | (flag != 0)
         aid = x[-1]
         valid = aid < ns

@@ -747,7 +747,7 @@ def _axis_coords(m: int, device):
     return {0: cell // (m * m), 1: (cell // m) % m, 2: cell % m}
 
 
-def _route_windows(fields, valid, overflow, cf, b, m, c, nbr, box, spill=None):
+def _route_windows(fields, valid, overflow, cf, b, m, c, nbr, box, spill=None, own_rows=None):
     """The masks and windows of one ±1-cell routing pass along one grid axis
     (`_route_axis_pass` without its compaction).
 
@@ -770,14 +770,17 @@ def _route_windows(fields, valid, overflow, cf, b, m, c, nbr, box, spill=None):
     the true cell or the next one: two atoms within the cutoff are never
     stored two cells apart when ε ≤ h − rc − skin.  A spill or hold across
     the periodic seam stores the coordinate less L, coherent with the stored
-    cell's frame, as inter-rebin drift overhangs the box."""
+    cell's frame, as inter-rebin drift overhangs the box.
+
+    own_rows: None, or the count of leading rows that raise the flag (the
+    rest are window rows whose counts are only partly known)."""
     fields = list(fields)
     coord = fields[cf]
     ms = m * wrap_scaled(coord / box)
     t = torch.clamp(torch.floor(ms).to(torch.int64), 0, m - 1)
     d = torch.where(valid, torch.remainder(t - b[:, None], m), 0)
     legal = (d == 0) | (d == 1) | (d == m - 1)
-    overflow = overflow | torch.any(valid & ~legal)
+    overflow = overflow | torch.any((valid & ~legal)[:own_rows])
     g_minus = valid & (d == m - 1)  # target = b − 1
     g_stay = valid & (d == 0)
     g_plus = valid & (d == 1)  # target = b + 1
@@ -812,7 +815,7 @@ def _route_windows(fields, valid, overflow, cf, b, m, c, nbr, box, spill=None):
     keep_i = keep.to(torch.int64)
     rank = torch.cumsum(keep_i, dim=1) - keep_i  # exclusive prefix counts
     counts = torch.sum(keep_i, dim=1)
-    overflow = overflow | (torch.max(counts) > c)
+    overflow = overflow | (torch.max(counts[:own_rows]) > c)
     iota = torch.arange(3 * c, device=coord.device)
     s = torch.where(keep, iota - rank, 0).to(torch.int32)
     x = torch.stack([f.view(torch.int32) for f in fields], dim=1)  # (cells, nf, C)

@@ -309,6 +309,13 @@ def _widen_fields(gfields, aux_fields, acell, arank, avalid, config: StragglerCo
 # ---------------------------------------------------------------------------
 
 
+# The engine's backend names → the kernel wrappers' backend; the names after
+# 'torch' take the streaming family.
+_BACKENDS = {"auto": "auto", "cuda": "cuda", "torch": "torch", "cuda_streaming": "cuda",
+             "pallas_streaming": "cuda", "streaming": "auto", "torch_streaming": "torch",
+             "pallas_streaming_interpret": "torch"}
+
+
 def make_straggler_sim(
     config: StragglerConfig,
     model: LennardJonesModel,
@@ -327,24 +334,35 @@ def make_straggler_sim(
     C_w slot state; `rollout.forces(state)` the grid (3, M³, C_t) and aux
     (3, A) forces of a state with its own bindings, plus the Kn flag.
 
-    backend: 'auto' (CUDA kernels for CUDA tensors, plain versions for CPU
-    tensors), 'cuda' or 'torch'.  strag_pass: 'kernel' (K3; the default) or
-    'xla' (the 27-row gather in torch ops, its reactions folded onto the
-    grid by the fixed-order add of `core/scatter.py`).  Both passes are
-    bitwise reproducible on the card."""
+    backend: the resident family — 'auto' (CUDA kernels for CUDA tensors,
+    plain versions for CPU tensors), 'cuda' or 'torch' — or the streaming
+    family, whose grid pass is the streaming kernel's split entry
+    (`streaming_kernel.cell_forces_streaming_split`, K5), as the
+    reference's `pallas_streaming`: 'cuda_streaming' (or the reference's
+    name 'pallas_streaming'), 'torch_streaming' (or
+    'pallas_streaming_interpret': the plain version on the CPU), or
+    'streaming' (K5 for CUDA tensors, the plain version for CPU tensors).
+    'auto' keeps the resident family, as the reference's does.  strag_pass:
+    'kernel' (K3; the default of the resident family) or 'xla' (the 27-row
+    gather in torch ops, its reactions folded onto the grid by the
+    fixed-order add of `core/scatter.py`; the streaming family's only pass,
+    as in the reference, which raises ValueError for 'kernel' there).  Both
+    passes are bitwise reproducible on the card."""
     from emdee_tpu_torch.core.scatter import add_plan, fixed_add
     from emdee_tpu_torch.neighbors.cell_kernel import cell_forces, cell_forces_split
     from emdee_tpu_torch.neighbors.straggler_kernel import straggler_forces
+    from emdee_tpu_torch.neighbors.streaming_kernel import cell_forces_streaming_split
 
-    if backend in ("cuda_streaming", "streaming") or backend.startswith("pallas_streaming"):
-        raise NotImplementedError("the straggler engine on the streaming backends is not ported yet "
-                                  "(ROADMAP item 7)")
-    if backend not in ("auto", "cuda", "torch"):
-        raise ValueError(f"unknown backend {backend!r}: use 'auto', 'cuda' or 'torch'")
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: use one of {', '.join(_BACKENDS)}")
+    streaming = backend not in ("auto", "cuda", "torch")
+    backend = _BACKENDS[backend]  # the kernel wrappers' backend
     if strag_pass == "auto":
-        strag_pass = "kernel"
+        strag_pass = "xla" if streaming else "kernel"
     if strag_pass not in ("kernel", "xla"):
         raise ValueError(f"strag_pass must be 'kernel' or 'xla', got {strag_pass!r}")
+    if streaming and strag_pass == "kernel":
+        raise ValueError("strag_pass='kernel' requires the resident kernel: the streaming family takes 'xla'")
     if config.grid.spill:
         raise ValueError("straggler engine replaces spill mode — use spill=False")
 
@@ -378,9 +396,8 @@ def make_straggler_sim(
                 uniform_params, backend=backend,
             )
         box_t = _box(cfg_t.box, p)
-        fx, fy, fz = cell_forces_split(
-            p[0], p[1], p[2], valid, cfg_t, uniform_params=uniform_params, backend=backend
-        )
+        split = cell_forces_streaming_split if streaming else cell_forces_split
+        fx, fy, fz = split(p[0], p[1], p[2], valid, cfg_t, uniform_params=uniform_params, backend=backend)
         idx, mask, plan = bind
         gx, gy, gz = _gather_pair_forces(
             p[0], p[1], p[2], a[0], a[1], a[2], idx, mask, model, box_t, uniform_params

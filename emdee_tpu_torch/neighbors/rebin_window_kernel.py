@@ -1,5 +1,5 @@
 """One ±1-cell routing pass of the grid-sharded engine's rebin: the CUDA
-kernel (K6) and its plain version — counterpart of
+kernels (K6, and K7-G for spill configs) and their plain versions — counterpart of
 emdee_tpu/neighbors/pallas_rebin.py `rebin_window_pass_pallas`
 (`distributed/grid_sharded.py` calls it three times a rebin).
 
@@ -17,6 +17,15 @@ neighbour and the kernel's fill.  Both give the same bits in every slot;
 on a one-shard grid they equal one pass of `rebin_kernel.rebin_routing`
 (K4).
 
+`spill_halo_pass` is the same pass for a spill config (K7-G, the grid's
+spill route: `csrc/spill_window.cu`, one launch a pass; plain version
+`spill_halo_plain`), counterpart of the reference's per-shard XLA pass
+`_route_axis_pass` with `spill_eps`, whose compaction is
+emdee_tpu/neighbors/pallas_compact.py `compact_window_pallas`.  A spill
+row's keep mask reads the class counts of the rows two cells down and up
+the axis, so its halo planes are two layers deep (`halo_planes(...,
+depth=2)`).
+
 `rebin_window_pass` is the former K6 over three pre-built windows of the
 whole grid (own, one cell down, one cell up), kept as the in-tree witness
 of the halo kernel; no engine path calls it.
@@ -29,12 +38,14 @@ import ctypes
 import torch
 
 from emdee_tpu_torch.csrc import build
-from emdee_tpu_torch.neighbors.cell_dense import _box, _route_axis_pass, box_ptr, resolve_backend
+from emdee_tpu_torch.neighbors.cell_dense import _box, _route_axis_pass, _route_windows, box_ptr, resolve_backend
+from emdee_tpu_torch.neighbors.compact_kernel import compact_plain
 from emdee_tpu_torch.neighbors.rebin_kernel import MAX_FIELDS, SENTINEL_BITS
 
 # Kernel launches (one per pass) since import (or a reset to 0): the halo
-# kernel's, and the witness's.
+# kernel's (K6), the spill halo kernel's (K7-G), and the witness's.
 LAUNCHES = 0
+SPILL_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 
 # The coordinate field each grid axis bins on (z = 2, y = 1, x = 0).
@@ -126,24 +137,27 @@ def periodic_windows(x, m: int, axis: int):
     return x.reshape(shape), nbr(-1), nbr(+1), b
 
 
-def halo_planes(x, mesh, axis: int):
+def halo_planes(x, mesh, axis: int, depth: int = 1):
     """The halo planes of a pass along grid axis `axis` (0 = z, 1 = y,
     2 = x): (lo, hi), each (nf, sz, sy, sx, hz, hy, hx, C) int32 with the
-    axis' extent 1 — the top layer of the shard below and the bottom layer
-    of the shard above, brought by `mesh.shift` — or (None, None) where the
-    axis holds one shard, whose own far layer is its neighbour (the grid is
-    periodic).  x: nf fields of (sz, sy, sx, mz, my, mx, C) slots, as a
-    sequence (their planes are stacked, float32 fields as their int32 bits)
-    or as one (nf, …) int32 tensor."""
+    axis' extent `depth` — the top `depth` layers of the shard below and
+    the bottom `depth` layers of the shard above, in the grid's order
+    (lo: far, then near; hi: near, then far), brought by `mesh.shift` — or
+    (None, None) where the axis holds one shard, whose own far layers are
+    its neighbours (the grid is periodic).  depth: 1 (K6) or 2 (a spill
+    pass, K7-G; a split axis holds at least 2 layers).  x: nf fields of
+    (sz, sy, sx, mz, my, mx, C) slots, as a sequence (their planes are
+    stacked, float32 fields as their int32 bits) or as one (nf, …) int32
+    tensor."""
     if mesh.shape[axis] == 1:
         return None, None
     if isinstance(x, torch.Tensor):
         dim, n = 4 + axis, x.shape[4 + axis]
-        lo, hi = x.narrow(dim, n - 1, 1), x.narrow(dim, 0, 1)
+        lo, hi = x.narrow(dim, n - depth, depth), x.narrow(dim, 0, depth)
     else:
         dim, n = 3 + axis, x[0].shape[3 + axis]
-        lo = torch.stack([f.view(torch.int32).narrow(dim, n - 1, 1) for f in x])
-        hi = torch.stack([f.view(torch.int32).narrow(dim, 0, 1) for f in x])
+        lo = torch.stack([f.view(torch.int32).narrow(dim, n - depth, depth) for f in x])
+        hi = torch.stack([f.view(torch.int32).narrow(dim, 0, depth) for f in x])
     return mesh.shift(lo, axis, -1), mesh.shift(hi, axis, +1)
 
 
@@ -215,6 +229,67 @@ def _slot_stride(t: torch.Tensor):
     return step
 
 
+def _halo_launch(entry: str, x, lo, hi, b, box, axis: int, m_global: int, c: int, num_slots: int, raw: bool,
+                 flag, depth: int, extra=()):
+    """Check the arguments of a halo pass (`rebin_halo_pass`'s, with halo
+    planes `depth` layers deep) and launch the kernel entry `entry`, its
+    `extra` arguments before the box.  Returns (out, flag)."""
+    fields = list(x)
+    dev = fields[0].device
+    nf = len(fields)
+    shape = tuple(fields[0].shape)
+    if not 4 <= nf <= MAX_FIELDS or len(shape) != 7 or shape[-1] != c:
+        raise ValueError(f"{entry}: {nf} fields of {shape}, the kernel takes 4 to {MAX_FIELDS} fields of "
+                         f"(sz, sy, sx, mz, my, mx, {c})")
+    if not raw and not (isinstance(x, torch.Tensor) and x.is_contiguous()):
+        raise ValueError(f"{entry}: a pass after the first takes the previous pass's contiguous output")
+    strides = []
+    for i, f in enumerate(fields):
+        want = torch.int32 if i == nf - 1 or not raw else torch.float32
+        if f.dtype != want or tuple(f.shape) != shape or f.device != dev:
+            raise ValueError(f"field {i}: expected {want} {shape} on {dev}, got {f.dtype} {tuple(f.shape)} "
+                             f"on {f.device}")
+        step = 1 if f.is_contiguous() else _slot_stride(f)
+        if step is None:
+            raise ValueError(f"field {i}: strides {f.stride()}, the kernel needs its slots evenly spaced")
+        strides.append(step)
+    plane = list(shape)
+    plane[3 + axis] = depth
+    for name, h in (("lo", lo), ("hi", hi)):
+        if (lo is None) != (h is None):
+            raise ValueError(f"{entry}: give both halo planes or neither")
+        if h is not None and (h.dtype != torch.int32 or tuple(h.shape) != (nf, *plane) or h.device != dev):
+            raise ValueError(f"{name}: expected int32 {(nf, *plane)} on {dev}, got {h.dtype} {tuple(h.shape)} "
+                             f"on {h.device}")
+    if lo is None and shape[3 + axis] != m_global:
+        raise ValueError(f"{entry}: without halo planes the shard holds the whole axis, {shape[3 + axis]} ≠ "
+                         f"{m_global} cells")
+    rows = shape[0] * shape[1] * shape[2] * shape[3] * shape[4] * shape[5]
+    if b.dtype != torch.int32 or b.numel() != rows or b.device != dev or not b.is_contiguous():
+        raise ValueError(f"b: expected {rows} contiguous int32 on {dev}, got {b.dtype} {tuple(b.shape)} on {b.device}")
+    out = torch.empty((nf,) + shape, dtype=torch.int32, device=dev)
+    if flag is None:
+        flag = torch.zeros((), dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * nf)(*(f.data_ptr() for f in fields))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    long8 = lambda t: (ctypes.c_long * 8)(*((0,) * 8 if t is None else t.stride()))  # noqa: E731
+    err = getattr(build.load(), entry)(
+        ptrs, (ctypes.c_long * nf)(*strides), nf, ptr(lo), long8(lo), ptr(hi), long8(hi),
+        b.data_ptr(), out.data_ptr(), flag.data_ptr(), (ctypes.c_int * 6)(*shape[:6]), c, axis,
+        COORD_OF_AXIS[axis], m_global, num_slots, int(raw), *extra, box_ptr(box, fields[0]),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, entry)
+    return out, flag
+
+
+def _merge_flag(out, ovf, flag):
+    """A plain pass's result with its 0-d bool flag OR'd into `flag`."""
+    if flag is None:
+        return out, ovf.to(torch.int32)
+    return out, flag.bitwise_or_(ovf.to(torch.int32))
+
+
 def rebin_halo_pass(x, lo, hi, b, box, axis: int, m_global: int, c: int, num_slots: int, raw: bool = False,
                     flag=None, backend: str = "auto"):
     """One routing pass along grid axis `axis` (0 = z, 1 = y, 2 = x) of the
@@ -235,57 +310,80 @@ def rebin_halo_pass(x, lo, hi, b, box, axis: int, m_global: int, c: int, num_slo
     int32 with the fill in empty slots — sentinel positions, atom_id =
     num_slots, zeros — and the flag as a 0-d int32 tensor, nonzero if
     raised)."""
-    fields = list(x)
-    dev = fields[0].device
-    if resolve_backend(backend, fields[0]) == "torch":
-        out, ovf = rebin_halo_plain(x, lo, hi, b, box, axis, m_global, c, num_slots, raw)
-        if flag is None:
-            return out, ovf.to(torch.int32)
-        return out, flag.bitwise_or_(ovf.to(torch.int32))
     global LAUNCHES
-    nf = len(fields)
-    shape = tuple(fields[0].shape)
-    if not 4 <= nf <= MAX_FIELDS or len(shape) != 7 or shape[-1] != c:
-        raise ValueError(f"rebin_halo_pass: {nf} fields of {shape}, the kernel takes 4 to {MAX_FIELDS} fields of "
-                         f"(sz, sy, sx, mz, my, mx, {c})")
-    if not raw and not (isinstance(x, torch.Tensor) and x.is_contiguous()):
-        raise ValueError("rebin_halo_pass: a pass after the first takes the previous pass's contiguous output")
-    strides = []
-    for i, f in enumerate(fields):
-        want = torch.int32 if i == nf - 1 or not raw else torch.float32
-        if f.dtype != want or tuple(f.shape) != shape or f.device != dev:
-            raise ValueError(f"field {i}: expected {want} {shape} on {dev}, got {f.dtype} {tuple(f.shape)} "
-                             f"on {f.device}")
-        step = 1 if f.is_contiguous() else _slot_stride(f)
-        if step is None:
-            raise ValueError(f"field {i}: strides {f.stride()}, the kernel needs its slots evenly spaced")
-        strides.append(step)
-    plane = list(shape)
-    plane[3 + axis] = 1
-    for name, h in (("lo", lo), ("hi", hi)):
-        if (lo is None) != (h is None):
-            raise ValueError("rebin_halo_pass: give both halo planes or neither")
-        if h is not None and (h.dtype != torch.int32 or tuple(h.shape) != (nf, *plane) or h.device != dev):
-            raise ValueError(f"{name}: expected int32 {(nf, *plane)} on {dev}, got {h.dtype} {tuple(h.shape)} "
-                             f"on {h.device}")
-    rows = shape[0] * shape[1] * shape[2] * shape[3] * shape[4] * shape[5]
-    if b.dtype != torch.int32 or b.numel() != rows or b.device != dev or not b.is_contiguous():
-        raise ValueError(f"b: expected {rows} contiguous int32 on {dev}, got {b.dtype} {tuple(b.shape)} on {b.device}")
-    out = torch.empty((nf,) + shape, dtype=torch.int32, device=dev)
-    if flag is None:
-        flag = torch.zeros((), dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * nf)(*(f.data_ptr() for f in fields))
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    long8 = lambda t: (ctypes.c_long * 8)(*((0,) * 8 if t is None else t.stride()))  # noqa: E731
-    err = build.load().emdee_rebin_halo(
-        ptrs, (ctypes.c_long * nf)(*strides), nf, ptr(lo), long8(lo), ptr(hi), long8(hi),
-        b.data_ptr(), out.data_ptr(), flag.data_ptr(), (ctypes.c_int * 6)(*shape[:6]), c, axis,
-        COORD_OF_AXIS[axis], m_global, num_slots, int(raw), box_ptr(box, fields[0]),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check(err, "rebin_window halo kernel")
+    if resolve_backend(backend, list(x)[0]) == "torch":
+        return _merge_flag(*rebin_halo_plain(x, lo, hi, b, box, axis, m_global, c, num_slots, raw), flag)
+    out = _halo_launch("emdee_rebin_halo", x, lo, hi, b, box, axis, m_global, c, num_slots, raw, flag, 1)
     LAUNCHES += 1
-    return out, flag
+    return out
+
+
+def spill_halo_plain(x, lo, hi, b, box, axis: int, m_global: int, c: int, num_slots: int, spill, raw: bool = False):
+    """The plain version of `spill_halo_pass` (its arguments): the park
+    (with `raw`, as `_parked`), then the own rows and the windows one and
+    two rows down and up the axis — from the two-layer halo planes, or the
+    shard's own far layers where the axis holds one shard — as one set of
+    5R rows with their global coordinates, each window row's neighbours its
+    next window rows; `cell_dense._route_windows` with spill decides every
+    mask there (the five rows a keep mask reads are all present for the
+    own rows and the windows one row away), and the own rows are compacted
+    with K6's fill.  Only the own rows raise the flag, as in the kernel.
+    Returns (out, overflow as a 0-d bool)."""
+    box_t = _box(box, x[0])
+    xs = torch.stack(_parked(x, box_t, num_slots)) if raw else x
+    dim, n = 4 + axis, xs.shape[4 + axis]
+    if lo is None:
+        lo, hi = xs.narrow(dim, n - 2, 2), xs.narrow(dim, 0, 2)
+    elif raw:
+        lo, hi = torch.stack(_parked(lo, box_t, num_slots)), torch.stack(_parked(hi, box_t, num_slots))
+    ext = torch.cat([lo, xs, hi], dim=dim)
+    nf, c_ = xs.shape[0], xs.shape[-1]
+    r = xs[0].numel() // c_
+    # Row sets: own, one down, one up, two down, two up.
+    win = lambda d: ext.narrow(dim, 2 + d, n).reshape(nf, r, c_)  # noqa: E731
+    rows = torch.cat([win(0), win(-1), win(1), win(-2), win(2)], dim=1)
+    bf = b.reshape(r).to(torch.int64)
+    b_ext = torch.remainder(torch.cat([bf, bf - 1, bf + 1, bf - 2, bf + 2]), m_global)
+
+    def nbr(a, d):
+        part = [a[k * r : (k + 1) * r] for k in range(5)]
+        zero = torch.zeros_like(part[0])
+        if d < 0:
+            return torch.cat([part[1], part[3], part[0], zero, part[2]])
+        return torch.cat([part[2], part[0], part[4], part[1], zero])
+
+    cf = COORD_OF_AXIS[axis]
+    fields = [rows[i].view(torch.float32) if i == cf else rows[i] for i in range(nf)]
+    valid = rows[cf] != SENTINEL_BITS
+    overflow = torch.zeros((), dtype=torch.bool, device=xs.device)
+    s, keep, wins, counts, overflow = _route_windows(fields, valid, overflow, cf, b_ext, m_global, c, nbr, box_t,
+                                                     spill=spill, own_rows=r)
+    out = compact_plain(s[:r], keep[:r], wins[:, :r], c)
+    live = torch.arange(c, device=xs.device)[None, :] < counts[:r, None]
+    fill = [SENTINEL_BITS] * 3 + [0] * (nf - 4) + [num_slots]
+    out = torch.stack([torch.where(live, o, v) for o, v in zip(out, fill)])
+    return out.reshape(xs.shape), overflow
+
+
+def spill_halo_pass(x, lo, hi, b, box, axis: int, m_global: int, c: int, num_slots: int, spill, raw: bool = False,
+                    flag=None, backend: str = "auto"):
+    """One routing pass of a spill config's grid rebin along grid axis
+    `axis`: `rebin_halo_pass`'s arguments and result, with lo, hi the
+    two-layer halo planes (`halo_planes(..., depth=2)`) and spill = (c_t,
+    the float32 threshold 1 − ε/h) as `cell_dense._spill_params` gives
+    them.  For CUDA tensors, with backend 'auto' or 'cuda', one launch of
+    `csrc/spill_window.cu` (K7-G); for CPU tensors, or backend 'torch',
+    `spill_halo_plain`.  Both give the same bits in every slot and the same
+    flag; on a one-shard grid the three passes' live slots equal
+    `compact_kernel.spill_routing`'s (K7)."""
+    global SPILL_LAUNCHES
+    if resolve_backend(backend, list(x)[0]) == "torch":
+        return _merge_flag(*spill_halo_plain(x, lo, hi, b, box, axis, m_global, c, num_slots, spill, raw), flag)
+    target, threshold = spill
+    out = _halo_launch("emdee_spill_halo", x, lo, hi, b, box, axis, m_global, c, num_slots, raw, flag, 2,
+                       (int(target), float(threshold)))
+    SPILL_LAUNCHES += 1
+    return out
 
 
 def grid_rebin_witness(fields, mesh, local, box, m_global: int, c: int, num_slots: int):

@@ -20,6 +20,9 @@ tests (`tests/test_torch_cuda.py`), the CPU differential tests and
   (i+1, i+2) of every triplet excluded at 0.5 (LJ) / 0.8 (Coulomb); M = 10,
   C = 8.
 
+`spill_census` counts the spills and hold-backs of one spill rebin, and
+how many of them crossed a shard face or the periodic seam.
+
 `*_arrays` return numpy only, so the JAX side of a differential test builds
 its own objects from the same numbers; the other functions build the
 port's on a device.
@@ -242,3 +245,37 @@ def triatomic_state(device, positions=None):
     st = cell_dense_init(pos, fx["vel"], np.ones(n), lennard_jones_atom(np.ones(n), np.ones(n), device=device), cfg,
                          charges=fx["q"], device=device)
     return st, cfg, LennardJonesModel.create(CUTOFF, SWITCH, device=device)
+
+
+def spill_census(before: dict, after: dict, config, shape=(1, 1, 1)) -> dict:
+    """What one rebin of a spill config did, from the one-card layout
+    (`cell_dense.state_to_numpy`) of the state before it and after it.
+    Along each grid axis an atom stored one cell above its true cell (from
+    its wrapped coordinate, in float32 as the routing computes it) was
+    spilled if it was stored in its true cell before, and held back (a −1
+    mover kept) if it was stored where it is now.  'faces' counts those whose
+    stored and true cells lie on two shards of a `shape` mesh, 'seam' those
+    stored in cell 0 with their true cell M−1.  Returns {'spills', 'holds',
+    'faces', 'seam'}."""
+    m, c, n = config.cells_per_dim, config.capacity, int(config.num_atoms)
+    box = np.float32(config.box)
+
+    def stored(st):
+        valid = np.asarray(st["valid"]).reshape(-1)
+        cell = np.empty(n, np.int64)
+        cell[np.asarray(st["atom_id"]).reshape(-1)[valid]] = np.nonzero(valid)[0] // c
+        return np.stack([cell // (m * m), (cell // m) % m, cell % m], 1)  # (z, y, x)
+
+    prev, now = stored(before), stored(after)
+    pos = np.zeros((n, 3), np.float32)
+    valid = np.asarray(after["valid"]).reshape(-1)
+    pos[np.asarray(after["atom_id"]).reshape(-1)[valid]] = np.asarray(after["positions"]).reshape(-1, 3)[valid]
+    s = pos[:, ::-1] / box  # (z, y, x)
+    true = np.clip(np.floor(np.float32(m) * (s - np.floor(s))).astype(np.int64), 0, m - 1)
+    up = now == (true + 1) % m
+    spills, holds = up & (prev == true), up & (prev == now)
+    loc = np.array([m // k for k in shape])
+    fired = spills | holds
+    return dict(spills=int(spills.sum()), holds=int(holds.sum()),
+                faces=int((fired & (now // loc != true // loc)).sum()),
+                seam=int((fired & (now == 0) & (true == m - 1)).sum()))

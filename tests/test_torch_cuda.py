@@ -644,6 +644,62 @@ def test_rebin_halo_kernel_matches_plain_witness_and_k4(device, shape):
             assert torch.equal(x[i].reshape(m**3, c), r.view(torch.int32)), f"field {i}"
 
 
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2), (2, 1, 2)])
+@pytest.mark.parametrize("case", ["drifted", "overflow", "seam", "c40"])
+def test_spill_halo_kernel_matches_plain_and_k7(device, case, shape):
+    """K7-G, the grid's spill pass, as the grid's rebin calls it (each pass
+    on the shards' own rows with the two-layer halo planes `mesh.shift`
+    brings, the first on the raw fields, parked and wrapped in the kernel)
+    on the spill cases of `_spill_case` at M = 4: on a split axis each
+    shard holds 2 layers, so every row's q±2 lies across a shard face and
+    both halo layers come from one neighbour; 'overflow' crowds the y
+    pass.  Every pass against its plain version, bit for bit in every slot
+    and the flag, three launches a rebin; on one shard the three passes
+    against K7's route of the one-card state (the live slots, every slot
+    of every field but the positions, whose fill differs, the mask and the
+    flag)."""
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors import compact_kernel
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+    from emdee_tpu_torch.neighbors.cell_dense import _spill_params
+
+    st, config, _ = _spill_case(device, case)
+    m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
+    assert m == 4
+    spill = _spill_params(config)
+    mesh = make_grid_mesh(shape, device=device)
+    sh = gs.distribute_grid(st, config, mesh)
+    local = tuple(m // s for s in shape)
+    x = _grid_fields(sh, ns)
+    before, raised = k6.SPILL_LAUNCHES, False
+    for axis in range(3):
+        lo, hi = k6.halo_planes(x, mesh, axis, depth=2)
+        args = (x, lo, hi, k6.global_coords(mesh, local, axis), config.box, axis, m, c, ns, spill, axis == 0)
+        out, flag = k6.spill_halo_pass(*args, backend="cuda")
+        plain, ovf = k6.spill_halo_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, plain), axis
+        assert bool(flag) == bool(ovf), axis
+        raised |= bool(flag)
+        x = out
+    assert k6.SPILL_LAUNCHES == before + 3
+    assert raised == (case == "overflow")
+    whole = gs.gather_grid_state(sh._replace(atom_id=x[-1]), config, mesh).atom_id
+    assert int((whole != st.atom_id).sum()) > 10
+    if shape == (1, 1, 1):
+        fields = [st.positions[..., i] for i in range(3)] + [st.velocities[..., i] for i in range(3)]
+        fields += [st.inv_masses, st.half_sigma, st.twice_sqrt_eps, st.atom_id]
+        ref, valid, ovf = compact_kernel.spill_routing(tuple(fields), config.box, m, c, ns, spill, st.valid,
+                                                       backend="cuda")
+        assert bool(ovf) == raised
+        got = x.reshape(len(fields), m**3, c)
+        assert torch.equal(got[-1] < ns, valid)
+        for i, r in enumerate(ref):
+            mask = valid if i < 3 else torch.ones_like(valid)
+            assert torch.equal(got[i][mask], r.view(torch.int32)[mask]), f"field {i}"
+
+
 # (atoms, density, M) of the jittered lattice for each capacity: every cell
 # fits (the fullest holds 18, 27, 27, 46, 46), and at C = 56 and 88 a cell's
 # second warp takes live centres.

@@ -8,9 +8,9 @@ port's side alone: the ghost
 forces' plain version bit for bit equal to the one-card plain forces, the
 decompositions bitwise equal to each other, CSVR NVT against the one-card
 engine, a 2-rank gloo `DistMesh` run bitwise equal to `LocalMesh` (2,1,1),
-and the configs still refused (spill configs, ROADMAP item 11), with or
-without the molecular options (tests/test_torch_grid_molecular.py holds
-those).  The streaming family (K5s) is tests/test_torch_grid_streaming.py's,
+and a mesh that needs a card refused without one.  The molecular options
+are tests/test_torch_grid_molecular.py's, spill configs
+tests/test_torch_grid_spill.py's.  The streaming family (K5s) is tests/test_torch_grid_streaming.py's,
 Langevin, NPT and `reconfigure_grid_state` tests/test_torch_grid_ensembles.py's."""
 
 import jax
@@ -231,13 +231,6 @@ def test_gloo_dist_mesh_bitwise_equals_local_mesh(rollout_case):
 
 
 def test_refused_modes_raise(energy_case):
-    _, config, _, _ = energy_case
-    model = LennardJonesModel.create(2.5, 2.0, device="cpu")
-    mesh = make_grid_mesh((2, 2, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gs.make_grid_sharded_sim(config._replace(spill=True), model, 0.002, mesh)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gs.make_grid_sharded_sim(config._replace(spill=True), model, 0.002, mesh, excl_leftover=object())
     if not torch.cuda.is_available():  # the mesh builds on the card unless told otherwise
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_grid_mesh((1, 1, 1))

@@ -185,15 +185,17 @@ def test_flags_trip(setup):
 
 
 def test_config_and_options():
-    """`suggest_straggler_config` equals JAX's; the TPU-only backends are
-    refused, streaming naming its ROADMAP item."""
+    """`suggest_straggler_config` equals JAX's; the resident TPU backend and
+    an unknown pass are refused, the reference's streaming name is taken
+    with the gather pass only."""
     for args in ((100_000, 48.7, 2.5, 2.0), (97_556, 48.37, 2.5, 2.0, 0.35, None, None, 64, 16)):
         cfg = tsd.suggest_straggler_config(*args)
         assert cfg == jsd.suggest_straggler_config(*args)
         assert cfg.sentinel == cfg.wide.num_slots and cfg.grid.capacity < cfg.wide_capacity
     cfg = tsd.suggest_straggler_config(2048, 13.4, 2.5, 2.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tsd.make_straggler_sim(cfg, TMODEL, dt=DT, uniform_params=UNI, backend="pallas_streaming")
+    tsd.make_straggler_sim(cfg, TMODEL, dt=DT, uniform_params=UNI, backend="pallas_streaming")
+    with pytest.raises(ValueError, match="resident"):
+        tsd.make_straggler_sim(cfg, TMODEL, dt=DT, uniform_params=UNI, backend="pallas_streaming", strag_pass="kernel")
     for kw in ({"backend": "pallas"}, {"strag_pass": "tile"}):
         with pytest.raises(ValueError):
             tsd.make_straggler_sim(cfg, TMODEL, dt=DT, uniform_params=UNI, **kw)
@@ -203,11 +205,115 @@ def test_config_and_options():
 
 @pytest.mark.parametrize("backend", ["cuda_streaming", "streaming", "pallas_streaming_interpret"])
 def test_streaming_backends_refused(setup, backend):
-    """Every streaming backend, the port's own `cuda_streaming` included,
-    raises the NotImplementedError that names ROADMAP item 7."""
-    config = setup[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tsd.make_straggler_sim(config, TMODEL, dt=DT, uniform_params=UNI, backend=backend)
+    """Every streaming backend name builds the engine, whose 'auto' pass is
+    the gather pass, and refuses the K3 pass with the reference's
+    ValueError; on the CPU a name that may run plain runs, and
+    `cuda_streaming` refuses CPU tensors."""
+    config, ts = setup[2], setup[4]
+    with pytest.raises(ValueError, match="resident"):
+        tsd.make_straggler_sim(config, TMODEL, dt=DT, uniform_params=UNI, backend=backend, strag_pass="kernel")
+    roll, _ = tsd.make_straggler_sim(config, TMODEL, dt=DT, uniform_params=UNI, backend=backend)
+    if backend == "cuda_streaming":
+        with pytest.raises(ValueError, match="CUDA"):
+            roll.forces(ts)
+    else:
+        fg, fa, knovf = roll.forces(ts)
+        ref = tsd.make_straggler_sim(config, TMODEL, dt=DT, uniform_params=UNI, strag_pass="xla")[0].forces(ts)
+        scale = float(ref[0].abs().max())
+        assert not bool(knovf) and float((fg - ref[0]).abs().max()) <= 1e-5 * scale
+        assert float((fa - ref[1]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.fixture(scope="module")
+def streaming_run(setup):
+    """The port's 24-step run on the streaming family's plain version
+    ('pallas_streaming_interpret' → 'torch_streaming')."""
+    _, _, config, _, ts = setup
+    roll, _ = tsd.make_straggler_sim(config, TMODEL, dt=DT, uniform_params=UNI, backend="pallas_streaming_interpret")
+    return roll(ts, num_steps=STEPS, rebin_every=REBIN_EVERY)
+
+
+@pytest.fixture(scope="module")
+def melt():
+    """tests/test_straggler.py's melt: the 2,048-atom FCC lattice at ρ* =
+    0.8442 started hot (T* = 1.44) and run 120 steps on the wide config
+    (the port's plain dense engine, dt 0.005, rebin every 2) into liquid
+    occupancy, then a straggler config with C_t two below the fullest
+    cell, C_w + 8, A = 64, Kn = 48: (state, config)."""
+    from emdee_tpu_torch.neighbors import cell_dense as tcd
+    from emdee_tpu_torch.utils.lattice import fcc_lattice
+    from emdee_tpu_torch.utils.lattice import maxwell_boltzmann as tmb
+
+    pos, box = fcc_lattice(8, density=0.8442)
+    n = len(pos)
+    wide = tcd.suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.35)
+    params = tlj(np.ones(n), np.ones(n), device="cpu")
+    st = tcd.cell_dense_init(pos, tmb(n, 1.44, seed=5), np.ones(n), params, wide, device="cpu")
+    roll, _ = tcd.make_cell_dense_sim(wide, TMODEL, dt=0.005, backend="torch", uniform_params=UNI, uniform_mass=1.0)
+    st = roll(st, num_steps=120, rebin_every=2)
+    assert not bool(st.overflow)
+    p, v = tcd.gather_dense_atoms(st, n)
+    config = jsd.StragglerConfig(grid=wide._replace(capacity=int(st.valid.sum(1).max()) - 2),
+                                 wide_capacity=wide.capacity + 8, aux_capacity=64, kn=48)
+    ts = tsd.straggler_init(p, v, np.ones(n), params, config, device="cpu")
+    assert not bool(ts.grid.overflow) and _parked(ts, config) >= 5
+    return ts, config
+
+
+def test_streaming_nve_holds_energy_and_matches_wide(melt):
+    """tests/test_straggler.py:102-140's streaming case on the port
+    ('pallas_streaming_interpret': the plain streaming pass): 24 NVE steps
+    at dt 0.005 hold the energy to 1e-4, the tail re-parks, and the
+    trajectory is the wide engine's (the port's plain dense engine at C_w)
+    within that test's 1e-3 / 1e-2."""
+    from emdee_tpu_torch.neighbors.cell_dense import gather_dense_atoms, make_cell_dense_sim
+
+    ts, config = melt
+    n = config.grid.num_atoms
+    roll, energy = tsd.make_straggler_sim(config, TMODEL, dt=0.005, uniform_params=UNI,
+                                          backend="pallas_streaming_interpret")
+    out = roll(ts, num_steps=24, rebin_every=6)
+    pe0, _, ke0 = (float(x) for x in energy(ts))
+    pe1, _, ke1 = (float(x) for x in energy(out))
+    assert not bool(out.grid.overflow) and int(out.grid.step) == 24
+    assert abs((pe1 + ke1) - (pe0 + ke0)) / abs(pe0 + ke0) < 1e-4
+    assert _parked(out, config) >= 1
+    w_roll, _ = make_cell_dense_sim(config.wide, TMODEL, dt=0.005, backend="torch", uniform_params=UNI,
+                                    uniform_mass=1.0)
+    w_out = w_roll(roll.wide_state(ts), num_steps=24, rebin_every=6)
+    assert not bool(w_out.overflow)
+    p_s, v_s = tsd.gather_straggler_atoms(out, config, n)
+    p_w, v_w = gather_dense_atoms(w_out, n)
+    np.testing.assert_allclose(p_s, p_w, atol=1e-3)
+    np.testing.assert_allclose(v_s, v_w, atol=1e-2)
+
+
+def _assert_rollouts_match(ja, ta, config):
+    """test_rollout_matches_jax's tolerances: atom ids and the aux
+    bookkeeping equal, positions 2e-5, velocities 2e-4."""
+    assert not bool(ja.grid.overflow) and not bool(ta.grid.overflow)
+    np.testing.assert_array_equal(ta.grid.atom_id.numpy(), np.asarray(ja.grid.atom_id))
+    for name in ("aux_atom_id", "aux_cell", "aux_rank"):
+        np.testing.assert_array_equal(getattr(ta, name).numpy(), np.asarray(getattr(ja, name)), err_msg=name)
+    pj, vj = jsd.gather_straggler_atoms(ja, config, N)
+    pt, vt = tsd.gather_straggler_atoms(ta, config, N)
+    np.testing.assert_allclose(pt, pj, atol=2e-5)
+    np.testing.assert_allclose(vt, vj, atol=2e-4)
+
+
+@pytest.mark.parametrize("jax_backend", [
+    "pallas_interpret",
+    # The reference keeps its own streaming straggler case full-tier (≈45 s).
+    pytest.param("pallas_streaming_interpret", marks=pytest.mark.full),
+])
+def test_streaming_matches_jax(setup, streaming_run, jax_backend):
+    """The port's streaming run against JAX's gather-pass straggler on the
+    resident interpret kernel (quick) and on its streaming kernel (full),
+    at test_rollout_matches_jax's tolerances."""
+    _, _, config, js, _ = setup
+    jroll, _ = jsd.make_straggler_sim(config, JMODEL, dt=DT, uniform_params=UNI, uniform_mass=1.0,
+                                      backend=jax_backend, strag_pass="xla")
+    _assert_rollouts_match(jroll(js, num_steps=STEPS, rebin_every=REBIN_EVERY), streaming_run, config)
 
 
 @pytest.mark.parametrize("width", [1, 28])
