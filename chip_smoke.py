@@ -128,10 +128,20 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   K7; 1,000 gated NVE steps on (1,1,1) and (2,2,2) on 'auto' (K2-G), the
   end states bitwise equal; 200 on (2,2,2) 'cuda_streaming' (K5s);
   Langevin on (2,2,2); the (1,1,1) run on a one-rank NCCL `DistMesh`;
-- parts 3 to 6 of the multi-device dry run (`distributed/dryrun.py`: the
-  LJ grid, DSF charges and tags, bonded terms with leftover exclusions,
-  the same on the kernels) on one NCCL rank, each bitwise equal to the
-  `LocalMesh` run;
+- the two 1-D slab engines (`distributed/cell_dense_sharded.py` and
+  `distributed/domain.py`; plain torch ops, no kernel), every slab on this
+  card: the slab dense engine on the melt at the grid's config (M = 16,
+  C = 40) on (2,1,1) and (4,1,1), its start's PE and virial against the
+  dense energy closure, its full-shell forces against K2a's, 1,000 gated
+  NVE steps; the atom-table engine on a jittered FCC 14³ (10,976 atoms) on
+  (2,1,1) and (3,1,1), its energy and virial against all-pairs, 40 steps
+  against the portable all-pairs Verlet, 500 gated NVE steps; then
+  tests/test_fidelity.py's 1e-6 drift on the K2a path at 10,976 atoms,
+  with float64 energies on the card (measured, not gated);
+- parts 1 to 6 of the multi-device dry run (`distributed/dryrun.py`: the
+  atom-table slab engine, the slab dense engine, the LJ grid, DSF charges
+  and tags, bonded terms with leftover exclusions, the same on the
+  kernels) on one NCCL rank, each bitwise equal to the `LocalMesh` run;
 - the straggler engine on the streaming family at 1M
   (`phase_straggler_1m`: M = 37, C_t = 30, C_w = 36, A = 96, Kn = 16 on
   'cuda_streaming', K5's split entry and the gather pass): K5 vs plain,
@@ -143,8 +153,8 @@ kernel; P2, the centre-expansion product in two layouts) against their plain
 versions, with their times.
 
 Each path is gated: no overflow (capacity, staleness, Kn, A), NVE drift ≤
-3e-5 over 1,000 steps (the water paths: ≤ 1e-4 over 600 steps, 200 at
-985,527 atoms; K2c, K5c and K2c-G within 2e-4 of the force scale and 1e-3
+3e-5 over 1,000 steps (the atom-table slab engine: ≤ 1e-4 over 500; the
+water paths: ≤ 1e-4 over 600 steps, 200 at 985,527 atoms; K2c, K5c and K2c-G within 2e-4 of the force scale and 1e-3
 in energies and virials of their plain versions) (NVT: the mean T* of the last 500 steps within 2% of
 the target; NPT: the box grows by more than 1% and half the pressure gap
 closes), launch counts that show every force evaluation, straggler pass,
@@ -3328,6 +3338,237 @@ def phase_grid_water(device, tag, w, dense_drift):
     return row, {"grid_water_222": counts}, ms
 
 
+SLAB_FORCE_GATE = 2e-5  # full shell vs K2a's half shell, of the force scale (the kernels' gate)
+DOMAIN_DRIFT_GATE = 1e-4  # relative NVE drift of the atom-table engine over 500 steps
+DOMAIN_ROLLOUT_ATOL = 5e-4  # 40 steps vs all-pairs Verlet (tests/test_distributed.py:104)
+
+
+def energy_f64(pos, box: float) -> float:
+    """Total LJ energy (unit parameters, rc 2.5σ, switch 2.0σ) of `pos`
+    (N, 3) in float64 on the card, all pairs, with the float64 oracle's
+    minimum image and pair math (tests/oracle.py)."""
+    x = pos.double() / box
+    n = x.shape[0]
+    rc2, rs2 = CUTOFF**2, SWITCH**2
+    inv_d2 = 1.0 / (rc2 - rs2)
+    total = torch.zeros((), dtype=torch.float64, device=pos.device)
+    idx = torch.arange(n, device=pos.device)
+    for lo in range(0, n, 2048):
+        ds = x[lo : lo + 2048, None, :] - x[None, :, :]
+        rv = box * (ds - torch.round(ds))
+        r2 = (rv * rv).sum(-1)
+        own = idx[lo : lo + 2048, None] == idx[None, :]
+        r2 = torch.where(own, 1.0, r2)
+        s6 = (1.0 / r2) ** 3
+        e = 4.0 * s6 * (s6 - 1.0)
+        t = torch.clamp((r2 - rs2) * inv_d2, 0.0, 1.0)
+        g = 1.0 + t * t * t * (15.0 * t - 6.0 * t * t - 10.0)
+        total = total + 0.5 * torch.where(own, 0.0, e * g).sum()
+    return float(total)
+
+
+def k2a_drift_f64(device, tag, cells: int = 14):
+    """tests/test_fidelity.py's 1e-6 drift measurement on the card's K2a
+    path (the dense component carry, uniform parameters): FCC 14³ = 10,976
+    atoms at T* 0.7, skin 0.3, 300 settling steps at dt = 0.004 rebinning
+    every 3, then 500 at dt = 0.002 rebinning every 4; energies in float64
+    on the card (`energy_f64`).  A measurement: its gate is the `full`
+    CPU test's.  The window runs once in one call (the gated number, one
+    sample at each end), and once more from the same settled state in
+    calls of 4 steps, sampled after each: the drift from the mean of the
+    first 13 samples (48 steps) to that of the last 13, and from a
+    least-squares line through all 126, both of which average out the
+    total energy's swing around its trend (the std about the line,
+    printed).  Returns (drift, end-mean drift, line drift)."""
+    from emdee_tpu_torch import (
+        LennardJonesModel, cell_dense_init, detect_uniform_params, gather_dense_atoms, lennard_jones_atom,
+        make_cell_dense_sim, suggest_cell_dense_config,
+    )
+    from emdee_tpu_torch.utils.lattice import fcc_lattice, maxwell_boltzmann
+
+    pos, box = fcc_lattice(cells, density=DENSITY)
+    n = len(pos)
+    config = suggest_cell_dense_config(n, box, cutoff=CUTOFF, switch=SWITCH, skin=0.3)
+    model = LennardJonesModel.create(CUTOFF, SWITCH, device=device)
+    params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
+    uni = detect_uniform_params(params)
+    st = cell_dense_init(pos, maxwell_boltzmann(n, 0.7, seed=0), np.ones(n), params, config, device=device)
+    settle, _ = make_cell_dense_sim(config, model, dt=0.004, uniform_params=uni, uniform_mass=1.0)
+    st = settle(st, num_steps=300, rebin_every=3)
+    run, _ = make_cell_dense_sim(config, model, dt=0.002, uniform_params=uni, uniform_mass=1.0)
+    out = run(st, num_steps=500, rebin_every=4)
+    if bool(st.overflow) or bool(out.overflow):
+        raise AssertionError("K2a drift run: overflow")
+
+    def e_f64(s):
+        p, v = gather_dense_atoms(s, n)
+        ke = 0.5 * float((torch.from_numpy(v).to(device).double() ** 2).sum())
+        return energy_f64(torch.from_numpy(p).to(device), float(box)) + ke, ke
+
+    (e0, ke0), (e1, _) = e_f64(st), e_f64(out)
+    drift = abs(e1 - e0) / ke0
+    series, s = [e0], st
+    for _ in range(125):
+        s = run(s, num_steps=4, rebin_every=4)
+        series.append(e_f64(s)[0])
+    if bool(s.overflow):
+        raise AssertionError("K2a drift series: overflow")
+    series = np.array(series)
+    ends = abs(series[-13:].mean() - series[:13].mean()) / ke0
+    t = 4.0 * np.arange(len(series))
+    fit = np.polyfit(t, series, 1)
+    line = abs(fit[0]) * 500.0 / ke0
+    swing = float(np.std(series - np.polyval(fit, t))) / ke0
+    log(f"{tag} K2a path at {n} atoms (tests/test_fidelity.py:73): 500 NVE steps at dt=0.002 after 300 settling, "
+        f"float64 energies on the card: drift {drift:.3e} of KE (the CPU full-tier gate: 1e-6; here measured); "
+        f"in 4-step calls, sampled every 4 steps: first-48 to last-48 mean drift {ends:.3e}, least-squares line "
+        f"drift {line:.3e}, std about the line {swing:.3e}")
+    return drift, ends, line
+
+
+def slab_dense_check(label, cfg, model, uni, mesh, st):
+    """The slab dense engine's start on `st` over `mesh`: PE and virial
+    within rtol 1e-5 of the dense energy closure on the same slots; the
+    full-shell forces of the state drifted 0.45·skin within 2e-5 of the
+    force scale of K2a's; the pass's time beside K2a's.  Returns (max
+    |dF|, scale, pass ms, K2a ms)."""
+    from emdee_tpu_torch import make_cell_dense_sim
+    from emdee_tpu_torch.distributed.cell_dense_sharded import distribute_cell_dense, make_sharded_cell_dense_sim
+    from emdee_tpu_torch.neighbors.cell_kernel import cell_forces_split
+
+    roll, energy = make_sharded_cell_dense_sim(cfg, model, DT, mesh)
+    _, d_energy = make_cell_dense_sim(cfg, model, dt=DT, uniform_params=uni, uniform_mass=1.0)
+    for a, b, what in zip(energy(distribute_cell_dense(st, mesh)), d_energy(st), ("pe", "virial", "ke")):
+        close(f"{label} {what} vs the dense energy closure", a, b, atol=0.0, rtol=1e-5)
+    sd = drifted(st, SKIN)
+    sh = distribute_cell_dense(sd, mesh)
+    f = roll.forces(sh)[0]
+    px, py, pz = (sd.positions[..., i].contiguous() for i in range(3))
+    k2a = lambda: cell_forces_split(px, py, pz, sd.valid, cfg, uniform_params=uni, backend="cuda")  # noqa: E731
+    ref = torch.stack(k2a(), dim=-1)
+    v = sd.valid
+    scale = max(float(ref[v].abs().max()), 1.0)
+    err = close(f"{label} full-shell forces vs K2a", f[v], ref[v], atol=SLAB_FORCE_GATE * scale)
+    return err, scale, cuda_ms(lambda: roll.forces(sh), 5), cuda_ms(k2a, 20)
+
+
+def phase_slab_dense(device, tag, config, model, uni, pos_eq, vel_eq, params, k, shapes=(2, 4), steps=1000):
+    """The slab dense engine (`distributed/cell_dense_sharded.py`, plain
+    torch, every slab on this card) on the equilibrated melt at the grid's
+    config (`reconfigure_dense_state(cells_multiple_of=2)`: M = 16, C = 40)
+    on (D,1,1) for D in `shapes`: `slab_dense_check`, `steps` gated NVE
+    steps rebinning every k (no flag, drift ≤ 3e-5, no kernel launched),
+    bitwise reruns, no host waits.  Returns ({path: ms/step}, {path:
+    kernels a step}, the largest |dF| vs K2a over the force scale)."""
+    from emdee_tpu_torch import cell_dense_init, reconfigure_dense_state
+    from emdee_tpu_torch.distributed.cell_dense_sharded import distribute_cell_dense, make_sharded_cell_dense_sim
+    from emdee_tpu_torch.distributed.mesh import make_mesh
+
+    ms, kps, err = {}, {}, 0.0
+    n = config.num_atoms
+    st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
+    st, cfg = reconfigure_dense_state(st0, config, cells_multiple_of=2)
+    if bool(st.overflow):
+        raise AssertionError(f"slab config M={cfg.cells_per_dim}: overflow")
+    for d in shapes:
+        name, label = f"slab_dense_d{d}", f"slab dense ({d},1,1) M={cfg.cells_per_dim} C={cfg.capacity}"
+        mesh = make_mesh(d, device=device)
+        e, scale, pass_ms, k2a_ms = slab_dense_check(label, cfg, model, uni, mesh, st)
+        err = max(err, e / scale)
+        roll, energy = make_sharded_cell_dense_sim(cfg, model, DT, mesh)
+        sh = distribute_cell_dense(st, mesh)
+        roll(sh, num_steps=k, rebin_every=k)  # warm-up
+        _, sec, drift, _ = gate_rollout(label, roll, energy, sh, steps, k, launches())
+        bitwise_rerun(label, roll, sh, 2 * k, k)
+        no_host_waits(label, lambda: roll(sh, num_steps=k, rebin_every=k))
+        ms[name] = 1e3 * sec / steps
+        kps[name] = kernels_per_step(lambda: roll(sh, num_steps=2 * k, rebin_every=k), 2 * k)
+        log(f"{tag} {label} (LocalMesh, plain torch): {steps} steps in {sec:.3f} s = {ms[name]:.4f} ms/step, "
+            f"{kps[name]} device kernels a step; NVE drift {drift:.3e}; no kernel launched; full-shell pass "
+            f"{pass_ms:.3f} ms vs K2a {k2a_ms:.4f} ms, forces vs K2a max |dF| {e:.3e} (scale {scale:.3f}, gate "
+            f"{SLAB_FORCE_GATE} of it); PE and virial vs the dense closure in rtol 1e-5; reruns bitwise equal; "
+            "no host waits")
+    return ms, kps, err
+
+
+def phase_domain(device, tag, model, cells=14, shapes=(2, 3), steps=500):
+    """The atom-table slab engine (`distributed/domain.py`, plain torch,
+    every slab on this card) on a jittered FCC `cells`³ (14³: 10,976
+    atoms, box 23.5σ, T* 1.44) on (D,1,1) for D in `shapes`: energy and
+    virial vs `compute_nonbonded_allpairs` (rtol 1e-5), 40 steps at dt =
+    0.002 vs the portable `nve_rollout` on all-pairs (5e-4), then `steps`
+    gated steps at dt = 0.005 resorting every 10 (no flag, drift ≤ 1e-4, no
+    kernel launched), bitwise reruns, no host waits.  Returns ({path:
+    ms/step}, {path: kernels a step})."""
+    from emdee_tpu_torch import (
+        NonbondedConfig, compute_nonbonded_allpairs, lennard_jones_atom, make_force_fn, make_state, nve_rollout,
+    )
+    from emdee_tpu_torch.distributed import domain
+    from emdee_tpu_torch.distributed.mesh import make_mesh
+    from emdee_tpu_torch.utils.lattice import fcc_lattice, maxwell_boltzmann
+
+    ms, kps = {}, {}
+    pos, box = fcc_lattice(cells, density=DENSITY)
+    n = len(pos)
+    pos = pos + np.random.default_rng(SEED_PORTABLE).uniform(-0.05, 0.05, pos.shape)
+    vel = maxwell_boltzmann(n, 1.44, seed=SEED_PORTABLE)
+    params = lennard_jones_atom(np.ones(n), np.ones(n), device=device)
+    ap_out = compute_nonbonded_allpairs(torch.from_numpy(pos.astype(np.float32)).to(device), box, model, params)
+    ap = make_force_fn(NonbondedConfig(cutoff=CUTOFF, switch=SWITCH, method="allpairs"), params, box, n,
+                       device=device)
+    ref, _, _ = nve_rollout(make_state(pos, vel, box=box, device=device), (), ap.force_fn, 0.002, 40)
+    box_t = torch.full((), box, dtype=torch.float32, device=device)
+    for d in shapes:
+        name, label = f"domain_d{d}", f"domain ({d},1,1) N={n}"
+        mesh = make_mesh(d, device=device)
+        cfg = domain.suggest_domain_config(n, box, CUTOFF, d, resort_every=10)
+        st = domain.distribute(pos, vel, np.ones(n), params, cfg, mesh)
+        roll40, energy = domain_nve(domain, cfg, mesh, model, 0.002)
+        pe, vir, _ = energy(st)
+        close(f"{label} energy vs all-pairs", pe, ap_out.energies.sum(), atol=0.0, rtol=1e-5)
+        close(f"{label} virial vs all-pairs", vir, ap_out.virials.sum(), atol=0.0, rtol=1e-5)
+        out40 = roll40(st, num_steps=40, rebin_every=10)
+        if bool(out40.overflow) or int(out40.step) != 40:
+            raise AssertionError(f"{label}: 40 steps: overflow {bool(out40.overflow)}, step {int(out40.step)}")
+        p40, v40 = domain.gather_dense(out40, n)
+        dp = torch.from_numpy(p40).to(device) - ref.positions
+        dp = dp - torch.round(dp / box_t) * box_t
+        gap = max(float(dp.abs().max()), float((torch.from_numpy(v40).to(device) - ref.velocities).abs().max()))
+        if not gap <= DOMAIN_ROLLOUT_ATOL:
+            raise AssertionError(f"{label}: 40 steps differ from all-pairs Verlet by {gap:.3e}")
+        roll, energy = domain_nve(domain, cfg, mesh, model, DT)
+        roll(st, num_steps=10, rebin_every=10)  # warm-up
+        _, sec, drift, _ = gate_rollout(label, roll, energy, st, steps, 10, launches(), drift_gate=DOMAIN_DRIFT_GATE)
+        bitwise_rerun(label, roll, st, 20, 10)
+        no_host_waits(label, lambda: roll(st, num_steps=10, rebin_every=10))
+        ms[name] = 1e3 * sec / steps
+        kps[name] = kernels_per_step(lambda: roll(st, num_steps=10, rebin_every=10), 10)
+        log(f"{tag} {label} (LocalMesh, plain torch; S={cfg.slot_capacity}, H={cfg.halo_capacity}): {steps} steps "
+            f"at dt={DT} in {sec:.3f} s = {ms[name]:.4f} ms/step, {kps[name]} device kernels a step; NVE drift "
+            f"{drift:.3e}; no kernel launched; E and W vs all-pairs in rtol 1e-5; 40 steps at dt=0.002 vs all-pairs "
+            f"Verlet max |d| {gap:.3e} (gate {DOMAIN_ROLLOUT_ATOL}); reruns bitwise equal; no host waits")
+    return ms, kps
+
+
+def domain_nve(domain, config, mesh, model, dt):
+    """The atom-table engine's (rollout, energy) in the dense engine's
+    shape for `gate_rollout` and `bitwise_rerun`: rollout(state, num_steps,
+    rebin_every) runs num_steps / resort_every blocks (rebin_every must be
+    the config's resort_every); energy(state) → (pe, virial, ke)."""
+    roll, energy_fn = domain.make_sharded_step(config, mesh, model, dt)
+
+    def rollout(state, num_steps, rebin_every):
+        if rebin_every != config.resort_every or num_steps % rebin_every:
+            raise ValueError(f"{num_steps} steps in blocks of {config.resort_every}")
+        return roll(state, num_blocks=num_steps // rebin_every)
+
+    def energy(state):
+        ke = 0.5 * torch.sum(torch.where(state.valid[:, None], state.masses[:, None] * state.velocities**2, 0.0))
+        return (*energy_fn(state), ke)
+
+    return rollout, energy
+
+
 def phase_molecular_fixtures(device, tag):
     """K2c vs plain on the 864-atom charged fixture; the triatomic fixture
     of tests/test_grid_sharded_pallas.py:36-104 (375 atoms, band 1: leftover
@@ -3843,12 +4084,24 @@ def main() -> None:
         + ", ".join(f"{p} {v:.4f}" for p, v in grid_spill_ms.items()))
     del spill_st
 
-    # ---- parts 3 to 6 of the multi-device dry run on one NCCL rank ----
+    # ---- the 1-D slab engines (plain torch) and the K2a path's 1e-6 drift measurement ----
+    t0 = time.perf_counter()
+    slab_ms, slab_kps, slab_err = phase_slab_dense(device, tag, config, model, uni, pos_eq, vel_eq, params, k)
+    domain_ms, domain_kps = phase_domain(device, tag, model)
+    slab_ms, slab_kps = {**slab_ms, **domain_ms}, {**slab_kps, **domain_kps}
+    k2a_drift, k2a_ends, k2a_line = k2a_drift_f64(device, tag)
+    log(f"{tag} slab phases and the drift measurement: {time.perf_counter() - t0:.1f} s")
+    log(f"{smi}: slab engines ms/step " + ", ".join(f"{p} {v:.4f} ({slab_kps[p]} kernels a step)"
+                                                   for p, v in slab_ms.items())
+        + f"; K2a path's NVE drift at 10,976 atoms {k2a_drift:.3e} of KE (float64 energies; end means "
+        f"{k2a_ends:.3e}, line {k2a_line:.3e})")
+
+    # ---- parts 1 to 6 of the multi-device dry run on one NCCL rank ----
     from emdee_tpu_torch.distributed import dryrun
 
     t0 = time.perf_counter()
     dryrun.dryrun_multichip(1)
-    log(f"{tag} dry run parts 3-6 on one NCCL rank (a spawned process) in {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} dry run parts 1-6 on one NCCL rank (a spawned process) in {time.perf_counter() - t0:.1f} s")
 
     # ---- bench_all.py's 1M melt: the streaming kernel family ----
     rebin.update({f"n1m_{key}": value for key, value in phase_rebin(device, tag, N_CELLS_1M).items()})
@@ -3902,6 +4155,8 @@ def main() -> None:
              n1m_energy_ms=k2_1m["k2_energy_ms"],
              **{f"strag_{key}": value for key, value in k3["strag"].items()},
              mol_replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:383",
+             slab_full_shell_vs_k2a_rel_err=slab_err, k2a_drift_f64_10976=k2a_drift,
+             k2a_drift_f64_10976_end_means=k2a_ends, k2a_drift_f64_10976_line=k2a_line,
              mol_launches=counts_water["water"]["cell_forces"],
              mol_launches_by_path={"water": counts_water["water"]["cell_forces"],
                                    "modelling_cuda": counts_modelling["modelling_cuda"]["cell_forces"]},

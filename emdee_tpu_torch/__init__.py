@@ -15,7 +15,10 @@ TPU engine's two force-kernel families — resident and streaming, picked by
 straggler engine on top of it, the 3-D grid-sharded engine
 (`distributed/`: NVE, CSVR and Langevin NVT and Berendsen NPT over an
 (nz, ny, nx) mesh of shards on either kernel family, every shard on one card
-or one a `torch.distributed` rank), and molecular systems
+or one a `torch.distributed` rank) and the two 1-D slab engines beside it
+(`distributed/domain.py`, the atom-table decomposition, and
+`distributed/cell_dense_sharded.py`, slabs of cells; plain torch ops on a
+(D, 1, 1) mesh), and molecular systems
 on the dense engine (`neighbors/cell_dense_molecular.py`: charges with DSF
 Coulomb, exclusion tags, tag-borne bonds and the bonded terms of
 `potentials/bonded.py`), the molecular front door (`ForceField` and
@@ -102,7 +105,10 @@ from emdee_tpu_torch.potentials.bonded import (
     BondedSystem,
     BondTable,
     TorsionTable,
+    angle_forces_into,
+    bond_forces_into,
     bonded_from_numpy,
+    torsion_forces_into,
 )
 from emdee_tpu_torch.potentials.coulomb import (
     KJMOL_ANGSTROM,
@@ -114,6 +120,7 @@ from emdee_tpu_torch.potentials.coulomb import (
 from emdee_tpu_torch.potentials.lennard_jones import (
     LennardJonesModel,
     lennard_jones_atom,
+    pair_energy,
     pair_interaction,
 )
 
@@ -192,7 +199,10 @@ __all__ = [
     "BondedSystem",
     "BondTable",
     "TorsionTable",
+    "angle_forces_into",
+    "bond_forces_into",
     "bonded_from_numpy",
+    "torsion_forces_into",
     "KJMOL_ANGSTROM",
     "KJMOL_NM",
     "DSFCoulomb",
@@ -200,5 +210,6 @@ __all__ = [
     "coulomb_interaction",
     "LennardJonesModel",
     "lennard_jones_atom",
+    "pair_energy",
     "pair_interaction",
 ]

@@ -1,12 +1,21 @@
-"""A multi-process dry run of the grid-sharded engine — counterpart of parts
-3 to 6 of `dryrun_multichip` in the repository's `__graft_entry__.py`, at
-its tiny shapes on an (nz, ny, nx) factorisation of n ranks, one shard a
-rank, over `torch.distributed` (`DistMesh`): gloo ranks on the CPU, or NCCL
-when n cards are present.
+"""A multi-process dry run of the sharded engines — counterpart of
+`dryrun_multichip` in the repository's `__graft_entry__.py`, at its tiny
+shapes, one shard a rank over `torch.distributed` (`DistMesh`): gloo ranks
+on the CPU, or NCCL when n cards are present.
 
     python -m emdee_tpu_torch.distributed.dryrun [N]
 
-- Part 3: the LJ grid engine, 4 NVE steps, rebinning every 2.
+- Part 1: the atom-table slab engine (`distributed/domain.py`) on a
+  (N, 1, 1) mesh: 64·N atoms at random in a box of 6.5·N, `resort_every`
+  5, one block (step 5), the energy path; no flag from N = 4 on (below
+  that the random start's closest pairs throw atoms past the halo skin
+  within the block, and the staleness flag rises in the reference's run
+  as in this one).
+- Part 2: the slab-sharded dense-cell engine
+  (`distributed/cell_dense_sharded.py`): M = 2·N cells, capacity 8, 4
+  steps, rebinning every 2.
+- Part 3: the LJ grid engine on an (nz, ny, nx) factorisation of the N
+  ranks, 4 NVE steps, rebinning every 2.
 - Part 4: DSF charges (±0.2) and exclusion tags on every (2i, 2i+1) pair,
   2 steps.
 - Part 5: the full molecular decomposition: pairs bonded at the LJ minimum
@@ -18,10 +27,7 @@ when n cards are present.
   5's.
 
 Every rank of every part must gather a state bit for bit equal to the same
-run on a `LocalMesh` in this process.  Parts 1 and 2 of the reference (the
-atom-table slab decomposition of `distributed/domain.py` and the
-slab-sharded `cell_dense_sharded.py`) are not ported: a (D, 1, 1) grid mesh
-covers slabs (ROADMAP item 12).
+run on a `LocalMesh` in this process.
 
 `run_ranks` is the launcher the tests share: n spawned processes, a
 `file://` rendezvous in a fresh temporary directory, results back through a
@@ -216,20 +222,119 @@ def grid_jobs(rank, n, jobs):
     return [grid_job(rank, n, *args, **options) for args, options in jobs]
 
 
+def slab_arrays(n_devices: int) -> dict:
+    """Parts 1 and 2's systems as numpy, drawn as `__graft_entry__.py`
+    draws them: 64·D atoms at random in a box of 6.5·D (slab ≥ 2·(rc +
+    halo skin) = 6), Maxwell-Boltzmann velocities at T = 1, and part 2's
+    positions, the generator's next draw, in its box of M = 2·D cells of
+    side rc + 0.4 (config2, capacity 8)."""
+    from emdee_tpu_torch.neighbors.cell_dense import CellDenseConfig
+    from emdee_tpu_torch.utils.lattice import maxwell_boltzmann
+
+    n, box = 64 * n_devices, 6.5 * n_devices
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(0.0, box, (n, 3))
+    m = 2 * n_devices
+    config2 = CellDenseConfig(cells_per_dim=m, capacity=8, box=m * (CUTOFF + 0.4), cutoff=CUTOFF, switch=SWITCH,
+                              skin=0.4, num_atoms=n)
+    return dict(n=n, box=box, pos=pos, vel=maxwell_boltzmann(n, 1.0, seed=1), config2=config2,
+                pos2=rng.uniform(0.0, config2.box, (n, 3)))
+
+
+def _to_numpy(state) -> dict:
+    return {k: v.cpu().contiguous().numpy() for k, v in state._asdict().items() if isinstance(v, torch.Tensor)}
+
+
+def domain_run(mesh, pos, vel, config, num_blocks: int):
+    """The atom-table slab engine from host arrays (unit masses and LJ
+    parameters, dt = 0.002) on a (D, 1, 1) mesh: (the whole state after
+    `num_blocks` blocks, gathered, as numpy fields; (pe, virial))."""
+    from emdee_tpu_torch import LennardJonesModel, lennard_jones_atom
+    from emdee_tpu_torch.distributed import domain
+
+    n, dev = len(pos), mesh.device
+    rollout, energy = domain.make_sharded_step(config, mesh, LennardJonesModel.create(CUTOFF, SWITCH, device=dev),
+                                               dt=0.002)
+    params = lennard_jones_atom(np.ones(n), np.ones(n), device=dev)
+    st = rollout(domain.distribute(pos, vel, np.ones(n), params, config, mesh), num_blocks=num_blocks)
+    return _to_numpy(domain.gather_sharded(st, mesh)), tuple(float(x) for x in energy(st))
+
+
+def slab_run(mesh, fields, config, steps: int, rebin_every: int):
+    """The slab-sharded dense-cell engine from a one-card state's fields
+    (`cell_dense.state_to_numpy`) on a (D, 1, 1) mesh, dt = 0.002: (the
+    whole state after `steps` steps, gathered, as numpy fields; (pe,
+    virial, ke))."""
+    from emdee_tpu_torch import LennardJonesModel
+    from emdee_tpu_torch.distributed import cell_dense_sharded as cds
+    from emdee_tpu_torch.neighbors.cell_dense import state_from_numpy
+
+    dev = mesh.device
+    rollout, energy = cds.make_sharded_cell_dense_sim(config, LennardJonesModel.create(CUTOFF, SWITCH, device=dev),
+                                                      0.002, mesh)
+    st = rollout(cds.distribute_cell_dense(state_from_numpy(fields, dev), mesh), num_steps=steps,
+                 rebin_every=rebin_every)
+    return _to_numpy(cds.gather_cell_dense(st, mesh)), tuple(float(x) for x in energy(st))
+
+
+def _rank_mesh(rank, n, device_kind):
+    import torch.distributed as dist
+
+    from emdee_tpu_torch.distributed.mesh import make_mesh
+
+    device = torch.device("cuda", rank) if device_kind == "cuda" else torch.device("cpu")
+    return make_mesh(n, group=dist.group.WORLD, device=device)
+
+
+def domain_job(rank, n, pos, vel, config, num_blocks, device_kind="cpu"):
+    """One rank of `domain_run` on an (n, 1, 1) `DistMesh`."""
+    return domain_run(_rank_mesh(rank, n, device_kind), pos, vel, config, num_blocks)
+
+
+def slab_job(rank, n, fields, config, steps, rebin_every, device_kind="cpu"):
+    """One rank of `slab_run` on an (n, 1, 1) `DistMesh`."""
+    return slab_run(_rank_mesh(rank, n, device_kind), fields, config, steps, rebin_every)
+
+
+def slab_part(part: int, mesh):
+    """Part 1 (`domain_run`, one block) or part 2 (`slab_run`, 4 steps,
+    rebinning every 2) on a (D, 1, 1) slab mesh."""
+    from emdee_tpu_torch import cell_dense_init, lennard_jones_atom
+    from emdee_tpu_torch.distributed.domain import suggest_domain_config
+    from emdee_tpu_torch.neighbors.cell_dense import state_to_numpy
+
+    d = mesh.shape[0]
+    a = slab_arrays(d)
+    n = a["n"]
+    if part == 1:
+        return domain_run(mesh, a["pos"], a["vel"], suggest_domain_config(n, a["box"], CUTOFF, d, resort_every=5), 1)
+    params = lennard_jones_atom(np.ones(n), np.ones(n), device=mesh.device)
+    st = cell_dense_init(a["pos2"], a["vel"], np.ones(n), params, a["config2"], device=mesh.device)
+    return slab_run(mesh, state_to_numpy(st), a["config2"], 4, 2)
+
+
+def dryrun_jobs(rank, n, device_kind, jobs):
+    """One rank of the whole dry run: parts 1 and 2 on the (n, 1, 1) slab
+    mesh, then `grid_jobs(jobs)`."""
+    mesh = _rank_mesh(rank, n, device_kind)
+    return [slab_part(part, mesh) for part in (1, 2)], grid_jobs(rank, n, jobs)
+
+
 def _bitwise_equal(got: dict, want: dict) -> bool:
     return all(np.array_equal(np.atleast_1d(got[k]).view(np.uint8), np.atleast_1d(v).view(np.uint8))
                for k, v in want.items())
 
 
 def dryrun_multichip(n_devices: int) -> None:
-    """Parts 3 to 6 of the reference's dry run on n ranks (NCCL with n
+    """Parts 1 to 6 of the reference's dry run on n ranks (NCCL with n
     cards, gloo on the CPU otherwise); every rank must gather the same
     state, bit for bit equal to the same run on a `LocalMesh` in this
-    process, parts 5 and 6 raise no flag, and part 6's energy is part 5's
-    within 1e-4."""
+    process, parts 5 and 6 (and part 1 on n ≥ 4) raise no flag, parts 1
+    and 2 end at steps 5 and 4, and part 6's energy is part 5's within
+    1e-4."""
     from emdee_tpu_torch import LennardJonesModel, cell_dense_init, lennard_jones_atom
     from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, gather_grid_state, make_grid_sharded_sim
-    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh, make_mesh
     from emdee_tpu_torch.neighbors.cell_dense import state_from_numpy, state_to_numpy
 
     on_cards = torch.cuda.is_available() and torch.cuda.device_count() >= n_devices
@@ -252,7 +357,24 @@ def dryrun_multichip(n_devices: int) -> None:
     ]
     jobs = [((shape, fields, cfg, steps, every, device.type), dict(kwargs_fn=fn, kwargs=kw))
             for _, fields, cfg, steps, every, fn, kw in parts]
-    runs = run_ranks(n_devices, grid_jobs, (jobs,), backend="nccl" if on_cards else "gloo")
+    runs = run_ranks(n_devices, dryrun_jobs, (device.type, jobs), backend="nccl" if on_cards else "gloo")
+    slab_mesh = make_mesh(n_devices, device=device)
+    slab_pe = {}
+    for k, (part, steps) in enumerate(((1, 5), (2, 4))):
+        local, _ = slab_part(part, slab_mesh)
+        for rank, (slab_runs, _) in enumerate(runs):
+            got, energies = slab_runs[k]
+            if int(got["step"]) != steps:
+                raise AssertionError(f"part {part}, rank {rank}: step {got['step']}")
+            if not _bitwise_equal(got, local):
+                raise AssertionError(f"part {part}, rank {rank}: the state differs from the LocalMesh run")
+        if part == 1 and n_devices >= 4 and bool(local["overflow"]):
+            raise AssertionError("part 1: the sticky flag is raised")
+        slab_pe[part] = (runs[0][0][k][1][0], bool(local["overflow"]))
+    print(f"dryrun_multichip({n_devices}): ({n_devices}, 1, 1) slab mesh on {'NCCL' if on_cards else 'gloo'} ranks, "
+          f"parts 1-2; pe, flag " + ", ".join(f"{p} {v:.6f} {f}" for p, (v, f) in slab_pe.items())
+          + "; every rank bitwise equal to the LocalMesh run", flush=True)
+    runs = [grid for _, grid in runs]
     mesh = make_grid_mesh(shape, device=device)
     model = LennardJonesModel.create(CUTOFF, SWITCH, device=device)
     pe = {}

@@ -60,7 +60,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from emdee_tpu_torch.distributed.mesh import DistMesh, GridMesh, validate_grid_config
+from emdee_tpu_torch.distributed.mesh import GridMesh, validate_grid_config
 from emdee_tpu_torch.neighbors.cell_dense import (
     STREAMING_THRESHOLD_BYTES,
     BerendsenBarostatConfig,
@@ -137,13 +137,7 @@ def gather_grid_state(state: CellDenseState, config: CellDenseConfig, mesh: Grid
     def unshard(a):
         if not _is_slot_leaf(a):
             return a
-        if isinstance(mesh, DistMesh):
-            import torch.distributed as dist
-
-            sent = a.to(torch.uint8) if a.dtype == torch.bool else a.contiguous()
-            parts = [torch.empty_like(sent) for _ in range(int(np.prod(mesh.shape)))]
-            dist.all_gather(parts, sent, group=mesh.group)
-            a = torch.cat(parts).reshape((nz, ny, nx) + tuple(a.shape[3:])).to(a.dtype)
+        a = mesh.all_gather(a.reshape((-1,) + tuple(a.shape[3:]))).reshape((nz, ny, nx) + tuple(a.shape[3:]))
         rest = tuple(a.shape[6:])
         grid = a.permute((0, 3, 1, 4, 2, 5) + tuple(range(6, 6 + len(rest))))
         return grid.reshape((m, m, m) + rest)

@@ -1,8 +1,9 @@
-"""The (nz, ny, nx) shard mesh of the grid-sharded engine and its transport
-— counterpart of emdee_tpu/distributed/mesh.py and of the mesh part of
+"""The (nz, ny, nx) shard mesh of the sharded engines and its transport
+— counterpart of emdee_tpu/distributed/mesh.py (`make_mesh`, `ATOM_AXIS`:
+the 1-D slab mesh, here a (D, 1, 1) mesh) and of the mesh part of
 emdee_tpu/distributed/grid_sharded.py (`make_grid_mesh`,
-`validate_grid_config`, and the `ppermute`/`psum`/`pmax`/`axis_index` it
-calls inside `shard_map`).
+`validate_grid_config`, and the `ppermute`/`psum`/`pmax`/`axis_index` they
+call inside `shard_map`).
 
 A mesh holds some of the shards in this process, stacked on three leading
 dimensions (the local shards' grid, `local_shape`, whose first shard sits at
@@ -19,7 +20,11 @@ operations:
   `psum` takes float and int32 tensors alike (the molecular grid sums its
   (N+1,) int32 atom → global slot map with it);
 - `axis_index(axis)`: each local shard's index along a mesh axis (the
-  local shards' grid is `local_shape`, its first shard at `base`).
+  local shards' grid is `local_shape`, its first shard at `base`);
+- `all_gather(x)`: every shard's block on every shard — x holds this
+  process's shards stacked on its leading dimension in row-major (gz, gy,
+  gx) order, the result every shard of the mesh in that order (the global
+  sorts of the slab engines, and the gathers that undo a distribution).
 
 Two transports implement them.  `LocalMesh` holds every shard in one
 process, on one device: a shift is a roll over the stacked shard dimension,
@@ -39,6 +44,7 @@ import torch
 from emdee_tpu_torch.core.types import resolve_device
 
 AXES = ("gz", "gy", "gx")
+ATOM_AXIS = "atoms"  # the reference's name for the slab axis: this mesh's "gz"
 
 
 class GridMesh:
@@ -67,6 +73,9 @@ class GridMesh:
     def pmax(self, flag: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
 
 class LocalMesh(GridMesh):
     """Every shard in this process, stacked on the leading (nz, ny, nx)
@@ -87,6 +96,9 @@ class LocalMesh(GridMesh):
 
     def pmax(self, flag):
         return flag
+
+    def all_gather(self, x):
+        return x
 
 
 class DistMesh(GridMesh):
@@ -142,6 +154,14 @@ class DistMesh(GridMesh):
         dist.all_reduce(v, op=dist.ReduceOp.MAX, group=self.group)
         return v > 0
 
+    def all_gather(self, x):
+        import torch.distributed as dist
+
+        sent = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+        parts = [torch.empty_like(sent) for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(parts, sent, group=self.group)
+        return torch.cat(parts).to(x.dtype)
+
 
 def make_grid_mesh(shape: Tuple[int, int, int], group=None, device=None) -> GridMesh:
     """A (nz, ny, nx) mesh with axes ("gz", "gy", "gx") on `device` (by
@@ -154,6 +174,23 @@ def make_grid_mesh(shape: Tuple[int, int, int], group=None, device=None) -> Grid
     if group is None:
         return LocalMesh(shape, device)
     return DistMesh(shape, group, device)
+
+
+def make_mesh(num_devices=None, group=None, device=None) -> GridMesh:
+    """The 1-D slab mesh of `distributed/domain.py` and
+    `distributed/cell_dense_sharded.py`: a (D, 1, 1) mesh whose "gz" axis is
+    the reference's `ATOM_AXIS`, on `device` (by default the CUDA card).
+    With `group`, one slab per rank of that `torch.distributed` group
+    (`DistMesh`; D defaults to the group's size); without, D slabs in this
+    process (`LocalMesh`; D defaults to 1)."""
+    if num_devices is None:
+        if group is None:
+            num_devices = 1
+        else:
+            import torch.distributed as dist
+
+            num_devices = dist.get_world_size(group)
+    return make_grid_mesh((int(num_devices), 1, 1), group=group, device=device)
 
 
 def validate_grid_config(config, mesh: GridMesh) -> Tuple[int, int, int]:

@@ -8,9 +8,9 @@ Functional forms (OpenMM conventions):
 
 Tables are padded to static shapes with a validity mask.  Forces are the
 reference's hand-derived gradients, as (index, row) pairs per term family
-(`*_force_rows`) that callers fold into one scatter; `bonded_forces_analytic`
-and `BondedSystem.force_fn` fold them with the fixed-order add of
-`core/scatter.py` (no float atomics).  Invalid rows are masked with
+(`*_force_rows`) that callers fold into one scatter; `bonded_forces_analytic`,
+`BondedSystem.force_fn` and the one-family `*_forces_into` fold them with
+the fixed-order add of `core/scatter.py` (no float atomics).  Invalid rows are masked with
 `torch.where`, never by a 0/1 product: a pad row may gather a slot whose
 coordinates are not finite.  Displacements are the minimum image of the raw
 difference, d − L·round(d/L), as in the port's pair passes.
@@ -133,6 +133,27 @@ def bond_force_rows(positions, box, table: BondTable):
     return torch.cat([i, j]), torch.cat([f_i, -f_i])
 
 
+def _add_rows(forces, idx, rows):
+    """forces + the rows added into their atoms, in a fixed order."""
+    return fixed_add(forces, add_plan(idx, forces.shape[0]), rows)
+
+
+def bond_forces_into(forces, positions, box, table: BondTable):
+    """forces + the bond forces (`bond_force_rows`), folded in a fixed order."""
+    return _add_rows(forces, *bond_force_rows(positions, box, table))
+
+
+def angle_forces_into(forces, positions, box, table: AngleTable):
+    """forces + the angle forces (`angle_force_rows`), folded in a fixed order."""
+    return _add_rows(forces, *angle_force_rows(positions, box, table))
+
+
+def torsion_forces_into(forces, positions, box, table: TorsionTable):
+    """forces + the torsion forces (`torsion_force_rows`), folded in a fixed
+    order."""
+    return _add_rows(forces, *torsion_force_rows(positions, box, table))
+
+
 def angle_force_rows(positions, box, table: AngleTable):
     """(idx, rows) of the angle forces; ∂θ/∂x_i = (cosθ·â − b̂)/(|a| sinθ)."""
     n = positions.shape[0]
@@ -237,8 +258,7 @@ def bonded_force_rows(positions, box, system: BondedSystem):
 def bonded_forces_analytic(positions, box, system: BondedSystem):
     """−∇E of all bonded terms by the hand gradients, folded in a fixed
     order."""
-    idx, rows = bonded_force_rows(positions, box, system)
-    return fixed_add(torch.zeros_like(positions), add_plan(idx, positions.shape[0]), rows)
+    return _add_rows(torch.zeros_like(positions), *bonded_force_rows(positions, box, system))
 
 
 def bonded_from_numpy(system, device) -> Optional[BondedSystem]:

@@ -76,3 +76,16 @@ def pair_interaction(
     one_minus_x = 1.0 - x
     minus_rg = 60.0 * x2 * (one_minus_x * one_minus_x) * model.inv_delta2 * r2
     return energy * g, minus_rE * g + energy * minus_rg
+
+
+def pair_energy(r2, model: LennardJonesModel, params_i: LJParams, params_j: LJParams, **kw):
+    """`pair_interaction` taking `LJParams` tuples for the two atoms."""
+    return pair_interaction(
+        r2,
+        model,
+        params_i.half_sigma,
+        params_i.twice_sqrt_eps,
+        params_j.half_sigma,
+        params_j.twice_sqrt_eps,
+        **kw,
+    )

@@ -52,6 +52,27 @@ def test_lennard_jones_params_bitexact():
 
 
 @pytest.mark.parametrize("parity_mode", [False, True])
+def test_pair_energy_matches(parity_mode):
+    """`pair_energy` (`pair_interaction` on `LJParams` tuples): bit for bit
+    the port's `pair_interaction`, and JAX's `pair_energy` at the
+    tolerance `pair_interaction` is held to."""
+    rng = np.random.default_rng(10)
+    k = 5000
+    r2 = rng.uniform(0.7, 12.0, k).astype(np.float32)
+    eps, sig = rng.uniform(0.5, 2.0, (2, 2, k))
+    jp = [jlj.lennard_jones_atom(eps[i], sig[i]) for i in range(2)]
+    tp = [tlj.lennard_jones_atom(eps[i], sig[i], device="cpu") for i in range(2)]
+    tm = tlj.LennardJonesModel.create(2.5, 2.0, device="cpu")
+    got = tlj.pair_energy(torch.from_numpy(r2), tm, tp[0], tp[1], parity_mode=parity_mode)
+    same = tlj.pair_interaction(torch.from_numpy(r2), tm, *tp[0], *tp[1], parity_mode=parity_mode)
+    ref = jlj.pair_energy(jnp.asarray(r2), jlj.LennardJonesModel.create(2.5, 2.0), jp[0], jp[1], parity_mode=parity_mode)
+    for g, s, a in zip(got, same, ref):
+        assert torch.equal(g.view(torch.int32), s.view(torch.int32))
+        a = np.asarray(a)
+        np.testing.assert_allclose(g.numpy(), a, rtol=1e-6, atol=1e-6 * np.abs(a).max())
+
+
+@pytest.mark.parametrize("parity_mode", [False, True])
 def test_pair_interaction_matches(parity_mode):
     """Pair energy and −r·dE/dr over r from the core to beyond the cutoff
     (where the two cutoff modes differ): rtol 1e-6, with an absolute floor
@@ -112,6 +133,9 @@ def test_config_suggestions_equal():
 def test_entry_points_default_to_the_card():
     """With no device named, the entry points build on the CUDA card; with
     no card they raise rather than return CPU tensors."""
+    from emdee_tpu_torch.distributed import cell_dense_sharded as tcs
+    from emdee_tpu_torch.distributed import domain as tdom
+    from emdee_tpu_torch.distributed.mesh import make_mesh
     from emdee_tpu_torch.neighbors import cell_dense_straggler as tsd
 
     pos, box = tlat.cubic_lattice(864, 0.5, jitter=0.1, seed=1)
@@ -124,6 +148,11 @@ def test_entry_points_default_to_the_card():
         lambda: tlj.LennardJonesModel.create(2.5, 2.0).rc2,
         lambda: tcd.cell_dense_init(pos, vel, np.ones(864), params, config).positions,
         lambda: tsd.straggler_init(pos, vel, np.ones(864), params, sconfig).aux_positions,
+        lambda: make_mesh(2).axis_index(0),
+        lambda: tdom.distribute(pos, vel, np.ones(864), params, tdom.suggest_domain_config(864, box, 2.5, 1),
+                                make_mesh()).positions,
+        lambda: tcs.distribute_cell_dense(tcd.cell_dense_init(pos, vel, np.ones(864), params, config, device="cpu"),
+                                          make_mesh()).positions,
     ]
     for call in calls:
         if torch.cuda.is_available():

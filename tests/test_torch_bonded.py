@@ -223,3 +223,32 @@ def test_set_plus_add_matches_merged_add():
     ji, jr = jb.bonded_force_rows(jnp.asarray(pos), jnp.float32(9.0), system)
     jref = np.asarray(jnp.zeros_like(jnp.asarray(pos)).at[ji].add(jr))
     np.testing.assert_allclose(ref[:-1].numpy(), jref[:-1], rtol=1e-6, atol=1e-4)
+
+
+def test_forces_into_match_jax():
+    """`bond_forces_into`, `angle_forces_into` and `torsion_forces_into`
+    against JAX's on the triatomic fixture (`tools/fixtures.py`: its bonds
+    and angles, and a torsion over each molecule and the next molecule's
+    first atom), each added onto the same random forces, within 2e-6 of
+    the force scale (as the rows are held)."""
+    from emdee_tpu_torch.tools.fixtures import triatomic_arrays, triatomic_bonded
+    from torch_port_utils import jax_triatomic_bonded
+
+    fx = triatomic_arrays()
+    n, box = fx["n"], fx["box"]
+    pos = fx["pos"].astype(np.float32)
+    base = np.random.default_rng(8).normal(size=(n, 3)).astype(np.float32)
+    a = fx["angles"]
+    quad = np.concatenate([a, np.roll(a[:, :1], -1, axis=0)], axis=1)
+    t = len(quad)
+    jtors = _torsion(quad, np.tile([[1, 3]], (t, 1)), np.tile([[0.3, np.pi]], (t, 1)), np.tile([[2.0, 0.7]], (t, 1)))
+    jsys, tsys = jax_triatomic_bonded(fx), triatomic_bonded(fx, "cpu")
+    cases = ((jb.bond_forces_into, tb.bond_forces_into, jsys.bonds, tsys.bonds),
+             (jb.angle_forces_into, tb.angle_forces_into, jsys.angles, tsys.angles),
+             (jb.torsion_forces_into, tb.torsion_forces_into, jtors, _port(jb.BondedSystem(None, None, jtors, None)).torsions))
+    for jfn, tfn, jtab, ttab in cases:
+        want = np.asarray(jfn(jnp.asarray(base), jnp.asarray(pos), jnp.float32(box), jtab))
+        got = tfn(torch.from_numpy(base), torch.from_numpy(pos), _box(box), ttab).numpy()
+        scale = max(np.abs(want - base).max(), 1.0)
+        assert np.abs(want - base).max() > 1.0  # the terms move the forces
+        np.testing.assert_allclose(got, want, atol=2e-6 * scale, err_msg=tfn.__name__)

@@ -104,3 +104,40 @@ def test_unported_options_raise():
     sconfig = tsd.StragglerConfig(config._replace(spill=True), config.capacity + 8, 64, 32)
     with pytest.raises(ValueError, match="spill"):
         tsd.make_straggler_sim(sconfig, model, dt=DT, uniform_params=(0.5, 2.0))
+
+
+@pytest.mark.full
+def test_nve_drift_1e6_f64_measured():
+    """tests/test_fidelity.py's full-tier gate on the port's dense engine
+    (the plain stacked leapfrog, `backend="torch"`), from the port's own
+    start and settle: FCC 14³ = 10,976 atoms at T* 0.7, settled 300 steps
+    at dt = 0.004, then 500 at dt = 0.002; NVE drift ≤ 1e-6 of KE with the
+    energies measured in float64 by tests/oracle.py's all-pairs sum over
+    the float32 trajectory."""
+    from tests.oracle import allpairs_oracle
+
+    from emdee_tpu_torch.utils.lattice import fcc_lattice, maxwell_boltzmann
+
+    pos, box = fcc_lattice(14, density=0.8442)
+    n = pos.shape[0]
+    vel = maxwell_boltzmann(n, 0.7, seed=0)
+    config = tcd.suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.3)
+    model = LennardJonesModel.create(2.5, 2.0, device="cpu")
+    params = tcd.lj_params_from_numpy((0.5 * np.ones(n), 2.0 * np.ones(n)), "cpu")
+    settle, _ = tcd.make_cell_dense_sim(config, model, dt=0.004, backend="torch")
+    state = settle(tcd.cell_dense_init(pos, vel, np.ones(n), params, config, device="cpu"), num_steps=300,
+                   rebin_every=3)
+    assert not bool(state.overflow)
+
+    def e_f64(st):
+        p, v = tcd.gather_dense_atoms(st, n)
+        _, e, _ = allpairs_oracle(p.astype(np.float64), float(box), 2.5, 2.0, 0.5 * np.ones(n), 2.0 * np.ones(n))
+        return float(e.sum()), 0.5 * float((v.astype(np.float64) ** 2).sum())
+
+    run, _ = tcd.make_cell_dense_sim(config, model, dt=0.002, backend="torch")
+    pe0, ke0 = e_f64(state)
+    out = run(state, num_steps=500, rebin_every=4)
+    assert not bool(out.overflow)
+    pe1, ke1 = e_f64(out)
+    drift = abs((pe1 + ke1) - (pe0 + ke0)) / ke0
+    assert drift < 1.0e-6, drift
