@@ -3373,17 +3373,19 @@ def k2a_drift_f64(device, tag, cells: int = 14):
     atoms at T* 0.7, skin 0.3, 300 settling steps at dt = 0.004 rebinning
     every 3, then 500 at dt = 0.002 rebinning every 4; energies in float64
     on the card (`energy_f64`).  A measurement: its gate is the `full`
-    CPU test's.  The window runs once in one call (the gated number, one
-    sample at each end), and once more from the same settled state in
-    calls of 4 steps, sampled after each: the drift from the mean of the
-    first 13 samples (48 steps) to that of the last 13, and from a
-    least-squares line through all 126, both of which average out the
-    total energy's swing around its trend (the std about the line,
-    printed).  Returns (drift, end-mean drift, line drift)."""
+    CPU tests'.  The window runs once in one call (the reference test's
+    reading, one sample at each end), and then, from the same settled
+    state, 2,000 steps in calls of 20, sampled after each: the statistic of
+    tests/test_torch_cell_dense_sim.py::test_nve_drift_line_1e6_f64
+    (`tools.drift.drift_line`: the least-squares line's rise over 500
+    steps, the end-tenth means' difference, the std about the line).
+    Returns (one-sample drift, end-tenth means, line rise, std), each a
+    fraction of the settled state's KE."""
     from emdee_tpu_torch import (
         LennardJonesModel, cell_dense_init, detect_uniform_params, gather_dense_atoms, lennard_jones_atom,
         make_cell_dense_sim, suggest_cell_dense_config,
     )
+    from emdee_tpu_torch.tools.drift import drift_line
     from emdee_tpu_torch.utils.lattice import fcc_lattice, maxwell_boltzmann
 
     pos, box = fcc_lattice(cells, density=DENSITY)
@@ -3407,23 +3409,19 @@ def k2a_drift_f64(device, tag, cells: int = 14):
 
     (e0, ke0), (e1, _) = e_f64(st), e_f64(out)
     drift = abs(e1 - e0) / ke0
+    window, every = 2000, 20
     series, s = [e0], st
-    for _ in range(125):
-        s = run(s, num_steps=4, rebin_every=4)
+    for _ in range(window // every):
+        s = run(s, num_steps=every, rebin_every=4)
         series.append(e_f64(s)[0])
     if bool(s.overflow):
         raise AssertionError("K2a drift series: overflow")
-    series = np.array(series)
-    ends = abs(series[-13:].mean() - series[:13].mean()) / ke0
-    t = 4.0 * np.arange(len(series))
-    fit = np.polyfit(t, series, 1)
-    line = abs(fit[0]) * 500.0 / ke0
-    swing = float(np.std(series - np.polyval(fit, t))) / ke0
+    rise, ends, swing = drift_line(every * np.arange(len(series)), series, ke0)
     log(f"{tag} K2a path at {n} atoms (tests/test_fidelity.py:73): 500 NVE steps at dt=0.002 after 300 settling, "
-        f"float64 energies on the card: drift {drift:.3e} of KE (the CPU full-tier gate: 1e-6; here measured); "
-        f"in 4-step calls, sampled every 4 steps: first-48 to last-48 mean drift {ends:.3e}, least-squares line "
-        f"drift {line:.3e}, std about the line {swing:.3e}")
-    return drift, ends, line
+        f"float64 energies on the card: drift {drift:.3e} of KE (one sample at each end); {window} steps in calls "
+        f"of {every}, sampled after each: least-squares line's rise over 500 steps {rise:.3e}, end-tenth means "
+        f"{ends:.3e}, std about the line {swing:.3e} (the CPU full-tier gate: |rise| <= 1e-6; here measured)")
+    return drift, ends, rise, swing
 
 
 def slab_dense_check(label, cfg, model, uni, mesh, st):
@@ -4089,12 +4087,13 @@ def main() -> None:
     slab_ms, slab_kps, slab_err = phase_slab_dense(device, tag, config, model, uni, pos_eq, vel_eq, params, k)
     domain_ms, domain_kps = phase_domain(device, tag, model)
     slab_ms, slab_kps = {**slab_ms, **domain_ms}, {**slab_kps, **domain_kps}
-    k2a_drift, k2a_ends, k2a_line = k2a_drift_f64(device, tag)
+    k2a_drift, k2a_ends, k2a_line, k2a_swing = k2a_drift_f64(device, tag)
     log(f"{tag} slab phases and the drift measurement: {time.perf_counter() - t0:.1f} s")
     log(f"{smi}: slab engines ms/step " + ", ".join(f"{p} {v:.4f} ({slab_kps[p]} kernels a step)"
                                                    for p, v in slab_ms.items())
-        + f"; K2a path's NVE drift at 10,976 atoms {k2a_drift:.3e} of KE (float64 energies; end means "
-        f"{k2a_ends:.3e}, line {k2a_line:.3e})")
+        + f"; K2a path's NVE drift at 10,976 atoms {k2a_drift:.3e} of KE (float64 energies, one sample at "
+        f"each end; over 2,000 steps: line's rise over 500 {k2a_line:.3e}, end-tenth means {k2a_ends:.3e}, "
+        f"std about the line {k2a_swing:.3e})")
 
     # ---- parts 1 to 6 of the multi-device dry run on one NCCL rank ----
     from emdee_tpu_torch.distributed import dryrun
@@ -4157,6 +4156,7 @@ def main() -> None:
              mol_replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:383",
              slab_full_shell_vs_k2a_rel_err=slab_err, k2a_drift_f64_10976=k2a_drift,
              k2a_drift_f64_10976_end_means=k2a_ends, k2a_drift_f64_10976_line=k2a_line,
+             k2a_drift_f64_10976_swing=k2a_swing,
              mol_launches=counts_water["water"]["cell_forces"],
              mol_launches_by_path={"water": counts_water["water"]["cell_forces"],
                                    "modelling_cuda": counts_modelling["modelling_cuda"]["cell_forces"]},

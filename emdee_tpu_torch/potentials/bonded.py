@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from emdee_tpu_torch.core import vml
 from emdee_tpu_torch.core.scatter import add_plan, fixed_add
 
 
@@ -77,6 +78,7 @@ def bond_energy(positions, box, table: BondTable):
 
 
 def _cos_angle(positions, box, table: AngleTable):
+    vml.ready(positions)
     n = positions.shape[0]
     j = _idx(table, 1, n)
     a = _disp(positions, box, _idx(table, 0, n), j)
@@ -95,6 +97,7 @@ def angle_energy(positions, box, table: AngleTable):
 def _dihedral_frame(positions, box, table: TorsionTable):
     """(b1, b2, b3) with a non-degenerate frame substituted on invalid rows
     (their indices clip to one atom, whose zero vectors make 0/0)."""
+    vml.ready(positions)
     n = positions.shape[0]
     ii, jj, kk, ll = (_idx(table, c, n) for c in range(4))
     val = table.valid[:, None]

@@ -19,6 +19,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from emdee_tpu_torch.core import vml
 from emdee_tpu_torch.core.types import resolve_device
 
 KJMOL_NM = 138.935456  # e²/(4πε0) in kJ/mol·nm
@@ -70,6 +71,7 @@ def coulomb_interaction(
     """(E, −r·dE/dr) of the DSF pair at squared distance r², zero at and
     beyond the cutoff.  Callers mask invalid pairs by passing a safe r² and
     zeroing, as with the LJ pair function."""
+    vml.ready(r2)
     r = torch.sqrt(r2)
     rinv = 1.0 / r
     ar = model.alpha * r

@@ -6,6 +6,8 @@ plus the energy closure and bitwise reruns.  Tolerances are those of
 tests/test_cell_dense.py:333-335: the two packages run the same integrator
 op for op, with the force pass's rounding differing at float32 roundoff."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -141,3 +143,93 @@ def test_nve_drift_1e6_f64_measured():
     pe1, ke1 = e_f64(out)
     drift = abs((pe1 + ke1) - (pe0 + ke0)) / ke0
     assert drift < 1.0e-6, drift
+
+
+# The line-fit drift window: 2,000 steps at dt = 0.002, sampled every 20.
+WINDOW, EVERY = 2000, 20
+
+
+def _total_f64(p, v, box):
+    """Total energy (unit LJ, rc 2.5σ, switch 2.0σ, unit masses) in float64:
+    tests/oracle.py's minimum image and pair math over the pairs that a
+    periodic k-d tree finds within the cutoff (a pair beyond it adds an
+    exact 0 in the oracle), and the kinetic energy.  Returns (total, ke)."""
+    from scipy.spatial import cKDTree
+
+    from tests.oracle import lj_interaction_f64
+
+    p = np.asarray(p, np.float64)
+    w = p - box * np.floor(p / box)
+    w = np.where(w >= box, w - box, w)
+    i, j = cKDTree(w, boxsize=box).query_pairs(2.5, output_type="ndarray").T
+    s = p / box
+    ds = s[i] - s[j]
+    rv = box * (ds - np.round(ds))
+    e, _ = lj_interaction_f64(np.sum(rv * rv, axis=1), 2.5, 2.0, 0.5, 2.0, 0.5, 2.0)
+    ke = 0.5 * float(np.sum(np.asarray(v, np.float64) ** 2))
+    return float(np.sum(e)) + ke, ke
+
+
+@pytest.mark.full
+def test_nve_drift_line_1e6_f64():
+    """The 1e-6 NVE drift target of test_nve_drift_1e6_f64_measured, read
+    so that the total energy's swing about its trend does not decide it.
+
+    Both packages start from the reference test's settled state
+    (tests/test_fidelity.py:79-90: FCC 14³ = 10,976 atoms at T* 0.7,
+    `maxwell_boltzmann(seed=0)`, 300 steps of JAX's `backend="xla"` at dt =
+    0.004 rebinning every 3), handed to the port bit for bit.  Each then
+    runs 2,000 steps at dt = 0.002 rebinning every 4 — JAX's `xla` and the
+    port's plain stacked leapfrog (`backend="torch"`) — in calls of 20
+    steps, the float64 total energy sampled after each (`_total_f64`, held
+    to tests/oracle.py's all-pairs sum at the start within 1e-12).
+    Statistic (`tools.drift.drift_line`): the least-squares line's rise
+    over 500 steps (the reference test's window), the end-tenth means'
+    difference and the std about the line, as fractions of the start's KE.
+    Gates: the port's |rise| ≤ 1e-6, and its swing within a factor 2 of
+    JAX's (the same quantity measured on both); the numbers of both
+    packages are printed.  The port's torch threads: the host's cores over
+    the xdist workers (all of them when run alone, ~10 minutes)."""
+    from emdee_tpu.potentials.lennard_jones import LennardJonesModel as JModel
+    from emdee_tpu.potentials.lennard_jones import lennard_jones_atom as jlj
+    from emdee_tpu.utils.lattice import fcc_lattice, maxwell_boltzmann
+    from emdee_tpu_torch.tools.drift import drift_line
+    from tests.oracle import allpairs_oracle
+
+    pos, box = fcc_lattice(14, density=0.8442)
+    n = pos.shape[0]
+    box = float(box)
+    config = jcd.suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.3)
+    jmodel = JModel.create(2.5, 2.0)
+    settle, _ = jcd.make_cell_dense_sim(config, jmodel, dt=0.004, backend="xla")
+    start = settle(jcd.cell_dense_init(pos, maxwell_boltzmann(n, 0.7, seed=0), np.ones(n), jlj(np.ones(n), np.ones(n)),
+                                       config), num_steps=300, rebin_every=3)
+    assert not bool(start.overflow)
+    p0, v0 = jcd.gather_dense_atoms(start, n)
+    e0, ke0 = _total_f64(p0, v0, box)
+    _, e_atoms, _ = allpairs_oracle(p0.astype(np.float64), box, 2.5, 2.0, 0.5 * np.ones(n), 2.0 * np.ones(n))
+    assert abs((e0 - ke0) - float(e_atoms.sum())) <= 1e-12 * abs(float(e_atoms.sum()))
+
+    runs = {
+        "jax": (jcd.make_cell_dense_sim(config, jmodel, dt=0.002, backend="xla")[0], start, jcd.gather_dense_atoms),
+        "port": (tcd.make_cell_dense_sim(config, LennardJonesModel.create(2.5, 2.0, device="cpu"), dt=0.002,
+                                         backend="torch")[0], to_port(start), tcd.gather_dense_atoms),
+    }
+    stats = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(threads, (os.cpu_count() or 1) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
+    try:
+        for name, (run, st, gather) in runs.items():
+            steps, energies = [0], [e0]
+            for k in range(1, WINDOW // EVERY + 1):
+                st = run(st, num_steps=EVERY, rebin_every=4)
+                steps.append(k * EVERY)
+                energies.append(_total_f64(*gather(st, n), box)[0])
+            assert not bool(st.overflow), name
+            stats[name] = drift_line(steps, energies, ke0)
+    finally:
+        torch.set_num_threads(threads)
+    print("; ".join(f"{name}: rise over 500 steps {r:.3e}, end-tenth means {m:.3e}, std about the line {s:.3e}"
+                    for name, (r, m, s) in stats.items()))
+    assert abs(stats["port"][0]) <= 1.0e-6, stats
+    assert 0.5 <= stats["port"][2] / stats["jax"][2] <= 2.0, stats
