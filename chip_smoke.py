@@ -115,18 +115,26 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   the one-card K5 and the other decompositions, then (2,2,2) at M = 36 on
   'auto', which picks the resident family there: K2-G (the LJ pass's GHOST
   mode) bit for bit the one-card K2a/K2b, against plain, its time beside
-  its time before the redesign, 200 gated steps; the 985,527-atom water box
+  its time before the redesign, 200 gated steps; K7-G's one-launch form at
+  the 1M melt's spill config (M = 35, C = 32; more rows than resident
+  warps) on (1,1,1) and (5,7,1), drifted and crowded, vs its plain version
+  and the per-pass form, and its time; the 985,527-atom water box
   on (2,2,2) `'auto'` (K5s-mol; 200 gated steps from the lattice start);
 - the grid's Langevin and Berendsen NPT (on K2-G's and on K5s's energy
   pass) on the 97,556-atom melt at (2,2,2), M = 16, and
   `reconfigure_grid_state` on the NPT end state;
 - spill configs on the grid engine (`phase_grid_spill`): the melt's spill
   config (M = 16, C = 32, squeezed toward 28) from its spill init, its
-  rebin through K7-G (the grid's spill pass over two-layer halo planes,
-  three launches a rebin): K7-G vs its plain version on (1,1,1) and
-  (2,2,2), drifted and with the y pass overflowing, and on (1,1,1) vs
-  K7; 1,000 gated NVE steps on (1,1,1) and (2,2,2) on 'auto' (K2-G), the
-  end states bitwise equal; 200 on (2,2,2) 'cuda_streaming' (K5s);
+  rebin through K7-G: the one-launch form (all three passes in one
+  cooperative launch, neighbour shards' rows read in place; the engine's
+  route on this card) vs its plain version and vs the per-pass form (a
+  pass a launch over two-layer halo planes, the route across ranks), and
+  the per-pass form vs its plain version, on (1,1,1), (2,2,2) and (2,4,1),
+  drifted and with the y pass overflowing, and on (1,1,1) both vs K7;
+  1,000 gated NVE steps on (1,1,1) and (2,2,2) on 'auto' (K2-G, one K7-G
+  launch a rebin), the end states bitwise equal, the one-launch form vs
+  its plain version and the per-pass form on the C = 40 engine's fields
+  at its start and end; 200 on (2,2,2) 'cuda_streaming' (K5s);
   Langevin on (2,2,2); the (1,1,1) run on a one-rank NCCL `DistMesh`;
 - the two 1-D slab engines (`distributed/cell_dense_sharded.py` and
   `distributed/domain.py`; plain torch ops, no kernel), every slab on this
@@ -836,7 +844,8 @@ def counters():
     return {"cell_forces": (cell_kernel, "LAUNCHES"), "cell_forces_streaming": (streaming_kernel, "LAUNCHES"),
             "rebin_routing": (rebin_kernel, "LAUNCHES"), "straggler_aux": (straggler_kernel, "LAUNCHES"),
             "compact_window": (compact_kernel, "LAUNCHES"), "rebin_window": (rebin_window_kernel, "LAUNCHES"),
-            "spill_window": (rebin_window_kernel, "SPILL_LAUNCHES"), "probes": (probes, "LAUNCHES")}
+            "spill_window": (rebin_window_kernel, "SPILL_LAUNCHES"),
+            "spill_grid": (rebin_window_kernel, "GRID_SPILL_LAUNCHES"), "probes": (probes, "LAUNCHES")}
 
 
 def zero_counts() -> None:
@@ -1437,6 +1446,58 @@ def grid_fields(sh, ns):
     pos3, vel3 = sh.positions.movedim(-1, 0), sh.velocities.movedim(-1, 0)
     return ([pos3[i] for i in range(3)] + [vel3[i] for i in range(3)]
             + [sh.inv_masses, sh.half_sigma, sh.twice_sqrt_eps, torch.where(sh.valid, sh.atom_id, ns)])
+
+
+def k7g_passes(fields, mesh, coords, box, m, c, ns, spill, check):
+    """K7-G's per-pass form: three launches over two-layer halo planes; with
+    `check`, each pass vs its plain version, bit for bit in every slot and
+    the flag.  Returns (out, flag)."""
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+
+    x, raised = fields, torch.zeros((), dtype=torch.int32, device=fields[0].device)
+    for axis in range(3):
+        lo, hi = k6.halo_planes(x, mesh, axis, depth=2)
+        args = (x, lo, hi, coords[axis], box, axis, m, c, ns, spill, axis == 0)
+        got, flag = k6.spill_halo_pass(*args, backend="cuda")
+        if check:
+            plain, ovf = k6.spill_halo_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, plain) or bool(flag) != bool(ovf):
+                raise AssertionError(f"K7-G: the {'zyx'[axis]} pass differs from its plain version")
+        raised = raised | flag
+        x = got
+    return x, raised
+
+
+def k7g_forms(fields, mesh, coords, box, m, c, ns, spill, label):
+    """K7-G's one-launch form vs its plain version and vs the per-pass
+    form's three launches (each pass vs its plain version), bit for bit in
+    every slot and the flag.  Returns (per-pass out, one-launch out, flag)."""
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+
+    x, raised = k7g_passes(fields, mesh, coords, box, m, c, ns, spill, True)
+    y, flag = k6.spill_grid_rebin(fields, mesh, coords, box, m, c, ns, spill, backend="cuda")
+    plain, ovf = k6.spill_grid_rebin_plain(fields, box, m, c, ns, spill)
+    torch.cuda.synchronize()
+    if not torch.equal(y, plain) or bool(flag) != bool(ovf):
+        raise AssertionError(f"K7-G one launch {label}: differs from its plain version")
+    if not torch.equal(y, x) or bool(flag) != bool(raised):
+        raise AssertionError(f"K7-G one launch {label}: differs from the three per-pass launches")
+    return x, y, bool(flag)
+
+
+def k7g_grid_warps():
+    """The one-launch form's cooperative grid as the card reports it:
+    (resident blocks an SM, SMs, threads a block, rows a block at a time),
+    and the resident warps, each taking every warps-th row."""
+    import ctypes
+
+    from emdee_tpu_torch.csrc import build
+
+    attrs = (ctypes.c_int * 4)()
+    build.check(build.load().emdee_spill_grid_attrs(attrs), "spill_grid attrs")
+    res = dict(zip(("blocks_per_sm", "sms", "threads", "rows_a_block"), attrs))
+    return res, res["blocks_per_sm"] * res["sms"] * res["rows_a_block"]
 
 
 def phase_rebin_window(device, tag):
@@ -2959,30 +3020,38 @@ def phase_grid_ensembles(device, tag, config, model, uni, pos_eq, vel_eq, params
 
 def phase_grid_spill(device, tag, st, scfg, model, uni, params, grid_ms, grid_kps):
     """Spill configs on the grid engine, at the melt's spill config (M = 16,
-    C = 32, squeezed toward 28) from its spill init.  K7-G (the grid's spill
-    pass) as the grid's rebin calls it — each pass on the shards' own rows
-    with the two-layer halo planes, the first on the raw fields, parked and
-    wrapped — on the state drifted 0.45·skin and on it with the cells at
-    y = 0 moved one cell up (the y pass overflows), on (1,1,1) and (2,2,2):
-    every pass vs its plain version, bit for bit in every slot and the
-    flag; how many spills and hold-backs fired, across shard faces and the
-    periodic seam; on (1,1,1) the three passes vs K7's route of the
+    C = 32, squeezed toward 28) from its spill init.  K7-G's two forms on
+    the raw fields (parked and wrapped in the first pass), on the state
+    drifted 0.45·skin and on it with the cells at y = 0 moved one cell up
+    (the y pass overflows), on (1,1,1), (2,2,2) and (2,4,1): the per-pass
+    form (each pass on the shards' own rows with the two-layer halo
+    planes) pass by pass vs its plain version, and the one-launch form
+    (`spill_grid_rebin`: the three passes in one cooperative launch) vs
+    its plain version and vs the three passes, all bit for bit in every
+    slot and the flag; how many spills and hold-backs fired, across shard
+    faces and the periodic seam; on (1,1,1) both forms vs K7's route of the
     one-card state (the live slots, every slot of the fields but the
-    positions, whose fill differs, the mask, the flag); K7-G's times (a
-    pass, and the whole rebin with its halo planes), its plain version's,
-    one `scatter_` compaction of a pass, and its bound.  Then, measured and
+    positions, whose fill differs, the mask, the flag); the times of both
+    forms (the per-pass form's pass, and its whole rebin with its halo
+    planes; the one-launch rebin), on the device and with the host's
+    launch cost, their plain versions', one `scatter_` compaction of a
+    pass, and their bounds.  Then, measured and
     not gated, whether 1,000 NVE steps at C = 32 on (2,2,2) 'auto' raise the
     flag, and at which rebin, with that rebin's cause (ROADMAP fault R6: on
     this trajectory a cell's true occupancy passes C).  Then the engine at
     C = 40 (the grid's plain-config capacity at M = 16), still squeezed
     toward 28: 1,000 gated NVE steps on (1,1,1) and (2,2,2) on 'auto'
-    (K2-G), rebinning every 6 (drift, three K7-G launches a rebin, reruns,
-    no host waits), the two end states bitwise equal; 200 gated steps on
+    (K2-G), rebinning every 6 (drift, one K7-G launch a rebin, reruns,
+    no host waits), the two end states bitwise equal, and on each mesh
+    K7-G's one-launch form vs its plain version and the three per-pass
+    launches on the engine's own fields at C = 40 (two 32-slot chunks a
+    row), drifted at the start and at the end state; 200 gated steps on
     (2,2,2) 'cuda_streaming' (K5s within 2e-5 of its plain version's
     forces); Langevin on (2,2,2), the mean T* of the last 500 of 1,000
     steps within 2%; the (1,1,1) run through a one-rank NCCL `DistMesh`;
     ms/step and device kernels a step beside the plain-config grid's.
-    Returns (K7-G's row, {path: counts}, {path: ms/step})."""
+    Returns (the per-pass form's row, the one-launch form's row, {path:
+    counts}, {path: ms/step})."""
     from emdee_tpu_torch import LangevinConfig, cell_dense_init, gather_dense_atoms, suggest_rebin_interval
     from emdee_tpu_torch.distributed.grid_sharded import distribute_grid, gather_grid_state, make_grid_sharded_sim
     from emdee_tpu_torch.distributed.mesh import make_grid_mesh
@@ -3002,22 +3071,6 @@ def phase_grid_spill(device, tag, st, scfg, model, uni, params, grid_ms, grid_kp
     crowded = sd._replace(positions=sd.positions + torch.where(crowd, up_y, 0.0))
     before = state_to_numpy(sd)
 
-    def passes(x, mesh, local, check):
-        """The three K7-G passes; with `check`, each vs its plain version."""
-        raised = torch.zeros((), dtype=torch.int32, device=device)
-        for axis in range(3):
-            lo, hi = k6.halo_planes(x, mesh, axis, depth=2)
-            args = (x, lo, hi, k6.global_coords(mesh, local, axis), box, axis, m, c, ns, spill, axis == 0)
-            got, flag = k6.spill_halo_pass(*args, backend="cuda")
-            if check:
-                plain, ovf = k6.spill_halo_plain(*args)
-                torch.cuda.synchronize()
-                if not torch.equal(got, plain) or bool(flag) != bool(ovf):
-                    raise AssertionError(f"K7-G: the {'zyx'[axis]} pass differs from its plain version")
-            raised = raised | flag
-            x = got
-        return x, raised
-
     # One pass's compaction by one scatter_ (the z pass's windows of the
     # one-card fields): the part of the pass that one PyTorch call computes.
     flds = [sd.positions[..., i] for i in range(3)] + [sd.velocities[..., i] for i in range(3)]
@@ -3034,26 +3087,29 @@ def phase_grid_spill(device, tag, st, scfg, model, uni, params, grid_ms, grid_kp
     del s_, keep, win, dest, dump
 
     timing, census = {}, {}
-    for shape in ((1, 1, 1), (2, 2, 2)):
+    for shape in ((1, 1, 1), (2, 2, 2), (2, 4, 1)):
         mesh = make_grid_mesh(shape, device=device)
         local = tuple(m // d for d in shape)
+        coords = [k6.global_coords(mesh, local, axis) for axis in range(3)]
         for label, s, want in (("drifted", sd, False), ("crowded", crowded, True)):
             sh = distribute_grid(s, scfg, mesh)
-            x, raised = passes(grid_fields(sh, ns), mesh, local, True)
-            if bool(raised) != want:
-                raise AssertionError(f"K7-G {shape} {label}: flag {bool(raised)}, expected {want}")
+            fields = grid_fields(sh, ns)
+            x, y, raised = k7g_forms(fields, mesh, coords, box, m, c, ns, spill, f"{shape} {label}")
+            if raised != want:
+                raise AssertionError(f"K7-G {shape} {label}: flag {raised}, expected {want}")
             if shape == (1, 1, 1):
                 one = [s.positions[..., i] for i in range(3)] + [s.velocities[..., i] for i in range(3)]
                 one += [s.inv_masses, s.half_sigma, s.twice_sqrt_eps, s.atom_id]
                 ref, valid, ovf = spill_routing(tuple(one), box, m, c, ns, spill, s.valid, backend="cuda")
-                got = x.reshape(len(one), m**3, c)
                 torch.cuda.synchronize()
-                if bool(ovf) != want or not torch.equal(got[-1] < ns, valid):
-                    raise AssertionError(f"K7-G (one shard) vs K7, {label}: the flag or the mask differs")
-                for i, r in enumerate(ref):
-                    mask = valid if i < 3 else torch.ones_like(valid)
-                    if not torch.equal(got[i][mask], r.view(torch.int32)[mask]):
-                        raise AssertionError(f"K7-G (one shard) vs K7, {label}: field {i} differs")
+                for form, out in (("per-pass", x), ("one-launch", y)):
+                    got = out.reshape(len(one), m**3, c)
+                    if bool(ovf) != want or not torch.equal(got[-1] < ns, valid):
+                        raise AssertionError(f"K7-G {form} (one shard) vs K7, {label}: the flag or the mask differs")
+                    for i, r in enumerate(ref):
+                        mask = valid if i < 3 else torch.ones_like(valid)
+                        if not torch.equal(got[i][mask], r.view(torch.int32)[mask]):
+                            raise AssertionError(f"K7-G {form} (one shard) vs K7, {label}: field {i} differs")
             if label == "drifted":
                 xf, valid = x[:-1].view(torch.float32), x[-1] < ns
                 routed = sh._replace(positions=torch.where(valid, xf[0:3], 0.0).movedim(0, -1), atom_id=x[-1],
@@ -3064,30 +3120,39 @@ def phase_grid_spill(device, tag, st, scfg, model, uni, params, grid_ms, grid_kp
             raise AssertionError(f"K7-G {shape} fixture: {cs}")
         sh = distribute_grid(sd, scfg, mesh)
         fields = grid_fields(sh, ns)
-        z_args = (fields, *k6.halo_planes(fields, mesh, 0, depth=2), k6.global_coords(mesh, local, 0), box, 0, m, c,
-                  ns, spill, True)
+        z_args = (fields, *k6.halo_planes(fields, mesh, 0, depth=2), coords[0], box, 0, m, c, ns, spill, True)
         z = lambda: k6.spill_halo_pass(*z_args, backend="cuda")  # noqa: E731
-        whole = lambda: passes(fields, mesh, local, False)  # noqa: E731
+        whole = lambda: k7g_passes(fields, mesh, coords, box, m, c, ns, spill, False)  # noqa: E731
+        grid = lambda: k6.spill_grid_rebin(fields, mesh, coords, box, m, c, ns, spill, backend="cuda")  # noqa: E731
         t = dict(device_ms=device_ms(z, 50), ms=cuda_ms(z, 50), rebin_device_ms=device_ms(whole, 20),
-                 rebin_ms=cuda_ms(whole, 20), plain_ms=cuda_ms(lambda: k6.spill_halo_plain(*z_args), 10))
+                 rebin_ms=cuda_ms(whole, 20), plain_ms=cuda_ms(lambda: k6.spill_halo_plain(*z_args), 10),
+                 grid_device_ms=device_ms(grid, 50), grid_ms=cuda_ms(grid, 50),
+                 grid_plain_ms=cuda_ms(lambda: k6.spill_grid_rebin_plain(fields, box, m, c, ns, spill), 10))
         # Each field read once and written once, the halo planes (two layers
         # each side; none on an axis of one shard) read once, and each row's
-        # coordinate.
+        # coordinate; the one-launch rebin moves the fields alone.
         nf, rows = len(fields), m**3
         halo_slots = 0 if shape[0] == 1 else 4 * rows // local[0] * c
         t["bound_ms"], t["bound_by"] = bound(4 * nf * (2 * rows * c + halo_slots) + 4 * rows, 0)
+        t["grid_bound_ms"], t["grid_bound_by"] = bound(4 * nf * 2 * rows * c, 0)
         timing[shape] = {**t, "census": cs}
         log(f"{tag} K7-G {shape} at the spill config (M={m} C={c} target {scfg.spill_target}, nf={nf}, strided "
-            f"positions and velocities parked and wrapped in the first pass): every pass vs plain bit-exact in every "
-            f"slot and the flag, drifted and with the y pass overflowing"
-            + (", the three vs K7's route bit-exact in the live slots, the mask and the flag" if shape == (1, 1, 1)
+            f"positions and velocities parked and wrapped in the first pass): the per-pass form pass by pass vs "
+            f"plain, and the one-launch form vs its plain version and vs the three per-pass launches, bit-exact in "
+            f"every slot and the flag, drifted and with the y pass overflowing"
+            + (", both forms vs K7's route bit-exact in the live slots, the mask and the flag" if shape == (1, 1, 1)
                else "")
             + f"; the rebin of the drifted state: {cs['spills']} spills, {cs['holds']} hold-backs, {cs['faces']} "
-            f"across a shard face, {cs['seam']} across the seam; z pass {t['device_ms']:.5f} ms on the device "
-            f"({t['ms']:.5f} with the host's launch cost); the whole rebin {t['rebin_device_ms']:.5f} "
+            f"across a shard face, {cs['seam']} across the seam; one-launch rebin {t['grid_device_ms']:.5f} ms on "
+            f"the device ({t['grid_ms']:.5f} with the host's launch cost), plain {t['grid_plain_ms']:.4f} ms, bound "
+            f"{t['grid_bound_ms']:.5f} ms ({t['grid_bound_by']}, {t['grid_bound_ms'] / t['grid_device_ms']:.1%} of "
+            f"it reached); per-pass form: z pass {t['device_ms']:.5f} ms on the device ({t['ms']:.5f} with the "
+            f"host's launch cost), the whole rebin with its halo planes {t['rebin_device_ms']:.5f} "
             f"({t['rebin_ms']:.5f}); plain z pass {t['plain_ms']:.4f} ms; one pass's compaction by one scatter_ "
-            f"{scatter_ms:.5f} ms; bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
+            f"{scatter_ms:.5f} ms; bound {t['bound_ms']:.5f} ms a pass ({t['bound_by']}, "
             f"{t['bound_ms'] / t['device_ms']:.1%} of it reached)")
+    grid_resources, warps = k7g_grid_warps()
+    log(f"{tag} K7-G one-launch form's cooperative grid: {grid_resources}, {warps} resident warps for {m**3} rows")
 
     k, steps = 6, 1000
     # C = 32: does one 1,000-step call hold? (a measurement, not a gate)
@@ -3115,6 +3180,7 @@ def phase_grid_spill(device, tag, st, scfg, model, uni, params, grid_ms, grid_kp
     if bool(gst.overflow):
         raise AssertionError("grid spill: re-init overflow at C = 40")
     st, scfg, c = gst, gcfg, gcfg.capacity
+    spill = _spill_params(scfg)
     counts, ms, finals, kps = {}, {}, {}, {}
     for shape in ((1, 1, 1), (2, 2, 2)):
         mesh = make_grid_mesh(shape, device=device)
@@ -3124,18 +3190,25 @@ def phase_grid_spill(device, tag, st, scfg, model, uni, params, grid_ms, grid_kp
         if roll.family != "cuda":
             raise AssertionError(f"{label}: 'auto' resolves to {roll.family!r}")
         sh = distribute_grid(st, scfg, mesh)
+        coords = [k6.global_coords(mesh, tuple(m // d for d in shape), axis) for axis in range(3)]
+        fields = grid_fields(distribute_grid(drifted(st, SKIN), scfg, mesh), ns)
+        if k7g_forms(fields, mesh, coords, box, m, c, ns, spill, f"{label} drifted")[2]:
+            raise AssertionError(f"K7-G {label} drifted: the flag is raised")
         roll(sh, num_steps=2 * k, rebin_every=k)  # warm-up
         out, sec, drift, cnt = gate_rollout(label, roll, energy, sh, steps, k,
-                                            launches(cell_forces=steps + 4, spill_window=3 * -(-steps // k)))
+                                            launches(cell_forces=steps + 4, spill_grid=-(-steps // k)))
         bitwise_rerun(label, roll, sh, 100, k)
         no_host_waits(label, lambda: roll(sh, num_steps=2 * k, rebin_every=k))
+        if k7g_forms(grid_fields(out, ns), mesh, coords, box, m, c, ns, spill, f"{label} end state")[2]:
+            raise AssertionError(f"K7-G {label} end state: the flag is raised")
         finals[name] = state_to_numpy(gather_grid_state(out, scfg, mesh))
         held = spill_census(finals[name], finals[name], scfg)["holds"]
         kps[name] = kernels_per_step(lambda: roll(sh, num_steps=60, rebin_every=k), 60)
         counts[name], ms[name] = cnt, 1e3 * sec / steps
-        log(f"{tag} {label} ('auto' -> K2-G, K7-G rebin every {k}): {steps} steps in {sec:.3f} s = "
+        log(f"{tag} {label} ('auto' -> K2-G, K7-G's one launch a rebin every {k}): {steps} steps in {sec:.3f} s = "
             f"{ms[name]:.4f} ms/step; NVE drift {drift:.3e}; launches {cnt}; {held} atoms stored one cell above "
-            "their true cell at the end; reruns bitwise equal; no host waits")
+            "their true cell at the end; reruns bitwise equal; no host waits; K7-G's one-launch form vs its plain "
+            "version and the three per-pass launches bit-exact on the drifted start and the end state")
     a, b = finals.values()
     if not all(np.array_equal(np.atleast_1d(b[f]).view(np.uint8), np.atleast_1d(v).view(np.uint8))
                for f, v in a.items()):
@@ -3155,7 +3228,7 @@ def phase_grid_spill(device, tag, st, scfg, model, uni, params, grid_ms, grid_kp
     roll_s(sh, num_steps=2 * k, rebin_every=k)  # warm-up
     _, sec, drift, cnt = gate_rollout("grid spill (2,2,2) cuda_streaming", roll_s, energy_s, sh, steps_s, k,
                                       launches(cell_forces_streaming=2 * (steps_s + 4),
-                                               spill_window=3 * -(-steps_s // k)))
+                                               spill_grid=-(-steps_s // k)))
     bitwise_rerun("grid spill (2,2,2) cuda_streaming", roll_s, sh, 50, k)
     counts[name], ms[name] = cnt, 1e3 * sec / steps_s
     kps[name] = kernels_per_step(lambda: roll_s(sh, num_steps=60, rebin_every=k), 60)
@@ -3181,7 +3254,7 @@ def phase_grid_spill(device, tag, st, scfg, model, uni, params, grid_ms, grid_kp
     sec = time.perf_counter() - t0
     cnt = read_counts()
     expected = launches(cell_forces=steps_l + steps_l // chunk,
-                        spill_window=3 * (steps_l // chunk) * -(-chunk // k_t))
+                        spill_grid=(steps_l // chunk) * -(-chunk // k_t))
     if bool(out.overflow) or cnt != expected:
         raise AssertionError(f"grid spill Langevin: overflow {bool(out.overflow)}, launches {cnt}, "
                              f"expected {expected}")
@@ -3204,11 +3277,74 @@ def phase_grid_spill(device, tag, st, scfg, model, uni, params, grid_ms, grid_kp
         + "; the plain-config grid (M=16 C=40) " + ", ".join(f"{p} {grid_ms[p]:.4f} ({fmt(grid_kps.get(p))})"
                                                           for p in ("grid_111_m16", "grid_222_m16")))
     one = timing[(1, 1, 1)]
-    row = {"max_abs_err": 0.0, **{key: v for key, v in one.items() if key != "census"}, "library_ms": scatter_ms,
-           "census": one["census"], "grid_222": timing[(2, 2, 2)], "k5s_max_abs_err": k5s_err,
-           "kernels_per_step": kps}
-    return row, counts, ms
+    grid_keys = ("grid_device_ms", "grid_ms", "grid_plain_ms", "grid_bound_ms", "grid_bound_by")
+    pass_row = {"max_abs_err": 0.0, **{key: v for key, v in one.items() if key not in grid_keys + ("census",)},
+                "library_ms": scatter_ms, "census": one["census"],
+                **{f"grid_{''.join(map(str, sh))}": {key: v for key, v in t.items() if key not in grid_keys}
+                   for sh, t in timing.items() if sh != (1, 1, 1)},
+                "k5s_max_abs_err": k5s_err, "kernels_per_step": kps}
+    form = lambda t: {key[len("grid_"):]: t[key] for key in grid_keys}  # noqa: E731
+    grid_row = {"max_abs_err": 0.0, **form(one), "library_ms": None, "scatter_ms": scatter_ms,
+                **{f"grid_{''.join(map(str, sh))}": form(t) for sh, t in timing.items() if sh != (1, 1, 1)},
+                "resources": grid_resources, "kernels_per_step": kps}
+    return pass_row, grid_row, counts, ms
 
+
+def phase_grid_spill_1m(device, tag, eq):
+    """K7-G's one-launch form at the 1M melt's spill config (`spill_config`
+    of its wide config: M = 35, C = 32, squeezed toward 28; 42,875 rows, so
+    every warp of the cooperative grid routes several rows a pass), on the
+    equilibrated melt's spill init drifted 0.45·skin and on it with the
+    cells at y = 0 moved one cell up (the y pass overflows), on (1,1,1)
+    and (5,7,1) (7, 5 and 35 layers a shard): vs its plain version and vs
+    the per-pass form's three launches, bit for bit in every slot and the
+    flag; on (1,1,1) its time on both clocks, the per-pass rebin's, and
+    its bound.  Returns the row fields."""
+    from emdee_tpu_torch import cell_dense_init
+    from emdee_tpu_torch.distributed.grid_sharded import distribute_grid
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+    from emdee_tpu_torch.neighbors.cell_dense import _spill_params
+
+    n = eq["config"].num_atoms
+    scfg = spill_config(eq["config"])
+    st = cell_dense_init(eq["pos"], eq["vel"], np.ones(n), eq["params"], scfg, device=device)
+    m, c, ns = scfg.cells_per_dim, scfg.capacity, scfg.num_slots
+    rows = m**3
+    resources, warps = k7g_grid_warps()
+    if (m, c) != (35, 32) or bool(st.overflow) or rows <= 2 * warps:
+        raise AssertionError(f"1M spill init: M={m} C={c}, overflow {bool(st.overflow)}, {rows} rows for {warps} "
+                             "resident warps")
+    box = torch.full((), scfg.box, dtype=torch.float32, device=device)
+    spill = _spill_params(scfg)
+    sd = drifted(st, SKIN)
+    crowd = ((torch.arange(rows, device=device) // m) % m == 0)[:, None, None] & sd.valid[..., None]
+    up_y = torch.tensor([0.0, float(scfg.cell_side), 0.0], device=device)
+    crowded = sd._replace(positions=sd.positions + torch.where(crowd, up_y, 0.0))
+    flags, row = {}, {}
+    for shape in ((1, 1, 1), (5, 7, 1)):
+        mesh = make_grid_mesh(shape, device=device)
+        coords = [k6.global_coords(mesh, tuple(m // d for d in shape), axis) for axis in range(3)]
+        for label, s in (("drifted", sd), ("crowded", crowded)):
+            fields = grid_fields(distribute_grid(s, scfg, mesh), ns)
+            flags[shape, label] = k7g_forms(fields, mesh, coords, box, m, c, ns, spill, f"1M {shape} {label}")[2]
+        if not flags[shape, "crowded"]:
+            raise AssertionError(f"K7-G one launch 1M {shape} crowded: the y pass's overflow did not raise the flag")
+        if shape == (1, 1, 1):
+            fields = grid_fields(distribute_grid(sd, scfg, mesh), ns)
+            grid = lambda: k6.spill_grid_rebin(fields, mesh, coords, box, m, c, ns, spill, backend="cuda")  # noqa: E731
+            whole = lambda: k7g_passes(fields, mesh, coords, box, m, c, ns, spill, False)  # noqa: E731
+            row = dict(device_ms=device_ms(grid, 20), ms=cuda_ms(grid, 20), per_pass_device_ms=device_ms(whole, 10))
+            row["bound_ms"], row["bound_by"] = bound(4 * len(fields) * 2 * rows * c, 0)
+    log(f"{tag} K7-G one launch at the 1M spill config (M={m} C={c} target {scfg.spill_target}, {n} atoms, {rows} "
+        f"rows for {warps} resident warps: every warp routes {rows // warps}-{-(-rows // warps)} rows a pass): vs "
+        f"its plain version and the three per-pass launches bit-exact in every slot and the flag on (1,1,1) and "
+        f"(5,7,1), drifted (flag {flags[(1, 1, 1), 'drifted']}) and crowded (flag raised); (1,1,1) one-launch rebin "
+        f"{row['device_ms']:.5f} ms on the device ({row['ms']:.5f} with the host's launch cost), per-pass rebin "
+        f"{row['per_pass_device_ms']:.5f}, bound {row['bound_ms']:.5f} ms ({row['bound_by']}, "
+        f"{row['bound_ms'] / row['device_ms']:.1%} of it reached)")
+    return {"n1m": {"cells_per_dim": m, "capacity": c, "rows": rows, "resident_warps": warps,
+                    "drifted_flag": flags[(1, 1, 1), "drifted"], **row}}
 
 def phase_grid_water(device, tag, w, dense_drift):
     """The water box on the grid-sharded engine (K2c-G), every shard on the
@@ -4076,8 +4212,8 @@ def main() -> None:
     counts_ens, ens_ms = phase_grid_ensembles(device, tag, config, model, uni, pos_eq, vel_eq, params)
     log(f"{smi}: grid ensembles ms/step at {n} atoms, (2,2,2) M=16: "
         + ", ".join(f"{p} {v:.4f}" for p, v in ens_ms.items()))
-    k7g, counts_grid_spill, grid_spill_ms = phase_grid_spill(device, tag, spill_st, scfg, model, uni, params, grid_ms,
-                                                             grid_kps)
+    k7g, k7g_grid, counts_grid_spill, grid_spill_ms = phase_grid_spill(device, tag, spill_st, scfg, model, uni, params,
+                                                                       grid_ms, grid_kps)
     log(f"{smi}: grid spill ms/step at {n} atoms (M={scfg.cells_per_dim} C=40 target {scfg.spill_target}): "
         + ", ".join(f"{p} {v:.4f}" for p, v in grid_spill_ms.items()))
     del spill_st
@@ -4112,6 +4248,7 @@ def main() -> None:
     counts_strag_1m, strag_1m_ms, strag_1m_err = phase_straggler_1m(device, tag, eq_1m)
     log(f"{smi}: 1M straggler path ('cuda_streaming') {strag_1m_ms:.4f} ms/step vs the dense 1M path {ms_1m:.4f}")
     k5s, counts_grid_1m, grid_1m_ms, k2g_1m = phase_grid_1m(device, tag, eq_1m)
+    k7g_grid.update(phase_grid_spill_1m(device, tag, eq_1m))
     del eq_1m
     log(f"{smi}: 1M grid ms/step " + ", ".join(f"{p} {v:.4f}" for p, v in grid_1m_ms.items())
         + f" vs the dense 1M path {ms_1m:.4f}")
@@ -4220,8 +4357,13 @@ def main() -> None:
              witness="rebin_window_kernel (the same source)",
              launches=sum(by_path("rebin_window").values()),
              launches_by_path=by_path("rebin_window"), **k6),
+        dict(name="spill_grid", route="cuda", source="emdee_tpu_torch/csrc/spill_window.cu",
+             replaces="emdee_tpu/neighbors/pallas_compact.py:101", kernel="spill_grid_kernel",
+             witness="spill_halo_kernel (the same source: the per-pass form)",
+             launches=sum(by_path("spill_grid").values()), launches_by_path=by_path("spill_grid"), **k7g_grid),
         dict(name="spill_window", route="cuda", source="emdee_tpu_torch/csrc/spill_window.cu",
              replaces="emdee_tpu/neighbors/pallas_compact.py:101", kernel="spill_halo_kernel",
+             runs_on="a DistMesh of several ranks (one card holds every shard: the one-launch form runs)",
              launches=sum(by_path("spill_window").values()), launches_by_path=by_path("spill_window"), **k7g),
         dict(name="probe_fma", route="cuda", source="emdee_tpu_torch/csrc/probes.cu",
              replaces="tools/perf_probe3.py:29", launches=0, launches_by_path={}, **p1),

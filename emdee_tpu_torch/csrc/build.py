@@ -142,6 +142,12 @@ _SIGNATURES = {
     # K7-G: emdee_rebin_halo's arguments with two-layer halo planes, and
     # target, threshold before the box
     "emdee_spill_halo": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+    # K7-G's one-launch form: ptrs (host void*[nf]), strides (host long[nf]),
+    # nf, out, mid, scratch, flag, shape (host int[6]), c, m, num_slots,
+    # target, threshold, box (device), stream
+    "emdee_spill_grid_routing": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+    # out (int[4])
+    "emdee_spill_grid_attrs": [_P],
     # x, wl, wr, b, out, flag, nf, rows, c, cf, m, num_slots, box (device),
     # stream: the former K6 over whole windows, kept as a witness
     "emdee_rebin_window": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P],

@@ -37,9 +37,12 @@ goes through the mesh's `shift` (the reference's `ppermute`):
   shards' own rows and the two halo planes that one exchange along the pass
   axis brings, with each row's global coordinate
   (`rebin_window_kernel.rebin_halo_pass`, K6); a spill config's passes
-  add boundary spill and hold-backs, reading two halo layers each side
-  (`spill_halo_pass`, K7-G).  Atom migration between shards is that
-  exchange; charges ride it.
+  add boundary spill and hold-backs (K7-G, `spill_grid_rebin`): where
+  every shard lies in this process, all three passes in one launch that
+  reads a row's neighbours across a shard face in place; across ranks, a
+  pass a launch over two halo layers each side (`spill_halo_pass`).  Atom
+  migration between shards is that exchange, or that read in place;
+  charges ride it.
 - **Reductions**: energies, the kinetic energy of CSVR, the pressure of
   the barostat and the sticky flag are reduced over the shards (`psum`,
   `pmax`), and, with term rows, the atom → global slot map once a rebin
@@ -460,9 +463,10 @@ def make_grid_sharded_sim(
     tags.
 
     A spill config (config.spill, with a positive margin ε = h − rc − skin
-    at the static cell side h, the reference's rule) rebins through the
-    spill pass (`rebin_window_kernel.spill_halo_pass`, K7-G) over halo
-    planes two layers deep; both force families run on it unchanged."""
+    at the static cell side h, the reference's rule) rebins through K7-G
+    (`rebin_window_kernel.spill_grid_rebin`: one launch a rebin where every
+    shard lies in this process, else three passes over halo planes two
+    layers deep); both force families run on it unchanged."""
     from emdee_tpu_torch.dynamics.bussi import _csvr_alpha2, csvr_draws
     from emdee_tpu_torch.neighbors import cell_kernel
     from emdee_tpu_torch.neighbors.cell_dense import _numpy
@@ -470,7 +474,7 @@ def make_grid_sharded_sim(
         global_coords,
         halo_planes,
         rebin_halo_pass,
-        spill_halo_pass,
+        spill_grid_rebin,
     )
     from emdee_tpu_torch.neighbors.streaming_kernel import streaming_ghost_forces
 
@@ -556,23 +560,23 @@ def make_grid_sharded_sim(
     def rebin(pos3, vel3, inv_m, hs, tse, aid, valid, q, overflow, box_t, f3=None):
         """The per-shard shift rebin: three passes (z, y, x) over the
         shards' own rows, each with the halo planes that `mesh.shift`
-        brings — K6 with one layer each side, or for a spill config K7-G
-        with two; the first reads the transported fields where they lie and
-        parks (by atom id) and wraps them.  Returns the routed (pos3, vel3,
-        inv_m, hs, tse, aid, valid, q, overflow, f3)."""
+        brings (K6, one layer each side), or for a spill config K7-G
+        (`spill_grid_rebin`: one launch where every shard is local, else
+        three passes over halo planes two layers deep); the first pass
+        reads the transported fields where they lie and parks (by atom id)
+        and wraps them.  Returns the routed (pos3, vel3, inv_m, hs, tse,
+        aid, valid, q, overflow, f3)."""
         parts = ([pos3, vel3, inv_m[None], hs[None], tse[None]] + ([] if q is None else [q[None]])
                  + ([] if f3 is None else [f3]))
         x = [p[i] for p in parts for i in range(p.shape[0])] + [torch.where(valid, aid, ns)]
         flag = None
-        for axis in range(3):
-            if spill is None:
+        if spill is not None:
+            x, flag = spill_grid_rebin(x, mesh, b_axes, box_t, m, c, ns, spill, backend=kernels)
+        else:
+            for axis in range(3):
                 lo, hi = halo_planes(x, mesh, axis)
                 x, flag = rebin_halo_pass(x, lo, hi, b_axes[axis], box_t, axis, m, c, ns, raw=axis == 0, flag=flag,
                                           backend=kernels)
-            else:
-                lo, hi = halo_planes(x, mesh, axis, depth=2)
-                x, flag = spill_halo_pass(x, lo, hi, b_axes[axis], box_t, axis, m, c, ns, spill, raw=axis == 0,
-                                          flag=flag, backend=kernels)
         overflow = overflow | (flag != 0)
         aid = x[-1]
         valid = aid < ns

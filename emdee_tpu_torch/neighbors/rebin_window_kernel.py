@@ -17,14 +17,18 @@ neighbour and the kernel's fill.  Both give the same bits in every slot;
 on a one-shard grid they equal one pass of `rebin_kernel.rebin_routing`
 (K4).
 
-`spill_halo_pass` is the same pass for a spill config (K7-G, the grid's
-spill route: `csrc/spill_window.cu`, one launch a pass; plain version
-`spill_halo_plain`), counterpart of the reference's per-shard XLA pass
-`_route_axis_pass` with `spill_eps`, whose compaction is
-emdee_tpu/neighbors/pallas_compact.py `compact_window_pallas`.  A spill
-row's keep mask reads the class counts of the rows two cells down and up
-the axis, so its halo planes are two layers deep (`halo_planes(...,
-depth=2)`).
+A spill config's rebin is K7-G (`csrc/spill_window.cu`), counterpart of
+the reference's per-shard XLA pass `_route_axis_pass` with `spill_eps`,
+whose compaction is emdee_tpu/neighbors/pallas_compact.py
+`compact_window_pallas`.  A spill row's keep mask reads the class counts of
+the rows two cells down and up the axis.  `spill_grid_rebin` runs the whole
+rebin: where every shard of the mesh lies in this process (a `LocalMesh`,
+a one-rank `DistMesh`) and the tensors are on the card, one cooperative
+launch of all three passes that reads a row's neighbours in the
+neighbouring shard in place (plain version `spill_grid_rebin_plain`, for
+the tests); on a mesh of several ranks, and on the CPU, three
+`spill_halo_pass`es, each one launch (or, on the CPU, `spill_halo_plain`)
+over halo planes two layers deep (`halo_planes(..., depth=2)`).
 
 `rebin_window_pass` is the former K6 over three pre-built windows of the
 whole grid (own, one cell down, one cell up), kept as the in-tree witness
@@ -39,13 +43,15 @@ import torch
 
 from emdee_tpu_torch.csrc import build
 from emdee_tpu_torch.neighbors.cell_dense import _box, _route_axis_pass, _route_windows, box_ptr, resolve_backend
-from emdee_tpu_torch.neighbors.compact_kernel import compact_plain
+from emdee_tpu_torch.neighbors.compact_kernel import compact_plain, spill_route_plain
 from emdee_tpu_torch.neighbors.rebin_kernel import MAX_FIELDS, SENTINEL_BITS
 
-# Kernel launches (one per pass) since import (or a reset to 0): the halo
-# kernel's (K6), the spill halo kernel's (K7-G), and the witness's.
+# Kernel launches since import (or a reset to 0): the halo kernel's (K6,
+# one a pass), K7-G's per-pass form (one a pass) and one-launch form (one a
+# rebin), and the witness's.
 LAUNCHES = 0
 SPILL_LAUNCHES = 0
+GRID_SPILL_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 
 # The coordinate field each grid axis bins on (z = 2, y = 1, x = 0).
@@ -221,12 +227,38 @@ def rebin_halo_plain(x, lo, hi, b, box, axis: int, m_global: int, c: int, num_sl
 def _slot_stride(t: torch.Tensor):
     """The element stride between consecutive slots of `t` when its slots
     lie evenly spaced in flat order, else None."""
-    step, size = t.stride(-1), 1
-    for dim in range(t.dim() - 1, -1, -1):
-        if t.shape[dim] != 1 and t.stride(dim) != step * size:
+    strides = t.stride()
+    step, size = strides[-1], 1
+    for n, s in zip(reversed(t.shape), reversed(strides)):
+        if n != 1 and s != step * size:
             return None
-        size *= t.shape[dim]
+        size *= n
     return step
+
+
+def _checked_fields(entry: str, x, c: int, raw: bool):
+    """The fields of a routing launch (a pass's `x`) checked: (fields, their
+    common 7-d shape, each field's element stride between slots)."""
+    fields = list(x)
+    dev = fields[0].device
+    nf = len(fields)
+    shape = fields[0].shape
+    if not 4 <= nf <= MAX_FIELDS or len(shape) != 7 or shape[-1] != c:
+        raise ValueError(f"{entry}: {nf} fields of {tuple(shape)}, the kernel takes 4 to {MAX_FIELDS} fields of "
+                         f"(sz, sy, sx, mz, my, mx, {c})")
+    if not raw and not (isinstance(x, torch.Tensor) and x.is_contiguous()):
+        raise ValueError(f"{entry}: a pass after the first takes the previous pass's contiguous output")
+    strides = []
+    for i, f in enumerate(fields):
+        want = torch.int32 if i == nf - 1 or not raw else torch.float32
+        if f.dtype != want or f.shape != shape or f.device != dev:
+            raise ValueError(f"field {i}: expected {want} {tuple(shape)} on {dev}, got {f.dtype} {tuple(f.shape)} "
+                             f"on {f.device}")
+        step = 1 if f.is_contiguous() else _slot_stride(f)
+        if step is None:
+            raise ValueError(f"field {i}: strides {f.stride()}, the kernel needs its slots evenly spaced")
+        strides.append(step)
+    return fields, tuple(shape), strides
 
 
 def _halo_launch(entry: str, x, lo, hi, b, box, axis: int, m_global: int, c: int, num_slots: int, raw: bool,
@@ -234,25 +266,9 @@ def _halo_launch(entry: str, x, lo, hi, b, box, axis: int, m_global: int, c: int
     """Check the arguments of a halo pass (`rebin_halo_pass`'s, with halo
     planes `depth` layers deep) and launch the kernel entry `entry`, its
     `extra` arguments before the box.  Returns (out, flag)."""
-    fields = list(x)
+    fields, shape, strides = _checked_fields(entry, x, c, raw)
     dev = fields[0].device
     nf = len(fields)
-    shape = tuple(fields[0].shape)
-    if not 4 <= nf <= MAX_FIELDS or len(shape) != 7 or shape[-1] != c:
-        raise ValueError(f"{entry}: {nf} fields of {shape}, the kernel takes 4 to {MAX_FIELDS} fields of "
-                         f"(sz, sy, sx, mz, my, mx, {c})")
-    if not raw and not (isinstance(x, torch.Tensor) and x.is_contiguous()):
-        raise ValueError(f"{entry}: a pass after the first takes the previous pass's contiguous output")
-    strides = []
-    for i, f in enumerate(fields):
-        want = torch.int32 if i == nf - 1 or not raw else torch.float32
-        if f.dtype != want or tuple(f.shape) != shape or f.device != dev:
-            raise ValueError(f"field {i}: expected {want} {shape} on {dev}, got {f.dtype} {tuple(f.shape)} "
-                             f"on {f.device}")
-        step = 1 if f.is_contiguous() else _slot_stride(f)
-        if step is None:
-            raise ValueError(f"field {i}: strides {f.stride()}, the kernel needs its slots evenly spaced")
-        strides.append(step)
     plane = list(shape)
     plane[3 + axis] = depth
     for name, h in (("lo", lo), ("hi", hi)):
@@ -384,6 +400,91 @@ def spill_halo_pass(x, lo, hi, b, box, axis: int, m_global: int, c: int, num_slo
                        (int(target), float(threshold)))
     SPILL_LAUNCHES += 1
     return out
+
+
+def grid_cells(lead, local, device=None) -> torch.Tensor:
+    """The shard layout's row permutation: (rows,) int64, the global cell
+    (x + M·(y + M·z)) of each row of the (sz, sy, sx, mz, my, mx) layout
+    whose lead = (sz, sy, sx) shards hold local = (mz, my, mx) cells each."""
+    m = lead[0] * local[0]
+    g = [torch.arange(s, device=device)[:, None] * n + torch.arange(n, device=device) for s, n in zip(lead, local)]
+    gz = g[0].reshape(lead[0], 1, 1, local[0], 1, 1)
+    gy = g[1].reshape(1, lead[1], 1, 1, local[1], 1)
+    gx = g[2].reshape(1, 1, lead[2], 1, 1, local[2])
+    return ((gz * m + gy) * m + gx).reshape(-1)
+
+
+def spill_grid_rebin_plain(fields, box, m_global: int, c: int, num_slots: int, spill):
+    """The plain version of `spill_grid_rebin`'s one-launch form, stated on
+    the whole grid: the shards' rows gathered into the (M³, C) grid by the
+    layout's row permutation (`grid_cells`), the three spill passes there
+    (`compact_kernel.spill_route_plain`: the park and wrap, then z, y, x),
+    K6's fill in the empty slots, and the rows scattered back.  fields: as
+    `spill_grid_rebin`'s, every shard of the mesh.  Returns (out (nf, sz,
+    sy, sx, mz, my, mx, C) int32, overflow as a 0-d bool)."""
+    fields = list(fields)
+    nf, shape = len(fields), tuple(fields[0].shape)
+    cells = grid_cells(shape[:3], shape[3:6], fields[0].device)
+    order = torch.argsort(cells)  # the layout's row of each global cell
+    whole = [f.reshape(-1, c)[order] for f in fields]
+    routed, valid, overflow = spill_route_plain(whole, box, m_global, c, num_slots, spill, whole[-1] < num_slots)
+    fill = [SENTINEL_BITS] * 3 + [0] * (nf - 4) + [num_slots]
+    out = torch.stack([torch.where(valid, f.view(torch.int32), v) for f, v in zip(routed, fill)])
+    return out[:, cells].reshape((nf,) + shape), overflow
+
+
+def spill_grid_rebin(fields, mesh, coords, box, m_global: int, c: int, num_slots: int, spill,
+                     backend: str = "auto"):
+    """A spill config's grid rebin: the three routing passes (z, y, x) with
+    boundary spill and hold-backs over the local shards' own rows.
+
+    fields: the nf transported fields, each (sz, sy, sx, mz, my, mx, C) —
+    float32 positions x, y, z first, further float32 fields, the int32
+    atom_id last (num_slots in empty slots), read where they lie, the slots
+    of each evenly spaced; positions are wrapped into [0, L) in the first
+    pass.  mesh: the `GridMesh` whose local shards they are; coords: the
+    three axes' `global_coords(mesh, local, axis)`, which the per-pass
+    route reads (the one-launch form finds a row's coordinate from its
+    index); box, m_global, c, num_slots, spill: as `spill_halo_pass`.
+
+    For CUDA tensors, with backend 'auto' or 'cuda', on a mesh whose shards
+    all lie in this process (`mesh.local_shape == mesh.shape`): one
+    cooperative launch of `csrc/spill_window.cu`'s one-launch form, which
+    raises if the card refuses it.  On a mesh of several ranks: three
+    `spill_halo_pass` launches with their halo exchanges.  For CPU tensors,
+    or backend 'torch': three `spill_halo_plain` passes.  All give the same
+    bits in every slot and the same flag, and `spill_grid_rebin_plain` too.
+    Returns (out (nf, sz, sy, sx, mz, my, mx, C) int32 with K6's fill in
+    empty slots, the flag as a 0-d int32 tensor)."""
+    global GRID_SPILL_LAUNCHES
+    route = resolve_backend(backend, fields[0])
+    if route == "torch" or tuple(mesh.local_shape) != tuple(mesh.shape):
+        x, flag = fields, None
+        for axis in range(3):
+            lo, hi = halo_planes(x, mesh, axis, depth=2)
+            x, flag = spill_halo_pass(x, lo, hi, coords[axis], box, axis, m_global, c, num_slots, spill,
+                                      raw=axis == 0, flag=flag, backend=route)
+        return x, flag
+    entry = "emdee_spill_grid_routing"
+    fields, shape, strides = _checked_fields(entry, fields, c, True)
+    if shape[:3] != tuple(mesh.shape) or any(s * n != m_global for s, n in zip(shape[:3], shape[3:6])):
+        raise ValueError(f"{entry}: fields of {shape}, expected every shard of the {tuple(mesh.shape)} mesh "
+                         f"over {m_global} cells an axis")
+    dev, nf = fields[0].device, len(fields)
+    out = torch.empty((nf,) + shape, dtype=torch.int32, device=dev)
+    mid = torch.empty_like(out)
+    scratch = torch.empty((out[0].numel() // c, 5), dtype=torch.int32, device=dev)
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    target, threshold = spill
+    err = build.load().emdee_spill_grid_routing(
+        (ctypes.c_void_p * nf)(*(f.data_ptr() for f in fields)), (ctypes.c_long * nf)(*strides), nf,
+        out.data_ptr(), mid.data_ptr(), scratch.data_ptr(), flag.data_ptr(), (ctypes.c_int * 6)(*shape[:6]), c,
+        m_global, num_slots, int(target), float(threshold), box_ptr(box, fields[0]),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, entry)
+    GRID_SPILL_LAUNCHES += 1
+    return out, flag
 
 
 def grid_rebin_witness(fields, mesh, local, box, m_global: int, c: int, num_slots: int):

@@ -700,6 +700,85 @@ def test_spill_halo_kernel_matches_plain_and_k7(device, case, shape):
             assert torch.equal(got[i][mask], r.view(torch.int32)[mask]), f"field {i}"
 
 
+def _spill_grid_vs_passes(st, config, shape):
+    """K7-G's one-launch form on `st` sharded over a `LocalMesh` of
+    `shape`, against its plain version and against three launches of the
+    per-pass form over halo planes, bit for bit in every slot and the
+    flag, one launch a rebin.  Returns the flag."""
+    from emdee_tpu_torch.distributed import grid_sharded as gs
+    from emdee_tpu_torch.distributed.mesh import make_grid_mesh
+    from emdee_tpu_torch.neighbors import rebin_window_kernel as k6
+    from emdee_tpu_torch.neighbors.cell_dense import _spill_params
+
+    m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
+    spill = _spill_params(config)
+    mesh = make_grid_mesh(shape, device=st.positions.device)
+    local = tuple(m // s for s in shape)
+    coords = [k6.global_coords(mesh, local, axis) for axis in range(3)]
+    fields = _grid_fields(gs.distribute_grid(st, config, mesh), ns)
+    x, flag_p = fields, None
+    for axis in range(3):
+        lo, hi = k6.halo_planes(x, mesh, axis, depth=2)
+        x, flag_p = k6.spill_halo_pass(x, lo, hi, coords[axis], config.box, axis, m, c, ns, spill, raw=axis == 0,
+                                       flag=flag_p, backend="cuda")
+    before, spill_before = k6.GRID_SPILL_LAUNCHES, k6.SPILL_LAUNCHES
+    out, flag = k6.spill_grid_rebin(fields, mesh, coords, config.box, m, c, ns, spill, backend="cuda")
+    plain, ovf = k6.spill_grid_rebin_plain(fields, config.box, m, c, ns, spill)
+    torch.cuda.synchronize()
+    assert k6.GRID_SPILL_LAUNCHES == before + 1 and k6.SPILL_LAUNCHES == spill_before
+    assert torch.equal(out, plain) and torch.equal(out, x)
+    assert bool(flag) == bool(ovf) == bool(flag_p)
+    return bool(flag)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2), (2, 1, 2)])
+@pytest.mark.parametrize("case", ["drifted", "overflow", "seam", "c40"])
+def test_spill_grid_kernel_matches_plain_and_passes(device, case, shape):
+    """K7-G's one-launch form (`spill_grid_rebin` on a `LocalMesh`: the
+    three passes in one cooperative launch, reading a row's neighbours in
+    the neighbouring shard in place) on `_spill_case`'s cases at M = 4:
+    against its plain version and against three launches of the per-pass
+    form over halo planes, bit for bit in every slot and the flag; one
+    launch a rebin."""
+    st, config, _ = _spill_case(device, case)
+    assert _spill_grid_vs_passes(st, config, shape) == (case == "overflow")
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2), (2, 1, 2)])
+@pytest.mark.parametrize("case", ["drifted", "overflow", "c40"])
+def test_spill_grid_kernel_row_loop(device, case, shape):
+    """K7-G's one-launch form where its persistent grid's warps each take
+    several rows: 287,496 jittered lattice atoms at ρ = 0.75 on their spill
+    config's M = 24 (13,824 rows) at C = 32, squeezed toward 21 atoms a
+    cell, moved 0.25σ per axis along their velocities' signs; 'overflow'
+    moves the cells at y = 0 one cell up y; 'c40' at C = 40 (two chunks a
+    row).
+    More rows than the card holds resident warps, and the one-launch form
+    against its plain version and three per-pass launches, bit for bit."""
+    import ctypes
+
+    from emdee_tpu_torch.csrc import build
+
+    n = 66**3
+    pos, box = cubic_lattice(n, 0.75, jitter=0.12, seed=9)
+    config = suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.3, spill=True)
+    config = config._replace(spill_target=21, capacity=40 if case == "c40" else 32)
+    m = config.cells_per_dim
+    assert m == 24
+    st = cell_dense_init(pos, maxwell_boltzmann(n, 1.0, seed=10), np.ones(n),
+                         lennard_jones_atom(np.ones(n), np.ones(n), device=device), config, device=device)
+    assert not bool(st.overflow)
+    pos = torch.where(st.valid[..., None], st.positions + 0.25 * torch.sign(st.velocities), 0.0)
+    if case == "overflow":
+        crowd = ((torch.arange(m**3, device=device) // m) % m == 0)[:, None] & st.valid
+        pos[..., 1] += torch.where(crowd, float(config.cell_side), 0.0)
+    attrs = (ctypes.c_int * 4)()
+    build.check(build.load().emdee_spill_grid_attrs(attrs), "spill_grid attrs")
+    per_sm, sms, _, warps_a_block = attrs
+    assert m**3 > 2 * per_sm * sms * warps_a_block  # every warp takes two rows or more
+    assert _spill_grid_vs_passes(st._replace(positions=pos), config, shape) == (case == "overflow")
+
+
 # (atoms, density, M) of the jittered lattice for each capacity: every cell
 # fits (the fullest holds 18, 27, 27, 46, 46), and at C = 56 and 88 a cell's
 # second warp takes live centres.

@@ -13,7 +13,10 @@ state is bit for bit JAX's on (1,1,1), (2,2,2) and (2,2,1), with spills and
 hold-backs firing across shard faces and the periodic seam, and its flag is
 JAX's where the drift overfills a cell; on one shard the plain pass's three
 passes equal the one-card spill route's plain version (K7's,
-`compact_kernel.spill_route_plain`); a 60-step NVE rollout holds JAX's at
+`compact_kernel.spill_route_plain`), and on every shape the one-launch
+form's plain version (`spill_grid_rebin_plain`, over the shard layout's
+row permutation `grid_cells`) equals the three passes in every slot and
+the flag, drifted and with the y pass overflowing; a 60-step NVE rollout holds JAX's at
 tests/test_cell_dense.py:333-335's tolerances (positions 2e-5, velocities
 2e-4, equal atom ids), and the decompositions are bitwise equal among
 themselves; CSVR on shared draws, the charged fixture (DSF + exclusion
@@ -166,6 +169,88 @@ def test_spill_halo_plain_equals_spill_route_plain(rebins, amp):
         r = r.view(torch.int32)
         mask = valid if i < 3 else torch.ones_like(valid)
         assert torch.equal(got[i][mask], r[mask]), f"field {i}"
+
+
+def _grid_fields(sh, ns):
+    """A grid-sharded state's fields as the grid's rebin reads them:
+    positions and velocities (strided component views), 1/m, atom id (ns
+    in empty slots)."""
+    p3, v3 = sh.positions.movedim(-1, 0), sh.velocities.movedim(-1, 0)
+    return [p3[i] for i in range(3)] + [v3[i] for i in range(3)] + [sh.inv_masses, torch.where(sh.valid, sh.atom_id, ns)]
+
+
+def _crowded(st, config):
+    """The state with every atom of the cells at y = 0 moved one cell up y:
+    the y pass, between the other two, overflows."""
+    m = config.cells_per_dim
+    crowd = ((torch.arange(m**3) // m) % m == 0)[:, None] & st.valid
+    pos = st.positions.clone()
+    pos[..., 1] += torch.where(crowd, float(config.cell_side), 0.0)
+    return st._replace(positions=pos)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("case", ["drifted", "crowded"])
+def test_spill_grid_rebin_plain_equals_three_passes(rebins, case, shape):
+    """The one-launch form's plain version (`spill_grid_rebin_plain`: the
+    shards' rows gathered into the whole grid, K7's three plain passes
+    there, K6's fill, the rows scattered back) against three
+    `spill_halo_plain` passes over the halo planes, bit for bit in every
+    slot of every field and in the flag, on the drifted state (amp 0.7)
+    and on it crowded so that the y pass overflows; `spill_grid_rebin` on
+    the CPU gives the three passes' result."""
+    config, runs = rebins
+    st = to_port(runs[0.7][0])
+    if case == "crowded":
+        st = _crowded(st, config)
+    m, c, ns = config.cells_per_dim, config.capacity, config.num_slots
+    spill = tcd._spill_params(config)
+    mesh = LocalMesh(shape, "cpu")
+    local = tuple(m // s for s in shape)
+    fields = _grid_fields(gs.distribute_grid(st, config, mesh), ns)
+    coords = [rebin_window_kernel.global_coords(mesh, local, axis) for axis in range(3)]
+    x, raised = fields, []
+    for axis in range(3):
+        lo, hi = rebin_window_kernel.halo_planes(x, mesh, axis, depth=2)
+        x, ovf = rebin_window_kernel.spill_halo_plain(x, lo, hi, coords[axis], config.box, axis, m, c, ns, spill,
+                                                      raw=axis == 0)
+        raised.append(bool(ovf))
+    if case == "crowded":
+        assert raised[:2] == [False, True]  # the y pass is the first to overflow
+    else:
+        assert not any(raised)
+    got, ovf = rebin_window_kernel.spill_grid_rebin_plain(fields, config.box, m, c, ns, spill)
+    assert got.dtype == torch.int32 and got.shape == x.shape
+    assert torch.equal(got, x) and bool(ovf) == any(raised)
+    routed, flag = rebin_window_kernel.spill_grid_rebin(fields, mesh, coords, config.box, m, c, ns, spill)
+    assert torch.equal(routed, x) and bool(flag) == any(raised)
+    moved = int((gs.gather_grid_state(gs.distribute_grid(st, config, mesh)._replace(atom_id=x[-1]), config,
+                                      mesh).atom_id != st.atom_id).sum())
+    assert moved > 50
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(2, 4, 1)])
+def test_grid_cells_maps_rows_to_cells_and_back(shape):
+    """`grid_cells`, the shard layout's row permutation (M = 8): a
+    permutation of the M³ cells whose z, y, x coordinates are each row's
+    `global_coords`, the order `distribute_grid` lays the cells out in, and
+    gathering rows into cells by it and scattering them back is the
+    identity."""
+    m, c = 8, 3
+    local = tuple(m // s for s in shape)
+    mesh = LocalMesh(shape, "cpu")
+    cells = rebin_window_kernel.grid_cells(shape, local)
+    assert torch.equal(torch.sort(cells).values, torch.arange(m**3))
+    for axis, coord in enumerate((cells // m**2, cells // m % m, cells % m)):
+        assert torch.equal(coord, rebin_window_kernel.global_coords(mesh, local, axis).reshape(-1).long())
+    config = tcd.CellDenseConfig(box=8.0, cells_per_dim=m, capacity=c, cutoff=0.5, switch=0.4, skin=0.1,
+                                 num_atoms=m**3 * c)
+    ids = torch.arange(m**3 * c, dtype=torch.int32).reshape(m**3, c)
+    st = tcd.CellDenseState(*(None,) * len(tcd.CellDenseState._fields))._replace(atom_id=ids)
+    laid = gs.distribute_grid(st, config, mesh).atom_id.reshape(-1, c)
+    assert torch.equal(laid, ids[cells])
+    rows = torch.randn(m**3, c)
+    assert torch.equal(rows[torch.argsort(cells)][cells], rows)
 
 
 @pytest.fixture(scope="module")
