@@ -46,6 +46,7 @@ import torch
 from emdee_tpu_torch.core.pbc import wrap_scaled
 from emdee_tpu_torch.core.types import LJParams, _f32, _tensor, resolve_device
 from emdee_tpu_torch.potentials.lennard_jones import LennardJonesModel, pair_interaction
+from emdee_tpu_torch.utils.observability import span
 
 
 class CellDenseConfig(NamedTuple):
@@ -1090,7 +1091,13 @@ def make_cell_dense_sim(
     drops the bond tags (aux[:3]): extra_energy adds the full bonded
     energy.  Both kernel families take the molecular terms (K2c, K5c); the
     split entry stays LJ-only, since the component carry excludes
-    molecular runs."""
+    molecular runs.
+
+    Under a profiler every torch op the closures launch lies in exactly one
+    leaf span (`observability.span`): `emdee.rebin`, `emdee.aux` (the
+    per-rebin tags and bindings), `emdee.force` (the pair pass and the extra
+    forces), `emdee.integrate` (drift, kicks, the staleness check),
+    `emdee.thermostat`, `emdee.barostat` and `emdee.energy`."""
     from emdee_tpu_torch.dynamics.bussi import _csvr_alpha2, csvr_draws
     from emdee_tpu_torch.neighbors import cell_kernel, streaming_kernel
 
@@ -1134,36 +1141,42 @@ def make_cell_dense_sim(
 
     def auxes(st: CellDenseState):
         """The per-rebin (tags, bindings) of a state's slot binding."""
-        return (aux_fn(st) if aux_fn is not None else None,
-                extra_aux_fn(st) if extra_aux_fn is not None else None)
+        if aux_fn is None and extra_aux_fn is None:
+            return None, None
+        with span("emdee.aux"):
+            return (aux_fn(st) if aux_fn is not None else None,
+                    extra_aux_fn(st) if extra_aux_fn is not None else None)
 
     def forces_of(st: CellDenseState, aux=None, eaux=None):
-        f = pair_forces(st, aux)[0]
-        return f if extra_forces is None else f + extra_forces(st, eaux)
+        with span("emdee.force"):
+            f = pair_forces(st, aux)[0]
+            return f if extra_forces is None else f + extra_forces(st, eaux)
 
     def rebin_fn(st: CellDenseState, forces=None):
-        if rebin == "sort":
-            return _rebin(st, config, forces)
-        return _rebin_shift(st, config, forces, uniform_params, uniform_mass, kernels(st.positions)[2])
+        with span("emdee.rebin"):
+            if rebin == "sort":
+                return _rebin(st, config, forces)
+            return _rebin_shift(st, config, forces, uniform_params, uniform_mass, kernels(st.positions)[2])
 
     def energy(st: CellDenseState):
         """(potential energy, virial, kinetic energy) as 0-d tensors."""
         aux, eaux = auxes(st)
-        _, e, w = pair_forces(st, None if aux is None else aux[:3], compute_energy=True)
-        pe = torch.sum(torch.where(st.valid, e, 0.0))
-        vir = torch.sum(torch.where(st.valid, w, 0.0))
-        if extra_energy is not None:
-            pe_x, vir_x = extra_energy(st, eaux)
-            pe = pe + pe_x
-            vir = vir + vir_x
-        ke = 0.5 * torch.sum(
-            torch.where(
-                st.valid[..., None],
-                st.velocities**2 / torch.clamp(st.inv_masses[..., None], min=1e-30),
-                0.0,
+        with span("emdee.energy"):
+            _, e, w = pair_forces(st, None if aux is None else aux[:3], compute_energy=True)
+            pe = torch.sum(torch.where(st.valid, e, 0.0))
+            vir = torch.sum(torch.where(st.valid, w, 0.0))
+            if extra_energy is not None:
+                pe_x, vir_x = extra_energy(st, eaux)
+                pe = pe + pe_x
+                vir = vir + vir_x
+            ke = 0.5 * torch.sum(
+                torch.where(
+                    st.valid[..., None],
+                    st.velocities**2 / torch.clamp(st.inv_masses[..., None], min=1e-30),
+                    0.0,
+                )
             )
-        )
-        return pe, vir, ke
+            return pe, vir, ke
 
     def blocks_of(num_steps: int, rebin_every: int):
         blocks, rem = divmod(num_steps, rebin_every)
@@ -1172,137 +1185,163 @@ def make_cell_dense_sim(
     def rollout_component(state: CellDenseState, num_steps: int, rebin_every: int):
         # Leapfrog on per-component (M³, C) arrays: x, y, z, vx, vy, vz and
         # atom_id, plus the rebin-time reference coordinates and the flag.
-        _, split, kb = kernels(state.positions)
-        box = _box_of(state, config)
+        with span("emdee.integrate"):
+            _, split, kb = kernels(state.positions)
+            box = _box_of(state, config)
+            inv_m = np.float32(1.0 / uniform_mass)
+            kick_dt = _f32(np.float32(dt) * inv_m)
+            half_kick = _f32(np.float32(0.5) * np.float32(dt) * inv_m)
+            px, py, pz = (state.positions[..., i].contiguous() for i in range(3))
+            vx, vy, vz = (state.velocities[..., i].contiguous() for i in range(3))
+            aid = torch.where(state.valid, state.atom_id, ns)
+            ovf = state.overflow
 
         def forces_split(px, py, pz, valid):
-            return split(px, py, pz, valid, config, uniform_params=uniform_params, box=box, backend=kb)
+            with span("emdee.force"):
+                return split(px, py, pz, valid, config, uniform_params=uniform_params, box=box, backend=kb)
 
-        inv_m = np.float32(1.0 / uniform_mass)
-        kick_dt = _f32(np.float32(dt) * inv_m)
-        half_kick = _f32(np.float32(0.5) * np.float32(dt) * inv_m)
-        px, py, pz = (state.positions[..., i].contiguous() for i in range(3))
-        vx, vy, vz = (state.velocities[..., i].contiguous() for i in range(3))
-        aid = torch.where(state.valid, state.atom_id, ns)
-        ovf = state.overflow
         f0 = forces_split(px, py, pz, state.valid)
-        vx, vy, vz = vx + half_kick * f0[0], vy + half_kick * f0[1], vz + half_kick * f0[2]
+        with span("emdee.integrate"):
+            vx, vy, vz = vx + half_kick * f0[0], vy + half_kick * f0[1], vz + half_kick * f0[2]
         rx, ry, rz = px, py, pz
         for length in blocks_of(num_steps, rebin_every)[0]:
-            fields, valid, ovf = _rebin_shift_core(
-                [px, py, pz, vx, vy, vz, aid], aid < ns, ovf, config, kb, box=state.box
-            )
-            zero = lambda a: torch.where(valid, a, 0.0)  # noqa: E731
-            px, py, pz, vx, vy, vz = (zero(a) for a in fields[:6])
-            aid = torch.where(valid, fields[6], ns)
+            with span("emdee.rebin"):
+                fields, valid, ovf = _rebin_shift_core(
+                    [px, py, pz, vx, vy, vz, aid], aid < ns, ovf, config, kb, box=state.box
+                )
+                zero = lambda a: torch.where(valid, a, 0.0)  # noqa: E731
+                px, py, pz, vx, vy, vz = (zero(a) for a in fields[:6])
+                aid = torch.where(valid, fields[6], ns)
             rx, ry, rz = px, py, pz
-            zc = torch.zeros_like(px)
+            with span("emdee.integrate"):
+                zc = torch.zeros_like(px)
             cx = cy = cz = wx = wy = wz = zc
             for _ in range(length):
-                px, cx = _comp_add(px, dt_f * vx, cx)
-                py, cy = _comp_add(py, dt_f * vy, cy)
-                pz, cz = _comp_add(pz, dt_f * vz, cz)
+                with span("emdee.integrate"):
+                    px, cx = _comp_add(px, dt_f * vx, cx)
+                    py, cy = _comp_add(py, dt_f * vy, cy)
+                    pz, cz = _comp_add(pz, dt_f * vz, cz)
                 fx, fy, fz = forces_split(px, py, pz, valid)
-                vx, wx = _comp_add(vx, kick_dt * fx, wx)
-                vy, wy = _comp_add(vy, kick_dt * fy, wy)
-                vz, wz = _comp_add(vz, kick_dt * fz, wz)
-            ovf = ovf | _stale(px - rx, py - ry, pz - rz, valid, config, state.box)
-        valid = aid < ns
+                with span("emdee.integrate"):
+                    vx, wx = _comp_add(vx, kick_dt * fx, wx)
+                    vy, wy = _comp_add(vy, kick_dt * fy, wy)
+                    vz, wz = _comp_add(vz, kick_dt * fz, wz)
+            with span("emdee.integrate"):
+                ovf = ovf | _stale(px - rx, py - ry, pz - rz, valid, config, state.box)
+        with span("emdee.integrate"):
+            valid = aid < ns
         ff = forces_split(px, py, pz, valid)
-        vx, vy, vz = vx - half_kick * ff[0], vy - half_kick * ff[1], vz - half_kick * ff[2]
-        const = lambda v: torch.where(valid, _f32(v), 0.0)  # noqa: E731
-        return CellDenseState(
-            positions=torch.stack([px, py, pz], dim=-1),
-            velocities=torch.stack([vx, vy, vz], dim=-1),
-            inv_masses=const(1.0 / uniform_mass),
-            half_sigma=const(uniform_params[0]),
-            twice_sqrt_eps=const(uniform_params[1]),
-            atom_id=aid,
-            valid=valid,
-            ref_positions=torch.stack([rx, ry, rz], dim=-1),
-            step=state.step + num_steps,
-            overflow=ovf,
-            box=state.box,
-        )
+        with span("emdee.integrate"):
+            vx, vy, vz = vx - half_kick * ff[0], vy - half_kick * ff[1], vz - half_kick * ff[2]
+            const = lambda v: torch.where(valid, _f32(v), 0.0)  # noqa: E731
+            return CellDenseState(
+                positions=torch.stack([px, py, pz], dim=-1),
+                velocities=torch.stack([vx, vy, vz], dim=-1),
+                inv_masses=const(1.0 / uniform_mass),
+                half_sigma=const(uniform_params[0]),
+                twice_sqrt_eps=const(uniform_params[1]),
+                atom_id=aid,
+                valid=valid,
+                ref_positions=torch.stack([rx, ry, rz], dim=-1),
+                step=state.step + num_steps,
+                overflow=ovf,
+                box=state.box,
+            )
 
     def rollout_stacked(state: CellDenseState, num_steps: int, rebin_every: int):
         # Leapfrog: velocities ride half a step ahead inside the rollout, so
         # no force field crosses a rebin; a closing half un-kick re-syncs.
         f0 = forces_of(state, *auxes(state))
-        st = state._replace(velocities=state.velocities + half_dt * f0 * state.inv_masses[..., None])
+        with span("emdee.integrate"):
+            st = state._replace(velocities=state.velocities + half_dt * f0 * state.inv_masses[..., None])
         for length in blocks_of(num_steps, rebin_every)[0]:
             st = rebin_fn(st)
             aux, eaux = auxes(st)
-            inv_m = st.inv_masses[..., None]
-            pos, vel = st.positions, st.velocities
-            comp = torch.zeros_like(pos)
-            vcomp = torch.zeros_like(vel)
+            with span("emdee.integrate"):
+                inv_m = st.inv_masses[..., None]
+                pos, vel = st.positions, st.velocities
+                comp = torch.zeros_like(pos)
+                vcomp = torch.zeros_like(vel)
             for _ in range(length):
                 # Kahan-compensated drift and kick: dt·v is ~1e-4 of the
                 # coordinate, so a plain += loses about an ulp per step.
-                new_pos, comp = _comp_add(pos, dt_f * vel, comp)
-                pos = torch.where(st.valid[..., None], new_pos, pos)
+                with span("emdee.integrate"):
+                    new_pos, comp = _comp_add(pos, dt_f * vel, comp)
+                    pos = torch.where(st.valid[..., None], new_pos, pos)
                 f = forces_of(st._replace(positions=pos), aux, eaux)
-                vel, vcomp = _comp_add(vel, dt_f * f * inv_m, vcomp)
-            st = st._replace(positions=pos, velocities=vel, step=st.step + length)
-            st = st._replace(overflow=st.overflow | _needs_rebin(st, config))
+                with span("emdee.integrate"):
+                    vel, vcomp = _comp_add(vel, dt_f * f * inv_m, vcomp)
+            with span("emdee.integrate"):
+                st = st._replace(positions=pos, velocities=vel, step=st.step + length)
+                st = st._replace(overflow=st.overflow | _needs_rebin(st, config))
         f_end = forces_of(st, aux, eaux)  # the last block's binding: no rebin since
-        return st._replace(velocities=st.velocities - half_dt * f_end * st.inv_masses[..., None])
+        with span("emdee.integrate"):
+            return st._replace(velocities=st.velocities - half_dt * f_end * st.inv_masses[..., None])
 
     def kdk_step(st: CellDenseState, f, rng, aux, eaux):
         """One synced step: velocity-Verlet kick-drift-kick with the CSVR
         rescale after it, or BAOAB Langevin (kick, half drift, exact OU
         solve, half drift, kick).  Empty slots: inv_m = 0, so no noise and
         no motion; the drift never wraps."""
-        inv_m = st.inv_masses[..., None]
         if isinstance(thermostat, LangevinConfig):
             kT = thermostat.kB * thermostat.temperature
             c1 = float(np.exp(-thermostat.friction * dt))
             c2 = float(np.sqrt((1.0 - c1 * c1) * kT))
-            v = st.velocities + half_dt * f * inv_m
-            x = st.positions + half_dt * v
-            noise = torch.randn(v.shape, generator=rng, dtype=v.dtype, device=v.device)
-            v = c1 * v + c2 * torch.sqrt(inv_m) * noise
-            x = torch.where(st.valid[..., None], x + half_dt * v, st.positions)
-            st = st._replace(positions=x, velocities=v)
+            with span("emdee.integrate"):
+                inv_m = st.inv_masses[..., None]
+                v = st.velocities + half_dt * f * inv_m
+                x = st.positions + half_dt * v
+            with span("emdee.thermostat"):
+                noise = torch.randn(v.shape, generator=rng, dtype=v.dtype, device=v.device)
+                v = c1 * v + c2 * torch.sqrt(inv_m) * noise
+            with span("emdee.integrate"):
+                x = torch.where(st.valid[..., None], x + half_dt * v, st.positions)
+                st = st._replace(positions=x, velocities=v, step=st.step + 1)
             f = forces_of(st, aux, eaux)
-            return st._replace(velocities=v + half_dt * f * inv_m, step=st.step + 1), f
-        v_half = st.velocities + half_dt * f * inv_m
-        x = torch.where(st.valid[..., None], st.positions + dt_f * v_half, st.positions)
-        st = st._replace(positions=x, velocities=v_half)
+            with span("emdee.integrate"):
+                return st._replace(velocities=v + half_dt * f * inv_m), f
+        with span("emdee.integrate"):
+            inv_m = st.inv_masses[..., None]
+            v_half = st.velocities + half_dt * f * inv_m
+            x = torch.where(st.valid[..., None], st.positions + dt_f * v_half, st.positions)
+            st = st._replace(positions=x, velocities=v_half, step=st.step + 1)
         f = forces_of(st, aux, eaux)
-        v = v_half + half_dt * f * inv_m
+        with span("emdee.integrate"):
+            v = v_half + half_dt * f * inv_m
         if isinstance(thermostat, CSVRConfig):
-            kin = 0.5 * torch.sum(
-                torch.where(st.valid[..., None], v**2 / torch.clamp(inv_m, min=1e-30), 0.0)
-            )
-            r1, sum_r2 = csvr_draws(rng, ndof, v)
-            alpha2 = _csvr_alpha2(
-                r1, sum_r2, torch.clamp(kin, min=1e-30), ndof,
-                thermostat.kB * thermostat.temperature, dt_f, thermostat.tau,
-            )
-            v = torch.sqrt(torch.clamp(alpha2, min=0.0)) * v
-        return st._replace(velocities=v, step=st.step + 1), f
+            with span("emdee.thermostat"):
+                kin = 0.5 * torch.sum(
+                    torch.where(st.valid[..., None], v**2 / torch.clamp(inv_m, min=1e-30), 0.0)
+                )
+                r1, sum_r2 = csvr_draws(rng, ndof, v)
+                alpha2 = _csvr_alpha2(
+                    r1, sum_r2, torch.clamp(kin, min=1e-30), ndof,
+                    thermostat.kB * thermostat.temperature, dt_f, thermostat.tau,
+                )
+                v = torch.sqrt(torch.clamp(alpha2, min=0.0)) * v
+        return st._replace(velocities=v), f
 
     def rescale_box(st: CellDenseState, length: int) -> CellDenseState:
         """Berendsen μ-rescale of positions and the state box at a block
         boundary, from the instantaneous pressure (2K + W)/(3V); the forces
         carry over unrescaled (the weak-coupling approximation)."""
         _, vir, ke = energy(st)
-        p_inst = (2.0 * ke + vir) / (3.0 * st.box**3)
-        mu3 = 1.0 - (length * dt / barostat.tau) * barostat.kappa * (barostat.pressure - p_inst)
-        mu = torch.clamp(mu3, 0.9, 1.1) ** (1.0 / 3.0)
-        new_box = st.box * mu
-        return st._replace(
-            positions=st.positions * mu,
-            ref_positions=st.ref_positions * mu,
-            box=new_box,
-            overflow=st.overflow | (new_box < config.cells_per_dim * (config.cutoff + config.skin)),
-        )
+        with span("emdee.barostat"):
+            p_inst = (2.0 * ke + vir) / (3.0 * st.box**3)
+            mu3 = 1.0 - (length * dt / barostat.tau) * barostat.kappa * (barostat.pressure - p_inst)
+            mu = torch.clamp(mu3, 0.9, 1.1) ** (1.0 / 3.0)
+            new_box = st.box * mu
+            return st._replace(
+                positions=st.positions * mu,
+                ref_positions=st.ref_positions * mu,
+                box=new_box,
+                overflow=st.overflow | (new_box < config.cells_per_dim * (config.cutoff + config.skin)),
+            )
 
     def rollout_synced(state: CellDenseState, num_steps: int, rebin_every: int, record: bool, rng):
         if barostat is not None and state.box is None:
-            state = state._replace(box=_box(config.box, state.positions).clone())
+            with span("emdee.barostat"):
+                state = state._replace(box=_box(config.box, state.positions).clone())
         st, f = state, forces_of(state, *auxes(state))
         lengths, blocks = blocks_of(num_steps, rebin_every)
         records = []
@@ -1313,12 +1352,14 @@ def make_cell_dense_sim(
             aux, eaux = auxes(st)
             for _ in range(length):
                 st, f = kdk_step(st, f, rng, aux, eaux)
-            st = st._replace(overflow=st.overflow | _needs_rebin(st, config))
+            with span("emdee.integrate"):
+                st = st._replace(overflow=st.overflow | _needs_rebin(st, config))
             if record and i < blocks:
                 records.append((st.step, *energy(st)))
         if not record:
             return st
-        return st, (tuple(torch.stack(r) for r in zip(*records)) if records else None)
+        with span("emdee.energy"):
+            return st, (tuple(torch.stack(r) for r in zip(*records)) if records else None)
 
     def rollout(state: CellDenseState, num_steps: int, rebin_every: int = 10, record: bool = False,
                 rng: Optional[torch.Generator] = None):

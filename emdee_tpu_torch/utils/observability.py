@@ -1,7 +1,8 @@
-"""Observability: progress logging, throughput counters, NaN guards, and
-profiler hooks (counterpart of emdee_tpu/utils/observability.py) — the
-operational subsystems the reference lacks entirely (SURVEY.md §5: no
-tracing, no metrics, no failure detection)."""
+"""Observability: progress logging, throughput counters, NaN guards,
+profiler hooks and the program's named spans (counterpart of
+emdee_tpu/utils/observability.py) — the operational subsystems the
+reference lacks entirely (SURVEY.md §5: no tracing, no metrics, no failure
+detection)."""
 
 from __future__ import annotations
 
@@ -75,6 +76,22 @@ def guard_energy(previous: Optional[float], current: float, rel_jump: float = 0.
             "timestep or stale neighbor state"
         )
     return current
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, args: Optional[str] = None):
+    """A named host span around a block of the program (`emdee.<part>`):
+    while a profiler records (`torch.profiler`, `profile_trace`, or
+    `torch.autograd.profiler.emit_nvtx` under nsys), a
+    `torch.profiler.record_function(name, args)`, which lands in the same
+    trace as the device's kernels; otherwise one shared `nullcontext`, since
+    a `record_function` costs microseconds even with no profiler running.
+    A span reads no device value and waits for nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name, args)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

@@ -14,7 +14,7 @@ from typing import Callable, Optional
 
 import torch
 
-from emdee_tpu_torch.utils.observability import ThroughputMeter, check_finite, guard_energy
+from emdee_tpu_torch.utils.observability import ThroughputMeter, check_finite, guard_energy, span
 
 
 @dataclasses.dataclass
@@ -46,6 +46,11 @@ def run_dense_simulation(
     rollout draws from, handed to every chunk and saved with each
     checkpoint (`load_state(..., rng=)` restores it for a bitwise resume).
     Returns (final_state, history list of per-chunk observable dicts).
+
+    Under a profiler each chunk's parts run in spans that carry the chunk's
+    index: `emdee.runner.rollout`, `.energy` (the energy pass's enqueue),
+    `.wait` (the host reads, where the host waits for the device), `.guard`,
+    `.dump` and `.checkpoint`.
     """
     from emdee_tpu_torch.neighbors.cell_dense import gather_dense_atoms
 
@@ -63,17 +68,23 @@ def run_dense_simulation(
     meter.start()
     history = []
     prev_total = None
-    done = 0
+    done = chunk = 0
     try:
         while done < config.total_steps:
             n_steps = min(config.chunk_steps, config.total_steps - done)
-            state = rollout(state, num_steps=n_steps, rebin_every=rebin_every, **chunk_kw)
+            tag = str(chunk)
+            with span("emdee.runner.rollout", tag):
+                state = rollout(state, num_steps=n_steps, rebin_every=rebin_every, **chunk_kw)
             done += n_steps
 
-            pe, vir, ke = (float(x) for x in energy(state))
-            stats = meter.update(n_steps, sync=state.positions) if config.log else {}
+            with span("emdee.runner.energy", tag):
+                energies = energy(state)
+            with span("emdee.runner.wait", tag):
+                pe, vir, ke = (float(x) for x in energies)
+                stats = meter.update(n_steps, sync=state.positions) if config.log else {}
+                step = int(state.step)
             record = {
-                "step": int(state.step),
+                "step": step,
                 "potential": pe,
                 "kinetic": ke,
                 "virial": vir,
@@ -83,21 +94,25 @@ def run_dense_simulation(
             history.append(record)
 
             if config.guard:
-                if bool(state.overflow):
-                    raise RuntimeError(
-                        "capacity/staleness overflow flag tripped — rerun with "
-                        "larger capacity or smaller rebin_every"
-                    )
-                check_finite((pe, ke), where="energies")
-                prev_total = guard_energy(prev_total, pe + ke)
+                with span("emdee.runner.guard", tag):
+                    if bool(state.overflow):
+                        raise RuntimeError(
+                            "capacity/staleness overflow flag tripped — rerun with "
+                            "larger capacity or smaller rebin_every"
+                        )
+                    check_finite((pe, ke), where="energies")
+                    prev_total = guard_energy(prev_total, pe + ke)
 
             if writer is not None:
-                pos, _ = gather_fn(state, num_atoms)
-                writer.write_frame(pos, comment=f"step {int(state.step)}")
+                with span("emdee.runner.dump", tag):
+                    pos, _ = gather_fn(state, num_atoms)
+                    writer.write_frame(pos, comment=f"step {step}")
             if config.checkpoint_path:
                 from emdee_tpu_torch.utils.checkpoint import save_state
 
-                save_state(config.checkpoint_path, state, rng=rng, step=int(state.step))
+                with span("emdee.runner.checkpoint", tag):
+                    save_state(config.checkpoint_path, state, rng=rng, step=step)
+            chunk += 1
     finally:
         if writer is not None:
             writer.close()
