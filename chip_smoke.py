@@ -137,7 +137,8 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   at its start and end; 200 on (2,2,2) 'cuda_streaming' (K5s);
   Langevin on (2,2,2); the (1,1,1) run on a one-rank NCCL `DistMesh`;
 - the two 1-D slab engines (`distributed/cell_dense_sharded.py` and
-  `distributed/domain.py`; plain torch ops, no kernel), every slab on this
+  `distributed/domain.py`; plain torch ops but for the slab dense engine's
+  sort rebin, one launch of the sort rebin kernel), every slab on this
   card: the slab dense engine on the melt at the grid's config (M = 16,
   C = 40) on (2,1,1) and (4,1,1), its start's PE and virial against the
   dense energy closure, its full-shell forces against K2a's, 1,000 gated
@@ -150,6 +151,11 @@ the LJ melt (FCC at ρ* = 0.8442, T* = 1.44, rc = 2.5σ, switch 2.0σ, skin
   atom-table slab engine, the slab dense engine, the LJ grid, DSF charges
   and tags, bonded terms with leftover exclusions, the same on the
   kernels) on one NCCL rank, each bitwise equal to the `LocalMesh` run;
+- the sort rebin kernel (`phase_sort_rebin`, `csrc/sort_rebin.cu`) at the
+  1M melt's config (M = 37, C = 32), drifted across the seam, with and
+  without forces: bit for bit the plain sort rebin (`cell_dense._rebin`
+  with backend 'torch') in every slot and the flag, its time on both
+  clocks beside the plain rebin's and its byte bound;
 - the straggler engine on the streaming family at 1M
   (`phase_straggler_1m`: M = 37, C_t = 30, C_w = 36, A = 96, Kn = 16 on
   'cuda_streaming', K5's split entry and the gather pass): K5 vs plain,
@@ -837,7 +843,8 @@ def phase_straggler_1m(device, tag, eq):
 def counters():
     """{kernel: (its wrapper's module, the module's launch counter)}."""
     from emdee_tpu_torch.neighbors import (
-        cell_kernel, compact_kernel, rebin_kernel, rebin_window_kernel, straggler_kernel, streaming_kernel,
+        cell_kernel, compact_kernel, rebin_kernel, rebin_window_kernel, sort_rebin_kernel, straggler_kernel,
+        streaming_kernel,
     )
     from emdee_tpu_torch.tools import probes
 
@@ -845,7 +852,8 @@ def counters():
             "rebin_routing": (rebin_kernel, "LAUNCHES"), "straggler_aux": (straggler_kernel, "LAUNCHES"),
             "compact_window": (compact_kernel, "LAUNCHES"), "rebin_window": (rebin_window_kernel, "LAUNCHES"),
             "spill_window": (rebin_window_kernel, "SPILL_LAUNCHES"),
-            "spill_grid": (rebin_window_kernel, "GRID_SPILL_LAUNCHES"), "probes": (probes, "LAUNCHES")}
+            "spill_grid": (rebin_window_kernel, "GRID_SPILL_LAUNCHES"), "probes": (probes, "LAUNCHES"),
+            "sort_rebin": (sort_rebin_kernel, "LAUNCHES")}
 
 
 def zero_counts() -> None:
@@ -1498,6 +1506,53 @@ def k7g_grid_warps():
     build.check(build.load().emdee_spill_grid_attrs(attrs), "spill_grid attrs")
     res = dict(zip(("blocks_per_sm", "sms", "threads", "rows_a_block"), attrs))
     return res, res["blocks_per_sm"] * res["sms"] * res["rows_a_block"]
+
+
+def phase_sort_rebin(device, tag):
+    """The sort rebin kernel at the 1M melt's config (M = 37, C = 32; the
+    benchmark's), drifted across the seam: `cell_dense._rebin` on 'cuda'
+    (one launch) vs 'torch' (the plain torch ops), bit for bit in every
+    field and the flag, without and with forces.  Times on both clocks
+    (CUDA events behind a device spin, and around back-to-back calls), the
+    plain rebin's beside them, the byte bound, and the cooperative grid."""
+    import ctypes
+
+    from emdee_tpu_torch.csrc import build
+    from emdee_tpu_torch.neighbors.cell_dense import _rebin
+
+    st, config, _, _, _, n = melt(device, N_CELLS_1M)
+    st = drifted(st, SKIN)
+    ns = config.num_slots
+    forces = torch.randn(st.positions.shape, generator=torch.Generator(device=device).manual_seed(3), device=device)
+    for label, f in (("", None), (" with forces", forces)):
+        a = _rebin(st, config, f, backend="cuda")
+        b = _rebin(st, config, f, backend="torch")
+        torch.cuda.synchronize()
+        if f is not None:
+            (a, fa), (b, fb) = a, b
+            same_fields("sort rebin kernel forces vs plain", [fa], [fb])
+        same_fields(f"sort rebin kernel{label} vs plain", list(a), list(b))
+    moved = int(((a.atom_id != st.atom_id) & a.valid).sum())
+    if bool(a.overflow) or moved < 10_000:
+        raise AssertionError(f"sort rebin fixture: overflow {bool(a.overflow)}, {moved} slots moved")
+
+    call = lambda: _rebin(st, config, backend="cuda")  # noqa: E731
+    t = dict(device_ms=device_ms(call, 50), ms=cuda_ms(call, 50))
+    plain_ms = cuda_ms(lambda: _rebin(st, config, backend="torch"), 10)
+    grid = (ctypes.c_int * 4)()
+    build.check(build.load().emdee_sort_rebin_attrs(grid), "sort_rebin attrs")
+    # Each slot's position and valid byte read (13 B), each atom's bucket
+    # entry written and read back (8 B) and its ten words gathered (40 B),
+    # each slot's ten words and valid byte written (41 B).
+    bound_ms, bound_by = bound(54 * ns + 48 * n, 0)
+    log(f"{tag} sort rebin kernel at {n} atoms, M={config.cells_per_dim} C={config.capacity}: bit for bit the "
+        f"plain sort rebin in every field and the flag, without and with forces ({moved} slots moved); one "
+        f"cooperative launch, {grid[0]} blocks an SM on {grid[1]} SMs, {grid[2]} threads a block, a warp a "
+        f"cell; {t['device_ms']:.5f} ms a rebin on the device ({t['ms']:.5f} with the host's launch cost); "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"max_abs_err": 0.0, **t, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "grid": {"blocks_per_sm": grid[0], "sms": grid[1], "threads": grid[2],
+                                         "cells_a_block": grid[3], "cells": config.num_cells}}
 
 
 def phase_rebin_window(device, tag):
@@ -3591,14 +3646,15 @@ def phase_slab_dense(device, tag, config, model, uni, pos_eq, vel_eq, params, k,
     torch, every slab on this card) on the equilibrated melt at the grid's
     config (`reconfigure_dense_state(cells_multiple_of=2)`: M = 16, C = 40)
     on (D,1,1) for D in `shapes`: `slab_dense_check`, `steps` gated NVE
-    steps rebinning every k (no flag, drift ≤ 3e-5, no kernel launched),
-    bitwise reruns, no host waits.  Returns ({path: ms/step}, {path:
-    kernels a step}, the largest |dF| vs K2a over the force scale)."""
+    steps rebinning every k (no flag, drift ≤ 3e-5, no kernel launched but
+    the sort rebin's, once a rebin), bitwise reruns, no host waits.
+    Returns ({path: ms/step}, {path: kernels a step}, the largest |dF| vs
+    K2a over the force scale, {path: launch counts})."""
     from emdee_tpu_torch import cell_dense_init, reconfigure_dense_state
     from emdee_tpu_torch.distributed.cell_dense_sharded import distribute_cell_dense, make_sharded_cell_dense_sim
     from emdee_tpu_torch.distributed.mesh import make_mesh
 
-    ms, kps, err = {}, {}, 0.0
+    ms, kps, err, counts = {}, {}, 0.0, {}
     n = config.num_atoms
     st0 = cell_dense_init(pos_eq, vel_eq, np.ones(n), params, config, device=device)
     st, cfg = reconfigure_dense_state(st0, config, cells_multiple_of=2)
@@ -3612,17 +3668,18 @@ def phase_slab_dense(device, tag, config, model, uni, pos_eq, vel_eq, params, k,
         roll, energy = make_sharded_cell_dense_sim(cfg, model, DT, mesh)
         sh = distribute_cell_dense(st, mesh)
         roll(sh, num_steps=k, rebin_every=k)  # warm-up
-        _, sec, drift, _ = gate_rollout(label, roll, energy, sh, steps, k, launches())
+        _, sec, drift, counts[name] = gate_rollout(label, roll, energy, sh, steps, k,
+                                                   launches(sort_rebin=-(-steps // k)))
         bitwise_rerun(label, roll, sh, 2 * k, k)
         no_host_waits(label, lambda: roll(sh, num_steps=k, rebin_every=k))
         ms[name] = 1e3 * sec / steps
         kps[name] = kernels_per_step(lambda: roll(sh, num_steps=2 * k, rebin_every=k), 2 * k)
         log(f"{tag} {label} (LocalMesh, plain torch): {steps} steps in {sec:.3f} s = {ms[name]:.4f} ms/step, "
-            f"{kps[name]} device kernels a step; NVE drift {drift:.3e}; no kernel launched; full-shell pass "
-            f"{pass_ms:.3f} ms vs K2a {k2a_ms:.4f} ms, forces vs K2a max |dF| {e:.3e} (scale {scale:.3f}, gate "
+            f"{kps[name]} device kernels a step; NVE drift {drift:.3e}; no kernel launched but the sort rebin's, "
+            f"one a rebin; full-shell pass {pass_ms:.3f} ms vs K2a {k2a_ms:.4f} ms, forces vs K2a max |dF| {e:.3e} (scale {scale:.3f}, gate "
             f"{SLAB_FORCE_GATE} of it); PE and virial vs the dense closure in rtol 1e-5; reruns bitwise equal; "
             "no host waits")
-    return ms, kps, err
+    return ms, kps, err, counts
 
 
 def phase_domain(device, tag, model, cells=14, shapes=(2, 3), steps=500):
@@ -4220,7 +4277,8 @@ def main() -> None:
 
     # ---- the 1-D slab engines (plain torch) and the K2a path's 1e-6 drift measurement ----
     t0 = time.perf_counter()
-    slab_ms, slab_kps, slab_err = phase_slab_dense(device, tag, config, model, uni, pos_eq, vel_eq, params, k)
+    slab_ms, slab_kps, slab_err, counts_slab = phase_slab_dense(device, tag, config, model, uni, pos_eq, vel_eq,
+                                                                 params, k)
     domain_ms, domain_kps = phase_domain(device, tag, model)
     slab_ms, slab_kps = {**slab_ms, **domain_ms}, {**slab_kps, **domain_kps}
     k2a_drift, k2a_ends, k2a_line, k2a_swing = k2a_drift_f64(device, tag)
@@ -4240,6 +4298,7 @@ def main() -> None:
 
     # ---- bench_all.py's 1M melt: the streaming kernel family ----
     rebin.update({f"n1m_{key}": value for key, value in phase_rebin(device, tag, N_CELLS_1M).items()})
+    sort_rebin = phase_sort_rebin(device, tag)
     k5, k2_1m = phase_streaming(device, tag, N_CELLS_1M)
     counts_1m, ms_1m, eq_1m = phase_1m(device, tag)
     log(f"{smi}: 1M path {ms_1m:.4f} ms/step ({1_000_188 * 1e3 / ms_1m:,.0f} atom-steps/s); K5 vs K2 split "
@@ -4267,7 +4326,7 @@ def main() -> None:
     paths = {"dense": main_counts, "straggler": s_counts, **counts_spill, **counts_thermo, **counts_grid,
              **counts_1m, **counts_water, **counts_auto, **counts_water_1m, **counts_grid_water, **counts_ens,
              **counts_grid_1m, **counts_grid_water_1m, **counts_c104, **counts_modelling, **counts_grid_spill,
-             **counts_strag_1m}
+             **counts_strag_1m, **counts_slab}
     # The K5s paths (LJ) and the K5s-mol path: the streaming kernel's GHOST
     # modes, counted in streaming_kernel.LAUNCHES.
     k5s_paths = {p: c["cell_forces_streaming"] for p, c in {**counts_ens, **counts_grid_1m, **counts_grid_spill}.items()
@@ -4345,6 +4404,10 @@ def main() -> None:
              replaces="emdee_tpu/neighbors/pallas_rebin.py:60",
              launches=sum(by_path("rebin_routing").values()),
              launches_by_path=by_path("rebin_routing"), **rebin),
+        dict(name="sort_rebin", route="cuda", source="emdee_tpu_torch/csrc/sort_rebin.cu",
+             replaces="none: emdee_tpu/neighbors/cell_dense.py _rebin is jnp.argsort and gathers",
+             launches=sum(by_path("sort_rebin").values()), launches_by_path=by_path("sort_rebin"),
+             **sort_rebin),
         dict(name="straggler_aux", route="cuda", source="emdee_tpu_torch/csrc/straggler_forces.cu",
              replaces="emdee_tpu/neighbors/pallas_cell_kernel.py:807",
              launches=s_counts["straggler_aux"], launches_by_path=by_path("straggler_aux"), **k3["aux"]),

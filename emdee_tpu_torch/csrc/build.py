@@ -148,6 +148,14 @@ _SIGNATURES = {
     "emdee_spill_grid_routing": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     # out (int[4])
     "emdee_spill_grid_attrs": [_P],
+    # ptrs, slot strides, word strides (host void*[8], long[8], long[8]:
+    # positions, velocities, inv_masses, half_sigma, twice_sqrt_eps, atom_id,
+    # forces or null, charges or null), valid, valid's slot stride, outs (host
+    # void*[8]), valid_out, scratch, flag_in, flag_out, m, c, box (device),
+    # stream
+    "emdee_sort_rebin": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # out (int[4])
+    "emdee_sort_rebin_attrs": [_P],
     # x, wl, wr, b, out, flag, nf, rows, c, cf, m, num_slots, box (device),
     # stream: the former K6 over whole windows, kept as a witness
     "emdee_rebin_window": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P],

@@ -18,8 +18,9 @@ counterpart of emdee_tpu/distributed/cell_dense_sharded.py, on the
   kick) without a mid-block wrap and without the dense engine's Kahan
   compensation, as the reference's.
 
-Plain torch ops on the card as on the CPU: the reference has no Pallas
-kernel here.  Displacements take the port's minimum image of the raw
+Plain torch ops on the card as on the CPU, the reference having no
+Pallas kernel here, but for `_rebin`, which launches the sort rebin
+kernel for CUDA tensors (the plain rebin's bits).  Displacements take the port's minimum image of the raw
 difference, d − L·round(d/L), with the box a 0-d device tensor.
 Requires cells_per_dim % D == 0 and ≥ 2 layers a shard when D > 1.
 """

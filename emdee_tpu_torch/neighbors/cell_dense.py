@@ -6,10 +6,11 @@ boundary-spill capacity mode).
 Atoms live in a dense slot grid (M³, C): cell side h = L/M ≥ cutoff + skin,
 capacity C per cell.  Between rebins the state never reindexes atoms; every
 `rebin_every` steps three ±1-cell routing passes move each atom to its new
-cell (`_rebin_shift`; `_rebin` is the argsort rebin), and a sticky
-`overflow` flag records capacity overflow, illegal moves and skin/2
-staleness.  Positions are wrapped into [0, L) only at rebins; between
-rebins they may overhang the box by skin/2.
+cell (`_rebin_shift`; `_rebin` is the argsort rebin, one kernel launch on
+the card: `sort_rebin_kernel.py`), and a sticky `overflow` flag records
+capacity overflow, illegal moves and skin/2 staleness.  Positions are
+wrapped into [0, L) only at rebins; between rebins they may overhang the
+box by skin/2.
 
 Spill configs (`suggest_cell_dense_config(spill=True)`) set capacity near
 the mean occupancy and shed each over-full cell's near-face atoms into its
@@ -945,7 +946,8 @@ def _rebin_shift(
     return new_state, torch.where(valid[..., None], torch.stack(fields[f_col : f_col + 3], dim=-1), 0.0)
 
 
-def _rebin(state: CellDenseState, config: CellDenseConfig, forces: Optional[torch.Tensor] = None):
+def _rebin(state: CellDenseState, config: CellDenseConfig, forces: Optional[torch.Tensor] = None,
+           backend: str = "auto"):
     """The sort rebin: re-sort every live slot into fresh cells by one
     stable argsort (any displacement, not just ±1 cell).
 
@@ -953,7 +955,17 @@ def _rebin(state: CellDenseState, config: CellDenseConfig, forces: Optional[torc
     + rank], with per-cell starts from `searchsorted` on the sorted keys (no
     host read), and all per-slot fields — atom ids viewed as float32, and
     the forces when given — ride one packed gather.  Positions are wrapped
-    into [0, L) here.  With `forces`, returns (state, permuted forces)."""
+    into [0, L) here.  With `forces`, returns (state, permuted forces).
+
+    backend ('auto', 'cuda' or 'torch', as `resolve_backend` reads it): for
+    CUDA tensors other than with 'torch', one launch of the sort rebin
+    kernel (`sort_rebin_kernel.sort_rebin`: the same bits in every slot
+    while no cell overflows, the same flag, each field contiguous); for CPU
+    tensors or with 'torch', the torch ops below, its plain version."""
+    if resolve_backend(backend, state.positions) == "cuda":
+        from emdee_tpu_torch.neighbors.sort_rebin_kernel import sort_rebin
+
+        return sort_rebin(state, config, forces)
     m, c = config.cells_per_dim, config.capacity
     nc = m**3
     ns = config.num_slots
@@ -1154,9 +1166,10 @@ def make_cell_dense_sim(
 
     def rebin_fn(st: CellDenseState, forces=None):
         with span("emdee.rebin"):
+            kb = kernels(st.positions)[2]
             if rebin == "sort":
-                return _rebin(st, config, forces)
-            return _rebin_shift(st, config, forces, uniform_params, uniform_mass, kernels(st.positions)[2])
+                return _rebin(st, config, forces, kb)
+            return _rebin_shift(st, config, forces, uniform_params, uniform_mass, kb)
 
     def energy(st: CellDenseState):
         """(potential energy, virial, kinetic energy) as 0-d tensors."""
